@@ -1,0 +1,130 @@
+"""ICALstm, the ICA-timecourse bidirectional LSTM classifier: the
+counterpart of the JAX package's ``models/icalstm.py`` (batched lane).
+
+- a per-window encoder ``Linear(num_comps*window -> input_size) + ReLU``;
+- a BiLSTM whose ``hidden_size`` is split across the two directions; the
+  reverse direction is the cell over the time-flipped input; each direction
+  is mean-pooled over time and the two are concatenated;
+- the head ``Dropout -> Linear(H->256) -> BatchNorm(256) -> ReLU ->
+  Linear(256->64) -> ReLU -> Linear(64->num_cls)``.
+
+Gates are standard (single sigmoid) in the order i, f, o, g. The
+recurrence runs the CUDA kernel on the card (ops/lstm_cuda.py) and its
+plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.lstm_cuda import lstm_forward_fused, lstm_forward_plain
+from .layers import BatchNorm, TorchLinearInit, compute_dtype_of, dense, linear
+
+
+class LSTMCell(nn.Module):
+    """One direction over a full sequence: ``x [B, T, D]`` → ``(hs [B, T,
+    H], (hT, cT))``.
+
+    Parameters keep the JAX layout the kernel reads: ``w_ih [D, 4H]``,
+    ``w_hh [H, 4H]`` and the combined bias ``b = b_ih + b_hh [4H]``.
+    ``use_kernel=False`` runs the plain recurrence on every device; it
+    exists so a check on the card has a reference to hold the kernel
+    against."""
+
+    def __init__(self, in_dim: int, hidden_size: int, compute_dtype=None,
+                 use_kernel: bool = True, generator=None):
+        super().__init__()
+        D, H = in_dim, hidden_size
+        self.hidden_size = H
+        self.compute_dtype = compute_dtype
+        self.use_kernel = use_kernel
+        self.w_ih = nn.Parameter(TorchLinearInit.uniform_(torch.empty(D, 4 * H), D, generator))
+        b_ih = TorchLinearInit.uniform_(torch.empty(4 * H), D, generator)
+        self.w_hh = nn.Parameter(TorchLinearInit.uniform_(torch.empty(H, 4 * H), H, generator))
+        b_hh = TorchLinearInit.uniform_(torch.empty(4 * H), H, generator)
+        self.b = nn.Parameter(b_ih + b_hh)
+
+    def forward(self, x, h0=None):
+        B, H = x.shape[0], self.hidden_size
+        if h0 is None:
+            z = torch.zeros((B, H), dtype=torch.float32, device=x.device)
+            h0 = (z, z)
+        fn = lstm_forward_fused if self.use_kernel else lstm_forward_plain
+        return fn(x, self.w_ih, self.b, self.w_hh, h0[0], h0[1],
+                  compute_dtype=compute_dtype_of(self.compute_dtype))
+
+
+class BiLSTM(nn.Module):
+    """Bidirectional wrapper; ``hidden_size`` is the total width, split
+    across directions. ``time_pool="mean"`` returns each direction's time
+    mean, concatenated, instead of the hidden sequence."""
+
+    def __init__(self, in_dim: int, hidden_size: int, bidirectional: bool = True,
+                 compute_dtype=None, use_kernel: bool = True,
+                 time_pool: str | None = None, generator=None):
+        super().__init__()
+        if time_pool not in (None, "mean"):
+            raise ValueError(f"unknown time_pool {time_pool!r}")
+        self.bidirectional = bidirectional
+        self.time_pool = time_pool
+        per_dir = hidden_size // (2 if bidirectional else 1)
+        self.fwd = LSTMCell(in_dim, per_dir, compute_dtype, use_kernel, generator)
+        self.rev = (LSTMCell(in_dim, per_dir, compute_dtype, use_kernel, generator)
+                    if bidirectional else None)
+
+    def _pool(self, s):
+        return s.mean(dim=1) if self.time_pool == "mean" else s
+
+    def forward(self, x, h0=None):
+        fwd, (h, c) = self.fwd(x, h0)
+        if not self.bidirectional:
+            return self._pool(fwd), (h, c)
+        rev, (hr, cr) = self.rev(torch.flip(x, dims=(1,)), h0)
+        return (
+            torch.cat([self._pool(fwd), self._pool(rev)], dim=-1),
+            (torch.cat([h, hr], 1), torch.cat([c, cr], 1)),
+        )
+
+
+class ICALstm(nn.Module):
+    """See the module docstring. ``forward(x [B, S, C, W], train, mask)``
+    returns logits ``[B, num_cls]``; ``mask [B]`` weights rows in the
+    head's batch statistics (train only: eval uses the running stats)."""
+
+    def __init__(self, input_size: int = 256, hidden_size: int = 256,
+                 bidirectional: bool = True, num_cls: int = 2, num_comps: int = 53,
+                 window_size: int = 20, dropout_rate: float = 0.25,
+                 compute_dtype=None, use_kernel: bool = True,
+                 double_sigmoid_gates: bool = False, sequence_axis=None,
+                 generator=None):
+        super().__init__()
+        if double_sigmoid_gates:
+            raise NotImplementedError("double_sigmoid_gates is not ported")
+        if sequence_axis is not None:
+            raise NotImplementedError("the sequence-parallel (ring) path is not ported")
+        self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
+        g = generator
+        self.encoder = dense(num_comps * window_size, input_size, g)
+        self.lstm = BiLSTM(input_size, hidden_size, bidirectional, compute_dtype,
+                           use_kernel, time_pool="mean", generator=g)
+        per_dir = hidden_size // (2 if bidirectional else 1)
+        width = per_dir * (2 if bidirectional else 1)
+        self.cls_fc1 = dense(width, 256, g)
+        self.cls_bn = BatchNorm(256, track_running_stats=True)
+        self.cls_fc2 = dense(256, 64, g)
+        self.cls_fc3 = dense(64, num_cls, g)
+
+    def forward(self, x, train: bool = True, mask=None):
+        B, S = x.shape[0], x.shape[1]
+        flat = x.reshape(B, S, -1)
+        # under compute_dtype the encoder output stays bf16: the LSTM's i2h
+        # products consume it directly
+        enc = torch.relu(linear(self.encoder, flat, compute_dtype_of(self.compute_dtype)))
+        o, _ = self.lstm(enc)
+        o = o.float()  # the head and its BatchNorm stay f32
+        o = nn.functional.dropout(o, self.dropout_rate, training=train)
+        o = self.cls_bn(self.cls_fc1(o), train=train, mask=mask)
+        o = torch.relu(self.cls_fc2(torch.relu(o)))
+        return self.cls_fc3(o)

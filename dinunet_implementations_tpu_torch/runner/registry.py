@@ -1,0 +1,76 @@
+"""Task registry: task id → model builder and serving spec. The port serves
+the ICA-LSTM task; the other tasks of the JAX package's registry are not
+ported yet."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..core.config import NNComputation, TrainConfig
+from ..core.device import resolve_device
+from ..models.icalstm import ICALstm
+
+
+@dataclass(frozen=True)
+class ServingSpec:
+    """``sample_shape(cfg)`` is one example's feature shape (no batch axis):
+    the shape a request's rows carry and the row buckets pad to."""
+
+    sample_shape: Callable[[TrainConfig], tuple]
+
+
+@dataclass(frozen=True)
+class TaskSpec:
+    task_id: str
+    build_model: Callable[[TrainConfig], torch.nn.Module]
+    serving: ServingSpec
+
+
+def _ica_windows(a) -> int:
+    """Window count per subject: ``temporal_size / window_size``."""
+    return int(a.temporal_size / a.window_size)
+
+
+def _build_icalstm(cfg: TrainConfig, generator=None) -> ICALstm:
+    a = cfg.ica_args
+    return ICALstm(
+        input_size=a.input_size,
+        hidden_size=a.hidden_size,
+        bidirectional=a.bidirectional,
+        num_cls=a.num_class,
+        num_comps=a.num_components,
+        window_size=a.window_size,
+        compute_dtype=a.compute_dtype or None,
+        generator=generator,
+    )
+
+
+TASKS: dict[str, TaskSpec] = {
+    NNComputation.TASK_ICA: TaskSpec(
+        NNComputation.TASK_ICA, _build_icalstm,
+        serving=ServingSpec(
+            sample_shape=lambda cfg: (
+                _ica_windows(cfg.ica_args),
+                cfg.ica_args.num_components,
+                cfg.ica_args.window_size,
+            ),
+        ),
+    ),
+}
+
+
+def get_task(task_id: str) -> TaskSpec:
+    if task_id not in TASKS:
+        raise ValueError(f"task {task_id!r} is not ported (have {sorted(TASKS)})")
+    return TASKS[task_id]
+
+
+def build_model(cfg: TrainConfig, device=None) -> torch.nn.Module:
+    """The task's model with weights drawn from ``cfg.seed``, on ``device``
+    (the card unless the caller asks for ``"cpu"``)."""
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(cfg.seed)
+    return get_task(cfg.task_id).build_model(cfg, g).to(device)
