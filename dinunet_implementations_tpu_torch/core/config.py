@@ -1,9 +1,9 @@
-"""The subset of the training configuration that the serving slice reads.
+"""The subset of the training configuration that the port reads.
 
 Field names and defaults are those of the JAX package's ``core/config.py``
-(``ICAArgs`` and the ``TrainConfig`` fields ``task_id``, ``ica_args`` and
-``seed``). The port keeps its own copy: it imports nothing of the JAX
-package.
+(``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving and
+the dSGD training epoch read). The port keeps its own copy: it imports
+nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +20,17 @@ class NNComputation:
     TASK_MULTIMODAL = "Multimodal-Classification"
 
     ALL = (TASK_FREE_SURFER, TASK_ICA, TASK_SMRI_3D, TASK_MULTIMODAL)
+
+
+class AggEngine:
+    """Aggregation engines (the reference's ``comps/__init__.py:13-16``);
+    the port runs dSGD so far."""
+
+    DECENTRALIZED_SGD = "dSGD"
+    RANK_DAD = "rankDAD"
+    POWER_SGD = "powerSGD"
+
+    ALL = (DECENTRALIZED_SGD, RANK_DAD, POWER_SGD)
 
 
 @dataclass
@@ -43,5 +54,21 @@ class ICAArgs:
 @dataclass
 class TrainConfig:
     task_id: str = NNComputation.TASK_FREE_SURFER
+    agg_engine: str = AggEngine.DECENTRALIZED_SGD
+    batch_size: int = 16
+    local_iterations: int = 1  # gradient accumulation steps per round
+    learning_rate: float = 1e-3
+    # payload dtype of the gradient exchange: "32" | "16" (bfloat16) |
+    # "16-ieee" (IEEE fp16, the reference's literal payload)
+    precision_bits: str = "32"
     seed: int = 0
+    optimizer: str = "adam"
     ica_args: ICAArgs = field(default_factory=ICAArgs)
+    num_sites: int = 2
+    # "device": the sites' inventory stays resident and each epoch gathers
+    # its batches from an index plan (the only pipeline ported so far)
+    pipeline: str = "device"
+    # a site whose round gradient is non-finite this many consecutive rounds
+    # is quarantined; 0 skips such rounds but never quarantines; -1 runs the
+    # unguarded round
+    quarantine_rounds: int = 3

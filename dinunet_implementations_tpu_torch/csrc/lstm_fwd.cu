@@ -39,7 +39,11 @@
 
 #include <atomic>
 
+#include "common.cuh"
+
 namespace {
+
+using namespace dn;
 
 struct Args {
   const void* x;  // x[t, b, d] at t*sxt + b*sxb + d
@@ -63,28 +67,7 @@ struct Args {
   int T, B, D, H;
 };
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename S>
-__device__ __forceinline__ S from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as XLA's convert
-}
-
-// the h the recurrent product consumes: cast to the weights' dtype first
-template <typename S>
-__device__ __forceinline__ float as_operand(float v) { return to_f(from_f<S>(v)); }
-
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-template <typename S>
-__device__ __forceinline__ void store(void* p, long long i, float v) {
-  if (p) static_cast<S*>(p)[i] = from_f<S>(v);
-}
 
 template <typename S, int R>
 __device__ __forceinline__ void stage_x(const Args& a, float* xs, int t, int row0, int nrows) {
@@ -177,45 +160,13 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(Args a) {
   }
 }
 
-// Per-device attributes, read once per device: a launch sits on the serving
-// path, where host time per dispatch shows as idle time on the card.
-constexpr int kMaxDevices = 64;
-
-struct DeviceInfo {
-  std::atomic<int> sms{0};
-  std::atomic<int> smem_optin{0};
-};
-
-cudaError_t current_device(int* dev, const DeviceInfo** info) {
-  static DeviceInfo infos[kMaxDevices];
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  DeviceInfo& d = infos[*dev];
-  if (d.sms.load() == 0) {
-    int sms = 0, smem = 0;
-    err = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, *dev);
-    if (err != cudaSuccess) return err;
-    d.smem_optin.store(smem);
-    d.sms.store(sms);
-  }
-  *info = &d;
-  return cudaSuccess;
-}
-
 template <typename S, int R>
 cudaError_t launch(const Args& a, int dev, const DeviceInfo& info, cudaStream_t stream) {
   // the largest dynamic shared memory this instance was opened up to, by device
   static std::atomic<int> smem_set[kMaxDevices];
   const size_t smem = sizeof(float) * (size_t)R * (a.D + 2 * a.H + 4 * a.H);
-  if (smem > (size_t)info.smem_optin.load()) return cudaErrorInvalidValue;
-  if ((int)smem > smem_set[dev].load()) {
-    cudaError_t err = cudaFuncSetAttribute(lstm_fwd_kernel<S, R>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    smem_set[dev].store((int)smem);
-  }
+  cudaError_t err = open_smem(lstm_fwd_kernel<S, R>, smem, dev, info, smem_set);
+  if (err != cudaSuccess) return err;
   int threads = ((4 * a.H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   const int blocks = (a.B + R - 1) / R;
@@ -223,18 +174,13 @@ cudaError_t launch(const Args& a, int dev, const DeviceInfo& info, cudaStream_t 
   return cudaGetLastError();
 }
 
-// Rows per block: the fewest (1, 2, 4, 8) that keep the grid within one
-// wave of blocks over the card's SMs.
 template <typename S>
 cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
   int dev = 0;
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
-  const int sms = info->sms.load();
-  int rows = 1;
-  while (rows < 8 && (a.B + rows - 1) / rows > sms) rows *= 2;
-  switch (rows) {
+  switch (rows_per_block(a.B, info->sms.load())) {
     case 1: return launch<S, 1>(a, dev, *info, stream);
     case 2: return launch<S, 2>(a, dev, *info, stream);
     case 4: return launch<S, 4>(a, dev, *info, stream);

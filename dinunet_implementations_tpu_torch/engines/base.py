@@ -1,0 +1,43 @@
+"""Aggregation-engine interface: the subset of the JAX package's
+``engines/base.py`` that dSGD needs.
+
+An engine is a pair of functions the epoch runs every round:
+
+- ``init(params) -> state``: the engine's own state (none for dSGD);
+- ``aggregate(grads, state, weight, live=None) -> (agg, state)``: per-site
+  gradients (a dict of ``[S, ...]`` leaves) and example weights ``[S]`` to
+  the aggregated gradient (a dict of unbatched leaves). ``live [S]`` is the
+  round's 0/1 contribute mask: a dead site's payload and weight are zeroed
+  before the reduction, and the weighted mean renormalizes over live
+  weight only.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from ..parallel.collectives import per_site
+
+
+def mask_dead_site(grads: dict, weight, live):
+    """Zero a dead site's contribution before any reduction.
+
+    ``torch.where``, not ``g * live``: a quarantined site's gradient is
+    typically non-finite and ``NaN * 0`` is NaN. Returns ``(grads,
+    weight)`` unchanged when ``live is None``."""
+    if live is None:
+        return grads, weight
+    alive = live.float() > 0
+    grads = {k: torch.where(per_site(alive, g), g, torch.zeros((), dtype=g.dtype, device=g.device))
+             for k, g in grads.items()}
+    return grads, weight * alive.float()
+
+
+@dataclass(frozen=True)
+class Engine:
+    name: str
+    init: Callable  # params -> state
+    aggregate: Callable  # (grads, state, weight, live=None) -> (agg, state)

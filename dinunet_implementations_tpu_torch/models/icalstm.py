@@ -9,8 +9,14 @@ counterpart of the JAX package's ``models/icalstm.py`` (batched lane).
   Linear(256->64) -> ReLU -> Linear(64->num_cls)``.
 
 Gates are standard (single sigmoid) in the order i, f, o, g. The
-recurrence runs the CUDA kernel on the card (ops/lstm_cuda.py) and its
-plain version on the CPU.
+recurrence runs the CUDA kernels on the card (ops/lstm_cuda.py: K1
+forward, K2 backward) and their plain versions on the CPU.
+
+:meth:`ICALstm.site_forward` is the training forward of a federated round:
+every site at once over an explicit leading site axis, with per-site
+parameters, per-site head BatchNorm statistics and dropout drawn from a
+``torch.Generator``. The encoder and both LSTM directions fold the sites
+into rows, so each kernel launches once per direction for all sites.
 """
 
 from __future__ import annotations
@@ -18,19 +24,36 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.lstm_cuda import lstm_forward_fused, lstm_forward_plain
-from .layers import BatchNorm, TorchLinearInit, compute_dtype_of, dense, linear
+from ..ops.lstm_cuda import lstm_forward_fused, lstm_forward_plain, site_sum
+from .layers import (
+    BatchNorm,
+    TorchLinearInit,
+    compute_dtype_of,
+    dense,
+    linear,
+    site_batchnorm_train,
+    site_dropout,
+    site_linear,
+)
+
+
+def _scope(params, prefix: str) -> dict:
+    """The entries of a flat ``name -> tensor`` dict under ``prefix.``,
+    with the prefix taken off."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
 class LSTMCell(nn.Module):
     """One direction over a full sequence: ``x [B, T, D]`` → ``(hs [B, T,
     H], (hT, cT))``.
 
-    Parameters keep the JAX layout the kernel reads: ``w_ih [D, 4H]``,
-    ``w_hh [H, 4H]`` and the combined bias ``b = b_ih + b_hh [4H]``.
-    ``use_kernel=False`` runs the plain recurrence on every device; it
-    exists so a check on the card has a reference to hold the kernel
-    against."""
+    Parameters keep the JAX layout and leaves the kernels read: ``w_ih [D,
+    4H]``, ``b_ih [4H]``, ``w_hh [H, 4H]``, ``b_hh [4H]``. The two biases
+    are summed only at the call, so an optimizer steps each of them, as
+    it steps the JAX cell's two leaves. ``use_kernel=False`` runs the plain
+    recurrence on every device; it exists so a check on the card has a
+    reference to hold the kernels against."""
 
     def __init__(self, in_dim: int, hidden_size: int, compute_dtype=None,
                  use_kernel: bool = True, generator=None):
@@ -40,18 +63,24 @@ class LSTMCell(nn.Module):
         self.compute_dtype = compute_dtype
         self.use_kernel = use_kernel
         self.w_ih = nn.Parameter(TorchLinearInit.uniform_(torch.empty(D, 4 * H), D, generator))
-        b_ih = TorchLinearInit.uniform_(torch.empty(4 * H), D, generator)
+        self.b_ih = nn.Parameter(TorchLinearInit.uniform_(torch.empty(4 * H), D, generator))
         self.w_hh = nn.Parameter(TorchLinearInit.uniform_(torch.empty(H, 4 * H), H, generator))
-        b_hh = TorchLinearInit.uniform_(torch.empty(4 * H), H, generator)
-        self.b = nn.Parameter(b_ih + b_hh)
+        self.b_hh = nn.Parameter(TorchLinearInit.uniform_(torch.empty(4 * H), H, generator))
 
-    def forward(self, x, h0=None):
+    def forward(self, x, h0=None, params=None):
+        """``params``: the cell's four leaves as site-batched stride-0 views
+        ``[S, ...]`` (rows of ``x`` site-major); None = the module's own."""
         B, H = x.shape[0], self.hidden_size
         if h0 is None:
             z = torch.zeros((B, H), dtype=torch.float32, device=x.device)
             h0 = (z, z)
+        if params is None:
+            w_ih, b, w_hh = self.w_ih, self.b_ih + self.b_hh, self.w_hh
+        else:
+            w_ih, w_hh = params["w_ih"], params["w_hh"]
+            b = site_sum(params["b_ih"], params["b_hh"])
         fn = lstm_forward_fused if self.use_kernel else lstm_forward_plain
-        return fn(x, self.w_ih, self.b, self.w_hh, h0[0], h0[1],
+        return fn(x, w_ih, b, w_hh, h0[0], h0[1],
                   compute_dtype=compute_dtype_of(self.compute_dtype))
 
 
@@ -76,11 +105,14 @@ class BiLSTM(nn.Module):
     def _pool(self, s):
         return s.mean(dim=1) if self.time_pool == "mean" else s
 
-    def forward(self, x, h0=None):
-        fwd, (h, c) = self.fwd(x, h0)
+    def forward(self, x, h0=None, params=None):
+        """``params``: site-batched leaves by name (``fwd.w_ih``, …), as
+        :meth:`LSTMCell.forward` takes them; None = the module's own."""
+        fwd, (h, c) = self.fwd(x, h0, None if params is None else _scope(params, "fwd"))
         if not self.bidirectional:
             return self._pool(fwd), (h, c)
-        rev, (hr, cr) = self.rev(torch.flip(x, dims=(1,)), h0)
+        rev, (hr, cr) = self.rev(torch.flip(x, dims=(1,)), h0,
+                                 None if params is None else _scope(params, "rev"))
         return (
             torch.cat([self._pool(fwd), self._pool(rev)], dim=-1),
             (torch.cat([h, hr], 1), torch.cat([c, cr], 1)),
@@ -128,3 +160,31 @@ class ICALstm(nn.Module):
         o = self.cls_bn(self.cls_fc1(o), train=train, mask=mask)
         o = torch.relu(self.cls_fc2(torch.relu(o)))
         return self.cls_fc3(o)
+
+    def site_forward(self, params, x, mask, stats, generator=None):
+        """The training forward of every site at once.
+
+        ``params``: every parameter by its ``state_dict`` name, as a
+        site-batched view ``[S, ...]`` of stride 0; ``x [S, B, windows,
+        comps, wlen]``, ``mask [S, B]`` (weight-0 rows are padding);
+        ``stats``: the head BatchNorm's running statistics by buffer name,
+        per site ``[S, 256]``; ``generator`` draws the dropout masks.
+
+        Returns ``(logits [S, B, num_cls], new stats)``, the new running
+        statistics per site by buffer name. Nothing of the module is
+        written."""
+        S, B, W = x.shape[:3]
+        cdt = compute_dtype_of(self.compute_dtype)
+
+        def dense_(name, v, dtype=None):
+            return site_linear(params[name + ".weight"], params[name + ".bias"], v, dtype)
+
+        enc = torch.relu(dense_("encoder", x.reshape(S, B * W, -1), cdt))
+        o, _ = self.lstm(enc.reshape(S * B, W, -1), params=_scope(params, "lstm"))
+        o = site_dropout(o.float().reshape(S, B, -1), self.dropout_rate, generator)
+        bn = self.cls_bn
+        o, (mean, var) = site_batchnorm_train(
+            dense_("cls_fc1", o), mask, params["cls_bn.weight"], params["cls_bn.bias"],
+            stats["cls_bn.running_mean"], stats["cls_bn.running_var"], bn.momentum, bn.eps)
+        o = torch.relu(dense_("cls_fc2", torch.relu(o)))
+        return dense_("cls_fc3", o), {"cls_bn.running_mean": mean, "cls_bn.running_var": var}

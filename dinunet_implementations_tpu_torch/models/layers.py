@@ -4,6 +4,12 @@ The one nontrivial piece is :class:`BatchNorm`. Batches are dense
 ``[B, ...]`` blocks with weight-0 padding rows, so batch statistics are
 mask-weighted: a padded row never shifts the mean or variance. With an
 all-ones mask this is torch's biased batch variance.
+
+Training runs every site of a federated round at once, over an explicit
+leading site axis: :func:`site_linear`, :func:`site_batchnorm_train` and
+:func:`site_dropout` take ``[S, ...]`` inputs and per-site parameters
+``[S, ...]`` (stride-0 views of one weight set, whose gradients come back
+per site), where JAX maps the per-site step with ``vmap``.
 """
 
 from __future__ import annotations
@@ -101,3 +107,44 @@ def linear(lin: nn.Linear, x, dtype=None):
     if dtype is None:
         return lin(x)
     return nn.functional.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def site_linear(w, b, x, dtype=None):
+    """A dense layer per site: ``x [S, N, in]`` with ``w [S, out, in]``
+    (``nn.Linear`` layout) and ``b [S, out]``, computing in ``dtype`` (None
+    = f32). One batched product; each site's weight gradient is its own."""
+    if dtype is not None:
+        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+    return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
+
+
+def site_batchnorm_train(x, mask, weight, bias, running_mean, running_var,
+                         momentum: float = 0.1, eps: float = 1e-5):
+    """The train step of :class:`BatchNorm` (running statistics tracked) for
+    every site at once: ``x [S, B, F]`` normalised by each site's
+    ``mask [S, B]``-weighted batch moments, ``weight, bias [S, F]``.
+
+    Returns ``(y, (mean, var))`` with the sites' new running statistics
+    ``[S, F]`` (momentum update, unbiased variance). The running statistics
+    are inputs, never written in place: the trainer carries them per site
+    across micro-batches and averages them across sites afterwards
+    (sync-BN)."""
+    mean, var, count = masked_moments(x, mask[..., None], dim=1)
+    with torch.no_grad():
+        unbiased = var * (count / torch.clamp(count - 1, min=1))
+        new_mean = (1 - momentum) * running_mean + momentum * mean[:, 0]
+        new_var = (1 - momentum) * running_var + momentum * unbiased[:, 0]
+    y = (x - mean) * torch.rsqrt(var + eps)
+    return y * weight[:, None] + bias[:, None], (new_mean, new_var)
+
+
+def site_dropout(x, rate: float, generator=None):
+    """Dropout with its mask drawn from ``generator`` (on ``x``'s device):
+    each element kept with probability ``1 - rate`` and scaled by
+    ``1 / (1 - rate)``, as flax's ``nn.Dropout``. Every call draws anew, so
+    sites and micro-batches get masks of their own. ``rate == 0`` is the
+    identity."""
+    if rate == 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,21 +1,31 @@
-"""The fused LSTM recurrence: a CUDA kernel for the card, its plain PyTorch
-version beside it.
+"""The fused LSTM recurrence, forward and backward: CUDA kernels for the
+card, their plain PyTorch versions beside them.
 
-Counterpart of the JAX package's ``ops/lstm_pallas.py`` forward path
-(``_fwd_fused_kernel`` behind ``lstm_recurrence_fused`` and
-``lstm_forward_fused``), with the same signatures and layouts:
+Counterpart of the JAX package's ``ops/lstm_pallas.py`` single-direction
+path (``_fwd_fused_kernel`` and ``_bwd_kernel`` behind
+``lstm_recurrence_fused`` and ``lstm_forward_fused``), with the same
+signatures and layouts:
 
 - ``x [T, B, D]`` raw per-step inputs: the i2h projection runs inside the
-  kernel, as on the TPU;
+  forward kernel, as on the TPU;
 - ``wih4 [4, D, H]``, ``b4 [4, H]``, ``whh4 [4, H, H]``, gates in the order
   i, f, o, g (not ``torch.nn.LSTM``'s i, f, g, o);
 - ``h0, c0 [B, H]`` f32.
 
-The kernel source is ``csrc/lstm_fwd.cu``. :func:`lstm_recurrence_fused`
-launches it for CUDA tensors and raises on anything it does not take; for
-CPU tensors, and only for them, it runs :func:`lstm_recurrence_plain`.
-``LAUNCHES`` counts kernel launches, so a run can show that it went through
-the kernel.
+Kernel sources: ``csrc/lstm_fwd.cu`` (K1) and ``csrc/lstm_bwd.cu`` (K2).
+:func:`lstm_recurrence_fused` and :func:`lstm_bwd_fused` launch them for
+CUDA tensors and raise on anything they do not take; for CPU tensors, and
+only for them, they run :func:`lstm_recurrence_plain` and
+:func:`lstm_bwd_plain`. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel
+launches, so a run can show that it went through the kernels.
+
+:class:`LSTMRecurrence` is the differentiable recurrence: K1 with its
+residual streams forward, K2 and the weight-gradient products backward, as
+the JAX ``custom_vjp``. Its weights may carry a leading site axis
+``[S, ...]`` of stride 0 (every site holds the same values): the rows of
+``x`` are then ``S`` blocks of ``B / S`` rows, one block per site, the
+kernels run once over all rows, and the weight gradients come back per
+site, as the JAX ``custom_vmap`` fold computes them.
 """
 
 from __future__ import annotations
@@ -26,25 +36,32 @@ import torch
 
 from . import _build
 
-#: kernel launches since the counter was last set to 0
+#: K1 launches since the counter was last set to 0
 LAUNCHES = 0
+#: K2 launches since the counter was last set to 0
+BWD_LAUNCHES = 0
 
-_entry = None
+_entries: dict = {}
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = {
+    "lstm_fwd": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P, _P,
+                 _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "lstm_bwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _L, _L,
+                 _P, _P, _P, _P, _P, _I, _I, _I, _P],
+}
 
 
-def _kernel():
-    global _entry
-    if _entry is None:
-        lib = _build.load("lstm_fwd")
-        fn = lib.dn_lstm_fwd
-        P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [I, P, L, L, P, L, L, P, L, P, L, L, P, P,
-                       P, P, P, P, P, P, P, P, I, I, I, I, P]
-        fn.restype = I
-        lib.dn_error_string.argtypes = [I]
+def _kernel(name: str):
+    """``(entry, error_string)`` of ``csrc/<name>.cu``, built on first use."""
+    if name not in _entries:
+        lib = _build.load(name)
+        fn = getattr(lib, "dn_" + name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = _I
+        lib.dn_error_string.argtypes = [_I]
         lib.dn_error_string.restype = ctypes.c_char_p
-        _entry = (fn, lib.dn_error_string)
-    return _entry
+        _entries[name] = (fn, lib.dn_error_string)
+    return _entries[name]
 
 
 def _stream_dtype(compute_dtype) -> torch.dtype:
@@ -89,9 +106,9 @@ def lstm_recurrence_plain(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
     return hs, (h, c)
 
 
-def _check(cond: bool, what: str) -> None:
+def _check(cond: bool, what: str, fn: str = "lstm_recurrence_fused") -> None:
     if not cond:
-        raise ValueError(f"lstm_recurrence_fused: {what}")
+        raise ValueError(f"{fn}: {what}")
 
 
 def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
@@ -136,7 +153,7 @@ def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
     hT = torch.empty((B, H), dtype=torch.float32, device=x.device)
     cT = torch.empty_like(hT)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn, err_str = _kernel()
+    fn, err_str = _kernel("lstm_fwd")
     with torch.cuda.device(x.device):
         err = fn(
             0 if sdt == torch.float32 else 1,
@@ -157,33 +174,217 @@ def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
     return hs, (hT, cT)
 
 
-def _model_layout(recurrence, x, w_ih, b, w_hh, h0, c0, compute_dtype):
+
+
+def lstm_bwd_plain(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None):
+    """Plain PyTorch version of the backward kernel: the loop over T,
+    backwards, of the JAX ``_bwd_kernel``. ``ai, af, ao, ag, cs`` are the
+    forward's residual streams ``[T, B, H]``, ``dhs`` the cotangent of
+    ``hs``, ``dhT, dcT [B, H]`` those of the terminal carry. Under
+    ``compute_dtype=torch.bfloat16`` each dp is rounded to bf16 before the
+    product with ``W_hhᵀ`` (also bf16) and the product accumulates in f32.
+
+    Returns ``(dp [T, B, 4H] at the stream dtype, gates i, f, o, g side by
+    side; dh0, dc0 [B, H] f32)``."""
+    sdt = _stream_dtype(compute_dtype)
+    T, B, H = cs.shape
+    wT = whh4.to(sdt).float().transpose(1, 2)  # W_hh[k]ᵀ, as _bwd_call:243
+    i, f, o, g, c = (a.float() for a in (ai, af, ao, ag, cs))
+    dh_c, dc_c = dhT.float(), dcT.float()
+    dp = torch.empty((T, B, 4 * H), dtype=sdt, device=cs.device)
+    for t in range(T - 1, -1, -1):
+        c_prev = c[t - 1] if t > 0 else c0.float()
+        dh = dhs[t].float() + dh_c
+        tc = torch.tanh(c[t])
+        dc = dh * o[t] * (1 - tc * tc) + dc_c
+        dps = (dc * g[t] * i[t] * (1 - i[t]), dc * c_prev * f[t] * (1 - f[t]),
+               dh * tc * o[t] * (1 - o[t]), dc * i[t] * (1 - g[t] * g[t]))
+        dp[t] = torch.cat(dps, -1).to(sdt)
+        ops = [d.to(sdt).float() for d in dps]
+        dh_c = (((ops[0] @ wT[0]) + ops[1] @ wT[1]) + ops[2] @ wT[2]) + ops[3] @ wT[3]
+        dc_c = dc * f[t]
+    return dp, dh_c, dc_c
+
+
+def lstm_bwd_fused(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None):
+    """LSTM backward through time in one kernel launch.
+
+    Same arguments and returns as :func:`lstm_bwd_plain`. The streams must
+    be contiguous at the stream dtype; ``dhs`` may be any view that is
+    contiguous over H (the model layout hands over a transposed one).
+    ``whh4`` is transposed once per call, outside the kernel."""
+    if cs.device.type == "cpu":
+        return lstm_bwd_plain(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype)
+
+    def check(cond, what):
+        _check(cond, what, "lstm_bwd_fused")
+
+    check(cs.device.type == "cuda", f"unsupported device {cs.device}")
+    sdt = _stream_dtype(compute_dtype)
+    check(cs.dim() == 3, f"cs must be [T, B, H], got {tuple(cs.shape)}")
+    T, B, H = cs.shape
+    streams = (ai, af, ao, ag, cs, dhs)
+    check(all(tuple(a.shape) == (T, B, H) and a.dtype == sdt for a in streams),
+          f"ai, af, ao, ag, cs and dhs must be [{T}, {B}, {H}] {sdt}")
+    check(all(a.is_contiguous() for a in streams[:5]), "ai, af, ao, ag and cs must be contiguous")
+    check(dhs.stride(-1) == 1, "dhs must be contiguous in its last axis")
+    check(tuple(whh4.shape) == (4, H, H), f"whh4 must be [4, {H}, {H}], got {tuple(whh4.shape)}")
+    carries = (c0, dhT, dcT)
+    check(all(tuple(a.shape) == (B, H) and a.dtype == torch.float32 and a.is_contiguous()
+              for a in carries), f"c0, dhT and dcT must be contiguous [{B}, {H}] float32")
+    check(all(a.device == cs.device for a in streams + carries + (whh4,)),
+          "all inputs must be on one device")
+    wT = whh4.to(sdt).transpose(1, 2).contiguous()
+    dp = torch.empty((T, B, 4 * H), dtype=sdt, device=cs.device)
+    dh0 = torch.empty((B, H), dtype=torch.float32, device=cs.device)
+    dc0 = torch.empty_like(dh0)
+    fn, err_str = _kernel("lstm_bwd")
+    with torch.cuda.device(cs.device):
+        err = fn(
+            0 if sdt == torch.float32 else 1,
+            *(a.data_ptr() for a in streams[:5]), wT.data_ptr(), wT.stride(0), wT.stride(1),
+            c0.data_ptr(), dhs.data_ptr(), dhs.stride(0), dhs.stride(1),
+            dhT.data_ptr(), dcT.data_ptr(), dp.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
+            T, B, H, torch.cuda.current_stream(cs.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"lstm_bwd kernel failed: {err_str(err).decode()} ({err})")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dp, dh0, dc0
+
+
+def _site_weight(w, sites: int):
+    """The one weight block behind a site-batched ``[S, ...]`` view; every
+    site must hold the same values, which a stride-0 site axis proves."""
+    if not sites:
+        return w
+    _check(w.shape[0] == sites and w.stride(0) == 0,
+           f"site-batched weights must be [{sites}, ...] views of stride 0, got shape "
+           f"{tuple(w.shape)} strides {w.stride()}", "LSTMRecurrence")
+    return w[0]
+
+
+class LSTMRecurrence(torch.autograd.Function):
+    """The differentiable fused recurrence: ``apply(x, wih4, b4, whh4, h0,
+    c0, compute_dtype, use_kernel) -> (hs, hT, cT)``.
+
+    Forward: K1 with ``residuals=True`` (or its plain version when
+    ``use_kernel`` is False). Backward: K2 (or its plain version), then
+    the products that JAX's ``_vjp_fused_bwd`` computes outside its kernel
+    (``dx = dp·W_ihᵀ``, ``dW_ih = xᵀ·dp``, ``db = Σ dp``, ``dW_hh =
+    h_prevᵀ·dp`` with ``h_prev = [h0; hs[:-1]]``), each accumulated in f32
+    from operands rounded to the compute dtype.
+
+    Site-batched weights ``[S, 4, D, H]``, ``[S, 4, H]``, ``[S, 4, H, H]``
+    of stride 0 over S: ``x [T, S·B, D]`` holds site s in rows ``s·B ..
+    (s+1)·B``, each kernel launches once over all rows with the one
+    weight block, and the weight gradients are split by rows per site."""
+
+    @staticmethod
+    def forward(ctx, x, wih4, b4, whh4, h0, c0, compute_dtype=None, use_kernel=True):
+        sites = wih4.shape[0] if wih4.dim() == 4 else 0
+        wih, b, whh = (_site_weight(w, sites) for w in (wih4, b4, whh4))
+        fwd = lstm_recurrence_fused if use_kernel else lstm_recurrence_plain
+        hs, cs, i, f, o, g, hT, cT = fwd(x, wih, b, whh, h0, c0, compute_dtype, residuals=True)
+        ctx.save_for_backward(x, wih, whh, h0, c0, hs, cs, i, f, o, g)
+        ctx.compute_dtype, ctx.use_kernel, ctx.sites = compute_dtype, use_kernel, sites
+        return hs, hT, cT
+
+    @staticmethod
+    def backward(ctx, dhs, dhT, dcT):
+        x, wih, whh, h0, c0, hs, cs, i, f, o, g = ctx.saved_tensors
+        cdt_ = ctx.compute_dtype
+        sdt = _stream_dtype(cdt_)
+        T, R, D = x.shape
+        H = cs.shape[-1]
+        # hs feeds the loss; hT and cT do not in the mean-pooled model
+        dhs = torch.zeros_like(hs) if dhs is None else dhs.to(sdt)
+        zero = torch.zeros((R, H), dtype=torch.float32, device=x.device)
+        dhT = zero if dhT is None else dhT.float().contiguous()
+        dcT = zero if dcT is None else dcT.float().contiguous()
+        bwd = lstm_bwd_fused if ctx.use_kernel else lstm_bwd_plain
+        dp, dh0, dc0 = bwd(i, f, o, g, cs, whh, c0, dhs, dhT, dcT, cdt_)
+
+        # operands rounded to the compute dtype, products accumulated in f32
+        # (the JAX einsums' preferred_element_type=f32)
+        cdt = cdt_ if cdt_ is not None else x.dtype
+        dpf = dp.to(cdt).float()
+        dx = None
+        if ctx.needs_input_grad[0]:
+            wih_cat = wih.permute(1, 0, 2).reshape(D, 4 * H).to(cdt).float()
+            dx = torch.matmul(dpf, wih_cat.T).to(x.dtype)
+        xf = x.to(cdt).float()
+        h_prev = torch.cat([h0[None].to(hs.dtype), hs[:-1]], 0).to(cdt).float()
+        if ctx.sites:
+            S = ctx.sites
+            dpv, xv, hv = (a.reshape(T, S, R // S, -1) for a in (dpf, xf, h_prev))
+            dwih = torch.einsum("tsbd,tsbg->sdg", xv, dpv).reshape(S, D, 4, H).transpose(1, 2)
+            db = dpv.sum((0, 2)).reshape(S, 4, H)
+            dwhh = torch.einsum("tsbh,tsbg->shg", hv, dpv).reshape(S, H, 4, H).transpose(1, 2)
+        else:
+            dwih = torch.einsum("tbd,tbg->dg", xf, dpf).reshape(D, 4, H).transpose(0, 1)
+            db = dpf.sum((0, 1)).reshape(4, H)
+            dwhh = torch.einsum("tbh,tbg->hg", h_prev, dpf).reshape(H, 4, H).transpose(0, 1)
+        return dx, dwih, db, dwhh, dh0, dc0, None, None
+
+
+class _SiteSum(torch.autograd.Function):
+    """``a + b`` of two stride-0 site-batched views, as a stride-0 view:
+    each site's sum is the same, so it is computed once; the backward hands
+    every site its own cotangent, to both operands."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        for w in (a, b):
+            _site_weight(w, a.shape[0])
+        return (a[0] + b[0]).expand_as(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g
+
+
+def site_sum(a, b):
+    """The combined bias ``b_ih + b_hh`` of stride-0 site-batched views,
+    kept of stride 0 so that :class:`LSTMRecurrence` takes it."""
+    return _SiteSum.apply(a, b)
+
+
+def _model_layout(use_kernel, x, w_ih, b, w_hh, h0, c0, compute_dtype):
     B, T, D = x.shape
-    H = w_hh.shape[0]
+    H = w_hh.shape[-2]
+    lead = tuple(w_ih.shape[:-2])  # () or (S,) for site-batched weights
     in_dtype = x.dtype
     x = x.to(compute_dtype if compute_dtype is not None else torch.float32)
-    wih4 = w_ih.float().reshape(D, 4, H).permute(1, 0, 2)
-    b4 = b.float().reshape(4, H)
-    whh4 = w_hh.float().reshape(H, 4, H).permute(1, 0, 2)
-    hs, (hT, cT) = recurrence(
-        x.transpose(0, 1), wih4, b4, whh4,
-        h0.float().contiguous(), c0.float().contiguous(), compute_dtype,
-    )
+    wih4 = w_ih.float().reshape(*lead, D, 4, H).transpose(-3, -2)
+    b4 = b.float().reshape(*lead, 4, H)
+    whh4 = w_hh.float().reshape(*lead, H, 4, H).transpose(-3, -2)
+    args = (x.transpose(0, 1), wih4, b4, whh4, h0.float().contiguous(), c0.float().contiguous())
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        hs, hT, cT = LSTMRecurrence.apply(*args, compute_dtype, use_kernel)
+    else:
+        sites = lead[0] if lead else 0
+        fwd = lstm_recurrence_fused if use_kernel else lstm_recurrence_plain
+        hs, (hT, cT) = fwd(args[0], *(_site_weight(w, sites) for w in args[1:4]), *args[4:],
+                           compute_dtype)
     return hs.transpose(0, 1).to(in_dtype), (hT, cT)
 
 
 def lstm_forward_fused(x, w_ih, b, w_hh, h0, c0, compute_dtype=None):
-    """Model-layout wrapper over :func:`lstm_recurrence_fused`.
+    """Model-layout wrapper over the fused recurrence.
 
     ``x [B, T, D]``, ``w_ih [D, 4H]``, ``b [4H]`` (``b_ih + b_hh``),
-    ``w_hh [H, 4H]``, ``h0, c0 [B, H]``. Returns ``(hs [B, T, H] at x's
-    dtype, (hT, cT) f32)``. The gate blocks and the time-major input are
-    passed as strided views: nothing is copied to change layout, and rows
-    need no padding."""
-    return _model_layout(lstm_recurrence_fused, x, w_ih, b, w_hh, h0, c0, compute_dtype)
+    ``w_hh [H, 4H]``, ``h0, c0 [B, H]``; the weights may carry a leading
+    stride-0 site axis (:class:`LSTMRecurrence`). Returns ``(hs [B, T, H]
+    at x's dtype, (hT, cT) f32)``. With gradients enabled it runs
+    :class:`LSTMRecurrence` (K1 with residuals, K2 backward); without, K1
+    alone. The gate blocks and the time-major input are passed as strided
+    views: nothing is copied to change layout, and rows need no padding."""
+    return _model_layout(True, x, w_ih, b, w_hh, h0, c0, compute_dtype)
 
 
 def lstm_forward_plain(x, w_ih, b, w_hh, h0, c0, compute_dtype=None):
-    """:func:`lstm_forward_fused` through the plain version on any device:
+    """:func:`lstm_forward_fused` through the plain versions on any device:
     the reference that the card's kernel path is held against."""
-    return _model_layout(lstm_recurrence_plain, x, w_ih, b, w_hh, h0, c0, compute_dtype)
+    return _model_layout(False, x, w_ih, b, w_hh, h0, c0, compute_dtype)

@@ -1,3 +1,3 @@
-from .registry import TASKS, ServingSpec, TaskSpec, build_model, get_task
+from .registry import TASKS, ServingSpec, TaskSpec, build_model, build_training, get_task
 
-__all__ = ["TASKS", "ServingSpec", "TaskSpec", "build_model", "get_task"]
+__all__ = ["TASKS", "ServingSpec", "TaskSpec", "build_model", "build_training", "get_task"]

@@ -1,6 +1,6 @@
-"""Task registry: task id → model builder and serving spec. The port serves
-the ICA-LSTM task; the other tasks of the JAX package's registry are not
-ported yet."""
+"""Task registry: task id → model builder and serving spec, and the
+training pieces a config names. The port serves and trains the ICA-LSTM
+task; the other tasks of the JAX package's registry are not ported yet."""
 
 from __future__ import annotations
 
@@ -9,9 +9,11 @@ from typing import Callable
 
 import torch
 
-from ..core.config import NNComputation, TrainConfig
+from ..core.config import AggEngine, NNComputation, TrainConfig
 from ..core.device import resolve_device
+from ..engines import Engine, make_dsgd
 from ..models.icalstm import ICALstm
+from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
 
 
 @dataclass(frozen=True)
@@ -34,7 +36,7 @@ def _ica_windows(a) -> int:
     return int(a.temporal_size / a.window_size)
 
 
-def _build_icalstm(cfg: TrainConfig, generator=None) -> ICALstm:
+def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> ICALstm:
     a = cfg.ica_args
     return ICALstm(
         input_size=a.input_size,
@@ -44,6 +46,7 @@ def _build_icalstm(cfg: TrainConfig, generator=None) -> ICALstm:
         num_comps=a.num_components,
         window_size=a.window_size,
         compute_dtype=a.compute_dtype or None,
+        use_kernel=use_kernel,
         generator=generator,
     )
 
@@ -74,3 +77,19 @@ def build_model(cfg: TrainConfig, device=None) -> torch.nn.Module:
     device = resolve_device(device)
     g = torch.Generator().manual_seed(cfg.seed)
     return get_task(cfg.task_id).build_model(cfg, g).to(device)
+
+
+def build_training(cfg: TrainConfig, device=None,
+                   use_kernel: bool = True) -> tuple[FederatedTask, Engine, Optimizer]:
+    """The task (its model's weights drawn from ``cfg.seed``, on ``device``:
+    the card unless the caller asks for ``"cpu"``), the aggregation engine
+    and the optimizer that ``cfg`` names, for ``make_train_epoch_fn``.
+    ``use_kernel=False`` runs the LSTM through the kernels' plain versions:
+    the reference a check on the card holds the kernels against."""
+    if cfg.agg_engine != AggEngine.DECENTRALIZED_SGD:
+        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A3, A8)")
+    device = resolve_device(device)
+    g = torch.Generator().manual_seed(cfg.seed)
+    model = get_task(cfg.task_id).build_model(cfg, g, use_kernel=use_kernel).to(device)
+    return (FederatedTask(model), make_dsgd(cfg.precision_bits),
+            make_optimizer(cfg.optimizer, cfg.learning_rate))

@@ -1,15 +1,43 @@
-"""The eval subset of the JAX package's ``trainer/steps.py``:
-:class:`FederatedTask` and :func:`eval_forward`, the one inference forward
-that the serving engine runs."""
+"""The federated train and eval steps: the counterpart of the JAX package's
+``trainer/steps.py`` for one card.
+
+Eval: :class:`FederatedTask` and :func:`eval_forward`, the one inference
+forward that the serving engine runs.
+
+Training: :func:`make_train_epoch_fn` runs one epoch of federated dSGD
+with every site folded onto the card, as the JAX epoch does with
+``mesh=None`` and ``pipeline="device"``: the sites' data stay resident as
+an ``[S, N_max, ...]`` inventory, each epoch takes an ``[S, steps, B]``
+index plan, and each round gathers its batch on the device. A round runs
+``local_iterations`` micro-batches per site with example-weighted gradient
+accumulation, then the engine's weighted mean across sites, sync-BN, the
+round loss, the health counters, and ONE optimizer update on the
+aggregate.
+
+Per-site gradients come from an explicit site axis: each round the
+parameters enter the model as stride-0 views ``[S, ...]`` (every site
+provably holds the same values), the model runs all sites in one pass
+(``ICALstm.site_forward``: the LSTM kernels fold sites into rows), and
+autograd returns each site's own gradient ``[S, ...]``, where JAX takes
+``vmap(grad)``.
+"""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Callable
+
 import torch
+
+from ..core.device import resolve_device
+from ..parallel.collectives import per_site, site_weight_scale
+from ..robustness.health import default_health
 
 
 class FederatedTask:
-    """Bundles a model with its apply plumbing. The weights and running
-    statistics live in the ``nn.Module``."""
+    """Bundles a model with its apply plumbing. The serving weights and
+    running statistics live in the ``nn.Module``; training carries its own
+    in a :class:`TrainState`."""
 
     def __init__(self, model):
         self.model = model
@@ -30,3 +58,268 @@ def eval_forward(task: FederatedTask, x, y=None, w=None):
             return probs
         ce = -torch.log_softmax(logits, -1).gather(-1, y.long()[..., None])[..., 0]
         return probs, ce
+
+
+def cross_entropy(logits, labels, weights):
+    """Masked mean cross-entropy over the last batch axis: ``logits [...,
+    B, C]``, ``labels, weights [..., B]`` → ``[...]``, so a leading site
+    axis gives one loss per site."""
+    logp = torch.log_softmax(logits, -1)
+    ce = -logp.gather(-1, labels.long()[..., None])[..., 0]
+    return (ce * weights).sum(-1) / torch.clamp(weights.sum(-1), min=1.0)
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """A functional optimizer, optax's shape: ``init(params) -> state``,
+    ``update(grads, state) -> (updates, state)``; params and states are
+    dicts of tensors, so a round with no live weight holds them with
+    ``torch.where``."""
+
+    name: str
+    init: Callable
+    update: Callable
+
+
+def make_optimizer(name: str, learning_rate: float) -> Optimizer:
+    """Adam (the reference's optimizer) or SGD at ``learning_rate``, with
+    optax's arithmetic: Adam's moments ``(1 - b) * g**k + b * m``, bias
+    correction by the step ``count``, and ``eps`` outside the square
+    root."""
+    if name == "adam":
+        return _adam(learning_rate)
+    if name == "sgd":
+        return Optimizer("sgd", lambda params: {},
+                         lambda grads, state: ({k: -learning_rate * g for k, g in grads.items()},
+                                               state))
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+def _adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    def init(params):
+        dev = next(iter(params.values())).device
+        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": {k: torch.zeros_like(v) for k, v in params.items()},
+                "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
+
+    def update(grads, state):
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * (g * g) + b2 * state["nu"][k] for k, g in grads.items()}
+        count = state["count"] + 1
+        c = count.float()
+        bc1, bc2 = 1 - torch.pow(b1, c), 1 - torch.pow(b2, c)
+        updates = {k: -lr * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)) for k in grads}
+        return updates, {"count": count, "mu": mu, "nu": nu}
+
+    return Optimizer("adam", init, update)
+
+
+@dataclass
+class TrainState:
+    """What an epoch carries: ``params`` and ``batch_stats`` by the model's
+    ``state_dict`` names, the optimizer state (``{"count", "mu", "nu"}`` for
+    Adam), the engine state (none for dSGD), the dropout seed ``rng``, the
+    global ``round`` and the per-site ``health`` counters."""
+
+    params: dict
+    batch_stats: dict
+    opt_state: dict
+    engine_state: dict
+    rng: int
+    round: int
+    health: dict
+
+
+def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
+                     num_sites: int = 1) -> TrainState:
+    """The first state of a fit, from the weights and running statistics of
+    ``task.model`` (on the model's device)."""
+    params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
+    stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
+    dev = next(iter(params.values())).device
+    return TrainState(params=params, batch_stats=stats, opt_state=optimizer.init(params),
+                      engine_state=engine.init(params), rng=rng, round=0,
+                      health=default_health(num_sites, dev))
+
+
+def _gather_batch(inv_x, inv_y, ixs, poison=None):
+    """On-device batch gather for every site: ``ixs [S, L, B]`` sample
+    positions into the resident inventory (``inv_x [S, N, ...]``, ``inv_y
+    [S, N]``); ``-1`` marks padding, which becomes zero input, label and
+    weight. ``poison [S]`` (the round's NaN-injection gate) overwrites a
+    site's whole round block with NaN. Returns ``(x [S, L, B, ...], y, w)``."""
+    valid = ixs >= 0
+    flat = torch.clamp(ixs, min=0).reshape(ixs.shape[0], -1)
+    site = torch.arange(ixs.shape[0], device=ixs.device)[:, None]
+    xb = inv_x[site, flat].reshape(ixs.shape + inv_x.shape[2:])
+    yb = inv_y[site, flat].reshape(ixs.shape)
+    xb = torch.where(per_site(valid, xb), xb, torch.zeros((), dtype=xb.dtype, device=xb.device))
+    yb = torch.where(valid, yb, torch.zeros((), dtype=yb.dtype, device=yb.device))
+    if poison is not None:
+        nan = torch.full((), float("nan"), dtype=xb.dtype, device=xb.device)
+        xb = torch.where(per_site(poison > 0, xb), nan, xb)
+    return xb, yb, valid.float()
+
+
+#: make_train_epoch_fn options of the JAX package that are not ported yet:
+#: name -> (the value that means "off", the ROADMAP item that ports it)
+_UNPORTED = {
+    "mesh": (None, "A11 (multi-GPU)"),
+    "pipeline": ("device", "A13 (host pipeline)"),
+    "telemetry": (False, "A12 (telemetry)"),
+    "staleness_bound": (0, "A10 (async buffers)"),
+    "overlap_rounds": (False, "A10 (overlapped rounds)"),
+    "attack_plan": (None, "A10 (AttackPlan)"),
+    "robust_agg": ("none", "A10 (robust aggregation)"),
+    "dp_clip": (0.0, "A10 (DP-SGD)"),
+    "dp_noise_multiplier": (0.0, "A10 (DP-SGD)"),
+    "personalize": ((), "A10 (personalization)"),
+    "min_slices": (1, "A11 (slices)"),
+}
+
+
+def _hold(go, new: dict, old: dict) -> dict:
+    """``new`` where the 0-dim bool ``go`` holds, else ``old``, leaf by leaf
+    (nested one level, as an optimizer state)."""
+    return {k: _hold(go, v, old[k]) if isinstance(v, dict) else torch.where(go, v, old[k])
+            for k, v in new.items()}
+
+
+def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
+                        local_iterations: int = 1, quarantine_rounds: int | None = 3,
+                        device=None, **options):
+    """Build the epoch function ``epoch(state, inv_x [S, N_max, ...], inv_y
+    [S, N_max], idx [S, steps, B], live=None, poison=None) -> (state,
+    losses [rounds])``, on ``device`` (the card unless the caller asks for
+    ``"cpu"``).
+
+    ``idx`` is the epoch's plan (``data.plan_epoch_positions``); ``steps``
+    are consumed in rounds of ``local_iterations`` micro-batches and a
+    trailing remainder is dropped. ``live [S, rounds]`` is the scheduled
+    liveness mask and ``poison [S, rounds]`` the NaN-injection gate.
+
+    Guarded rounds (``quarantine_rounds >= 0`` or a ``live`` mask): a site
+    contributes iff it is scheduled live AND its round gradient is finite
+    AND it is not quarantined; a dead site's engine state is frozen, its
+    weight is 0 in the aggregate, sync-BN and the round loss; the health
+    counters advance, and ``quarantine_rounds`` consecutive non-finite
+    rounds latch the sticky quarantine flag (0 keeps the per-round skip
+    only). A round with no live weight holds params, optimizer state and
+    running statistics, and reports a NaN loss. ``quarantine_rounds < 0``
+    with no mask runs the unguarded round. ``None`` means 3.
+
+    The other options of the JAX ``make_train_epoch_fn`` (``mesh``,
+    ``pipeline="host"``, ``telemetry``, async, overlap, attack, DP,
+    personalization, slices) raise ``NotImplementedError`` naming the
+    ROADMAP item that ports them."""
+    for name, value in options.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"make_train_epoch_fn() got an unexpected option {name!r}")
+        off, item = _UNPORTED[name]
+        if value != off:
+            raise NotImplementedError(f"make_train_epoch_fn({name}={value!r}) is not ported: "
+                                      f"ROADMAP {item}")
+    if local_iterations < 1:
+        raise ValueError(f"local_iterations must be >= 1, got {local_iterations}")
+    if quarantine_rounds is None:
+        quarantine_rounds = 3
+    dev = resolve_device(device)
+    model = task.model
+    L = local_iterations
+
+    def site_round(params, stats, xb, yb, wb, gen):
+        """Every site's gradient phase of one round: ``L`` micro-batches,
+        gradients accumulated weighted by example count, the running
+        statistics carried per site from one micro-batch to the next."""
+        S = xb.shape[0]
+        run = {k: v.unsqueeze(0).expand(S, *v.shape) for k, v in stats.items()}
+        g_sum, n_sum = None, torch.zeros(S, device=dev)
+        loss_sum = torch.zeros(S, device=dev)
+        for i in range(L):
+            leaves = {k: v.detach().unsqueeze(0).expand(S, *v.shape).requires_grad_()
+                      for k, v in params.items()}
+            logits, run = model.site_forward(leaves, xb[:, i], wb[:, i], run, gen)
+            loss = cross_entropy(logits, yb[:, i], wb[:, i])
+            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+            n = wb[:, i].sum(1)
+            weighted = {k: g * per_site(n, g) for k, g in zip(leaves, grads)}
+            g_sum = weighted if g_sum is None else {k: g_sum[k] + g for k, g in weighted.items()}
+            n_sum = n_sum + n
+            loss_sum = loss_sum + loss.detach() * n
+        site_grad = {k: g / per_site(torch.clamp(n_sum, min=1.0), g) for k, g in g_sum.items()}
+        return site_grad, n_sum, run, loss_sum
+
+    def epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None):
+        inv_x = torch.as_tensor(inv_x, device=dev)
+        inv_y = torch.as_tensor(inv_y, device=dev)
+        idx = torch.as_tensor(idx, device=dev)
+        S, steps = idx.shape[:2]
+        rounds = steps // L
+        guard = quarantine_rounds >= 0 or live is not None
+        if live is not None:
+            live = torch.as_tensor(live, dtype=torch.float32, device=dev)[:, :rounds]
+        if poison is not None:
+            poison = torch.as_tensor(poison, device=dev)[:, :rounds]
+        health = state.health
+        if health["streak"].shape[0] != S:
+            health = default_health(S, dev)  # per-site counters only survive a same-size fit
+        params, stats, opt_state = state.params, state.batch_stats, state.opt_state
+        engine_state = state.engine_state
+        losses = []
+        for r in range(rounds):
+            rnd = state.round + r
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(state.rng * 1_000_003 + rnd)
+            xb, yb, wb = _gather_batch(inv_x, inv_y, idx[:, r * L:(r + 1) * L],
+                                       None if poison is None else poison[:, r])
+            site_grad, n_sum, site_stats, loss_sum = site_round(params, stats, xb, yb, wb, gen)
+            if not guard:
+                agg, engine_state = engine.aggregate(site_grad, engine_state, n_sum)
+                scale = site_weight_scale(n_sum)
+                stats = {k: (s * per_site(scale, s)).sum(0) for k, s in site_stats.items()}
+                loss_round = loss_sum.sum() / torch.clamp(n_sum.sum(), min=1.0)
+                updates, opt_state = optimizer.update(agg, opt_state)
+                params = {k: v + updates[k] for k, v in params.items()}
+                losses.append(loss_round)
+                continue
+            # liveness: scheduled live AND finite AND not quarantined
+            finite = torch.stack([g.reshape(S, -1).isfinite().all(1)
+                                  for g in site_grad.values()]).all(0)
+            ls = torch.ones(S, device=dev) if live is None else live[:, r]
+            contribute = ls * finite.float() * (1.0 - (health["quarantined"] > 0).float())
+            alive = contribute > 0
+            n_eff = n_sum * contribute
+            agg, es_new = engine.aggregate(site_grad, engine_state, n_sum, live=contribute)
+            engine_state = {k: torch.where(per_site(alive, v), v, engine_state[k])
+                            for k, v in es_new.items()}
+            total_live = n_eff.sum()
+            go = total_live > 0
+            # sync-BN: the example-weighted mean of the arriving sites'
+            # statistics (a dead site's may be NaN: where-zeroed), held when
+            # nobody arrives
+            scale = site_weight_scale(n_eff)
+            stats = {k: torch.where(go, (torch.where(per_site(alive, s), s, 0.0)
+                                         * per_site(scale, s)).sum(0), stats[k])
+                     for k, s in site_stats.items()}
+            loss_round = torch.where(
+                go, torch.where(alive, loss_sum, 0.0).sum() / torch.clamp(total_live, min=1.0),
+                float("nan"))
+            streak = torch.where(finite, 0, health["streak"] + 1).int()
+            quarantined = health["quarantined"]
+            if quarantine_rounds > 0:
+                quarantined = torch.maximum(quarantined, (streak >= quarantine_rounds).int())
+            health = {"streak": streak, "skips": health["skips"] + (~alive).int(),
+                      "quarantined": quarantined}
+            # one update on the aggregate; a round with no live weight
+            # holds params AND optimizer state
+            updates, new_opt = optimizer.update(agg, opt_state)
+            params = {k: torch.where(go, v + updates[k], v) for k, v in params.items()}
+            opt_state = _hold(go, new_opt, opt_state)
+            losses.append(loss_round)
+        new_state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
+                               engine_state=engine_state, rng=state.rng,
+                               round=state.round + rounds, health=health)
+        empty = torch.zeros(0, device=dev)
+        return new_state, torch.stack(losses) if losses else empty
+
+    return epoch

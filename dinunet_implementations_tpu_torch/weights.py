@@ -1,11 +1,16 @@
-"""Weight bridge: the JAX package's ICA-LSTM variables as the port's
-``state_dict``.
+"""Weight bridge: the JAX package's ICA-LSTM variables and training state
+as the port's.
 
-The input is the pair of nested dicts that the JAX model carries, with
-numpy arrays (or anything ``numpy.asarray`` takes) as leaves. Flax kernels
-are ``[in, out]`` and ``nn.Linear`` weights ``[out, in]``; the LSTM cells
-keep the JAX layout and combine ``b_ih + b_hh`` as the JAX ``LSTMCell``
-does. A tree with a missing or an extra leaf is rejected.
+The input is the nested dicts that the JAX model carries, with numpy arrays
+(or anything ``numpy.asarray`` takes) as leaves. Flax kernels are ``[in,
+out]`` and ``nn.Linear`` weights ``[out, in]``; the LSTM cells keep the JAX
+layout and both biases, ``b_ih`` and ``b_hh``, leaf for leaf. A tree with a
+missing or an extra leaf is rejected.
+
+:func:`train_state_from_jax` carries a whole JAX ``TrainState`` (its numpy
+leaves: params, batch_stats, the optax Adam ``count/mu/nu``, round and
+health) into the port's :class:`~.trainer.steps.TrainState`, and
+:func:`train_state_to_jax` turns one back into numpy trees in JAX layout.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import torch
 
 _DENSE = ("encoder", "cls_fc1", "cls_fc2", "cls_fc3")
 _CELL = ("w_ih", "b_ih", "w_hh", "b_hh")
+_STATS = (("cls_bn.running_mean", "cls_bn/mean"), ("cls_bn.running_var", "cls_bn/var"))
 
 
 def _leaves(tree, prefix=()) -> dict:
@@ -26,43 +32,123 @@ def _leaves(tree, prefix=()) -> dict:
     return {"/".join(prefix): np.asarray(tree)}
 
 
-def _expected(bidirectional: bool) -> tuple[set, set]:
-    dirs = ("fwd", "rev") if bidirectional else ("fwd",)
-    params = {f"{n}/{leaf}" for n in _DENSE for leaf in ("kernel", "bias")}
-    params |= {f"lstm/{d}/{leaf}" for d in dirs for leaf in _CELL}
-    params |= {"cls_bn/scale", "cls_bn/bias"}
-    return params, {"cls_bn/mean", "cls_bn/var"}
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *head, last = path.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
+
+
+def _param_names(bidirectional: bool) -> list[tuple[str, str, bool]]:
+    """``(port name, JAX path, transposed)`` for every parameter."""
+    names = []
+    for n in _DENSE:
+        names += [(f"{n}.weight", f"{n}/kernel", True), (f"{n}.bias", f"{n}/bias", False)]
+    for d in ("fwd", "rev") if bidirectional else ("fwd",):
+        names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False) for leaf in _CELL]
+    names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
+    return names
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _check_leaves(problems: list, what: str, have: dict, want: set) -> None:
+    if set(have) - want:
+        problems.append(f"{what} has extra leaves {sorted(set(have) - want)}")
+    if want - set(have):
+        problems.append(f"{what} is missing leaves {sorted(want - set(have))}")
+
+
+def _raise_if(problems: list) -> None:
+    if problems:
+        raise ValueError("not an ICALstm variable tree: " + "; ".join(problems))
+
+
+def _port_params(p: dict, bidirectional: bool) -> dict:
+    return {n: _t(p[j].T if tr else p[j]) for n, j, tr in _param_names(bidirectional)}
+
+
+def _params_to_port(tree, bidirectional: bool, what: str) -> dict:
+    """A params-shaped JAX tree (Adam's mu or nu) as port tensors by
+    ``state_dict`` name."""
+    p, problems = _leaves(tree), []
+    _check_leaves(problems, what, p, {j for _, j, _ in _param_names(bidirectional)})
+    _raise_if(problems)
+    return _port_params(p, bidirectional)
+
+
+def _params_to_jax(tensors: dict, bidirectional: bool) -> dict:
+    flat = {}
+    for n, j, tr in _param_names(bidirectional):
+        a = tensors[n].detach().cpu().numpy()
+        flat[j] = a.T if tr else a
+    return _nest(flat)
 
 
 def icalstm_params_from_jax(params, batch_stats, bidirectional: bool = True) -> dict:
     """``(params, batch_stats)`` of the JAX ``ICALstm`` → the port
     :class:`~.models.icalstm.ICALstm`'s ``state_dict`` (f32 CPU tensors)."""
-    p, s = _leaves(params), _leaves(batch_stats)
-    want_p, want_s = _expected(bidirectional)
-    problems = []
-    for what, have, want in (("params", p, want_p), ("batch_stats", s, want_s)):
-        if set(have) - want:
-            problems.append(f"{what} has extra leaves {sorted(set(have) - want)}")
-        if want - set(have):
-            problems.append(f"{what} is missing leaves {sorted(want - set(have))}")
-    if problems:
-        raise ValueError("not an ICALstm variable tree: " + "; ".join(problems))
-
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    sd = {}
-    for n in _DENSE:
-        sd[f"{n}.weight"] = t(p[f"{n}/kernel"].T)
-        sd[f"{n}.bias"] = t(p[f"{n}/bias"])
-    for d in ("fwd", "rev") if bidirectional else ("fwd",):
-        q = f"lstm/{d}/"
-        sd[f"lstm.{d}.w_ih"] = t(p[q + "w_ih"])
-        sd[f"lstm.{d}.w_hh"] = t(p[q + "w_hh"])
-        # summed in f32, as icalstm.py's b_ih + b_hh
-        sd[f"lstm.{d}.b"] = t(p[q + "b_ih"]) + t(p[q + "b_hh"])
-    sd["cls_bn.weight"] = t(p["cls_bn/scale"])
-    sd["cls_bn.bias"] = t(p["cls_bn/bias"])
-    sd["cls_bn.running_mean"] = t(s["cls_bn/mean"])
-    sd["cls_bn.running_var"] = t(s["cls_bn/var"])
+    p, s, problems = _leaves(params), _leaves(batch_stats), []
+    _check_leaves(problems, "params", p, {j for _, j, _ in _param_names(bidirectional)})
+    _check_leaves(problems, "batch_stats", s, {j for _, j in _STATS})
+    _raise_if(problems)
+    sd = _port_params(p, bidirectional)
+    sd.update({n: _t(s[j]) for n, j in _STATS})
     return sd
+
+
+def _adam_part(opt_state):
+    """The optax ``ScaleByAdamState`` inside an optimizer state (a chain's
+    tuple), or None for a stateless optimizer such as SGD."""
+    parts = opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)
+    return next((p for p in parts if hasattr(p, "mu") and hasattr(p, "nu")), None)
+
+
+def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device=None):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) as the port's ``TrainState`` on ``device`` (the card unless
+    the caller asks for ``"cpu"``). JAX's PRNG key does not carry over:
+    the port draws dropout from ``rng``."""
+    from .core.device import resolve_device
+    from .trainer.steps import TrainState
+
+    dev = resolve_device(device)
+    sd = icalstm_params_from_jax(state.params, state.batch_stats, bidirectional)
+    params = {n: sd[n].to(dev) for n, _, _ in _param_names(bidirectional)}
+    stats = {n: sd[n].to(dev) for n, _ in _STATS}
+    adam = _adam_part(state.opt_state)
+    opt_state = {}
+    if adam is not None:
+        opt_state = {
+            "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=dev),
+            "mu": {n: v.to(dev) for n, v in _params_to_port(adam.mu, bidirectional, "mu").items()},
+            "nu": {n: v.to(dev) for n, v in _params_to_port(adam.nu, bidirectional, "nu").items()},
+        }
+    health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
+              for k, v in state.health.items()}
+    return TrainState(params=params, batch_stats=stats, opt_state=opt_state, engine_state={},
+                      rng=rng, round=int(np.asarray(state.round)), health=health)
+
+
+def train_state_to_jax(state, bidirectional: bool = True) -> dict:
+    """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
+    ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
+    ``{}`` for SGD), ``round`` and ``health``."""
+    opt = {}
+    if state.opt_state:
+        opt = {"count": int(state.opt_state["count"]),
+               "mu": _params_to_jax(state.opt_state["mu"], bidirectional),
+               "nu": _params_to_jax(state.opt_state["nu"], bidirectional)}
+    return {
+        "params": _params_to_jax(state.params, bidirectional),
+        "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy() for n, j in _STATS}),
+        "opt_state": opt,
+        "round": int(state.round),
+        "health": {k: v.cpu().numpy() for k, v in state.health.items()},
+    }

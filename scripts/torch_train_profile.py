@@ -1,0 +1,93 @@
+#!/usr/bin/env python3
+"""Where a federated training round's time goes on the card, for the
+PyTorch/CUDA port at full ICA-LSTM width.
+
+    python3 scripts/torch_train_profile.py [--epochs 2]
+
+It builds the configuration of chip_smoke.py's training phase (default
+``ICAArgs``, f32, 32 sites of 2-4 batches of 16, Adam 1e-3, dSGD), runs one
+epoch to warm up, times ``--epochs`` epochs on the host clock, then runs one
+epoch under ``torch.profiler`` and prints device time per round by kernel
+name and the device's busy and idle share of that window. Every line is one
+JSON object; it needs one CUDA card and imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+
+def main() -> int:
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--epochs", type=int, default=2)
+    args = ap.parse_args()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    cfg, epoch, state = chip_smoke.training_setup(torch, use_kernel=True)
+    inv, plans = chip_smoke.training_data(np, cfg)
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = torch.from_numpy(plans[0]).cuda()
+    rounds = plans[0].shape[1] // cfg.local_iterations
+    samples = cfg.num_sites * plans[0].shape[1] * cfg.batch_size
+
+    state, _ = epoch(state, inv_x, inv_y, idx)  # warm-up
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(args.epochs):
+        t0 = time.perf_counter()
+        state, _ = epoch(state, inv_x, inv_y, idx)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({"epoch_ms": ms, "rounds": rounds, "samples_per_epoch": samples,
+                      "samples_per_s": [samples / (m / 1e3) for m in ms], "card": smi}))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, _ = epoch(state, inv_x, inv_y, idx)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+
+    by_name = defaultdict(float)
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+            spans.append((e.time_range.start, e.time_range.end))
+    busy, end = 0.0, None
+    for s, t in sorted(spans):  # union of device intervals
+        if end is None or s > end:
+            busy += t - s
+            end = t
+        elif t > end:
+            busy += t - end
+            end = t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
+    print(json.dumps({
+        "rounds": rounds, "window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": (1 - busy / window_us) if spans else None,
+        "device_ms_per_round_by_kernel": {n: us / 1e3 / rounds for n, us in top},
+        "device_ms_per_round_all_kernels": sum(by_name.values()) / 1e3 / rounds,
+        "card": smi,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,362 @@
+"""The port's training slice against the JAX package: whole federated dSGD
+epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
+pipeline, sites folded onto one device), the epoch plan, dropout, the
+optimizer, and the LSTM cell's two biases.
+
+The JAX epochs run the Pallas LSTM kernels in interpret mode; the port runs
+the kernels' plain versions on the CPU. Both start from one initial state,
+carried across by ``weights.train_state_from_jax``; inputs are made with
+numpy from a seed.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from dinunet_implementations_tpu.core import config as jconfig
+from dinunet_implementations_tpu.data import api as jdata
+from dinunet_implementations_tpu.data import batching as jbatching
+from dinunet_implementations_tpu.engines import make_engine
+from dinunet_implementations_tpu.models import icalstm as jm
+from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core import config as tconfig
+from dinunet_implementations_tpu_torch.data import api as tdata
+from dinunet_implementations_tpu_torch.data import batching as tbatching
+from dinunet_implementations_tpu_torch.engines import make_dsgd
+from dinunet_implementations_tpu_torch.models import icalstm as tm
+from dinunet_implementations_tpu_torch.models import layers as tlayers
+from dinunet_implementations_tpu_torch.trainer import steps as tsteps
+from dinunet_implementations_tpu_torch.weights import (
+    icalstm_params_from_jax,
+    train_state_from_jax,
+    train_state_to_jax,
+)
+
+# small ICA-LSTM: 6 windows of 4 components x 5 timepoints; 3 sites of
+# unequal size, batch 4 (2, 4 and 3 batches: the small sites wrap)
+C, W, T, IN, HID, B = 4, 5, 6, 16, 12, 4
+SIZES = (9, 17, 13)
+S = len(SIZES)
+LR = 1e-3
+EPOCHS = 2
+
+# The first round's aggregate gradient (mu / (1 - b1) after one Adam step)
+# is compared tightly: f32 sums in another order. A bf16 payload rounds
+# each site's f32 gradient, so a near-tie can round one bf16 ulp (2**-8
+# relative) apart; the sites' values reach ~1.5e-2 and can cancel in the
+# mean, so that ulp (~6e-5) bounds the absolute error.
+AGG_TOL = {"32": dict(atol=1e-6, rtol=1e-4), "16": dict(atol=6e-5, rtol=1e-2)}
+# Parameters after the epochs, on the scale of lr: an entry whose gradient
+# is zero up to rounding (cls_fc1.bias, which the BatchNorm after it makes
+# constant-invariant) gets Adam steps of about lr of either sign, so two
+# correct trajectories can part by up to 2·lr a round.
+PARAM_ATOL = 2 * LR * 8
+# Adam moments: f32 sums in another order; bf16 payloads a few ulps apart.
+MOMENT_TOL = {"32": (dict(atol=1e-6, rtol=1e-4), dict(atol=1e-9, rtol=1e-4)),
+              "16": (dict(atol=5e-4, rtol=1e-2), dict(atol=2e-6, rtol=1e-2))}
+LOSS_TOL = {"32": dict(atol=1e-6, rtol=1e-5), "16": dict(atol=2e-4, rtol=1e-3)}
+
+
+def _sites(seed=0, cls=jdata.SiteArrays):
+    rng = np.random.default_rng(seed)
+    return [cls(rng.standard_normal((n, T, C, W)).astype(np.float32),
+                rng.integers(0, 2, n).astype(np.int32), np.arange(n, dtype=np.int32))
+            for n in SIZES]
+
+
+def _jax_setup(pb, L, qr):
+    model = jm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
+                       use_pallas=True, dropout_rate=0.0)
+    task = jsteps.FederatedTask(model)
+    engine = make_engine("dSGD", precision_bits=pb)
+    opt = jsteps.make_optimizer("adam", LR)
+    state = jsteps.init_train_state(task, engine, opt, jax.random.PRNGKey(0),
+                                    jnp.zeros((2, T, C, W)), num_sites=S)
+    epoch = jsteps.make_train_epoch_fn(task, engine, opt, mesh=None, local_iterations=L,
+                                       quarantine_rounds=qr, pipeline="device")
+    return state, epoch
+
+
+def _port_setup(state_j, pb, L, qr):
+    model = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
+                       dropout_rate=0.0)
+    epoch = tsteps.make_train_epoch_fn(tsteps.FederatedTask(model), make_dsgd(pb),
+                                       tsteps.make_optimizer("adam", LR), local_iterations=L,
+                                       quarantine_rounds=qr, device="cpu")
+    return train_state_from_jax(jax.tree.map(np.asarray, state_j), device="cpu"), epoch
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _compare(what, got, want, **tol):
+    g, w = _flat(got), _flat(want)
+    assert g.keys() == w.keys(), what
+    for k in w:
+        np.testing.assert_allclose(g[k], w[k], err_msg=f"{what} {k}", **tol)
+
+
+def _run(epoch, state, inv, plans, masks, to_dev):
+    losses = []
+    for idx, (live, poison) in zip(plans, masks):
+        state, lo = epoch(state, to_dev(inv.inputs), to_dev(inv.labels), to_dev(idx),
+                          None if live is None else to_dev(live),
+                          None if poison is None else to_dev(poison))
+        losses.append(np.asarray(lo))
+    return state, np.concatenate(losses)
+
+
+# (local_iterations, precision_bits, quarantine_rounds, fault) per case
+CASES = {
+    "L1-f32": (1, "32", 3, None),
+    "L2-f32": (2, "32", 3, None),
+    "L1-bf16": (1, "16", 3, None),
+    "live-drop": (1, "32", 3, "live"),
+    "nan-quarantine": (1, "32", 3, "poison"),
+    "unguarded": (1, "32", -1, None),
+}
+
+
+def _masks(fault, rounds):
+    """Per-epoch (live, poison) masks [S, rounds]: ``live`` drops site 0 in
+    round 1 of the first epoch; ``poison`` turns site 1's batches to NaN in
+    every round of the first epoch (3 rounds in a row: quarantine)."""
+    out = []
+    for e in range(EPOCHS):
+        live = poison = None
+        if fault == "live":
+            live = np.ones((S, rounds), np.float32)
+            if e == 0:
+                live[0, 1] = 0.0
+        if fault == "poison":
+            poison = np.zeros((S, rounds), np.float32)
+            if e == 0:
+                poison[1] = 1.0
+        out.append((live, poison))
+    return out
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_epochs_match_jax(case):
+    L, pb, qr, fault = CASES[case]
+    sites = _sites()
+    inv = jdata.stack_site_inventory(sites)
+    plans = [jbatching.plan_epoch_positions(sites, B, seed=e).positions for e in range(EPOCHS)]
+    rounds = plans[0].shape[1] // L
+    masks = _masks(fault, rounds)
+    state_j, epoch_j = _jax_setup(pb, L, qr)
+    state_t, epoch_t = _port_setup(state_j, pb, L, qr)
+
+    if fault is None:
+        # one round: its aggregate gradient is mu / (1 - b1) after one Adam step
+        one_j, _ = epoch_j(state_j, jnp.asarray(inv.inputs), jnp.asarray(inv.labels),
+                           jnp.asarray(plans[0][:, :L]))
+        one_t, _ = epoch_t(state_t, inv.inputs, inv.labels, plans[0][:, :L])
+        agg = lambda mu: jax.tree.map(lambda m: np.asarray(m) / 0.1, mu)  # noqa: E731
+        _compare("first-round aggregate", agg(train_state_to_jax(one_t)["opt_state"]["mu"]),
+                 agg(one_j.opt_state[0].mu), **AGG_TOL[pb])
+
+    end_j, loss_j = _run(epoch_j, state_j, inv, plans, masks, jnp.asarray)
+    end_t, loss_t = _run(epoch_t, state_t, inv, plans, masks, lambda a: a)
+    got = train_state_to_jax(end_t)
+    want = jax.tree.map(np.asarray, end_j)
+
+    assert loss_t.shape == loss_j.shape == (EPOCHS * rounds,)
+    np.testing.assert_allclose(loss_t, loss_j, **LOSS_TOL[pb])
+    _compare("params", got["params"], want.params, atol=PARAM_ATOL, rtol=0)
+    _compare("batch_stats", got["batch_stats"], want.batch_stats, atol=PARAM_ATOL, rtol=0)
+    mu_tol, nu_tol = MOMENT_TOL[pb]
+    _compare("adam mu", got["opt_state"]["mu"], want.opt_state[0].mu, **mu_tol)
+    _compare("adam nu", got["opt_state"]["nu"], want.opt_state[0].nu, **nu_tol)
+    assert got["opt_state"]["count"] == int(want.opt_state[0].count)
+    assert got["round"] == int(want.round) == EPOCHS * rounds
+    _compare("health", got["health"], want.health, atol=0, rtol=0)
+    if fault == "poison":
+        np.testing.assert_array_equal(got["health"]["quarantined"], [0, 1, 0])
+        assert got["health"]["skips"][1] == EPOCHS * rounds
+    if fault == "live":
+        np.testing.assert_array_equal(got["health"]["skips"], [1, 0, 0])
+
+
+def test_bias_leaves_take_one_adam_step_each_as_in_jax():
+    """The JAX cell has two bias leaves, ``b_ih`` and ``b_hh``, that get the
+    same cotangent; Adam steps each of them, so the effective bias moves by
+    two steps. The port's cell keeps both leaves and must do the same."""
+    sites = _sites(seed=3)
+    model = jm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
+                       use_pallas=True, dropout_rate=0.0)
+    task = jsteps.FederatedTask(model)
+    x = jnp.asarray(sites[1].inputs[:B])
+    y = jnp.asarray(sites[1].labels[:B])
+    w = jnp.ones((B,), jnp.float32)
+    params, stats = task.init_variables(jax.random.PRNGKey(1), x)
+
+    def loss_fn(p):
+        logits, _ = task.apply(p, stats, x, train=True, mask=w, mutable=True)
+        return jsteps.cross_entropy(logits, y, w)
+
+    opt = optax.adam(LR)
+    updates, _ = opt.update(jax.grad(loss_fn)(params), opt.init(params), params)
+    want = jax.tree.map(np.asarray, optax.apply_updates(params, updates))
+
+    port = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
+                      dropout_rate=0.0)
+    port.load_state_dict(icalstm_params_from_jax(jax.tree.map(np.asarray, params),
+                                                 jax.tree.map(np.asarray, stats)))
+    named = dict(port.named_parameters())
+    logits = port(torch.from_numpy(np.array(x)), train=True, mask=torch.from_numpy(np.array(w)))
+    loss = tsteps.cross_entropy(logits, torch.from_numpy(np.array(y)),
+                                torch.from_numpy(np.array(w)))
+    grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+    optimizer = tsteps.make_optimizer("adam", LR)
+    upd, _ = optimizer.update(grads, optimizer.init(named))
+    for d in ("fwd", "rev"):
+        got = {leaf: (named[f"lstm.{d}.{leaf}"] + upd[f"lstm.{d}.{leaf}"]).detach().numpy()
+               for leaf in ("b_ih", "b_hh")}
+        ref = want["lstm"][d]
+        for leaf in ("b_ih", "b_hh"):
+            np.testing.assert_allclose(got[leaf], ref[leaf], atol=1e-6, rtol=0, err_msg=leaf)
+        np.testing.assert_allclose(got["b_ih"] + got["b_hh"], ref["b_ih"] + ref["b_hh"],
+                                   atol=2e-6, rtol=0)
+        # the effective bias moved by two steps of about lr each
+        moved = np.abs((got["b_ih"] + got["b_hh"])
+                       - np.asarray(params["lstm"][d]["b_ih"] + params["lstm"][d]["b_hh"]))
+        assert moved.max() > 1.5 * LR
+
+
+def test_epoch_plan_is_byte_identical_to_jax():
+    jsites, tsites = _sites(cls=jdata.SiteArrays), _sites(cls=tdata.SiteArrays)
+    for kw in ({}, {"seed": 7}, {"shuffle": False}, {"steps": 9}, {"steps": 2},
+               {"drop_last": False, "pad_mode": "mask"}, {"drop_last": False}):
+        want = jbatching.plan_epoch_positions(jsites, B, **kw).positions
+        got = tbatching.plan_epoch_positions(tsites, B, **kw).positions
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), kw
+    assert tbatching.epoch_steps(tsites, B) == jbatching.epoch_steps(jsites, B)
+    ti, ji = tdata.stack_site_inventory(tsites), jdata.stack_site_inventory(jsites)
+    for name in ("inputs", "labels", "counts"):
+        assert getattr(ti, name).tobytes() == getattr(ji, name).tobytes(), name
+
+
+def test_gather_batch_matches_jax_with_padding_and_poison():
+    sites = _sites()
+    inv = jdata.stack_site_inventory(sites)
+    idx = jbatching.plan_epoch_positions(sites, B, drop_last=False, pad_mode="mask").positions
+    poison = np.array([0, 1, 0], np.float32)
+    for pz in (None, poison):
+        want = jax.vmap(jsteps._gather_batch, in_axes=(0, 0, 0, None if pz is None else 0))(
+            jnp.asarray(inv.inputs), jnp.asarray(inv.labels), jnp.asarray(idx),
+            None if pz is None else jnp.asarray(pz))
+        got = tsteps._gather_batch(torch.from_numpy(inv.inputs), torch.from_numpy(inv.labels),
+                                   torch.from_numpy(idx), None if pz is None else torch.from_numpy(pz))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_dropout_masks_per_site_and_micro_batch():
+    rate = 0.25
+    gen = torch.Generator().manual_seed(0)
+    x = torch.ones(4, 64, 256)
+    a = tlayers.site_dropout(x, rate, gen)
+    b = tlayers.site_dropout(x, rate, gen)  # the next micro-batch
+    for y in (a, b):
+        kept = y != 0
+        assert torch.all(y[kept] == 1 / (1 - rate))  # survivors scaled by 1/(1-p)
+        assert abs(kept.float().mean().item() - (1 - rate)) < 0.01  # 65,536 draws
+    assert not torch.equal(a != 0, b != 0)  # each micro-batch draws anew
+    assert not torch.equal(a[0] != 0, a[1] != 0)  # and each site its own
+    # the same seed gives the same masks; rate 0 is the identity
+    again = tlayers.site_dropout(x, rate, torch.Generator().manual_seed(0))
+    assert torch.equal(again, a)
+    assert tlayers.site_dropout(x, 0.0, gen) is x
+
+
+def test_site_batchnorm_matches_the_module_per_site():
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((3, 5, 7)).astype(np.float32))
+    mask = torch.tensor([[1, 1, 0, 1, 1], [1, 1, 1, 1, 1], [0, 1, 1, 0, 1]], dtype=torch.float32)
+    weight, bias = 1 + 0.3 * torch.randn(3, 7), 0.2 * torch.randn(3, 7)
+    rm, rv = 0.1 * torch.randn(3, 7), 1 + torch.rand(3, 7)
+    y, (m, v) = tlayers.site_batchnorm_train(x, mask, weight, bias, rm, rv)
+    for s in range(3):
+        bn = tlayers.BatchNorm(7, track_running_stats=True)
+        bn.load_state_dict({"weight": weight[s], "bias": bias[s], "running_mean": rm[s],
+                            "running_var": rv[s]})
+        torch.testing.assert_close(y[s], bn(x[s], train=True, mask=mask[s]), atol=1e-6, rtol=1e-6)
+        torch.testing.assert_close(m[s], bn.running_mean, atol=1e-7, rtol=1e-6)
+        torch.testing.assert_close(v[s], bn.running_var, atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_optimizer_matches_optax_over_steps(name):
+    rng = np.random.default_rng(5)
+    params = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+              "b": rng.standard_normal(5).astype(np.float32)}
+    grads = [{k: rng.standard_normal(v.shape).astype(np.float32) for k, v in params.items()}
+             for _ in range(4)]
+    jopt, topt = jsteps.make_optimizer(name, 0.01), tsteps.make_optimizer(name, 0.01)
+    pj, sj = {k: jnp.asarray(v) for k, v in params.items()}, None
+    sj = jopt.init(pj)
+    pt = {k: torch.from_numpy(v) for k, v in params.items()}
+    st = topt.init(pt)
+    for g in grads:
+        u, sj = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, sj, pj)
+        pj = optax.apply_updates(pj, u)
+        ut, st = topt.update({k: torch.from_numpy(v) for k, v in g.items()}, st)
+        pt = {k: v + ut[k] for k, v in pt.items()}
+    for k in params:
+        np.testing.assert_allclose(pt[k].numpy(), np.asarray(pj[k]), atol=1e-6, rtol=1e-6)
+    if name == "adam":
+        assert int(st["count"]) == int(sj[0].count) == 4
+
+
+@pytest.mark.parametrize("option,value", [
+    ("mesh", object()), ("pipeline", "host"), ("telemetry", True), ("staleness_bound", 2),
+    ("overlap_rounds", True), ("attack_plan", object()), ("robust_agg", "trimmed_mean"),
+    ("dp_clip", 1.0), ("personalize", ("cls_fc3",)), ("min_slices", 2),
+])
+def test_unported_epoch_options_raise(option, value):
+    task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        tsteps.make_train_epoch_fn(task, make_dsgd(), tsteps.make_optimizer("adam", LR),
+                                   device="cpu", **{option: value})
+
+
+@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"robust_agg": "norm_clip"},
+                                {"secure_agg": "mask"}])
+def test_unported_dsgd_options_raise(kw):
+    with pytest.raises(NotImplementedError):
+        make_dsgd(**kw)
+
+
+def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_ICA)
+    task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsteps.make_train_epoch_fn(task, make_dsgd(), tsteps.make_optimizer("adam", LR))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_training(cfg)
+    task, engine, opt = build_training(cfg, device="cpu")
+    assert engine.name == "dSGD" and opt.name == "adam"
+    assert all(p.device.type == "cpu" for p in task.model.parameters())
+
+
+def test_training_config_copy_keeps_the_jax_defaults():
+    jcfg, tcfg = jconfig.TrainConfig(), tconfig.TrainConfig()
+    for f in dataclasses.fields(tconfig.TrainConfig):
+        if f.name != "ica_args":
+            assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert tconfig.AggEngine.ALL == jconfig.AggEngine.ALL
