@@ -30,7 +30,19 @@ result line:
    optimizer state, running statistics and losses after the epochs, are
    held against the same epochs through the kernels' plain versions on
    the card; epoch ms, samples/s and ms per round are printed;
-7. one JSON line of per-kernel numbers, then the result line.
+7. kernel ``poweriter`` (K7) against ``poweriter_plain`` at one rankDAD
+   round of the flagship: the r=10 class (7 leaves × 32 sites, six shape
+   buckets, nn.Linear weights read through transposed views) and the r=2
+   class, with a dead site (G = 0) and a site of rank 2; f32 and bf16,
+   cold and warm Ω, tol 1e-3 and 0; P, Q, PQᵀ and the trip counts
+   compared; times of the kernel and the plain version and the bound; the
+   wrapper's refusals (a class over the shared-memory limit, a G with no
+   contiguous matrix axis);
+8. the rankDAD training slice: phase 6's two epochs with the rankDAD
+   engine (rank 10, 5 refinements, tol 1e-3, warm starts) through K1, K2
+   and K7, held against the all-plain path on the card the same way and
+   on Ω; K7 must launch once per rank class per round;
+9. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -74,6 +86,16 @@ TRAIN_SITES, TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 16, 1e-3, 2
 AGG_TOL = dict(atol=1e-5, rtol=1e-3)
 FIRST_LOSS_TOL, LOSS_TOL = 1e-5, 1e-3
 MOMENT_SHARE = 5e-2
+# rankDAD's Ω after the first round (each site's Q of its first gradient,
+# from the same start on both paths), per leaf over the leaf's max |Ω|: the
+# round's cold start makes five unconverged refinements, whose columns
+# within near-equal singular values carry the kernel's f32 summation-order
+# differences (K7's own phase: Q within 2.8e-5 of max|G|). After the epochs
+# Ω follows params that part on the lr scale, and Q's columns within
+# near-equal singular values then rotate freely (the encoder's Ω differed
+# by 0.46 at a scale of 0.43 after 8 rounds on the card): checked there for
+# shape and finiteness only. The first card run measured 2.6e-5.
+OMEGA_FIRST_TOL = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s outside
 # the tensor cores, bf16 tensor-core FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -373,10 +395,12 @@ def serving_phase(torch, np, lc):
     return launches
 
 
-def training_setup(torch, use_kernel: bool, seed: int = 0):
+def training_setup(torch, use_kernel: bool, seed: int = 0, engine: str = "dSGD"):
     """The full-width ICA-LSTM training configuration (default ``ICAArgs``,
-    f32), its epoch function and first state, dropout 0 so that the kernel
-    and plain paths compute the same function."""
+    f32, the ``engine`` aggregation: rankDAD with its default knobs, rank
+    10, 5 refinements, tol 1e-3, warm starts), its epoch function and first
+    state, dropout 0 so that the kernel and plain paths compute the same
+    function."""
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.runner.registry import build_training
     from dinunet_implementations_tpu_torch.trainer.steps import (
@@ -385,7 +409,7 @@ def training_setup(torch, use_kernel: bool, seed: int = 0):
     )
 
     cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=seed, num_sites=TRAIN_SITES,
-                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR)
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine)
     task, engine, opt = build_training(cfg, use_kernel=use_kernel)
     task.model.dropout_rate = 0.0
     epoch = make_train_epoch_fn(task, engine, opt, local_iterations=cfg.local_iterations,
@@ -435,9 +459,11 @@ def leaf_errs(got: dict, want: dict) -> dict:
     return {k: [(got[k] - w).abs().max().item(), w.abs().max().item()] for k, w in want.items()}
 
 
-def training_phase(torch, np, lc) -> dict:
-    cfg, epoch_k, state_k = training_setup(torch, use_kernel=True)
-    _, epoch_p, state_p = training_setup(torch, use_kernel=False)
+def training_phase(torch, np, lc, pc, engine: str = "dSGD") -> dict:
+    cfg, epoch_k, state_k = training_setup(torch, use_kernel=True, engine=engine)
+    _, epoch_p, state_p = training_setup(torch, use_kernel=False, engine=engine)
+    rankdad = engine == "rankDAD"
+    classes = len(k7_leaves(torch)) if rankdad else 0
     if any(not torch.equal(v, state_p.params[k]) for k, v in state_k.params.items()):
         fail("the kernel and plain training paths start from different weights")
     inv, plans = training_data(np, cfg)
@@ -449,7 +475,7 @@ def training_phase(torch, np, lc) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lc.LAUNCHES = lc.BWD_LAUNCHES = 0  # the main path's run starts here
+    lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0  # the main path's run starts here
     st, ms, losses_k = state_k, [], []
     for e in range(TRAIN_EPOCHS):
         t0 = time.perf_counter()
@@ -457,7 +483,9 @@ def training_phase(torch, np, lc) -> dict:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses_k.append(lo)
-    launches = {"lstm_fwd": lc.LAUNCHES, "lstm_bwd": lc.BWD_LAUNCHES}  # read before any check
+    # read before any check
+    launches = {"lstm_fwd": lc.LAUNCHES, "lstm_bwd": lc.BWD_LAUNCHES,
+                "poweriter": pc.POWERITER_LAUNCHES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the first round's aggregate gradient: mu / (1 - b1) after one Adam step
@@ -480,6 +508,15 @@ def training_phase(torch, np, lc) -> dict:
         "adam_mu": tree_err(st.opt_state["mu"], sp.opt_state["mu"], share=MOMENT_SHARE),
         "adam_nu": tree_err(st.opt_state["nu"], sp.opt_state["nu"], share=MOMENT_SHARE),
     }
+    omega = lambda s: {k: v for k, v in s.engine_state.get("omega", {}).items()  # noqa: E731
+                       if v is not None}
+    if rankdad:
+        first = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                 for g, w in zip(omega(one_k).values(), omega(one_p).values(), strict=True)]
+        checks["first_round_omega"] = (max(first), max(first) <= OMEGA_FIRST_TOL)
+        end_ok = all(bool(v.isfinite().all()) and v.shape == w.shape
+                     for v, w in zip(omega(st).values(), omega(sp).values(), strict=True))
+        checks["omega_end_finite"] = (0.0, end_ok and len(omega(st)) == len(omega(sp)) > 0)
     rec = {
         "sites": cfg.num_sites, "batch": cfg.batch_size, "local_iterations": L,
         "rounds_per_epoch": rounds, "samples_per_epoch": samples, "epoch_ms": ms,
@@ -488,20 +525,194 @@ def training_phase(torch, np, lc) -> dict:
         "plain_losses": lp.tolist(), "param_atol": param_atol,
         "max_abs_err_vs_plain": {k: e for k, (e, _) in checks.items()},
         "leaf_err_and_scale": {m: leaf_errs(st.opt_state[m], sp.opt_state[m]) for m in ("mu", "nu")}
-        | {"params": leaf_errs(st.params, sp.params)},
+        | {"params": leaf_errs(st.params, sp.params),
+           "first_round_omega": leaf_errs(omega(one_k), omega(one_p)),
+           "omega": leaf_errs(omega(st), omega(sp))},
+        "engine": engine, "rank_classes": classes,
     }
-    print("training:", json.dumps(rec))
+    print(f"training {engine}:", json.dumps(rec))
     want_launches = 2 * sum(rounds) * L
-    if launches != {"lstm_fwd": want_launches, "lstm_bwd": want_launches}:
-        fail(f"training launches {launches}, want {want_launches} of each kernel")
+    want = {"lstm_fwd": want_launches, "lstm_bwd": want_launches,
+            "poweriter": classes * sum(rounds)}
+    if launches != want:
+        fail(f"training {engine} launches {launches}, want {want}")
     bad = [k for k, (_, ok) in checks.items() if not ok]
     if bad:
-        fail(f"training differs from the plain path in {bad}")
+        fail(f"training {engine} differs from the plain path in {bad}")
     if lk.shape != (sum(rounds),):
         fail(f"training losses shaped {tuple(lk.shape)}")
     if int(st.opt_state["count"]) != sum(rounds) or st.round != sum(rounds):
         fail(f"training count {int(st.opt_state['count'])}, round {st.round}")
     return rec
+
+
+# K7: one round of rankDAD's power iteration at the flagship shapes. The
+# per-site gradients are made of 16 decaying directions plus a floor of
+# noise (a per-site batch of 16 bounds the rank of most leaves); site 0 is
+# a dead site (G = 0) and site 1 has rank 2, below r = 10.
+K7_RANK, K7_ITERS = 10, 5
+K7_SIGNAL, K7_DECAY, K7_NOISE = 16, 0.7, 1e-3
+# Kernel against plain (P absolute; Q and PQᵀ over the member's max|G|),
+# set from the first card run (f32: P 2.6e-5, Q 2.8e-5, PQᵀ 4.3e-6; bf16:
+# 3.1e-4, 2.1e-3, 3.7e-4). f32: the two sum 256-1000-term products in other
+# orders, and five unconverged refinements from a cold Ω carry the
+# difference into the subspace. bf16: an f32 value one ulp apart can round
+# to the neighbouring bf16 operand (2**-9 relative). A site of rank 2 < r:
+# its other columns are rounding noise, so only PQᵀ is compared, at the
+# noise's scale (JAX's own two paths differ by 2.3e-4 there on the CPU).
+K7_TOL = {"f32": {"P": 1e-4, "Q": 1e-4, "PQ": 2e-5, "PQ_rank_below_r": 1e-3},
+          "bf16": {"P": 1e-3, "Q": 5e-3, "PQ": 1e-3, "PQ_rank_below_r": 5e-3}}
+# Trip counts are compared at tol 1e-3: a member whose σ change lands within
+# rounding of the threshold can stop one refinement apart (2 of 224 in the
+# first run), which moves its factors by far less than the tolerances above.
+# At tol 0 a member stops only when its σ change is exactly 0, which
+# depends on the last bit of a sum, so trips are not compared there.
+K7_TRIPS_DIFFER_SHARE = 0.02
+
+
+def k7_leaves(torch):
+    """``(name, m, n, transposed)`` of every compressible leaf of the
+    full-width ICA-LSTM, in the JAX matrix orientation, and their rank
+    classes ``{r: [leaf, ...]}``."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.engines.lowrank import _matrix_shape, is_compressible
+    from dinunet_implementations_tpu_torch.runner.registry import get_task
+    from dinunet_implementations_tpu_torch.weights import jax_transposed_leaves
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA)
+    model = get_task(cfg.task_id).build_model(cfg, torch.Generator().manual_seed(0))
+    tr = jax_transposed_leaves(cfg.ica_args.bidirectional)
+    classes: dict = {}
+    for name, p in model.named_parameters():
+        shape = tuple(p.shape)[::-1] if name in tr else tuple(p.shape)
+        if is_compressible(shape):
+            m, n = _matrix_shape(shape)
+            classes.setdefault(min(K7_RANK, m, n), []).append((name, m, n, name in tr))
+    return dict(sorted(classes.items()))
+
+
+def k7_gradients(torch, leaves, gen):
+    """Per leaf, the ``[S, m, n]`` matrix view the engine hands the kernel:
+    a transposed view of ``[S, n, m]`` storage for an ``nn.Linear`` weight."""
+    S, dev = TRAIN_SITES, torch.device("cuda")
+    out = []
+    for _, m, n, tr in leaves:
+        k = min(K7_SIGNAL, m, n)
+        d = K7_DECAY ** torch.arange(k, device=dev, dtype=torch.float32)
+        A = torch.randn((S, m, k), generator=gen, device=dev)
+        B = torch.randn((S, k, n), generator=gen, device=dev)
+        G = (A * d) @ B / k ** 0.5 + K7_NOISE * torch.randn((S, m, n), generator=gen, device=dev)
+        G[0] = 0.0
+        G[1] = (A[1, :, :2] @ B[1, :2]) / k ** 0.5
+        out.append(G.transpose(1, 2).contiguous().transpose(1, 2) if tr else G.contiguous())
+    return out
+
+
+def k7_bound(Gs, r: int, trips, bf16: bool) -> tuple[float, str]:
+    """Least time for one K7 call: bytes of G read once, Ω read, P and Q
+    written (f32) over HBM bandwidth; product FLOP over the peak for the
+    operand type, ``2·m·n·r`` for each of ``G Ω``, the first ``GᵀP`` and
+    two products a refinement, with each member's trips in this call (the
+    final ``Q = GᵀP`` is the last refinement's ``GᵀP``)."""
+    t = trips.tolist()
+    nbytes, flop, k = 0, 0, 0
+    for G in Gs:
+        L, m, n = G.shape
+        nbytes += 4 * L * (m * n + n * r + (m + n) * r)
+        flop += sum(2 * m * n * r * (2 + 2 * t[k + i]) for i in range(L))
+        k += L
+    tb = nbytes / HBM_BPS
+    to = flop / (BF16_FLOPS if bf16 else F32_FLOPS)
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def k7_errors(torch, Gs, r, got, want) -> dict:
+    """Kernel against plain per member category: P, and Q and PQᵀ over the
+    member's max|G|, for the members of rank ≥ r; PQᵀ alone for site 1
+    when its rank (2) is below r (its other columns are rounding noise);
+    the dead site's factors exactly; the trip counts."""
+    Pg, Qg, tg = got
+    Pw, Qw, tw = want
+    e = {"P": 0.0, "Q": 0.0, "PQ": 0.0, "PQ_rank_below_r": 0.0, "dead_site": 0.0}
+    for G, pg, qg, pw, qw in zip(Gs, Pg, Qg, Pw, Qw):
+        scale = G.abs().amax((1, 2)).clamp(min=1e-30)
+        dP = (pg - pw).abs().amax((1, 2))
+        dQ = (qg - qw).abs().amax((1, 2)) / scale
+        dPQ = ((pg @ qg.mT) - (pw @ qw.mT)).abs().amax((1, 2)) / scale
+        regular = slice(2, None) if r > 2 else slice(1, None)
+        e["P"] = max(e["P"], dP[regular].max().item())
+        e["Q"] = max(e["Q"], dQ[regular].max().item())
+        e["PQ"] = max(e["PQ"], dPQ[regular].max().item())
+        if r > 2:
+            e["PQ_rank_below_r"] = max(e["PQ_rank_below_r"], dPQ[1].item())
+        e["dead_site"] = max(e["dead_site"], (pg[0] - pw[0]).abs().max().item(),
+                             (qg[0] - qw[0]).abs().max().item())
+        if not all(bool(a.isfinite().all()) for a in (pg, qg)):
+            fail(f"K7 rank {r}: non-finite factors")
+    e["trips_differ"] = int((tg != tw).sum().item())
+    e["trips"] = {int(v): int(c) for v, c in zip(*torch.unique(tg, return_counts=True))}
+    return e
+
+
+def poweriter_phase(torch, pc) -> list[dict]:
+    """K7 against its plain version at one round of the flagship's rank
+    classes (32 sites), f32 and bf16, cold and warm Ω, tol 1e-3 and 0;
+    times and bounds of the kernel and the plain version; and the
+    wrapper's refusals."""
+    from dinunet_implementations_tpu_torch.engines.lowrank import default_omega
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    out = []
+    for r, leaves in k7_leaves(torch).items():
+        Gs = k7_gradients(torch, leaves, gen)
+        cold = [default_omega((m, n), r, "cuda").expand(TRAIN_SITES, n, r)
+                for _, m, n, _ in leaves]
+        # warm Ω: the Q of a factorization of the last round's (perturbed) G
+        prev = [G + 0.05 * G.abs().amax((1, 2), keepdim=True)
+                * torch.randn(G.shape, generator=gen, device="cuda") for G in Gs]
+        warm = pc.poweriter_plain(prev, cold, K7_ITERS, 1e-3)[1]
+        for bf16 in (False, True):
+            mm = torch.bfloat16 if bf16 else None
+            for start, oms in (("cold", cold), ("warm", warm)):
+                for tol in (1e-3, 0.0):
+                    got = pc.poweriter_fused(Gs, oms, K7_ITERS, tol, mm)
+                    torch.cuda.synchronize()
+                    want = pc.poweriter_plain(Gs, oms, K7_ITERS, tol, mm)
+                    rec = {"kernel": "poweriter", "rank": r, "members": sum(G.shape[0] for G in Gs),
+                           "shapes": [list(G.shape) for G in Gs],
+                           "dtype": "bf16" if bf16 else "f32", "start": start, "tol": tol}
+                    rec.update(k7_errors(torch, Gs, r, got, want))
+                    bad = [k for k, v in K7_TOL[rec["dtype"]].items() if not rec[k] <= v]
+                    if rec["dead_site"] != 0.0:
+                        bad.append("dead_site")
+                    if tol > 0 and rec["trips_differ"] > K7_TRIPS_DIFFER_SHARE * rec["members"]:
+                        bad.append("trips")
+                    if bad:
+                        fail(f"K7 differs from the plain version in {bad}: {json.dumps(rec)}")
+                    if tol == 1e-3:
+                        rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, oms, K7_ITERS, tol, mm), 20)
+                        rec["plain_ms"] = time_ms(
+                            lambda: pc.poweriter_plain(Gs, oms, K7_ITERS, tol, mm), 5)
+                        rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], bf16)
+                        rec["library_ms"] = None
+                    print(json.dumps(rec))
+                    out.append(rec)
+    # the wrapper refuses what the kernel does not take, before any launch
+    n0 = pc.POWERITER_LAUNCHES
+    for what, G, om in (
+            ("over the shared-memory limit", torch.zeros((1, 4000, 3000), device="cuda"),
+             torch.zeros((1, 3000, 16), device="cuda")),
+            ("no contiguous matrix axis", torch.zeros((2, 64, 64, 2), device="cuda")[..., 0],
+             torch.zeros((2, 64, 4), device="cuda"))):
+        try:
+            pc.poweriter_fused(G, om, K7_ITERS, 1e-3)
+        except ValueError as e:
+            print(f"K7 refuses a class {what}: {e}")
+        else:
+            fail(f"poweriter_fused took a class {what}")
+    if pc.POWERITER_LAUNCHES != n0:
+        fail("a refused class was launched")
+    return out
 
 
 def main() -> int:
@@ -517,6 +728,7 @@ def main() -> int:
     from dinunet_implementations_tpu_torch.core.device import resolve_device
     from dinunet_implementations_tpu_torch.ops import _build
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+    from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
 
     resolve_device(None)  # sets the f32 precision flags the port runs under
     t_start = time.monotonic()
@@ -546,11 +758,22 @@ def main() -> int:
     serve_launches = serving_phase(torch, np, lc)
 
     print(f"== 6. training slice at full ICA-LSTM width: {TRAIN_SITES} sites, batch {TRAIN_BATCH}")
-    train = training_phase(torch, np, lc)
+    train = training_phase(torch, np, lc, pc)
+
+    print(f"== 7. kernel poweriter vs plain: one rankDAD round's rank classes, {TRAIN_SITES} sites")
+    k7 = poweriter_phase(torch, pc)
+
+    print(f"== 8. rankDAD training at full ICA-LSTM width: {TRAIN_SITES} sites, batch {TRAIN_BATCH}")
+    train_dad = training_phase(torch, np, lc, pc, engine="rankDAD")
 
     fwd = next(s for s in shapes if s["rows"] == SERVE_ROWS and s["dtype"] == "f32")
     bwd = next(s for s in bwd_shapes if s["rows"] == TRAIN_SITES * TRAIN_BATCH and s["dtype"] == "f32")
-    by_path = {"serving": serve_launches, "training": train["launches"]["lstm_fwd"]}
+    by_path = {"serving": serve_launches, "training": train["launches"]["lstm_fwd"],
+               "training_rankDAD": train_dad["launches"]["lstm_fwd"]}
+    bwd_by_path = {"training": train["launches"]["lstm_bwd"],
+                   "training_rankDAD": train_dad["launches"]["lstm_bwd"]}
+    k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
+                   and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
         "name": "lstm_fwd", "route": "cuda",
         "source": "dinunet_implementations_tpu_torch/csrc/lstm_fwd.cu",
@@ -565,12 +788,25 @@ def main() -> int:
         "name": "lstm_bwd", "route": "cuda",
         "source": "dinunet_implementations_tpu_torch/csrc/lstm_bwd.cu",
         "replaces": "dinunet_implementations_tpu/ops/lstm_pallas.py:174 (_bwd_kernel)",
-        "launches": train["launches"]["lstm_bwd"],
-        "launches_by_path": {"training": train["launches"]["lstm_bwd"]},
+        "launches": sum(bwd_by_path.values()), "launches_by_path": bwd_by_path,
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"], "kernel_ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"], "library": bwd["library"],
         "shape": {"T": T, "rows": TRAIN_SITES * TRAIN_BATCH, "H": H}, "shapes": bwd_shapes,
+    }, {
+        "name": "poweriter", "route": "cuda",
+        "source": "dinunet_implementations_tpu_torch/csrc/poweriter.cu",
+        "replaces": "dinunet_implementations_tpu/ops/poweriter_pallas.py:164 (_poweriter_kernel)",
+        "launches": train_dad["launches"]["poweriter"],
+        "launches_by_path": {"training_rankDAD": train_dad["launches"]["poweriter"]},
+        "max_abs_err": max(s["P"] for s in k7 if s["dtype"] == "f32"),
+        "ms": k7_main["ms"], "kernel_ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
+        "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"], "library_ms": None,
+        "library": "none: no one PyTorch call computes this power iteration "
+                   "(torch.svd_lowrank and torch.linalg.svd are other algorithms)",
+        "shape": {"rank": K7_RANK, "members": k7_main["members"], "buckets": k7_main["shapes"],
+                  "dtype": "f32", "start": "cold", "tol": k7_main["tol"]},
+        "shapes": [s for s in k7 if "ms" in s],
     }]
     print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

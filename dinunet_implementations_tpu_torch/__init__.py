@@ -5,10 +5,12 @@ It mirrors the JAX package's layout (``models/``, ``ops/``, ``serving/``,
 ``trainer/``, ``runner/``, ``data/``, ``engines/``, …), so each module sits
 at the relative path of the module it is held against, and imports nothing
 of the JAX package. It serves the ICA-LSTM classifier, and trains it by
-federated dSGD with every site on one card, through hand-written CUDA
-kernels for the LSTM recurrence forward and backward (``ops/lstm_cuda.py``,
-``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``). Entry points run on the card
-unless the caller passes ``device="cpu"``.
+federated dSGD or rankDAD with every site on one card, through
+hand-written CUDA kernels for the LSTM recurrence forward and backward
+(``ops/lstm_cuda.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) and for
+rankDAD's power iteration (``ops/poweriter_cuda.py``,
+``csrc/poweriter.cu``). Entry points run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 from .core.config import ICAArgs, NNComputation, TrainConfig

@@ -2,8 +2,8 @@
 
 Field names and defaults are those of the JAX package's ``core/config.py``
 (``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving and
-the dSGD training epoch read). The port keeps its own copy: it imports
-nothing of the JAX package.
+the dSGD and rankDAD training epochs read). The port keeps its own copy: it
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ class NNComputation:
 
 class AggEngine:
     """Aggregation engines (the reference's ``comps/__init__.py:13-16``);
-    the port runs dSGD so far."""
+    the port runs dSGD and rankDAD so far."""
 
     DECENTRALIZED_SGD = "dSGD"
     RANK_DAD = "rankDAD"
@@ -46,6 +46,14 @@ class ICAArgs:
     input_size: int = 256
     hidden_size: int = 348
     bidirectional: bool = True
+    # rankDAD (compspec.json:236-238): factor rank, power-iteration cap and
+    # the relative σ-change tolerance of its early exit
+    dad_reduction_rank: int = 10
+    dad_num_pow_iters: int = 5
+    dad_tol: float = 1e-3
+    # warm-start each round's power iteration from the previous round's
+    # subspace (rankDAD engine state); False = stateless cold starts
+    dad_warm_start: bool = True
     # "bfloat16" runs the encoder and LSTM products in bf16 with f32
     # accumulation; "" = full f32
     compute_dtype: str = ""

@@ -1,15 +1,19 @@
 """Aggregation-engine interface: the subset of the JAX package's
-``engines/base.py`` that dSGD needs.
+``engines/base.py`` that dSGD and rankDAD need.
 
 An engine is a pair of functions the epoch runs every round:
 
-- ``init(params) -> state``: the engine's own state (none for dSGD);
+- ``init(params) -> state``: the engine's state for ONE site, a dict:
+  ``{}`` for dSGD, ``{"omega": {name: Ω [n, r] or None}}`` for rankDAD
+  (a warm-start subspace per compressible leaf, None for a dense one).
+  ``trainer.init_train_state`` stacks it per site (``[S, n, r]``), as the
+  JAX trainer does, and the epoch freezes a dead site's rows for the round;
 - ``aggregate(grads, state, weight, live=None) -> (agg, state)``: per-site
-  gradients (a dict of ``[S, ...]`` leaves) and example weights ``[S]`` to
-  the aggregated gradient (a dict of unbatched leaves). ``live [S]`` is the
-  round's 0/1 contribute mask: a dead site's payload and weight are zeroed
-  before the reduction, and the weighted mean renormalizes over live
-  weight only.
+  gradients (a dict of ``[S, ...]`` leaves), the per-site state and
+  example weights ``[S]`` to the aggregated gradient (a dict of unbatched
+  leaves) and the new per-site state. ``live [S]`` is the round's 0/1
+  contribute mask: a dead site's payload and weight are zeroed before the
+  reduction, and the weighted mean renormalizes over live weight only.
 """
 
 from __future__ import annotations

@@ -1,0 +1,139 @@
+"""rankDAD, distributed-AD low-rank gradient compression: each site
+factorizes every compressible gradient leaf to rank-r factors by power
+iteration and ships the factors; the aggregate is the weighted mean of the
+sites' rank-r reconstructions. The port of the JAX package's
+``engines/rankdad.py`` for ``wire_quant="none"``, ``robust_agg="none"``, no
+DCN codec and the classic site axis (every site on one card, ``mesh=None``).
+
+Per round: a dead site's gradient and weight are zeroed; the 1-D leaves
+are a weighted f32 sum (``precision_bits`` does not touch them); the
+compressible leaves, grouped by effective rank ``min(rank, m, n)``, are
+factorized per site (one K7 launch a rank class on the card, see
+``engines/lowrank.py``); ``P`` and ``Q·w_s`` are cast to the payload dtype;
+the reconstruction ``Σ_s P_s (w_s Q_s)ᵀ`` accumulates in f32. With
+``dad_warm_start`` the engine state holds each leaf's per-site subspace Ω
+``[S, n, r]``, seeded at ``init`` with the cold-start draw
+(``lowrank.default_omega``, so round one equals a cold start) and replaced
+every round by the sites' unweighted ``Q``; the trainer freezes a dead
+site's Ω for the round.
+
+Orientation: factors are taken in the JAX matrix layout. A leaf named in
+``transposed`` is stored as the transpose of its JAX matrix (a port
+``nn.Linear.weight`` ``[out, in]`` against the flax kernel ``[in, out]``):
+the engine factorizes its transposed view, keeps Ω, P and Q in the JAX
+orientation and transposes only the reconstruction back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
+from .base import Engine, mask_dead_site
+from .lowrank import (
+    _matrix_shape,
+    default_omega,
+    is_compressible,
+    subspace_iteration_grouped,
+)
+
+_SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
+
+
+def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
+                 dad_tol: float = 1e-3, precision_bits="32", dad_warm_start: bool = True,
+                 use_kernel: bool = True, transposed=(), wire_quant="none",
+                 robust_agg="none", dcn_wire_quant="", secure_agg="off") -> Engine:
+    """The rankDAD engine. ``use_kernel=False`` runs the power iteration's
+    plain version on any device (the reference the card's kernel path is
+    held against); ``transposed`` names the leaves stored as the transpose
+    of their JAX matrix (``weights.jax_transposed_leaves``)."""
+    if secure_agg not in _SECURE_AGGS:
+        raise ValueError(f"secure_agg must be one of {_SECURE_AGGS}, got {secure_agg!r}")
+    if secure_agg != "off":
+        raise ValueError(
+            f"secure_agg={secure_agg!r} is only supported by the dSGD engine: the low-rank "
+            "engines gather per-site factors, which a masked psum wire cannot carry")
+    for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
+                                      ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),
+                                      ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):
+        if value != ported:
+            raise NotImplementedError(f"rankDAD {name}={value!r} is not ported: ROADMAP {item}")
+    pdtype = payload_dtype(precision_bits)
+    # a bf16 wire also runs the power iteration's products in bf16;
+    # "16-ieee" and "32" keep f32 math
+    mm_dtype = torch.bfloat16 if pdtype == torch.bfloat16 else None
+    transposed = frozenset(transposed)
+
+    def jax_shape(name, shape) -> tuple[int, ...]:
+        """One site's leaf shape in the JAX layout."""
+        shape = tuple(shape)
+        if name in transposed:
+            if len(shape) != 2:
+                raise ValueError(f"transposed leaf {name!r} must be 2-D, got {shape}")
+            return shape[::-1]
+        return shape
+
+    def rank_of(name, shape) -> int | None:
+        js = jax_shape(name, shape)
+        if not is_compressible(js):
+            return None
+        m, n = _matrix_shape(js)
+        return min(dad_reduction_rank, m, n)
+
+    def init(params: dict) -> dict:
+        if not dad_warm_start:
+            return {}
+        oms = {}
+        for name, p in params.items():
+            r = rank_of(name, p.shape)
+            oms[name] = (None if r is None else
+                         default_omega(_matrix_shape(jax_shape(name, p.shape)), r, p.device))
+        return {"omega": oms}
+
+    def matrices(name, g):
+        """A site-batched leaf ``[S, ...]`` as its JAX matrices ``[S, m, n]``
+        (a view; transposed leaves keep their storage)."""
+        g = g.contiguous()
+        if name in transposed:
+            return g.transpose(1, 2)
+        return g.reshape(g.shape[0], *_matrix_shape(g.shape[1:]))
+
+    def aggregate(grads: dict, state: dict, weight, live=None, axis_name=None):
+        if axis_name is not None:
+            raise NotImplementedError("rankDAD over a mesh or packed site axis is not ported: "
+                                      "ROADMAP A11")
+        grads, weight = mask_dead_site(grads, weight, live)
+        scale = site_weight_scale(weight)  # [S]
+        out: dict = {}
+        classes: dict[int, list[str]] = {}
+        for name, g in grads.items():
+            r = rank_of(name, g.shape[1:])
+            if r is None:
+                out[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
+            else:
+                classes.setdefault(r, []).append(name)
+        order = sorted(classes.items())
+        omegas = state["omega"] if dad_warm_start else {}
+        results = subspace_iteration_grouped(
+            [([matrices(n, grads[n]) for n in names], r, [omegas.get(n) for n in names])
+             for r, names in order],
+            dad_num_pow_iters, dad_tol, matmul_dtype=mm_dtype, use_kernel=use_kernel)
+        new_oms = dict(omegas)
+        for (_, names), pqs in zip(order, results):
+            for name, (P, Q) in zip(names, pqs):
+                g = grads[name]
+                Pw = P.to(pdtype).float()  # [S, m, r]
+                Qw = (Q * scale[:, None, None]).to(pdtype).float()  # [S, n, r]
+                if name in transposed:
+                    rec = torch.einsum("snr,smr->nm", Qw, Pw)
+                else:
+                    rec = torch.einsum("smr,snr->mn", Pw, Qw).reshape(g.shape[1:])
+                out[name] = rec.to(g.dtype)
+                # next round's subspace guess: this round's per-site,
+                # unweighted right factor
+                new_oms[name] = Q
+        agg = {name: out[name] for name in grads}
+        return agg, ({"omega": new_oms} if dad_warm_start else state)
+
+    return Engine("rankDAD", init, aggregate)

@@ -11,9 +11,10 @@ import torch
 
 from ..core.config import AggEngine, NNComputation, TrainConfig
 from ..core.device import resolve_device
-from ..engines import Engine, make_dsgd
+from ..engines import Engine, make_dsgd, make_rankdad
 from ..models.icalstm import ICALstm
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
+from ..weights import jax_transposed_leaves
 
 
 @dataclass(frozen=True)
@@ -83,13 +84,21 @@ def build_training(cfg: TrainConfig, device=None,
                    use_kernel: bool = True) -> tuple[FederatedTask, Engine, Optimizer]:
     """The task (its model's weights drawn from ``cfg.seed``, on ``device``:
     the card unless the caller asks for ``"cpu"``), the aggregation engine
-    and the optimizer that ``cfg`` names, for ``make_train_epoch_fn``.
-    ``use_kernel=False`` runs the LSTM through the kernels' plain versions:
-    the reference a check on the card holds the kernels against."""
-    if cfg.agg_engine != AggEngine.DECENTRALIZED_SGD:
-        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A3, A8)")
+    (dSGD, or rankDAD with the ``ica_args`` ``dad_*`` knobs) and the
+    optimizer that ``cfg`` names, for ``make_train_epoch_fn``.
+    ``use_kernel=False`` runs the LSTM and the power iteration through the
+    kernels' plain versions: the reference a check on the card holds the
+    kernels against."""
+    if cfg.agg_engine not in (AggEngine.DECENTRALIZED_SGD, AggEngine.RANK_DAD):
+        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A8)")
     device = resolve_device(device)
     g = torch.Generator().manual_seed(cfg.seed)
     model = get_task(cfg.task_id).build_model(cfg, g, use_kernel=use_kernel).to(device)
-    return (FederatedTask(model), make_dsgd(cfg.precision_bits),
-            make_optimizer(cfg.optimizer, cfg.learning_rate))
+    a = cfg.ica_args
+    if cfg.agg_engine == AggEngine.RANK_DAD:
+        engine = make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
+                              cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
+                              transposed=jax_transposed_leaves(a.bidirectional))
+    else:
+        engine = make_dsgd(cfg.precision_bits)
+    return FederatedTask(model), engine, make_optimizer(cfg.optimizer, cfg.learning_rate)

@@ -4,8 +4,9 @@
 Eval: :class:`FederatedTask` and :func:`eval_forward`, the one inference
 forward that the serving engine runs.
 
-Training: :func:`make_train_epoch_fn` runs one epoch of federated dSGD
-with every site folded onto the card, as the JAX epoch does with
+Training: :func:`make_train_epoch_fn` runs one epoch of federated
+training (the engine's aggregation: dSGD or rankDAD) with every site
+folded onto the card, as the JAX epoch does with
 ``mesh=None`` and ``pipeline="device"``: the sites' data stay resident as
 an ``[S, N_max, ...]`` inventory, each epoch takes an ``[S, steps, B]``
 index plan, and each round gathers its batch on the device. A round runs
@@ -118,7 +119,8 @@ def _adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> O
 class TrainState:
     """What an epoch carries: ``params`` and ``batch_stats`` by the model's
     ``state_dict`` names, the optimizer state (``{"count", "mu", "nu"}`` for
-    Adam), the engine state (none for dSGD), the dropout seed ``rng``, the
+    Adam), the per-site engine state (``{}`` for dSGD; rankDAD's
+    ``{"omega": {name: [S, n, r] or None}}``), the dropout seed ``rng``, the
     global ``round`` and the per-site ``health`` counters."""
 
     params: dict
@@ -130,15 +132,34 @@ class TrainState:
     health: dict
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nested dict; None leaves stay None."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _freeze_dead(alive, new, old):
+    """Hold a dead site's engine state for the round, leaf by leaf of the
+    nested state (``alive [S]`` bool; None leaves stay None): its
+    warm-start subspace resumes where it left off when the site returns."""
+    if isinstance(new, dict):
+        return {k: _freeze_dead(alive, v, old[k]) for k, v in new.items()}
+    return None if new is None else torch.where(per_site(alive, new), new, old)
+
+
 def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
                      num_sites: int = 1) -> TrainState:
     """The first state of a fit, from the weights and running statistics of
-    ``task.model`` (on the model's device)."""
+    ``task.model`` (on the model's device). The engine state is one copy
+    per site, a leading ``[num_sites]`` axis, as in JAX."""
     params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
     stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
     dev = next(iter(params.values())).device
+    site_state = _tree_map(lambda a: a.unsqueeze(0).repeat(num_sites, *([1] * a.dim())),
+                           engine.init(params))
     return TrainState(params=params, batch_stats=stats, opt_state=optimizer.init(params),
-                      engine_state=engine.init(params), rng=rng, round=0,
+                      engine_state=site_state, rng=rng, round=0,
                       health=default_health(num_sites, dev))
 
 
@@ -290,8 +311,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             alive = contribute > 0
             n_eff = n_sum * contribute
             agg, es_new = engine.aggregate(site_grad, engine_state, n_sum, live=contribute)
-            engine_state = {k: torch.where(per_site(alive, v), v, engine_state[k])
-                            for k, v in es_new.items()}
+            engine_state = _freeze_dead(alive, es_new, engine_state)
             total_live = n_eff.sum()
             go = total_live > 0
             # sync-BN: the example-weighted mean of the arriving sites'

@@ -8,9 +8,12 @@ layout and both biases, ``b_ih`` and ``b_hh``, leaf for leaf. A tree with a
 missing or an extra leaf is rejected.
 
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` (its numpy
-leaves: params, batch_stats, the optax Adam ``count/mu/nu``, round and
-health) into the port's :class:`~.trainer.steps.TrainState`, and
-:func:`train_state_to_jax` turns one back into numpy trees in JAX layout.
+leaves: params, batch_stats, the optax Adam ``count/mu/nu``, the engine
+state, round and health) into the port's :class:`~.trainer.steps.TrainState`,
+and :func:`train_state_to_jax` turns one back into numpy trees in JAX
+layout. rankDAD's per-site Ω ``[S, n, r]`` is kept in the JAX matrix
+orientation by both packages, so it crosses unchanged, leaf for leaf (None
+for a dense leaf).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ def _leaves(tree, prefix=()) -> dict:
         for k, v in tree.items():
             out.update(_leaves(v, prefix + (str(k),)))
         return out
-    return {"/".join(prefix): np.asarray(tree)}
+    return {"/".join(prefix): None if tree is None else np.asarray(tree)}
 
 
 def _nest(flat: dict) -> dict:
@@ -52,6 +55,13 @@ def _param_names(bidirectional: bool) -> list[tuple[str, str, bool]]:
         names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False) for leaf in _CELL]
     names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
     return names
+
+
+def jax_transposed_leaves(bidirectional: bool = True) -> frozenset:
+    """The port parameters stored as the transpose of their JAX matrix
+    (``nn.Linear`` weights ``[out, in]``): what the rankDAD engine
+    factorizes through a transposed view."""
+    return frozenset(n for n, _, tr in _param_names(bidirectional) if tr)
 
 
 def _t(a) -> torch.Tensor:
@@ -132,14 +142,24 @@ def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device
         }
     health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
               for k, v in state.health.items()}
-    return TrainState(params=params, batch_stats=stats, opt_state=opt_state, engine_state={},
-                      rng=rng, round=int(np.asarray(state.round)), health=health)
+    engine_state = {}
+    if state.engine_state:
+        om, problems = _leaves(state.engine_state["omega"]), []
+        _check_leaves(problems, "engine_state omega", om,
+                      {j for _, j, _ in _param_names(bidirectional)})
+        _raise_if(problems)
+        engine_state = {"omega": {n: None if om[j] is None else _t(om[j]).to(dev)
+                                  for n, j, _ in _param_names(bidirectional)}}
+    return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
+                      engine_state=engine_state, rng=rng, round=int(np.asarray(state.round)),
+                      health=health)
 
 
 def train_state_to_jax(state, bidirectional: bool = True) -> dict:
     """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
-    ``{}`` for SGD), ``round`` and ``health``."""
+    ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
+    ``{"omega": ...}`` as JAX nests it), ``round`` and ``health``."""
     opt = {}
     if state.opt_state:
         opt = {"count": int(state.opt_state["count"]),
@@ -149,6 +169,10 @@ def train_state_to_jax(state, bidirectional: bool = True) -> dict:
         "params": _params_to_jax(state.params, bidirectional),
         "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy() for n, j in _STATS}),
         "opt_state": opt,
+        "engine_state": {"omega": _nest({
+            j: None if state.engine_state["omega"][n] is None
+            else state.engine_state["omega"][n].detach().cpu().numpy()
+            for n, j, _ in _param_names(bidirectional)})} if state.engine_state else {},
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},
     }
