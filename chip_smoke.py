@@ -42,7 +42,20 @@ result line:
    engine (rank 10, 5 refinements, tol 1e-3, warm starts) through K1, K2
    and K7, held against the all-plain path on the card the same way and
    on Ω; K7 must launch once per rank class per round;
-9. one JSON line of per-kernel numbers, then the result line.
+9. kernels ``bilstm_fwd`` (K3), ``bilstm_pool_fwd`` (K5), ``bilstm_bwd``
+   (K4) and ``bilstm_pool_bwd`` (K6) against their plain versions, every
+   output, f32 and bf16, at rows 16 and 512; times of each kernel, its
+   plain version and a cuDNN ``torch.nn.LSTM(bidirectional=True)`` forward
+   or backward; then, untimed, every rows-per-block template and K4's
+   per-row constant cotangent;
+10. the fused bidirectional arm, ``ICALstm(fused_bidir=True)``: phase 6's
+   two dSGD epochs through K5 and K6 (one launch each per micro-batch, no
+   K1 or K2), held against the same epochs through the plain versions;
+   one bf16 epoch; the one-model eval forward (rows 1 and 16, one K3
+   launch a call) against the per-direction kernel path and the plain
+   path; one one-model gradient (one K3 and one K4 launch) against the
+   plain path;
+11. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -179,10 +192,10 @@ def kernel_phase(torch, lc) -> list[dict]:
             err = compare(f"lstm_fwd rows={rows} {cdt}", got, want, OUTPUTS, tol)
             ms = time_ms(lambda: lc.lstm_recurrence_fused(*args, cdt), 30)
             plain_ms = time_ms(lambda: lc.lstm_recurrence_plain(*args, cdt), 20)
-            library_ms = library_lstm_ms(torch, args, want[0]) if cdt is None else None
+            library = library_lstm_ms(torch, args, want[0], cdt)
             b_ms, b_by = bound(rows, cdt is not None)
             rec = {"rows": rows, "dtype": "bf16" if cdt else "f32", "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "ms": ms, "plain_ms": plain_ms, **library,
                    "bound_ms": b_ms, "bound_by": b_by}
             print(json.dumps(rec))
             out.append(rec)
@@ -266,11 +279,11 @@ def bwd_phase(torch, lc) -> list[dict]:
                           BWD_OUTPUTS, F32_TOL if cdt is None else BF16_TOL)
             ms = time_ms(lambda: lc.lstm_bwd_fused(*args, cdt), 30)
             plain_ms = time_ms(lambda: lc.lstm_bwd_plain(*args, cdt), 10)
-            library_ms = library_lstm_bwd_ms(torch, rows, g) if cdt is None else None
+            library = library_lstm_bwd_ms(torch, rows, g, cdt)
             b_ms, b_by = bwd_bound(rows, cdt is not None)
             rec = {"kernel": "lstm_bwd", "rows": rows, "dtype": "bf16" if cdt else "f32",
                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "library": "cuDNN LSTM backward, also dx and dW",
+                   **library, "library": "cuDNN LSTM backward, also dx and dW",
                    "bound_ms": b_ms, "bound_by": b_by}
             print(json.dumps(rec))
             out.append(rec)
@@ -288,45 +301,84 @@ def bwd_phase(torch, lc) -> list[dict]:
     return out
 
 
-def cudnn_lstm(torch, wih4, b4, whh4):
+def cudnn_lstm(torch, wih, b, whh, cdt=None):
     """A cuDNN ``torch.nn.LSTM`` holding the port's weights, its gate blocks
-    reordered from the port's i, f, o, g to torch's i, f, g, o."""
+    reordered from the port's i, f, o, g to torch's i, f, g, o, at the
+    compute dtype. ``wih [4, D, H]`` for one direction, ``[2, 4, D, H]``
+    (forward, reverse) for a bidirectional LSTM."""
     order = (0, 1, 3, 2)
-    lstm = torch.nn.LSTM(D, H).to(wih4.device)
+    bidir = wih.dim() == 4
+    lstm = torch.nn.LSTM(D, H, bidirectional=bidir).to(wih.device)
     with torch.no_grad():
-        lstm.weight_ih_l0.copy_(torch.cat([wih4[k].T for k in order]))
-        lstm.weight_hh_l0.copy_(torch.cat([whh4[k].T for k in order]))
-        lstm.bias_ih_l0.copy_(torch.cat([b4[k] for k in order]))
-        lstm.bias_hh_l0.zero_()
+        for d, suffix in ((0, ""), (1, "_reverse"))[:2 if bidir else 1]:
+            wi, bi, wh = (w[d] if bidir else w for w in (wih, b, whh))
+            getattr(lstm, "weight_ih_l0" + suffix).copy_(torch.cat([wi[k].T for k in order]))
+            getattr(lstm, "weight_hh_l0" + suffix).copy_(torch.cat([wh[k].T for k in order]))
+            getattr(lstm, "bias_ih_l0" + suffix).copy_(torch.cat([bi[k] for k in order]))
+            getattr(lstm, "bias_hh_l0" + suffix).zero_()
+    lstm = lstm.to(cdt or torch.float32)
+    lstm.flatten_parameters()  # one weight buffer, as cuDNN wants it
     return lstm
 
 
-def library_lstm_bwd_ms(torch, rows: int, g) -> float:
+def library_call(torch, what: str, cdt, build, check_tol: float):
+    """``{"library_ms": ..., "library_max_abs_err": ...}`` of a cuDNN
+    yardstick: ``build()`` returns ``(fn, got, want)``, the call to time and
+    its output beside the plain version's (``want`` None: nothing to hold
+    it against, as for a backward that computes more than the kernel). In
+    f32 the yardstick must agree with the plain version within
+    ``check_tol`` (so it computes the same function); in bf16 cuDNN rounds
+    at its own points, so its error is reported, and if cuDNN refuses bf16
+    its error message stands in for the time."""
+    try:
+        fn, got, want = build()
+        err = None if want is None else (got.float() - want.float()).abs().max().item()
+    except RuntimeError as e:
+        if cdt is None:
+            raise
+        return {"library_ms": None, "library_error": f"{what}: {e}".splitlines()[0][:300]}
+    if cdt is None and err is not None and err > check_tol:
+        fail(f"{what} yardstick disagrees with the plain version: {err}")
+    return {"library_ms": time_ms(fn, 30), "library_max_abs_err": err}
+
+
+def no_grad_call(torch, fn):
+    def call():
+        with torch.no_grad():
+            return fn()
+    return call
+
+
+def library_lstm_bwd_ms(torch, rows: int, g, cdt=None) -> dict:
     """The backward of one cuDNN LSTM call at the same shape: it computes
     the recurrence's cotangents and also dx and dW, so it does more than
     the kernel alone."""
     x, wih4, b4, whh4, h0, c0 = recurrence_args(torch, rows, g)
-    lstm = cudnn_lstm(torch, wih4, b4, whh4)
-    x = x.clone().requires_grad_()
-    hs, _ = lstm(x, (h0[None], c0[None]))
-    dhs = 0.05 * torch.randn(hs.shape, generator=g).cuda()
-    inputs = [x] + list(lstm.parameters())
-    return time_ms(lambda: torch.autograd.grad(hs, inputs, dhs, retain_graph=True), 30)
+    dt = cdt or torch.float32
+
+    def build():
+        lstm = cudnn_lstm(torch, wih4, b4, whh4, cdt)
+        xx = x.to(dt).requires_grad_()
+        hs, _ = lstm(xx, (h0[None].to(dt), c0[None].to(dt)))
+        dhs = (0.05 * torch.randn(hs.shape, generator=g)).to(hs)
+        inputs = [xx] + list(lstm.parameters())
+        return (lambda: torch.autograd.grad(hs, inputs, dhs, retain_graph=True)), hs, None
+    return library_call(torch, "cuDNN LSTM backward", cdt, build, 0.0)
 
 
-def library_lstm_ms(torch, args, hs_plain) -> float:
+def library_lstm_ms(torch, args, hs_plain, cdt=None) -> dict:
     """cuDNN ``torch.nn.LSTM`` on the same data, its gate blocks reordered
     from the port's i, f, o, g to torch's i, f, g, o. Checked against the
     plain version first, so the yardstick computes the same function."""
     x, wih4, b4, whh4, h0, c0 = args
-    lstm = cudnn_lstm(torch, wih4, b4, whh4)
-    with torch.no_grad():
-        hc = (h0[None], c0[None])
-        hs = lstm(x, hc)[0]
-        err = (hs - hs_plain).abs().max().item()
-        if err > F32_TOL:
-            fail(f"cuDNN LSTM yardstick disagrees with the plain version: {err}")
-        return time_ms(lambda: lstm(x, hc), 30)
+    dt = cdt or torch.float32
+
+    def build():
+        lstm = cudnn_lstm(torch, wih4, b4, whh4, cdt)
+        xx, hc = x.to(dt), (h0[None].to(dt), c0[None].to(dt))
+        fn = no_grad_call(torch, lambda: lstm(xx, hc))
+        return fn, fn()[0], hs_plain
+    return library_call(torch, "cuDNN LSTM", cdt, build, F32_TOL)
 
 
 def serving_phase(torch, np, lc):
@@ -395,22 +447,47 @@ def serving_phase(torch, np, lc):
     return launches
 
 
-def training_setup(torch, use_kernel: bool, seed: int = 0, engine: str = "dSGD"):
+def fused_twin(model, cfg, use_kernel: bool):
+    """``ICALstm(fused_bidir=True)`` of ``cfg``'s widths holding ``model``'s
+    weights, on its device: the fused bidirectional arm, built as a caller
+    builds it (the registry builds the per-direction default)."""
+    from dinunet_implementations_tpu_torch.models.icalstm import ICALstm
+
+    a = cfg.ica_args
+    twin = ICALstm(input_size=a.input_size, hidden_size=a.hidden_size,
+                   bidirectional=a.bidirectional, num_cls=a.num_class, num_comps=a.num_components,
+                   window_size=a.window_size, compute_dtype=a.compute_dtype or None,
+                   use_kernel=use_kernel, fused_bidir=True)
+    twin.load_state_dict(model.state_dict())
+    return twin.to(next(model.parameters()).device)
+
+
+def training_setup(torch, use_kernel: bool, seed: int = 0, engine: str = "dSGD",
+                   fused_bidir: bool = False, bf16: bool = False):
     """The full-width ICA-LSTM training configuration (default ``ICAArgs``,
-    f32, the ``engine`` aggregation: rankDAD with its default knobs, rank
-    10, 5 refinements, tol 1e-3, warm starts), its epoch function and first
-    state, dropout 0 so that the kernel and plain paths compute the same
-    function."""
+    f32 or with ``bf16`` the bf16 compute dtype, the ``engine``
+    aggregation: rankDAD with its default knobs, rank 10, 5 refinements,
+    tol 1e-3, warm starts; with ``fused_bidir`` the fused bidirectional
+    arm), its epoch function and first state, dropout 0 so that the kernel
+    and plain paths compute the same function."""
+    import dataclasses
+
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.runner.registry import build_training
     from dinunet_implementations_tpu_torch.trainer.steps import (
+        FederatedTask,
         init_train_state,
         make_train_epoch_fn,
     )
 
     cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=seed, num_sites=TRAIN_SITES,
                       batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine)
+    if bf16:
+        cfg = dataclasses.replace(
+            cfg, ica_args=dataclasses.replace(cfg.ica_args, compute_dtype="bfloat16"))
     task, engine, opt = build_training(cfg, use_kernel=use_kernel)
+    if fused_bidir:
+        task = FederatedTask(fused_twin(task.model, cfg, use_kernel))
     task.model.dropout_rate = 0.0
     epoch = make_train_epoch_fn(task, engine, opt, local_iterations=cfg.local_iterations,
                                 quarantine_rounds=cfg.quarantine_rounds)
@@ -459,9 +536,24 @@ def leaf_errs(got: dict, want: dict) -> dict:
     return {k: [(got[k] - w).abs().max().item(), w.abs().max().item()] for k, w in want.items()}
 
 
-def training_phase(torch, np, lc, pc, engine: str = "dSGD") -> dict:
-    cfg, epoch_k, state_k = training_setup(torch, use_kernel=True, engine=engine)
-    _, epoch_p, state_p = training_setup(torch, use_kernel=False, engine=engine)
+def zero_counters(lc, pc, bc) -> None:
+    lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0
+    bc.BIDIR_FWD_LAUNCHES = bc.BIDIR_BWD_LAUNCHES = 0
+    bc.POOL_FWD_LAUNCHES = bc.POOL_BWD_LAUNCHES = 0
+
+
+def read_counters(lc, pc, bc) -> dict:
+    return {"lstm_fwd": lc.LAUNCHES, "lstm_bwd": lc.BWD_LAUNCHES,
+            "poweriter": pc.POWERITER_LAUNCHES,
+            "bilstm_fwd": bc.BIDIR_FWD_LAUNCHES, "bilstm_bwd": bc.BIDIR_BWD_LAUNCHES,
+            "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES}
+
+
+def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: bool = False) -> dict:
+    cfg, epoch_k, state_k = training_setup(torch, use_kernel=True, engine=engine,
+                                           fused_bidir=fused_bidir)
+    _, epoch_p, state_p = training_setup(torch, use_kernel=False, engine=engine,
+                                         fused_bidir=fused_bidir)
     rankdad = engine == "rankDAD"
     classes = len(k7_leaves(torch)) if rankdad else 0
     if any(not torch.equal(v, state_p.params[k]) for k, v in state_k.params.items()):
@@ -475,7 +567,7 @@ def training_phase(torch, np, lc, pc, engine: str = "dSGD") -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0  # the main path's run starts here
+    zero_counters(lc, pc, bc)  # the main path's run starts here
     st, ms, losses_k = state_k, [], []
     for e in range(TRAIN_EPOCHS):
         t0 = time.perf_counter()
@@ -483,9 +575,7 @@ def training_phase(torch, np, lc, pc, engine: str = "dSGD") -> dict:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses_k.append(lo)
-    # read before any check
-    launches = {"lstm_fwd": lc.LAUNCHES, "lstm_bwd": lc.BWD_LAUNCHES,
-                "poweriter": pc.POWERITER_LAUNCHES}
+    launches = read_counters(lc, pc, bc)  # read before any check
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # the first round's aggregate gradient: mu / (1 - b1) after one Adam step
@@ -528,12 +618,15 @@ def training_phase(torch, np, lc, pc, engine: str = "dSGD") -> dict:
         | {"params": leaf_errs(st.params, sp.params),
            "first_round_omega": leaf_errs(omega(one_k), omega(one_p)),
            "omega": leaf_errs(omega(st), omega(sp))},
-        "engine": engine, "rank_classes": classes,
+        "engine": engine, "rank_classes": classes, "fused_bidir": fused_bidir,
     }
-    print(f"training {engine}:", json.dumps(rec))
-    want_launches = 2 * sum(rounds) * L
-    want = {"lstm_fwd": want_launches, "lstm_bwd": want_launches,
-            "poweriter": classes * sum(rounds)}
+    print(f"training {engine}{' fused_bidir' if fused_bidir else ''}:", json.dumps(rec))
+    want = dict.fromkeys(launches, 0)
+    if fused_bidir:  # one K5 and one K6 per micro-batch, both directions in each
+        want.update(bilstm_pool_fwd=sum(rounds) * L, bilstm_pool_bwd=sum(rounds) * L)
+    else:  # one K1 and one K2 per direction and micro-batch
+        want.update(lstm_fwd=2 * sum(rounds) * L, lstm_bwd=2 * sum(rounds) * L)
+    want["poweriter"] = classes * sum(rounds)
     if launches != want:
         fail(f"training {engine} launches {launches}, want {want}")
     bad = [k for k, (_, ok) in checks.items() if not ok]
@@ -715,6 +808,300 @@ def poweriter_phase(torch, pc) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K3-K6: the fused bidirectional kernels
+
+BIDIR_ROWS = (16, 512)  # the one-model forward and gradient, the training fold
+BIDIR_FWD_OUTPUTS = ("hs2", "cs2", "i2", "f2", "o2", "g2", "hT2", "cT2")
+BIDIR_BWD_OUTPUTS = ("dp", "dh02", "dc02")
+
+
+def bidir_bound(kernel: str, rows: int, bf16: bool) -> tuple[float, str]:
+    """Least time for one call of K3-K6: K1's and K2's counts for both
+    directions. K3: x read once (both directions consume it), the two
+    directions' W_ih, W_hh and f32 biases, the f32 carries in and out, the
+    12 streams written; FLOP ``2·2·T·rows·(D+H)·4H``. K5: K3's and the f32
+    pool ``[rows, 2H]``. K4: twice K2's (per direction six streams read,
+    i, f, o, g, c, dhs, and four dp written, W_hhᵀ, five f32 carries);
+    FLOP ``2·2·T·rows·4H·H``. K6: K4's without the dhs streams, with the
+    f32 ``dpool`` per direction."""
+    es = 2 if bf16 else 4
+    if kernel in ("bilstm_fwd", "bilstm_pool_fwd"):
+        nbytes = (T * rows * D * es + 2 * (4 * D * H + 4 * H * H) * es + 2 * 4 * H * 4
+                  + 2 * 4 * rows * H * 4 + 12 * T * rows * H * es)
+        if kernel == "bilstm_pool_fwd":
+            nbytes += 2 * rows * H * 4
+        flop = 2 * 2 * T * rows * (D + H) * 4 * H
+    else:
+        streams = 10 if kernel == "bilstm_bwd" else 9
+        nbytes = 2 * (streams * T * rows * H * es + 4 * H * H * es + 5 * rows * H * 4)
+        if kernel == "bilstm_pool_bwd":
+            nbytes += 2 * rows * H * 4
+        flop = 2 * 2 * T * rows * 4 * H * H
+    tb, to = nbytes / HBM_BPS, flop / (BF16_FLOPS if bf16 else F32_FLOPS)
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def bidir_args(torch, rows: int, g):
+    """Inputs of both directions at rows ``rows``, as the JAX kernels take
+    them: x ``[T, rows, D]``, wih2 ``[2, 4, D, H]``, b2, whh2, h02, c02."""
+    dev = torch.device("cuda")
+
+    def u(*shape, scale):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
+
+    x = torch.randn((T, rows, D), generator=g).relu().to(dev)
+    return (x, u(2, 4, D, H, scale=D ** -0.5), u(2, 4, H, scale=2 * D ** -0.5),
+            u(2, 4, H, H, scale=H ** -0.5), u(2, rows, H, scale=0.5).contiguous(),
+            u(2, rows, H, scale=0.5).contiguous())
+
+
+def bidir_bwd_args(torch, bc, args, cdt, g, const: bool):
+    """K4's inputs from the plain forward's residuals: random cotangents,
+    full ``[T, rows, H]`` streams or (``const``) ``[1, rows, H]`` per-row
+    constants at the stream dtype."""
+    hs2, cs2, i2, f2, o2, g2, _, _ = bc.bilstm_fwd_plain(*args, cdt)
+    sdt = hs2.dtype
+    rows = hs2.shape[2]
+
+    def cot(*shape):
+        return (0.05 * torch.randn(shape, generator=g)).cuda()
+
+    n = 1 if const else T
+    return (i2, f2, o2, g2, cs2, args[3], args[5], cot(n, rows, H).to(sdt), cot(n, rows, H).to(sdt),
+            cot(2, rows, H), cot(2, rows, H))
+
+
+def library_bilstm(torch, args, cdt, plain_hs2, backward: bool, g) -> dict:
+    """A cuDNN ``torch.nn.LSTM(bidirectional=True)`` on the same data: its
+    reverse half is in x-time as the kernels' streams are, so the forward
+    is held against the plain ``hs2``; the backward also computes dx and
+    dW, so it does more than K4 or K6."""
+    x, wih2, b2, whh2, h02, c02 = args
+    dt = cdt or torch.float32
+
+    def build():
+        lstm = cudnn_lstm(torch, wih2, b2, whh2, cdt)
+        hc = (h02.to(dt), c02.to(dt))
+        if not backward:
+            fn = no_grad_call(torch, lambda: lstm(x.to(dt), hc))
+            return fn, fn()[0], torch.cat([plain_hs2[0], plain_hs2[1]], -1)
+        xx = x.to(dt).requires_grad_()
+        out, _ = lstm(xx, hc)
+        dout = (0.05 * torch.randn(out.shape, generator=g)).to(out)
+        inputs = [xx] + list(lstm.parameters())
+        return (lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True)), out, None
+    what = f"cuDNN bidirectional LSTM {'backward' if backward else 'forward'}"
+    return library_call(torch, what, cdt, build, F32_TOL)
+
+
+def bidir_kernel_phase(torch, bc) -> list[dict]:
+    """K3, K5, K4 (full cotangent streams) and K6 against their plain
+    versions at rows 16 and 512, f32 and bf16, timed beside the plain
+    version, the bound and cuDNN; then, untimed, every rows-per-block
+    template (each with a ragged last block) and K4's per-row constant."""
+    g = torch.Generator().manual_seed(7)
+    out = []
+
+    def record(kernel, rows, cdt, err, fn, plain, plain_runs, library):
+        b_ms, b_by = bidir_bound(kernel, rows, cdt is not None)
+        rec = {"kernel": kernel, "rows": rows, "dtype": "bf16" if cdt else "f32",
+               "max_abs_err": err, "ms": time_ms(fn, 30), "plain_ms": time_ms(plain, plain_runs),
+               **library, "bound_ms": b_ms, "bound_by": b_by}
+        print(json.dumps(rec))
+        out.append(rec)
+
+    for rows in BIDIR_ROWS:
+        for cdt in (None, torch.bfloat16):
+            tol = F32_TOL if cdt is None else BF16_TOL
+            args = bidir_args(torch, rows, g)
+            want = bc.bilstm_fwd_plain(*args, cdt)
+            got = bc.bilstm_fwd_fused(*args, cdt)
+            torch.cuda.synchronize()
+            err = compare(f"bilstm_fwd rows={rows} {cdt}", got, want, BIDIR_FWD_OUTPUTS, tol)
+            fwd_lib = library_bilstm(torch, args, cdt, want[0], False, g)
+            record("bilstm_fwd", rows, cdt, err, lambda: bc.bilstm_fwd_fused(*args, cdt),
+                   lambda: bc.bilstm_fwd_plain(*args, cdt), 10, fwd_lib)
+
+            pwant = bc.bilstm_fwd_plain(*args, cdt, pool=True)
+            pgot = bc.bilstm_pool_fwd_fused(*args, cdt)
+            torch.cuda.synchronize()
+            err = compare(f"bilstm_pool_fwd rows={rows} {cdt}", pgot, pwant,
+                          BIDIR_FWD_OUTPUTS + ("pool",), tol)
+            record("bilstm_pool_fwd", rows, cdt, err, lambda: bc.bilstm_pool_fwd_fused(*args, cdt),
+                   lambda: bc.bilstm_fwd_plain(*args, cdt, pool=True), 10, fwd_lib)
+
+            bargs = bidir_bwd_args(torch, bc, args, cdt, g, const=False)
+            got = bc.bilstm_bwd_fused(*bargs, cdt)
+            torch.cuda.synchronize()
+            err = compare(f"bilstm_bwd rows={rows} {cdt}", got, bc.bilstm_bwd_plain(*bargs, cdt),
+                          BIDIR_BWD_OUTPUTS, tol)
+            bwd_lib = library_bilstm(torch, args, cdt, None, True, g)
+            record("bilstm_bwd", rows, cdt, err, lambda: bc.bilstm_bwd_fused(*bargs, cdt),
+                   lambda: bc.bilstm_bwd_plain(*bargs, cdt), 5, bwd_lib)
+
+            pb = list(bidir_bwd_args(torch, bc, args, cdt, g, const=True))
+            pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
+            got = bc.bilstm_pool_bwd_fused(*pb, cdt)
+            torch.cuda.synchronize()
+            want = bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt)
+            err = compare(f"bilstm_pool_bwd rows={rows} {cdt}", got, want, BIDIR_BWD_OUTPUTS, tol)
+            record("bilstm_pool_bwd", rows, cdt, err, lambda: bc.bilstm_pool_bwd_fused(*pb, cdt),
+                   lambda: bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt),
+                   5, bwd_lib)
+
+    # untimed: the launcher takes the fewest rows a block that keep both
+    # directions' blocks within the SMs (rows / R <= SMs / 2): 16 and 512
+    # above take 1 and 8; these take 2 and 4
+    half = torch.cuda.get_device_properties(0).multi_processor_count // 2
+    for rows in (2 * half - 1, 4 * half - 1):
+        for cdt in (None, torch.bfloat16):
+            tol = F32_TOL if cdt is None else BF16_TOL
+            args = bidir_args(torch, rows, g)
+            errs = {"bilstm_fwd": compare(f"bilstm_fwd rows={rows} {cdt}",
+                                          bc.bilstm_fwd_fused(*args, cdt),
+                                          bc.bilstm_fwd_plain(*args, cdt), BIDIR_FWD_OUTPUTS, tol),
+                    "bilstm_pool_fwd": compare(f"bilstm_pool_fwd rows={rows} {cdt}",
+                                               bc.bilstm_pool_fwd_fused(*args, cdt),
+                                               bc.bilstm_fwd_plain(*args, cdt, pool=True),
+                                               BIDIR_FWD_OUTPUTS + ("pool",), tol)}
+            for const in (False, True):
+                bargs = bidir_bwd_args(torch, bc, args, cdt, g, const)
+                errs[f"bilstm_bwd{' const' if const else ''}"] = compare(
+                    f"bilstm_bwd rows={rows} {cdt} const={const}", bc.bilstm_bwd_fused(*bargs, cdt),
+                    bc.bilstm_bwd_plain(*bargs, cdt), BIDIR_BWD_OUTPUTS, tol)
+            pb = list(bargs)
+            pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
+            errs["bilstm_pool_bwd"] = compare(
+                f"bilstm_pool_bwd rows={rows} {cdt}", bc.bilstm_pool_bwd_fused(*pb, cdt),
+                bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt),
+                BIDIR_BWD_OUTPUTS, tol)
+            print(json.dumps({"check": "bidir rows per block", "rows": rows, "sms": 2 * half,
+                              "dtype": "bf16" if cdt else "f32", "max_abs_err": errs}))
+    # K4's per-row constant at the timed shapes (the one-model gradient's form)
+    for rows in BIDIR_ROWS:
+        args = bidir_args(torch, rows, g)
+        bargs = bidir_bwd_args(torch, bc, args, None, g, const=True)
+        err = compare(f"bilstm_bwd const rows={rows}", bc.bilstm_bwd_fused(*bargs),
+                      bc.bilstm_bwd_plain(*bargs), BIDIR_BWD_OUTPUTS, F32_TOL)
+        print(json.dumps({"check": "bilstm_bwd per-row constant", "rows": rows, "max_abs_err": err}))
+    return out
+
+
+def fused_bf16_epoch(torch, np, lc, pc, bc) -> dict:
+    """The bf16 fused arm (the compute dtype of the JAX bench's arm): one
+    dSGD epoch timed cold (the first bf16 epoch of the run), then the next
+    one timed warm; finite losses and params, one K5 and one K6 per
+    micro-batch."""
+    cfg, epoch, st = training_setup(torch, use_kernel=True, fused_bidir=True, bf16=True)
+    inv, plans = training_data(np, cfg)
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    rounds = [q.shape[1] // cfg.local_iterations for q in plans]
+    idx = [torch.from_numpy(q).cuda() for q in plans]
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)
+    ms, out = [], []
+    for e in range(TRAIN_EPOCHS):
+        t0 = time.perf_counter()
+        st, lo = epoch(st, inv_x, inv_y, idx[e])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(lo)
+    launches = read_counters(lc, pc, bc)
+    losses = torch.cat(out)
+    samples = cfg.num_sites * plans[-1].shape[1] * cfg.batch_size
+    rec = {"epoch_ms": ms, "rounds_per_epoch": rounds, "samples_per_s": samples / (ms[-1] / 1e3),
+           "ms_per_round": ms[-1] / rounds[-1], "losses": losses.tolist(), "launches": launches}
+    print("training dSGD fused_bidir bf16:", json.dumps(rec))
+    want = dict.fromkeys(launches, 0)
+    want.update(bilstm_pool_fwd=sum(rounds) * cfg.local_iterations,
+                bilstm_pool_bwd=sum(rounds) * cfg.local_iterations)
+    if launches != want:
+        fail(f"bf16 fused epoch launches {launches}, want {want}")
+    if losses.shape != (sum(rounds),) or not bool(losses.isfinite().all()):
+        fail(f"bf16 fused epoch losses {losses.tolist()}")
+    if not all(bool(v.isfinite().all()) for v in st.params.values()):
+        fail("bf16 fused epoch: non-finite params")
+    return rec
+
+
+def fused_model_phase(torch, np, lc, pc, bc) -> dict:
+    """The one-model paths of the fused arm at full width: the eval forward
+    (``eval_forward``, rows 1 and 16; one K3 launch a call) against the
+    per-direction kernel path and the plain path, and one gradient of
+    ``ICALstm.forward(train=True)`` on 16 rows (one K3 and one K4 launch)
+    against the plain path."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_model
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        FederatedTask,
+        cross_entropy,
+        eval_forward,
+    )
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+    a = cfg.ica_args
+    per_dir = build_model(cfg)  # the per-direction arm, K1
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():  # non-trivial head BatchNorm state
+        bn = per_dir.cls_bn
+        bn.running_mean.copy_(0.2 * torch.randn(256, generator=g))
+        bn.running_var.copy_(0.5 + 1.5 * torch.rand(256, generator=g))
+    fused = fused_twin(per_dir, cfg, use_kernel=True)
+    plain = fused_twin(per_dir, cfg, use_kernel=False)
+    tasks = {k: FederatedTask(m.eval()) for k, m in
+             (("fused", fused), ("per_direction", per_dir), ("plain", plain))}
+    rng = np.random.default_rng(6)
+    windows = a.temporal_size // a.window_size
+    rec = {"eval": {}, "launches": {}}
+    for rows in (1, 16):
+        x = torch.from_numpy(rng.standard_normal((rows, windows, a.num_components, a.window_size))
+                             .astype(np.float32)).cuda()
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)
+        got = eval_forward(tasks["fused"], x)
+        torch.cuda.synchronize()
+        launches = read_counters(lc, pc, bc)
+        rec["launches"][f"eval_rows_{rows}"] = launches
+        want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1}
+        if launches != want:
+            fail(f"fused eval rows={rows} launches {launches}, want {want}")
+        errs = {k: (got - eval_forward(tasks[k], x)).abs().max().item()
+                for k in ("per_direction", "plain")}
+        rec["eval"][f"rows_{rows}"] = errs
+        if got.shape != (rows, a.num_class) or not bool(got.isfinite().all()) or \
+                max(errs.values()) > SERVE_TOL:
+            fail(f"fused eval rows={rows}: {got.shape}, errors {errs}")
+
+    x = torch.from_numpy(rng.standard_normal((16, windows, a.num_components, a.window_size))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, a.num_class, 16)).cuda()
+    w = torch.ones(16).cuda()
+    grads = {}
+    for k, m in (("fused", fused), ("plain", plain)):
+        m.train().dropout_rate = 0.0
+        named = dict(m.named_parameters())
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)
+        loss = cross_entropy(m(x, train=True, mask=w), y, w)
+        gk = torch.autograd.grad(loss, list(named.values()))
+        torch.cuda.synchronize()
+        if k == "fused":
+            launches = read_counters(lc, pc, bc)
+        grads[k] = dict(zip(named, gk))
+    rec["launches"]["one_model_gradient"] = launches
+    want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1, "bilstm_bwd": 1}
+    if launches != want:
+        fail(f"fused one-model gradient launches {launches}, want {want}")
+    err, ok = tree_err(grads["fused"], grads["plain"], **AGG_TOL)
+    rec["gradient_max_abs_err_vs_plain"] = err
+    rec["gradient_leaf_err_and_scale"] = leaf_errs(grads["fused"], grads["plain"])
+    print("fused one-model paths:", json.dumps(rec))
+    if not ok:
+        fail(f"fused one-model gradient differs from the plain path by {err}")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -727,6 +1114,7 @@ def main() -> int:
 
     from dinunet_implementations_tpu_torch.core.device import resolve_device
     from dinunet_implementations_tpu_torch.ops import _build
+    from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
     from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
 
@@ -758,13 +1146,23 @@ def main() -> int:
     serve_launches = serving_phase(torch, np, lc)
 
     print(f"== 6. training slice at full ICA-LSTM width: {TRAIN_SITES} sites, batch {TRAIN_BATCH}")
-    train = training_phase(torch, np, lc, pc)
+    train = training_phase(torch, np, lc, pc, bc)
 
     print(f"== 7. kernel poweriter vs plain: one rankDAD round's rank classes, {TRAIN_SITES} sites")
     k7 = poweriter_phase(torch, pc)
 
     print(f"== 8. rankDAD training at full ICA-LSTM width: {TRAIN_SITES} sites, batch {TRAIN_BATCH}")
-    train_dad = training_phase(torch, np, lc, pc, engine="rankDAD")
+    train_dad = training_phase(torch, np, lc, pc, bc, engine="rankDAD")
+
+    print(f"== 9. kernels bilstm_fwd, bilstm_pool_fwd, bilstm_bwd, bilstm_pool_bwd vs plain, "
+          f"T={T} D={D} H={H}")
+    bidir = bidir_kernel_phase(torch, bc)
+
+    print(f"== 10. the fused bidirectional arm at full width: {TRAIN_SITES} sites, "
+          f"batch {TRAIN_BATCH}")
+    train_fused = training_phase(torch, np, lc, pc, bc, fused_bidir=True)
+    train_fused_bf16 = fused_bf16_epoch(torch, np, lc, pc, bc)
+    one_model = fused_model_phase(torch, np, lc, pc, bc)
 
     fwd = next(s for s in shapes if s["rows"] == SERVE_ROWS and s["dtype"] == "f32")
     bwd = next(s for s in bwd_shapes if s["rows"] == TRAIN_SITES * TRAIN_BATCH and s["dtype"] == "f32")
@@ -808,6 +1206,42 @@ def main() -> int:
                   "dtype": "f32", "start": "cold", "tol": k7_main["tol"]},
         "shapes": [s for s in k7 if "ms" in s],
     }]
+    one = one_model["launches"]
+    fused_by_path = {
+        "bilstm_fwd": {"eval_rows_1": one["eval_rows_1"]["bilstm_fwd"],
+                       "eval_rows_16": one["eval_rows_16"]["bilstm_fwd"],
+                       "one_model_gradient": one["one_model_gradient"]["bilstm_fwd"]},
+        "bilstm_bwd": {"one_model_gradient": one["one_model_gradient"]["bilstm_bwd"]},
+        "bilstm_pool_fwd": {"training_fused_bidir": train_fused["launches"]["bilstm_pool_fwd"],
+                            "training_fused_bidir_bf16":
+                                train_fused_bf16["launches"]["bilstm_pool_fwd"]},
+        "bilstm_pool_bwd": {"training_fused_bidir": train_fused["launches"]["bilstm_pool_bwd"],
+                            "training_fused_bidir_bf16":
+                                train_fused_bf16["launches"]["bilstm_pool_bwd"]},
+    }
+    for name, source, line, fn, rows in (
+            ("bilstm_fwd", "bilstm_fwd.cu", 470, "_fwd_bidir_kernel", 16),
+            ("bilstm_bwd", "bilstm_bwd.cu", 575, "_bwd_bidir_kernel", 16),
+            ("bilstm_pool_fwd", "bilstm_fwd.cu", 927, "_fwd_pool_kernel4", 512),
+            ("bilstm_pool_bwd", "bilstm_bwd.cu", 1033, "_bwd_pool_kernel4", 512)):
+        main_shape = next(r for r in bidir if r["kernel"] == name and r["rows"] == rows
+                          and r["dtype"] == "f32")
+        by_path = fused_by_path[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"dinunet_implementations_tpu_torch/csrc/{source}",
+            "replaces": f"dinunet_implementations_tpu/ops/lstm_pallas.py:{line} ({fn})",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(r["max_abs_err"] for r in bidir
+                               if r["kernel"] == name and r["dtype"] == "f32"),
+            "ms": main_shape["ms"], "kernel_ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"], "library_ms": main_shape["library_ms"],
+            "library": "cuDNN torch.nn.LSTM(bidirectional=True) "
+                       + ("forward" if "fwd" in name else "backward, also dx and dW"),
+            "shape": {"T": T, "rows": rows, "D": D, "H": H, "dtype": "f32"},
+            "shapes": [r for r in bidir if r["kernel"] == name],
+        })
     print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,7 +10,11 @@ counterpart of the JAX package's ``models/icalstm.py`` (batched lane).
 
 Gates are standard (single sigmoid) in the order i, f, o, g. The
 recurrence runs the CUDA kernels on the card (ops/lstm_cuda.py: K1
-forward, K2 backward) and their plain versions on the CPU.
+forward, K2 backward, one launch per direction) and their plain versions on
+the CPU. ``fused_bidir=True`` opts in to the fused bidirectional pooled op
+instead (ops/bilstm_cuda.py: both directions and the time-mean pool in one
+launch, K3/K4 for one model, K5/K6 over sites), as the JAX model's A/B arm;
+the parameters and their names are the same on both paths.
 
 :meth:`ICALstm.site_forward` is the training forward of a federated round:
 every site at once over an explicit leading site axis, with per-site
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.bilstm_cuda import bilstm_pool_forward_fused, bilstm_pool_forward_plain
 from ..ops.lstm_cuda import lstm_forward_fused, lstm_forward_plain, site_sum
 from .layers import (
     BatchNorm,
@@ -67,6 +72,15 @@ class LSTMCell(nn.Module):
         self.w_hh = nn.Parameter(TorchLinearInit.uniform_(torch.empty(H, 4 * H), H, generator))
         self.b_hh = nn.Parameter(TorchLinearInit.uniform_(torch.empty(4 * H), H, generator))
 
+    def leaves(self, params=None):
+        """``(w_ih, b_ih + b_hh, w_hh)`` as the kernels take them: the
+        module's own, or from ``params``, the cell's four leaves as
+        site-batched stride-0 views ``[S, ...]`` (the bias sum stays of
+        stride 0)."""
+        if params is None:
+            return self.w_ih, self.b_ih + self.b_hh, self.w_hh
+        return params["w_ih"], site_sum(params["b_ih"], params["b_hh"]), params["w_hh"]
+
     def forward(self, x, h0=None, params=None):
         """``params``: the cell's four leaves as site-batched stride-0 views
         ``[S, ...]`` (rows of ``x`` site-major); None = the module's own."""
@@ -74,11 +88,7 @@ class LSTMCell(nn.Module):
         if h0 is None:
             z = torch.zeros((B, H), dtype=torch.float32, device=x.device)
             h0 = (z, z)
-        if params is None:
-            w_ih, b, w_hh = self.w_ih, self.b_ih + self.b_hh, self.w_hh
-        else:
-            w_ih, w_hh = params["w_ih"], params["w_hh"]
-            b = site_sum(params["b_ih"], params["b_hh"])
+        w_ih, b, w_hh = self.leaves(params)
         fn = lstm_forward_fused if self.use_kernel else lstm_forward_plain
         return fn(x, w_ih, b, w_hh, h0[0], h0[1],
                   compute_dtype=compute_dtype_of(self.compute_dtype))
@@ -87,16 +97,25 @@ class LSTMCell(nn.Module):
 class BiLSTM(nn.Module):
     """Bidirectional wrapper; ``hidden_size`` is the total width, split
     across directions. ``time_pool="mean"`` returns each direction's time
-    mean, concatenated, instead of the hidden sequence."""
+    mean, concatenated, instead of the hidden sequence.
+
+    ``fused_bidir=True`` (bidirectional, ``time_pool="mean"``) runs the
+    fused pooled op of both directions (JAX's ``bilstm_pool_forward_fused``
+    arm) over the same two cells' parameters, both biases of each summed
+    per call; ``use_kernel=False`` runs that op's plain versions. The
+    reverse direction reads x through the kernels' time map: x is not
+    flipped."""
 
     def __init__(self, in_dim: int, hidden_size: int, bidirectional: bool = True,
                  compute_dtype=None, use_kernel: bool = True,
-                 time_pool: str | None = None, generator=None):
+                 time_pool: str | None = None, generator=None,
+                 fused_bidir: bool | None = None):
         super().__init__()
         if time_pool not in (None, "mean"):
             raise ValueError(f"unknown time_pool {time_pool!r}")
         self.bidirectional = bidirectional
         self.time_pool = time_pool
+        self.fused_bidir = fused_bidir
         per_dir = hidden_size // (2 if bidirectional else 1)
         self.fwd = LSTMCell(in_dim, per_dir, compute_dtype, use_kernel, generator)
         self.rev = (LSTMCell(in_dim, per_dir, compute_dtype, use_kernel, generator)
@@ -108,6 +127,8 @@ class BiLSTM(nn.Module):
     def forward(self, x, h0=None, params=None):
         """``params``: site-batched leaves by name (``fwd.w_ih``, …), as
         :meth:`LSTMCell.forward` takes them; None = the module's own."""
+        if self.bidirectional and self.time_pool == "mean" and self.fused_bidir is True:
+            return self._fused(x, h0, params)
         fwd, (h, c) = self.fwd(x, h0, None if params is None else _scope(params, "fwd"))
         if not self.bidirectional:
             return self._pool(fwd), (h, c)
@@ -118,18 +139,30 @@ class BiLSTM(nn.Module):
             (torch.cat([h, hr], 1), torch.cat([c, cr], 1)),
         )
 
+    def _fused(self, x, h0, params):
+        pf, pr = (cell.leaves(None if params is None else _scope(params, name))
+                  for name, cell in (("fwd", self.fwd), ("rev", self.rev)))
+        h02 = None if h0 is None else torch.stack([h0[0], h0[0]])
+        c02 = None if h0 is None else torch.stack([h0[1], h0[1]])
+        fn = bilstm_pool_forward_fused if self.fwd.use_kernel else bilstm_pool_forward_plain
+        pooled, (hT2, cT2) = fn(x, pf, pr, h02, c02,
+                                compute_dtype=compute_dtype_of(self.fwd.compute_dtype))
+        return pooled, (torch.cat([hT2[0], hT2[1]], 1), torch.cat([cT2[0], cT2[1]], 1))
+
 
 class ICALstm(nn.Module):
     """See the module docstring. ``forward(x [B, S, C, W], train, mask)``
     returns logits ``[B, num_cls]``; ``mask [B]`` weights rows in the
-    head's batch statistics (train only: eval uses the running stats)."""
+    head's batch statistics (train only: eval uses the running stats).
+    ``fused_bidir=True`` selects the fused bidirectional op (see
+    :class:`BiLSTM`); default off, as in JAX."""
 
     def __init__(self, input_size: int = 256, hidden_size: int = 256,
                  bidirectional: bool = True, num_cls: int = 2, num_comps: int = 53,
                  window_size: int = 20, dropout_rate: float = 0.25,
                  compute_dtype=None, use_kernel: bool = True,
                  double_sigmoid_gates: bool = False, sequence_axis=None,
-                 generator=None):
+                 generator=None, fused_bidir: bool | None = None):
         super().__init__()
         if double_sigmoid_gates:
             raise NotImplementedError("double_sigmoid_gates is not ported")
@@ -140,7 +173,7 @@ class ICALstm(nn.Module):
         g = generator
         self.encoder = dense(num_comps * window_size, input_size, g)
         self.lstm = BiLSTM(input_size, hidden_size, bidirectional, compute_dtype,
-                           use_kernel, time_pool="mean", generator=g)
+                           use_kernel, time_pool="mean", generator=g, fused_bidir=fused_bidir)
         per_dir = hidden_size // (2 if bidirectional else 1)
         width = per_dir * (2 if bidirectional else 1)
         self.cls_fc1 = dense(width, 256, g)

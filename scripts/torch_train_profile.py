@@ -2,11 +2,13 @@
 """Where a federated training round's time goes on the card, for the
 PyTorch/CUDA port at full ICA-LSTM width.
 
-    python3 scripts/torch_train_profile.py [--epochs 2] [--engine dSGD|rankDAD]
+    python3 scripts/torch_train_profile.py [--epochs 2] [--engine dSGD|rankDAD] [--fused-bidir]
 
 It builds the configuration of chip_smoke.py's training phases (default
 ``ICAArgs``, f32, 32 sites of 2-4 batches of 16, Adam 1e-3, the dSGD or the
-rankDAD engine with its default knobs), runs one epoch to warm up, times ``--epochs`` epochs on the host clock, then runs one
+rankDAD engine with its default knobs; with ``--fused-bidir`` the model is
+``ICALstm(fused_bidir=True)``, whose BiLSTM runs K5 and K6), runs one epoch
+to warm up, times ``--epochs`` epochs on the host clock, then runs one
 epoch under ``torch.profiler`` and prints device time per round by kernel
 name and the device's busy and idle share of that window. Every line is one
 JSON object; it needs one CUDA card and imports nothing of JAX.
@@ -33,6 +35,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--engine", choices=("dSGD", "rankDAD"), default="dSGD")
+    ap.add_argument("--fused-bidir", action="store_true")
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
@@ -40,7 +43,9 @@ def main() -> int:
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    cfg, epoch, state = chip_smoke.training_setup(torch, use_kernel=True, engine=args.engine)
+    cfg, epoch, state = chip_smoke.training_setup(torch, use_kernel=True, engine=args.engine,
+                                                  fused_bidir=args.fused_bidir)
+    arm = {"engine": args.engine, "fused_bidir": args.fused_bidir}
     inv, plans = chip_smoke.training_data(np, cfg)
     inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
     idx = torch.from_numpy(plans[0]).cuda()
@@ -55,7 +60,7 @@ def main() -> int:
         state, _ = epoch(state, inv_x, inv_y, idx)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    print(json.dumps({"engine": args.engine, "epoch_ms": ms, "rounds": rounds, "samples_per_epoch": samples,
+    print(json.dumps({**arm, "epoch_ms": ms, "rounds": rounds, "samples_per_epoch": samples,
                       "samples_per_s": [samples / (m / 1e3) for m in ms], "card": smi}))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -81,7 +86,7 @@ def main() -> int:
             end = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:16]
     print(json.dumps({
-        "engine": args.engine, "rounds": rounds, "window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
+        **arm, "rounds": rounds, "window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
         "device_idle_share": (1 - busy / window_us) if spans else None,
         "device_ms_per_round_by_kernel": {n: us / 1e3 / rounds for n, us in top},
         "device_ms_per_round_all_kernels": sum(by_name.values()) / 1e3 / rounds,
