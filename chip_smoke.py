@@ -9,12 +9,18 @@ result line:
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every kernel from ``dinunet_implementations_tpu_torch/csrc``;
-3. kernel ``lstm_fwd`` (K1) against ``lstm_recurrence_plain`` on the card,
+3. kernel ``lstm_fwd`` (K1: the projection, then the recurrence over a
+   thread-block cluster) against ``lstm_recurrence_plain`` on the card,
    all eight outputs, f32 and bf16, at T=98, D=256, H=174 and rows 1, 16,
-   512; times of the kernel, the plain version and a cuDNN
-   ``torch.nn.LSTM``; then, untimed, every rows-per-block template of the
-   launcher, and the model-layout ``lstm_forward_fused`` against
-   ``lstm_forward_plain``;
+   512, on the route the launcher picks and on the streaming route, and
+   the projection's xp against ``lstm_proj_plain``; the geometry picked
+   (cluster size, rows a cluster, clusters, shared memory, threads) with
+   cudaOccupancyMaxActiveClusters; times of K1 on both routes, the
+   projection alone, the plain version and a cuDNN ``torch.nn.LSTM``;
+   then, untimed, every geometry the launcher can pick (clusters of 2, 4
+   and 8, ragged slices and rows, the streaming route's rows-per-block
+   templates at H=400), and the model-layout ``lstm_forward_fused``
+   against ``lstm_forward_plain``;
 4. kernel ``lstm_bwd`` (K2) against ``lstm_bwd_plain``, all six outputs,
    f32 and bf16, at rows 16 and 512; times of the kernel, the plain
    version and the backward of a cuDNN ``torch.nn.LSTM`` (which also
@@ -22,11 +28,13 @@ result line:
 5. the serving slice at full ICA-LSTM width: ``InferenceEngine`` answers
    requests of 1-16 rows from two threads; every answer is checked against
    ``eval_forward`` with the plain LSTM, and the launch counter must show
-   two kernel launches (one per direction) for every dispatch;
+   two K1 calls (one per direction) for every dispatch, all on the
+   cluster route;
 6. the training slice at full width: two federated dSGD epochs of 32
    sites, batch 16, Adam 1e-3, through ``make_train_epoch_fn`` with the
    kernels; each kernel must launch exactly twice (one per direction) per
-   micro-batch; the first round's aggregate gradient, and the params,
+   micro-batch, K1 on the cluster route; the first round's aggregate
+   gradient, and the params,
    optimizer state, running statistics and losses after the epochs, are
    held against the same epochs through the kernels' plain versions on
    the card; epoch ms, samples/s and ms per round are printed;
@@ -37,11 +45,14 @@ result line:
    cold and warm Ω, tol 1e-3 and 0; P, Q, PQᵀ and the trip counts
    compared; times of the kernel and the plain version and the bound; the
    wrapper's refusals (a class over the shared-memory limit, a G with no
-   contiguous matrix axis);
+   contiguous matrix axis); an r=17 class through the engine's
+   ``subspace_iteration_grouped``, which goes to the plain version by
+   shape (``POWERITER_PLAIN_CLASSES``) while an r=2 class launches K7;
 8. the rankDAD training slice: phase 6's two epochs with the rankDAD
    engine (rank 10, 5 refinements, tol 1e-3, warm starts) through K1, K2
    and K7, held against the all-plain path on the card the same way and
-   on Ω; K7 must launch once per rank class per round;
+   on Ω; K7 must launch once per rank class per round, and no class may
+   go to the plain version;
 9. kernels ``bilstm_fwd`` (K3), ``bilstm_pool_fwd`` (K5), ``bilstm_bwd``
    (K4) and ``bilstm_pool_bwd`` (K6) against their plain versions, every
    output, f32 and bf16, at rows 16 and 512; times of each kernel, its
@@ -82,6 +93,8 @@ F32_TOL = 1e-4
 # bf16 h fed back carries that flip into later steps
 BF16_TOL = 3e-2
 SERVE_TOL = 1e-4
+# a width whose W_hh slice fits no cluster of 8 in f32: K1's streaming route
+STREAM_H = 400
 BWD_ROWS = (16, 512)  # a serving-sized fold and the training fold (32 sites x 16)
 TRAIN_SITES, TRAIN_BATCH, TRAIN_LR, TRAIN_EPOCHS = 32, 16, 1e-3, 2
 # The training comparison (kernels vs their plain versions, f32, same
@@ -147,6 +160,12 @@ def bound(rows: int, bf16: bool) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
+def scratch_ms(rows: int) -> float:
+    """K1's own cost beyond the function's bytes: the f32 projection scratch
+    [T, rows, 4H] written once and read once, over HBM bandwidth."""
+    return 2 * T * rows * 4 * H * 4 / HBM_BPS * 1e3
+
+
 OUTPUTS = ("hs", "cs", "i", "f", "o", "g", "hT", "cT")
 
 
@@ -164,61 +183,116 @@ def compare(what: str, got, want, names, tol: float) -> float:
     return err
 
 
-def recurrence_args(torch, rows: int, g):
-    """Inputs of one direction at rows ``rows``, as the JAX kernel takes them."""
+def recurrence_args(torch, rows: int, g, h: int = H):
+    """Inputs of one direction at rows ``rows`` (width ``h``), as the JAX
+    kernel takes them."""
     dev = torch.device("cuda")
 
     def u(*shape, scale):
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
 
     x = torch.randn((T, rows, D), generator=g).relu().to(dev)  # encoder output is ReLU'd
-    wih4 = u(4, D, H, scale=D ** -0.5)
-    b4 = u(4, H, scale=2 * D ** -0.5)
-    whh4 = u(4, H, H, scale=H ** -0.5)
-    h0, c0 = u(rows, H, scale=0.5).contiguous(), u(rows, H, scale=0.5).contiguous()
+    wih4 = u(4, D, h, scale=D ** -0.5)
+    b4 = u(4, h, scale=2 * D ** -0.5)
+    whh4 = u(4, h, h, scale=h ** -0.5)
+    h0, c0 = u(rows, h, scale=0.5).contiguous(), u(rows, h, scale=0.5).contiguous()
     return x, wih4, b4, whh4, h0, c0
 
 
+def geometry_line(torch, lc, rows: int, h: int, cdt, geometry=None) -> dict:
+    """The launcher's geometry for ``rows`` rows of width ``h`` on this card,
+    with cudaOccupancyMaxActiveClusters of its configuration."""
+    g = dict(geometry or lc.device_geometry("cuda", rows, h, cdt))
+    g["max_active_clusters"] = lc.k1_max_active_clusters("cuda", rows, h, cdt, g)
+    return g
+
+
 def kernel_phase(torch, lc) -> list[dict]:
+    """K1 at the main path's shapes: every output against the plain version
+    on both routes (the cluster route the launcher picks, and the streaming
+    route, stage 1's recurrence), and the projection's xp against its plain
+    version; times of K1 on each route, of the projection alone, of the
+    plain version and of cuDNN, beside the bound."""
     g = torch.Generator().manual_seed(0)
+    sms, optin = lc.device_limits("cuda")
     out = []
     for rows in KERNEL_ROWS:
         args = recurrence_args(torch, rows, g)
+        stream = lc.k1_stream_geometry(rows, H, sms, optin)
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
+            geo = geometry_line(torch, lc, rows, H, cdt)
+            xp = lc.lstm_proj_fused(*args[:3], cdt)
+            torch.cuda.synchronize()
+            xp_err = compare(f"lstm_proj rows={rows} {cdt}", (xp,),
+                             (lc.lstm_proj_plain(*args[:3], cdt),), ("xp",), F32_TOL)
+            want = lc.lstm_recurrence_plain(*args, cdt, residuals=True)
             got = lc.lstm_recurrence_fused(*args, cdt, residuals=True)
             torch.cuda.synchronize()
-            want = lc.lstm_recurrence_plain(*args, cdt, residuals=True)
-            err = compare(f"lstm_fwd rows={rows} {cdt}", got, want, OUTPUTS, tol)
+            err = compare(f"lstm_fwd rows={rows} {cdt} {geo['route']}", got, want, OUTPUTS, tol)
+            got = lc.lstm_recurrence_fused(*args, cdt, residuals=True, geometry=stream)
+            torch.cuda.synchronize()
+            stream_err = compare(f"lstm_fwd rows={rows} {cdt} stream", got, want, OUTPUTS, tol)
             ms = time_ms(lambda: lc.lstm_recurrence_fused(*args, cdt), 30)
+            stream_ms = time_ms(lambda: lc.lstm_recurrence_fused(*args, cdt, geometry=stream), 30)
+            proj_ms = time_ms(lambda: lc.lstm_proj_fused(*args[:3], cdt), 30)
             plain_ms = time_ms(lambda: lc.lstm_recurrence_plain(*args, cdt), 20)
             library = library_lstm_ms(torch, args, want[0], cdt)
             b_ms, b_by = bound(rows, cdt is not None)
+            phases = lc.k1_phase_profile(*args, cdt) if geo["route"] == "cluster" else None
             rec = {"rows": rows, "dtype": "bf16" if cdt else "f32", "max_abs_err": err,
-                   "ms": ms, "plain_ms": plain_ms, **library,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "ms": ms, "route": geo["route"], "proj_ms": proj_ms, "proj_max_abs_err": xp_err,
+                   "step_phases": phases,
+                   "stream_ms": stream_ms, "stream_max_abs_err": stream_err,
+                   "plain_ms": plain_ms, **library, "bound_ms": b_ms, "bound_by": b_by,
+                   "scratch_ms": scratch_ms(rows), "geometry": geo,
+                   "stream_geometry": stream}
             print(json.dumps(rec))
             out.append(rec)
     return out
 
 
 def coverage_phase(torch, lc) -> None:
-    """Untimed checks of what the timed shapes leave out: every rows-per-block
-    template the launcher can pick (1, 2, 4, 8 rows a block, each with a
-    ragged last block), and the model-layout wrapper, whose strided views
-    of x [B, T, D] and w [D, 4H] are what the serving path passes."""
+    """Untimed checks of what the timed shapes leave out: every geometry the
+    launcher can pick (clusters of 2, 4 and 8, each row count a thread may
+    carry, ragged slices and a ragged last cluster; the streaming route's
+    1, 2, 4 and 8 rows a block, at an H whose W_hh fits no cluster), every
+    output against the plain version; and the model-layout wrapper, whose
+    strided views of x [B, T, D] and w [D, 4H] are what the serving path
+    passes."""
     g = torch.Generator().manual_seed(3)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    # the launcher takes the fewest rows a block that keep blocks <= SMs
-    for rows in (2 * sms - 1, 4 * sms - 1, 4 * sms + 7):
-        args = recurrence_args(torch, rows, g)
-        for cdt in (None, torch.bfloat16):
-            got = lc.lstm_recurrence_fused(*args, cdt, residuals=True)
-            want = lc.lstm_recurrence_plain(*args, cdt, residuals=True)
-            err = compare(f"lstm_fwd rows={rows} {cdt}", got, want, OUTPUTS,
-                          F32_TOL if cdt is None else BF16_TOL)
-            print(json.dumps({"check": "rows per block", "rows": rows, "sms": sms,
-                              "dtype": "bf16" if cdt else "f32", "max_abs_err": err}))
+    sms, optin = lc.device_limits("cuda")
+    bf = torch.bfloat16
+    # (H, dtype, the cluster size the launcher should take, rows a cluster,
+    # rows short of filling the last cluster of a full wave); None: the
+    # streaming route, whose wave is one block an SM
+    cases = [(H, None, 4, 1, 0), (H, None, 4, 2, 1), (H, None, 4, 3, 2), (H, None, 4, 4, 1),
+             (H, None, 4, 12, 5), (H, None, 4, 17, 3), (H, bf, 2, 2, 1), (H, bf, 2, 8, 1),
+             (128, None, 2, 1, 0), (256, None, 8, 7, 3), (256, None, 8, 32, 1)]
+    cases += [(STREAM_H, None, None, R, 1) for R in (1, 2, 4, 8)]
+    seen = set()
+    for h, cdt, C, R, short in cases:
+        wave = sms if C is None else lc.k1_max_active_clusters(
+            "cuda", 1, h, cdt, lc.k1_cluster_geometry(1, h, C, R, cdt, optin))
+        rows = max(1, R * wave - short)
+        geo = geometry_line(torch, lc, rows, h, cdt)
+        if geo["route"] != ("stream" if C is None else "cluster") or geo.get("C", C) != C \
+                or geo["R"] != R:
+            fail(f"K1 geometry for rows={rows} H={h} {cdt}: {geo}, expected C={C} R={R}")
+        seen.add((geo["route"], geo.get("C"), geo.get("rpt", geo["R"])))
+        x, wih4, b4, whh4, h0, c0 = recurrence_args(torch, rows, g, h)
+        args = (x, wih4, b4, whh4, h0, c0)
+        tol = F32_TOL if cdt is None else BF16_TOL
+        err = compare(f"lstm_fwd rows={rows} H={h} {cdt}", lc.lstm_recurrence_fused(
+            *args, cdt, residuals=True), lc.lstm_recurrence_plain(*args, cdt, residuals=True),
+            OUTPUTS, tol)
+        print(json.dumps({"check": "K1 geometry", "rows": rows, "H": h,
+                          "dtype": "bf16" if cdt else "f32", "max_abs_err": err, "geometry": geo}))
+    need = {("cluster", C, None) for C in (2, 4, 8)} | {("cluster", None, r) for r in (1, 2, 4, 8)} \
+        | {("stream", None, r) for r in (1, 2, 4, 8)}
+    covered = {(a, C, None) for a, C, _ in seen} | {(a, None, r) for a, _, r in seen}
+    if not need <= covered:
+        fail(f"K1 coverage misses {sorted(map(str, need - covered))}")
     for rows in (1, 16):
         x, wih4, b4, whh4, h0, c0 = recurrence_args(torch, rows, g)
         model = (x.transpose(0, 1).contiguous(), wih4.permute(1, 0, 2).reshape(D, 4 * H),
@@ -419,7 +493,8 @@ def serving_phase(torch, np, lc):
             for i, f in futs:
                 answers[i] = f.result(timeout=120)
 
-        lc.LAUNCHES = 0  # the main path's run starts here
+        lc.LAUNCHES = lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+        # the main path's run starts here
         threads = [threading.Thread(target=client, args=(range(k, N_REQUESTS, 2),))
                    for k in (0, 1)]
         t0 = time.monotonic()
@@ -429,11 +504,15 @@ def serving_phase(torch, np, lc):
             t.join(timeout=300)
         wall = time.monotonic() - t0
     launches = lc.LAUNCHES  # read just after the run, before any reference work
+    routes = {"lstm_proj": lc.PROJ_LAUNCHES, "k1_cluster_route": lc.K1_CLUSTER_CALLS,
+              "k1_stream_route": lc.K1_STREAM_CALLS}
     if any(t.is_alive() for t in threads) or any(x is None for x in answers):
         fail("not every request was answered")
     summary = eng.summary()
     if summary["requests"] != N_REQUESTS or launches != 2 * summary["dispatches"] or launches == 0:
         fail(f"launches {launches} vs dispatches {summary['dispatches']}: {summary}")
+    if routes != {"lstm_proj": launches, "k1_cluster_route": launches, "k1_stream_route": 0}:
+        fail(f"serving K1 routes {routes} for {launches} K1 calls")
     err = 0.0
     for x, got in zip(reqs, answers):
         want = eval_forward(ref_task, torch.from_numpy(x).cuda()).cpu().numpy()
@@ -442,7 +521,7 @@ def serving_phase(torch, np, lc):
         err = max(err, float(np.abs(got - want).max()))
     if err > SERVE_TOL:
         fail(f"served probabilities differ from the plain path by {err}")
-    summary.update(wall_s=wall, lstm_launches=launches, max_abs_err_vs_plain=err)
+    summary.update(wall_s=wall, lstm_launches=launches, k1_routes=routes, max_abs_err_vs_plain=err)
     print("serving:", json.dumps(summary))
     return launches
 
@@ -537,14 +616,24 @@ def leaf_errs(got: dict, want: dict) -> dict:
 
 
 def zero_counters(lc, pc, bc) -> None:
+    from dinunet_implementations_tpu_torch.engines import lowrank
+
     lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0
+    lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+    lowrank.POWERITER_PLAIN_CLASSES = 0
     bc.BIDIR_FWD_LAUNCHES = bc.BIDIR_BWD_LAUNCHES = 0
     bc.POOL_FWD_LAUNCHES = bc.POOL_BWD_LAUNCHES = 0
 
 
 def read_counters(lc, pc, bc) -> dict:
-    return {"lstm_fwd": lc.LAUNCHES, "lstm_bwd": lc.BWD_LAUNCHES,
-            "poweriter": pc.POWERITER_LAUNCHES,
+    """Kernel launches, and the static routes: K1's recurrence over a
+    cluster or streamed, rank classes sent to the plain power iteration."""
+    from dinunet_implementations_tpu_torch.engines import lowrank
+
+    return {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
+            "k1_cluster_route": lc.K1_CLUSTER_CALLS, "k1_stream_route": lc.K1_STREAM_CALLS,
+            "lstm_bwd": lc.BWD_LAUNCHES, "poweriter": pc.POWERITER_LAUNCHES,
+            "poweriter_plain_classes": lowrank.POWERITER_PLAIN_CLASSES,
             "bilstm_fwd": bc.BIDIR_FWD_LAUNCHES, "bilstm_bwd": bc.BIDIR_BWD_LAUNCHES,
             "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES}
 
@@ -624,8 +713,9 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
     want = dict.fromkeys(launches, 0)
     if fused_bidir:  # one K5 and one K6 per micro-batch, both directions in each
         want.update(bilstm_pool_fwd=sum(rounds) * L, bilstm_pool_bwd=sum(rounds) * L)
-    else:  # one K1 and one K2 per direction and micro-batch
-        want.update(lstm_fwd=2 * sum(rounds) * L, lstm_bwd=2 * sum(rounds) * L)
+    else:  # one K1 (on the cluster route) and one K2 per direction and micro-batch
+        n = 2 * sum(rounds) * L
+        want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n)
     want["poweriter"] = classes * sum(rounds)
     if launches != want:
         fail(f"training {engine} launches {launches}, want {want}")
@@ -805,7 +895,39 @@ def poweriter_phase(torch, pc) -> list[dict]:
             fail(f"poweriter_fused took a class {what}")
     if pc.POWERITER_LAUNCHES != n0:
         fail("a refused class was launched")
+    plain_route_check(torch, pc, gen)
     return out
+
+
+def plain_route_check(torch, pc, gen) -> dict:
+    """A rank class K7 does not take (r = 17 > 16, a valid
+    ``dad_reduction_rank`` in JAX) through the engine's
+    ``subspace_iteration_grouped`` beside one it takes (r = 2): the first
+    goes to the plain version by shape, before any launch, and is counted;
+    the second launches K7 once. Each member is of rank 17 exactly, so the
+    factors must rebuild it."""
+    from dinunet_implementations_tpu_torch.engines import lowrank
+
+    S, m, n, k = TRAIN_SITES, 256, 64, 17
+    G17 = (torch.randn((S, m, k), generator=gen, device="cuda")
+           @ torch.randn((S, k, n), generator=gen, device="cuda")) / k ** 0.5
+    G2 = torch.randn((S, 64, 2), generator=gen, device="cuda")
+    n0, p0 = pc.POWERITER_LAUNCHES, lowrank.POWERITER_PLAIN_CLASSES
+    (P, Q), = lowrank.subspace_iteration_grouped([([G17], 17, None)], K7_ITERS, 1e-3)[0]
+    (P2, Q2), = lowrank.subspace_iteration_grouped([([G2], 2, None)], K7_ITERS, 1e-3)[0]
+    torch.cuda.synchronize()
+    rec = {"check": "rank class past K7", "rank": 17, "members": S, "shape": [m, n],
+           "poweriter_plain_classes": lowrank.POWERITER_PLAIN_CLASSES - p0,
+           "poweriter_launches": pc.POWERITER_LAUNCHES - n0,
+           "rebuild_err_share": ((P @ Q.mT - G17).abs().amax() / G17.abs().amax()).item(),
+           "rank2_rebuild_err_share": ((P2 @ Q2.mT - G2).abs().amax() / G2.abs().amax()).item()}
+    print(json.dumps(rec))
+    if rec["poweriter_plain_classes"] != 1 or rec["poweriter_launches"] != 1:
+        fail(f"the r = 17 class was not routed to the plain version by shape: {rec}")
+    if P.shape != (S, m, 17) or Q.shape != (S, n, 17) or not rec["rebuild_err_share"] <= 1e-3 \
+            or not rec["rank2_rebuild_err_share"] <= 1e-3:
+        fail(f"the r = 17 class's factors: {tuple(P.shape)}, {tuple(Q.shape)}, {rec}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -1181,6 +1303,12 @@ def main() -> int:
         "ms": fwd["ms"], "kernel_ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"], "shape": {"T": T, "rows": SERVE_ROWS, "D": D, "H": H},
+        "design": "two launches: a tiled SIMT GEMM projects x W_ih + b into an f32 scratch; "
+                  "the recurrence runs over a thread-block cluster whose blocks hold their "
+                  "W_hh columns in shared memory and exchange h through distributed shared "
+                  "memory, one cluster barrier a step (the streaming recurrence for a W_hh "
+                  "that fits no cluster of 8)",
+        "geometry": fwd["geometry"], "proj_ms": fwd["proj_ms"], "stream_ms": fwd["stream_ms"],
         "shapes": shapes,
     }, {
         "name": "lstm_bwd", "route": "cuda",

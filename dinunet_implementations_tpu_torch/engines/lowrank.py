@@ -13,12 +13,21 @@ factorizes its transposed view (``engines/rankdad.py``).
 The power iteration itself, :func:`subspace_iteration_grouped`, runs each
 rank class through ``ops/poweriter_cuda.py``: the hand-written kernel K7
 for CUDA tensors, its plain PyTorch version for CPU tensors or when the
-caller asks for the plain path (``use_kernel=False``).
+caller asks for the plain path (``use_kernel=False``). A class that K7
+does not take (``poweriter_cuda.k7_takes``: rank above 16, more than 16
+shape buckets, iterates over the shared-memory limit) goes to the plain
+version on every device, a static route chosen by shape, as the JAX
+engine sends such a class to its XLA loop; ``POWERITER_PLAIN_CLASSES``
+counts those classes.
 """
 
 from __future__ import annotations
 
 import torch
+
+#: rank classes sent to the plain power iteration because K7 does not take
+#: them, since the counter was last set to 0
+POWERITER_PLAIN_CLASSES = 0
 
 
 def _matrix_shape(shape) -> tuple[int, int]:
@@ -140,13 +149,15 @@ def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=
     freezes finished members, so results are the same member for member.
     Each group goes to ``ops.poweriter_cuda.poweriter_fused`` (one K7
     launch for CUDA tensors; the plain version for CPU tensors), or to
-    ``poweriter_plain`` with ``use_kernel=False``. ``matmul_dtype=
+    ``poweriter_plain`` with ``use_kernel=False`` or when the kernel does
+    not take the class (``k7_takes``; counted in
+    ``POWERITER_PLAIN_CLASSES``). ``matmul_dtype=
     torch.bfloat16`` runs the products ``G@Ω``, ``GᵀP``, ``G(GᵀP)`` with
     bf16 operands and f32 accumulation; normalization, Cholesky and σ stay
     f32."""
-    from ..ops.poweriter_cuda import poweriter_fused, poweriter_plain
+    from ..ops.poweriter_cuda import k7_takes, poweriter_fused, poweriter_plain
 
-    run = poweriter_fused if use_kernel else poweriter_plain
+    global POWERITER_PLAIN_CLASSES
     out = []
     for Gs, rank, omegas in groups:
         r = min([rank] + [min(G.shape[-2:]) for G in Gs])
@@ -164,6 +175,12 @@ def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=
                 om = om[None].expand(G3.shape[0], *om.shape)
             stacks.append(G3)
             oms.append(om)
+        run = poweriter_plain
+        if use_kernel:
+            if k7_takes([tuple(G.shape[-2:]) for G in stacks], r):
+                run = poweriter_fused
+            else:
+                POWERITER_PLAIN_CLASSES += 1
         Ps, Qs, _ = run(stacks, oms, num_iters, tol, matmul_dtype)
         out.append([(P, Q) if G.dim() == 3 else (P[0], Q[0]) for G, P, Q in zip(Gs, Ps, Qs)])
     return out

@@ -6,8 +6,8 @@ path (``_fwd_fused_kernel`` and ``_bwd_kernel`` behind
 ``lstm_recurrence_fused`` and ``lstm_forward_fused``), with the same
 signatures and layouts:
 
-- ``x [T, B, D]`` raw per-step inputs: the i2h projection runs inside the
-  forward kernel, as on the TPU;
+- ``x [T, B, D]`` raw per-step inputs: K1 computes the i2h projection
+  itself, as the TPU kernel does (here in a launch of its own);
 - ``wih4 [4, D, H]``, ``b4 [4, H]``, ``whh4 [4, H, H]``, gates in the order
   i, f, o, g (not ``torch.nn.LSTM``'s i, f, g, o);
 - ``h0, c0 [B, H]`` f32.
@@ -16,8 +16,16 @@ Kernel sources: ``csrc/lstm_fwd.cu`` (K1) and ``csrc/lstm_bwd.cu`` (K2).
 :func:`lstm_recurrence_fused` and :func:`lstm_bwd_fused` launch them for
 CUDA tensors and raise on anything they do not take; for CPU tensors, and
 only for them, they run :func:`lstm_recurrence_plain` and
-:func:`lstm_bwd_plain`. ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel
-launches, so a run can show that it went through the kernels.
+:func:`lstm_bwd_plain`. ``LAUNCHES`` and ``BWD_LAUNCHES`` count K1 and K2
+calls, so a run can show that it went through the kernels.
+
+K1 is two device launches a call. The i2h projection ``xp = x W_ih + b``
+(:func:`lstm_proj_fused`, ``PROJ_LAUNCHES``) fills an f32 scratch ``[T, B,
+4H]``; the recurrence over it runs on one of two routes, chosen by shape
+before any launch (:func:`k1_geometry`): over a thread-block cluster that
+holds W_hh in shared memory (``K1_CLUSTER_CALLS``), or, for a W_hh whose
+slice fits no cluster of 8, streaming W_hh from L2 every step
+(``K1_STREAM_CALLS``).
 
 :class:`LSTMRecurrence` is the differentiable recurrence: K1 with its
 residual streams forward, K2 and the weight-gradient products backward, as
@@ -36,32 +44,232 @@ import torch
 
 from . import _build
 
-#: K1 launches since the counter was last set to 0
+#: K1 calls since the counter was last set to 0
 LAUNCHES = 0
+#: K1 calls whose recurrence took the cluster route / the streaming route
+K1_CLUSTER_CALLS = 0
+K1_STREAM_CALLS = 0
+#: launches of K1's projection kernel
+PROJ_LAUNCHES = 0
 #: K2 launches since the counter was last set to 0
 BWD_LAUNCHES = 0
 
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "lstm_fwd": [_I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _L, _P, _P,
-                 _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "lstm_bwd": [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _L, _L,
-                 _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "lstm_proj": ("lstm_fwd", [_I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P]),
+    "lstm_rec": ("lstm_fwd", [_I, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _P, _P, _P]),
+    "lstm_max_active_clusters": ("lstm_fwd", [_I, _I, _I, _P, _P]),
+    "lstm_bwd": ("lstm_bwd", [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _L, _L,
+                              _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 
 def _kernel(name: str):
-    """``(entry, error_string)`` of ``csrc/<name>.cu``, built on first use."""
+    """``(entry, error_string)`` of C entry ``dn_<name>``, its source built
+    on first use."""
     if name not in _entries:
-        lib = _build.load(name)
+        source, argtypes = _ARGTYPES[name]
+        lib = _build.load(source)
         fn = getattr(lib, "dn_" + name)
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = argtypes
         fn.restype = _I
         lib.dn_error_string.argtypes = [_I]
         lib.dn_error_string.restype = ctypes.c_char_p
         _entries[name] = (fn, lib.dn_error_string)
     return _entries[name]
+
+
+# ---------------------------------------------------------------------------
+# K1's launch geometry (pure shape arithmetic, tested on the CPU)
+
+#: cluster sizes of K1's recurrence, smallest first (8 is the portable most)
+K1_CLUSTER_SIZES = (2, 4, 8)
+#: the dynamic shared memory a block may opt in to on an H100
+SMEM_OPTIN = 232448
+#: ints of the geometry record ``csrc/lstm_fwd.cu`` reads (kGeomLen)
+_GEOM_LEN = 17
+#: static shared memory of the cluster kernel beside its dynamic share
+#: (the column map and the owner of each unit, 548 bytes), kept free of the
+#: opt-in
+_CLUSTER_STATIC_SMEM = 1024
+#: the widest H the cluster kernel takes (its owner table, kMaxClusterH)
+K1_CLUSTER_MAX_H = 512
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def k1_column_map(H: int, C: int) -> list[int]:
+    """``j0``: rank ``k`` of a cluster of ``C`` owns hidden units ``[j0[k],
+    j0[k + 1])`` and all four gates of them; the first ``H % C`` ranks own
+    one unit more."""
+    base, extra = divmod(H, C)
+    return [k * base + min(k, extra) for k in range(C + 1)]
+
+
+def _cluster_config(R: int, H: int, C: int, es: int, smem_optin: int) -> dict | None:
+    """Threads and shared memory of a cluster block that carries ``R`` rows,
+    or None if none fits: ``threads = cp · row_groups`` (``cp``, the own
+    gate columns ``4·smax`` rounded up to a warp; each thread one column
+    and ``rpt`` rows), shared memory the layout the kernel carves: the W_hh
+    slice ``[H, 4·smax]`` at the operand type, then f32 h of all units
+    ``[H, rp]``, the own h slice double-buffered ``[2, smax, rp | 1]``,
+    ``pre [rp, 4·smax]`` and the carry ``[rp, smax]``. Of the rows a thread
+    may carry (8, 4, 2, 1), the one that pads the fewest rows."""
+    if H > K1_CLUSTER_MAX_H:
+        return None
+    smax = _cdiv(H, C)
+    wst = 4 * smax
+    cp = _cdiv(wst, 32) * 32
+    best = None
+    for rpt in (8, 4, 2, 1):
+        rg = _cdiv(R, rpt)
+        rp, threads = rg * rpt, cp * rg
+        smem = (_cdiv(H * wst * es, 16) * 16
+                + 4 * (H * rp + 2 * smax * (rp | 1) + rp * wst + rp * smax))
+        fits = smem + _CLUSTER_STATIC_SMEM <= smem_optin
+        if threads <= 1024 and fits and (best is None or rp < best["rp"]):
+            best = {"rpt": rpt, "row_groups": rg, "rp": rp, "threads": threads, "smem": smem,
+                    "smax": smax}
+    return best
+
+
+def k1_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
+                        smem_optin: int = SMEM_OPTIN, slots: int | None = None) -> dict | None:
+    """The cluster route's geometry for clusters of ``C`` blocks of ``R``
+    rows each, or None if such a block does not fit; ``slots`` is the
+    clusters the card runs at once (for ``waves``)."""
+    cfg = _cluster_config(R, H, C, 2 if dtype == torch.bfloat16 else 4, smem_optin)
+    if cfg is None:
+        return None
+    clusters = _cdiv(rows, R)
+    return {"route": "cluster", "C": C, "R": R, **cfg, "j0": k1_column_map(H, C),
+            "clusters": clusters, "blocks": clusters * C,
+            "waves": _cdiv(clusters, slots) if slots else None}
+
+
+def k1_geometry(rows: int, H: int, dtype=None, sms: int = 132,
+                smem_optin: int = SMEM_OPTIN, cluster_slots: dict | None = None) -> dict:
+    """The launch geometry of K1's recurrence for ``rows`` rows of width
+    ``H`` at the operand dtype (None: f32; ``torch.bfloat16``) on a card of
+    ``sms`` SMs whose blocks may opt in to ``smem_optin`` bytes;
+    ``cluster_slots`` maps a cluster size to the clusters the card runs at
+    once (``cudaOccupancyMaxActiveClusters``; default ``sms // C``).
+
+    Cluster route: the smallest cluster size ``C`` (2, 4, 8) whose block
+    fits with ``R``, the rows a cluster, the fewest that keep the clusters
+    within one wave; failing that, the smallest ``C`` that fits a row at
+    all, with as many rows a cluster as fit (several waves). Streaming
+    route, for a W_hh whose slice fits no cluster of 8: 1, 2, 4 or 8 rows a
+    block, the fewest that keep the blocks within one wave. Returns a dict
+    with ``route`` and the numbers the C entry takes."""
+    slots = {C: (cluster_slots or {}).get(C, sms // C) for C in K1_CLUSTER_SIZES}
+    sizes = [C for C in K1_CLUSTER_SIZES if C <= H and slots[C] >= 1]
+    for wave_only in (True, False):
+        for C in sizes:
+            R = _cdiv(rows, slots[C])
+            g = k1_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C])
+            while g is None and not wave_only and R > 1:
+                R = R // 2 if R > 64 else R - 1
+                g = k1_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C])
+            if g is not None:
+                return g
+    return k1_stream_geometry(rows, H, sms, smem_optin)
+
+
+def k1_stream_geometry(rows: int, H: int, sms: int = 132, smem_optin: int = SMEM_OPTIN) -> dict:
+    """The streaming route's geometry: ``R`` of 1, 2, 4, 8 rows a block, the
+    fewest that keep the blocks within one wave, each block's h, carry and
+    pre-activations f32 in shared memory. :func:`k1_geometry` takes it only
+    for a W_hh that fits no cluster; measurements may ask for it."""
+    R = 1
+    while R < 8 and _cdiv(rows, R) > sms:
+        R *= 2
+    while R > 1 and 4 * R * 6 * H > smem_optin:
+        R //= 2
+    if 4 * R * 6 * H > smem_optin:
+        raise ValueError(f"K1 takes no H of {H}: one row needs {4 * 6 * H} bytes of shared memory")
+    blocks = _cdiv(rows, R)
+    return {"route": "stream", "R": R, "threads": min(1024, _cdiv(4 * H, 32) * 32),
+            "smem": 4 * R * 6 * H, "blocks": blocks, "waves": _cdiv(blocks, sms)}
+
+
+def _geom_ints(g: dict):
+    """The geometry record the C entry reads (see ``csrc/lstm_fwd.cu``)."""
+    v = [0] * _GEOM_LEN
+    if g["route"] == "cluster":
+        v[:8] = [1, g["C"], g["R"], g["rpt"], g["row_groups"], g["threads"], g["smem"], g["smax"]]
+        v[8:9 + g["C"]] = g["j0"]
+    else:
+        v[2], v[5], v[6] = g["R"], g["threads"], g["smem"]
+    return (ctypes.c_int * _GEOM_LEN)(*v)
+
+
+_limits: dict = {}
+
+
+def device_limits(device) -> tuple[int, int]:
+    """``(SMs, opt-in shared memory a block)`` of a CUDA device, read once."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _limits:
+        p = torch.cuda.get_device_properties(idx)
+        _limits[idx] = (p.multi_processor_count,
+                        getattr(p, "shared_memory_per_block_optin", SMEM_OPTIN))
+    return _limits[idx]
+
+
+_geometries: dict = {}
+
+
+def device_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
+    """:func:`k1_geometry` on ``device``'s SM count and shared memory, with
+    the clusters the card runs at once from ``cudaOccupancyMaxActiveClusters``
+    (a GPC holds whole clusters only, so fewer than ``SMs // C``): the
+    geometry is worked out again until its clusters fit that count. Worked
+    out once per device and shape."""
+    dev = torch.device(device)
+    key = (dev, rows, H, compute_dtype == torch.bfloat16)
+    if key not in _geometries:
+        sms, optin = device_limits(dev)
+        slots: dict = {}
+        g = k1_geometry(rows, H, compute_dtype, sms, optin)
+        while g["route"] == "cluster" and g["C"] not in slots:
+            n = k1_max_active_clusters(dev, rows, H, compute_dtype, g)
+            slots[g["C"]] = n
+            if n >= g["clusters"]:
+                g = {**g, "waves": 1}
+                break
+            g = k1_geometry(rows, H, compute_dtype, sms, optin, slots)
+        _geometries[key] = g
+    return _geometries[key]
+
+
+_occupancy: dict = {}
+
+
+def k1_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
+                           geometry: dict | None = None) -> int | None:
+    """``cudaOccupancyMaxActiveClusters`` of K1's cluster recurrence at this
+    geometry, asked once per device and configuration; None on the
+    streaming route."""
+    g = geometry or device_geometry(device, rows, H, compute_dtype)
+    if g["route"] != "cluster":
+        return None
+    dev = torch.device(device)
+    key = (dev, compute_dtype == torch.bfloat16, rows, H, tuple(_geom_ints(g)))
+    if key not in _occupancy:
+        fn, err_str = _kernel("lstm_max_active_clusters")
+        out = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            err = fn(0 if compute_dtype is None else 1, rows, H, _geom_ints(g), ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {err_str(err).decode()}")
+        _occupancy[key] = out.value
+    return _occupancy[key]
 
 
 def _stream_dtype(compute_dtype) -> torch.dtype:
@@ -111,39 +319,99 @@ def _check(cond: bool, what: str, fn: str = "lstm_recurrence_fused") -> None:
         raise ValueError(f"{fn}: {what}")
 
 
+def lstm_proj_plain(x, wih4, b4, compute_dtype=None):
+    """Plain PyTorch version of K1's projection: ``xp [T, B, 4H] = x W_ih +
+    b`` in f32, gates side by side, from operands rounded to the compute
+    dtype."""
+    sdt = _stream_dtype(compute_dtype)
+    T, B, D = x.shape
+    H = wih4.shape[-1]
+    wih = wih4.to(sdt).float().permute(1, 0, 2).reshape(D, 4 * H)
+    return torch.matmul(x.to(sdt).float(), wih) + b4.float().reshape(4 * H)
+
+
+def _operands(x, wih4, b4, whh4, compute_dtype, fn="lstm_recurrence_fused"):
+    """Checks K1's operands (``whh4`` None: the projection's alone); returns
+    them at the stream dtype."""
+    _check(x.device.type == "cuda", f"unsupported device {x.device}", fn)
+    sdt = _stream_dtype(compute_dtype)
+    weights = (wih4,) if whh4 is None else (wih4, whh4)
+    if compute_dtype is None:
+        _check(all(a.dtype == torch.float32 for a in (x, *weights)),
+               "x, wih4 and whh4 must be float32 when compute_dtype is None", fn)
+    else:
+        x, wih4 = x.to(sdt), wih4.to(sdt)
+        whh4 = None if whh4 is None else whh4.to(sdt)
+    _check(b4.dtype == torch.float32, "b4 must be float32", fn)
+    _check(x.dim() == 3, f"x must be [T, B, D], got {tuple(x.shape)}", fn)
+    T, B, D = x.shape
+    H = wih4.shape[-1]
+    _check(T >= 1 and B >= 1, "x needs at least one step and one row", fn)
+    _check(tuple(wih4.shape) == (4, D, H), f"wih4 must be [4, {D}, {H}], got {tuple(wih4.shape)}", fn)
+    _check(tuple(b4.shape) == (4, H), f"b4 must be [4, {H}], got {tuple(b4.shape)}", fn)
+    _check(whh4 is None or tuple(whh4.shape) == (4, H, H),
+           f"whh4 must be [4, {H}, {H}], got {None if whh4 is None else tuple(whh4.shape)}", fn)
+    _check(all(a.device == x.device for a in (b4, *weights)), "all inputs must be on one device", fn)
+    _check(all(a.stride(-1) == 1 for a in (x, b4, *weights)),
+           "x, wih4, b4 and whh4 must be contiguous in their last axis", fn)
+    return sdt, x, wih4, whh4
+
+
+def _launch_proj(x, wih4, b4, sdt):
+    T, B, D = x.shape
+    H = wih4.shape[-1]
+    xp = torch.empty((T, B, 4 * H), dtype=torch.float32, device=x.device)
+    fn, err_str = _kernel("lstm_proj")
+    err = fn(0 if sdt == torch.float32 else 1, x.data_ptr(), x.stride(0), x.stride(1),
+             wih4.data_ptr(), wih4.stride(0), wih4.stride(1), b4.data_ptr(), b4.stride(0),
+             xp.data_ptr(), T, B, D, H, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_proj kernel failed: {err_str(err).decode()} ({err})")
+    global PROJ_LAUNCHES
+    PROJ_LAUNCHES += 1
+    return xp
+
+
+def lstm_proj_fused(x, wih4, b4, compute_dtype=None):
+    """K1's projection kernel alone: same arguments and return as
+    :func:`lstm_proj_plain`; ``x`` and the weights may be strided views
+    contiguous in their last axis."""
+    if x.device.type == "cpu":
+        return lstm_proj_plain(x, wih4, b4, compute_dtype)
+    sdt, x, wih4, _ = _operands(x, wih4, b4, None, compute_dtype, "lstm_proj_fused")
+    with torch.cuda.device(x.device):
+        return _launch_proj(x, wih4, b4, sdt)
+
+
 def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
-                          residuals=False):
-    """Fused LSTM forward: i2h projection and recurrence in one kernel.
+                          residuals=False, geometry=None):
+    """K1: the LSTM forward, i2h projection and recurrence.
 
     Same arguments and returns as :func:`lstm_recurrence_plain`. The terminal
     carry ``(hT, cT)`` is always f32, written from the kernel's f32 carry and
     never from the stream dtype. The residual streams ``cs, i, f, o, g`` are
     written only when ``residuals=True``. ``x`` may be a strided view (any
     strides over T and B, contiguous over D); the weights need only their
-    last axis contiguous, so model-layout views pass without a copy."""
+    last axis contiguous, so model-layout views pass without a copy.
+
+    Two device launches: the projection into an f32 scratch ``[T, B, 4H]``,
+    then the recurrence on the route of :func:`k1_geometry` for this
+    device, or of ``geometry`` (a :func:`k1_geometry` result, for
+    measurements). A launch the card refuses raises; nothing falls back."""
     if x.device.type == "cpu":
         return lstm_recurrence_plain(x, wih4, b4, whh4, h0, c0, compute_dtype, residuals)
-    _check(x.device.type == "cuda", f"unsupported device {x.device}")
-    sdt = _stream_dtype(compute_dtype)
-    if compute_dtype is None:
-        _check(all(a.dtype == torch.float32 for a in (x, wih4, whh4)),
-               "x, wih4 and whh4 must be float32 when compute_dtype is None")
-    else:
-        x, wih4, whh4 = x.to(sdt), wih4.to(sdt), whh4.to(sdt)
-    _check(all(a.dtype == torch.float32 for a in (b4, h0, c0)), "b4, h0 and c0 must be float32")
-    _check(x.dim() == 3, f"x must be [T, B, D], got {tuple(x.shape)}")
+    return _k1(x, wih4, b4, whh4, h0, c0, compute_dtype, residuals, geometry)
+
+
+def _k1(x, wih4, b4, whh4, h0, c0, compute_dtype, residuals, geometry, prof=None):
+    sdt, x, wih4, whh4 = _operands(x, wih4, b4, whh4, compute_dtype)
     T, B, D = x.shape
     H = wih4.shape[-1]
-    _check(T >= 1 and B >= 1, "x needs at least one step and one row")
-    _check(tuple(wih4.shape) == (4, D, H), f"wih4 must be [4, {D}, {H}], got {tuple(wih4.shape)}")
-    _check(tuple(b4.shape) == (4, H), f"b4 must be [4, {H}], got {tuple(b4.shape)}")
-    _check(tuple(whh4.shape) == (4, H, H), f"whh4 must be [4, {H}, {H}], got {tuple(whh4.shape)}")
+    _check(all(a.dtype == torch.float32 for a in (h0, c0)), "h0 and c0 must be float32")
     _check(tuple(h0.shape) == (B, H) and tuple(c0.shape) == (B, H), f"h0 and c0 must be [{B}, {H}]")
-    args = (x, wih4, b4, whh4, h0, c0)
-    _check(all(a.device == x.device for a in args), "all inputs must be on one device")
-    _check(all(a.stride(-1) == 1 for a in (x, wih4, b4, whh4)),
-           "x, wih4, b4 and whh4 must be contiguous in their last axis")
+    _check(h0.device == x.device and c0.device == x.device, "all inputs must be on one device")
     _check(h0.is_contiguous() and c0.is_contiguous(), "h0 and c0 must be contiguous")
+    g = geometry or device_geometry(x.device, B, H, compute_dtype)
 
     def stream():
         return torch.empty((T, B, H), dtype=sdt, device=x.device)
@@ -153,27 +421,55 @@ def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
     hT = torch.empty((B, H), dtype=torch.float32, device=x.device)
     cT = torch.empty_like(hT)
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
-    fn, err_str = _kernel("lstm_fwd")
+    fn, err_str = _kernel("lstm_rec")
     with torch.cuda.device(x.device):
+        xp = _launch_proj(x, wih4, b4, sdt)
         err = fn(
-            0 if sdt == torch.float32 else 1,
-            x.data_ptr(), x.stride(0), x.stride(1),
-            wih4.data_ptr(), wih4.stride(0), wih4.stride(1),
-            b4.data_ptr(), b4.stride(0),
+            0 if sdt == torch.float32 else 1, xp.data_ptr(),
             whh4.data_ptr(), whh4.stride(0), whh4.stride(1),
             h0.data_ptr(), c0.data_ptr(),
             hs.data_ptr(), *(ptr(r) for r in res), hT.data_ptr(), cT.data_ptr(),
-            T, B, D, H, torch.cuda.current_stream(x.device).cuda_stream,
+            T, B, H, _geom_ints(g), ptr(prof), torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"lstm_fwd kernel failed: {err_str(err).decode()} ({err})")
-    global LAUNCHES
+        raise RuntimeError(f"lstm_rec kernel ({g['route']} route) failed: "
+                           f"{err_str(err).decode()} ({err})")
+    global LAUNCHES, K1_CLUSTER_CALLS, K1_STREAM_CALLS
     LAUNCHES += 1
+    if g["route"] == "cluster":
+        K1_CLUSTER_CALLS += 1
+    else:
+        K1_STREAM_CALLS += 1
     if residuals:
         return (hs, *res, hT, cT)
     return hs, (hT, cT)
 
 
+#: the phases of a step of the cluster recurrence, as its clock stamps them
+K1_PHASES = ("gather", "product", "gates", "barrier")
+
+
+def k1_phase_profile(x, wih4, b4, whh4, h0, c0, compute_dtype=None, geometry=None) -> dict:
+    """One K1 call on the cluster route with its phase clock on: the mean
+    µs a step of block 0 spends in each of :data:`K1_PHASES` (the h
+    gather, the recurrent product, the gates and carries, the cluster
+    barrier with the stream stores between its halves), from ``clock64``
+    stamps converted by the global timer, and each phase's share of the
+    step. For measurements; counts as a call."""
+    T, B, _ = x.shape
+    g = geometry or device_geometry(x.device, B, wih4.shape[-1], compute_dtype)
+    _check(g["route"] == "cluster", "the phase clock is the cluster route's", "k1_phase_profile")
+    prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=x.device)
+    _k1(x, wih4, b4, whh4, h0, c0, compute_dtype, False, g, prof)
+    p = prof.cpu()
+    stamps = p[:5 * T].reshape(T, 5).double()
+    ns_per_cycle = float(p[5 * T + 1] - p[5 * T]) / float(stamps[-1, 4] - stamps[0, 0])
+    phase_us = (stamps[:, 1:] - stamps[:, :-1]).mean(0) * ns_per_cycle / 1e3
+    step_us = float(phase_us.sum())
+    out = {f"{k}_us": float(v) for k, v in zip(K1_PHASES, phase_us)}
+    out.update({f"{k}_share": float(v) / step_us for k, v in zip(K1_PHASES, phase_us)})
+    out.update(step_us=step_us, ghz=1.0 / ns_per_cycle)
+    return out
 
 
 def lstm_bwd_plain(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None):

@@ -23,7 +23,8 @@ count of refinements each member made, in member order.
 CUDA tensors and raises on anything it does not take, including a class
 whose iterates do not fit in one block's shared memory; for CPU tensors,
 and only for them, it runs :func:`poweriter_plain`. ``POWERITER_LAUNCHES``
-counts kernel launches.
+counts kernel launches. :func:`k7_takes` is the shape gate by which the
+engine sends a class the kernel does not take to the plain version.
 """
 
 from __future__ import annotations
@@ -124,6 +125,17 @@ def class_smem_bytes(shapes, r: int) -> int:
     iterates ``P [m, r]`` and ``GᵀP [n, r]`` in f32, sized for the class's
     largest ``m + n``."""
     return 4 * r * max(m + n for m, n in shapes)
+
+
+def k7_takes(shapes, r: int) -> bool:
+    """Whether K7 takes a rank class of rank ``r`` whose shape buckets are
+    ``shapes`` (``[(m, n), ...]``, one per stack): a pure shape gate, the
+    counterpart of the JAX package's ``class_fits_vmem``. A class that
+    fails it is routed to :func:`poweriter_plain` by the caller before any
+    launch (``engines/lowrank.py``); :func:`poweriter_fused` itself raises
+    on it."""
+    return (1 <= r <= MAX_RANK and 0 < len(shapes) <= MAX_BUCKETS
+            and class_smem_bytes(shapes, r) <= SMEM_LIMIT)
 
 
 def poweriter_fused(G, om, num_iters: int, tol: float, mm_dtype=None):

@@ -197,6 +197,45 @@ _UNPORTED = {
     "personalize": ((), "A10 (personalization)"),
     "min_slices": (1, "A11 (slices)"),
 }
+#: options of the JAX package that only govern how its program runs (scan
+#: inputs, buffer donation) and change no result: any value is taken
+_EXECUTION_ONLY = ("rounds_scan_xs", "donate_state")
+#: options that act only through other options: name -> (JAX's default,
+#: the options of ``_UNPORTED`` that switch it on)
+_DEPENDENT = {
+    "staleness_decay": (0.5, ("staleness_bound",)),
+    "reputation_z": (2.0, ("robust_agg",)),
+    "reputation_rounds": (8, ("robust_agg",)),
+    "dp_seed": (0, ("dp_clip", "dp_noise_multiplier")),
+}
+
+
+def _check_options(options: dict) -> None:
+    """Refuse the JAX options this port does not run (see
+    :func:`make_train_epoch_fn`), before anything is built."""
+    decay, rep_rounds = options.get("staleness_decay", 0.5), options.get("reputation_rounds", 8)
+    if not 0.0 < decay <= 1.0:
+        raise ValueError(f"staleness_decay must be in (0, 1], got {decay}")
+    if rep_rounds < 0:
+        raise ValueError(f"reputation_rounds must be >= 0, got {rep_rounds}")
+    for name in sorted(options, key=lambda n: n not in _DEPENDENT):  # dependents first
+        value = options[name]
+        if name in _EXECUTION_ONLY:
+            continue
+        if name in _DEPENDENT:
+            default, through = _DEPENDENT[name]
+            on = [k for k in through if options.get(k, _UNPORTED[k][0]) != _UNPORTED[k][0]]
+            if on and value != default:
+                raise NotImplementedError(
+                    f"make_train_epoch_fn({name}={value!r}) acts through {on[0]}, which is not "
+                    f"ported: ROADMAP {_UNPORTED[on[0]][1]}")
+            continue
+        if name not in _UNPORTED:
+            raise TypeError(f"make_train_epoch_fn() got an unexpected option {name!r}")
+        off, item = _UNPORTED[name]
+        if value != off:
+            raise NotImplementedError(f"make_train_epoch_fn({name}={value!r}) is not ported: "
+                                      f"ROADMAP {item}")
 
 
 def _hold(go, new: dict, old: dict) -> dict:
@@ -229,17 +268,17 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     running statistics, and reports a NaN loss. ``quarantine_rounds < 0``
     with no mask runs the unguarded round. ``None`` means 3.
 
-    The other options of the JAX ``make_train_epoch_fn`` (``mesh``,
-    ``pipeline="host"``, ``telemetry``, async, overlap, attack, DP,
-    personalization, slices) raise ``NotImplementedError`` naming the
-    ROADMAP item that ports them."""
-    for name, value in options.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"make_train_epoch_fn() got an unexpected option {name!r}")
-        off, item = _UNPORTED[name]
-        if value != off:
-            raise NotImplementedError(f"make_train_epoch_fn({name}={value!r}) is not ported: "
-                                      f"ROADMAP {item}")
+    The other options of the JAX ``make_train_epoch_fn`` are taken by
+    name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
+    program runs and take any value. ``staleness_decay``,
+    ``reputation_z``, ``reputation_rounds`` and ``dp_seed`` act only
+    through ``staleness_bound``, ``robust_agg`` and ``dp_clip`` /
+    ``dp_noise_multiplier``: any value while that option is off, JAX's
+    default otherwise. Every other option at a value other than "off"
+    (``mesh``, ``pipeline="host"``, ``telemetry``, async, overlap, attack,
+    DP, personalization, slices) raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it."""
+    _check_options(options)
     if local_iterations < 1:
         raise ValueError(f"local_iterations must be >= 1, got {local_iterations}")
     if quarantine_rounds is None:

@@ -1,0 +1,105 @@
+#!/usr/bin/env python3
+"""K1 across launch geometries on the card, at full ICA-LSTM width.
+
+    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both]
+
+At T=98, D=256, H=174 it runs K1 (``lstm_recurrence_fused``) on the
+geometry the launcher picks, on cluster geometries it could pick instead
+(clusters of C blocks carrying R rows each, in one wave of the card, so
+that the time against R gives the cost of a step), and on the streaming
+route; each point is first held against the plain version (every output,
+the tolerances of ``chip_smoke.py``), then timed as device time per call:
+CUDA events around 20 back-to-back calls, so that a call's host work hides
+behind the previous call's device time, the median of 5 such runs. The
+projection alone is timed the same way; a cluster point also gives the
+mean µs of each phase of a step (``k1_phase_profile``). One JSON line per
+point, then the card's name and power limit; it needs one CUDA card and
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / calls)
+    return statistics.median(out)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from dinunet_implementations_tpu_torch.core.device import resolve_device
+    from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+
+    resolve_device(None)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    sms, optin = lc.device_limits("cuda")
+    H = cs.H
+    g = torch.Generator().manual_seed(0)
+    dtypes = {"f32": None, "bf16": torch.bfloat16}
+    for name, cdt in dtypes.items():
+        if args.dtype not in (name, "both"):
+            continue
+        points = []
+        for C in (2, 4, 8):
+            probe = lc.k1_cluster_geometry(1, H, C, 1, cdt, optin)
+            if probe is None:
+                continue
+            slots = lc.k1_max_active_clusters("cuda", 1, H, cdt, probe)
+            for R in (1, 2, 4, 8, 16, 18, 32):
+                geo = lc.k1_cluster_geometry(slots * R, H, C, R, cdt, optin, slots)
+                if geo is not None:
+                    points.append((slots * R, geo))
+        for rows in (1, 16, 512):
+            points.append((rows, lc.device_geometry("cuda", rows, H, cdt)))
+            points.append((rows, lc.k1_stream_geometry(rows, H, sms, optin)))
+        for rows, geo in points:
+            a = cs.recurrence_args(torch, rows, g)
+            tol = cs.F32_TOL if cdt is None else cs.BF16_TOL
+            err = cs.compare(f"K1 rows={rows} {name} {geo}",
+                             lc.lstm_recurrence_fused(*a, cdt, residuals=True, geometry=geo),
+                             lc.lstm_recurrence_plain(*a, cdt, residuals=True), cs.OUTPUTS, tol)
+            ms = device_ms(torch, lambda: lc.lstm_recurrence_fused(*a, cdt, geometry=geo))
+            proj = device_ms(torch, lambda: lc.lstm_proj_fused(*a[:3], cdt))
+            rec = {"rows": rows, "dtype": name, "route": geo["route"], "C": geo.get("C"),
+                   "R": geo["R"], "rpt": geo.get("rpt"), "threads": geo["threads"],
+                   "blocks": geo["blocks"], "smem": geo["smem"],
+                   "max_active_clusters": lc.k1_max_active_clusters("cuda", rows, H, cdt, geo),
+                   "k1_device_ms": ms, "proj_device_ms": proj,
+                   "recurrence_us_per_step": (ms - proj) * 1e3 / cs.T, "max_abs_err": err,
+                   "step_phases": lc.k1_phase_profile(*a, cdt, geometry=geo)
+                   if geo["route"] == "cluster" else None}
+            print(json.dumps(rec), flush=True)
+            del a
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

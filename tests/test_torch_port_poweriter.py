@@ -233,3 +233,36 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     assert pc.class_smem_bytes([(1000, 696)], 10) == 4 * 10 * 1696
     assert pc.class_smem_bytes([(1000, 256), (256, 696)], 10) <= pc.SMEM_LIMIT
     assert pc.class_smem_bytes([(4000, 2000)], 16) > pc.SMEM_LIMIT
+
+
+def test_k7_shape_gate_refuses_what_the_kernel_does_not_take():
+    """``k7_takes``: the static per-class gate, as JAX's ``class_fits_vmem``."""
+    flagship = [(1000, 256), (256, 696), (174, 696), (696, 174), (348, 256), (256, 64), (64, 2)]
+    assert pc.k7_takes(flagship, 10)
+    assert pc.k7_takes([(64, 2)], 2)
+    assert not pc.k7_takes(flagship, pc.MAX_RANK + 1)  # r = 17
+    assert not pc.k7_takes([(32, 24)] * (pc.MAX_BUCKETS + 1), 10)  # 17 buckets
+    assert pc.k7_takes([(32, 24)] * pc.MAX_BUCKETS, 10)
+    big = [(4000, 3000)]
+    assert pc.class_smem_bytes(big, 16) > pc.SMEM_LIMIT and not pc.k7_takes(big, 16)
+
+
+@pytest.mark.parametrize("tol", [1e-3, 0.0])
+def test_rank_above_the_kernel_goes_to_the_plain_loop_and_matches_jax(tol):
+    """An r = 17 class (``dad_reduction_rank`` > 16, valid in JAX) is routed
+    to the plain version before any launch and counted; its factors match
+    JAX's legacy loop at the tolerance of ``test_grouped_matches_jax_legacy``.
+    A class K7 takes is not counted."""
+    rng = np.random.default_rng(8)
+    cls17 = [rng.standard_normal((24, 20)).astype(np.float32), _low_rank(rng, 30, 18, 17),
+             rng.standard_normal((24, 20)).astype(np.float32)]
+    groups = [(cls17, 17), _groups()[1]]
+    oms = _cold(groups)
+    before = tl.POWERITER_PLAIN_CLASSES
+    got = _port(groups, oms, tol, False)
+    assert tl.POWERITER_PLAIN_CLASSES == before + 1
+    _assert_factors_close(got, _jax(groups, oms, tol, False, fused=False), F32_TOL)
+    # the same classes on the plain path by request are not a routing decision
+    tg = [([torch.from_numpy(g) for g in gs], r, None) for gs, r in groups]
+    tl.subspace_iteration_grouped(tg, ITERS, tol, use_kernel=False)
+    assert tl.POWERITER_PLAIN_CLASSES == before + 1

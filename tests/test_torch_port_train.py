@@ -486,6 +486,53 @@ def test_unported_epoch_options_raise(option, value):
                                    device="cpu", **{option: value})
 
 
+# JAX make_train_epoch_fn options the port takes at JAX's default: the two
+# execution details at any value, the four that act through another option
+# at any value while that option is off
+JAX_OPTION_DEFAULTS = {"rounds_scan_xs": True, "donate_state": False, "staleness_decay": 0.5,
+                       "reputation_z": 2.0, "reputation_rounds": 8, "dp_seed": 0}
+
+
+@pytest.mark.parametrize("option", sorted(JAX_OPTION_DEFAULTS))
+def test_jax_epoch_options_at_their_defaults_build_an_epoch(option):
+    import inspect
+
+    assert inspect.signature(jsteps.make_train_epoch_fn).parameters[option].default == \
+        JAX_OPTION_DEFAULTS[option]
+    task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
+    opt = tsteps.make_optimizer("adam", LR)
+    assert callable(tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu",
+                                               **{option: JAX_OPTION_DEFAULTS[option]}))
+    # execution details take any value; the others any value while the
+    # option they act through is off
+    other = {"rounds_scan_xs": False, "donate_state": True, "staleness_decay": 0.25,
+             "reputation_z": 3.0, "reputation_rounds": 2, "dp_seed": 7}[option]
+    assert callable(tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu",
+                                               **{option: other}))
+
+
+@pytest.mark.parametrize("option,value,through", [
+    ("staleness_decay", 0.25, {"staleness_bound": 2}),
+    ("reputation_z", 3.0, {"robust_agg": "trimmed_mean"}),
+    ("reputation_rounds", 2, {"robust_agg": "median"}),
+    ("dp_seed", 7, {"dp_clip": 1.0}),
+    ("dp_seed", 7, {"dp_noise_multiplier": 1.0}),
+])
+def test_options_acting_through_an_unported_option_raise_with_its_item(option, value, through):
+    task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
+    opt = tsteps.make_optimizer("adam", LR)
+    (name, _), = through.items()
+    item = tsteps._UNPORTED[name][1]
+    with pytest.raises(NotImplementedError, match=rf"{option}=.*ROADMAP {item.split()[0]}"):
+        tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **through,
+                                   **{option: value})
+    # JAX's range checks hold whatever else is set
+    bad = {"staleness_decay": 1.5, "reputation_rounds": -1}
+    for k, v in bad.items():
+        with pytest.raises(ValueError, match=k):
+            tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **{k: v})
+
+
 @pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"robust_agg": "norm_clip"},
                                 {"secure_agg": "mask"}])
 def test_unported_dsgd_options_raise(kw):
