@@ -55,17 +55,25 @@ result line:
    go to the plain version;
 9. kernels ``bilstm_fwd`` (K3), ``bilstm_pool_fwd`` (K5), ``bilstm_bwd``
    (K4) and ``bilstm_pool_bwd`` (K6) against their plain versions, every
-   output, f32 and bf16, at rows 16 and 512; times of each kernel, its
-   plain version and a cuDNN ``torch.nn.LSTM(bidirectional=True)`` forward
-   or backward; then, untimed, every rows-per-block template and K4's
+   output and K5's pool, f32 and bf16, K3/K5 at rows 1, 16 and 512 and
+   K4/K6 at rows 16 and 512; K3/K5 on the cluster route the launcher picks
+   (the projection of both directions, then the recurrence over
+   thread-block clusters) and on the stream route (the first design), with
+   the geometry and cudaOccupancyMaxActiveClusters, the projection's xp2
+   against ``bilstm_proj_plain`` and the phase clock; times of each kernel
+   (K3/K5 on both routes and the projection alone), its plain version and
+   a cuDNN ``torch.nn.LSTM(bidirectional=True)`` forward or backward; then,
+   untimed, every geometry K3/K5's launcher can pick (clusters of 2, 4, 8,
+   each rows a thread, ragged slices and rows, K3 without residuals, the
+   stream route at H=400), K4/K6's rows-per-block templates and K4's
    per-row constant cotangent;
 10. the fused bidirectional arm, ``ICALstm(fused_bidir=True)``: phase 6's
-   two dSGD epochs through K5 and K6 (one launch each per micro-batch, no
-   K1 or K2), held against the same epochs through the plain versions;
-   one bf16 epoch; the one-model eval forward (rows 1 and 16, one K3
-   launch a call) against the per-direction kernel path and the plain
-   path; one one-model gradient (one K3 and one K4 launch) against the
-   plain path;
+   two dSGD epochs through K5 and K6 (one call each per micro-batch, K5 on
+   the cluster route, no K1 or K2), held against the same epochs through
+   the plain versions; one bf16 epoch; the one-model eval forward (rows 1
+   and 16, one K3 call a call, on the cluster route) against the
+   per-direction kernel path and the plain path; one one-model gradient
+   (one K3 and one K4 call) against the plain path;
 11. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -623,11 +631,13 @@ def zero_counters(lc, pc, bc) -> None:
     lowrank.POWERITER_PLAIN_CLASSES = 0
     bc.BIDIR_FWD_LAUNCHES = bc.BIDIR_BWD_LAUNCHES = 0
     bc.POOL_FWD_LAUNCHES = bc.POOL_BWD_LAUNCHES = 0
+    bc.BIDIR_PROJ_LAUNCHES = bc.BIDIR_CLUSTER_CALLS = bc.BIDIR_STREAM_CALLS = 0
 
 
 def read_counters(lc, pc, bc) -> dict:
-    """Kernel launches, and the static routes: K1's recurrence over a
-    cluster or streamed, rank classes sent to the plain power iteration."""
+    """Kernel launches, and the static routes: K1's and K3/K5's recurrences
+    over a cluster or streamed, rank classes sent to the plain power
+    iteration."""
     from dinunet_implementations_tpu_torch.engines import lowrank
 
     return {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
@@ -635,7 +645,9 @@ def read_counters(lc, pc, bc) -> dict:
             "lstm_bwd": lc.BWD_LAUNCHES, "poweriter": pc.POWERITER_LAUNCHES,
             "poweriter_plain_classes": lowrank.POWERITER_PLAIN_CLASSES,
             "bilstm_fwd": bc.BIDIR_FWD_LAUNCHES, "bilstm_bwd": bc.BIDIR_BWD_LAUNCHES,
-            "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES}
+            "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES,
+            "bilstm_proj": bc.BIDIR_PROJ_LAUNCHES, "bidir_cluster_route": bc.BIDIR_CLUSTER_CALLS,
+            "bidir_stream_route": bc.BIDIR_STREAM_CALLS}
 
 
 def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: bool = False) -> dict:
@@ -711,8 +723,9 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
     }
     print(f"training {engine}{' fused_bidir' if fused_bidir else ''}:", json.dumps(rec))
     want = dict.fromkeys(launches, 0)
-    if fused_bidir:  # one K5 and one K6 per micro-batch, both directions in each
-        want.update(bilstm_pool_fwd=sum(rounds) * L, bilstm_pool_bwd=sum(rounds) * L)
+    if fused_bidir:  # one K5 (on the cluster route) and one K6 per micro-batch
+        n = sum(rounds) * L
+        want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n)
     else:  # one K1 (on the cluster route) and one K2 per direction and micro-batch
         n = 2 * sum(rounds) * L
         want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n)
@@ -933,7 +946,8 @@ def plain_route_check(torch, pc, gen) -> dict:
 # ---------------------------------------------------------------------------
 # K3-K6: the fused bidirectional kernels
 
-BIDIR_ROWS = (16, 512)  # the one-model forward and gradient, the training fold
+BIDIR_ROWS = (16, 512)  # K4/K6: the one-model gradient, the training fold
+BIDIR_FWD_ROWS = (1, 16, 512)  # K3/K5: one request, the one-model forward, the training fold
 BIDIR_FWD_OUTPUTS = ("hs2", "cs2", "i2", "f2", "o2", "g2", "hT2", "cT2")
 BIDIR_BWD_OUTPUTS = ("dp", "dh02", "dc02")
 
@@ -964,18 +978,19 @@ def bidir_bound(kernel: str, rows: int, bf16: bool) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def bidir_args(torch, rows: int, g):
-    """Inputs of both directions at rows ``rows``, as the JAX kernels take
-    them: x ``[T, rows, D]``, wih2 ``[2, 4, D, H]``, b2, whh2, h02, c02."""
+def bidir_args(torch, rows: int, g, h: int = H):
+    """Inputs of both directions at rows ``rows`` (width ``h``), as the JAX
+    kernels take them: x ``[T, rows, D]``, wih2 ``[2, 4, D, h]``, b2, whh2,
+    h02, c02."""
     dev = torch.device("cuda")
 
     def u(*shape, scale):
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
 
     x = torch.randn((T, rows, D), generator=g).relu().to(dev)
-    return (x, u(2, 4, D, H, scale=D ** -0.5), u(2, 4, H, scale=2 * D ** -0.5),
-            u(2, 4, H, H, scale=H ** -0.5), u(2, rows, H, scale=0.5).contiguous(),
-            u(2, rows, H, scale=0.5).contiguous())
+    return (x, u(2, 4, D, h, scale=D ** -0.5), u(2, 4, h, scale=2 * D ** -0.5),
+            u(2, 4, h, h, scale=h ** -0.5), u(2, rows, h, scale=0.5).contiguous(),
+            u(2, rows, h, scale=0.5).contiguous())
 
 
 def bidir_bwd_args(torch, bc, args, cdt, g, const: bool):
@@ -1017,48 +1032,87 @@ def library_bilstm(torch, args, cdt, plain_hs2, backward: bool, g) -> dict:
     return library_call(torch, what, cdt, build, F32_TOL)
 
 
+def bidir_scratch_ms(rows: int) -> float:
+    """The cluster route's own cost beyond the function's bytes: the f32
+    projection scratch [T, rows, 8H] of both directions written once and
+    read once, over HBM bandwidth."""
+    return 2 * T * rows * 8 * H * 4 / HBM_BPS * 1e3
+
+
+def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -> dict:
+    """The launcher's K3 (``pool`` False) or K5 geometry for ``rows`` rows of
+    width ``h`` on this card, with cudaOccupancyMaxActiveClusters of its
+    configuration (both directions' clusters together)."""
+    g = dict(geometry or bc.device_bidir_geometry("cuda", rows, h, cdt, pool))
+    g["max_active_clusters"] = bc.bidir_max_active_clusters("cuda", rows, h, cdt, g)
+    return g
+
+
 def bidir_kernel_phase(torch, bc) -> list[dict]:
-    """K3, K5, K4 (full cotangent streams) and K6 against their plain
-    versions at rows 16 and 512, f32 and bf16, timed beside the plain
-    version, the bound and cuDNN; then, untimed, every rows-per-block
-    template (each with a ragged last block) and K4's per-row constant."""
+    """K3 and K5 at rows 1, 16 and 512, K4 (full cotangent streams) and K6
+    at rows 16 and 512, f32 and bf16, against their plain versions, timed
+    beside the plain version, the bound and cuDNN; K3/K5 on the route the
+    launcher picks and on the stream route (the first design), with the
+    projection alone and the phase clock. Then, untimed, every geometry
+    K3/K5's launcher can pick (:func:`bidir_coverage_phase`), K4/K6's rows a
+    block templates and K4's per-row constant."""
     g = torch.Generator().manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
 
-    def record(kernel, rows, cdt, err, fn, plain, plain_runs, library):
+    def record(kernel, rows, cdt, err, fn, plain, plain_runs, library, **extra):
         b_ms, b_by = bidir_bound(kernel, rows, cdt is not None)
         rec = {"kernel": kernel, "rows": rows, "dtype": "bf16" if cdt else "f32",
-               "max_abs_err": err, "ms": time_ms(fn, 30), "plain_ms": time_ms(plain, plain_runs),
-               **library, "bound_ms": b_ms, "bound_by": b_by}
+               "max_abs_err": err, "ms": time_ms(fn, 30), **extra,
+               "plain_ms": time_ms(plain, plain_runs), **library, "bound_ms": b_ms, "bound_by": b_by}
         print(json.dumps(rec))
         out.append(rec)
+
+    for rows in BIDIR_FWD_ROWS:
+        stream = bc.bidir_stream_geometry(rows, H, sms)
+        for cdt in (None, torch.bfloat16):
+            tol = F32_TOL if cdt is None else BF16_TOL
+            args = bidir_args(torch, rows, g)
+            xp2 = bc.bilstm_proj_fused(*args[:3], cdt)
+            torch.cuda.synchronize()
+            proj_err = compare(f"bilstm_proj rows={rows} {cdt}", (xp2,),
+                               (bc.bilstm_proj_plain(*args[:3], cdt),), ("xp2",), F32_TOL)
+            del xp2
+            want = bc.bilstm_fwd_plain(*args, cdt)
+            fwd_lib = library_bilstm(torch, args, cdt, want[0], False, g)
+            for kernel, pool in (("bilstm_fwd", False), ("bilstm_pool_fwd", True)):
+                fused = bc.bilstm_pool_fwd_fused if pool else bc.bilstm_fwd_fused
+                names = BIDIR_FWD_OUTPUTS + (("pool",) if pool else ())
+                w = bc.bilstm_fwd_plain(*args, cdt, pool=True) if pool else want
+                geo = bidir_geometry_line(bc, rows, H, cdt, pool)
+                got = fused(*args, cdt)
+                torch.cuda.synchronize()
+                err = compare(f"{kernel} rows={rows} {cdt} {geo['route']}", got, w, names, tol)
+                got = fused(*args, cdt, geometry=stream)
+                torch.cuda.synchronize()
+                stream_err = compare(f"{kernel} rows={rows} {cdt} stream", got, w, names, tol)
+                del got
+                phases = (bc.bidir_phase_profile(*args, cdt, pool=pool)
+                          if geo["route"] == "cluster" else None)
+                record(kernel, rows, cdt, err, lambda: fused(*args, cdt),
+                       lambda: bc.bilstm_fwd_plain(*args, cdt, pool=pool), 10, fwd_lib,
+                       route=geo["route"],
+                       stream_ms=time_ms(lambda: fused(*args, cdt, geometry=stream), 30),
+                       stream_max_abs_err=stream_err,
+                       proj_ms=time_ms(lambda: bc.bilstm_proj_fused(*args[:3], cdt), 30),
+                       proj_max_abs_err=proj_err, scratch_ms=bidir_scratch_ms(rows),
+                       step_phases=phases, geometry=geo, stream_geometry=stream)
 
     for rows in BIDIR_ROWS:
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
             args = bidir_args(torch, rows, g)
-            want = bc.bilstm_fwd_plain(*args, cdt)
-            got = bc.bilstm_fwd_fused(*args, cdt)
-            torch.cuda.synchronize()
-            err = compare(f"bilstm_fwd rows={rows} {cdt}", got, want, BIDIR_FWD_OUTPUTS, tol)
-            fwd_lib = library_bilstm(torch, args, cdt, want[0], False, g)
-            record("bilstm_fwd", rows, cdt, err, lambda: bc.bilstm_fwd_fused(*args, cdt),
-                   lambda: bc.bilstm_fwd_plain(*args, cdt), 10, fwd_lib)
-
-            pwant = bc.bilstm_fwd_plain(*args, cdt, pool=True)
-            pgot = bc.bilstm_pool_fwd_fused(*args, cdt)
-            torch.cuda.synchronize()
-            err = compare(f"bilstm_pool_fwd rows={rows} {cdt}", pgot, pwant,
-                          BIDIR_FWD_OUTPUTS + ("pool",), tol)
-            record("bilstm_pool_fwd", rows, cdt, err, lambda: bc.bilstm_pool_fwd_fused(*args, cdt),
-                   lambda: bc.bilstm_fwd_plain(*args, cdt, pool=True), 10, fwd_lib)
-
+            bwd_lib = library_bilstm(torch, args, cdt, None, True, g)
             bargs = bidir_bwd_args(torch, bc, args, cdt, g, const=False)
             got = bc.bilstm_bwd_fused(*bargs, cdt)
             torch.cuda.synchronize()
             err = compare(f"bilstm_bwd rows={rows} {cdt}", got, bc.bilstm_bwd_plain(*bargs, cdt),
                           BIDIR_BWD_OUTPUTS, tol)
-            bwd_lib = library_bilstm(torch, args, cdt, None, True, g)
             record("bilstm_bwd", rows, cdt, err, lambda: bc.bilstm_bwd_fused(*bargs, cdt),
                    lambda: bc.bilstm_bwd_plain(*bargs, cdt), 5, bwd_lib)
 
@@ -1072,10 +1126,11 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
                    lambda: bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt),
                    5, bwd_lib)
 
-    # untimed: the launcher takes the fewest rows a block that keep both
-    # directions' blocks within the SMs (rows / R <= SMs / 2): 16 and 512
-    # above take 1 and 8; these take 2 and 4
-    half = torch.cuda.get_device_properties(0).multi_processor_count // 2
+    bidir_coverage_phase(torch, bc, g)
+    # untimed: K4/K6 take the fewest rows a block that keep both directions'
+    # blocks within the SMs (rows / R <= SMs / 2): 16 and 512 above take 1
+    # and 8; these take 2 and 4 (K3/K5 run here on their launcher's route)
+    half = sms // 2
     for rows in (2 * half - 1, 4 * half - 1):
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
@@ -1110,6 +1165,70 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
     return out
 
 
+def bidir_coverage_phase(torch, bc, g) -> None:
+    """Untimed: every geometry K3/K5's launcher can pick, each held against
+    the plain version on every output and the pool, K3 with and without
+    residuals. f32 cluster route: clusters of 2, 4 and 8, each rows a
+    thread (1, 2, 4, 8, and 8 over several row groups), ragged slices (174 =
+    44 + 44 + 43 + 43) and a ragged last cluster; bf16 cluster route (the
+    tensor cores): clusters of 2, 4 and 8, one and several 16-row tiles;
+    stream route: H = 400, whose W_hh fits no cluster of 8 in f32, at each
+    rows a block (1, 2, 4, 8), in f32 as the launcher picks it and in bf16
+    as measurements may ask."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    optin = bc.device_limits("cuda")[1]
+    bf = torch.bfloat16
+    # (H, dtype, the cluster size the launcher should take, rows a cluster,
+    # rows short of filling the last cluster of a full wave); None: the
+    # stream route, whose rows a block the kernel picks
+    cases = [(H, None, 4, 1, 0), (H, None, 4, 2, 1), (H, None, 4, 3, 2), (H, None, 4, 5, 3),
+             (H, None, 4, 17, 4), (128, None, 2, 1, 0), (256, None, 8, 7, 3),
+             (256, None, 8, 32, 1), (H, bf, 2, 2, 1), (H, bf, 2, 9, 5)]
+    cases += [(STREAM_H, None, None, R, 1) for R in (1, 2, 4, 8)]
+    seen = set()
+    for h, cdt, C, R, short in cases:
+        if C is None:
+            rows = max(1, R * (sms // 2) - short)
+        else:
+            probe = bc.bidir_cluster_geometry(1, h, C, R, cdt, optin)
+            rows = max(1, R * (bc.bidir_max_active_clusters("cuda", 1, h, cdt, probe) // 2) - short)
+        args = bidir_args(torch, rows, g, h)
+        tol = F32_TOL if cdt is None else BF16_TOL
+        geo = bidir_geometry_line(bc, rows, h, cdt, True)
+        if geo["route"] != ("stream" if C is None else "cluster") or geo.get("C", C) != C \
+                or geo["R"] != R:
+            fail(f"K5 geometry for rows={rows} H={h} {cdt}: {geo}, expected C={C} R={R}")
+        dt = "bf16" if cdt else "f32"
+        if C is None:
+            seen.add(("stream", R))
+        else:
+            seen |= {(dt, "C", C), (dt, "rows a thread", geo["rpt"]),
+                     (dt, "row groups > 1", geo["row_groups"] > 1)}
+        errs = {"bilstm_pool_fwd": compare(
+            f"bilstm_pool_fwd rows={rows} H={h} {cdt}", bc.bilstm_pool_fwd_fused(*args, cdt),
+            bc.bilstm_fwd_plain(*args, cdt, pool=True), BIDIR_FWD_OUTPUTS + ("pool",), tol)}
+        want = bc.bilstm_fwd_plain(*args, cdt)
+        errs["bilstm_fwd"] = compare(f"bilstm_fwd rows={rows} H={h} {cdt}",
+                                     bc.bilstm_fwd_fused(*args, cdt), want, BIDIR_FWD_OUTPUTS, tol)
+        hs2, (hT2, cT2) = bc.bilstm_fwd_fused(*args, cdt, residuals=False)
+        errs["bilstm_fwd no residuals"] = compare(
+            f"bilstm_fwd residuals=False rows={rows} H={h} {cdt}", (hs2, hT2, cT2),
+            (want[0], want[6], want[7]), ("hs2", "hT2", "cT2"), tol)
+        if C is None:  # bf16's slice of H = 400 fits a cluster: the stream route by request
+            stream = bc.bidir_stream_geometry(rows, h, sms)
+            errs["bilstm_pool_fwd bf16 stream"] = compare(
+                f"bilstm_pool_fwd stream rows={rows} H={h} bf16",
+                bc.bilstm_pool_fwd_fused(*args, bf, geometry=stream),
+                bc.bilstm_fwd_plain(*args, bf, pool=True), BIDIR_FWD_OUTPUTS + ("pool",), BF16_TOL)
+        print(json.dumps({"check": "K3/K5 geometry", "rows": rows, "H": h, "dtype": dt,
+                          "max_abs_err": errs, "geometry": geo}))
+    need = ({("f32", "C", C) for C in (2, 4, 8)} | {("f32", "rows a thread", r) for r in (1, 2, 4, 8)}
+            | {("f32", "row groups > 1", True), ("bf16", "row groups > 1", True)}
+            | {("bf16", "C", 2)} | {("stream", r) for r in (1, 2, 4, 8)})
+    if not need <= seen:
+        fail(f"K3/K5 coverage misses {sorted(map(str, need - seen))}")
+
+
 def fused_bf16_epoch(torch, np, lc, pc, bc) -> dict:
     """The bf16 fused arm (the compute dtype of the JAX bench's arm): one
     dSGD epoch timed cold (the first bf16 epoch of the run), then the next
@@ -1136,8 +1255,8 @@ def fused_bf16_epoch(torch, np, lc, pc, bc) -> dict:
            "ms_per_round": ms[-1] / rounds[-1], "losses": losses.tolist(), "launches": launches}
     print("training dSGD fused_bidir bf16:", json.dumps(rec))
     want = dict.fromkeys(launches, 0)
-    want.update(bilstm_pool_fwd=sum(rounds) * cfg.local_iterations,
-                bilstm_pool_bwd=sum(rounds) * cfg.local_iterations)
+    n = sum(rounds) * cfg.local_iterations
+    want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n)
     if launches != want:
         fail(f"bf16 fused epoch launches {launches}, want {want}")
     if losses.shape != (sum(rounds),) or not bool(losses.isfinite().all()):
@@ -1185,7 +1304,8 @@ def fused_model_phase(torch, np, lc, pc, bc) -> dict:
         torch.cuda.synchronize()
         launches = read_counters(lc, pc, bc)
         rec["launches"][f"eval_rows_{rows}"] = launches
-        want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1}
+        want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1, "bilstm_proj": 1,
+                                             "bidir_cluster_route": 1}
         if launches != want:
             fail(f"fused eval rows={rows} launches {launches}, want {want}")
         errs = {k: (got - eval_forward(tasks[k], x)).abs().max().item()
@@ -1212,7 +1332,8 @@ def fused_model_phase(torch, np, lc, pc, bc) -> dict:
             launches = read_counters(lc, pc, bc)
         grads[k] = dict(zip(named, gk))
     rec["launches"]["one_model_gradient"] = launches
-    want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1, "bilstm_bwd": 1}
+    want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1, "bilstm_proj": 1,
+                                         "bidir_cluster_route": 1, "bilstm_bwd": 1}
     if launches != want:
         fail(f"fused one-model gradient launches {launches}, want {want}")
     err, ok = tree_err(grads["fused"], grads["plain"], **AGG_TOL)
@@ -1370,6 +1491,16 @@ def main() -> int:
             "shape": {"T": T, "rows": rows, "D": D, "H": H, "dtype": "f32"},
             "shapes": [r for r in bidir if r["kernel"] == name],
         })
+        if "fwd" in name:
+            kernels[-1].update({
+                "design": "two launches: K1's projection kernel with 8 gates writes x W_ih + b of "
+                          "both directions into an f32 scratch; the recurrence runs over "
+                          "thread-block clusters, half of them a direction, whose blocks hold "
+                          "their W_hh columns in shared memory and exchange h through distributed "
+                          "shared memory, one cluster barrier a step (the first design's one "
+                          "launch for a W_hh that fits no cluster of 8)",
+                "geometry": main_shape["geometry"], "proj_ms": main_shape["proj_ms"],
+                "stream_ms": main_shape["stream_ms"], "scratch_ms": main_shape["scratch_ms"]})
     print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,23 +22,36 @@
 // as the TPU kernel's preferred_element_type=f32 dots.
 //
 // What bounds it on this card. Each direction is K1's recurrence: 98 serial
-// steps (flagship: T=98, D=256, H=174), each 2*rows*(D+H)*4H FLOP against
-// that direction's 1.2 MB of f32 weights, which do not fit one block's
-// shared memory and stream from L2 every step. As measured for K1 (PERF.md),
-// a step waits on the latency of each thread's chain of L2 loads more than
-// on their bytes or FLOP.
+// steps (flagship: T=98, D=256, H=174), each 2*rows*H*4H FLOP against that
+// direction's W_hh, after an i2h product that depends on no step.
 //
-// What this design does about it. The TPU kernel interleaves the two
-// directions in one grid sweep so that one chain's matmuls fill the MXU
-// while the other waits; on this card the two chains are simply independent
-// blocks: blockIdx.y picks the direction (its weights and its time map),
-// blockIdx.x a group of R rows, and each block walks all T steps with its h
-// and c in shared memory, as K1 does. The launcher picks R so that both
-// directions' blocks fit one wave on the SMs (the fewest rows a block with
-// 2 * ceil(rows / R) <= SMs). The pool is a per-thread f32 sum in shared
-// memory: a thread always owns the same (row, column) pairs, so it needs no
-// barrier. Clusters over the gate columns and wgmma are later work.
+// The cluster route (K1's design, carried over to both directions):
+// 1. The i2h product of both directions is one launch of K1's projection
+//    kernel (lstm_fwd.cu, dn_lstm_proj with 8 gates): wih2 [2, 4, D, H] read
+//    as [8, D, H], x read once, xp2 [T, B, 8H] f32 into a scratch that the
+//    wrapper allocates; direction d's gates sit at columns d*4H + k*H + j.
+// 2. bilstm_rec_cluster_kernel: the first half of the grid's clusters runs
+//    direction 0, the second half direction 1. Block k of a cluster owns
+//    hidden units [j0_k, j0_{k+1}) of its direction, all four gates of them,
+//    and holds their W_hh columns in shared memory for the whole sequence;
+//    the blocks exchange h once a step through distributed shared memory
+//    (double-buffered, one split cluster barrier a step), as K1 does. At its
+//    step s the reverse direction reads xp2[T-1-s] and stores at x-time
+//    T-1-s; a direction's terminal carry is its state after its own last
+//    step. K5's pool: each (row, unit) is updated by the same thread at
+//    every step, which adds the f32 h to its sum in shared memory.
+//    f32: each thread computes a 2-column by RPT-row tile of the product, so
+//    that every W_hh value loaded from shared memory feeds 2 x RPT FMAs.
+// The launch geometry is worked out in Python
+// (ops/bilstm_cuda.py:bidir_geometry) and checked here.
+//
+// The stream route, bilstm_fwd_kernel below (the first design), stays for
+// shapes whose W_hh slice fits no cluster of 8 (H above about 340 in f32):
+// blockIdx.y picks the direction, blockIdx.x a group of R rows, and each
+// block walks all T steps with the i2h product inside the loop, streaming
+// both weights from L2 every step.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +59,9 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "lstm_cluster.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -70,8 +86,6 @@ struct Args {
   float* pool;  // [B, 2H] f32, K5 only
   int T, B, D, H;
 };
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 template <typename S, int R>
 __device__ __forceinline__ void stage_x(const Args& a, float* xs, int t, int row0, int nrows) {
@@ -180,6 +194,240 @@ __global__ void __launch_bounds__(1024) bilstm_fwd_kernel(Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster route: both directions' recurrences over xp2
+
+struct RecArgs {
+  const float* xp;  // [T, B, 8H] f32: x W_ih + b, direction d at columns d*4H + k*H + j
+  const void* whh;  // [2, 4, H, H] contiguous, stream dtype
+  const float* h0;  // [2, B, H] contiguous
+  const float* c0;
+  void* hs;  // [2, T, B, H] contiguous, stream dtype; cs..ag may be null
+  void* cs;
+  void* ai;
+  void* af;
+  void* ao;
+  void* ag;
+  float* hT;  // [2, B, H] f32
+  float* cT;
+  float* pool;  // [B, 2H] f32 (K5)
+  int T, B, H;
+  // null, or [5 T + 2]: the phase clock of block 0 (direction 0), kPhases
+  long long* prof;
+};
+
+// This block's direction, first row and rows: the first half of the
+// clusters runs direction 0, the second half direction 1.
+struct Place {
+  int dir, row0, nrows;
+};
+
+__device__ __forceinline__ Place place(const ClusterGeom& g, int B) {
+  const int per_dir = (B + g.R - 1) / g.R;
+  const int q = blockIdx.x / g.C;
+  const int dir = q >= per_dir ? 1 : 0;
+  const int row0 = (q - dir * per_dir) * g.R;
+  return {dir, row0, min(g.R, B - row0)};
+}
+
+// The streams of unit j of row `row` at the direction's step s, x-time t,
+// from what cell() left: the gates in p, the carry c and h. The terminal
+// carry is the state after the direction's own last step (s == T - 1: x-time
+// 0 for the reverse direction).
+template <typename S>
+__device__ __forceinline__ void write_step(const RecArgs& a, const float* p, int off, float c,
+                                           float h, int dir, int s, int t, int row, int j) {
+  const long long o = (((long long)dir * a.T + t) * a.B + row) * a.H + j;
+  store<S>(a.hs, o, h);
+  store<S>(a.cs, o, c);
+  store<S>(a.ai, o, p[0]);
+  store<S>(a.af, o, p[off]);
+  store<S>(a.ao, o, p[2 * off]);
+  store<S>(a.ag, o, p[3 * off]);
+  if (s == a.T - 1) {
+    const long long q = ((long long)dir * a.B + row) * a.H + j;
+    a.hT[q] = h;  // the f32 carry, never the stream dtype
+    a.cT[q] = c;
+  }
+}
+
+// two consecutive operand values as f32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// the most threads of a block whose threads carry 8 rows each: 102
+// registers a thread for the 2 x 8 tile and its operands
+constexpr int kRows8Threads = 640;
+
+template <typename S, int RPT, bool POOL>
+__global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
+    bilstm_rec_cluster_kernel(RecArgs a, ClusterGeom g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  __shared__ int j0s[kMaxCluster + 1];
+  __shared__ unsigned char owner[kMaxClusterH];  // the rank that owns each unit
+  const int H = a.H, RP = g.rp, smax = g.smax, wst = g.wst;
+  const int rpb = exchange_stride(RP);
+  // K1's layout (cluster_smem_bytes), then K5's pool sums
+  S* ws = reinterpret_cast<S*>(cluster_smem);  // [H, wst] this block's W_hh columns
+  float* hl = reinterpret_cast<float*>(cluster_smem + align16((size_t)H * wst * sizeof(S)));
+  float* buf = hl + H * RP;           // [2, smax, rpb] own h slice, double-buffered
+  float* pre = buf + 2 * smax * rpb;  // [RP, wst] own gate pre-activations
+  float* csm = pre + RP * wst;        // [RP, smax] own f32 cell carry
+  float* psm = csm + RP * smax;       // [RP, smax] own f32 pool sums (K5)
+
+  const Place pl = place(g, a.B);
+  const int rank = (int)cluster.block_rank();
+  const int j0 = g.j0[rank], sk = g.j0[rank + 1] - j0, cols = 4 * sk;
+  owner_table(g, j0s, owner);
+
+  // the direction's W_hh[:, own columns] once: local column c is gate c / sk
+  // of unit j0 + c % sk
+  const S* whh = static_cast<const S*>(a.whh) + (long long)pl.dir * 4 * H * H;
+  for (int idx = threadIdx.x; idx < H * cols; idx += blockDim.x) {
+    const int h = idx / cols, c = idx - h * cols;
+    const int k = c / sk;
+    ws[h * wst + c] = whh[((long long)k * H + h) * H + j0 + c - k * sk];
+  }
+  // h0 into buf[0], c0 into the carry
+  const long long carry = (long long)pl.dir * a.B * H;
+  for (int idx = threadIdx.x; idx < RP * sk; idx += blockDim.x) {
+    const int r = idx / sk, jj = idx - r * sk;
+    const long long o = carry + (long long)(pl.row0 + r) * H + j0 + jj;
+    buf[jj * rpb + r] = r < pl.nrows ? a.h0[o] : 0.f;
+    csm[r * smax + jj] = r < pl.nrows ? a.c0[o] : 0.f;
+    if (POOL) psm[r * smax + jj] = 0.f;
+  }
+  // every block of the cluster has started and written buf[0]
+  cluster.sync();
+
+  // the product's share of this thread: columns 2 cq and 2 cq + 1 (a 4 sk
+  // wide slice never splits a pair), rows r0 .. r0 + RPT - 1
+  const int cp = blockDim.x / g.rg;
+  const int cq = threadIdx.x % cp, r0 = (threadIdx.x / cp) * RPT;
+  const bool owns = 2 * cq < cols;
+  long long xcol[2] = {0, 0};
+  if (owns) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 2 * cq + e, k = c / sk;
+      xcol[e] = (long long)pl.dir * 4 * H + k * H + j0 + c - k * sk;
+    }
+  }
+  constexpr int NP = RPT >= 2 ? 1 : 2;  // independent partial sums a row
+  long long* stamp = a.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 ? a.prof : nullptr;
+  if (stamp) stamp[kPhases * a.T] = global_ns();
+  const int per = smax * rpb;
+  const long long G8 = 8LL * H;
+
+  for (int s = 0; s < a.T; ++s) {
+    const int t = pl.dir ? a.T - 1 - s : s;  // the x block this step consumes
+    if (stamp) stamp[kPhases * s + kStepStart] = clock64();
+    // this thread's xp, loaded first: its latency hides behind the gather
+    float xv[RPT][2];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const bool ok = owns && r0 + r < pl.nrows;
+      const float* xr = a.xp + ((long long)t * a.B + pl.row0 + r0 + r) * G8;
+      xv[r][0] = ok ? xr[xcol[0]] : 0.f;
+      xv[r][1] = ok ? xr[xcol[1]] : 0.f;
+    }
+
+    // 1. gather h_{t-1} from every rank's buf[s & 1]
+    float* cur = buf + (s & 1) * per;
+    gather(cluster, cur, j0s, owner, H, RP, rpb,
+           [&](int j, int r, float v) { hl[j * RP + r] = as_operand<S>(v); });
+    __syncthreads();
+    if (stamp) stamp[kPhases * s + kGathered] = clock64();
+
+    // 2. pre = xp[t] + h W_hh[:, own columns], a 2 x RPT tile a thread
+    if (owns) {
+      float acc[NP][RPT][2];
+#pragma unroll
+      for (int q = 0; q < NP; ++q)
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) acc[q][r][0] = acc[q][r][1] = 0.f;
+      const S* wc = ws + 2 * cq;
+      const float* hr = hl + r0;
+      // U units at a time, every operand loaded before the first FMA
+      constexpr int U = RPT >= 4 ? 4 : 8;
+      int h = 0;
+      for (; h + U <= H; h += U) {
+        float2 w[U];
+        float hv[U][RPT];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          w[u] = load2(wc + (h + u) * wst);
+          load_rows<RPT>(hr + (h + u) * RP, hv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            acc[u % NP][r][0] = fmaf(hv[u][r], w[u].x, acc[u % NP][r][0]);
+            acc[u % NP][r][1] = fmaf(hv[u][r], w[u].y, acc[u % NP][r][1]);
+          }
+      }
+      for (; h < H; ++h) {
+        const float2 w = load2(wc + h * wst);
+        float hv[RPT];
+        load_rows<RPT>(hr + h * RP, hv);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          acc[0][r][0] = fmaf(hv[r], w.x, acc[0][r][0]);
+          acc[0][r][1] = fmaf(hv[r], w.y, acc[0][r][1]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        float2 v = make_float2(acc[0][r][0], acc[0][r][1]);
+#pragma unroll
+        for (int q = 1; q < NP; ++q) v.x += acc[q][r][0], v.y += acc[q][r][1];
+        v.x += xv[r][0], v.y += xv[r][1];
+        *reinterpret_cast<float2*>(pre + (r0 + r) * wst + 2 * cq) = v;
+      }
+    }
+    __syncthreads();
+    if (stamp) stamp[kPhases * s + kProduct] = clock64();
+
+    // 3. gates and carries of the own units; the new h slice goes to the
+    //    own buf[(s + 1) & 1], which no rank reads during this step. The
+    //    thread that updates a (row, unit) is the same at every step, so it
+    //    alone adds to that pool sum: the f32 h, before any rounding.
+    float* nxt = buf + ((s + 1) & 1) * per;
+    for (int idx = threadIdx.x; idx < RP * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      const float h = cell(pre + r * wst + jj, sk, csm + r * smax + jj);
+      nxt[jj * rpb + r] = h;
+      if (POOL) psm[r * smax + jj] += h;
+    }
+    if (stamp) stamp[kPhases * s + kGates] = clock64();
+    // 4. the cluster barrier, its two halves around the stream stores, as K1
+    cluster_arrive();
+    for (int idx = threadIdx.x; idx < pl.nrows * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      write_step<S>(a, pre + r * wst + jj, sk, csm[r * smax + jj], nxt[jj * rpb + r], pl.dir, s,
+                    t, pl.row0 + r, j0 + jj);
+    }
+    cluster_wait();
+    if (stamp) stamp[kPhases * s + kBarrier] = clock64();
+  }
+  if (stamp) stamp[kPhases * a.T + 1] = global_ns();
+
+  if (POOL) {  // each thread reads back only the sums it accumulated itself
+    const float inv_t = 1.f / (float)a.T;
+    for (int idx = threadIdx.x; idx < RP * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      if (r < pl.nrows)
+        a.pool[(long long)(pl.row0 + r) * 2 * H + pl.dir * H + j0 + jj] = psm[r * smax + jj] * inv_t;
+    }
+  }
+}
+
 template <typename S, int R, bool POOL>
 cudaError_t launch(const Args& a, int dev, const DeviceInfo& info, cudaStream_t stream) {
   // the largest dynamic shared memory this instance was opened up to, by device
@@ -219,6 +467,54 @@ int run(int dtype, const Args& a, void* stream) {
   return cudaErrorInvalidValue;
 }
 
+// The cluster route's launch. Reads and checks the geometry: the shared
+// memory must be what the kernel carves (K1's layout, and K5's pool sums),
+// each thread two columns of rg row groups.
+template <typename S, int RPT, bool POOL>
+cudaError_t rec_cluster(const RecArgs& a, const int* geom, int dev, const DeviceInfo& info,
+                        cudaStream_t stream, int* max_active) {
+  static std::atomic<int> smem_set[kMaxDevices];
+  ClusterGeom g;
+  cudaError_t err = read_cluster_geom(geom, a.H, 4 * geom[7], &g);
+  if (err != cudaSuccess) return err;
+  const int threads = geom[5], cp = threads / g.rg;
+  const size_t smem = cluster_smem_bytes<S>(g, a.H) + (POOL ? sizeof(float) * g.rp * g.smax : 0);
+  if (geom[3] != RPT || threads > (RPT == 8 ? kRows8Threads : 1024) || threads % g.rg || cp % 32 ||
+      2 * cp < g.wst || (size_t)geom[6] != smem)
+    return cudaErrorInvalidValue;
+  err = open_smem(bilstm_rec_cluster_kernel<S, RPT, POOL>, smem, dev, info, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long blocks = 2LL * ((a.B + g.R - 1) / g.R) * g.C;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return launch_cluster(bilstm_rec_cluster_kernel<S, RPT, POOL>, (unsigned)blocks, threads, smem,
+                        g.C, stream, max_active, a, g);
+}
+
+template <typename S, bool POOL>
+cudaError_t rec_rows(const RecArgs& a, const int* geom, cudaStream_t stream, int* max_active) {
+  int dev = 0;
+  const DeviceInfo* info = nullptr;
+  cudaError_t err = current_device(&dev, &info);
+  if (err != cudaSuccess) return err;
+  if (geom[0] != 1) return cudaErrorInvalidValue;
+  switch (geom[3]) {
+    case 1: return rec_cluster<S, 1, POOL>(a, geom, dev, *info, stream, max_active);
+    case 2: return rec_cluster<S, 2, POOL>(a, geom, dev, *info, stream, max_active);
+    case 4: return rec_cluster<S, 4, POOL>(a, geom, dev, *info, stream, max_active);
+    case 8: return rec_cluster<S, 8, POOL>(a, geom, dev, *info, stream, max_active);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int rec_run(int dtype, int pool, const RecArgs& a, const int* geom, cudaStream_t stream,
+            int* max_active) {
+  if (dtype == 0 && !pool) return rec_rows<float, false>(a, geom, stream, max_active);
+  if (dtype == 0 && pool) return rec_rows<float, true>(a, geom, stream, max_active);
+  if (dtype == 1 && !pool) return rec_rows<__nv_bfloat16, false>(a, geom, stream, max_active);
+  if (dtype == 1 && pool) return rec_rows<__nv_bfloat16, true>(a, geom, stream, max_active);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -249,6 +545,35 @@ int dn_bilstm_pool_fwd(int dtype, const void* x, long long sxt, long long sxb, c
          hs, cs, ai, af, ao, ag, static_cast<float*>(hT), static_cast<float*>(cT),
          static_cast<float*>(pool), T, B, D, H};
   return run<true>(dtype, a, stream);
+}
+
+// The cluster route of K3 (pool 0) and K5 (pool 1): the recurrence of both
+// directions over xp2 [T, B, 8H] f32 (dn_lstm_proj with 8 gates), on the
+// geometry `geom` (kGeomLen ints, ops/bilstm_cuda.py:bidir_geometry).
+// whh [2, 4, H, H] contiguous at the stream dtype; h0, c0, hT, cT [2, B, H]
+// f32; pool [B, 2H] f32. K5 needs every residual stream. prof: null, or the
+// phase clock [5 T + 2] (int64).
+int dn_bilstm_rec(int dtype, int pool, const void* xp, const void* whh, const void* h0,
+                  const void* c0, void* hs, void* cs, void* ai, void* af, void* ao, void* ag,
+                  void* hT, void* cT, void* poolp, int T, int B, int H, const int* geom,
+                  void* prof, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || !geom) return cudaErrorInvalidValue;
+  if (pool && (!cs || !ai || !af || !ao || !ag || !poolp)) return cudaErrorInvalidValue;
+  RecArgs a{static_cast<const float*>(xp), whh, static_cast<const float*>(h0),
+            static_cast<const float*>(c0), hs, cs, ai, af, ao, ag, static_cast<float*>(hT),
+            static_cast<float*>(cT), static_cast<float*>(poolp), T, B, H,
+            static_cast<long long*>(prof)};
+  return rec_run(dtype, pool, a, geom, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster route at `geom` for B rows
+// into *out (clusters of both directions together).
+int dn_bilstm_max_active_clusters(int dtype, int pool, int B, int H, const int* geom, int* out) {
+  if (B < 1 || H < 1 || !geom || !out) return cudaErrorInvalidValue;
+  RecArgs a{};
+  a.B = B;
+  a.H = H;
+  return rec_run(dtype, pool, a, geom, nullptr, out);
 }
 
 const char* dn_error_string(int err) {

@@ -58,14 +58,13 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "lstm_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace dn;
-
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
 // ---------------------------------------------------------------------------
 // Stage 1: the i2h projection
@@ -77,8 +76,9 @@ struct ProjArgs {
   long long swk, swd;
   const float* b;  // b[k, j] at k*sbk + j
   long long sbk;
-  float* xp;  // [T, B, 4H] contiguous f32
+  float* xp;  // [T, B, G H] contiguous f32
   int T, B, D, H;
+  int G;  // gates: 4 (K1), or 8 (K3/K5: both directions' W_ih read as one [8, D, H])
 };
 
 constexpr int kTM = 64, kTN = 64, kTK = 16, kProjThreads = 256;
@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kProjThreads) lstm_proj_kernel(ProjArgs a) {
   // +4: the K-major stores of a row chunk land in two banks, not one
   __shared__ __align__(16) float As[kTK][kTM + 4];
   __shared__ __align__(16) float Bs[kTK][kTN + 4];
-  const int M = a.T * a.B, N = 4 * a.H, tid = threadIdx.x;
+  const int M = a.T * a.B, N = a.G * a.H, tid = threadIdx.x;
   const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
   const S* x = static_cast<const S*>(a.x);
   const S* w = static_cast<const S*>(a.wih);
@@ -178,32 +178,6 @@ struct RecArgs {
   long long* prof;
 };
 
-// The cluster kernel's phase clock, for measurements: block 0's thread 0
-// stamps clock64() at these points of every step t, at prof[5 t + k], and
-// the global timer (ns) at the first and the last stamp, at prof[5 T] and
-// prof[5 T + 1], which converts cycles to time.
-enum { kStepStart, kGathered, kProduct, kGates, kBarrier, kPhases };
-
-__device__ __forceinline__ long long global_ns() {
-  long long v;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
-  return v;
-}
-
-// The cell update of one unit of one row, from its four gate
-// pre-activations p[0], p[off], p[2*off], p[3*off], which it overwrites with
-// the gates i, f, o, g, and its carry *c, which it updates; returns h.
-__device__ __forceinline__ float cell(float* p, int off, float* c) {
-  const float ig = sigmoid(p[0]);
-  const float fg = sigmoid(p[off]);
-  const float og = sigmoid(p[2 * off]);
-  const float gg = tanhf(p[3 * off]);
-  const float cn = fg * *c + ig * gg;
-  p[0] = ig, p[off] = fg, p[2 * off] = og, p[3 * off] = gg;
-  *c = cn;
-  return og * tanhf(cn);
-}
-
 // The streams of unit j of row `row` at step t from what cell() left: the
 // gates in p, the carry c and h.
 template <typename S>
@@ -221,15 +195,6 @@ __device__ __forceinline__ void write_streams(const RecArgs& a, const float* p, 
     a.hT[q] = h;  // the f32 carry, never the stream dtype
     a.cT[q] = c;
   }
-}
-
-// A cluster barrier in two halves: arrive (release: this thread's shared
-// memory writes are visible to every rank that waits), then wait (acquire).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
 // Stage 1's recurrence: R rows a block, W_hh streamed from L2 every step.
@@ -283,55 +248,6 @@ __global__ void __launch_bounds__(1024) lstm_rec_stream_kernel(RecArgs a) {
   }
 }
 
-// Stage 2's geometry, from ops/lstm_cuda.py:k1_geometry.
-constexpr int kMaxCluster = 8;
-
-// the widest H the cluster route takes (a W_hh slice of 8 blocks holds
-// H x H/2 values: above about 340 in f32 and 480 in bf16 none fits)
-constexpr int kMaxClusterH = 512;
-
-struct ClusterGeom {
-  int C;      // blocks a cluster
-  int R;      // rows a cluster
-  int rg;     // row groups: the threads are rg groups of cp = blockDim.x / rg columns
-  int rp;     // rows held in shared memory, rg * RPT >= R
-  int smax;   // the largest slice of hidden units
-  int wst;    // 4 * smax: row stride of the W_hh slice and of pre
-  int j0[kMaxCluster + 1];  // rank k owns hidden units [j0[k], j0[k + 1])
-};
-
-// row stride of the h exchange buffer [smax, rpb]: odd, so that a warp
-// writing one row's units and a warp reading one unit's rows both hit
-// distinct banks
-__host__ __device__ inline int exchange_stride(int rp) { return rp | 1; }
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-// Dynamic shared memory of one cluster block; the layout the kernel carves.
-template <typename S>
-__host__ __device__ inline size_t cluster_smem_bytes(const ClusterGeom& g, int H) {
-  return align16((size_t)H * g.wst * sizeof(S)) +
-         sizeof(float) * ((size_t)H * g.rp + 2 * (size_t)g.smax * exchange_stride(g.rp) +
-                          (size_t)g.rp * g.wst + (size_t)g.rp * g.smax);
-}
-
-// n consecutive f32 values from shared memory, 16 or 8 bytes at a time
-template <int N>
-__device__ __forceinline__ void load_rows(const float* p, float* v) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N; q += 4) {
-      const float4 f = *reinterpret_cast<const float4*>(p + q);
-      v[q] = f.x, v[q + 1] = f.y, v[q + 2] = f.z, v[q + 3] = f.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    v[0] = f.x, v[1] = f.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
 template <typename S, int RPT>
 __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, ClusterGeom g) {
   cg::cluster_group cluster = cg::this_cluster();
@@ -352,9 +268,7 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
   const int row0 = (blockIdx.x / g.C) * g.R;
   const int nrows = min(g.R, a.B - row0);
   const int j0 = g.j0[rank], sk = g.j0[rank + 1] - j0, cols = 4 * sk;
-  if (threadIdx.x <= g.C) j0s[threadIdx.x] = g.j0[threadIdx.x];
-  for (int q = 0; q < g.C; ++q)
-    for (int j = g.j0[q] + threadIdx.x; j < g.j0[q + 1]; j += blockDim.x) owner[j] = q;
+  owner_table(g, j0s, owner);
 
   // W_hh[:, own columns] once: local column c is gate c / sk of unit j0 + c % sk
   const S* whh = static_cast<const S*>(a.whh);
@@ -385,10 +299,6 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
   long long* stamp = a.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 ? a.prof : nullptr;
   if (stamp) stamp[kPhases * a.T] = global_ns();
   const int per = smax * rpb;
-  // the gather's share of this thread: row gr of units gj, gj + gstep, ...
-  // (a warp reads consecutive rows of one unit: contiguous on both sides)
-  const int gstep = blockDim.x / RP, gr = threadIdx.x % RP;
-  const int gj = threadIdx.x < gstep * RP ? threadIdx.x / RP : H;
 
   for (int t = 0; t < a.T; ++t) {
     if (stamp) stamp[kPhases * t + kStepStart] = clock64();
@@ -400,22 +310,10 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
       xv[r] = owns && row < nrows ? a.xp[((long long)t * a.B + row0 + row) * G + xcol] : 0.f;
     }
 
-    // 1. gather h_{t-1} from every rank's buf[t & 1], four loads in flight
+    // 1. gather h_{t-1} from every rank's buf[t & 1]
     float* cur = buf + (t & 1) * per;
-    for (int j = gj; j < H; j += 4 * gstep) {
-      float v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int ju = j + u * gstep;
-        if (ju < H) {
-          const int q = owner[ju];
-          v[u] = cluster.map_shared_rank(cur, q)[(ju - j0s[q]) * rpb + gr];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        if (j + u * gstep < H) hl[(j + u * gstep) * RP + gr] = as_operand<S>(v[u]);
-    }
+    gather(cluster, cur, j0s, owner, H, RP, rpb,
+           [&](int j, int r, float v) { hl[j * RP + r] = as_operand<S>(v); });
     __syncthreads();
     if (stamp) stamp[kPhases * t + kGathered] = clock64();
 
@@ -493,17 +391,11 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
 
 template <typename S>
 cudaError_t launch_proj(const ProjArgs& a, cudaStream_t stream) {
-  const dim3 grid((4 * a.H + kTN - 1) / kTN, (a.T * a.B + kTM - 1) / kTM);
+  const dim3 grid((a.G * a.H + kTN - 1) / kTN, (a.T * a.B + kTM - 1) / kTM);
   if (grid.y > 65535u) return cudaErrorInvalidValue;
   lstm_proj_kernel<S><<<grid, kProjThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
-
-// geom[0] route: 0 streaming, 1 cluster. Streaming: geom[2] rows a block
-// (1, 2, 4, 8), geom[5] threads, geom[6] dynamic shared memory. Cluster:
-// geom[1] C, [2] R, [3] RPT, [4] row groups, [5] threads, [6] shared
-// memory, [7] smax, [8 .. 8 + C] the column map j0.
-constexpr int kGeomLen = 8 + kMaxCluster + 1;
 
 template <typename S, int R>
 cudaError_t launch_stream(const RecArgs& a, const int* geom, int dev, const DeviceInfo& info,
@@ -520,21 +412,14 @@ cudaError_t launch_stream(const RecArgs& a, const int* geom, int dev, const Devi
 }
 
 // Reads and checks the cluster geometry; the shared memory must be what the
-// kernel carves, every unit owned by one rank.
+// kernel carves, each thread one column of rg row groups.
 template <typename S>
 cudaError_t cluster_geom(const int* geom, int H, ClusterGeom* g) {
-  const int C = geom[1], rpt = geom[3], threads = geom[5];
-  if ((C != 2 && C != 4 && C != 8) || H > kMaxClusterH) return cudaErrorInvalidValue;
-  *g = ClusterGeom{C, geom[2], geom[4], geom[4] * rpt, geom[7], 4 * geom[7], {}};
-  if (g->R < 1 || g->rg < 1 || g->rp < g->R || threads > 1024 || threads % g->rg ||
-      (threads / g->rg) % 32 || threads / g->rg < g->wst)
+  cudaError_t err = read_cluster_geom(geom, H, 4 * geom[7], g);
+  if (err != cudaSuccess) return err;
+  const int threads = geom[5];
+  if (threads > 1024 || threads % g->rg || (threads / g->rg) % 32 || threads / g->rg < g->wst)
     return cudaErrorInvalidValue;
-  for (int k = 0; k <= C; ++k) g->j0[k] = geom[8 + k];
-  if (g->j0[0] != 0 || g->j0[C] != H) return cudaErrorInvalidValue;
-  for (int k = 0; k < C; ++k) {
-    const int s = g->j0[k + 1] - g->j0[k];
-    if (s < 1 || s > g->smax) return cudaErrorInvalidValue;
-  }
   if ((size_t)geom[6] != cluster_smem_bytes<S>(*g, H)) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
@@ -549,22 +434,8 @@ cudaError_t cluster_call(const RecArgs* a, const int* geom, int dev, const Devic
   const size_t smem = geom[6];
   err = open_smem(lstm_rec_cluster_kernel<S, RPT>, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a->B + g.R - 1) / g.R * g.C);
-  cfg.blockDim = dim3(geom[5]);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = g.C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (max_active) return cudaOccupancyMaxActiveClusters(max_active, lstm_rec_cluster_kernel<S, RPT>, &cfg);
-  err = cudaLaunchKernelEx(&cfg, lstm_rec_cluster_kernel<S, RPT>, *a, g);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster(lstm_rec_cluster_kernel<S, RPT>, (a->B + g.R - 1) / g.R * g.C, geom[5],
+                        smem, g.C, stream, max_active, *a, g);
 }
 
 template <typename S>
@@ -599,14 +470,15 @@ extern "C" {
 // dtype 0: f32 x/W/streams; 1: bf16 x/W/streams. b, xp, h0, c0, hT, cT are
 // f32. Each returns the cudaError_t of its launch (0 = launched).
 
-// Stage 1: xp [T, B, 4H] = x W_ih + b.
-int dn_lstm_proj(int dtype, const void* x, long long sxt, long long sxb,
+// Stage 1: xp [T, B, G H] = x W_ih + b, G = gates (4, or 8 for both
+// directions of K3/K5 in one launch).
+int dn_lstm_proj(int dtype, int gates, const void* x, long long sxt, long long sxb,
                  const void* wih, long long swk, long long swd,
                  const void* b, long long sbk, void* xp, int T, int B, int D, int H,
                  void* stream) {
-  if (T < 1 || B < 1 || D < 1 || H < 1) return cudaErrorInvalidValue;
+  if (T < 1 || B < 1 || D < 1 || H < 1 || (gates != 4 && gates != 8)) return cudaErrorInvalidValue;
   ProjArgs a{x, sxt, sxb, wih, swk, swd, static_cast<const float*>(b), sbk,
-             static_cast<float*>(xp), T, B, D, H};
+             static_cast<float*>(xp), T, B, D, H, gates};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_proj<float>(a, s);
   if (dtype == 1) return launch_proj<__nv_bfloat16>(a, s);

@@ -24,6 +24,16 @@ Kernels (``csrc/bilstm_fwd.cu``, ``csrc/bilstm_bwd.cu``) and launch counters:
 - K3 :func:`bilstm_fwd_fused` (``BIDIR_FWD_LAUNCHES``): the forward;
 - K5 :func:`bilstm_pool_fwd_fused` (``POOL_FWD_LAUNCHES``): the forward and
   the time-mean pool, summed in f32 from the f32 h inside the kernel;
+
+  a K3 or K5 call takes one of two routes, chosen by shape before any
+  launch (:func:`bidir_geometry`): the cluster route
+  (``BIDIR_CLUSTER_CALLS``) is two launches, the i2h projection of both
+  directions into an f32 scratch ``[T, B, 8H]`` (K1's projection kernel
+  with 8 gates, :func:`bilstm_proj_fused`, ``BIDIR_PROJ_LAUNCHES``) and the
+  recurrence of both directions over thread-block clusters that hold W_hh
+  in shared memory; the stream route (``BIDIR_STREAM_CALLS``), for a W_hh
+  whose slice fits no cluster of 8, is the first design's one launch with
+  the projection inside the loop;
 - K4 :func:`bilstm_bwd_fused` (``BIDIR_BWD_LAUNCHES``): the backward, with
   a full cotangent stream or a per-row constant at the stream dtype;
 - K6 :func:`bilstm_pool_bwd_fused` (``POOL_BWD_LAUNCHES``): the backward of
@@ -52,7 +62,22 @@ import ctypes
 import torch
 
 from . import _build
-from .lstm_cuda import _check, _site_weight, _stream_dtype
+from .lstm_cuda import (
+    K1_CLUSTER_SIZES,
+    SMEM_OPTIN,
+    _cdiv,
+    _check,
+    _cluster_config,
+    _geom_ints,
+    _launch_proj,
+    _site_weight,
+    _stream_dtype,
+    cluster_occupancy,
+    device_limits,
+    k1_column_map,
+    phase_summary,
+    settle_geometry,
+)
 
 #: K3 launches since the counter was last set to 0
 BIDIR_FWD_LAUNCHES = 0
@@ -62,6 +87,11 @@ BIDIR_BWD_LAUNCHES = 0
 POOL_FWD_LAUNCHES = 0
 #: K6 launches since the counter was last set to 0
 POOL_BWD_LAUNCHES = 0
+#: K3 and K5 calls whose recurrence took the cluster route / the stream route
+BIDIR_CLUSTER_CALLS = 0
+BIDIR_STREAM_CALLS = 0
+#: launches of the projection kernel for both directions (8 gates)
+BIDIR_PROJ_LAUNCHES = 0
 
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -70,6 +100,8 @@ _FWD = [_I, _P, _L, _L, _P, _P, _P, _P, _P] + [_P] * 8
 _ARGTYPES = {
     ("bilstm_fwd", "dn_bilstm_fwd"): _FWD + [_I, _I, _I, _I, _P],
     ("bilstm_fwd", "dn_bilstm_pool_fwd"): _FWD + [_P, _I, _I, _I, _I, _P],
+    ("bilstm_fwd", "dn_bilstm_rec"): [_I, _I] + [_P] * 13 + [_I, _I, _I, _P, _P, _P],
+    ("bilstm_fwd", "dn_bilstm_max_active_clusters"): [_I, _I, _I, _I, _P, _P],
     ("bilstm_bwd", "dn_bilstm_bwd"): [_I] + [_P] * 7 + [_P, _L, _L, _P, _L, _L]
     + [_P] * 5 + [_I, _I, _I, _P],
     ("bilstm_bwd", "dn_bilstm_pool_bwd"): [_I] + [_P] * 14 + [_I, _I, _I, _P],
@@ -95,6 +127,123 @@ def _launch(lib_name: str, entry: str, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{entry} kernel failed: {err_str(err).decode()} ({err})")
+
+
+# ---------------------------------------------------------------------------
+# K3/K5's launch geometry (pure shape arithmetic, tested on the CPU)
+
+#: the most threads of a block whose threads carry 8 rows each
+#: (``csrc/bilstm_fwd.cu:kRows8Threads``)
+_ROWS8_THREADS = 640
+
+
+def _rows_a_thread(R: int) -> int:
+    """Rows a thread carries in the product: the fewest of 1, 2, 4 that
+    cover ``R``, else 8 (a thread's tile is 2 columns by these rows)."""
+    r = 1
+    while r < 8 and r < R:
+        r *= 2
+    return r
+
+
+def bidir_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
+                           smem_optin: int = SMEM_OPTIN, slots: int | None = None,
+                           pool: bool = True) -> dict | None:
+    """The cluster route's geometry for clusters of ``C`` blocks of ``R``
+    rows each, ``clusters`` of them a direction, or None if such a block
+    does not fit; ``slots`` is the clusters of both directions the card
+    runs at once (for ``waves``); ``pool``: K5's layout, with the pool sums
+    in shared memory. K1's block layout (``_cluster_config``), two columns a
+    thread."""
+    rpt = _rows_a_thread(R)
+    cfg = _cluster_config(R, H, C, 2 if dtype == torch.bfloat16 else 4, smem_optin, pool=pool,
+                          cols_a_thread=2, rpts=(rpt,),
+                          max_threads=_ROWS8_THREADS if rpt == 8 else 1024)
+    if cfg is None:
+        return None
+    clusters = _cdiv(rows, R)
+    return {"route": "cluster", "C": C, "R": R, **cfg, "j0": k1_column_map(H, C),
+            "clusters": clusters, "blocks": 2 * clusters * C, "pool": pool,
+            "waves": _cdiv(2 * clusters, slots) if slots else None}
+
+
+def bidir_geometry(rows: int, H: int, dtype=None, sms: int = 132, smem_optin: int = SMEM_OPTIN,
+                   cluster_slots: dict | None = None, pool: bool = True) -> dict:
+    """The launch geometry of K3 (``pool=False``) or K5 for ``rows`` rows of
+    width ``H`` at the operand dtype (None: f32; ``torch.bfloat16``) on a
+    card of ``sms`` SMs whose blocks may opt in to ``smem_optin`` bytes;
+    ``cluster_slots`` maps a cluster size to the clusters the card runs at
+    once (``cudaOccupancyMaxActiveClusters``; default ``sms // C``).
+
+    Cluster route: both directions' clusters share the card's slots, half
+    each. The smallest cluster size ``C`` (2, 4, 8) whose block fits with
+    ``R``, the rows a cluster, the fewest that keep the clusters of both
+    directions within one wave; failing that, the smallest ``C`` that fits
+    a row at all, with as many rows a cluster as fit (several waves).
+    Stream route, for a W_hh whose slice fits no cluster of 8: the first
+    design's kernel, which picks its own rows a block. Returns a dict with
+    ``route`` and the numbers the C entry takes."""
+    slots = {C: (cluster_slots or {}).get(C, sms // C) for C in K1_CLUSTER_SIZES}
+    sizes = [C for C in K1_CLUSTER_SIZES if C <= H and slots[C] >= 2]
+    for wave_only in (True, False):
+        for C in sizes:
+            R = _cdiv(rows, slots[C] // 2)
+            g = bidir_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], pool)
+            while g is None and not wave_only and R > 1:
+                R = R // 2 if R > 64 else R - 1
+                g = bidir_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], pool)
+            if g is not None:
+                return g
+    return bidir_stream_geometry(rows, H, sms)
+
+
+def bidir_stream_geometry(rows: int, H: int, sms: int = 132) -> dict:
+    """The stream route: the first design's kernel, one block of ``R`` (1,
+    2, 4, 8) rows a direction, the fewest that keep both directions' blocks
+    within the SMs (it picks ``R`` itself, as here). Measurements may ask
+    for it."""
+    R = 1
+    while R < 8 and _cdiv(rows, R) > sms // 2:
+        R *= 2
+    blocks = 2 * _cdiv(rows, R)
+    return {"route": "stream", "R": R, "threads": min(1024, _cdiv(4 * H, 32) * 32),
+            "blocks": blocks, "waves": _cdiv(blocks, sms)}
+
+
+_geometries: dict = {}
+
+
+def device_bidir_geometry(device, rows: int, H: int, compute_dtype=None, pool: bool = True) -> dict:
+    """:func:`bidir_geometry` on ``device``'s SM count and shared memory,
+    with the clusters the card runs at once from
+    ``cudaOccupancyMaxActiveClusters`` of this kernel
+    (``ops/lstm_cuda.py:settle_geometry``). Worked out once per device and
+    shape."""
+    dev = torch.device(device)
+    key = (dev, rows, H, compute_dtype == torch.bfloat16, pool)
+    if key not in _geometries:
+        sms, optin = device_limits(dev)
+        _geometries[key] = settle_geometry(
+            lambda slots: bidir_geometry(rows, H, compute_dtype, sms, optin, slots, pool),
+            lambda g: bidir_max_active_clusters(dev, rows, H, compute_dtype, g))
+    return _geometries[key]
+
+
+def bidir_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
+                              geometry: dict | None = None, pool: bool = True) -> int | None:
+    """``cudaOccupancyMaxActiveClusters`` of the cluster recurrence at this
+    geometry (clusters of both directions together), asked once per device
+    and configuration; None on the stream route."""
+    g = geometry or device_bidir_geometry(device, rows, H, compute_dtype, pool)
+    if g["route"] != "cluster":
+        return None
+    dev = torch.device(device)
+    code = 0 if compute_dtype is None else 1
+    geom = _geom_ints(g)
+    with torch.cuda.device(dev):
+        return cluster_occupancy(_kernel("bilstm_fwd", "dn_bilstm_max_active_clusters"),
+                                 ("bidir", dev, code, g["pool"], rows, H, tuple(geom)),
+                                 code, int(g["pool"]), rows, H, geom)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +307,18 @@ def bilstm_fwd_plain(x, wih2, b2, whh2, h02, c02, compute_dtype=None, residuals=
     return (*streams, hT2, cT2)
 
 
+def bilstm_proj_plain(x, wih2, b2, compute_dtype=None):
+    """Plain PyTorch version of the cluster route's projection: ``xp2 [T, B,
+    8H] = x W_ih + b`` in f32 for both directions, direction ``d``'s gates
+    i, f, o, g at columns ``d·4H + k·H``, from operands rounded to the
+    compute dtype."""
+    sdt = _stream_dtype(compute_dtype)
+    T, B, D = x.shape
+    H = wih2.shape[-1]
+    w = wih2.to(sdt).float().reshape(8, D, H).permute(1, 0, 2).reshape(D, 8 * H)
+    return torch.matmul(x.to(sdt).float(), w) + b2.float().reshape(8 * H)
+
+
 def bilstm_bwd_plain(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
                      compute_dtype=None):
     """Plain PyTorch version of K4 (and K6): each direction's loop over its
@@ -203,35 +364,40 @@ def bilstm_bwd_plain(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
 
 
 def _fwd_checks(fn, x, wih2, b2, whh2, h02, c02, compute_dtype):
-    """Validates a forward call; returns ``(sdt, x, wih2, b2, whh2, T, B, D,
-    H)`` with the weights at the stream dtype and contiguous."""
+    """Validates a forward call (``whh2, h02, c02`` None: the projection's
+    alone); returns ``(sdt, x, wih2, b2, whh2, T, B, D, H)`` with the
+    weights at the stream dtype and contiguous."""
 
     def check(cond, what):
         _check(cond, what, fn)
 
     check(x.device.type == "cuda", f"unsupported device {x.device}")
     sdt = _stream_dtype(compute_dtype)
+    rec = whh2 is not None
     if compute_dtype is None:
-        check(all(a.dtype == torch.float32 for a in (x, wih2, whh2)),
+        check(all(a.dtype == torch.float32 for a in (x, wih2) + ((whh2,) if rec else ())),
               "x, wih2 and whh2 must be float32 when compute_dtype is None")
-    check(all(a.dtype == torch.float32 for a in (b2, h02, c02)), "b2, h02 and c02 must be float32")
     check(x.dim() == 3, f"x must be [T, B, D], got {tuple(x.shape)}")
     T, B, D = x.shape
     H = wih2.shape[-1]
     check(T >= 1 and B >= 1, "x needs at least one step and one row")
     check(tuple(wih2.shape) == (2, 4, D, H), f"wih2 must be [2, 4, {D}, {H}], got {tuple(wih2.shape)}")
-    check(tuple(b2.shape) == (2, 4, H), f"b2 must be [2, 4, {H}], got {tuple(b2.shape)}")
-    check(tuple(whh2.shape) == (2, 4, H, H), f"whh2 must be [2, 4, {H}, {H}], got {tuple(whh2.shape)}")
-    check(tuple(h02.shape) == (2, B, H) and tuple(c02.shape) == (2, B, H),
-          f"h02 and c02 must be [2, {B}, {H}]")
-    check(all(a.device == x.device for a in (wih2, b2, whh2, h02, c02)),
-          "all inputs must be on one device")
+    check(tuple(b2.shape) == (2, 4, H) and b2.dtype == torch.float32,
+          f"b2 must be [2, 4, {H}] float32, got {tuple(b2.shape)} {b2.dtype}")
+    check(all(a.device == x.device for a in (wih2, b2)), "all inputs must be on one device")
     check(x.stride(-1) == 1, "x must be contiguous in its last axis")
-    check(h02.is_contiguous() and c02.is_contiguous(), "h02 and c02 must be contiguous")
+    if rec:
+        check(all(a.dtype == torch.float32 for a in (h02, c02)), "h02 and c02 must be float32")
+        check(tuple(whh2.shape) == (2, 4, H, H),
+              f"whh2 must be [2, 4, {H}, {H}], got {tuple(whh2.shape)}")
+        check(tuple(h02.shape) == (2, B, H) and tuple(c02.shape) == (2, B, H),
+              f"h02 and c02 must be [2, {B}, {H}]")
+        check(all(a.device == x.device for a in (whh2, h02, c02)), "all inputs must be on one device")
+        check(h02.is_contiguous() and c02.is_contiguous(), "h02 and c02 must be contiguous")
+        whh2 = whh2.to(sdt).contiguous()
     # the weights are small (2.4 MB at the flagship): one contiguous copy at
     # the stream dtype per call
-    return (sdt, x.to(sdt), wih2.to(sdt).contiguous(), b2.contiguous(),
-            whh2.to(sdt).contiguous(), T, B, D, H)
+    return sdt, x.to(sdt), wih2.to(sdt).contiguous(), b2.contiguous(), whh2, T, B, D, H
 
 
 def _fwd_outputs(sdt, T, B, H, device, residuals):
@@ -248,23 +414,80 @@ def _ptr(a):
     return None if a is None else a.data_ptr()
 
 
-def bilstm_fwd_fused(x, wih2, b2, whh2, h02, c02, compute_dtype=None, residuals=True):
-    """K3: both directions' forward in one launch. Same arguments and
-    returns as :func:`bilstm_fwd_plain` (without ``pool``). ``x`` may be a
-    strided view (any strides over T and B, contiguous over D); the
-    residual streams are written only when ``residuals=True``; ``hT2, cT2``
-    come from the kernel's f32 carries, never from the stream dtype."""
+def _proj2(x, wih2, b2, sdt):
+    """The projection kernel over both directions' W_ih read as one ``[8, D,
+    H]``: ``xp2 [T, B, 8H]`` f32."""
+    global BIDIR_PROJ_LAUNCHES
+    T, B, D = x.shape
+    H = wih2.shape[-1]
+    xp2 = _launch_proj(x, wih2.reshape(8, D, H), b2.reshape(8, H), 0 if sdt == torch.float32 else 1)
+    BIDIR_PROJ_LAUNCHES += 1
+    return xp2
+
+
+def bilstm_proj_fused(x, wih2, b2, compute_dtype=None):
+    """The cluster route's projection kernel alone: same arguments and
+    return as :func:`bilstm_proj_plain`; ``x`` may be a strided view
+    contiguous over D."""
+    if x.device.type == "cpu":
+        return bilstm_proj_plain(x, wih2, b2, compute_dtype)
+    sdt, x, wih2, b2, *_ = _fwd_checks("bilstm_proj_fused", x, wih2, b2, None, None, None,
+                                       compute_dtype)
+    with torch.cuda.device(x.device):
+        return _proj2(x, wih2, b2, sdt)
+
+
+def _bidir_fwd(fn, x, wih2, b2, whh2, h02, c02, compute_dtype, residuals, pool, geometry,
+               prof=None):
+    """K3 (``pool`` False) or K5 on the route of :func:`bidir_geometry` for
+    this device, or of ``geometry``; returns ``(hs2, res, hT2, cT2,
+    pooled)``."""
+    global BIDIR_CLUSTER_CALLS, BIDIR_STREAM_CALLS
+    sdt, x, wih2, b2, whh2, T, B, D, H = _fwd_checks(fn, x, wih2, b2, whh2, h02, c02,
+                                                     compute_dtype)
+    g = geometry or device_bidir_geometry(x.device, B, H, compute_dtype, pool)
+    _check(g["route"] == "stream" or g["pool"] == pool, "a geometry of K5 for K3 or back", fn)
+    hs2, res, hT2, cT2 = _fwd_outputs(sdt, T, B, H, x.device, residuals)
+    pooled = torch.empty((B, 2 * H), dtype=torch.float32, device=x.device) if pool else None
+    code = 0 if sdt == torch.float32 else 1
+    outs = (hs2.data_ptr(), *(_ptr(r) for r in res), hT2.data_ptr(), cT2.data_ptr())
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if g["route"] == "cluster":
+            xp2 = _proj2(x, wih2, b2, sdt)
+            _launch("bilstm_fwd", "dn_bilstm_rec", code, int(pool), xp2.data_ptr(),
+                    whh2.data_ptr(), h02.data_ptr(), c02.data_ptr(), *outs, _ptr(pooled), T, B, H,
+                    _geom_ints(g), _ptr(prof), stream)
+        else:
+            _check(prof is None, "the phase clock is the cluster route's", fn)
+            head = (code, x.data_ptr(), x.stride(0), x.stride(1), wih2.data_ptr(), b2.data_ptr(),
+                    whh2.data_ptr(), h02.data_ptr(), c02.data_ptr(), *outs)
+            if pool:
+                _launch("bilstm_fwd", "dn_bilstm_pool_fwd", *head, pooled.data_ptr(), T, B, D, H,
+                        stream)
+            else:
+                _launch("bilstm_fwd", "dn_bilstm_fwd", *head, T, B, D, H, stream)
+    if g["route"] == "cluster":
+        BIDIR_CLUSTER_CALLS += 1
+    else:
+        BIDIR_STREAM_CALLS += 1
+    return hs2, res, hT2, cT2, pooled
+
+
+def bilstm_fwd_fused(x, wih2, b2, whh2, h02, c02, compute_dtype=None, residuals=True,
+                     geometry=None):
+    """K3: both directions' forward. Same arguments and returns as
+    :func:`bilstm_fwd_plain` (without ``pool``). ``x`` may be a strided view
+    (any strides over T and B, contiguous over D); the residual streams are
+    written only when ``residuals=True``; ``hT2, cT2`` come from the
+    kernel's f32 carries, never from the stream dtype. The route is
+    :func:`device_bidir_geometry`'s (``pool=False``), or ``geometry``'s (a
+    :func:`bidir_geometry` result, for measurements); a launch the card
+    refuses raises, nothing falls back."""
     if x.device.type == "cpu":
         return bilstm_fwd_plain(x, wih2, b2, whh2, h02, c02, compute_dtype, residuals)
-    sdt, x, wih2, b2, whh2, T, B, D, H = _fwd_checks(
-        "bilstm_fwd_fused", x, wih2, b2, whh2, h02, c02, compute_dtype)
-    hs2, res, hT2, cT2 = _fwd_outputs(sdt, T, B, H, x.device, residuals)
-    with torch.cuda.device(x.device):
-        _launch("bilstm_fwd", "dn_bilstm_fwd", 0 if sdt == torch.float32 else 1,
-                x.data_ptr(), x.stride(0), x.stride(1), wih2.data_ptr(), b2.data_ptr(),
-                whh2.data_ptr(), h02.data_ptr(), c02.data_ptr(), hs2.data_ptr(),
-                *(_ptr(r) for r in res), hT2.data_ptr(), cT2.data_ptr(), T, B, D, H,
-                torch.cuda.current_stream(x.device).cuda_stream)
+    hs2, res, hT2, cT2, _ = _bidir_fwd("bilstm_fwd_fused", x, wih2, b2, whh2, h02, c02,
+                                       compute_dtype, residuals, False, geometry)
     global BIDIR_FWD_LAUNCHES
     BIDIR_FWD_LAUNCHES += 1
     if residuals:
@@ -272,26 +495,34 @@ def bilstm_fwd_fused(x, wih2, b2, whh2, h02, c02, compute_dtype=None, residuals=
     return hs2, (hT2, cT2)
 
 
-def bilstm_pool_fwd_fused(x, wih2, b2, whh2, h02, c02, compute_dtype=None):
+def bilstm_pool_fwd_fused(x, wih2, b2, whh2, h02, c02, compute_dtype=None, geometry=None):
     """K5: K3 with every residual stream, plus the time-mean pool summed in
     f32 inside the kernel. Same arguments and returns as
     :func:`bilstm_fwd_plain` with ``pool=True``: ``(hs2, cs2, i2, f2, o2,
-    g2, hT2, cT2, pool [B, 2H] f32)``."""
+    g2, hT2, cT2, pool [B, 2H] f32)``; routes as :func:`bilstm_fwd_fused`
+    (``pool=True``)."""
     if x.device.type == "cpu":
         return bilstm_fwd_plain(x, wih2, b2, whh2, h02, c02, compute_dtype, pool=True)
-    sdt, x, wih2, b2, whh2, T, B, D, H = _fwd_checks(
-        "bilstm_pool_fwd_fused", x, wih2, b2, whh2, h02, c02, compute_dtype)
-    hs2, res, hT2, cT2 = _fwd_outputs(sdt, T, B, H, x.device, True)
-    pool = torch.empty((B, 2 * H), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        _launch("bilstm_fwd", "dn_bilstm_pool_fwd", 0 if sdt == torch.float32 else 1,
-                x.data_ptr(), x.stride(0), x.stride(1), wih2.data_ptr(), b2.data_ptr(),
-                whh2.data_ptr(), h02.data_ptr(), c02.data_ptr(), hs2.data_ptr(),
-                *(r.data_ptr() for r in res), hT2.data_ptr(), cT2.data_ptr(), pool.data_ptr(),
-                T, B, D, H, torch.cuda.current_stream(x.device).cuda_stream)
+    hs2, res, hT2, cT2, pooled = _bidir_fwd("bilstm_pool_fwd_fused", x, wih2, b2, whh2, h02,
+                                            c02, compute_dtype, True, True, geometry)
     global POOL_FWD_LAUNCHES
     POOL_FWD_LAUNCHES += 1
-    return (hs2, *res, hT2, cT2, pool)
+    return (hs2, *res, hT2, cT2, pooled)
+
+
+def bidir_phase_profile(x, wih2, b2, whh2, h02, c02, compute_dtype=None, geometry=None,
+                        pool: bool = True) -> dict:
+    """One K5 (or, ``pool=False``, K3) call on the cluster route with its
+    phase clock on: the mean µs a step of block 0 (direction 0) spends in
+    each phase (``ops/lstm_cuda.py:K1_PHASES``) and each phase's share. For
+    measurements; counts as a call of neither kernel."""
+    T, B, _ = x.shape
+    g = geometry or device_bidir_geometry(x.device, B, wih2.shape[-1], compute_dtype, pool)
+    _check(g["route"] == "cluster", "the phase clock is the cluster route's", "bidir_phase_profile")
+    prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=x.device)
+    _bidir_fwd("bidir_phase_profile", x, wih2, b2, whh2, h02, c02, compute_dtype, pool, pool, g,
+               prof)
+    return phase_summary(prof, T)
 
 
 def _bwd_checks(fn, streams, whh2, c02, dhT2, dcT2, compute_dtype):

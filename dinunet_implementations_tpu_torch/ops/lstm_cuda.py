@@ -57,7 +57,7 @@ BWD_LAUNCHES = 0
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "lstm_proj": ("lstm_fwd", [_I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P]),
+    "lstm_proj": ("lstm_fwd", [_I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P]),
     "lstm_rec": ("lstm_fwd", [_I, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _P, _P, _P]),
     "lstm_max_active_clusters": ("lstm_fwd", [_I, _I, _I, _P, _P]),
@@ -110,28 +110,31 @@ def k1_column_map(H: int, C: int) -> list[int]:
     return [k * base + min(k, extra) for k in range(C + 1)]
 
 
-def _cluster_config(R: int, H: int, C: int, es: int, smem_optin: int) -> dict | None:
+def _cluster_config(R: int, H: int, C: int, es: int, smem_optin: int, pool: bool = False,
+                    cols_a_thread: int = 1, rpts=(8, 4, 2, 1), max_threads: int = 1024) -> dict | None:
     """Threads and shared memory of a cluster block that carries ``R`` rows,
     or None if none fits: ``threads = cp · row_groups`` (``cp``, the own
-    gate columns ``4·smax`` rounded up to a warp; each thread one column
-    and ``rpt`` rows), shared memory the layout the kernel carves: the W_hh
-    slice ``[H, 4·smax]`` at the operand type, then f32 h of all units
-    ``[H, rp]``, the own h slice double-buffered ``[2, smax, rp | 1]``,
-    ``pre [rp, 4·smax]`` and the carry ``[rp, smax]``. Of the rows a thread
-    may carry (8, 4, 2, 1), the one that pads the fewest rows."""
+    gate columns ``4·smax`` over ``cols_a_thread`` columns a thread, rounded
+    up to a warp; each thread ``rpt`` rows), shared memory the layout the
+    kernel carves: the W_hh slice ``[H, 4·smax]`` at the operand type, then
+    f32 h of all units ``[H, rp]``, the own h slice double-buffered ``[2,
+    smax, rp | 1]``, ``pre [rp, 4·smax]``, the carry ``[rp, smax]`` and, with
+    ``pool``, the pool sums ``[rp, smax]``. Of the rows a thread may carry
+    (``rpts``), the one that pads the fewest rows. K1: one column a thread,
+    no pool; K3/K5 (``ops/bilstm_cuda.py``) take two columns a thread."""
     if H > K1_CLUSTER_MAX_H:
         return None
     smax = _cdiv(H, C)
     wst = 4 * smax
-    cp = _cdiv(wst, 32) * 32
+    cp = _cdiv(_cdiv(wst, cols_a_thread), 32) * 32
     best = None
-    for rpt in (8, 4, 2, 1):
+    for rpt in rpts:
         rg = _cdiv(R, rpt)
         rp, threads = rg * rpt, cp * rg
         smem = (_cdiv(H * wst * es, 16) * 16
-                + 4 * (H * rp + 2 * smax * (rp | 1) + rp * wst + rp * smax))
+                + 4 * (H * rp + 2 * smax * (rp | 1) + rp * wst + rp * smax * (2 if pool else 1)))
         fits = smem + _CLUSTER_STATIC_SMEM <= smem_optin
-        if threads <= 1024 and fits and (best is None or rp < best["rp"]):
+        if threads <= max_threads and fits and (best is None or rp < best["rp"]):
             best = {"rpt": rpt, "row_groups": rg, "rp": rp, "threads": threads, "smem": smem,
                     "smax": smax}
     return best
@@ -222,33 +225,56 @@ def device_limits(device) -> tuple[int, int]:
     return _limits[idx]
 
 
+def settle_geometry(pick, occupancy) -> dict:
+    """The geometry ``pick(slots)`` gives once ``slots`` (cluster size →
+    clusters the card runs at once) holds what ``occupancy(g)``
+    (``cudaOccupancyMaxActiveClusters`` of a cluster geometry) says: a GPC
+    holds whole clusters only, so fewer than ``SMs // C``. The geometry is
+    worked out again until all its clusters (``blocks // C``) fit that
+    count, or no other cluster size is left to ask."""
+    slots: dict = {}
+    g = pick(None)
+    while g["route"] == "cluster" and g["C"] not in slots:
+        n = occupancy(g)
+        slots[g["C"]] = n
+        if n >= g["blocks"] // g["C"]:
+            return {**g, "waves": 1}
+        g = pick(slots)
+    return g
+
+
 _geometries: dict = {}
 
 
 def device_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
     """:func:`k1_geometry` on ``device``'s SM count and shared memory, with
     the clusters the card runs at once from ``cudaOccupancyMaxActiveClusters``
-    (a GPC holds whole clusters only, so fewer than ``SMs // C``): the
-    geometry is worked out again until its clusters fit that count. Worked
-    out once per device and shape."""
+    (:func:`settle_geometry`). Worked out once per device and shape."""
     dev = torch.device(device)
     key = (dev, rows, H, compute_dtype == torch.bfloat16)
     if key not in _geometries:
         sms, optin = device_limits(dev)
-        slots: dict = {}
-        g = k1_geometry(rows, H, compute_dtype, sms, optin)
-        while g["route"] == "cluster" and g["C"] not in slots:
-            n = k1_max_active_clusters(dev, rows, H, compute_dtype, g)
-            slots[g["C"]] = n
-            if n >= g["clusters"]:
-                g = {**g, "waves": 1}
-                break
-            g = k1_geometry(rows, H, compute_dtype, sms, optin, slots)
-        _geometries[key] = g
+        _geometries[key] = settle_geometry(
+            lambda slots: k1_geometry(rows, H, compute_dtype, sms, optin, slots),
+            lambda g: k1_max_active_clusters(dev, rows, H, compute_dtype, g))
     return _geometries[key]
 
 
 _occupancy: dict = {}
+
+
+def cluster_occupancy(entry, key, *args) -> int:
+    """``cudaOccupancyMaxActiveClusters`` through the C entry ``entry =
+    (fn, error_string)``, called as ``fn(*args, &out)`` on the current
+    device; asked once per ``key``."""
+    if key not in _occupancy:
+        fn, err_str = entry
+        out = ctypes.c_int(0)
+        err = fn(*args, ctypes.byref(out))
+        if err != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {err_str(err).decode()}")
+        _occupancy[key] = out.value
+    return _occupancy[key]
 
 
 def k1_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
@@ -260,16 +286,11 @@ def k1_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
     if g["route"] != "cluster":
         return None
     dev = torch.device(device)
-    key = (dev, compute_dtype == torch.bfloat16, rows, H, tuple(_geom_ints(g)))
-    if key not in _occupancy:
-        fn, err_str = _kernel("lstm_max_active_clusters")
-        out = ctypes.c_int(0)
-        with torch.cuda.device(dev):
-            err = fn(0 if compute_dtype is None else 1, rows, H, _geom_ints(g), ctypes.byref(out))
-        if err != 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {err_str(err).decode()}")
-        _occupancy[key] = out.value
-    return _occupancy[key]
+    code = 0 if compute_dtype is None else 1
+    geom = _geom_ints(g)
+    with torch.cuda.device(dev):
+        return cluster_occupancy(_kernel("lstm_max_active_clusters"),
+                                 ("k1", dev, code, rows, H, tuple(geom)), code, rows, H, geom)
 
 
 def _stream_dtype(compute_dtype) -> torch.dtype:
@@ -357,17 +378,26 @@ def _operands(x, wih4, b4, whh4, compute_dtype, fn="lstm_recurrence_fused"):
     return sdt, x, wih4, whh4
 
 
-def _launch_proj(x, wih4, b4, sdt):
+def _launch_proj(x, w, b, code: int):
+    """One launch of the projection kernel: ``xp [T, B, G·H] = x W + b`` f32
+    for ``w [G, D, H]``, ``b [G, H]`` (G = 4, or 8 for both directions of
+    K3/K5), strided views contiguous in their last axis. ``code``: 0 f32, 1
+    bf16 (K1's; SIMT FMAs, both)."""
     T, B, D = x.shape
-    H = wih4.shape[-1]
-    xp = torch.empty((T, B, 4 * H), dtype=torch.float32, device=x.device)
+    G, _, H = w.shape
+    xp = torch.empty((T, B, G * H), dtype=torch.float32, device=x.device)
     fn, err_str = _kernel("lstm_proj")
-    err = fn(0 if sdt == torch.float32 else 1, x.data_ptr(), x.stride(0), x.stride(1),
-             wih4.data_ptr(), wih4.stride(0), wih4.stride(1), b4.data_ptr(), b4.stride(0),
-             xp.data_ptr(), T, B, D, H, torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(code, G, x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), w.stride(0),
+             w.stride(1), b.data_ptr(), b.stride(0), xp.data_ptr(), T, B, D, H,
+             torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lstm_proj kernel failed: {err_str(err).decode()} ({err})")
+    return xp
+
+
+def _k1_proj(x, wih4, b4, sdt):
     global PROJ_LAUNCHES
+    xp = _launch_proj(x, wih4, b4, 0 if sdt == torch.float32 else 1)
     PROJ_LAUNCHES += 1
     return xp
 
@@ -380,7 +410,7 @@ def lstm_proj_fused(x, wih4, b4, compute_dtype=None):
         return lstm_proj_plain(x, wih4, b4, compute_dtype)
     sdt, x, wih4, _ = _operands(x, wih4, b4, None, compute_dtype, "lstm_proj_fused")
     with torch.cuda.device(x.device):
-        return _launch_proj(x, wih4, b4, sdt)
+        return _k1_proj(x, wih4, b4, sdt)
 
 
 def lstm_recurrence_fused(x, wih4, b4, whh4, h0, c0, compute_dtype=None,
@@ -423,7 +453,7 @@ def _k1(x, wih4, b4, whh4, h0, c0, compute_dtype, residuals, geometry, prof=None
     ptr = lambda a: None if a is None else a.data_ptr()  # noqa: E731
     fn, err_str = _kernel("lstm_rec")
     with torch.cuda.device(x.device):
-        xp = _launch_proj(x, wih4, b4, sdt)
+        xp = _k1_proj(x, wih4, b4, sdt)
         err = fn(
             0 if sdt == torch.float32 else 1, xp.data_ptr(),
             whh4.data_ptr(), whh4.stride(0), whh4.stride(1),
@@ -461,6 +491,13 @@ def k1_phase_profile(x, wih4, b4, whh4, h0, c0, compute_dtype=None, geometry=Non
     _check(g["route"] == "cluster", "the phase clock is the cluster route's", "k1_phase_profile")
     prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=x.device)
     _k1(x, wih4, b4, whh4, h0, c0, compute_dtype, False, g, prof)
+    return phase_summary(prof, T)
+
+
+def phase_summary(prof, T: int) -> dict:
+    """The mean µs a step spends in each of :data:`K1_PHASES`, and each
+    phase's share of the step, from a cluster kernel's phase clock ``prof
+    [5 T + 2]`` (``clock64`` stamps converted by the global timer)."""
     p = prof.cpu()
     stamps = p[:5 * T].reshape(T, 5).double()
     ns_per_cycle = float(p[5 * T + 1] - p[5 * T]) / float(stamps[-1, 4] - stamps[0, 0])

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""K1 across launch geometries on the card, at full ICA-LSTM width.
+"""K1, or K3 and K5, across launch geometries on the card, at full ICA-LSTM
+width.
 
-    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both]
+    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both] [--bidir]
 
 At T=98, D=256, H=174 it runs K1 (``lstm_recurrence_fused``) on the
 geometry the launcher picks, on cluster geometries it could pick instead
@@ -12,9 +13,13 @@ the tolerances of ``chip_smoke.py``), then timed as device time per call:
 CUDA events around 20 back-to-back calls, so that a call's host work hides
 behind the previous call's device time, the median of 5 such runs. The
 projection alone is timed the same way; a cluster point also gives the
-mean µs of each phase of a step (``k1_phase_profile``). One JSON line per
-point, then the card's name and power limit; it needs one CUDA card and
-imports nothing of JAX.
+mean µs of each phase of a step (``k1_phase_profile``). With ``--bidir``
+the same for K3 (``bilstm_fwd_fused``) and K5 (``bilstm_pool_fwd_fused``):
+cluster geometries of both directions in one wave, the launcher's at rows
+1, 16 and 512, and the stream route (the first design), with the
+projection of both directions alone and ``bidir_phase_profile``. One JSON
+line per point, then the card's name and power limit; it needs one CUDA
+card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
+    ap.add_argument("--bidir", action="store_true", help="K3 and K5 instead of K1")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke as cs
@@ -59,6 +65,10 @@ def main() -> int:
     resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if args.bidir:
+        bidir_sweep(torch, cs, args.dtype)
+        print(smi)
+        return 0
     sms, optin = lc.device_limits("cuda")
     H = cs.H
     g = torch.Generator().manual_seed(0)
@@ -99,6 +109,56 @@ def main() -> int:
             del a
     print(smi)
     return 0
+
+
+def bidir_sweep(torch, cs, which: str) -> None:
+    from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
+
+    sms, optin = bc.device_limits("cuda")
+    H = cs.H
+    g = torch.Generator().manual_seed(0)
+    for name, cdt in {"f32": None, "bf16": torch.bfloat16}.items():
+        if which not in (name, "both"):
+            continue
+        tol = cs.F32_TOL if cdt is None else cs.BF16_TOL
+        for pool in (True, False):
+            kernel = "bilstm_pool_fwd" if pool else "bilstm_fwd"
+            fused = bc.bilstm_pool_fwd_fused if pool else bc.bilstm_fwd_fused
+            names = cs.BIDIR_FWD_OUTPUTS + (("pool",) if pool else ())
+            points = []
+            if pool:  # the step cost against R: K5 alone
+                for C in (2, 4, 8):
+                    probe = bc.bidir_cluster_geometry(1, H, C, 1, cdt, optin, pool=pool)
+                    if probe is None:
+                        continue
+                    half = bc.bidir_max_active_clusters("cuda", 1, H, cdt, probe) // 2
+                    for R in (1, 2, 4, 8, 16, 24, 35):
+                        geo = bc.bidir_cluster_geometry(half * R, H, C, R, cdt, optin, 2 * half,
+                                                        pool)
+                        if geo is not None:
+                            points.append((half * R, geo))
+            for rows in (1, 16, 512):
+                points.append((rows, bc.device_bidir_geometry("cuda", rows, H, cdt, pool)))
+                points.append((rows, bc.bidir_stream_geometry(rows, H, sms)))
+            for rows, geo in points:
+                a = cs.bidir_args(torch, rows, g)
+                err = cs.compare(f"{kernel} rows={rows} {name} {geo}", fused(*a, cdt, geometry=geo),
+                                 bc.bilstm_fwd_plain(*a, cdt, pool=pool), names, tol)
+                ms = device_ms(torch, lambda: fused(*a, cdt, geometry=geo))
+                proj = device_ms(torch, lambda: bc.bilstm_proj_fused(*a[:3], cdt))
+                cluster = geo["route"] == "cluster"
+                rec = {"kernel": kernel, "rows": rows, "dtype": name, "route": geo["route"],
+                       "C": geo.get("C"), "R": geo["R"], "rpt": geo.get("rpt"),
+                       "threads": geo["threads"], "blocks": geo["blocks"], "smem": geo.get("smem"),
+                       "max_active_clusters": bc.bidir_max_active_clusters(
+                           "cuda", rows, H, cdt, geo), "device_ms": ms,
+                       "proj_device_ms": proj if cluster else None,
+                       "recurrence_us_per_step": (ms - proj) * 1e3 / cs.T if cluster else None,
+                       "max_abs_err": err,
+                       "step_phases": bc.bidir_phase_profile(*a, cdt, geometry=geo, pool=pool)
+                       if cluster else None}
+                print(json.dumps(rec), flush=True)
+                del a
 
 
 if __name__ == "__main__":
