@@ -60,7 +60,8 @@ result line:
    (the projection of both directions, then the recurrence over
    thread-block clusters) and on the stream route (the first design), with
    the geometry and cudaOccupancyMaxActiveClusters, the projection's xp2
-   against ``bilstm_proj_plain`` and the phase clock; times of each kernel
+   against ``bilstm_proj_plain`` (f32: bit-identical to K1's projection
+   kernel on the same 8 gates) and the phase clock; times of each kernel
    (K3/K5 on both routes and the projection alone), its plain version and
    a cuDNN ``torch.nn.LSTM(bidirectional=True)`` forward or backward; then,
    untimed, every geometry K3/K5's launcher can pick (clusters of 2, 4, 8,
@@ -133,6 +134,27 @@ OMEGA_FIRST_TOL = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s outside
 # the tensor cores, bf16 tensor-core FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """``kernel: registers; spills`` for each kernel of an ``nvcc
+    -Xptxas=-v`` log, the names demangled by ``c++filt`` where it exists."""
+    entries, name, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            entries.append((name, line.split("Used", 1)[-1].split(",")[0].strip(), spill))
+            name = None
+    names = [e[0] for e in entries]
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, timeout=60, check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return [f"{n}: {regs}; {sp}" for n, (_, regs, sp) in zip(names, entries)]
 
 
 def fail(msg: str) -> None:
@@ -1048,7 +1070,7 @@ def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -
     return g
 
 
-def bidir_kernel_phase(torch, bc) -> list[dict]:
+def bidir_kernel_phase(torch, lc, bc) -> list[dict]:
     """K3 and K5 at rows 1, 16 and 512, K4 (full cotangent streams) and K6
     at rows 16 and 512, f32 and bf16, against their plain versions, timed
     beside the plain version, the bound and cuDNN; K3/K5 on the route the
@@ -1077,6 +1099,13 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
             torch.cuda.synchronize()
             proj_err = compare(f"bilstm_proj rows={rows} {cdt}", (xp2,),
                                (bc.bilstm_proj_plain(*args[:3], cdt),), ("xp2",), F32_TOL)
+            if cdt is None:  # the 128x128 tiles sum in K1's kernel's order: bit-identical
+                with torch.cuda.device(0):
+                    k1_tiles = lc._launch_proj(args[0], args[1].reshape(8, D, H),
+                                               args[2].reshape(8, H), 0, 64)
+                if not torch.equal(xp2, k1_tiles):
+                    fail(f"bilstm_proj rows={rows}: the 128x128 tiles differ from "
+                         f"lstm_proj_kernel's by {(xp2 - k1_tiles).abs().max().item()}")
             del xp2
             want = bc.bilstm_fwd_plain(*args, cdt)
             fwd_lib = library_bilstm(torch, args, cdt, want[0], False, g)
@@ -1183,7 +1212,8 @@ def bidir_coverage_phase(torch, bc, g) -> None:
     # stream route, whose rows a block the kernel picks
     cases = [(H, None, 4, 1, 0), (H, None, 4, 2, 1), (H, None, 4, 3, 2), (H, None, 4, 5, 3),
              (H, None, 4, 17, 4), (128, None, 2, 1, 0), (256, None, 8, 7, 3),
-             (256, None, 8, 32, 1), (H, bf, 2, 2, 1), (H, bf, 2, 9, 5)]
+             (256, None, 8, 32, 1), (H, bf, 2, 1, 0), (H, bf, 2, 16, 3), (H, bf, 4, 40, 3),
+             (128, bf, 2, 20, 3), (STREAM_H, bf, 8, 2, 1)]
     cases += [(STREAM_H, None, None, R, 1) for R in (1, 2, 4, 8)]
     seen = set()
     for h, cdt, C, R, short in cases:
@@ -1224,7 +1254,7 @@ def bidir_coverage_phase(torch, bc, g) -> None:
                           "max_abs_err": errs, "geometry": geo}))
     need = ({("f32", "C", C) for C in (2, 4, 8)} | {("f32", "rows a thread", r) for r in (1, 2, 4, 8)}
             | {("f32", "row groups > 1", True), ("bf16", "row groups > 1", True)}
-            | {("bf16", "C", 2)} | {("stream", r) for r in (1, 2, 4, 8)})
+            | {("bf16", "C", C) for C in (2, 4, 8)} | {("stream", r) for r in (1, 2, 4, 8)})
     if not need <= seen:
         fail(f"K3/K5 coverage misses {sorted(map(str, need - seen))}")
 
@@ -1374,9 +1404,8 @@ def main() -> int:
     _build.build_all()
     print(f"built in {_build.last_build['seconds']:.1f} s into {_build.last_build['dir']}")
     for name, log in _build.last_build["logs"].items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in ptxas_lines(log):
+            print(f"  {name}: {line}")
 
     print(f"== 3. kernel lstm_fwd vs plain, T={T} D={D} H={H}")
     shapes = kernel_phase(torch, lc)
@@ -1399,7 +1428,7 @@ def main() -> int:
 
     print(f"== 9. kernels bilstm_fwd, bilstm_pool_fwd, bilstm_bwd, bilstm_pool_bwd vs plain, "
           f"T={T} D={D} H={H}")
-    bidir = bidir_kernel_phase(torch, bc)
+    bidir = bidir_kernel_phase(torch, lc, bc)
 
     print(f"== 10. the fused bidirectional arm at full width: {TRAIN_SITES} sites, "
           f"batch {TRAIN_BATCH}")

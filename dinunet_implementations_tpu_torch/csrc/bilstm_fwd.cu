@@ -26,23 +26,30 @@
 // direction's W_hh, after an i2h product that depends on no step.
 //
 // The cluster route (K1's design, carried over to both directions):
-// 1. The i2h product of both directions is one launch of K1's projection
-//    kernel (lstm_fwd.cu, dn_lstm_proj with 8 gates): wih2 [2, 4, D, H] read
-//    as [8, D, H], x read once, xp2 [T, B, 8H] f32 into a scratch that the
-//    wrapper allocates; direction d's gates sit at columns d*4H + k*H + j.
-// 2. bilstm_rec_cluster_kernel: the first half of the grid's clusters runs
-//    direction 0, the second half direction 1. Block k of a cluster owns
-//    hidden units [j0_k, j0_{k+1}) of its direction, all four gates of them,
-//    and holds their W_hh columns in shared memory for the whole sequence;
-//    the blocks exchange h once a step through distributed shared memory
+// 1. The i2h product of both directions is one launch (lstm_fwd.cu): wih2
+//    [2, 4, D, H] read as [8, D, H], x read once, xp2 [T, B, 8H] f32 into a
+//    scratch that the wrapper allocates; direction d's gates sit at columns
+//    d*4H + k*H + j. f32: lstm_proj_wide_kernel (128x128 SIMT tiles); bf16:
+//    lstm_proj_mma_kernel on the tensor cores.
+// 2. The recurrence: the first half of the grid's clusters runs direction
+//    0, the second half direction 1. Block k of a cluster owns hidden units
+//    [j0_k, j0_{k+1}) of its direction, all four gates of them, and holds
+//    their W_hh columns in shared memory for the whole sequence; the blocks
+//    exchange h once a step through distributed shared memory
 //    (double-buffered, one split cluster barrier a step), as K1 does. At its
 //    step s the reverse direction reads xp2[T-1-s] and stores at x-time
 //    T-1-s; a direction's terminal carry is its state after its own last
 //    step. K5's pool: each (row, unit) is updated by the same thread at
 //    every step, which adds the f32 h to its sum in shared memory.
-//    f32: each thread computes a 2-column by RPT-row tile of the product, so
-//    that every W_hh value loaded from shared memory feeds 2 x RPT FMAs.
-// The launch geometry is worked out in Python
+//    f32, bilstm_rec_cluster_kernel: each thread computes a 2-column by
+//    RPT-row tile of the product, so that every W_hh value loaded from
+//    shared memory feeds 2 x RPT FMAs. bf16, bilstm_rec_mma_kernel: the
+//    product on the tensor cores (mma.sync m16n8k16, f32 accumulators), h
+//    and the transposed W_hh slice as bf16 operands in shared memory.
+// A step is then bounded by the product's FMAs at the f32 training fold,
+// and by latencies elsewhere: the h gather, the product's dependent chain,
+// the gates, the barrier (the phase clock, kPhases, measures each;
+// PERF.md). The launch geometry is worked out in Python
 // (ops/bilstm_cuda.py:bidir_geometry) and checked here.
 //
 // The stream route, bilstm_fwd_kernel below (the first design), stays for
@@ -251,20 +258,16 @@ __device__ __forceinline__ void write_step(const RecArgs& a, const float* p, int
   }
 }
 
-// two consecutive operand values as f32
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
+// The most threads of a block. 8 rows a thread: 102 registers a thread for
+// the 2 x 8 tile and its operands. Fewer rows: one row group of at most 2
+// smax <= 512 columns; bounded as for two such blocks an SM, 64 registers a
+// thread (left free, ptxas gives these latency-bound products more
+// registers and a slower schedule).
+constexpr int kRows8Threads = 640, kSimtThreads = 512;
 
-// the most threads of a block whose threads carry 8 rows each: 102
-// registers a thread for the 2 x 8 tile and its operands
-constexpr int kRows8Threads = 640;
-
-template <typename S, int RPT, bool POOL>
-__global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
+// The f32 instance of the cluster recurrence (bf16: bilstm_rec_mma_kernel).
+template <int RPT, bool POOL>
+__global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : kSimtThreads, RPT == 8 ? 1 : 2)
     bilstm_rec_cluster_kernel(RecArgs a, ClusterGeom g) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(16) unsigned char cluster_smem[];
@@ -273,8 +276,8 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
   const int H = a.H, RP = g.rp, smax = g.smax, wst = g.wst;
   const int rpb = exchange_stride(RP);
   // K1's layout (cluster_smem_bytes), then K5's pool sums
-  S* ws = reinterpret_cast<S*>(cluster_smem);  // [H, wst] this block's W_hh columns
-  float* hl = reinterpret_cast<float*>(cluster_smem + align16((size_t)H * wst * sizeof(S)));
+  float* ws = reinterpret_cast<float*>(cluster_smem);  // [H, wst] this block's W_hh columns
+  float* hl = ws + align16((size_t)H * wst * sizeof(float)) / sizeof(float);
   float* buf = hl + H * RP;           // [2, smax, rpb] own h slice, double-buffered
   float* pre = buf + 2 * smax * rpb;  // [RP, wst] own gate pre-activations
   float* csm = pre + RP * wst;        // [RP, smax] own f32 cell carry
@@ -287,7 +290,7 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
 
   // the direction's W_hh[:, own columns] once: local column c is gate c / sk
   // of unit j0 + c % sk
-  const S* whh = static_cast<const S*>(a.whh) + (long long)pl.dir * 4 * H * H;
+  const float* whh = static_cast<const float*>(a.whh) + (long long)pl.dir * 4 * H * H;
   for (int idx = threadIdx.x; idx < H * cols; idx += blockDim.x) {
     const int h = idx / cols, c = idx - h * cols;
     const int k = c / sk;
@@ -323,6 +326,7 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
   if (stamp) stamp[kPhases * a.T] = global_ns();
   const int per = smax * rpb;
   const long long G8 = 8LL * H;
+  const GatherShare share = gather_share(RP, H);
 
   for (int s = 0; s < a.T; ++s) {
     const int t = pl.dir ? a.T - 1 - s : s;  // the x block this step consumes
@@ -339,8 +343,8 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
 
     // 1. gather h_{t-1} from every rank's buf[s & 1]
     float* cur = buf + (s & 1) * per;
-    gather(cluster, cur, j0s, owner, H, RP, rpb,
-           [&](int j, int r, float v) { hl[j * RP + r] = as_operand<S>(v); });
+    gather(cluster, cur, j0s, owner, H, rpb, share,
+           [&](int j, int r, float v) { hl[j * RP + r] = v; });
     __syncthreads();
     if (stamp) stamp[kPhases * s + kGathered] = clock64();
 
@@ -351,7 +355,7 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
       for (int q = 0; q < NP; ++q)
 #pragma unroll
         for (int r = 0; r < RPT; ++r) acc[q][r][0] = acc[q][r][1] = 0.f;
-      const S* wc = ws + 2 * cq;
+      const float* wc = ws + 2 * cq;
       const float* hr = hl + r0;
       // U units at a time, every operand loaded before the first FMA
       constexpr int U = RPT >= 4 ? 4 : 8;
@@ -361,7 +365,7 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
         float hv[U][RPT];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          w[u] = load2(wc + (h + u) * wst);
+          w[u] = *reinterpret_cast<const float2*>(wc + (h + u) * wst);
           load_rows<RPT>(hr + (h + u) * RP, hv[u]);
         }
 #pragma unroll
@@ -373,7 +377,7 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
           }
       }
       for (; h < H; ++h) {
-        const float2 w = load2(wc + h * wst);
+        const float2 w = *reinterpret_cast<const float2*>(wc + h * wst);
         float hv[RPT];
         load_rows<RPT>(hr + h * RP, hv);
 #pragma unroll
@@ -410,8 +414,8 @@ __global__ void __launch_bounds__(RPT == 8 ? kRows8Threads : 1024)
     cluster_arrive();
     for (int idx = threadIdx.x; idx < pl.nrows * sk; idx += blockDim.x) {
       const int r = idx / sk, jj = idx - r * sk;
-      write_step<S>(a, pre + r * wst + jj, sk, csm[r * smax + jj], nxt[jj * rpb + r], pl.dir, s,
-                    t, pl.row0 + r, j0 + jj);
+      write_step<float>(a, pre + r * wst + jj, sk, csm[r * smax + jj], nxt[jj * rpb + r], pl.dir,
+                        s, t, pl.row0 + r, j0 + jj);
     }
     cluster_wait();
     if (stamp) stamp[kPhases * s + kBarrier] = clock64();
@@ -467,10 +471,200 @@ int run(int dtype, const Args& a, void* stream) {
   return cudaErrorInvalidValue;
 }
 
+// The bf16 instance of the cluster recurrence: the recurrent product on the
+// tensor cores, mma.sync m16n8k16 with f32 accumulators; the rest as
+// bilstm_rec_cluster_kernel. A block's shared memory (mma_smem_bytes):
+//   wT [nw, ks] bf16, the W_hh slice transposed: row c is gate c / sk of
+//       unit j0 + c % sk over h, the .col operand that ldmatrix loads; rows
+//       c >= 4 sk and columns h >= H zero
+//   hA [rp, ks] bf16, h_{t-1} as the row-major operand; rows >= R and
+//       columns >= H zero
+//   buf [2, smax, rp | 1] f32, the h exchange as K1's
+//   pre [rp, wst] f32, carry [rp, smax] f32, pool sums [rp, smax] f32 (K5)
+// nw = 4 smax rounded up to 8 (an mma's n), wst = nw + 8 (a row stride of
+// 8 mod 32 words: the accumulators' float2 stores hit every bank once a
+// half-warp), ks = mma_kstride(H), rp = R rounded up to 16 (an mma's m), at
+// most 3 tiles. Warp w computes n-tiles 2w and 2w + 1 (16 columns) over
+// every m-tile, two independent accumulator chains, each W_hh fragment
+// loaded once for every m-tile; it loads the xp its accumulators meet into
+// registers at the step's start, behind the gather.
+__host__ __device__ inline int mma_nw(int smax) { return (4 * smax + 7) / 8 * 8; }
+
+template <bool POOL>
+__host__ __device__ inline size_t mma_smem_bytes(const ClusterGeom& g, int H) {
+  const int nw = mma_nw(g.smax), ks = mma_kstride(H);
+  return align16((size_t)nw * ks * 2) + align16((size_t)g.rp * ks * 2) +
+         sizeof(float) * (2 * (size_t)g.smax * exchange_stride(g.rp) + (size_t)g.rp * g.wst +
+                          (size_t)g.rp * g.smax * (POOL ? 2 : 1));
+}
+
+// the most threads of the bf16 block (one warp for each pair of n-tiles: 22
+// at H = 174 in clusters of 2), 93 registers a thread
+constexpr int kMmaThreads = 704;
+
+// MT m-tiles, 1 to 3 (rec_mma_tiles): the accumulators and their xp (16 MT
+// registers) are sized by it, so that the one-tile instance, which the
+// serving and training sizes take, spills nothing
+template <int MT, bool POOL>
+__global__ void __launch_bounds__(kMmaThreads) bilstm_rec_mma_kernel(RecArgs a, ClusterGeom g) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char cluster_smem[];
+  __shared__ int j0s[kMaxCluster + 1];
+  __shared__ unsigned char owner[kMaxClusterH];  // the rank that owns each unit
+  const int H = a.H, R = g.R, RP = g.rp, smax = g.smax, wst = g.wst;
+  const int nw = mma_nw(smax), ks = mma_kstride(H), rpb = exchange_stride(RP);
+  __nv_bfloat16* wT = reinterpret_cast<__nv_bfloat16*>(cluster_smem);
+  __nv_bfloat16* hA = reinterpret_cast<__nv_bfloat16*>(cluster_smem + align16((size_t)nw * ks * 2));
+  float* buf = reinterpret_cast<float*>(cluster_smem + align16((size_t)nw * ks * 2) +
+                                        align16((size_t)RP * ks * 2));
+  float* pre = buf + 2 * smax * rpb;
+  float* csm = pre + RP * wst;
+  float* psm = csm + RP * smax;
+
+  const Place pl = place(g, a.B);
+  const int rank = (int)cluster.block_rank();
+  const int j0 = g.j0[rank], sk = g.j0[rank + 1] - j0, cols = 4 * sk;
+  owner_table(g, j0s, owner);
+
+  // the direction's W_hh[:, own columns] once, transposed (consecutive
+  // threads read consecutive units of one h)
+  const __nv_bfloat16* whh = static_cast<const __nv_bfloat16*>(a.whh) + (long long)pl.dir * 4 * H * H;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for (int idx = threadIdx.x; idx < ks * nw; idx += blockDim.x) {
+    const int h = idx / nw, c = idx - h * nw;
+    const int k = c / sk;
+    wT[c * ks + h] = c < cols && h < H ? whh[((long long)k * H + h) * H + j0 + c - k * sk] : zero;
+  }
+  for (int idx = threadIdx.x; idx < RP * ks; idx += blockDim.x) hA[idx] = zero;
+  // h0 into buf[0], c0 into the carry
+  const long long carry = (long long)pl.dir * a.B * H;
+  for (int idx = threadIdx.x; idx < R * sk; idx += blockDim.x) {
+    const int r = idx / sk, jj = idx - r * sk;
+    const long long o = carry + (long long)(pl.row0 + r) * H + j0 + jj;
+    buf[jj * rpb + r] = r < pl.nrows ? a.h0[o] : 0.f;
+    csm[r * smax + jj] = r < pl.nrows ? a.c0[o] : 0.f;
+    if (POOL) psm[r * smax + jj] = 0.f;
+  }
+  // every block of the cluster has started and written buf[0]
+  cluster.sync();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int NT = nw / 8, KT = (ks - 8) / 16;
+  const int gq = lane >> 2, tq = lane & 3;  // an accumulator fragment's row and column pair
+  // this warp's n-tiles na, nb (nb = na on an odd last pair, computed and
+  // dropped); this lane's ldmatrix rows of wT (n-tile lane / 16, row lane % 8,
+  // k half lane / 8 % 2) and of hA (row lane % 16, k half lane / 16)
+  const int na = 2 * warp, nb = min(2 * warp + 1, NT - 1);
+  const bool pair = na < NT, second = 2 * warp + 1 < NT;
+  const __nv_bfloat16* bp = wT + ((lane & 16 ? nb : na) * 8 + (lane & 7)) * ks + ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* ap = hA + (lane & 15) * ks + (lane >> 4) * 8;
+  // the xp columns this lane's accumulators meet: n-tile e, column 2 tq + q
+  long long xcol[2][2];
+  bool xok[2][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = (e ? nb : na) * 8 + 2 * tq + q, k = c / sk;
+      xok[e][q] = pair && (e == 0 || second) && c < cols;
+      xcol[e][q] = (long long)pl.dir * 4 * H + k * H + j0 + c - k * sk;
+    }
+  long long* stamp = a.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 ? a.prof : nullptr;
+  if (stamp) stamp[kPhases * a.T] = global_ns();
+  const int per = smax * rpb;
+  const long long G8 = 8LL * H;
+  const GatherShare share = gather_share(R, H);
+
+  for (int s = 0; s < a.T; ++s) {
+    const int t = pl.dir ? a.T - 1 - s : s;  // the x block this step consumes
+    if (stamp) stamp[kPhases * s + kStepStart] = clock64();
+    // this lane's xp, loaded first: its latency hides behind the gather
+    float xv[MT][2][4];
+    const float* xt = a.xp + ((long long)t * a.B + pl.row0) * G8;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int r = m * 16 + gq + 8 * hh;
+            xv[m][e][2 * hh + q] = r < pl.nrows && xok[e][q] ? xt[r * G8 + xcol[e][q]] : 0.f;
+          }
+
+    // 1. gather h_{t-1} from every rank's buf[s & 1], as the bf16 operand
+    float* cur = buf + (s & 1) * per;
+    gather(cluster, cur, j0s, owner, H, rpb, share,
+           [&](int j, int r, float v) { hA[r * ks + j] = __float2bfloat16(v); });
+    __syncthreads();
+    if (stamp) stamp[kPhases * s + kGathered] = clock64();
+
+    // 2. pre = xp[t] + h W_hh[:, own columns] on the tensor cores
+    if (pair) {
+      float acc[MT][2][4] = {};
+      for (int kt = 0; kt < KT; ++kt) {
+        uint32_t b[4];
+        ldsm_x4(b, bp + kt * 16);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint32_t af[4];
+          ldsm_x4(af, ap + m * 16 * ks + kt * 16);
+          mma_bf16(acc[m][0], af, b[0], b[1]);
+          mma_bf16(acc[m][1], af, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (e == 0 || second) {
+            const int c = (e ? nb : na) * 8 + 2 * tq;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              *reinterpret_cast<float2*>(pre + (m * 16 + gq + 8 * hh) * wst + c) =
+                  make_float2(acc[m][e][2 * hh] + xv[m][e][2 * hh],
+                              acc[m][e][2 * hh + 1] + xv[m][e][2 * hh + 1]);
+          }
+    }
+    __syncthreads();
+    if (stamp) stamp[kPhases * s + kProduct] = clock64();
+
+    // 3. gates and carries of the own units, as bilstm_rec_cluster_kernel
+    float* nxt = buf + ((s + 1) & 1) * per;
+    for (int idx = threadIdx.x; idx < R * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      const float h = cell(pre + r * wst + jj, sk, csm + r * smax + jj);
+      nxt[jj * rpb + r] = h;
+      if (POOL) psm[r * smax + jj] += h;
+    }
+    if (stamp) stamp[kPhases * s + kGates] = clock64();
+    // 4. the cluster barrier, its two halves around the stream stores
+    cluster_arrive();
+    for (int idx = threadIdx.x; idx < pl.nrows * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      write_step<__nv_bfloat16>(a, pre + r * wst + jj, sk, csm[r * smax + jj], nxt[jj * rpb + r],
+                                pl.dir, s, t, pl.row0 + r, j0 + jj);
+    }
+    cluster_wait();
+    if (stamp) stamp[kPhases * s + kBarrier] = clock64();
+  }
+  if (stamp) stamp[kPhases * a.T + 1] = global_ns();
+
+  if (POOL) {  // each thread reads back only the sums it accumulated itself
+    const float inv_t = 1.f / (float)a.T;
+    for (int idx = threadIdx.x; idx < R * sk; idx += blockDim.x) {
+      const int r = idx / sk, jj = idx - r * sk;
+      if (r < pl.nrows)
+        a.pool[(long long)(pl.row0 + r) * 2 * H + pl.dir * H + j0 + jj] = psm[r * smax + jj] * inv_t;
+    }
+  }
+}
+
 // The cluster route's launch. Reads and checks the geometry: the shared
 // memory must be what the kernel carves (K1's layout, and K5's pool sums),
 // each thread two columns of rg row groups.
-template <typename S, int RPT, bool POOL>
+template <int RPT, bool POOL>
 cudaError_t rec_cluster(const RecArgs& a, const int* geom, int dev, const DeviceInfo& info,
                         cudaStream_t stream, int* max_active) {
   static std::atomic<int> smem_set[kMaxDevices];
@@ -478,41 +672,75 @@ cudaError_t rec_cluster(const RecArgs& a, const int* geom, int dev, const Device
   cudaError_t err = read_cluster_geom(geom, a.H, 4 * geom[7], &g);
   if (err != cudaSuccess) return err;
   const int threads = geom[5], cp = threads / g.rg;
-  const size_t smem = cluster_smem_bytes<S>(g, a.H) + (POOL ? sizeof(float) * g.rp * g.smax : 0);
-  if (geom[3] != RPT || threads > (RPT == 8 ? kRows8Threads : 1024) || threads % g.rg || cp % 32 ||
+  const size_t smem = cluster_smem_bytes<float>(g, a.H) + (POOL ? sizeof(float) * g.rp * g.smax : 0);
+  if (geom[3] != RPT || threads > (RPT == 8 ? kRows8Threads : kSimtThreads) || threads % g.rg ||
+      cp % 32 ||
       2 * cp < g.wst || (size_t)geom[6] != smem)
     return cudaErrorInvalidValue;
-  err = open_smem(bilstm_rec_cluster_kernel<S, RPT, POOL>, smem, dev, info, smem_set);
+  err = open_smem(bilstm_rec_cluster_kernel<RPT, POOL>, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
   const long long blocks = 2LL * ((a.B + g.R - 1) / g.R) * g.C;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cluster(bilstm_rec_cluster_kernel<S, RPT, POOL>, (unsigned)blocks, threads, smem,
+  return launch_cluster(bilstm_rec_cluster_kernel<RPT, POOL>, (unsigned)blocks, threads, smem,
                         g.C, stream, max_active, a, g);
 }
 
-template <typename S, bool POOL>
-cudaError_t rec_rows(const RecArgs& a, const int* geom, cudaStream_t stream, int* max_active) {
+// The bf16 route's launch: the same checks for the tensor-core layout.
+template <int MT, bool POOL>
+cudaError_t rec_mma(const RecArgs& a, const ClusterGeom& g, int threads, size_t smem, int dev,
+                    const DeviceInfo& info, cudaStream_t stream, int* max_active) {
+  static std::atomic<int> smem_set[kMaxDevices];
+  cudaError_t err = open_smem(bilstm_rec_mma_kernel<MT, POOL>, smem, dev, info, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long blocks = 2LL * ((a.B + g.R - 1) / g.R) * g.C;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return launch_cluster(bilstm_rec_mma_kernel<MT, POOL>, (unsigned)blocks, threads, smem, g.C,
+                        stream, max_active, a, g);
+}
+
+template <bool POOL>
+cudaError_t rec_mma_tiles(const RecArgs& a, const int* geom, int dev, const DeviceInfo& info,
+                          cudaStream_t stream, int* max_active) {
+  ClusterGeom g;
+  cudaError_t err = read_cluster_geom(geom, a.H, mma_nw(geom[7]) + 8, &g);
+  if (err != cudaSuccess) return err;
+  const int threads = geom[5], pairs = (mma_nw(g.smax) / 8 + 1) / 2;
+  const size_t smem = mma_smem_bytes<POOL>(g, a.H);
+  if (geom[3] != 16 || threads > kMmaThreads || threads % 32 || threads < 32 * pairs ||
+      (size_t)geom[6] != smem)
+    return cudaErrorInvalidValue;
+  switch (g.rg) {
+    case 1: return rec_mma<1, POOL>(a, g, threads, smem, dev, info, stream, max_active);
+    case 2: return rec_mma<2, POOL>(a, g, threads, smem, dev, info, stream, max_active);
+    case 3: return rec_mma<3, POOL>(a, g, threads, smem, dev, info, stream, max_active);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f32: the SIMT kernel at the geometry's rows a thread; bf16: the tensor cores
+template <bool POOL>
+cudaError_t rec_dispatch(int dtype, const RecArgs& a, const int* geom, cudaStream_t stream,
+                         int* max_active) {
   int dev = 0;
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
   if (geom[0] != 1) return cudaErrorInvalidValue;
+  if (dtype == 1) return rec_mma_tiles<POOL>(a, geom, dev, *info, stream, max_active);
+  if (dtype != 0) return cudaErrorInvalidValue;
   switch (geom[3]) {
-    case 1: return rec_cluster<S, 1, POOL>(a, geom, dev, *info, stream, max_active);
-    case 2: return rec_cluster<S, 2, POOL>(a, geom, dev, *info, stream, max_active);
-    case 4: return rec_cluster<S, 4, POOL>(a, geom, dev, *info, stream, max_active);
-    case 8: return rec_cluster<S, 8, POOL>(a, geom, dev, *info, stream, max_active);
+    case 1: return rec_cluster<1, POOL>(a, geom, dev, *info, stream, max_active);
+    case 2: return rec_cluster<2, POOL>(a, geom, dev, *info, stream, max_active);
+    case 4: return rec_cluster<4, POOL>(a, geom, dev, *info, stream, max_active);
+    case 8: return rec_cluster<8, POOL>(a, geom, dev, *info, stream, max_active);
     default: return cudaErrorInvalidValue;
   }
 }
 
 int rec_run(int dtype, int pool, const RecArgs& a, const int* geom, cudaStream_t stream,
             int* max_active) {
-  if (dtype == 0 && !pool) return rec_rows<float, false>(a, geom, stream, max_active);
-  if (dtype == 0 && pool) return rec_rows<float, true>(a, geom, stream, max_active);
-  if (dtype == 1 && !pool) return rec_rows<__nv_bfloat16, false>(a, geom, stream, max_active);
-  if (dtype == 1 && pool) return rec_rows<__nv_bfloat16, true>(a, geom, stream, max_active);
-  return cudaErrorInvalidValue;
+  return pool ? rec_dispatch<true>(dtype, a, geom, stream, max_active)
+              : rec_dispatch<false>(dtype, a, geom, stream, max_active);
 }
 
 }  // namespace

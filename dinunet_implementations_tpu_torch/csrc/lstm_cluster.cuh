@@ -133,32 +133,72 @@ __device__ __forceinline__ void owner_table(const ClusterGeom& g, int* j0s, unsi
     for (int j = g.j0[q] + threadIdx.x; j < g.j0[q + 1]; j += blockDim.x) owner[j] = q;
 }
 
+// This thread's share of a step's gather (worked out once, before the
+// steps): row r = threadIdx.x % RP of units gj, gj + gstep, ...; a warp
+// reads consecutive rows of one unit (contiguous on both sides).
+struct GatherShare {
+  int gstep, gr, gj;
+};
+
+__device__ __forceinline__ GatherShare gather_share(int RP, int H) {
+  const int gstep = blockDim.x / RP;
+  return {gstep, (int)threadIdx.x % RP, (int)threadIdx.x < gstep * RP ? (int)threadIdx.x / RP : H};
+}
+
 // The gather of a step: h_{t-1} of every unit j < H and row r < RP from the
 // exchange buffer `cur` [smax, rpb] of the rank that owns j, handed to
-// put(j, r, value). This thread's share is row r = threadIdx.x % RP of units
-// gj, gj + gstep, ...; a warp reads consecutive rows of one unit (contiguous
-// on both sides), four loads in flight. Needs owner_table's j0s and owner.
+// put(j, r, value), four loads in flight. Needs owner_table's j0s, owner.
 template <typename Put>
 __device__ __forceinline__ void gather(cooperative_groups::cluster_group& cluster, float* cur,
-                                       const int* j0s, const unsigned char* owner, int H, int RP,
-                                       int rpb, Put put) {
-  const int gstep = blockDim.x / RP, gr = threadIdx.x % RP;
-  const int gj = threadIdx.x < gstep * RP ? threadIdx.x / RP : H;
-  for (int j = gj; j < H; j += 4 * gstep) {
+                                       const int* j0s, const unsigned char* owner, int H, int rpb,
+                                       const GatherShare& sh, Put put) {
+  for (int j = sh.gj; j < H; j += 4 * sh.gstep) {
     float v[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const int ju = j + u * gstep;
+      const int ju = j + u * sh.gstep;
       if (ju < H) {
         const int q = owner[ju];
-        v[u] = cluster.map_shared_rank(cur, q)[(ju - j0s[q]) * rpb + gr];
+        v[u] = cluster.map_shared_rank(cur, q)[(ju - j0s[q]) * rpb + sh.gr];
       }
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (j + u * gstep < H) put(j + u * gstep, gr, v[u]);
+      if (j + u * sh.gstep < H) put(j + u * sh.gstep, sh.gr, v[u]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 products on the tensor cores (mma.sync m16n8k16, f32 accumulators)
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 b16 matrices from shared memory: lane i gives the address of row
+// i % 8 of matrix i / 8 (16 bytes, 16-byte aligned); r[q] is matrix q's
+// fragment (row lane / 4, elements 2 (lane % 4), + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b: a a 16x16 bf16 tile (row-major fragments a[0..3]), b a 16x8
+// tile (column-major fragments b0, b1), d 16x8 f32 (d[0..1] row lane / 4,
+// d[2..3] row lane / 4 + 8, columns 2 (lane % 4), + 1)
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The row stride, in bf16 values, of an mma operand whose k runs over n
+// values: n rounded up to 16 (an mma's k), plus 8, an odd number of 16-byte
+// chunks, so that ldmatrix's eight row addresses hit distinct banks.
+__host__ __device__ inline int mma_kstride(int n) { return (n + 15) / 16 * 16 + 8; }
 
 // Launches `kernel` over `blocks` blocks in clusters of C, or, when
 // max_active is not null, writes cudaOccupancyMaxActiveClusters of that

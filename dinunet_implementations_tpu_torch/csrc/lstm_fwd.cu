@@ -46,6 +46,11 @@
 // threads, the column map) is worked out in Python
 // (ops/lstm_cuda.py:k1_geometry) and checked here.
 //
+// This file also holds the projections of K3/K5 (bilstm_fwd.cu), both
+// directions' 8 gates in one launch: lstm_proj_kernel's function in wider
+// f32 tiles (lstm_proj_wide_kernel) and on the tensor cores in bf16
+// (lstm_proj_mma_kernel).
+//
 // lstm_rec_stream_kernel is stage 1's recurrence, kept for shapes whose
 // W_hh slice fits no cluster of 8 (H above about 340 in f32): each block owns
 // up to 8 rows, walks all T steps, and streams W_hh from L2 every step.
@@ -153,6 +158,203 @@ __global__ void __launch_bounds__(kProjThreads) lstm_proj_kernel(ProjArgs a) {
       const int m = m0 + ty * 4 + i;
       if (m < M) a.xp[(long long)m * N + n] = acc[i][j] + bias;
     }
+  }
+}
+
+// K3/K5's f32 projection: lstm_proj_kernel's function and per-output order
+// of sums (fmaf over d = 0, 1, ...: bit-identical results) in 128x128
+// output tiles, 256 threads of 8x8 outputs each, K in chunks of 8 through
+// two shared-memory stages, the next chunk's global loads held in
+// registers while the current one computes: every operand loaded from
+// shared memory feeds 8 FMAs, against 4 in lstm_proj_kernel.
+constexpr int kWM = 128, kWN = 128, kWK = 8, kWThreads = 256;
+
+// two blocks an SM: 128 registers a thread
+__global__ void __launch_bounds__(kWThreads, 2) lstm_proj_wide_kernel(ProjArgs a) {
+  // +4: the K-major stores of a row's 4 d land in distinct banks
+  __shared__ __align__(16) float As[2][kWK][kWM + 4];
+  __shared__ __align__(16) float Bs[2][kWK][kWN];
+  const int M = a.T * a.B, N = a.G * a.H, tid = threadIdx.x;
+  const int m0 = blockIdx.y * kWM, n0 = blockIdx.x * kWN;
+  const float* x = static_cast<const float*>(a.x);
+  const float* w = static_cast<const float*>(a.wih);
+  // what this thread stages: 4 consecutive d of row tid / 2, and 4
+  // consecutive columns of W_ih at d = tid / 32
+  const int am = tid >> 1, ak = (tid & 1) * 4, bk = tid >> 5, bn = (tid & 31) * 4;
+  long long xrow = -1;
+  if (m0 + am < M) {
+    const int t = (m0 + am) / a.B, b = m0 + am - t * a.B;
+    xrow = t * a.sxt + (long long)b * a.sxb;
+  }
+  long long wcol[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + bn + i, k = n / a.H;
+    wcol[i] = n < N ? k * a.swk + (n - k * a.H) : -1;
+  }
+  float ra[4], rb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = k0 + ak + i;
+      ra[i] = xrow >= 0 && d < a.D ? x[xrow + d] : 0.f;
+      rb[i] = wcol[i] >= 0 && k0 + bk < a.D ? w[wcol[i] + (k0 + bk) * a.swd] : 0.f;
+    }
+  };
+  auto put = [&](int st) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) As[st][ak + i][am] = ra[i];
+    *reinterpret_cast<float4*>(&Bs[st][bk][bn]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  };
+  // this thread's outputs: rows ty*4 + i and 64 + ty*4 + i, columns tx*4 + j
+  // and 64 + tx*4 + j (two halves: a warp's float4 reads stay 256 bytes)
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  fetch(0);
+  put(0);
+  __syncthreads();
+  for (int k0 = 0, st = 0; k0 < a.D; k0 += kWK, st ^= 1) {
+    const bool more = k0 + kWK < a.D;
+    if (more) fetch(k0 + kWK);
+#pragma unroll
+    for (int kk = 0; kk < kWK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[st][kk][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[st][kk][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[st][kk][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[st][kk][64 + tx * 4]);
+      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    // the other stage was last read before the previous barrier
+    if (more) put(st ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+    if (n >= N) continue;
+    const int k = n / a.H;
+    const float bias = a.b[k * a.sbk + (n - k * a.H)];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+      if (m < M) a.xp[(long long)m * N + n] = acc[i][j] + bias;
+    }
+  }
+}
+
+// K3/K5's bf16 projection on the tensor cores: xp [M, N] f32 = x [M, D]
+// Wt[N, D]^T + b, with W_ih of both directions passed transposed (d
+// contiguous: the wrapper's one conversion copy to bf16 writes it so).
+// 128x128 output tiles, 8 warps of 64x32 outputs (mma.sync m16n8k16, f32
+// accumulators), K in chunks of 32 copied global -> shared by cp.async, 16
+// bytes at a time, two stages: the next chunk's copy runs behind the
+// current chunk's products. bf16 products are exact in f32, so this is
+// lstm_proj_kernel's function up to the order of the f32 sums. x's rows
+// and D must be 16-byte aligned (the wrapper sees to it).
+struct MmaProjArgs {
+  const __nv_bfloat16* x;  // x[t, b, d] at t*sxt + b*sxb + d
+  long long sxt, sxb;
+  const __nv_bfloat16* wt;  // Wt[n, d] at n*ldw + d
+  long long ldw;
+  const float* b;  // [N]
+  float* xp;       // [T, B, N] contiguous f32
+  int T, B, D, N;
+};
+
+constexpr int kGM = 128, kGN = 128, kGK = 32, kGThreads = 256, kGLd = kGK + 8;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__global__ void __launch_bounds__(kGThreads) lstm_proj_mma_kernel(MmaProjArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 As[2][kGM * kGLd];
+  __shared__ __align__(16) __nv_bfloat16 Bs[2][kGN * kGLd];
+  __shared__ long long xrow[kGM];
+  const int M = a.T * a.B, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  if (tid < kGM) {
+    const int m = m0 + tid;
+    long long o = -1;
+    if (m < M) {
+      const int t = m / a.B, b = m - t * a.B;
+      o = t * a.sxt + (long long)b * a.sxb;
+    }
+    xrow[tid] = o;
+  }
+  __syncthreads();
+  // a stage: 128 rows of x and of Wt, 4 chunks of 8 values each; this
+  // thread copies chunk tid % 4 of rows tid / 4 and tid / 4 + 64
+  auto stage = [&](int st, int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = tid / 4 + 64 * i, d = k0 + (tid & 3) * 8;
+      const long long o = xrow[r];
+      const bool ax = o >= 0 && d < a.D, bw = n0 + r < a.N && d < a.D;
+      cp_async16(&As[st][r * kGLd + (tid & 3) * 8], ax ? a.x + o + d : a.x, ax);
+      cp_async16(&Bs[st][r * kGLd + (tid & 3) * 8], bw ? a.wt + (n0 + r) * a.ldw + d : a.wt, bw);
+    }
+    asm volatile("cp.async.commit_group;");
+  };
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
+  float acc[4][4][4] = {};
+  const int chunks = (a.D + kGK - 1) / kGK;
+  stage(0, 0);
+  for (int kc = 0; kc < chunks; ++kc) {
+    if (kc + 1 < chunks) {
+      stage((kc + 1) & 1, (kc + 1) * kGK);
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    }
+    __syncthreads();
+    const __nv_bfloat16* as = As[kc & 1];
+    const __nv_bfloat16* bs = Bs[kc & 1];
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 16) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4(af[mi], as + (wm + mi * 16 + (lane & 15)) * kGLd + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)  // n-tiles 2 nj and 2 nj + 1
+        ldsm_x4(bf[nj], bs + (wn + nj * 16 + (lane & 16 ? 8 : 0) + (lane & 7)) * kGLd + kk +
+                            ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], af[mi], bf[ni >> 1][(ni & 1) * 2], bf[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+    __syncthreads();  // every warp is done with this stage before it is copied over
+  }
+
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    const int n = n0 + wn + ni * 8 + 2 * tq;  // N = 8H is even: n < N holds n + 1 too
+    if (n >= a.N) continue;
+    const float b0 = a.b[n], b1 = a.b[n + 1];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = m0 + wm + mi * 16 + gq + 8 * hh;
+        if (m < M)
+          *reinterpret_cast<float2*>(a.xp + (long long)m * a.N + n) =
+              make_float2(acc[mi][ni][2 * hh] + b0, acc[mi][ni][2 * hh + 1] + b1);
+      }
   }
 }
 
@@ -299,6 +501,7 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
   long long* stamp = a.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 ? a.prof : nullptr;
   if (stamp) stamp[kPhases * a.T] = global_ns();
   const int per = smax * rpb;
+  const GatherShare share = gather_share(RP, H);
 
   for (int t = 0; t < a.T; ++t) {
     if (stamp) stamp[kPhases * t + kStepStart] = clock64();
@@ -312,7 +515,7 @@ __global__ void __launch_bounds__(1024) lstm_rec_cluster_kernel(RecArgs a, Clust
 
     // 1. gather h_{t-1} from every rank's buf[t & 1]
     float* cur = buf + (t & 1) * per;
-    gather(cluster, cur, j0s, owner, H, RP, rpb,
+    gather(cluster, cur, j0s, owner, H, rpb, share,
            [&](int j, int r, float v) { hl[j * RP + r] = as_operand<S>(v); });
     __syncthreads();
     if (stamp) stamp[kPhases * t + kGathered] = clock64();
@@ -397,6 +600,13 @@ cudaError_t launch_proj(const ProjArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_proj_wide(const ProjArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.G * a.H + kWN - 1) / kWN, (a.T * a.B + kWM - 1) / kWM);
+  if (grid.y > 65535u) return cudaErrorInvalidValue;
+  lstm_proj_wide_kernel<<<grid, kWThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename S, int R>
 cudaError_t launch_stream(const RecArgs& a, const int* geom, int dev, const DeviceInfo& info,
                           cudaStream_t stream) {
@@ -471,8 +681,9 @@ extern "C" {
 // f32. Each returns the cudaError_t of its launch (0 = launched).
 
 // Stage 1: xp [T, B, G H] = x W_ih + b, G = gates (4, or 8 for both
-// directions of K3/K5 in one launch).
-int dn_lstm_proj(int dtype, int gates, const void* x, long long sxt, long long sxb,
+// directions of K3/K5 in one launch); tile 64 (lstm_proj_kernel) or, in
+// f32, 128 (lstm_proj_wide_kernel, bit-identical).
+int dn_lstm_proj(int dtype, int gates, int tile, const void* x, long long sxt, long long sxb,
                  const void* wih, long long swk, long long swd,
                  const void* b, long long sbk, void* xp, int T, int B, int D, int H,
                  void* stream) {
@@ -480,9 +691,28 @@ int dn_lstm_proj(int dtype, int gates, const void* x, long long sxt, long long s
   ProjArgs a{x, sxt, sxb, wih, swk, swd, static_cast<const float*>(b), sbk,
              static_cast<float*>(xp), T, B, D, H, gates};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && tile == 128) return launch_proj_wide(a, s);
+  if (tile != 64) return cudaErrorInvalidValue;
   if (dtype == 0) return launch_proj<float>(a, s);
   if (dtype == 1) return launch_proj<__nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// K3/K5's bf16 projection on the tensor cores: xp [T, B, N] f32 = x Wt^T +
+// b for Wt [N, D] bf16 (rows at ldw), b [N] f32, N even; x's strides, D, ldw
+// and both pointers 16-byte aligned (multiples of 8 values).
+int dn_lstm_proj_mma(const void* x, long long sxt, long long sxb, const void* wt, long long ldw,
+                     const void* b, void* xp, int T, int B, int D, int N, void* stream) {
+  if (T < 1 || B < 1 || D < 1 || N < 2 || N % 2 || sxt % 8 || sxb % 8 || D % 8 || ldw % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wt) % 16)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + kGN - 1) / kGN, (T * B + kGM - 1) / kGM);
+  if (grid.y > 65535u) return cudaErrorInvalidValue;
+  MmaProjArgs a{static_cast<const __nv_bfloat16*>(x), sxt, sxb,
+                static_cast<const __nv_bfloat16*>(wt), ldw, static_cast<const float*>(b),
+                static_cast<float*>(xp), T, B, D, N};
+  lstm_proj_mma_kernel<<<grid, kGThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return cudaGetLastError();
 }
 
 // The recurrence over xp, on the route and geometry `geom` (kGeomLen ints).

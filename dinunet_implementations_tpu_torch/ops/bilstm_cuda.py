@@ -63,6 +63,8 @@ import torch
 
 from . import _build
 from .lstm_cuda import (
+    _CLUSTER_STATIC_SMEM,
+    K1_CLUSTER_MAX_H,
     K1_CLUSTER_SIZES,
     SMEM_OPTIN,
     _cdiv,
@@ -70,6 +72,7 @@ from .lstm_cuda import (
     _cluster_config,
     _geom_ints,
     _launch_proj,
+    _launch_proj_mma,
     _site_weight,
     _stream_dtype,
     cluster_occupancy,
@@ -132,9 +135,9 @@ def _launch(lib_name: str, entry: str, *args) -> None:
 # ---------------------------------------------------------------------------
 # K3/K5's launch geometry (pure shape arithmetic, tested on the CPU)
 
-#: the most threads of a block whose threads carry 8 rows each
-#: (``csrc/bilstm_fwd.cu:kRows8Threads``)
-_ROWS8_THREADS = 640
+#: the most threads of a block of the f32 recurrence, at 8 rows a thread and
+#: below (``csrc/bilstm_fwd.cu:kRows8Threads``, ``kSimtThreads``)
+_ROWS8_THREADS, _SIMT_THREADS = 640, 512
 
 
 def _rows_a_thread(R: int) -> int:
@@ -146,6 +149,37 @@ def _rows_a_thread(R: int) -> int:
     return r
 
 
+#: the most threads and 16-row m-tiles of a block of the bf16 recurrence
+#: (``kMmaThreads``, and the instances ``rec_mma_tiles`` launches)
+_MMA_THREADS, _MMA_TILES = 704, 3
+
+
+def _mma_config(R: int, H: int, C: int, smem_optin: int, pool: bool) -> dict | None:
+    """Threads and shared memory of a block of the bf16 recurrence, whose
+    product runs on the tensor cores (``csrc/bilstm_fwd.cu:mma_smem_bytes``),
+    or None if none fits: the W_hh slice transposed ``[nw, ks]`` bf16 (``nw
+    = 4·smax`` rounded up to 8, ``ks = H`` rounded up to 16, plus 8), h as
+    the bf16 operand ``[rp, ks]`` (``rp = R`` rounded up to 16, at most 3
+    tiles of 16), the f32 exchange ``[2, smax, rp | 1]``, pre ``[rp, nw +
+    8]``, the carry and, with ``pool``, the pool sums ``[rp, smax]``; a warp
+    for each pair of 8-column n-tiles, at least 4."""
+    if H > K1_CLUSTER_MAX_H:
+        return None
+    smax = _cdiv(H, C)
+    nw = _cdiv(4 * smax, 8) * 8
+    ks = _cdiv(H, 16) * 16 + 8
+    rp = _cdiv(R, 16) * 16
+    threads = 32 * max(4, _cdiv(nw // 8, 2))
+    if rp > 16 * _MMA_TILES or threads > _MMA_THREADS:
+        return None
+    smem = (_cdiv(nw * ks * 2, 16) * 16 + _cdiv(rp * ks * 2, 16) * 16
+            + 4 * (2 * smax * (rp | 1) + rp * (nw + 8) + rp * smax * (2 if pool else 1)))
+    if smem + _CLUSTER_STATIC_SMEM > smem_optin:
+        return None
+    return {"rpt": 16, "row_groups": rp // 16, "rp": rp, "threads": threads, "smem": smem,
+            "smax": smax}
+
+
 def bidir_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
                            smem_optin: int = SMEM_OPTIN, slots: int | None = None,
                            pool: bool = True) -> dict | None:
@@ -153,12 +187,14 @@ def bidir_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
     rows each, ``clusters`` of them a direction, or None if such a block
     does not fit; ``slots`` is the clusters of both directions the card
     runs at once (for ``waves``); ``pool``: K5's layout, with the pool sums
-    in shared memory. K1's block layout (``_cluster_config``), two columns a
-    thread."""
-    rpt = _rows_a_thread(R)
-    cfg = _cluster_config(R, H, C, 2 if dtype == torch.bfloat16 else 4, smem_optin, pool=pool,
-                          cols_a_thread=2, rpts=(rpt,),
-                          max_threads=_ROWS8_THREADS if rpt == 8 else 1024)
+    in shared memory. f32: K1's block layout (``_cluster_config``), two
+    columns a thread; bf16: the tensor-core layout (:func:`_mma_config`)."""
+    if dtype == torch.bfloat16:
+        cfg = _mma_config(R, H, C, smem_optin, pool)
+    else:
+        rpt = _rows_a_thread(R)
+        cfg = _cluster_config(R, H, C, 4, smem_optin, pool=pool, cols_a_thread=2, rpts=(rpt,),
+                              max_threads=_ROWS8_THREADS if rpt == 8 else _SIMT_THREADS)
     if cfg is None:
         return None
     clusters = _cdiv(rows, R)
@@ -395,9 +431,9 @@ def _fwd_checks(fn, x, wih2, b2, whh2, h02, c02, compute_dtype):
         check(all(a.device == x.device for a in (whh2, h02, c02)), "all inputs must be on one device")
         check(h02.is_contiguous() and c02.is_contiguous(), "h02 and c02 must be contiguous")
         whh2 = whh2.to(sdt).contiguous()
-    # the weights are small (2.4 MB at the flagship): one contiguous copy at
-    # the stream dtype per call
-    return sdt, x.to(sdt), wih2.to(sdt).contiguous(), b2.contiguous(), whh2, T, B, D, H
+    # the weights are small (2.4 MB at the flagship): W_ih is copied once a
+    # call at the stream dtype, in the layout of the route that reads it
+    return sdt, x.to(sdt), wih2.contiguous(), b2.contiguous(), whh2, T, B, D, H
 
 
 def _fwd_outputs(sdt, T, B, H, device, residuals):
@@ -415,12 +451,23 @@ def _ptr(a):
 
 
 def _proj2(x, wih2, b2, sdt):
-    """The projection kernel over both directions' W_ih read as one ``[8, D,
-    H]``: ``xp2 [T, B, 8H]`` f32."""
+    """The projection of both directions, W_ih read as one ``[8, D, H]``:
+    ``xp2 [T, B, 8H]`` f32. f32: the projection kernel with 8 gates in its
+    128×128 tiles; bf16: the tensor-core GEMM over W_ih transposed ``[8H,
+    D]`` (the conversion to bf16 writes it so), for a D of whole 16-byte
+    chunks (K1's kernel otherwise, by shape)."""
     global BIDIR_PROJ_LAUNCHES
     T, B, D = x.shape
     H = wih2.shape[-1]
-    xp2 = _launch_proj(x, wih2.reshape(8, D, H), b2.reshape(8, H), 0 if sdt == torch.float32 else 1)
+    if sdt == torch.float32 or D % 8:
+        w = wih2.to(sdt).contiguous().reshape(8, D, H)
+        f32 = sdt == torch.float32
+        xp2 = _launch_proj(x, w, b2.reshape(8, H), 0 if f32 else 1, 128 if f32 else 64)
+    else:
+        if x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
+            x = x.contiguous()
+        wt = wih2.reshape(8, D, H).transpose(1, 2).to(sdt, memory_format=torch.contiguous_format)
+        xp2 = _launch_proj_mma(x, wt.reshape(8 * H, D), b2.reshape(8 * H))
     BIDIR_PROJ_LAUNCHES += 1
     return xp2
 
@@ -460,6 +507,7 @@ def _bidir_fwd(fn, x, wih2, b2, whh2, h02, c02, compute_dtype, residuals, pool, 
                     _geom_ints(g), _ptr(prof), stream)
         else:
             _check(prof is None, "the phase clock is the cluster route's", fn)
+            wih2 = wih2.to(sdt)
             head = (code, x.data_ptr(), x.stride(0), x.stride(1), wih2.data_ptr(), b2.data_ptr(),
                     whh2.data_ptr(), h02.data_ptr(), c02.data_ptr(), *outs)
             if pool:
