@@ -1000,17 +1000,17 @@ def bidir_bound(kernel: str, rows: int, bf16: bool) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def bidir_args(torch, rows: int, g, h: int = H):
-    """Inputs of both directions at rows ``rows`` (width ``h``), as the JAX
-    kernels take them: x ``[T, rows, D]``, wih2 ``[2, 4, D, h]``, b2, whh2,
-    h02, c02."""
+def bidir_args(torch, rows: int, g, h: int = H, d: int = D):
+    """Inputs of both directions at rows ``rows`` (width ``h``, inputs
+    ``d``), as the JAX kernels take them: x ``[T, rows, d]``, wih2 ``[2, 4,
+    d, h]``, b2, whh2, h02, c02."""
     dev = torch.device("cuda")
 
     def u(*shape, scale):
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
 
-    x = torch.randn((T, rows, D), generator=g).relu().to(dev)
-    return (x, u(2, 4, D, h, scale=D ** -0.5), u(2, 4, h, scale=2 * D ** -0.5),
+    x = torch.randn((T, rows, d), generator=g).relu().to(dev)
+    return (x, u(2, 4, d, h, scale=d ** -0.5), u(2, 4, h, scale=2 * d ** -0.5),
             u(2, 4, h, h, scale=h ** -0.5), u(2, rows, h, scale=0.5).contiguous(),
             u(2, rows, h, scale=0.5).contiguous())
 
@@ -1203,7 +1203,8 @@ def bidir_coverage_phase(torch, bc, g) -> None:
     tensor cores): clusters of 2, 4 and 8, one and several 16-row tiles;
     stream route: H = 400, whose W_hh fits no cluster of 8 in f32, at each
     rows a block (1, 2, 4, 8), in f32 as the launcher picks it and in bf16
-    as measurements may ask."""
+    as measurements may ask; bf16 at D = 100, whose projection takes K1's
+    SIMT kernel."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     optin = bc.device_limits("cuda")[1]
     bf = torch.bfloat16
@@ -1252,6 +1253,12 @@ def bidir_coverage_phase(torch, bc, g) -> None:
                 bc.bilstm_fwd_plain(*args, bf, pool=True), BIDIR_FWD_OUTPUTS + ("pool",), BF16_TOL)
         print(json.dumps({"check": "K3/K5 geometry", "rows": rows, "H": h, "dtype": dt,
                           "max_abs_err": errs, "geometry": geo}))
+    # bf16 at a D of no whole 16-byte chunks: the projection takes K1's SIMT
+    # kernel by shape, the recurrence the tensor cores
+    args = bidir_args(torch, 16, g, H, 100)
+    err = compare("bilstm_pool_fwd D=100 bf16", bc.bilstm_pool_fwd_fused(*args, bf),
+                  bc.bilstm_fwd_plain(*args, bf, pool=True), BIDIR_FWD_OUTPUTS + ("pool",), BF16_TOL)
+    print(json.dumps({"check": "K3/K5 bf16 projection at D=100", "max_abs_err": err}))
     need = ({("f32", "C", C) for C in (2, 4, 8)} | {("f32", "rows a thread", r) for r in (1, 2, 4, 8)}
             | {("f32", "row groups > 1", True), ("bf16", "row groups > 1", True)}
             | {("bf16", "C", C) for C in (2, 4, 8)} | {("stream", r) for r in (1, 2, 4, 8)})

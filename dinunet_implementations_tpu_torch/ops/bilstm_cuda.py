@@ -401,8 +401,9 @@ def bilstm_bwd_plain(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
 
 def _fwd_checks(fn, x, wih2, b2, whh2, h02, c02, compute_dtype):
     """Validates a forward call (``whh2, h02, c02`` None: the projection's
-    alone); returns ``(sdt, x, wih2, b2, whh2, T, B, D, H)`` with the
-    weights at the stream dtype and contiguous."""
+    alone); returns ``(sdt, x, wih2, b2, whh2, T, B, D, H)``: x and whh2 at
+    the stream dtype, wih2 contiguous at its own (each route converts it
+    into the layout it reads)."""
 
     def check(cond, what):
         _check(cond, what, fn)
@@ -493,7 +494,8 @@ def _bidir_fwd(fn, x, wih2, b2, whh2, h02, c02, compute_dtype, residuals, pool, 
     sdt, x, wih2, b2, whh2, T, B, D, H = _fwd_checks(fn, x, wih2, b2, whh2, h02, c02,
                                                      compute_dtype)
     g = geometry or device_bidir_geometry(x.device, B, H, compute_dtype, pool)
-    _check(g["route"] == "stream" or g["pool"] == pool, "a geometry of K5 for K3 or back", fn)
+    _check(g["route"] == "stream" or g["pool"] == pool,
+           "the geometry's shared-memory layout is the other kernel's (pool differs)", fn)
     hs2, res, hT2, cT2 = _fwd_outputs(sdt, T, B, H, x.device, residuals)
     pooled = torch.empty((B, 2 * H), dtype=torch.float32, device=x.device) if pool else None
     code = 0 if sdt == torch.float32 else 1
