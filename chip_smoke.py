@@ -190,10 +190,25 @@ def bound(rows: int, bf16: bool) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def scratch_ms(rows: int) -> float:
-    """K1's own cost beyond the function's bytes: the f32 projection scratch
-    [T, rows, 4H] written once and read once, over HBM bandwidth."""
-    return 2 * T * rows * 4 * H * 4 / HBM_BPS * 1e3
+def scratch_ms(torch, rows: int, gates: int) -> float:
+    """The cluster route's own cost beyond the function's bytes, measured:
+    one read and one write of the f32 projection scratch [T, rows, gates·H]
+    (4 gates for K1, 8 for K3/K5), timed as one device copy of it."""
+    src = torch.zeros((T, rows, gates * H), device="cuda")
+    dst = torch.empty_like(src)
+    return time_ms(lambda: dst.copy_(src), 30)
+
+
+def check_proj_tiles(torch, what: str, proj, args, xp) -> None:
+    """The f32 projection's two tilings (the C entry takes the 128x128 tiles
+    once their grid fills the card, the 64x64 ones below: at the flagship
+    the training fold and a serving bucket) sum in one order: the
+    projection of the first 16 rows of ``x`` equals those rows of the
+    whole, bit for bit."""
+    part = proj(args[0][:, :16], *args[1:3])
+    if not torch.equal(part, xp[:, :16]):
+        fail(f"{what}: the projection of 16 rows differs from those rows of the whole by "
+             f"{(part - xp[:, :16]).abs().max().item()}")
 
 
 OUTPUTS = ("hs", "cs", "i", "f", "o", "g", "hT", "cT")
@@ -256,6 +271,9 @@ def kernel_phase(torch, lc) -> list[dict]:
             torch.cuda.synchronize()
             xp_err = compare(f"lstm_proj rows={rows} {cdt}", (xp,),
                              (lc.lstm_proj_plain(*args[:3], cdt),), ("xp",), F32_TOL)
+            if cdt is None and rows > 16:
+                check_proj_tiles(torch, f"lstm_proj rows={rows}", lc.lstm_proj_fused, args, xp)
+            del xp
             want = lc.lstm_recurrence_plain(*args, cdt, residuals=True)
             got = lc.lstm_recurrence_fused(*args, cdt, residuals=True)
             torch.cuda.synchronize()
@@ -275,7 +293,7 @@ def kernel_phase(torch, lc) -> list[dict]:
                    "step_phases": phases,
                    "stream_ms": stream_ms, "stream_max_abs_err": stream_err,
                    "plain_ms": plain_ms, **library, "bound_ms": b_ms, "bound_by": b_by,
-                   "scratch_ms": scratch_ms(rows), "geometry": geo,
+                   "scratch_ms": scratch_ms(torch, rows, 4), "geometry": geo,
                    "stream_geometry": stream}
             print(json.dumps(rec))
             out.append(rec)
@@ -1054,13 +1072,6 @@ def library_bilstm(torch, args, cdt, plain_hs2, backward: bool, g) -> dict:
     return library_call(torch, what, cdt, build, F32_TOL)
 
 
-def bidir_scratch_ms(rows: int) -> float:
-    """The cluster route's own cost beyond the function's bytes: the f32
-    projection scratch [T, rows, 8H] of both directions written once and
-    read once, over HBM bandwidth."""
-    return 2 * T * rows * 8 * H * 4 / HBM_BPS * 1e3
-
-
 def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -> dict:
     """The launcher's K3 (``pool`` False) or K5 geometry for ``rows`` rows of
     width ``h`` on this card, with cudaOccupancyMaxActiveClusters of its
@@ -1070,7 +1081,7 @@ def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -
     return g
 
 
-def bidir_kernel_phase(torch, lc, bc) -> list[dict]:
+def bidir_kernel_phase(torch, bc) -> list[dict]:
     """K3 and K5 at rows 1, 16 and 512, K4 (full cotangent streams) and K6
     at rows 16 and 512, f32 and bf16, against their plain versions, timed
     beside the plain version, the bound and cuDNN; K3/K5 on the route the
@@ -1099,13 +1110,8 @@ def bidir_kernel_phase(torch, lc, bc) -> list[dict]:
             torch.cuda.synchronize()
             proj_err = compare(f"bilstm_proj rows={rows} {cdt}", (xp2,),
                                (bc.bilstm_proj_plain(*args[:3], cdt),), ("xp2",), F32_TOL)
-            if cdt is None:  # the 128x128 tiles sum in K1's kernel's order: bit-identical
-                with torch.cuda.device(0):
-                    k1_tiles = lc._launch_proj(args[0], args[1].reshape(8, D, H),
-                                               args[2].reshape(8, H), 0, 64)
-                if not torch.equal(xp2, k1_tiles):
-                    fail(f"bilstm_proj rows={rows}: the 128x128 tiles differ from "
-                         f"lstm_proj_kernel's by {(xp2 - k1_tiles).abs().max().item()}")
+            if cdt is None and rows > 16:
+                check_proj_tiles(torch, f"bilstm_proj rows={rows}", bc.bilstm_proj_fused, args, xp2)
             del xp2
             want = bc.bilstm_fwd_plain(*args, cdt)
             fwd_lib = library_bilstm(torch, args, cdt, want[0], False, g)
@@ -1129,7 +1135,7 @@ def bidir_kernel_phase(torch, lc, bc) -> list[dict]:
                        stream_ms=time_ms(lambda: fused(*args, cdt, geometry=stream), 30),
                        stream_max_abs_err=stream_err,
                        proj_ms=time_ms(lambda: bc.bilstm_proj_fused(*args[:3], cdt), 30),
-                       proj_max_abs_err=proj_err, scratch_ms=bidir_scratch_ms(rows),
+                       proj_max_abs_err=proj_err, scratch_ms=scratch_ms(torch, rows, 8),
                        step_phases=phases, geometry=geo, stream_geometry=stream)
 
     for rows in BIDIR_ROWS:
@@ -1435,7 +1441,7 @@ def main() -> int:
 
     print(f"== 9. kernels bilstm_fwd, bilstm_pool_fwd, bilstm_bwd, bilstm_pool_bwd vs plain, "
           f"T={T} D={D} H={H}")
-    bidir = bidir_kernel_phase(torch, lc, bc)
+    bidir = bidir_kernel_phase(torch, bc)
 
     print(f"== 10. the fused bidirectional arm at full width: {TRAIN_SITES} sites, "
           f"batch {TRAIN_BATCH}")
@@ -1460,7 +1466,9 @@ def main() -> int:
         "ms": fwd["ms"], "kernel_ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"], "shape": {"T": T, "rows": SERVE_ROWS, "D": D, "H": H},
-        "design": "two launches: a tiled SIMT GEMM projects x W_ih + b into an f32 scratch; "
+        "design": "two launches: a tiled SIMT GEMM projects x W_ih + b into an f32 scratch "
+                  "(lstm_proj_wide_kernel's 128x128 tiles once their grid fills the card, "
+                  "lstm_proj_kernel's 64x64 below and in bf16); "
                   "the recurrence runs over a thread-block cluster whose blocks hold their "
                   "W_hh columns in shared memory and exchange h through distributed shared "
                   "memory, one cluster barrier a step (the streaming recurrence for a W_hh "
@@ -1529,8 +1537,11 @@ def main() -> int:
         })
         if "fwd" in name:
             kernels[-1].update({
-                "design": "two launches: K1's projection kernel with 8 gates writes x W_ih + b of "
-                          "both directions into an f32 scratch; the recurrence runs over "
+                "design": "two launches: a GEMM writes x W_ih + b of both directions' 8 gates "
+                          "into an f32 scratch (f32: K1's SIMT GEMM, lstm_proj_wide_kernel's "
+                          "128x128 tiles once their grid fills the card, lstm_proj_kernel's "
+                          "64x64 below; bf16: lstm_proj_mma_kernel on the tensor cores, "
+                          "lstm_proj_kernel when D is not a multiple of 8); the recurrence runs over "
                           "thread-block clusters, half of them a direction, whose blocks hold "
                           "their W_hh columns in shared memory and exchange h through distributed "
                           "shared memory, one cluster barrier a step (the first design's one "

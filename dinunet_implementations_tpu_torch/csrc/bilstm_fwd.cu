@@ -29,8 +29,10 @@
 // 1. The i2h product of both directions is one launch (lstm_fwd.cu): wih2
 //    [2, 4, D, H] read as [8, D, H], x read once, xp2 [T, B, 8H] f32 into a
 //    scratch that the wrapper allocates; direction d's gates sit at columns
-//    d*4H + k*H + j. f32: lstm_proj_wide_kernel (128x128 SIMT tiles); bf16:
-//    lstm_proj_mma_kernel on the tensor cores.
+//    d*4H + k*H + j. f32: K1's SIMT GEMM, in the tiles the shape fills
+//    (lstm_proj_wide_kernel at the training fold, lstm_proj_kernel at
+//    serving sizes); bf16: lstm_proj_mma_kernel on the tensor cores
+//    (lstm_proj_kernel when D is not a multiple of 8).
 // 2. The recurrence: the first half of the grid's clusters runs direction
 //    0, the second half direction 1. Block k of a cluster owns hidden units
 //    [j0_k, j0_{k+1}) of its direction, all four gates of them, and holds

@@ -20,13 +20,16 @@
 // waited on the latency of each thread's chain of 430 dependent loads, about
 // 25 us a step (PERF.md). Each stage below takes work off that step.
 //
-// Stage 1, lstm_proj_kernel: the i2h product depends on no step, so it
-// leaves the loop. One tiled SIMT GEMM over all T*rows rows (64x64 output
-// tiles, K staged through shared memory in chunks of 16, a 4x4 micro-tile a
-// thread, f32 accumulation) writes xp = x W_ih + b into an f32
-// scratch [T, rows, 4H] that the wrapper allocates. Writing and reading it
-// back is the design's own cost (140 MB at 512 rows). A step of the
-// recurrence then streams only W_hh: 174 loads a column instead of 430.
+// Stage 1, the projection: the i2h product depends on no step, so it
+// leaves the loop. One tiled SIMT GEMM over all T*rows rows (f32
+// accumulation) writes xp = x W_ih + b into an f32 scratch [T, rows, 4H]
+// that the wrapper allocates. Writing and reading it back is the design's
+// own cost (140 MB at 512 rows). A step of the recurrence then streams only
+// W_hh: 174 loads a column instead of 430. Two tilings of the same sums in
+// the same order (bit-identical results), chosen by shape in dn_lstm_proj:
+// lstm_proj_kernel (64x64 output tiles, a 4x4 micro-tile a thread; also the
+// bf16 instance) for grids that leave SMs idle, lstm_proj_wide_kernel
+// (128x128, 8x8 a thread) once its grid fills the card.
 //
 // Stage 2, lstm_rec_cluster_kernel: W_hh is split over a thread-block
 // cluster of C blocks (C in 2, 4, 8, the smallest whose slice fits). Block k
@@ -46,10 +49,9 @@
 // threads, the column map) is worked out in Python
 // (ops/lstm_cuda.py:k1_geometry) and checked here.
 //
-// This file also holds the projections of K3/K5 (bilstm_fwd.cu), both
-// directions' 8 gates in one launch: lstm_proj_kernel's function in wider
-// f32 tiles (lstm_proj_wide_kernel) and on the tensor cores in bf16
-// (lstm_proj_mma_kernel).
+// The projection also serves K3/K5 (bilstm_fwd.cu), both directions' 8
+// gates in one launch; their bf16 projection runs on the tensor cores
+// (lstm_proj_mma_kernel; lstm_proj_kernel when D is not a multiple of 8).
 //
 // lstm_rec_stream_kernel is stage 1's recurrence, kept for shapes whose
 // W_hh slice fits no cluster of 8 (H above about 340 in f32): each block owns
@@ -161,12 +163,13 @@ __global__ void __launch_bounds__(kProjThreads) lstm_proj_kernel(ProjArgs a) {
   }
 }
 
-// K3/K5's f32 projection: lstm_proj_kernel's function and per-output order
-// of sums (fmaf over d = 0, 1, ...: bit-identical results) in 128x128
-// output tiles, 256 threads of 8x8 outputs each, K in chunks of 8 through
-// two shared-memory stages, the next chunk's global loads held in
-// registers while the current one computes: every operand loaded from
-// shared memory feeds 8 FMAs, against 4 in lstm_proj_kernel.
+// The f32 projection of a grid that fills the card: lstm_proj_kernel's
+// function and per-output order of sums (fmaf over d = 0, 1, ...:
+// bit-identical results) in 128x128 output tiles, 256 threads of 8x8
+// outputs each, K in chunks of 8 through two shared-memory stages, the next
+// chunk's global loads held in registers while the current one computes:
+// every operand loaded from shared memory feeds 8 FMAs, against 4 in
+// lstm_proj_kernel.
 constexpr int kWM = 128, kWN = 128, kWK = 8, kWThreads = 256;
 
 // two blocks an SM: 128 registers a thread
@@ -600,8 +603,16 @@ cudaError_t launch_proj(const ProjArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-cudaError_t launch_proj_wide(const ProjArgs& a, cudaStream_t stream) {
+// f32: the 128x128 tiles once their grid fills every SM with its two
+// blocks; a smaller grid leaves SMs idle, and the 64x64 tiles spread the
+// same sums over four times the blocks.
+cudaError_t launch_proj_f32(const ProjArgs& a, cudaStream_t stream) {
+  int dev = 0;
+  const DeviceInfo* info = nullptr;
+  cudaError_t err = current_device(&dev, &info);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.G * a.H + kWN - 1) / kWN, (a.T * a.B + kWM - 1) / kWM);
+  if ((long long)grid.x * grid.y < 2LL * info->sms.load()) return launch_proj<float>(a, stream);
   if (grid.y > 65535u) return cudaErrorInvalidValue;
   lstm_proj_wide_kernel<<<grid, kWThreads, 0, stream>>>(a);
   return cudaGetLastError();
@@ -681,9 +692,9 @@ extern "C" {
 // f32. Each returns the cudaError_t of its launch (0 = launched).
 
 // Stage 1: xp [T, B, G H] = x W_ih + b, G = gates (4, or 8 for both
-// directions of K3/K5 in one launch); tile 64 (lstm_proj_kernel) or, in
-// f32, 128 (lstm_proj_wide_kernel, bit-identical).
-int dn_lstm_proj(int dtype, int gates, int tile, const void* x, long long sxt, long long sxb,
+// directions of K3/K5 in one launch); f32 in the tiles its shape fills
+// (launch_proj_f32), bf16 in lstm_proj_kernel.
+int dn_lstm_proj(int dtype, int gates, const void* x, long long sxt, long long sxb,
                  const void* wih, long long swk, long long swd,
                  const void* b, long long sbk, void* xp, int T, int B, int D, int H,
                  void* stream) {
@@ -691,9 +702,7 @@ int dn_lstm_proj(int dtype, int gates, int tile, const void* x, long long sxt, l
   ProjArgs a{x, sxt, sxb, wih, swk, swd, static_cast<const float*>(b), sbk,
              static_cast<float*>(xp), T, B, D, H, gates};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && tile == 128) return launch_proj_wide(a, s);
-  if (tile != 64) return cudaErrorInvalidValue;
-  if (dtype == 0) return launch_proj<float>(a, s);
+  if (dtype == 0) return launch_proj_f32(a, s);
   if (dtype == 1) return launch_proj<__nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
 }

@@ -28,12 +28,15 @@ Kernels (``csrc/bilstm_fwd.cu``, ``csrc/bilstm_bwd.cu``) and launch counters:
   a K3 or K5 call takes one of two routes, chosen by shape before any
   launch (:func:`bidir_geometry`): the cluster route
   (``BIDIR_CLUSTER_CALLS``) is two launches, the i2h projection of both
-  directions into an f32 scratch ``[T, B, 8H]`` (K1's projection kernel
-  with 8 gates, :func:`bilstm_proj_fused`, ``BIDIR_PROJ_LAUNCHES``) and the
-  recurrence of both directions over thread-block clusters that hold W_hh
-  in shared memory; the stream route (``BIDIR_STREAM_CALLS``), for a W_hh
-  whose slice fits no cluster of 8, is the first design's one launch with
-  the projection inside the loop;
+  directions into an f32 scratch ``[T, B, 8H]`` (:func:`bilstm_proj_fused`,
+  ``BIDIR_PROJ_LAUNCHES``; f32: K1's SIMT GEMM with 8 gates, in
+  ``lstm_proj_wide_kernel``'s or ``lstm_proj_kernel``'s tiles by shape;
+  bf16: ``lstm_proj_mma_kernel`` on the tensor cores, ``lstm_proj_kernel``
+  when D is not a multiple of 8) and the recurrence of both directions
+  over thread-block clusters that hold W_hh in shared memory; the stream
+  route (``BIDIR_STREAM_CALLS``), for a W_hh whose slice fits no cluster
+  of 8, is the first design's one launch with the projection inside the
+  loop;
 - K4 :func:`bilstm_bwd_fused` (``BIDIR_BWD_LAUNCHES``): the backward, with
   a full cotangent stream or a per-row constant at the stream dtype;
 - K6 :func:`bilstm_pool_bwd_fused` (``POOL_BWD_LAUNCHES``): the backward of
@@ -453,17 +456,16 @@ def _ptr(a):
 
 def _proj2(x, wih2, b2, sdt):
     """The projection of both directions, W_ih read as one ``[8, D, H]``:
-    ``xp2 [T, B, 8H]`` f32. f32: the projection kernel with 8 gates in its
-    128×128 tiles; bf16: the tensor-core GEMM over W_ih transposed ``[8H,
-    D]`` (the conversion to bf16 writes it so), for a D of whole 16-byte
-    chunks (K1's kernel otherwise, by shape)."""
+    ``xp2 [T, B, 8H]`` f32. f32: K1's projection kernel with 8 gates (its
+    tiles picked by shape in the C entry); bf16: the tensor-core GEMM over
+    W_ih transposed ``[8H, D]`` (the conversion to bf16 writes it so), for a
+    D of whole 16-byte chunks (K1's kernel otherwise, by shape)."""
     global BIDIR_PROJ_LAUNCHES
     T, B, D = x.shape
     H = wih2.shape[-1]
     if sdt == torch.float32 or D % 8:
         w = wih2.to(sdt).contiguous().reshape(8, D, H)
-        f32 = sdt == torch.float32
-        xp2 = _launch_proj(x, w, b2.reshape(8, H), 0 if f32 else 1, 128 if f32 else 64)
+        xp2 = _launch_proj(x, w, b2.reshape(8, H), 0 if sdt == torch.float32 else 1)
     else:
         if x.stride(0) % 8 or x.stride(1) % 8 or x.data_ptr() % 16:
             x = x.contiguous()
@@ -565,7 +567,9 @@ def bidir_phase_profile(x, wih2, b2, whh2, h02, c02, compute_dtype=None, geometr
     """One K5 (or, ``pool=False``, K3) call on the cluster route with its
     phase clock on: the mean µs a step of block 0 (direction 0) spends in
     each phase (``ops/lstm_cuda.py:K1_PHASES``) and each phase's share. For
-    measurements; counts as a call of neither kernel."""
+    measurements: it counts one projection launch (``BIDIR_PROJ_LAUNCHES``)
+    and one cluster-route call (``BIDIR_CLUSTER_CALLS``), but no K3 or K5
+    call (``BIDIR_FWD_LAUNCHES``, ``POOL_FWD_LAUNCHES``)."""
     T, B, _ = x.shape
     g = geometry or device_bidir_geometry(x.device, B, wih2.shape[-1], compute_dtype, pool)
     _check(g["route"] == "cluster", "the phase clock is the cluster route's", "bidir_phase_profile")

@@ -57,8 +57,7 @@ BWD_LAUNCHES = 0
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
-    "lstm_proj": ("lstm_fwd", [_I, _I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _I, _I,
-                               _P]),
+    "lstm_proj": ("lstm_fwd", [_I, _I, _P, _L, _L, _P, _L, _L, _P, _L, _P, _I, _I, _I, _I, _P]),
     "lstm_rec": ("lstm_fwd", [_I, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _P, _P, _P]),
     "lstm_max_active_clusters": ("lstm_fwd", [_I, _I, _I, _P, _P]),
@@ -380,17 +379,17 @@ def _operands(x, wih4, b4, whh4, compute_dtype, fn="lstm_recurrence_fused"):
     return sdt, x, wih4, whh4
 
 
-def _launch_proj(x, w, b, code: int, tile: int = 64):
+def _launch_proj(x, w, b, code: int):
     """One launch of the projection kernel: ``xp [T, B, G·H] = x W + b`` f32
     for ``w [G, D, H]``, ``b [G, H]`` (G = 4, or 8 for both directions of
     K3/K5), strided views contiguous in their last axis. ``code``: 0 f32, 1
-    bf16 (SIMT FMAs, both); ``tile``: 64 (K1's), or 128 in f32 (K3/K5's,
-    the same sums in the same order)."""
+    bf16 (SIMT FMAs, both; the C entry picks the f32 tiles by shape, the
+    same sums in the same order)."""
     T, B, D = x.shape
     G, _, H = w.shape
     xp = torch.empty((T, B, G * H), dtype=torch.float32, device=x.device)
     fn, err_str = _kernel("lstm_proj")
-    err = fn(code, G, tile, x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), w.stride(0),
+    err = fn(code, G, x.data_ptr(), x.stride(0), x.stride(1), w.data_ptr(), w.stride(0),
              w.stride(1), b.data_ptr(), b.stride(0), xp.data_ptr(), T, B, D, H,
              torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

@@ -1,0 +1,56 @@
+"""The ctypes argument lists of the port's kernel entries against the C
+signatures they bind, checked on the CPU.
+
+``ops/lstm_cuda.py`` and ``ops/bilstm_cuda.py`` declare each ``dn_*``
+entry's arguments by hand (``_ARGTYPES``). A list that disagrees with its
+``extern "C"`` signature in ``csrc/*.cu`` loads and calls without complaint
+and passes every argument after the first mismatch in the wrong place, and
+only the card would show it; here each list is read against the signature
+in the source.
+"""
+
+import ctypes
+import re
+from pathlib import Path
+
+import pytest
+
+from dinunet_implementations_tpu_torch.ops import bilstm_cuda as tb
+from dinunet_implementations_tpu_torch.ops import lstm_cuda as tl
+
+CSRC = Path(tl.__file__).resolve().parents[1] / "csrc"
+
+ENTRIES = [(lib, "dn_" + name, types) for name, (lib, types) in tl._ARGTYPES.items()]
+ENTRIES += [(lib, entry, types) for (lib, entry), types in tb._ARGTYPES.items()]
+
+
+def _c_param_types(lib: str, entry: str) -> list:
+    """The ctypes type of each parameter of ``int <entry>(...)`` in
+    ``csrc/<lib>.cu``: a pointer, ``long long`` or ``int``."""
+    src = (CSRC / f"{lib}.cu").read_text()
+    m = re.search(rf"^int {entry}\(([^)]*)\)", src, re.MULTILINE)
+    assert m, f"no C entry {entry} in csrc/{lib}.cu"
+    out = []
+    for param in m.group(1).split(","):
+        decl = " ".join(param.split()[:-1]) + ("*" if "*" in param.split()[-1] else "")
+        if "*" in decl:
+            out.append(ctypes.c_void_p)
+        elif decl.replace("const ", "") == "long long":
+            out.append(ctypes.c_longlong)
+        else:
+            assert decl.replace("const ", "") == "int", f"{entry}: unexpected parameter {param!r}"
+            out.append(ctypes.c_int)
+    return out
+
+
+@pytest.mark.parametrize("lib,entry,types", ENTRIES, ids=[e for _, e, _ in ENTRIES])
+def test_argtypes_match_the_c_signature(lib, entry, types):
+    assert types == _c_param_types(lib, entry)
+
+
+def test_every_entry_of_the_lstm_sources_is_bound():
+    """Each ``int dn_*`` entry of the recurrence sources has its list."""
+    bound = {(lib, entry) for lib, entry, _ in ENTRIES}
+    for lib in ("lstm_fwd", "lstm_bwd", "bilstm_fwd", "bilstm_bwd"):
+        for entry in re.findall(r"^int (dn_\w+)\(", (CSRC / f"{lib}.cu").read_text(), re.MULTILINE):
+            assert (lib, entry) in bound, f"{entry} of csrc/{lib}.cu has no ctypes list"
