@@ -355,6 +355,13 @@ def coverage_phase(torch, lc) -> None:
 
 
 BWD_OUTPUTS = ("dp_i", "dp_f", "dp_o", "dp_g", "dh0", "dc0")
+BWD_DESIGN = ("a cluster BPTT (csrc/lstm_bwd_cluster.cuh): each block of a thread-block cluster "
+              "holds the rows of W_hh^T of its own hidden units in shared memory for the whole "
+              "sequence, computes their dp, and multiplies them by its slice into a partial "
+              "dh of all H columns; after one cluster barrier a step, each block adds its own "
+              "units' slice of every rank's partials through distributed shared memory "
+              "(a reduce-scatter). f32 on a SIMT register tile, bf16 on mma.sync; the first "
+              "design's stream route for a W_hh^T that fits no cluster of 8")
 
 
 def bwd_bound(rows: int, bf16: bool) -> tuple[float, str]:
@@ -369,10 +376,10 @@ def bwd_bound(rows: int, bf16: bool) -> tuple[float, str]:
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def bwd_args(torch, lc, rows: int, cdt, g):
-    """Inputs of one direction's backward at rows ``rows``: the residual
-    streams of the plain forward, random cotangents."""
-    x, wih4, b4, whh4, h0, c0 = recurrence_args(torch, rows, g)
+def bwd_args(torch, lc, rows: int, cdt, g, h: int = H):
+    """Inputs of one direction's backward at rows ``rows`` (width ``h``):
+    the residual streams of the plain forward, random cotangents."""
+    x, wih4, b4, whh4, h0, c0 = recurrence_args(torch, rows, g, h)
     _, cs, i, f, o, gg, _, _ = lc.lstm_recurrence_plain(x, wih4, b4, whh4, h0, c0, cdt,
                                                        residuals=True)
     sdt = torch.bfloat16 if cdt is not None else torch.float32
@@ -380,7 +387,7 @@ def bwd_args(torch, lc, rows: int, cdt, g):
     def cot(*shape):
         return (0.05 * torch.randn(shape, generator=g)).cuda()
 
-    return i, f, o, gg, cs, whh4, c0, cot(T, rows, H).to(sdt), cot(rows, H), cot(rows, H)
+    return i, f, o, gg, cs, whh4, c0, cot(T, rows, h).to(sdt), cot(rows, h), cot(rows, h)
 
 
 def split_bwd(out):
@@ -388,39 +395,128 @@ def split_bwd(out):
     return [dp[..., k * H:(k + 1) * H] for k in range(4)] + [dh0, dc0]
 
 
+def bwd_geometry_line(mod, rows: int, h: int, cdt, geometry=None) -> dict:
+    """K2's (``mod`` lstm_cuda) or K6's (``mod`` bilstm_cuda) launcher
+    geometry for ``rows`` rows of width ``h`` on this card, with
+    cudaOccupancyMaxActiveClusters of its configuration."""
+    if hasattr(mod, "device_bidir_bwd_geometry"):
+        g = dict(geometry or mod.device_bidir_bwd_geometry("cuda", rows, h, cdt))
+        g["max_active_clusters"] = mod.bidir_bwd_max_active_clusters("cuda", rows, h, cdt, g)
+    else:
+        g = dict(geometry or mod.device_bwd_geometry("cuda", rows, h, cdt))
+        g["max_active_clusters"] = mod.bwd_max_active_clusters("cuda", rows, h, cdt, g)
+    return g
+
+
 def bwd_phase(torch, lc) -> list[dict]:
+    """K2 at the main path's shapes: every output against the plain version
+    on the cluster route the launcher picks and on the stream route (the
+    first design); times of both, of the plain version and of cuDNN's
+    backward beside the bound, the geometry and the phase clock. Then,
+    untimed, every geometry the cluster route can take and the stream
+    route's rows-a-block templates (:func:`bwd_coverage_phase`)."""
     g = torch.Generator().manual_seed(5)
+    sms = lc.device_limits("cuda")[0]
     out = []
     for rows in BWD_ROWS:
+        stream = lc.bwd_stream_geometry(rows, H, sms)
         for cdt in (None, torch.bfloat16):
+            tol = F32_TOL if cdt is None else BF16_TOL
             args = bwd_args(torch, lc, rows, cdt, g)
+            geo = bwd_geometry_line(lc, rows, H, cdt)
+            want = split_bwd(lc.lstm_bwd_plain(*args, cdt))
             got = lc.lstm_bwd_fused(*args, cdt)
             torch.cuda.synchronize()
-            want = lc.lstm_bwd_plain(*args, cdt)
-            err = compare(f"lstm_bwd rows={rows} {cdt}", split_bwd(got), split_bwd(want),
-                          BWD_OUTPUTS, F32_TOL if cdt is None else BF16_TOL)
+            err = compare(f"lstm_bwd rows={rows} {cdt} {geo['route']}", split_bwd(got), want,
+                          BWD_OUTPUTS, tol)
+            got = lc.lstm_bwd_fused(*args, cdt, geometry=stream)
+            torch.cuda.synchronize()
+            stream_err = compare(f"lstm_bwd rows={rows} {cdt} stream", split_bwd(got), want,
+                                 BWD_OUTPUTS, tol)
+            del got
             ms = time_ms(lambda: lc.lstm_bwd_fused(*args, cdt), 30)
             plain_ms = time_ms(lambda: lc.lstm_bwd_plain(*args, cdt), 10)
             library = library_lstm_bwd_ms(torch, rows, g, cdt)
             b_ms, b_by = bwd_bound(rows, cdt is not None)
             rec = {"kernel": "lstm_bwd", "rows": rows, "dtype": "bf16" if cdt else "f32",
-                   "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                   **library, "library": "cuDNN LSTM backward, also dx and dW",
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "max_abs_err": err, "ms": ms, "route": geo["route"],
+                   "stream_ms": time_ms(lambda: lc.lstm_bwd_fused(*args, cdt, geometry=stream), 30),
+                   "stream_max_abs_err": stream_err,
+                   "step_phases": lc.bwd_phase_profile(*args, cdt)
+                   if geo["route"] == "cluster" else None,
+                   "plain_ms": plain_ms, **library, "library": "cuDNN LSTM backward, also dx and dW",
+                   "bound_ms": b_ms, "bound_by": b_by, "geometry": geo, "stream_geometry": stream}
             print(json.dumps(rec))
             out.append(rec)
-    # untimed: every rows-per-block template the launcher can pick (the same
-    # choice as the forward's), each with a ragged last block
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for rows in (2 * sms - 1, 4 * sms - 1, 4 * sms + 7):
-        for cdt in (None, torch.bfloat16):
-            args = bwd_args(torch, lc, rows, cdt, g)
-            err = compare(f"lstm_bwd rows={rows} {cdt}", split_bwd(lc.lstm_bwd_fused(*args, cdt)),
-                          split_bwd(lc.lstm_bwd_plain(*args, cdt)), BWD_OUTPUTS,
-                          F32_TOL if cdt is None else BF16_TOL)
-            print(json.dumps({"check": "lstm_bwd rows per block", "rows": rows, "sms": sms,
-                              "dtype": "bf16" if cdt else "f32", "max_abs_err": err}))
+    bwd_coverage_phase(torch, lc, g)
     return out
+
+
+# The cluster BPTT's geometries checked untimed, K2 and K6 alike: (H, dtype,
+# cluster size, rows a cluster). f32 (the SIMT kernel): 1, 2, 4 and 8 rows a
+# thread (R 1, 2, 18, 8), several row groups (3, 13, 18, 35), clusters of 2, 4, 8,
+# ragged slices (174 = 44 + 44 + 43 + 43) and an odd H (the padded column);
+# bf16 (the tensor cores): 1, 2, 3 m-tiles, clusters of 2, 4, 8, an odd H.
+BWD_COVERAGE = [(H, None, 4, 1), (H, None, 4, 2), (H, None, 4, 3), (H, None, 4, 8),
+                (H, None, 4, 13), (H, None, 4, 18), (H, None, 4, 35), (128, None, 2, 5),
+                (256, None, 8, 7), (175, None, 4, 6), (H, "bf16", 2, 1), (H, "bf16", 2, 20), (H, "bf16", 4, 40),
+                (256, "bf16", 8, 10), (175, "bf16", 2, 17)]
+
+
+def bwd_coverage_phase(torch, mod, g) -> None:
+    """Untimed: K2 (``mod`` lstm_cuda) or K6 (bilstm_cuda) on every geometry
+    of :data:`BWD_COVERAGE`, three clusters a direction with a ragged last
+    one, every output against the plain version; then the stream route at
+    H = 400, whose W_hhᵀ slice fits no cluster of 8 in f32, at each of its
+    rows a block (1, 2, 4, 8) as the launcher picks it, and in bf16 by
+    request (bf16's slice fits a cluster of 8)."""
+    from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+
+    k6 = hasattr(mod, "device_bidir_bwd_geometry")
+    dirs = 2 if k6 else 1
+    sms, optin = lc.device_limits("cuda")
+    bf = torch.bfloat16
+    name = "bilstm_pool_bwd" if k6 else "lstm_bwd"
+    fused = mod.bilstm_pool_bwd_fused if k6 else mod.lstm_bwd_fused
+
+    def check(rows, h, cdt, geometry, what):
+        args = (pool_bwd_args(torch, mod, rows, cdt, g, h) if k6
+                else bwd_args(torch, mod, rows, cdt, g, h))
+        want = mod.bilstm_bwd_plain(*pool_plain_args(args), cdt) if k6 else \
+            mod.lstm_bwd_plain(*args, cdt)
+        got = fused(*args, cdt, geometry=geometry)
+        split = (lambda o: o) if k6 else split_bwd
+        names = BIDIR_BWD_OUTPUTS if k6 else BWD_OUTPUTS
+        err = compare(f"{name} {what} rows={rows} H={h} {cdt}", split(got), split(want), names,
+                      F32_TOL if cdt is None else BF16_TOL)
+        print(json.dumps({"check": f"{name} {what}", "rows": rows, "H": h,
+                          "dtype": "bf16" if cdt else "f32", "max_abs_err": err,
+                          "geometry": geometry}))
+
+    seen = set()
+    for h, dt, C, R in BWD_COVERAGE:
+        cdt = bf if dt else None
+        rows = 3 * R - (1 if R > 1 else 0)
+        geo = lc.bwd_cluster_geometry(rows, h, C, R, cdt, optin, dirs=dirs)
+        if geo is None:
+            fail(f"{name} coverage: no cluster geometry for H={h} {dt} C={C} R={R}")
+        seen |= {(dt, "C", C), (dt, "rows a thread", geo["rpt"]), (dt, "tiles", geo["row_groups"])}
+        check(rows, h, cdt, geo, "cluster geometry")
+    for R in (1, 2, 4, 8):
+        rows = R * (sms // dirs) - 1
+        geo = bwd_geometry_line(mod, rows, STREAM_H, None)
+        if geo["route"] != "stream" or geo["R"] != R:
+            fail(f"{name} geometry for rows={rows} H={STREAM_H}: {geo}, expected the stream "
+                 f"route at R={R}")
+        seen.add(("stream", R))
+        check(rows, STREAM_H, None, None, "stream route")
+    check(2 * (sms // dirs) - 1, STREAM_H, bf, lc.bwd_stream_geometry(
+        2 * (sms // dirs) - 1, STREAM_H, sms, dirs), "stream route by request")
+    need = ({(None, "C", C) for C in (2, 4, 8)} | {(None, "rows a thread", r) for r in (1, 2, 4, 8)}
+            | {("bf16", "C", C) for C in (2, 4, 8)} | {("bf16", "tiles", n) for n in (1, 2, 3)}
+            | {("stream", r) for r in (1, 2, 4, 8)} | {(None, "tiles", 5)})
+    if not need <= seen:
+        fail(f"{name} coverage misses {sorted(map(str, need - seen))}")
 
 
 def cudnn_lstm(torch, wih, b, whh, cdt=None):
@@ -668,26 +764,31 @@ def zero_counters(lc, pc, bc) -> None:
 
     lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0
     lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+    lc.BWD_CLUSTER_CALLS = lc.BWD_STREAM_CALLS = 0
     lowrank.POWERITER_PLAIN_CLASSES = 0
     bc.BIDIR_FWD_LAUNCHES = bc.BIDIR_BWD_LAUNCHES = 0
     bc.POOL_FWD_LAUNCHES = bc.POOL_BWD_LAUNCHES = 0
     bc.BIDIR_PROJ_LAUNCHES = bc.BIDIR_CLUSTER_CALLS = bc.BIDIR_STREAM_CALLS = 0
+    bc.BIDIR_BWD_CLUSTER_CALLS = bc.BIDIR_BWD_STREAM_CALLS = 0
 
 
 def read_counters(lc, pc, bc) -> dict:
     """Kernel launches, and the static routes: K1's and K3/K5's recurrences
-    over a cluster or streamed, rank classes sent to the plain power
-    iteration."""
+    and K2's and K6's BPTT over a cluster or streamed, rank classes sent to
+    the plain power iteration."""
     from dinunet_implementations_tpu_torch.engines import lowrank
 
     return {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
             "k1_cluster_route": lc.K1_CLUSTER_CALLS, "k1_stream_route": lc.K1_STREAM_CALLS,
-            "lstm_bwd": lc.BWD_LAUNCHES, "poweriter": pc.POWERITER_LAUNCHES,
+            "lstm_bwd": lc.BWD_LAUNCHES, "k2_cluster_route": lc.BWD_CLUSTER_CALLS,
+            "k2_stream_route": lc.BWD_STREAM_CALLS, "poweriter": pc.POWERITER_LAUNCHES,
             "poweriter_plain_classes": lowrank.POWERITER_PLAIN_CLASSES,
             "bilstm_fwd": bc.BIDIR_FWD_LAUNCHES, "bilstm_bwd": bc.BIDIR_BWD_LAUNCHES,
             "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES,
             "bilstm_proj": bc.BIDIR_PROJ_LAUNCHES, "bidir_cluster_route": bc.BIDIR_CLUSTER_CALLS,
-            "bidir_stream_route": bc.BIDIR_STREAM_CALLS}
+            "bidir_stream_route": bc.BIDIR_STREAM_CALLS,
+            "k6_cluster_route": bc.BIDIR_BWD_CLUSTER_CALLS,
+            "k6_stream_route": bc.BIDIR_BWD_STREAM_CALLS}
 
 
 def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: bool = False) -> dict:
@@ -763,12 +864,13 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
     }
     print(f"training {engine}{' fused_bidir' if fused_bidir else ''}:", json.dumps(rec))
     want = dict.fromkeys(launches, 0)
-    if fused_bidir:  # one K5 (on the cluster route) and one K6 per micro-batch
+    if fused_bidir:  # one K5 and one K6 per micro-batch, both on the cluster route
         n = sum(rounds) * L
-        want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n)
-    else:  # one K1 (on the cluster route) and one K2 per direction and micro-batch
+        want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n,
+                    k6_cluster_route=n)
+    else:  # one K1 and one K2 per direction and micro-batch, both on the cluster route
         n = 2 * sum(rounds) * L
-        want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n)
+        want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n, k2_cluster_route=n)
     want["poweriter"] = classes * sum(rounds)
     if launches != want:
         fail(f"training {engine} launches {launches}, want {want}")
@@ -1039,14 +1141,28 @@ def bidir_bwd_args(torch, bc, args, cdt, g, const: bool):
     constants at the stream dtype."""
     hs2, cs2, i2, f2, o2, g2, _, _ = bc.bilstm_fwd_plain(*args, cdt)
     sdt = hs2.dtype
-    rows = hs2.shape[2]
+    rows, h = hs2.shape[2:]
 
     def cot(*shape):
         return (0.05 * torch.randn(shape, generator=g)).cuda()
 
     n = 1 if const else T
-    return (i2, f2, o2, g2, cs2, args[3], args[5], cot(n, rows, H).to(sdt), cot(n, rows, H).to(sdt),
-            cot(2, rows, H), cot(2, rows, H))
+    return (i2, f2, o2, g2, cs2, args[3], args[5], cot(n, rows, h).to(sdt), cot(n, rows, h).to(sdt),
+            cot(2, rows, h), cot(2, rows, h))
+
+
+def pool_bwd_args(torch, bc, rows: int, cdt, g, h: int = H):
+    """K6's inputs at rows ``rows`` (width ``h``): K4's with per-row
+    constant cotangents, those as the f32 ``[rows, h]`` ``dpool / T``."""
+    pb = list(bidir_bwd_args(torch, bc, bidir_args(torch, rows, g, h), cdt, g, const=True))
+    pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
+    return tuple(pb)
+
+
+def pool_plain_args(pb):
+    """K6's inputs as ``bilstm_bwd_plain`` takes them: the constants ``[1,
+    rows, h]``."""
+    return (*pb[:7], pb[7][None], pb[8][None], *pb[9:])
 
 
 def library_bilstm(torch, args, cdt, plain_hs2, backward: bool, g) -> dict:
@@ -1084,11 +1200,15 @@ def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -
 def bidir_kernel_phase(torch, bc) -> list[dict]:
     """K3 and K5 at rows 1, 16 and 512, K4 (full cotangent streams) and K6
     at rows 16 and 512, f32 and bf16, against their plain versions, timed
-    beside the plain version, the bound and cuDNN; K3/K5 on the route the
-    launcher picks and on the stream route (the first design), with the
-    projection alone and the phase clock. Then, untimed, every geometry
-    K3/K5's launcher can pick (:func:`bidir_coverage_phase`), K4/K6's rows a
-    block templates and K4's per-row constant."""
+    beside the plain version, the bound and cuDNN; K3/K5 and K6 on the
+    route the launcher picks and on the stream route (the first design),
+    with the geometry and the phase clock (K3/K5 also the projection
+    alone). Then, untimed, every geometry K3/K5's launcher can pick
+    (:func:`bidir_coverage_phase`), every geometry of K6's cluster route and
+    its stream route's templates (:func:`bwd_coverage_phase`), K4's rows a
+    block templates and its per-row constant."""
+    from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+
     g = torch.Generator().manual_seed(7)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = []
@@ -1153,18 +1273,34 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
 
             pb = list(bidir_bwd_args(torch, bc, args, cdt, g, const=True))
             pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
+            geo = bwd_geometry_line(bc, rows, H, cdt)
+            stream = lc.bwd_stream_geometry(rows, H, sms, dirs=2)
+            want = bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt)
             got = bc.bilstm_pool_bwd_fused(*pb, cdt)
             torch.cuda.synchronize()
-            want = bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt)
-            err = compare(f"bilstm_pool_bwd rows={rows} {cdt}", got, want, BIDIR_BWD_OUTPUTS, tol)
+            err = compare(f"bilstm_pool_bwd rows={rows} {cdt} {geo['route']}", got, want,
+                          BIDIR_BWD_OUTPUTS, tol)
+            got = bc.bilstm_pool_bwd_fused(*pb, cdt, geometry=stream)
+            torch.cuda.synchronize()
+            stream_err = compare(f"bilstm_pool_bwd rows={rows} {cdt} stream", got, want,
+                                 BIDIR_BWD_OUTPUTS, tol)
+            del got, want
             record("bilstm_pool_bwd", rows, cdt, err, lambda: bc.bilstm_pool_bwd_fused(*pb, cdt),
-                   lambda: bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt),
-                   5, bwd_lib)
+                   lambda: bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt), 5, bwd_lib,
+                   route=geo["route"],
+                   stream_ms=time_ms(lambda: bc.bilstm_pool_bwd_fused(*pb, cdt, geometry=stream),
+                                     30),
+                   stream_max_abs_err=stream_err,
+                   step_phases=bc.bidir_bwd_phase_profile(*pb, cdt)
+                   if geo["route"] == "cluster" else None,
+                   geometry=geo, stream_geometry=stream)
 
     bidir_coverage_phase(torch, bc, g)
-    # untimed: K4/K6 take the fewest rows a block that keep both directions'
+    bwd_coverage_phase(torch, bc, g)
+    # untimed: K4 takes the fewest rows a block that keep both directions'
     # blocks within the SMs (rows / R <= SMs / 2): 16 and 512 above take 1
-    # and 8; these take 2 and 4 (K3/K5 run here on their launcher's route)
+    # and 8; these take 2 and 4 (K3/K5 and K6 run here on their launcher's
+    # route)
     half = sms // 2
     for rows in (2 * half - 1, 4 * half - 1):
         for cdt in (None, torch.bfloat16):
@@ -1186,8 +1322,7 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
             pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
             errs["bilstm_pool_bwd"] = compare(
                 f"bilstm_pool_bwd rows={rows} {cdt}", bc.bilstm_pool_bwd_fused(*pb, cdt),
-                bc.bilstm_bwd_plain(*pb[:7], pb[7][None], pb[8][None], *pb[9:], cdt),
-                BIDIR_BWD_OUTPUTS, tol)
+                bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt), BIDIR_BWD_OUTPUTS, tol)
             print(json.dumps({"check": "bidir rows per block", "rows": rows, "sms": 2 * half,
                               "dtype": "bf16" if cdt else "f32", "max_abs_err": errs}))
     # K4's per-row constant at the timed shapes (the one-model gradient's form)
@@ -1276,7 +1411,7 @@ def fused_bf16_epoch(torch, np, lc, pc, bc) -> dict:
     """The bf16 fused arm (the compute dtype of the JAX bench's arm): one
     dSGD epoch timed cold (the first bf16 epoch of the run), then the next
     one timed warm; finite losses and params, one K5 and one K6 per
-    micro-batch."""
+    micro-batch, both on the cluster route."""
     cfg, epoch, st = training_setup(torch, use_kernel=True, fused_bidir=True, bf16=True)
     inv, plans = training_data(np, cfg)
     inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
@@ -1299,7 +1434,8 @@ def fused_bf16_epoch(torch, np, lc, pc, bc) -> dict:
     print("training dSGD fused_bidir bf16:", json.dumps(rec))
     want = dict.fromkeys(launches, 0)
     n = sum(rounds) * cfg.local_iterations
-    want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n)
+    want.update(bilstm_pool_fwd=n, bilstm_proj=n, bidir_cluster_route=n, bilstm_pool_bwd=n,
+                k6_cluster_route=n)
     if launches != want:
         fail(f"bf16 fused epoch launches {launches}, want {want}")
     if losses.shape != (sum(rounds),) or not bool(losses.isfinite().all()):
@@ -1483,7 +1619,9 @@ def main() -> int:
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"], "kernel_ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"], "library": bwd["library"],
-        "shape": {"T": T, "rows": TRAIN_SITES * TRAIN_BATCH, "H": H}, "shapes": bwd_shapes,
+        "shape": {"T": T, "rows": TRAIN_SITES * TRAIN_BATCH, "H": H},
+        "design": BWD_DESIGN + " (one direction)", "geometry": bwd["geometry"],
+        "stream_ms": bwd["stream_ms"], "shapes": bwd_shapes,
     }, {
         "name": "poweriter", "route": "cuda",
         "source": "dinunet_implementations_tpu_torch/csrc/poweriter.cu",
@@ -1548,6 +1686,11 @@ def main() -> int:
                           "launch for a W_hh that fits no cluster of 8)",
                 "geometry": main_shape["geometry"], "proj_ms": main_shape["proj_ms"],
                 "stream_ms": main_shape["stream_ms"], "scratch_ms": main_shape["scratch_ms"]})
+        elif name == "bilstm_pool_bwd":
+            kernels[-1].update({
+                "design": BWD_DESIGN + " (half of the clusters a direction, each on its own time "
+                          "map; dpool / T an f32 per-row constant)",
+                "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
     print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -47,6 +47,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "lstm_bwd_cluster.cuh"
 
 namespace {
 
@@ -239,19 +240,43 @@ int dn_bilstm_bwd(int dtype, const void* ai, const void* af, const void* ao, con
 }
 
 // K6: dpoolf, dpoolr [B, H] f32 contiguous, the pool cotangent already
-// divided by T, taken as a per-row constant at every step.
+// divided by T, taken as a per-row constant at every step. geom: the route
+// and its geometry (kGeomLen ints, ops/bilstm_cuda.py:bidir_bwd_geometry):
+// [0] 1 the cluster route (lstm_bwd_cluster.cuh, half of the clusters a
+// direction), 0 the stream route (bilstm_bwd_kernel above). prof: null, or
+// the cluster route's phase clock [5 T + 2] (int64, direction 0's block 0).
 int dn_bilstm_pool_bwd(int dtype, const void* ai, const void* af, const void* ao,
                        const void* ag, const void* cs, const void* wT, const void* c0,
                        const void* dpoolf, const void* dpoolr, const void* dhT,
                        const void* dcT, void* dp, void* dh0, void* dc0, int T, int B, int H,
-                       void* stream) {
-  if (T < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
+                       const int* geom, void* prof, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || !geom) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (geom[0] == 1) {
+    const long long hh = (long long)H * H;
+    BwdArgs b{ai, af, ao, ag, cs, wT, hh, H, static_cast<const float*>(c0), {dpoolf, dpoolr},
+              {0, 0}, {H, H}, static_cast<const float*>(dhT), static_cast<const float*>(dcT),
+              dp, static_cast<float*>(dh0), static_cast<float*>(dc0), T, B, H, 2,
+              static_cast<long long*>(prof)};
+    return bwd_cluster_run<float>(dtype, b, geom, s, nullptr);
+  }
+  if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
   const Args a = make_args(ai, af, ao, ag, cs, wT, c0, dpoolf, 0, H, dpoolr, 0, H,
                            dhT, dcT, dp, dh0, dc0, T, B, H);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_rows<float, float>(a, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16, float>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// cudaOccupancyMaxActiveClusters of K6's cluster route at `geom` for B rows
+// into *out (clusters of both directions together).
+int dn_bilstm_bwd_max_active_clusters(int dtype, int B, int H, const int* geom, int* out) {
+  if (B < 1 || H < 1 || !geom || !out) return cudaErrorInvalidValue;
+  BwdArgs a{};
+  a.B = B;
+  a.H = H;
+  a.dirs = 2;
+  return bwd_cluster_run<float>(dtype, a, geom, nullptr, out);
 }
 
 const char* dn_error_string(int err) {

@@ -41,6 +41,7 @@
 #include <atomic>
 
 #include "common.cuh"
+#include "lstm_bwd_cluster.cuh"
 
 namespace {
 
@@ -196,20 +197,43 @@ cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // dtype 0: f32 streams and W_hh^T; 1: bf16. c0, dhT, dcT, dh0, dc0 are f32.
+// geom: the route and its geometry (kGeomLen ints, ops/lstm_cuda.py:
+// bwd_geometry): [0] 1 the cluster route (lstm_bwd_cluster.cuh), 0 the
+// stream route (lstm_bwd_kernel above, which picks its own rows a block).
+// prof: null, or the cluster route's phase clock [5 T + 2] (int64).
 // Returns the cudaError_t of the launch (0 = launched).
 int dn_lstm_bwd(int dtype, const void* ai, const void* af, const void* ao, const void* ag,
                 const void* cs, const void* wT, long long swk, long long swm,
                 const void* c0, const void* dhs, long long sdt, long long sdb,
                 const void* dhT, const void* dcT, void* dp, void* dh0, void* dc0,
-                int T, int B, int H, void* stream) {
-  if (T < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
+                int T, int B, int H, const int* geom, void* prof, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || !geom) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (geom[0] == 1) {
+    BwdArgs b{ai, af, ao, ag, cs, wT, swk, swm, static_cast<const float*>(c0), {dhs, nullptr},
+              {sdt, 0}, {sdb, 0}, static_cast<const float*>(dhT), static_cast<const float*>(dcT),
+              dp, static_cast<float*>(dh0), static_cast<float*>(dc0), T, B, H, 1,
+              static_cast<long long*>(prof)};
+    return bwd_cluster_run<__nv_bfloat16>(dtype, b, geom, s, nullptr);
+  }
+  if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
   Args a{ai, af, ao, ag, cs, wT, swk, swm, static_cast<const float*>(c0),
          dhs, sdt, sdb, static_cast<const float*>(dhT), static_cast<const float*>(dcT),
          dp, static_cast<float*>(dh0), static_cast<float*>(dc0), T, B, H};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_rows<float>(a, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16>(a, s);
   return cudaErrorInvalidValue;
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster route at `geom` for B rows
+// into *out.
+int dn_lstm_bwd_max_active_clusters(int dtype, int B, int H, const int* geom, int* out) {
+  if (B < 1 || H < 1 || !geom || !out) return cudaErrorInvalidValue;
+  BwdArgs a{};
+  a.B = B;
+  a.H = H;
+  a.dirs = 1;
+  return bwd_cluster_run<__nv_bfloat16>(dtype, a, geom, nullptr, out);
 }
 
 const char* dn_error_string(int err) {

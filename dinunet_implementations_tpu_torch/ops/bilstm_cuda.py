@@ -40,7 +40,12 @@ Kernels (``csrc/bilstm_fwd.cu``, ``csrc/bilstm_bwd.cu``) and launch counters:
 - K4 :func:`bilstm_bwd_fused` (``BIDIR_BWD_LAUNCHES``): the backward, with
   a full cotangent stream or a per-row constant at the stream dtype;
 - K6 :func:`bilstm_pool_bwd_fused` (``POOL_BWD_LAUNCHES``): the backward of
-  the pool, its cotangent ``dpool / T`` a per-row f32 constant.
+  the pool, its cotangent ``dpool / T`` a per-row f32 constant; a call takes
+  one of two routes, chosen by shape before any launch
+  (:func:`bidir_bwd_geometry`): K2's cluster BPTT with half of the clusters
+  a direction (``BIDIR_BWD_CLUSTER_CALLS``, ``csrc/lstm_bwd_cluster.cuh``),
+  or the first design for a W_hhᵀ whose slice fits no cluster of 8
+  (``BIDIR_BWD_STREAM_CALLS``).
 
 Each launches for CUDA tensors and raises on anything it does not take;
 for CPU tensors, and only for them, it runs :func:`bilstm_fwd_plain` or
@@ -78,6 +83,8 @@ from .lstm_cuda import (
     _launch_proj_mma,
     _site_weight,
     _stream_dtype,
+    BWD_PHASES,
+    bwd_geometry,
     cluster_occupancy,
     device_limits,
     k1_column_map,
@@ -98,6 +105,9 @@ BIDIR_CLUSTER_CALLS = 0
 BIDIR_STREAM_CALLS = 0
 #: launches of the projection kernel for both directions (8 gates)
 BIDIR_PROJ_LAUNCHES = 0
+#: K6 launches on the cluster route / the stream route
+BIDIR_BWD_CLUSTER_CALLS = 0
+BIDIR_BWD_STREAM_CALLS = 0
 
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -110,7 +120,8 @@ _ARGTYPES = {
     ("bilstm_fwd", "dn_bilstm_max_active_clusters"): [_I, _I, _I, _I, _P, _P],
     ("bilstm_bwd", "dn_bilstm_bwd"): [_I] + [_P] * 7 + [_P, _L, _L, _P, _L, _L]
     + [_P] * 5 + [_I, _I, _I, _P],
-    ("bilstm_bwd", "dn_bilstm_pool_bwd"): [_I] + [_P] * 14 + [_I, _I, _I, _P],
+    ("bilstm_bwd", "dn_bilstm_pool_bwd"): [_I] + [_P] * 14 + [_I, _I, _I, _P, _P, _P],
+    ("bilstm_bwd", "dn_bilstm_bwd_max_active_clusters"): [_I, _I, _I, _P, _P],
 }
 
 
@@ -283,6 +294,47 @@ def bidir_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
         return cluster_occupancy(_kernel("bilstm_fwd", "dn_bilstm_max_active_clusters"),
                                  ("bidir", dev, code, g["pool"], rows, H, tuple(geom)),
                                  code, int(g["pool"]), rows, H, geom)
+
+
+def bidir_bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132,
+                       smem_optin: int = SMEM_OPTIN, cluster_slots: dict | None = None,
+                       design: str | None = None) -> dict:
+    """The launch geometry of K6: ``ops/lstm_cuda.py:bwd_geometry`` for two
+    directions, whose clusters share the card's slots, half each; the stream
+    route (the first design) for a W_hhᵀ whose slice fits no cluster of 8."""
+    return bwd_geometry(rows, H, dtype, sms, smem_optin, cluster_slots, 2, design)
+
+
+def device_bidir_bwd_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
+    """:func:`bidir_bwd_geometry` on ``device``'s SM count and shared memory,
+    with the clusters the card runs at once from
+    ``cudaOccupancyMaxActiveClusters`` of K6's cluster kernel
+    (``ops/lstm_cuda.py:settle_geometry``). Worked out once per device and
+    shape."""
+    dev = torch.device(device)
+    key = ("bwd", dev, rows, H, compute_dtype == torch.bfloat16)
+    if key not in _geometries:
+        sms, optin = device_limits(dev)
+        _geometries[key] = settle_geometry(
+            lambda slots: bidir_bwd_geometry(rows, H, compute_dtype, sms, optin, slots),
+            lambda g: bidir_bwd_max_active_clusters(dev, rows, H, compute_dtype, g))
+    return _geometries[key]
+
+
+def bidir_bwd_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
+                                  geometry: dict | None = None) -> int | None:
+    """``cudaOccupancyMaxActiveClusters`` of K6's cluster route at this
+    geometry (clusters of both directions together), asked once per device
+    and configuration; None on the stream route."""
+    g = geometry or device_bidir_bwd_geometry(device, rows, H, compute_dtype)
+    if g["route"] != "cluster":
+        return None
+    dev = torch.device(device)
+    code = 0 if compute_dtype is None else 1
+    geom = _geom_ints(g)
+    with torch.cuda.device(dev):
+        return cluster_occupancy(_kernel("bilstm_bwd", "dn_bilstm_bwd_max_active_clusters"),
+                                 ("k6", dev, code, rows, H, tuple(geom)), code, rows, H, geom)
 
 
 # ---------------------------------------------------------------------------
@@ -642,30 +694,58 @@ def bilstm_bwd_fused(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
 
 
 def bilstm_pool_bwd_fused(ai2, af2, ao2, ag2, cs2, whh2, c02, dpoolf, dpoolr, dhT2, dcT2,
-                          compute_dtype=None):
+                          compute_dtype=None, geometry=None):
     """K6: the backward of the time-mean pool, both directions in one
     launch. ``dpoolf, dpoolr [B, H]`` f32 are the pool's cotangent already
     divided by T, a per-row constant at every step (kept in f32 at any
-    stream dtype). Returns as :func:`bilstm_bwd_plain`."""
+    stream dtype). Returns as :func:`bilstm_bwd_plain`. The route is
+    :func:`device_bidir_bwd_geometry`'s, or ``geometry``'s (a
+    :func:`bidir_bwd_geometry` result, for measurements); a launch the card
+    refuses raises, nothing falls back."""
     streams = (ai2, af2, ao2, ag2, cs2)
     if cs2.device.type == "cpu":
         return bilstm_bwd_plain(*streams, whh2, c02, dpoolf[None], dpoolr[None], dhT2, dcT2,
                                 compute_dtype)
-    sdt, T, B, H, wT = _bwd_checks("bilstm_pool_bwd_fused", streams, whh2, c02, dhT2, dcT2,
-                                   compute_dtype)
+    return _k6(streams, whh2, c02, dpoolf, dpoolr, dhT2, dcT2, compute_dtype, geometry)
+
+
+def _k6(streams, whh2, c02, dpoolf, dpoolr, dhT2, dcT2, compute_dtype, geometry, prof=None):
+    global POOL_BWD_LAUNCHES, BIDIR_BWD_CLUSTER_CALLS, BIDIR_BWD_STREAM_CALLS
+    fn = "bilstm_pool_bwd_fused"
+    sdt, T, B, H, wT = _bwd_checks(fn, streams, whh2, c02, dhT2, dcT2, compute_dtype)
     _check(all(tuple(d.shape) == (B, H) and d.dtype == torch.float32 and d.is_contiguous()
-               and d.device == cs2.device for d in (dpoolf, dpoolr)),
-           f"dpoolf and dpoolr must be contiguous [{B}, {H}] float32", "bilstm_pool_bwd_fused")
-    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, cs2.device)
-    with torch.cuda.device(cs2.device):
+               and d.device == streams[4].device for d in (dpoolf, dpoolr)),
+           f"dpoolf and dpoolr must be contiguous [{B}, {H}] float32", fn)
+    g = geometry or device_bidir_bwd_geometry(streams[4].device, B, H, compute_dtype)
+    _check(g.get("dirs") == 2, "the geometry is K2's (one direction)", fn)
+    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, streams[4].device)
+    with torch.cuda.device(streams[4].device):
         _launch("bilstm_bwd", "dn_bilstm_pool_bwd", 0 if sdt == torch.float32 else 1,
                 *(a.data_ptr() for a in streams), wT.data_ptr(), c02.data_ptr(),
                 dpoolf.data_ptr(), dpoolr.data_ptr(), dhT2.data_ptr(), dcT2.data_ptr(),
-                dp.data_ptr(), dh02.data_ptr(), dc02.data_ptr(), T, B, H,
-                torch.cuda.current_stream(cs2.device).cuda_stream)
-    global POOL_BWD_LAUNCHES
+                dp.data_ptr(), dh02.data_ptr(), dc02.data_ptr(), T, B, H, _geom_ints(g),
+                _ptr(prof), torch.cuda.current_stream(streams[4].device).cuda_stream)
     POOL_BWD_LAUNCHES += 1
+    if g["route"] == "cluster":
+        BIDIR_BWD_CLUSTER_CALLS += 1
+    else:
+        BIDIR_BWD_STREAM_CALLS += 1
     return dp, dh02, dc02
+
+
+def bidir_bwd_phase_profile(ai2, af2, ao2, ag2, cs2, whh2, c02, dpoolf, dpoolr, dhT2, dcT2,
+                            compute_dtype=None, geometry=None) -> dict:
+    """One K6 call on the cluster route with its phase clock on: the mean µs
+    a step of block 0 (direction 0) spends in each of
+    ``ops/lstm_cuda.py:BWD_PHASES`` and each phase's share. For
+    measurements; counts as a call."""
+    T, B, H = cs2.shape[1:]
+    g = geometry or device_bidir_bwd_geometry(cs2.device, B, H, compute_dtype)
+    _check(g["route"] == "cluster", "the phase clock is the cluster route's",
+           "bidir_bwd_phase_profile")
+    prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=cs2.device)
+    _k6((ai2, af2, ao2, ag2, cs2), whh2, c02, dpoolf, dpoolr, dhT2, dcT2, compute_dtype, g, prof)
+    return phase_summary(prof, T, BWD_PHASES)
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,13 @@ holds W_hh in shared memory (``K1_CLUSTER_CALLS``), or, for a W_hh whose
 slice fits no cluster of 8, streaming W_hh from L2 every step
 (``K1_STREAM_CALLS``).
 
+K2 takes one of two routes the same way (:func:`bwd_geometry`): a cluster
+BPTT whose blocks hold their rows of W_hhᵀ in shared memory and
+reduce-scatter dh through distributed shared memory
+(``csrc/lstm_bwd_cluster.cuh``, ``BWD_CLUSTER_CALLS``; f32 on a SIMT
+kernel, bf16 on the tensor cores), or the first design, streaming W_hhᵀ
+from L2 every step (``BWD_STREAM_CALLS``).
+
 :class:`LSTMRecurrence` is the differentiable recurrence: K1 with its
 residual streams forward, K2 and the weight-gradient products backward, as
 the JAX ``custom_vjp``. Its weights may carry a leading site axis
@@ -53,6 +60,9 @@ K1_STREAM_CALLS = 0
 PROJ_LAUNCHES = 0
 #: K2 launches since the counter was last set to 0
 BWD_LAUNCHES = 0
+#: K2 launches on the cluster route / the stream route
+BWD_CLUSTER_CALLS = 0
+BWD_STREAM_CALLS = 0
 
 _entries: dict = {}
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -63,7 +73,8 @@ _ARGTYPES = {
     "lstm_max_active_clusters": ("lstm_fwd", [_I, _I, _I, _P, _P]),
     "lstm_proj_mma": ("lstm_fwd", [_P, _L, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P]),
     "lstm_bwd": ("lstm_bwd", [_I, _P, _P, _P, _P, _P, _P, _L, _L, _P, _P, _L, _L,
-                              _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                              _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
+    "lstm_bwd_max_active_clusters": ("lstm_bwd", [_I, _I, _I, _P, _P]),
 }
 
 
@@ -294,6 +305,166 @@ def k1_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
                                  ("k1", dev, code, rows, H, tuple(geom)), code, rows, H, geom)
 
 
+# ---------------------------------------------------------------------------
+# The cluster BPTT's launch geometry, K2's and (``dirs=2``) K6's (pure shape
+# arithmetic, tested on the CPU)
+
+#: the most threads of a block of the cluster BPTT: the SIMT kernel, the
+#: tensor-core kernel (``csrc/lstm_bwd_cluster.cuh``: kBwdSimtThreads,
+#: kBwdMmaThreads)
+_BWD_SIMT_THREADS, _BWD_MMA_THREADS = 512, 384
+#: the most 16-row m-tiles of a tensor-core block (the kernel's instances)
+_MMA_M_TILES = 3
+
+
+def _bwd_simt_config(R: int, H: int, C: int, es: int, smem_optin: int) -> dict | None:
+    """Threads and shared memory of a block of the SIMT cluster BPTT
+    (``bwd_smem_bytes``) that carries ``R`` rows, or None if none fits: the
+    W_hhᵀ slice ``[4·smax, hw]`` at ``es`` bytes a value (``hw`` = H rounded
+    up to even), dp's f32 operands ``[4·smax, rp]``, the f32 partials ``[2,
+    R, hw]`` and the dc carry ``[R, smax]``. Each thread a tile of 2 output
+    columns by ``rpt`` rows: ``cp`` = H/2 column pairs rounded up to a warp,
+    ``threads = cp · row_groups``. Of 8, 4, 2, 1 rows a thread, the one that
+    pads the fewest rows within the kernel's thread bound."""
+    smax = _cdiv(H, C)
+    hw = H + (H & 1)
+    cp = _cdiv(_cdiv(H, 2), 32) * 32
+    best = None
+    for rpt in (8, 4, 2, 1):
+        rg = _cdiv(R, rpt)
+        rp, threads = rg * rpt, cp * rg
+        smem = _cdiv(4 * smax * hw * es, 16) * 16 + 4 * (4 * smax * rp + 2 * R * hw + R * smax)
+        fits = smem + _CLUSTER_STATIC_SMEM <= smem_optin
+        if threads <= _BWD_SIMT_THREADS and fits and (best is None or rp < best["rp"]):
+            best = {"rpt": rpt, "row_groups": rg, "rp": rp, "threads": threads, "smem": smem,
+                    "smax": smax}
+    return best
+
+
+def _bwd_mma_config(R: int, H: int, C: int, smem_optin: int) -> dict | None:
+    """Threads and shared memory of a block of the tensor-core cluster BPTT
+    (``bwd_mma_smem_bytes``), or None if none fits: the W_hhᵀ slice as the
+    ``.col`` operand ``[nb, ks]`` bf16 (``nb`` = H rounded up to 8, ``ks`` =
+    4·smax rounded up to 16, plus 8), dp as the row-major operand ``[rp,
+    ks]`` bf16 (``rp`` = R rounded up to 16, at most 3 tiles), the f32
+    partials ``[2, R, hst]`` (``hst`` = nb rounded up to 16, plus 8) and the
+    dc carry; a warp for each pair of 8-column n-tiles, at least 4 and at
+    most 12 (a warp then takes several pairs)."""
+    smax = _cdiv(H, C)
+    nb = _cdiv(H, 8) * 8
+    ks = _cdiv(4 * smax, 16) * 16 + 8
+    rp = _cdiv(R, 16) * 16
+    hst = _cdiv(nb, 16) * 16 + 8
+    if rp > 16 * _MMA_M_TILES:
+        return None
+    threads = 32 * min(_BWD_MMA_THREADS // 32, max(4, _cdiv(nb // 8, 2)))
+    smem = (_cdiv(nb * ks * 2, 16) * 16 + _cdiv(rp * ks * 2, 16) * 16
+            + 4 * (2 * R * hst + R * smax))
+    if smem + _CLUSTER_STATIC_SMEM > smem_optin:
+        return None
+    return {"rpt": 16, "row_groups": rp // 16, "rp": rp, "threads": threads, "smem": smem,
+            "smax": smax}
+
+
+def bwd_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
+                         smem_optin: int = SMEM_OPTIN, slots: int | None = None, dirs: int = 1,
+                         design: str | None = None) -> dict | None:
+    """The cluster BPTT's geometry for clusters of ``C`` blocks of ``R`` rows
+    each, ``clusters`` of them a direction (``dirs`` 1: K2, 2: K6), or None
+    if such a block does not fit; ``slots`` is the clusters the card runs at
+    once (for ``waves``). f32: the SIMT kernel; bf16: the tensor cores, or
+    with ``design="simt"`` (for measurements) the SIMT kernel over bf16
+    weights."""
+    if H > K1_CLUSTER_MAX_H:
+        return None
+    if dtype == torch.bfloat16 and design != "simt":
+        cfg = _bwd_mma_config(R, H, C, smem_optin)
+    else:
+        cfg = _bwd_simt_config(R, H, C, 2 if dtype == torch.bfloat16 else 4, smem_optin)
+    if cfg is None:
+        return None
+    clusters = _cdiv(rows, R)
+    return {"route": "cluster", "C": C, "R": R, **cfg, "j0": k1_column_map(H, C),
+            "clusters": clusters, "blocks": dirs * clusters * C, "dirs": dirs,
+            "waves": _cdiv(dirs * clusters, slots) if slots else None}
+
+
+def bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132, smem_optin: int = SMEM_OPTIN,
+                 cluster_slots: dict | None = None, dirs: int = 1, design: str | None = None) -> dict:
+    """The launch geometry of K2 (``dirs=1``) or K6 (``dirs=2``) for ``rows``
+    rows of width ``H`` at the operand dtype (None: f32;
+    ``torch.bfloat16``) on a card of ``sms`` SMs whose blocks may opt in to
+    ``smem_optin`` bytes; ``cluster_slots`` maps a cluster size to the
+    clusters the card runs at once (``cudaOccupancyMaxActiveClusters``;
+    default ``sms // C``).
+
+    Cluster route: the directions' clusters share the card's slots. The
+    smallest cluster size ``C`` (2, 4, 8) whose block fits with ``R``, the
+    rows a cluster, the fewest that keep every cluster within one wave;
+    failing that, the smallest ``C`` that fits a row at all, with as many
+    rows a cluster as fit (several waves). Stream route, for a W_hhᵀ whose
+    slice fits no cluster of 8: the first design
+    (:func:`bwd_stream_geometry`). Returns a dict with ``route`` and the
+    numbers the C entry takes."""
+    slots = {C: (cluster_slots or {}).get(C, sms // C) for C in K1_CLUSTER_SIZES}
+    sizes = [C for C in K1_CLUSTER_SIZES if C <= H and slots[C] >= dirs]
+    for wave_only in (True, False):
+        for C in sizes:
+            R = _cdiv(rows, slots[C] // dirs)
+            g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs, design)
+            while g is None and not wave_only and R > 1:
+                R = R // 2 if R > 64 else R - 1
+                g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs, design)
+            if g is not None:
+                return g
+    return bwd_stream_geometry(rows, H, sms, dirs)
+
+
+def bwd_stream_geometry(rows: int, H: int, sms: int = 132, dirs: int = 1) -> dict:
+    """The stream route, the first design: blocks of ``R`` (1, 2, 4, 8) rows
+    a direction, the fewest that keep every direction's blocks within its
+    share of the SMs (the kernel picks ``R`` itself, as here), each block's
+    dp, partials and f32 carries in shared memory. Measurements may ask for
+    it."""
+    R = 1
+    while R < 8 and _cdiv(rows, R) > max(1, sms // dirs):
+        R *= 2
+    blocks = dirs * _cdiv(rows, R)
+    return {"route": "stream", "R": R, "threads": min(1024, _cdiv(4 * H, 32) * 32),
+            "smem": 40 * R * H, "blocks": blocks, "dirs": dirs, "waves": _cdiv(blocks, sms)}
+
+
+def device_bwd_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
+    """:func:`bwd_geometry` of K2 on ``device``'s SM count and shared
+    memory, with the clusters the card runs at once from
+    ``cudaOccupancyMaxActiveClusters`` (:func:`settle_geometry`). Worked out
+    once per device and shape."""
+    dev = torch.device(device)
+    key = ("bwd", dev, rows, H, compute_dtype == torch.bfloat16)
+    if key not in _geometries:
+        sms, optin = device_limits(dev)
+        _geometries[key] = settle_geometry(
+            lambda slots: bwd_geometry(rows, H, compute_dtype, sms, optin, slots),
+            lambda g: bwd_max_active_clusters(dev, rows, H, compute_dtype, g))
+    return _geometries[key]
+
+
+def bwd_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
+                            geometry: dict | None = None) -> int | None:
+    """``cudaOccupancyMaxActiveClusters`` of K2's cluster route at this
+    geometry, asked once per device and configuration; None on the stream
+    route."""
+    g = geometry or device_bwd_geometry(device, rows, H, compute_dtype)
+    if g["route"] != "cluster":
+        return None
+    dev = torch.device(device)
+    code = 0 if compute_dtype is None else 1
+    geom = _geom_ints(g)
+    with torch.cuda.device(dev):
+        return cluster_occupancy(_kernel("lstm_bwd_max_active_clusters"),
+                                 ("k2", dev, code, rows, H, tuple(geom)), code, rows, H, geom)
+
+
 def _stream_dtype(compute_dtype) -> torch.dtype:
     if compute_dtype is None:
         return torch.float32
@@ -511,17 +682,18 @@ def k1_phase_profile(x, wih4, b4, whh4, h0, c0, compute_dtype=None, geometry=Non
     return phase_summary(prof, T)
 
 
-def phase_summary(prof, T: int) -> dict:
-    """The mean µs a step spends in each of :data:`K1_PHASES`, and each
-    phase's share of the step, from a cluster kernel's phase clock ``prof
-    [5 T + 2]`` (``clock64`` stamps converted by the global timer)."""
+def phase_summary(prof, T: int, names=K1_PHASES) -> dict:
+    """The mean µs a step spends in each of the four phases ``names``
+    (:data:`K1_PHASES`, or :data:`BWD_PHASES`), and each phase's share of
+    the step, from a cluster kernel's phase clock ``prof [5 T + 2]``
+    (``clock64`` stamps converted by the global timer)."""
     p = prof.cpu()
     stamps = p[:5 * T].reshape(T, 5).double()
     ns_per_cycle = float(p[5 * T + 1] - p[5 * T]) / float(stamps[-1, 4] - stamps[0, 0])
     phase_us = (stamps[:, 1:] - stamps[:, :-1]).mean(0) * ns_per_cycle / 1e3
     step_us = float(phase_us.sum())
-    out = {f"{k}_us": float(v) for k, v in zip(K1_PHASES, phase_us)}
-    out.update({f"{k}_share": float(v) / step_us for k, v in zip(K1_PHASES, phase_us)})
+    out = {f"{k}_us": float(v) for k, v in zip(names, phase_us)}
+    out.update({f"{k}_share": float(v) / step_us for k, v in zip(names, phase_us)})
     out.update(step_us=step_us, ghz=1.0 / ns_per_cycle)
     return out
 
@@ -556,16 +728,23 @@ def lstm_bwd_plain(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=No
     return dp, dh_c, dc_c
 
 
-def lstm_bwd_fused(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None):
+def lstm_bwd_fused(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None,
+                   geometry=None):
     """LSTM backward through time in one kernel launch.
 
     Same arguments and returns as :func:`lstm_bwd_plain`. The streams must
     be contiguous at the stream dtype; ``dhs`` may be any view that is
     contiguous over H (the model layout hands over a transposed one).
-    ``whh4`` is transposed once per call, outside the kernel."""
+    ``whh4`` is transposed once per call, outside the kernel. The route is
+    :func:`device_bwd_geometry`'s, or ``geometry``'s (a :func:`bwd_geometry`
+    result, for measurements); a launch the card refuses raises, nothing
+    falls back."""
     if cs.device.type == "cpu":
         return lstm_bwd_plain(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype)
+    return _k2(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype, geometry)
 
+
+def _k2(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype, geometry, prof=None):
     def check(cond, what):
         _check(cond, what, "lstm_bwd_fused")
 
@@ -584,6 +763,8 @@ def lstm_bwd_fused(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=No
               for a in carries), f"c0, dhT and dcT must be contiguous [{B}, {H}] float32")
     check(all(a.device == cs.device for a in streams + carries + (whh4,)),
           "all inputs must be on one device")
+    g = geometry or device_bwd_geometry(cs.device, B, H, compute_dtype)
+    check(g.get("dirs", 1) == 1, "the geometry is K6's (two directions)")
     wT = whh4.to(sdt).transpose(1, 2).contiguous()
     dp = torch.empty((T, B, 4 * H), dtype=sdt, device=cs.device)
     dh0 = torch.empty((B, H), dtype=torch.float32, device=cs.device)
@@ -595,13 +776,39 @@ def lstm_bwd_fused(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=No
             *(a.data_ptr() for a in streams[:5]), wT.data_ptr(), wT.stride(0), wT.stride(1),
             c0.data_ptr(), dhs.data_ptr(), dhs.stride(0), dhs.stride(1),
             dhT.data_ptr(), dcT.data_ptr(), dp.data_ptr(), dh0.data_ptr(), dc0.data_ptr(),
-            T, B, H, torch.cuda.current_stream(cs.device).cuda_stream,
+            T, B, H, _geom_ints(g), None if prof is None else prof.data_ptr(),
+            torch.cuda.current_stream(cs.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"lstm_bwd kernel failed: {err_str(err).decode()} ({err})")
-    global BWD_LAUNCHES
+        raise RuntimeError(f"lstm_bwd kernel ({g['route']} route) failed: "
+                           f"{err_str(err).decode()} ({err})")
+    global BWD_LAUNCHES, BWD_CLUSTER_CALLS, BWD_STREAM_CALLS
     BWD_LAUNCHES += 1
+    if g["route"] == "cluster":
+        BWD_CLUSTER_CALLS += 1
+    else:
+        BWD_STREAM_CALLS += 1
     return dp, dh0, dc0
+
+
+#: the phases of a step of the cluster BPTT, as its clock stamps them: the
+#: dh reduce over every rank's partials with the cotangents of the own
+#: units, the block barrier after them, the partial product, the cluster
+#: barrier
+BWD_PHASES = ("cotangents", "sync", "product", "barrier")
+
+
+def bwd_phase_profile(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype=None,
+                      geometry=None) -> dict:
+    """One K2 call on the cluster route with its phase clock on: the mean µs
+    a step of block 0 spends in each of :data:`BWD_PHASES` and each phase's
+    share of the step. For measurements; counts as a call."""
+    T, B, H = cs.shape
+    g = geometry or device_bwd_geometry(cs.device, B, H, compute_dtype)
+    _check(g["route"] == "cluster", "the phase clock is the cluster route's", "bwd_phase_profile")
+    prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=cs.device)
+    _k2(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype, g, prof)
+    return phase_summary(prof, T, BWD_PHASES)
 
 
 def _site_weight(w, sites: int):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1, or K3 and K5, across launch geometries on the card, at full ICA-LSTM
-width.
+"""K1, K3 and K5, or K2 and K6, across launch geometries on the card, at
+full ICA-LSTM width.
 
-    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both] [--bidir]
+    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both] [--bidir] [--bwd]
 
 At T=98, D=256, H=174 it runs K1 (``lstm_recurrence_fused``) on the
 geometry the launcher picks, on cluster geometries it could pick instead
@@ -17,9 +17,16 @@ mean µs of each phase of a step (``k1_phase_profile``). With ``--bidir``
 the same for K3 (``bilstm_fwd_fused``) and K5 (``bilstm_pool_fwd_fused``):
 cluster geometries of both directions in one wave, the launcher's at rows
 1, 16 and 512, and the stream route (the first design), with the
-projection of both directions alone and ``bidir_phase_profile``. One JSON
-line per point, then the card's name and power limit; it needs one CUDA
-card and imports nothing of JAX.
+projection of both directions alone and ``bidir_phase_profile``. With
+``--bwd`` the backward: K2 (``lstm_bwd_fused``; with ``--bidir`` K6,
+``bilstm_pool_bwd_fused``) on cluster geometries of one wave (the time
+against R gives the cost of a step), on the launcher's at rows 16 and 512,
+on the stream route (the first design) and, in bf16, on the SIMT kernel
+over bf16 weights (``design="simt"``) beside the tensor cores, each point
+held against the plain version, timed as above, with the µs a step and
+the phase clock (``bwd_phase_profile`` / ``bidir_bwd_phase_profile``). One
+JSON line per point, then the card's name and power limit; it needs one
+CUDA card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -55,7 +62,8 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
-    ap.add_argument("--bidir", action="store_true", help="K3 and K5 instead of K1")
+    ap.add_argument("--bidir", action="store_true", help="K3 and K5 (with --bwd: K6) instead of K1")
+    ap.add_argument("--bwd", action="store_true", help="the backward: K2, or K6 with --bidir")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke as cs
@@ -65,6 +73,10 @@ def main() -> int:
     resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if args.bwd:
+        bwd_sweep(torch, cs, args.dtype, args.bidir)
+        print(smi)
+        return 0
     if args.bidir:
         bidir_sweep(torch, cs, args.dtype)
         print(smi)
@@ -159,6 +171,63 @@ def bidir_sweep(torch, cs, which: str) -> None:
                        if cluster else None}
                 print(json.dumps(rec), flush=True)
                 del a
+
+
+def bwd_sweep(torch, cs, which: str, bidir: bool) -> None:
+    from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
+    from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+
+    sms, optin = lc.device_limits("cuda")
+    H, dirs = cs.H, 2 if bidir else 1
+    kernel = "bilstm_pool_bwd" if bidir else "lstm_bwd"
+    g = torch.Generator().manual_seed(0)
+    for name, cdt in {"f32": None, "bf16": torch.bfloat16}.items():
+        if which not in (name, "both"):
+            continue
+        tol = cs.F32_TOL if cdt is None else cs.BF16_TOL
+        points = []
+        occupancy = bc.bidir_bwd_max_active_clusters if bidir else lc.bwd_max_active_clusters
+        for C in (2, 4, 8):  # the step cost against R, one wave of each geometry
+            for R in (1, 2, 4, 8, 16, 18, 24, 35):
+                probe = lc.bwd_cluster_geometry(R, H, C, R, cdt, optin, dirs=dirs)
+                if probe is None:
+                    continue
+                per = occupancy("cuda", R, H, cdt, probe) // dirs
+                points.append((per * R, lc.bwd_cluster_geometry(per * R, H, C, R, cdt, optin,
+                                                                dirs * per, dirs)))
+        for rows in (16, 512):
+            points.append((rows, cs.bwd_geometry_line(bc if bidir else lc, rows, H, cdt)))
+            points.append((rows, lc.bwd_stream_geometry(rows, H, sms, dirs)))
+            if cdt is not None:
+                simt = lc.bwd_geometry(rows, H, cdt, sms, optin, None, dirs, design="simt")
+                slots = {simt["C"]: (bc.bidir_bwd_max_active_clusters if bidir else
+                                     lc.bwd_max_active_clusters)("cuda", rows, H, cdt, simt)}
+                points.append((rows, lc.bwd_geometry(rows, H, cdt, sms, optin, slots, dirs,
+                                                     design="simt")))
+        for rows, geo in points:
+            if bidir:
+                a = cs.pool_bwd_args(torch, bc, rows, cdt, g)
+                fused, plain = bc.bilstm_pool_bwd_fused, bc.bilstm_bwd_plain
+                want, split = plain(*cs.pool_plain_args(a), cdt), (lambda o: o)
+                names = cs.BIDIR_BWD_OUTPUTS
+                profile = bc.bidir_bwd_phase_profile
+            else:
+                a = cs.bwd_args(torch, lc, rows, cdt, g)
+                fused, want, split = lc.lstm_bwd_fused, lc.lstm_bwd_plain(*a, cdt), cs.split_bwd
+                names, profile = cs.BWD_OUTPUTS, lc.bwd_phase_profile
+            err = cs.compare(f"{kernel} rows={rows} {name} {geo}",
+                             split(fused(*a, cdt, geometry=geo)), split(want), names, tol)
+            ms = device_ms(torch, lambda: fused(*a, cdt, geometry=geo))
+            cluster = geo["route"] == "cluster"
+            rec = {"kernel": kernel, "rows": rows, "dtype": name, "route": geo["route"],
+                   "design": ("mma" if geo.get("rpt") == 16 else "simt") if cluster else "stream",
+                   "C": geo.get("C"), "R": geo["R"], "rpt": geo.get("rpt"),
+                   "threads": geo["threads"], "blocks": geo["blocks"], "smem": geo.get("smem"),
+                   "max_active_clusters": geo.get("max_active_clusters"), "device_ms": ms,
+                   "us_per_step": ms * 1e3 / cs.T, "max_abs_err": err,
+                   "step_phases": profile(*a, cdt, geometry=geo) if cluster else None}
+            print(json.dumps(rec), flush=True)
+            del a, want
 
 
 if __name__ == "__main__":
