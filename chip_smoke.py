@@ -22,9 +22,15 @@ result line:
    templates at H=400), and the model-layout ``lstm_forward_fused``
    against ``lstm_forward_plain``;
 4. kernel ``lstm_bwd`` (K2) against ``lstm_bwd_plain``, all six outputs,
-   f32 and bf16, at rows 16 and 512; times of the kernel, the plain
-   version and the backward of a cuDNN ``torch.nn.LSTM`` (which also
-   computes dx and dW); then, untimed, every rows-per-block template;
+   f32 and bf16, at rows 16 and 512, on the cluster route the launcher
+   picks (a cluster BPTT that holds W_hhᵀ in shared memory and
+   reduce-scatters dh through distributed shared memory) and on the stream
+   route (the first design), with the geometry, cudaOccupancyMaxActiveClusters
+   and the phase clock; times of both routes, the plain version and the
+   backward of a cuDNN ``torch.nn.LSTM`` (which also computes dx and dW);
+   then, untimed, every geometry the cluster route can take (clusters of 2,
+   4, 8, each rows a thread or m-tiles, ragged slices and a ragged last
+   cluster) and the stream route's rows-a-block templates at H=400;
 5. the serving slice at full ICA-LSTM width: ``InferenceEngine`` answers
    requests of 1-16 rows from two threads; every answer is checked against
    ``eval_forward`` with the plain LSTM, and the launch counter must show
@@ -33,7 +39,7 @@ result line:
 6. the training slice at full width: two federated dSGD epochs of 32
    sites, batch 16, Adam 1e-3, through ``make_train_epoch_fn`` with the
    kernels; each kernel must launch exactly twice (one per direction) per
-   micro-batch, K1 on the cluster route; the first round's aggregate
+   micro-batch, K1 and K2 on the cluster route; the first round's aggregate
    gradient, and the params,
    optimizer state, running statistics and losses after the epochs, are
    held against the same epochs through the kernels' plain versions on
@@ -51,8 +57,8 @@ result line:
 8. the rankDAD training slice: phase 6's two epochs with the rankDAD
    engine (rank 10, 5 refinements, tol 1e-3, warm starts) through K1, K2
    and K7, held against the all-plain path on the card the same way and
-   on Ω; K7 must launch once per rank class per round, and no class may
-   go to the plain version;
+   on Ω; K7 must launch once per rank class per round, no class may go to
+   the plain version, and K1 and K2 take the cluster route;
 9. kernels ``bilstm_fwd`` (K3), ``bilstm_pool_fwd`` (K5), ``bilstm_bwd``
    (K4) and ``bilstm_pool_bwd`` (K6) against their plain versions, every
    output and K5's pool, f32 and bf16, K3/K5 at rows 1, 16 and 512 and
@@ -61,15 +67,18 @@ result line:
    thread-block clusters) and on the stream route (the first design), with
    the geometry and cudaOccupancyMaxActiveClusters, the projection's xp2
    against ``bilstm_proj_plain`` (f32: bit-identical to K1's projection
-   kernel on the same 8 gates) and the phase clock; times of each kernel
-   (K3/K5 on both routes and the projection alone), its plain version and
-   a cuDNN ``torch.nn.LSTM(bidirectional=True)`` forward or backward; then,
+   kernel on the same 8 gates) and the phase clock; K6 likewise on K2's
+   cluster BPTT (half of the clusters a direction) and on its stream
+   route; times of each kernel (K3/K5/K6 on both routes, the projection
+   alone), its plain version and a cuDNN
+   ``torch.nn.LSTM(bidirectional=True)`` forward or backward; then,
    untimed, every geometry K3/K5's launcher can pick (clusters of 2, 4, 8,
    each rows a thread, ragged slices and rows, K3 without residuals, the
-   stream route at H=400), K4/K6's rows-per-block templates and K4's
+   stream route at H=400), every geometry of K6's cluster route and its
+   stream route's templates, K4's rows-per-block templates and K4's
    per-row constant cotangent;
 10. the fused bidirectional arm, ``ICALstm(fused_bidir=True)``: phase 6's
-   two dSGD epochs through K5 and K6 (one call each per micro-batch, K5 on
+   two dSGD epochs through K5 and K6 (one call each per micro-batch, both on
    the cluster route, no K1 or K2), held against the same epochs through
    the plain versions; one bf16 epoch; the one-model eval forward (rows 1
    and 16, one K3 call a call, on the cluster route) against the
@@ -392,7 +401,8 @@ def bwd_args(torch, lc, rows: int, cdt, g, h: int = H):
 
 def split_bwd(out):
     dp, dh0, dc0 = out
-    return [dp[..., k * H:(k + 1) * H] for k in range(4)] + [dh0, dc0]
+    h = dh0.shape[-1]
+    return [dp[..., k * h:(k + 1) * h] for k in range(4)] + [dh0, dc0]
 
 
 def bwd_geometry_line(mod, rows: int, h: int, cdt, geometry=None) -> dict:

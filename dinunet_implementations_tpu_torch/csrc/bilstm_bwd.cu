@@ -31,7 +31,14 @@
 // transposed W_hh (0.48 MB in f32) streamed from L2. At 512 rows the FLOP
 // bound it against f32 peak, the bytes in bf16.
 //
-// What this design does about it. K2's structure with a direction index:
+// K6 takes one of two routes, chosen in Python by shape before any launch
+// (ops/bilstm_cuda.py:bidir_bwd_geometry) and passed as a record: K2's
+// cluster BPTT (lstm_bwd_cluster.cuh) with half of the clusters a
+// direction, each on its own time map, or, for a W_hh^T whose slice fits no
+// cluster of 8, the stream route, the first design below, which K4 also
+// runs.
+//
+// What the first design does. K2's first design with a direction index:
 // blockIdx.y picks the direction (its W_hh^T, its time map and c_prev
 // neighbour), blockIdx.x a group of R rows; each block walks all T steps
 // with its f32 carries in shared memory. The launcher picks R as the

@@ -23,7 +23,16 @@
 // are a few KB a row. At the 512-row training fold the FLOP (12 GFLOP a
 // call) bound it against f32 peak, the bytes (~0.35 GB) in bf16.
 //
-// What this first design does about it. The forward's structure: a block
+// Two routes, chosen in Python by shape before any launch
+// (ops/lstm_cuda.py:bwd_geometry) and passed as a record:
+// - the cluster route (lstm_bwd_cluster.cuh): a thread-block cluster holds
+//   W_hh^T in its blocks' shared memory, each block the rows of its own
+//   hidden units, and reduce-scatters dh through distributed shared memory
+//   once a step; f32 on a SIMT register tile, bf16 on mma.sync;
+// - the stream route, lstm_bwd_kernel below (the first design), for a
+//   W_hh^T whose slice fits no cluster of 8 (H above about 340 in f32).
+//
+// What the first design does. The forward's structure: a block
 // owns R rows (K1's rows-per-block choice) and walks all T steps in a loop,
 // the f32 carries in shared memory, the ragged last block masked. Each
 // thread owns one (gate, column) pair of the product and streams its

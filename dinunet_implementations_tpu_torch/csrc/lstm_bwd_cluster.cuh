@@ -38,8 +38,8 @@
 // over unit slices, in rank order, where it summed over m per gate, then
 // the gates): deterministic, within ~1e-6 relative of it in f32.
 //
-// f32 (and the bf16 SIMT instance): bwd_cluster_kernel, a 2-column by
-// RPT-row register tile a thread, as bilstm_rec_cluster_kernel. bf16:
+// f32: bwd_cluster_kernel, a 2-column by RPT-row register tile a thread,
+// as bilstm_rec_cluster_kernel. bf16:
 // bwd_cluster_mma_kernel, the product on the tensor cores (mma.sync
 // m16n8k16, f32 accumulators): A is dp [rows padded to 16, 4 sk padded to
 // 16], B the W_hh^T slice as ldmatrix operands.
@@ -94,14 +94,13 @@ enum { kBwdStart, kBwdCotangents, kBwdSync, kBwdProduct, kBwdBarrier, kBwdPhases
 // up to even, so that a thread's float2 of columns 2 cq, 2 cq + 1 is aligned
 __host__ __device__ inline int bwd_hw(int H) { return H + (H & 1); }
 
-// Dynamic shared memory of a block of bwd_cluster_kernel: the W_hh^T slice
-// [4 smax, hw] at the operand type, dp's operands transposed [4 smax, rp]
-// f32, the partials [2, R, hw] f32 and the dc carry [R, smax] f32.
-template <typename S>
+// Dynamic shared memory of a block of bwd_cluster_kernel, all f32: the
+// W_hh^T slice [4 smax, hw], dp transposed [4 smax, rp], the partials [2,
+// R, hw] and the dc carry [R, smax].
 __host__ __device__ inline size_t bwd_smem_bytes(const ClusterGeom& g, int H) {
   const size_t hw = bwd_hw(H);
-  return align16(4 * (size_t)g.smax * hw * sizeof(S)) +
-         sizeof(float) * (4 * (size_t)g.smax * g.rp + 2 * (size_t)g.R * hw + (size_t)g.R * g.smax);
+  return sizeof(float) * (4 * (size_t)g.smax * hw + 4 * (size_t)g.smax * g.rp +
+                          2 * (size_t)g.R * hw + (size_t)g.R * g.smax);
 }
 
 // The tensor-core layout (bwd_cluster_mma_kernel): wB [nb, ks] bf16, the
@@ -190,12 +189,46 @@ __device__ __forceinline__ void load_slice(T* dst, int n, Src src) {
   }
 }
 
-// The cotangent phase of step s (x-time t, c_prev at x-time tp; c0 when tp
-// is outside [0, T)) for this thread's items: the dh carry (dhT at the first
-// step, else the sum of every rank's partial of the previous step `prev`,
-// in rank order), then dc and the four dp: dp to global memory, their
-// operands to put(r, c, value) for c = k sk + mm, dc * f to the carry dcc
-// [R, smax], which only this thread reads and writes.
+// The streams of step s (x-time t; c_prev at x-time tp, c0 when tp is
+// outside [0, T)) for this thread's unit and rows rb, rb + rl, ...: up to
+// kBwdChunk rows of i, f, o, g, c, c_prev and dhs, as f32, into v.
+template <typename S, typename DH>
+__device__ __forceinline__ void bwd_load(const BwdArgs& a, const BwdPlace& pl, const BwdItems& it,
+                                         int m0, int s, int rb, float (&v)[kBwdChunk][7]) {
+  const int T = a.T, B = a.B, H = a.H, j = m0 + it.mm;
+  const int t = pl.dir ? s : T - 1 - s;
+  const int tp = pl.dir ? t + 1 : t - 1;
+  const bool first_step = tp < 0 || tp >= T;
+  const long long plane = (long long)pl.dir * T * B * H;
+  const long long at = plane + ((long long)t * B + pl.row0) * H + j;
+  const long long ap = plane + ((long long)tp * B + pl.row0) * H + j;
+  const float* c0 = a.c0 + (long long)pl.dir * B * H + (long long)pl.row0 * H + j;
+  const long long sdb = a.sdb[pl.dir];
+  const DH* dhs = static_cast<const DH*>(a.dhs[pl.dir]) + t * a.sdt[pl.dir] + pl.row0 * sdb + j;
+#pragma unroll
+  for (int u = 0; u < kBwdChunk; ++u) {
+    const int r = rb + u * it.rl;
+    if (r < pl.nrows) {
+      const long long o = (long long)r * H;
+      v[u][0] = to_f(static_cast<const S*>(a.ai)[at + o]);
+      v[u][1] = to_f(static_cast<const S*>(a.af)[at + o]);
+      v[u][2] = to_f(static_cast<const S*>(a.ao)[at + o]);
+      v[u][3] = to_f(static_cast<const S*>(a.ag)[at + o]);
+      v[u][4] = to_f(static_cast<const S*>(a.cs)[at + o]);
+      v[u][5] = first_step ? c0[o] : to_f(static_cast<const S*>(a.cs)[ap + o]);
+      v[u][6] = to_f(dhs[r * sdb]);
+    }
+  }
+}
+
+// The cotangent phase of step s for this thread's items: the dh carry (dhT
+// at the first step, else the sum of every rank's partial of the previous
+// step `prev`, in rank order), then dc and the four dp: dp to global
+// memory, their operands to put(r, c, value) for c = k sk + mm, dc * f to
+// the carry dcc [R, smax], which only this thread reads and writes.
+// (Loading the next step's streams earlier, between the barrier's halves or
+// before the product, does not pay: the barrier's acquire or the product
+// absorbs their time; PERF.md.)
 template <typename S, typename DH, typename Put>
 __device__ __forceinline__ void bwd_cotangents(cooperative_groups::cluster_group& cluster,
                                                const BwdArgs& a, const BwdPlace& pl,
@@ -205,38 +238,17 @@ __device__ __forceinline__ void bwd_cotangents(cooperative_groups::cluster_group
   if (!it.active) return;
   const int T = a.T, B = a.B, H = a.H, mm = it.mm, j = m0 + it.mm;
   const int t = pl.dir ? s : T - 1 - s;
-  const int tp = pl.dir ? t + 1 : t - 1;
-  const bool first_step = tp < 0 || tp >= T;
-  const long long plane = (long long)pl.dir * T * B * H;
-  const long long carry = (long long)pl.dir * B * H + j;
-  const long long at = ((long long)t * B + pl.row0) * H + j, ap = ((long long)tp * B + pl.row0) * H + j;
-  const S* ai = static_cast<const S*>(a.ai) + plane + at;
-  const S* af = static_cast<const S*>(a.af) + plane + at;
-  const S* ao = static_cast<const S*>(a.ao) + plane + at;
-  const S* ag = static_cast<const S*>(a.ag) + plane + at;
-  const S* cs = static_cast<const S*>(a.cs) + plane;
-  const long long sdt = a.sdt[pl.dir], sdb = a.sdb[pl.dir];
-  const DH* dhs = static_cast<const DH*>(a.dhs[pl.dir]) + t * sdt + pl.row0 * sdb + j;
+  const long long carry = (long long)pl.dir * B * H + (long long)pl.row0 * H + j;
   const long long gd = 4LL * H * a.dirs;  // dp's row stride
   S* dp = static_cast<S*>(a.dp) + ((long long)t * B + pl.row0) * gd + (long long)pl.dir * 4 * H + j;
   for (int rb = it.r0; rb < pl.nrows; rb += kBwdChunk * it.rl) {
     float v[kBwdChunk][7], dh[kBwdChunk];
-#pragma unroll
-    for (int u = 0; u < kBwdChunk; ++u) {
-      const int r = rb + u * it.rl;
-      if (r < pl.nrows) {
-        const long long o = (long long)r * H;
-        v[u][0] = to_f(ai[o]), v[u][1] = to_f(af[o]), v[u][2] = to_f(ao[o]);
-        v[u][3] = to_f(ag[o]), v[u][4] = to_f(cs[at + o]);
-        v[u][5] = first_step ? a.c0[carry + (long long)(pl.row0 + r) * H] : to_f(cs[ap + o]);
-        v[u][6] = to_f(dhs[r * sdb]);
-      }
-    }
+    bwd_load<S, DH>(a, pl, it, m0, s, rb, v);
 #pragma unroll
     for (int u = 0; u < kBwdChunk; ++u) {
       const int r = rb + u * it.rl;
       if (r < pl.nrows)
-        dh[u] = s == 0 ? a.dhT[carry + (long long)(pl.row0 + r) * H]
+        dh[u] = s == 0 ? a.dhT[carry + (long long)r * H]
                        : reduce_partials(cluster, prev, r * pstride + j, g.C);
     }
 #pragma unroll
@@ -295,33 +307,22 @@ __device__ __forceinline__ void bwd_seed(const BwdArgs& a, const BwdPlace& pl, c
     dcc[r * g.smax + it.mm] = a.dcT[carry + (long long)(pl.row0 + r) * a.H];
 }
 
-template <typename S>
-__device__ __forceinline__ float2 load2(const S* p);
-template <>
-__device__ __forceinline__ float2 load2<float>(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-template <>
-__device__ __forceinline__ float2 load2<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 // The most threads of a SIMT block, bounded as for one block an SM (128
 // registers a thread): under a tighter bound ptxas spills the cotangent
 // phase's loaded values, and a spill store waits for its load, so every
 // row's loads wait in turn.
 constexpr int kBwdSimtThreads = 512;
 
-// The SIMT instance: each thread a tile of output columns 2 cq, 2 cq + 1 by
+// The f32 instance: each thread a tile of output columns 2 cq, 2 cq + 1 by
 // rows r0 .. r0 + RPT - 1 of the partial product, over the block's 4 sk
 // rows of W_hh^T; every W value loaded from shared memory feeds 2 RPT FMAs.
-template <typename S, typename DH, int RPT>
+template <int RPT>
 __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs a, ClusterGeom g) {
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   extern __shared__ __align__(16) unsigned char bwd_smem[];
   const int H = a.H, RP = g.rp, R = g.R, smax = g.smax, hw = bwd_hw(H);
-  S* ws = reinterpret_cast<S*>(bwd_smem);  // [4 smax, hw] own rows of W_hh^T
-  float* dpo = reinterpret_cast<float*>(bwd_smem + align16(4 * (size_t)smax * hw * sizeof(S)));
+  float* ws = reinterpret_cast<float*>(bwd_smem);  // [4 smax, hw] own rows of W_hh^T
+  float* dpo = ws + 4 * smax * hw;                   // [4 smax, RP] own dp, transposed
   float* part = dpo + 4 * smax * RP;  // [2, R, hw] own partials, double-buffered
   float* dcc = part + 2 * R * hw;     // [R, smax] own f32 dc carry
 
@@ -329,10 +330,10 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
   const int rank = (int)cluster.block_rank();
   const int m0 = g.j0[rank], sk = g.j0[rank + 1] - m0, cols = 4 * sk;
   // W_hh^T[k, m0 + c % sk, :] of the direction once: row c is gate c / sk
-  const S* wT = static_cast<const S*>(a.wT) + (long long)pl.dir * 4 * a.swk;
+  const float* wT = static_cast<const float*>(a.wT) + (long long)pl.dir * 4 * a.swk;
   load_slice(ws, cols * hw, [&](int idx) {
     const int c = idx / hw, j = idx - c * hw, k = c / sk;
-    return j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j] : from_f<S>(0.f);
+    return j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j] : 0.f;
   });
   for (int idx = threadIdx.x; idx < 4 * smax * RP; idx += blockDim.x) dpo[idx] = 0.f;
   const BwdItems it = bwd_items(sk);
@@ -353,8 +354,8 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
     float* cur = part + (s & 1) * R * hw;
     float* prev = part + ((s + 1) & 1) * R * hw;
     // 1. dh from every rank's partials, dc and dp of the own units
-    bwd_cotangents<S, DH>(cluster, a, pl, g, it, m0, sk, s, hw, prev, dcc,
-                          [&](int r, int c, float v) { dpo[c * RP + r] = as_operand<S>(v); });
+    bwd_cotangents<float, float>(cluster, a, pl, g, it, m0, sk, s, hw, prev, dcc,
+                                 [&](int r, int c, float v) { dpo[c * RP + r] = v; });
     if (stamp) stamp[kBwdPhases * s + kBwdCotangents] = clock64();
     __syncthreads();
     if (stamp) stamp[kBwdPhases * s + kBwdSync] = clock64();
@@ -366,7 +367,7 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
       for (int q = 0; q < NP; ++q)
 #pragma unroll
         for (int r = 0; r < RPT; ++r) acc[q][r][0] = acc[q][r][1] = 0.f;
-      const S* wc = ws + 2 * cq;
+      const float* wc = ws + 2 * cq;
       const float* dr = dpo + r0;
       // U rows of W at a time, every operand loaded before the first FMA
       constexpr int U = RPT >= 4 ? 4 : 8;
@@ -376,7 +377,7 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
         float dv[U][RPT];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          w[u] = load2<S>(wc + (c + u) * hw);
+          w[u] = *reinterpret_cast<const float2*>(wc + (c + u) * hw);
           load_rows<RPT>(dr + (c + u) * RP, dv[u]);
         }
 #pragma unroll
@@ -388,7 +389,7 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
           }
       }
       for (; c < cols; ++c) {
-        const float2 w = load2<S>(wc + c * hw);
+        const float2 w = *reinterpret_cast<const float2*>(wc + c * hw);
         float dv[RPT];
         load_rows<RPT>(dr + c * RP, dv);
 #pragma unroll
@@ -528,21 +529,26 @@ __global__ void __launch_bounds__(kBwdMmaThreads) bwd_cluster_mma_kernel(BwdArgs
 // ---------------------------------------------------------------------------
 // launch
 
-template <typename S, typename DH, int RPT>
-cudaError_t bwd_simt(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem, int dev,
-                     const DeviceInfo& info, cudaStream_t stream, int* max_active) {
+// The launchers are static: lstm_bwd.cu and bilstm_bwd.cu each build a
+// library of their own from this header, and a template's function-local
+// static (the record of the shared memory its kernel was opened up to)
+// would otherwise be one object across the process (STB_GNU_UNIQUE): one
+// library's record would skip the other's cudaFuncSetAttribute.
+template <int RPT>
+static cudaError_t bwd_simt(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem,
+                          int dev, const DeviceInfo& info, cudaStream_t stream, int* max_active) {
   static std::atomic<int> smem_set[kMaxDevices];
-  cudaError_t err = open_smem(bwd_cluster_kernel<S, DH, RPT>, smem, dev, info, smem_set);
+  cudaError_t err = open_smem(bwd_cluster_kernel<RPT>, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)a.dirs * ((a.B + g.R - 1) / g.R) * g.C;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cluster(bwd_cluster_kernel<S, DH, RPT>, (unsigned)blocks, threads, smem, g.C,
-                        stream, max_active, a, g);
+  return launch_cluster(bwd_cluster_kernel<RPT>, (unsigned)blocks, threads, smem, g.C, stream,
+                        max_active, a, g);
 }
 
 template <typename DH, int MT>
-cudaError_t bwd_mma(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem, int dev,
-                    const DeviceInfo& info, cudaStream_t stream, int* max_active) {
+static cudaError_t bwd_mma(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem,
+                          int dev, const DeviceInfo& info, cudaStream_t stream, int* max_active) {
   static std::atomic<int> smem_set[kMaxDevices];
   cudaError_t err = open_smem(bwd_cluster_mma_kernel<DH, MT>, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
@@ -552,29 +558,11 @@ cudaError_t bwd_mma(const BwdArgs& a, const ClusterGeom& g, int threads, size_t 
                         stream, max_active, a, g);
 }
 
-template <typename S, typename DH>
-cudaError_t bwd_simt_rows(const BwdArgs& a, const ClusterGeom& g, int rpt, int threads, int dev,
-                          const DeviceInfo& info, cudaStream_t stream, int* max_active) {
-  const int cp = threads / g.rg;
-  const size_t smem = bwd_smem_bytes<S>(g, a.H);
-  if (threads > kBwdSimtThreads || threads % g.rg || cp % 32 ||
-      2 * cp < a.H)
-    return cudaErrorInvalidValue;
-  switch (rpt) {
-    case 1: return bwd_simt<S, DH, 1>(a, g, threads, smem, dev, info, stream, max_active);
-    case 2: return bwd_simt<S, DH, 2>(a, g, threads, smem, dev, info, stream, max_active);
-    case 4: return bwd_simt<S, DH, 4>(a, g, threads, smem, dev, info, stream, max_active);
-    case 8: return bwd_simt<S, DH, 8>(a, g, threads, smem, dev, info, stream, max_active);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // The cluster route at the geometry record `geom` (ops/lstm_cuda.py:
-// bwd_geometry): geom[3] rows a thread of the SIMT kernel (1, 2, 4, 8; f32,
-// or bf16 weights with f32 products), or 16, the bf16 tensor-core kernel at
-// geom[4] m-tiles. DH is the type of dhs in bf16 mode (f32 mode reads f32).
-// Checks what the kernels rely on (the column map, the threads, the shared
-// memory the kernel carves); with max_active, writes
+// bwd_geometry): dtype 0 the f32 SIMT kernel at geom[3] rows a thread (1,
+// 2, 4, 8), 1 the bf16 tensor-core kernel at geom[4] m-tiles, whose dhs is
+// of type DH. Checks what the kernels rely on (the column map, the threads,
+// the shared memory the kernel carves); with max_active, writes
 // cudaOccupancyMaxActiveClusters there and launches nothing.
 template <typename DH>
 cudaError_t bwd_cluster_run(int dtype, const BwdArgs& a, const int* geom, cudaStream_t stream,
@@ -583,17 +571,16 @@ cudaError_t bwd_cluster_run(int dtype, const BwdArgs& a, const int* geom, cudaSt
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
-  if (geom[0] != 1 || (a.dirs != 1 && a.dirs != 2) || (dtype != 0 && dtype != 1))
-    return cudaErrorInvalidValue;
+  if (geom[0] != 1 || (a.dirs != 1 && a.dirs != 2)) return cudaErrorInvalidValue;
   ClusterGeom g;
   err = read_cluster_geom(geom, a.H, 4 * geom[7], &g);
   if (err != cudaSuccess) return err;
   const int threads = geom[5];
   if (threads < 32 || threads % 32) return cudaErrorInvalidValue;
-  if (geom[3] == 16) {
+  if (dtype == 1) {
     const int pairs = (bwd_mma_nb(a.H) / 8 + 1) / 2;
     const size_t smem = bwd_mma_smem_bytes(g, a.H);
-    if (dtype != 1 || threads > kBwdMmaThreads || threads > 32 * (pairs > 4 ? pairs : 4) ||
+    if (geom[3] != 16 || threads > kBwdMmaThreads || threads > 32 * (pairs > 4 ? pairs : 4) ||
         (size_t)geom[6] != smem)
       return cudaErrorInvalidValue;
     switch (g.rg) {
@@ -603,12 +590,18 @@ cudaError_t bwd_cluster_run(int dtype, const BwdArgs& a, const int* geom, cudaSt
       default: return cudaErrorInvalidValue;
     }
   }
-  if (dtype == 0) {
-    if ((size_t)geom[6] != bwd_smem_bytes<float>(g, a.H)) return cudaErrorInvalidValue;
-    return bwd_simt_rows<float, float>(a, g, geom[3], threads, dev, *info, stream, max_active);
+  const int cp = threads / g.rg;
+  const size_t smem = bwd_smem_bytes(g, a.H);
+  if (dtype != 0 || threads > kBwdSimtThreads || threads % g.rg || cp % 32 || 2 * cp < a.H ||
+      (size_t)geom[6] != smem)
+    return cudaErrorInvalidValue;
+  switch (geom[3]) {
+    case 1: return bwd_simt<1>(a, g, threads, smem, dev, *info, stream, max_active);
+    case 2: return bwd_simt<2>(a, g, threads, smem, dev, *info, stream, max_active);
+    case 4: return bwd_simt<4>(a, g, threads, smem, dev, *info, stream, max_active);
+    case 8: return bwd_simt<8>(a, g, threads, smem, dev, *info, stream, max_active);
+    default: return cudaErrorInvalidValue;
   }
-  if ((size_t)geom[6] != bwd_smem_bytes<__nv_bfloat16>(g, a.H)) return cudaErrorInvalidValue;
-  return bwd_simt_rows<__nv_bfloat16, DH>(a, g, geom[3], threads, dev, *info, stream, max_active);
 }
 
 }  // namespace dn

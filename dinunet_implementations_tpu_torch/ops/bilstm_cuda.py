@@ -297,12 +297,11 @@ def bidir_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
 
 
 def bidir_bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132,
-                       smem_optin: int = SMEM_OPTIN, cluster_slots: dict | None = None,
-                       design: str | None = None) -> dict:
+                       smem_optin: int = SMEM_OPTIN, cluster_slots: dict | None = None) -> dict:
     """The launch geometry of K6: ``ops/lstm_cuda.py:bwd_geometry`` for two
     directions, whose clusters share the card's slots, half each; the stream
     route (the first design) for a W_hhᵀ whose slice fits no cluster of 8."""
-    return bwd_geometry(rows, H, dtype, sms, smem_optin, cluster_slots, 2, design)
+    return bwd_geometry(rows, H, dtype, sms, smem_optin, cluster_slots, 2)
 
 
 def device_bidir_bwd_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:

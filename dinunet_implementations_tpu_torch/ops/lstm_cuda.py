@@ -317,12 +317,12 @@ _BWD_SIMT_THREADS, _BWD_MMA_THREADS = 512, 384
 _MMA_M_TILES = 3
 
 
-def _bwd_simt_config(R: int, H: int, C: int, es: int, smem_optin: int) -> dict | None:
-    """Threads and shared memory of a block of the SIMT cluster BPTT
-    (``bwd_smem_bytes``) that carries ``R`` rows, or None if none fits: the
-    W_hhᵀ slice ``[4·smax, hw]`` at ``es`` bytes a value (``hw`` = H rounded
-    up to even), dp's f32 operands ``[4·smax, rp]``, the f32 partials ``[2,
-    R, hw]`` and the dc carry ``[R, smax]``. Each thread a tile of 2 output
+def _bwd_simt_config(R: int, H: int, C: int, smem_optin: int) -> dict | None:
+    """Threads and shared memory of a block of the f32 cluster BPTT
+    (``bwd_smem_bytes``) that carries ``R`` rows, or None if none fits, all
+    f32: the W_hhᵀ slice ``[4·smax, hw]`` (``hw`` = H rounded up to even),
+    dp transposed ``[4·smax, rp]``, the partials ``[2, R, hw]`` and the dc
+    carry ``[R, smax]``. Each thread a tile of 2 output
     columns by ``rpt`` rows: ``cp`` = H/2 column pairs rounded up to a warp,
     ``threads = cp · row_groups``. Of 8, 4, 2, 1 rows a thread, the one that
     pads the fewest rows within the kernel's thread bound."""
@@ -333,7 +333,7 @@ def _bwd_simt_config(R: int, H: int, C: int, es: int, smem_optin: int) -> dict |
     for rpt in (8, 4, 2, 1):
         rg = _cdiv(R, rpt)
         rp, threads = rg * rpt, cp * rg
-        smem = _cdiv(4 * smax * hw * es, 16) * 16 + 4 * (4 * smax * rp + 2 * R * hw + R * smax)
+        smem = 4 * (4 * smax * hw + 4 * smax * rp + 2 * R * hw + R * smax)
         fits = smem + _CLUSTER_STATIC_SMEM <= smem_optin
         if threads <= _BWD_SIMT_THREADS and fits and (best is None or rp < best["rp"]):
             best = {"rpt": rpt, "row_groups": rg, "rp": rp, "threads": threads, "smem": smem,
@@ -367,20 +367,18 @@ def _bwd_mma_config(R: int, H: int, C: int, smem_optin: int) -> dict | None:
 
 
 def bwd_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
-                         smem_optin: int = SMEM_OPTIN, slots: int | None = None, dirs: int = 1,
-                         design: str | None = None) -> dict | None:
+                         smem_optin: int = SMEM_OPTIN, slots: int | None = None,
+                         dirs: int = 1) -> dict | None:
     """The cluster BPTT's geometry for clusters of ``C`` blocks of ``R`` rows
     each, ``clusters`` of them a direction (``dirs`` 1: K2, 2: K6), or None
     if such a block does not fit; ``slots`` is the clusters the card runs at
-    once (for ``waves``). f32: the SIMT kernel; bf16: the tensor cores, or
-    with ``design="simt"`` (for measurements) the SIMT kernel over bf16
-    weights."""
+    once (for ``waves``). f32: the SIMT kernel; bf16: the tensor cores."""
     if H > K1_CLUSTER_MAX_H:
         return None
-    if dtype == torch.bfloat16 and design != "simt":
+    if dtype == torch.bfloat16:
         cfg = _bwd_mma_config(R, H, C, smem_optin)
     else:
-        cfg = _bwd_simt_config(R, H, C, 2 if dtype == torch.bfloat16 else 4, smem_optin)
+        cfg = _bwd_simt_config(R, H, C, smem_optin)
     if cfg is None:
         return None
     clusters = _cdiv(rows, R)
@@ -390,7 +388,7 @@ def bwd_cluster_geometry(rows: int, H: int, C: int, R: int, dtype=None,
 
 
 def bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132, smem_optin: int = SMEM_OPTIN,
-                 cluster_slots: dict | None = None, dirs: int = 1, design: str | None = None) -> dict:
+                 cluster_slots: dict | None = None, dirs: int = 1) -> dict:
     """The launch geometry of K2 (``dirs=1``) or K6 (``dirs=2``) for ``rows``
     rows of width ``H`` at the operand dtype (None: f32;
     ``torch.bfloat16``) on a card of ``sms`` SMs whose blocks may opt in to
@@ -411,10 +409,10 @@ def bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132, smem_optin: int 
     for wave_only in (True, False):
         for C in sizes:
             R = _cdiv(rows, slots[C] // dirs)
-            g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs, design)
+            g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs)
             while g is None and not wave_only and R > 1:
                 R = R // 2 if R > 64 else R - 1
-                g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs, design)
+                g = bwd_cluster_geometry(rows, H, C, R, dtype, smem_optin, slots[C], dirs)
             if g is not None:
                 return g
     return bwd_stream_geometry(rows, H, sms, dirs)

@@ -20,11 +20,10 @@ cluster geometries of both directions in one wave, the launcher's at rows
 projection of both directions alone and ``bidir_phase_profile``. With
 ``--bwd`` the backward: K2 (``lstm_bwd_fused``; with ``--bidir`` K6,
 ``bilstm_pool_bwd_fused``) on cluster geometries of one wave (the time
-against R gives the cost of a step), on the launcher's at rows 16 and 512,
-on the stream route (the first design) and, in bf16, on the SIMT kernel
-over bf16 weights (``design="simt"``) beside the tensor cores, each point
-held against the plain version, timed as above, with the µs a step and
-the phase clock (``bwd_phase_profile`` / ``bidir_bwd_phase_profile``). One
+against R gives the cost of a step; not with ``--main``), on the launcher's
+at rows 16 and 512,
+and on the stream route (the first design), each point held against the
+plain version, timed as above, with the µs a step and the phase clock (``bwd_phase_profile`` / ``bidir_bwd_phase_profile``). One
 JSON line per point, then the card's name and power limit; it needs one
 CUDA card and imports nothing of JAX.
 """
@@ -64,6 +63,9 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
     ap.add_argument("--bidir", action="store_true", help="K3 and K5 (with --bwd: K6) instead of K1")
     ap.add_argument("--bwd", action="store_true", help="the backward: K2, or K6 with --bidir")
+    ap.add_argument("--main", action="store_true",
+                    help="with --bwd: only the launcher's geometry and the stream route at rows "
+                         "16 and 512 (for A/Bs between two trees in one call)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke as cs
@@ -74,7 +76,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     if args.bwd:
-        bwd_sweep(torch, cs, args.dtype, args.bidir)
+        bwd_sweep(torch, cs, args.dtype, args.bidir, args.main)
         print(smi)
         return 0
     if args.bidir:
@@ -173,7 +175,7 @@ def bidir_sweep(torch, cs, which: str) -> None:
                 del a
 
 
-def bwd_sweep(torch, cs, which: str, bidir: bool) -> None:
+def bwd_sweep(torch, cs, which: str, bidir: bool, main_only: bool = False) -> None:
     from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
 
@@ -187,7 +189,7 @@ def bwd_sweep(torch, cs, which: str, bidir: bool) -> None:
         tol = cs.F32_TOL if cdt is None else cs.BF16_TOL
         points = []
         occupancy = bc.bidir_bwd_max_active_clusters if bidir else lc.bwd_max_active_clusters
-        for C in (2, 4, 8):  # the step cost against R, one wave of each geometry
+        for C in () if main_only else (2, 4, 8):  # the step cost against R, one wave each
             for R in (1, 2, 4, 8, 16, 18, 24, 35):
                 probe = lc.bwd_cluster_geometry(R, H, C, R, cdt, optin, dirs=dirs)
                 if probe is None:
@@ -198,12 +200,6 @@ def bwd_sweep(torch, cs, which: str, bidir: bool) -> None:
         for rows in (16, 512):
             points.append((rows, cs.bwd_geometry_line(bc if bidir else lc, rows, H, cdt)))
             points.append((rows, lc.bwd_stream_geometry(rows, H, sms, dirs)))
-            if cdt is not None:
-                simt = lc.bwd_geometry(rows, H, cdt, sms, optin, None, dirs, design="simt")
-                slots = {simt["C"]: (bc.bidir_bwd_max_active_clusters if bidir else
-                                     lc.bwd_max_active_clusters)("cuda", rows, H, cdt, simt)}
-                points.append((rows, lc.bwd_geometry(rows, H, cdt, sms, optin, slots, dirs,
-                                                     design="simt")))
         for rows, geo in points:
             if bidir:
                 a = cs.pool_bwd_args(torch, bc, rows, cdt, g)
@@ -220,7 +216,6 @@ def bwd_sweep(torch, cs, which: str, bidir: bool) -> None:
             ms = device_ms(torch, lambda: fused(*a, cdt, geometry=geo))
             cluster = geo["route"] == "cluster"
             rec = {"kernel": kernel, "rows": rows, "dtype": name, "route": geo["route"],
-                   "design": ("mma" if geo.get("rpt") == 16 else "simt") if cluster else "stream",
                    "C": geo.get("C"), "R": geo["R"], "rpt": geo.get("rpt"),
                    "threads": geo["threads"], "blocks": geo["blocks"], "smem": geo.get("smem"),
                    "max_active_clusters": geo.get("max_active_clusters"), "device_ms": ms,

@@ -54,3 +54,19 @@ def test_every_entry_of_the_lstm_sources_is_bound():
     for lib in ("lstm_fwd", "lstm_bwd", "bilstm_fwd", "bilstm_bwd"):
         for entry in re.findall(r"^int (dn_\w+)\(", (CSRC / f"{lib}.cu").read_text(), re.MULTILINE):
             assert (lib, entry) in bound, f"{entry} of csrc/{lib}.cu has no ctypes list"
+
+
+@pytest.mark.parametrize("lib,entry", [("lstm_bwd", "dn_lstm_bwd"),
+                                       ("bilstm_bwd", "dn_bilstm_pool_bwd")])
+def test_the_bptt_entries_take_a_route_record_and_a_phase_clock(lib, entry):
+    """K2 and K6 take their route (cluster or stream) and geometry as a
+    record, and the cluster route's phase clock, before the stream; each has
+    an occupancy entry beside it."""
+    src = (CSRC / f"{lib}.cu").read_text()
+    params = re.search(rf"^int {entry}\(([^)]*)\)", src, re.MULTILINE).group(1).split(",")
+    assert [p.split()[-1] for p in params[-3:]] == ["geom", "prof", "stream"]
+    bound = {e for _, e, _ in ENTRIES}
+    assert entry in bound
+    occupancy = entry.replace("_pool_bwd", "_bwd") + "_max_active_clusters"
+    assert occupancy in bound
+    assert re.search(rf"^int {occupancy}\(", src, re.MULTILINE)
