@@ -405,16 +405,17 @@ def split_bwd(out):
     return [dp[..., k * h:(k + 1) * h] for k in range(4)] + [dh0, dc0]
 
 
-def bwd_geometry_line(mod, rows: int, h: int, cdt, geometry=None) -> dict:
-    """K2's (``mod`` lstm_cuda) or K6's (``mod`` bilstm_cuda) launcher
-    geometry for ``rows`` rows of width ``h`` on this card, with
-    cudaOccupancyMaxActiveClusters of its configuration."""
-    if hasattr(mod, "device_bidir_bwd_geometry"):
-        g = dict(geometry or mod.device_bidir_bwd_geometry("cuda", rows, h, cdt))
-        g["max_active_clusters"] = mod.bidir_bwd_max_active_clusters("cuda", rows, h, cdt, g)
-    else:
-        g = dict(geometry or mod.device_bwd_geometry("cuda", rows, h, cdt))
-        g["max_active_clusters"] = mod.bwd_max_active_clusters("cuda", rows, h, cdt, g)
+def bwd_geometry_line(dirs: int, rows: int, h: int, cdt, geometry=None) -> dict:
+    """K2's (``dirs`` 1) or K6's (2) launcher geometry for ``rows`` rows of
+    width ``h`` on this card, with cudaOccupancyMaxActiveClusters of its
+    configuration."""
+    from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
+    from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
+
+    pick, occupancy = ((bc.device_bidir_bwd_geometry, bc.bidir_bwd_max_active_clusters)
+                       if dirs == 2 else (lc.device_bwd_geometry, lc.bwd_max_active_clusters))
+    g = dict(geometry or pick("cuda", rows, h, cdt))
+    g["max_active_clusters"] = occupancy("cuda", rows, h, cdt, g)
     return g
 
 
@@ -433,7 +434,7 @@ def bwd_phase(torch, lc) -> list[dict]:
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
             args = bwd_args(torch, lc, rows, cdt, g)
-            geo = bwd_geometry_line(lc, rows, H, cdt)
+            geo = bwd_geometry_line(1, rows, H, cdt)
             want = split_bwd(lc.lstm_bwd_plain(*args, cdt))
             got = lc.lstm_bwd_fused(*args, cdt)
             torch.cuda.synchronize()
@@ -454,11 +455,12 @@ def bwd_phase(torch, lc) -> list[dict]:
                    "stream_max_abs_err": stream_err,
                    "step_phases": lc.bwd_phase_profile(*args, cdt)
                    if geo["route"] == "cluster" else None,
-                   "plain_ms": plain_ms, **library, "library": "cuDNN LSTM backward, also dx and dW",
-                   "bound_ms": b_ms, "bound_by": b_by, "geometry": geo, "stream_geometry": stream}
+                   "plain_ms": plain_ms, **library,
+                   "library": "cuDNN LSTM backward, also dx and dW", "bound_ms": b_ms,
+                   "bound_by": b_by, "geometry": geo, "stream_geometry": stream}
             print(json.dumps(rec))
             out.append(rec)
-    bwd_coverage_phase(torch, lc, g)
+    bwd_coverage_phase(torch, 1, g)
     return out
 
 
@@ -469,31 +471,31 @@ def bwd_phase(torch, lc) -> list[dict]:
 # bf16 (the tensor cores): 1, 2, 3 m-tiles, clusters of 2, 4, 8, an odd H.
 BWD_COVERAGE = [(H, None, 4, 1), (H, None, 4, 2), (H, None, 4, 3), (H, None, 4, 8),
                 (H, None, 4, 13), (H, None, 4, 18), (H, None, 4, 35), (128, None, 2, 5),
-                (256, None, 8, 7), (175, None, 4, 6), (H, "bf16", 2, 1), (H, "bf16", 2, 20), (H, "bf16", 4, 40),
-                (256, "bf16", 8, 10), (175, "bf16", 2, 17)]
+                (256, None, 8, 7), (175, None, 4, 6), (H, "bf16", 2, 1), (H, "bf16", 2, 20),
+                (H, "bf16", 4, 40), (256, "bf16", 8, 10), (175, "bf16", 2, 17)]
 
 
-def bwd_coverage_phase(torch, mod, g) -> None:
-    """Untimed: K2 (``mod`` lstm_cuda) or K6 (bilstm_cuda) on every geometry
-    of :data:`BWD_COVERAGE`, three clusters a direction with a ragged last
-    one, every output against the plain version; then the stream route at
-    H = 400, whose W_hhᵀ slice fits no cluster of 8 in f32, at each of its
-    rows a block (1, 2, 4, 8) as the launcher picks it, and in bf16 by
-    request (bf16's slice fits a cluster of 8)."""
+def bwd_coverage_phase(torch, dirs: int, g) -> None:
+    """Untimed: K2 (``dirs`` 1) or K6 (2) on every geometry of
+    :data:`BWD_COVERAGE`, three clusters a direction with a ragged last one,
+    every output against the plain version; then the stream route at H =
+    400, whose W_hhᵀ slice fits no cluster of 8 in f32, at each of its rows
+    a block (1, 2, 4, 8) as the launcher picks it, and in bf16 by request
+    (bf16's slice fits a cluster of 8)."""
+    from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
 
-    k6 = hasattr(mod, "device_bidir_bwd_geometry")
-    dirs = 2 if k6 else 1
+    k6 = dirs == 2
     sms, optin = lc.device_limits("cuda")
     bf = torch.bfloat16
     name = "bilstm_pool_bwd" if k6 else "lstm_bwd"
-    fused = mod.bilstm_pool_bwd_fused if k6 else mod.lstm_bwd_fused
+    fused = bc.bilstm_pool_bwd_fused if k6 else lc.lstm_bwd_fused
 
     def check(rows, h, cdt, geometry, what):
-        args = (pool_bwd_args(torch, mod, rows, cdt, g, h) if k6
-                else bwd_args(torch, mod, rows, cdt, g, h))
-        want = mod.bilstm_bwd_plain(*pool_plain_args(args), cdt) if k6 else \
-            mod.lstm_bwd_plain(*args, cdt)
+        args = (pool_bwd_args(torch, bc, rows, cdt, g, h) if k6
+                else bwd_args(torch, lc, rows, cdt, g, h))
+        want = bc.bilstm_bwd_plain(*pool_plain_args(args), cdt) if k6 else \
+            lc.lstm_bwd_plain(*args, cdt)
         got = fused(*args, cdt, geometry=geometry)
         split = (lambda o: o) if k6 else split_bwd
         names = BIDIR_BWD_OUTPUTS if k6 else BWD_OUTPUTS
@@ -514,7 +516,7 @@ def bwd_coverage_phase(torch, mod, g) -> None:
         check(rows, h, cdt, geo, "cluster geometry")
     for R in (1, 2, 4, 8):
         rows = R * (sms // dirs) - 1
-        geo = bwd_geometry_line(mod, rows, STREAM_H, None)
+        geo = bwd_geometry_line(dirs, rows, STREAM_H, None)
         if geo["route"] != "stream" or geo["R"] != R:
             fail(f"{name} geometry for rows={rows} H={STREAM_H}: {geo}, expected the stream "
                  f"route at R={R}")
@@ -1283,7 +1285,7 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
 
             pb = list(bidir_bwd_args(torch, bc, args, cdt, g, const=True))
             pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
-            geo = bwd_geometry_line(bc, rows, H, cdt)
+            geo = bwd_geometry_line(2, rows, H, cdt)
             stream = lc.bwd_stream_geometry(rows, H, sms, dirs=2)
             want = bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt)
             got = bc.bilstm_pool_bwd_fused(*pb, cdt)
@@ -1306,7 +1308,7 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
                    geometry=geo, stream_geometry=stream)
 
     bidir_coverage_phase(torch, bc, g)
-    bwd_coverage_phase(torch, bc, g)
+    bwd_coverage_phase(torch, 2, g)
     # untimed: K4 takes the fewest rows a block that keep both directions'
     # blocks within the SMs (rows / R <= SMs / 2): 16 and 512 above take 1
     # and 8; these take 2 and 4 (K3/K5 and K6 run here on their launcher's

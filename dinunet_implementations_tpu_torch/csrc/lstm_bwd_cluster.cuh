@@ -135,7 +135,7 @@ __device__ __forceinline__ BwdPlace bwd_place(const ClusterGeom& g, int B, int d
 
 // The (row, own unit) items of a thread in the cotangent phase, the same at
 // every step: unit mm = threadIdx.x % sk of rows r0, r0 + rl, ... (rl =
-// blockDim.x / sk row lanes; the last threadIdx.x % sk threads idle), so that
+// blockDim.x / sk row lanes; the last blockDim.x % sk threads idle), so that
 // consecutive threads touch consecutive units of a row and no step divides.
 struct BwdItems {
   int mm, r0, rl;
@@ -167,13 +167,13 @@ __device__ __forceinline__ float reduce_partials(cooperative_groups::cluster_gro
   return acc;
 }
 
-// Copies n values src(i) to dst[i], kLoadsInFlight loads in flight a
+// Hands src(i) to put(i, value) for i < n, kLoadsInFlight loads in flight a
 // thread: a block of few threads loads its W_hh^T slice from L2 without
 // waiting on each load in turn.
 constexpr int kLoadsInFlight = 16;
 
-template <typename T, typename Src>
-__device__ __forceinline__ void load_slice(T* dst, int n, Src src) {
+template <typename T, typename Src, typename Put>
+__device__ __forceinline__ void load_slice(int n, Src src, Put put) {
   for (int base = threadIdx.x; base < n; base += kLoadsInFlight * blockDim.x) {
     T v[kLoadsInFlight];
 #pragma unroll
@@ -184,7 +184,7 @@ __device__ __forceinline__ void load_slice(T* dst, int n, Src src) {
 #pragma unroll
     for (int u = 0; u < kLoadsInFlight; ++u) {
       const int i = base + u * blockDim.x;
-      if (i < n) dst[i] = v[u];
+      if (i < n) put(i, v[u]);
     }
   }
 }
@@ -193,8 +193,9 @@ __device__ __forceinline__ void load_slice(T* dst, int n, Src src) {
 // outside [0, T)) for this thread's unit and rows rb, rb + rl, ...: up to
 // kBwdChunk rows of i, f, o, g, c, c_prev and dhs, as f32, into v.
 template <typename S, typename DH>
-__device__ __forceinline__ void bwd_load(const BwdArgs& a, const BwdPlace& pl, const BwdItems& it,
-                                         int m0, int s, int rb, float (&v)[kBwdChunk][7]) {
+__device__ __forceinline__ void bwd_load(const BwdArgs& a, const BwdPlace& pl,
+                                         const BwdItems& it, int m0, int s, int rb,
+                                         float (&v)[kBwdChunk][7]) {
   const int T = a.T, B = a.B, H = a.H, j = m0 + it.mm;
   const int t = pl.dir ? s : T - 1 - s;
   const int tp = pl.dir ? t + 1 : t - 1;
@@ -240,7 +241,8 @@ __device__ __forceinline__ void bwd_cotangents(cooperative_groups::cluster_group
   const int t = pl.dir ? s : T - 1 - s;
   const long long carry = (long long)pl.dir * B * H + (long long)pl.row0 * H + j;
   const long long gd = 4LL * H * a.dirs;  // dp's row stride
-  S* dp = static_cast<S*>(a.dp) + ((long long)t * B + pl.row0) * gd + (long long)pl.dir * 4 * H + j;
+  S* dp = static_cast<S*>(a.dp) + ((long long)t * B + pl.row0) * gd + (long long)pl.dir * 4 * H +
+          j;
   for (int rb = it.r0; rb < pl.nrows; rb += kBwdChunk * it.rl) {
     float v[kBwdChunk][7], dh[kBwdChunk];
     bwd_load<S, DH>(a, pl, it, m0, s, rb, v);
@@ -299,8 +301,9 @@ __device__ __forceinline__ void bwd_terminal(cooperative_groups::cluster_group& 
 }
 
 // the seed of the dc carry of this thread's items, from dcT
-__device__ __forceinline__ void bwd_seed(const BwdArgs& a, const BwdPlace& pl, const ClusterGeom& g,
-                                         const BwdItems& it, int m0, float* dcc) {
+__device__ __forceinline__ void bwd_seed(const BwdArgs& a, const BwdPlace& pl,
+                                         const ClusterGeom& g, const BwdItems& it, int m0,
+                                         float* dcc) {
   if (!it.active) return;
   const long long carry = (long long)pl.dir * a.B * a.H + m0 + it.mm;
   for (int r = it.r0; r < pl.nrows; r += it.rl)
@@ -331,10 +334,13 @@ __global__ void __launch_bounds__(kBwdSimtThreads, 1) bwd_cluster_kernel(BwdArgs
   const int m0 = g.j0[rank], sk = g.j0[rank + 1] - m0, cols = 4 * sk;
   // W_hh^T[k, m0 + c % sk, :] of the direction once: row c is gate c / sk
   const float* wT = static_cast<const float*>(a.wT) + (long long)pl.dir * 4 * a.swk;
-  load_slice(ws, cols * hw, [&](int idx) {
-    const int c = idx / hw, j = idx - c * hw, k = c / sk;
-    return j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j] : 0.f;
-  });
+  load_slice<float>(
+      cols * hw,
+      [&](int idx) {
+        const int c = idx / hw, j = idx - c * hw, k = c / sk;
+        return j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j] : 0.f;
+      },
+      [&](int idx, float v) { ws[idx] = v; });
   for (int idx = threadIdx.x; idx < 4 * smax * RP; idx += blockDim.x) dpo[idx] = 0.f;
   const BwdItems it = bwd_items(sk);
   bwd_seed(a, pl, g, it, m0, dcc);
@@ -446,19 +452,17 @@ __global__ void __launch_bounds__(kBwdMmaThreads) bwd_cluster_mma_kernel(BwdArgs
   // zero beyond H and 4 sk (consecutive threads read consecutive j)
   const __nv_bfloat16* wT = static_cast<const __nv_bfloat16*>(a.wT) + (long long)pl.dir * 4 * a.swk;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int base = threadIdx.x; base < ks * nb; base += kLoadsInFlight * blockDim.x) {
-    __nv_bfloat16 v[kLoadsInFlight];
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int idx = base + u * blockDim.x, c = idx / nb, j = idx - c * nb, k = c / sk;
-      v[u] = c < cols && j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j] : zero;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadsInFlight; ++u) {
-      const int idx = base + u * blockDim.x, c = idx / nb;
-      if (idx < ks * nb) wB[(idx - c * nb) * ks + c] = v[u];
-    }
-  }
+  load_slice<__nv_bfloat16>(
+      ks * nb,
+      [&](int idx) {
+        const int c = idx / nb, j = idx - c * nb, k = c / sk;
+        return c < cols && j < H ? wT[k * a.swk + (long long)(m0 + c - k * sk) * a.swm + j]
+                                 : zero;
+      },
+      [&](int idx, __nv_bfloat16 v) {
+        const int c = idx / nb;
+        wB[(idx - c * nb) * ks + c] = v;
+      });
   for (int idx = threadIdx.x; idx < RP * ks; idx += blockDim.x) dA[idx] = zero;
   const BwdItems it = bwd_items(sk);
   bwd_seed(a, pl, g, it, m0, dcc);
@@ -487,7 +491,8 @@ __global__ void __launch_bounds__(kBwdMmaThreads) bwd_cluster_mma_kernel(BwdArgs
     for (int pr = warp; pr < pairs; pr += warps) {
       const int na = 2 * pr, nbt = min(2 * pr + 1, NT - 1);
       const bool second = 2 * pr + 1 < NT;
-      const __nv_bfloat16* bp = wB + ((lane & 16 ? nbt : na) * 8 + (lane & 7)) * ks + ((lane >> 3) & 1) * 8;
+      const __nv_bfloat16* bp =
+          wB + ((lane & 16 ? nbt : na) * 8 + (lane & 7)) * ks + ((lane >> 3) & 1) * 8;
       const __nv_bfloat16* ap = dA + (lane & 15) * ks + (lane >> 4) * 8;
       float acc[MT][2][4] = {};
       for (int kt = 0; kt < KT; ++kt) {

@@ -72,6 +72,7 @@ import torch
 from . import _build
 from .lstm_cuda import (
     _CLUSTER_STATIC_SMEM,
+    BWD_PHASES,
     K1_CLUSTER_MAX_H,
     K1_CLUSTER_SIZES,
     SMEM_OPTIN,
@@ -83,7 +84,6 @@ from .lstm_cuda import (
     _launch_proj_mma,
     _site_weight,
     _stream_dtype,
-    BWD_PHASES,
     bwd_geometry,
     cluster_occupancy,
     device_limits,
@@ -710,20 +710,20 @@ def bilstm_pool_bwd_fused(ai2, af2, ao2, ag2, cs2, whh2, c02, dpoolf, dpoolr, dh
 
 def _k6(streams, whh2, c02, dpoolf, dpoolr, dhT2, dcT2, compute_dtype, geometry, prof=None):
     global POOL_BWD_LAUNCHES, BIDIR_BWD_CLUSTER_CALLS, BIDIR_BWD_STREAM_CALLS
-    fn = "bilstm_pool_bwd_fused"
+    fn, dev = "bilstm_pool_bwd_fused", streams[4].device
     sdt, T, B, H, wT = _bwd_checks(fn, streams, whh2, c02, dhT2, dcT2, compute_dtype)
     _check(all(tuple(d.shape) == (B, H) and d.dtype == torch.float32 and d.is_contiguous()
-               and d.device == streams[4].device for d in (dpoolf, dpoolr)),
+               and d.device == dev for d in (dpoolf, dpoolr)),
            f"dpoolf and dpoolr must be contiguous [{B}, {H}] float32", fn)
-    g = geometry or device_bidir_bwd_geometry(streams[4].device, B, H, compute_dtype)
+    g = geometry or device_bidir_bwd_geometry(dev, B, H, compute_dtype)
     _check(g.get("dirs") == 2, "the geometry is K2's (one direction)", fn)
-    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, streams[4].device)
-    with torch.cuda.device(streams[4].device):
+    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, dev)
+    with torch.cuda.device(dev):
         _launch("bilstm_bwd", "dn_bilstm_pool_bwd", 0 if sdt == torch.float32 else 1,
                 *(a.data_ptr() for a in streams), wT.data_ptr(), c02.data_ptr(),
                 dpoolf.data_ptr(), dpoolr.data_ptr(), dhT2.data_ptr(), dcT2.data_ptr(),
                 dp.data_ptr(), dh02.data_ptr(), dc02.data_ptr(), T, B, H, _geom_ints(g),
-                _ptr(prof), torch.cuda.current_stream(streams[4].device).cuda_stream)
+                _ptr(prof), torch.cuda.current_stream(dev).cuda_stream)
     POOL_BWD_LAUNCHES += 1
     if g["route"] == "cluster":
         BIDIR_BWD_CLUSTER_CALLS += 1

@@ -322,10 +322,10 @@ def _bwd_simt_config(R: int, H: int, C: int, smem_optin: int) -> dict | None:
     (``bwd_smem_bytes``) that carries ``R`` rows, or None if none fits, all
     f32: the W_hhᵀ slice ``[4·smax, hw]`` (``hw`` = H rounded up to even),
     dp transposed ``[4·smax, rp]``, the partials ``[2, R, hw]`` and the dc
-    carry ``[R, smax]``. Each thread a tile of 2 output
-    columns by ``rpt`` rows: ``cp`` = H/2 column pairs rounded up to a warp,
-    ``threads = cp · row_groups``. Of 8, 4, 2, 1 rows a thread, the one that
-    pads the fewest rows within the kernel's thread bound."""
+    carry ``[R, smax]``. Each thread a tile of 2 output columns by ``rpt``
+    rows: ``cp`` = H/2 column pairs rounded up to a warp, ``threads = cp ·
+    row_groups``. Of 8, 4, 2, 1 rows a thread, the one that pads the fewest
+    rows within the kernel's thread bound."""
     smax = _cdiv(H, C)
     hw = H + (H & 1)
     cp = _cdiv(_cdiv(H, 2), 32) * 32

@@ -20,12 +20,12 @@ cluster geometries of both directions in one wave, the launcher's at rows
 projection of both directions alone and ``bidir_phase_profile``. With
 ``--bwd`` the backward: K2 (``lstm_bwd_fused``; with ``--bidir`` K6,
 ``bilstm_pool_bwd_fused``) on cluster geometries of one wave (the time
-against R gives the cost of a step; not with ``--main``), on the launcher's
-at rows 16 and 512,
-and on the stream route (the first design), each point held against the
-plain version, timed as above, with the µs a step and the phase clock (``bwd_phase_profile`` / ``bidir_bwd_phase_profile``). One
-JSON line per point, then the card's name and power limit; it needs one
-CUDA card and imports nothing of JAX.
+against R gives the cost of a step; not with ``--main``), on the
+launcher's at rows 16 and 512 and on the stream route (the first design),
+each point held against the plain version, timed as above, with the µs a
+step and the phase clock (``bwd_phase_profile`` /
+``bidir_bwd_phase_profile``). One JSON line per point, then the card's
+name and power limit; it needs one CUDA card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -198,7 +198,7 @@ def bwd_sweep(torch, cs, which: str, bidir: bool, main_only: bool = False) -> No
                 points.append((per * R, lc.bwd_cluster_geometry(per * R, H, C, R, cdt, optin,
                                                                 dirs * per, dirs)))
         for rows in (16, 512):
-            points.append((rows, cs.bwd_geometry_line(bc if bidir else lc, rows, H, cdt)))
+            points.append((rows, cs.bwd_geometry_line(dirs, rows, H, cdt)))
             points.append((rows, lc.bwd_stream_geometry(rows, H, sms, dirs)))
         for rows, geo in points:
             if bidir:

@@ -218,6 +218,11 @@ def _check(got, want, names, tol):
 T, D, H, B, S = 6, 5, 10, 5, 2
 
 
+def _split_bwd(dp, dh0, dc0):
+    """One direction's dp as its four gate blocks, then dh0, dc0."""
+    return [dp[..., k * H:(k + 1) * H] for k in range(4)] + [dh0, dc0]
+
+
 def _small_geometry(rows, cdt, dirs):
     """Clusters of 4 over H = 10 (ragged slices 3/3/2/2) and R = 4 rows (a
     ragged last cluster): the kernel's record for this shape."""
@@ -242,12 +247,11 @@ def test_one_direction_with_a_dhs_stream_matches_the_plain_bwd_and_pallas(cdt, e
     got = _bptt_emulation(*(a[None] for a in port), torch.from_numpy(whh4)[None],
                           torch.from_numpy(c0)[None], [_t(dhs, sdt)], torch.from_numpy(dhT)[None],
                           torch.from_numpy(dcT)[None], _small_geometry(B, cdt, 1), cdt)
-    split = lambda dp, dh0, dc0: [dp[..., k * H:(k + 1) * H] for k in range(4)] + [dh0, dc0]  # noqa: E731
     names = ("dp_i", "dp_f", "dp_o", "dp_g", "dh0", "dc0")
-    got = split(got[0], got[1][0], got[2][0])
+    got = _split_bwd(got[0], got[1][0], got[2][0])
     plain = tl.lstm_bwd_plain(*port, torch.from_numpy(whh4), torch.from_numpy(c0), _t(dhs, sdt),
                               torch.from_numpy(dhT), torch.from_numpy(dcT), tdt)
-    _check(got, [a.float().numpy() for a in split(*plain)], names, emul_tol)
+    _check(got, [a.float().numpy() for a in _split_bwd(*plain)], names, emul_tol)
     want = jl._bwd_callable(cdt)(*acts, jnp.asarray(whh4), jnp.asarray(c0), dhs, jnp.asarray(dhT),
                                  jnp.asarray(dcT))
     _check(got, want, names, tol)
