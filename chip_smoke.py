@@ -110,6 +110,16 @@ F32_TOL = 1e-4
 # can flip the last bit of a bf16 stream value (2**-8 relative), and the
 # bf16 h fed back carries that flip into later steps
 BF16_TOL = 3e-2
+# The bf16 cluster BPTT (K2, K6) is also held to a share of each output's
+# largest |value|, since BF16_TOL exceeds a typical dp (~1e-2) or dh carry
+# (~2e-2) at the smoke's cotangents: a fault in the tensor-core product (a
+# dropped k-tile, a missed n-tile, a rank left out of the reduce-scatter)
+# would pass it. The kernel multiplies the same bf16 operands as the plain
+# version and sums in f32, in another order: its dp differ by last-bit
+# flips (a bf16 ulp is 2**-8 to 2**-7 of the value), its f32 dh0 and dc0 by
+# less. 2 % is two ulps at the largest value. scripts/torch_bwd_mutants.py
+# plants such faults in a copy of the kernel and shows that each fails it.
+BWD_BF16_SHARE = 2e-2
 SERVE_TOL = 1e-4
 # a width whose W_hh slice fits no cluster of 8 in f32: K1's streaming route
 STREAM_H = 400
@@ -235,6 +245,21 @@ def compare(what: str, got, want, names, tol: float) -> float:
             fail(f"{what} output {name}: max abs err {d.max().item()}")
         err = max(err, d.max().item())
     return err
+
+
+def share_check(what: str, got, want, names, share: float) -> float:
+    """The largest over the outputs of max |got - want| over max |want|;
+    fails where one is more than ``share`` (after :func:`compare`, which
+    checks shapes and finiteness)."""
+    worst = 0.0
+    for name, a, b in zip(names, got, want, strict=True):
+        scale = b.float().abs().max().item()
+        d = (a.float() - b.float()).abs().max().item()
+        if d > share * scale:
+            fail(f"{what} output {name}: max abs err {d} is more than {share} of its largest "
+                 f"|value| {scale}")
+        worst = max(worst, d / scale if scale else 0.0)
+    return worst
 
 
 def recurrence_args(torch, rows: int, g, h: int = H):
@@ -399,6 +424,14 @@ def bwd_args(torch, lc, rows: int, cdt, g, h: int = H):
     return i, f, o, gg, cs, whh4, c0, cot(T, rows, h).to(sdt), cot(rows, h), cot(rows, h)
 
 
+def bwd_share(what: str, route: str, cdt, got, want, names) -> float | None:
+    """:func:`share_check` at :data:`BWD_BF16_SHARE` of a bf16 call on the
+    cluster route; None for any other."""
+    if cdt is None or route != "cluster":
+        return None
+    return share_check(f"{what} cluster", got, want, names, BWD_BF16_SHARE)
+
+
 def split_bwd(out):
     dp, dh0, dc0 = out
     h = dh0.shape[-1]
@@ -440,6 +473,8 @@ def bwd_phase(torch, lc) -> list[dict]:
             torch.cuda.synchronize()
             err = compare(f"lstm_bwd rows={rows} {cdt} {geo['route']}", split_bwd(got), want,
                           BWD_OUTPUTS, tol)
+            share = bwd_share(f"lstm_bwd rows={rows} {cdt}", geo["route"], cdt, split_bwd(got),
+                              want, BWD_OUTPUTS)
             got = lc.lstm_bwd_fused(*args, cdt, geometry=stream)
             torch.cuda.synchronize()
             stream_err = compare(f"lstm_bwd rows={rows} {cdt} stream", split_bwd(got), want,
@@ -450,7 +485,7 @@ def bwd_phase(torch, lc) -> list[dict]:
             library = library_lstm_bwd_ms(torch, rows, g, cdt)
             b_ms, b_by = bwd_bound(rows, cdt is not None)
             rec = {"kernel": "lstm_bwd", "rows": rows, "dtype": "bf16" if cdt else "f32",
-                   "max_abs_err": err, "ms": ms, "route": geo["route"],
+                   "max_abs_err": err, "bf16_max_share": share, "ms": ms, "route": geo["route"],
                    "stream_ms": time_ms(lambda: lc.lstm_bwd_fused(*args, cdt, geometry=stream), 30),
                    "stream_max_abs_err": stream_err,
                    "step_phases": lc.bwd_phase_profile(*args, cdt)
@@ -501,9 +536,11 @@ def bwd_coverage_phase(torch, dirs: int, g) -> None:
         names = BIDIR_BWD_OUTPUTS if k6 else BWD_OUTPUTS
         err = compare(f"{name} {what} rows={rows} H={h} {cdt}", split(got), split(want), names,
                       F32_TOL if cdt is None else BF16_TOL)
+        share = bwd_share(f"{name} {what} rows={rows} H={h} {cdt}", (geometry or {}).get("route"),
+                          cdt, split(got), split(want), names)
         print(json.dumps({"check": f"{name} {what}", "rows": rows, "H": h,
                           "dtype": "bf16" if cdt else "f32", "max_abs_err": err,
-                          "geometry": geometry}))
+                          "bf16_max_share": share, "geometry": geometry}))
 
     seen = set()
     for h, dt, C, R in BWD_COVERAGE:
@@ -1292,6 +1329,8 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
             torch.cuda.synchronize()
             err = compare(f"bilstm_pool_bwd rows={rows} {cdt} {geo['route']}", got, want,
                           BIDIR_BWD_OUTPUTS, tol)
+            share = bwd_share(f"bilstm_pool_bwd rows={rows} {cdt}", geo["route"], cdt, got, want,
+                              BIDIR_BWD_OUTPUTS)
             got = bc.bilstm_pool_bwd_fused(*pb, cdt, geometry=stream)
             torch.cuda.synchronize()
             stream_err = compare(f"bilstm_pool_bwd rows={rows} {cdt} stream", got, want,
@@ -1299,7 +1338,7 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
             del got, want
             record("bilstm_pool_bwd", rows, cdt, err, lambda: bc.bilstm_pool_bwd_fused(*pb, cdt),
                    lambda: bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt), 5, bwd_lib,
-                   route=geo["route"],
+                   route=geo["route"], bf16_max_share=share,
                    stream_ms=time_ms(lambda: bc.bilstm_pool_bwd_fused(*pb, cdt, geometry=stream),
                                      30),
                    stream_max_abs_err=stream_err,

@@ -184,33 +184,39 @@ __global__ void __launch_bounds__(1024) bilstm_bwd_kernel(Args a) {
   }
 }
 
+// geom: K6's stream record (ops/lstm_cuda.py:bwd_stream_geometry), whose
+// rows a block, threads and shared memory are launched as it says or the
+// record is refused; null for K4, which picks its rows a block here.
 template <typename S, typename DH, int R>
-cudaError_t launch(const Args& a, int dev, const DeviceInfo& info, cudaStream_t stream) {
+cudaError_t launch(const Args& a, const int* geom, int dev, const DeviceInfo& info,
+                   cudaStream_t stream) {
   // the largest dynamic shared memory this instance was opened up to, by device
   static std::atomic<int> smem_set[kMaxDevices];
   const size_t smem = sizeof(float) * (size_t)R * (4 * a.H + 4 * a.H + 2 * a.H);
-  cudaError_t err = open_smem(bilstm_bwd_kernel<S, DH, R>, smem, dev, info, smem_set);
-  if (err != cudaSuccess) return err;
   int threads = ((4 * a.H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
+  if (geom && (geom[5] != threads || (size_t)geom[6] != smem)) return cudaErrorInvalidValue;
+  cudaError_t err = open_smem(bilstm_bwd_kernel<S, DH, R>, smem, dev, info, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((a.B + R - 1) / R, 2);
   bilstm_bwd_kernel<S, DH, R><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S, typename DH>
-cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
+cudaError_t dispatch_rows(const Args& a, const int* geom, cudaStream_t stream) {
   int dev = 0;
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
   // the forward's choice: two directions, each over half of the SMs
   const int half = info->sms.load() / 2 > 0 ? info->sms.load() / 2 : 1;
-  switch (rows_per_block(a.B, half)) {
-    case 1: return launch<S, DH, 1>(a, dev, *info, stream);
-    case 2: return launch<S, DH, 2>(a, dev, *info, stream);
-    case 4: return launch<S, DH, 4>(a, dev, *info, stream);
-    default: return launch<S, DH, 8>(a, dev, *info, stream);
+  switch (geom ? geom[2] : rows_per_block(a.B, half)) {
+    case 1: return launch<S, DH, 1>(a, geom, dev, *info, stream);
+    case 2: return launch<S, DH, 2>(a, geom, dev, *info, stream);
+    case 4: return launch<S, DH, 4>(a, geom, dev, *info, stream);
+    case 8: return launch<S, DH, 8>(a, geom, dev, *info, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -241,8 +247,8 @@ int dn_bilstm_bwd(int dtype, const void* ai, const void* af, const void* ao, con
   const Args a = make_args(ai, af, ao, ag, cs, wT, c0, dhsf, sdtf, sdbf, dhsr, sdtr, sdbr,
                            dhT, dcT, dp, dh0, dc0, T, B, H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_rows<float, float>(a, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(a, s);
+  if (dtype == 0) return dispatch_rows<float, float>(a, nullptr, s);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(a, nullptr, s);
   return cudaErrorInvalidValue;
 }
 
@@ -250,7 +256,8 @@ int dn_bilstm_bwd(int dtype, const void* ai, const void* af, const void* ao, con
 // divided by T, taken as a per-row constant at every step. geom: the route
 // and its geometry (kGeomLen ints, ops/bilstm_cuda.py:bidir_bwd_geometry):
 // [0] 1 the cluster route (lstm_bwd_cluster.cuh, half of the clusters a
-// direction), 0 the stream route (bilstm_bwd_kernel above). prof: null, or
+// direction), 0 the stream route (bilstm_bwd_kernel above, at [2] rows a
+// block, [5] threads and [6] bytes of shared memory). prof: null, or
 // the cluster route's phase clock [5 T + 2] (int64, direction 0's block 0).
 int dn_bilstm_pool_bwd(int dtype, const void* ai, const void* af, const void* ao,
                        const void* ag, const void* cs, const void* wT, const void* c0,
@@ -270,8 +277,8 @@ int dn_bilstm_pool_bwd(int dtype, const void* ai, const void* af, const void* ao
   if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
   const Args a = make_args(ai, af, ao, ag, cs, wT, c0, dpoolf, 0, H, dpoolr, 0, H,
                            dhT, dcT, dp, dh0, dc0, T, B, H);
-  if (dtype == 0) return dispatch_rows<float, float>(a, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16, float>(a, s);
+  if (dtype == 0) return dispatch_rows<float, float>(a, geom, s);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16, float>(a, geom, s);
   return cudaErrorInvalidValue;
 }
 

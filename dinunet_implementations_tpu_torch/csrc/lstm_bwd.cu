@@ -173,31 +173,37 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(Args a) {
   }
 }
 
+// The stream record (ops/lstm_cuda.py:bwd_stream_geometry) gives the rows a
+// block, the threads and the shared memory; a record this launcher would
+// not launch as it says is refused.
 template <typename S, int R>
-cudaError_t launch(const Args& a, int dev, const DeviceInfo& info, cudaStream_t stream) {
+cudaError_t launch(const Args& a, const int* geom, int dev, const DeviceInfo& info,
+                   cudaStream_t stream) {
   // the largest dynamic shared memory this instance was opened up to, by device
   static std::atomic<int> smem_set[kMaxDevices];
   const size_t smem = sizeof(float) * (size_t)R * (4 * a.H + 4 * a.H + 2 * a.H);
-  cudaError_t err = open_smem(lstm_bwd_kernel<S, R>, smem, dev, info, smem_set);
-  if (err != cudaSuccess) return err;
   int threads = ((4 * a.H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
+  if (geom[5] != threads || (size_t)geom[6] != smem) return cudaErrorInvalidValue;
+  cudaError_t err = open_smem(lstm_bwd_kernel<S, R>, smem, dev, info, smem_set);
+  if (err != cudaSuccess) return err;
   const int blocks = (a.B + R - 1) / R;
   lstm_bwd_kernel<S, R><<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename S>
-cudaError_t dispatch_rows(const Args& a, cudaStream_t stream) {
+cudaError_t dispatch_rows(const Args& a, const int* geom, cudaStream_t stream) {
   int dev = 0;
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
-  switch (rows_per_block(a.B, info->sms.load())) {
-    case 1: return launch<S, 1>(a, dev, *info, stream);
-    case 2: return launch<S, 2>(a, dev, *info, stream);
-    case 4: return launch<S, 4>(a, dev, *info, stream);
-    default: return launch<S, 8>(a, dev, *info, stream);
+  switch (geom[2]) {
+    case 1: return launch<S, 1>(a, geom, dev, *info, stream);
+    case 2: return launch<S, 2>(a, geom, dev, *info, stream);
+    case 4: return launch<S, 4>(a, geom, dev, *info, stream);
+    case 8: return launch<S, 8>(a, geom, dev, *info, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -208,7 +214,8 @@ extern "C" {
 // dtype 0: f32 streams and W_hh^T; 1: bf16. c0, dhT, dcT, dh0, dc0 are f32.
 // geom: the route and its geometry (kGeomLen ints, ops/lstm_cuda.py:
 // bwd_geometry): [0] 1 the cluster route (lstm_bwd_cluster.cuh), 0 the
-// stream route (lstm_bwd_kernel above, which picks its own rows a block).
+// stream route (lstm_bwd_kernel above, at [2] rows a block, [5] threads and
+// [6] bytes of shared memory).
 // prof: null, or the cluster route's phase clock [5 T + 2] (int64).
 // Returns the cudaError_t of the launch (0 = launched).
 int dn_lstm_bwd(int dtype, const void* ai, const void* af, const void* ao, const void* ag,
@@ -229,8 +236,8 @@ int dn_lstm_bwd(int dtype, const void* ai, const void* af, const void* ao, const
   Args a{ai, af, ao, ag, cs, wT, swk, swm, static_cast<const float*>(c0),
          dhs, sdt, sdb, static_cast<const float*>(dhT), static_cast<const float*>(dcT),
          dp, static_cast<float*>(dh0), static_cast<float*>(dc0), T, B, H};
-  if (dtype == 0) return dispatch_rows<float>(a, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(a, s);
+  if (dtype == 0) return dispatch_rows<float>(a, geom, s);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16>(a, geom, s);
   return cudaErrorInvalidValue;
 }
 

@@ -536,33 +536,22 @@ __global__ void __launch_bounds__(kBwdMmaThreads) bwd_cluster_mma_kernel(BwdArgs
 // ---------------------------------------------------------------------------
 // launch
 
-// The launchers are static: lstm_bwd.cu and bilstm_bwd.cu each build a
-// library of their own from this header, and a template's function-local
-// static (the record of the shared memory its kernel was opened up to)
+// Launches the kernel instance K over the clusters of geometry g. The
+// launcher is static: lstm_bwd.cu and bilstm_bwd.cu each build a library of
+// their own from this header, and a template's function-local static (the
+// record of the shared memory K was opened up to, one for each instance K)
 // would otherwise be one object across the process (STB_GNU_UNIQUE): one
 // library's record would skip the other's cudaFuncSetAttribute.
-template <int RPT>
-static cudaError_t bwd_simt(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem,
-                          int dev, const DeviceInfo& info, cudaStream_t stream, int* max_active) {
+template <auto K>
+static cudaError_t bwd_launch(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem,
+                             int dev, const DeviceInfo& info, cudaStream_t stream,
+                             int* max_active) {
   static std::atomic<int> smem_set[kMaxDevices];
-  cudaError_t err = open_smem(bwd_cluster_kernel<RPT>, smem, dev, info, smem_set);
+  cudaError_t err = open_smem(K, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)a.dirs * ((a.B + g.R - 1) / g.R) * g.C;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cluster(bwd_cluster_kernel<RPT>, (unsigned)blocks, threads, smem, g.C, stream,
-                        max_active, a, g);
-}
-
-template <typename DH, int MT>
-static cudaError_t bwd_mma(const BwdArgs& a, const ClusterGeom& g, int threads, size_t smem,
-                          int dev, const DeviceInfo& info, cudaStream_t stream, int* max_active) {
-  static std::atomic<int> smem_set[kMaxDevices];
-  cudaError_t err = open_smem(bwd_cluster_mma_kernel<DH, MT>, smem, dev, info, smem_set);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)a.dirs * ((a.B + g.R - 1) / g.R) * g.C;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cluster(bwd_cluster_mma_kernel<DH, MT>, (unsigned)blocks, threads, smem, g.C,
-                        stream, max_active, a, g);
+  return launch_cluster(K, (unsigned)blocks, threads, smem, g.C, stream, max_active, a, g);
 }
 
 // The cluster route at the geometry record `geom` (ops/lstm_cuda.py:
@@ -591,9 +580,15 @@ cudaError_t bwd_cluster_run(int dtype, const BwdArgs& a, const int* geom, cudaSt
         (size_t)geom[6] != smem)
       return cudaErrorInvalidValue;
     switch (g.rg) {
-      case 1: return bwd_mma<DH, 1>(a, g, threads, smem, dev, *info, stream, max_active);
-      case 2: return bwd_mma<DH, 2>(a, g, threads, smem, dev, *info, stream, max_active);
-      case 3: return bwd_mma<DH, 3>(a, g, threads, smem, dev, *info, stream, max_active);
+      case 1:
+        return bwd_launch<bwd_cluster_mma_kernel<DH, 1>>(a, g, threads, smem, dev, *info, stream,
+                                                           max_active);
+      case 2:
+        return bwd_launch<bwd_cluster_mma_kernel<DH, 2>>(a, g, threads, smem, dev, *info, stream,
+                                                           max_active);
+      case 3:
+        return bwd_launch<bwd_cluster_mma_kernel<DH, 3>>(a, g, threads, smem, dev, *info, stream,
+                                                           max_active);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -603,10 +598,18 @@ cudaError_t bwd_cluster_run(int dtype, const BwdArgs& a, const int* geom, cudaSt
       (size_t)geom[6] != smem)
     return cudaErrorInvalidValue;
   switch (geom[3]) {
-    case 1: return bwd_simt<1>(a, g, threads, smem, dev, *info, stream, max_active);
-    case 2: return bwd_simt<2>(a, g, threads, smem, dev, *info, stream, max_active);
-    case 4: return bwd_simt<4>(a, g, threads, smem, dev, *info, stream, max_active);
-    case 8: return bwd_simt<8>(a, g, threads, smem, dev, *info, stream, max_active);
+    case 1:
+      return bwd_launch<bwd_cluster_kernel<1>>(a, g, threads, smem, dev, *info, stream,
+                                                max_active);
+    case 2:
+      return bwd_launch<bwd_cluster_kernel<2>>(a, g, threads, smem, dev, *info, stream,
+                                                max_active);
+    case 4:
+      return bwd_launch<bwd_cluster_kernel<4>>(a, g, threads, smem, dev, *info, stream,
+                                                max_active);
+    case 8:
+      return bwd_launch<bwd_cluster_kernel<8>>(a, g, threads, smem, dev, *info, stream,
+                                                max_active);
     default: return cudaErrorInvalidValue;
   }
 }

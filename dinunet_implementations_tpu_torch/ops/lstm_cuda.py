@@ -421,9 +421,10 @@ def bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132, smem_optin: int 
 def bwd_stream_geometry(rows: int, H: int, sms: int = 132, dirs: int = 1) -> dict:
     """The stream route, the first design: blocks of ``R`` (1, 2, 4, 8) rows
     a direction, the fewest that keep every direction's blocks within its
-    share of the SMs (the kernel picks ``R`` itself, as here), each block's
-    dp, partials and f32 carries in shared memory. Measurements may ask for
-    it."""
+    share of the SMs, each block's dp, partials and f32 carries in shared
+    memory. The C entry launches the record's ``R``, threads and shared
+    memory, and refuses a record whose threads or bytes differ from its
+    own. Measurements may ask for it."""
     R = 1
     while R < 8 and _cdiv(rows, R) > max(1, sms // dirs):
         R *= 2

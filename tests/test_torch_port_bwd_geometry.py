@@ -145,8 +145,13 @@ def test_geometry_record_is_what_the_c_entry_reads(dtype):
             assert g["smem"] == _c_smem(g, FLAGSHIP_H, dtype)
             if dtype is not None:  # at most 3 m-tiles; a warp for each pair of n-tiles
                 assert g["row_groups"] <= 3 and g["threads"] <= 384
+    # the stream route launches the record's rows a block and refuses
+    # threads or bytes other than its own: 4H threads to 32s, at most
+    # 1024, and 40 R H bytes (dp, partials and carries, f32)
     s = tl._geom_ints(tl.bwd_stream_geometry(512, 400))
     assert list(s)[:7] == [0, 0, 4, 0, 0, 1024, 64_000]
+    s = tl._geom_ints(tl.bwd_stream_geometry(16, FLAGSHIP_H))
+    assert list(s)[:7] == [0, 0, 1, 0, 0, 704, 6_960]
 
 
 def _bptt_emulation(ai, af, ao, ag, cs, whh, c0, dhs, dhT, dcT, g, cdt=None):
