@@ -45,20 +45,27 @@ result line:
    held against the same epochs through the kernels' plain versions on
    the card; epoch ms, samples/s and ms per round are printed;
 7. kernel ``poweriter`` (K7) against ``poweriter_plain`` at one rankDAD
-   round of the flagship: the r=10 class (7 leaves × 32 sites, six shape
+   round of the flagship: the r=10 class (7 leaves × 32 sites, seven
    buckets, nn.Linear weights read through transposed views) and the r=2
    class, with a dead site (G = 0) and a site of rank 2; f32 and bf16,
-   cold and warm Ω, tol 1e-3 and 0; P, Q, PQᵀ and the trip counts
-   compared; times of the kernel and the plain version and the bound; the
-   wrapper's refusals (a class over the shared-memory limit, a G with no
-   contiguous matrix axis); an r=17 class through the engine's
-   ``subspace_iteration_grouped``, which goes to the plain version by
-   shape (``POWERITER_PLAIN_CLASSES``) while an r=2 class launches K7;
+   cold and warm Ω, tol 1e-3 and 0, on the staged route the launcher picks
+   (two blocks an SM, one wave) and on the direct route; P, Q, PQᵀ and
+   the trip counts compared; times of both routes and the plain version,
+   the bound, the streamed floor and the staged route's phase clock; then,
+   untimed, ranks 1 and 16, row-major and transposed buckets, A's rows and
+   columns off every tile multiple, a class past half an SM and an
+   unaligned member (both direct by the geometry's rule) and the r=2 class
+   forced onto the direct route; the wrapper's refusals (a class over the
+   shared-memory limit, a G with no contiguous matrix axis); an r=17 class
+   through the engine's ``subspace_iteration_grouped``, which goes to the
+   plain version by shape (``POWERITER_PLAIN_CLASSES``) while an r=2
+   class launches K7;
 8. the rankDAD training slice: phase 6's two epochs with the rankDAD
    engine (rank 10, 5 refinements, tol 1e-3, warm starts) through K1, K2
    and K7, held against the all-plain path on the card the same way and
-   on Ω; K7 must launch once per rank class per round, no class may go to
-   the plain version, and K1 and K2 take the cluster route;
+   on Ω; K7 must launch once per rank class per round, all on the staged
+   route, no class may go to the plain version, and K1 and K2 take the
+   cluster route;
 9. kernels ``bilstm_fwd`` (K3), ``bilstm_pool_fwd`` (K5), ``bilstm_bwd``
    (K4) and ``bilstm_pool_bwd`` (K6) against their plain versions, every
    output and K5's pool, f32 and bf16, K3/K5 at rows 1, 16 and 512 and
@@ -812,6 +819,7 @@ def zero_counters(lc, pc, bc) -> None:
     from dinunet_implementations_tpu_torch.engines import lowrank
 
     lc.LAUNCHES = lc.BWD_LAUNCHES = pc.POWERITER_LAUNCHES = 0
+    pc.POWERITER_STAGED_CALLS = pc.POWERITER_DIRECT_CALLS = 0
     lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
     lc.BWD_CLUSTER_CALLS = lc.BWD_STREAM_CALLS = 0
     lowrank.POWERITER_PLAIN_CLASSES = 0
@@ -823,14 +831,16 @@ def zero_counters(lc, pc, bc) -> None:
 
 def read_counters(lc, pc, bc) -> dict:
     """Kernel launches, and the static routes: K1's and K3/K5's recurrences
-    and K2's and K6's BPTT over a cluster or streamed, rank classes sent to
-    the plain power iteration."""
+    and K2's and K6's BPTT over a cluster or streamed, K7 staged or direct,
+    rank classes sent to the plain power iteration."""
     from dinunet_implementations_tpu_torch.engines import lowrank
 
     return {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
             "k1_cluster_route": lc.K1_CLUSTER_CALLS, "k1_stream_route": lc.K1_STREAM_CALLS,
             "lstm_bwd": lc.BWD_LAUNCHES, "k2_cluster_route": lc.BWD_CLUSTER_CALLS,
             "k2_stream_route": lc.BWD_STREAM_CALLS, "poweriter": pc.POWERITER_LAUNCHES,
+            "k7_staged_route": pc.POWERITER_STAGED_CALLS,
+            "k7_direct_route": pc.POWERITER_DIRECT_CALLS,
             "poweriter_plain_classes": lowrank.POWERITER_PLAIN_CLASSES,
             "bilstm_fwd": bc.BIDIR_FWD_LAUNCHES, "bilstm_bwd": bc.BIDIR_BWD_LAUNCHES,
             "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES,
@@ -920,7 +930,8 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
     else:  # one K1 and one K2 per direction and micro-batch, both on the cluster route
         n = 2 * sum(rounds) * L
         want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n, k2_cluster_route=n)
-    want["poweriter"] = classes * sum(rounds)
+    # one K7 a rank class and round, all on the staged route
+    want["poweriter"] = want["k7_staged_route"] = classes * sum(rounds)
     if launches != want:
         fail(f"training {engine} launches {launches}, want {want}")
     bad = [k for k, (_, ok) in checks.items() if not ok]
@@ -978,10 +989,12 @@ def k7_leaves(torch):
     return dict(sorted(classes.items()))
 
 
-def k7_gradients(torch, leaves, gen):
+def k7_gradients(torch, leaves, gen, sites: int = TRAIN_SITES, pad: int = 0):
     """Per leaf, the ``[S, m, n]`` matrix view the engine hands the kernel:
-    a transposed view of ``[S, n, m]`` storage for an ``nn.Linear`` weight."""
-    S, dev = TRAIN_SITES, torch.device("cuda")
+    a transposed view of ``[S, n, m]`` storage for an ``nn.Linear`` weight.
+    ``pad`` extra values a storage row leave G's contiguous axis a view of a
+    wider row (a row pitch that is not G's width)."""
+    S, dev = sites, torch.device("cuda")
     out = []
     for _, m, n, tr in leaves:
         k = min(K7_SIGNAL, m, n)
@@ -991,8 +1004,27 @@ def k7_gradients(torch, leaves, gen):
         G = (A * d) @ B / k ** 0.5 + K7_NOISE * torch.randn((S, m, n), generator=gen, device=dev)
         G[0] = 0.0
         G[1] = (A[1, :, :2] @ B[1, :2]) / k ** 0.5
-        out.append(G.transpose(1, 2).contiguous().transpose(1, 2) if tr else G.contiguous())
+        if tr:
+            store = torch.zeros((S, n, m + pad), device=dev)
+            store[..., :m] = G.transpose(1, 2)
+            out.append(store[..., :m].transpose(1, 2))
+        else:
+            store = torch.zeros((S, m, n + pad), device=dev)
+            store[..., :n] = G
+            out.append(store[..., :n])
     return out
+
+
+def k7_starts(torch, pc, leaves, Gs, r: int, gen):
+    """Cold Ω (the per-shape default draw, one for every site) and warm Ω
+    (the Q of a factorization of the last round's, perturbed, G)."""
+    from dinunet_implementations_tpu_torch.engines.lowrank import default_omega
+
+    cold = [default_omega((m, n), r, "cuda").expand(G.shape[0], n, r)
+            for (_, m, n, _), G in zip(leaves, Gs)]
+    prev = [G + 0.05 * G.abs().amax((1, 2), keepdim=True)
+            * torch.randn(G.shape, generator=gen, device="cuda") for G in Gs]
+    return cold, pc.poweriter_plain(prev, cold, K7_ITERS, 1e-3)[1]
 
 
 def k7_bound(Gs, r: int, trips, bf16: bool) -> tuple[float, str]:
@@ -1011,6 +1043,19 @@ def k7_bound(Gs, r: int, trips, bf16: bool) -> tuple[float, str]:
     tb = nbytes / HBM_BPS
     to = flop / (BF16_FLOPS if bf16 else F32_FLOPS)
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def k7_streamed_floor(Gs, trips) -> float:
+    """ms to read every member's G once a pass, ``2 + 2·trips`` passes, at
+    the HBM rate: the floor of a design that streams G (none keeps a
+    class's 122.9 MB on chip), beside the bound, which counts G once."""
+    t = trips.tolist()
+    nbytes, k = 0, 0
+    for G in Gs:
+        L, m, n = G.shape
+        nbytes += sum(4 * m * n * (2 + 2 * t[k + i]) for i in range(L))
+        k += L
+    return nbytes / HBM_BPS * 1e3
 
 
 def k7_errors(torch, Gs, r, got, want) -> dict:
@@ -1041,49 +1086,88 @@ def k7_errors(torch, Gs, r, got, want) -> dict:
     return e
 
 
+def k7_check(torch, what: str, Gs, r, got, want, dtype: str, trips: bool) -> dict:
+    """``k7_errors`` of a kernel call against the plain version, held to
+    ``K7_TOL``, the dead site exactly, and (``trips``) the trip counts to
+    ``K7_TRIPS_DIFFER_SHARE`` of the members."""
+    e = k7_errors(torch, Gs, r, got, want)
+    bad = [k for k, v in K7_TOL[dtype].items() if not e[k] <= v]
+    if e["dead_site"] != 0.0:
+        bad.append("dead_site")
+    if trips and e["trips_differ"] > K7_TRIPS_DIFFER_SHARE * sum(G.shape[0] for G in Gs):
+        bad.append("trips")
+    if bad:
+        fail(f"K7 {what} differs from the plain version in {bad}: {json.dumps(e)}")
+    return e
+
+
+K7_DESIGN = ("the staged route (poweriter_staged_kernel): one block a member, numbered largest "
+             "member first, two blocks an SM; G's row-major side A streams through a ring of "
+             "shared-memory stages filled by 16-byte cp.async copies, column bands of A for "
+             "A x (a thread a row) and row bands for A^T y (a thread 4 columns), sums in "
+             "registers with broadcast reads of the iterate, bf16 rounding once a pass; the "
+             "r x r chain in one warp (the direct route, the first design, for a class the "
+             "staged route does not take)")
+
+
+def k7_geometry_line(pc, Gs, r: int, mm) -> dict:
+    """The geometry the launcher picks for this class, by its own rule."""
+    return pc.device_k7_geometry("cuda", [tuple(G.shape) for G in Gs], r,
+                                 all(pc._aligned(G) for G in Gs),
+                                 [pc._row_major(G) for G in Gs], mm)
+
+
 def poweriter_phase(torch, pc) -> list[dict]:
     """K7 against its plain version at one round of the flagship's rank
-    classes (32 sites), f32 and bf16, cold and warm Ω, tol 1e-3 and 0;
-    times and bounds of the kernel and the plain version; and the
-    wrapper's refusals."""
-    from dinunet_implementations_tpu_torch.engines.lowrank import default_omega
-
+    classes (32 sites), f32 and bf16, cold and warm Ω, tol 1e-3 and 0, on
+    the staged route the launcher picks and on the direct route; times
+    (both routes), bounds, the streamed floor and the phase clock; the
+    coverage classes; the wrapper's refusals."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     out = []
     for r, leaves in k7_leaves(torch).items():
         Gs = k7_gradients(torch, leaves, gen)
-        cold = [default_omega((m, n), r, "cuda").expand(TRAIN_SITES, n, r)
-                for _, m, n, _ in leaves]
-        # warm Ω: the Q of a factorization of the last round's (perturbed) G
-        prev = [G + 0.05 * G.abs().amax((1, 2), keepdim=True)
-                * torch.randn(G.shape, generator=gen, device="cuda") for G in Gs]
-        warm = pc.poweriter_plain(prev, cold, K7_ITERS, 1e-3)[1]
+        cold, warm = k7_starts(torch, pc, leaves, Gs, r, gen)
+        direct = pc.k7_direct_geometry([tuple(G.shape) for G in Gs], r)
         for bf16 in (False, True):
             mm = torch.bfloat16 if bf16 else None
+            geo = k7_geometry_line(pc, Gs, r, mm)
+            if geo["route"] != "staged" or geo["blocks_per_sm"] != 2 or geo["waves"] != 1:
+                fail(f"K7 rank {r}: the flagship class is not staged at two blocks an SM in one "
+                     f"wave: {geo}")
             for start, oms in (("cold", cold), ("warm", warm)):
                 for tol in (1e-3, 0.0):
+                    n0 = pc.POWERITER_STAGED_CALLS
                     got = pc.poweriter_fused(Gs, oms, K7_ITERS, tol, mm)
+                    got_direct = pc.poweriter_fused(Gs, oms, K7_ITERS, tol, mm, geometry=direct)
                     torch.cuda.synchronize()
+                    if pc.POWERITER_STAGED_CALLS != n0 + 1:
+                        fail(f"K7 rank {r} did not take the staged route")
                     want = pc.poweriter_plain(Gs, oms, K7_ITERS, tol, mm)
-                    rec = {"kernel": "poweriter", "rank": r, "members": sum(G.shape[0] for G in Gs),
-                           "shapes": [list(G.shape) for G in Gs],
-                           "dtype": "bf16" if bf16 else "f32", "start": start, "tol": tol}
-                    rec.update(k7_errors(torch, Gs, r, got, want))
-                    bad = [k for k, v in K7_TOL[rec["dtype"]].items() if not rec[k] <= v]
-                    if rec["dead_site"] != 0.0:
-                        bad.append("dead_site")
-                    if tol > 0 and rec["trips_differ"] > K7_TRIPS_DIFFER_SHARE * rec["members"]:
-                        bad.append("trips")
-                    if bad:
-                        fail(f"K7 differs from the plain version in {bad}: {json.dumps(rec)}")
+                    dtype = "bf16" if bf16 else "f32"
+                    rec = {"kernel": "poweriter", "rank": r,
+                           "members": sum(G.shape[0] for G in Gs),
+                           "shapes": [list(G.shape) for G in Gs], "dtype": dtype, "start": start,
+                           "tol": tol, "route": "staged"}
+                    rec.update(k7_check(torch, f"rank {r} {dtype} {start} tol {tol}", Gs, r,
+                                        got, want, dtype, tol > 0))
+                    rec["direct_route"] = k7_check(torch, f"direct route rank {r} {dtype} {start} "
+                                                   f"tol {tol}", Gs, r, got_direct, want, dtype,
+                                                   tol > 0)
                     if tol == 1e-3:
+                        rec["geometry"] = {k: v for k, v in geo.items() if k != "why"}
                         rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, oms, K7_ITERS, tol, mm), 20)
+                        rec["direct_ms"] = time_ms(lambda: pc.poweriter_fused(
+                            Gs, oms, K7_ITERS, tol, mm, geometry=direct), 20)
                         rec["plain_ms"] = time_ms(
                             lambda: pc.poweriter_plain(Gs, oms, K7_ITERS, tol, mm), 5)
                         rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], bf16)
+                        rec["streamed_floor_ms"] = k7_streamed_floor(Gs, got[2])
                         rec["library_ms"] = None
+                        rec["phases"] = pc.k7_phase_profile(Gs, oms, K7_ITERS, tol, mm)
                     print(json.dumps(rec))
                     out.append(rec)
+    k7_coverage_phase(torch, pc, gen)
     # the wrapper refuses what the kernel does not take, before any launch
     n0 = pc.POWERITER_LAUNCHES
     for what, G, om in (
@@ -1101,6 +1185,69 @@ def poweriter_phase(torch, pc) -> list[dict]:
         fail("a refused class was launched")
     plain_route_check(torch, pc, gen)
     return out
+
+
+# Untimed K7 classes beyond the flagship's, each held to K7_TOL against the
+# plain version in f32 and bf16 from a cold Ω (trips are not compared at 8
+# members, where one member a refinement apart is 1/8 of them): ranks 1 and
+# 16; row-major and transposed buckets in one class; A's rows and columns
+# off every tile multiple (64-row chunks and 64-column bands, row bands,
+# rows past one 1024-column chunk) in a row pitch wider than A; widths off
+# 4 values, a class past half an SM's shared memory and a class with an
+# unaligned member, all on the direct route by the geometry's rule; and
+# the flagship's r = 2 class forced onto the direct route.
+K7_COVERAGE = [
+    # (what, rank, [(m, n, transposed, pad)], sites, expected route); the
+    # pads keep each row pitch a multiple of 4 values
+    ("rank 16, row-major and transposed, ragged bands", 16,
+     [(300, 201, True, 4), (150, 92, False, 4)], 8, "staged"),
+    ("rank 1", 1, [(37, 132, False, 0), (44, 23, True, 0)], 8, "staged"),
+    ("rank 4, 1100 rows and 1100 columns of A", 4,
+     [(1100, 300, False, 0), (64, 1100, False, 0), (300, 1032, True, 0)], 4, "staged"),
+    ("rank 1, widths off 4 values", 1, [(37, 129, False, 3), (45, 23, True, 3)], 8, "direct"),
+    ("rank 16, iterates past half an SM", 16, [(2000, 1000, False, 0)], 3, "direct"),
+]
+
+
+def k7_coverage_phase(torch, pc, gen) -> None:
+    cases = [(what, r, [(f"c{i}", m, n, tr) for i, (m, n, tr, _) in enumerate(spec)],
+              [pad for *_, pad in spec], sites, route) for what, r, spec, sites, route in K7_COVERAGE]
+    for what, r, leaves, pads, sites, route in cases:
+        Gs = [k7_gradients(torch, [leaf], gen, sites, pad)[0] for leaf, pad in zip(leaves, pads)]
+        k7_coverage_case(torch, pc, what, r, leaves, Gs, route, gen)
+    # an unaligned member: G one value past a 16-byte boundary
+    leaves = [("c0", 96, 64, False)]
+    G = k7_gradients(torch, leaves, gen, 8)[0]
+    store = torch.zeros(G.numel() + 1, device="cuda")
+    store[1:] = G.reshape(-1)
+    k7_coverage_case(torch, pc, "an unaligned member", 4, leaves,
+                     [store[1:].view(G.shape)], "direct", gen)
+    # the flagship's r = 2 class forced onto the direct route
+    r, leaves = next((r, lv) for r, lv in k7_leaves(torch).items() if r == 2)
+    Gs = k7_gradients(torch, leaves, gen)
+    k7_coverage_case(torch, pc, "the r = 2 class forced onto the direct route", r, leaves, Gs,
+                     "direct", gen, pc.k7_direct_geometry([tuple(G.shape) for G in Gs], r))
+
+
+def k7_coverage_case(torch, pc, what, r, leaves, Gs, route, gen, geometry=None) -> None:
+    cold, _ = k7_starts(torch, pc, leaves, Gs, r, gen)
+    for bf16 in (False, True):
+        mm = torch.bfloat16 if bf16 else None
+        geo = geometry or k7_geometry_line(pc, Gs, r, mm)
+        if geo["route"] != route:
+            fail(f"K7 coverage {what}: route {geo['route']}, want {route} ({geo.get('why')})")
+        n0 = (pc.POWERITER_STAGED_CALLS, pc.POWERITER_DIRECT_CALLS)
+        got = pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3, mm, geometry=geometry)
+        torch.cuda.synchronize()
+        counted = (pc.POWERITER_STAGED_CALLS - n0[0], pc.POWERITER_DIRECT_CALLS - n0[1])
+        if counted != ((1, 0) if route == "staged" else (0, 1)):
+            fail(f"K7 coverage {what}: counted {counted} on the {route} route")
+        want = pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3, mm)
+        dtype = "bf16" if bf16 else "f32"
+        e = k7_check(torch, f"coverage {what} {dtype}", Gs, r, got, want, dtype, False)
+        print(json.dumps({"k7_coverage": what, "rank": r, "dtype": dtype, "route": route,
+                          "shapes": [list(G.shape) for G in Gs],
+                          "tiles": geo.get("tiles"), "stages": geo.get("stages"), **e}))
 
 
 def plain_route_check(torch, pc, gen) -> dict:
@@ -1682,10 +1829,13 @@ def main() -> int:
         "max_abs_err": max(s["P"] for s in k7 if s["dtype"] == "f32"),
         "ms": k7_main["ms"], "kernel_ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
         "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"], "library_ms": None,
-        "library": "none: no one PyTorch call computes this power iteration "
-                   "(torch.svd_lowrank and torch.linalg.svd are other algorithms)",
+        "library": "none: no one PyTorch call computes a shifted-CholeskyQR2 subspace iteration "
+                   "with a per-member early exit (torch.svd_lowrank and torch.linalg.svd are "
+                   "other algorithms)",
         "shape": {"rank": K7_RANK, "members": k7_main["members"], "buckets": k7_main["shapes"],
                   "dtype": "f32", "start": "cold", "tol": k7_main["tol"]},
+        "design": K7_DESIGN, "geometry": k7_main["geometry"], "direct_ms": k7_main["direct_ms"],
+        "streamed_floor_ms": k7_main["streamed_floor_ms"], "phases": k7_main["phases"],
         "shapes": [s for s in k7 if "ms" in s],
     }]
     one = one_model["launches"]

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""K1, K3 and K5, or K2 and K6, across launch geometries on the card, at
-full ICA-LSTM width.
+"""K1, K3 and K5, K2 and K6, or K7, across launch geometries on the card,
+at full ICA-LSTM width.
 
-    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both] [--bidir] [--bwd]
+    python3 scripts/torch_k1_sweep.py [--dtype f32|bf16|both] [--bidir] [--bwd] [--k7]
 
 At T=98, D=256, H=174 it runs K1 (``lstm_recurrence_fused``) on the
 geometry the launcher picks, on cluster geometries it could pick instead
@@ -24,8 +24,15 @@ against R gives the cost of a step; not with ``--main``), on the
 launcher's at rows 16 and 512 and on the stream route (the first design),
 each point held against the plain version, timed as above, with the µs a
 step and the phase clock (``bwd_phase_profile`` /
-``bidir_bwd_phase_profile``). One JSON line per point, then the card's
-name and power limit; it needs one CUDA card and imports nothing of JAX.
+``bidir_bwd_phase_profile``). With ``--k7`` the power iteration K7
+(``poweriter_fused``) at one rankDAD round of the flagship's two rank
+classes (``chip_smoke.py`` phase 7's gradients, tol 1e-3), cold and warm Ω:
+the staged route the launcher picks and the direct route, each held
+against ``poweriter_plain`` (``K7_TOL``) and timed as above, with the
+bound, the streamed floor (G read once a pass) and the staged route's
+phase clock (``k7_phase_profile``). One JSON line per point, then the
+card's name and power limit; it needs one CUDA card and imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
     ap.add_argument("--bidir", action="store_true", help="K3 and K5 (with --bwd: K6) instead of K1")
     ap.add_argument("--bwd", action="store_true", help="the backward: K2, or K6 with --bidir")
+    ap.add_argument("--k7", action="store_true", help="the power iteration K7, both routes")
     ap.add_argument("--main", action="store_true",
                     help="with --bwd: only the launcher's geometry and the stream route at rows "
                          "16 and 512 (for A/Bs between two trees in one call)")
@@ -75,6 +83,10 @@ def main() -> int:
     resolve_device(None)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if args.k7:
+        k7_sweep(torch, cs, args.dtype)
+        print(smi)
+        return 0
     if args.bwd:
         bwd_sweep(torch, cs, args.dtype, args.bidir, args.main)
         print(smi)
@@ -223,6 +235,38 @@ def bwd_sweep(torch, cs, which: str, bidir: bool, main_only: bool = False) -> No
                    "step_phases": profile(*a, cdt, geometry=geo) if cluster else None}
             print(json.dumps(rec), flush=True)
             del a, want
+
+
+def k7_sweep(torch, cs, which: str) -> None:
+    from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for r, leaves in cs.k7_leaves(torch).items():
+        Gs = cs.k7_gradients(torch, leaves, gen)
+        cold, warm = cs.k7_starts(torch, pc, leaves, Gs, r, gen)
+        direct = pc.k7_direct_geometry([tuple(G.shape) for G in Gs], r)
+        for name, mm in {"f32": None, "bf16": torch.bfloat16}.items():
+            if which not in (name, "both"):
+                continue
+            staged = cs.k7_geometry_line(pc, Gs, r, mm)
+            for start, oms in (("cold", cold), ("warm", warm)):
+                want = pc.poweriter_plain(Gs, oms, cs.K7_ITERS, 1e-3, mm)
+                for geo in (staged, direct):
+                    got = pc.poweriter_fused(Gs, oms, cs.K7_ITERS, 1e-3, mm, geometry=geo)
+                    err = cs.k7_check(torch, f"rank {r} {name} {start} {geo['route']}", Gs, r,
+                                      got, want, name, True)
+                    ms = device_ms(torch, lambda: pc.poweriter_fused(
+                        Gs, oms, cs.K7_ITERS, 1e-3, mm, geometry=geo))
+                    rec = {"kernel": "poweriter", "rank": r, "dtype": name, "start": start,
+                           "route": geo["route"], "members": geo["blocks"],
+                           "geometry": {k: v for k, v in geo.items() if k != "why"},
+                           "device_ms": ms, "bound_ms": cs.k7_bound(Gs, r, got[2], mm is not None),
+                           "streamed_floor_ms": cs.k7_streamed_floor(Gs, got[2]),
+                           "errors": err,
+                           "phases": pc.k7_phase_profile(Gs, oms, cs.K7_ITERS, 1e-3, mm,
+                                                         geometry=geo)
+                           if geo["route"] == "staged" else None}
+                    print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

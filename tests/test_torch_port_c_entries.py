@@ -1,8 +1,8 @@
 """The ctypes argument lists of the port's kernel entries against the C
 signatures they bind, checked on the CPU.
 
-``ops/lstm_cuda.py`` and ``ops/bilstm_cuda.py`` declare each ``dn_*``
-entry's arguments by hand (``_ARGTYPES``). A list that disagrees with its
+``ops/lstm_cuda.py``, ``ops/bilstm_cuda.py`` and ``ops/poweriter_cuda.py``
+declare each ``dn_*`` entry's arguments by hand (``_ARGTYPES``). A list that disagrees with its
 ``extern "C"`` signature in ``csrc/*.cu`` loads and calls without complaint
 and passes every argument after the first mismatch in the wrong place, and
 only the card would show it; here each list is read against the signature
@@ -17,16 +17,18 @@ import pytest
 
 from dinunet_implementations_tpu_torch.ops import bilstm_cuda as tb
 from dinunet_implementations_tpu_torch.ops import lstm_cuda as tl
+from dinunet_implementations_tpu_torch.ops import poweriter_cuda as tp
 
 CSRC = Path(tl.__file__).resolve().parents[1] / "csrc"
 
 ENTRIES = [(lib, "dn_" + name, types) for name, (lib, types) in tl._ARGTYPES.items()]
 ENTRIES += [(lib, entry, types) for (lib, entry), types in tb._ARGTYPES.items()]
+ENTRIES += [(lib, "dn_" + name, types) for name, (lib, types) in tp._ARGTYPES.items()]
 
 
 def _c_param_types(lib: str, entry: str) -> list:
     """The ctypes type of each parameter of ``int <entry>(...)`` in
-    ``csrc/<lib>.cu``: a pointer, ``long long`` or ``int``."""
+    ``csrc/<lib>.cu``: a pointer, ``long long``, ``int`` or ``float``."""
     src = (CSRC / f"{lib}.cu").read_text()
     m = re.search(rf"^int {entry}\(([^)]*)\)", src, re.MULTILINE)
     assert m, f"no C entry {entry} in csrc/{lib}.cu"
@@ -37,6 +39,8 @@ def _c_param_types(lib: str, entry: str) -> list:
             out.append(ctypes.c_void_p)
         elif decl.replace("const ", "") == "long long":
             out.append(ctypes.c_longlong)
+        elif decl.replace("const ", "") == "float":
+            out.append(ctypes.c_float)
         else:
             assert decl.replace("const ", "") == "int", f"{entry}: unexpected parameter {param!r}"
             out.append(ctypes.c_int)
@@ -70,3 +74,15 @@ def test_the_bptt_entries_take_a_route_record_and_a_phase_clock(lib, entry):
     occupancy = entry.replace("_pool_bwd", "_bwd") + "_max_active_clusters"
     assert occupancy in bound
     assert re.search(rf"^int {occupancy}\(", src, re.MULTILINE)
+
+
+def test_every_entry_of_the_poweriter_source_is_bound():
+    """K7's entries: the launch, which takes its route record and the
+    staged route's phase clock before the stream, and the occupancy query
+    of the staged kernel."""
+    src = (CSRC / "poweriter.cu").read_text()
+    entries = set(re.findall(r"^int (dn_\w+)\(", src, re.MULTILINE))
+    assert entries == {"dn_poweriter", "dn_poweriter_max_active_blocks"}
+    assert entries <= {e for lib, e, _ in ENTRIES if lib == "poweriter"}
+    params = re.search(r"^int dn_poweriter\(([^)]*)\)", src, re.MULTILINE).group(1).split(",")
+    assert [p.split()[-1] for p in params[-3:]] == ["geom", "prof", "stream"]
