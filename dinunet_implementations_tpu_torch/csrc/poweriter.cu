@@ -44,10 +44,11 @@
 // an SM: at the flagship 264 slots hold the 224 members in one wave. A is
 // G or G^T, whichever is row-major in memory, read in place through its
 // strides. Its tiles stream through a ring of 2-4 stages of 16 KB of
-// dynamic shared memory, filled by the copy engines: thread 0 refills the
-// stage of the tile stages - 1 ahead once every warp has released it (an
-// mbarrier a stage), and each warp waits on the stage's other mbarrier for
-// the tile's bytes; no block-wide barrier stands between two tiles.
+// dynamic shared memory, filled by the copy engines: the warp that is the
+// last to finish a tile (a count a stage) refills its stage with the tile
+// `stages` ahead, and each warp waits on the stage's mbarrier for the
+// tile's bytes; no block-wide barrier stands between two tiles, and no
+// warp waits for a stage to empty.
 //   Y = A x walks column bands of 64 rows by 64 columns, copied as two
 // 64 x 32 boxes of the bucket's tensor map (zero past A's edges, 128-byte
 // swizzled): eight lanes own two rows, each lane a 16-byte chunk of each
@@ -413,9 +414,6 @@ __device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
                : "memory");
 }
-__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
 __device__ __forceinline__ void mbar_arrive_expect_tx(unsigned long long* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
                "r"(bytes)
@@ -464,8 +462,8 @@ __device__ __forceinline__ long long global_ns() {
 // The phase clock, for measurements: thread 0 of one block (a member of
 // the largest bucket) sums clock64() cycles spent in the products (A x and
 // A^T y apart), in the ring waits inside them (for a tile to land), in
-// refilling the ring (the wait for a stage to empty and the copies'
-// issue), and in the r x r chain (the two CholeskyQR rounds and the sigma
+// refilling the ring (the copies' issue, when its warp finished a tile
+// last), and in the r x r chain (the two CholeskyQR rounds and the sigma
 // update), into shared memory, so that the clock holds no registers across
 // the loops.
 enum { kClkAx, kClkAty, kClkWait, kClkIssue, kClkChain, kClkLen };
@@ -491,28 +489,34 @@ struct StagedMat {
 
 // The ring: `stages` stages of kStageFloats floats (1024-byte aligned),
 // each with a barrier that completes when its tile has landed (`full`, one
-// arrival: the producer's expect_tx) and one that completes when every warp
-// is done with it (`empty`, kWarps arrivals). Tiles are numbered across the
-// member's passes: tile j uses stage j % stages, the (j / stages)-th time.
-// Thread 0 is the producer: it refills a stage with the tile `stages - 1`
-// ahead of the one the block works on.
+// arrival: the refiller's expect_tx) and a count of the warps done with it
+// (`done`). Tiles are numbered across the member's passes: tile j uses
+// stage j % stages, the (j / stages)-th time. The warp that is the last to
+// finish a tile refills its stage with the tile `stages` ahead, so no warp
+// waits for a stage to empty; thread 0 issues a pass's first tiles.
 struct Ring {
   float* base;
   int stages;
   unsigned long long* full;
-  unsigned long long* empty;
+  int* done;
 };
 
-// The producer's wait until every warp is done with the stage of tile j
-// (j >= stages: the stage's last tile was j - stages).
-__device__ __forceinline__ void ring_claim(const Ring& ring, int j) {
-  if (j >= ring.stages) mbar_wait(ring.empty + j % ring.stages, ((j / ring.stages) - 1) & 1);
-}
-
-// This warp is done with the stage `s`.
-__device__ __forceinline__ void ring_release(const Ring& ring, int s) {
+// Whether this warp is the last to finish the tile in stage s (lane 0's
+// answer, for the whole warp). The last one resets the count, and its
+// copies into the stage follow every warp's reads of it.
+__device__ __forceinline__ bool ring_release(const Ring& ring, int s) {
   __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty + s);
+  int last = 0;
+  if ((threadIdx.x & 31) == 0) {
+    __threadfence_block();
+    last = atomicAdd(ring.done + s, 1) == kWarps - 1;
+    if (last) {
+      ring.done[s] = 0;
+      __threadfence_block();
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+  }
+  return __shfl_sync(0xffffffffu, last, 0);
 }
 
 // Column-band tile k of A into the stage of tile j: row chunk k / nb of
@@ -521,7 +525,6 @@ __device__ __forceinline__ void ring_release(const Ring& ring, int s) {
 __device__ __forceinline__ void refill_band(const StagedMat& g, const Ring& ring, int k, int nb,
                                             int j, const Clock& clk) {
   const long long i0 = clk.now();
-  ring_claim(ring, j);
   const int s = j % ring.stages, rc = k / nb, b = k - rc * nb;
   float* dst = ring.base + s * kStageFloats;
   mbar_arrive_expect_tx(ring.full + s, 4 * kStageFloats);
@@ -536,7 +539,6 @@ __device__ __forceinline__ void refill_band(const StagedMat& g, const Ring& ring
 __device__ __forceinline__ void refill_rows(const StagedMat& g, const Ring& ring, int k, int nb,
                                             int j, const Clock& clk) {
   const long long i0 = clk.now();
-  ring_claim(ring, j);
   const int s = j % ring.stages, cc = k / nb, b = k - cc * nb;
   const int r0 = b * g.band_rows, rows = min(g.band_rows, g.ra - r0);
   const int c0 = cc * kColChunk, cols = min(kColChunk, g.ca - c0);
@@ -578,13 +580,13 @@ __device__ void pass_ax(const StagedMat& g, const float* x, int ldx, float* out,
   for (int h = 0; h < 2; ++h)
 #pragma unroll
     for (int c = 0; c < R; ++c) acc[h][c] = 0.f;
-  if (producer)
-    for (int k = 0; k < min(ring.stages - 1, nt); ++k) refill_band(g, ring, k, nb, kt + k, clk);
+  if (producer) {  // the last pass's reads of the stages are behind a block barrier
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int k = 0; k < min(ring.stages, nt); ++k) refill_band(g, ring, k, nb, kt + k, clk);
+  }
   int s = kt % ring.stages, parity = (kt / ring.stages) & 1, b = 0, r0 = 0;
 #pragma unroll 1
   for (int k = 0; k < nt; ++k) {
-    if (producer && k + ring.stages - 1 < nt)
-      refill_band(g, ring, k + ring.stages - 1, nb, kt + k + ring.stages - 1, clk);
     const long long w0 = clk.now();
     mbar_wait(ring.full + s, parity);
     clk.add(kClkWait, w0);
@@ -612,7 +614,8 @@ __device__ void pass_ax(const StagedMat& g, const float* x, int ldx, float* out,
         }
       }
     }
-    ring_release(ring, s);
+    if (ring_release(ring, s) && k + ring.stages < nt && (threadIdx.x & 31) == 0)
+      refill_band(g, ring, k + ring.stages, nb, kt + k + ring.stages, clk);
     if (++b == nb) {  // the chunk's sums are complete
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -656,14 +659,14 @@ __device__ void pass_aty(const StagedMat& g, const float* y, int ldy, float* out
   for (int j = 0; j < 4; ++j)
 #pragma unroll
     for (int c = 0; c < R; ++c) acc[j][c] = 0.f;
-  if (producer)
-    for (int k = 0; k < min(ring.stages - 1, nt); ++k) refill_rows(g, ring, k, nb, kt + k, clk);
+  if (producer) {  // the last pass's reads of the stages are behind a block barrier
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    for (int k = 0; k < min(ring.stages, nt); ++k) refill_rows(g, ring, k, nb, kt + k, clk);
+  }
   int s = kt % ring.stages, parity = (kt / ring.stages) & 1, b = 0, c0 = 0;
   int cols = min(kColChunk, g.ca), nq = cols >> 2;
 #pragma unroll 1
   for (int k = 0; k < nt; ++k) {
-    if (producer && k + ring.stages - 1 < nt)
-      refill_rows(g, ring, k + ring.stages - 1, nb, kt + k + ring.stages - 1, clk);
     const long long w0 = clk.now();
     mbar_wait(ring.full + s, parity);
     clk.add(kClkWait, w0);
@@ -695,7 +698,8 @@ __device__ void pass_aty(const StagedMat& g, const float* y, int ldy, float* out
         }
       }
     }
-    ring_release(ring, s);
+    if (ring_release(ring, s) && k + ring.stages < nt && (threadIdx.x & 31) == 0)
+      refill_rows(g, ring, k + ring.stages, nb, kt + k + ring.stages, clk);
     if (++b == nb) {  // the chunk's sums are complete
       if (q < nq) {
 #pragma unroll
@@ -775,7 +779,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   __shared__ float norms[R], norms2[R], sig[R];
   __shared__ float s_delta;
   __shared__ long long clk_acc[kClkLen];
-  __shared__ __align__(8) unsigned long long full_bar[kMaxStages], empty_bar[kMaxStages];
+  __shared__ __align__(8) unsigned long long full_bar[kMaxStages];
+  __shared__ int done_count[kMaxStages];
   float* smem = staged_smem;
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   // the clocked block is the one prof[8] names (set by the caller)
@@ -796,7 +801,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // dynamic shared memory has 1024 bytes of room for it)
   float* ring_base = reinterpret_cast<float*>(
       (reinterpret_cast<unsigned long long>(Z + R * np) + 1023) & ~1023ull);
-  const Ring ring{ring_base, stages, full_bar, empty_bar};
+  const Ring ring{ring_base, stages, full_bar, done_count};
   const Small s{gram, chol, linv};
   const bool g_is_a = bk.sn == 1;
   StagedMat g;
@@ -814,7 +819,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) {
     for (int i = 0; i < stages; ++i) {
       mbar_init(full_bar + i, 1);
-      mbar_init(empty_bar + i, kWarps);
+      done_count[i] = 0;
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
