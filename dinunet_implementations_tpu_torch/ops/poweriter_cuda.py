@@ -31,8 +31,8 @@ it, from shapes and strides alone: the staged route
 (``poweriter_staged_kernel``: G streamed through a ring of shared-memory
 stages filled by asynchronous copies, two blocks an SM, blocks numbered
 largest member first) whenever the iterates and the ring fit half an SM's
-shared memory and every member and row of G's row-major side is 16-byte
-aligned; else the direct route (``poweriter_direct_kernel``, the first
+shared memory and every member and row of G's row-major side is in whole
+16-byte chunks; else the direct route (``poweriter_direct_kernel``, the first
 design). ``POWERITER_LAUNCHES`` counts launches, ``POWERITER_STAGED_CALLS``
 and ``POWERITER_DIRECT_CALLS`` the routes they took. :func:`k7_phase_profile`
 reads the staged route's phase clock.
@@ -47,6 +47,7 @@ import torch
 
 from ..engines.lowrank import _cholqr_multi, lp_matmul
 from . import _build
+from .lstm_cuda import device_limits
 
 #: K7 launches since the counter was last set to 0
 POWERITER_LAUNCHES = 0
@@ -265,7 +266,6 @@ def _dtype_code(mm_dtype) -> int:
     return 0 if mm_dtype is None else 1
 
 
-_limits: dict = {}
 _geometries: dict = {}
 
 
@@ -280,11 +280,7 @@ def device_k7_geometry(device, shapes, r: int, strides_ok: bool = True, row_majo
     key = (idx, tuple(map(tuple, shapes)), r, strides_ok,
            None if row_major is None else tuple(row_major), _dtype_code(mm_dtype))
     if key not in _geometries:
-        if idx not in _limits:
-            prop = torch.cuda.get_device_properties(idx)
-            _limits[idx] = (prop.multi_processor_count,
-                            getattr(prop, "shared_memory_per_block_optin", SMEM_OPTIN))
-        sms, optin = _limits[idx]
+        sms, optin = device_limits(dev)
         g = k7_geometry(shapes, r, strides_ok, sms, optin, row_major)
         if g["route"] == "staged":
             bps = k7_max_active_blocks(torch.device("cuda", idx), r, g["smem"], mm_dtype)
