@@ -1032,11 +1032,11 @@ extern "C" {
 // ranges a permutation of the members; `max_mn` is the largest m + n among
 // them; trips: int32, one per member, in member order. dtype 0: f32
 // products; 1: bf16 operands, f32 accumulation.
-// geom: {route, stages, stage_bytes, smem}: route 0 is the direct kernel
-// (launch order must be member order; the other fields are not read),
-// route 1 the staged kernel with a ring of `stages` stages of `stage_bytes`
-// (16 KB) and `smem` bytes of dynamic shared memory, which must be the
-// kernel's own count. prof: null, or the staged route's phase clock int64[10] of the
+// geom: {route, stages, smem}: route 0 is the direct kernel (launch order
+// must be member order; the other fields are not read), route 1 the staged
+// kernel with a ring of `stages` stages of 4 * kStageFloats bytes (16 KB)
+// and `smem` bytes of dynamic shared memory, which must be the kernel's
+// own count. prof: null, or the staged route's phase clock int64[10] of the
 // block prof[8] names: cycles in A x, in A^T y, in ring waits, total;
 // global ns at the start; cycles in the r x r chain; global ns at the end;
 // trips; bucket; cycles issuing copies.
@@ -1080,8 +1080,7 @@ int dn_poweriter(int dtype, const long long* buckets, int nbuckets, int r, int m
   }
   StagedLaunch a{};
   a.stages = geom[1];
-  if (a.stages < 2 || a.stages > kMaxStages || geom[2] != 4 * kStageFloats)
-    return cudaErrorInvalidValue;
+  if (a.stages < 2 || a.stages > kMaxStages) return cudaErrorInvalidValue;
   long long iterates = 0;
   for (int k = 0; k < nbuckets; ++k) {
     const long long* v = buckets + (long long)k * kStagedFields;
@@ -1095,7 +1094,7 @@ int dn_poweriter(int dtype, const long long* buckets, int nbuckets, int r, int m
   }
   // the iterates, 1024 bytes to align the ring, the ring
   a.smem = 4 * r * (int)iterates + 1024 + a.stages * 4 * kStageFloats;
-  if (a.smem != geom[3]) return cudaErrorInvalidValue;
+  if (a.smem != geom[2]) return cudaErrorInvalidValue;
   a.buckets.size = nbuckets;
   a.count = (int)count;
   a.num_iters = num_iters;

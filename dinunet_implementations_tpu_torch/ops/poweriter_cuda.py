@@ -72,8 +72,9 @@ THREADS = 256
 #: of 64 x 32), columns of A a row-band tile holds (four a thread):
 #: kBand, kColChunk
 _BAND, _COL_CHUNK = 64, 4 * THREADS
-#: bytes of a stage of the staged route's ring (one column-band tile), and
-#: the ring sizes it tries, most stages first
+#: bytes of a stage of the staged route's ring, one column-band tile
+#: (``csrc/poweriter.cu``: 4 * kStageFloats), and the ring sizes it tries,
+#: most stages first
 STAGE_BYTES = 4 * _BAND * _BAND
 RING_STAGES = (4, 3)
 #: the staged kernel's static shared memory beside its dynamic share (its
@@ -81,7 +82,7 @@ RING_STAGES = (4, 3)
 _STAGED_STATIC_SMEM = 4096
 #: int64 fields of a bucket record (``csrc/poweriter.cu``: kStagedFields),
 #: ints of the geometry record and int64s of the phase clock (``dn_poweriter``)
-_FIELDS, _GEOM_LEN, _PROF_LEN = 14, 4, 10
+_FIELDS, _GEOM_LEN, _PROF_LEN = 14, 3, 10
 
 _entries: dict = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -182,26 +183,25 @@ def _round4(v: int) -> int:
     return (v + 3) // 4 * 4
 
 
-def staged_tiles(ra: int, ca: int, stage_bytes: int = STAGE_BYTES) -> tuple[int, int] | None:
+def staged_tiles(ra: int, ca: int) -> tuple[int, int] | None:
     """The staged route's tiles of a member whose row-major side A is
     ``[ra, ca]``: ``(band_rows, 64)``, the rows of a row band (``Aᵀy``: up
-    to 1024 columns, a multiple of 4 rows, the most a stage of
-    ``stage_bytes`` holds) and the 64 columns of a column band (``A x``:
+    to 1024 columns, a multiple of 4 rows, the most a stage holds) and the 64 columns of a column band (``A x``:
     64 rows, as two tensor boxes of 64 x 32, zero past A's edges); None
     when ``ca`` is not a multiple of 4 (A's rows are not whole 16-byte
     chunks)."""
     if ca % 4:
         return None
-    return 4 * (stage_bytes // 4 // (4 * min(_COL_CHUNK, ca))), _BAND
+    return 4 * (STAGE_BYTES // 4 // (4 * min(_COL_CHUNK, ca))), _BAND
 
 
-def staged_smem_bytes(shapes, r: int, stages: int, stage_bytes: int = STAGE_BYTES) -> int:
+def staged_smem_bytes(shapes, r: int, stages: int) -> int:
     """Dynamic shared memory of a staged launch: each block's iterates ``P
     [r][m]`` and ``GᵀP [r][n]`` in f32, each column padded to 4 values, for
     the class's largest, 1024 bytes to align the ring (the swizzled boxes),
     then the ring."""
     return (4 * r * max(_round4(m) + _round4(n) for m, n in shapes) + 1024
-            + stages * stage_bytes)
+            + stages * STAGE_BYTES)
 
 
 def k7_geometry(shapes, r: int, strides_ok: bool = True, sms: int = 132,
@@ -220,7 +220,7 @@ def k7_geometry(shapes, r: int, strides_ok: bool = True, sms: int = 132,
     Staged route whenever the iterates and a ring of 4 (else 3) stages of
     :data:`STAGE_BYTES` fit half of ``smem_optin`` less the static arrays
     and ``strides_ok``; else the direct route, the first design. Returns a
-    dict: ``route``, ``stages``, ``stage_bytes``, ``tiles`` (per bucket
+    dict: ``route``, ``stages``, ``tiles`` (per bucket
     ``(band_rows, band_cols)``), ``smem``, ``threads``, ``blocks`` (one a
     member), ``blocks_per_sm``, ``waves``, ``order`` (the buckets in launch
     order: largest member first, a stable sort; the direct route's is the
@@ -235,8 +235,7 @@ def k7_geometry(shapes, r: int, strides_ok: bool = True, sms: int = 132,
             if smem <= smem_optin // 2 - _STAGED_STATIC_SMEM:
                 bps = 2 if blocks_per_sm is None else blocks_per_sm
                 order = sorted(range(len(mn)), key=lambda k: -mn[k][0] * mn[k][1])
-                return {"route": "staged", "stages": stages, "stage_bytes": STAGE_BYTES,
-                        "tiles": tiles, "smem": smem, "threads": THREADS, "blocks": members,
+                return {"route": "staged", "stages": stages, "tiles": tiles, "smem": smem, "threads": THREADS, "blocks": members,
                         "blocks_per_sm": bps, "waves": math.ceil(members / max(1, bps * sms)),
                         "order": order}
         why = "the iterates and the ring exceed half of an SM's shared memory"
@@ -256,9 +255,9 @@ def k7_direct_geometry(shapes, r: int, sms: int = 132, why: str = "asked for") -
 
 
 def _geom_ints(g: dict):
-    """The geometry record ``dn_poweriter`` reads: route, stages, stage
-    bytes, dynamic shared memory."""
-    v = [1, g["stages"], g["stage_bytes"], g["smem"]] if g["route"] == "staged" else [0] * 4
+    """The geometry record ``dn_poweriter`` reads: route, stages, dynamic
+    shared memory."""
+    v = [1, g["stages"], g["smem"]] if g["route"] == "staged" else [0] * _GEOM_LEN
     return (ctypes.c_int * _GEOM_LEN)(*v)
 
 
@@ -422,9 +421,10 @@ def k7_phase_profile(G, om, num_iters: int, tol: float, mm_dtype=None, geometry=
     """One K7 call on the staged route with its phase clock on: the µs the
     last member of the largest bucket (the first in launch order) spends in
     the products (their ring waits and copy issue excluded; ``A x`` and
-    ``Aᵀy`` apart, all included), in the ring waits (``cp.async.wait_group``
-    and the barrier after it), in issuing the copies, in the r x r chain (the CholeskyQR rounds and the σ update)
-    and in the rest (Ω in, P and Q out, the rounding and output of the
+    ``Aᵀy`` apart, all included), in the ring waits (a warp waiting on a
+    stage's mbarrier for its tile to land), in issuing the copies (tensor
+    boxes and bulk row copies, by the warp that refills a stage), in the
+    r x r chain (the CholeskyQR rounds and the σ update) and in the rest (Ω in, P and Q out, the rounding and output of the
     iterates), each phase's share, its passes over G and its trips; from
     ``clock64`` sums converted by the global timer. For measurements;
     counts as a call."""

@@ -30,9 +30,14 @@ classes (``chip_smoke.py`` phase 7's gradients, tol 1e-3), cold and warm Ω:
 the staged route the launcher picks and the direct route, each held
 against ``poweriter_plain`` (``K7_TOL``) and timed as above, with the
 bound, the streamed floor (G read once a pass) and the staged route's
-phase clock (``k7_phase_profile``). One JSON line per point, then the
-card's name and power limit; it needs one CUDA card and imports nothing of
-JAX.
+phase clock (``k7_phase_profile``). Each K7 point also gives its device ms
+with the host ahead of the card (``queued_device_ms``: the calls queued
+behind a sleep kernel, so no call waits for the host) and the host µs of a
+call (``host_us``); and the r=10 class's gradients run at ranks 12 and 16
+too (r=16 without the encoder bucket, whose iterates and ring at that rank
+exceed half an SM), cold Ω, both routes, their errors recorded. One JSON
+line per point, then the card's name and power limit; it needs one CUDA
+card and imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +48,11 @@ import os
 import statistics
 import subprocess
 import sys
+import time
+
+#: cycles of the sleep kernel the queued timings start behind (about 50 ms
+#: at the H100's 1.98 GHz, far longer than the host takes to queue 20 calls)
+SLEEP_CYCLES = 100_000_000
 
 
 def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
@@ -58,6 +68,33 @@ def device_ms(torch, fn, calls: int = 20, reps: int = 5) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / calls)
     return statistics.median(out)
+
+
+def queued_ms(torch, fn, calls: int = 20, reps: int = 5) -> dict:
+    """One call's device ms with the host ahead of the card, and its host
+    µs: each run queues a sleep kernel, then ``calls`` calls between two
+    CUDA events, so the events time the card's work alone while the host
+    clock times the host's; the medians of ``reps`` runs. ``host_ahead``:
+    every run finished queueing before its sleep could have ended."""
+    fn()
+    torch.cuda.synchronize()
+    dev, host, ahead = [], [], True
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ts = time.perf_counter()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        b.record()
+        b.synchronize()
+        ahead = ahead and t1 - ts < 0.025
+        dev.append(a.elapsed_time(b) / calls)
+        host.append((t1 - t0) / calls * 1e6)
+    return {"queued_device_ms": statistics.median(dev), "host_us": statistics.median(host),
+            "host_ahead": ahead}
 
 
 def main() -> int:
@@ -255,18 +292,54 @@ def k7_sweep(torch, cs, which: str) -> None:
                     got = pc.poweriter_fused(Gs, oms, cs.K7_ITERS, 1e-3, mm, geometry=geo)
                     err = cs.k7_check(torch, f"rank {r} {name} {start} {geo['route']}", Gs, r,
                                       got, want, name, True)
-                    ms = device_ms(torch, lambda: pc.poweriter_fused(
-                        Gs, oms, cs.K7_ITERS, 1e-3, mm, geometry=geo))
+                    call = (lambda: pc.poweriter_fused(Gs, oms, cs.K7_ITERS, 1e-3, mm,
+                                                       geometry=geo))
                     rec = {"kernel": "poweriter", "rank": r, "dtype": name, "start": start,
                            "route": geo["route"], "members": geo["blocks"],
                            "geometry": {k: v for k, v in geo.items() if k != "why"},
-                           "device_ms": ms, "bound_ms": cs.k7_bound(Gs, r, got[2], mm is not None),
+                           "device_ms": device_ms(torch, call), **queued_ms(torch, call),
+                           "bound_ms": cs.k7_bound(Gs, r, got[2], mm is not None),
                            "streamed_floor_ms": cs.k7_streamed_floor(Gs, got[2]),
                            "errors": err,
                            "phases": pc.k7_phase_profile(Gs, oms, cs.K7_ITERS, 1e-3, mm,
                                                          geometry=geo)
                            if geo["route"] == "staged" else None}
                     print(json.dumps(rec), flush=True)
+        if r == cs.K7_RANK:
+            k7_rank_sweep(torch, cs, pc, which, leaves, Gs, gen)
+
+
+def k7_rank_sweep(torch, cs, pc, which: str, leaves, Gs, gen) -> None:
+    """The r=10 class's gradients at ranks 12 and 16 (16: without the
+    encoder bucket, which alone puts that rank's iterates and ring past half
+    an SM), cold Ω, tol 1e-3, on the staged route and the direct route: the
+    ranks at which ptxas reports the staged kernel spilling."""
+    enc = max(range(len(Gs)), key=lambda k: Gs[k].shape[1] * Gs[k].shape[2])
+    for r, drop in ((12, False), (16, True)):
+        keep = [k for k in range(len(Gs)) if not (drop and k == enc)]
+        lv, gs = [leaves[k] for k in keep], [Gs[k] for k in keep]
+        cold, _ = cs.k7_starts(torch, pc, lv, gs, r, gen)
+        direct = pc.k7_direct_geometry([tuple(G.shape) for G in gs], r)
+        for name, mm in {"f32": None, "bf16": torch.bfloat16}.items():
+            if which not in (name, "both"):
+                continue
+            want = pc.poweriter_plain(gs, cold, cs.K7_ITERS, 1e-3, mm)
+            for geo in (cs.k7_geometry_line(pc, gs, r, mm), direct):
+                got = pc.poweriter_fused(gs, cold, cs.K7_ITERS, 1e-3, mm, geometry=geo)
+                call = (lambda: pc.poweriter_fused(gs, cold, cs.K7_ITERS, 1e-3, mm,
+                                                   geometry=geo))
+                rec = {"kernel": "poweriter", "rank": r, "dtype": name, "start": "cold",
+                       "set": "r=10 class without the encoder bucket" if drop else "r=10 class",
+                       "route": geo["route"], "members": geo["blocks"],
+                       "geometry": {k: v for k, v in geo.items() if k != "why"},
+                       "device_ms": device_ms(torch, call), **queued_ms(torch, call),
+                       "bound_ms": cs.k7_bound(gs, r, got[2], mm is not None),
+                       "streamed_floor_ms": cs.k7_streamed_floor(gs, got[2]),
+                       "errors": cs.k7_errors(torch, gs, r, got, want),
+                       "phases": pc.k7_phase_profile(gs, cold, cs.K7_ITERS, 1e-3, mm,
+                                                     geometry=geo)
+                       if geo["route"] == "staged" else None}
+                print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":

@@ -86,3 +86,6 @@ def test_every_entry_of_the_poweriter_source_is_bound():
     assert entries <= {e for lib, e, _ in ENTRIES if lib == "poweriter"}
     params = re.search(r"^int dn_poweriter\(([^)]*)\)", src, re.MULTILINE).group(1).split(",")
     assert [p.split()[-1] for p in params[-3:]] == ["geom", "prof", "stream"]
+    # the route record is read up to its last field and no further
+    read = {int(k) for k in re.findall(r"\bgeom\[(\d+)\]", src)}
+    assert read == set(range(tp._GEOM_LEN))

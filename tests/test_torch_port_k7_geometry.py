@@ -157,11 +157,12 @@ def test_the_block_order_is_largest_first_and_a_permutation(flagship_classes):
 
 def test_the_geometry_record_is_what_the_c_entry_reads():
     g = pc.k7_geometry([(32, 1000, 256)], 10, True, H100_SMS, H100_SMEM, [False])
-    assert list(pc._geom_ints(g)) == [1, g["stages"], pc.STAGE_BYTES, g["smem"]]
-    assert list(pc._geom_ints(pc.k7_direct_geometry([(32, 1000, 256)], 10))) == [0, 0, 0, 0]
+    assert list(pc._geom_ints(g)) == [1, g["stages"], g["smem"]]
+    assert list(pc._geom_ints(pc.k7_direct_geometry([(32, 1000, 256)], 10))) == [0, 0, 0]
     # the C side recomputes the dynamic shared memory from the records
-    # (4·r·max(round4(m) + round4(n)) + 1024 + stages·stage_bytes) and
-    # refuses a record whose bytes differ
+    # (4·r·max(round4(m) + round4(n)) + 1024 + stages·16 KB) and refuses
+    # a record whose bytes differ; the stage size is one constant on both
+    # sides
     src = (pc._build.CSRC / "poweriter.cu").read_text()
     assert "a.smem = 4 * r * (int)iterates + 1024 + a.stages * 4 * kStageFloats;" in src
     assert "constexpr int kStageFloats = kBand * kBand;" in src and pc.STAGE_BYTES == 4 * 64 * 64
