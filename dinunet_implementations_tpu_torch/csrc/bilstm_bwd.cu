@@ -28,24 +28,26 @@
 //
 // What bounds it on this card. Each direction is K2's chain: 98 serial
 // steps (flagship H=174), each 2*rows*4H*H FLOP against that direction's
-// transposed W_hh (0.48 MB in f32) streamed from L2. At 512 rows the FLOP
-// bound it against f32 peak, the bytes in bf16.
+// transposed W_hh (0.48 MB in f32). At 512 rows the FLOP bound it against
+// f32 peak, the bytes in bf16.
 //
-// K6 takes one of two routes, chosen in Python by shape before any launch
-// (ops/bilstm_cuda.py:bidir_bwd_geometry) and passed as a record: K2's
-// cluster BPTT (lstm_bwd_cluster.cuh) with half of the clusters a
-// direction, each on its own time map, or, for a W_hh^T whose slice fits no
-// cluster of 8, the stream route, the first design below, which K4 also
-// runs.
+// K4 and K6 each take one of two routes, chosen in Python by shape before
+// any launch (ops/bilstm_cuda.py:bidir_bwd_geometry, on the card
+// device_k4_geometry / device_bidir_bwd_geometry, each settled on its own
+// kernel's occupancy) and passed as a record: K2's cluster BPTT
+// (lstm_bwd_cluster.cuh) with half of the clusters a direction, each on its
+// own time map, K4 reading its dhs stream (or constant) at the stream
+// dtype, K6 its f32 constant; or, for a W_hh^T whose slice fits no cluster
+// of 8, the stream route, the first design below, at the record's rows a
+// block.
 //
 // What the first design does. K2's first design with a direction index:
 // blockIdx.y picks the direction (its W_hh^T, its time map and c_prev
 // neighbour), blockIdx.x a group of R rows; each block walks all T steps
-// with its f32 carries in shared memory. The launcher picks R as the
-// forward kernel does, so both directions fit one wave. Each thread owns a
-// (gate, column) pair of the product and streams its column of W_hh^T, which
-// the wrapper transposes once per call; the four per-gate partial sums meet
-// in shared memory and are added in gate order, as the TPU kernel's dots.
+// with its f32 carries in shared memory. Each thread owns a (gate, column)
+// pair of the product and streams its column of W_hh^T, which the wrapper
+// transposes once per call; the four per-gate partial sums meet in shared
+// memory and are added in gate order, as the TPU kernel's dots.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,9 +186,9 @@ __global__ void __launch_bounds__(1024) bilstm_bwd_kernel(Args a) {
   }
 }
 
-// geom: K6's stream record (ops/lstm_cuda.py:bwd_stream_geometry), whose
-// rows a block, threads and shared memory are launched as it says or the
-// record is refused; null for K4, which picks its rows a block here.
+// geom: the stream record (ops/lstm_cuda.py:bwd_stream_geometry), whose rows
+// a block, threads and shared memory are launched as it says or the record
+// is refused.
 template <typename S, typename DH, int R>
 cudaError_t launch(const Args& a, const int* geom, int dev, const DeviceInfo& info,
                    cudaStream_t stream) {
@@ -195,7 +197,7 @@ cudaError_t launch(const Args& a, const int* geom, int dev, const DeviceInfo& in
   const size_t smem = sizeof(float) * (size_t)R * (4 * a.H + 4 * a.H + 2 * a.H);
   int threads = ((4 * a.H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  if (geom && (geom[5] != threads || (size_t)geom[6] != smem)) return cudaErrorInvalidValue;
+  if (geom[5] != threads || (size_t)geom[6] != smem) return cudaErrorInvalidValue;
   cudaError_t err = open_smem(bilstm_bwd_kernel<S, DH, R>, smem, dev, info, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.B + R - 1) / R, 2);
@@ -209,9 +211,7 @@ cudaError_t dispatch_rows(const Args& a, const int* geom, cudaStream_t stream) {
   const DeviceInfo* info = nullptr;
   cudaError_t err = current_device(&dev, &info);
   if (err != cudaSuccess) return err;
-  // the forward's choice: two directions, each over half of the SMs
-  const int half = info->sms.load() / 2 > 0 ? info->sms.load() / 2 : 1;
-  switch (geom ? geom[2] : rows_per_block(a.B, half)) {
+  switch (geom[2]) {
     case 1: return launch<S, DH, 1>(a, geom, dev, *info, stream);
     case 2: return launch<S, DH, 2>(a, geom, dev, *info, stream);
     case 4: return launch<S, DH, 4>(a, geom, dev, *info, stream);
@@ -230,25 +230,47 @@ Args make_args(const void* ai, const void* af, const void* ao, const void* ag, c
               static_cast<float*>(dc0), T, B, H};
 }
 
+// The cluster route of both directions (lstm_bwd_cluster.cuh) at the
+// record geom, dhs read as DH.
+template <typename DH>
+cudaError_t cluster_route(int dtype, const Args& a, const int* geom, void* prof,
+                          cudaStream_t stream, int* max_active) {
+  const long long hh = (long long)a.H * a.H;
+  const BwdArgs b{a.ai, a.af, a.ao, a.ag, a.cs, a.wT, hh, a.H, a.c0,
+                  {a.dhs[0], a.dhs[1]}, {a.sdt[0], a.sdt[1]}, {a.sdb[0], a.sdb[1]},
+                  a.dhT, a.dcT, a.dp, a.dh0, a.dc0, a.T, a.B, a.H, 2,
+                  static_cast<long long*>(prof)};
+  return bwd_cluster_run<DH>(dtype, b, geom, stream, max_active);
+}
+
 }  // namespace
 
 extern "C" {
 
 // K4. dtype 0: f32 streams, W_hh^T and dhs; 1: bf16. c0, dhT, dcT, dh0, dc0
-// are f32. A dhs time stride of 0 makes it a per-row constant. Returns the
-// cudaError_t of the launch (0 = launched).
+// are f32. A dhs time stride of 0 makes it a per-row constant. geom: the
+// route and its geometry (kGeomLen ints, ops/bilstm_cuda.py:
+// bidir_bwd_geometry): [0] 1 the cluster route (lstm_bwd_cluster.cuh, half
+// of the clusters a direction, dhs at the stream dtype), 0 the stream route
+// (bilstm_bwd_kernel above, at [2] rows a block, [5] threads and [6] bytes
+// of shared memory). prof: null, or the cluster route's phase clock
+// [5 T + 2] (int64, direction 0's block 0). Returns the cudaError_t of the
+// launch (0 = launched).
 int dn_bilstm_bwd(int dtype, const void* ai, const void* af, const void* ao, const void* ag,
                   const void* cs, const void* wT, const void* c0,
                   const void* dhsf, long long sdtf, long long sdbf,
                   const void* dhsr, long long sdtr, long long sdbr,
                   const void* dhT, const void* dcT, void* dp, void* dh0, void* dc0,
-                  int T, int B, int H, void* stream) {
-  if (T < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
+                  int T, int B, int H, const int* geom, void* prof, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || !geom) return cudaErrorInvalidValue;
   const Args a = make_args(ai, af, ao, ag, cs, wT, c0, dhsf, sdtf, sdbf, dhsr, sdtr, sdbr,
                            dhT, dcT, dp, dh0, dc0, T, B, H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_rows<float, float>(a, nullptr, s);
-  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(a, nullptr, s);
+  // the f32 SIMT kernel reads a float dhs; the bf16 tensor-core kernel a bf16 one
+  if (geom[0] == 1) return cluster_route<__nv_bfloat16>(dtype, a, geom, prof, s, nullptr);
+  if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_rows<float, float>(a, geom, s);
+  if (dtype == 1) return dispatch_rows<__nv_bfloat16, __nv_bfloat16>(a, geom, s);
   return cudaErrorInvalidValue;
 }
 
@@ -266,17 +288,10 @@ int dn_bilstm_pool_bwd(int dtype, const void* ai, const void* af, const void* ao
                        const int* geom, void* prof, void* stream) {
   if (T < 1 || B < 1 || H < 1 || !geom) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (geom[0] == 1) {
-    const long long hh = (long long)H * H;
-    BwdArgs b{ai, af, ao, ag, cs, wT, hh, H, static_cast<const float*>(c0), {dpoolf, dpoolr},
-              {0, 0}, {H, H}, static_cast<const float*>(dhT), static_cast<const float*>(dcT),
-              dp, static_cast<float*>(dh0), static_cast<float*>(dc0), T, B, H, 2,
-              static_cast<long long*>(prof)};
-    return bwd_cluster_run<float>(dtype, b, geom, s, nullptr);
-  }
-  if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
   const Args a = make_args(ai, af, ao, ag, cs, wT, c0, dpoolf, 0, H, dpoolr, 0, H,
                            dhT, dcT, dp, dh0, dc0, T, B, H);
+  if (geom[0] == 1) return cluster_route<float>(dtype, a, geom, prof, s, nullptr);
+  if (geom[0] != 0 || prof) return cudaErrorInvalidValue;
   if (dtype == 0) return dispatch_rows<float, float>(a, geom, s);
   if (dtype == 1) return dispatch_rows<__nv_bfloat16, float>(a, geom, s);
   return cudaErrorInvalidValue;
@@ -286,11 +301,20 @@ int dn_bilstm_pool_bwd(int dtype, const void* ai, const void* af, const void* ao
 // into *out (clusters of both directions together).
 int dn_bilstm_bwd_max_active_clusters(int dtype, int B, int H, const int* geom, int* out) {
   if (B < 1 || H < 1 || !geom || !out) return cudaErrorInvalidValue;
-  BwdArgs a{};
+  Args a{};
   a.B = B;
   a.H = H;
-  a.dirs = 2;
-  return bwd_cluster_run<float>(dtype, a, geom, nullptr, out);
+  return cluster_route<float>(dtype, a, geom, nullptr, nullptr, out);
+}
+
+// The same for K4's cluster route, whose bf16 instance reads a bf16 dhs (its
+// registers, and so the clusters the card runs at once, are its own).
+int dn_bilstm_k4_max_active_clusters(int dtype, int B, int H, const int* geom, int* out) {
+  if (B < 1 || H < 1 || !geom || !out) return cudaErrorInvalidValue;
+  Args a{};
+  a.B = B;
+  a.H = H;
+  return cluster_route<__nv_bfloat16>(dtype, a, geom, nullptr, nullptr, out);
 }
 
 const char* dn_error_string(int err) {

@@ -1,6 +1,6 @@
 // The LSTM backward through time over a thread-block cluster, written once
-// for one direction (K2, lstm_bwd.cu) and for two (K6, bilstm_bwd.cu): the
-// cluster route of both. The backward counterpart of K1's and K3/K5's
+// for one direction (K2, lstm_bwd.cu) and for two (K4 and K6,
+// bilstm_bwd.cu): the cluster route of all three. The backward counterpart of K1's and K3/K5's
 // cluster recurrences (lstm_fwd.cu:lstm_rec_cluster_kernel,
 // bilstm_fwd.cu:bilstm_rec_cluster_kernel / bilstm_rec_mma_kernel).
 //
@@ -44,7 +44,7 @@
 // m16n8k16, f32 accumulators): A is dp [rows padded to 16, 4 sk padded to
 // 16], B the W_hh^T slice as ldmatrix operands.
 //
-// Two directions (K6): the first half of the grid's clusters is direction
+// Two directions (K4, K6): the first half of the grid's clusters is direction
 // 0, which walks t = T-1..0, the second half direction 1 (x-time streams),
 // t = 0..T-1; each has its own c_prev neighbour (c[t-1] or c[t+1]) and c0
 // at its first step. The launch geometry is worked out in Python

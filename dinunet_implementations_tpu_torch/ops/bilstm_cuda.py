@@ -40,12 +40,15 @@ Kernels (``csrc/bilstm_fwd.cu``, ``csrc/bilstm_bwd.cu``) and launch counters:
 - K4 :func:`bilstm_bwd_fused` (``BIDIR_BWD_LAUNCHES``): the backward, with
   a full cotangent stream or a per-row constant at the stream dtype;
 - K6 :func:`bilstm_pool_bwd_fused` (``POOL_BWD_LAUNCHES``): the backward of
-  the pool, its cotangent ``dpool / T`` a per-row f32 constant; a call takes
-  one of two routes, chosen by shape before any launch
-  (:func:`bidir_bwd_geometry`): K2's cluster BPTT with half of the clusters
-  a direction (``BIDIR_BWD_CLUSTER_CALLS``, ``csrc/lstm_bwd_cluster.cuh``),
-  or the first design for a W_hhᵀ whose slice fits no cluster of 8
-  (``BIDIR_BWD_STREAM_CALLS``).
+  the pool, its cotangent ``dpool / T`` a per-row f32 constant;
+
+  a K4 or K6 call takes one of two routes, chosen by shape before any
+  launch (:func:`bidir_bwd_geometry`, settled on each kernel's own
+  occupancy: :func:`device_k4_geometry`, :func:`device_bidir_bwd_geometry`):
+  K2's cluster BPTT with half of the clusters a direction
+  (``csrc/lstm_bwd_cluster.cuh``; ``K4_CLUSTER_CALLS``,
+  ``BIDIR_BWD_CLUSTER_CALLS``), or the first design for a W_hhᵀ whose slice
+  fits no cluster of 8 (``K4_STREAM_CALLS``, ``BIDIR_BWD_STREAM_CALLS``).
 
 Each launches for CUDA tensors and raises on anything it does not take;
 for CPU tensors, and only for them, it runs :func:`bilstm_fwd_plain` or
@@ -105,6 +108,9 @@ BIDIR_CLUSTER_CALLS = 0
 BIDIR_STREAM_CALLS = 0
 #: launches of the projection kernel for both directions (8 gates)
 BIDIR_PROJ_LAUNCHES = 0
+#: K4 launches on the cluster route / the stream route
+K4_CLUSTER_CALLS = 0
+K4_STREAM_CALLS = 0
 #: K6 launches on the cluster route / the stream route
 BIDIR_BWD_CLUSTER_CALLS = 0
 BIDIR_BWD_STREAM_CALLS = 0
@@ -119,9 +125,10 @@ _ARGTYPES = {
     ("bilstm_fwd", "dn_bilstm_rec"): [_I, _I] + [_P] * 13 + [_I, _I, _I, _P, _P, _P],
     ("bilstm_fwd", "dn_bilstm_max_active_clusters"): [_I, _I, _I, _I, _P, _P],
     ("bilstm_bwd", "dn_bilstm_bwd"): [_I] + [_P] * 7 + [_P, _L, _L, _P, _L, _L]
-    + [_P] * 5 + [_I, _I, _I, _P],
+    + [_P] * 5 + [_I, _I, _I, _P, _P, _P],
     ("bilstm_bwd", "dn_bilstm_pool_bwd"): [_I] + [_P] * 14 + [_I, _I, _I, _P, _P, _P],
     ("bilstm_bwd", "dn_bilstm_bwd_max_active_clusters"): [_I, _I, _I, _P, _P],
+    ("bilstm_bwd", "dn_bilstm_k4_max_active_clusters"): [_I, _I, _I, _P, _P],
 }
 
 
@@ -298,26 +305,51 @@ def bidir_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
 
 def bidir_bwd_geometry(rows: int, H: int, dtype=None, sms: int = 132,
                        smem_optin: int = SMEM_OPTIN, cluster_slots: dict | None = None) -> dict:
-    """The launch geometry of K6: ``ops/lstm_cuda.py:bwd_geometry`` for two
-    directions, whose clusters share the card's slots, half each; the stream
-    route (the first design) for a W_hhᵀ whose slice fits no cluster of 8."""
+    """The launch geometry of K4 and K6: ``ops/lstm_cuda.py:bwd_geometry``
+    for two directions, whose clusters share the card's slots, half each;
+    the stream route (the first design) for a W_hhᵀ whose slice fits no
+    cluster of 8."""
     return bwd_geometry(rows, H, dtype, sms, smem_optin, cluster_slots, 2)
 
 
-def device_bidir_bwd_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
-    """:func:`bidir_bwd_geometry` on ``device``'s SM count and shared memory,
-    with the clusters the card runs at once from
-    ``cudaOccupancyMaxActiveClusters`` of K6's cluster kernel
-    (``ops/lstm_cuda.py:settle_geometry``). Worked out once per device and
-    shape."""
+#: the C entry of each two-direction BPTT's occupancy query: K4's bf16
+#: instance reads a bf16 dhs, K6's an f32 constant, so their registers, and
+#: the clusters the card runs at once, may differ
+_BWD2_OCCUPANCY = {"k4": "dn_bilstm_k4_max_active_clusters",
+                   "k6": "dn_bilstm_bwd_max_active_clusters"}
+
+
+def _device_bwd2_geometry(kernel: str, device, rows: int, H: int, compute_dtype) -> dict:
     dev = torch.device(device)
-    key = ("bwd", dev, rows, H, compute_dtype == torch.bfloat16)
+    key = (kernel, dev, rows, H, compute_dtype == torch.bfloat16)
     if key not in _geometries:
         sms, optin = device_limits(dev)
         _geometries[key] = settle_geometry(
             lambda slots: bidir_bwd_geometry(rows, H, compute_dtype, sms, optin, slots),
-            lambda g: bidir_bwd_max_active_clusters(dev, rows, H, compute_dtype, g))
+            lambda g: _bwd2_max_active_clusters(kernel, dev, rows, H, compute_dtype, g))
     return _geometries[key]
+
+
+def _bwd2_max_active_clusters(kernel: str, device, rows: int, H: int, compute_dtype,
+                              geometry: dict | None) -> int | None:
+    g = geometry or _device_bwd2_geometry(kernel, device, rows, H, compute_dtype)
+    if g["route"] != "cluster":
+        return None
+    dev = torch.device(device)
+    code = 0 if compute_dtype is None else 1
+    geom = _geom_ints(g)
+    with torch.cuda.device(dev):
+        return cluster_occupancy(_kernel("bilstm_bwd", _BWD2_OCCUPANCY[kernel]),
+                                 (kernel, dev, code, rows, H, tuple(geom)), code, rows, H, geom)
+
+
+def device_bidir_bwd_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
+    """:func:`bidir_bwd_geometry` of K6 on ``device``'s SM count and shared
+    memory, with the clusters the card runs at once from
+    ``cudaOccupancyMaxActiveClusters`` of K6's cluster kernel
+    (``ops/lstm_cuda.py:settle_geometry``). Worked out once per device and
+    shape."""
+    return _device_bwd2_geometry("k6", device, rows, H, compute_dtype)
 
 
 def bidir_bwd_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
@@ -325,15 +357,21 @@ def bidir_bwd_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
     """``cudaOccupancyMaxActiveClusters`` of K6's cluster route at this
     geometry (clusters of both directions together), asked once per device
     and configuration; None on the stream route."""
-    g = geometry or device_bidir_bwd_geometry(device, rows, H, compute_dtype)
-    if g["route"] != "cluster":
-        return None
-    dev = torch.device(device)
-    code = 0 if compute_dtype is None else 1
-    geom = _geom_ints(g)
-    with torch.cuda.device(dev):
-        return cluster_occupancy(_kernel("bilstm_bwd", "dn_bilstm_bwd_max_active_clusters"),
-                                 ("k6", dev, code, rows, H, tuple(geom)), code, rows, H, geom)
+    return _bwd2_max_active_clusters("k6", device, rows, H, compute_dtype, geometry)
+
+
+def device_k4_geometry(device, rows: int, H: int, compute_dtype=None) -> dict:
+    """:func:`bidir_bwd_geometry` of K4, as :func:`device_bidir_bwd_geometry`
+    but settled on K4's own occupancy entry and kept under its own key."""
+    return _device_bwd2_geometry("k4", device, rows, H, compute_dtype)
+
+
+def k4_max_active_clusters(device, rows: int, H: int, compute_dtype=None,
+                           geometry: dict | None = None) -> int | None:
+    """``cudaOccupancyMaxActiveClusters`` of K4's cluster route at this
+    geometry (clusters of both directions together); None on the stream
+    route."""
+    return _bwd2_max_active_clusters("k4", device, rows, H, compute_dtype, geometry)
 
 
 # ---------------------------------------------------------------------------
@@ -660,36 +698,63 @@ def _bwd_outputs(sdt, T, B, H, device):
 
 
 def bilstm_bwd_fused(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
-                     compute_dtype=None):
+                     compute_dtype=None, geometry=None):
     """K4: both directions' backward in one launch. Same arguments and
     returns as :func:`bilstm_bwd_plain`. ``dhsf, dhsr`` are at the stream
     dtype, each a ``[T, B, H]`` view contiguous over H or a ``[1, B, H]``
-    per-row constant (read at every step, never broadcast in memory)."""
+    per-row constant (read at every step, never broadcast in memory). The
+    route is :func:`device_k4_geometry`'s, or ``geometry``'s (a
+    :func:`bidir_bwd_geometry` result, for measurements); a launch the card
+    refuses raises, nothing falls back."""
     streams = (ai2, af2, ao2, ag2, cs2)
     if cs2.device.type == "cpu":
         return bilstm_bwd_plain(*streams, whh2, c02, dhsf, dhsr, dhT2, dcT2, compute_dtype)
-    sdt, T, B, H, wT = _bwd_checks("bilstm_bwd_fused", streams, whh2, c02, dhT2, dcT2,
-                                   compute_dtype)
+    return _k4(streams, whh2, c02, dhsf, dhsr, dhT2, dcT2, compute_dtype, geometry)
+
+
+def _k4(streams, whh2, c02, dhsf, dhsr, dhT2, dcT2, compute_dtype, geometry, prof=None):
+    global BIDIR_BWD_LAUNCHES, K4_CLUSTER_CALLS, K4_STREAM_CALLS
+    fn, dev = "bilstm_bwd_fused", streams[4].device
+    sdt, T, B, H, wT = _bwd_checks(fn, streams, whh2, c02, dhT2, dcT2, compute_dtype)
     for name, d in (("dhsf", dhsf), ("dhsr", dhsr)):
         _check(d.dim() == 3 and d.shape[0] in (1, T) and tuple(d.shape[1:]) == (B, H)
-               and d.dtype == sdt and d.stride(-1) == 1 and d.device == cs2.device,
-               f"{name} must be [{T} or 1, {B}, {H}] {sdt}, contiguous in its last axis",
-               "bilstm_bwd_fused")
+               and d.dtype == sdt and d.stride(-1) == 1 and d.device == dev,
+               f"{name} must be [{T} or 1, {B}, {H}] {sdt}, contiguous in its last axis", fn)
+    g = geometry or device_k4_geometry(dev, B, H, compute_dtype)
+    _check(g.get("dirs") == 2, "the geometry is K2's (one direction)", fn)
 
     def time_stride(d):
         return d.stride(0) if d.shape[0] == T and T > 1 else 0
 
-    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, cs2.device)
-    with torch.cuda.device(cs2.device):
+    dp, dh02, dc02 = _bwd_outputs(sdt, T, B, H, dev)
+    with torch.cuda.device(dev):
         _launch("bilstm_bwd", "dn_bilstm_bwd", 0 if sdt == torch.float32 else 1,
                 *(a.data_ptr() for a in streams), wT.data_ptr(), c02.data_ptr(),
                 dhsf.data_ptr(), time_stride(dhsf), dhsf.stride(1),
                 dhsr.data_ptr(), time_stride(dhsr), dhsr.stride(1),
                 dhT2.data_ptr(), dcT2.data_ptr(), dp.data_ptr(), dh02.data_ptr(),
-                dc02.data_ptr(), T, B, H, torch.cuda.current_stream(cs2.device).cuda_stream)
-    global BIDIR_BWD_LAUNCHES
+                dc02.data_ptr(), T, B, H, _geom_ints(g), _ptr(prof),
+                torch.cuda.current_stream(dev).cuda_stream)
     BIDIR_BWD_LAUNCHES += 1
+    if g["route"] == "cluster":
+        K4_CLUSTER_CALLS += 1
+    else:
+        K4_STREAM_CALLS += 1
     return dp, dh02, dc02
+
+
+def k4_phase_profile(ai2, af2, ao2, ag2, cs2, whh2, c02, dhsf, dhsr, dhT2, dcT2,
+                     compute_dtype=None, geometry=None) -> dict:
+    """One K4 call on the cluster route with its phase clock on: the mean µs
+    a step of block 0 (direction 0) spends in each of
+    ``ops/lstm_cuda.py:BWD_PHASES`` and each phase's share. For
+    measurements; counts as a call."""
+    T, B, H = cs2.shape[1:]
+    g = geometry or device_k4_geometry(cs2.device, B, H, compute_dtype)
+    _check(g["route"] == "cluster", "the phase clock is the cluster route's", "k4_phase_profile")
+    prof = torch.zeros(5 * T + 2, dtype=torch.int64, device=cs2.device)
+    _k4((ai2, af2, ao2, ag2, cs2), whh2, c02, dhsf, dhsr, dhT2, dcT2, compute_dtype, g, prof)
+    return phase_summary(prof, T, BWD_PHASES)
 
 
 def bilstm_pool_bwd_fused(ai2, af2, ao2, ag2, cs2, whh2, c02, dpoolf, dpoolr, dhT2, dcT2,
