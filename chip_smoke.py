@@ -74,23 +74,25 @@ result line:
    thread-block clusters) and on the stream route (the first design), with
    the geometry and cudaOccupancyMaxActiveClusters, the projection's xp2
    against ``bilstm_proj_plain`` (f32: bit-identical to K1's projection
-   kernel on the same 8 gates) and the phase clock; K6 likewise on K2's
-   cluster BPTT (half of the clusters a direction) and on its stream
-   route; times of each kernel (K3/K5/K6 on both routes, the projection
-   alone), its plain version and a cuDNN
+   kernel on the same 8 gates) and the phase clock; K4 (full cotangent
+   streams at the stream dtype) and K6 likewise on K2's cluster BPTT (half
+   of the clusters a direction; bf16 also held to ``BWD_BF16_SHARE``) and
+   on their stream route; times of each kernel (K3-K6 on both routes, the
+   projection alone), its plain version and a cuDNN
    ``torch.nn.LSTM(bidirectional=True)`` forward or backward; then,
    untimed, every geometry K3/K5's launcher can pick (clusters of 2, 4, 8,
    each rows a thread, ragged slices and rows, K3 without residuals, the
-   stream route at H=400), every geometry of K6's cluster route and its
-   stream route's templates, K4's rows-per-block templates and K4's
-   per-row constant cotangent;
+   stream route at H=400), every geometry of K4's and K6's cluster route
+   and their stream route's templates, and K4's per-row constant
+   cotangent at the stream dtype on both routes, f32 and bf16;
 10. the fused bidirectional arm, ``ICALstm(fused_bidir=True)``: phase 6's
    two dSGD epochs through K5 and K6 (one call each per micro-batch, both on
    the cluster route, no K1 or K2), held against the same epochs through
    the plain versions; one bf16 epoch; the one-model eval forward (rows 1
    and 16, one K3 call a call, on the cluster route) against the
    per-direction kernel path and the plain path; one one-model gradient
-   (one K3 and one K4 call) against the plain path;
+   (one K3 and one K4 call, both on the cluster route) against the plain
+   path;
 11. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -117,7 +119,7 @@ F32_TOL = 1e-4
 # can flip the last bit of a bf16 stream value (2**-8 relative), and the
 # bf16 h fed back carries that flip into later steps
 BF16_TOL = 3e-2
-# The bf16 cluster BPTT (K2, K6) is also held to a share of each output's
+# The bf16 cluster BPTT (K2, K4, K6) is also held to a share of each output's
 # largest |value|, since BF16_TOL exceeds a typical dp (~1e-2) or dh carry
 # (~2e-2) at the smoke's cotangents: a fault in the tensor-core product (a
 # dropped k-tile, a missed n-tile, a rank left out of the reduce-scatter)
@@ -445,15 +447,19 @@ def split_bwd(out):
     return [dp[..., k * h:(k + 1) * h] for k in range(4)] + [dh0, dc0]
 
 
-def bwd_geometry_line(dirs: int, rows: int, h: int, cdt, geometry=None) -> dict:
-    """K2's (``dirs`` 1) or K6's (2) launcher geometry for ``rows`` rows of
-    width ``h`` on this card, with cudaOccupancyMaxActiveClusters of its
-    configuration."""
+def bwd_geometry_line(kernel: str, rows: int, h: int, cdt, geometry=None) -> dict:
+    """The launcher geometry of K2 (``kernel`` "lstm_bwd"), K4
+    ("bilstm_bwd") or K6 ("bilstm_pool_bwd") for ``rows`` rows of width
+    ``h`` on this card, with cudaOccupancyMaxActiveClusters of that
+    kernel's configuration."""
     from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
 
-    pick, occupancy = ((bc.device_bidir_bwd_geometry, bc.bidir_bwd_max_active_clusters)
-                       if dirs == 2 else (lc.device_bwd_geometry, lc.bwd_max_active_clusters))
+    pick, occupancy = {
+        "lstm_bwd": (lc.device_bwd_geometry, lc.bwd_max_active_clusters),
+        "bilstm_bwd": (bc.device_k4_geometry, bc.k4_max_active_clusters),
+        "bilstm_pool_bwd": (bc.device_bidir_bwd_geometry, bc.bidir_bwd_max_active_clusters),
+    }[kernel]
     g = dict(geometry or pick("cuda", rows, h, cdt))
     g["max_active_clusters"] = occupancy("cuda", rows, h, cdt, g)
     return g
@@ -474,7 +480,7 @@ def bwd_phase(torch, lc) -> list[dict]:
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
             args = bwd_args(torch, lc, rows, cdt, g)
-            geo = bwd_geometry_line(1, rows, H, cdt)
+            geo = bwd_geometry_line("lstm_bwd", rows, H, cdt)
             want = split_bwd(lc.lstm_bwd_plain(*args, cdt))
             got = lc.lstm_bwd_fused(*args, cdt)
             torch.cuda.synchronize()
@@ -502,11 +508,11 @@ def bwd_phase(torch, lc) -> list[dict]:
                    "bound_by": b_by, "geometry": geo, "stream_geometry": stream}
             print(json.dumps(rec))
             out.append(rec)
-    bwd_coverage_phase(torch, 1, g)
+    bwd_coverage_phase(torch, "lstm_bwd", g)
     return out
 
 
-# The cluster BPTT's geometries checked untimed, K2 and K6 alike: (H, dtype,
+# The cluster BPTT's geometries checked untimed, K2, K4 and K6 alike: (H, dtype,
 # cluster size, rows a cluster). f32 (the SIMT kernel): 1, 2, 4 and 8 rows a
 # thread (R 1, 2, 18, 8), several row groups (3, 13, 18, 35), clusters of 2, 4, 8,
 # ragged slices (174 = 44 + 44 + 43 + 43) and an odd H (the padded column);
@@ -517,8 +523,9 @@ BWD_COVERAGE = [(H, None, 4, 1), (H, None, 4, 2), (H, None, 4, 3), (H, None, 4, 
                 (H, "bf16", 4, 40), (256, "bf16", 8, 10), (175, "bf16", 2, 17)]
 
 
-def bwd_coverage_phase(torch, dirs: int, g) -> None:
-    """Untimed: K2 (``dirs`` 1) or K6 (2) on every geometry of
+def bwd_coverage_phase(torch, kernel: str, g) -> None:
+    """Untimed: K2 (``kernel`` "lstm_bwd"), K4 ("bilstm_bwd", full
+    cotangent streams) or K6 ("bilstm_pool_bwd") on every geometry of
     :data:`BWD_COVERAGE`, three clusters a direction with a ragged last one,
     every output against the plain version; then the stream route at H =
     400, whose W_hhᵀ slice fits no cluster of 8 in f32, at each of its rows
@@ -527,25 +534,29 @@ def bwd_coverage_phase(torch, dirs: int, g) -> None:
     from dinunet_implementations_tpu_torch.ops import bilstm_cuda as bc
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
 
-    k6 = dirs == 2
+    dirs = 1 if kernel == "lstm_bwd" else 2
     sms, optin = lc.device_limits("cuda")
     bf = torch.bfloat16
-    name = "bilstm_pool_bwd" if k6 else "lstm_bwd"
-    fused = bc.bilstm_pool_bwd_fused if k6 else lc.lstm_bwd_fused
 
     def check(rows, h, cdt, geometry, what):
-        args = (pool_bwd_args(torch, bc, rows, cdt, g, h) if k6
-                else bwd_args(torch, lc, rows, cdt, g, h))
-        want = bc.bilstm_bwd_plain(*pool_plain_args(args), cdt) if k6 else \
-            lc.lstm_bwd_plain(*args, cdt)
-        got = fused(*args, cdt, geometry=geometry)
-        split = (lambda o: o) if k6 else split_bwd
-        names = BIDIR_BWD_OUTPUTS if k6 else BWD_OUTPUTS
-        err = compare(f"{name} {what} rows={rows} H={h} {cdt}", split(got), split(want), names,
+        if kernel == "lstm_bwd":
+            args = bwd_args(torch, lc, rows, cdt, g, h)
+            want = split_bwd(lc.lstm_bwd_plain(*args, cdt))
+            got = split_bwd(lc.lstm_bwd_fused(*args, cdt, geometry=geometry))
+        elif kernel == "bilstm_bwd":
+            args = bidir_bwd_args(torch, bc, bidir_args(torch, rows, g, h), cdt, g, const=False)
+            want = bc.bilstm_bwd_plain(*args, cdt)
+            got = bc.bilstm_bwd_fused(*args, cdt, geometry=geometry)
+        else:
+            args = pool_bwd_args(torch, bc, rows, cdt, g, h)
+            want = bc.bilstm_bwd_plain(*pool_plain_args(args), cdt)
+            got = bc.bilstm_pool_bwd_fused(*args, cdt, geometry=geometry)
+        names = BWD_OUTPUTS if kernel == "lstm_bwd" else BIDIR_BWD_OUTPUTS
+        err = compare(f"{kernel} {what} rows={rows} H={h} {cdt}", got, want, names,
                       F32_TOL if cdt is None else BF16_TOL)
-        share = bwd_share(f"{name} {what} rows={rows} H={h} {cdt}", (geometry or {}).get("route"),
-                          cdt, split(got), split(want), names)
-        print(json.dumps({"check": f"{name} {what}", "rows": rows, "H": h,
+        share = bwd_share(f"{kernel} {what} rows={rows} H={h} {cdt}", (geometry or {}).get("route"),
+                          cdt, got, want, names)
+        print(json.dumps({"check": f"{kernel} {what}", "rows": rows, "H": h,
                           "dtype": "bf16" if cdt else "f32", "max_abs_err": err,
                           "bf16_max_share": share, "geometry": geometry}))
 
@@ -555,14 +566,14 @@ def bwd_coverage_phase(torch, dirs: int, g) -> None:
         rows = 3 * R - (1 if R > 1 else 0)
         geo = lc.bwd_cluster_geometry(rows, h, C, R, cdt, optin, dirs=dirs)
         if geo is None:
-            fail(f"{name} coverage: no cluster geometry for H={h} {dt} C={C} R={R}")
+            fail(f"{kernel} coverage: no cluster geometry for H={h} {dt} C={C} R={R}")
         seen |= {(dt, "C", C), (dt, "rows a thread", geo["rpt"]), (dt, "tiles", geo["row_groups"])}
         check(rows, h, cdt, geo, "cluster geometry")
     for R in (1, 2, 4, 8):
         rows = R * (sms // dirs) - 1
-        geo = bwd_geometry_line(dirs, rows, STREAM_H, None)
+        geo = bwd_geometry_line(kernel, rows, STREAM_H, None)
         if geo["route"] != "stream" or geo["R"] != R:
-            fail(f"{name} geometry for rows={rows} H={STREAM_H}: {geo}, expected the stream "
+            fail(f"{kernel} geometry for rows={rows} H={STREAM_H}: {geo}, expected the stream "
                  f"route at R={R}")
         seen.add(("stream", R))
         check(rows, STREAM_H, None, None, "stream route")
@@ -572,7 +583,7 @@ def bwd_coverage_phase(torch, dirs: int, g) -> None:
             | {("bf16", "C", C) for C in (2, 4, 8)} | {("bf16", "tiles", n) for n in (1, 2, 3)}
             | {("stream", r) for r in (1, 2, 4, 8)} | {(None, "tiles", 5)})
     if not need <= seen:
-        fail(f"{name} coverage misses {sorted(map(str, need - seen))}")
+        fail(f"{kernel} coverage misses {sorted(map(str, need - seen))}")
 
 
 def cudnn_lstm(torch, wih, b, whh, cdt=None):
@@ -827,11 +838,12 @@ def zero_counters(lc, pc, bc) -> None:
     bc.POOL_FWD_LAUNCHES = bc.POOL_BWD_LAUNCHES = 0
     bc.BIDIR_PROJ_LAUNCHES = bc.BIDIR_CLUSTER_CALLS = bc.BIDIR_STREAM_CALLS = 0
     bc.BIDIR_BWD_CLUSTER_CALLS = bc.BIDIR_BWD_STREAM_CALLS = 0
+    bc.K4_CLUSTER_CALLS = bc.K4_STREAM_CALLS = 0
 
 
 def read_counters(lc, pc, bc) -> dict:
     """Kernel launches, and the static routes: K1's and K3/K5's recurrences
-    and K2's and K6's BPTT over a cluster or streamed, K7 staged or direct,
+    and K2's, K4's and K6's BPTT over a cluster or streamed, K7 staged or direct,
     rank classes sent to the plain power iteration."""
     from dinunet_implementations_tpu_torch.engines import lowrank
 
@@ -846,6 +858,7 @@ def read_counters(lc, pc, bc) -> dict:
             "bilstm_pool_fwd": bc.POOL_FWD_LAUNCHES, "bilstm_pool_bwd": bc.POOL_BWD_LAUNCHES,
             "bilstm_proj": bc.BIDIR_PROJ_LAUNCHES, "bidir_cluster_route": bc.BIDIR_CLUSTER_CALLS,
             "bidir_stream_route": bc.BIDIR_STREAM_CALLS,
+            "k4_cluster_route": bc.K4_CLUSTER_CALLS, "k4_stream_route": bc.K4_STREAM_CALLS,
             "k6_cluster_route": bc.BIDIR_BWD_CLUSTER_CALLS,
             "k6_stream_route": bc.BIDIR_BWD_STREAM_CALLS}
 
@@ -1398,13 +1411,15 @@ def bidir_geometry_line(bc, rows: int, h: int, cdt, pool: bool, geometry=None) -
 def bidir_kernel_phase(torch, bc) -> list[dict]:
     """K3 and K5 at rows 1, 16 and 512, K4 (full cotangent streams) and K6
     at rows 16 and 512, f32 and bf16, against their plain versions, timed
-    beside the plain version, the bound and cuDNN; K3/K5 and K6 on the
-    route the launcher picks and on the stream route (the first design),
-    with the geometry and the phase clock (K3/K5 also the projection
-    alone). Then, untimed, every geometry K3/K5's launcher can pick
-    (:func:`bidir_coverage_phase`), every geometry of K6's cluster route and
-    its stream route's templates (:func:`bwd_coverage_phase`), K4's rows a
-    block templates and its per-row constant."""
+    beside the plain version, the bound and cuDNN; each on the route the
+    launcher picks and on the stream route (the first design), with the
+    geometry and the phase clock (K3/K5 also the projection alone; K4 and
+    K6 in bf16 also held to ``BWD_BF16_SHARE``). Then, untimed, every
+    geometry K3/K5's launcher can pick (:func:`bidir_coverage_phase`),
+    every geometry of K4's and K6's cluster route and their stream route's
+    templates (:func:`bwd_coverage_phase`), all four kernels at the rows of
+    2 and 4 rows a block on their launcher's route, and K4's per-row
+    constant at the stream dtype on both routes."""
     from dinunet_implementations_tpu_torch.ops import lstm_cuda as lc
 
     g = torch.Generator().manual_seed(7)
@@ -1457,22 +1472,38 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
                        step_phases=phases, geometry=geo, stream_geometry=stream)
 
     for rows in BIDIR_ROWS:
+        stream = lc.bwd_stream_geometry(rows, H, sms, dirs=2)
         for cdt in (None, torch.bfloat16):
             tol = F32_TOL if cdt is None else BF16_TOL
             args = bidir_args(torch, rows, g)
             bwd_lib = library_bilstm(torch, args, cdt, None, True, g)
             bargs = bidir_bwd_args(torch, bc, args, cdt, g, const=False)
+            geo = bwd_geometry_line("bilstm_bwd", rows, H, cdt)
+            want = bc.bilstm_bwd_plain(*bargs, cdt)
             got = bc.bilstm_bwd_fused(*bargs, cdt)
             torch.cuda.synchronize()
-            err = compare(f"bilstm_bwd rows={rows} {cdt}", got, bc.bilstm_bwd_plain(*bargs, cdt),
+            err = compare(f"bilstm_bwd rows={rows} {cdt} {geo['route']}", got, want,
                           BIDIR_BWD_OUTPUTS, tol)
+            share = bwd_share(f"bilstm_bwd rows={rows} {cdt}", geo["route"], cdt, got, want,
+                              BIDIR_BWD_OUTPUTS)
+            got = bc.bilstm_bwd_fused(*bargs, cdt, geometry=stream)
+            torch.cuda.synchronize()
+            stream_err = compare(f"bilstm_bwd rows={rows} {cdt} stream", got, want,
+                                 BIDIR_BWD_OUTPUTS, tol)
+            del got, want
             record("bilstm_bwd", rows, cdt, err, lambda: bc.bilstm_bwd_fused(*bargs, cdt),
-                   lambda: bc.bilstm_bwd_plain(*bargs, cdt), 5, bwd_lib)
+                   lambda: bc.bilstm_bwd_plain(*bargs, cdt), 5, bwd_lib,
+                   route=geo["route"], bf16_max_share=share,
+                   stream_ms=time_ms(lambda: bc.bilstm_bwd_fused(*bargs, cdt, geometry=stream),
+                                     30),
+                   stream_max_abs_err=stream_err,
+                   step_phases=bc.k4_phase_profile(*bargs, cdt)
+                   if geo["route"] == "cluster" else None,
+                   geometry=geo, stream_geometry=stream)
 
             pb = list(bidir_bwd_args(torch, bc, args, cdt, g, const=True))
             pb[7], pb[8] = pb[7][0].float().contiguous(), pb[8][0].float().contiguous()
-            geo = bwd_geometry_line(2, rows, H, cdt)
-            stream = lc.bwd_stream_geometry(rows, H, sms, dirs=2)
+            geo = bwd_geometry_line("bilstm_pool_bwd", rows, H, cdt)
             want = bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt)
             got = bc.bilstm_pool_bwd_fused(*pb, cdt)
             torch.cuda.synchronize()
@@ -1496,11 +1527,12 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
                    geometry=geo, stream_geometry=stream)
 
     bidir_coverage_phase(torch, bc, g)
-    bwd_coverage_phase(torch, 2, g)
-    # untimed: K4 takes the fewest rows a block that keep both directions'
-    # blocks within the SMs (rows / R <= SMs / 2): 16 and 512 above take 1
-    # and 8; these take 2 and 4 (K3/K5 and K6 run here on their launcher's
-    # route)
+    bwd_coverage_phase(torch, "bilstm_bwd", g)
+    bwd_coverage_phase(torch, "bilstm_pool_bwd", g)
+    # untimed: the rows at which the stream route's rule (the fewest rows a
+    # block that keep both directions' blocks within the SMs, rows / R <=
+    # SMs / 2) takes 2 and 4 rows a block; every kernel runs here on its
+    # launcher's route (at H = 174, the cluster route)
     half = sms // 2
     for rows in (2 * half - 1, 4 * half - 1):
         for cdt in (None, torch.bfloat16):
@@ -1525,13 +1557,26 @@ def bidir_kernel_phase(torch, bc) -> list[dict]:
                 bc.bilstm_bwd_plain(*pool_plain_args(pb), cdt), BIDIR_BWD_OUTPUTS, tol)
             print(json.dumps({"check": "bidir rows per block", "rows": rows, "sms": 2 * half,
                               "dtype": "bf16" if cdt else "f32", "max_abs_err": errs}))
-    # K4's per-row constant at the timed shapes (the one-model gradient's form)
+    # K4's per-row constant at the stream dtype (the one-model gradient's
+    # form, f32 and in the bf16 arm) at the timed shapes, on both routes
     for rows in BIDIR_ROWS:
+        stream = lc.bwd_stream_geometry(rows, H, sms, dirs=2)
         args = bidir_args(torch, rows, g)
-        bargs = bidir_bwd_args(torch, bc, args, None, g, const=True)
-        err = compare(f"bilstm_bwd const rows={rows}", bc.bilstm_bwd_fused(*bargs),
-                      bc.bilstm_bwd_plain(*bargs), BIDIR_BWD_OUTPUTS, F32_TOL)
-        print(json.dumps({"check": "bilstm_bwd per-row constant", "rows": rows, "max_abs_err": err}))
+        for cdt in (None, torch.bfloat16):
+            tol = F32_TOL if cdt is None else BF16_TOL
+            bargs = bidir_bwd_args(torch, bc, args, cdt, g, const=True)
+            route = bc.device_k4_geometry("cuda", rows, H, cdt)["route"]
+            want = bc.bilstm_bwd_plain(*bargs, cdt)
+            got = bc.bilstm_bwd_fused(*bargs, cdt)
+            what = f"bilstm_bwd const rows={rows} {cdt}"
+            err = compare(f"{what} {route}", got, want, BIDIR_BWD_OUTPUTS, tol)
+            share = bwd_share(what, route, cdt, got, want, BIDIR_BWD_OUTPUTS)
+            stream_err = compare(f"{what} stream", bc.bilstm_bwd_fused(*bargs, cdt, geometry=stream),
+                                 want, BIDIR_BWD_OUTPUTS, tol)
+            print(json.dumps({"check": "bilstm_bwd per-row constant", "rows": rows,
+                              "dtype": "bf16" if cdt else "f32", "route": route,
+                              "max_abs_err": err, "bf16_max_share": share,
+                              "stream_max_abs_err": stream_err}))
     return out
 
 
@@ -1649,8 +1694,8 @@ def fused_model_phase(torch, np, lc, pc, bc) -> dict:
     """The one-model paths of the fused arm at full width: the eval forward
     (``eval_forward``, rows 1 and 16; one K3 launch a call) against the
     per-direction kernel path and the plain path, and one gradient of
-    ``ICALstm.forward(train=True)`` on 16 rows (one K3 and one K4 launch)
-    against the plain path."""
+    ``ICALstm.forward(train=True)`` on 16 rows (one K3 and one K4 launch,
+    both on the cluster route) against the plain path."""
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.runner.registry import build_model
     from dinunet_implementations_tpu_torch.trainer.steps import (
@@ -1712,7 +1757,8 @@ def fused_model_phase(torch, np, lc, pc, bc) -> dict:
         grads[k] = dict(zip(named, gk))
     rec["launches"]["one_model_gradient"] = launches
     want = dict.fromkeys(launches, 0) | {"bilstm_fwd": 1, "bilstm_proj": 1,
-                                         "bidir_cluster_route": 1, "bilstm_bwd": 1}
+                                         "bidir_cluster_route": 1, "bilstm_bwd": 1,
+                                         "k4_cluster_route": 1}
     if launches != want:
         fail(f"fused one-model gradient launches {launches}, want {want}")
     err, ok = tree_err(grads["fused"], grads["plain"], **AGG_TOL)
@@ -1891,10 +1937,12 @@ def main() -> int:
                           "launch for a W_hh that fits no cluster of 8)",
                 "geometry": main_shape["geometry"], "proj_ms": main_shape["proj_ms"],
                 "stream_ms": main_shape["stream_ms"], "scratch_ms": main_shape["scratch_ms"]})
-        elif name == "bilstm_pool_bwd":
+        else:
+            cot = ("dhs a full stream or a per-row constant at the stream dtype"
+                   if name == "bilstm_bwd" else "dpool / T an f32 per-row constant")
             kernels[-1].update({
-                "design": BWD_DESIGN + " (half of the clusters a direction, each on its own time "
-                          "map; dpool / T an f32 per-row constant)",
+                "design": BWD_DESIGN + f" (half of the clusters a direction, each on its own time "
+                          f"map; {cot})",
                 "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
     print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))

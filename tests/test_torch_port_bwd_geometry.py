@@ -1,7 +1,7 @@
-"""K2's and K6's cluster BPTT (``csrc/lstm_bwd_cluster.cuh``): the launch
-geometry (``ops/lstm_cuda.py:bwd_geometry``, ``ops/bilstm_cuda.py:
-bidir_bwd_geometry``) and the data flow of the reduce-scatter, checked on
-the CPU before the card is touched.
+"""K2's, K4's and K6's cluster BPTT (``csrc/lstm_bwd_cluster.cuh``): the
+launch geometry (``ops/lstm_cuda.py:bwd_geometry``, ``ops/bilstm_cuda.py:
+bidir_bwd_geometry``, K4's own occupancy and cache key) and the data flow of
+the reduce-scatter, checked on the CPU before the card is touched.
 
 Block q of a cluster owns hidden units ``[j0[q], j0[q + 1])`` of its
 direction. Per step it computes the four dp of its units, multiplies them by
@@ -9,11 +9,15 @@ its rows of W_hhᵀ into a partial dh of all H columns (its own double
 buffer), and, after the cluster barrier, sums its units' slice of every
 rank's partials in rank order: the next dh carry. ``_bptt_emulation`` runs
 that data flow rank by rank in plain PyTorch, for one direction with a dhs
-stream (K2) and for two directions with the x-time map and an f32 per-row
+stream (K2), for two directions with the x-time map and dhs at the stream
+dtype, a full stream or a per-row constant (K4), and with an f32 per-row
 constant (K6), and is held against ``lstm_bwd_plain`` / ``bilstm_bwd_plain``
 and the JAX package's Pallas kernels (interpret mode). ``chip_smoke.py``
 holds the kernels themselves against the plain versions on the card.
 """
+
+import contextlib
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -343,3 +347,117 @@ def test_phase_summary_reads_the_bptt_clock():
     assert tl.BWD_PHASES == ("cotangents", "sync", "product", "barrier")
     assert [round(out[f"{k}_us"], 6) for k in tl.BWD_PHASES] == [0.1, 0.01, 0.3, 0.09]
     assert out["step_us"] == pytest.approx(0.5) and out["ghz"] == pytest.approx(1.0)
+
+
+# ---------------------------------------------------------------------------
+# K4 (dn_bilstm_bwd) on the same core: both directions with their dhs at the
+# stream dtype, a full [T, B, H] stream (time stride B·H) or a [1, B, H]
+# per-row constant (time stride 0), the reverse direction's dhs read at its
+# x-time t as its streams are
+
+
+@pytest.mark.parametrize("const", [False, True])
+@pytest.mark.parametrize("cdt,emul_tol,tol", DTYPES)
+def test_two_directions_with_stream_dtype_dhs_match_the_plain_bwd_and_pallas(cdt, emul_tol, tol,
+                                                                              const):
+    """K4's form: the x-time residuals of JAX's unbatched forward kernel
+    (K3), dhs at the stream dtype, B = 5 rows in clusters of 4 a direction
+    (a ragged last cluster of one row)."""
+    rng = np.random.default_rng(14 + const)
+    f = lambda *s, scale=1.0: (rng.standard_normal(s) * scale).astype(np.float32)  # noqa: E731
+    x, wih2, b2 = f(T, B, D), f(2, 4, D, H, scale=0.4), f(2, 4, H, scale=0.2)
+    whh2, h02, c02 = f(2, 4, H, H, scale=0.4), f(2, B, H, scale=0.5), f(2, B, H, scale=0.5)
+    jcdt = jnp.bfloat16 if cdt else None
+    outs = jl._fwd_bidir_call(*map(jnp.asarray, (x, wih2, b2, whh2, h02, c02)),
+                              compute_dtype=jcdt)
+    jsdt = jnp.bfloat16 if cdt else jnp.float32
+    n = 1 if const else T
+    dhsf, dhsr = jnp.asarray(f(n, B, H), jsdt), jnp.asarray(f(n, B, H), jsdt)
+    dhT2, dcT2 = f(2, B, H), f(2, B, H)
+    sdt = torch.bfloat16 if cdt else torch.float32
+    streams = [torch.stack([_t(outs[k], sdt), _t(outs[6 + k], sdt)]) for k in (2, 3, 4, 5, 1)]
+    dhs = [_t(dhsf, sdt), _t(dhsr, sdt)]
+    carries = [torch.from_numpy(a) for a in (c02, dhT2, dcT2)]
+    got = _bptt_emulation(*streams, torch.from_numpy(whh2), carries[0], dhs, *carries[1:],
+                          _small_geometry(B, cdt, 2), cdt)
+    assert got[0].dtype == sdt and not any(bool(a.float().isnan().any()) for a in got)
+    plain = tb.bilstm_bwd_plain(*streams, torch.from_numpy(whh2), carries[0], *dhs, *carries[1:],
+                                torch.bfloat16 if cdt else None)
+    names = ("dp", "dh02", "dc02")
+    _check(got, [a.float().numpy() for a in plain], names, emul_tol)
+    want = jl._bwd_bidir_call(tuple(outs[2:6]), tuple(outs[8:12]), outs[1], outs[7],
+                              jnp.asarray(whh2), jnp.asarray(c02), dhsf, dhsr,
+                              jnp.asarray(dhT2), jnp.asarray(dcT2), jcdt)
+    for k in range(8):
+        np.testing.assert_allclose(got[0][..., k * H:(k + 1) * H].float().numpy(), _f32(want[k]),
+                                   err_msg=f"dp gate block {k}", **tol)
+    _check(got[1:], want[8:], ("dh02", "dc02"), tol)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_k4_reads_the_two_direction_record_and_refuses_no_route(dtype):
+    """``dn_bilstm_bwd`` takes K6's two-direction record (its occupancy
+    aside): the cluster route at the flagship's rows, and on the stream
+    route the record's rows a block, threads and bytes, which the C side
+    launches as they are (it no longer picks its own rows a block)."""
+    for rows in (16, 512):
+        g = tb.bidir_bwd_geometry(rows, FLAGSHIP_H, dtype, H100_SMS, H100_SMEM, H100_SLOTS)
+        assert g["route"] == "cluster" and g["dirs"] == 2 and g["waves"] == 1
+        v = list(tl._geom_ints(g))
+        assert v[0] == 1 and v[5:7] == [g["threads"], g["smem"]]
+        assert g["smem"] == _c_smem(g, FLAGSHIP_H, dtype)
+    # the stream route: R = 1 at 16 rows (16 blocks a direction within 66
+    # SMs), 8 at 512; threads 4H to 32s, 40 R H bytes
+    for rows, R in ((16, 1), (512, 8)):
+        s = tl.bwd_stream_geometry(rows, FLAGSHIP_H, H100_SMS, dirs=2)
+        assert list(tl._geom_ints(s))[:7] == [0, 0, R, 0, 0, 704, 40 * R * FLAGSHIP_H]
+    src = (Path(tl.__file__).resolve().parents[1] / "csrc" / "bilstm_bwd.cu").read_text()
+    assert "rows_per_block" not in src  # the record's R, never the C side's own
+
+
+def test_k4_settles_on_its_own_occupancy_under_its_own_key(monkeypatch):
+    """K4's geometry is settled on ``dn_bilstm_k4_max_active_clusters``
+    (its bf16 instance reads a bf16 dhs, K6's an f32 constant) and cached
+    under its own key, so neither kernel reads the other's entry: here the
+    card runs fewer of K4's bf16 clusters of 2 than of K6's, and K4 takes
+    more rows a cluster to stay in one wave."""
+    asked = []
+
+    def occupancy(entry, key, code, rows, H_, geom):
+        asked.append((entry, key[0]))
+        return {"dn_bilstm_k4_max_active_clusters": 40}.get(entry, 66) if geom[1] == 2 else 30
+
+    monkeypatch.setattr(tb, "_geometries", {})
+    monkeypatch.setattr(tb, "device_limits", lambda dev: (H100_SMS, H100_SMEM))
+    monkeypatch.setattr(tb, "_kernel", lambda lib, entry: entry)
+    monkeypatch.setattr(tb, "cluster_occupancy", occupancy)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    bf = torch.bfloat16
+    k6 = tb.device_bidir_bwd_geometry("cuda:0", 512, FLAGSHIP_H, bf)
+    k4 = tb.device_k4_geometry("cuda:0", 512, FLAGSHIP_H, bf)
+    assert {e for e, _ in asked} == {"dn_bilstm_bwd_max_active_clusters",
+                                     "dn_bilstm_k4_max_active_clusters"}
+    assert all(k == ("k4" if "k4" in e else "k6") for e, k in asked)
+    assert (k6["C"], k6["R"], k6["clusters"]) == (2, 16, 32) and k6["waves"] == 1
+    assert k4["C"] == 2 and k4["R"] > k6["R"] and 2 * k4["clusters"] <= 40
+    keys = set(tb._geometries)
+    assert ("k4", torch.device("cuda:0"), 512, FLAGSHIP_H, True) in keys
+    assert ("k6", torch.device("cuda:0"), 512, FLAGSHIP_H, True) in keys
+    # f32: the same kernel instance for both, the same geometry
+    assert tb.device_k4_geometry("cuda:0", 512, FLAGSHIP_H) == \
+        tb.device_bidir_bwd_geometry("cuda:0", 512, FLAGSHIP_H)
+
+
+def test_k4_counters_stay_still_on_the_cpu():
+    rng = np.random.default_rng(15)
+    r = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3)  # noqa: E731
+    names = ("BIDIR_BWD_LAUNCHES", "K4_CLUSTER_CALLS", "K4_STREAM_CALLS")
+    before = [getattr(tb, n) for n in names]
+    head = [r(2, 4, 3, 6) for _ in range(5)] + [r(2, 4, 6, 6), r(2, 3, 6)]
+    for n in (4, 1):  # a full stream, a per-row constant
+        args = head + [r(n, 3, 6), r(n, 3, 6), r(2, 3, 6), r(2, 3, 6)]
+        want = tb.bilstm_bwd_plain(*args)
+        for geometry in (None, tb.bidir_bwd_geometry(3, 6), tl.bwd_stream_geometry(3, 6, dirs=2)):
+            got = tb.bilstm_bwd_fused(*args, geometry=geometry)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [getattr(tb, n) for n in names] == before

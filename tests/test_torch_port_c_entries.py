@@ -60,10 +60,18 @@ def test_every_entry_of_the_lstm_sources_is_bound():
             assert (lib, entry) in bound, f"{entry} of csrc/{lib}.cu has no ctypes list"
 
 
+#: the occupancy entry beside each BPTT launch: K4's bf16 instance reads a
+#: bf16 dhs and K6's an f32 constant, so each has its own
+BPTT_OCCUPANCY = {"dn_lstm_bwd": "dn_lstm_bwd_max_active_clusters",
+                  "dn_bilstm_pool_bwd": "dn_bilstm_bwd_max_active_clusters",
+                  "dn_bilstm_bwd": "dn_bilstm_k4_max_active_clusters"}
+
+
 @pytest.mark.parametrize("lib,entry", [("lstm_bwd", "dn_lstm_bwd"),
-                                       ("bilstm_bwd", "dn_bilstm_pool_bwd")])
+                                       ("bilstm_bwd", "dn_bilstm_pool_bwd"),
+                                       ("bilstm_bwd", "dn_bilstm_bwd")])
 def test_the_bptt_entries_take_a_route_record_and_a_phase_clock(lib, entry):
-    """K2 and K6 take their route (cluster or stream) and geometry as a
+    """K2, K6 and K4 take their route (cluster or stream) and geometry as a
     record, and the cluster route's phase clock, before the stream; each has
     an occupancy entry beside it."""
     src = (CSRC / f"{lib}.cu").read_text()
@@ -71,7 +79,7 @@ def test_the_bptt_entries_take_a_route_record_and_a_phase_clock(lib, entry):
     assert [p.split()[-1] for p in params[-3:]] == ["geom", "prof", "stream"]
     bound = {e for _, e, _ in ENTRIES}
     assert entry in bound
-    occupancy = entry.replace("_pool_bwd", "_bwd") + "_max_active_clusters"
+    occupancy = BPTT_OCCUPANCY[entry]
     assert occupancy in bound
     assert re.search(rf"^int {occupancy}\(", src, re.MULTILINE)
 
