@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Plants faults in a copy of K2's and K6's tensor-core BPTT and shows which
-of ``chip_smoke.py``'s checks each one fails.
+"""Plants faults in a copy of K2's, K4's and K6's tensor-core BPTT and shows
+which of ``chip_smoke.py``'s checks each one fails.
 
     python3 scripts/torch_bwd_mutants.py [--workdir DIR]
 
@@ -10,10 +10,11 @@ directory under the temporary directory; the checkout is never edited):
 a rank left out of the reduce-scatter, the last or the first k-tile of the
 product dropped, and the last n-tile of the product not written. The copy
 takes the checkout's libraries of the sources that do not include that
-header and builds the two that do; then K2 (``lstm_bwd_fused``) and K6
-(``bilstm_pool_bwd_fused``) run in bf16 on the cluster route at the smoke's
-shapes (rows 16 and 512), on the smoke's inputs, and each is held against
-its plain version with the smoke's own ``compare`` at ``BF16_TOL`` and
+header and builds the two that do; then K2 (``lstm_bwd_fused``), K6
+(``bilstm_pool_bwd_fused``) and K4 (``bilstm_bwd_fused``, full cotangent
+streams at the stream dtype) run in bf16 on the cluster route at the
+smoke's shapes (rows 16 and 512), on the smoke's inputs, and each is held
+against its plain version with the smoke's own ``compare`` at ``BF16_TOL`` and
 ``share_check`` at ``BWD_BF16_SHARE``. The unedited kernel runs the same
 checks first. One JSON line per check: whether each passes, the max abs
 error and the largest share of an output's largest |value|; then the
@@ -49,8 +50,8 @@ MUTANTS = {
 
 
 def checks() -> None:
-    """The bf16 checks of K2 and K6 on the cluster route, run inside a copy
-    (its root first on ``sys.path``)."""
+    """The bf16 checks of K2, K6 and K4 on the cluster route, run inside a
+    copy (its root first on ``sys.path``)."""
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -65,6 +66,7 @@ def checks() -> None:
     for rows in cs.BWD_ROWS:
         k2 = cs.bwd_args(torch, lc, rows, bf, g)
         k6 = cs.pool_bwd_args(torch, bc, rows, bf, g)
+        k4 = cs.bidir_bwd_args(torch, bc, cs.bidir_args(torch, rows, g), bf, g, const=False)
         cases = (
             ("lstm_bwd", lc.device_bwd_geometry("cuda", rows, cs.H, bf),
              lambda: cs.split_bwd(lc.lstm_bwd_fused(*k2, bf)),
@@ -72,6 +74,9 @@ def checks() -> None:
             ("bilstm_pool_bwd", bc.device_bidir_bwd_geometry("cuda", rows, cs.H, bf),
              lambda: bc.bilstm_pool_bwd_fused(*k6, bf),
              lambda: bc.bilstm_bwd_plain(*cs.pool_plain_args(k6), bf), cs.BIDIR_BWD_OUTPUTS),
+            ("bilstm_bwd", bc.device_k4_geometry("cuda", rows, cs.H, bf),
+             lambda: bc.bilstm_bwd_fused(*k4, bf), lambda: bc.bilstm_bwd_plain(*k4, bf),
+             cs.BIDIR_BWD_OUTPUTS),
         )
         for name, geo, fused, plain, names in cases:
             if geo["route"] != "cluster":

@@ -24,13 +24,15 @@ against R gives the cost of a step; not with ``--main``), on the
 launcher's at rows 16 and 512 and on the stream route (the first design),
 each point held against the plain version, timed as above, with the µs a
 step and the phase clock (``bwd_phase_profile`` /
-``bidir_bwd_phase_profile``). With ``--k7`` the power iteration K7
-(``poweriter_fused``) at one rankDAD round of the flagship's two rank
-classes (``chip_smoke.py`` phase 7's gradients, tol 1e-3), cold and warm Ω:
-the staged route the launcher picks and the direct route, each held
-against ``poweriter_plain`` (``K7_TOL``) and timed as above, with the
-bound, the streamed floor (G read once a pass) and the staged route's
-phase clock (``k7_phase_profile``). Each K7 point also gives its device ms
+``bidir_bwd_phase_profile``); with ``--bidir`` then K4
+(``bilstm_bwd_fused``, full cotangent streams) on its launcher's geometry
+and the stream route at rows 16 and 512, with ``k4_phase_profile``. With
+``--k7`` the power iteration K7 (``poweriter_fused``) at one rankDAD round
+of the flagship's two rank classes (``chip_smoke.py`` phase 7's gradients,
+tol 1e-3), cold and warm Ω: the staged route the launcher picks and the
+direct route, each held against ``poweriter_plain`` (``K7_TOL``) and timed
+as above, with the bound, the streamed floor (G read once a pass) and the
+staged route's phase clock (``k7_phase_profile``). Each K7 point also gives its device ms
 with the host ahead of the card (``queued_device_ms``: the calls queued
 behind a sleep kernel, so no call waits for the host) and the host µs of a
 call (``host_us``); and the r=10 class's gradients run at ranks 12 and 16
@@ -106,7 +108,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dtype", choices=("f32", "bf16", "both"), default="both")
     ap.add_argument("--bidir", action="store_true", help="K3 and K5 (with --bwd: K6) instead of K1")
-    ap.add_argument("--bwd", action="store_true", help="the backward: K2, or K6 with --bidir")
+    ap.add_argument("--bwd", action="store_true",
+                    help="the backward: K2, or K6 and K4 with --bidir")
     ap.add_argument("--k7", action="store_true", help="the power iteration K7, both routes")
     ap.add_argument("--main", action="store_true",
                     help="with --bwd: only the launcher's geometry and the stream route at rows "
@@ -230,48 +233,58 @@ def bwd_sweep(torch, cs, which: str, bidir: bool, main_only: bool = False) -> No
 
     sms, optin = lc.device_limits("cuda")
     H, dirs = cs.H, 2 if bidir else 1
-    kernel = "bilstm_pool_bwd" if bidir else "lstm_bwd"
     g = torch.Generator().manual_seed(0)
     for name, cdt in {"f32": None, "bf16": torch.bfloat16}.items():
         if which not in (name, "both"):
             continue
         tol = cs.F32_TOL if cdt is None else cs.BF16_TOL
-        points = []
-        occupancy = bc.bidir_bwd_max_active_clusters if bidir else lc.bwd_max_active_clusters
-        for C in () if main_only else (2, 4, 8):  # the step cost against R, one wave each
-            for R in (1, 2, 4, 8, 16, 18, 24, 35):
-                probe = lc.bwd_cluster_geometry(R, H, C, R, cdt, optin, dirs=dirs)
-                if probe is None:
-                    continue
-                per = occupancy("cuda", R, H, cdt, probe) // dirs
-                points.append((per * R, lc.bwd_cluster_geometry(per * R, H, C, R, cdt, optin,
-                                                                dirs * per, dirs)))
-        for rows in (16, 512):
-            points.append((rows, cs.bwd_geometry_line(dirs, rows, H, cdt)))
-            points.append((rows, lc.bwd_stream_geometry(rows, H, sms, dirs)))
-        for rows, geo in points:
-            if bidir:
-                a = cs.pool_bwd_args(torch, bc, rows, cdt, g)
-                fused, plain = bc.bilstm_pool_bwd_fused, bc.bilstm_bwd_plain
-                want, split = plain(*cs.pool_plain_args(a), cdt), (lambda o: o)
-                names = cs.BIDIR_BWD_OUTPUTS
-                profile = bc.bidir_bwd_phase_profile
-            else:
-                a = cs.bwd_args(torch, lc, rows, cdt, g)
-                fused, want, split = lc.lstm_bwd_fused, lc.lstm_bwd_plain(*a, cdt), cs.split_bwd
-                names, profile = cs.BWD_OUTPUTS, lc.bwd_phase_profile
-            err = cs.compare(f"{kernel} rows={rows} {name} {geo}",
-                             split(fused(*a, cdt, geometry=geo)), split(want), names, tol)
-            ms = device_ms(torch, lambda: fused(*a, cdt, geometry=geo))
-            cluster = geo["route"] == "cluster"
-            rec = {"kernel": kernel, "rows": rows, "dtype": name, "route": geo["route"],
-                   "C": geo.get("C"), "R": geo["R"], "rpt": geo.get("rpt"),
-                   "threads": geo["threads"], "blocks": geo["blocks"], "smem": geo.get("smem"),
-                   "max_active_clusters": geo.get("max_active_clusters"), "device_ms": ms,
-                   "us_per_step": ms * 1e3 / cs.T, "max_abs_err": err,
-                   "step_phases": profile(*a, cdt, geometry=geo) if cluster else None}
-            print(json.dumps(rec), flush=True)
-            del a, want
+        # K6 (or K2) over geometries, then K4 at the launcher's point and on
+        # the stream route
+        for kernel in ("bilstm_pool_bwd", "bilstm_bwd") if bidir else ("lstm_bwd",):
+            points = []
+            occupancy = bc.bidir_bwd_max_active_clusters if bidir else lc.bwd_max_active_clusters
+            sweep = () if main_only or kernel == "bilstm_bwd" else (2, 4, 8)
+            for C in sweep:  # the step cost against R, one wave each
+                for R in (1, 2, 4, 8, 16, 18, 24, 35):
+                    probe = lc.bwd_cluster_geometry(R, H, C, R, cdt, optin, dirs=dirs)
+                    if probe is None:
+                        continue
+                    per = occupancy("cuda", R, H, cdt, probe) // dirs
+                    points.append((per * R, lc.bwd_cluster_geometry(per * R, H, C, R, cdt, optin,
+                                                                    dirs * per, dirs)))
+            for rows in (16, 512):
+                points.append((rows, cs.bwd_geometry_line(kernel, rows, H, cdt)))
+                points.append((rows, lc.bwd_stream_geometry(rows, H, sms, dirs)))
+            for rows, geo in points:
+                bwd_point(torch, cs, bc, lc, kernel, name, cdt, tol, rows, geo, g)
+
+
+def bwd_point(torch, cs, bc, lc, kernel, name, cdt, tol, rows, geo, g) -> None:
+    """One BPTT point: held against the plain version, timed, one JSON line."""
+    if kernel == "bilstm_pool_bwd":
+        a = cs.pool_bwd_args(torch, bc, rows, cdt, g)
+        fused, want, split = bc.bilstm_pool_bwd_fused, bc.bilstm_bwd_plain(
+            *cs.pool_plain_args(a), cdt), (lambda o: o)
+        names, profile = cs.BIDIR_BWD_OUTPUTS, bc.bidir_bwd_phase_profile
+    elif kernel == "bilstm_bwd":  # full cotangent streams at the stream dtype
+        a = cs.bidir_bwd_args(torch, bc, cs.bidir_args(torch, rows, g), cdt, g, const=False)
+        fused, want, split = bc.bilstm_bwd_fused, bc.bilstm_bwd_plain(*a, cdt), (lambda o: o)
+        names, profile = cs.BIDIR_BWD_OUTPUTS, bc.k4_phase_profile
+    else:
+        a = cs.bwd_args(torch, lc, rows, cdt, g)
+        fused, want, split = lc.lstm_bwd_fused, lc.lstm_bwd_plain(*a, cdt), cs.split_bwd
+        names, profile = cs.BWD_OUTPUTS, lc.bwd_phase_profile
+    err = cs.compare(f"{kernel} rows={rows} {name} {geo}",
+                     split(fused(*a, cdt, geometry=geo)), split(want), names, tol)
+    ms = device_ms(torch, lambda: fused(*a, cdt, geometry=geo))
+    cluster = geo["route"] == "cluster"
+    rec = {"kernel": kernel, "rows": rows, "dtype": name, "route": geo["route"],
+           "C": geo.get("C"), "R": geo["R"], "rpt": geo.get("rpt"),
+           "threads": geo["threads"], "blocks": geo["blocks"], "smem": geo.get("smem"),
+           "max_active_clusters": geo.get("max_active_clusters"), "device_ms": ms,
+           "us_per_step": ms * 1e3 / cs.T, "max_abs_err": err,
+           "step_phases": profile(*a, cdt, geometry=geo) if cluster else None}
+    print(json.dumps(rec), flush=True)
 
 
 def k7_sweep(torch, cs, which: str) -> None:
