@@ -11,12 +11,11 @@ from .base import Engine, mask_dead_site
 
 def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
               secure_agg="off") -> Engine:
-    for name, value, ported in (("wire_quant", wire_quant, "none"),
-                                ("robust_agg", robust_agg, "none"),
-                                ("secure_agg", secure_agg, "off")):
+    for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
+                                      ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),
+                                      ("secure_agg", secure_agg, "off", "A10 (secure_agg)")):
         if value != ported:
-            raise NotImplementedError(
-                f"dSGD {name}={value!r} is not ported (ROADMAP queue A, items 10 and 11)")
+            raise NotImplementedError(f"dSGD {name}={value!r} is not ported: ROADMAP {item}")
     payload_dtype(precision_bits)  # rejects an unknown flag here, not in the first round
 
     def init(params):

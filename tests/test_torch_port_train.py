@@ -11,6 +11,7 @@ numpy from a seed.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -537,6 +538,14 @@ def test_options_acting_through_an_unported_option_raise_with_its_item(option, v
                                 {"secure_agg": "mask"}])
 def test_unported_dsgd_options_raise(kw):
     with pytest.raises(NotImplementedError):
+        make_dsgd(**kw)
+
+
+@pytest.mark.parametrize("kw,item", [({"wire_quant": "int8"}, "A11 (WireCodec)"),
+                                     ({"robust_agg": "norm_clip"}, "A10 (robust_agg)"),
+                                     ({"secure_agg": "mask"}, "A10 (secure_agg)")])
+def test_unported_dsgd_options_name_their_roadmap_item(kw, item):
+    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
         make_dsgd(**kw)
 
 
