@@ -1,14 +1,24 @@
 """The subset of the training configuration that the port reads.
 
 Field names and defaults are those of the JAX package's ``core/config.py``
-(``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving and
-the dSGD and rankDAD training epochs read). The port keeps its own copy: it
-imports nothing of the JAX package.
+(``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving,
+the training epochs, the trainer driver and the federated runner read),
+with its per-site ``inputspec.json`` resolution (:func:`load_inputspec`,
+:func:`resolve_site_configs`). Options the port does not run are kept at
+their "off" values so that the trainer can refuse any other value. The port
+keeps its own copy: it imports nothing of the JAX package.
+
+Resolution order, as in JAX: dataclass defaults < programmatic kwargs <
+per-site inputspec values.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
+from typing import Any, Sequence
 
 
 class NNComputation:
@@ -37,14 +47,23 @@ class AggEngine:
 class ICAArgs:
     """ICA classification parameters: 100 components, 980 timepoints cut
     into windows of 10, an encoder to 256 and a BiLSTM of total width 348
-    (the shipped workload's value)."""
+    (the shipped workload's value). ``data_file`` / ``labels_file`` name a
+    site's timecourses and labels CSV under its base directory."""
 
+    data_file: str = ""
+    labels_file: str = ""
     num_class: int = 2
+    monitor_metric: str = "auc"
+    metric_direction: str = "maximize"
+    log_header: str = "Loss|AUC"
     num_components: int = 100
     temporal_size: int = 980
     window_size: int = 10
+    window_stride: int = 10
     input_size: int = 256
     hidden_size: int = 348
+    # stacked LSTM layers; the port builds one (registry refuses more)
+    num_layers: int = 1
     bidirectional: bool = True
     # rankDAD (compspec.json:236-238): factor rank, power-iteration cap and
     # the relative σ-change tolerance of its early exit
@@ -54,6 +73,8 @@ class ICAArgs:
     # warm-start each round's power iteration from the previous round's
     # subspace (rankDAD engine state); False = stateless cold starts
     dad_warm_start: bool = True
+    # predefined split JSON files under each site's directory (one a fold)
+    split_files: tuple = ()
     # "bfloat16" runs the encoder and LSTM products in bf16 with f32
     # accumulation; "" = full f32
     compute_dtype: str = ""
@@ -62,21 +83,147 @@ class ICAArgs:
 @dataclass
 class TrainConfig:
     task_id: str = NNComputation.TASK_FREE_SURFER
+    mode: str = "train"  # train | test
     agg_engine: str = AggEngine.DECENTRALIZED_SGD
     batch_size: int = 16
     local_iterations: int = 1  # gradient accumulation steps per round
     learning_rate: float = 1e-3
+    epochs: int = 101
+    # largest-site pretraining (compspec.json:120-127): not ported, the
+    # trainer refuses True
+    pretrain: bool = False
+    validation_epochs: int = 1
     # payload dtype of the gradient exchange: "32" | "16" (bfloat16) |
     # "16-ieee" (IEEE fp16, the reference's literal payload)
     precision_bits: str = "32"
+    patience: int = 35
+    split_ratio: tuple = (0.8, 0.1, 0.1)
+    num_folds: int | None = None  # k-fold CV; takes precedence over split_ratio
+    # trainer extras (the reference's local.py:31-37)
+    num_class: int = 2
+    monitor_metric: str = "auc"
+    metric_direction: str = "maximize"
+    log_header: str = "loss|auc"
+    # warm start: a checkpoint whose params (only) start the fit; "" = init
+    pretrained_path: str = ""
     seed: int = 0
     optimizer: str = "adam"
     ica_args: ICAArgs = field(default_factory=ICAArgs)
     num_sites: int = 2
+    # execution detail of the JAX epoch (scan xs or per-round slices); any
+    # value gives the same port epoch
+    rounds_scan_xs: bool = True
     # "device": the sites' inventory stays resident and each epoch gathers
-    # its batches from an index plan (the only pipeline ported so far)
+    # its batches from an index plan; "host": each epoch materializes the
+    # dense [S, steps, B, ...] batches on the host and copies them over
     pipeline: str = "device"
+    # JAX donates the carried state's buffers to its epoch program; the
+    # port's epoch never writes its input state, so any value is the same
+    donate_epoch_state: bool = True
+    # not ported, kept "off" so the trainer can refuse them (ROADMAP A12)
+    compile_cache_dir: str = ""
+    profile_dir: str = ""
+    telemetry: str = "off"
+    xprof_dir: str = ""
+    # not ported, kept "off" so the epoch and engine builders can refuse
+    # them (ROADMAP A10, A11)
+    staleness_bound: int = 0
+    staleness_decay: float = 0.5
+    wire_quant: str = "none"
+    overlap_rounds: bool = False
     # a site whose round gradient is non-finite this many consecutive rounds
     # is quarantined; 0 skips such rounds but never quarantines; -1 runs the
     # unguarded round
     quarantine_rounds: int = 3
+    robust_agg: str = "none"
+    reputation_z: float = 2.0
+    reputation_rounds: int = 8
+    min_slices: int = 1
+    # the privacy plane (ROADMAP A10): refused at any value but these
+    dp_clip: float = 0.0
+    dp_noise_multiplier: float = 0.0
+    dp_seed: int = 0
+    dp_delta: float = 1e-5
+    dp_epsilon_budget: float = 0.0
+    secure_agg: str = "off"
+    personalize: tuple = ()
+
+    def task_args(self):
+        if self.task_id == NNComputation.TASK_ICA:
+            return self.ica_args
+        raise ValueError(f"task {self.task_id!r} is not ported")
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)
+
+    def with_overrides(self, overrides: dict) -> "TrainConfig":
+        """Apply a flat override dict (one site's inputspec values): a key
+        naming a ``TrainConfig`` field sets it, and every key naming a
+        field of the task-args block sets that too (the reference keeps one
+        flat cache dict). A dict under ``ica_args`` (or the compspec key
+        ``ICA-Classification_args``) merges into the block. Keys of neither
+        are dropped, as in JAX."""
+        overrides = {_COMPSPEC_KEY_ALIASES.get(k, k): v for k, v in overrides.items()}
+        flat = {k: _coerce(_TRAIN_FIELDS[k], v) for k, v in overrides.items()
+                if k in _TRAIN_FIELDS and k not in _BLOCK_FIELDS}
+        cfg = dataclasses.replace(self, **flat)
+        for args_name, args_cls in _BLOCK_FIELDS.items():
+            block = getattr(cfg, args_name)
+            fields = {f.name: f for f in dataclasses.fields(args_cls)}
+            upd = {}
+            given = overrides.get(args_name)
+            if isinstance(given, dict):
+                upd.update({k: _coerce(fields[k], v) for k, v in given.items() if k in fields})
+            elif dataclasses.is_dataclass(given):
+                block = given
+            upd.update({k: _coerce(fields[k], v) for k, v in overrides.items() if k in fields})
+            if upd:
+                block = dataclasses.replace(block, **upd)
+            if block is not getattr(cfg, args_name):
+                cfg = dataclasses.replace(cfg, **{args_name: block})
+        return cfg
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+_TRAIN_FIELDS = {f.name: f for f in dataclasses.fields(TrainConfig)}
+_COMPSPEC_KEY_ALIASES = {"ICA-Classification_args": "ica_args"}
+#: dataclass-typed TrainConfig fields that take dict merges
+_BLOCK_FIELDS = {"ica_args": ICAArgs}
+
+
+def _coerce(f: dataclasses.Field, v: Any) -> Any:
+    """The GUI sends JSON lists where a field is a tuple: make them tuples.
+    Other values are left as they are."""
+    if isinstance(v, list) and (f.type or "").startswith("tuple"):
+        return tuple(v)
+    return v
+
+
+def load_inputspec(path: str) -> list[dict]:
+    """A COINSTAC simulator ``inputspec.json``: a list (one entry a site)
+    of ``{"key": {"value": v}}`` envelopes, or one dict for one site.
+    Returns one flat override dict a site."""
+    with open(path) as fh:
+        spec = json.load(fh)
+    if isinstance(spec, dict):
+        spec = [spec]
+    out = []
+    for site in spec:
+        out.append({k: v.get("value") if isinstance(v, dict) and "value" in v else v
+                    for k, v in site.items()})
+    return out
+
+
+def resolve_site_configs(base: TrainConfig, dataset_dir: str,
+                         num_sites: int | None = None) -> list[TrainConfig]:
+    """Per-site configs for a dataset tree: site i takes entry ``i %
+    len(spec)`` of ``<dataset_dir>/inputspec.json`` (if present) over
+    ``base``."""
+    spec_path = os.path.join(dataset_dir, "inputspec.json")
+    overrides: Sequence[dict] = [{}]
+    if os.path.exists(spec_path):
+        overrides = load_inputspec(spec_path)
+    n = num_sites if num_sites is not None else len(overrides)
+    return [base.with_overrides(overrides[i % len(overrides)]) for i in range(n)]

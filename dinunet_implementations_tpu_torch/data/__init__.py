@@ -1,5 +1,45 @@
-from .api import SiteArrays, SiteInventory, stack_site_inventory
-from .batching import EpochPlan, epoch_steps, plan_epoch_positions
+from .api import (
+    DataHandle,
+    SiteArrays,
+    SiteDataset,
+    SiteInventory,
+    build_site_dataset,
+    stack_site_inventory,
+)
+from .batching import (
+    EpochPlan,
+    FedBatches,
+    epoch_steps,
+    materialize_plan,
+    plan_epoch,
+    plan_epoch_positions,
+    plan_eval,
+)
+from .demo import make_ica_demo_tree
+from .ica import ICADataHandle, ICADataset, load_timecourses, window_timecourses
+from .splits import kfold_splits, load_split_file, resolve_splits, split_by_ratio
 
-__all__ = ["EpochPlan", "SiteArrays", "SiteInventory", "epoch_steps", "plan_epoch_positions",
-           "stack_site_inventory"]
+__all__ = [
+    "DataHandle",
+    "EpochPlan",
+    "FedBatches",
+    "ICADataHandle",
+    "ICADataset",
+    "SiteArrays",
+    "SiteDataset",
+    "SiteInventory",
+    "build_site_dataset",
+    "epoch_steps",
+    "kfold_splits",
+    "load_split_file",
+    "load_timecourses",
+    "make_ica_demo_tree",
+    "materialize_plan",
+    "plan_epoch",
+    "plan_epoch_positions",
+    "plan_eval",
+    "resolve_splits",
+    "split_by_ratio",
+    "stack_site_inventory",
+    "window_timecourses",
+]

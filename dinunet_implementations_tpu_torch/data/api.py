@@ -1,10 +1,19 @@
-"""A site's dataset as dense arrays, and every site's stacked on one grid:
-the port's own copy of the numpy-only part of the JAX package's
-``data/api.py`` (``SiteArrays``, ``SiteInventory``,
-``stack_site_inventory``)."""
+"""A site's dataset as dense arrays, every site's stacked on one grid, and
+the dataset / data-handle pair a task reads a site with: the port's own
+copy of the JAX package's ``data/api.py`` (``SiteArrays``,
+``SiteInventory``, ``stack_site_inventory``, ``SiteDataset``,
+``DataHandle``, ``build_site_dataset``).
+
+The dataset keeps the reference's contract (``COINNDataset``: ``cache``,
+``state``, ``indices``, ``path()``, the ``load_index`` /
+``_load_indices`` / ``__getitem__`` hooks; ``COINNDataHandle`` with
+``list_files``), and every dataset materializes once to dense numpy arrays
+(:meth:`SiteDataset.as_arrays`), which the trainer stacks across sites.
+"""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,3 +79,69 @@ def stack_site_inventory(sites: list[SiteArrays], rows: int | None = None) -> Si
             inputs[si, :n] = s.inputs
             labels[si, :n] = s.labels
     return SiteInventory(inputs, labels, counts)
+
+
+class SiteDataset:
+    """Base dataset: ``cache`` is the task's flat configuration dict,
+    ``state`` holds at least ``baseDirectory`` (the site's data root),
+    ``mode`` is ``"train"`` or ``"test"``."""
+
+    def __init__(self, cache=None, state=None, mode: str = "train", **kw):
+        self.cache = dict(cache or {})
+        self.state = dict(state or {})
+        self.mode = mode
+        self.indices: list = []
+
+    def path(self, cache_key: str = "data_file") -> str:
+        """``cache[cache_key]`` under the site's base directory; the base
+        directory itself when the key is unset or empty."""
+        base = self.state.get("baseDirectory", "")
+        name = self.cache.get(cache_key) or ""
+        return os.path.join(base, name) if name else base
+
+    def load_index(self, file):
+        """Register one inventory entry (a hook subclasses override)."""
+        self.indices.append(file)
+
+    def _load_indices(self, files, **kw):
+        """Register every inventory entry (a hook subclasses override)."""
+        for f in files:
+            self.load_index(f)
+
+    def __getitem__(self, ix) -> dict:
+        raise NotImplementedError
+
+    def __len__(self):
+        return len(self.indices)
+
+    def as_arrays(self) -> SiteArrays:
+        """The whole site as dense arrays: by default the stacked
+        ``__getitem__`` items; subclasses override with a vectorized
+        loader."""
+        items = [self[i] for i in range(len(self))]
+        inputs = np.stack([np.asarray(it["inputs"], np.float32) for it in items])
+        labels = np.asarray([int(it["labels"]) for it in items], np.int32)
+        ixs = np.asarray([int(it.get("ix", i)) for i, it in enumerate(items)], np.int32)
+        return SiteArrays(inputs, labels, ixs)
+
+
+class DataHandle:
+    """Base data handle: ``list_files`` gives a site's sample inventory."""
+
+    def __init__(self, cache=None, state=None, **kw):
+        self.cache = dict(cache or {})
+        self.state = dict(state or {})
+
+    def list_files(self) -> list:
+        raise NotImplementedError
+
+
+def build_site_dataset(dataset_cls, handle_cls, cache: dict, state: dict,
+                       mode: str = "train") -> SiteDataset:
+    """Wire a (dataset, data handle) pair as the reference's ``COINNLocal``
+    does on its first round: ``handle.list_files`` into
+    ``dataset._load_indices``."""
+    handle = handle_cls(cache=cache, state=state)
+    ds = dataset_cls(cache=cache, state=state, mode=mode)
+    ds._load_indices(handle.list_files())
+    return ds

@@ -1,6 +1,7 @@
-"""Epoch planning for the device pipeline: the port's own copy of the JAX
-package's ``data/batching.py`` compact plan (``EpochPlan``,
-``epoch_steps``, ``plan_epoch_positions``).
+"""Epoch planning: the port's own copy of the JAX package's
+``data/batching.py`` (``EpochPlan``, ``FedBatches``, ``epoch_steps``,
+``plan_epoch_positions``, ``materialize_plan``, ``plan_epoch``,
+``plan_eval``).
 
 All sites of one program take the same number of steps per epoch, so the
 plan is a dense ``positions [S, steps, B]`` grid of int32 sample positions
@@ -9,6 +10,10 @@ mode (train) a site with fewer batches than the epoch's ``steps`` recycles
 its reshuffled data, like the reference's cycling DataLoader; ``"mask"``
 pads with weight 0 instead. The RNG draw order is the JAX package's, so a
 plan from the same seed is byte-identical to it.
+
+The device pipeline ships only the plan; the host pipeline and eval expand
+it into dense :class:`FedBatches` (:func:`materialize_plan`), so the two
+pipelines read one plan two ways.
 """
 
 from __future__ import annotations
@@ -42,6 +47,31 @@ class EpochPlan:
     @property
     def nbytes(self) -> int:
         return self.positions.nbytes
+
+
+@dataclass
+class FedBatches:
+    """A plan's dense host arrays: ``inputs [S, steps, B, ...]``,
+    ``labels`` and ``weights [S, steps, B]`` (1 for a real example, 0 for
+    padding) and ``indices [S, steps, B]`` (inventory position, -1 for
+    padding)."""
+
+    inputs: np.ndarray
+    labels: np.ndarray
+    weights: np.ndarray
+    indices: np.ndarray
+
+    @property
+    def num_sites(self):
+        return self.inputs.shape[0]
+
+    @property
+    def steps(self):
+        return self.inputs.shape[1]
+
+    @property
+    def batch_size(self):
+        return self.inputs.shape[2]
 
 
 def _site_batches(arr, batch_size: int, order: np.ndarray, drop_last: bool):
@@ -130,3 +160,42 @@ def plan_epoch_positions(
             reps = -(-target_steps // steps)
             positions = np.tile(positions, (1, reps, 1))[:, :target_steps]
     return EpochPlan(positions)
+
+
+def materialize_plan(sites: list[SiteArrays], plan: EpochPlan) -> FedBatches:
+    """Expand a plan into the dense host arrays; padding slots (-1) are
+    zero inputs and labels with weight 0, as the device gather makes
+    them."""
+    S, steps, B = plan.positions.shape
+    feat_shape = next(s.inputs.shape[1:] for s in sites if len(s))
+    inputs = np.zeros((S, steps, B) + feat_shape, np.float32)
+    labels = np.zeros((S, steps, B), np.int32)
+    weights = np.zeros((S, steps, B), np.float32)
+    indices = np.full((S, steps, B), -1, np.int32)
+    for si, site in enumerate(sites):
+        flat = plan.positions[si].reshape(-1)
+        valid = flat >= 0
+        if not valid.any():
+            continue
+        sel = flat[valid]
+        inputs[si].reshape((steps * B,) + feat_shape)[valid] = site.inputs[sel]
+        labels[si].reshape(-1)[valid] = site.labels[sel]
+        weights[si].reshape(-1)[valid] = 1.0
+        indices[si].reshape(-1)[valid] = site.indices[sel]
+    return FedBatches(inputs, labels, weights, indices)
+
+
+def plan_epoch(sites: list[SiteArrays], batch_size: int, seed: int = 0, shuffle: bool = True,
+               drop_last: bool = True, pad_mode: str = "wrap",
+               steps: int | None = None) -> FedBatches:
+    """The dense ``[S, steps, B, ...]`` epoch: :func:`plan_epoch_positions`
+    materialized."""
+    return materialize_plan(sites, plan_epoch_positions(
+        sites, batch_size, seed=seed, shuffle=shuffle, drop_last=drop_last,
+        pad_mode=pad_mode, steps=steps))
+
+
+def plan_eval(sites: list[SiteArrays], batch_size: int) -> FedBatches:
+    """One deterministic pass over every sample: no shuffle, no drop,
+    padding masked."""
+    return plan_epoch(sites, batch_size, shuffle=False, drop_last=False, pad_mode="mask")

@@ -1,3 +1,13 @@
-from .registry import TASKS, ServingSpec, TaskSpec, build_model, build_training, get_task
+from .registry import (
+    TASKS,
+    ServingSpec,
+    TaskSpec,
+    build_engine,
+    build_model,
+    build_training,
+    get_task,
+    task_cache,
+)
 
-__all__ = ["TASKS", "ServingSpec", "TaskSpec", "build_model", "build_training", "get_task"]
+__all__ = ["TASKS", "ServingSpec", "TaskSpec", "build_engine", "build_model", "build_training",
+           "get_task", "task_cache"]

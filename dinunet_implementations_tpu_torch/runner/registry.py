@@ -1,9 +1,11 @@
-"""Task registry: task id → model builder and serving spec, and the
-training pieces a config names. The port serves and trains the ICA-LSTM
-task; the other tasks of the JAX package's registry are not ported yet."""
+"""Task registry: task id → model builder, dataset, data handle and
+serving spec, and the training pieces a config names. The port serves and
+trains the ICA-LSTM task; the other tasks of the JAX package's registry
+are not ported yet."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -11,6 +13,8 @@ import torch
 
 from ..core.config import AggEngine, NNComputation, TrainConfig
 from ..core.device import resolve_device
+from ..data.api import DataHandle, SiteDataset
+from ..data.ica import ICADataHandle, ICADataset
 from ..engines import Engine, make_dsgd, make_rankdad
 from ..models.icalstm import ICALstm
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
@@ -29,7 +33,9 @@ class ServingSpec:
 class TaskSpec:
     task_id: str
     build_model: Callable[[TrainConfig], torch.nn.Module]
-    serving: ServingSpec
+    dataset_cls: type[SiteDataset]
+    handle_cls: type[DataHandle]
+    serving: ServingSpec | None = None
 
 
 def _ica_windows(a) -> int:
@@ -39,6 +45,9 @@ def _ica_windows(a) -> int:
 
 def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> ICALstm:
     a = cfg.ica_args
+    if a.num_layers != 1:
+        raise NotImplementedError(f"ICA num_layers={a.num_layers} is not ported: the port "
+                                  "builds one BiLSTM layer (ROADMAP A9)")
     return ICALstm(
         input_size=a.input_size,
         hidden_size=a.hidden_size,
@@ -54,7 +63,7 @@ def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
 
 TASKS: dict[str, TaskSpec] = {
     NNComputation.TASK_ICA: TaskSpec(
-        NNComputation.TASK_ICA, _build_icalstm,
+        NNComputation.TASK_ICA, _build_icalstm, ICADataset, ICADataHandle,
         serving=ServingSpec(
             sample_shape=lambda cfg: (
                 _ica_windows(cfg.ica_args),
@@ -70,6 +79,11 @@ def get_task(task_id: str) -> TaskSpec:
     if task_id not in TASKS:
         raise ValueError(f"task {task_id!r} is not ported (have {sorted(TASKS)})")
     return TASKS[task_id]
+
+
+def task_cache(cfg: TrainConfig) -> dict:
+    """The flat cache dict a task's dataset reads (the task-args block)."""
+    return dataclasses.asdict(cfg.task_args())
 
 
 def build_model(cfg: TrainConfig, device=None) -> torch.nn.Module:
@@ -89,16 +103,23 @@ def build_training(cfg: TrainConfig, device=None,
     ``use_kernel=False`` runs the LSTM and the power iteration through the
     kernels' plain versions: the reference a check on the card holds the
     kernels against."""
-    if cfg.agg_engine not in (AggEngine.DECENTRALIZED_SGD, AggEngine.RANK_DAD):
-        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A8)")
+    engine = build_engine(cfg, use_kernel)
     device = resolve_device(device)
     g = torch.Generator().manual_seed(cfg.seed)
     model = get_task(cfg.task_id).build_model(cfg, g, use_kernel=use_kernel).to(device)
-    a = cfg.ica_args
-    if cfg.agg_engine == AggEngine.RANK_DAD:
-        engine = make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
-                              cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
-                              transposed=jax_transposed_leaves(a.bidirectional))
-    else:
-        engine = make_dsgd(cfg.precision_bits)
     return FederatedTask(model), engine, make_optimizer(cfg.optimizer, cfg.learning_rate)
+
+
+def build_engine(cfg: TrainConfig, use_kernel: bool = True) -> Engine:
+    """The aggregation engine ``cfg`` names: dSGD, or rankDAD with the
+    ``ica_args`` ``dad_*`` knobs, with the config's wire options (each
+    engine refuses the ones it does not run)."""
+    if cfg.agg_engine not in (AggEngine.DECENTRALIZED_SGD, AggEngine.RANK_DAD):
+        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A8)")
+    a = cfg.ica_args
+    wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg)
+    if cfg.agg_engine == AggEngine.RANK_DAD:
+        return make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
+                            cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
+                            transposed=jax_transposed_leaves(a.bidirectional), **wire)
+    return make_dsgd(cfg.precision_bits, **wire)
