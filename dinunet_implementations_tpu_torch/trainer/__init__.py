@@ -1,3 +1,4 @@
+from .metrics import Averages, ClassificationMetrics, MulticlassMetrics, is_improvement
 from .steps import (
     FederatedTask,
     Optimizer,
@@ -5,17 +6,23 @@ from .steps import (
     cross_entropy,
     eval_forward,
     init_train_state,
+    make_eval_fn,
     make_optimizer,
     make_train_epoch_fn,
 )
 
 __all__ = [
+    "Averages",
+    "ClassificationMetrics",
     "FederatedTask",
+    "MulticlassMetrics",
     "Optimizer",
     "TrainState",
     "cross_entropy",
     "eval_forward",
     "init_train_state",
+    "is_improvement",
+    "make_eval_fn",
     "make_optimizer",
     "make_train_epoch_fn",
 ]

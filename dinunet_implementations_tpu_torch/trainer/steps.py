@@ -4,12 +4,18 @@
 Eval: :class:`FederatedTask` and :func:`eval_forward`, the one inference
 forward that the serving engine runs.
 
+Eval: :func:`make_eval_fn` runs one full pass over dense per-site
+batches from a training state, every site of a step folded into the rows
+of one :func:`eval_forward` call.
+
 Training: :func:`make_train_epoch_fn` runs one epoch of federated
 training (the engine's aggregation: dSGD or rankDAD) with every site
-folded onto the card, as the JAX epoch does with
-``mesh=None`` and ``pipeline="device"``: the sites' data stay resident as
-an ``[S, N_max, ...]`` inventory, each epoch takes an ``[S, steps, B]``
-index plan, and each round gathers its batch on the device. A round runs
+folded onto the card, as the JAX epoch does with ``mesh=None``. Two
+pipelines feed it the same rounds: ``"device"`` keeps the sites' data
+resident as an ``[S, N_max, ...]`` inventory, takes an ``[S, steps, B]``
+index plan an epoch and gathers each round's batch on the device;
+``"host"`` takes the dense ``[S, steps, B, ...]`` epoch from the host and
+copies each round's block to the device. A round runs
 ``local_iterations`` micro-batches per site with example-weighted gradient
 accumulation, then the engine's weighted mean across sites, sync-BN, the
 round loss, the health counters, and ONE optimizer update on the
@@ -28,6 +34,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -59,6 +66,59 @@ def eval_forward(task: FederatedTask, x, y=None, w=None):
             return probs
         ce = -torch.log_softmax(logits, -1).gather(-1, y.long()[..., None])[..., 0]
         return probs, ce
+
+
+class _StateTask:
+    """A task whose forward reads its weights and running statistics from a
+    training state's dicts instead of the module's own."""
+
+    def __init__(self, model, tensors: dict):
+        self.model, self.tensors = model, tensors
+
+    def apply(self, x, train: bool = False, mask=None):
+        return torch.func.functional_call(self.model, self.tensors, (x,),
+                                          {"train": train, "mask": mask})
+
+
+def _to_device(a, dev, dtype=None) -> torch.Tensor:
+    """A host block (numpy or a CPU tensor, any strides) as a contiguous
+    tensor on ``dev``."""
+    t = a if torch.is_tensor(a) else torch.from_numpy(np.ascontiguousarray(a))
+    return t.to(device=dev, dtype=dtype).contiguous()
+
+
+def make_eval_fn(task: FederatedTask, device=None):
+    """The full-pass eval of a training state, on ``device`` (the card
+    unless the caller asks for ``"cpu"``): ``eval_fn(state, inputs [S,
+    steps, B, ...], labels [S, steps, B], weights [S, steps, B])`` returns
+    per-site ``probs [S, steps, B, C]``, ``loss_sum [S]`` and ``weight_sum
+    [S]``; metric scalars are computed on the host (trainer/metrics.py).
+
+    Each step copies its ``[S, B, ...]`` block to the device and folds the
+    sites into the rows of one :func:`eval_forward` call, the forward the
+    serving engine runs (two K1 launches on the card, one a direction):
+    eval-mode BatchNorm normalizes each row by the running statistics, so
+    folding is exact. Weight-0 rows are padding: they carry weight 0 into
+    the loss sum through ``mask=``. This is JAX's ``make_eval_fn`` with
+    ``mesh=None`` and no personalization."""
+    dev = resolve_device(device)
+
+    def eval_fn(state: TrainState, inputs, labels, weights):
+        S, steps, B = inputs.shape[:3]
+        st = _StateTask(task.model, {**state.params, **state.batch_stats})
+        probs, loss_sum = [], torch.zeros(S, device=dev)
+        for k in range(steps):
+            x = _to_device(inputs[:, k], dev, torch.float32)
+            y = _to_device(labels[:, k], dev)
+            w = _to_device(weights[:, k], dev, torch.float32)
+            p, ce = eval_forward(st, x.reshape((S * B,) + x.shape[2:]), y.reshape(-1),
+                                 w.reshape(-1))
+            probs.append(p.reshape(S, B, -1))
+            loss_sum = loss_sum + (ce.reshape(S, B) * w).sum(1)
+        w_all = _to_device(weights, dev, torch.float32)
+        return torch.stack(probs, 1), loss_sum, w_all.reshape(S, -1).sum(1)
+
+    return eval_fn
 
 
 def cross_entropy(logits, labels, weights):
@@ -186,7 +246,6 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 #: name -> (the value that means "off", the ROADMAP item that ports it)
 _UNPORTED = {
     "mesh": (None, "A11 (multi-GPU)"),
-    "pipeline": ("device", "A13 (host pipeline)"),
     "telemetry": (False, "A12 (telemetry)"),
     "staleness_bound": (0, "A10 (async buffers)"),
     "overlap_rounds": (False, "A10 (overlapped rounds)"),
@@ -247,16 +306,32 @@ def _hold(go, new: dict, old: dict) -> dict:
 
 def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         local_iterations: int = 1, quarantine_rounds: int | None = 3,
-                        device=None, **options):
-    """Build the epoch function ``epoch(state, inv_x [S, N_max, ...], inv_y
-    [S, N_max], idx [S, steps, B], live=None, poison=None) -> (state,
-    losses [rounds])``, on ``device`` (the card unless the caller asks for
-    ``"cpu"``).
+                        device=None, pipeline: str = "device", **options):
+    """Build the epoch function, on ``device`` (the card unless the caller
+    asks for ``"cpu"``). Both pipelines return ``(state, losses
+    [rounds])`` and run the same rounds; only the batch source differs.
 
-    ``idx`` is the epoch's plan (``data.plan_epoch_positions``); ``steps``
-    are consumed in rounds of ``local_iterations`` micro-batches and a
-    trailing remainder is dropped. ``live [S, rounds]`` is the scheduled
-    liveness mask and ``poison [S, rounds]`` the NaN-injection gate.
+    - ``pipeline="device"`` (the default): ``epoch(state, inv_x [S, N_max,
+      ...], inv_y [S, N_max], idx [S, steps, B], live=None, poison=None)``.
+      ``idx`` is the epoch's plan (``data.plan_epoch_positions``) into the
+      resident inventory, and each round gathers its batch on the device;
+      ``poison [S, rounds]`` is the NaN-injection gate.
+    - ``pipeline="host"``: ``epoch(state, inputs [S, steps, B, ...],
+      labels [S, steps, B], weights [S, steps, B], live=None)``, the dense
+      epoch of ``data.plan_epoch`` on the host (numpy or CPU tensors).
+      Each round's ``[S, L, B, ...]`` block is copied to the device just
+      before the round, so the device never holds the dense epoch. As in
+      JAX, this path takes no ``poison``: the trainer writes NaN into the
+      host inputs (the data layer).
+
+    The default differs from JAX's ``make_train_epoch_fn``, which
+    defaults to ``"host"``; JAX's ``TrainConfig.pipeline`` defaults to
+    ``"device"``, and so does this function. Any other value raises
+    ``ValueError``.
+
+    ``steps`` are consumed in rounds of ``local_iterations`` micro-batches
+    and a trailing remainder is dropped. ``live [S, rounds]`` is the
+    scheduled liveness mask.
 
     Guarded rounds (``quarantine_rounds >= 0`` or a ``live`` mask): a site
     contributes iff it is scheduled live AND its round gradient is finite
@@ -275,10 +350,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     through ``staleness_bound``, ``robust_agg`` and ``dp_clip`` /
     ``dp_noise_multiplier``: any value while that option is off, JAX's
     default otherwise. Every other option at a value other than "off"
-    (``mesh``, ``pipeline="host"``, ``telemetry``, async, overlap, attack,
+    (``mesh``, ``telemetry``, async, overlap, attack,
     DP, personalization, slices) raises ``NotImplementedError`` naming the
     ROADMAP item that ports it."""
     _check_options(options)
+    if pipeline not in ("host", "device"):
+        raise ValueError(f"pipeline must be 'host' or 'device', got {pipeline!r}")
     if local_iterations < 1:
         raise ValueError(f"local_iterations must be >= 1, got {local_iterations}")
     if quarantine_rounds is None:
@@ -309,17 +386,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         site_grad = {k: g / per_site(torch.clamp(n_sum, min=1.0), g) for k, g in g_sum.items()}
         return site_grad, n_sum, run, loss_sum
 
-    def epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None):
-        inv_x = torch.as_tensor(inv_x, device=dev)
-        inv_y = torch.as_tensor(inv_y, device=dev)
-        idx = torch.as_tensor(idx, device=dev)
-        S, steps = idx.shape[:2]
-        rounds = steps // L
+    def run_rounds(state: TrainState, S: int, rounds: int, batch, live):
+        """The epoch's rounds; ``batch(r)`` gives round ``r``'s ``(x [S, L,
+        B, ...], y [S, L, B], w [S, L, B])`` on the device."""
         guard = quarantine_rounds >= 0 or live is not None
         if live is not None:
             live = torch.as_tensor(live, dtype=torch.float32, device=dev)[:, :rounds]
-        if poison is not None:
-            poison = torch.as_tensor(poison, device=dev)[:, :rounds]
         health = state.health
         if health["streak"].shape[0] != S:
             health = default_health(S, dev)  # per-site counters only survive a same-size fit
@@ -330,8 +402,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             rnd = state.round + r
             gen = torch.Generator(device=dev)
             gen.manual_seed(state.rng * 1_000_003 + rnd)
-            xb, yb, wb = _gather_batch(inv_x, inv_y, idx[:, r * L:(r + 1) * L],
-                                       None if poison is None else poison[:, r])
+            xb, yb, wb = batch(r)
             site_grad, n_sum, site_stats, loss_sum = site_round(params, stats, xb, yb, wb, gen)
             if not guard:
                 agg, engine_state = engine.aggregate(site_grad, engine_state, n_sum)
@@ -381,4 +452,26 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         empty = torch.zeros(0, device=dev)
         return new_state, torch.stack(losses) if losses else empty
 
-    return epoch
+    def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None):
+        inv_x = torch.as_tensor(inv_x, device=dev)
+        inv_y = torch.as_tensor(inv_y, device=dev)
+        idx = torch.as_tensor(idx, device=dev)
+        S, steps = idx.shape[:2]
+        rounds = steps // L
+        if poison is not None:
+            poison = torch.as_tensor(poison, device=dev)[:, :rounds]
+        return run_rounds(state, S, rounds, lambda r: _gather_batch(
+            inv_x, inv_y, idx[:, r * L:(r + 1) * L], None if poison is None else poison[:, r]),
+            live)
+
+    def host_epoch(state: TrainState, inputs, labels, weights, live=None):
+        S, steps = inputs.shape[:2]
+
+        def batch(r):
+            sl = slice(r * L, (r + 1) * L)
+            return (_to_device(inputs[:, sl], dev, torch.float32), _to_device(labels[:, sl], dev),
+                    _to_device(weights[:, sl], dev, torch.float32))
+
+        return run_rounds(state, S, steps // L, batch, live)
+
+    return device_epoch if pipeline == "device" else host_epoch
