@@ -21,6 +21,7 @@ import torch
 from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..runner.registry import get_task
+from ..trainer.checkpoint import load_inference_state
 from ..trainer.steps import FederatedTask, eval_forward
 from ..weights import icalstm_params_from_jax
 from .microbatch import Microbatcher, RequestFuture
@@ -48,18 +49,25 @@ class InferenceEngine:
     """Construct, :meth:`warmup`, then :meth:`submit`; always :meth:`close`
     (or use as a context manager), which stops the lane thread.
 
-    Weights come either as the JAX package's ``params``/``batch_stats``
-    numpy trees (through :func:`~..weights.icalstm_params_from_jax`) or as
-    the port model's own ``state_dict``. ``device=None`` means the card."""
+    Weights come from one of: a ``checkpoint`` path (a trainer checkpoint
+    in the JAX package's format, through
+    :func:`~..trainer.checkpoint.load_inference_state`; its meta is
+    ``self.meta``), the JAX package's ``params``/``batch_stats`` numpy trees
+    (through :func:`~..weights.icalstm_params_from_jax`) or the port
+    model's own ``state_dict``. ``device=None`` means the card."""
 
-    def __init__(self, cfg: TrainConfig, *, params=None, batch_stats=None,
-                 state_dict=None, row_buckets=DEFAULT_ROW_BUCKETS,
+    def __init__(self, cfg: TrainConfig, *, checkpoint: str | None = None, params=None,
+                 batch_stats=None, state_dict=None, row_buckets=DEFAULT_ROW_BUCKETS,
                  max_delay_ms: float = 2.0, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = get_task(cfg.task_id)
-        if (params is None) == (state_dict is None):
-            raise ServingError("pass either params (with batch_stats) or state_dict")
+        self.meta: dict = {}
+        if sum(x is not None for x in (checkpoint, params, state_dict)) != 1:
+            raise ServingError("pass either params (with batch_stats), state_dict or a "
+                               "checkpoint: exactly one of them")
+        if checkpoint is not None:
+            params, batch_stats, self.meta = load_inference_state(checkpoint)
         if params is not None:
             state_dict = icalstm_params_from_jax(
                 params, batch_stats or {}, cfg.ica_args.bidirectional)

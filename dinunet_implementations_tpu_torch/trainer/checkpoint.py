@@ -1,0 +1,262 @@
+"""Checkpoints in the JAX package's file format, without flax or msgpack:
+the port's counterpart of its ``trainer/checkpoint.py``.
+
+A file is the flax-msgpack state dict of the trainer's state (the
+:mod:`._msgpack` codec), framed with a CRC32 of the payload (magic
+``DNTCK1``), written through a temporary file and ``os.replace``; with
+``rotate=True`` the previous generation survives as ``<path>.prev``, and a
+load that meets a missing, torn or corrupt file falls back to it. Unframed
+files (written before the frame existed) still load.
+
+The payload keys are JAX's: ``params``, ``batch_stats``, ``opt_state``
+(optax's chain as flax writes it: ``{"0": {"count", "mu", "nu"}, "1": {}}``
+for Adam, ``{"0": {}, "1": {}}`` for SGD), ``engine_state`` (``{}`` for
+dSGD, rankDAD's per-site ``{"omega": ...}`` with None for a dense leaf),
+``rng`` (a threefry key, ``uint32 [2]``: the port's int seed ``s`` is
+written as ``[s >> 32, s & 0xffffffff]``, which is ``PRNGKey(s)``),
+``round``, ``health``, the empty ``telemetry``, ``buffers``, ``overlap``
+and ``personal``, and ``meta_json``. Trees are in JAX layout (flax kernels
+``[in, out]``) through ``weights.train_state_to_jax`` /
+``train_state_from_tree``, so a file the port writes restores in JAX with
+``load_checkpoint(path, like=jax_state)`` and a file JAX writes restores
+here.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import warnings
+import zlib
+
+import numpy as np
+import torch
+
+from ..weights import (
+    _params_to_port,
+    engine_state_from_jax,
+    train_state_from_tree,
+    train_state_to_jax,
+)
+from . import _msgpack
+from .steps import TrainState
+
+#: frame = magic + little-endian CRC32 of the msgpack blob + the blob
+_MAGIC = b"DNTCK1\n"
+
+
+class CorruptCheckpointError(RuntimeError):
+    """The checkpoint file exists but fails its checksum or decoding."""
+
+
+def _atomic_write(path: str, data) -> None:
+    """Write through a temporary file and ``os.replace``: a kill mid-write
+    never leaves a truncated file at ``path``."""
+    mode = "wb" if isinstance(data, bytes) else "w"
+    tmp = path + ".tmp"
+    with open(tmp, mode) as fh:
+        fh.write(data)
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+
+
+def _frame(blob: bytes) -> bytes:
+    return _MAGIC + struct.pack("<I", zlib.crc32(blob)) + blob
+
+
+def _read_raw(path: str) -> dict:
+    """One checkpoint file as its decoded state dict; raises
+    :class:`CorruptCheckpointError` on a checksum or decoding failure."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data.startswith(_MAGIC):
+        head = len(_MAGIC) + 4
+        if len(data) < head:
+            raise CorruptCheckpointError(f"{path}: truncated checkpoint frame")
+        (crc,) = struct.unpack("<I", data[len(_MAGIC):head])
+        blob = data[head:]
+        if zlib.crc32(blob) != crc:
+            raise CorruptCheckpointError(f"{path}: payload checksum mismatch (torn or corrupt file)")
+    else:
+        blob = data  # unframed legacy checkpoint
+    try:
+        raw = _msgpack.unpackb(blob)
+    except (ValueError, IndexError, UnicodeDecodeError, TypeError) as e:
+        raise CorruptCheckpointError(f"{path}: undecodable checkpoint: {e}") from e
+    if not isinstance(raw, dict):
+        raise CorruptCheckpointError(f"{path}: not a checkpoint state dict")
+    return raw
+
+
+def _load_raw(path: str, fallback: bool = True) -> dict:
+    """Read ``path``, falling back to ``path + '.prev'`` (the rotated
+    previous generation) when the primary is missing or corrupt."""
+    try:
+        return _read_raw(path)
+    except (OSError, CorruptCheckpointError) as e:
+        prev = path + ".prev"
+        if fallback and os.path.exists(prev):
+            warnings.warn(f"checkpoint {path} unreadable ({e}); falling back to the previous "
+                          f"generation {prev}")
+            return _read_raw(prev)
+        raise
+
+
+def _sorted(tree):
+    """Nested dicts with their keys sorted at every level (the order flax
+    writes a tree in)."""
+    if isinstance(tree, dict):
+        return {k: _sorted(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def _key(seed: int) -> np.ndarray:
+    seed = int(seed) & (2 ** 64 - 1)
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+
+
+def _seed(key, default: int) -> int:
+    k = np.asarray(key)
+    if k.shape != (2,) or k.dtype.kind not in "ui":
+        return default
+    return (int(k[0]) << 32) | int(k[1])
+
+
+def _meta(raw: dict) -> dict:
+    meta = raw.get("meta_json") or "{}"
+    if isinstance(meta, bytes):
+        meta = meta.decode()
+    return json.loads(meta)
+
+
+def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
+                    rotate: bool = False, bidirectional: bool = True) -> str:
+    """Write ``state`` with ``meta`` (paired with it inside the payload) to
+    ``path``. ``rotate=True`` first keeps the previous generation as
+    ``path + '.prev'``. With a ``meta``, a human-readable
+    ``path + '.meta.json'`` sidecar is written too."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t = train_state_to_jax(state, bidirectional)
+    opt = t["opt_state"]
+    first = ({"count": np.asarray(opt["count"], np.int32), "mu": opt["mu"], "nu": opt["nu"]}
+             if opt else {})
+    payload = {
+        "params": _sorted(t["params"]),
+        "batch_stats": _sorted(t["batch_stats"]),
+        "opt_state": {"0": _sorted(first), "1": {}},
+        "engine_state": _sorted(t["engine_state"]),
+        "rng": _key(t["rng"]),
+        "round": np.asarray(t["round"], np.int32),
+        "health": _sorted(t["health"]),
+        "telemetry": {},
+        "buffers": {},
+        "overlap": {},
+        "personal": {},
+        "meta_json": json.dumps(meta or {}),
+    }
+    # serialize before rotating: a failure here must not have moved the old
+    # generation away
+    framed = _frame(_msgpack.packb(payload))
+    if rotate and os.path.exists(path):
+        os.replace(path, path + ".prev")
+    _atomic_write(path, framed)
+    if meta is not None:
+        _atomic_write(path + ".meta.json", json.dumps(meta, indent=2, default=float))
+    return path
+
+
+def _device_of(state: TrainState):
+    return next(iter(state.params.values())).device
+
+
+def _same_shapes(got: dict, like: dict) -> bool:
+    return got.keys() == like.keys() and all(
+        (got[k] is None) == (like[k] is None)
+        and (got[k] is None or tuple(got[k].shape) == tuple(like[k].shape)) for k in like)
+
+
+def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
+                    fallback: bool = True, bidirectional: bool = True):
+    """Restore a state of ``like``'s structure, on its device;
+    ``with_meta=True`` also returns the paired meta. ``fallback`` (default
+    on) retries ``path + '.prev'`` when ``path`` is missing, torn or
+    corrupt.
+
+    Params, running statistics, optimizer state, rng and round must match
+    ``like`` (a ``ValueError`` otherwise). As in JAX, the engine state and
+    the per-site health restore tolerantly: a stored tree that does not
+    match ``like``'s (another engine or knob, another site count, absent
+    in an older file) gives ``like``'s with a warning, a cold restart of
+    the warm-start carry or fresh counters."""
+    raw = _load_raw(path, fallback=fallback)
+    dev = _device_of(like)
+    opt = raw.get("opt_state", {})
+    first = opt.get("0", {}) if isinstance(opt, dict) else {}
+    if bool(first) != bool(like.opt_state):
+        raise ValueError(f"checkpoint {path}: optimizer state does not match the current "
+                         "optimizer")
+    tree = {"params": raw["params"], "batch_stats": raw.get("batch_stats", {}),
+            "opt_state": first, "engine_state": {}, "rng": _seed(raw.get("rng"), like.rng),
+            "round": raw["round"], "health": {}}
+    state = train_state_from_tree(tree, bidirectional, dev)
+    for what, got, want in (("params", state.params, like.params),
+                            ("batch_stats", state.batch_stats, like.batch_stats)):
+        if not _same_shapes(got, want):
+            raise ValueError(f"checkpoint {path}: {what} do not match the current model")
+    engine_state = like.engine_state
+    try:
+        stored = engine_state_from_jax(raw.get("engine_state") or {}, bidirectional, dev)
+        ok = stored.keys() == like.engine_state.keys() and all(
+            _same_shapes(stored[k], like.engine_state[k]) for k in stored)
+    except ValueError:
+        ok = False
+    if ok:
+        engine_state = stored
+    elif raw.get("engine_state") or like.engine_state:
+        warnings.warn(f"checkpoint {path}: stored engine state does not match the current "
+                      "engine's structure; resuming with fresh engine state")
+    health = like.health
+    stored_h = raw.get("health") or {}
+    if stored_h:
+        if (stored_h.keys() == like.health.keys()
+                and all(np.shape(stored_h[k]) == tuple(like.health[k].shape) for k in stored_h)):
+            health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
+                      for k, v in stored_h.items()}
+        else:
+            warnings.warn(f"checkpoint {path}: stored site-health counters do not match the "
+                          "current run (site count changed?); resuming with fresh counters")
+    state = TrainState(params=state.params, batch_stats=state.batch_stats,
+                       opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
+                       round=state.round, health=health)
+    return (state, _meta(raw)) if with_meta else state
+
+
+def load_meta(path: str, fallback: bool = True) -> dict:
+    """The meta paired with a checkpoint's state, read without a state
+    template; falls back to ``.prev`` as :func:`load_checkpoint` does.
+    ``fallback=False`` reads exactly the named generation."""
+    return _meta(_load_raw(path, fallback=fallback))
+
+
+def load_params(path: str, like_params: dict, bidirectional: bool = True) -> dict:
+    """A warm start: only the params of a checkpoint, by ``state_dict``
+    name, on ``like_params``' device and checked against its shapes."""
+    raw = _load_raw(path)
+    dev = next(iter(like_params.values())).device
+    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], bidirectional,
+                                                      "params").items()}
+    if not _same_shapes(params, like_params):
+        raise ValueError(f"checkpoint {path}: params do not match the current model")
+    return params
+
+
+def load_inference_state(path: str):
+    """``(params, batch_stats, meta)`` of a checkpoint as JAX-layout trees,
+    with every training-only part left out: what
+    ``InferenceEngine(params=..., batch_stats=...)`` takes. Needs no
+    template, so the training run's site count or engine never blocks it;
+    falls back to ``.prev`` as every loader does."""
+    raw = _load_raw(path)
+    return raw.get("params", {}), raw.get("batch_stats", {}) or {}, _meta(raw)

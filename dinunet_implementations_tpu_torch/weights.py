@@ -11,7 +11,8 @@ missing or an extra leaf is rejected.
 leaves: params, batch_stats, the optax Adam ``count/mu/nu``, the engine
 state, round and health) into the port's :class:`~.trainer.steps.TrainState`,
 and :func:`train_state_to_jax` turns one back into numpy trees in JAX
-layout. rankDAD's per-site Ω ``[S, n, r]`` is kept in the JAX matrix
+layout; :func:`train_state_from_tree` reads those trees back (the
+checkpoint files carry them). rankDAD's per-site Ω ``[S, n, r]`` is kept in the JAX matrix
 orientation by both packages, so it crosses unchanged, leaf for leaf (None
 for a dense leaf).
 """
@@ -32,7 +33,9 @@ def _leaves(tree, prefix=()) -> dict:
         for k, v in tree.items():
             out.update(_leaves(v, prefix + (str(k),)))
         return out
-    return {"/".join(prefix): None if tree is None else np.asarray(tree)}
+    if tree is None or torch.is_tensor(tree):
+        return {"/".join(prefix): tree}
+    return {"/".join(prefix): np.asarray(tree)}
 
 
 def _nest(flat: dict) -> dict:
@@ -65,6 +68,10 @@ def jax_transposed_leaves(bidirectional: bool = True) -> frozenset:
 
 
 def _t(a) -> torch.Tensor:
+    """An f32 CPU tensor of its own: from numpy, or from a tensor of any
+    float dtype (a bf16 checkpoint leaf)."""
+    if torch.is_tensor(a):
+        return a.detach().to(device="cpu", dtype=torch.float32).clone()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -125,41 +132,63 @@ def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device
     state)``) as the port's ``TrainState`` on ``device`` (the card unless
     the caller asks for ``"cpu"``). JAX's PRNG key does not carry over:
     the port draws dropout from ``rng``."""
+    adam = _adam_part(state.opt_state)
+    opt = {} if adam is None else {"count": adam.count, "mu": adam.mu, "nu": adam.nu}
+    return train_state_from_tree(
+        {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
+         "engine_state": state.engine_state, "rng": rng, "round": state.round,
+         "health": state.health}, bidirectional, device)
+
+
+def engine_state_from_jax(engine_state, bidirectional: bool = True, device=None) -> dict:
+    """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``)
+    as the port's, by ``state_dict`` name; raises ``ValueError`` for a tree
+    of other leaves."""
+    if not engine_state:
+        return {}
+    if set(engine_state) != {"omega"}:
+        raise ValueError(f"not an engine state of the port: keys {sorted(engine_state)}")
+    om, problems = _leaves(engine_state["omega"]), []
+    _check_leaves(problems, "engine_state omega", om, {j for _, j, _ in _param_names(bidirectional)})
+    _raise_if(problems)
+    return {"omega": {n: None if om[j] is None else _t(om[j]).to(device)
+                      for n, j, _ in _param_names(bidirectional)}}
+
+
+def train_state_from_tree(tree: dict, bidirectional: bool = True, device=None):
+    """A training state as numpy trees in JAX layout (what
+    :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
+    ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
+    ``rng`` (the port's int seed), ``round``, ``health``) as the port's
+    ``TrainState`` on ``device`` (the card unless the caller asks for
+    ``"cpu"``)."""
     from .core.device import resolve_device
     from .trainer.steps import TrainState
 
     dev = resolve_device(device)
-    sd = icalstm_params_from_jax(state.params, state.batch_stats, bidirectional)
+    sd = icalstm_params_from_jax(tree["params"], tree["batch_stats"], bidirectional)
     params = {n: sd[n].to(dev) for n, _, _ in _param_names(bidirectional)}
     stats = {n: sd[n].to(dev) for n, _ in _STATS}
-    adam = _adam_part(state.opt_state)
-    opt_state = {}
-    if adam is not None:
+    opt, opt_state = tree["opt_state"], {}
+    if opt:
         opt_state = {
-            "count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=dev),
-            "mu": {n: v.to(dev) for n, v in _params_to_port(adam.mu, bidirectional, "mu").items()},
-            "nu": {n: v.to(dev) for n, v in _params_to_port(adam.nu, bidirectional, "nu").items()},
+            "count": torch.tensor(int(np.asarray(opt["count"])), dtype=torch.int32, device=dev),
+            "mu": {n: v.to(dev) for n, v in _params_to_port(opt["mu"], bidirectional, "mu").items()},
+            "nu": {n: v.to(dev) for n, v in _params_to_port(opt["nu"], bidirectional, "nu").items()},
         }
     health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
-              for k, v in state.health.items()}
-    engine_state = {}
-    if state.engine_state:
-        om, problems = _leaves(state.engine_state["omega"]), []
-        _check_leaves(problems, "engine_state omega", om,
-                      {j for _, j, _ in _param_names(bidirectional)})
-        _raise_if(problems)
-        engine_state = {"omega": {n: None if om[j] is None else _t(om[j]).to(dev)
-                                  for n, j, _ in _param_names(bidirectional)}}
+              for k, v in tree["health"].items()}
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
-                      engine_state=engine_state, rng=rng, round=int(np.asarray(state.round)),
-                      health=health)
+                      engine_state=engine_state_from_jax(tree["engine_state"], bidirectional, dev),
+                      rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health)
 
 
 def train_state_to_jax(state, bidirectional: bool = True) -> dict:
     """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
-    ``{"omega": ...}`` as JAX nests it), ``round`` and ``health``."""
+    ``{"omega": ...}`` as JAX nests it), ``rng`` (the int seed), ``round``
+    and ``health``."""
     opt = {}
     if state.opt_state:
         opt = {"count": int(state.opt_state["count"]),
@@ -173,6 +202,7 @@ def train_state_to_jax(state, bidirectional: bool = True) -> dict:
             j: None if state.engine_state["omega"][n] is None
             else state.engine_state["omega"][n].detach().cpu().numpy()
             for n, j, _ in _param_names(bidirectional)})} if state.engine_state else {},
+        "rng": int(state.rng),
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},
     }
