@@ -1,3 +1,3 @@
-from .health import default_health
+from .health import default_health, health_summary
 
-__all__ = ["default_health"]
+__all__ = ["default_health", "health_summary"]

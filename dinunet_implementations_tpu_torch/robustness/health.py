@@ -16,6 +16,7 @@ Three int32 counters per site, each a ``[num_sites]`` tensor in
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -23,3 +24,14 @@ def default_health(num_sites: int, device=None) -> dict:
     """Fresh all-healthy counters, one distinct tensor each."""
     return {k: torch.zeros((num_sites,), dtype=torch.int32, device=device)
             for k in ("streak", "skips", "quarantined")}
+
+
+def health_summary(health) -> dict | None:
+    """Host-side summary for results and ``logs.json``: plain int lists
+    under the log-facing names."""
+    if health is None:
+        return None
+    h = {k: np.asarray(v.cpu() if torch.is_tensor(v) else v) for k, v in health.items()}
+    return {"site_skipped_rounds": [int(v) for v in h["skips"]],
+            "site_quarantined": [int(v) for v in h["quarantined"]],
+            "site_nonfinite_streak": [int(v) for v in h["streak"]]}

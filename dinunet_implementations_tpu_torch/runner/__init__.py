@@ -1,3 +1,4 @@
+from .fed_runner import FedRunner, discover_site_dirs, load_site_splits
 from .registry import (
     TASKS,
     ServingSpec,
@@ -9,5 +10,5 @@ from .registry import (
     task_cache,
 )
 
-__all__ = ["TASKS", "ServingSpec", "TaskSpec", "build_engine", "build_model", "build_training",
-           "get_task", "task_cache"]
+__all__ = ["TASKS", "FedRunner", "ServingSpec", "TaskSpec", "build_engine", "build_model",
+           "build_training", "discover_site_dirs", "get_task", "load_site_splits", "task_cache"]

@@ -11,14 +11,13 @@ from typing import Callable
 
 import torch
 
-from ..core.config import AggEngine, NNComputation, TrainConfig
+from ..core.config import NNComputation, TrainConfig
 from ..core.device import resolve_device
 from ..data.api import DataHandle, SiteDataset
 from ..data.ica import ICADataHandle, ICADataset
-from ..engines import Engine, make_dsgd, make_rankdad
+from ..engines import Engine, build_engine
 from ..models.icalstm import ICALstm
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
-from ..weights import jax_transposed_leaves
 
 
 @dataclass(frozen=True)
@@ -108,18 +107,3 @@ def build_training(cfg: TrainConfig, device=None,
     g = torch.Generator().manual_seed(cfg.seed)
     model = get_task(cfg.task_id).build_model(cfg, g, use_kernel=use_kernel).to(device)
     return FederatedTask(model), engine, make_optimizer(cfg.optimizer, cfg.learning_rate)
-
-
-def build_engine(cfg: TrainConfig, use_kernel: bool = True) -> Engine:
-    """The aggregation engine ``cfg`` names: dSGD, or rankDAD with the
-    ``ica_args`` ``dad_*`` knobs, with the config's wire options (each
-    engine refuses the ones it does not run)."""
-    if cfg.agg_engine not in (AggEngine.DECENTRALIZED_SGD, AggEngine.RANK_DAD):
-        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A8)")
-    a = cfg.ica_args
-    wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg)
-    if cfg.agg_engine == AggEngine.RANK_DAD:
-        return make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
-                            cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
-                            transposed=jax_transposed_leaves(a.bidirectional), **wire)
-    return make_dsgd(cfg.precision_bits, **wire)

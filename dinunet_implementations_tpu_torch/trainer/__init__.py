@@ -1,3 +1,12 @@
+from .checkpoint import (
+    CorruptCheckpointError,
+    load_checkpoint,
+    load_inference_state,
+    load_meta,
+    load_params,
+    save_checkpoint,
+)
+from .loop import FederatedTrainer
 from .metrics import Averages, ClassificationMetrics, MulticlassMetrics, is_improvement
 from .steps import (
     FederatedTask,
@@ -14,7 +23,9 @@ from .steps import (
 __all__ = [
     "Averages",
     "ClassificationMetrics",
+    "CorruptCheckpointError",
     "FederatedTask",
+    "FederatedTrainer",
     "MulticlassMetrics",
     "Optimizer",
     "TrainState",
@@ -22,7 +33,12 @@ __all__ = [
     "eval_forward",
     "init_train_state",
     "is_improvement",
+    "load_checkpoint",
+    "load_inference_state",
+    "load_meta",
+    "load_params",
     "make_eval_fn",
     "make_optimizer",
     "make_train_epoch_fn",
+    "save_checkpoint",
 ]

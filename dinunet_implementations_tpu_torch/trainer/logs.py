@@ -1,0 +1,147 @@
+"""Output writers, in the layout and keys the reference's notebooks read:
+the port's own copy of the JAX package's ``trainer/logs.py`` without the
+telemetry and privacy fields (those options are not ported, and their
+fields are empty while they are off).
+
+- ``logs.json``: ``agg_engine``, ``test_metrics`` (nested, ``[[loss,
+  auc]]``), ``best_val_epoch``, ``cumulative_total_duration``,
+  ``time_spent_on_computation`` and ``local_iter_duration`` /
+  ``remote_iter_duration`` (``nnlogs.ipynb`` cell 2; ``NB.ipynb`` cells
+  2-3, 34-36);
+- ``test_metrics.csv``: a header and one row, accuracy and f1 in columns 1
+  and 2 (``NB.ipynb`` cell 6);
+- the directory layout ``<out>/<site>/simulatorRun/<task_id>/fold_<k>/``
+  and the remote's zipped global results next to the task directory.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+import sys
+import time
+import zipfile
+
+_LOGGER_NAME = "dinunet_implementations_tpu_torch"
+
+
+class _StdoutHandler(logging.StreamHandler):
+    """A handler that looks ``sys.stdout`` up at each record (pytest and
+    notebooks swap the stream after import)."""
+
+    def emit(self, record):
+        self.stream = sys.stdout
+        super().emit(record)
+
+
+def get_logger() -> logging.Logger:
+    """The port's logger: plain lines on stdout, gated by
+    ``DINUNET_LOG_LEVEL`` (default INFO)."""
+    logger = logging.getLogger(_LOGGER_NAME)
+    if not logger.handlers:
+        handler = _StdoutHandler()
+        handler.setFormatter(logging.Formatter("%(message)s"))
+        logger.addHandler(handler)
+        logger.propagate = False
+        level = os.environ.get("DINUNET_LOG_LEVEL", "INFO").upper()
+        logger.setLevel(getattr(logging, level, logging.INFO))
+    return logger
+
+
+def log_info(msg: str) -> None:
+    """Progress lines (per-epoch readouts)."""
+    get_logger().info(msg)
+
+
+def log_warning(msg: str) -> None:
+    """Recoverable but noteworthy conditions (clamps, empty splits)."""
+    get_logger().warning(msg)
+
+
+def duration(cache: dict, start: float, key: str) -> float:
+    """Append the seconds since ``start`` (a ``time.perf_counter()``
+    reading) to ``cache[key]``, the reference's duration lists."""
+    cache.setdefault(key, []).append(time.perf_counter() - start)
+    return cache[key][-1]
+
+
+def fold_dir(out_dir: str, site: str, task_id: str, fold: int) -> str:
+    d = os.path.join(out_dir, site, "simulatorRun", task_id, f"fold_{fold}")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def write_logs_json(dirpath: str, agg_engine: str, test_metrics: list, best_val_epoch: int,
+                    cumulative_total_duration: list, time_spent_on_computation: list,
+                    iter_durations: list, side: str = "local", extra: dict | None = None) -> str:
+    log = {
+        "agg_engine": agg_engine,
+        "test_metrics": test_metrics,
+        "best_val_epoch": int(best_val_epoch),
+        "cumulative_total_duration": [round(x, 6) for x in cumulative_total_duration],
+        "time_spent_on_computation": [round(x, 6) for x in time_spent_on_computation],
+        f"{side}_iter_duration": [round(x, 6) for x in iter_durations],
+    }
+    if extra:
+        log.update(extra)
+    os.makedirs(dirpath, exist_ok=True)
+    path = os.path.join(dirpath, "logs.json")
+    with open(path, "w") as fh:
+        json.dump(log, fh, indent=2)
+    return path
+
+
+def health_log_fields(site_health: dict | None, site_index: int | None = None) -> dict:
+    """``logs.json`` fields of the per-site health counters: rounds each
+    site skipped and whether it ended the fit quarantined. ``site_index=
+    None`` gives the remote's lists, an index that site's scalars; ``{}``
+    when no counters were kept (``mode="test"``)."""
+    if not site_health:
+        return {}
+    if site_index is None:
+        return {"site_skipped_rounds": list(site_health["site_skipped_rounds"]),
+                "site_quarantined": list(site_health["site_quarantined"])}
+    return {"skipped_rounds": site_health["site_skipped_rounds"][site_index],
+            "quarantined": site_health["site_quarantined"][site_index]}
+
+
+def write_test_metrics_csv(dirpath: str, fold: int, metrics: dict) -> str:
+    """``metrics``: name → value; accuracy and f1 must be present (the
+    notebook reads columns 1 and 2)."""
+    names = ["accuracy", "f1"] + [k for k in metrics if k not in ("accuracy", "f1")]
+    os.makedirs(dirpath, exist_ok=True)
+    path = os.path.join(dirpath, "test_metrics.csv")
+    with open(path, "w") as fh:
+        fh.write("fold," + ",".join(names) + "\n")
+        fh.write(f"fold_{fold}," + ",".join(f"{metrics[n]:.5f}" for n in names) + "\n")
+    return path
+
+
+def zip_global_results(out_dir: str, remote_site: str = "remote", num_sites: int = 0,
+                       task_id: str | None = None) -> str:
+    """Zip the remote's result tree into ``simulatorRun/global_results.zip``
+    (archive paths start at ``fold_k/``) and copy it into each local
+    site's ``simulatorRun/``, as the reference's remote transfer does.
+    ``task_id`` picks the task directory; ``None`` takes the only one and
+    raises when there are several."""
+    remote_dir = os.path.join(out_dir, remote_site, "simulatorRun")
+    if task_id is None:
+        tasks = [t for t in sorted(os.listdir(remote_dir))
+                 if os.path.isdir(os.path.join(remote_dir, t))]
+        if len(tasks) != 1:
+            raise ValueError(f"out_dir holds {len(tasks)} task dirs {tasks}; pass task_id")
+        task_id = tasks[0]
+    task_dir = os.path.join(remote_dir, task_id)
+    zpath = os.path.join(remote_dir, "global_results.zip")
+    with zipfile.ZipFile(zpath, "w") as zf:
+        for root, _, files in os.walk(task_dir):
+            for f in files:
+                full = os.path.join(root, f)
+                zf.write(full, os.path.relpath(full, task_dir))
+    for i in range(num_sites):
+        site_dir = os.path.join(out_dir, f"local{i}", "simulatorRun")
+        if os.path.isdir(site_dir):
+            shutil.copyfile(zpath, os.path.join(site_dir, "global_results.zip"))
+    return zpath

@@ -68,11 +68,13 @@ def jax_transposed_leaves(bidirectional: bool = True) -> frozenset:
 
 
 def _t(a) -> torch.Tensor:
-    """An f32 CPU tensor of its own: from numpy, or from a tensor of any
-    float dtype (a bf16 checkpoint leaf)."""
+    """A contiguous f32 CPU tensor of its own: from numpy (a transposed
+    view too), or from a tensor of any float dtype (a bf16 checkpoint
+    leaf). Contiguous, as the epoch's own results are, so that a restored
+    state computes bit for bit what the state it was saved from would."""
     if torch.is_tensor(a):
-        return a.detach().to(device="cpu", dtype=torch.float32).clone()
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+        return a.detach().to(device="cpu", dtype=torch.float32).contiguous().clone()
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _check_leaves(problems: list, what: str, have: dict, want: set) -> None:

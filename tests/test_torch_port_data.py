@@ -186,3 +186,38 @@ def test_eval_batches_are_byte_identical_to_jax():
             _same(getattr(got, name), getattr(want, name), f"{name} at batch {b}")
         # every sample exactly once
         assert int(got.weights.sum()) == sum(len(s) for s in tsites)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(num_folds=3), dict(split_ratio=(0.6, 0.2, 0.2))])
+def test_load_site_splits_gives_jax_arrays_per_fold_and_site(tmp_path, kw):
+    from dinunet_implementations_tpu.runner import fed_runner as jrunner
+    from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
+
+    root = tdemo.make_ica_demo_tree(str(tmp_path), **TREE)
+    base = dict(task_id="ICA-Classification", seed=3, **kw)
+    jcfgs = jconfig.resolve_site_configs(jconfig.TrainConfig(**base), root)
+    tcfgs = tconfig.resolve_site_configs(tconfig.TrainConfig(**base), root)
+    dirs = trunner.discover_site_dirs(root)
+    assert dirs == jrunner.discover_site_dirs(root)
+    want = jrunner.load_site_splits(jcfgs[0], dirs, jcfgs)
+    got = trunner.load_site_splits(tcfgs[0], dirs, tcfgs)
+    assert len(got) == len(want) == kw.get("num_folds", 1)
+    for gf, wf in zip(got, want):
+        for key in ("train", "validation", "test"):
+            assert len(gf[key]) == len(wf[key]) == TREE["n_sites"]
+            for g, w in zip(gf[key], wf[key]):
+                for name in ("inputs", "labels", "indices"):
+                    _same(getattr(g, name), getattr(w, name), f"{key} {name}")
+
+
+def test_site_dirs_sort_by_number_as_in_jax(tmp_path):
+    from dinunet_implementations_tpu.runner import fed_runner as jrunner
+    from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
+
+    for name in ("local10", "local2", "local", "local_backup", "local0"):
+        (tmp_path / "input" / name / "simulatorRun").mkdir(parents=True)
+    got = trunner.discover_site_dirs(str(tmp_path))
+    assert got == jrunner.discover_site_dirs(str(tmp_path))
+    assert [os.path.basename(os.path.dirname(p)) for p in got][-3:] == ["local0", "local2",
+                                                                         "local10"]
+    assert trunner.discover_site_dirs(str(tmp_path / "input")) == [str(tmp_path / "input")]
