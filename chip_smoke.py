@@ -93,7 +93,25 @@ result line:
    per-direction kernel path and the plain path; one one-model gradient
    (one K3 and one K4 call, both on the cluster route) against the plain
    path;
-11. one JSON line of per-kernel numbers, then the result line.
+11. the fit slice at full width: a 32-site ICA demo tree (40 subjects a
+   site, 100 components, 980 timepoints, windows of 10; its inputspec set
+   to the default ``ICAArgs`` widths), and ``FedRunner(...,
+   pipeline="host", epochs=3, agg_engine="dSGD").run()`` for fold 0, f32:
+   K1 must launch twice per training micro-batch and per eval step, K2
+   twice per micro-batch, all on the cluster route; the losses and test
+   metrics must be finite, and every site's and the remote's
+   ``logs.json``, ``test_metrics.csv`` and ``checkpoint_best.msgpack``
+   must exist with JAX's keys; ``load_checkpoint`` of the best checkpoint
+   must equal the fit's best state bit for bit; one epoch through the host
+   pipeline must equal one through the device pipeline from the same state
+   and plan, held to the spread of two device epochs;
+   ``InferenceEngine(cfg, checkpoint=...)`` must answer the fold's test
+   rows within 1e-4 of the trainer's eval probabilities, two K1 launches a
+   dispatch. It prints the fit's seconds, the warm epoch ms and
+   host-to-device bytes of each pipeline, and the ms of a validation pass
+   and of saving and loading checkpoints, with the card's name and power
+   limit;
+12. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1770,6 +1788,274 @@ def fused_model_phase(torch, np, lc, pc, bc) -> dict:
     return rec
 
 
+# The fit slice (phase 11): a demo ICA tree of 32 sites at the flagship
+# width, 40 subjects a site (32 / 4 / 4 by the default split ratio: two
+# rounds an epoch at batch 16), three epochs of dSGD through the host
+# pipeline, f32.
+FIT_SITES, FIT_SUBJECTS, FIT_EPOCHS = 32, 40, 3
+# the logs.json keys and the test_metrics.csv header of JAX's FedRunner
+# (tests/test_torch_port_fit.py holds the port's against JAX's on the CPU)
+FIT_LOCAL_KEYS = {"agg_engine", "test_metrics", "best_val_epoch", "cumulative_total_duration",
+                  "time_spent_on_computation", "local_iter_duration", "site_index",
+                  "pooled_test_metrics", "durations_shared_across_sites", "skipped_rounds",
+                  "quarantined"}
+FIT_REMOTE_KEYS = {"agg_engine", "test_metrics", "best_val_epoch", "cumulative_total_duration",
+                   "time_spent_on_computation", "remote_iter_duration", "site_skipped_rounds",
+                   "site_quarantined"}
+FIT_CSV_HEADER = "fold,accuracy,f1,precision,recall,auc"
+
+
+def fit_tree(root: str) -> str:
+    """The demo tree of the fit phase, its inputspec widened to the
+    default ``ICAArgs`` model (encoder 1000 -> 256, BiLSTM 2 x 174)."""
+    from dinunet_implementations_tpu_torch.data import make_ica_demo_tree
+
+    make_ica_demo_tree(root, n_sites=FIT_SITES, subjects=FIT_SUBJECTS, comps=100, temporal=980,
+                       window=10)
+    spec_path = os.path.join(root, "inputspec.json")
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    for site in spec:
+        site["input_size"] = {"value": 256}
+        site["hidden_size"] = {"value": 348}
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    return root
+
+
+def same_tree(got: dict, want: dict) -> bool:
+    """Two dicts of tensors (nested, None leaves) equal bit for bit."""
+    if got.keys() != want.keys():
+        return False
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            if not isinstance(g, dict) or not same_tree(g, w):
+                return False
+        elif (g is None) != (w is None) or (w is not None and not (
+                g.dtype == w.dtype and g.shape == w.shape and bool((g == w).all()))):
+            return False
+    return True
+
+
+def state_err(a, b) -> float:
+    """Max abs difference over params, running statistics and Adam moments."""
+    err = 0.0
+    for ga, gb in ((a.params, b.params), (a.batch_stats, b.batch_stats),
+                   (a.opt_state["mu"], b.opt_state["mu"]), (a.opt_state["nu"], b.opt_state["nu"])):
+        for k in gb:
+            err = max(err, (ga[k].float() - gb[k].float()).abs().max().item())
+    return err
+
+
+def check_fit_outputs(out: str, task_id: str) -> dict:
+    """Every site's and the remote's ``logs.json``, ``test_metrics.csv`` and
+    the best checkpoint with its sidecar, in JAX's layout and keys."""
+    def fold(site):
+        return os.path.join(out, site, "simulatorRun", task_id, "fold_0")
+
+    for i in range(FIT_SITES):
+        with open(os.path.join(fold(f"local{i}"), "logs.json")) as fh:
+            keys = set(json.load(fh))
+        if keys != FIT_LOCAL_KEYS:
+            fail(f"local{i} logs.json keys {sorted(keys ^ FIT_LOCAL_KEYS)} differ from JAX's")
+    with open(os.path.join(fold("remote"), "logs.json")) as fh:
+        remote = json.load(fh)
+    if set(remote) != FIT_REMOTE_KEYS:
+        fail(f"remote logs.json keys {sorted(set(remote) ^ FIT_REMOTE_KEYS)} differ from JAX's")
+    with open(os.path.join(fold("remote"), "test_metrics.csv")) as fh:
+        lines = fh.read().splitlines()
+    if len(lines) != 2 or lines[0] != FIT_CSV_HEADER or not lines[1].startswith("fold_0,"):
+        fail(f"test_metrics.csv reads {lines}")
+    best = os.path.join(fold("remote"), "checkpoint_best.msgpack")
+    for f in (best, best + ".meta.json",
+              os.path.join(out, "remote", "simulatorRun", "global_results.zip")):
+        if not os.path.isfile(f):
+            fail(f"the fit wrote no {f}")
+    return {"best_checkpoint": best, "best_checkpoint_bytes": os.path.getsize(best)}
+
+
+def fit_phase(torch, np, lc, pc, bc, smi: str) -> dict:
+    """The fit slice at full width (phase 11 of the module docstring): a
+    ``FedRunner`` fit from a site tree, then the host pipeline against the
+    device pipeline, the checkpoint round trip and the served fit."""
+    import shutil
+    import tempfile
+
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_epoch, plan_eval
+    from dinunet_implementations_tpu_torch.runner import FedRunner, build_model, load_site_splits
+    from dinunet_implementations_tpu_torch.trainer import (
+        FederatedTrainer,
+        load_checkpoint,
+        load_inference_state,
+        save_checkpoint,
+    )
+
+    root = tempfile.mkdtemp(prefix="dinunet_fit_")
+    try:
+        t0 = time.perf_counter()
+        tree = fit_tree(os.path.join(root, "tree"))
+        tree_s = time.perf_counter() - t0
+        out = os.path.join(root, "out")
+        cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+        runner = FedRunner(cfg, tree, out, pipeline="host", epochs=FIT_EPOCHS, agg_engine="dSGD")
+        fcfg = runner.cfg
+        a = fcfg.ica_args
+        if (a.input_size, a.hidden_size, a.num_components, fcfg.num_sites) != (256, 348, 100,
+                                                                               FIT_SITES):
+            fail(f"the fit's config is not the flagship's width: {a}, {fcfg.num_sites} sites")
+        fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+        rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
+        eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
+        torch.cuda.synchronize()
+
+        zero_counters(lc, pc, bc)  # the main path's run starts here
+        t0 = time.perf_counter()
+        res = runner.run(folds=[0], verbose=False)[0]
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counters(lc, pc, bc)  # read before any check
+
+        epochs = len(res["epoch_losses"])
+        micro = epochs * rounds * fcfg.local_iterations
+        evals = epochs * eval_steps["validation"] + eval_steps["test"]
+        want = dict.fromkeys(launches, 0) | {
+            "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+            "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+            "k2_cluster_route": 2 * micro}
+        # every LSTM call of the fit launched its kernel: a call that went
+        # to a plain version would leave these counts short
+        if launches != want:
+            fail(f"fit launches {launches}, want {want}")
+        finite = [np.isfinite(res[k]).all() for k in ("epoch_losses", "test_metrics")]
+        if not all(finite) or not np.isfinite(list(res["test_scores"].values())).all():
+            fail(f"the fit's losses or test metrics are not finite: {res['epoch_losses']}, "
+                 f"{res['test_metrics']}, {res['test_scores']}")
+        outputs = check_fit_outputs(out, fcfg.task_id)
+
+        # the checkpoint round trip: the best checkpoint is the fit's best
+        # state, bit for bit
+        best = outputs["best_checkpoint"]
+        t0 = time.perf_counter()
+        restored = load_checkpoint(best, res["state"])
+        torch.cuda.synchronize()
+        load_best_ms = (time.perf_counter() - t0) * 1e3
+        for part in ("params", "batch_stats", "opt_state", "engine_state", "health"):
+            if not same_tree(getattr(restored, part), getattr(res["state"], part)):
+                fail(f"checkpoint_best.msgpack {part} differ from the fit's best state")
+        if (restored.rng, restored.round) != (res["state"].rng, res["state"].round):
+            fail("checkpoint_best.msgpack rng or round differ from the fit's best state")
+
+        # host pipeline against device pipeline: one epoch from one state
+        # and one plan through each, then each once more (timed warm)
+        trainers = {p: FederatedTrainer(fcfg.replace(pipeline=p), build_model(fcfg))
+                    for p in ("device", "host")}
+        start = trainers["device"].init_state(num_sites=FIT_SITES)
+        runs, epoch_ms, xfer = {}, {}, {}
+        for p in ("device", "host", "device", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, lo = trainers[p].run_epoch(start, fold["train"], 1)
+            torch.cuda.synchronize()
+            epoch_ms[p] = (time.perf_counter() - t0) * 1e3  # the second, warm, run stays
+            xfer[p] = trainers[p]._last_transfer_bytes
+            runs.setdefault(p, []).append((st, lo))
+        inv_bytes = sum(t.numel() * t.element_size() for t in trainers["device"]._inventory)
+        # the host pipeline's own share: materializing the dense epoch
+        t0 = time.perf_counter()
+        plan_epoch(fold["train"], fcfg.batch_size, seed=fcfg.seed * 100003 + 1, pad_mode="wrap")
+        materialize_ms = (time.perf_counter() - t0) * 1e3
+        (d1, dl1), (d2, dl2) = runs["device"]
+        (h1, hl1), _ = runs["host"]
+        device_spread = max(state_err(d1, d2), float(np.abs(dl1 - dl2).max()))
+        host_vs_device = max(state_err(h1, d1), float(np.abs(hl1 - dl1).max()))
+        # host against device is held to the spread of two device epochs:
+        # 0 when the device pipeline repeats itself bit for bit
+        if not np.isfinite(dl1).all() or host_vs_device > device_spread:
+            fail(f"host epoch differs from the device epoch by {host_vs_device} "
+                 f"(two device epochs by {device_spread})")
+
+        # a validation pass, warm
+        dev = trainers["device"]
+        dev.evaluate(d1, fold["validation"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev.evaluate(d1, fold["validation"])
+        eval_ms = (time.perf_counter() - t0) * 1e3
+
+        # saving and loading a full training state
+        latest = os.path.join(root, "latest.msgpack")
+        t0 = time.perf_counter()
+        save_checkpoint(latest, d1, meta={"epoch": 1}, rotate=True)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back = load_checkpoint(latest, start)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if not same_tree(back.params, d1.params) or not same_tree(back.opt_state, d1.opt_state):
+            fail("a saved training state does not load back bit for bit")
+        t0 = time.perf_counter()
+        load_inference_state(best)
+        load_inference_ms = (time.perf_counter() - t0) * 1e3
+
+        # serving the fit: the fold's test rows through the engine against
+        # the trainer's eval probabilities for those rows
+        fb = plan_eval(fold["test"], fcfg.batch_size)
+        probs = dev.eval_fn(res["state"], fb.inputs, fb.labels, fb.weights)[0].cpu().numpy()
+        keep = fb.weights > 0
+        rows, want_p = fb.inputs[keep], probs[keep]
+        with InferenceEngine(fcfg, checkpoint=best) as eng:
+            eng.warmup()
+            lc.LAUNCHES = lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+            futs = [eng.submit(rows[i:i + 16]) for i in range(0, len(rows), 16)]
+            got_p = np.concatenate([f.result(timeout=120) for f in futs])
+            serve = eng.summary()
+        serve_launches = {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
+                          "k1_cluster_route": lc.K1_CLUSTER_CALLS,
+                          "k1_stream_route": lc.K1_STREAM_CALLS}
+        n = serve_launches["lstm_fwd"]
+        if n == 0 or n != 2 * serve["dispatches"] or serve_launches != {
+                "lstm_fwd": n, "lstm_proj": n, "k1_cluster_route": n, "k1_stream_route": 0}:
+            fail(f"served fit launches {serve_launches} for {serve['dispatches']} dispatches")
+        serve_err = float(np.abs(got_p - want_p).max())
+        if got_p.shape != want_p.shape or serve_err > SERVE_TOL:
+            fail(f"the served fit differs from the trainer's eval by {serve_err}")
+
+        rec = {
+            "card": smi, "sites": FIT_SITES, "subjects": FIT_SUBJECTS,
+            "split": {k: len(fold[k][0]) for k in ("train", "validation", "test")},
+            "epochs": epochs, "rounds_per_epoch": rounds, "eval_steps": eval_steps,
+            "tree_seconds": tree_s, "fit_seconds": fit_s, "launches": launches,
+            "epoch_losses": res["epoch_losses"], "best_val_epoch": res["best_val_epoch"],
+            "best_val_metric": res["best_val_metric"], "test_metrics": res["test_metrics"],
+            "test_scores": res["test_scores"], "warm_epoch_ms": epoch_ms,
+            "host_materialize_ms": materialize_ms,
+            "epoch_transfer_bytes": xfer, "device_inventory_bytes": inv_bytes,
+            "device_epoch_spread": device_spread, "host_vs_device_max_abs_err": host_vs_device,
+            "validation_pass_ms": eval_ms, "checkpoint_save_ms": save_ms,
+            "checkpoint_load_ms": load_ms, "best_checkpoint_load_ms": load_best_ms,
+            "inference_state_load_ms": load_inference_ms,
+            "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
+            "serving": {"rows": len(rows), "dispatches": serve["dispatches"],
+                        "launches": serve_launches, "max_abs_err_vs_trainer_eval": serve_err},
+        }
+        print(f"fit seconds {fit_s:.3f} ({epochs} epochs, {FIT_SITES} sites, host pipeline) on "
+              f"{smi}")
+        print(f"warm epoch ms: device {epoch_ms['device']:.3f}, host {epoch_ms['host']:.3f} "
+              f"(of which materializing the dense epoch {materialize_ms:.3f}) on {smi}")
+        print(f"host-to-device bytes an epoch: device {xfer['device']} (the plan; the inventory, "
+              f"{inv_bytes}, once a fit), host {xfer['host']}")
+        print(f"validation pass ms {eval_ms:.3f}; checkpoint save ms {save_ms:.3f}, load ms "
+              f"{load_ms:.3f}, best load ms {load_best_ms:.3f}, inference-state load ms "
+              f"{load_inference_ms:.3f} on {smi}")
+        print("fit:", json.dumps(rec))
+        return rec
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1831,12 +2117,19 @@ def main() -> int:
     train_fused_bf16 = fused_bf16_epoch(torch, np, lc, pc, bc)
     one_model = fused_model_phase(torch, np, lc, pc, bc)
 
+    print(f"== 11. the fit slice at full width: FedRunner on a {FIT_SITES}-site ICA tree, "
+          f"{FIT_EPOCHS} epochs")
+    fit = fit_phase(torch, np, lc, pc, bc, smi)
+
     fwd = next(s for s in shapes if s["rows"] == SERVE_ROWS and s["dtype"] == "f32")
     bwd = next(s for s in bwd_shapes if s["rows"] == TRAIN_SITES * TRAIN_BATCH and s["dtype"] == "f32")
     by_path = {"serving": serve_launches, "training": train["launches"]["lstm_fwd"],
-               "training_rankDAD": train_dad["launches"]["lstm_fwd"]}
+               "training_rankDAD": train_dad["launches"]["lstm_fwd"],
+               "fit": fit["launches"]["lstm_fwd"],
+               "fit_serving": fit["serving"]["launches"]["lstm_fwd"]}
     bwd_by_path = {"training": train["launches"]["lstm_bwd"],
-                   "training_rankDAD": train_dad["launches"]["lstm_bwd"]}
+                   "training_rankDAD": train_dad["launches"]["lstm_bwd"],
+                   "fit": fit["launches"]["lstm_bwd"]}
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

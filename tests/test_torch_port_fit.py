@@ -613,3 +613,17 @@ def test_trainer_checks_its_config_values(tree):
         _, model = _models(cfg, cfg)
         with pytest.raises(ValueError, match=match):
             tloop.FederatedTrainer(cfg, model, device="cpu")
+
+
+def test_fit_entry_points_need_a_card_or_an_explicit_cpu(tree, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, cfg = _cfgs(tree, epochs=1)
+    _, model = _models(cfg, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trunner.FedRunner(tconfig.TrainConfig(task_id="ICA-Classification"), tree)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tloop.FederatedTrainer(cfg, model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsteps.make_eval_fn(tsteps.FederatedTask(model))
+    tr = tloop.FederatedTrainer(cfg, model, device="cpu")
+    assert tr.device.type == "cpu" and all(p.device.type == "cpu" for p in model.parameters())
