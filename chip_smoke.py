@@ -1894,6 +1894,7 @@ def fit_phase(torch, np, lc, pc, bc, smi: str) -> dict:
     )
 
     root = tempfile.mkdtemp(prefix="dinunet_fit_")
+    t_phase = time.perf_counter()
     try:
         t0 = time.perf_counter()
         tree = fit_tree(os.path.join(root, "tree"))
@@ -2040,6 +2041,7 @@ def fit_phase(torch, np, lc, pc, bc, smi: str) -> dict:
             "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
             "serving": {"rows": len(rows), "dispatches": serve["dispatches"],
                         "launches": serve_launches, "max_abs_err_vs_trainer_eval": serve_err},
+            "phase_seconds": time.perf_counter() - t_phase,
         }
         print(f"fit seconds {fit_s:.3f} ({epochs} epochs, {FIT_SITES} sites, host pipeline) on "
               f"{smi}")

@@ -183,9 +183,6 @@ class TrainConfig:
                 cfg = dataclasses.replace(cfg, **{args_name: block})
         return cfg
 
-    def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
 
 _TRAIN_FIELDS = {f.name: f for f in dataclasses.fields(TrainConfig)}
 _COMPSPEC_KEY_ALIASES = {"ICA-Classification_args": "ica_args"}

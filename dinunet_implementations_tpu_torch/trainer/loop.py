@@ -97,7 +97,6 @@ class FederatedTrainer:
         if cfg.pipeline not in ("device", "host"):
             raise ValueError(f"cfg.pipeline must be 'device' or 'host', got {cfg.pipeline!r}")
         self.cfg = cfg
-        self.mesh = None
         self.out_dir = out_dir
         self.device = resolve_device(device)
         self.task = FederatedTask(model.to(self.device))

@@ -2,11 +2,9 @@
 ``trainer/steps.py`` for one card.
 
 Eval: :class:`FederatedTask` and :func:`eval_forward`, the one inference
-forward that the serving engine runs.
-
-Eval: :func:`make_eval_fn` runs one full pass over dense per-site
-batches from a training state, every site of a step folded into the rows
-of one :func:`eval_forward` call.
+forward that the serving engine runs; :func:`make_eval_fn` runs it over
+dense per-site batches from a training state, every site of a step folded
+into the rows of one call.
 
 Training: :func:`make_train_epoch_fn` runs one epoch of federated
 training (the engine's aggregation: dSGD or rankDAD) with every site
@@ -106,7 +104,7 @@ def make_eval_fn(task: FederatedTask, device=None):
     def eval_fn(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]
         st = _StateTask(task.model, {**state.params, **state.batch_stats})
-        probs, loss_sum = [], torch.zeros(S, device=dev)
+        probs, loss_sum, w_sum = [], torch.zeros(S, device=dev), torch.zeros(S, device=dev)
         for k in range(steps):
             x = _to_device(inputs[:, k], dev, torch.float32)
             y = _to_device(labels[:, k], dev)
@@ -115,8 +113,8 @@ def make_eval_fn(task: FederatedTask, device=None):
                                  w.reshape(-1))
             probs.append(p.reshape(S, B, -1))
             loss_sum = loss_sum + (ce.reshape(S, B) * w).sum(1)
-        w_all = _to_device(weights, dev, torch.float32)
-        return torch.stack(probs, 1), loss_sum, w_all.reshape(S, -1).sum(1)
+            w_sum = w_sum + w.sum(1)
+        return torch.stack(probs, 1), loss_sum, w_sum
 
     return eval_fn
 
@@ -321,8 +319,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
       epoch of ``data.plan_epoch`` on the host (numpy or CPU tensors).
       Each round's ``[S, L, B, ...]`` block is copied to the device just
       before the round, so the device never holds the dense epoch. As in
-      JAX, this path takes no ``poison``: the trainer writes NaN into the
-      host inputs (the data layer).
+      JAX, this path takes no ``poison``: NaN injection on the host path
+      belongs to the data layer (JAX's ``poison_inputs``, ROADMAP A10).
 
     The default differs from JAX's ``make_train_epoch_fn``, which
     defaults to ``"host"``; JAX's ``TrainConfig.pipeline`` defaults to

@@ -20,18 +20,28 @@ import numpy as np
 import pytest
 import torch
 
+from dinunet_implementations_tpu.core import config as jconfig
 from dinunet_implementations_tpu.data import api as jdata
 from dinunet_implementations_tpu.data import batching as jbatching
+from dinunet_implementations_tpu.engines import lowrank as jlowrank
 from dinunet_implementations_tpu.engines import make_engine
 from dinunet_implementations_tpu.models import icalstm as jm
+from dinunet_implementations_tpu.runner import fed_runner as jrunner
+from dinunet_implementations_tpu.trainer import checkpoint as jckpt
+from dinunet_implementations_tpu.trainer import loop as jloop
 from dinunet_implementations_tpu.trainer import metrics as jmetrics
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core import config as tconfig
 from dinunet_implementations_tpu_torch.data import api as tdata
 from dinunet_implementations_tpu_torch.data import batching as tbatching
+from dinunet_implementations_tpu_torch.data import demo as tdemo
 from dinunet_implementations_tpu_torch.engines import make_dsgd, make_rankdad
+from dinunet_implementations_tpu_torch.engines import rankdad as trankdad
 from dinunet_implementations_tpu_torch.models import icalstm as tm
-from dinunet_implementations_tpu_torch.trainer import metrics as tmetrics
+from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
 from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
+from dinunet_implementations_tpu_torch.trainer import loop as tloop
+from dinunet_implementations_tpu_torch.trainer import metrics as tmetrics
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
     jax_transposed_leaves,
@@ -300,17 +310,6 @@ def test_multiclass_metrics_and_averages_match_jax():
 
 
 # -- the trainer and the runner on an ICA demo tree ---------------------------
-
-from dinunet_implementations_tpu.core import config as jconfig  # noqa: E402
-from dinunet_implementations_tpu.engines import lowrank as jlowrank  # noqa: E402
-from dinunet_implementations_tpu.runner import fed_runner as jrunner  # noqa: E402
-from dinunet_implementations_tpu.trainer import checkpoint as jckpt  # noqa: E402
-from dinunet_implementations_tpu.trainer import loop as jloop  # noqa: E402
-from dinunet_implementations_tpu_torch.core import config as tconfig  # noqa: E402
-from dinunet_implementations_tpu_torch.data import demo as tdemo  # noqa: E402
-from dinunet_implementations_tpu_torch.engines import rankdad as trankdad  # noqa: E402
-from dinunet_implementations_tpu_torch.runner import fed_runner as trunner  # noqa: E402
-from dinunet_implementations_tpu_torch.trainer import loop as tloop  # noqa: E402
 
 # the demo tree's narrow model: 8 windows of 16 components x 10 timepoints,
 # encoder 32, BiLSTM 24; 3 sites of 40 subjects: 32 / 4 / 4 a site
