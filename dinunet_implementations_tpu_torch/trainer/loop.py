@@ -145,20 +145,28 @@ class FederatedTrainer:
             self._inventory_src = key
         return self._inventory
 
-    def run_epoch(self, state, train_sites, epoch: int, batch_size=None):
-        """One training epoch from the plan of seed ``cfg.seed * 100003 +
-        epoch``. Device pipeline: the index plan into the resident
-        inventory. Host pipeline: the plan's dense batches, copied a round
-        at a time. Returns ``(state, losses)`` with the losses in numpy."""
+    def _build_epoch_payload(self, train_sites, epoch: int, batch_size: int):
+        """One epoch's device-pipeline input: the index plan of seed
+        ``cfg.seed * 100003 + epoch``, the whole per-epoch host-to-device
+        transfer of that pipeline. A pure function of the epoch (JAX builds
+        it on a prefetch thread; the port inline)."""
+        return plan_epoch_positions(train_sites, batch_size, seed=self.cfg.seed * 100003 + epoch,
+                                    pad_mode="wrap")
+
+    def run_epoch(self, state, train_sites, epoch: int, batch_size=None, plan=None):
+        """One training epoch. Device pipeline: ``plan`` (built by
+        :meth:`_build_epoch_payload` when None) into the resident
+        inventory. Host pipeline: the same plan's dense batches, copied a
+        round at a time. Returns ``(state, losses)`` with the losses in
+        numpy."""
         bs = batch_size or self.cfg.batch_size
-        seed = self.cfg.seed * 100003 + epoch
         if self._pipeline == "device":
-            plan = plan_epoch_positions(train_sites, bs, seed=seed, pad_mode="wrap")
+            plan = plan if plan is not None else self._build_epoch_payload(train_sites, epoch, bs)
             inv_x, inv_y = self._ensure_inventory(train_sites)
             self._last_transfer_bytes = plan.nbytes
             state, losses = self.epoch_fn(state, inv_x, inv_y, plan.positions)
         else:
-            fb = plan_epoch(train_sites, bs, seed=seed, pad_mode="wrap")
+            fb = plan_epoch(train_sites, bs, seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap")
             self._last_transfer_bytes = fb.inputs.nbytes + fb.labels.nbytes + fb.weights.nbytes
             state, losses = self.epoch_fn(state, fb.inputs, fb.labels, fb.weights)
         return state, losses.cpu().numpy()

@@ -626,3 +626,24 @@ def test_fit_entry_points_need_a_card_or_an_explicit_cpu(tree, monkeypatch):
         tsteps.make_eval_fn(tsteps.FederatedTask(model))
     tr = tloop.FederatedTrainer(cfg, model, device="cpu")
     assert tr.device.type == "cpu" and all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_epoch_payload_is_jax_plan(tree):
+    """The device pipeline's epoch input is JAX's index plan for the same
+    epoch, byte for byte, and a prebuilt plan gives the same epoch."""
+    cfg_j, cfg_t = _cfgs(tree, epochs=1)
+    jmodel, tmodel = _models(cfg_j, cfg_t)
+    jf = jrunner.load_site_splits(cfg_j, jrunner.discover_site_dirs(tree))[0]
+    tf = _port_fold(cfg_t, tree)
+    jtr = jloop.FederatedTrainer(cfg_j, jmodel, None)
+    ttr = tloop.FederatedTrainer(cfg_t, tmodel, device="cpu")
+    for epoch in (1, 7):
+        want = np.asarray(jtr._build_epoch_payload(jf["train"], epoch, FIT_BATCH, 0)[0])
+        got = ttr._build_epoch_payload(tf["train"], epoch, FIT_BATCH).positions
+        assert got.dtype == want.dtype and got.tobytes() == want.tobytes(), epoch
+    start = ttr.init_state(num_sites=TREE["n_sites"])
+    plan = ttr._build_epoch_payload(tf["train"], 3, FIT_BATCH)
+    a, la = ttr.run_epoch(start, tf["train"], 3)
+    b, lb = ttr.run_epoch(start, tf["train"], 3, plan=plan)
+    _same_state(a, b)
+    assert la.tobytes() == lb.tobytes()
