@@ -2,7 +2,7 @@
 
 Field names and defaults are those of the JAX package's ``core/config.py``
 (``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving,
-the training epochs, the trainer driver and the federated runner read),
+the training epochs, the federated trainer and the runner read),
 with its per-site ``inputspec.json`` resolution (:func:`load_inputspec`,
 :func:`resolve_site_configs`). Options the port does not run are kept at
 their "off" values so that the trainer can refuse any other value. The port
@@ -125,7 +125,7 @@ class TrainConfig:
     profile_dir: str = ""
     telemetry: str = "off"
     xprof_dir: str = ""
-    # not ported, kept "off" so the epoch and engine builders can refuse
+    # not ported, kept "off" so that make_train_epoch_fn and the engines refuse
     # them (ROADMAP A10, A11)
     staleness_bound: int = 0
     staleness_decay: float = 0.5

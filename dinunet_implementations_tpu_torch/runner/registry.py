@@ -1,4 +1,4 @@
-"""Task registry: task id → model builder, dataset, data handle and
+"""Task registry: task id → model constructor, dataset, data handle and
 serving spec, and the training pieces a config names. The port serves and
 trains the ICA-LSTM task; the other tasks of the JAX package's registry
 are not ported yet."""

@@ -1,4 +1,4 @@
-"""The federated training driver: the port's counterpart of the JAX
+"""The federated training loop: the port's counterpart of the JAX
 package's ``trainer/loop.py`` ``FederatedTrainer``, with every site folded
 onto one device (JAX's ``mesh=None``).
 

@@ -574,23 +574,23 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         build_training(dataclasses.replace(cfg, agg_engine="powerSGD"), device="cpu")
 
 
-# the TrainConfig fields that the trainer driver and the runner read, and
+# the TrainConfig fields that the federated trainer and the runner read, and
 # the options they refuse at any value but "off"
-DRIVER_FIELDS = ("mode", "epochs", "validation_epochs", "patience", "split_ratio", "num_folds",
+TRAINER_FIELDS = ("mode", "epochs", "validation_epochs", "patience", "split_ratio", "num_folds",
                  "num_class", "monitor_metric", "metric_direction", "log_header",
                  "pretrained_path", "pretrain", "telemetry", "dp_clip", "dp_noise_multiplier",
                  "dp_seed", "dp_delta", "dp_epsilon_budget", "profile_dir", "xprof_dir",
                  "compile_cache_dir", "donate_epoch_state")
-ICA_DRIVER_FIELDS = ("data_file", "labels_file", "window_stride", "split_files",
+ICA_TRAINER_FIELDS = ("data_file", "labels_file", "window_stride", "split_files",
                      "monitor_metric", "metric_direction", "log_header")
 
 
 def test_training_config_copy_keeps_the_jax_defaults():
     jcfg, tcfg = jconfig.TrainConfig(), tconfig.TrainConfig()
     names = {f.name for f in dataclasses.fields(tconfig.TrainConfig)}
-    assert set(DRIVER_FIELDS) <= names, set(DRIVER_FIELDS) - names
+    assert set(TRAINER_FIELDS) <= names, set(TRAINER_FIELDS) - names
     ica_names = {f.name for f in dataclasses.fields(tconfig.ICAArgs)}
-    assert set(ICA_DRIVER_FIELDS) <= ica_names, set(ICA_DRIVER_FIELDS) - ica_names
+    assert set(ICA_TRAINER_FIELDS) <= ica_names, set(ICA_TRAINER_FIELDS) - ica_names
     for f in dataclasses.fields(tconfig.TrainConfig):
         if f.name != "ica_args":
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
