@@ -5,7 +5,9 @@ It mirrors the JAX package's layout (``models/``, ``ops/``, ``serving/``,
 ``trainer/``, ``runner/``, ``data/``, ``engines/``, …), so each module sits
 at the relative path of the module it is held against, and imports nothing
 of the JAX package. It serves the ICA-LSTM classifier, and trains it by
-federated dSGD or rankDAD with every site on one card, through
+federated dSGD, rankDAD or powerSGD with every site on one card (from
+Python, ``runner.FedRunner`` / ``runner.SiteRunner``, or the command line,
+``python -m dinunet_implementations_tpu_torch.runner.cli``), through
 hand-written CUDA kernels for the LSTM recurrence forward and backward
 (``ops/lstm_cuda.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) and for
 rankDAD's power iteration (``ops/poweriter_cuda.py``,

@@ -1,7 +1,7 @@
 """The subset of the training configuration that the port reads.
 
 Field names and defaults are those of the JAX package's ``core/config.py``
-(``ICAArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving,
+(``ICAArgs``, ``PretrainArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving,
 the training epochs, the federated trainer and the runner read),
 with its per-site ``inputspec.json`` resolution (:func:`load_inputspec`,
 :func:`resolve_site_configs`). Options the port does not run are kept at
@@ -33,8 +33,7 @@ class NNComputation:
 
 
 class AggEngine:
-    """Aggregation engines (the reference's ``comps/__init__.py:13-16``);
-    the port runs dSGD and rankDAD so far."""
+    """Aggregation engines (the reference's ``comps/__init__.py:13-16``)."""
 
     DECENTRALIZED_SGD = "dSGD"
     RANK_DAD = "rankDAD"
@@ -81,6 +80,23 @@ class ICAArgs:
 
 
 @dataclass
+class PretrainArgs:
+    """Largest-site pretraining (the reference's ``compspec.json:128-148``):
+    epochs, learning rate, batch size and local iterations of the warm
+    start; ``validation_epochs``, ``pin_memory``, ``num_workers`` and
+    ``patience`` are kept for the reference's keys and read by nothing."""
+
+    epochs: int = 0
+    learning_rate: float = 1e-3
+    batch_size: int = 16
+    local_iterations: int = 1
+    validation_epochs: int = 1
+    pin_memory: bool = False
+    num_workers: int = 0
+    patience: int = 51
+
+
+@dataclass
 class TrainConfig:
     task_id: str = NNComputation.TASK_FREE_SURFER
     mode: str = "train"  # train | test
@@ -89,9 +105,10 @@ class TrainConfig:
     local_iterations: int = 1  # gradient accumulation steps per round
     learning_rate: float = 1e-3
     epochs: int = 101
-    # largest-site pretraining (compspec.json:120-127): not ported, the
-    # trainer refuses True
+    # largest-site pretraining (compspec.json:120-127): with pretrain_args
+    # of epochs > 0, a dSGD warm start on the largest site before the fit
     pretrain: bool = False
+    pretrain_args: PretrainArgs | None = None
     validation_epochs: int = 1
     # payload dtype of the gradient exchange: "32" | "16" (bfloat16) |
     # "16-ieee" (IEEE fp16, the reference's literal payload)
@@ -161,22 +178,26 @@ class TrainConfig:
         naming a ``TrainConfig`` field sets it, and every key naming a
         field of the task-args block sets that too (the reference keeps one
         flat cache dict). A dict under ``ica_args`` (or the compspec key
-        ``ICA-Classification_args``) merges into the block. Keys of neither
-        are dropped, as in JAX."""
+        ``ICA-Classification_args``) merges into the block, and one under
+        ``pretrain_args`` into that optional block (made on first use; flat
+        keys never reach it). Keys of neither are dropped, as in JAX."""
         overrides = {_COMPSPEC_KEY_ALIASES.get(k, k): v for k, v in overrides.items()}
         flat = {k: _coerce(_TRAIN_FIELDS[k], v) for k, v in overrides.items()
                 if k in _TRAIN_FIELDS and k not in _BLOCK_FIELDS}
         cfg = dataclasses.replace(self, **flat)
         for args_name, args_cls in _BLOCK_FIELDS.items():
-            block = getattr(cfg, args_name)
+            current, given = getattr(cfg, args_name), overrides.get(args_name)
+            if current is None and given is None:
+                continue  # an unset optional block stays unset
+            block = current or args_cls()
             fields = {f.name: f for f in dataclasses.fields(args_cls)}
             upd = {}
-            given = overrides.get(args_name)
             if isinstance(given, dict):
                 upd.update({k: _coerce(fields[k], v) for k, v in given.items() if k in fields})
             elif dataclasses.is_dataclass(given):
                 block = given
-            upd.update({k: _coerce(fields[k], v) for k, v in overrides.items() if k in fields})
+            if args_name != "pretrain_args":
+                upd.update({k: _coerce(fields[k], v) for k, v in overrides.items() if k in fields})
             if upd:
                 block = dataclasses.replace(block, **upd)
             if block is not getattr(cfg, args_name):
@@ -187,7 +208,7 @@ class TrainConfig:
 _TRAIN_FIELDS = {f.name: f for f in dataclasses.fields(TrainConfig)}
 _COMPSPEC_KEY_ALIASES = {"ICA-Classification_args": "ica_args"}
 #: dataclass-typed TrainConfig fields that take dict merges
-_BLOCK_FIELDS = {"ica_args": ICAArgs}
+_BLOCK_FIELDS = {"ica_args": ICAArgs, "pretrain_args": PretrainArgs}
 
 
 def _coerce(f: dataclasses.Field, v: Any) -> Any:

@@ -1,25 +1,34 @@
 from .base import Engine, mask_dead_site
 from .dsgd import make_dsgd
+from .powersgd import make_powersgd
 from .rankdad import make_rankdad
 
 
 def build_engine(cfg, use_kernel: bool = True) -> Engine:
-    """The aggregation engine a ``TrainConfig`` names: dSGD, or rankDAD
-    with the ``ica_args`` ``dad_*`` knobs, with the config's wire options
-    (each engine refuses those it does not run). ``use_kernel=False`` runs
-    rankDAD's power iteration through its plain version."""
+    """The aggregation engine a ``TrainConfig`` names: dSGD; rankDAD with
+    the ``ica_args`` ``dad_*`` knobs; or powerSGD at rank
+    ``ica_args.dad_reduction_rank`` with its first Q drawn from
+    ``cfg.seed``. Each takes the config's wire options and refuses those it
+    does not run. ``use_kernel=False`` runs rankDAD's power iteration
+    through its plain version (powerSGD launches no kernel of its own)."""
     from ..core.config import AggEngine
-    from ..weights import jax_transposed_leaves
+    from ..weights import jax_leaf_index, jax_transposed_leaves
 
-    if cfg.agg_engine not in (AggEngine.DECENTRALIZED_SGD, AggEngine.RANK_DAD):
-        raise NotImplementedError(f"agg_engine {cfg.agg_engine!r} is not ported (ROADMAP A8)")
+    if cfg.agg_engine not in AggEngine.ALL:
+        raise ValueError(f"unknown agg_engine {cfg.agg_engine!r} (have {AggEngine.ALL})")
     a = cfg.ica_args
     wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg)
+    transposed = jax_transposed_leaves(a.bidirectional)
     if cfg.agg_engine == AggEngine.RANK_DAD:
         return make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
                             cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
-                            transposed=jax_transposed_leaves(a.bidirectional), **wire)
+                            transposed=transposed, **wire)
+    if cfg.agg_engine == AggEngine.POWER_SGD:
+        return make_powersgd(a.dad_reduction_rank, cfg.precision_bits, seed=cfg.seed,
+                             transposed=transposed, leaf_index=jax_leaf_index(a.bidirectional),
+                             **wire)
     return make_dsgd(cfg.precision_bits, **wire)
 
 
-__all__ = ["Engine", "build_engine", "make_dsgd", "make_rankdad", "mask_dead_site"]
+__all__ = ["Engine", "build_engine", "make_dsgd", "make_powersgd", "make_rankdad",
+           "mask_dead_site"]

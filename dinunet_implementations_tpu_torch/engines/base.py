@@ -1,11 +1,13 @@
 """Aggregation-engine interface: the subset of the JAX package's
-``engines/base.py`` that dSGD and rankDAD need.
+``engines/base.py`` that dSGD, rankDAD and powerSGD need.
 
 An engine is a pair of functions the epoch runs every round:
 
 - ``init(params) -> state``: the engine's state for ONE site, a dict:
   ``{}`` for dSGD, ``{"omega": {name: Ω [n, r] or None}}`` for rankDAD
-  (a warm-start subspace per compressible leaf, None for a dense one).
+  (a warm-start subspace per compressible leaf, None for a dense one),
+  ``{"q": {name: [n, r] or None}, "e": {name: [m, n] or None}}`` for
+  powerSGD (the right factor and the error-feedback residual).
   ``trainer.init_train_state`` stacks it per site (``[S, n, r]``), as the
   JAX trainer does, and the epoch freezes a dead site's rows for the round;
 - ``aggregate(grads, state, weight, live=None) -> (agg, state)``: per-site
@@ -38,6 +40,20 @@ def mask_dead_site(grads: dict, weight, live):
     grads = {k: torch.where(per_site(alive, g), g, torch.zeros((), dtype=g.dtype, device=g.device))
              for k, g in grads.items()}
     return grads, weight * alive.float()
+
+
+_SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
+
+
+def refuse_secure_agg(secure_agg) -> None:
+    """The low-rank engines' check of ``secure_agg``: JAX's ``ValueError``
+    for an unknown mode and for any mode but "off"."""
+    if secure_agg not in _SECURE_AGGS:
+        raise ValueError(f"secure_agg must be one of {_SECURE_AGGS}, got {secure_agg!r}")
+    if secure_agg != "off":
+        raise ValueError(
+            f"secure_agg={secure_agg!r} is only supported by the dSGD engine: the low-rank "
+            "engines gather per-site factors, which a masked psum wire cannot carry")
 
 
 @dataclass(frozen=True)

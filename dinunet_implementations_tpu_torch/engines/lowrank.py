@@ -131,6 +131,13 @@ def _cholqr_multi(Ys):
     return Q2, colnorms
 
 
+def orthonormalize(P):
+    """Orthonormal columns of one matrix ``P [m, r]`` by the shifted
+    CholeskyQR2 of :func:`_cholqr_multi` (powerSGD's ``orth``); nothing in
+    it synchronizes the host."""
+    return _cholqr_multi(P[None])[0][0]
+
+
 def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=None,
                                use_kernel: bool = True):
     """Rank-r factorizations ``G ≈ P @ Qᵀ`` for several same-rank groups.

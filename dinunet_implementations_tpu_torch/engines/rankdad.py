@@ -29,16 +29,13 @@ from __future__ import annotations
 import torch
 
 from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
-from .base import Engine, mask_dead_site
+from .base import Engine, mask_dead_site, refuse_secure_agg
 from .lowrank import (
     _matrix_shape,
     default_omega,
     is_compressible,
     subspace_iteration_grouped,
 )
-
-_SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
-
 
 def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                  dad_tol: float = 1e-3, precision_bits="32", dad_warm_start: bool = True,
@@ -48,12 +45,7 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
     plain version on any device (the reference the card's kernel path is
     held against); ``transposed`` names the leaves stored as the transpose
     of their JAX matrix (``weights.jax_transposed_leaves``)."""
-    if secure_agg not in _SECURE_AGGS:
-        raise ValueError(f"secure_agg must be one of {_SECURE_AGGS}, got {secure_agg!r}")
-    if secure_agg != "off":
-        raise ValueError(
-            f"secure_agg={secure_agg!r} is only supported by the dSGD engine: the low-rank "
-            "engines gather per-site factors, which a masked psum wire cannot carry")
+    refuse_secure_agg(secure_agg)
     for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
                                       ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),
                                       ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):

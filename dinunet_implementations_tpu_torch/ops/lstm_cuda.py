@@ -812,10 +812,11 @@ def bwd_phase_profile(ai, af, ao, ag, cs, whh4, c0, dhs, dhT, dcT, compute_dtype
 
 def _site_weight(w, sites: int):
     """The one weight block behind a site-batched ``[S, ...]`` view; every
-    site must hold the same values, which a stride-0 site axis proves."""
+    site must hold the same values, which a stride-0 site axis proves (one
+    site holds one block at any stride)."""
     if not sites:
         return w
-    _check(w.shape[0] == sites and w.stride(0) == 0,
+    _check(w.shape[0] == sites and (w.stride(0) == 0 or sites == 1),
            f"site-batched weights must be [{sites}, ...] views of stride 0, got shape "
            f"{tuple(w.shape)} strides {w.stride()}", "LSTMRecurrence")
     return w[0]

@@ -1,0 +1,202 @@
+"""The command line: the port's counterpart of the JAX package's
+``runner/cli.py``.
+
+    # a federated fit over a simulator tree, on the card
+    python -m dinunet_implementations_tpu_torch.runner.cli \\
+        --data-path datasets/demo --task ICA-Classification --engine powerSGD --epochs 3
+
+    # one site alone (SiteRunner), resume, test only, on the CPU
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --site 0
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --resume
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --mode test --device cpu
+
+Any ``TrainConfig`` field (or task-args field) can be set with ``--set
+key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
+``--set pretrain=true --set 'pretrain_args={"epochs": 1}'``). Each fold
+prints one JSON line, as JAX's CLI does. ``--device`` is the port's own:
+the card unless ``--device cpu`` is given (the counterpart of JAX's
+``JAX_PLATFORMS=cpu``).
+
+Every other flag of the JAX CLI is parsed, and refused with a
+``SystemExit`` that names the ROADMAP item that ports it, when it asks for
+anything but what the port runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ..core.config import AggEngine, NNComputation, TrainConfig
+
+# the JAX CLI's flags that the port refuses: argparse dest -> (the value
+# that asks for nothing the port lacks, or None when any value is refused;
+# the ROADMAP item that ports it)
+_MULTI_GPU = "A11 (multi-GPU)"
+_ROBUSTNESS = "A10 (robustness and privacy)"
+_TELEMETRY = "A12 (telemetry, profiles, the compile cache)"
+_SCHEDULER = "A19 (the scheduler and supervisor)"
+_REFUSED = {
+    "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
+    "slices": (None, _MULTI_GPU), "min_slices": (None, _MULTI_GPU),
+    "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
+    "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
+    "wire_quant": ("none", _MULTI_GPU),
+    "serve": (False, _ROBUSTNESS), "serve_spool": (None, _ROBUSTNESS),
+    "serve_capacity": (None, _ROBUSTNESS), "serve_quorum": (None, _ROBUSTNESS),
+    "serve_epochs": (None, _ROBUSTNESS), "serve_poll": (None, _ROBUSTNESS),
+    "serve_rows": (None, _ROBUSTNESS), "faults": (None, _ROBUSTNESS),
+    "attacks": (None, _ROBUSTNESS), "robust_agg": ("none", _ROBUSTNESS),
+    "overlap_rounds": (None, _ROBUSTNESS), "dp_clip": (0.0, _ROBUSTNESS),
+    "dp_noise": (0.0, _ROBUSTNESS), "dp_epsilon_budget": (0.0, _ROBUSTNESS),
+    "secure_agg": ("off", _ROBUSTNESS), "personalize": (None, _ROBUSTNESS),
+    "telemetry": ("off", _TELEMETRY), "profile_dir": (None, _TELEMETRY),
+    "xprof_dir": (None, _TELEMETRY), "compile_cache": (None, _TELEMETRY),
+    "sanitize": (None, _TELEMETRY), "statusz_port": (None, _TELEMETRY),
+    "slo_p99_ms": (None, _TELEMETRY),
+    "schedule": (False, _SCHEDULER), "pod_slices": (None, _SCHEDULER),
+    "sched_wall_s": (None, _SCHEDULER), "sched_ticks": (None, _SCHEDULER),
+}
+
+
+def _parse_set(pairs: list[str]) -> dict:
+    out = {}
+    for pair in pairs:
+        if "=" not in pair:
+            raise SystemExit(f"--set expects key=value, got {pair!r}")
+        k, v = pair.split("=", 1)
+        try:
+            out[k] = json.loads(v)
+        except json.JSONDecodeError:
+            out[k] = v  # bare string
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX CLI's flags (those the port refuses without their help
+    text: ``_REFUSED`` names the item of each) and ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="dinunet-tpu-torch",
+        description="Federated training of the dinunet workloads on one CUDA card.")
+    p.add_argument("--data-path", required=True,
+                   help="dataset tree (the reference's simulator layout: "
+                        "input/local*/simulatorRun + inputspec.json)")
+    p.add_argument("--task", default=None, choices=list(NNComputation.ALL),
+                   help="task id (default: TrainConfig/inputspec default)")
+    p.add_argument("--engine", default=None, choices=list(AggEngine.ALL),
+                   help="aggregation engine")
+    p.add_argument("--mode", default=None, choices=["train", "test"])
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--num-folds", type=int, default=None)
+    p.add_argument("--out-dir", default=None,
+                   help="output root (default <data-path>/output)")
+    p.add_argument("--site", type=int, default=None,
+                   help="one site alone: fit only this site index (SiteRunner)")
+    p.add_argument("--folds", type=int, nargs="*", default=None,
+                   help="run only these fold indices")
+    p.add_argument("--resume", action="store_true",
+                   help="resume each fold from its latest checkpoint")
+    p.add_argument("--pipeline", default=None, choices=["device", "host"],
+                   help="input pipeline: 'device' (default) keeps the site inventory "
+                        "resident on the card and ships an index plan an epoch; 'host' "
+                        "copies the dense batches a round at a time")
+    p.add_argument("--fused-poweriter", default=None, choices=["auto", "on", "off"],
+                   help="rankDAD's power iteration: 'auto' and 'on' run the CUDA kernel on "
+                        "the card (what the port always does); 'off' is refused")
+    p.add_argument("--device", default=None,
+                   help="where to run: the CUDA card by default, 'cpu' to run on the CPU")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--set", dest="overrides", action="append", default=[],
+                   metavar="KEY=VALUE",
+                   help="override any TrainConfig / task-args field (repeatable; value "
+                        "parsed as JSON when possible)")
+    for flag, kw in (
+            ("--model-axis-size", dict(type=int)), ("--sites-per-device", dict(type=int)),
+            ("--slices", dict(type=int)), ("--min-slices", dict(type=int)),
+            ("--dcn-wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
+            ("--coordinator", {}), ("--num-processes", dict(type=int)),
+            ("--process-id", dict(type=int)),
+            ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
+            ("--serve", dict(action="store_true")), ("--serve-spool", {}),
+            ("--serve-capacity", dict(type=int)), ("--serve-quorum", dict(type=int)),
+            ("--serve-epochs", dict(type=int)), ("--serve-poll", dict(type=float)),
+            ("--serve-rows", dict(type=int)), ("--faults", {}), ("--attacks", {}),
+            ("--robust-agg", dict(choices=["none", "norm_clip", "trimmed_mean",
+                                           "coordinate_median"])),
+            ("--overlap-rounds", dict(action="store_true", default=None)),
+            ("--dp-clip", dict(type=float)), ("--dp-noise", dict(type=float)),
+            ("--dp-epsilon-budget", dict(type=float)),
+            ("--secure-agg", dict(choices=["off", "mask", "mask-nopads"])),
+            ("--personalize", {}), ("--telemetry", dict(choices=["on", "off"])),
+            ("--profile-dir", {}), ("--xprof-dir", {}), ("--compile-cache", {}),
+            ("--sanitize", dict(nargs="?", const="1")), ("--statusz-port", dict(type=int)),
+            ("--slo-p99-ms", dict(type=float)), ("--schedule", dict(action="store_true")),
+            ("--pod-slices", dict(type=int)), ("--sched-wall-s", dict(type=float)),
+            ("--sched-ticks", dict(type=int))):
+        p.add_argument(flag, help=argparse.SUPPRESS, **({"default": None} | kw))
+    return p
+
+
+def _refuse(args) -> None:
+    """``SystemExit`` naming the ROADMAP item of the first flag given that
+    asks for what the port does not run."""
+    for dest, (off, item) in _REFUSED.items():
+        value = getattr(args, dest)
+        if value is not None and value is not False and value != off:
+            flag = "--" + dest.replace("_", "-")
+            shown = flag if value is True else f"{flag} {value!r}"
+            raise SystemExit(f"{shown} is not ported: ROADMAP {item}")
+    if args.fused_poweriter == "off":
+        raise SystemExit(
+            "--fused-poweriter off asks for the JAX package's XLA power-iteration loop, which "
+            "has no counterpart on the card: the port runs rankDAD's power iteration as its "
+            "CUDA kernel on the card (its plain version on the CPU)")
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse(args)
+    overrides = _parse_set(args.overrides)
+    for key, val in (("task_id", args.task), ("agg_engine", args.engine), ("mode", args.mode),
+                     ("epochs", args.epochs), ("batch_size", args.batch_size),
+                     ("num_folds", args.num_folds), ("pipeline", args.pipeline)):
+        if val is not None:
+            overrides[key] = val
+    cfg = TrainConfig().with_overrides(overrides)
+    verbose = not args.quiet
+
+    if args.site is not None:
+        if args.folds is not None or args.resume:
+            raise SystemExit("--folds/--resume are federated-mode options; not supported "
+                             "together with --site")
+        from .fed_runner import SiteRunner
+
+        runner = SiteRunner(
+            task_id=cfg.task_id, data_path=args.data_path, mode=cfg.mode,
+            site_index=args.site, out_dir=args.out_dir, device=args.device,
+            # the keys passed explicitly above already carry any override
+            **{k: v for k, v in overrides.items()
+               if k not in ("task_id", "mode", "site_index", "out_dir", "device")})
+        results = runner.run(verbose=verbose)
+    else:
+        from .fed_runner import FedRunner
+
+        runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
+                           device=args.device)
+        results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
+
+    for k, res in enumerate(results):
+        loss, metric = res["test_metrics"][0]
+        print(json.dumps({
+            "fold": (args.folds or list(range(len(results))))[k],
+            "test_loss": loss,
+            f"test_{cfg.monitor_metric}": metric,
+            "best_val_epoch": res["best_val_epoch"],
+        }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

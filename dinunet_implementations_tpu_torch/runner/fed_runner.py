@@ -1,12 +1,16 @@
-"""The federated runner over a dataset tree: the port's counterpart of the
-JAX package's ``runner/fed_runner.py`` ``FedRunner`` (the COINSTAC
-simulator's replacement). It finds the ``input/local*/simulatorRun`` site
-directories, resolves each site's config from the tree's
-``inputspec.json``, reads and splits each site, and fits every fold with
-all sites on one device.
+"""The runners over a dataset tree: the port's counterpart of the JAX
+package's ``runner/fed_runner.py``.
 
-``SiteRunner``, ``FedDaemon`` and the CLI of the JAX module are not ported
-(ROADMAP A18 and A10).
+- :class:`FedRunner`, the COINSTAC simulator's replacement, finds the
+  ``input/local*/simulatorRun`` site directories, resolves each site's
+  config from the tree's ``inputspec.json``, reads and splits each site,
+  and fits every fold with all sites on one device.
+- :class:`SiteRunner`, the reference's one-site harness
+  (``comps/*/site_run.py``), fits one site of the tree alone, a federation
+  of one, fold by fold.
+
+``FedDaemon`` of the JAX module is not ported (ROADMAP A10), and neither
+runner wraps a fold in the JAX package's ``sanitized_fit`` (A12).
 """
 
 from __future__ import annotations
@@ -111,4 +115,59 @@ class FedRunner:
                 device=self.device)
             results.append(trainer.fit(fold["train"], fold["validation"], fold["test"], fold=k,
                                        verbose=verbose, resume=resume))
+        return results
+
+
+#: the reference's short task names (its ``taks_id`` kwarg)
+_SHORT_TASK_IDS = {"FSL": "FS-Classification", "ICA": "ICA-Classification"}
+
+
+class SiteRunner:
+    """One site of a dataset tree fitted alone, on ``device`` (the card
+    unless the caller asks for ``"cpu"``). ``taks_id`` is the reference's
+    kwarg, spelled as it spells it, and takes its short names ("FSL",
+    "ICA") or a task id; ``task_id`` wins when both are given.
+    ``site_index`` is clamped to the sites present. Other keyword arguments
+    are config overrides, applied before the tree's inputspec."""
+
+    def __init__(self, taks_id: str | None = None, task_id: str | None = None,
+                 data_path: str = ".", mode: str = "train", seed: int = 0, site_index: int = 0,
+                 split_ratio=(0.8, 0.1, 0.1), monitor_metric: str = "auc",
+                 metric_direction: str = "maximize", log_header: str = "Loss|AUC",
+                 batch_size: int = 16, out_dir: str | None = None, device=None, **kw):
+        tid = task_id or _SHORT_TASK_IDS.get(taks_id, taks_id)
+        self.site_index = site_index
+        self.cfg = TrainConfig(task_id=tid, mode=mode, seed=seed, split_ratio=tuple(split_ratio),
+                               monitor_metric=monitor_metric, metric_direction=metric_direction,
+                               log_header=log_header, batch_size=batch_size).with_overrides(kw)
+        self.data_path = data_path
+        self.out_dir = out_dir
+        self.device = resolve_device(device)
+
+    def run(self, trainer_cls=None, dataset_cls=None, handle_cls=None,
+            verbose: bool = True) -> list[dict]:
+        """Fit every fold of the site's own split (seed ``cfg.seed``), each
+        with ``mesh=None``. The reference's positional (trainer, dataset,
+        handle) are taken; the registry supplies the defaults and the
+        trainer is always :class:`FederatedTrainer`."""
+        site_dirs = discover_site_dirs(self.data_path)
+        site_cfgs = resolve_site_configs(self.cfg, self.data_path, num_sites=len(site_dirs))
+        ix = min(self.site_index, len(site_dirs) - 1)
+        cfg = site_cfgs[ix]
+        spec = get_task(cfg.task_id)
+        ds = build_site_dataset(dataset_cls or spec.dataset_cls, handle_cls or spec.handle_cls,
+                                task_cache(cfg), {"baseDirectory": site_dirs[ix]}, mode=cfg.mode)
+        arrs = ds.as_arrays()
+        args = cfg.task_args()
+        splits = resolve_splits(
+            len(arrs), split_ratio=cfg.split_ratio, num_folds=cfg.num_folds,
+            split_files=tuple(getattr(args, "split_files", ()) or ()), base_dir=site_dirs[ix],
+            seed=cfg.seed)
+        results = []
+        for k, split in enumerate(splits):
+            trainer = FederatedTrainer(cfg, build_model(cfg, device=self.device), mesh=None,
+                                       out_dir=self.out_dir, device=self.device)
+            results.append(trainer.fit([arrs.take(split["train"])],
+                                       [arrs.take(split["validation"])],
+                                       [arrs.take(split["test"])], fold=k, verbose=verbose))
         return results

@@ -11,7 +11,8 @@ files (written before the frame existed) still load.
 The payload keys are JAX's: ``params``, ``batch_stats``, ``opt_state``
 (optax's chain as flax writes it: ``{"0": {"count", "mu", "nu"}, "1": {}}``
 for Adam, ``{"0": {}, "1": {}}`` for SGD), ``engine_state`` (``{}`` for
-dSGD, rankDAD's per-site ``{"omega": ...}`` with None for a dense leaf),
+dSGD, rankDAD's per-site ``{"omega": ...}``, powerSGD's per-site ``{"q":
+..., "e": ...}``, with None for a dense leaf),
 ``rng`` (a threefry key, ``uint32 [2]``: the port's int seed ``s`` is
 written as ``[s >> 32, s & 0xffffffff]``, which is ``PRNGKey(s)``),
 ``round``, ``health``, the empty ``telemetry``, ``buffers``, ``overlap``

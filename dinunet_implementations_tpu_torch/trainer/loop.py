@@ -17,10 +17,14 @@ One :class:`FederatedTrainer` drives, per fold:
 
 Options the port does not run raise ``NotImplementedError`` naming the
 ROADMAP item that ports them, at any value other than "off": a mesh (A11),
-fault and attack plans and DP (A10), telemetry, profiles and the compile
-cache (A12), and largest-site pretraining (A17). The SIGTERM
-``PreemptionGuard`` of the JAX trainer is not ported either (A10): a killed
-fit resumes from its last rotating checkpoint.
+fault and attack plans and DP (A10), and telemetry, profiles and the
+compile cache (A12). The SIGTERM ``PreemptionGuard`` of the JAX trainer is
+not ported either (A10): a killed fit resumes from its last rotating
+checkpoint.
+
+Warm starts, skipped when a fit resumes: ``cfg.pretrained_path`` loads a
+checkpoint's params, then ``cfg.pretrain`` with ``cfg.pretrain_args`` of
+``epochs > 0`` pretrains on the largest training site (:meth:`_pretrain`).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..data.api import SiteArrays, stack_site_inventory
 from ..data.batching import plan_epoch, plan_epoch_positions, plan_eval
-from ..engines import build_engine
+from ..engines import build_engine, make_dsgd
 from ..robustness.health import health_summary
 from ..weights import icalstm_params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
@@ -79,7 +83,6 @@ def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
         ("cfg.profile_dir", bool(cfg.profile_dir), "A12 (profiles)"),
         ("cfg.xprof_dir", bool(cfg.xprof_dir), "A12 (profiles)"),
         ("cfg.compile_cache_dir", bool(cfg.compile_cache_dir), "A12 (compile cache)"),
-        ("cfg.pretrain", bool(cfg.pretrain), "A17 (largest-site pretraining)"),
     )
     for name, on, item in unported:
         if on:
@@ -280,9 +283,12 @@ class FederatedTrainer:
         # still a valid resume point
         resuming = bool(resume and latest_path and (
             os.path.exists(latest_path) or os.path.exists(latest_path + ".prev")))
-        if not resuming and cfg.pretrained_path:
-            # params only: fresh optimizer and engine state
-            state.params = load_params(cfg.pretrained_path, state.params, self._bidir)
+        if not resuming:
+            if cfg.pretrained_path:
+                # params only: fresh optimizer and engine state
+                state.params = load_params(cfg.pretrained_path, state.params, self._bidir)
+            if cfg.pretrain and cfg.pretrain_args and cfg.pretrain_args.epochs > 0:
+                state = self._pretrain(state, train_sites, verbose)
 
         best_metric, best_epoch, best_state = None, 0, state
         since_best, epoch_losses, iter_durations, start_epoch = 0, [], [], 1
@@ -386,6 +392,38 @@ class FederatedTrainer:
             self._write_outputs(results, iter_durations, best_state, fold)
         results["state"] = best_state
         return results
+
+    def _pretrain(self, state: TrainState, train_sites, verbose: bool) -> TrainState:
+        """The warm start of ``cfg.pretrain``: ``pretrain_args.epochs``
+        epochs on the largest training site by rows, every other site cut
+        to zero rows (its weight is 0 in the aggregate and the BatchNorm
+        statistics), through a dSGD engine whatever ``agg_engine`` says, a
+        fresh optimizer at ``pretrain_args.learning_rate`` and
+        ``pretrain_args.local_iterations``, on the host pipeline. Returns
+        the warm params and running statistics with the fit's optimizer
+        fresh, the fit's engine state and health kept and the round
+        counter carried on."""
+        cfg, pa = self.cfg, self.cfg.pretrain_args
+        largest = int(np.argmax([len(s) for s in train_sites]))
+        masked = [s if i == largest else SiteArrays(s.inputs[:0], s.labels[:0], s.indices[:0])
+                  for i, s in enumerate(train_sites)]
+        pre_opt = make_optimizer(cfg.optimizer, pa.learning_rate)
+        pre_engine = make_dsgd(cfg.precision_bits)
+        pre_epoch_fn = make_train_epoch_fn(self.task, pre_engine, pre_opt, pa.local_iterations,
+                                           device=self.device, pipeline="host")
+        pre = TrainState(params=state.params, batch_stats=state.batch_stats,
+                         opt_state=pre_opt.init(state.params), engine_state={}, rng=state.rng,
+                         round=state.round, health=state.health)
+        for epoch in range(1, pa.epochs + 1):
+            fb = plan_epoch(masked, pa.batch_size, seed=cfg.seed * 7 + epoch, pad_mode="mask")
+            pre, losses = pre_epoch_fn(pre, fb.inputs, fb.labels, fb.weights)
+            if verbose:
+                log_info(f"[pretrain site {largest}] epoch {epoch}: "
+                         f"loss={losses.cpu().numpy().mean():.4f}")
+        return TrainState(params=pre.params, batch_stats=pre.batch_stats,
+                          opt_state=self.optimizer.init(pre.params),
+                          engine_state=state.engine_state, rng=state.rng, round=pre.round,
+                          health=state.health)
 
     def test_only(self, test_sites: list[SiteArrays], fold: int = 0) -> dict:
         """``mode="test"``: evaluate the fold's best checkpoint, which

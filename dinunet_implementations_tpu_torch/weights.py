@@ -12,9 +12,10 @@ leaves: params, batch_stats, the optax Adam ``count/mu/nu``, the engine
 state, round and health) into the port's :class:`~.trainer.steps.TrainState`,
 and :func:`train_state_to_jax` turns one back into numpy trees in JAX
 layout; :func:`train_state_from_tree` reads those trees back (the
-checkpoint files carry them). rankDAD's per-site Ω ``[S, n, r]`` is kept in the JAX matrix
-orientation by both packages, so it crosses unchanged, leaf for leaf (None
-for a dense leaf).
+checkpoint files carry them). The engine states (rankDAD's per-site Ω
+``[S, n, r]``, powerSGD's per-site ``q [S, n, r]`` and ``e [S, m, n]``) are
+kept in the JAX matrix orientation by both packages, so they cross
+unchanged, leaf for leaf (None for a dense leaf).
 """
 
 from __future__ import annotations
@@ -62,9 +63,17 @@ def _param_names(bidirectional: bool) -> list[tuple[str, str, bool]]:
 
 def jax_transposed_leaves(bidirectional: bool = True) -> frozenset:
     """The port parameters stored as the transpose of their JAX matrix
-    (``nn.Linear`` weights ``[out, in]``): what the rankDAD engine
-    factorizes through a transposed view."""
+    (``nn.Linear`` weights ``[out, in]``): what the low-rank engines
+    factorize through a transposed view."""
     return frozenset(n for n, _, tr in _param_names(bidirectional) if tr)
+
+
+def jax_leaf_index(bidirectional: bool = True) -> dict:
+    """Each port parameter's index among the leaves of the JAX params tree
+    in ``jax.tree.flatten`` order, which sorts the keys at every level:
+    the key of powerSGD's first Q."""
+    names = sorted(_param_names(bidirectional), key=lambda t: tuple(t[1].split("/")))
+    return {n: i for i, (n, _, _) in enumerate(names)}
 
 
 def _t(a) -> torch.Tensor:
@@ -142,19 +151,28 @@ def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device
          "health": state.health}, bidirectional, device)
 
 
+#: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
+#: factor and residual; each a params-shaped tree of per-site leaves
+_ENGINE_STATES = ({"omega"}, {"q", "e"})
+
+
 def engine_state_from_jax(engine_state, bidirectional: bool = True, device=None) -> dict:
-    """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``)
-    as the port's, by ``state_dict`` name; raises ``ValueError`` for a tree
-    of other leaves."""
+    """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``,
+    powerSGD's ``{"q": ..., "e": ...}``) as the port's, by ``state_dict``
+    name; raises ``ValueError`` for a tree of other leaves."""
     if not engine_state:
         return {}
-    if set(engine_state) != {"omega"}:
+    if set(engine_state) not in _ENGINE_STATES:
         raise ValueError(f"not an engine state of the port: keys {sorted(engine_state)}")
-    om, problems = _leaves(engine_state["omega"]), []
-    _check_leaves(problems, "engine_state omega", om, {j for _, j, _ in _param_names(bidirectional)})
-    _raise_if(problems)
-    return {"omega": {n: None if om[j] is None else _t(om[j]).to(device)
-                      for n, j, _ in _param_names(bidirectional)}}
+    out, problems = {}, []
+    for key in sorted(engine_state):
+        tree = _leaves(engine_state[key])
+        _check_leaves(problems, f"engine_state {key}", tree,
+                      {j for _, j, _ in _param_names(bidirectional)})
+        _raise_if(problems)
+        out[key] = {n: None if tree[j] is None else _t(tree[j]).to(device)
+                    for n, j, _ in _param_names(bidirectional)}
+    return out
 
 
 def train_state_from_tree(tree: dict, bidirectional: bool = True, device=None):
@@ -189,7 +207,8 @@ def train_state_to_jax(state, bidirectional: bool = True) -> dict:
     """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
-    ``{"omega": ...}`` as JAX nests it), ``rng`` (the int seed), ``round``
+    ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
+    them), ``rng`` (the int seed), ``round``
     and ``health``."""
     opt = {}
     if state.opt_state:
@@ -200,10 +219,10 @@ def train_state_to_jax(state, bidirectional: bool = True) -> dict:
         "params": _params_to_jax(state.params, bidirectional),
         "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy() for n, j in _STATS}),
         "opt_state": opt,
-        "engine_state": {"omega": _nest({
-            j: None if state.engine_state["omega"][n] is None
-            else state.engine_state["omega"][n].detach().cpu().numpy()
-            for n, j, _ in _param_names(bidirectional)})} if state.engine_state else {},
+        "engine_state": {key: _nest({
+            j: None if tree[n] is None else tree[n].detach().cpu().numpy()
+            for n, j, _ in _param_names(bidirectional)})
+            for key, tree in state.engine_state.items()},
         "rng": int(state.rng),
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},

@@ -2,12 +2,14 @@
 """Where a federated training round's time goes on the card, for the
 PyTorch/CUDA port at full ICA-LSTM width.
 
-    python3 scripts/torch_train_profile.py [--epochs 2] [--engine dSGD|rankDAD] [--fused-bidir]
+    python3 scripts/torch_train_profile.py [--epochs 2] [--engine dSGD|rankDAD|powerSGD]
+                                           [--fused-bidir]
 
 It builds the configuration of chip_smoke.py's training phases (default
-``ICAArgs``, f32, 32 sites of 2-4 batches of 16, Adam 1e-3, the dSGD or the
-rankDAD engine with its default knobs; with ``--fused-bidir`` the model is
-``ICALstm(fused_bidir=True)``, whose BiLSTM runs K5 and K6), runs one epoch
+``ICAArgs``, f32, 32 sites of 2-4 batches of 16, Adam 1e-3, the dSGD, the
+rankDAD or the powerSGD engine with its default knobs; with
+``--fused-bidir`` the model is ``ICALstm(fused_bidir=True)``, whose BiLSTM
+runs K5 and K6), runs one epoch
 to warm up, times ``--epochs`` epochs on the host clock, then runs one
 epoch under ``torch.profiler`` and prints device time per round by kernel
 name and the device's busy and idle share of that window. Every line is one
@@ -34,7 +36,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--epochs", type=int, default=2)
-    ap.add_argument("--engine", choices=("dSGD", "rankDAD"), default="dSGD")
+    ap.add_argument("--engine", choices=("dSGD", "rankDAD", "powerSGD"), default="dSGD")
     ap.add_argument("--fused-bidir", action="store_true")
     args = ap.parse_args()
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1,5 +1,5 @@
-"""The port's training slice against the JAX package: whole federated dSGD
-and rankDAD epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
+"""The port's training slice against the JAX package: whole federated dSGD,
+rankDAD and powerSGD epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
 pipeline, sites folded onto one device), also with the fused bidirectional
 arm (``ICALstm(fused_bidir=True)``), the epoch plan, dropout, the
 optimizer, and the LSTM cell's two biases.
@@ -29,7 +29,7 @@ from dinunet_implementations_tpu.trainer import steps as jsteps
 from dinunet_implementations_tpu_torch.core import config as tconfig
 from dinunet_implementations_tpu_torch.data import api as tdata
 from dinunet_implementations_tpu_torch.data import batching as tbatching
-from dinunet_implementations_tpu_torch.engines import make_dsgd, make_rankdad
+from dinunet_implementations_tpu_torch.engines import make_dsgd, make_powersgd, make_rankdad
 from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.models import layers as tlayers
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
@@ -105,6 +105,23 @@ FUSED_BF16_AGG_SHARE = 2.0 ** -7
 DAD_OMEGA_SHARE = {"32": 1e-3, "16": 1e-2}
 DAD_LOSS_ATOL = 3e-3
 DAD_MOMENT_SHARE = 0.1
+# powerSGD: the first round's aggregate, q and e per leaf at a share of the
+# leaf's max |value| (q and e: each site's). In f32 the port lands 2.3e-5
+# of cls_fc1/kernel's max from JAX (its engine fed JAX's gradients: 3.0e-5)
+# and JAX's own aggregate moves by 1.9e-5 to 3.2e-5 when its gradients take
+# relative noise of 1e-7 to 1e-6; q and e 4.5e-5 (q of cls_fc1/kernel,
+# whose factor columns past the leaf's rank are rounding noise). With the
+# bf16 wire, a payload value that straddles a bf16 rounding boundary moves
+# the subspace P: JAX's own aggregate moves by 8.3e-3 to 1.2e-2 of a
+# leaf's max under that gradient noise, and the port's epoch lands 1.05e-2
+# from JAX (cls_fc2/kernel; e 7.4e-3). Later: as for rankDAD, params on the
+# lr scale, moments at DAD_MOMENT_SHARE (measured 2.2 % in bf16, 3.6 % with
+# a dead site), losses at LOSS_TOL without a dead site (measured 1.8e-6
+# f32, 2.0e-4 bf16) and at DAD_LOSS_ATOL with one (4.1e-4): a site frozen
+# through a dead round keeps its own q, whose noise columns then differ
+# between the two runs.
+PSGD_AGG_SHARE = {"32": 1e-4, "16": 2.5e-2}
+PSGD_STATE_SHARE = {"32": 5e-4, "16": 5e-2}
 
 
 def _sites(seed=0, cls=jdata.SiteArrays):
@@ -135,8 +152,12 @@ def _jax_setup(pb, L, qr, engine_name="dSGD", fused=False):
 def _port_setup(state_j, pb, L, qr, engine_name="dSGD", fused=False):
     model = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
                        dropout_rate=0.0, fused_bidir=fused or None)
-    engine = (make_rankdad(precision_bits=pb, transposed=jax_transposed_leaves(), **DAD)
-              if engine_name == "rankDAD" else make_dsgd(pb))
+    if engine_name == "rankDAD":
+        engine = make_rankdad(precision_bits=pb, transposed=jax_transposed_leaves(), **DAD)
+    elif engine_name == "powerSGD":
+        engine = make_powersgd(precision_bits=pb, transposed=jax_transposed_leaves())
+    else:
+        engine = make_dsgd(pb)
     epoch = tsteps.make_train_epoch_fn(tsteps.FederatedTask(model), engine,
                                        tsteps.make_optimizer("adam", LR), local_iterations=L,
                                        quarantine_rounds=qr, device="cpu")
@@ -153,7 +174,8 @@ def _flat(tree, prefix=""):
 
 
 def _omega(tree):
-    """rankDAD's Ω leaves of an engine-state tree, flat; dense leaves hold None."""
+    """The low-rank engines' state leaves (rankDAD's Ω, powerSGD's q and e)
+    of an engine-state tree, flat; dense leaves hold None."""
     return {k: v for k, v in _flat(tree).items() if v.dtype != object}
 
 
@@ -202,6 +224,9 @@ CASES = {
     "rankDAD-f32": (1, "32", 3, None, "rankDAD", False),
     "rankDAD-bf16": (1, "16", 3, None, "rankDAD", False),
     "rankDAD-live-drop": (1, "32", 3, "live", "rankDAD", False),
+    "powerSGD-f32": (1, "32", 3, None, "powerSGD", False),
+    "powerSGD-bf16": (1, "16", 3, None, "powerSGD", False),
+    "powerSGD-live-drop": (1, "32", 3, "live", "powerSGD", False),
     "fused-f32": (1, "32", 3, None, "dSGD", True),
     "fused-bf16": (1, "16", 3, None, "dSGD", True),
 }
@@ -237,8 +262,8 @@ def test_epochs_match_jax(case):
     state_j, epoch_j = _jax_setup(pb, L, qr, engine_name, fused)
     state_t, epoch_t = _port_setup(state_j, pb, L, qr, engine_name, fused)
 
-    dad = engine_name == "rankDAD"
-    if fault is None or dad:
+    dad, psgd = engine_name == "rankDAD", engine_name == "powerSGD"
+    if fault is None or dad or psgd:
         # one round: its aggregate gradient is mu / (1 - b1) after one Adam step
         one_j, _ = epoch_j(state_j, jnp.asarray(inv.inputs), jnp.asarray(inv.labels),
                            jnp.asarray(plans[0][:, :L]))
@@ -247,6 +272,8 @@ def test_epochs_match_jax(case):
         got_agg = agg(train_state_to_jax(one_t)["opt_state"]["mu"])
         if dad:
             _compare_at_share(got_agg, agg(one_j.opt_state[0].mu), DAD_AGG_SHARE[pb])
+        elif psgd:
+            _compare_at_share(got_agg, agg(one_j.opt_state[0].mu), PSGD_AGG_SHARE[pb])
         elif fused and pb == "16":
             _compare_at_share(got_agg, agg(one_j.opt_state[0].mu), FUSED_BF16_AGG_SHARE)
         else:
@@ -259,6 +286,14 @@ def test_epochs_match_jax(case):
                 np.testing.assert_allclose(got_om[k], w, rtol=0,
                                            atol=DAD_OMEGA_SHARE[pb] * np.abs(w).max(),
                                            err_msg=f"first-round omega {k}")
+        if psgd:
+            got_qe = _omega(train_state_to_jax(one_t)["engine_state"])
+            want_qe = _omega(jax.tree.map(np.asarray, one_j.engine_state))
+            assert got_qe.keys() == want_qe.keys() and any(k.startswith("e/") for k in got_qe)
+            for k, w in want_qe.items():
+                np.testing.assert_allclose(got_qe[k], w, rtol=0,
+                                           atol=PSGD_STATE_SHARE[pb] * np.abs(w).max(),
+                                           err_msg=f"first-round {k}")
 
     end_j, loss_j = _run(epoch_j, state_j, inv, plans, masks, jnp.asarray)
     end_t, loss_t = _run(epoch_t, state_t, inv, plans, masks, lambda a: a)
@@ -266,23 +301,27 @@ def test_epochs_match_jax(case):
     want = jax.tree.map(np.asarray, end_j)
 
     assert loss_t.shape == loss_j.shape == (EPOCHS * rounds,)
-    if dad:
+    if dad or (psgd and fault):
         np.testing.assert_allclose(loss_t[0], loss_j[0], **LOSS_TOL[pb])
         np.testing.assert_allclose(loss_t, loss_j, atol=DAD_LOSS_ATOL, rtol=0)
     else:
         np.testing.assert_allclose(loss_t, loss_j, **LOSS_TOL[pb])
     _compare("params", got["params"], want.params, atol=PARAM_ATOL, rtol=0)
     _compare("batch_stats", got["batch_stats"], want.batch_stats, atol=PARAM_ATOL, rtol=0)
-    if dad:
+    if dad or psgd:
         for m in ("mu", "nu"):
             w_m = getattr(want.opt_state[0], m)
             top = max(np.abs(v).max() for v in _flat(w_m).values())
             _compare(f"adam {m}", got["opt_state"][m], w_m, atol=DAD_MOMENT_SHARE * top, rtol=0)
-        got_om = _omega(got["engine_state"]["omega"])
-        want_om = _omega(want.engine_state["omega"])
+        got_om = _omega(got["engine_state"])
+        want_om = _omega(want.engine_state)
         assert got_om.keys() == want_om.keys()
         for k, w in want_om.items():
             assert got_om[k].shape == w.shape and np.isfinite(got_om[k]).all(), k
+            if psgd and k.startswith("q/"):  # every site live in the last round
+                assert all(np.array_equal(got_om[k][0], v) for v in got_om[k]), k
+            if psgd and k.startswith("e/"):  # each site's residual is its own
+                assert np.abs(got_om[k][0] - got_om[k][1]).max() > 0, k
     else:
         mu_tol, nu_tol = MOMENT_TOL[pb]
         _compare("adam mu", got["opt_state"]["mu"], want.opt_state[0].mu, **mu_tol)
@@ -295,7 +334,7 @@ def test_epochs_match_jax(case):
         assert got["health"]["skips"][1] == EPOCHS * rounds
     if fault == "live":
         np.testing.assert_array_equal(got["health"]["skips"], [1, 0, 0])
-    assert (got["engine_state"] == {}) == (not dad)
+    assert (got["engine_state"] == {}) == (not dad and not psgd)
 
 
 @pytest.mark.parametrize("pb", ["32", "16"])
@@ -570,8 +609,17 @@ def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
     assert tuple(state.engine_state["omega"]["encoder.weight"].shape) == (2, 256, 10)
     assert tuple(state.engine_state["omega"]["lstm.fwd.w_hh"].shape) == (2, 696, 10)
     assert state.engine_state["omega"]["encoder.bias"] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        build_training(dataclasses.replace(cfg, agg_engine="powerSGD"), device="cpu")
+    task, engine, _ = build_training(dataclasses.replace(cfg, agg_engine="powerSGD"), device="cpu")
+    state = tsteps.init_train_state(task, engine, tsteps.make_optimizer("adam", LR), num_sites=2)
+    assert engine.name == "powerSGD"
+    # q [S, n, r] and e [S, m, n] in the JAX orientation: the encoder's
+    # kernel is [1000, 256]
+    q, e = state.engine_state["q"], state.engine_state["e"]
+    assert tuple(q["encoder.weight"].shape) == (2, 256, 10)
+    assert tuple(e["encoder.weight"].shape) == (2, 1000, 256)
+    assert tuple(q["lstm.fwd.w_hh"].shape) == (2, 696, 10)
+    assert tuple(e["lstm.fwd.w_hh"].shape) == (2, 174, 696)
+    assert q["encoder.bias"] is None and e["encoder.bias"] is None
 
 
 # the TrainConfig fields that the federated trainer and the runner read, and
