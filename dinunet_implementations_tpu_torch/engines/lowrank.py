@@ -131,11 +131,22 @@ def _cholqr_multi(Ys):
     return Q2, colnorms
 
 
+def orthonormalize_many(Ps: list) -> list:
+    """Orthonormal columns of each ``P [m_l, r]`` of one ``r`` (powerSGD's
+    ``orth``), all in one shifted CholeskyQR2 of :func:`_cholqr_multi`: the
+    matrices are stacked with zero rows below the shorter ones, which change
+    neither a column's norm nor the Gram matrix, and each ``Q`` is its
+    matrix's rows of the result. One call for the group keeps the host's
+    launches per round few; nothing in it synchronizes the host."""
+    Y = torch.nn.utils.rnn.pad_sequence(Ps, batch_first=True)  # [L, max m, r]
+    Q, _ = _cholqr_multi(Y)
+    return [Q[i, :P.shape[0]] for i, P in enumerate(Ps)]
+
+
 def orthonormalize(P):
-    """Orthonormal columns of one matrix ``P [m, r]`` by the shifted
-    CholeskyQR2 of :func:`_cholqr_multi` (powerSGD's ``orth``); nothing in
-    it synchronizes the host."""
-    return _cholqr_multi(P[None])[0][0]
+    """Orthonormal columns of one matrix ``P [m, r]``
+    (:func:`orthonormalize_many` of one)."""
+    return orthonormalize_many([P])[0]
 
 
 def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=None,

@@ -16,7 +16,9 @@ al., 2019):
 ``precision_bits`` dtype and back to f32, and the sum runs in f32. With a
 bf16 wire the two big products take bf16 operands and accumulate in f32
 (``lowrank.lp_matmul``). ``orth`` is the shifted CholeskyQR2 of
-``lowrank.orthonormalize``. The 1-D leaves are a weighted f32 sum. A dead
+``lowrank.orthonormalize_many``, one call for the leaves of one rank (JAX
+orthonormalizes leaf by leaf; the result is each leaf's own either way).
+The 1-D leaves are a weighted f32 sum. A dead
 site's gradient and weight are zeroed before the products, so its ``M =
 e`` adds nothing; the trainer freezes its ``q`` and ``e`` for the round.
 
@@ -38,7 +40,7 @@ import torch
 
 from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
 from .base import Engine, mask_dead_site, refuse_secure_agg
-from .lowrank import _matrix_shape, is_compressible, lp_matmul, orthonormalize
+from .lowrank import _matrix_shape, is_compressible, lp_matmul, orthonormalize_many
 
 
 def default_q(seed: int, index: int, n: int, r: int, device=None):
@@ -97,29 +99,41 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         return {"q": qs, "e": es}
 
     def wire(x):
-        return x.to(pdtype).float()
+        return x if pdtype == torch.float32 else x.to(pdtype).float()
 
     def aggregate(grads: dict, state: dict, weight, live=None):
         grads, weight = mask_dead_site(grads, weight, live)
         scale = site_weight_scale(weight)  # [S]
-        agg, qs, es = {}, {}, {}
+        sc = scale[:, None, None]
+        agg, qs, es, Ms, sketches = {}, {}, {}, {}, {}
         for name, g in grads.items():
             q, e = state["q"][name], state["e"][name]
             if q is None:
                 agg[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
                 qs[name] = es[name] = None
                 continue
-            sc = scale[:, None, None]
             # the JAX matrices [S, m, n]; transposed leaves through a view
             G = g.transpose(1, 2) if name in transposed else g.reshape(g.shape[0], *e.shape[1:])
-            M = G.float() + e
-            P = orthonormalize(wire(lp_matmul(M, q, mm_dtype) * sc).sum(0))  # [m, r]
+            Ms[name] = M = G.float() + e
+            sketches[name] = wire(lp_matmul(M, q, mm_dtype) * sc).sum(0)  # [m, r]
+        # P of every leaf of one rank in one orthonormalization (each leaf's
+        # own, as JAX's per-leaf orth): every M stays live until then, ~123 MB
+        # at the flagship
+        by_rank: dict[int, list[str]] = {}
+        for name, sk in sketches.items():
+            by_rank.setdefault(sk.shape[1], []).append(name)
+        Ps = {}
+        for names in by_rank.values():
+            Ps.update(zip(names, orthonormalize_many([sketches[n] for n in names])))
+        for name, M in Ms.items():
+            g, P = grads[name], Ps[name]
             q_new = wire(lp_matmul(M.mT, P, mm_dtype) * sc).sum(0)  # [n, r]
             G_hat = P @ q_new.T
             es[name] = M - G_hat
             qs[name] = q_new.expand(g.shape[0], *q_new.shape).contiguous()
             rec = G_hat.T if name in transposed else G_hat.reshape(g.shape[1:])
             agg[name] = rec.contiguous().to(g.dtype)
-        return agg, {"q": qs, "e": es}
+        return ({k: agg[k] for k in grads},
+                {"q": {k: qs[k] for k in grads}, "e": {k: es[k] for k in grads}})
 
     return Engine("powerSGD", init, aggregate)
