@@ -111,7 +111,21 @@ result line:
    host-to-device bytes of each pipeline, and the ms of a validation pass
    and of saving and loading checkpoints, with the card's name and power
    limit;
-12. one JSON line of per-kernel numbers, then the result line.
+12. the powerSGD training slice: phase 6's two epochs with the powerSGD
+   engine (rank 10, error feedback) through K1 and K2, held against the
+   all-plain path the same way, and the first round's q and e per leaf;
+   2 K1 and 2 K2 a micro-batch on the cluster route and no K7 launch; after
+   the epochs e is finite and differs between sites, and every site holds
+   the same q; epoch ms, samples/s, ms a round and peak memory are printed;
+13. the command line: ``runner.cli.main`` on phase 11's tree (reused, not
+   written again), a federated powerSGD fit of fold 0 for 3 epochs after
+   one epoch of largest-site pretraining, then ``--site 0`` for one epoch:
+   K1 and K2 launch as counted for the pretraining, the training, the eval
+   and the test, all on the cluster route; the printed JSON lines parse
+   and hold finite metrics; the outputs exist with JAX's keys; the best
+   checkpoint's q and e load back bit for bit. It prints the fit's and the
+   pretraining's seconds and the checkpoint's bytes and save ms;
+14. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -120,9 +134,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -177,6 +193,13 @@ MOMENT_SHARE = 5e-2
 # by 0.46 at a scale of 0.43 after 8 rounds on the card): checked there for
 # shape and finiteness only. The first card run measured 2.6e-5.
 OMEGA_FIRST_TOL = 2e-4
+# powerSGD's q and each site's e after the first round, per leaf over the
+# leaf's max |value|: the same sketch M q of the same start on both paths,
+# whose M differ by the LSTM kernels' f32 summation order; set before the
+# first card run at rankDAD's OMEGA_FIRST_TOL. After the epochs q and e
+# follow params that part on the lr scale: checked for shape, finiteness,
+# one q across the sites (every site live) and a residual of each site's own.
+PSGD_FIRST_TOL = 2e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, f32 FLOP/s outside
 # the tensor cores, bf16 tensor-core FLOP/s
 HBM_BPS, F32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
@@ -774,10 +797,11 @@ def training_setup(torch, use_kernel: bool, seed: int = 0, engine: str = "dSGD",
                    fused_bidir: bool = False, bf16: bool = False):
     """The full-width ICA-LSTM training configuration (default ``ICAArgs``,
     f32 or with ``bf16`` the bf16 compute dtype, the ``engine``
-    aggregation: rankDAD with its default knobs, rank 10, 5 refinements,
-    tol 1e-3, warm starts; with ``fused_bidir`` the fused bidirectional
-    arm), its epoch function and first state, dropout 0 so that the kernel
-    and plain paths compute the same function."""
+    aggregation: dSGD; rankDAD with its default knobs, rank 10, 5
+    refinements, tol 1e-3, warm starts; or powerSGD at rank 10; with
+    ``fused_bidir`` the fused bidirectional arm), its epoch function and
+    first state, dropout 0 so that the kernel and plain paths compute the
+    same function."""
     import dataclasses
 
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
@@ -886,7 +910,7 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
                                            fused_bidir=fused_bidir)
     _, epoch_p, state_p = training_setup(torch, use_kernel=False, engine=engine,
                                          fused_bidir=fused_bidir)
-    rankdad = engine == "rankDAD"
+    rankdad, psgd = engine == "rankDAD", engine == "powerSGD"
     classes = len(k7_leaves(torch)) if rankdad else 0
     if any(not torch.equal(v, state_p.params[k]) for k, v in state_k.params.items()):
         fail("the kernel and plain training paths start from different weights")
@@ -939,6 +963,23 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
         end_ok = all(bool(v.isfinite().all()) and v.shape == w.shape
                      for v, w in zip(omega(st).values(), omega(sp).values(), strict=True))
         checks["omega_end_finite"] = (0.0, end_ok and len(omega(st)) == len(omega(sp)) > 0)
+    qe = lambda s, key: {k: v for k, v in s.engine_state.get(key, {}).items()  # noqa: E731
+                         if v is not None}
+    if psgd:
+        for key in ("q", "e"):
+            first = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+                     for g, w in zip(qe(one_k, key).values(), qe(one_p, key).values(),
+                                     strict=True)]
+            checks[f"first_round_{key}"] = (max(first), max(first) <= PSGD_FIRST_TOL)
+        q_end, e_end = qe(st, "q"), qe(st, "e")
+        end_ok = len(q_end) == len(qe(sp, "q")) == len(e_end) > 0 and all(
+            bool(v.isfinite().all()) and v.shape == w.shape
+            for key in ("q", "e") for v, w in zip(qe(st, key).values(), qe(sp, key).values(),
+                                                  strict=True))
+        checks["q_e_end_finite"] = (0.0, end_ok)
+        # every site live: one q across the sites; each site's residual its own
+        checks["q_rows_equal"] = (0.0, all(bool((v == v[:1]).all()) for v in q_end.values()))
+        checks["e_per_site"] = (0.0, all(bool((v[0] != v[1]).any()) for v in e_end.values()))
     rec = {
         "sites": cfg.num_sites, "batch": cfg.batch_size, "local_iterations": L,
         "rounds_per_epoch": rounds, "samples_per_epoch": samples, "epoch_ms": ms,
@@ -949,7 +990,9 @@ def training_phase(torch, np, lc, pc, bc, engine: str = "dSGD", fused_bidir: boo
         "leaf_err_and_scale": {m: leaf_errs(st.opt_state[m], sp.opt_state[m]) for m in ("mu", "nu")}
         | {"params": leaf_errs(st.params, sp.params),
            "first_round_omega": leaf_errs(omega(one_k), omega(one_p)),
-           "omega": leaf_errs(omega(st), omega(sp))},
+           "omega": leaf_errs(omega(st), omega(sp)),
+           "first_round_q": leaf_errs(qe(one_k, "q"), qe(one_p, "q")),
+           "first_round_e": leaf_errs(qe(one_k, "e"), qe(one_p, "e"))},
         "engine": engine, "rank_classes": classes, "fused_bidir": fused_bidir,
     }
     print(f"training {engine}{' fused_bidir' if fused_bidir else ''}:", json.dumps(rec))
@@ -1875,13 +1918,11 @@ def check_fit_outputs(out: str, task_id: str) -> dict:
     return {"best_checkpoint": best, "best_checkpoint_bytes": os.path.getsize(best)}
 
 
-def fit_phase(torch, np, lc, pc, bc, smi: str) -> dict:
+def fit_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     """The fit slice at full width (phase 11 of the module docstring): a
-    ``FedRunner`` fit from a site tree, then the host pipeline against the
+    ``FedRunner`` fit from a site tree written under ``root`` (its path is
+    the record's ``tree``, for phase 13), then the host pipeline against the
     device pipeline, the checkpoint round trip and the served fit."""
-    import shutil
-    import tempfile
-
     from dinunet_implementations_tpu_torch import InferenceEngine
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.data import epoch_steps, plan_epoch, plan_eval
@@ -1893,169 +1934,324 @@ def fit_phase(torch, np, lc, pc, bc, smi: str) -> dict:
         save_checkpoint,
     )
 
-    root = tempfile.mkdtemp(prefix="dinunet_fit_")
     t_phase = time.perf_counter()
-    try:
-        t0 = time.perf_counter()
-        tree = fit_tree(os.path.join(root, "tree"))
-        tree_s = time.perf_counter() - t0
-        out = os.path.join(root, "out")
-        cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
-        runner = FedRunner(cfg, tree, out, pipeline="host", epochs=FIT_EPOCHS, agg_engine="dSGD")
-        fcfg = runner.cfg
-        a = fcfg.ica_args
-        if (a.input_size, a.hidden_size, a.num_components, fcfg.num_sites) != (256, 348, 100,
-                                                                               FIT_SITES):
-            fail(f"the fit's config is not the flagship's width: {a}, {fcfg.num_sites} sites")
-        fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
-        rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
-        eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
-        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree = fit_tree(os.path.join(root, "tree"))
+    tree_s = time.perf_counter() - t0
+    out = os.path.join(root, "out")
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+    runner = FedRunner(cfg, tree, out, pipeline="host", epochs=FIT_EPOCHS, agg_engine="dSGD")
+    fcfg = runner.cfg
+    a = fcfg.ica_args
+    if (a.input_size, a.hidden_size, a.num_components, fcfg.num_sites) != (256, 348, 100,
+                                                                           FIT_SITES):
+        fail(f"the fit's config is not the flagship's width: {a}, {fcfg.num_sites} sites")
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
+    eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
+    torch.cuda.synchronize()
 
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = runner.run(folds=[0], verbose=False)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # read before any check
+
+    epochs = len(res["epoch_losses"])
+    micro = epochs * rounds * fcfg.local_iterations
+    evals = epochs * eval_steps["validation"] + eval_steps["test"]
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+        "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+        "k2_cluster_route": 2 * micro}
+    # every LSTM call of the fit launched its kernel: a call that went
+    # to a plain version would leave these counts short
+    if launches != want:
+        fail(f"fit launches {launches}, want {want}")
+    finite = [np.isfinite(res[k]).all() for k in ("epoch_losses", "test_metrics")]
+    if not all(finite) or not np.isfinite(list(res["test_scores"].values())).all():
+        fail(f"the fit's losses or test metrics are not finite: {res['epoch_losses']}, "
+             f"{res['test_metrics']}, {res['test_scores']}")
+    outputs = check_fit_outputs(out, fcfg.task_id)
+
+    # the checkpoint round trip: the best checkpoint is the fit's best
+    # state, bit for bit
+    best = outputs["best_checkpoint"]
+    t0 = time.perf_counter()
+    restored = load_checkpoint(best, res["state"])
+    torch.cuda.synchronize()
+    load_best_ms = (time.perf_counter() - t0) * 1e3
+    for part in ("params", "batch_stats", "opt_state", "engine_state", "health"):
+        if not same_tree(getattr(restored, part), getattr(res["state"], part)):
+            fail(f"checkpoint_best.msgpack {part} differ from the fit's best state")
+    if (restored.rng, restored.round) != (res["state"].rng, res["state"].round):
+        fail("checkpoint_best.msgpack rng or round differ from the fit's best state")
+
+    # host pipeline against device pipeline: one epoch from one state
+    # and one plan through each, then each once more (timed warm)
+    trainers = {p: FederatedTrainer(fcfg.replace(pipeline=p), build_model(fcfg))
+                for p in ("device", "host")}
+    start = trainers["device"].init_state(num_sites=FIT_SITES)
+    runs, epoch_ms, xfer = {}, {}, {}
+    for p in ("device", "host", "device", "host"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, lo = trainers[p].run_epoch(start, fold["train"], 1)
+        torch.cuda.synchronize()
+        epoch_ms[p] = (time.perf_counter() - t0) * 1e3  # the second, warm, run stays
+        xfer[p] = trainers[p]._last_transfer_bytes
+        runs.setdefault(p, []).append((st, lo))
+    inv_bytes = sum(t.numel() * t.element_size() for t in trainers["device"]._inventory)
+    # the host pipeline's own share: materializing the dense epoch
+    t0 = time.perf_counter()
+    plan_epoch(fold["train"], fcfg.batch_size, seed=fcfg.seed * 100003 + 1, pad_mode="wrap")
+    materialize_ms = (time.perf_counter() - t0) * 1e3
+    (d1, dl1), (d2, dl2) = runs["device"]
+    (h1, hl1), _ = runs["host"]
+    device_spread = max(state_err(d1, d2), float(np.abs(dl1 - dl2).max()))
+    host_vs_device = max(state_err(h1, d1), float(np.abs(hl1 - dl1).max()))
+    # host against device is held to the spread of two device epochs:
+    # 0 when the device pipeline repeats itself bit for bit
+    if not np.isfinite(dl1).all() or host_vs_device > device_spread:
+        fail(f"host epoch differs from the device epoch by {host_vs_device} "
+             f"(two device epochs by {device_spread})")
+
+    # a validation pass, warm
+    dev = trainers["device"]
+    dev.evaluate(d1, fold["validation"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev.evaluate(d1, fold["validation"])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+
+    # saving and loading a full training state
+    latest = os.path.join(root, "latest.msgpack")
+    t0 = time.perf_counter()
+    save_checkpoint(latest, d1, meta={"epoch": 1}, rotate=True)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = load_checkpoint(latest, start)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if not same_tree(back.params, d1.params) or not same_tree(back.opt_state, d1.opt_state):
+        fail("a saved training state does not load back bit for bit")
+    t0 = time.perf_counter()
+    load_inference_state(best)
+    load_inference_ms = (time.perf_counter() - t0) * 1e3
+
+    # serving the fit: the fold's test rows through the engine against
+    # the trainer's eval probabilities for those rows
+    fb = plan_eval(fold["test"], fcfg.batch_size)
+    probs = dev.eval_fn(res["state"], fb.inputs, fb.labels, fb.weights)[0].cpu().numpy()
+    keep = fb.weights > 0
+    rows, want_p = fb.inputs[keep], probs[keep]
+    with InferenceEngine(fcfg, checkpoint=best) as eng:
+        eng.warmup()
+        lc.LAUNCHES = lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+        futs = [eng.submit(rows[i:i + 16]) for i in range(0, len(rows), 16)]
+        got_p = np.concatenate([f.result(timeout=120) for f in futs])
+        serve = eng.summary()
+    serve_launches = {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
+                      "k1_cluster_route": lc.K1_CLUSTER_CALLS,
+                      "k1_stream_route": lc.K1_STREAM_CALLS}
+    n = serve_launches["lstm_fwd"]
+    if n == 0 or n != 2 * serve["dispatches"] or serve_launches != {
+            "lstm_fwd": n, "lstm_proj": n, "k1_cluster_route": n, "k1_stream_route": 0}:
+        fail(f"served fit launches {serve_launches} for {serve['dispatches']} dispatches")
+    serve_err = float(np.abs(got_p - want_p).max())
+    if got_p.shape != want_p.shape or serve_err > SERVE_TOL:
+        fail(f"the served fit differs from the trainer's eval by {serve_err}")
+
+    rec = {
+        "card": smi, "sites": FIT_SITES, "subjects": FIT_SUBJECTS,
+        "split": {k: len(fold[k][0]) for k in ("train", "validation", "test")},
+        "epochs": epochs, "rounds_per_epoch": rounds, "eval_steps": eval_steps,
+        "tree": tree, "tree_seconds": tree_s, "fit_seconds": fit_s, "launches": launches,
+        "epoch_losses": res["epoch_losses"], "best_val_epoch": res["best_val_epoch"],
+        "best_val_metric": res["best_val_metric"], "test_metrics": res["test_metrics"],
+        "test_scores": res["test_scores"], "warm_epoch_ms": epoch_ms,
+        "host_materialize_ms": materialize_ms,
+        "epoch_transfer_bytes": xfer, "device_inventory_bytes": inv_bytes,
+        "device_epoch_spread": device_spread, "host_vs_device_max_abs_err": host_vs_device,
+        "validation_pass_ms": eval_ms, "checkpoint_save_ms": save_ms,
+        "checkpoint_load_ms": load_ms, "best_checkpoint_load_ms": load_best_ms,
+        "inference_state_load_ms": load_inference_ms,
+        "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
+        "serving": {"rows": len(rows), "dispatches": serve["dispatches"],
+                    "launches": serve_launches, "max_abs_err_vs_trainer_eval": serve_err},
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    print(f"fit seconds {fit_s:.3f} ({epochs} epochs, {FIT_SITES} sites, host pipeline) on "
+          f"{smi}")
+    print(f"warm epoch ms: device {epoch_ms['device']:.3f}, host {epoch_ms['host']:.3f} "
+          f"(of which materializing the dense epoch {materialize_ms:.3f}) on {smi}")
+    print(f"host-to-device bytes an epoch: device {xfer['device']} (the plan; the inventory, "
+          f"{inv_bytes}, once a fit), host {xfer['host']}")
+    print(f"validation pass ms {eval_ms:.3f}; checkpoint save ms {save_ms:.3f}, load ms "
+          f"{load_ms:.3f}, best load ms {load_best_ms:.3f}, inference-state load ms "
+          f"{load_inference_ms:.3f} on {smi}")
+    print("fit:", json.dumps(rec))
+    return rec
+
+
+# The CLI (phase 13): phase 11's tree, a powerSGD fit of fold 0 with one
+# epoch of largest-site pretraining, then one site alone for one epoch.
+CLI_EPOCHS = 3
+
+
+def cli_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """The command line at full width (phase 13 of the module docstring):
+    ``runner.cli.main`` on phase 11's tree, a federated powerSGD fit with
+    pretraining, then ``--site 0``; launches counted for each part, the
+    printed JSON lines, the outputs, and the best checkpoint's q and e."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import PretrainArgs, TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_eval
+    from dinunet_implementations_tpu_torch.runner import (
+        FedRunner,
+        build_model,
+        cli,
+        discover_site_dirs,
+        load_site_splits,
+    )
+    from dinunet_implementations_tpu_torch.trainer import (
+        FederatedTrainer,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import _read_raw
+    from dinunet_implementations_tpu_torch.weights import _param_names
+
+    t_phase = time.perf_counter()
+    task = "ICA-Classification"
+    out = os.path.join(root, "cli")
+    args = ["--data-path", tree, "--task", task, "--engine", "powerSGD", "--quiet"]
+    fed_args = args + ["--folds", "0", "--epochs", str(CLI_EPOCHS), "--out-dir", out,
+                       "--set", "pretrain=true", "--set", 'pretrain_args={"epochs": 1}']
+    # the counts the fit must launch: the fold's rounds, the pretraining's
+    # (the largest site's rounds; every other site runs with zero rows) and
+    # the eval steps
+    runner = FedRunner(TrainConfig(task_id=task, agg_engine="powerSGD"), tree)
+    fcfg, pa = runner.cfg, PretrainArgs(epochs=1)
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    L = fcfg.local_iterations
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // L
+    largest = max(len(s) for s in fold["train"])
+    pre_rounds = (largest // pa.batch_size) // pa.local_iterations
+    eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
+
+    # the pretraining's own time and launches, read around its call
+    pre = {}
+    pretrain = FederatedTrainer._pretrain
+
+    def timed_pretrain(self, *a, **k):
+        torch.cuda.synchronize()
+        before, t0 = read_counters(lc, pc, bc), time.perf_counter()
+        state = pretrain(self, *a, **k)
+        torch.cuda.synchronize()
+        pre["seconds"] = time.perf_counter() - t0
+        pre["launches"] = {n: v - before[n] for n, v in read_counters(lc, pc, bc).items()}
+        return state
+
+    FederatedTrainer._pretrain = timed_pretrain
+    try:
+        torch.cuda.synchronize()
         zero_counters(lc, pc, bc)  # the main path's run starts here
         t0 = time.perf_counter()
-        res = runner.run(folds=[0], verbose=False)[0]
+        with contextlib.redirect_stdout(io.StringIO()) as fed_out:
+            rc = cli.main(fed_args)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         launches = read_counters(lc, pc, bc)  # read before any check
-
-        epochs = len(res["epoch_losses"])
-        micro = epochs * rounds * fcfg.local_iterations
-        evals = epochs * eval_steps["validation"] + eval_steps["test"]
-        want = dict.fromkeys(launches, 0) | {
-            "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
-            "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
-            "k2_cluster_route": 2 * micro}
-        # every LSTM call of the fit launched its kernel: a call that went
-        # to a plain version would leave these counts short
-        if launches != want:
-            fail(f"fit launches {launches}, want {want}")
-        finite = [np.isfinite(res[k]).all() for k in ("epoch_losses", "test_metrics")]
-        if not all(finite) or not np.isfinite(list(res["test_scores"].values())).all():
-            fail(f"the fit's losses or test metrics are not finite: {res['epoch_losses']}, "
-                 f"{res['test_metrics']}, {res['test_scores']}")
-        outputs = check_fit_outputs(out, fcfg.task_id)
-
-        # the checkpoint round trip: the best checkpoint is the fit's best
-        # state, bit for bit
-        best = outputs["best_checkpoint"]
-        t0 = time.perf_counter()
-        restored = load_checkpoint(best, res["state"])
-        torch.cuda.synchronize()
-        load_best_ms = (time.perf_counter() - t0) * 1e3
-        for part in ("params", "batch_stats", "opt_state", "engine_state", "health"):
-            if not same_tree(getattr(restored, part), getattr(res["state"], part)):
-                fail(f"checkpoint_best.msgpack {part} differ from the fit's best state")
-        if (restored.rng, restored.round) != (res["state"].rng, res["state"].round):
-            fail("checkpoint_best.msgpack rng or round differ from the fit's best state")
-
-        # host pipeline against device pipeline: one epoch from one state
-        # and one plan through each, then each once more (timed warm)
-        trainers = {p: FederatedTrainer(fcfg.replace(pipeline=p), build_model(fcfg))
-                    for p in ("device", "host")}
-        start = trainers["device"].init_state(num_sites=FIT_SITES)
-        runs, epoch_ms, xfer = {}, {}, {}
-        for p in ("device", "host", "device", "host"):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            st, lo = trainers[p].run_epoch(start, fold["train"], 1)
-            torch.cuda.synchronize()
-            epoch_ms[p] = (time.perf_counter() - t0) * 1e3  # the second, warm, run stays
-            xfer[p] = trainers[p]._last_transfer_bytes
-            runs.setdefault(p, []).append((st, lo))
-        inv_bytes = sum(t.numel() * t.element_size() for t in trainers["device"]._inventory)
-        # the host pipeline's own share: materializing the dense epoch
-        t0 = time.perf_counter()
-        plan_epoch(fold["train"], fcfg.batch_size, seed=fcfg.seed * 100003 + 1, pad_mode="wrap")
-        materialize_ms = (time.perf_counter() - t0) * 1e3
-        (d1, dl1), (d2, dl2) = runs["device"]
-        (h1, hl1), _ = runs["host"]
-        device_spread = max(state_err(d1, d2), float(np.abs(dl1 - dl2).max()))
-        host_vs_device = max(state_err(h1, d1), float(np.abs(hl1 - dl1).max()))
-        # host against device is held to the spread of two device epochs:
-        # 0 when the device pipeline repeats itself bit for bit
-        if not np.isfinite(dl1).all() or host_vs_device > device_spread:
-            fail(f"host epoch differs from the device epoch by {host_vs_device} "
-                 f"(two device epochs by {device_spread})")
-
-        # a validation pass, warm
-        dev = trainers["device"]
-        dev.evaluate(d1, fold["validation"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dev.evaluate(d1, fold["validation"])
-        eval_ms = (time.perf_counter() - t0) * 1e3
-
-        # saving and loading a full training state
-        latest = os.path.join(root, "latest.msgpack")
-        t0 = time.perf_counter()
-        save_checkpoint(latest, d1, meta={"epoch": 1}, rotate=True)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        back = load_checkpoint(latest, start)
-        torch.cuda.synchronize()
-        load_ms = (time.perf_counter() - t0) * 1e3
-        if not same_tree(back.params, d1.params) or not same_tree(back.opt_state, d1.opt_state):
-            fail("a saved training state does not load back bit for bit")
-        t0 = time.perf_counter()
-        load_inference_state(best)
-        load_inference_ms = (time.perf_counter() - t0) * 1e3
-
-        # serving the fit: the fold's test rows through the engine against
-        # the trainer's eval probabilities for those rows
-        fb = plan_eval(fold["test"], fcfg.batch_size)
-        probs = dev.eval_fn(res["state"], fb.inputs, fb.labels, fb.weights)[0].cpu().numpy()
-        keep = fb.weights > 0
-        rows, want_p = fb.inputs[keep], probs[keep]
-        with InferenceEngine(fcfg, checkpoint=best) as eng:
-            eng.warmup()
-            lc.LAUNCHES = lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
-            futs = [eng.submit(rows[i:i + 16]) for i in range(0, len(rows), 16)]
-            got_p = np.concatenate([f.result(timeout=120) for f in futs])
-            serve = eng.summary()
-        serve_launches = {"lstm_fwd": lc.LAUNCHES, "lstm_proj": lc.PROJ_LAUNCHES,
-                          "k1_cluster_route": lc.K1_CLUSTER_CALLS,
-                          "k1_stream_route": lc.K1_STREAM_CALLS}
-        n = serve_launches["lstm_fwd"]
-        if n == 0 or n != 2 * serve["dispatches"] or serve_launches != {
-                "lstm_fwd": n, "lstm_proj": n, "k1_cluster_route": n, "k1_stream_route": 0}:
-            fail(f"served fit launches {serve_launches} for {serve['dispatches']} dispatches")
-        serve_err = float(np.abs(got_p - want_p).max())
-        if got_p.shape != want_p.shape or serve_err > SERVE_TOL:
-            fail(f"the served fit differs from the trainer's eval by {serve_err}")
-
-        rec = {
-            "card": smi, "sites": FIT_SITES, "subjects": FIT_SUBJECTS,
-            "split": {k: len(fold[k][0]) for k in ("train", "validation", "test")},
-            "epochs": epochs, "rounds_per_epoch": rounds, "eval_steps": eval_steps,
-            "tree_seconds": tree_s, "fit_seconds": fit_s, "launches": launches,
-            "epoch_losses": res["epoch_losses"], "best_val_epoch": res["best_val_epoch"],
-            "best_val_metric": res["best_val_metric"], "test_metrics": res["test_metrics"],
-            "test_scores": res["test_scores"], "warm_epoch_ms": epoch_ms,
-            "host_materialize_ms": materialize_ms,
-            "epoch_transfer_bytes": xfer, "device_inventory_bytes": inv_bytes,
-            "device_epoch_spread": device_spread, "host_vs_device_max_abs_err": host_vs_device,
-            "validation_pass_ms": eval_ms, "checkpoint_save_ms": save_ms,
-            "checkpoint_load_ms": load_ms, "best_checkpoint_load_ms": load_best_ms,
-            "inference_state_load_ms": load_inference_ms,
-            "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
-            "serving": {"rows": len(rows), "dispatches": serve["dispatches"],
-                        "launches": serve_launches, "max_abs_err_vs_trainer_eval": serve_err},
-            "phase_seconds": time.perf_counter() - t_phase,
-        }
-        print(f"fit seconds {fit_s:.3f} ({epochs} epochs, {FIT_SITES} sites, host pipeline) on "
-              f"{smi}")
-        print(f"warm epoch ms: device {epoch_ms['device']:.3f}, host {epoch_ms['host']:.3f} "
-              f"(of which materializing the dense epoch {materialize_ms:.3f}) on {smi}")
-        print(f"host-to-device bytes an epoch: device {xfer['device']} (the plan; the inventory, "
-              f"{inv_bytes}, once a fit), host {xfer['host']}")
-        print(f"validation pass ms {eval_ms:.3f}; checkpoint save ms {save_ms:.3f}, load ms "
-              f"{load_ms:.3f}, best load ms {load_best_ms:.3f}, inference-state load ms "
-              f"{load_inference_ms:.3f} on {smi}")
-        print("fit:", json.dumps(rec))
-        return rec
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        FederatedTrainer._pretrain = pretrain
+    micro = CLI_EPOCHS * rounds * L + pre_rounds * pa.local_iterations
+    evals = CLI_EPOCHS * eval_steps["validation"] + eval_steps["test"]
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+        "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+        "k2_cluster_route": 2 * micro}
+    if rc != 0 or launches != want:
+        fail(f"cli fit exit code {rc}, launches {launches}, want {want}")
+    want_pre = dict.fromkeys(launches, 0) | {
+        k: 2 * pre_rounds * pa.local_iterations for k in ("lstm_fwd", "lstm_proj", "k1_cluster_route", "lstm_bwd",
+                                         "k2_cluster_route")}
+    if pre.get("launches") != want_pre:
+        fail(f"cli pretraining launches {pre.get('launches')}, want {want_pre}")
+    lines = [json.loads(x) for x in fed_out.getvalue().splitlines()]
+    keys = ["fold", "test_loss", f"test_{fcfg.monitor_metric}", "best_val_epoch"]
+    if (len(lines) != 1 or list(lines[0]) != keys or lines[0]["fold"] != 0
+            or not np.isfinite([lines[0][k] for k in keys[1:3]]).all()):
+        fail(f"cli fit printed {fed_out.getvalue()!r}")
+    outputs = check_fit_outputs(out, task)
+
+    # the best checkpoint gives back the q and e it holds, bit for bit
+    best = outputs["best_checkpoint"]
+    like = FederatedTrainer(fcfg, build_model(fcfg)).init_state(num_sites=FIT_SITES)
+    restored = load_checkpoint(best, like)
+    raw = _read_raw(best)["engine_state"]
+    for key in ("q", "e"):
+        for name, j, _ in _param_names(True):
+            node = raw[key]
+            for part in j.split("/"):
+                node = node[part]
+            got = restored.engine_state[key][name]
+            if (got is None) != (node is None) or (got is not None and (
+                    got.shape[0] != FIT_SITES
+                    or got.cpu().numpy().tobytes() != np.asarray(node).tobytes())):
+                fail(f"checkpoint_best.msgpack {key} {j} does not load back bit for bit")
+    again = os.path.join(root, "cli_again.msgpack")
+    t0 = time.perf_counter()
+    save_checkpoint(again, restored)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    back = load_checkpoint(again, like)
+    if not same_tree(back.engine_state, restored.engine_state):
+        fail("a powerSGD state does not save and load back bit for bit")
+
+    # one site alone
+    zero_counters(lc, pc, bc)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as site_out:
+        rc = cli.main(args + ["--site", "0", "--epochs", "1", "--out-dir",
+                              os.path.join(root, "cli_site")])
+    torch.cuda.synchronize()
+    site_s = time.perf_counter() - t0
+    site_launches = read_counters(lc, pc, bc)
+    site0 = fold["train"][0]
+    site_micro = (len(site0) // fcfg.batch_size) // L * L
+    site_evals = sum(-(-len(fold[k][0]) // fcfg.batch_size) for k in ("validation", "test"))
+    want_site = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": 2 * (site_micro + site_evals), "lstm_proj": 2 * (site_micro + site_evals),
+        "k1_cluster_route": 2 * (site_micro + site_evals), "lstm_bwd": 2 * site_micro,
+        "k2_cluster_route": 2 * site_micro}
+    site_lines = [json.loads(x) for x in site_out.getvalue().splitlines()]
+    if rc != 0 or site_launches != want_site or len(site_lines) != 1 or not np.isfinite(
+            [site_lines[0][k] for k in keys[1:3]]).all():
+        fail(f"cli --site 0: exit code {rc}, launches {site_launches}, want {want_site}, "
+             f"printed {site_out.getvalue()!r}")
+    if len(discover_site_dirs(tree)) != FIT_SITES:
+        fail("phase 13 did not reuse phase 11's tree")
+
+    rec = {
+        "card": smi, "sites": FIT_SITES, "epochs": CLI_EPOCHS, "rounds_per_epoch": rounds,
+        "pretrain_rounds": pre_rounds, "eval_steps": eval_steps, "fit_seconds": fit_s,
+        "pretrain_seconds": pre["seconds"], "launches": launches,
+        "pretrain_launches": pre["launches"], "json_lines": lines,
+        "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
+        "checkpoint_save_ms": save_ms, "site_seconds": site_s, "site_launches": site_launches,
+        "site_json_lines": site_lines, "phase_seconds": time.perf_counter() - t_phase,
+    }
+    for line in lines + site_lines:
+        print(json.dumps(line))
+    print(f"cli fit seconds {fit_s:.3f} ({CLI_EPOCHS} epochs, powerSGD, {FIT_SITES} sites), of "
+          f"which pretraining {pre['seconds']:.3f}; --site 0 seconds {site_s:.3f} on {smi}")
+    print(f"powerSGD checkpoint bytes {outputs['best_checkpoint_bytes']}, save ms {save_ms:.3f} "
+          f"on {smi}")
+    print("cli:", json.dumps(rec))
+    return rec
 
 
 def main() -> int:
@@ -2119,19 +2315,36 @@ def main() -> int:
     train_fused_bf16 = fused_bf16_epoch(torch, np, lc, pc, bc)
     one_model = fused_model_phase(torch, np, lc, pc, bc)
 
-    print(f"== 11. the fit slice at full width: FedRunner on a {FIT_SITES}-site ICA tree, "
-          f"{FIT_EPOCHS} epochs")
-    fit = fit_phase(torch, np, lc, pc, bc, smi)
+    root = tempfile.mkdtemp(prefix="dinunet_fit_")  # phase 11's tree, reused by phase 13
+    try:
+        print(f"== 11. the fit slice at full width: FedRunner on a {FIT_SITES}-site ICA tree, "
+              f"{FIT_EPOCHS} epochs")
+        fit = fit_phase(torch, np, lc, pc, bc, smi, root)
+
+        print(f"== 12. powerSGD training at full ICA-LSTM width: {TRAIN_SITES} sites, "
+              f"batch {TRAIN_BATCH}")
+        train_psgd = training_phase(torch, np, lc, pc, bc, engine="powerSGD")
+
+        print("== 13. the command line on phase 11's tree: a powerSGD fit with pretraining, "
+              "then --site 0")
+        cli = cli_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     fwd = next(s for s in shapes if s["rows"] == SERVE_ROWS and s["dtype"] == "f32")
     bwd = next(s for s in bwd_shapes if s["rows"] == TRAIN_SITES * TRAIN_BATCH and s["dtype"] == "f32")
     by_path = {"serving": serve_launches, "training": train["launches"]["lstm_fwd"],
                "training_rankDAD": train_dad["launches"]["lstm_fwd"],
                "fit": fit["launches"]["lstm_fwd"],
-               "fit_serving": fit["serving"]["launches"]["lstm_fwd"]}
+               "fit_serving": fit["serving"]["launches"]["lstm_fwd"],
+               "training_powerSGD": train_psgd["launches"]["lstm_fwd"],
+               "cli": cli["launches"]["lstm_fwd"], "cli_site": cli["site_launches"]["lstm_fwd"]}
     bwd_by_path = {"training": train["launches"]["lstm_bwd"],
                    "training_rankDAD": train_dad["launches"]["lstm_bwd"],
-                   "fit": fit["launches"]["lstm_bwd"]}
+                   "fit": fit["launches"]["lstm_bwd"],
+                   "training_powerSGD": train_psgd["launches"]["lstm_bwd"],
+                   "cli": cli["launches"]["lstm_bwd"],
+                   "cli_site": cli["site_launches"]["lstm_bwd"]}
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

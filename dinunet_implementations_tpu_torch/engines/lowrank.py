@@ -37,6 +37,18 @@ def _matrix_shape(shape) -> tuple[int, int]:
     return m, int(shape[-1])
 
 
+def jax_leaf_shape(name: str, shape, transposed) -> tuple[int, ...]:
+    """One site's leaf shape in the JAX layout: reversed for a leaf named in
+    ``transposed`` (a port ``nn.Linear`` weight ``[out, in]`` against the
+    flax kernel ``[in, out]``), which must be 2-D."""
+    shape = tuple(shape)
+    if name in transposed:
+        if len(shape) != 2:
+            raise ValueError(f"transposed leaf {name!r} must be 2-D, got {shape}")
+        return shape[::-1]
+    return shape
+
+
 def is_compressible(g, min_rank_dim: int = 2) -> bool:
     """Whether one site's leaf ``g`` (a tensor, or its shape) is factorized:
     ndim ≥ 2 and both matrix dims at least ``min_rank_dim``."""

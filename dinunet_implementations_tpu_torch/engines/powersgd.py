@@ -18,9 +18,9 @@ bf16 wire the two big products take bf16 operands and accumulate in f32
 (``lowrank.lp_matmul``). ``orth`` is the shifted CholeskyQR2 of
 ``lowrank.orthonormalize_many``, one call for the leaves of one rank (JAX
 orthonormalizes leaf by leaf; the result is each leaf's own either way).
-The 1-D leaves are a weighted f32 sum. A dead
-site's gradient and weight are zeroed before the products, so its ``M =
-e`` adds nothing; the trainer freezes its ``q`` and ``e`` for the round.
+The 1-D leaves are a weighted f32 sum. A dead site's gradient and weight
+are zeroed before the products, so its ``M = e`` adds nothing; the
+trainer freezes its ``q`` and ``e`` for the round.
 
 The state of one site is ``{"q": {name: [n, r] or None}, "e": {name: [m,
 n] or None}}``; the trainer stacks it per site. ``q`` stays per site
@@ -40,7 +40,13 @@ import torch
 
 from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
 from .base import Engine, mask_dead_site, refuse_secure_agg
-from .lowrank import _matrix_shape, is_compressible, lp_matmul, orthonormalize_many
+from .lowrank import (
+    _matrix_shape,
+    is_compressible,
+    jax_leaf_shape,
+    lp_matmul,
+    orthonormalize_many,
+)
 
 
 def default_q(seed: int, index: int, n: int, r: int, device=None):
@@ -77,18 +83,10 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     mm_dtype = torch.bfloat16 if pdtype == torch.bfloat16 else None
     transposed = frozenset(transposed)
 
-    def jax_shape(name, shape) -> tuple[int, ...]:
-        shape = tuple(shape)
-        if name in transposed:
-            if len(shape) != 2:
-                raise ValueError(f"transposed leaf {name!r} must be 2-D, got {shape}")
-            return shape[::-1]
-        return shape
-
     def init(params: dict) -> dict:
         qs, es = {}, {}
         for i, (name, p) in enumerate(params.items()):
-            js = jax_shape(name, p.shape)
+            js = jax_leaf_shape(name, p.shape, transposed)
             if not is_compressible(js):
                 qs[name] = es[name] = None
                 continue

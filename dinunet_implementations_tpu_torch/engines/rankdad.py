@@ -34,8 +34,10 @@ from .lowrank import (
     _matrix_shape,
     default_omega,
     is_compressible,
+    jax_leaf_shape,
     subspace_iteration_grouped,
 )
+
 
 def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                  dad_tol: float = 1e-3, precision_bits="32", dad_warm_start: bool = True,
@@ -57,17 +59,8 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
     mm_dtype = torch.bfloat16 if pdtype == torch.bfloat16 else None
     transposed = frozenset(transposed)
 
-    def jax_shape(name, shape) -> tuple[int, ...]:
-        """One site's leaf shape in the JAX layout."""
-        shape = tuple(shape)
-        if name in transposed:
-            if len(shape) != 2:
-                raise ValueError(f"transposed leaf {name!r} must be 2-D, got {shape}")
-            return shape[::-1]
-        return shape
-
     def rank_of(name, shape) -> int | None:
-        js = jax_shape(name, shape)
+        js = jax_leaf_shape(name, shape, transposed)
         if not is_compressible(js):
             return None
         m, n = _matrix_shape(js)
@@ -80,7 +73,8 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
         for name, p in params.items():
             r = rank_of(name, p.shape)
             oms[name] = (None if r is None else
-                         default_omega(_matrix_shape(jax_shape(name, p.shape)), r, p.device))
+                         default_omega(_matrix_shape(jax_leaf_shape(name, p.shape, transposed)), r,
+                                       p.device))
         return {"omega": oms}
 
     def matrices(name, g):

@@ -80,7 +80,8 @@ def main() -> int:
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        syncs = Counter(str(w.message).splitlines()[0] for w in caught)
+        syncs = Counter(str(w.message).splitlines()[0] for w in caught
+                        if "is a prototype feature" not in str(w.message))
 
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:

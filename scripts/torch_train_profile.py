@@ -12,8 +12,11 @@ rankDAD or the powerSGD engine with its default knobs; with
 runs K5 and K6), runs one epoch
 to warm up, times ``--epochs`` epochs on the host clock, then runs one
 epoch under ``torch.profiler`` and prints device time per round by kernel
-name and the device's busy and idle share of that window. Every line is one
-JSON object; it needs one CUDA card and imports nothing of JAX.
+name, the device's busy and idle share of that window, the host's time in
+the CUDA runtime's calls by name (launches, allocations, synchronizations)
+and the caching allocator's device allocations, frees and retries over the
+timed epochs. Every line is one JSON object; it needs one CUDA card and
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -56,14 +59,19 @@ def main() -> int:
 
     state, _ = epoch(state, inv_x, inv_y, idx)  # warm-up
     torch.cuda.synchronize()
+    alloc_keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    before = torch.cuda.memory_stats()
     ms = []
     for _ in range(args.epochs):
         t0 = time.perf_counter()
         state, _ = epoch(state, inv_x, inv_y, idx)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+    after = torch.cuda.memory_stats()
     print(json.dumps({**arm, "epoch_ms": ms, "rounds": rounds, "samples_per_epoch": samples,
-                      "samples_per_s": [samples / (m / 1e3) for m in ms], "card": smi}))
+                      "samples_per_s": [samples / (m / 1e3) for m in ms],
+                      "allocator": {k: after.get(k, 0) - before.get(k, 0) for k in alloc_keys},
+                      "card": smi}))
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -72,12 +80,15 @@ def main() -> int:
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
 
-    by_name = defaultdict(float)
+    by_name, runtime, runtime_n = defaultdict(float), defaultdict(float), defaultdict(int)
     spans = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] += e.time_range.elapsed_us()
             spans.append((e.time_range.start, e.time_range.end))
+        elif e.name.startswith("cuda"):  # the runtime's calls, on the host
+            runtime[e.name] += e.time_range.elapsed_us()
+            runtime_n[e.name] += 1
     busy, end = 0.0, None
     for s, t in sorted(spans):  # union of device intervals
         if end is None or s > end:
@@ -92,6 +103,8 @@ def main() -> int:
         "device_idle_share": (1 - busy / window_us) if spans else None,
         "device_ms_per_round_by_kernel": {n: us / 1e3 / rounds for n, us in top},
         "device_ms_per_round_all_kernels": sum(by_name.values()) / 1e3 / rounds,
+        "host_runtime_ms_per_round": {n: [runtime_n[n] / rounds, us / 1e3 / rounds] for n, us in
+                                      sorted(runtime.items(), key=lambda kv: -kv[1])[:8]},
         "card": smi,
     }))
     return 0

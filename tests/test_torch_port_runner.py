@@ -283,6 +283,21 @@ def test_cli_json_lines_match_jax(tree, start, tmp_path, capsys, monkeypatch, no
                           "checkpoint_best.msgpack")
 
 
+def test_the_port_parses_every_jax_flag():
+    """The port's parser takes every option of JAX's, and adds only
+    ``--device``; every option is either run or refused naming its item."""
+    def options(parser):
+        return {o: a.dest for a in parser._actions for o in a.option_strings}
+
+    want, got = options(jcli.build_parser()), options(tcli.build_parser())
+    assert set(got) - set(want) == {"--device"}
+    assert set(want) <= set(got)
+    run = {"help", "data_path", "task", "engine", "mode", "epochs", "batch_size", "num_folds",
+           "out_dir", "site", "folds", "resume", "pipeline", "fused_poweriter", "quiet",
+           "overrides"}
+    assert {d for d in want.values()} - run == set(tcli._REFUSED)
+
+
 SET_PAIRS = ["epochs=3", "split_ratio=[0.7,0.15,0.15]", "task_id=ICA-Classification",
              "pretrain=true", 'pretrain_args={"epochs": 1}', "expr=a=b", "empty=", "x=null"]
 
