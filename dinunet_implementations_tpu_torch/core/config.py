@@ -1,8 +1,9 @@
 """The subset of the training configuration that the port reads.
 
 Field names and defaults are those of the JAX package's ``core/config.py``
-(``ICAArgs``, ``PretrainArgs``, ``AggEngine`` and the ``TrainConfig`` fields that serving,
-the training epochs, the federated trainer and the runner read),
+(``FSArgs``, ``ICAArgs``, ``PretrainArgs``, ``AggEngine`` and the
+``TrainConfig`` fields that serving, the training epochs, the federated
+trainer and the runner read),
 with its per-site ``inputspec.json`` resolution (:func:`load_inputspec`,
 :func:`resolve_site_configs`). Options the port does not run are kept at
 their "off" values so that the trainer can refuse any other value. The port
@@ -43,6 +44,32 @@ class AggEngine:
 
 
 @dataclass
+class FSArgs:
+    """FreeSurfer classification parameters (the reference's
+    ``compspec.json:225-250``): each site's covariate CSV (``labels_file``,
+    indexed by ``data_column``, labels in ``labels_column``) and an
+    MSANNet of ``input_size`` aseg volumes, ``hidden_sizes`` and
+    ``num_class`` outputs."""
+
+    labels_file: str = "site0_covariates.csv"
+    data_column: str = "freesurferfile"
+    labels_column: str = "isControl"
+    input_size: int = 66
+    hidden_sizes: tuple = (256, 128, 64, 32)
+    num_class: int = 2
+    dad_reduction_rank: int = 10
+    dad_num_pow_iters: int = 5
+    dad_tol: float = 1e-3
+    # see ICAArgs.dad_warm_start
+    dad_warm_start: bool = True
+    split_files: tuple = ()
+    # the reference's string-label rule bit for bit: EVERY string maps
+    # through (s.lower() == 'true'), so "1" becomes 0; False parses numeric
+    # strings as numbers (data/freesurfer.py coerce_label)
+    bug_compatible_labels: bool = False
+
+
+@dataclass
 class ICAArgs:
     """ICA classification parameters: 100 components, 980 timepoints cut
     into windows of 10, an encoder to 256 and a BiLSTM of total width 348
@@ -61,7 +88,8 @@ class ICAArgs:
     window_stride: int = 10
     input_size: int = 256
     hidden_size: int = 348
-    # stacked LSTM layers; the port builds one (registry refuses more)
+    # kept for the reference's keys: one BiLSTM layer is built whatever
+    # its value, as in JAX
     num_layers: int = 1
     bidirectional: bool = True
     # rankDAD (compspec.json:236-238): factor rank, power-iteration cap and
@@ -125,6 +153,7 @@ class TrainConfig:
     pretrained_path: str = ""
     seed: int = 0
     optimizer: str = "adam"
+    fs_args: FSArgs = field(default_factory=FSArgs)
     ica_args: ICAArgs = field(default_factory=ICAArgs)
     num_sites: int = 2
     # execution detail of the JAX epoch (scan xs or per-round slices); any
@@ -166,6 +195,8 @@ class TrainConfig:
     personalize: tuple = ()
 
     def task_args(self):
+        if self.task_id == NNComputation.TASK_FREE_SURFER:
+            return self.fs_args
         if self.task_id == NNComputation.TASK_ICA:
             return self.ica_args
         raise ValueError(f"task {self.task_id!r} is not ported")
@@ -177,8 +208,9 @@ class TrainConfig:
         """Apply a flat override dict (one site's inputspec values): a key
         naming a ``TrainConfig`` field sets it, and every key naming a
         field of the task-args block sets that too (the reference keeps one
-        flat cache dict). A dict under ``ica_args`` (or the compspec key
-        ``ICA-Classification_args``) merges into the block, and one under
+        flat cache dict). A dict under ``fs_args`` or ``ica_args`` (or the
+        compspec keys ``FS-Classification_args`` and
+        ``ICA-Classification_args``) merges into its block, and one under
         ``pretrain_args`` into that optional block (made on first use; flat
         keys never reach it). Keys of neither are dropped, as in JAX."""
         overrides = {_COMPSPEC_KEY_ALIASES.get(k, k): v for k, v in overrides.items()}
@@ -206,9 +238,10 @@ class TrainConfig:
 
 
 _TRAIN_FIELDS = {f.name: f for f in dataclasses.fields(TrainConfig)}
-_COMPSPEC_KEY_ALIASES = {"ICA-Classification_args": "ica_args"}
+_COMPSPEC_KEY_ALIASES = {"FS-Classification_args": "fs_args",
+                         "ICA-Classification_args": "ica_args"}
 #: dataclass-typed TrainConfig fields that take dict merges
-_BLOCK_FIELDS = {"ica_args": ICAArgs, "pretrain_args": PretrainArgs}
+_BLOCK_FIELDS = {"fs_args": FSArgs, "ica_args": ICAArgs, "pretrain_args": PretrainArgs}
 
 
 def _coerce(f: dataclasses.Field, v: Any) -> Any:

@@ -15,29 +15,36 @@ from .batching import (
     plan_epoch_positions,
     plan_eval,
 )
-from .demo import make_ica_demo_tree
+from .demo import make_demo_tree, make_fs_demo_tree, make_ica_demo_tree
+from .freesurfer import FreeSurferDataset, FSVDataHandle, coerce_label, read_aseg_stats
 from .ica import ICADataHandle, ICADataset, load_timecourses, window_timecourses
 from .splits import kfold_splits, load_split_file, resolve_splits, split_by_ratio
 
 __all__ = [
     "DataHandle",
     "EpochPlan",
+    "FSVDataHandle",
     "FedBatches",
+    "FreeSurferDataset",
     "ICADataHandle",
     "ICADataset",
     "SiteArrays",
     "SiteDataset",
     "SiteInventory",
     "build_site_dataset",
+    "coerce_label",
     "epoch_steps",
     "kfold_splits",
     "load_split_file",
     "load_timecourses",
+    "make_demo_tree",
+    "make_fs_demo_tree",
     "make_ica_demo_tree",
     "materialize_plan",
     "plan_epoch",
     "plan_epoch_positions",
     "plan_eval",
+    "read_aseg_stats",
     "resolve_splits",
     "split_by_ratio",
     "stack_site_inventory",

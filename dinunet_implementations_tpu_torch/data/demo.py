@@ -1,8 +1,16 @@
-"""A synthetic ICA simulator tree, generated on demand: the port's own copy
-of the JAX package's ``data/demo.py:make_ica_demo_tree``. It writes the
-reference's simulator layout (``input/local{i}/simulatorRun`` with
-``timecourses.npz`` and ``labels.csv``, and one ``inputspec.json`` entry a
-site) with a real class signal, so a fit on it learns.
+"""Synthetic simulator trees, generated on demand: the port's own copy of
+the JAX package's ``data/demo.py`` (the FS and ICA trees, the same bytes
+from the same seed). Each is the reference's simulator layout
+(``input/local{i}/simulatorRun`` and one ``inputspec.json`` entry a site)
+with a real class signal, so a fit on it learns.
+
+    python -m dinunet_implementations_tpu_torch.data.demo datasets/demo
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path datasets/demo
+
+- FS: ``siteN_Covariate.csv`` (``freesurferfile,isControl,age``) and one
+  ``subject{j}_aseg_stats.txt`` name/value TSV a subject, 66 features
+  (the reference's ``datasets/test_fsl`` layout), sites of uneven size.
+- ICA: ``timecourses.npz`` and ``labels.csv``, windowing in the inputspec.
 """
 
 from __future__ import annotations
@@ -11,6 +19,53 @@ import json
 import os
 
 import numpy as np
+
+#: the reference's 66 aseg features (its ``compspec.json`` input_size)
+N_FS_FEATURES = 66
+
+
+def make_fs_demo_tree(root: str, n_sites: int = 4, subjects: int = 32,
+                      n_features: int = N_FS_FEATURES, seed: int = 0,
+                      shift: float = 1.0) -> str:
+    """Generate an FS-Classification simulator tree under ``root``.
+    Label-1 subjects get a ``+shift``·σ bump in the first quarter of the
+    features, on per-feature scales spanning about 3 decades like real aseg
+    volumes; each site holds ``subjects`` ±25 % subjects, uneven like the
+    reference fixture's 73/50/100/80/120. Returns ``root``."""
+    rng = np.random.default_rng(seed)
+    scales = 10.0 ** rng.uniform(1, 4, size=n_features)
+    spec = []
+    for i in range(n_sites):
+        d = os.path.join(root, "input", f"local{i}", "simulatorRun")
+        os.makedirs(d, exist_ok=True)
+        n_i = int(subjects * (0.75 + 0.5 * rng.random()))
+        y = rng.integers(0, 2, n_i)
+        with open(os.path.join(d, f"site{i + 1}_Covariate.csv"), "w") as fh:
+            fh.write("freesurferfile,isControl,age\n")
+            for j in range(n_i):
+                age = 20 + 50 * rng.random()
+                fh.write(f"subject{j}_aseg_stats.txt,{'True' if y[j] else 'False'},{age:.1f}\n")
+        for j in range(n_i):
+            x = np.abs(rng.normal(1.0, 0.2, n_features))
+            if y[j]:
+                x[: n_features // 4] += shift * 0.2
+            vals = x * scales
+            with open(os.path.join(d, f"subject{j}_aseg_stats.txt"), "w") as fh:
+                fh.write(f"Measure:volume\tsubject{j}\n")
+                for k in range(n_features):
+                    fh.write(f"feature-{k}\t{vals[k]:.2f}\n")
+        spec.append({k: {"value": v} for k, v in dict(
+            labels_file=f"site{i + 1}_Covariate.csv",
+            data_column="freesurferfile",
+            labels_column="isControl",
+            mode="train",
+            input_size=n_features,
+            hidden_sizes=[256, 128, 64, 32],
+            num_class=2,
+        ).items()})
+    with open(os.path.join(root, "inputspec.json"), "w") as fh:
+        json.dump(spec, fh, indent=1)
+    return root
 
 
 def make_ica_demo_tree(root: str, n_sites: int = 2, subjects: int = 24, comps: int = 16,
@@ -47,3 +102,40 @@ def make_ica_demo_tree(root: str, n_sites: int = 2, subjects: int = 24, comps: i
     with open(os.path.join(root, "inputspec.json"), "w") as fh:
         json.dump(spec, fh, indent=1)
     return root
+
+
+def make_demo_tree(root: str, task: str = "FS-Classification", **kw) -> str:
+    """Dispatch by task id (the FS and ICA tasks, with JAX's short names);
+    returns ``root``."""
+    if task in ("FS-Classification", "FSL", "fs"):
+        return make_fs_demo_tree(root, **kw)
+    if task in ("ICA-Classification", "ICA", "ica"):
+        return make_ica_demo_tree(root, **kw)
+    raise ValueError(f"unknown demo task {task!r} (the port makes FS and ICA trees)")
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(prog="python -m dinunet_implementations_tpu_torch.data.demo",
+                                description="Generate a self-contained demo simulator tree.")
+    p.add_argument("root", help="directory to create (e.g. datasets/demo)")
+    p.add_argument("--task", default="FS-Classification",
+                   help="FS-Classification (default) or ICA-Classification")
+    p.add_argument("--sites", type=int, default=None)
+    p.add_argument("--subjects", type=int, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+    kw = {"seed": args.seed}
+    if args.sites is not None:
+        kw["n_sites"] = args.sites
+    if args.subjects is not None:
+        kw["subjects"] = args.subjects
+    make_demo_tree(args.root, args.task, **kw)
+    n_files = sum(len(fs) for _, _, fs in os.walk(args.root))
+    print(f"demo tree ready: {args.root} ({n_files} files)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

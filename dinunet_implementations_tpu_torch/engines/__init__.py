@@ -6,26 +6,29 @@ from .rankdad import make_rankdad
 
 def build_engine(cfg, use_kernel: bool = True) -> Engine:
     """The aggregation engine a ``TrainConfig`` names: dSGD; rankDAD with
-    the ``ica_args`` ``dad_*`` knobs; or powerSGD at rank
-    ``ica_args.dad_reduction_rank`` with its first Q drawn from
-    ``cfg.seed``. Each takes the config's wire options and refuses those it
-    does not run. ``use_kernel=False`` runs rankDAD's power iteration
-    through its plain version (powerSGD launches no kernel of its own)."""
+    the ``dad_*`` knobs of the task's args (``cfg.task_args()``, as JAX
+    passes them to ``make_engine``); or powerSGD at rank
+    ``dad_reduction_rank`` with its first Q drawn from ``cfg.seed``. The
+    leaves stored transposed and the JAX leaf order come from the task's
+    model (``weights.leaf_table``). Each takes the config's wire options and
+    refuses those it does not run. ``use_kernel=False`` runs rankDAD's power
+    iteration through its plain version (powerSGD launches no kernel of its
+    own)."""
     from ..core.config import AggEngine
-    from ..weights import jax_leaf_index, jax_transposed_leaves
+    from ..weights import leaf_table
 
     if cfg.agg_engine not in AggEngine.ALL:
         raise ValueError(f"unknown agg_engine {cfg.agg_engine!r} (have {AggEngine.ALL})")
-    a = cfg.ica_args
+    a, table = cfg.task_args(), leaf_table(cfg)
     wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg)
-    transposed = jax_transposed_leaves(a.bidirectional)
+    transposed = table.transposed
     if cfg.agg_engine == AggEngine.RANK_DAD:
         return make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,
                             cfg.precision_bits, a.dad_warm_start, use_kernel=use_kernel,
                             transposed=transposed, **wire)
     if cfg.agg_engine == AggEngine.POWER_SGD:
         return make_powersgd(a.dad_reduction_rank, cfg.precision_bits, seed=cfg.seed,
-                             transposed=transposed, leaf_index=jax_leaf_index(a.bidirectional),
+                             transposed=transposed, leaf_index=table.leaf_index,
                              **wire)
     return make_dsgd(cfg.precision_bits, **wire)
 

@@ -157,6 +157,10 @@ class ICALstm(nn.Module):
     ``fused_bidir=True`` selects the fused bidirectional op (see
     :class:`BiLSTM`); default off, as in JAX."""
 
+    #: eval normalises by the running statistics, so the rows of several
+    #: sites may share one forward
+    eval_folds_sites = True
+
     def __init__(self, input_size: int = 256, hidden_size: int = 256,
                  bidirectional: bool = True, num_cls: int = 2, num_comps: int = 53,
                  window_size: int = 20, dropout_rate: float = 0.25,

@@ -6,8 +6,9 @@ mask-weighted: a padded row never shifts the mean or variance. With an
 all-ones mask this is torch's biased batch variance.
 
 Training runs every site of a federated round at once, over an explicit
-leading site axis: :func:`site_linear`, :func:`site_batchnorm_train` and
-:func:`site_dropout` take ``[S, ...]`` inputs and per-site parameters
+leading site axis: :func:`site_linear`, :func:`site_batchnorm_train`,
+:func:`site_batchnorm` and :func:`site_dropout` take ``[S, ...]`` inputs
+and per-site parameters
 ``[S, ...]`` (stride-0 views of one weight set, whose gradients come back
 per site), where JAX maps the per-site step with ``vmap``.
 """
@@ -92,13 +93,14 @@ class TorchLinearInit:
             return tensor.uniform_(-bound, bound, generator=generator)
 
 
-def dense(in_features: int, features: int, generator=None) -> nn.Linear:
+def dense(in_features: int, features: int, generator=None, bias: bool = True) -> nn.Linear:
     """``nn.Linear`` with the torch-style initialisation from
-    ``generator``. Parameters stay f32; a caller that computes in bf16 casts
-    at the call (:func:`linear`)."""
-    lin = nn.Linear(in_features, features)
+    ``generator`` (``bias=False``: no bias). Parameters stay f32; a caller
+    that computes in bf16 casts at the call (:func:`linear`)."""
+    lin = nn.Linear(in_features, features, bias=bias)
     TorchLinearInit.uniform_(lin.weight, in_features, generator)
-    TorchLinearInit.uniform_(lin.bias, in_features, generator)
+    if bias:
+        TorchLinearInit.uniform_(lin.bias, in_features, generator)
     return lin
 
 
@@ -111,10 +113,14 @@ def linear(lin: nn.Linear, x, dtype=None):
 
 def site_linear(w, b, x, dtype=None):
     """A dense layer per site: ``x [S, N, in]`` with ``w [S, out, in]``
-    (``nn.Linear`` layout) and ``b [S, out]``, computing in ``dtype`` (None
-    = f32). One batched product; each site's weight gradient is its own."""
+    (``nn.Linear`` layout) and ``b [S, out]`` (None: no bias), computing in
+    ``dtype`` (None = f32). One batched product; each site's weight
+    gradient is its own."""
     if dtype is not None:
-        x, w, b = x.to(dtype), w.to(dtype), b.to(dtype)
+        x, w = x.to(dtype), w.to(dtype)
+        b = None if b is None else b.to(dtype)
+    if b is None:
+        return torch.bmm(x, w.transpose(1, 2))
     return torch.baddbmm(b.unsqueeze(1), x, w.transpose(1, 2))
 
 
@@ -136,6 +142,14 @@ def site_batchnorm_train(x, mask, weight, bias, running_mean, running_var,
         new_var = (1 - momentum) * running_var + momentum * unbiased[:, 0]
     y = (x - mean) * torch.rsqrt(var + eps)
     return y * weight[:, None] + bias[:, None], (new_mean, new_var)
+
+
+def site_batchnorm(x, mask, weight, bias, eps: float = 1e-5):
+    """:class:`BatchNorm` without running statistics for every site at
+    once: ``x [S, B, F]`` normalised by each site's ``mask [S, B]``-weighted
+    batch moments (train and eval alike), ``weight, bias [S, F]``."""
+    mean, var, _ = masked_moments(x, None if mask is None else mask[..., None], dim=1)
+    return (x - mean) * torch.rsqrt(var + eps) * weight[:, None] + bias[:, None]
 
 
 def site_dropout(x, rate: float, generator=None):

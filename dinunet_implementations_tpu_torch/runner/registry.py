@@ -1,7 +1,7 @@
 """Task registry: task id → model constructor, dataset, data handle and
 serving spec, and the training pieces a config names. The port serves and
-trains the ICA-LSTM task; the other tasks of the JAX package's registry
-are not ported yet."""
+trains the FreeSurfer task (MSANNet) and the ICA-LSTM task; the other
+tasks of the JAX package's registry are not ported yet."""
 
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ import torch
 from ..core.config import NNComputation, TrainConfig
 from ..core.device import resolve_device
 from ..data.api import DataHandle, SiteDataset
+from ..data.freesurfer import FreeSurferDataset, FSVDataHandle
 from ..data.ica import ICADataHandle, ICADataset
 from ..engines import Engine, build_engine
 from ..models.icalstm import ICALstm
+from ..models.msannet import MSANNet
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
 
 
@@ -42,11 +44,18 @@ def _ica_windows(a) -> int:
     return int(a.temporal_size / a.window_size)
 
 
+def _build_msannet(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> MSANNet:
+    """MSANNet of the ``fs_args`` widths; ``use_kernel`` is taken for the
+    builders' one signature (the model runs no kernel)."""
+    a = cfg.fs_args
+    return MSANNet(in_size=a.input_size, hidden_sizes=tuple(a.hidden_sizes),
+                   out_size=a.num_class, generator=generator)
+
+
 def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> ICALstm:
+    """ICALstm of the ``ica_args`` widths. ``num_layers`` is a parity
+    field: one BiLSTM layer is built whatever its value, as JAX builds."""
     a = cfg.ica_args
-    if a.num_layers != 1:
-        raise NotImplementedError(f"ICA num_layers={a.num_layers} is not ported: the port "
-                                  "builds one BiLSTM layer (ROADMAP A9)")
     return ICALstm(
         input_size=a.input_size,
         hidden_size=a.hidden_size,
@@ -61,6 +70,10 @@ def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
 
 
 TASKS: dict[str, TaskSpec] = {
+    NNComputation.TASK_FREE_SURFER: TaskSpec(
+        NNComputation.TASK_FREE_SURFER, _build_msannet, FreeSurferDataset, FSVDataHandle,
+        serving=ServingSpec(sample_shape=lambda cfg: (cfg.fs_args.input_size,)),
+    ),
     NNComputation.TASK_ICA: TaskSpec(
         NNComputation.TASK_ICA, _build_icalstm, ICADataset, ICADataHandle,
         serving=ServingSpec(
@@ -97,7 +110,7 @@ def build_training(cfg: TrainConfig, device=None,
                    use_kernel: bool = True) -> tuple[FederatedTask, Engine, Optimizer]:
     """The task (its model's weights drawn from ``cfg.seed``, on ``device``:
     the card unless the caller asks for ``"cpu"``), the aggregation engine
-    (dSGD, or rankDAD with the ``ica_args`` ``dad_*`` knobs) and the
+    (dSGD, rankDAD or powerSGD with the task args' ``dad_*`` knobs) and the
     optimizer that ``cfg`` names, for ``make_train_epoch_fn``.
     ``use_kernel=False`` runs the LSTM and the power iteration through the
     kernels' plain versions: the reference a check on the card holds the

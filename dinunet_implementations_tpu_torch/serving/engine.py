@@ -1,11 +1,14 @@
-"""InferenceEngine: continuously batched serving of a trained ICA-LSTM,
-batched lane only.
+"""InferenceEngine: continuously batched serving of a trained model of a
+ported task (MSANNet, ICA-LSTM), batched lane only.
 
 The counterpart of the JAX package's ``serving/engine.py``. Requests of
 ``[n, *sample_shape]`` rows go through the microbatcher, which pads each
 dispatch to the smallest row bucket that fits (weight-0 pad rows) and runs
 the task's :func:`~..trainer.steps.eval_forward` once on the device. On the
-card that forward runs the LSTM recurrence kernel twice, once per direction.
+card the ICA-LSTM forward runs the LSTM recurrence kernel twice, once per
+direction. MSANNet's BatchNorms normalize by the batch moments in eval
+too: the mask keeps the pad rows out of them, so a served answer depends on
+the real rows that share its dispatch, as in JAX.
 :meth:`InferenceEngine.warmup` runs every bucket once, so the kernel is
 built and loaded before the first request.
 """
@@ -23,7 +26,7 @@ from ..core.device import resolve_device
 from ..runner.registry import get_task
 from ..trainer.checkpoint import load_inference_state
 from ..trainer.steps import FederatedTask, eval_forward
-from ..weights import icalstm_params_from_jax
+from ..weights import params_from_jax
 from .microbatch import Microbatcher, RequestFuture
 
 #: serving shape buckets: the row capacities a dispatch pads to
@@ -53,7 +56,7 @@ class InferenceEngine:
     in the JAX package's format, through
     :func:`~..trainer.checkpoint.load_inference_state`; its meta is
     ``self.meta``), the JAX package's ``params``/``batch_stats`` numpy trees
-    (through :func:`~..weights.icalstm_params_from_jax`) or the port
+    (through :func:`~..weights.params_from_jax`) or the port
     model's own ``state_dict``. ``device=None`` means the card."""
 
     def __init__(self, cfg: TrainConfig, *, checkpoint: str | None = None, params=None,
@@ -69,8 +72,7 @@ class InferenceEngine:
         if checkpoint is not None:
             params, batch_stats, self.meta = load_inference_state(checkpoint)
         if params is not None:
-            state_dict = icalstm_params_from_jax(
-                params, batch_stats or {}, cfg.ica_args.bidirectional)
+            state_dict = params_from_jax(cfg, params, batch_stats or {})
         model = self.spec.build_model(cfg, torch.Generator().manual_seed(cfg.seed))
         model.load_state_dict(state_dict)
         self.task = FederatedTask(model.to(self.device).eval())

@@ -20,7 +20,9 @@ and ``personal``, and ``meta_json``. Trees are in JAX layout (flax kernels
 ``[in, out]``) through ``weights.train_state_to_jax`` /
 ``train_state_from_tree``, so a file the port writes restores in JAX with
 ``load_checkpoint(path, like=jax_state)`` and a file JAX writes restores
-here.
+here. The model's leaf table (``weights.LeafTable``) comes from the state
+at hand (the one saved, or ``like``): an MSANNet state writes the empty
+``batch_stats`` map that JAX writes for it.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ import torch
 from ..weights import (
     _params_to_port,
     engine_state_from_jax,
+    leaf_table,
+    table_of_port,
     train_state_from_tree,
     train_state_to_jax,
 )
@@ -132,14 +136,21 @@ def _meta(raw: dict) -> dict:
     return json.loads(meta)
 
 
+def _table(table, params):
+    """``table`` (see ``weights.leaf_table``), by default the one of the
+    port ``params``."""
+    return table_of_port(params) if table is None else leaf_table(table)
+
+
 def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
-                    rotate: bool = False, bidirectional: bool = True) -> str:
+                    rotate: bool = False, table=None) -> str:
     """Write ``state`` with ``meta`` (paired with it inside the payload) to
     ``path``. ``rotate=True`` first keeps the previous generation as
     ``path + '.prev'``. With a ``meta``, a human-readable
-    ``path + '.meta.json'`` sidecar is written too."""
+    ``path + '.meta.json'`` sidecar is written too. ``table`` defaults to
+    the one of the state's params."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    t = train_state_to_jax(state, bidirectional)
+    t = train_state_to_jax(state, _table(table, state.params))
     opt = t["opt_state"]
     first = ({"count": np.asarray(opt["count"], np.int32), "mu": opt["mu"], "nu": opt["nu"]}
              if opt else {})
@@ -179,7 +190,7 @@ def _same_shapes(got: dict, like: dict) -> bool:
 
 
 def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
-                    fallback: bool = True, bidirectional: bool = True):
+                    fallback: bool = True, table=None):
     """Restore a state of ``like``'s structure, on its device;
     ``with_meta=True`` also returns the paired meta. ``fallback`` (default
     on) retries ``path + '.prev'`` when ``path`` is missing, torn or
@@ -190,8 +201,10 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     the per-site health restore tolerantly: a stored tree that does not
     match ``like``'s (another engine or knob, another site count, absent
     in an older file) gives ``like``'s with a warning, a cold restart of
-    the warm-start carry or fresh counters."""
+    the warm-start carry or fresh counters. ``table`` defaults to the one
+    of ``like``'s params."""
     raw = _load_raw(path, fallback=fallback)
+    table = _table(table, like.params)
     dev = _device_of(like)
     opt = raw.get("opt_state", {})
     first = opt.get("0", {}) if isinstance(opt, dict) else {}
@@ -201,14 +214,14 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     tree = {"params": raw["params"], "batch_stats": raw.get("batch_stats", {}),
             "opt_state": first, "engine_state": {}, "rng": _seed(raw.get("rng"), like.rng),
             "round": raw["round"], "health": {}}
-    state = train_state_from_tree(tree, bidirectional, dev)
+    state = train_state_from_tree(tree, table, dev)
     for what, got, want in (("params", state.params, like.params),
                             ("batch_stats", state.batch_stats, like.batch_stats)):
         if not _same_shapes(got, want):
             raise ValueError(f"checkpoint {path}: {what} do not match the current model")
     engine_state = like.engine_state
     try:
-        stored = engine_state_from_jax(raw.get("engine_state") or {}, bidirectional, dev)
+        stored = engine_state_from_jax(raw.get("engine_state") or {}, table, dev)
         ok = stored.keys() == like.engine_state.keys() and all(
             _same_shapes(stored[k], like.engine_state[k]) for k in stored)
     except ValueError:
@@ -241,12 +254,13 @@ def load_meta(path: str, fallback: bool = True) -> dict:
     return _meta(_load_raw(path, fallback=fallback))
 
 
-def load_params(path: str, like_params: dict, bidirectional: bool = True) -> dict:
+def load_params(path: str, like_params: dict, table=None) -> dict:
     """A warm start: only the params of a checkpoint, by ``state_dict``
-    name, on ``like_params``' device and checked against its shapes."""
+    name, on ``like_params``' device and checked against its shapes.
+    ``table`` defaults to the one of ``like_params``."""
     raw = _load_raw(path)
     dev = next(iter(like_params.values())).device
-    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], bidirectional,
+    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], _table(table, like_params),
                                                       "params").items()}
     if not _same_shapes(params, like_params):
         raise ValueError(f"checkpoint {path}: params do not match the current model")

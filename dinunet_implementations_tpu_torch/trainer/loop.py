@@ -41,7 +41,7 @@ from ..data.api import SiteArrays, stack_site_inventory
 from ..data.batching import plan_epoch, plan_epoch_positions, plan_eval
 from ..engines import build_engine, make_dsgd
 from ..robustness.health import health_summary
-from ..weights import icalstm_params_from_jax
+from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
 from .logs import (
     duration,
@@ -106,7 +106,6 @@ class FederatedTrainer:
         self.engine = build_engine(cfg)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
         self._pipeline = cfg.pipeline
-        self._bidir = cfg.ica_args.bidirectional
         # the port's epoch writes no tensor of the state it is given, so a
         # kept state (the best one) needs no copy: JAX donates the carried
         # state and must snapshot it
@@ -286,15 +285,14 @@ class FederatedTrainer:
         if not resuming:
             if cfg.pretrained_path:
                 # params only: fresh optimizer and engine state
-                state.params = load_params(cfg.pretrained_path, state.params, self._bidir)
+                state.params = load_params(cfg.pretrained_path, state.params)
             if cfg.pretrain and cfg.pretrain_args and cfg.pretrain_args.epochs > 0:
                 state = self._pretrain(state, train_sites, verbose)
 
         best_metric, best_epoch, best_state = None, 0, state
         since_best, epoch_losses, iter_durations, start_epoch = 0, [], [], 1
         if resuming:
-            state, meta = load_checkpoint(latest_path, state, with_meta=True,
-                                          bidirectional=self._bidir)
+            state, meta = load_checkpoint(latest_path, state, with_meta=True)
             start_epoch = int(meta.get("epoch", 0)) + 1
             best_metric = meta.get("best_val_metric")
             best_epoch = int(meta.get("best_val_epoch", 0))
@@ -307,7 +305,7 @@ class FederatedTrainer:
             self._cache["cumulative_total_duration"] = cum
             if cum:  # continue the cumulative wall-clock line from its total
                 t_start = time.perf_counter() - cum[-1]
-            best_state = (load_checkpoint(best_path, state, bidirectional=self._bidir)
+            best_state = (load_checkpoint(best_path, state)
                           if os.path.exists(best_path) or os.path.exists(best_path + ".prev")
                           else state)
 
@@ -336,7 +334,7 @@ class FederatedTrainer:
                             save_checkpoint(best_path, best_state,
                                             meta={"best_val_epoch": best_epoch,
                                                   "best_val_metric": best_metric, "fold": fold},
-                                            rotate=True, bidirectional=self._bidir)
+                                            rotate=True)
                     else:
                         since_best += cfg.validation_epochs
                     if verbose:
@@ -359,7 +357,7 @@ class FederatedTrainer:
             duration(self._cache, t_start, "cumulative_total_duration")
             if latest_path:  # the rotating resume point, every epoch
                 save_checkpoint(
-                    latest_path, state, rotate=True, bidirectional=self._bidir,
+                    latest_path, state, rotate=True,
                     meta={"epoch": epoch, "best_val_epoch": best_epoch,
                           "best_val_metric": best_metric, "since_best": since_best,
                           "fold": fold, "epoch_losses": epoch_losses,
@@ -440,7 +438,7 @@ class FederatedTrainer:
         # params and running statistics only: a full restore would tie the
         # test to the training run's site count through the engine state
         params, stats, meta = load_inference_state(ckpt)
-        sd = icalstm_params_from_jax(params, stats, self._bidir)
+        sd = params_from_jax(cfg, params, stats)
         state.params = {k: sd[k].to(self.device) for k in state.params}
         state.batch_stats = {k: sd[k].to(self.device) for k in state.batch_stats}
         results = self._test_results(state, test_sites, int(meta.get("best_val_epoch", 0)),
@@ -490,6 +488,5 @@ class FederatedTrainer:
         write_test_metrics_csv(d, fold, results["test_scores"])
         save_checkpoint(os.path.join(d, "checkpoint_best.msgpack"), best_state,
                         meta={"best_val_epoch": results["best_val_epoch"],
-                              "best_val_metric": results["best_val_metric"], "fold": fold},
-                        bidirectional=self._bidir)
+                              "best_val_metric": results["best_val_metric"], "fold": fold})
         zip_global_results(self.out_dir, num_sites=self._num_sites, task_id=cfg.task_id)

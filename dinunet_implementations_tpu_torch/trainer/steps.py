@@ -4,7 +4,7 @@
 Eval: :class:`FederatedTask` and :func:`eval_forward`, the one inference
 forward that the serving engine runs; :func:`make_eval_fn` runs it over
 dense per-site batches from a training state, every site of a step folded
-into the rows of one call.
+into the rows of one call where the model's eval BatchNorm allows it.
 
 Training: :func:`make_train_epoch_fn` runs one epoch of federated
 training (the engine's aggregation: dSGD or rankDAD) with every site
@@ -22,7 +22,8 @@ aggregate.
 Per-site gradients come from an explicit site axis: each round the
 parameters enter the model as stride-0 views ``[S, ...]`` (every site
 provably holds the same values), the model runs all sites in one pass
-(``ICALstm.site_forward``: the LSTM kernels fold sites into rows), and
+(``ICALstm.site_forward``: the LSTM kernels fold sites into rows;
+``MSANNet.site_forward``: batched products and per-site BatchNorms), and
 autograd returns each site's own gradient ``[S, ...]``, where JAX takes
 ``vmap(grad)``.
 """
@@ -92,14 +93,19 @@ def make_eval_fn(task: FederatedTask, device=None):
     per-site ``probs [S, steps, B, C]``, ``loss_sum [S]`` and ``weight_sum
     [S]``; metric scalars are computed on the host (trainer/metrics.py).
 
-    Each step copies its ``[S, B, ...]`` block to the device and folds the
-    sites into the rows of one :func:`eval_forward` call, the forward the
-    serving engine runs (two K1 launches on the card, one a direction):
-    eval-mode BatchNorm normalizes each row by the running statistics, so
-    folding is exact. Weight-0 rows are padding: they carry weight 0 into
-    the loss sum through ``mask=``. This is JAX's ``make_eval_fn`` with
+    Each step copies its ``[S, B, ...]`` block to the device and runs
+    :func:`eval_forward`, the forward the serving engine runs. A model
+    whose eval BatchNorm normalizes each row by the running statistics
+    (``eval_folds_sites``: ICALstm) folds the sites into the rows of one
+    call (two K1 launches on the card, one a direction), which is exact.
+    A model whose BatchNorms take the batch moments in eval too (MSANNet)
+    runs each site's rows in a call of their own, so each site is
+    normalized by its own rows, as JAX's per-site ``vmap`` does. Weight-0
+    rows are padding: they carry weight 0 into the loss sum and the
+    statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
     ``mesh=None`` and no personalization."""
     dev = resolve_device(device)
+    fold = getattr(task.model, "eval_folds_sites", True)
 
     def eval_fn(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]
@@ -109,8 +115,12 @@ def make_eval_fn(task: FederatedTask, device=None):
             x = _to_device(inputs[:, k], dev, torch.float32)
             y = _to_device(labels[:, k], dev)
             w = _to_device(weights[:, k], dev, torch.float32)
-            p, ce = eval_forward(st, x.reshape((S * B,) + x.shape[2:]), y.reshape(-1),
-                                 w.reshape(-1))
+            if fold:
+                p, ce = eval_forward(st, x.reshape((S * B,) + x.shape[2:]), y.reshape(-1),
+                                     w.reshape(-1))
+            else:
+                p, ce = (torch.stack(t) for t in zip(
+                    *(eval_forward(st, x[s], y[s], w[s]) for s in range(S))))
             probs.append(p.reshape(S, B, -1))
             loss_sum = loss_sum + (ce.reshape(S, B) * w).sum(1)
             w_sum = w_sum + w.sum(1)

@@ -1,31 +1,147 @@
-"""Weight bridge: the JAX package's ICA-LSTM variables and training state
-as the port's.
+"""Weight bridge: the JAX package's model variables and training state as
+the port's, for each ported model (ICALstm, MSANNet).
 
 The input is the nested dicts that the JAX model carries, with numpy arrays
-(or anything ``numpy.asarray`` takes) as leaves. Flax kernels are ``[in,
-out]`` and ``nn.Linear`` weights ``[out, in]``; the LSTM cells keep the JAX
-layout and both biases, ``b_ih`` and ``b_hh``, leaf for leaf. A tree with a
-missing or an extra leaf is rejected.
+(or anything ``numpy.asarray`` takes) as leaves. Each model has its own
+:class:`LeafTable`, which names every parameter and running statistic on
+both sides: flax kernels are ``[in, out]`` and ``nn.Linear`` weights
+``[out, in]``; the LSTM cells keep the JAX layout and both biases, ``b_ih``
+and ``b_hh``, leaf for leaf; MSANNet's BatchNorms keep no running
+statistics, so its ``batch_stats`` is empty. A tree with a missing or an
+extra leaf is rejected.
 
-:func:`train_state_from_jax` carries a whole JAX ``TrainState`` (its numpy
-leaves: params, batch_stats, the optax Adam ``count/mu/nu``, the engine
-state, round and health) into the port's :class:`~.trainer.steps.TrainState`,
-and :func:`train_state_to_jax` turns one back into numpy trees in JAX
-layout; :func:`train_state_from_tree` reads those trees back (the
-checkpoint files carry them). The engine states (rankDAD's per-site Ω
-``[S, n, r]``, powerSGD's per-site ``q [S, n, r]`` and ``e [S, m, n]``) are
-kept in the JAX matrix orientation by both packages, so they cross
-unchanged, leaf for leaf (None for a dense leaf).
+:func:`params_from_jax` turns ``(params, batch_stats)`` into the
+``state_dict`` of the model a config names. :func:`train_state_from_jax`
+carries a whole JAX ``TrainState`` (its numpy leaves: params,
+batch_stats, the optax Adam ``count/mu/nu``, the engine state, round and
+health) into the port's :class:`~.trainer.steps.TrainState`, and
+:func:`train_state_to_jax` turns one back into numpy trees in JAX layout;
+:func:`train_state_from_tree` reads those trees back (the checkpoint files
+carry them). These take the table from the tree itself unless one is
+given. The engine states (rankDAD's per-site Ω ``[S, n, r]``, powerSGD's
+per-site ``q [S, n, r]`` and ``e [S, m, n]``) are kept in the JAX matrix
+orientation by both packages, so they cross unchanged, leaf for leaf (None
+for a dense leaf).
 """
 
 from __future__ import annotations
+
+import re
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 _DENSE = ("encoder", "cls_fc1", "cls_fc2", "cls_fc3")
 _CELL = ("w_ih", "b_ih", "w_hh", "b_hh")
-_STATS = (("cls_bn.running_mean", "cls_bn/mean"), ("cls_bn.running_var", "cls_bn/var"))
+
+
+@dataclass(frozen=True)
+class LeafTable:
+    """One model's leaves: ``params`` holds ``(port name, JAX path,
+    transposed)`` for every parameter (``transposed``: the port keeps the
+    transpose of the JAX matrix), ``stats`` ``(port buffer name, JAX
+    path)`` for every running statistic."""
+
+    model: str
+    params: tuple
+    stats: tuple = ()
+
+    @property
+    def transposed(self) -> frozenset:
+        """The port parameters stored as the transpose of their JAX matrix
+        (``nn.Linear`` weights ``[out, in]``): what the low-rank engines
+        factorize through a transposed view."""
+        return frozenset(n for n, _, tr in self.params if tr)
+
+    @property
+    def leaf_index(self) -> dict:
+        """Each port parameter's index among the leaves of the JAX params
+        tree in ``jax.tree.flatten`` order, which sorts the keys at every
+        level: the key of powerSGD's first Q."""
+        names = sorted(self.params, key=lambda t: tuple(t[1].split("/")))
+        return {n: i for i, (n, _, _) in enumerate(names)}
+
+
+def icalstm_table(bidirectional: bool = True) -> LeafTable:
+    """ICALstm's leaves: the dense layers, one LSTM cell a direction and
+    the head BatchNorm with its running statistics."""
+    names = []
+    for n in _DENSE:
+        names += [(f"{n}.weight", f"{n}/kernel", True), (f"{n}.bias", f"{n}/bias", False)]
+    for d in ("fwd", "rev") if bidirectional else ("fwd",):
+        names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False) for leaf in _CELL]
+    names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
+    return LeafTable("ICALstm", tuple(names), (("cls_bn.running_mean", "cls_bn/mean"),
+                                               ("cls_bn.running_var", "cls_bn/var")))
+
+
+def msannet_table(n_hidden: int = 4) -> LeafTable:
+    """MSANNet's leaves: ``n_hidden`` bias-free linears and their
+    BatchNorms (no running statistics), and the biased head."""
+    names = []
+    for i in range(n_hidden):
+        names += [(f"linear_{i}.weight", f"linear_{i}/kernel", True),
+                  (f"bn_{i}.weight", f"bn_{i}/scale", False),
+                  (f"bn_{i}.bias", f"bn_{i}/bias", False)]
+    names += [("fc_out.weight", "fc_out/kernel", True), ("fc_out.bias", "fc_out/bias", False)]
+    return LeafTable("MSANNet", tuple(names))
+
+
+def leaf_table(which=True) -> LeafTable:
+    """The table of a ``TrainConfig``'s model (keyed by its task), a
+    :class:`LeafTable` itself, or a bool: ICALstm's with that
+    ``bidirectional``."""
+    if isinstance(which, LeafTable):
+        return which
+    if isinstance(which, bool):
+        return icalstm_table(which)
+    from .core.config import NNComputation
+
+    if which.task_id == NNComputation.TASK_ICA:
+        return icalstm_table(which.ica_args.bidirectional)
+    if which.task_id == NNComputation.TASK_FREE_SURFER:
+        return msannet_table(len(which.fs_args.hidden_sizes))
+    raise ValueError(f"task {which.task_id!r} is not ported")
+
+
+def _hidden_count(keys, pattern: str) -> int:
+    return sum(1 for k in keys if re.fullmatch(pattern, k))
+
+
+def table_of_jax(params) -> LeafTable:
+    """The table of a JAX params tree, told by its top-level keys."""
+    keys = set(params)
+    if "lstm" in keys:
+        return icalstm_table("rev" in params["lstm"])
+    if "fc_out" in keys:
+        return msannet_table(_hidden_count(keys, r"linear_\d+"))
+    raise ValueError(f"not the params of a ported model: keys {sorted(keys)}")
+
+
+def table_of_port(params) -> LeafTable:
+    """The table of the port's params, told by their ``state_dict`` names."""
+    if "lstm.fwd.w_ih" in params:
+        return icalstm_table("lstm.rev.w_ih" in params)
+    if "fc_out.weight" in params:
+        return msannet_table(_hidden_count(params, r"linear_\d+\.weight"))
+    raise ValueError(f"not the params of a ported model: names {sorted(params)}")
+
+
+def _param_names(bidirectional: bool) -> tuple:
+    """``(port name, JAX path, transposed)`` for every ICALstm parameter."""
+    return icalstm_table(bidirectional).params
+
+
+def jax_transposed_leaves(which=True) -> frozenset:
+    """:attr:`LeafTable.transposed` of ``which`` (see :func:`leaf_table`:
+    a config, a table, or ICALstm's ``bidirectional``)."""
+    return leaf_table(which).transposed
+
+
+def jax_leaf_index(which=True) -> dict:
+    """:attr:`LeafTable.leaf_index` of ``which`` (see :func:`leaf_table`)."""
+    return leaf_table(which).leaf_index
 
 
 def _leaves(tree, prefix=()) -> dict:
@@ -50,32 +166,6 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _param_names(bidirectional: bool) -> list[tuple[str, str, bool]]:
-    """``(port name, JAX path, transposed)`` for every parameter."""
-    names = []
-    for n in _DENSE:
-        names += [(f"{n}.weight", f"{n}/kernel", True), (f"{n}.bias", f"{n}/bias", False)]
-    for d in ("fwd", "rev") if bidirectional else ("fwd",):
-        names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False) for leaf in _CELL]
-    names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
-    return names
-
-
-def jax_transposed_leaves(bidirectional: bool = True) -> frozenset:
-    """The port parameters stored as the transpose of their JAX matrix
-    (``nn.Linear`` weights ``[out, in]``): what the low-rank engines
-    factorize through a transposed view."""
-    return frozenset(n for n, _, tr in _param_names(bidirectional) if tr)
-
-
-def jax_leaf_index(bidirectional: bool = True) -> dict:
-    """Each port parameter's index among the leaves of the JAX params tree
-    in ``jax.tree.flatten`` order, which sorts the keys at every level:
-    the key of powerSGD's first Q."""
-    names = sorted(_param_names(bidirectional), key=lambda t: tuple(t[1].split("/")))
-    return {n: i for i, (n, _, _) in enumerate(names)}
-
-
 def _t(a) -> torch.Tensor:
     """A contiguous f32 CPU tensor of its own: from numpy (a transposed
     view too), or from a tensor of any float dtype (a bf16 checkpoint
@@ -93,42 +183,52 @@ def _check_leaves(problems: list, what: str, have: dict, want: set) -> None:
         problems.append(f"{what} is missing leaves {sorted(want - set(have))}")
 
 
-def _raise_if(problems: list) -> None:
+def _raise_if(problems: list, table: LeafTable) -> None:
     if problems:
-        raise ValueError("not an ICALstm variable tree: " + "; ".join(problems))
+        raise ValueError(f"not an {table.model} variable tree: " + "; ".join(problems))
 
 
-def _port_params(p: dict, bidirectional: bool) -> dict:
-    return {n: _t(p[j].T if tr else p[j]) for n, j, tr in _param_names(bidirectional)}
+def _port_params(p: dict, table: LeafTable) -> dict:
+    return {n: _t(p[j].T if tr else p[j]) for n, j, tr in table.params}
 
 
-def _params_to_port(tree, bidirectional: bool, what: str) -> dict:
-    """A params-shaped JAX tree (Adam's mu or nu) as port tensors by
-    ``state_dict`` name."""
+def _params_to_port(tree, table: LeafTable, what: str) -> dict:
+    """A params-shaped JAX tree (the params, Adam's mu or nu) as port
+    tensors by ``state_dict`` name."""
     p, problems = _leaves(tree), []
-    _check_leaves(problems, what, p, {j for _, j, _ in _param_names(bidirectional)})
-    _raise_if(problems)
-    return _port_params(p, bidirectional)
+    _check_leaves(problems, what, p, {j for _, j, _ in table.params})
+    _raise_if(problems, table)
+    return _port_params(p, table)
 
 
-def _params_to_jax(tensors: dict, bidirectional: bool) -> dict:
+def _params_to_jax(tensors: dict, table: LeafTable) -> dict:
     flat = {}
-    for n, j, tr in _param_names(bidirectional):
+    for n, j, tr in table.params:
         a = tensors[n].detach().cpu().numpy()
         flat[j] = a.T if tr else a
     return _nest(flat)
 
 
+def _state_dict_from(table: LeafTable, params, batch_stats) -> dict:
+    p, s, problems = _leaves(params), _leaves(batch_stats), []
+    _check_leaves(problems, "params", p, {j for _, j, _ in table.params})
+    _check_leaves(problems, "batch_stats", s, {j for _, j in table.stats})
+    _raise_if(problems, table)
+    sd = _port_params(p, table)
+    sd.update({n: _t(s[j]) for n, j in table.stats})
+    return sd
+
+
+def params_from_jax(cfg, params, batch_stats) -> dict:
+    """``(params, batch_stats)`` of the JAX model that ``cfg``'s task names
+    → the port model's ``state_dict`` (f32 CPU tensors)."""
+    return _state_dict_from(leaf_table(cfg), params, batch_stats)
+
+
 def icalstm_params_from_jax(params, batch_stats, bidirectional: bool = True) -> dict:
     """``(params, batch_stats)`` of the JAX ``ICALstm`` → the port
     :class:`~.models.icalstm.ICALstm`'s ``state_dict`` (f32 CPU tensors)."""
-    p, s, problems = _leaves(params), _leaves(batch_stats), []
-    _check_leaves(problems, "params", p, {j for _, j, _ in _param_names(bidirectional)})
-    _check_leaves(problems, "batch_stats", s, {j for _, j in _STATS})
-    _raise_if(problems)
-    sd = _port_params(p, bidirectional)
-    sd.update({n: _t(s[j]) for n, j in _STATS})
-    return sd
+    return _state_dict_from(icalstm_table(bidirectional), params, batch_stats)
 
 
 def _adam_part(opt_state):
@@ -138,17 +238,18 @@ def _adam_part(opt_state):
     return next((p for p in parts if hasattr(p, "mu") and hasattr(p, "nu")), None)
 
 
-def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device=None):
+def train_state_from_jax(state, table=None, rng: int = 0, device=None):
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) as the port's ``TrainState`` on ``device`` (the card unless
-    the caller asks for ``"cpu"``). JAX's PRNG key does not carry over:
+    the caller asks for ``"cpu"``). ``table`` (see :func:`leaf_table`)
+    defaults to the params tree's own. JAX's PRNG key does not carry over:
     the port draws dropout from ``rng``."""
     adam = _adam_part(state.opt_state)
     opt = {} if adam is None else {"count": adam.count, "mu": adam.mu, "nu": adam.nu}
     return train_state_from_tree(
         {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
          "engine_state": state.engine_state, "rng": rng, "round": state.round,
-         "health": state.health}, bidirectional, device)
+         "health": state.health}, table, device)
 
 
 #: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
@@ -156,72 +257,77 @@ def train_state_from_jax(state, bidirectional: bool = True, rng: int = 0, device
 _ENGINE_STATES = ({"omega"}, {"q", "e"})
 
 
-def engine_state_from_jax(engine_state, bidirectional: bool = True, device=None) -> dict:
+def engine_state_from_jax(engine_state, table=True, device=None) -> dict:
     """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``,
-    powerSGD's ``{"q": ..., "e": ...}``) as the port's, by ``state_dict``
-    name; raises ``ValueError`` for a tree of other leaves."""
+    powerSGD's ``{"q": ..., "e": ...}``) of the model of ``table`` (see
+    :func:`leaf_table`) as the port's, by ``state_dict`` name; raises
+    ``ValueError`` for a tree of other leaves."""
     if not engine_state:
         return {}
+    table = leaf_table(table)
     if set(engine_state) not in _ENGINE_STATES:
         raise ValueError(f"not an engine state of the port: keys {sorted(engine_state)}")
     out, problems = {}, []
     for key in sorted(engine_state):
         tree = _leaves(engine_state[key])
-        _check_leaves(problems, f"engine_state {key}", tree,
-                      {j for _, j, _ in _param_names(bidirectional)})
-        _raise_if(problems)
+        _check_leaves(problems, f"engine_state {key}", tree, {j for _, j, _ in table.params})
+        _raise_if(problems, table)
         out[key] = {n: None if tree[j] is None else _t(tree[j]).to(device)
-                    for n, j, _ in _param_names(bidirectional)}
+                    for n, j, _ in table.params}
     return out
 
 
-def train_state_from_tree(tree: dict, bidirectional: bool = True, device=None):
+def train_state_from_tree(tree: dict, table=None, device=None):
     """A training state as numpy trees in JAX layout (what
     :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
     ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
     ``rng`` (the port's int seed), ``round``, ``health``) as the port's
     ``TrainState`` on ``device`` (the card unless the caller asks for
-    ``"cpu"``)."""
+    ``"cpu"``). ``table`` (see :func:`leaf_table`) defaults to the params
+    tree's own."""
     from .core.device import resolve_device
     from .trainer.steps import TrainState
 
     dev = resolve_device(device)
-    sd = icalstm_params_from_jax(tree["params"], tree["batch_stats"], bidirectional)
-    params = {n: sd[n].to(dev) for n, _, _ in _param_names(bidirectional)}
-    stats = {n: sd[n].to(dev) for n, _ in _STATS}
+    table = table_of_jax(tree["params"]) if table is None else leaf_table(table)
+    sd = _state_dict_from(table, tree["params"], tree["batch_stats"])
+    params = {n: sd[n].to(dev) for n, _, _ in table.params}
+    stats = {n: sd[n].to(dev) for n, _ in table.stats}
     opt, opt_state = tree["opt_state"], {}
     if opt:
         opt_state = {
             "count": torch.tensor(int(np.asarray(opt["count"])), dtype=torch.int32, device=dev),
-            "mu": {n: v.to(dev) for n, v in _params_to_port(opt["mu"], bidirectional, "mu").items()},
-            "nu": {n: v.to(dev) for n, v in _params_to_port(opt["nu"], bidirectional, "nu").items()},
+            "mu": {n: v.to(dev) for n, v in _params_to_port(opt["mu"], table, "mu").items()},
+            "nu": {n: v.to(dev) for n, v in _params_to_port(opt["nu"], table, "nu").items()},
         }
     health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
               for k, v in tree["health"].items()}
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
-                      engine_state=engine_state_from_jax(tree["engine_state"], bidirectional, dev),
+                      engine_state=engine_state_from_jax(tree["engine_state"], table, dev),
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health)
 
 
-def train_state_to_jax(state, bidirectional: bool = True) -> dict:
+def train_state_to_jax(state, table=None) -> dict:
     """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
-    them), ``rng`` (the int seed), ``round``
-    and ``health``."""
+    them), ``rng`` (the int seed), ``round`` and ``health``. ``table``
+    (see :func:`leaf_table`) defaults to the one of the state's params."""
+    table = table_of_port(state.params) if table is None else leaf_table(table)
     opt = {}
     if state.opt_state:
         opt = {"count": int(state.opt_state["count"]),
-               "mu": _params_to_jax(state.opt_state["mu"], bidirectional),
-               "nu": _params_to_jax(state.opt_state["nu"], bidirectional)}
+               "mu": _params_to_jax(state.opt_state["mu"], table),
+               "nu": _params_to_jax(state.opt_state["nu"], table)}
     return {
-        "params": _params_to_jax(state.params, bidirectional),
-        "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy() for n, j in _STATS}),
+        "params": _params_to_jax(state.params, table),
+        "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy()
+                              for n, j in table.stats}),
         "opt_state": opt,
         "engine_state": {key: _nest({
             j: None if tree[n] is None else tree[n].detach().cpu().numpy()
-            for n, j, _ in _param_names(bidirectional)})
+            for n, j, _ in table.params})
             for key, tree in state.engine_state.items()},
         "rng": int(state.rng),
         "round": int(state.round),

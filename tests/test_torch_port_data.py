@@ -136,10 +136,12 @@ def test_resolve_site_configs_with_gui_lists_matches_jax(tmp_path):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         for f in dataclasses.fields(tconfig.TrainConfig):
-            if f.name != "ica_args":
+            if f.name not in ("fs_args", "ica_args"):
                 assert getattr(g, f.name) == getattr(w, f.name), f.name
         for f in dataclasses.fields(tconfig.ICAArgs):
             assert getattr(g.ica_args, f.name) == getattr(w.ica_args, f.name), f.name
+        for f in dataclasses.fields(tconfig.FSArgs):
+            assert getattr(g.fs_args, f.name) == getattr(w.fs_args, f.name), f.name
     assert got[0].split_ratio == (0.6, 0.2, 0.2) and got[0].ica_args.split_files == ("a.json",)
     assert got[2].ica_args == got[0].ica_args  # site 2 cycles to entry 0
     assert got[0].task_args() is got[0].ica_args
