@@ -123,8 +123,13 @@ def test_engine_rejects_bad_weights_and_requests():
         InferenceEngine(_cfg(), params=broken, batch_stats=stats, device="cpu")
     with pytest.raises(ServingError, match="either params"):
         InferenceEngine(_cfg(), device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    # the default task (FS) takes MSANNet's tree, not this ICA-LSTM's; the
+    # tasks the port lacks are refused by name
+    with pytest.raises(ValueError, match="not an MSANNet variable tree"):
         InferenceEngine(tconfig.TrainConfig(), params=params, batch_stats=stats, device="cpu")
+    with pytest.raises(ValueError, match="not ported"):
+        InferenceEngine(tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D),
+                        params=params, batch_stats=stats, device="cpu")
     with InferenceEngine(_cfg(), params=params, batch_stats=stats, row_buckets=(1, 2),
                          device="cpu") as eng:
         with pytest.raises(ServingError, match="warmup"):
@@ -221,6 +226,13 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # the native reader's loader and bridge are scanned too, and the loader
+    # compiles the port's own copy of fastio.cpp
+    for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py"):
+        assert PORT / part in files, part
+    loader = (PORT / "native" / "__init__.py").read_text()
+    assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()
+    assert "dinunet_implementations_tpu/" not in loader
     seen = set()
     for p in files:
         for mod in _IMPORT.findall(p.read_text()):
