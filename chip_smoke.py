@@ -125,7 +125,27 @@ result line:
    and hold finite metrics; the outputs exist with JAX's keys; the best
    checkpoint's q and e load back bit for bit. It prints the fit's and the
    pretraining's seconds and the checkpoint's bytes and save ms;
-14. one JSON line of per-kernel numbers, then the result line.
+14. the FS task (the JAX package's default) at MSANNet's full width (66 ->
+   256, 128, 64, 32 -> 2): a 5-site FreeSurfer demo tree of the reference
+   fixture's shape (sites of uneven size, 66 features); every site read
+   through the native batch reader (``native/fastio.cpp``, built with
+   g++) and the Python reader, bit for bit, timed, with no fallback; K7
+   at one FS rankDAD round's rank classes (r = 10: ``linear_0`` ..
+   ``linear_3`` through transposed views, on the route ``k7_geometry``
+   names, the direct route for rows of 66 values; r = 2: ``fc_out``)
+   against the plain version, timed with its bound; ``FedRunner`` fits of
+   fold 0 under dSGD, rankDAD (rank 10, warm starts) and powerSGD (rank
+   10), 3 epochs each on the device pipeline: no kernel launches but K7,
+   once a rank class and round on its route, outputs and the best
+   checkpoint checked, the warm epoch ms, fit seconds and peak memory
+   printed; one FS rankDAD epoch through K7 against the plain power
+   iteration (first-round aggregate within ``AGG_TOL``, Ω within
+   ``OMEGA_FIRST_TOL``); ``InferenceEngine`` from the rankDAD fit's best
+   checkpoint, one request a dispatch, each answer within 1e-5 of the
+   same forward on the CPU; the command line with no ``--task``: rankDAD
+   after one epoch of largest-site pretraining, then ``--site 0``, K7
+   counted for each part;
+15. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1042,18 +1062,18 @@ K7_TOL = {"f32": {"P": 1e-4, "Q": 1e-4, "PQ": 2e-5, "PQ_rank_below_r": 1e-3},
 K7_TRIPS_DIFFER_SHARE = 0.02
 
 
-def k7_leaves(torch):
+def k7_leaves(torch, cfg=None):
     """``(name, m, n, transposed)`` of every compressible leaf of the
-    full-width ICA-LSTM, in the JAX matrix orientation, and their rank
-    classes ``{r: [leaf, ...]}``."""
+    full-width model of ``cfg`` (default: the ICA-LSTM), in the JAX matrix
+    orientation, and their rank classes ``{r: [leaf, ...]}``."""
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.engines.lowrank import _matrix_shape, is_compressible
     from dinunet_implementations_tpu_torch.runner.registry import get_task
     from dinunet_implementations_tpu_torch.weights import jax_transposed_leaves
 
-    cfg = TrainConfig(task_id=NNComputation.TASK_ICA)
+    cfg = cfg or TrainConfig(task_id=NNComputation.TASK_ICA)
     model = get_task(cfg.task_id).build_model(cfg, torch.Generator().manual_seed(0))
-    tr = jax_transposed_leaves(cfg.ica_args.bidirectional)
+    tr = jax_transposed_leaves(cfg)
     classes: dict = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)[::-1] if name in tr else tuple(p.shape)
@@ -1891,13 +1911,13 @@ def state_err(a, b) -> float:
     return err
 
 
-def check_fit_outputs(out: str, task_id: str) -> dict:
+def check_fit_outputs(out: str, task_id: str, sites: int = FIT_SITES) -> dict:
     """Every site's and the remote's ``logs.json``, ``test_metrics.csv`` and
     the best checkpoint with its sidecar, in JAX's layout and keys."""
     def fold(site):
         return os.path.join(out, site, "simulatorRun", task_id, "fold_0")
 
-    for i in range(FIT_SITES):
+    for i in range(sites):
         with open(os.path.join(fold(f"local{i}"), "logs.json")) as fh:
             keys = set(json.load(fh))
         if keys != FIT_LOCAL_KEYS:
@@ -2254,6 +2274,413 @@ def cli_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
     return rec
 
 
+# The FS task (phase 14): the JAX package's default task at MSANNet's full
+# width (66 -> 256, 128, 64, 32 -> 2) on a tree of the reference fixture's
+# shape: 5 sites of uneven size, 66 aseg features.
+FS_TASK = "FS-Classification"
+FS_SITES, FS_SUBJECTS, FS_EPOCHS, FS_CLI_EPOCHS = 5, 85, 3, 2
+FS_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+# a served answer against the same forward on the CPU (f32 both, TF32 off),
+# each request in a dispatch of its own
+FS_SERVE_TOL = 1e-5
+FS_REQUEST_ROWS = (4, 7, 12, 16)
+
+
+def fs_site_dirs(tree: str) -> list[str]:
+    return [os.path.join(tree, "input", f"local{i}", "simulatorRun") for i in range(FS_SITES)]
+
+
+def fs_reader_phase(np, tree: str, smi: str) -> dict:
+    """The native batch reader against the Python reader on every site of
+    the tree: bit for bit, timed; no batch may fall back."""
+    import glob
+
+    from dinunet_implementations_tpu_torch.data import freesurfer, native_io
+
+    t0 = time.perf_counter()
+    built = native_io._load() is not None
+    build_s = time.perf_counter() - t0
+    if not built:
+        fail("the native aseg reader did not build (g++)")
+    native_io.reset_counts()
+    files = [sorted(glob.glob(os.path.join(d, "*_aseg_stats.txt"))) for d in fs_site_dirs(tree)]
+    t0 = time.perf_counter()
+    python = [np.stack([freesurfer.read_aseg_stats(f) for f in fs]) for fs in files]
+    python_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native = [native_io.read_aseg_batch(fs, 66) for fs in files]
+    native_ms = (time.perf_counter() - t0) * 1e3
+    for i, (a, b) in enumerate(zip(native, python)):
+        if a is None or a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            fail(f"site {i}: the native reader's batch differs from the Python reader's")
+    if native_io.READS != {"native": FS_SITES, "python": 0}:
+        fail(f"aseg batch reads {native_io.READS}: a batch fell back to the Python reader")
+    rec = {"subjects": [len(fs) for fs in files], "native_ms": native_ms,
+           "python_ms": python_ms, "native_build_s": build_s}
+    print(f"aseg readers, {sum(rec['subjects'])} files of 5 sites: native {native_ms:.3f} ms, "
+          f"Python {python_ms:.3f} ms (g++ build {build_s:.2f} s), bit for bit on {smi}")
+    return rec
+
+
+def fs_k7_routes(torch, pc, cfg, sites: int) -> dict:
+    """``{r: route}`` that ``k7_geometry`` names for each rank class of the
+    model of ``cfg`` at ``sites`` sites, on gradients laid out as the
+    engine hands them to K7 (``nn.Linear`` weights as transposed views)."""
+    routes = {}
+    for r, leaves in k7_leaves(torch, cfg).items():
+        Gs = [torch.zeros((sites, n, m), device="cuda").transpose(1, 2) if tr
+              else torch.zeros((sites, m, n), device="cuda") for _, m, n, tr in leaves]
+        routes[r] = k7_geometry_line(pc, Gs, r, None)["route"]
+    return routes
+
+
+def fs_k7_want(launches: dict, routes: dict, rounds: int) -> dict:
+    """The counts a path of ``rounds`` rankDAD rounds must show: one K7 a
+    rank class and round, on the route each class takes; nothing else."""
+    want = dict.fromkeys(launches, 0)
+    want["poweriter"] = len(routes) * rounds
+    for route in routes.values():
+        want[f"k7_{route}_route"] += rounds
+    return want
+
+
+def fs_k7_phase(torch, pc, cfg, smi: str) -> list[dict]:
+    """K7 against its plain version at one FS rankDAD round's rank classes
+    (5 sites, f32, cold Ω, tol 1e-3), on the route the launcher picks;
+    times, bound, route and counters. Trips are not compared at 20 members
+    (one member a refinement apart is 5 % of them)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = []
+    for r, leaves in k7_leaves(torch, cfg).items():
+        Gs = k7_gradients(torch, leaves, gen, sites=FS_SITES)
+        cold, _ = k7_starts(torch, pc, leaves, Gs, r, gen)
+        geo = k7_geometry_line(pc, Gs, r, None)
+        before = (pc.POWERITER_STAGED_CALLS, pc.POWERITER_DIRECT_CALLS)
+        got = pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3)
+        torch.cuda.synchronize()
+        took = {"staged": pc.POWERITER_STAGED_CALLS - before[0],
+                "direct": pc.POWERITER_DIRECT_CALLS - before[1]}
+        if took != {"staged": int(geo["route"] == "staged"), "direct": int(geo["route"] == "direct")}:
+            fail(f"K7 FS rank {r}: took {took}, the geometry names {geo['route']}")
+        want = pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3)
+        rec = {"kernel": "poweriter", "task": FS_TASK, "rank": r,
+               "members": sum(G.shape[0] for G in Gs), "shapes": [list(G.shape) for G in Gs],
+               "dtype": "f32", "start": "cold", "tol": 1e-3, "route": geo["route"],
+               "why": geo.get("why"), "route_counters": took,
+               "geometry": {k: v for k, v in geo.items() if k != "why"}}
+        rec.update(k7_check(torch, f"FS rank {r}", Gs, r, got, want, "f32", False))
+        rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3), 30)
+        rec["plain_ms"] = time_ms(lambda: pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3), 5)
+        rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], False)
+        rec["library_ms"] = None
+        print(f"K7 FS rank {r}: route {geo['route']} ({geo.get('why', 'staged')}), {rec['ms']:.4f} "
+              f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms, P err "
+              f"{rec['P']:.3g} on {smi}")
+        print(json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
+           routes: dict) -> dict:
+    """One ``FedRunner`` fit of fold 0 on the FS tree (the default task),
+    its epochs timed; launches counted, outputs and the best checkpoint
+    checked."""
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, native_io
+    from dinunet_implementations_tpu_torch.runner import FedRunner, load_site_splits
+    from dinunet_implementations_tpu_torch.trainer import FederatedTrainer, load_checkpoint
+
+    runner = FedRunner(TrainConfig(agg_engine=engine, epochs=FS_EPOCHS, seed=0), tree, out)
+    fcfg = runner.cfg
+    a = fcfg.fs_args
+    if (fcfg.task_id, a.input_size, tuple(a.hidden_sizes), a.num_class, fcfg.num_sites) != (
+            FS_TASK, 66, (256, 128, 64, 32), 2, FS_SITES):
+        fail(f"the FS fit's config is not MSANNet's full width: {fcfg.task_id}, {a}")
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
+    epoch_ms: list = []
+    run_epoch = FederatedTrainer.run_epoch
+
+    def timed_epoch(self, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_epoch(self, *args, **kw)
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    FederatedTrainer.run_epoch = timed_epoch
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native_io.reset_counts()
+        zero_counters(lc, pc, bc)  # the main path's run starts here
+        t0 = time.perf_counter()
+        res = runner.run(folds=[0], verbose=False)[0]
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counters(lc, pc, bc)  # read before any check
+    finally:
+        FederatedTrainer.run_epoch = run_epoch
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    epochs = len(res["epoch_losses"])
+    want = (fs_k7_want(launches, routes, epochs * rounds) if engine == "rankDAD"
+            else dict.fromkeys(launches, 0))
+    if launches != want:
+        fail(f"FS {engine} fit launches {launches}, want {want}")
+    if native_io.READS != {"native": FS_SITES, "python": 0}:
+        fail(f"FS {engine} fit read its sites {native_io.READS}: a fallback to Python")
+    finite = [np.isfinite(res[k]).all() for k in ("epoch_losses", "test_metrics")]
+    if not all(finite) or not np.isfinite(list(res["test_scores"].values())).all():
+        fail(f"the FS {engine} fit's losses or test metrics are not finite: {res}")
+    outputs = check_fit_outputs(out, FS_TASK, FS_SITES)
+    restored = load_checkpoint(outputs["best_checkpoint"], res["state"])
+    for part in ("params", "batch_stats", "opt_state", "engine_state", "health"):
+        if not same_tree(getattr(restored, part), getattr(res["state"], part)):
+            fail(f"FS {engine}: checkpoint_best.msgpack {part} differ from the fit's best state")
+    rec = {"card": smi, "engine": engine, "sites": FS_SITES,
+           "split": {k: [len(s) for s in fold[k]] for k in ("train", "validation", "test")},
+           "epochs": epochs, "rounds_per_epoch": rounds, "launches": launches,
+           "fit_seconds": fit_s, "epoch_ms": epoch_ms, "warm_epoch_ms": epoch_ms[-1],
+           "peak_memory_gb": peak_gb, "epoch_losses": res["epoch_losses"],
+           "test_metrics": res["test_metrics"], "test_scores": res["test_scores"],
+           "best_val_epoch": res["best_val_epoch"],
+           "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
+           "best_checkpoint": outputs["best_checkpoint"], "cfg": fcfg}
+    print(f"FS {engine} fit: {fit_s:.3f} s ({epochs} epochs of {rounds} rounds), warm epoch "
+          f"{epoch_ms[-1]:.3f} ms, peak memory {peak_gb:.4f} GB on {smi}")
+    return rec
+
+
+def fs_kernel_vs_plain(torch, np, lc, pc, bc, cfg, tree: str, routes: dict) -> dict:
+    """One FS rankDAD epoch through K7 against the same epoch through the
+    plain power iteration, from one state and one plan: the first round's
+    aggregate within ``AGG_TOL``, its Ω within ``OMEGA_FIRST_TOL`` of each
+    leaf's scale, the losses within phase 8's tolerances."""
+    from dinunet_implementations_tpu_torch.data import plan_epoch_positions, stack_site_inventory
+    from dinunet_implementations_tpu_torch.runner import (
+        FedRunner,
+        build_training,
+        load_site_splits,
+    )
+    from dinunet_implementations_tpu_torch.trainer import init_train_state, make_train_epoch_fn
+
+    runner = FedRunner(cfg, tree)
+    fold = load_site_splits(cfg, runner.site_dirs, runner.site_cfgs)[0]
+    inv = stack_site_inventory(fold["train"])
+    plan = plan_epoch_positions(fold["train"], cfg.batch_size, seed=1, pad_mode="wrap")
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = torch.from_numpy(plan.positions).cuda()
+    L = cfg.local_iterations
+    runs = {}
+    for use_kernel in (True, False):
+        task, engine, opt = build_training(cfg, device="cuda", use_kernel=use_kernel)
+        epoch = make_train_epoch_fn(task, engine, opt, L, cfg.quarantine_rounds, "cuda")
+        start = init_train_state(task, engine, opt, rng=cfg.seed, num_sites=FS_SITES)
+        zero_counters(lc, pc, bc)
+        one, _ = epoch(start, inv_x, inv_y, idx[:, :L])
+        end, losses = epoch(start, inv_x, inv_y, idx)
+        torch.cuda.synchronize()
+        runs[use_kernel] = (start, one, end, losses, read_counters(lc, pc, bc))
+    (sk, one_k, _, lk, ck), (sp, one_p, _, lp, cp) = runs[True], runs[False]
+    if not same_tree(sk.params, sp.params):
+        fail("the FS kernel and plain epochs start from different weights")
+    rounds = idx.shape[1] // L
+    if ck != fs_k7_want(ck, routes, 1 + rounds) or cp["poweriter"] != 0:
+        fail(f"FS rankDAD epochs launched {ck} (kernel) and {cp} (plain)")
+    agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
+    omega = lambda s: {k: v for k, v in s.engine_state["omega"].items()  # noqa: E731
+                       if v is not None}
+    first = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+             for g, w in zip(omega(one_k).values(), omega(one_p).values(), strict=True)]
+    dl = (lk - lp).abs()
+    checks = {"first_round_aggregate": tree_err(agg(one_k), agg(one_p), **AGG_TOL),
+              "first_round_omega": (max(first), max(first) <= OMEGA_FIRST_TOL),
+              "first_loss": (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL),
+              "loss": (dl.max().item(), bool(lk.isfinite().all()) and dl.max().item() <= LOSS_TOL)}
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        fail(f"the FS rankDAD epoch through K7 differs from the plain path in {bad}: {checks}")
+    rec = {"rounds": rounds, "launches": ck,
+           "max_abs_err_vs_plain": {k: e for k, (e, _) in checks.items()},
+           "first_round_omega": leaf_errs(omega(one_k), omega(one_p))}
+    print("FS rankDAD epoch, K7 against plain:", json.dumps(rec))
+    return rec
+
+
+def fs_serving(torch, np, smi: str, cfg, best: str, rows) -> dict:
+    """``InferenceEngine(cfg, checkpoint=best)`` on the card answers one
+    request a dispatch; each answer against the same forward through the
+    port on the CPU."""
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.runner import build_model
+    from dinunet_implementations_tpu_torch.trainer import FederatedTask, eval_forward
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import load_inference_state
+    from dinunet_implementations_tpu_torch.weights import params_from_jax
+
+    params, stats, _ = load_inference_state(best)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(params_from_jax(cfg, params, stats))
+    task = FederatedTask(cpu.eval())
+    reqs, at = [], 0
+    for n in FS_REQUEST_ROWS:
+        reqs.append(np.ascontiguousarray(rows[at:at + n]))
+        at += n
+    with InferenceEngine(cfg, checkpoint=best) as eng:
+        eng.warmup()
+        got = [eng.submit(r).result(timeout=120) for r in reqs]  # one request a dispatch
+        summary = eng.summary()
+    err = 0.0
+    for r, g in zip(reqs, got):
+        want = eval_forward(task, torch.from_numpy(r), None, torch.ones(len(r))).numpy()
+        if g.shape != want.shape:
+            fail(f"FS served answer shaped {g.shape}, want {want.shape}")
+        err = max(err, float(np.abs(g - want).max()))
+    if summary["dispatches"] != len(reqs) or err > FS_SERVE_TOL:
+        fail(f"FS serving: {summary['dispatches']} dispatches for {len(reqs)} requests, "
+             f"max abs err {err} against the CPU forward")
+    rec = {"requests": [len(r) for r in reqs], "dispatches": summary["dispatches"],
+           "max_abs_err_vs_cpu": err, "latency_ms_p50": summary["latency_ms_p50"]}
+    print(f"FS serving: {len(reqs)} requests, one a dispatch, within {err:.3g} of the CPU "
+          f"forward on {smi}")
+    return rec
+
+
+def fs_cli(torch, np, lc, pc, bc, smi: str, tree: str, root: str, routes: dict) -> dict:
+    """The command line with no ``--task`` on the FS tree: a rankDAD fit of
+    fold 0 after one epoch of largest-site pretraining, then ``--site 0``;
+    launches counted for each part."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+    from dinunet_implementations_tpu_torch.data import build_site_dataset, epoch_steps
+    from dinunet_implementations_tpu_torch.data.splits import resolve_splits
+    from dinunet_implementations_tpu_torch.runner import FedRunner, cli, load_site_splits
+    from dinunet_implementations_tpu_torch.runner.registry import get_task, task_cache
+    from dinunet_implementations_tpu_torch.trainer import FederatedTrainer
+
+    out = os.path.join(root, "fs_cli")
+    args = ["--data-path", tree, "--engine", "rankDAD", "--quiet"]
+    fed_args = args + ["--folds", "0", "--epochs", str(FS_CLI_EPOCHS), "--out-dir", out,
+                       "--set", "pretrain=true", "--set", 'pretrain_args={"epochs": 1}']
+    runner = FedRunner(TrainConfig(agg_engine="rankDAD"), tree)
+    fcfg = runner.cfg
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
+    pre: dict = {}
+    pretrain = FederatedTrainer._pretrain
+
+    def timed_pretrain(self, *a, **k):
+        torch.cuda.synchronize()
+        before, t0 = read_counters(lc, pc, bc), time.perf_counter()
+        state = pretrain(self, *a, **k)
+        torch.cuda.synchronize()
+        pre["seconds"] = time.perf_counter() - t0
+        pre["launches"] = {n: v - before[n] for n, v in read_counters(lc, pc, bc).items()}
+        pre["site"] = int(np.argmax([len(s) for s in a[1]]))
+        return state
+
+    FederatedTrainer._pretrain = timed_pretrain
+    try:
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)  # the main path's run starts here
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as fed_out:
+            rc = cli.main(fed_args)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read_counters(lc, pc, bc)  # read before any check
+    finally:
+        FederatedTrainer._pretrain = pretrain
+    want = fs_k7_want(launches, routes, FS_CLI_EPOCHS * rounds)
+    if rc != 0 or launches != want or pre.get("launches") != dict.fromkeys(launches, 0):
+        fail(f"FS cli fit exit code {rc}, launches {launches} (pretraining "
+             f"{pre.get('launches')}), want {want} (pretraining none)")
+    lines = [json.loads(x) for x in fed_out.getvalue().splitlines()]
+    keys = ["fold", "test_loss", "test_auc", "best_val_epoch"]
+    if (len(lines) != 1 or list(lines[0]) != keys or lines[0]["fold"] != 0
+            or not np.isfinite([lines[0][k] for k in keys[1:3]]).all()):
+        fail(f"FS cli fit printed {fed_out.getvalue()!r}")
+    check_fit_outputs(out, FS_TASK, FS_SITES)
+
+    # one site alone: SiteRunner's own split of site 0, one rankDAD fit of
+    # one site (every class's members are one)
+    scfg = runner.site_cfgs[0]
+    ds = build_site_dataset(get_task(FS_TASK).dataset_cls, get_task(FS_TASK).handle_cls,
+                            task_cache(scfg), {"baseDirectory": runner.site_dirs[0]})
+    splits = resolve_splits(len(ds), split_ratio=scfg.split_ratio, num_folds=scfg.num_folds,
+                            seed=scfg.seed)
+    site_rounds = sum(len(sp["train"]) // scfg.batch_size // scfg.local_iterations
+                      for sp in splits)
+    site_routes = fs_k7_routes(torch, pc, scfg, 1)
+    zero_counters(lc, pc, bc)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as site_out:
+        rc = cli.main(args + ["--site", "0", "--epochs", "1", "--out-dir",
+                              os.path.join(root, "fs_cli_site")])
+    torch.cuda.synchronize()
+    site_s = time.perf_counter() - t0
+    site_launches = read_counters(lc, pc, bc)
+    want_site = fs_k7_want(site_launches, site_routes, site_rounds)
+    site_lines = [json.loads(x) for x in site_out.getvalue().splitlines()]
+    if rc != 0 or site_launches != want_site or len(site_lines) != len(splits) or not np.isfinite(
+            [site_lines[0][k] for k in keys[1:3]]).all():
+        fail(f"FS cli --site 0: exit code {rc}, launches {site_launches}, want {want_site}, "
+             f"printed {site_out.getvalue()!r}")
+    rec = {"card": smi, "epochs": FS_CLI_EPOCHS, "rounds_per_epoch": rounds,
+           "fit_seconds": fit_s, "pretrain_seconds": pre["seconds"],
+           "pretrain_site": pre["site"], "launches": launches,
+           "pretrain_launches": pre["launches"], "json_lines": lines, "site_seconds": site_s,
+           "site_rounds": site_rounds, "site_routes": site_routes,
+           "site_launches": site_launches, "site_json_lines": site_lines}
+    print(f"FS cli (no --task): fit {fit_s:.3f} s, pretraining on site {pre['site']} "
+          f"{pre['seconds']:.3f} s; --site 0 {site_s:.3f} s on {smi}")
+    print("FS cli:", json.dumps(rec))
+    return rec
+
+
+def fs_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """Phase 14 of the module docstring: the FS tree, the readers, the K7
+    classes, the three fits, K7 against plain on an FS epoch, the served
+    fit and the command line."""
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+    from dinunet_implementations_tpu_torch.data import make_fs_demo_tree, plan_eval
+    from dinunet_implementations_tpu_torch.runner import FedRunner, load_site_splits
+
+    t_phase = time.perf_counter()
+    tree = make_fs_demo_tree(os.path.join(root, "fs_tree"), n_sites=FS_SITES,
+                             subjects=FS_SUBJECTS, seed=0)
+    readers = fs_reader_phase(np, tree, smi)
+    cfg = TrainConfig(agg_engine="rankDAD")
+    routes = fs_k7_routes(torch, pc, cfg, FS_SITES)
+    print(f"K7 routes at the FS classes, {FS_SITES} sites (k7_geometry): "
+          + ", ".join(f"r={r} {v}" for r, v in routes.items()))
+    k7 = fs_k7_phase(torch, pc, cfg, smi)
+    fits = {e: fs_fit(torch, np, lc, pc, bc, smi, e, tree, os.path.join(root, f"fs_{e}"), routes)
+            for e in FS_ENGINES}
+    fcfg = fits["rankDAD"].pop("cfg")
+    for e in FS_ENGINES:
+        fits[e].pop("cfg", None)
+    vs_plain = fs_kernel_vs_plain(torch, np, lc, pc, bc, fcfg, tree, routes)
+    runner = FedRunner(fcfg, tree)
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    fb = plan_eval(fold["test"], fcfg.batch_size)
+    rows = fb.inputs[fb.weights > 0]
+    serving = fs_serving(torch, np, smi, fcfg, fits["rankDAD"]["best_checkpoint"], rows)
+    cli_rec = fs_cli(torch, np, lc, pc, bc, smi, tree, root, routes)
+    rec = {"card": smi, "readers": readers, "k7_routes": routes, "k7": k7,
+           "fits": fits, "rankdad_vs_plain": vs_plain, "serving": serving, "cli": cli_rec,
+           "phase_seconds": time.perf_counter() - t_phase}
+    for e in FS_ENGINES:
+        f = fits[e]
+        print(f"FS {e}: warm epoch {f['warm_epoch_ms']:.3f} ms, fit {f['fit_seconds']:.3f} s, "
+              f"peak memory {f['peak_memory_gb']:.4f} GB, test {f['test_metrics']} on {smi}")
+    print("fs:", json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2328,6 +2755,11 @@ def main() -> int:
         print("== 13. the command line on phase 11's tree: a powerSGD fit with pretraining, "
               "then --site 0")
         cli = cli_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
+
+        print(f"== 14. the FS task at full width: a {FS_SITES}-site FreeSurfer tree, the "
+              "native reader, dSGD / rankDAD / powerSGD fits, K7 at the FS classes, serving "
+              "and the command line with no --task")
+        fs = fs_phase(torch, np, lc, pc, bc, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2345,6 +2777,10 @@ def main() -> int:
                    "training_powerSGD": train_psgd["launches"]["lstm_bwd"],
                    "cli": cli["launches"]["lstm_bwd"],
                    "cli_site": cli["site_launches"]["lstm_bwd"]}
+    k7_by_path = {"training_rankDAD": train_dad["launches"]["poweriter"],
+                  "fs_fit_rankDAD": fs["fits"]["rankDAD"]["launches"]["poweriter"],
+                  "fs_cli": fs["cli"]["launches"]["poweriter"],
+                  "fs_cli_site": fs["cli"]["site_launches"]["poweriter"]}
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -2380,8 +2816,7 @@ def main() -> int:
         "name": "poweriter", "route": "cuda",
         "source": "dinunet_implementations_tpu_torch/csrc/poweriter.cu",
         "replaces": "dinunet_implementations_tpu/ops/poweriter_pallas.py:164 (_poweriter_kernel)",
-        "launches": train_dad["launches"]["poweriter"],
-        "launches_by_path": {"training_rankDAD": train_dad["launches"]["poweriter"]},
+        "launches": sum(k7_by_path.values()), "launches_by_path": k7_by_path,
         "max_abs_err": max(s["P"] for s in k7 if s["dtype"] == "f32"),
         "ms": k7_main["ms"], "kernel_ms": k7_main["ms"], "plain_ms": k7_main["plain_ms"],
         "bound_ms": k7_main["bound_ms"], "bound_by": k7_main["bound_by"], "library_ms": None,
@@ -2395,6 +2830,9 @@ def main() -> int:
         # the streamed floor is computed, not measured: phase 7's lines carry it
         "shapes": [{k: v for k, v in s.items() if k != "streamed_floor_ms"}
                    for s in k7 if "ms" in s],
+        # the FS classes (phase 14): r = 10 on the route k7_geometry names
+        # for rows of 66 values, r = 2 staged
+        "fs_shapes": fs["k7"],
     }]
     one = one_model["launches"]
     fused_by_path = {

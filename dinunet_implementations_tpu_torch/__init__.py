@@ -4,9 +4,10 @@ to one NVIDIA H100.
 It mirrors the JAX package's layout (``models/``, ``ops/``, ``serving/``,
 ``trainer/``, ``runner/``, ``data/``, ``engines/``, …), so each module sits
 at the relative path of the module it is held against, and imports nothing
-of the JAX package. It serves the ICA-LSTM classifier, and trains it by
-federated dSGD, rankDAD or powerSGD with every site on one card (from
-Python, ``runner.FedRunner`` / ``runner.SiteRunner``, or the command line,
+of the JAX package. It serves the FreeSurfer MLP (MSANNet, the default
+task) and the ICA-LSTM classifier, and trains them by federated dSGD,
+rankDAD or powerSGD with every site on one card (from Python,
+``runner.FedRunner`` / ``runner.SiteRunner``, or the command line,
 ``python -m dinunet_implementations_tpu_torch.runner.cli``), through
 hand-written CUDA kernels for the LSTM recurrence forward and backward
 (``ops/lstm_cuda.py``, ``csrc/lstm_fwd.cu``, ``csrc/lstm_bwd.cu``) and for
@@ -15,16 +16,20 @@ rankDAD's power iteration (``ops/poweriter_cuda.py``,
 passes ``device="cpu"``.
 """
 
-from .core.config import ICAArgs, NNComputation, TrainConfig
+from .core.config import FSArgs, ICAArgs, NNComputation, TrainConfig
 from .models.icalstm import ICALstm
+from .models.msannet import MSANNet
 from .serving import InferenceEngine
-from .weights import icalstm_params_from_jax
+from .weights import icalstm_params_from_jax, params_from_jax
 
 __all__ = [
+    "FSArgs",
     "ICAArgs",
     "ICALstm",
     "InferenceEngine",
+    "MSANNet",
     "NNComputation",
     "TrainConfig",
     "icalstm_params_from_jax",
+    "params_from_jax",
 ]

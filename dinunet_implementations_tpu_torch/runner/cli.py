@@ -1,9 +1,12 @@
 """The command line: the port's counterpart of the JAX package's
 ``runner/cli.py``.
 
-    # a federated fit over a simulator tree, on the card
+    # a federated fit over a simulator tree, on the card: the FS task unless
+    # --task (or the tree's inputspec) names another
     python -m dinunet_implementations_tpu_torch.runner.cli \\
-        --data-path datasets/demo --task ICA-Classification --engine powerSGD --epochs 3
+        --data-path datasets/demo --engine rankDAD --epochs 3
+    python -m dinunet_implementations_tpu_torch.runner.cli \\
+        --data-path ica_tree --task ICA-Classification --engine powerSGD --epochs 3
 
     # one site alone (SiteRunner), resume, test only, on the CPU
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --site 0

@@ -28,7 +28,9 @@ from dinunet_implementations_tpu_torch.core import config as tconfig
 from dinunet_implementations_tpu_torch.data import demo as tdemo
 from dinunet_implementations_tpu_torch.data import freesurfer as tfs
 from dinunet_implementations_tpu_torch.data import native_io as tnio
+from dinunet_implementations_tpu_torch.engines import lowrank as tlowrank
 from dinunet_implementations_tpu_torch.models import msannet as tmsan
+from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
 from dinunet_implementations_tpu_torch.robustness import retry as tretry
 from dinunet_implementations_tpu_torch.runner import registry as treg
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
@@ -201,6 +203,38 @@ def test_fs_bridge_layouts_and_refusals():
     with pytest.raises(ValueError, match="not ported"):
         params_from_jax(tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D),
                         params, {})
+
+
+def test_k7_routes_at_the_fs_shapes():
+    """rankDAD over MSANNet at full width, 5 sites: the r = 10 class
+    (``linear_0`` .. ``linear_3``, JAX matrices [66, 256] .. [64, 32]) and
+    the r = 2 class (``fc_out``, [32, 2]), each one K7 launch a round. The
+    engine hands K7 transposed views of the ``nn.Linear`` gradients, so A =
+    Gᵀ; ``linear_0``'s A has rows of 66 values, not whole 16-byte chunks,
+    which sends its class to the direct route; the r = 2 class is staged
+    (an H100's 132 SMs and 232,448 bytes of opt-in shared memory)."""
+    cfg = tconfig.TrainConfig()
+    model = treg.build_model(cfg, device="cpu")
+    tr = jax_transposed_leaves(cfg)
+    classes: dict = {}
+    for name, p in model.named_parameters():
+        g = torch.zeros((5,) + tuple(p.shape))
+        G = g.transpose(1, 2) if name in tr else g
+        if tlowrank.is_compressible(G.shape[1:]):
+            classes.setdefault(min(10, *G.shape[1:]), []).append(G)
+    assert sorted(classes) == [2, 10]
+    assert [tuple(G.shape) for G in classes[10]] == [(5, 66, 256), (5, 256, 128), (5, 128, 64),
+                                                     (5, 64, 32)]
+    assert [tuple(G.shape) for G in classes[2]] == [(5, 32, 2)]
+    routes = {}
+    for r, Gs in classes.items():
+        assert pc.k7_takes([tuple(G.shape[-2:]) for G in Gs], r)
+        g = pc.k7_geometry([tuple(G.shape) for G in Gs], r, all(pc._aligned(G) for G in Gs),
+                           132, 232448, [pc._row_major(G) for G in Gs])
+        routes[r] = g["route"]
+        if r == 10:
+            assert "16-byte chunks" in g["why"] and g["blocks"] == 20
+    assert routes == {10: "direct", 2: "staged"}
 
 
 # -- ICA num_layers ------------------------------------------------------------
