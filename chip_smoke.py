@@ -2286,10 +2286,6 @@ FS_SERVE_TOL = 1e-5
 FS_REQUEST_ROWS = (4, 7, 12, 16)
 
 
-def fs_site_dirs(tree: str) -> list[str]:
-    return [os.path.join(tree, "input", f"local{i}", "simulatorRun") for i in range(FS_SITES)]
-
-
 def fs_reader_phase(np, tree: str, smi: str) -> dict:
     """The native batch reader against the Python reader on every site of
     the tree: bit for bit, timed; no batch may fall back."""
@@ -2303,7 +2299,8 @@ def fs_reader_phase(np, tree: str, smi: str) -> dict:
     if not built:
         fail("the native aseg reader did not build (g++)")
     native_io.reset_counts()
-    files = [sorted(glob.glob(os.path.join(d, "*_aseg_stats.txt"))) for d in fs_site_dirs(tree)]
+    files = [sorted(glob.glob(os.path.join(tree, "input", f"local{i}", "simulatorRun",
+                                           "*_aseg_stats.txt"))) for i in range(FS_SITES)]
     t0 = time.perf_counter()
     python = [np.stack([freesurfer.read_aseg_stats(f) for f in fs]) for fs in files]
     python_ms = (time.perf_counter() - t0) * 1e3
@@ -2447,27 +2444,21 @@ def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
            "test_metrics": res["test_metrics"], "test_scores": res["test_scores"],
            "best_val_epoch": res["best_val_epoch"],
            "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
-           "best_checkpoint": outputs["best_checkpoint"], "cfg": fcfg}
+           "best_checkpoint": outputs["best_checkpoint"]}
     print(f"FS {engine} fit: {fit_s:.3f} s ({epochs} epochs of {rounds} rounds), warm epoch "
           f"{epoch_ms[-1]:.3f} ms, peak memory {peak_gb:.4f} GB on {smi}")
     return rec
 
 
-def fs_kernel_vs_plain(torch, np, lc, pc, bc, cfg, tree: str, routes: dict) -> dict:
+def fs_kernel_vs_plain(torch, np, lc, pc, bc, cfg, fold: dict, routes: dict) -> dict:
     """One FS rankDAD epoch through K7 against the same epoch through the
     plain power iteration, from one state and one plan: the first round's
     aggregate within ``AGG_TOL``, its Ω within ``OMEGA_FIRST_TOL`` of each
     leaf's scale, the losses within phase 8's tolerances."""
     from dinunet_implementations_tpu_torch.data import plan_epoch_positions, stack_site_inventory
-    from dinunet_implementations_tpu_torch.runner import (
-        FedRunner,
-        build_training,
-        load_site_splits,
-    )
+    from dinunet_implementations_tpu_torch.runner import build_training
     from dinunet_implementations_tpu_torch.trainer import init_train_state, make_train_epoch_fn
 
-    runner = FedRunner(cfg, tree)
-    fold = load_site_splits(cfg, runner.site_dirs, runner.site_cfgs)[0]
     inv = stack_site_inventory(fold["train"])
     plan = plan_epoch_positions(fold["train"], cfg.batch_size, seed=1, pad_mode="wrap")
     inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
@@ -2653,19 +2644,16 @@ def fs_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     tree = make_fs_demo_tree(os.path.join(root, "fs_tree"), n_sites=FS_SITES,
                              subjects=FS_SUBJECTS, seed=0)
     readers = fs_reader_phase(np, tree, smi)
-    cfg = TrainConfig(agg_engine="rankDAD")
-    routes = fs_k7_routes(torch, pc, cfg, FS_SITES)
+    runner = FedRunner(TrainConfig(agg_engine="rankDAD"), tree)
+    fcfg = runner.cfg
+    routes = fs_k7_routes(torch, pc, fcfg, FS_SITES)
     print(f"K7 routes at the FS classes, {FS_SITES} sites (k7_geometry): "
           + ", ".join(f"r={r} {v}" for r, v in routes.items()))
-    k7 = fs_k7_phase(torch, pc, cfg, smi)
+    k7 = fs_k7_phase(torch, pc, fcfg, smi)
     fits = {e: fs_fit(torch, np, lc, pc, bc, smi, e, tree, os.path.join(root, f"fs_{e}"), routes)
             for e in FS_ENGINES}
-    fcfg = fits["rankDAD"].pop("cfg")
-    for e in FS_ENGINES:
-        fits[e].pop("cfg", None)
-    vs_plain = fs_kernel_vs_plain(torch, np, lc, pc, bc, fcfg, tree, routes)
-    runner = FedRunner(fcfg, tree)
     fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    vs_plain = fs_kernel_vs_plain(torch, np, lc, pc, bc, fcfg, fold, routes)
     fb = plan_eval(fold["test"], fcfg.batch_size)
     rows = fb.inputs[fb.weights > 0]
     serving = fs_serving(torch, np, smi, fcfg, fits["rankDAD"]["best_checkpoint"], rows)

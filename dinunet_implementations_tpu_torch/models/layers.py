@@ -148,7 +148,7 @@ def site_batchnorm(x, mask, weight, bias, eps: float = 1e-5):
     """:class:`BatchNorm` without running statistics for every site at
     once: ``x [S, B, F]`` normalised by each site's ``mask [S, B]``-weighted
     batch moments (train and eval alike), ``weight, bias [S, F]``."""
-    mean, var, _ = masked_moments(x, None if mask is None else mask[..., None], dim=1)
+    mean, var, _ = masked_moments(x, mask[..., None], dim=1)
     return (x - mean) * torch.rsqrt(var + eps) * weight[:, None] + bias[:, None]
 
 

@@ -39,7 +39,6 @@ import torch
 from ..weights import (
     _params_to_port,
     engine_state_from_jax,
-    leaf_table,
     table_of_port,
     train_state_from_tree,
     train_state_to_jax,
@@ -136,21 +135,14 @@ def _meta(raw: dict) -> dict:
     return json.loads(meta)
 
 
-def _table(table, params):
-    """``table`` (see ``weights.leaf_table``), by default the one of the
-    port ``params``."""
-    return table_of_port(params) if table is None else leaf_table(table)
-
-
 def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
-                    rotate: bool = False, table=None) -> str:
+                    rotate: bool = False) -> str:
     """Write ``state`` with ``meta`` (paired with it inside the payload) to
     ``path``. ``rotate=True`` first keeps the previous generation as
     ``path + '.prev'``. With a ``meta``, a human-readable
-    ``path + '.meta.json'`` sidecar is written too. ``table`` defaults to
-    the one of the state's params."""
+    ``path + '.meta.json'`` sidecar is written too."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    t = train_state_to_jax(state, _table(table, state.params))
+    t = train_state_to_jax(state)
     opt = t["opt_state"]
     first = ({"count": np.asarray(opt["count"], np.int32), "mu": opt["mu"], "nu": opt["nu"]}
              if opt else {})
@@ -190,7 +182,7 @@ def _same_shapes(got: dict, like: dict) -> bool:
 
 
 def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
-                    fallback: bool = True, table=None):
+                    fallback: bool = True):
     """Restore a state of ``like``'s structure, on its device;
     ``with_meta=True`` also returns the paired meta. ``fallback`` (default
     on) retries ``path + '.prev'`` when ``path`` is missing, torn or
@@ -201,10 +193,9 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     the per-site health restore tolerantly: a stored tree that does not
     match ``like``'s (another engine or knob, another site count, absent
     in an older file) gives ``like``'s with a warning, a cold restart of
-    the warm-start carry or fresh counters. ``table`` defaults to the one
-    of ``like``'s params."""
+    the warm-start carry or fresh counters."""
     raw = _load_raw(path, fallback=fallback)
-    table = _table(table, like.params)
+    table = table_of_port(like.params)
     dev = _device_of(like)
     opt = raw.get("opt_state", {})
     first = opt.get("0", {}) if isinstance(opt, dict) else {}
@@ -254,13 +245,12 @@ def load_meta(path: str, fallback: bool = True) -> dict:
     return _meta(_load_raw(path, fallback=fallback))
 
 
-def load_params(path: str, like_params: dict, table=None) -> dict:
+def load_params(path: str, like_params: dict) -> dict:
     """A warm start: only the params of a checkpoint, by ``state_dict``
-    name, on ``like_params``' device and checked against its shapes.
-    ``table`` defaults to the one of ``like_params``."""
+    name, on ``like_params``' device and checked against its shapes."""
     raw = _load_raw(path)
     dev = next(iter(like_params.values())).device
-    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], _table(table, like_params),
+    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], table_of_port(like_params),
                                                       "params").items()}
     if not _same_shapes(params, like_params):
         raise ValueError(f"checkpoint {path}: params do not match the current model")

@@ -105,7 +105,7 @@ def make_eval_fn(task: FederatedTask, device=None):
     statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
     ``mesh=None`` and no personalization."""
     dev = resolve_device(device)
-    fold = getattr(task.model, "eval_folds_sites", True)
+    fold = task.model.eval_folds_sites
 
     def eval_fn(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]

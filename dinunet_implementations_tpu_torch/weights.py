@@ -17,8 +17,7 @@ batch_stats, the optax Adam ``count/mu/nu``, the engine state, round and
 health) into the port's :class:`~.trainer.steps.TrainState`, and
 :func:`train_state_to_jax` turns one back into numpy trees in JAX layout;
 :func:`train_state_from_tree` reads those trees back (the checkpoint files
-carry them). These take the table from the tree itself unless one is
-given. The engine states (rankDAD's per-site Ω ``[S, n, r]``, powerSGD's
+carry them). These read the model's table off the tree itself. The engine states (rankDAD's per-site Ω ``[S, n, r]``, powerSGD's
 per-site ``q [S, n, r]`` and ``e [S, m, n]``) are kept in the JAX matrix
 orientation by both packages, so they cross unchanged, leaf for leaf (None
 for a dense leaf).
@@ -238,18 +237,18 @@ def _adam_part(opt_state):
     return next((p for p in parts if hasattr(p, "mu") and hasattr(p, "nu")), None)
 
 
-def train_state_from_jax(state, table=None, rng: int = 0, device=None):
+def train_state_from_jax(state, rng: int = 0, device=None):
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) as the port's ``TrainState`` on ``device`` (the card unless
-    the caller asks for ``"cpu"``). ``table`` (see :func:`leaf_table`)
-    defaults to the params tree's own. JAX's PRNG key does not carry over:
-    the port draws dropout from ``rng``."""
+    the caller asks for ``"cpu"``), its model's table read off the params
+    tree. JAX's PRNG key does not carry over: the port draws dropout from
+    ``rng``."""
     adam = _adam_part(state.opt_state)
     opt = {} if adam is None else {"count": adam.count, "mu": adam.mu, "nu": adam.nu}
     return train_state_from_tree(
         {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
          "engine_state": state.engine_state, "rng": rng, "round": state.round,
-         "health": state.health}, table, device)
+         "health": state.health}, device=device)
 
 
 #: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
@@ -257,14 +256,13 @@ def train_state_from_jax(state, table=None, rng: int = 0, device=None):
 _ENGINE_STATES = ({"omega"}, {"q", "e"})
 
 
-def engine_state_from_jax(engine_state, table=True, device=None) -> dict:
+def engine_state_from_jax(engine_state, table: LeafTable, device=None) -> dict:
     """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``,
-    powerSGD's ``{"q": ..., "e": ...}``) of the model of ``table`` (see
-    :func:`leaf_table`) as the port's, by ``state_dict`` name; raises
-    ``ValueError`` for a tree of other leaves."""
+    powerSGD's ``{"q": ..., "e": ...}``) of the model of ``table`` as the
+    port's, by ``state_dict`` name; raises ``ValueError`` for a tree of
+    other leaves."""
     if not engine_state:
         return {}
-    table = leaf_table(table)
     if set(engine_state) not in _ENGINE_STATES:
         raise ValueError(f"not an engine state of the port: keys {sorted(engine_state)}")
     out, problems = {}, []
@@ -277,19 +275,18 @@ def engine_state_from_jax(engine_state, table=True, device=None) -> dict:
     return out
 
 
-def train_state_from_tree(tree: dict, table=None, device=None):
+def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=None):
     """A training state as numpy trees in JAX layout (what
     :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
     ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
     ``rng`` (the port's int seed), ``round``, ``health``) as the port's
     ``TrainState`` on ``device`` (the card unless the caller asks for
-    ``"cpu"``). ``table`` (see :func:`leaf_table`) defaults to the params
-    tree's own."""
+    ``"cpu"``). ``table`` defaults to the params tree's own."""
     from .core.device import resolve_device
     from .trainer.steps import TrainState
 
     dev = resolve_device(device)
-    table = table_of_jax(tree["params"]) if table is None else leaf_table(table)
+    table = table or table_of_jax(tree["params"])
     sd = _state_dict_from(table, tree["params"], tree["batch_stats"])
     params = {n: sd[n].to(dev) for n, _, _ in table.params}
     stats = {n: sd[n].to(dev) for n, _ in table.stats}
@@ -307,14 +304,14 @@ def train_state_from_tree(tree: dict, table=None, device=None):
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health)
 
 
-def train_state_to_jax(state, table=None) -> dict:
+def train_state_to_jax(state) -> dict:
     """The port's ``TrainState`` as numpy trees in JAX layout: ``params``,
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
-    them), ``rng`` (the int seed), ``round`` and ``health``. ``table``
-    (see :func:`leaf_table`) defaults to the one of the state's params."""
-    table = table_of_port(state.params) if table is None else leaf_table(table)
+    them), ``rng`` (the int seed), ``round`` and ``health``; the model's
+    table is read off the state's params."""
+    table = table_of_port(state.params)
     opt = {}
     if state.opt_state:
         opt = {"count": int(state.opt_state["count"]),

@@ -40,6 +40,7 @@ from dinunet_implementations_tpu_torch.runner import cli as tcli
 from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
 from dinunet_implementations_tpu_torch.serving import engine as tserving
 from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
+from dinunet_implementations_tpu_torch.trainer import loop as tloop
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
     msannet_table,
@@ -379,3 +380,35 @@ def test_cli_without_task_trains_fs(tree, start, tmp_path, capsys, jax_draws):
     assert tcli.main(site) == 0
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
     assert len(lines) == 1 and np.isfinite(lines[0]["test_loss"])
+
+
+def test_pretraining_picks_the_site_jax_picks_ties_included(monkeypatch):
+    """``_pretrain`` warms up on the largest training site; of two equally
+    large ones, the first, as JAX's ``np.argmax`` picks. Both planners see
+    the same masked sites (only that site keeps rows)."""
+    sizes = (20, 24, 24, 9)
+    rng = np.random.default_rng(8)
+    sites = [jdata.SiteArrays(rng.standard_normal((n, IN)).astype(np.float32),
+                              rng.integers(0, 2, n).astype(np.int32),
+                              np.arange(n, dtype=np.int32)) for n in sizes]
+    kw = dict(fs_args=dict(input_size=IN, hidden_sizes=list(HIDDEN)), pretrain=True,
+              pretrain_args={"epochs": 1, "batch_size": 8})
+    seen = {}
+    for name, mod in (("jax", jloop), ("port", tloop)):
+        real = mod.plan_epoch
+
+        def capture(planned, *a, _name=name, _real=real, **k):
+            seen[_name] = [len(s) for s in planned]
+            return _real(planned, *a, **k)
+
+        monkeypatch.setattr(mod, "plan_epoch", capture)
+    jcfg = jconfig.TrainConfig().with_overrides(kw)
+    jtr = jloop.FederatedTrainer(jcfg, jregistry.get_task(TASK).build_model(jcfg), None)
+    jtr._num_sites = len(sizes)
+    jtr._pretrain(jtr.init_state(jnp.ones((2, IN)), num_sites=len(sizes)), sites, [], False)
+    tcfg = tconfig.TrainConfig().with_overrides(kw)
+    ttr = tloop.FederatedTrainer(tcfg, tmsan.MSANNet(in_size=IN, hidden_sizes=HIDDEN),
+                                 device="cpu")
+    ttr._num_sites = len(sizes)
+    ttr._pretrain(ttr.init_state(), sites, False)
+    assert seen["port"] == seen["jax"] == [0, 24, 0, 0]
