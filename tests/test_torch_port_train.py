@@ -640,8 +640,10 @@ def test_training_config_copy_keeps_the_jax_defaults():
     ica_names = {f.name for f in dataclasses.fields(tconfig.ICAArgs)}
     assert set(ICA_TRAINER_FIELDS) <= ica_names, set(ICA_TRAINER_FIELDS) - ica_names
     for f in dataclasses.fields(tconfig.TrainConfig):
-        if f.name != "ica_args":
+        if f.name not in ("fs_args", "ica_args"):
             assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
     assert tconfig.AggEngine.ALL == jconfig.AggEngine.ALL
     for f in dataclasses.fields(tconfig.ICAArgs):
         assert getattr(tcfg.ica_args, f.name) == getattr(jcfg.ica_args, f.name), f.name
+    for f in dataclasses.fields(tconfig.FSArgs):
+        assert getattr(tcfg.fs_args, f.name) == getattr(jcfg.fs_args, f.name), f.name
