@@ -137,9 +137,10 @@ result line:
    fold 0 under dSGD, rankDAD (rank 10, warm starts) and powerSGD (rank
    10), 3 epochs each on the device pipeline: no kernel launches but K7,
    once a rank class and round on its route, outputs and the best
-   checkpoint checked, the warm epoch ms, fit seconds and peak memory
-   printed; one FS rankDAD epoch through K7 against the plain power
-   iteration (first-round aggregate within ``AGG_TOL``, Ω within
+   checkpoint checked, the warm epoch ms, fit seconds and peak memory (in
+   all, and over what was allocated before the fit) printed; one FS
+   rankDAD epoch through K7 against the plain power iteration
+   (first-round aggregate within ``AGG_TOL``, Ω within
    ``OMEGA_FIRST_TOL``); ``InferenceEngine`` from the rankDAD fit's best
    checkpoint, one request a dispatch, each answer within 1e-5 of the
    same forward on the CPU; the command line with no ``--task``: rankDAD
@@ -1069,11 +1070,11 @@ def k7_leaves(torch, cfg=None):
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
     from dinunet_implementations_tpu_torch.engines.lowrank import _matrix_shape, is_compressible
     from dinunet_implementations_tpu_torch.runner.registry import get_task
-    from dinunet_implementations_tpu_torch.weights import jax_transposed_leaves
+    from dinunet_implementations_tpu_torch.weights import leaf_table
 
     cfg = cfg or TrainConfig(task_id=NNComputation.TASK_ICA)
     model = get_task(cfg.task_id).build_model(cfg, torch.Generator().manual_seed(0))
-    tr = jax_transposed_leaves(cfg)
+    tr = leaf_table(cfg).transposed
     classes: dict = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)[::-1] if name in tr else tuple(p.shape)
@@ -2143,7 +2144,7 @@ def cli_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
         save_checkpoint,
     )
     from dinunet_implementations_tpu_torch.trainer.checkpoint import _read_raw
-    from dinunet_implementations_tpu_torch.weights import _param_names
+    from dinunet_implementations_tpu_torch.weights import leaf_table
 
     t_phase = time.perf_counter()
     task = "ICA-Classification"
@@ -2214,7 +2215,7 @@ def cli_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
     restored = load_checkpoint(best, like)
     raw = _read_raw(best)["engine_state"]
     for key in ("q", "e"):
-        for name, j, _ in _param_names(True):
+        for name, j, _ in leaf_table(fcfg).params:
             node = raw[key]
             for part in j.split("/"):
                 node = node[part]
@@ -2411,6 +2412,7 @@ def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9  # what earlier phases hold
         native_io.reset_counts()
         zero_counters(lc, pc, bc)  # the main path's run starts here
         t0 = time.perf_counter()
@@ -2421,6 +2423,7 @@ def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
     finally:
         FederatedTrainer.run_epoch = run_epoch
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fit_gb = peak_gb - base_gb
     epochs = len(res["epoch_losses"])
     want = (fs_k7_want(launches, routes, epochs * rounds) if engine == "rankDAD"
             else dict.fromkeys(launches, 0))
@@ -2440,13 +2443,15 @@ def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
            "split": {k: [len(s) for s in fold[k]] for k in ("train", "validation", "test")},
            "epochs": epochs, "rounds_per_epoch": rounds, "launches": launches,
            "fit_seconds": fit_s, "epoch_ms": epoch_ms, "warm_epoch_ms": epoch_ms[-1],
-           "peak_memory_gb": peak_gb, "epoch_losses": res["epoch_losses"],
+           "peak_memory_gb": peak_gb, "fit_memory_gb": fit_gb,
+           "epoch_losses": res["epoch_losses"],
            "test_metrics": res["test_metrics"], "test_scores": res["test_scores"],
            "best_val_epoch": res["best_val_epoch"],
            "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
            "best_checkpoint": outputs["best_checkpoint"]}
     print(f"FS {engine} fit: {fit_s:.3f} s ({epochs} epochs of {rounds} rounds), warm epoch "
-          f"{epoch_ms[-1]:.3f} ms, peak memory {peak_gb:.4f} GB on {smi}")
+          f"{epoch_ms[-1]:.3f} ms, peak memory {peak_gb:.4f} GB ({fit_gb:.4f} GB over what "
+          f"was allocated before the fit) on {smi}")
     return rec
 
 
@@ -2664,7 +2669,8 @@ def fs_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     for e in FS_ENGINES:
         f = fits[e]
         print(f"FS {e}: warm epoch {f['warm_epoch_ms']:.3f} ms, fit {f['fit_seconds']:.3f} s, "
-              f"peak memory {f['peak_memory_gb']:.4f} GB, test {f['test_metrics']} on {smi}")
+              f"peak memory {f['peak_memory_gb']:.4f} GB ({f['fit_memory_gb']:.4f} GB over the "
+              f"allocation before the fit), test {f['test_metrics']} on {smi}")
     print("fs:", json.dumps(rec))
     return rec
 

@@ -20,7 +20,7 @@ from .core.config import FSArgs, ICAArgs, NNComputation, TrainConfig
 from .models.icalstm import ICALstm
 from .models.msannet import MSANNet
 from .serving import InferenceEngine
-from .weights import icalstm_params_from_jax, params_from_jax
+from .weights import params_from_jax
 
 __all__ = [
     "FSArgs",
@@ -30,6 +30,5 @@ __all__ = [
     "MSANNet",
     "NNComputation",
     "TrainConfig",
-    "icalstm_params_from_jax",
     "params_from_jax",
 ]

@@ -68,9 +68,10 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
                   dcn_wire_quant="", secure_agg="off") -> Engine:
     """The powerSGD engine at rank ``dad_reduction_rank``. ``transposed``
     names the leaves stored as the transpose of their JAX matrix
-    (``weights.jax_transposed_leaves``); ``leaf_index`` maps a leaf's name
-    to its index in the flattened JAX params tree, the key of its first Q
-    (``weights.jax_leaf_index``; default: the order of the params dict)."""
+    (``weights.leaf_table(cfg).transposed``); ``leaf_index`` maps a leaf's
+    name to its index in the flattened JAX params tree, the key of its
+    first Q (``.leaf_index`` of the same table; default: the order of the
+    params dict)."""
     refuse_secure_agg(secure_agg)
     for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
                                       ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),

@@ -46,7 +46,7 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
     """The rankDAD engine. ``use_kernel=False`` runs the power iteration's
     plain version on any device (the reference the card's kernel path is
     held against); ``transposed`` names the leaves stored as the transpose
-    of their JAX matrix (``weights.jax_transposed_leaves``)."""
+    of their JAX matrix (``weights.leaf_table(cfg).transposed``)."""
     refuse_secure_agg(secure_agg)
     for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
                                       ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),

@@ -30,6 +30,7 @@ from torch import nn
 
 from ..ops.bilstm_cuda import bilstm_pool_forward_fused, bilstm_pool_forward_plain
 from ..ops.lstm_cuda import lstm_forward_fused, lstm_forward_plain, site_sum
+from ..weights import LeafTable
 from .layers import (
     BatchNorm,
     TorchLinearInit,
@@ -157,9 +158,27 @@ class ICALstm(nn.Module):
     ``fused_bidir=True`` selects the fused bidirectional op (see
     :class:`BiLSTM`); default off, as in JAX."""
 
-    #: eval normalises by the running statistics, so the rows of several
-    #: sites may share one forward
-    eval_folds_sites = True
+    @staticmethod
+    def leaf_table(bidirectional: bool = True) -> LeafTable:
+        """The leaves: the dense layers, one LSTM cell a direction and the
+        head BatchNorm with its running statistics."""
+        names = []
+        for n in ("encoder", "cls_fc1", "cls_fc2", "cls_fc3"):
+            names += [(f"{n}.weight", f"{n}/kernel", True), (f"{n}.bias", f"{n}/bias", False)]
+        for d in ("fwd", "rev") if bidirectional else ("fwd",):
+            names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False)
+                      for leaf in ("w_ih", "b_ih", "w_hh", "b_hh")]
+        names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
+        return LeafTable("ICALstm", tuple(names), (("cls_bn.running_mean", "cls_bn/mean"),
+                                                   ("cls_bn.running_var", "cls_bn/var")))
+
+    @staticmethod
+    def leaf_table_of(paths) -> LeafTable | None:
+        """The table of a tree whose leaf paths (tuples of keys, JAX's or
+        the port's) are ICALstm's, else None."""
+        if not any(p[0] == "lstm" for p in paths):
+            return None
+        return ICALstm.leaf_table(any(p[:2] == ("lstm", "rev") for p in paths))
 
     def __init__(self, input_size: int = 256, hidden_size: int = 256,
                  bidirectional: bool = True, num_cls: int = 2, num_comps: int = 53,

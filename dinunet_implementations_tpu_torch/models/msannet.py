@@ -15,23 +15,45 @@ model runs them outside any Pallas kernel.
 
 from __future__ import annotations
 
+import re
+
 import torch
 from torch import nn
 
+from ..weights import LeafTable
 from .layers import BatchNorm, dense, site_batchnorm, site_dropout, site_linear
 
 
 class MSANNet(nn.Module):
-    """``forward(x [B, in_size], train, mask)`` returns logits ``[B,
-    out_size]``; ``mask [B]`` weights rows in every BatchNorm's statistics
-    (weight-0 rows are padding). Parameters: ``linear_i.weight`` (``[h,
+    """``forward(x [B, in_size], train, mask, generator)`` returns logits
+    ``[B, out_size]``; ``mask [B]`` weights rows in every BatchNorm's
+    statistics (weight-0 rows are padding); ``generator`` draws the dropout
+    masks of a training forward. Parameters: ``linear_i.weight`` (``[h,
     fan_in]``, the transpose of the JAX kernel), ``bn_i.weight`` /
     ``bn_i.bias`` (JAX's ``scale`` / ``bias``) and ``fc_out.weight`` /
-    ``fc_out.bias``; no buffers. Weights are drawn from ``generator``."""
+    ``fc_out.bias``; no buffers. The constructor draws the weights from
+    ``generator``."""
 
-    #: eval normalises by batch moments: the rows of two sites must not
-    #: share one forward
-    eval_folds_sites = False
+    @staticmethod
+    def leaf_table(n_hidden: int = 4) -> LeafTable:
+        """The leaves: ``n_hidden`` bias-free linears and their BatchNorms
+        (no running statistics), and the biased head."""
+        names = []
+        for i in range(n_hidden):
+            names += [(f"linear_{i}.weight", f"linear_{i}/kernel", True),
+                      (f"bn_{i}.weight", f"bn_{i}/scale", False),
+                      (f"bn_{i}.bias", f"bn_{i}/bias", False)]
+        names += [("fc_out.weight", "fc_out/kernel", True), ("fc_out.bias", "fc_out/bias", False)]
+        return LeafTable("MSANNet", tuple(names))
+
+    @staticmethod
+    def leaf_table_of(paths) -> LeafTable | None:
+        """The table of a tree whose leaf paths (tuples of keys, JAX's or
+        the port's) are MSANNet's, else None."""
+        tops = {p[0] for p in paths}
+        if "fc_out" not in tops:
+            return None
+        return MSANNet.leaf_table(sum(re.fullmatch(r"linear_\d+", t) is not None for t in tops))
 
     def __init__(self, in_size: int = 66, hidden_sizes: tuple = (256, 128, 64, 32),
                  out_size: int = 2, dropout_in: tuple = (), dropout_rate: float = 0.5,
@@ -47,12 +69,12 @@ class MSANNet(nn.Module):
             fan_in = h
         self.fc_out = dense(fan_in, out_size, generator)
 
-    def forward(self, x, train: bool = True, mask=None):
+    def forward(self, x, train: bool = True, mask=None, generator=None):
         for i in range(len(self.hidden_sizes)):
             x = getattr(self, f"linear_{i}")(x)
             x = torch.relu(getattr(self, f"bn_{i}")(x, train=train, mask=mask))
-            if i in self.dropout_in:
-                x = nn.functional.dropout(x, self.dropout_rate, training=train)
+            if train and i in self.dropout_in:
+                x = site_dropout(x, self.dropout_rate, generator)
         return self.fc_out(x)
 
     def site_forward(self, params, x, mask, stats, generator=None):

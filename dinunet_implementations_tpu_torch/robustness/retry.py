@@ -16,8 +16,8 @@ sequence (tests), and ``sleep`` to observe or skip the waits.
   budget. Measured on ``clock`` (default ``time.monotonic``).
 - ``timeout_s`` — a per-attempt cap: the attempt runs on a worker thread and
   a result that doesn't arrive in time raises :class:`RetryTimeout`, which
-  is retryable unless ``retry_on_timeout=False``. The abandoned attempt's
-  thread cannot be killed and may linger until its blocking call returns.
+  is always retryable. The abandoned attempt's thread cannot be killed and
+  may linger until its blocking call returns.
 """
 
 from __future__ import annotations
@@ -80,7 +80,6 @@ def with_retry(
     describe: str | None = None,
     deadline_s: float | None = None,
     timeout_s: float | None = None,
-    retry_on_timeout: bool = True,
     clock=time.monotonic,
 ):
     """Wrap ``fn`` (decorator or call form) with jittered exponential backoff.
@@ -89,12 +88,6 @@ def with_retry(
     when ``timeout_s`` is set); anything else propagates immediately. After
     ``attempts`` failures — or, with ``deadline_s``, the first failure past
     the wall-clock budget — the last exception propagates.
-
-    ``retry_on_timeout=False`` makes a per-attempt timeout FATAL instead of
-    retryable: the abandoned attempt's thread may still be mutating whatever
-    the call touches, and for non-reentrant global state a concurrent
-    second attempt would race the zombie — there, a timeout should fail the
-    operation, not retry it.
     """
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
@@ -104,10 +97,7 @@ def with_retry(
         raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
 
     def deco(f):
-        catch = tuple(retry_on) + (
-            (RetryTimeout,)
-            if timeout_s is not None and retry_on_timeout else ()
-        )
+        catch = tuple(retry_on) + ((RetryTimeout,) if timeout_s is not None else ())
 
         @functools.wraps(f)
         def wrapped(*args, **kwargs):
@@ -120,11 +110,6 @@ def with_retry(
                         return f(*args, **kwargs)
                     return _call_with_timeout(f, args, kwargs, timeout_s)
                 except catch as e:
-                    if isinstance(e, RetryTimeout) and not retry_on_timeout:
-                        # TimeoutError ⊂ OSError, so a retry_on=(OSError,)
-                        # entry would otherwise re-catch the timeout the
-                        # caller asked to be fatal
-                        raise
                     remaining = (
                         None if deadline_s is None
                         else deadline_s - (clock() - start)

@@ -20,6 +20,7 @@ from ..engines import Engine, build_engine
 from ..models.icalstm import ICALstm
 from ..models.msannet import MSANNet
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
+from ..weights import LeafTable
 
 
 @dataclass(frozen=True)
@@ -32,10 +33,16 @@ class ServingSpec:
 
 @dataclass(frozen=True)
 class TaskSpec:
+    """``model_cls`` is the model's class (its ``leaf_table_of`` tells its
+    trees); ``leaf_table(cfg)`` its :class:`~..weights.LeafTable` at the
+    config's widths."""
+
     task_id: str
     build_model: Callable[[TrainConfig], torch.nn.Module]
     dataset_cls: type[SiteDataset]
     handle_cls: type[DataHandle]
+    model_cls: type[torch.nn.Module]
+    leaf_table: Callable[[TrainConfig], LeafTable]
     serving: ServingSpec | None = None
 
 
@@ -72,10 +79,12 @@ def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
 TASKS: dict[str, TaskSpec] = {
     NNComputation.TASK_FREE_SURFER: TaskSpec(
         NNComputation.TASK_FREE_SURFER, _build_msannet, FreeSurferDataset, FSVDataHandle,
+        MSANNet, lambda cfg: MSANNet.leaf_table(len(cfg.fs_args.hidden_sizes)),
         serving=ServingSpec(sample_shape=lambda cfg: (cfg.fs_args.input_size,)),
     ),
     NNComputation.TASK_ICA: TaskSpec(
         NNComputation.TASK_ICA, _build_icalstm, ICADataset, ICADataHandle,
+        ICALstm, lambda cfg: ICALstm.leaf_table(cfg.ica_args.bidirectional),
         serving=ServingSpec(
             sample_shape=lambda cfg: (
                 _ica_windows(cfg.ica_args),

@@ -39,7 +39,7 @@ import torch
 from ..weights import (
     _params_to_port,
     engine_state_from_jax,
-    table_of_port,
+    table_of,
     train_state_from_tree,
     train_state_to_jax,
 )
@@ -195,7 +195,7 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     in an older file) gives ``like``'s with a warning, a cold restart of
     the warm-start carry or fresh counters."""
     raw = _load_raw(path, fallback=fallback)
-    table = table_of_port(like.params)
+    table = table_of(like.params)
     dev = _device_of(like)
     opt = raw.get("opt_state", {})
     first = opt.get("0", {}) if isinstance(opt, dict) else {}
@@ -250,7 +250,7 @@ def load_params(path: str, like_params: dict) -> dict:
     name, on ``like_params``' device and checked against its shapes."""
     raw = _load_raw(path)
     dev = next(iter(like_params.values())).device
-    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], table_of_port(like_params),
+    params = {k: v.to(dev) for k, v in _params_to_port(raw["params"], table_of(like_params),
                                                       "params").items()}
     if not _same_shapes(params, like_params):
         raise ValueError(f"checkpoint {path}: params do not match the current model")

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..models.layers import BatchNorm
 from ..parallel.collectives import per_site, site_weight_scale
 from ..robustness.health import default_health
 
@@ -86,6 +87,13 @@ def _to_device(a, dev, dtype=None) -> torch.Tensor:
     return t.to(device=dev, dtype=dtype).contiguous()
 
 
+def eval_folds_sites(model) -> bool:
+    """Whether an eval may run the rows of several sites in one forward:
+    exactly when every BatchNorm of ``model`` normalizes by its running
+    statistics in eval (ICALstm), not by the batch's moments (MSANNet)."""
+    return all(m.track_running_stats for m in model.modules() if isinstance(m, BatchNorm))
+
+
 def make_eval_fn(task: FederatedTask, device=None):
     """The full-pass eval of a training state, on ``device`` (the card
     unless the caller asks for ``"cpu"``): ``eval_fn(state, inputs [S,
@@ -95,9 +103,10 @@ def make_eval_fn(task: FederatedTask, device=None):
 
     Each step copies its ``[S, B, ...]`` block to the device and runs
     :func:`eval_forward`, the forward the serving engine runs. A model
-    whose eval BatchNorm normalizes each row by the running statistics
-    (``eval_folds_sites``: ICALstm) folds the sites into the rows of one
-    call (two K1 launches on the card, one a direction), which is exact.
+    whose every BatchNorm keeps running statistics, and so normalizes each
+    row by them in eval (:func:`eval_folds_sites`: ICALstm), folds the
+    sites into the rows of one call (two K1 launches on the card, one a
+    direction), which is exact.
     A model whose BatchNorms take the batch moments in eval too (MSANNet)
     runs each site's rows in a call of their own, so each site is
     normalized by its own rows, as JAX's per-site ``vmap`` does. Weight-0
@@ -105,7 +114,7 @@ def make_eval_fn(task: FederatedTask, device=None):
     statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
     ``mesh=None`` and no personalization."""
     dev = resolve_device(device)
-    fold = task.model.eval_folds_sites
+    fold = eval_folds_sites(task.model)
 
     def eval_fn(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]

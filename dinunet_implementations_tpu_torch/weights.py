@@ -2,10 +2,11 @@
 the port's, for each ported model (ICALstm, MSANNet).
 
 The input is the nested dicts that the JAX model carries, with numpy arrays
-(or anything ``numpy.asarray`` takes) as leaves. Each model has its own
-:class:`LeafTable`, which names every parameter and running statistic on
-both sides: flax kernels are ``[in, out]`` and ``nn.Linear`` weights
-``[out, in]``; the LSTM cells keep the JAX layout and both biases, ``b_ih``
+(or anything ``numpy.asarray`` takes) as leaves. Each model class builds
+its own :class:`LeafTable` (``leaf_table``) and tells it from a tree's
+leaves (``leaf_table_of``); the table names every parameter and running
+statistic on both sides: flax kernels are ``[in, out]`` and ``nn.Linear``
+weights ``[out, in]``; the LSTM cells keep the JAX layout and both biases, ``b_ih``
 and ``b_hh``, leaf for leaf; MSANNet's BatchNorms keep no running
 statistics, so its ``batch_stats`` is empty. A tree with a missing or an
 extra leaf is rejected.
@@ -17,10 +18,11 @@ batch_stats, the optax Adam ``count/mu/nu``, the engine state, round and
 health) into the port's :class:`~.trainer.steps.TrainState`, and
 :func:`train_state_to_jax` turns one back into numpy trees in JAX layout;
 :func:`train_state_from_tree` reads those trees back (the checkpoint files
-carry them). These read the model's table off the tree itself. The engine states (rankDAD's per-site Ω ``[S, n, r]``, powerSGD's
-per-site ``q [S, n, r]`` and ``e [S, m, n]``) are kept in the JAX matrix
-orientation by both packages, so they cross unchanged, leaf for leaf (None
-for a dense leaf).
+carry them). These read the model's table off the tree itself
+(:func:`table_of`). The engine states (rankDAD's per-site Ω ``[S, n,
+r]``, powerSGD's per-site ``q [S, n, r]`` and ``e [S, m, n]``) are kept
+in the JAX matrix orientation by both packages, so they cross unchanged,
+leaf for leaf (None for a dense leaf).
 """
 
 from __future__ import annotations
@@ -30,9 +32,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-
-_DENSE = ("encoder", "cls_fc1", "cls_fc2", "cls_fc3")
-_CELL = ("w_ih", "b_ih", "w_hh", "b_hh")
 
 
 @dataclass(frozen=True)
@@ -62,85 +61,26 @@ class LeafTable:
         return {n: i for i, (n, _, _) in enumerate(names)}
 
 
-def icalstm_table(bidirectional: bool = True) -> LeafTable:
-    """ICALstm's leaves: the dense layers, one LSTM cell a direction and
-    the head BatchNorm with its running statistics."""
-    names = []
-    for n in _DENSE:
-        names += [(f"{n}.weight", f"{n}/kernel", True), (f"{n}.bias", f"{n}/bias", False)]
-    for d in ("fwd", "rev") if bidirectional else ("fwd",):
-        names += [(f"lstm.{d}.{leaf}", f"lstm/{d}/{leaf}", False) for leaf in _CELL]
-    names += [("cls_bn.weight", "cls_bn/scale", False), ("cls_bn.bias", "cls_bn/bias", False)]
-    return LeafTable("ICALstm", tuple(names), (("cls_bn.running_mean", "cls_bn/mean"),
-                                               ("cls_bn.running_var", "cls_bn/var")))
+def leaf_table(cfg) -> LeafTable:
+    """The table of the model that ``cfg``'s task names, as the task
+    registry gives it."""
+    from .runner.registry import get_task
+
+    return get_task(cfg.task_id).leaf_table(cfg)
 
 
-def msannet_table(n_hidden: int = 4) -> LeafTable:
-    """MSANNet's leaves: ``n_hidden`` bias-free linears and their
-    BatchNorms (no running statistics), and the biased head."""
-    names = []
-    for i in range(n_hidden):
-        names += [(f"linear_{i}.weight", f"linear_{i}/kernel", True),
-                  (f"bn_{i}.weight", f"bn_{i}/scale", False),
-                  (f"bn_{i}.bias", f"bn_{i}/bias", False)]
-    names += [("fc_out.weight", "fc_out/kernel", True), ("fc_out.bias", "fc_out/bias", False)]
-    return LeafTable("MSANNet", tuple(names))
+def table_of(tree) -> LeafTable:
+    """The table of a params tree, JAX's (nested dicts) or the port's
+    (``state_dict`` names), from the registered model whose leaves it holds
+    (each model's ``leaf_table_of``)."""
+    from .runner.registry import TASKS
 
-
-def leaf_table(which=True) -> LeafTable:
-    """The table of a ``TrainConfig``'s model (keyed by its task), a
-    :class:`LeafTable` itself, or a bool: ICALstm's with that
-    ``bidirectional``."""
-    if isinstance(which, LeafTable):
-        return which
-    if isinstance(which, bool):
-        return icalstm_table(which)
-    from .core.config import NNComputation
-
-    if which.task_id == NNComputation.TASK_ICA:
-        return icalstm_table(which.ica_args.bidirectional)
-    if which.task_id == NNComputation.TASK_FREE_SURFER:
-        return msannet_table(len(which.fs_args.hidden_sizes))
-    raise ValueError(f"task {which.task_id!r} is not ported")
-
-
-def _hidden_count(keys, pattern: str) -> int:
-    return sum(1 for k in keys if re.fullmatch(pattern, k))
-
-
-def table_of_jax(params) -> LeafTable:
-    """The table of a JAX params tree, told by its top-level keys."""
-    keys = set(params)
-    if "lstm" in keys:
-        return icalstm_table("rev" in params["lstm"])
-    if "fc_out" in keys:
-        return msannet_table(_hidden_count(keys, r"linear_\d+"))
-    raise ValueError(f"not the params of a ported model: keys {sorted(keys)}")
-
-
-def table_of_port(params) -> LeafTable:
-    """The table of the port's params, told by their ``state_dict`` names."""
-    if "lstm.fwd.w_ih" in params:
-        return icalstm_table("lstm.rev.w_ih" in params)
-    if "fc_out.weight" in params:
-        return msannet_table(_hidden_count(params, r"linear_\d+\.weight"))
-    raise ValueError(f"not the params of a ported model: names {sorted(params)}")
-
-
-def _param_names(bidirectional: bool) -> tuple:
-    """``(port name, JAX path, transposed)`` for every ICALstm parameter."""
-    return icalstm_table(bidirectional).params
-
-
-def jax_transposed_leaves(which=True) -> frozenset:
-    """:attr:`LeafTable.transposed` of ``which`` (see :func:`leaf_table`:
-    a config, a table, or ICALstm's ``bidirectional``)."""
-    return leaf_table(which).transposed
-
-
-def jax_leaf_index(which=True) -> dict:
-    """:attr:`LeafTable.leaf_index` of ``which`` (see :func:`leaf_table`)."""
-    return leaf_table(which).leaf_index
+    paths = {tuple(re.split(r"[/.]", k)) for k in _leaves(tree)}
+    for spec in TASKS.values():
+        table = spec.model_cls.leaf_table_of(paths)
+        if table is not None:
+            return table
+    raise ValueError(f"not the params of a ported model: leaves {sorted(paths)}")
 
 
 def _leaves(tree, prefix=()) -> dict:
@@ -224,12 +164,6 @@ def params_from_jax(cfg, params, batch_stats) -> dict:
     return _state_dict_from(leaf_table(cfg), params, batch_stats)
 
 
-def icalstm_params_from_jax(params, batch_stats, bidirectional: bool = True) -> dict:
-    """``(params, batch_stats)`` of the JAX ``ICALstm`` → the port
-    :class:`~.models.icalstm.ICALstm`'s ``state_dict`` (f32 CPU tensors)."""
-    return _state_dict_from(icalstm_table(bidirectional), params, batch_stats)
-
-
 def _adam_part(opt_state):
     """The optax ``ScaleByAdamState`` inside an optimizer state (a chain's
     tuple), or None for a stateless optimizer such as SGD."""
@@ -286,7 +220,7 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
     from .trainer.steps import TrainState
 
     dev = resolve_device(device)
-    table = table or table_of_jax(tree["params"])
+    table = table or table_of(tree["params"])
     sd = _state_dict_from(table, tree["params"], tree["batch_stats"])
     params = {n: sd[n].to(dev) for n, _, _ in table.params}
     stats = {n: sd[n].to(dev) for n, _ in table.stats}
@@ -311,7 +245,7 @@ def train_state_to_jax(state) -> dict:
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
     them), ``rng`` (the int seed), ``round`` and ``health``; the model's
     table is read off the state's params."""
-    table = table_of_port(state.params)
+    table = table_of(state.params)
     opt = {}
     if state.opt_state:
         opt = {"count": int(state.opt_state["count"]),

@@ -23,11 +23,13 @@ import torch
 from dinunet_implementations_tpu.models import icalstm as jm
 from dinunet_implementations_tpu.ops import lstm_pallas as jl
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
 from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.ops import bilstm_cuda as tb
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
-from dinunet_implementations_tpu_torch.weights import icalstm_params_from_jax
+from dinunet_implementations_tpu_torch.weights import params_from_jax
 
+ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 F32 = dict(atol=1e-5, rtol=1e-5)
 F32_GRAD = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
@@ -324,7 +326,7 @@ def _port_model(params, stats, cdt, fused=True, use_kernel=True):
     model = tm.ICALstm(input_size=IN, hidden_size=HID, num_cls=2, num_comps=C, window_size=W,
                        compute_dtype=cdt, dropout_rate=0.0, fused_bidir=fused,
                        use_kernel=use_kernel)
-    model.load_state_dict(icalstm_params_from_jax(params, stats))
+    model.load_state_dict(params_from_jax(ICA, params, stats))
     return model
 
 
@@ -346,7 +348,7 @@ def test_fused_icalstm_eval_and_train_gradient_match_jax(cdt, tol):
         return jsteps.cross_entropy(logits, jnp.asarray(y), jnp.asarray(w))
 
     want = jax.grad(jloss)(jax.tree.map(jnp.asarray, params))
-    want_sd = icalstm_params_from_jax(jax.tree.map(np.asarray, want), stats)
+    want_sd = params_from_jax(ICA, jax.tree.map(np.asarray, want), stats)
     model.train()
     named = dict(model.named_parameters())
     loss = tsteps.cross_entropy(model(torch.from_numpy(x), train=True, mask=torch.from_numpy(w)),

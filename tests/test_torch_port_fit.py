@@ -31,6 +31,7 @@ from dinunet_implementations_tpu.trainer import checkpoint as jckpt
 from dinunet_implementations_tpu.trainer import loop as jloop
 from dinunet_implementations_tpu.trainer import metrics as jmetrics
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
 from dinunet_implementations_tpu_torch.core import config as tconfig
 from dinunet_implementations_tpu_torch.data import api as tdata
 from dinunet_implementations_tpu_torch.data import batching as tbatching
@@ -45,7 +46,7 @@ from dinunet_implementations_tpu_torch.trainer import loop as tloop
 from dinunet_implementations_tpu_torch.trainer import metrics as tmetrics
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    jax_transposed_leaves,
+    leaf_table,
     train_state_from_jax,
     train_state_to_jax,
 )
@@ -53,6 +54,7 @@ from dinunet_implementations_tpu_torch.weights import (
 # the small ICA-LSTM of tests/test_torch_port_train.py: 6 windows of 4
 # components x 5 timepoints, 3 sites of unequal size, batch 4
 C, W, T, IN, HID, B = 4, 5, 6, 16, 12, 4
+ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 SIZES = (9, 17, 13)
 S = len(SIZES)
 LR = 1e-3
@@ -98,7 +100,7 @@ def _port_task():
 
 def _port_engine(engine_name):
     if engine_name == "rankDAD":
-        return make_rankdad(precision_bits="32", transposed=jax_transposed_leaves(), **DAD)
+        return make_rankdad(precision_bits="32", transposed=leaf_table(ICA).transposed, **DAD)
     return make_dsgd("32")
 
 

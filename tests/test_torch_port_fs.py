@@ -35,14 +35,9 @@ from dinunet_implementations_tpu_torch.robustness import retry as tretry
 from dinunet_implementations_tpu_torch.runner import registry as treg
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    icalstm_params_from_jax,
-    jax_leaf_index,
-    jax_transposed_leaves,
     leaf_table,
-    msannet_table,
     params_from_jax,
-    table_of_jax,
-    table_of_port,
+    table_of,
 )
 
 # a narrow MSANNet: 12 features, three hidden layers, two classes
@@ -155,7 +150,7 @@ def test_site_forward_gradients_match_jax_vmap_grad():
     assert new_stats == {}
     ce = tsteps.cross_entropy(logits, torch.from_numpy(y), torch.from_numpy(w))
     grads = dict(zip(leaves, torch.autograd.grad(ce.sum(), list(leaves.values()))))
-    table = msannet_table(len(HIDDEN))
+    table = tmsan.MSANNet.leaf_table(len(HIDDEN))
     flat = _flat(want)
     for name, path, transposed in table.params:
         g = grads[name].numpy()
@@ -172,20 +167,29 @@ def test_leaf_table_and_index_follow_jax_flatten():
     paths = ["/".join(str(k.key) for k in path)
              for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
     table = leaf_table(tconfig.TrainConfig(fs_args=tconfig.FSArgs(hidden_sizes=HIDDEN)))
-    assert table == msannet_table(3) == table_of_jax(params)
+    assert table == tmsan.MSANNet.leaf_table(3) == table_of(params)
     by_path = {j: n for n, j, _ in table.params}
     assert sorted(by_path) == sorted(paths)
-    index = jax_leaf_index(table)
+    index = table.leaf_index
     assert {by_path[p]: i for i, p in enumerate(paths)} == index
     # bn_* sorts before fc_out, and fc_out before linear_*
     assert index["bn_0.bias"] == 0 and index["fc_out.bias"] < index["linear_0.weight"]
-    assert jax_transposed_leaves(table) == {"linear_0.weight", "linear_1.weight",
-                                            "linear_2.weight", "fc_out.weight"}
+    assert table.transposed == {"linear_0.weight", "linear_1.weight", "linear_2.weight",
+                                "fc_out.weight"}
     model = _port_msannet(params, {})
-    assert table_of_port(dict(model.named_parameters())) == table
-    # the ICA table is what it was, by a bool or by a config
-    ica = tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_ICA)
-    assert leaf_table(ica) == leaf_table(True) and jax_leaf_index(ica) == jax_leaf_index()
+    assert table_of(dict(model.named_parameters())) == table
+    # the ICA table by its config, by its JAX tree and by the port's names
+    for bidirectional in (True, False):
+        ica = tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_ICA,
+                                  ica_args=tconfig.ICAArgs(bidirectional=bidirectional))
+        jparams = jica.ICALstm(input_size=8, hidden_size=6, num_comps=3, window_size=2,
+                               bidirectional=bidirectional).init(
+            jax.random.PRNGKey(0), jnp.zeros((2, 2, 3, 2)))["params"]
+        port = treg.build_model(ica, device="cpu").state_dict()
+        assert leaf_table(ica) == table_of(jparams) == table_of(port)
+        assert leaf_table(ica).model == "ICALstm"
+    with pytest.raises(ValueError, match="not the params of a ported model"):
+        table_of({"head": {"kernel": np.zeros((2, 2), np.float32)}})
 
 
 def test_fs_bridge_layouts_and_refusals():
@@ -215,7 +219,7 @@ def test_k7_routes_at_the_fs_shapes():
     (an H100's 132 SMs and 232,448 bytes of opt-in shared memory)."""
     cfg = tconfig.TrainConfig()
     model = treg.build_model(cfg, device="cpu")
-    tr = jax_transposed_leaves(cfg)
+    tr = leaf_table(cfg).transposed
     classes: dict = {}
     for name, p in model.named_parameters():
         g = torch.zeros((5,) + tuple(p.shape))
@@ -255,8 +259,8 @@ def test_ica_num_layers_two_builds_one_layer_as_jax():
     params, stats = task.init_variables(jax.random.PRNGKey(0), jnp.zeros((2, T, C, W)))
     assert jcfg.ica_args.num_layers == 2
     model = treg.build_model(tcfg, device="cpu")
-    model.load_state_dict(icalstm_params_from_jax(jax.tree.map(np.asarray, params),
-                                                  jax.tree.map(np.asarray, stats)))
+    model.load_state_dict(params_from_jax(tcfg, jax.tree.map(np.asarray, params),
+                                          jax.tree.map(np.asarray, stats)))
     x = np.random.default_rng(0).standard_normal((3, T, C, W)).astype(np.float32)
     want, _ = task.apply(params, stats, jnp.asarray(x), train=False)
     with torch.no_grad():
@@ -469,9 +473,5 @@ def test_with_retry_deadline_and_timeout_match_jax():
         h = mod.with_retry(hang, attempts=2, timeout_s=0.05, sleep=lambda s: None)
         with pytest.raises(mod.RetryTimeout):
             h()
-        fatal = mod.with_retry(hang, attempts=3, timeout_s=0.05, retry_on_timeout=False,
-                               retry_on=(OSError,), sleep=lambda s: None)
-        with pytest.raises(mod.RetryTimeout):
-            fatal()
         with pytest.raises(ValueError, match="attempts"):
             mod.with_retry(hang, attempts=0)

@@ -43,7 +43,6 @@ from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
 from dinunet_implementations_tpu_torch.trainer import loop as tloop
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    msannet_table,
     params_from_jax,
     train_state_from_jax,
     train_state_to_jax,
@@ -58,7 +57,7 @@ S = len(SIZES)
 LR = 1e-3
 EPOCHS = 2
 DAD = dict(dad_reduction_rank=10, dad_num_pow_iters=5, dad_tol=1e-3, dad_warm_start=True)
-TABLE = msannet_table(len(HIDDEN))
+TABLE = tmsan.MSANNet.leaf_table(len(HIDDEN))
 
 # Tolerances of the epochs, set from the measured differences (f32):
 # - the first round's aggregate gradient (mu / (1 - b1) after one Adam
@@ -178,15 +177,26 @@ def test_fs_eval_takes_each_site_on_its_own_rows_as_jax():
     np.testing.assert_allclose(pt, pj, atol=1e-6, rtol=1e-6)
     np.testing.assert_allclose(lt, lj, atol=1e-5, rtol=1e-6)
     np.testing.assert_array_equal(wt, wj)
-    # the fold over sites is not what JAX computes for this model
-    tsteps_fold = type(task_t.model)
-    tsteps_fold.eval_folds_sites = True
-    try:
-        pf, _, _ = tsteps.make_eval_fn(task_t, device="cpu")(state_t, fb.inputs, fb.labels,
-                                                             fb.weights)
-    finally:
-        tsteps_fold.eval_folds_sites = False
-    assert np.abs(pf.numpy() - pj).max() > 1e-3
+    # one forward over every site's rows of a step is not what JAX computes
+    # for this model
+    assert not tsteps.eval_folds_sites(task_t.model)
+    st = tsteps._StateTask(task_t.model, {**state_t.params, **state_t.batch_stats})
+    pf = np.stack([tsteps.eval_forward(
+        st, torch.from_numpy(np.ascontiguousarray(fb.inputs[:, k])).reshape(S * B, -1),
+        None, torch.from_numpy(np.ascontiguousarray(fb.weights[:, k])).reshape(-1)).numpy()
+        for k in range(fb.inputs.shape[1])], 1)
+    assert np.abs(pf.reshape(pj.shape) - pj).max() > 1e-3
+
+
+def test_eval_folds_sites_only_where_every_batchnorm_keeps_running_statistics():
+    """``make_eval_fn`` shares one forward among the sites exactly when
+    each BatchNorm of the model normalizes by running statistics in eval:
+    ICALstm's head BatchNorm does, MSANNet's take the batch moments."""
+    from dinunet_implementations_tpu_torch.models import icalstm as tica
+
+    assert tsteps.eval_folds_sites(tica.ICALstm(input_size=8, hidden_size=6, num_comps=3,
+                                                window_size=2))
+    assert not tsteps.eval_folds_sites(tmsan.MSANNet(in_size=IN, hidden_sizes=HIDDEN))
 
 
 # -- fits over an FS demo tree at full width ------------------------------------

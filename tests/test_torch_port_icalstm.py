@@ -11,11 +11,13 @@ import torch
 from dinunet_implementations_tpu.models import icalstm as jm
 from dinunet_implementations_tpu.models import layers as jlayers
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core.config import ICAArgs, NNComputation, TrainConfig
 from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.models import layers as tlayers
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
-from dinunet_implementations_tpu_torch.weights import icalstm_params_from_jax
+from dinunet_implementations_tpu_torch.weights import params_from_jax
 
+ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 F32_TOL = dict(atol=1e-5, rtol=1e-5)
 # bf16: the frameworks round the encoder's bf16 output, the products and
 # the streams at different points; a last-bit bf16 flip (2**-8 relative)
@@ -171,7 +173,8 @@ def _jax_icalstm(cdt, bidirectional=True, seed=0):
 def _torch_icalstm(params, stats, cdt, bidirectional=True):
     model = tm.ICALstm(input_size=IN, hidden_size=HID, bidirectional=bidirectional,
                        num_cls=2, num_comps=C, window_size=W, compute_dtype=cdt)
-    model.load_state_dict(icalstm_params_from_jax(params, stats, bidirectional))
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, ica_args=ICAArgs(bidirectional=bidirectional))
+    model.load_state_dict(params_from_jax(cfg, params, stats))
     return tsteps.FederatedTask(model.eval())
 
 
@@ -215,20 +218,20 @@ def test_icalstm_train_mode_head_matches_jax():
 
 def test_bridge_rejects_missing_and_extra_leaves():
     _, params, stats = _jax_icalstm(None)
-    icalstm_params_from_jax(params, stats)  # the full tree passes
+    params_from_jax(ICA, params, stats)  # the full tree passes
     missing = {**params, "lstm": {"fwd": params["lstm"]["fwd"]}}
     with pytest.raises(ValueError, match="missing leaves.*lstm/rev/b_hh"):
-        icalstm_params_from_jax(missing, stats)
+        params_from_jax(ICA, missing, stats)
     extra = {**params, "cls_fc4": {"kernel": np.zeros((2, 2), np.float32)}}
     with pytest.raises(ValueError, match="extra leaves.*cls_fc4/kernel"):
-        icalstm_params_from_jax(extra, stats)
+        params_from_jax(ICA, extra, stats)
     with pytest.raises(ValueError, match="batch_stats is missing"):
-        icalstm_params_from_jax(params, {})
+        params_from_jax(ICA, params, {})
 
 
 def test_bridge_layouts():
     _, params, stats = _jax_icalstm(None)
-    sd = icalstm_params_from_jax(params, stats)
+    sd = params_from_jax(ICA, params, stats)
     np.testing.assert_array_equal(sd["encoder.weight"].numpy(), params["encoder"]["kernel"].T)
     np.testing.assert_array_equal(sd["lstm.rev.w_hh"].numpy(), params["lstm"]["rev"]["w_hh"])
     # the two LSTM biases stay two leaves: an optimizer steps each of them

@@ -26,7 +26,7 @@ from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainCo
 from dinunet_implementations_tpu_torch.engines import lowrank as tl
 from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
 from dinunet_implementations_tpu_torch.runner.registry import get_task
-from dinunet_implementations_tpu_torch.weights import jax_transposed_leaves
+from dinunet_implementations_tpu_torch.weights import leaf_table
 
 H100_SMS, H100_SMEM = 132, 232448
 ITERS = 5
@@ -47,7 +47,7 @@ def flagship_classes():
     JAX matrix orientation (an ``nn.Linear`` weight is a transposed view)."""
     cfg = TrainConfig(task_id=NNComputation.TASK_ICA)
     model = get_task(cfg.task_id).build_model(cfg, torch.Generator().manual_seed(0))
-    tr = jax_transposed_leaves(cfg.ica_args.bidirectional)
+    tr = leaf_table(cfg).transposed
     classes: dict = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)[::-1] if name in tr else tuple(p.shape)

@@ -31,13 +31,13 @@ from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    jax_leaf_index,
-    jax_transposed_leaves,
+    leaf_table,
     train_state_from_jax,
     train_state_to_jax,
 )
 
 S, R, ROUNDS = 4, 3, 3
+ICA = tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_ICA)
 # (port name, JAX path, JAX shape of one site's leaf, stored transposed in the port)
 LEAVES = (("enc.weight", ("enc", "kernel"), (8, 8), True),
           ("lstm.w_ih", ("lstm", "w_ih"), (8, 12), False),
@@ -203,11 +203,10 @@ def test_first_q_is_keyed_by_the_jax_leaf_index():
     params = model.init(jax.random.PRNGKey(0), jnp.zeros((2, 6, 4, 5)))["params"]
     paths = ["/".join(k.key for k in p) for p, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
     want = {p: i for i, p in enumerate(paths)}
-    index = jax_leaf_index()
-    from dinunet_implementations_tpu_torch.weights import _param_names
-
-    assert {j: index[n] for n, j, _ in _param_names(True)} == want
     cfg = tconfig.TrainConfig(task_id="ICA-Classification", agg_engine="powerSGD", seed=5)
+    table = leaf_table(cfg)
+    index = table.leaf_index
+    assert {j: index[n] for n, j, _ in table.params} == want
     cfg = cfg.with_overrides({"input_size": 16, "hidden_size": 12, "num_components": 4,
                               "window_size": 5, "temporal_size": 30})
     engine = build_engine(cfg)
@@ -282,7 +281,7 @@ def test_powersgd_checkpoints_cross_both_ways(tmp_path):
     want = _flat(jax.tree.map(np.asarray, state_j.engine_state))
     assert any(k.startswith("e/") and np.abs(v).max() > 0 for k, v in want.items()
                if v is not None)
-    engine = make_powersgd(transposed=jax_transposed_leaves())
+    engine = make_powersgd(transposed=leaf_table(ICA).transposed)
     task = tsteps.FederatedTask(tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C,
                                            window_size=W, num_cls=2))
     like = tsteps.init_train_state(task, engine, tsteps.make_optimizer("adam", 1e-3), num_sites=3)

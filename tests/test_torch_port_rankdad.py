@@ -18,16 +18,18 @@ from dinunet_implementations_tpu.engines import make_engine
 from dinunet_implementations_tpu.models import icalstm as jm
 from dinunet_implementations_tpu.parallel.mesh import SITE_AXIS
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
 from dinunet_implementations_tpu_torch.engines import make_rankdad
 from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    jax_transposed_leaves,
+    leaf_table,
     train_state_from_jax,
     train_state_to_jax,
 )
 
 S = 4
+ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 KW = dict(dad_reduction_rank=3, dad_num_pow_iters=2, dad_tol=1e-3)
 # (port name, JAX path, JAX shape of one site's leaf, stored transposed in the port)
 LEAVES = (("enc.weight", ("enc", "kernel"), (8, 8), True),
@@ -234,7 +236,7 @@ def test_bridge_carries_omega_both_ways_and_init_stacks_it_per_site():
     assert back["encoder"]["bias"] is None
     # the port's own first state stacks its engine's per-site Ω the same way
     tmodel = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2)
-    teng = make_rankdad(transposed=jax_transposed_leaves())
+    teng = make_rankdad(transposed=leaf_table(ICA).transposed)
     tstate = tsteps.init_train_state(tsteps.FederatedTask(tmodel), teng,
                                      tsteps.make_optimizer("adam", 1e-3), num_sites=3)
     for n, v in tstate.engine_state["omega"].items():

@@ -26,6 +26,7 @@ from dinunet_implementations_tpu.data import batching as jbatching
 from dinunet_implementations_tpu.engines import make_engine
 from dinunet_implementations_tpu.models import icalstm as jm
 from dinunet_implementations_tpu.trainer import steps as jsteps
+from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
 from dinunet_implementations_tpu_torch.core import config as tconfig
 from dinunet_implementations_tpu_torch.data import api as tdata
 from dinunet_implementations_tpu_torch.data import batching as tbatching
@@ -34,8 +35,8 @@ from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.models import layers as tlayers
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import (
-    icalstm_params_from_jax,
-    jax_transposed_leaves,
+    leaf_table,
+    params_from_jax,
     train_state_from_jax,
     train_state_to_jax,
 )
@@ -43,6 +44,7 @@ from dinunet_implementations_tpu_torch.weights import (
 # small ICA-LSTM: 6 windows of 4 components x 5 timepoints; 3 sites of
 # unequal size, batch 4 (2, 4 and 3 batches: the small sites wrap)
 C, W, T, IN, HID, B = 4, 5, 6, 16, 12, 4
+ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 SIZES = (9, 17, 13)
 S = len(SIZES)
 LR = 1e-3
@@ -153,9 +155,9 @@ def _port_setup(state_j, pb, L, qr, engine_name="dSGD", fused=False):
     model = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
                        dropout_rate=0.0, fused_bidir=fused or None)
     if engine_name == "rankDAD":
-        engine = make_rankdad(precision_bits=pb, transposed=jax_transposed_leaves(), **DAD)
+        engine = make_rankdad(precision_bits=pb, transposed=leaf_table(ICA).transposed, **DAD)
     elif engine_name == "powerSGD":
-        engine = make_powersgd(precision_bits=pb, transposed=jax_transposed_leaves())
+        engine = make_powersgd(precision_bits=pb, transposed=leaf_table(ICA).transposed)
     else:
         engine = make_dsgd(pb)
     epoch = tsteps.make_train_epoch_fn(tsteps.FederatedTask(model), engine,
@@ -373,10 +375,10 @@ def test_rankdad_engine_on_jax_gradients_is_inside_jax_spread(pb):
 
     legacy, fused = jax_agg(False), jax_agg(True)
     state_t = train_state_from_jax(jax.tree.map(np.asarray, state_j), device="cpu")
-    per_site = [icalstm_params_from_jax(jax.tree.map(lambda a, s=s: np.asarray(a[s]), grads), stats)
+    per_site = [params_from_jax(ICA, jax.tree.map(lambda a, s=s: np.asarray(a[s]), grads), stats)
                 for s in range(S)]
     grads_t = {k: torch.stack([g[k] for g in per_site]) for k in state_t.params}
-    engine = make_rankdad(precision_bits=pb, transposed=jax_transposed_leaves(), **DAD)
+    engine = make_rankdad(precision_bits=pb, transposed=leaf_table(ICA).transposed, **DAD)
     agg_t, _ = engine.aggregate(grads_t, state_t.engine_state, torch.from_numpy(np.array(n)))
     port = train_state_to_jax(dataclasses.replace(state_t, params=agg_t))["params"]
     _compare_at_share(fused, legacy, DAD_AGG_SHARE[pb])
@@ -406,8 +408,8 @@ def test_bias_leaves_take_one_adam_step_each_as_in_jax():
 
     port = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
                       dropout_rate=0.0)
-    port.load_state_dict(icalstm_params_from_jax(jax.tree.map(np.asarray, params),
-                                                 jax.tree.map(np.asarray, stats)))
+    port.load_state_dict(params_from_jax(ICA, jax.tree.map(np.asarray, params),
+                                      jax.tree.map(np.asarray, stats)))
     named = dict(port.named_parameters())
     logits = port(torch.from_numpy(np.array(x)), train=True, mask=torch.from_numpy(np.array(w)))
     loss = tsteps.cross_entropy(logits, torch.from_numpy(np.array(y)),
