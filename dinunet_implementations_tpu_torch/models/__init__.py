@@ -1,4 +1,4 @@
-from .icalstm import BiLSTM, ICALstm, LSTMCell
+from .icalstm import BiLSTM, ICALstm, ICALstmStream, LSTMCell
 from .layers import BatchNorm, TorchLinearInit, compute_dtype_of, dense, masked_moments
 from .msannet import MSANNet
 
@@ -6,6 +6,7 @@ __all__ = [
     "BatchNorm",
     "BiLSTM",
     "ICALstm",
+    "ICALstmStream",
     "LSTMCell",
     "MSANNet",
     "TorchLinearInit",

@@ -21,6 +21,10 @@ every site at once over an explicit leading site axis, with per-site
 parameters, per-site head BatchNorm statistics and dropout drawn from a
 ``torch.Generator``. The encoder and both LSTM directions fold the sites
 into rows, so each kernel launches once per direction for all sites.
+
+:class:`ICALstmStream` is the streaming twin of the unidirectional model,
+the serving path's O(1) step over a chunk of new windows (JAX's
+``ICALstmStream`` and ``_StreamLSTM``); it takes the same parameters.
 """
 
 from __future__ import annotations
@@ -149,6 +153,101 @@ class BiLSTM(nn.Module):
         pooled, (hT2, cT2) = fn(x, pf, pr, h02, c02,
                                 compute_dtype=compute_dtype_of(self.fwd.compute_dtype))
         return pooled, (torch.cat([hT2[0], hT2[1]], 1), torch.cat([cT2[0], cT2[1]], 1))
+
+
+class _StreamLSTM(nn.Module):
+    """Streaming (single-direction) LSTM step over a CHUNK of new windows,
+    with the mean-pool accumulator folded into the recurrence carry: the
+    O(1) state of the serving path (serving/session.py).
+
+    Holds the ``fwd`` cell of the dense path (:class:`LSTMCell`), so a
+    trained unidirectional :class:`ICALstm` state drives it unchanged. The
+    carry is ``(h, c, pooled, count)``: hidden and cell state plus the
+    running hidden-state SUM and valid-step count, whatever the number of
+    windows the session has consumed.
+
+    The step is plain PyTorch, as JAX's is a ``lax.scan`` outside any
+    Pallas kernel: the i2h product is one ``torch.matmul`` over the chunk
+    (JAX's ``xi = enc @ w_ih + b``), then a loop over the chunk's steps.
+    The pooled sum accumulates INSIDE the loop, a strict left fold in time
+    order, so windows ``[0..t1)`` then ``[t1..T)`` perform the same
+    additions as ``[0..T)`` in one chunk: streaming in chunks is bitwise
+    the one-shot replay. ``step_valid`` gates padded chunk slots: an invalid
+    step leaves all four parts of the carry bitwise unchanged."""
+
+    def __init__(self, in_dim: int, hidden_size: int, compute_dtype=None, generator=None):
+        super().__init__()
+        self.fwd = LSTMCell(in_dim, hidden_size, compute_dtype, use_kernel=False,
+                            generator=generator)
+
+    def forward(self, enc, h, c, pooled, count, step_valid):
+        w_ih, b, w_hh = self.fwd.leaves()
+        H = self.fwd.hidden_size
+        cdt = compute_dtype_of(self.fwd.compute_dtype)
+        if cdt is not None:
+            # JAX's mixed-precision step: bf16 operands, f32 accumulation,
+            # a bf16 xi stream
+            xi = (torch.matmul(enc.to(cdt).float(), w_ih.to(cdt).float()) + b).to(cdt)
+            w_hh = w_hh.to(cdt).float()
+        else:
+            xi = torch.matmul(enc, w_ih) + b  # [B, t, 4H]: one hoisted product
+        for t in range(xi.shape[1]):
+            hh = h if cdt is None else h.to(cdt).float()
+            preact = xi[:, t] + torch.matmul(hh, w_hh)
+            i = torch.sigmoid(preact[:, :H])
+            f = torch.sigmoid(preact[:, H:2 * H])
+            o = torch.sigmoid(preact[:, 2 * H:3 * H])
+            g = torch.tanh(preact[:, 3 * H:])
+            c_new = f * c + i * g
+            h_new = o * torch.tanh(c_new)
+            sv = step_valid[:, t]
+            live = (sv > 0)[:, None]
+            # an invalid step is an exact identity: h, c and pooled hold and
+            # count adds sv == 0
+            h, c, pooled = (torch.where(live, h_new, h), torch.where(live, c_new, c),
+                            torch.where(live, pooled + h_new, pooled))
+            count = count + sv
+        return h, c, pooled, count
+
+
+class ICALstmStream(nn.Module):
+    """Streaming twin of the unidirectional :class:`ICALstm`: the serving
+    path's O(1) step over a chunk (serving/engine.py).
+
+    Its ``state_dict`` names are ``ICALstm.leaf_table(bidirectional=False)``'s
+    (``encoder``, ``lstm.fwd``, ``cls_fc1``, ``cls_bn``, ``cls_fc2``,
+    ``cls_fc3``), so one checkpoint, or one ``params_from_jax``, serves
+    both the batched full-sequence path and this one. ``forward(x [B, t,
+    C, W], h, c, pooled [B, H], count [B], step_valid [B, t])`` encodes only
+    the chunk's new windows, advances the carry, and runs the head on the
+    running mean; returns ``(logits, (h, c, pooled, count))``. Eval
+    semantics only: no dropout, the head BatchNorm on its running
+    statistics, so co-batched sessions never perturb each other.
+    Unidirectional only: the reverse direction of a biLSTM reads the
+    future, so no O(1) carry can reproduce it."""
+
+    def __init__(self, input_size: int = 256, hidden_size: int = 256, num_cls: int = 2,
+                 num_comps: int = 53, window_size: int = 20, compute_dtype=None,
+                 generator=None):
+        super().__init__()
+        g = generator
+        self.compute_dtype = compute_dtype
+        self.encoder = dense(num_comps * window_size, input_size, g)
+        self.lstm = _StreamLSTM(input_size, hidden_size, compute_dtype, g)
+        self.cls_fc1 = dense(hidden_size, 256, g)
+        self.cls_bn = BatchNorm(256, track_running_stats=True)
+        self.cls_fc2 = dense(256, 64, g)
+        self.cls_fc3 = dense(64, num_cls, g)
+
+    def forward(self, x, h, c, pooled, count, step_valid):
+        B, t = x.shape[0], x.shape[1]
+        enc = torch.relu(linear(self.encoder, x.reshape(B, t, -1),
+                                compute_dtype_of(self.compute_dtype)))
+        h, c, pooled, count = self.lstm(enc, h, c, pooled, count, step_valid)
+        o = (pooled / torch.clamp(count, min=1.0)[:, None]).float()
+        o = self.cls_bn(self.cls_fc1(o), train=False)
+        o = torch.relu(self.cls_fc2(torch.relu(o)))
+        return self.cls_fc3(o), (h, c, pooled, count)
 
 
 class ICALstm(nn.Module):

@@ -31,6 +31,10 @@ _libs: dict[str, ctypes.CDLL] = {}
 #: what the last build did: seconds, and each source's nvcc output
 #: (``-Xptxas=-v`` prints registers, shared memory and spills per kernel)
 last_build: dict = {}
+#: sources compiled and libraries loaded in this process: the serving
+#: engine holds both still after its warmup (``compiles_after_warmup``)
+BUILDS = 0
+LOADS = 0
 
 
 def _nvcc() -> str:
@@ -72,12 +76,14 @@ def build_all() -> dict[str, Path]:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, lib)
     logs, failed = {}, []
+    global BUILDS
     for name, (proc, tmp, lib) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(name)
         else:
             os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+            BUILDS += 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"--- {n}\n{logs[n]}" for n in failed))
@@ -87,10 +93,12 @@ def build_all() -> dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    global LOADS
     with _lock:
         if name not in _libs:
             libs = build_all()
             if name not in libs:
                 raise RuntimeError(f"no CUDA source csrc/{name}.cu")
             _libs[name] = ctypes.CDLL(str(libs[name]))
+            LOADS += 1
         return _libs[name]

@@ -26,9 +26,20 @@ from ..weights import LeafTable
 @dataclass(frozen=True)
 class ServingSpec:
     """``sample_shape(cfg)`` is one example's feature shape (no batch axis):
-    the shape a request's rows carry and the row buckets pad to."""
+    the shape a request's rows carry and the row buckets pad to.
+    ``stream_shape(cfg)`` is one streaming timestep's shape (None: the task
+    has no recurrent session semantics); ``streaming_ok(cfg)`` gates the
+    streaming lane on the config being causal: the ICA-LSTM streams iff
+    ``bidirectional=False`` (the reverse direction of a biLSTM reads the
+    future; models/icalstm.py ICALstmStream)."""
 
     sample_shape: Callable[[TrainConfig], tuple]
+    stream_shape: Callable[[TrainConfig], tuple] | None = None
+    streaming_ok: Callable[[TrainConfig], bool] | None = None
+
+    def supports_streaming(self, cfg: TrainConfig) -> bool:
+        return (self.stream_shape is not None
+                and (self.streaming_ok is None or bool(self.streaming_ok(cfg))))
 
 
 @dataclass(frozen=True)
@@ -91,6 +102,9 @@ TASKS: dict[str, TaskSpec] = {
                 cfg.ica_args.num_components,
                 cfg.ica_args.window_size,
             ),
+            # one streaming timestep is one window [C, W]
+            stream_shape=lambda cfg: (cfg.ica_args.num_components, cfg.ica_args.window_size),
+            streaming_ok=lambda cfg: not cfg.ica_args.bidirectional,
         ),
     ),
 }

@@ -4,6 +4,7 @@ from .checkpoint import (
     load_inference_state,
     load_meta,
     load_params,
+    params_digest,
     save_checkpoint,
 )
 from .loop import FederatedTrainer
@@ -40,5 +41,6 @@ __all__ = [
     "make_eval_fn",
     "make_optimizer",
     "make_train_epoch_fn",
+    "params_digest",
     "save_checkpoint",
 ]

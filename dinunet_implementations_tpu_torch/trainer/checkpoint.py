@@ -27,6 +27,7 @@ at hand (the one saved, or ``like``): an MSANNet state writes the empty
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import struct
@@ -37,6 +38,8 @@ import numpy as np
 import torch
 
 from ..weights import (
+    _nest,
+    _params_to_jax,
     _params_to_port,
     engine_state_from_jax,
     table_of,
@@ -265,3 +268,35 @@ def load_inference_state(path: str):
     falls back to ``.prev`` as every loader does."""
     raw = _load_raw(path)
     return raw.get("params", {}), raw.get("batch_stats", {}) or {}, _meta(raw)
+
+
+def _tree_leaves(tree) -> list:
+    """The leaves of nested dicts in ``jax.tree.leaves`` order: keys sorted
+    at every level."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def params_digest(params, batch_stats=None) -> str:
+    """Content digest of a weight pair, the publish stream's identity: the
+    first 16 hex digits of a sha256 over the leaves of the JAX-layout trees
+    in ``jax.tree.leaves`` order, each leaf's ``str((shape, dtype))`` before
+    its bytes, so a reshape cannot collide. The same string as the JAX
+    package's ``params_digest`` for the same weights: a ``publish.json``
+    that a JAX daemon wrote gates correctly here. Takes the JAX trees
+    (numpy leaves) or the port's tensors by ``state_dict`` name (as an
+    engine's ``weights()`` gives them), which go through the weight
+    bridge's to-JAX direction first."""
+    stats = batch_stats or {}
+    if any(torch.is_tensor(v) for v in params.values()):
+        table = table_of(params)
+        params = _params_to_jax(params, table)
+        stats = _nest({j: stats[n].detach().cpu().numpy() for n, j in table.stats if n in stats})
+    h = hashlib.sha256()
+    for tree in (params, stats):
+        for leaf in _tree_leaves(tree):
+            a = np.asarray(leaf)
+            h.update(str((a.shape, str(a.dtype))).encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
