@@ -146,7 +146,34 @@ result line:
    same forward on the CPU; the command line with no ``--task``: rankDAD
    after one epoch of largest-site pretraining, then ``--site 0``, K7
    counted for each part;
-15. one JSON line of per-kernel numbers, then the result line.
+15. the serving plane: the unidirectional ICA-LSTM at full width (one
+   direction of H=348), random weights from seed 0 written with the port's
+   checkpoint writer and served from that file (``InferenceEngine(cfg,
+   checkpoint=...)``, stream buckets 1 and 4, chunks of 8, 32 slots). K1 at
+   H=348, rows 1, 4 and 16: the route and geometry the launcher picks (the
+   streaming route: W_hh fits no cluster of 8), every output against the
+   plain version, times of K1, the plain version and cuDNN's
+   unidirectional ``torch.nn.LSTM`` beside the bound; one K1 launch a
+   batched dispatch. Streaming: 8 sessions of 98 windows from two threads
+   in ragged chunks of 1-13 windows, each final answer within
+   ``SERVE_TOL`` of the batched lane on the card and of the CPU forward
+   (also of the same session replayed alone, at another bucket); one
+   session chunk by chunk (each awaited) and as one submission, bit for
+   bit; the carry table's tensors, shapes and bytes unchanged after 6 × 98
+   more windows; streaming-step ms p50/p99 per bucket, sessions occupied
+   and evictions. Publish (``PublishController`` on a ``MetricsBus``): the
+   live digest again is ``rejected-stale``, a candidate with a NaN leaf
+   ``rejected-shadow`` with the live answers unchanged bit for bit, a
+   perturbed candidate (seed 1) ``swapped`` with its pause and the shadow
+   lane's K1 launches (2 a mirrored batch) and its answers bit for bit a
+   fresh engine's, and ``check_rollback`` at a p99 target no request
+   meets rolls back to the original answers bit for bit; no kernel library
+   built or loaded after warmup. Fleet: ``ReplicaSet(replicas=2)`` on the
+   card, bit for bit the single engine at every row bucket, each session on
+   its ``home_slot``; after a swap, ``kill_replica(0)``: the supervisor
+   restarts it at generation 2 on the current weights, a re-homed session
+   replays bit for bit, and the restart seconds are printed;
+16. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -268,14 +295,14 @@ def time_ms(fn, runs: int) -> float:
     return statistics.median(times)
 
 
-def bound(rows: int, bf16: bool) -> tuple[float, str]:
-    """Least time for one serving-configuration call (hs, hT, cT out): the
-    larger of its bytes over HBM bandwidth and its product FLOP over the
-    peak for the operand type."""
+def bound(rows: int, bf16: bool, h: int = H) -> tuple[float, str]:
+    """Least time for one serving-configuration call of width ``h`` (hs, hT,
+    cT out): the larger of its bytes over HBM bandwidth and its product FLOP
+    over the peak for the operand type."""
     es = 2 if bf16 else 4
-    nbytes = (T * rows * D * es + 4 * D * H * es + 4 * H * 4 + 4 * H * H * es
-              + 2 * rows * H * 4 + T * rows * H * es + 2 * rows * H * 4)
-    flop = 2 * T * rows * (D + H) * 4 * H
+    nbytes = (T * rows * D * es + 4 * D * h * es + 4 * h * 4 + 4 * h * h * es
+              + 2 * rows * h * 4 + T * rows * h * es + 2 * rows * h * 4)
+    flop = 2 * T * rows * (D + h) * 4 * h
     tb, to = nbytes / HBM_BPS, flop / (BF16_FLOPS if bf16 else F32_FLOPS)
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
@@ -655,7 +682,7 @@ def cudnn_lstm(torch, wih, b, whh, cdt=None):
     (forward, reverse) for a bidirectional LSTM."""
     order = (0, 1, 3, 2)
     bidir = wih.dim() == 4
-    lstm = torch.nn.LSTM(D, H, bidirectional=bidir).to(wih.device)
+    lstm = torch.nn.LSTM(D, wih.shape[-1], bidirectional=bidir).to(wih.device)
     with torch.no_grad():
         for d, suffix in ((0, ""), (1, "_reverse"))[:2 if bidir else 1]:
             wi, bi, wh = (w[d] if bidir else w for w in (wih, b, whh))
@@ -2675,6 +2702,406 @@ def fs_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     return rec
 
 
+# The serving plane (phase 15): the unidirectional ICA-LSTM at full width
+# (the default ICAArgs with bidirectional=False: one direction of 348),
+# random weights from seed 0, written with the port's checkpoint writer and
+# served from that file at the engine's default stream buckets (1, 4),
+# chunk 8 and 32 slots.
+PLANE_H = 348
+PLANE_ROWS = (1, 4, 16)  # K1 on this path: one request, four rows, the largest row bucket
+PLANE_SESSIONS, PLANE_WINDOWS = 8, 98
+PLANE_CHUNKS = (1, 13)  # a client's ragged chunk sizes, inclusive
+PLANE_STEP_RUNS = 50  # timed streaming steps a bucket
+PLANE_LONG_RUNS = 6  # more whole sessions through one session id: the table stays put
+PLANE_REQUESTS = 12  # batched requests mirrored before the first publish
+
+
+def plane_cfg():
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+
+    return TrainConfig(task_id=NNComputation.TASK_ICA, seed=0).with_overrides(
+        {"ica_args": {"bidirectional": False}})
+
+
+def plane_checkpoint(torch, cfg, path: str) -> dict:
+    """The model of ``cfg`` with random weights from its seed and a head
+    BatchNorm with non-trivial statistics, written with the port's
+    checkpoint writer; returns its ``state_dict`` (CPU)."""
+    from dinunet_implementations_tpu_torch.runner.registry import build_model
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import save_checkpoint
+    from dinunet_implementations_tpu_torch.trainer.steps import TrainState
+    from dinunet_implementations_tpu_torch.weights import leaf_table
+
+    model = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        bn = model.cls_bn
+        bn.running_mean.copy_(0.2 * torch.randn(256, generator=g))
+        bn.running_var.copy_(0.5 + 1.5 * torch.rand(256, generator=g))
+        bn.weight.copy_(1 + 0.2 * torch.randn(256, generator=g))
+        bn.bias.copy_(0.1 * torch.randn(256, generator=g))
+    sd = model.state_dict()
+    table = leaf_table(cfg)
+    save_checkpoint(path, TrainState(
+        params={n: sd[n] for n, _, _ in table.params},
+        batch_stats={n: sd[n] for n, _ in table.stats},
+        opt_state={}, engine_state={}, rng=0, round=0, health={}), meta={"epoch": 0})
+    return sd
+
+
+def k1_plane_phase(torch, lc) -> list[dict]:
+    """K1 at the width the unidirectional model runs (H = 348) and the rows
+    of this path: the route and geometry the launcher picks, every output
+    against the plain version, and the times of K1, the plain version and
+    cuDNN's unidirectional ``torch.nn.LSTM`` beside the bound."""
+    g = torch.Generator().manual_seed(0)
+    out = []
+    for rows in PLANE_ROWS:
+        args = recurrence_args(torch, rows, g, h=PLANE_H)
+        geo = geometry_line(torch, lc, rows, PLANE_H, None)
+        want = lc.lstm_recurrence_plain(*args, None, residuals=True)
+        got = lc.lstm_recurrence_fused(*args, None, residuals=True)
+        torch.cuda.synchronize()
+        err = compare(f"lstm_fwd H={PLANE_H} rows={rows} {geo['route']}", got, want, OUTPUTS,
+                      F32_TOL)
+        ms = time_ms(lambda: lc.lstm_recurrence_fused(*args, None), 30)
+        plain_ms = time_ms(lambda: lc.lstm_recurrence_plain(*args, None), 20)
+        library = library_lstm_ms(torch, args, want[0])
+        b_ms, b_by = bound(rows, False, PLANE_H)
+        rec = {"rows": rows, "H": PLANE_H, "dtype": "f32", "route": geo["route"], "geometry": geo,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **library, "bound_ms": b_ms,
+               "bound_by": b_by}
+        print(json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+def plane_counts(lc) -> dict:
+    return {"lstm_fwd": lc.LAUNCHES, "k1_cluster_route": lc.K1_CLUSTER_CALLS,
+            "k1_stream_route": lc.K1_STREAM_CALLS}
+
+
+def plane_zero(lc) -> None:
+    lc.LAUNCHES = lc.PROJ_LAUNCHES = lc.K1_CLUSTER_CALLS = lc.K1_STREAM_CALLS = 0
+
+
+def plane_want(route: str, launches: int) -> dict:
+    """The counts of ``launches`` K1 calls at H = 348, all on ``route``."""
+    return {"lstm_fwd": launches, "k1_cluster_route": launches * (route == "cluster"),
+            "k1_stream_route": launches * (route == "stream")}
+
+
+def plane_sessions(np, rng, window_shape):
+    """``PLANE_SESSIONS`` sessions of ``PLANE_WINDOWS`` windows, each cut
+    into ragged chunks."""
+    sessions = {}
+    for i in range(PLANE_SESSIONS):
+        seq = rng.standard_normal((PLANE_WINDOWS, *window_shape)).astype(np.float32)
+        cuts, at = [], 0
+        while at < PLANE_WINDOWS:
+            n = int(rng.integers(PLANE_CHUNKS[0], PLANE_CHUNKS[1] + 1))
+            cuts.append((at, min(at + n, PLANE_WINDOWS)))
+            at += n
+        sessions[f"plane-{i}"] = (seq, cuts)
+    return sessions
+
+
+def stream_phase(torch, np, eng, cpu_task) -> dict:
+    """Phase 15's streaming part on a warm engine (module docstring)."""
+    from dinunet_implementations_tpu_torch.trainer.steps import eval_forward
+
+    rng = np.random.default_rng(15)
+    sessions = plane_sessions(np, rng, eng.sample_shape[1:])
+    finals = {}
+
+    def client(names):
+        # every session of this client advances one chunk a round, none awaited
+        futs = {}
+        for k in range(max(len(sessions[n][1]) for n in names)):
+            for n in names:
+                seq, cuts = sessions[n]
+                if k < len(cuts):
+                    futs[n] = eng.stream(n, seq[cuts[k][0]:cuts[k][1]])
+        for n, f in futs.items():
+            finals[n] = f.result(timeout=120)["probs"]
+
+    names = sorted(sessions)
+    threads = [threading.Thread(target=client, args=(names[k::2],)) for k in (0, 1)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.monotonic() - t0
+    if any(t.is_alive() for t in threads) or sorted(finals) != names:
+        fail("not every streaming session was answered")
+    seqs = np.stack([sessions[n][0] for n in names])
+    batched = np.stack([eng.submit(s[None]).result(timeout=120)[0] for s in seqs])
+    cpu = eval_forward(cpu_task, torch.from_numpy(seqs)).numpy()
+    got = np.stack([finals[n] for n in names])
+    if not np.isfinite(got).all() or got.shape != (PLANE_SESSIONS, 2):
+        fail(f"streamed answers shaped {got.shape} or not finite")
+    err_batched = float(np.abs(got - batched).max())
+    err_cpu = float(np.abs(got - cpu).max())
+    if max(err_batched, err_cpu) > SERVE_TOL:
+        fail(f"streamed answers differ from the batched lane by {err_batched} and from the "
+             f"CPU forward by {err_cpu}")
+    # one session alone (bucket 1): chunk by chunk, each awaited, then the
+    # whole run as one submission; and each concurrent session replayed
+    # alone, which crosses buckets
+    seq, cuts = sessions[names[0]]
+    for lo, hi in cuts:
+        for a in range(lo, hi, eng.stream_chunk):
+            piece = seq[a:min(a + eng.stream_chunk, hi)]
+            last = eng.stream("plane-chunked", piece).result(timeout=120)
+    whole = eng.stream("plane-whole", seq).result(timeout=120)
+    if not np.array_equal(last["probs"], whole["probs"]):
+        fail(f"chunked {last['probs']} and one-submission {whole['probs']} answers differ")
+    solo = np.stack([eng.stream("solo-" + n, sessions[n][0]).result(timeout=120)["probs"]
+                     for n in names])
+    cross_bucket = float(np.abs(got - solo).max())
+    if cross_bucket > SERVE_TOL:
+        fail(f"concurrent sessions differ from their solo replays by {cross_bucket}")
+    # the O(1) table: the same tensors, shapes and bytes after more windows
+    before = {k: (tuple(v.shape), v.numel() * v.element_size(), v.data_ptr())
+              for k, v in eng._table.items()}
+    for _ in range(PLANE_LONG_RUNS):
+        eng.stream("plane-long", seq).result(timeout=120)
+    after = {k: (tuple(v.shape), v.numel() * v.element_size(), v.data_ptr())
+             for k, v in eng._table.items()}
+    if after != before:
+        fail(f"the carry table changed: {before} -> {after}")
+    # one streaming step a bucket, timed on the host clock (it ends with the
+    # answer on the host): pad slots only, an identity on the trash row
+    a, t = eng.cfg.ica_args, eng.stream_chunk
+    step_ms = {}
+    for b in eng.stream_buckets:
+        args = (np.full((b,), eng.sessions.trash_slot, np.int64), np.zeros((b,), np.float32),
+                rng.standard_normal((b, t, a.num_components, a.window_size)).astype(np.float32),
+                np.ones((b, t), np.float32), np.zeros((b,), np.float32))
+        times = []
+        for _ in range(PLANE_STEP_RUNS + 2):
+            t0 = time.perf_counter()
+            eng._stream_step(eng.weights(), *args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        times = sorted(times[2:])
+        step_ms[b] = {"p50": times[len(times) // 2],
+                      "p99": times[min(int(0.99 * len(times)), len(times) - 1)]}
+    summary = eng.summary()
+    rec = {"sessions": PLANE_SESSIONS, "windows": PLANE_WINDOWS, "wall_s": wall,
+           "chunks": sum(len(c) for _, c in sessions.values()),
+           "max_abs_err_vs_batched": err_batched, "max_abs_err_vs_cpu": err_cpu,
+           "cross_bucket_max_abs_diff": cross_bucket, "chunked_equals_whole": True,
+           "carry_table": {k: v[:2] for k, v in after.items()},
+           "step_ms": step_ms, "stream_latency_ms": {
+               k: summary[k] for k in ("latency_ms_p50", "latency_ms_p99")},
+           "sessions_occupied": summary["stream_sessions"],
+           "evictions": summary["stream_evictions"], "stream_chunks": summary["stream_chunks"]}
+    print(f"streaming: {PLANE_SESSIONS} sessions x {PLANE_WINDOWS} windows from two threads in "
+          f"{wall:.3f} s; vs batched {err_batched:.3g}, vs CPU {err_cpu:.3g}, across buckets "
+          f"{cross_bucket:.3g}; step ms " + ", ".join(
+              f"bucket {b}: p50 {v['p50']:.3f} p99 {v['p99']:.3f}" for b, v in step_ms.items())
+          + f"; {rec['sessions_occupied']} sessions occupied, {rec['evictions']} evictions")
+    return rec
+
+
+def publish_phase(torch, np, lc, eng, bus, cfg, device, route: str):
+    """Phase 15's publish part on the streaming engine (module docstring):
+    returns the record and the probe answers of the original and the
+    candidate weights."""
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.serving import PublishController
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import params_digest
+    from dinunet_implementations_tpu_torch.weights import _nest, _params_to_jax
+
+    rng = np.random.default_rng(16)
+    probes = {b: rng.standard_normal((b, *eng.sample_shape)).astype(np.float32)
+              for b in eng.row_buckets}
+
+    def answers(e):
+        return {b: e.submit(x).result(timeout=120) for b, x in probes.items()}
+
+    for _ in range(PLANE_REQUESTS):
+        eng.submit(rng.standard_normal((int(rng.integers(1, 17)), *eng.sample_shape))
+                   .astype(np.float32)).result(timeout=120)
+    original = answers(eng)
+    params, stats = eng.weights()
+    jparams = _params_to_jax(params, eng.table)
+    jstats = _nest({j: stats[n].cpu().numpy() for n, j in eng.table.stats})
+    pc = PublishController(eng, bus=bus, p99_target_ms=1e-3, min_window_samples=20)
+    pc.live_digest = params_digest(params, stats)
+    rows = [pc.publish(jparams, jstats, digest=pc.live_digest)]
+    nan = {k: dict(v) for k, v in jparams.items()}
+    nan["cls_fc3"]["bias"] = np.full_like(nan["cls_fc3"]["bias"], np.nan)
+    rows.append(pc.publish(nan, jstats, digest="nan-candidate"))
+    after_reject = answers(eng)
+    if not all(np.array_equal(after_reject[b], original[b]) for b in probes):
+        fail("a rejected candidate moved the live answers")
+    cand = _perturbed(np, jparams, np.random.default_rng(1))
+    plane_zero(lc)
+    rows.append(pc.publish(cand, jstats, digest=params_digest(cand, jstats)))
+    shadow_launches = plane_counts(lc)
+    outcomes = [r["outcome"] for r in rows]
+    if outcomes != ["rejected-stale", "rejected-shadow", "swapped"]:
+        fail(f"publish outcomes {outcomes}: {rows}")
+    batches = rows[2]["shadow"]["batches"]
+    if shadow_launches != plane_want(route, 2 * batches):
+        fail(f"shadow scoring of {batches} mirrored batches launched {shadow_launches}")
+    swapped = answers(eng)
+    with InferenceEngine(cfg, params=cand, batch_stats=jstats, streaming=False,
+                         device=device) as fresh:
+        fresh.warmup()
+        fresh_answers = answers(fresh)
+    for b in probes:
+        if not np.array_equal(swapped[b], fresh_answers[b]):
+            fail(f"after the swap, rows {b} differ from a fresh engine's on the candidate")
+    for _ in range(pc.min_window_samples):
+        eng.submit(probes[1]).result(timeout=120)
+    verdict = pc.check_rollback()
+    if verdict is None or not verdict["rolled_back"]:
+        fail(f"no rollback at a p99 target of {pc.p99_target_ms} ms: {verdict}")
+    rolled = answers(eng)
+    for b in probes:
+        if not np.array_equal(rolled[b], original[b]):
+            fail(f"after the rollback, rows {b} differ from the original weights' answers")
+    built = eng.compiles_after_warmup()
+    if any(built.values()):
+        fail(f"kernel libraries built or loaded after warmup: {built}")
+    rec = {"outcomes": outcomes + ["rolled-back"], "pause_ms": rows[2]["pause_ms"],
+           "shadow": rows[2]["shadow"], "shadow_launches": shadow_launches,
+           "rollback": verdict, "swaps": eng.stats["swaps"], "compiles_after_warmup": built,
+           "swap_pause_hist": bus.snapshot()["histograms"].get("serving_swap_pause_ms")}
+    print(f"publish: stale, shadow-rejected, swapped (pause {rec['pause_ms']} ms, "
+          f"{shadow_launches['lstm_fwd']} K1 launches for {batches} mirrored batches), rolled "
+          f"back at burn {verdict['burn']}; nothing built after warmup")
+    return rec, cand, jstats, fresh_answers, probes
+
+
+def _perturbed(np, tree, noise):
+    """``tree`` with every leaf moved by 0.01 of a standard normal draw."""
+    if isinstance(tree, dict):
+        return {k: _perturbed(np, tree[k], noise) for k in sorted(tree)}
+    return (tree + 0.01 * noise.standard_normal(tree.shape)).astype(np.float32)
+
+
+def fleet_phase(torch, np, lc, cfg, ckpt, eng, cand, cand_stats, cand_answers, probes,
+                device, route: str) -> dict:
+    """Phase 15's fleet part (module docstring): two replicas on the one
+    card against the single engine ``eng`` (on the original weights again)."""
+    from dinunet_implementations_tpu_torch.serving import ReplicaSet, home_slot
+    from dinunet_implementations_tpu_torch.telemetry import MetricsBus
+
+    rng = np.random.default_rng(17)
+    fleet = ReplicaSet(cfg, replicas=2, checkpoint=ckpt, bus=MetricsBus(), devices=[device],
+                       supervise_interval_s=0.05)
+    try:
+        fleet.warmup()
+        plane_zero(lc)
+        for b, x in probes.items():
+            if not np.array_equal(fleet.submit(x).result(timeout=120),
+                                  eng.submit(x).result(timeout=120)):
+                fail(f"the fleet's answer at rows {b} differs from the single engine's")
+        fleet_launches = plane_counts(lc)
+        if fleet_launches != plane_want(route, 2 * len(probes)):
+            fail(f"fleet and engine launched {fleet_launches} for {2 * len(probes)} dispatches")
+        sids = [f"fleet-{i}" for i in range(6)]
+        for sid in sids:
+            fleet.stream(sid, rng.standard_normal((12, *eng.sample_shape[1:])).astype(
+                np.float32)).result(timeout=120)
+        for sid in sids:
+            where = [i for i, e in enumerate(fleet._engines) if e.sessions.slot_of(sid) is not None]
+            if where != [home_slot(sid, 2)] or fleet.replica_of(sid) != home_slot(sid, 2):
+                fail(f"session {sid} lives on {where}, home {home_slot(sid, 2)}")
+        fleet.swap_params(cand, cand_stats)
+        victim = next(f"victim-{i}" for i in range(100) if home_slot(f"victim-{i}", 2) == 0)
+        seq = rng.standard_normal(eng.sample_shape).astype(np.float32)
+        step = eng.stream_chunk  # one chunk a submission: each answer is its chunk's
+        ref = [fleet.stream(victim, seq[lo:lo + step]).result(timeout=120)["probs"]
+               for lo in range(0, PLANE_WINDOWS, step)]
+        gen = fleet.table.generation_of("replica-0")
+        t0 = time.monotonic()
+        fleet.kill_replica(0)
+        while not (fleet.restarts >= 1 and fleet._replica_alive(0)):
+            if time.monotonic() - t0 > 120:
+                fail("replica 0 was not restarted within 120 s")
+            time.sleep(0.005)
+        restart_s = time.monotonic() - t0
+        if fleet.table.generation_of("replica-0") != gen + 1:
+            fail(f"replica 0 came back at generation {fleet.table.generation_of('replica-0')}")
+        if fleet.replica_of(victim) is not None:
+            fail("the restart kept the route of a session homed on replica 0")
+        got = [fleet.stream(victim, seq[lo:lo + step]).result(timeout=120)
+               for lo in range(0, PLANE_WINDOWS, step)]
+        if not got[0]["restarted"] or not all(np.array_equal(a["probs"], b)
+                                              for a, b in zip(got, ref)):
+            fail("the re-homed session's replay differs from its first run")
+        for b, x in probes.items():
+            if not np.array_equal(fleet._engines[0].submit(x).result(timeout=120),
+                                  cand_answers[b]):
+                fail(f"the restarted replica does not serve the current weights (rows {b})")
+        status = fleet.status()
+    finally:
+        summary = fleet.close()
+    rec = {"replicas": 2, "restart_s": restart_s, "generation": gen + 1,
+           "launches": fleet_launches, "membership": status["membership"],
+           "requests": summary["requests"], "swaps": summary["swaps"],
+           "compiles_after_warmup": summary["compiles_after_warmup"]}
+    if summary["compiles_after_warmup"]:
+        fail(f"the fleet built or loaded kernels after warmup: {summary}")
+    print(f"fleet: 2 replicas on one card, bit for bit the single engine at rows "
+          f"{sorted(probes)}; replica 0 restarted in {restart_s:.3f} s at generation {gen + 1}, "
+          f"serving the current weights")
+    return rec
+
+
+def serving_plane_phase(torch, np, lc, smi: str, root: str) -> dict:
+    """Phase 15 of the module docstring."""
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.runner.registry import build_model
+    from dinunet_implementations_tpu_torch.serving.engine import DEFAULT_ROW_BUCKETS
+    from dinunet_implementations_tpu_torch.telemetry import MetricsBus
+    from dinunet_implementations_tpu_torch.trainer.steps import FederatedTask
+
+    t_phase = time.perf_counter()
+    device = torch.device("cuda")
+    k1 = k1_plane_phase(torch, lc)
+    cfg = plane_cfg()
+    routes = {b: lc.device_geometry(device, b, PLANE_H, None)["route"]
+              for b in sorted(set(PLANE_ROWS) | set(DEFAULT_ROW_BUCKETS))}
+    if len(set(routes.values())) != 1:
+        fail(f"K1 takes several routes on this path: {routes}")
+    ckpt = os.path.join(root, "plane", "checkpoint_best.msgpack")
+    sd = plane_checkpoint(torch, cfg, ckpt)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(sd)
+    cpu_task = FederatedTask(cpu.eval())
+    bus = MetricsBus()
+    with InferenceEngine(cfg, checkpoint=ckpt, bus=bus) as eng:
+        warm = eng.warmup()
+        plane_zero(lc)
+        x = np.random.default_rng(5).standard_normal((1, *eng.sample_shape)).astype(np.float32)
+        eng.submit(x).result(timeout=120)
+        one = plane_counts(lc)
+        if one != plane_want(routes[1], 1):
+            fail(f"one batched dispatch launched {one}")
+        stream = stream_phase(torch, np, eng, cpu_task)
+        publish, cand, cand_stats, cand_answers, probes = publish_phase(
+            torch, np, lc, eng, bus, cfg, device, routes[1])
+        fleet = fleet_phase(torch, np, lc, cfg, ckpt, eng, cand, cand_stats, cand_answers,
+                            probes, device, routes[1])
+    rec = {"card": smi, "k1": k1, "k1_routes": routes, "warmup_s": warm,
+           "batched_dispatch_launches": one,
+           "stream": stream, "publish": publish, "fleet": fleet,
+           "phase_seconds": time.perf_counter() - t_phase}
+    print(f"serving plane: K1 at H={PLANE_H} on the {routes[1]} route, "
+          + ", ".join(f"rows {r['rows']} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}, plain "
+                      f"{r['plain_ms']:.3f}, cuDNN {r['library_ms']:.3f})" for r in k1)
+          + f"; swap pause {publish['pause_ms']} ms; replica restart {fleet['restart_s']:.3f} s; "
+          f"phase {rec['phase_seconds']:.1f} s on {smi}")
+    print("serving plane:", json.dumps(rec, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2754,6 +3181,10 @@ def main() -> int:
               "native reader, dSGD / rankDAD / powerSGD fits, K7 at the FS classes, serving "
               "and the command line with no --task")
         fs = fs_phase(torch, np, lc, pc, bc, smi, root)
+
+        print(f"== 15. the serving plane at full width: the unidirectional ICA-LSTM "
+              f"(H={PLANE_H}) from a checkpoint: streaming, publish and rollback, two replicas")
+        plane = serving_plane_phase(torch, np, lc, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2764,7 +3195,10 @@ def main() -> int:
                "fit": fit["launches"]["lstm_fwd"],
                "fit_serving": fit["serving"]["launches"]["lstm_fwd"],
                "training_powerSGD": train_psgd["launches"]["lstm_fwd"],
-               "cli": cli["launches"]["lstm_fwd"], "cli_site": cli["site_launches"]["lstm_fwd"]}
+               "cli": cli["launches"]["lstm_fwd"], "cli_site": cli["site_launches"]["lstm_fwd"],
+               "plane_batched": plane["batched_dispatch_launches"]["lstm_fwd"],
+               "plane_shadow": plane["publish"]["shadow_launches"]["lstm_fwd"],
+               "plane_fleet": plane["fleet"]["launches"]["lstm_fwd"]}
     bwd_by_path = {"training": train["launches"]["lstm_bwd"],
                    "training_rankDAD": train_dad["launches"]["lstm_bwd"],
                    "fit": fit["launches"]["lstm_bwd"],
@@ -2795,6 +3229,8 @@ def main() -> int:
                   "that fits no cluster of 8)",
         "geometry": fwd["geometry"], "proj_ms": fwd["proj_ms"], "stream_ms": fwd["stream_ms"],
         "shapes": shapes,
+        # the unidirectional model's width on the serving plane (phase 15)
+        "h348_shapes": plane["k1"],
     }, {
         "name": "lstm_bwd", "route": "cuda",
         "source": "dinunet_implementations_tpu_torch/csrc/lstm_bwd.cu",

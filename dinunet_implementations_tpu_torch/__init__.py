@@ -5,7 +5,9 @@ It mirrors the JAX package's layout (``models/``, ``ops/``, ``serving/``,
 ``trainer/``, ``runner/``, ``data/``, ``engines/``, …), so each module sits
 at the relative path of the module it is held against, and imports nothing
 of the JAX package. It serves the FreeSurfer MLP (MSANNet, the default
-task) and the ICA-LSTM classifier, and trains them by federated dSGD,
+task) and the ICA-LSTM classifier (for the unidirectional one also as a
+stream, per session; with hot-swaps, publish and rollback, and a replica
+fleet: ``serving/``), and trains them by federated dSGD,
 rankDAD or powerSGD with every site on one card (from Python,
 ``runner.FedRunner`` / ``runner.SiteRunner``, or the command line,
 ``python -m dinunet_implementations_tpu_torch.runner.cli``), through

@@ -61,7 +61,8 @@ def _seq(seed=1, windows=12):
 
 
 def _sid_on(slot, prefix, capacity=2):
-    return next(f"{prefix}-{i}" for i in range(1000) if home_slot(f"{prefix}-{i}", capacity) == slot)
+    return next(f"{prefix}-{i}" for i in range(1000)
+                if home_slot(f"{prefix}-{i}", capacity) == slot)
 
 
 def _wait_restart(fleet, slot, want, timeout=30.0):

@@ -5,6 +5,7 @@ stream == batched forward, isolation, restart, the O(1) table, the
 refusals), and the microbatcher's admission options against JAX's
 ``Microbatcher`` on the same requests."""
 
+import sys
 import threading
 import time
 
@@ -268,6 +269,54 @@ def test_concurrent_sessions_from_two_threads_match_sequential_answers(engine):
         np.testing.assert_allclose(got[name], want, atol=BATCHED_TOL)
 
 
+def test_lanes_under_many_threads_and_short_switches_count_every_request(weights):
+    """More client threads than cores, a switch interval of a microsecond:
+    every request answered, and no count of the engine or its lanes loses
+    an update."""
+    params, stats = weights
+    threads_n, per_thread = 12, 6
+    rng = np.random.default_rng(8)
+    rows = [rng.standard_normal((1 + i % 4, 8, C, W)).astype(np.float32)
+            for i in range(threads_n * per_thread)]
+    answers, errors = {}, []
+    prev = sys.getswitchinterval()
+    with InferenceEngine(_tcfg(), params=params, batch_stats=stats, device="cpu",
+                         **{**ENGINE, "stream_slots": 16}) as eng:
+        eng.warmup()
+
+        def client(k):
+            try:
+                for j in range(per_thread):
+                    i = k * per_thread + j
+                    answers[i] = (eng.submit(rows[i]).result(timeout=60),
+                                  eng.stream(f"stress-{k}", rows[i][0, :3]).result(timeout=60))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(threads_n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(prev)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+        summary = eng.summary()
+        lanes = eng._infer_lane.stats, eng._stream_lane.stats
+    n = threads_n * per_thread
+    assert len(answers) == n
+    assert summary["requests"] == 2 * n and summary["stream_chunks"] == n
+    assert summary["samples"] == sum(len(r) for r in rows) + n
+    assert lanes[0]["requests"] == lanes[1]["requests"] == n
+    assert lanes[0]["rows"] == sum(len(r) for r in rows)
+    assert summary["stream_sessions"] == threads_n
+    for i, (probs, streamed) in answers.items():
+        assert probs.shape == (len(rows[i]), 2) and np.isfinite(probs).all()
+        assert streamed["generation"] == 1
+
+
 def test_stream_refusals(weights, engine):
     params, stats = weights
     with pytest.raises(ServingError, match="at least one window"):
@@ -384,7 +433,8 @@ SCENARIOS = {
 
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_microbatcher_admission_matches_jax(name):
-    got, want = (_run_scenario(cls, {**SCENARIOS[name], "lane": dict(SCENARIOS[name].get("lane", {}))})
+    scenario = SCENARIOS[name]
+    got, want = (_run_scenario(cls, {**scenario, "lane": dict(scenario.get("lane", {}))})
                  for cls in (Microbatcher, JaxMicrobatcher))
     assert got == want
     if name in ("deadline", "max_queue", "oversize"):
