@@ -77,15 +77,13 @@ class _Req:
     """One queued request (either lane)."""
 
     __slots__ = ("rows", "weights", "future", "session", "slot", "generation",
-                 "fresh", "step_valid", "trace_id", "_submit_t", "_seq",
-                 "priority", "deadline_ms")
+                 "fresh", "trace_id", "_submit_t", "_seq", "priority", "deadline_ms")
 
     def __init__(self, rows, weights=None, session=None, trace_id=None,
                  priority: int = 0, deadline_ms=None):
         self.rows = rows
         self.weights = weights
         self.session = session
-        self.step_valid = None
         self.slot = self.generation = 0
         self.fresh = False
         # admission: higher priority collects first; deadline_ms is the

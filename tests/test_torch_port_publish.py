@@ -20,6 +20,7 @@ from dinunet_implementations_tpu.serving import CheckpointWatcher as JaxWatcher
 from dinunet_implementations_tpu.serving import DelayAutotuner as JaxAutotuner
 from dinunet_implementations_tpu.serving import InferenceEngine as JaxEngine
 from dinunet_implementations_tpu.serving import PublishController as JaxController
+from dinunet_implementations_tpu.telemetry.bus import LabeledBusView as JaxLabeledBusView
 from dinunet_implementations_tpu.telemetry.bus import MetricsBus as JaxBus
 from dinunet_implementations_tpu.telemetry.exporter import slo_burn as jax_slo_burn
 from dinunet_implementations_tpu.telemetry.hist import LogHistogram as JaxHist
@@ -37,9 +38,12 @@ from dinunet_implementations_tpu_torch.serving import (
     ServingError,
 )
 from dinunet_implementations_tpu_torch.telemetry import (
+    NULL_BUS,
     HistogramShapeError,
+    LabeledBusView,
     LogHistogram,
     MetricsBus,
+    series_key,
     slo_burn,
 )
 from dinunet_implementations_tpu_torch.trainer import params_digest
@@ -128,6 +132,29 @@ def test_slo_burn_equals_jaxs(target, budget):
     ours, theirs = _pair(SAMPLES)
     assert slo_burn(ours, target, budget) == jax_slo_burn(theirs, target, budget)
     assert slo_burn(None, target) == jax_slo_burn(None, target)
+
+
+def test_bus_series_and_labeled_views_equal_jaxs():
+    snaps = []
+    for bus_cls, view_cls in ((MetricsBus, LabeledBusView), (JaxBus, JaxLabeledBusView)):
+        bus = bus_cls()
+        view = view_cls(bus, tenant="a", replica="1")
+        for v in SAMPLES[:50]:
+            view.observe("serving_request_latency_ms", v, lane="infer")
+        bus.observe("serving_request_latency_ms", 3.0, lane='stream"\\n')
+        view.counter("serving_requests_total", 2, lane="infer", tenant="spoofed")
+        view.gauge("serving_queue_depth", 5, lane="infer")
+        bus.gauge("serving_replicas_live", 2)
+        view.clear_gauge("serving_queue_depth", lane="infer")
+        snaps.append((bus.snapshot(), view.histogram("serving_request_latency_ms",
+                                                     lane="infer").to_dict(),
+                      bus.merged_histogram("serving_request_latency_ms").to_dict()))
+    assert snaps[0] == snaps[1]
+    assert 'tenant="a"' in next(iter(snaps[0][0]["counters"]))  # the view's label wins
+    assert series_key("x", {"b": 1, "a": 'q"'}) == 'x{a="q\\"",b="1"}'
+    assert NULL_BUS.histogram("anything") is None
+    NULL_BUS.observe("anything", 1.0)
+    assert NULL_BUS.snapshot()["histograms"] == {}
 
 
 # -- the autotuner -------------------------------------------------------------

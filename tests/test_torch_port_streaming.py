@@ -387,8 +387,10 @@ def _run_scenario(cls, scenario):
             r.future.set_result(None)
 
     kw = scenario.get("lane", {})
+    seen = []  # what on_dispatch hears of each dispatch (not the depth: timing)
     mb = cls(dispatch, buckets=scenario.get("buckets", (2,)), max_delay_ms=kw.pop("delay", 5.0),
-             **kw)
+             on_dispatch=lambda lane, batch, bucket, rows, depth: seen.append(
+                 (lane, [r.tag for r in batch], bucket, rows)), **kw)
     blocker = _Req("blocker", **scenario.get("blocker", {}))
     mb.submit(blocker)
     assert first.wait(10)
@@ -409,7 +411,7 @@ def _run_scenario(cls, scenario):
         except RuntimeError as e:
             shed.append((r.tag, type(e).__name__, "deadline" in str(e)))
     mb.close()
-    return order, refused, shed, {k: mb.stats[k] for k in ("dispatches", "shed", "rejected")}
+    return order, refused, shed, seen, {k: mb.stats[k] for k in ("dispatches", "shed", "rejected")}
 
 
 SCENARIOS = {
