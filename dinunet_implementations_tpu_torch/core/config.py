@@ -1,7 +1,8 @@
 """The subset of the training configuration that the port reads.
 
 Field names and defaults are those of the JAX package's ``core/config.py``
-(``FSArgs``, ``ICAArgs``, ``PretrainArgs``, ``AggEngine`` and the
+(``FSArgs``, ``ICAArgs``, ``SMRI3DArgs``, ``MultimodalArgs``,
+``PretrainArgs``, ``AggEngine`` and the
 ``TrainConfig`` fields that serving, the training epochs, the federated
 trainer and the runner read),
 with its per-site ``inputspec.json`` resolution (:func:`load_inputspec`,
@@ -108,6 +109,68 @@ class ICAArgs:
 
 
 @dataclass
+class SMRI3DArgs:
+    """3D sMRI (T1w volume) classification parameters: each site's volumes
+    ``[N, D, H, W]`` (``data_file``) and ``[index, label]`` CSV
+    (``labels_file``), and an SMRI3DNet of ``channels`` stride-2 convolutions
+    over ``volume_shape`` volumes. ``space_to_depth`` folds each 2x2x2 block
+    into 8 channels once, when a site is read (it changes conv_0's kernel,
+    so a checkpoint of the other setting does not restore)."""
+
+    data_file: str = ""
+    labels_file: str = ""
+    num_class: int = 2
+    volume_shape: tuple = (64, 64, 64)
+    channels: tuple = (16, 32, 64, 128)
+    # "bfloat16" runs the convolutions in bf16 with f32 BatchNorm and head;
+    # "" = full f32
+    compute_dtype: str = ""
+    space_to_depth: bool = False
+    dad_reduction_rank: int = 10
+    dad_num_pow_iters: int = 5
+    dad_tol: float = 1e-3
+    dad_warm_start: bool = True  # see ICAArgs.dad_warm_start
+    split_files: tuple = ()
+
+
+@dataclass
+class MultimodalArgs:
+    """Multimodal FS+ICA transformer parameters: a site directory holds the
+    FreeSurfer covariate CSV (``labels_file``, ``data_column``,
+    ``labels_column``) with its aseg files and the ICA timecourses
+    (``data_file``), joined row by row; ``fs_input_size`` aseg volumes and
+    ``temporal_size / window_size`` windows of ``num_components x
+    window_size`` become one token each, behind a CLS token, through
+    ``num_layers`` pre-LN blocks of ``embed_dim`` and ``num_heads``."""
+
+    data_file: str = ""
+    labels_file: str = ""
+    data_column: str = "freesurferfile"
+    labels_column: str = "isControl"
+    num_class: int = 2
+    fs_input_size: int = 66
+    num_components: int = 100
+    temporal_size: int = 980
+    window_size: int = 10
+    window_stride: int = 10
+    embed_dim: int = 256
+    num_heads: int = 8
+    num_layers: int = 4
+    mlp_ratio: int = 4
+    # "" = auto: ring attention iff model_axis_size > 1 (refused: ROADMAP
+    # A11); "local" or "ring" force one
+    attention: str = ""
+    # "bfloat16" runs the products in bf16 with f32 softmax, LayerNorm and
+    # residual stream; "" = full f32
+    compute_dtype: str = ""
+    dad_reduction_rank: int = 10
+    dad_num_pow_iters: int = 5
+    dad_tol: float = 1e-3
+    dad_warm_start: bool = True  # see ICAArgs.dad_warm_start
+    split_files: tuple = ()
+
+
+@dataclass
 class PretrainArgs:
     """Largest-site pretraining (the reference's ``compspec.json:128-148``):
     epochs, learning rate, batch size and local iterations of the warm
@@ -155,7 +218,12 @@ class TrainConfig:
     optimizer: str = "adam"
     fs_args: FSArgs = field(default_factory=FSArgs)
     ica_args: ICAArgs = field(default_factory=ICAArgs)
+    smri3d_args: SMRI3DArgs = field(default_factory=SMRI3DArgs)
+    multimodal_args: MultimodalArgs = field(default_factory=MultimodalArgs)
     num_sites: int = 2
+    # the mesh's model axis (sequence parallelism); above 1 the multimodal
+    # task asks for ring attention, which is not ported (ROADMAP A11)
+    model_axis_size: int = 1
     # execution detail of the JAX epoch (scan xs or per-round slices); any
     # value gives the same port epoch
     rounds_scan_xs: bool = True
@@ -199,7 +267,11 @@ class TrainConfig:
             return self.fs_args
         if self.task_id == NNComputation.TASK_ICA:
             return self.ica_args
-        raise ValueError(f"task {self.task_id!r} is not ported")
+        if self.task_id == NNComputation.TASK_SMRI_3D:
+            return self.smri3d_args
+        if self.task_id == NNComputation.TASK_MULTIMODAL:
+            return self.multimodal_args
+        raise ValueError(f"Invalid task: {self.task_id}")
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -208,9 +280,9 @@ class TrainConfig:
         """Apply a flat override dict (one site's inputspec values): a key
         naming a ``TrainConfig`` field sets it, and every key naming a
         field of the task-args block sets that too (the reference keeps one
-        flat cache dict). A dict under ``fs_args`` or ``ica_args`` (or the
-        compspec keys ``FS-Classification_args`` and
-        ``ICA-Classification_args``) merges into its block, and one under
+        flat cache dict). A dict under a task-args block (``fs_args``,
+        ``ica_args``, ``smri3d_args``, ``multimodal_args``, or its compspec
+        key such as ``FS-Classification_args``) merges into its block, and one under
         ``pretrain_args`` into that optional block (made on first use; flat
         keys never reach it). Keys of neither are dropped, as in JAX."""
         overrides = {_COMPSPEC_KEY_ALIASES.get(k, k): v for k, v in overrides.items()}
@@ -239,9 +311,12 @@ class TrainConfig:
 
 _TRAIN_FIELDS = {f.name: f for f in dataclasses.fields(TrainConfig)}
 _COMPSPEC_KEY_ALIASES = {"FS-Classification_args": "fs_args",
-                         "ICA-Classification_args": "ica_args"}
+                         "ICA-Classification_args": "ica_args",
+                         "sMRI-3D-Classification_args": "smri3d_args",
+                         "Multimodal-Classification_args": "multimodal_args"}
 #: dataclass-typed TrainConfig fields that take dict merges
-_BLOCK_FIELDS = {"fs_args": FSArgs, "ica_args": ICAArgs, "pretrain_args": PretrainArgs}
+_BLOCK_FIELDS = {"fs_args": FSArgs, "ica_args": ICAArgs, "smri3d_args": SMRI3DArgs,
+                 "multimodal_args": MultimodalArgs, "pretrain_args": PretrainArgs}
 
 
 def _coerce(f: dataclasses.Field, v: Any) -> Any:

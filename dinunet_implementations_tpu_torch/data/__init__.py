@@ -15,9 +15,11 @@ from .batching import (
     plan_epoch_positions,
     plan_eval,
 )
-from .demo import make_demo_tree, make_fs_demo_tree, make_ica_demo_tree
+from .demo import make_demo_tree, make_fs_demo_tree, make_ica_demo_tree, make_multimodal_demo_tree
 from .freesurfer import FreeSurferDataset, FSVDataHandle, coerce_label, read_aseg_stats
 from .ica import ICADataHandle, ICADataset, load_timecourses, window_timecourses
+from .multimodal import MultimodalDataHandle, MultimodalDataset
+from .smri import SMRIDataHandle, SMRIDataset, space_to_depth_222_np
 from .splits import kfold_splits, load_split_file, resolve_splits, split_by_ratio
 
 __all__ = [
@@ -28,6 +30,10 @@ __all__ = [
     "FreeSurferDataset",
     "ICADataHandle",
     "ICADataset",
+    "MultimodalDataHandle",
+    "MultimodalDataset",
+    "SMRIDataHandle",
+    "SMRIDataset",
     "SiteArrays",
     "SiteDataset",
     "SiteInventory",
@@ -40,12 +46,14 @@ __all__ = [
     "make_demo_tree",
     "make_fs_demo_tree",
     "make_ica_demo_tree",
+    "make_multimodal_demo_tree",
     "materialize_plan",
     "plan_epoch",
     "plan_epoch_positions",
     "plan_eval",
     "read_aseg_stats",
     "resolve_splits",
+    "space_to_depth_222_np",
     "split_by_ratio",
     "stack_site_inventory",
     "window_timecourses",

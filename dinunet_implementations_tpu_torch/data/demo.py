@@ -1,6 +1,6 @@
 """Synthetic simulator trees, generated on demand: the port's own copy of
-the JAX package's ``data/demo.py`` (the FS and ICA trees, the same bytes
-from the same seed). Each is the reference's simulator layout
+the JAX package's ``data/demo.py`` (the FS, ICA and multimodal trees, the
+same bytes from the same seed). Each is the reference's simulator layout
 (``input/local{i}/simulatorRun`` and one ``inputspec.json`` entry a site)
 with a real class signal, so a fit on it learns.
 
@@ -11,6 +11,8 @@ with a real class signal, so a fit on it learns.
   ``subject{j}_aseg_stats.txt`` name/value TSV a subject, 66 features
   (the reference's ``datasets/test_fsl`` layout), sites of uneven size.
 - ICA: ``timecourses.npz`` and ``labels.csv``, windowing in the inputspec.
+- Multimodal: both in one site directory, the covariate CSV, its aseg files
+  and ``timecourses.npz``, joined row by row.
 """
 
 from __future__ import annotations
@@ -104,14 +106,71 @@ def make_ica_demo_tree(root: str, n_sites: int = 2, subjects: int = 24, comps: i
     return root
 
 
+def make_multimodal_demo_tree(root: str, n_sites: int = 2, subjects: int = 24,
+                              n_features: int = 16, comps: int = 8, temporal: int = 40,
+                              window: int = 10, stride: int = 10, seed: int = 0,
+                              shift: float = 0.8) -> str:
+    """Generate a Multimodal-Classification simulator tree under ``root``:
+    each site directory holds the FS covariate CSV and one aseg file a
+    subject, and the ICA ``timecourses.npz``, joined row by row. Label-1
+    subjects get a ``+shift``·σ bump in the first quarter of the FS
+    features and of the ICA components. The inputspec pins a narrow
+    transformer (embed 32, 4 heads, 1 layer); returns ``root``."""
+    rng = np.random.default_rng(seed)
+    scales = 10.0 ** rng.uniform(1, 4, size=n_features)
+    spec = []
+    for i in range(n_sites):
+        d = os.path.join(root, "input", f"local{i}", "simulatorRun")
+        os.makedirs(d, exist_ok=True)
+        y = rng.integers(0, 2, subjects)
+        with open(os.path.join(d, f"site{i + 1}_Covariate.csv"), "w") as fh:
+            fh.write("freesurferfile,isControl,age\n")
+            for j in range(subjects):
+                fh.write(f"subject{j}_aseg_stats.txt,{'True' if y[j] else 'False'},"
+                         f"{20 + 50 * rng.random():.1f}\n")
+        for j in range(subjects):
+            x = np.abs(rng.normal(1.0, 0.2, n_features))
+            if y[j]:
+                x[: n_features // 4] += shift * 0.2
+            vals = x * scales
+            with open(os.path.join(d, f"subject{j}_aseg_stats.txt"), "w") as fh:
+                fh.write(f"Measure:volume\tsubject{j}\n")
+                for k in range(n_features):
+                    fh.write(f"feature-{k}\t{vals[k]:.2f}\n")
+        X = rng.normal(size=(subjects, comps, temporal)).astype(np.float32)
+        X[:, : comps // 4] += (y[:, None, None] * shift).astype(np.float32)
+        np.savez(os.path.join(d, "timecourses.npz"), X)
+        spec.append({k: {"value": v} for k, v in dict(
+            task_id="Multimodal-Classification",
+            labels_file=f"site{i + 1}_Covariate.csv",
+            data_column="freesurferfile",
+            labels_column="isControl",
+            data_file="timecourses.npz",
+            fs_input_size=n_features,
+            num_components=comps,
+            temporal_size=temporal,
+            window_size=window,
+            window_stride=stride,
+            embed_dim=32,
+            num_heads=4,
+            num_layers=1,
+            num_class=2,
+        ).items()})
+    with open(os.path.join(root, "inputspec.json"), "w") as fh:
+        json.dump(spec, fh, indent=1)
+    return root
+
+
 def make_demo_tree(root: str, task: str = "FS-Classification", **kw) -> str:
-    """Dispatch by task id (the FS and ICA tasks, with JAX's short names);
-    returns ``root``."""
+    """Dispatch by task id (the FS, ICA and multimodal tasks, with JAX's
+    short names); returns ``root``."""
     if task in ("FS-Classification", "FSL", "fs"):
         return make_fs_demo_tree(root, **kw)
     if task in ("ICA-Classification", "ICA", "ica"):
         return make_ica_demo_tree(root, **kw)
-    raise ValueError(f"unknown demo task {task!r} (the port makes FS and ICA trees)")
+    if task in ("Multimodal-Classification", "multimodal", "mm"):
+        return make_multimodal_demo_tree(root, **kw)
+    raise ValueError(f"unknown demo task {task!r}")
 
 
 def main(argv=None) -> int:
@@ -121,7 +180,8 @@ def main(argv=None) -> int:
                                 description="Generate a self-contained demo simulator tree.")
     p.add_argument("root", help="directory to create (e.g. datasets/demo)")
     p.add_argument("--task", default="FS-Classification",
-                   help="FS-Classification (default) or ICA-Classification")
+                   help="FS-Classification (default), ICA-Classification or "
+                        "Multimodal-Classification")
     p.add_argument("--sites", type=int, default=None)
     p.add_argument("--subjects", type=int, default=None)
     p.add_argument("--seed", type=int, default=0)

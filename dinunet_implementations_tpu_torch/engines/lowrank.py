@@ -120,15 +120,28 @@ def _normalize_cols(Y):
 def _cholqr_once(Y, shift: float):
     """One column-normalized shifted CholeskyQR round of ``Y [L, m, r]``:
     Gram + ``(shift·trace + 1e-30)·I``, Cholesky and a triangular inverse
-    (LAPACK here, as the JAX package on the CPU), ``Q = Y·L⁻ᵀ``."""
+    (in f32, as the JAX package computes them), ``Q = Y·L⁻ᵀ``.
+
+    A member whose f32 factorization breaks down (a non-positive pivot) is
+    factored again in float64 from the same shifted Gram: a warm start's
+    nearly parallel columns give a Gram of condition ~1e6, whose f32
+    Cholesky broke down to NaN on the card for some members of a batch
+    (the multimodal model's ``mlp2`` leaves, 64 sites, the second round)
+    where LAPACK's did not. The float64 chain runs for every member and is
+    taken only where the f32 one failed, so no value crosses to the host
+    and every member the f32 chain factors is JAX's."""
     Yn, nc = _normalize_cols(Y)
     r = Yn.shape[-1]
     eye = torch.eye(r, dtype=Yn.dtype, device=Yn.device)
     gram = Yn.mT @ Yn
     tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
     gram = gram + (shift * tr + 1e-30)[..., None, None] * eye
-    chol, _ = torch.linalg.cholesky_ex(gram)  # NaN in, NaN out, as JAX: no raise
+    chol, info = torch.linalg.cholesky_ex(gram)  # NaN in, NaN out, as JAX: no raise
     linv = torch.linalg.solve_triangular(chol, eye.expand_as(gram), upper=False)
+    gram64 = gram.double()
+    chol64, _ = torch.linalg.cholesky_ex(gram64)
+    linv64 = torch.linalg.solve_triangular(chol64, eye.double().expand_as(gram64), upper=False)
+    linv = torch.where((info > 0)[..., None, None], linv64.to(linv.dtype), linv)
     return Yn @ linv.mT, nc
 
 

@@ -7,14 +7,15 @@ all-ones mask this is torch's biased batch variance.
 
 Training runs every site of a federated round at once, over an explicit
 leading site axis: :func:`site_linear`, :func:`site_batchnorm_train`,
-:func:`site_batchnorm` and :func:`site_dropout` take ``[S, ...]`` inputs
-and per-site parameters
-``[S, ...]`` (stride-0 views of one weight set, whose gradients come back
-per site), where JAX maps the per-site step with ``vmap``.
+:func:`site_batchnorm`, :func:`site_layer_norm` and :func:`site_dropout`
+take ``[S, ...]`` inputs and per-site parameters ``[S, ...]`` (stride-0
+views of one weight set, whose gradients come back per site), where JAX
+maps the per-site step with ``vmap``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -32,12 +33,15 @@ def compute_dtype_of(compute_dtype):
 
 
 def masked_moments(x, mask, dim=0, eps_count: float = 1.0):
-    """Weighted mean and biased variance over ``dim``; ``mask`` broadcasts
-    against ``x``. Returns ``(mean, var, count)`` with kept dims."""
+    """Weighted mean and biased variance over ``dim`` (an int or a tuple,
+    e.g. ``(0, 2, 3, 4)`` for per-channel statistics of a convolution's
+    ``[B, C, D, H, W]``); ``mask`` broadcasts against ``x``, and the count
+    tallies every reduced position it covers (a ``[B, 1, 1, 1, 1]`` mask
+    counts ``B·D·H·W``). Returns ``(mean, var, count)`` with kept dims."""
     if mask is None:
         mean = x.mean(dim=dim, keepdim=True)
         var = (x - mean).square().mean(dim=dim, keepdim=True)
-        return mean, var, x.shape[dim]
+        return mean, var, math.prod(x.shape[d] for d in ((dim,) if isinstance(dim, int) else dim))
     w = torch.broadcast_to(mask, x.shape)
     count = torch.clamp(w.sum(dim=dim, keepdim=True), min=eps_count)
     mean = (x * w).sum(dim=dim, keepdim=True) / count
@@ -81,6 +85,20 @@ class BatchNorm(nn.Module):
         return y * self.weight + self.bias
 
 
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis (:func:`site_layer_norm`):
+    ``weight`` (JAX's ``scale``) ones, ``bias`` zeros, ``eps`` 1e-6."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return site_layer_norm(x[None], self.weight[None], self.bias[None], self.eps)[0]
+
+
 class TorchLinearInit:
     """Torch ``nn.Linear`` initialisation: weights and bias uniform in
     ``±1/sqrt(fan_in)`` (kaiming-uniform with ``a=sqrt(5)``), drawn from an
@@ -109,6 +127,13 @@ def linear(lin: nn.Linear, x, dtype=None):
     if dtype is None:
         return lin(x)
     return nn.functional.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def param_at(module: nn.Module, name: str):
+    """The tensor at a ``state_dict`` name of ``module``, read through the
+    attributes, so that ``torch.func.functional_call``'s tensors are the
+    ones read."""
+    return functools.reduce(getattr, name.split("."), module)
 
 
 def site_linear(w, b, x, dtype=None):
@@ -146,10 +171,29 @@ def site_batchnorm_train(x, mask, weight, bias, running_mean, running_var,
 
 def site_batchnorm(x, mask, weight, bias, eps: float = 1e-5):
     """:class:`BatchNorm` without running statistics for every site at
-    once: ``x [S, B, F]`` normalised by each site's ``mask [S, B]``-weighted
-    batch moments (train and eval alike), ``weight, bias [S, F]``."""
-    mean, var, _ = masked_moments(x, mask[..., None], dim=1)
-    return (x - mean) * torch.rsqrt(var + eps) * weight[:, None] + bias[:, None]
+    once: ``x [S, B, F]``, or ``[S, B, C, *spatial]`` for a convolution's
+    per-channel statistics over the batch and every spatial position
+    (BatchNorm3d, JAX's ``reduce_axes=(0, 1, 2, 3)``), normalised by each
+    site's ``mask [S, B]``-weighted batch moments (train and eval alike);
+    ``weight, bias [S, F]`` or ``[S, C]``."""
+    lead = (x.shape[0], x.shape[1])
+    tail = [1] * (x.ndim - 3)
+    m = mask.reshape(*lead, *([1] * (x.ndim - 2)))
+    mean, var, _ = masked_moments(x, m, dim=(1,) + tuple(range(3, x.ndim)))
+    w = weight.reshape(lead[0], 1, -1, *tail)
+    b = bias.reshape(lead[0], 1, -1, *tail)
+    return (x - mean) * torch.rsqrt(var + eps) * w + b
+
+
+def site_layer_norm(x, weight, bias, eps: float = 1e-6):
+    """flax's ``nn.LayerNorm`` over the last axis for every site at once:
+    ``x [S, ..., E]``, ``weight, bias [S, E]``; the variance is flax's
+    ``E[x²] - E[x]²`` clipped at 0, and ``eps`` its 1e-6 (torch's default
+    is 1e-5)."""
+    mean = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mean.square(), min=0.0)
+    shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
+    return (x - mean) * torch.rsqrt(var + eps) * weight.reshape(shape) + bias.reshape(shape)
 
 
 def site_dropout(x, rate: float, generator=None):

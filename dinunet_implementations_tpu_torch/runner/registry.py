@@ -1,7 +1,8 @@
 """Task registry: task id → model constructor, dataset, data handle and
 serving spec, and the training pieces a config names. The port serves and
-trains the FreeSurfer task (MSANNet) and the ICA-LSTM task; the other
-tasks of the JAX package's registry are not ported yet."""
+trains every task of the JAX package's registry: FreeSurfer (MSANNet),
+ICA (ICALstm), sMRI (SMRI3DNet) and the multimodal FS+ICA transformer
+(MultimodalNet)."""
 
 from __future__ import annotations
 
@@ -16,9 +17,13 @@ from ..core.device import resolve_device
 from ..data.api import DataHandle, SiteDataset
 from ..data.freesurfer import FreeSurferDataset, FSVDataHandle
 from ..data.ica import ICADataHandle, ICADataset
+from ..data.multimodal import MultimodalDataHandle, MultimodalDataset
+from ..data.smri import SMRIDataHandle, SMRIDataset
 from ..engines import Engine, build_engine
+from ..models.cnn3d import SMRI3DNet
 from ..models.icalstm import ICALstm
 from ..models.msannet import MSANNet
+from ..models.transformer import MultimodalNet
 from ..trainer.steps import FederatedTask, Optimizer, make_optimizer
 from ..weights import LeafTable
 
@@ -72,7 +77,12 @@ def _build_msannet(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
 
 def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> ICALstm:
     """ICALstm of the ``ica_args`` widths. ``num_layers`` is a parity
-    field: one BiLSTM layer is built whatever its value, as JAX builds."""
+    field: one BiLSTM layer is built whatever its value, as JAX builds. A
+    model axis (the ring LSTM) is refused."""
+    if cfg.model_axis_size > 1:
+        raise NotImplementedError("model_axis_size > 1 shards the ICA windows over a mesh's "
+                                  "model axis (the ring LSTM), which is not ported: ROADMAP "
+                                  "A11 (multi-GPU)")
     a = cfg.ica_args
     return ICALstm(
         input_size=a.input_size,
@@ -85,6 +95,42 @@ def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
         use_kernel=use_kernel,
         generator=generator,
     )
+
+
+def _build_smri3d(cfg: TrainConfig, generator=None, use_kernel: bool = True) -> SMRI3DNet:
+    """SMRI3DNet of the ``smri3d_args`` widths (the model runs no kernel).
+    Under ``space_to_depth`` the dataset folds the volumes once at load and
+    the model takes the folded 8-channel input as is."""
+    a = cfg.smri3d_args
+    return SMRI3DNet(channels=tuple(a.channels), num_cls=a.num_class,
+                     compute_dtype=a.compute_dtype or None, space_to_depth=a.space_to_depth,
+                     generator=generator)
+
+
+def _build_multimodal(cfg: TrainConfig, generator=None,
+                      use_kernel: bool = True) -> MultimodalNet:
+    """MultimodalNet of the ``multimodal_args`` widths (the model runs no
+    kernel). ``attention=""`` means ring attention iff ``model_axis_size >
+    1``, as in JAX; ring attention is refused (ROADMAP A11)."""
+    a = cfg.multimodal_args
+    attention = a.attention or ("ring" if cfg.model_axis_size > 1 else "local")
+    if attention == "ring" and cfg.model_axis_size < 2:
+        raise ValueError('attention="ring" needs model_axis_size >= 2 (the token axis '
+                         "shards over the mesh model axis)")
+    return MultimodalNet(
+        fs_input_size=a.fs_input_size, num_comps=a.num_components, window_size=a.window_size,
+        num_windows=_ica_windows(a), embed_dim=a.embed_dim, num_heads=a.num_heads,
+        num_layers=a.num_layers, mlp_ratio=a.mlp_ratio, num_cls=a.num_class,
+        attention=attention, compute_dtype=a.compute_dtype or None, generator=generator)
+
+
+def _smri_sample_shape(cfg: TrainConfig) -> tuple:
+    """One volume as a request carries it: folded by the pipeline to ``(D/2,
+    H/2, W/2, 8)`` under ``space_to_depth``, else ``(D, H, W)``."""
+    a = cfg.smri3d_args
+    if a.space_to_depth:
+        return tuple(d // 2 for d in a.volume_shape) + (8,)
+    return tuple(a.volume_shape)
 
 
 TASKS: dict[str, TaskSpec] = {
@@ -107,12 +153,25 @@ TASKS: dict[str, TaskSpec] = {
             streaming_ok=lambda cfg: not cfg.ica_args.bidirectional,
         ),
     ),
+    NNComputation.TASK_SMRI_3D: TaskSpec(
+        NNComputation.TASK_SMRI_3D, _build_smri3d, SMRIDataset, SMRIDataHandle,
+        SMRI3DNet, lambda cfg: SMRI3DNet.leaf_table(len(cfg.smri3d_args.channels)),
+        serving=ServingSpec(sample_shape=_smri_sample_shape),
+    ),
+    NNComputation.TASK_MULTIMODAL: TaskSpec(
+        NNComputation.TASK_MULTIMODAL, _build_multimodal, MultimodalDataset,
+        MultimodalDataHandle, MultimodalNet,
+        lambda cfg: MultimodalNet.leaf_table(cfg.multimodal_args.num_layers),
+        serving=ServingSpec(sample_shape=lambda cfg: (
+            cfg.multimodal_args.fs_input_size + _ica_windows(cfg.multimodal_args)
+            * cfg.multimodal_args.num_components * cfg.multimodal_args.window_size,)),
+    ),
 }
 
 
 def get_task(task_id: str) -> TaskSpec:
     if task_id not in TASKS:
-        raise ValueError(f"task {task_id!r} is not ported (have {sorted(TASKS)})")
+        raise ValueError(f"Invalid task: {task_id!r} (have {sorted(TASKS)})")
     return TASKS[task_id]
 
 
@@ -136,8 +195,9 @@ def build_training(cfg: TrainConfig, device=None,
     (dSGD, rankDAD or powerSGD with the task args' ``dad_*`` knobs) and the
     optimizer that ``cfg`` names, for ``make_train_epoch_fn``.
     ``use_kernel=False`` runs the LSTM and the power iteration through the
-    kernels' plain versions: the reference a check on the card holds the
-    kernels against."""
+    kernels' plain versions (the sMRI and multimodal models run no kernel
+    of their own: only rankDAD's power iteration changes): the reference a
+    check on the card holds the kernels against."""
     engine = build_engine(cfg, use_kernel)
     device = resolve_device(device)
     g = torch.Generator().manual_seed(cfg.seed)

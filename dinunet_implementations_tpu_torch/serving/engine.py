@@ -1,5 +1,6 @@
 """InferenceEngine: continuously batched serving of a trained model of a
-ported task (MSANNet, ICA-LSTM), with an O(1) streaming lane and hot-swaps
+ported task (MSANNet, ICA-LSTM, SMRI3DNet, MultimodalNet), with an O(1)
+streaming lane and hot-swaps
 of its weights.
 
 The counterpart of the JAX package's ``serving/engine.py``. Three lanes of
@@ -10,10 +11,10 @@ work share one engine:
   that fits (weight-0 pad rows) and runs the task's
   :func:`~..trainer.steps.eval_forward`, the trainer's own eval forward,
   once on the device. On the card the ICA-LSTM forward runs the LSTM
-  recurrence kernel (K1) once per direction. MSANNet's BatchNorms
-  normalize by the batch moments in eval too: the mask keeps the pad rows
-  out of them, so a served answer depends on the real rows that share its
-  dispatch, as in JAX.
+  recurrence kernel (K1) once per direction. MSANNet's and SMRI3DNet's
+  BatchNorms normalize by the batch moments in eval too: the mask keeps
+  the pad rows out of them, so a served answer depends on the real rows
+  that share its dispatch, as in JAX.
 - **The streaming lane** (the unidirectional ICA-LSTM only). Each session
   keeps its ``(h, c, pooled, count)`` carry in a device-resident
   ``[slots+1, …]`` table (serving/session.py); a dispatch gathers carries

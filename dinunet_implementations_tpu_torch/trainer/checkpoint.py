@@ -21,7 +21,8 @@ and ``personal``, and ``meta_json``. Trees are in JAX layout (flax kernels
 ``train_state_from_tree``, so a file the port writes restores in JAX with
 ``load_checkpoint(path, like=jax_state)`` and a file JAX writes restores
 here. The model's leaf table (``weights.LeafTable``) comes from the state
-at hand (the one saved, or ``like``): an MSANNet state writes the empty
+at hand (the one saved, or ``like``): a state of a model without running
+statistics (MSANNet, SMRI3DNet, MultimodalNet) writes the empty
 ``batch_stats`` map that JAX writes for it.
 """
 

@@ -23,7 +23,9 @@ Per-site gradients come from an explicit site axis: each round the
 parameters enter the model as stride-0 views ``[S, ...]`` (every site
 provably holds the same values), the model runs all sites in one pass
 (``ICALstm.site_forward``: the LSTM kernels fold sites into rows;
-``MSANNet.site_forward``: batched products and per-site BatchNorms), and
+``MSANNet.site_forward`` and ``MultimodalNet.site_forward``: batched
+products, per-site BatchNorms and LayerNorms; ``SMRI3DNet.site_forward``:
+one grouped convolution a stage, the sites side by side), and
 autograd returns each site's own gradient ``[S, ...]``, where JAX takes
 ``vmap(grad)``.
 """
@@ -90,7 +92,8 @@ def _to_device(a, dev, dtype=None) -> torch.Tensor:
 def eval_folds_sites(model) -> bool:
     """Whether an eval may run the rows of several sites in one forward:
     exactly when every BatchNorm of ``model`` normalizes by its running
-    statistics in eval (ICALstm), not by the batch's moments (MSANNet)."""
+    statistics in eval (ICALstm) or has none (MultimodalNet), not by the
+    batch's moments (MSANNet, SMRI3DNet)."""
     return all(m.track_running_stats for m in model.modules() if isinstance(m, BatchNorm))
 
 
@@ -104,12 +107,13 @@ def make_eval_fn(task: FederatedTask, device=None):
     Each step copies its ``[S, B, ...]`` block to the device and runs
     :func:`eval_forward`, the forward the serving engine runs. A model
     whose every BatchNorm keeps running statistics, and so normalizes each
-    row by them in eval (:func:`eval_folds_sites`: ICALstm), folds the
-    sites into the rows of one call (two K1 launches on the card, one a
-    direction), which is exact.
-    A model whose BatchNorms take the batch moments in eval too (MSANNet)
-    runs each site's rows in a call of their own, so each site is
-    normalized by its own rows, as JAX's per-site ``vmap`` does. Weight-0
+    row by them in eval (:func:`eval_folds_sites`: ICALstm, and
+    MultimodalNet, which has none), folds the sites into the rows of one
+    call (two K1 launches on the card for ICALstm, one a direction), which
+    is exact. A model whose BatchNorms take the batch moments in eval too
+    (MSANNet, SMRI3DNet) runs each site's rows in a call of their own, so
+    each site is normalized by its own rows, as JAX's per-site ``vmap``
+    does. Weight-0
     rows are padding: they carry weight 0 into the loss sum and the
     statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
     ``mesh=None`` and no personalization."""

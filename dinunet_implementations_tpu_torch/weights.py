@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's model variables and training state as
-the port's, for each ported model (ICALstm, MSANNet).
+the port's, for each ported model (ICALstm, MSANNet, SMRI3DNet,
+MultimodalNet).
 
 The input is the nested dicts that the JAX model carries, with numpy arrays
 (or anything ``numpy.asarray`` takes) as leaves. Each model class builds

@@ -136,8 +136,11 @@ def test_resolve_site_configs_with_gui_lists_matches_jax(tmp_path):
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
         for f in dataclasses.fields(tconfig.TrainConfig):
-            if f.name not in ("fs_args", "ica_args"):
+            if f.name not in ("fs_args", "ica_args", "smri3d_args", "multimodal_args"):
                 assert getattr(g, f.name) == getattr(w, f.name), f.name
+        for block in ("smri3d_args", "multimodal_args"):
+            assert dataclasses.asdict(getattr(g, block)) == dataclasses.asdict(
+                getattr(w, block)), block
         for f in dataclasses.fields(tconfig.ICAArgs):
             assert getattr(g.ica_args, f.name) == getattr(w.ica_args, f.name), f.name
         for f in dataclasses.fields(tconfig.FSArgs):

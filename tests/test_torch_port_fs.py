@@ -92,8 +92,10 @@ def test_fs_args_keep_the_jax_defaults_and_merge_as_jax_merges():
     for f in dataclasses.fields(tconfig.FSArgs):
         assert getattr(got.fs_args, f.name) == getattr(want.fs_args, f.name), f.name
     assert got.fs_args.hidden_sizes == (32, 16) and got.epochs == want.epochs == 7
-    with pytest.raises(ValueError, match="not ported"):
-        tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D).task_args()
+    smri = tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D)
+    assert smri.task_args() is smri.smri3d_args
+    with pytest.raises(ValueError, match="Invalid task"):
+        tconfig.TrainConfig(task_id="nope").task_args()
 
 
 # -- MSANNet -------------------------------------------------------------------
@@ -204,7 +206,7 @@ def test_fs_bridge_layouts_and_refusals():
         params_from_jax(cfg, {k: v for k, v in params.items() if k != "linear_2"}, {})
     with pytest.raises(ValueError, match="MSANNet.*extra leaves.*cls_bn/mean"):
         params_from_jax(cfg, params, {"cls_bn": {"mean": np.zeros(3, np.float32)}})
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="not an SMRI3DNet variable tree"):
         params_from_jax(tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D),
                         params, {})
 

@@ -123,11 +123,11 @@ def test_engine_rejects_bad_weights_and_requests():
         InferenceEngine(_cfg(), params=broken, batch_stats=stats, device="cpu")
     with pytest.raises(ServingError, match="either params"):
         InferenceEngine(_cfg(), device="cpu")
-    # the default task (FS) takes MSANNet's tree, not this ICA-LSTM's; the
-    # tasks the port lacks are refused by name
+    # the default task (FS) takes MSANNet's tree, not this ICA-LSTM's, and
+    # the sMRI task SMRI3DNet's
     with pytest.raises(ValueError, match="not an MSANNet variable tree"):
         InferenceEngine(tconfig.TrainConfig(), params=params, batch_stats=stats, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="not an SMRI3DNet variable tree"):
         InferenceEngine(tconfig.TrainConfig(task_id=tconfig.NNComputation.TASK_SMRI_3D),
                         params=params, batch_stats=stats, device="cpu")
     with InferenceEngine(_cfg(), params=params, batch_stats=stats, row_buckets=(1, 2),
@@ -212,6 +212,8 @@ def test_importing_the_port_pulls_in_no_jax():
         "dinunet_implementations_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
+    for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal"):
+        assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
         f"for m in {['dinunet_implementations_tpu_torch'] + mods!r}: importlib.import_module(m)\n"
@@ -232,7 +234,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     # the native reader's loader and bridge are scanned too, and the loader
     # compiles the port's own copy of fastio.cpp
-    for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py"):
+    for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py",
+                 "models/cnn3d.py", "models/transformer.py", "data/smri.py",
+                 "data/multimodal.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()
