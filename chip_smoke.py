@@ -173,7 +173,26 @@ result line:
    its ``home_slot``; after a swap, ``kill_replica(0)``: the supervisor
    restarts it at generation 2 on the current weights, a re-homed session
    replays bit for bit, and the restart seconds are printed;
-16. one JSON line of per-kernel numbers, then the result line.
+16. the remaining workloads at the JAX package's bench_matrix.py widths:
+   SMRI3DNet (8 sites of batch 4, 64³ volumes folded by the pipeline to
+   32³ x 8, channels 16-128) and MultimodalNet (64 sites of batch 8, 66 FS
+   values and 98 windows of 100 x 10, embed 256, 8 heads, 4 blocks). For
+   each: the route of each rankDAD rank class (``k7_takes``,
+   ``k7_geometry``; "plain" for a class K7 does not take) and K7 against
+   its plain version at the classes it takes, timed with its bound; a cold
+   and a warm epoch of 2 rounds under dSGD, rankDAD and powerSGD, f32 and
+   bf16, through ``build_training`` and ``make_train_epoch_fn``, the warm
+   ms and the peak memory over the baseline, K7 counted once a class and
+   round on its route; the rankDAD epoch against the same epoch with
+   ``use_kernel=False`` at phase 8's tolerances (K7 must launch); a
+   rankDAD ``FedRunner`` fit of 3 epochs on a tree the phase writes (8
+   sites: sMRI volumes of 64³ in the JAX tests' layout; the port's
+   ``make_multimodal_demo_tree`` at full width), its outputs and best
+   checkpoint checked, then ``InferenceEngine`` serves the checkpoint,
+   each eval step of a site one dispatch, within ``SERVE_TOL`` of the
+   trainer's eval; the command line on the multimodal tree under rankDAD;
+   the local attention beside ``F.scaled_dot_product_attention``;
+17. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2350,9 +2369,14 @@ def fs_reader_phase(np, tree: str, smi: str) -> dict:
 def fs_k7_routes(torch, pc, cfg, sites: int) -> dict:
     """``{r: route}`` that ``k7_geometry`` names for each rank class of the
     model of ``cfg`` at ``sites`` sites, on gradients laid out as the
-    engine hands them to K7 (``nn.Linear`` weights as transposed views)."""
+    engine hands them to K7 (``nn.Linear`` weights as transposed views);
+    ``"plain"`` for a class K7 does not take (``k7_takes``: more than 16
+    buckets, a rank above 16, iterates past the shared-memory limit)."""
     routes = {}
     for r, leaves in k7_leaves(torch, cfg).items():
+        if not pc.k7_takes([(m, n) for _, m, n, _ in leaves], r):
+            routes[r] = "plain"
+            continue
         Gs = [torch.zeros((sites, n, m), device="cuda").transpose(1, 2) if tr
               else torch.zeros((sites, m, n), device="cuda") for _, m, n, tr in leaves]
         routes[r] = k7_geometry_line(pc, Gs, r, None)["route"]
@@ -2361,23 +2385,33 @@ def fs_k7_routes(torch, pc, cfg, sites: int) -> dict:
 
 def fs_k7_want(launches: dict, routes: dict, rounds: int) -> dict:
     """The counts a path of ``rounds`` rankDAD rounds must show: one K7 a
-    rank class and round, on the route each class takes; nothing else."""
+    rank class and round, on the route each class takes, and a class K7
+    does not take counted once a round as sent to the plain version;
+    nothing else."""
     want = dict.fromkeys(launches, 0)
-    want["poweriter"] = len(routes) * rounds
     for route in routes.values():
-        want[f"k7_{route}_route"] += rounds
+        if route == "plain":
+            want["poweriter_plain_classes"] += rounds
+        else:
+            want["poweriter"] += rounds
+            want[f"k7_{route}_route"] += rounds
     return want
 
 
-def fs_k7_phase(torch, pc, cfg, smi: str) -> list[dict]:
-    """K7 against its plain version at one FS rankDAD round's rank classes
-    (5 sites, f32, cold Ω, tol 1e-3), on the route the launcher picks;
-    times, bound, route and counters. Trips are not compared at 20 members
-    (one member a refinement apart is 5 % of them)."""
+def fs_k7_phase(torch, pc, cfg, smi: str, sites: int = FS_SITES,
+                task: str = FS_TASK) -> list[dict]:
+    """K7 against its plain version at one rankDAD round's rank classes of
+    the model of ``cfg`` (FS: 5 sites; f32, cold Ω, tol 1e-3), on the route
+    the launcher picks; times, bound, route and counters. Trips are not
+    compared (at 20 members one member a refinement apart is 5 % of them).
+    A class K7 does not take (``k7_takes``) is skipped: the engine sends it
+    to the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     out = []
     for r, leaves in k7_leaves(torch, cfg).items():
-        Gs = k7_gradients(torch, leaves, gen, sites=FS_SITES)
+        if not pc.k7_takes([(m, n) for _, m, n, _ in leaves], r):
+            continue
+        Gs = k7_gradients(torch, leaves, gen, sites=sites)
         cold, _ = k7_starts(torch, pc, leaves, Gs, r, gen)
         geo = k7_geometry_line(pc, Gs, r, None)
         before = (pc.POWERITER_STAGED_CALLS, pc.POWERITER_DIRECT_CALLS)
@@ -2386,19 +2420,20 @@ def fs_k7_phase(torch, pc, cfg, smi: str) -> list[dict]:
         took = {"staged": pc.POWERITER_STAGED_CALLS - before[0],
                 "direct": pc.POWERITER_DIRECT_CALLS - before[1]}
         if took != {"staged": int(geo["route"] == "staged"), "direct": int(geo["route"] == "direct")}:
-            fail(f"K7 FS rank {r}: took {took}, the geometry names {geo['route']}")
+            fail(f"K7 {task} rank {r}: took {took}, the geometry names {geo['route']}")
         want = pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3)
-        rec = {"kernel": "poweriter", "task": FS_TASK, "rank": r,
+        rec = {"kernel": "poweriter", "task": task, "rank": r,
                "members": sum(G.shape[0] for G in Gs), "shapes": [list(G.shape) for G in Gs],
                "dtype": "f32", "start": "cold", "tol": 1e-3, "route": geo["route"],
                "why": geo.get("why"), "route_counters": took,
                "geometry": {k: v for k, v in geo.items() if k != "why"}}
-        rec.update(k7_check(torch, f"FS rank {r}", Gs, r, got, want, "f32", False))
+        rec.update(k7_check(torch, f"{task} rank {r}", Gs, r, got, want, "f32", False))
         rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3), 30)
         rec["plain_ms"] = time_ms(lambda: pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3), 5)
         rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], False)
         rec["library_ms"] = None
-        print(f"K7 FS rank {r}: route {geo['route']} ({geo.get('why', 'staged')}), {rec['ms']:.4f} "
+        print(f"K7 {task} rank {r}: route {geo['route']} ({geo.get('why', 'staged')}), "
+              f"{len(Gs)} buckets of {sites} sites, {rec['ms']:.4f} "
               f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms, P err "
               f"{rec['P']:.3g} on {smi}")
         print(json.dumps(rec))
@@ -3102,6 +3137,399 @@ def serving_plane_phase(torch, np, lc, smi: str, root: str) -> dict:
     return rec
 
 
+# The remaining workloads (phase 16): the 3D-CNN of sMRI volumes and the
+# multimodal FS+ICA transformer at the JAX package's bench_matrix.py
+# widths. sMRI: 8 sites of per-site batch 4, 64³ volumes folded by the
+# pipeline to 32³ x 8, channels (16, 32, 64, 128). Multimodal: 64 sites of
+# per-site batch 8, 66 FS values and 98 windows of 100 x 10 a sample, embed
+# 256, 8 heads, 4 blocks. Each epoch has A9_ROUNDS rounds (every site holds
+# A9_ROUNDS batches); the fits' trees hold fewer sites than the epochs.
+A9_SMRI, A9_MM = "sMRI-3D-Classification", "Multimodal-Classification"
+A9_SHAPES = {A9_SMRI: {"sites": 8, "batch": 4}, A9_MM: {"sites": 64, "batch": 8}}
+A9_ROUNDS = 2
+A9_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+A9_FIT = {A9_SMRI: {"sites": 8, "subjects": 20}, A9_MM: {"sites": 8, "subjects": 20}}
+A9_FIT_EPOCHS, A9_CLI_EPOCHS = 3, 2
+A9_SMRI_VOLUME = (64, 64, 64)
+
+
+def a9_cfg(task: str, engine: str, bf16: bool):
+    """The full-width configuration of ``task`` at its bench shape; the
+    sMRI volumes folded by the pipeline (``space_to_depth``)."""
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+
+    shape = A9_SHAPES[task]
+    over = {"compute_dtype": "bfloat16" if bf16 else ""}
+    if task == A9_SMRI:
+        over["space_to_depth"] = True
+    return TrainConfig(task_id=task, agg_engine=engine, num_sites=shape["sites"],
+                       batch_size=shape["batch"], learning_rate=TRAIN_LR).with_overrides(over)
+
+
+def a9_data(torch, cfg, seed: int = 16):
+    """A resident inventory of ``A9_ROUNDS`` batches a site, made on the
+    card (random samples of the task's shape, random labels), and one
+    epoch's index plan ``[S, A9_ROUNDS, B]``."""
+    from dinunet_implementations_tpu_torch.runner.registry import get_task
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    S, B = cfg.num_sites, cfg.batch_size
+    n = A9_ROUNDS * B
+    shape = tuple(get_task(cfg.task_id).serving.sample_shape(cfg))
+    inv_x = torch.randn((S, n) + shape, generator=g, device="cuda")
+    inv_y = torch.randint(0, 2, (S, n), generator=g, device="cuda")
+    idx = torch.stack([torch.randperm(n, generator=g, device="cuda") for _ in range(S)])
+    return inv_x, inv_y, idx.reshape(S, A9_ROUNDS, B)
+
+
+def a9_training(torch, cfg, use_kernel: bool = True):
+    from dinunet_implementations_tpu_torch.runner import build_training
+    from dinunet_implementations_tpu_torch.trainer import init_train_state, make_train_epoch_fn
+
+    task, engine, opt = build_training(cfg, device="cuda", use_kernel=use_kernel)
+    epoch = make_train_epoch_fn(task, engine, opt, cfg.local_iterations, cfg.quarantine_rounds,
+                                "cuda")
+    return epoch, init_train_state(task, engine, opt, rng=cfg.seed, num_sites=cfg.num_sites)
+
+
+def a9_epochs(torch, lc, pc, bc, smi: str, task: str, engine: str, bf16: bool,
+              routes: dict) -> dict:
+    """A cold and a warm epoch of ``task`` under ``engine`` through the
+    entry points (``build_training``, ``make_train_epoch_fn``): the warm
+    epoch's ms and the peak memory over what was allocated before;
+    launches counted (K7 once a rank class and round on its route, a
+    class K7 does not take sent to the plain version; nothing else)."""
+    cfg = a9_cfg(task, engine, bf16)
+    inv_x, inv_y, idx = a9_data(torch, cfg)
+    epoch, state = a9_training(torch, cfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    ms, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, lo = epoch(state, inv_x, inv_y, idx)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(lo)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    want = (fs_k7_want(launches, routes, 2 * A9_ROUNDS) if engine == "rankDAD"
+            else dict.fromkeys(launches, 0))
+    loss = torch.cat(losses)
+    if launches != want or not bool(loss.isfinite().all()):
+        fail(f"{task} {engine} {'bf16' if bf16 else 'f32'} epochs launched {launches}, want "
+             f"{want}; losses {loss.tolist()}")
+    shape = A9_SHAPES[task]
+    rec = {"task": task, "engine": engine, "dtype": "bf16" if bf16 else "f32",
+           "sites": shape["sites"], "batch": shape["batch"], "rounds": A9_ROUNDS,
+           "cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1],
+           "samples_per_s": shape["sites"] * shape["batch"] * A9_ROUNDS / (ms[1] / 1e3),
+           "peak_memory_over_baseline_gb": peak_gb, "launches": launches,
+           "losses": loss.tolist()}
+    print(f"{task} {engine} {rec['dtype']}: warm epoch {ms[1]:.3f} ms ({A9_ROUNDS} rounds, cold "
+          f"{ms[0]:.3f}), {rec['samples_per_s']:.1f} samples/s, peak {peak_gb:.4f} GB over the "
+          f"baseline, K7 {launches['poweriter']} launches, {launches['poweriter_plain_classes']} "
+          f"plain classes on {smi}")
+    return rec
+
+
+def a9_kernel_vs_plain(torch, lc, pc, bc, task: str, bf16: bool, routes: dict) -> dict:
+    """One rankDAD epoch of ``task`` through K7 against the same epoch with
+    ``use_kernel=False`` (the all-plain path), from one state and one plan,
+    at phase 8's tolerances: the first round's aggregate within
+    ``AGG_TOL``, its Ω within ``OMEGA_FIRST_TOL`` of each leaf's scale, the
+    first loss within ``FIRST_LOSS_TOL`` and every loss within
+    ``LOSS_TOL``. The dropout masks are the same draws on both paths, and
+    both run cuDNN's deterministic algorithms, so that the two paths
+    factor the same gradients: with its default algorithms the same bf16
+    round run twice gives gradients apart by bf16 roundings (the
+    ``repeat_spread`` this prints, the first round's aggregate of two such
+    runs)."""
+    cfg = a9_cfg(task, "rankDAD", bf16)
+    inv_x, inv_y, idx = a9_data(torch, cfg, seed=17)
+    agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for use_kernel in (True, False):
+            epoch, start = a9_training(torch, cfg, use_kernel)
+            zero_counters(lc, pc, bc)
+            one, _ = epoch(start, inv_x, inv_y, idx[:, :1])
+            _, losses = epoch(start, inv_x, inv_y, idx)
+            torch.cuda.synchronize()
+            runs[use_kernel] = (start, one, losses, read_counters(lc, pc, bc))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    epoch, start = a9_training(torch, cfg)
+    twice = [agg(epoch(start, inv_x, inv_y, idx[:, :1])[0]) for _ in range(2)]
+    repeat_spread = tree_err(*twice)[0]
+    (sk, one_k, lk, ck), (sp, one_p, lp, cp) = runs[True], runs[False]
+    if not same_tree(sk.params, sp.params):
+        fail(f"the {task} kernel and plain epochs start from different weights")
+    classes = len(routes)
+    if (ck != fs_k7_want(ck, routes, 1 + A9_ROUNDS) or cp["poweriter"] != 0
+            or cp["poweriter_plain_classes"] != 0 or ck["poweriter"] == 0):
+        fail(f"{task} rankDAD epochs launched {ck} (kernel) and {cp} (plain), {classes} classes")
+    omega = lambda s: {k: v for k, v in s.engine_state["omega"].items()  # noqa: E731
+                       if v is not None}
+    first = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+             for g, w in zip(omega(one_k).values(), omega(one_p).values(), strict=True)]
+    dl = (lk - lp).abs()
+    checks = {"first_round_aggregate": tree_err(agg(one_k), agg(one_p), **AGG_TOL),
+              "first_round_omega": (max(first), max(first) <= OMEGA_FIRST_TOL),
+              "first_loss": (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL),
+              "loss": (dl.max().item(), bool(lk.isfinite().all()) and dl.max().item() <= LOSS_TOL)}
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        fail(f"the {task} rankDAD epoch through K7 differs from the plain path in {bad}: {checks}")
+    rec = {"task": task, "dtype": "bf16" if bf16 else "f32", "rounds": A9_ROUNDS,
+           "launches": ck, "max_abs_err_vs_plain": {k: e for k, (e, _) in checks.items()},
+           "repeat_spread": repeat_spread}
+    print(f"{task} rankDAD epoch {rec['dtype']}, K7 against plain:", json.dumps(rec))
+    return rec
+
+
+def a9_attention(torch, smi: str) -> list[dict]:
+    """The multimodal model's local attention (two products and an f32
+    softmax, ``models/transformer.py:dot_product_attention``) at its
+    training shape, 512 rows of 100 tokens, 8 heads of 32, beside
+    ``F.scaled_dot_product_attention`` on the same q, k, v: a yardstick,
+    used nowhere in the port."""
+    from dinunet_implementations_tpu_torch.models.transformer import dot_product_attention
+
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(18)
+    rows = A9_SHAPES[A9_MM]["sites"] * A9_SHAPES[A9_MM]["batch"]
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((rows, 100, 8, 32), generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        local = dot_product_attention(q, k, v)
+        sdpa = F.scaled_dot_product_attention(*(t.transpose(1, 2) for t in (q, k, v)))
+        err = (local.float() - sdpa.transpose(1, 2).float()).abs().max().item()
+        rec = {"rows": rows, "tokens": 100, "heads": 8, "head_dim": 32,
+               "dtype": "f32" if dt == torch.float32 else "bf16",
+               "local_ms": time_ms(lambda: dot_product_attention(q, k, v), 30),
+               "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   *(t.transpose(1, 2) for t in (q, k, v))), 30),
+               "max_abs_diff": err}
+        print(f"attention {rec['dtype']}: local {rec['local_ms']:.4f} ms, SDPA "
+              f"{rec['sdpa_ms']:.4f} ms, {err:.3g} apart on {smi}")
+        out.append(rec)
+    return out
+
+
+def a9_smri_tree(np, root: str) -> str:
+    """An sMRI tree of the JAX tests' layout (tests/test_extensions.py
+    ``_make_smri_tree``: ``volumes.npz`` and ``labels.csv`` a site, label-1
+    volumes shifted by 1.5) at 64³, its inputspec the full-width model with
+    the pipeline fold."""
+    fit = A9_FIT[A9_SMRI]
+    rng = np.random.default_rng(11)
+    spec = []
+    for i in range(fit["sites"]):
+        d = os.path.join(root, "input", f"local{i}", "simulatorRun")
+        os.makedirs(d)
+        y = rng.integers(0, 2, fit["subjects"])
+        X = rng.standard_normal((fit["subjects"],) + A9_SMRI_VOLUME, dtype=np.float32)
+        X += (y[:, None, None, None] * 1.5).astype(np.float32)
+        np.savez(os.path.join(d, "volumes.npz"), X)
+        with open(os.path.join(d, "labels.csv"), "w") as fh:
+            fh.write("index,label\n" + "".join(f"{j},{int(y[j])}\n" for j in range(len(y))))
+        spec.append({"task_id": {"value": A9_SMRI}, "data_file": {"value": "volumes.npz"},
+                     "labels_file": {"value": "labels.csv"},
+                     "volume_shape": {"value": list(A9_SMRI_VOLUME)},
+                     "space_to_depth": {"value": True}})
+    with open(os.path.join(root, "inputspec.json"), "w") as fh:
+        json.dump(spec, fh)
+    return root
+
+
+def a9_mm_tree(root: str) -> str:
+    """The port's ``make_multimodal_demo_tree`` at full width (66 FS
+    values, 100 components of 980 timepoints, windows of 10), its
+    inputspec's narrow transformer dropped for the default one."""
+    from dinunet_implementations_tpu_torch.data import make_multimodal_demo_tree
+
+    fit = A9_FIT[A9_MM]
+    make_multimodal_demo_tree(root, n_sites=fit["sites"], subjects=fit["subjects"],
+                              n_features=66, comps=100, temporal=980, window=10, stride=10)
+    path = os.path.join(root, "inputspec.json")
+    with open(path) as fh:
+        spec = json.load(fh)
+    for site in spec:
+        for k in ("embed_dim", "num_heads", "num_layers"):
+            site.pop(k)
+    with open(path, "w") as fh:
+        json.dump(spec, fh)
+    return root
+
+
+def a9_fit(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> dict:
+    """A rankDAD ``FedRunner`` fit of fold 0 for ``A9_FIT_EPOCHS`` epochs on
+    the tree, K7 counted; outputs and the best checkpoint checked; then
+    ``InferenceEngine`` serves the best checkpoint, each of the trainer's
+    eval steps of a site (its real rows) one request and one dispatch,
+    within ``SERVE_TOL`` of the trainer's eval probabilities."""
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_eval
+    from dinunet_implementations_tpu_torch.runner import FedRunner, build_model, load_site_splits
+    from dinunet_implementations_tpu_torch.trainer import (
+        FederatedTask,
+        load_checkpoint,
+        make_eval_fn,
+    )
+
+    runner = FedRunner(TrainConfig(agg_engine="rankDAD", epochs=A9_FIT_EPOCHS,
+                                   batch_size=A9_SHAPES[task]["batch"]), tree, out)
+    fcfg = runner.cfg
+    sites = A9_FIT[task]["sites"]
+    if fcfg.task_id != task or fcfg.num_sites != sites:
+        fail(f"the {task} tree's config names {fcfg.task_id}, {fcfg.num_sites} sites")
+    routes = fs_k7_routes(torch, pc, fcfg, sites)
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = runner.run(folds=[0], verbose=False)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # read before any check
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    epochs = len(res["epoch_losses"])
+    want = fs_k7_want(launches, routes, epochs * rounds)
+    if launches != want or launches["poweriter"] == 0:
+        fail(f"{task} fit launches {launches}, want {want}")
+    if not np.isfinite(res["epoch_losses"]).all() or not np.isfinite(res["test_metrics"]).all():
+        fail(f"the {task} fit's losses or test metrics are not finite: {res['epoch_losses']}")
+    outputs = check_fit_outputs(out, task, sites)
+    restored = load_checkpoint(outputs["best_checkpoint"], res["state"])
+    for part in ("params", "opt_state", "engine_state"):
+        if not same_tree(getattr(restored, part), getattr(res["state"], part)):
+            fail(f"{task}: checkpoint_best.msgpack {part} differ from the fit's best state")
+
+    fb = plan_eval(fold["test"], fcfg.batch_size)
+    eval_fn = make_eval_fn(FederatedTask(build_model(fcfg)), "cuda")
+    probs = eval_fn(res["state"], fb.inputs, fb.labels, fb.weights)[0].cpu().numpy()
+    reqs = [(s, k) for s in range(fb.inputs.shape[0]) for k in range(fb.inputs.shape[1])
+            if fb.weights[s, k].sum() > 0]
+    err = 0.0
+    with InferenceEngine(fcfg, checkpoint=outputs["best_checkpoint"]) as eng:
+        eng.warmup()
+        for s, k in reqs:  # one request a dispatch: the site's rows of one eval step
+            keep = fb.weights[s, k] > 0
+            got = eng.submit(np.ascontiguousarray(fb.inputs[s, k][keep])).result(timeout=120)
+            err = max(err, float(np.abs(got - probs[s, k][keep]).max()))
+        summary = eng.summary()
+    if summary["dispatches"] != len(reqs) or err > SERVE_TOL:
+        fail(f"{task} serving: {summary['dispatches']} dispatches for {len(reqs)} requests, "
+             f"{err} from the trainer's eval")
+    rec = {"task": task, "card": smi, "sites": sites, "subjects": A9_FIT[task]["subjects"],
+           "split": {k: [len(s) for s in fold[k]] for k in ("train", "validation", "test")},
+           "epochs": epochs, "rounds_per_epoch": rounds, "routes": routes,
+           "launches": launches, "fit_seconds": fit_s, "peak_memory_over_baseline_gb": peak_gb,
+           "epoch_losses": res["epoch_losses"], "test_metrics": res["test_metrics"],
+           "best_checkpoint_bytes": outputs["best_checkpoint_bytes"],
+           "serving": {"requests": len(reqs), "dispatches": summary["dispatches"],
+                       "max_abs_err_vs_trainer_eval": err,
+                       "latency_ms_p50": summary["latency_ms_p50"]}}
+    print(f"{task} rankDAD fit: {fit_s:.3f} s ({epochs} epochs of {rounds} rounds, {sites} "
+          f"sites), K7 {launches['poweriter']}, plain classes "
+          f"{launches['poweriter_plain_classes']}, peak {peak_gb:.4f} GB; served "
+          f"{len(reqs)} requests within {err:.3g} of the trainer's eval on {smi}")
+    return rec
+
+
+def a9_cli(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> dict:
+    """The command line on the tree (its inputspec names the task) under
+    rankDAD, fold 0, K7 counted; the JSON line parsed."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps
+    from dinunet_implementations_tpu_torch.runner import FedRunner, cli, load_site_splits
+
+    batch = A9_SHAPES[task]["batch"]
+    runner = FedRunner(TrainConfig(agg_engine="rankDAD", batch_size=batch), tree)
+    fold = load_site_splits(runner.cfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], batch)
+    routes = fs_k7_routes(torch, pc, runner.cfg, runner.cfg.num_sites)
+    args = ["--data-path", tree, "--engine", "rankDAD", "--folds", "0", "--epochs",
+            str(A9_CLI_EPOCHS), "--batch-size", str(batch), "--quiet", "--out-dir", out]
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)
+    want = fs_k7_want(launches, routes, A9_CLI_EPOCHS * rounds)
+    lines = [json.loads(x) for x in printed.getvalue().splitlines()]
+    keys = ["fold", "test_loss", "test_auc", "best_val_epoch"]
+    if (rc != 0 or launches != want or len(lines) != 1 or list(lines[0]) != keys
+            or not np.isfinite([lines[0][k] for k in keys[1:3]]).all()):
+        fail(f"{task} cli: exit code {rc}, launches {launches}, want {want}, printed "
+             f"{printed.getvalue()!r}")
+    check_fit_outputs(out, task, runner.cfg.num_sites)
+    rec = {"task": task, "seconds": cli_s, "epochs": A9_CLI_EPOCHS, "rounds_per_epoch": rounds,
+           "routes": routes, "launches": launches, "json_lines": lines}
+    print(f"{task} cli (rankDAD): {cli_s:.3f} s, K7 {launches['poweriter']}, plain classes "
+          f"{launches['poweriter_plain_classes']} on {smi}")
+    return rec
+
+
+def a9_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """Phase 16 of the module docstring: for each model, the K7 routes of
+    its rank classes, K7 against plain at them, warm dSGD, rankDAD and
+    powerSGD epochs in f32 and bf16, the rankDAD epoch against the
+    all-plain path, a rankDAD fit served from its best checkpoint; the
+    command line on the multimodal tree; the attention yardstick."""
+    t_phase = time.perf_counter()
+    rec: dict = {"card": smi, "models": {}}
+    for task in (A9_SMRI, A9_MM):
+        cfg = a9_cfg(task, "rankDAD", False)
+        sites = A9_SHAPES[task]["sites"]
+        routes = fs_k7_routes(torch, pc, cfg, sites)
+        print(f"K7 routes at the {task} classes, {sites} sites (k7_takes, k7_geometry): "
+              + ", ".join(f"r={r} {v}" for r, v in routes.items()))
+        k7 = fs_k7_phase(torch, pc, cfg, smi, sites=sites, task=task)
+        epochs = [a9_epochs(torch, lc, pc, bc, smi, task, e, bf16, routes)
+                  for bf16 in (False, True) for e in A9_ENGINES]
+        vs_plain = [a9_kernel_vs_plain(torch, lc, pc, bc, task, bf16, routes)
+                    for bf16 in (False, True)]
+        tree = os.path.join(root, f"a9_tree_{len(rec['models'])}")
+        t0 = time.perf_counter()
+        if task == A9_SMRI:
+            a9_smri_tree(np, tree)
+        else:
+            a9_mm_tree(tree)
+        tree_s = time.perf_counter() - t0
+        fit = a9_fit(torch, np, lc, pc, bc, smi, task, tree, os.path.join(tree, "out"))
+        fit["tree_seconds"] = tree_s
+        rec["models"][task] = {"k7_routes": routes, "k7": k7, "epochs": epochs,
+                               "rankdad_vs_plain": vs_plain, "fit": fit, "tree": tree}
+    rec["cli"] = a9_cli(torch, np, lc, pc, bc, smi, A9_MM, rec["models"][A9_MM]["tree"],
+                        os.path.join(root, "a9_cli"))
+    rec["attention"] = a9_attention(torch, smi)
+    rec["phase_seconds"] = time.perf_counter() - t_phase
+    for task, m in rec["models"].items():
+        for e in m["epochs"]:
+            print(f"{task} {e['engine']} {e['dtype']}: warm epoch {e['warm_epoch_ms']:.3f} ms, "
+                  f"peak {e['peak_memory_over_baseline_gb']:.4f} GB over the baseline on {smi}")
+    print(f"phase 16 in {rec['phase_seconds']:.1f} s on {smi}")
+    print("a9:", json.dumps(rec, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -3185,6 +3613,12 @@ def main() -> int:
         print(f"== 15. the serving plane at full width: the unidirectional ICA-LSTM "
               f"(H={PLANE_H}) from a checkpoint: streaming, publish and rollback, two replicas")
         plane = serving_plane_phase(torch, np, lc, smi, root)
+
+        print("== 16. the remaining workloads at full width: the sMRI 3D-CNN (8 sites, 64^3 "
+              "folded to 32^3 x 8) and the multimodal transformer (64 sites, 98 windows): "
+              "epochs under dSGD / rankDAD / powerSGD, rankDAD against plain, fits, serving, "
+              "the command line")
+        a9 = a9_phase(torch, np, lc, pc, bc, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3208,7 +3642,14 @@ def main() -> int:
     k7_by_path = {"training_rankDAD": train_dad["launches"]["poweriter"],
                   "fs_fit_rankDAD": fs["fits"]["rankDAD"]["launches"]["poweriter"],
                   "fs_cli": fs["cli"]["launches"]["poweriter"],
-                  "fs_cli_site": fs["cli"]["site_launches"]["poweriter"]}
+                  "fs_cli_site": fs["cli"]["site_launches"]["poweriter"],
+                  "mm_cli": a9["cli"]["launches"]["poweriter"]}
+    for task, short in ((A9_SMRI, "smri"), (A9_MM, "mm")):
+        m = a9["models"][task]
+        for e in m["epochs"]:
+            if e["engine"] == "rankDAD":
+                k7_by_path[f"{short}_training_rankDAD_{e['dtype']}"] = e["launches"]["poweriter"]
+        k7_by_path[f"{short}_fit_rankDAD"] = m["fit"]["launches"]["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -3263,6 +3704,10 @@ def main() -> int:
         # the FS classes (phase 14): r = 10 on the route k7_geometry names
         # for rows of 66 values, r = 2 staged
         "fs_shapes": fs["k7"],
+        # the sMRI and multimodal classes (phase 16) K7 takes, and every
+        # class's route ("plain": the engine's plain version by shape)
+        "a9_shapes": [s for m in a9["models"].values() for s in m["k7"]],
+        "a9_routes": {task: m["k7_routes"] for task, m in a9["models"].items()},
     }]
     one = one_model["launches"]
     fused_by_path = {

@@ -81,10 +81,10 @@ def site_conv3d(x, w, dtype=None):
 
 
 class Conv3dSame(nn.Module):
-    """A bias-free stride-2 SAME convolution whose ``weight`` is JAX's
-    kernel ``[3, 3, 3, C_in, C_out]``, drawn as flax's ``lecun_normal``
-    (a normal truncated at two deviations, of variance ``1 / fan_in``) from
-    ``generator``."""
+    """The ``weight`` of a bias-free stride-2 SAME convolution
+    (:func:`site_conv3d`): JAX's kernel ``[3, 3, 3, C_in, C_out]``, drawn
+    as flax's ``lecun_normal`` (a normal truncated at two deviations, of
+    variance ``1 / fan_in``) from ``generator``."""
 
     def __init__(self, cin: int, cout: int, generator=None):
         super().__init__()
@@ -93,10 +93,6 @@ class Conv3dSame(nn.Module):
         std = math.sqrt(1.0 / fan_in) / .87962566103423978
         with torch.no_grad():
             nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-
-    def forward(self, x, dtype=None):
-        """``x [B, C_in, D, H, W]`` → ``[B, C_out, D', H', W']``."""
-        return site_conv3d(x, self.weight[None], dtype)
 
 
 class SMRI3DNet(nn.Module):
@@ -110,8 +106,8 @@ class SMRI3DNet(nn.Module):
     ``head.bias``; no buffers. ``space_to_depth`` folds a single-channel
     input's 2x2x2 blocks into 8 channels before ``conv_0``, and takes an
     8-channel input as already folded (the data pipeline folds once at
-    load). ``in_channels`` is conv_0's input width: 8 under
-    ``space_to_depth``, else 1. ``compute_dtype="bfloat16"`` runs the
+    load), so conv_0 takes 8 channels under ``space_to_depth``, else 1.
+    ``compute_dtype="bfloat16"`` runs the
     convolutions in bf16; the BatchNorm moments and the head stay f32."""
 
     @staticmethod
@@ -137,13 +133,13 @@ class SMRI3DNet(nn.Module):
 
     def __init__(self, channels: tuple = (16, 32, 64, 128), num_cls: int = 2,
                  dropout_rate: float = 0.25, compute_dtype=None, space_to_depth: bool = False,
-                 in_channels: int | None = None, generator=None):
+                 generator=None):
         super().__init__()
         self.channels = tuple(channels)
         self.dropout_rate = dropout_rate
         self.compute_dtype = compute_dtype
         self.space_to_depth = space_to_depth
-        cin = in_channels or (8 if space_to_depth else 1)
+        cin = 8 if space_to_depth else 1
         for i, ch in enumerate(self.channels):
             setattr(self, f"conv_{i}", Conv3dSame(cin, ch, generator))
             setattr(self, f"bn_{i}", BatchNorm(ch, track_running_stats=False))

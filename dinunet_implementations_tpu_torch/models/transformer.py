@@ -54,11 +54,11 @@ def dot_product_attention(q, k, v):
 
 
 class MultiHeadAttention(nn.Module):
-    """``qkv`` (one product to q, k and v) and ``proj``, both biased."""
+    """``qkv`` (one product to q, k and v) and ``proj``, both biased; the
+    heads split ``qkv``'s output in :meth:`MultimodalNet._run`."""
 
-    def __init__(self, embed_dim: int, num_heads: int, generator=None):
+    def __init__(self, embed_dim: int, generator=None):
         super().__init__()
-        self.num_heads = num_heads
         self.qkv = dense(embed_dim, 3 * embed_dim, generator)
         self.proj = dense(embed_dim, embed_dim, generator)
 
@@ -66,10 +66,10 @@ class MultiHeadAttention(nn.Module):
 class TransformerBlock(nn.Module):
     """Pre-LN: ``x + attn(ln1(x))``, then ``x + mlp2(gelu(mlp1(ln2(x))))``."""
 
-    def __init__(self, embed_dim: int, num_heads: int, mlp_ratio: int = 4, generator=None):
+    def __init__(self, embed_dim: int, mlp_ratio: int = 4, generator=None):
         super().__init__()
         self.ln1 = LayerNorm(embed_dim)
-        self.attn = MultiHeadAttention(embed_dim, num_heads, generator)
+        self.attn = MultiHeadAttention(embed_dim, generator)
         self.ln2 = LayerNorm(embed_dim)
         self.mlp1 = dense(embed_dim, embed_dim * mlp_ratio, generator)
         self.mlp2 = dense(embed_dim * mlp_ratio, embed_dim, generator)
@@ -143,7 +143,7 @@ class MultimodalNet(nn.Module):
             for p in (self.cls, self.pos_embed):
                 p.normal_(0.0, 0.02, generator=g)
         for i in range(num_layers):
-            setattr(self, f"block_{i}", TransformerBlock(embed_dim, num_heads, mlp_ratio, g))
+            setattr(self, f"block_{i}", TransformerBlock(embed_dim, mlp_ratio, g))
         self.ln_f = LayerNorm(embed_dim)
         self.head = dense(embed_dim, num_cls, g)
         self._names = [n for n, _, _ in self.leaf_table(num_layers).params]
