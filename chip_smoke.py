@@ -177,13 +177,14 @@ result line:
    SMRI3DNet (8 sites of batch 4, 64³ volumes folded by the pipeline to
    32³ x 8, channels 16-128) and MultimodalNet (64 sites of batch 8, 66 FS
    values and 98 windows of 100 x 10, embed 256, 8 heads, 4 blocks). For
-   each: the route of each rankDAD rank class (``k7_takes``,
-   ``k7_geometry``; "plain" for a class K7 does not take) and K7 against
-   its plain version at the classes it takes, timed with its bound; a cold
-   and a warm epoch of 2 rounds under dSGD, rankDAD and powerSGD, f32 and
-   bf16, through ``build_training`` and ``make_train_epoch_fn``, the warm
-   ms and the peak memory over the baseline, K7 counted once a class and
-   round on its route; the rankDAD epoch against the same epoch with
+   each: the route of each K7 launch of each rankDAD rank class
+   (``k7_launches``, ``k7_geometry``; the multimodal r = 10 class of 19
+   buckets is two launches) and K7 against its plain version at each
+   launch, timed with its bound; a cold and a warm epoch of 2 rounds under
+   dSGD, rankDAD and powerSGD, f32 and bf16, through ``build_training``
+   and ``make_train_epoch_fn``, the warm ms and the peak memory over the
+   baseline, K7 counted once a launch and round on its route, no class in
+   the plain version; the rankDAD epoch against the same epoch with
    ``use_kernel=False`` at phase 8's tolerances (K7 must launch); a
    rankDAD ``FedRunner`` fit of 3 epochs on a tree the phase writes (8
    sites: sMRI volumes of 64³ in the JAX tests' layout; the port's
@@ -2366,78 +2367,86 @@ def fs_reader_phase(np, tree: str, smi: str) -> dict:
     return rec
 
 
-def fs_k7_routes(torch, pc, cfg, sites: int) -> dict:
-    """``{r: route}`` that ``k7_geometry`` names for each rank class of the
-    model of ``cfg`` at ``sites`` sites, on gradients laid out as the
-    engine hands them to K7 (``nn.Linear`` weights as transposed views);
-    ``"plain"`` for a class K7 does not take (``k7_takes``: more than 16
-    buckets, a rank above 16, iterates past the shared-memory limit)."""
+def k7_routes(torch, pc, cfg, sites: int) -> dict:
+    """``{r: [route, ...]}``: the route ``k7_geometry`` names for each K7
+    launch of each rank class of the model of ``cfg`` at ``sites`` sites
+    (``k7_launches``: one launch, or one for each 16 buckets), on gradients
+    laid out as the engine hands them to K7 (``nn.Linear`` weights as
+    transposed views); ``"plain"`` for a class K7 does not take (a rank
+    above 16, iterates past the shared-memory limit)."""
     routes = {}
     for r, leaves in k7_leaves(torch, cfg).items():
-        if not pc.k7_takes([(m, n) for _, m, n, _ in leaves], r):
-            routes[r] = "plain"
-            continue
         Gs = [torch.zeros((sites, n, m), device="cuda").transpose(1, 2) if tr
               else torch.zeros((sites, m, n), device="cuda") for _, m, n, tr in leaves]
-        routes[r] = k7_geometry_line(pc, Gs, r, None)["route"]
+        launches = pc.k7_launches(Gs, r)
+        routes[r] = "plain" if launches is None else [
+            k7_geometry_line(pc, [Gs[k] for k in ks], r, None)["route"] for ks in launches]
     return routes
 
 
-def fs_k7_want(launches: dict, routes: dict, rounds: int) -> dict:
-    """The counts a path of ``rounds`` rankDAD rounds must show: one K7 a
-    rank class and round, on the route each class takes, and a class K7
+def k7_want(launches: dict, routes: dict, rounds: int) -> dict:
+    """The counts a path of ``rounds`` rankDAD rounds must show: each K7
+    launch of each rank class once a round, on its route, and a class K7
     does not take counted once a round as sent to the plain version;
     nothing else."""
     want = dict.fromkeys(launches, 0)
     for route in routes.values():
         if route == "plain":
             want["poweriter_plain_classes"] += rounds
-        else:
+            continue
+        for one in route:
             want["poweriter"] += rounds
-            want[f"k7_{route}_route"] += rounds
+            want[f"k7_{one}_route"] += rounds
     return want
 
 
-def fs_k7_phase(torch, pc, cfg, smi: str, sites: int = FS_SITES,
-                task: str = FS_TASK) -> list[dict]:
+def k7_phase(torch, pc, cfg, smi: str, sites: int, task: str) -> list[dict]:
     """K7 against its plain version at one rankDAD round's rank classes of
-    the model of ``cfg`` (FS: 5 sites; f32, cold Ω, tol 1e-3), on the route
-    the launcher picks; times, bound, route and counters. Trips are not
-    compared (at 20 members one member a refinement apart is 5 % of them).
-    A class K7 does not take (``k7_takes``) is skipped: the engine sends it
-    to the plain version."""
+    the model of ``cfg`` at ``sites`` sites (f32, cold Ω, tol 1e-3), one
+    record a launch of ``k7_launches`` (a class of more than 16 buckets is
+    several), on the route the launcher picks; times, bound, route and
+    counters. Trips are not compared (at 20 members one member a
+    refinement apart is 5 % of them). A class K7 does not take is skipped:
+    the engine sends it to the plain version."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     out = []
     for r, leaves in k7_leaves(torch, cfg).items():
-        if not pc.k7_takes([(m, n) for _, m, n, _ in leaves], r):
+        Gs_all = k7_gradients(torch, leaves, gen, sites=sites)
+        launches = pc.k7_launches(Gs_all, r)
+        if launches is None:
             continue
-        Gs = k7_gradients(torch, leaves, gen, sites=sites)
-        cold, _ = k7_starts(torch, pc, leaves, Gs, r, gen)
-        geo = k7_geometry_line(pc, Gs, r, None)
-        before = (pc.POWERITER_STAGED_CALLS, pc.POWERITER_DIRECT_CALLS)
-        got = pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3)
-        torch.cuda.synchronize()
-        took = {"staged": pc.POWERITER_STAGED_CALLS - before[0],
-                "direct": pc.POWERITER_DIRECT_CALLS - before[1]}
-        if took != {"staged": int(geo["route"] == "staged"), "direct": int(geo["route"] == "direct")}:
-            fail(f"K7 {task} rank {r}: took {took}, the geometry names {geo['route']}")
-        want = pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3)
-        rec = {"kernel": "poweriter", "task": task, "rank": r,
-               "members": sum(G.shape[0] for G in Gs), "shapes": [list(G.shape) for G in Gs],
-               "dtype": "f32", "start": "cold", "tol": 1e-3, "route": geo["route"],
-               "why": geo.get("why"), "route_counters": took,
-               "geometry": {k: v for k, v in geo.items() if k != "why"}}
-        rec.update(k7_check(torch, f"{task} rank {r}", Gs, r, got, want, "f32", False))
-        rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3), 30)
-        rec["plain_ms"] = time_ms(lambda: pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3), 5)
-        rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], False)
-        rec["library_ms"] = None
-        print(f"K7 {task} rank {r}: route {geo['route']} ({geo.get('why', 'staged')}), "
-              f"{len(Gs)} buckets of {sites} sites, {rec['ms']:.4f} "
-              f"ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms, P err "
-              f"{rec['P']:.3g} on {smi}")
-        print(json.dumps(rec))
-        out.append(rec)
+        cold_all, _ = k7_starts(torch, pc, leaves, Gs_all, r, gen)
+        for i, ks in enumerate(launches):
+            Gs, cold = [Gs_all[k] for k in ks], [cold_all[k] for k in ks]
+            geo = k7_geometry_line(pc, Gs, r, None)
+            before = (pc.POWERITER_STAGED_CALLS, pc.POWERITER_DIRECT_CALLS)
+            got = pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3)
+            torch.cuda.synchronize()
+            took = {"staged": pc.POWERITER_STAGED_CALLS - before[0],
+                    "direct": pc.POWERITER_DIRECT_CALLS - before[1]}
+            if took != {"staged": int(geo["route"] == "staged"),
+                        "direct": int(geo["route"] == "direct")}:
+                fail(f"K7 {task} rank {r} launch {i}: took {took}, the geometry names "
+                     f"{geo['route']}")
+            want = pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3)
+            rec = {"kernel": "poweriter", "task": task, "rank": r, "launch": i,
+                   "launches": len(launches), "leaves": [leaves[k][0] for k in ks],
+                   "members": sum(G.shape[0] for G in Gs), "shapes": [list(G.shape) for G in Gs],
+                   "dtype": "f32", "start": "cold", "tol": 1e-3, "route": geo["route"],
+                   "why": geo.get("why"), "route_counters": took,
+                   "geometry": {k: v for k, v in geo.items() if k != "why"}}
+            rec.update(k7_check(torch, f"{task} rank {r} launch {i}", Gs, r, got, want, "f32",
+                                False))
+            rec["ms"] = time_ms(lambda: pc.poweriter_fused(Gs, cold, K7_ITERS, 1e-3), 30)
+            rec["plain_ms"] = time_ms(lambda: pc.poweriter_plain(Gs, cold, K7_ITERS, 1e-3), 5)
+            rec["bound_ms"], rec["bound_by"] = k7_bound(Gs, r, got[2], False)
+            rec["library_ms"] = None
+            print(f"K7 {task} rank {r} launch {i + 1} of {len(launches)}: route {geo['route']} "
+                  f"({geo.get('why', 'staged')}), {len(Gs)} buckets of {sites} sites, "
+                  f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.6f} ms, P err {rec['P']:.3g} on {smi}")
+            print(json.dumps(rec))
+            out.append(rec)
     return out
 
 
@@ -2487,7 +2496,7 @@ def fs_fit(torch, np, lc, pc, bc, smi: str, engine: str, tree: str, out: str,
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     fit_gb = peak_gb - base_gb
     epochs = len(res["epoch_losses"])
-    want = (fs_k7_want(launches, routes, epochs * rounds) if engine == "rankDAD"
+    want = (k7_want(launches, routes, epochs * rounds) if engine == "rankDAD"
             else dict.fromkeys(launches, 0))
     if launches != want:
         fail(f"FS {engine} fit launches {launches}, want {want}")
@@ -2545,7 +2554,7 @@ def fs_kernel_vs_plain(torch, np, lc, pc, bc, cfg, fold: dict, routes: dict) -> 
     if not same_tree(sk.params, sp.params):
         fail("the FS kernel and plain epochs start from different weights")
     rounds = idx.shape[1] // L
-    if ck != fs_k7_want(ck, routes, 1 + rounds) or cp["poweriter"] != 0:
+    if ck != k7_want(ck, routes, 1 + rounds) or cp["poweriter"] != 0:
         fail(f"FS rankDAD epochs launched {ck} (kernel) and {cp} (plain)")
     agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
     omega = lambda s: {k: v for k, v in s.engine_state["omega"].items()  # noqa: E731
@@ -2652,7 +2661,7 @@ def fs_cli(torch, np, lc, pc, bc, smi: str, tree: str, root: str, routes: dict) 
         launches = read_counters(lc, pc, bc)  # read before any check
     finally:
         FederatedTrainer._pretrain = pretrain
-    want = fs_k7_want(launches, routes, FS_CLI_EPOCHS * rounds)
+    want = k7_want(launches, routes, FS_CLI_EPOCHS * rounds)
     if rc != 0 or launches != want or pre.get("launches") != dict.fromkeys(launches, 0):
         fail(f"FS cli fit exit code {rc}, launches {launches} (pretraining "
              f"{pre.get('launches')}), want {want} (pretraining none)")
@@ -2672,7 +2681,7 @@ def fs_cli(torch, np, lc, pc, bc, smi: str, tree: str, root: str, routes: dict) 
                             seed=scfg.seed)
     site_rounds = sum(len(sp["train"]) // scfg.batch_size // scfg.local_iterations
                       for sp in splits)
-    site_routes = fs_k7_routes(torch, pc, scfg, 1)
+    site_routes = k7_routes(torch, pc, scfg, 1)
     zero_counters(lc, pc, bc)
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as site_out:
@@ -2681,7 +2690,7 @@ def fs_cli(torch, np, lc, pc, bc, smi: str, tree: str, root: str, routes: dict) 
     torch.cuda.synchronize()
     site_s = time.perf_counter() - t0
     site_launches = read_counters(lc, pc, bc)
-    want_site = fs_k7_want(site_launches, site_routes, site_rounds)
+    want_site = k7_want(site_launches, site_routes, site_rounds)
     site_lines = [json.loads(x) for x in site_out.getvalue().splitlines()]
     if rc != 0 or site_launches != want_site or len(site_lines) != len(splits) or not np.isfinite(
             [site_lines[0][k] for k in keys[1:3]]).all():
@@ -2713,10 +2722,10 @@ def fs_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     readers = fs_reader_phase(np, tree, smi)
     runner = FedRunner(TrainConfig(agg_engine="rankDAD"), tree)
     fcfg = runner.cfg
-    routes = fs_k7_routes(torch, pc, fcfg, FS_SITES)
+    routes = k7_routes(torch, pc, fcfg, FS_SITES)
     print(f"K7 routes at the FS classes, {FS_SITES} sites (k7_geometry): "
           + ", ".join(f"r={r} {v}" for r, v in routes.items()))
-    k7 = fs_k7_phase(torch, pc, fcfg, smi)
+    k7 = k7_phase(torch, pc, fcfg, smi, FS_SITES, FS_TASK)
     fits = {e: fs_fit(torch, np, lc, pc, bc, smi, e, tree, os.path.join(root, f"fs_{e}"), routes)
             for e in FS_ENGINES}
     fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
@@ -3197,8 +3206,9 @@ def a9_epochs(torch, lc, pc, bc, smi: str, task: str, engine: str, bf16: bool,
     """A cold and a warm epoch of ``task`` under ``engine`` through the
     entry points (``build_training``, ``make_train_epoch_fn``): the warm
     epoch's ms and the peak memory over what was allocated before;
-    launches counted (K7 once a rank class and round on its route, a
-    class K7 does not take sent to the plain version; nothing else)."""
+    launches counted (K7 once a launch of ``k7_launches`` and round on
+    its route, a class K7 does not take sent to the plain version; nothing
+    else)."""
     cfg = a9_cfg(task, engine, bf16)
     inv_x, inv_y, idx = a9_data(torch, cfg)
     epoch, state = a9_training(torch, cfg)
@@ -3215,7 +3225,7 @@ def a9_epochs(torch, lc, pc, bc, smi: str, task: str, engine: str, bf16: bool,
         losses.append(lo)
     launches = read_counters(lc, pc, bc)  # read before any check
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    want = (fs_k7_want(launches, routes, 2 * A9_ROUNDS) if engine == "rankDAD"
+    want = (k7_want(launches, routes, 2 * A9_ROUNDS) if engine == "rankDAD"
             else dict.fromkeys(launches, 0))
     loss = torch.cat(losses)
     if launches != want or not bool(loss.isfinite().all()):
@@ -3239,9 +3249,10 @@ def a9_kernel_vs_plain(torch, lc, pc, bc, task: str, bf16: bool, routes: dict) -
     """One rankDAD epoch of ``task`` through K7 against the same epoch with
     ``use_kernel=False`` (the all-plain path), from one state and one plan,
     at phase 8's tolerances: the first round's aggregate within
-    ``AGG_TOL``, its Ω within ``OMEGA_FIRST_TOL`` of each leaf's scale, the
-    first loss within ``FIRST_LOSS_TOL`` and every loss within
-    ``LOSS_TOL``. The dropout masks are the same draws on both paths, and
+    ``AGG_TOL``, its Ω within ``OMEGA_FIRST_TOL`` of each leaf's scale
+    (``a9_omega_errs``: every member's ΩΩᵀ, and Ω itself but for at most
+    ``K7_TRIPS_DIFFER_SHARE`` of the members), the first loss within
+    ``FIRST_LOSS_TOL`` and every loss within ``LOSS_TOL``. The dropout masks are the same draws on both paths, and
     both run cuDNN's deterministic algorithms, so that the two paths
     factor the same gradients: with its default algorithms the same bf16
     round run twice gives gradients apart by bf16 roundings (the
@@ -3270,26 +3281,53 @@ def a9_kernel_vs_plain(torch, lc, pc, bc, task: str, bf16: bool, routes: dict) -
     if not same_tree(sk.params, sp.params):
         fail(f"the {task} kernel and plain epochs start from different weights")
     classes = len(routes)
-    if (ck != fs_k7_want(ck, routes, 1 + A9_ROUNDS) or cp["poweriter"] != 0
+    if (ck != k7_want(ck, routes, 1 + A9_ROUNDS) or cp["poweriter"] != 0
             or cp["poweriter_plain_classes"] != 0 or ck["poweriter"] == 0):
         fail(f"{task} rankDAD epochs launched {ck} (kernel) and {cp} (plain), {classes} classes")
     omega = lambda s: {k: v for k, v in s.engine_state["omega"].items()  # noqa: E731
                        if v is not None}
-    first = [(g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
-             for g, w in zip(omega(one_k).values(), omega(one_p).values(), strict=True)]
+    om = a9_omega_errs(omega(one_k), omega(one_p))
     dl = (lk - lp).abs()
     checks = {"first_round_aggregate": tree_err(agg(one_k), agg(one_p), **AGG_TOL),
-              "first_round_omega": (max(first), max(first) <= OMEGA_FIRST_TOL),
+              "first_round_omega_gram": (om["gram"], om["gram"] <= OMEGA_FIRST_TOL),
+              "first_round_omega_members_over": (om["over"], om["over"] <= K7_TRIPS_DIFFER_SHARE
+                                                 * om["members"]),
               "first_loss": (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL),
               "loss": (dl.max().item(), bool(lk.isfinite().all()) and dl.max().item() <= LOSS_TOL)}
     bad = [k for k, (_, ok) in checks.items() if not ok]
     if bad:
-        fail(f"the {task} rankDAD epoch through K7 differs from the plain path in {bad}: {checks}")
+        fail(f"the {task} rankDAD epoch through K7 differs from the plain path in {bad}: "
+             f"{checks}, Ω {om}")
     rec = {"task": task, "dtype": "bf16" if bf16 else "f32", "rounds": A9_ROUNDS,
            "launches": ck, "max_abs_err_vs_plain": {k: e for k, (e, _) in checks.items()},
-           "repeat_spread": repeat_spread}
+           "first_round_omega": om, "repeat_spread": repeat_spread}
     print(f"{task} rankDAD epoch {rec['dtype']}, K7 against plain:", json.dumps(rec))
     return rec
+
+
+def a9_omega_errs(got: dict, want: dict) -> dict:
+    """rankDAD's first-round Ω through K7 (``got``) against the plain path
+    (``want``), ``{leaf: [S, n, r]}``, per member over its leaf's max: ``Ω``
+    itself (its largest error ``omega``, and ``over``, the members over
+    ``OMEGA_FIRST_TOL`` of ``members``) and ``ΩΩᵀ``, which is ``QQᵀ =
+    (PQᵀ)ᵀ(PQᵀ)``, the same for any basis of the member's subspace
+    (``gram``, the largest). A member whose gradient has rank below r
+    (``σ_r`` at rounding, as some multimodal leaves at 8 samples a site)
+    decides its early exit on that noise column's σ: the two paths can
+    stop it a refinement apart (as ``K7_TRIPS_DIFFER_SHARE`` allows in
+    phase 7), and that refinement rotates its columns within the same
+    subspace (measured 7.4e-4 of Ω, 5.1e-5 of PQᵀ, trips 4 against 5)."""
+    e_om, e_gram, over, members = 0.0, 0.0, 0, 0
+    for g, w in zip(got.values(), want.values(), strict=True):
+        e = (g - w).abs().amax((1, 2)) / max(w.abs().max().item(), 1e-30)
+        gg, ww = g @ g.mT, w @ w.mT
+        eg = (gg - ww).abs().amax((1, 2)) / max(ww.abs().max().item(), 1e-30)
+        # a NaN counts as over every limit (Python's max would drop it)
+        e, eg = e.nan_to_num(nan=float("inf")), eg.nan_to_num(nan=float("inf"))
+        e_om, e_gram = max(e_om, e.max().item()), max(e_gram, eg.max().item())
+        over += int((e > OMEGA_FIRST_TOL).sum())
+        members += e.numel()
+    return {"omega": e_om, "gram": e_gram, "over": over, "members": members}
 
 
 def a9_attention(torch, smi: str) -> list[dict]:
@@ -3390,7 +3428,7 @@ def a9_fit(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> d
     sites = A9_FIT[task]["sites"]
     if fcfg.task_id != task or fcfg.num_sites != sites:
         fail(f"the {task} tree's config names {fcfg.task_id}, {fcfg.num_sites} sites")
-    routes = fs_k7_routes(torch, pc, fcfg, sites)
+    routes = k7_routes(torch, pc, fcfg, sites)
     fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
     rounds = epoch_steps(fold["train"], fcfg.batch_size) // fcfg.local_iterations
     torch.cuda.synchronize()
@@ -3404,7 +3442,7 @@ def a9_fit(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> d
     launches = read_counters(lc, pc, bc)  # read before any check
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     epochs = len(res["epoch_losses"])
-    want = fs_k7_want(launches, routes, epochs * rounds)
+    want = k7_want(launches, routes, epochs * rounds)
     if launches != want or launches["poweriter"] == 0:
         fail(f"{task} fit launches {launches}, want {want}")
     if not np.isfinite(res["epoch_losses"]).all() or not np.isfinite(res["test_metrics"]).all():
@@ -3461,7 +3499,7 @@ def a9_cli(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> d
     runner = FedRunner(TrainConfig(agg_engine="rankDAD", batch_size=batch), tree)
     fold = load_site_splits(runner.cfg, runner.site_dirs, runner.site_cfgs)[0]
     rounds = epoch_steps(fold["train"], batch)
-    routes = fs_k7_routes(torch, pc, runner.cfg, runner.cfg.num_sites)
+    routes = k7_routes(torch, pc, runner.cfg, runner.cfg.num_sites)
     args = ["--data-path", tree, "--engine", "rankDAD", "--folds", "0", "--epochs",
             str(A9_CLI_EPOCHS), "--batch-size", str(batch), "--quiet", "--out-dir", out]
     torch.cuda.synchronize()
@@ -3472,7 +3510,7 @@ def a9_cli(torch, np, lc, pc, bc, smi: str, task: str, tree: str, out: str) -> d
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counters(lc, pc, bc)
-    want = fs_k7_want(launches, routes, A9_CLI_EPOCHS * rounds)
+    want = k7_want(launches, routes, A9_CLI_EPOCHS * rounds)
     lines = [json.loads(x) for x in printed.getvalue().splitlines()]
     keys = ["fold", "test_loss", "test_auc", "best_val_epoch"]
     if (rc != 0 or launches != want or len(lines) != 1 or list(lines[0]) != keys
@@ -3498,10 +3536,10 @@ def a9_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     for task in (A9_SMRI, A9_MM):
         cfg = a9_cfg(task, "rankDAD", False)
         sites = A9_SHAPES[task]["sites"]
-        routes = fs_k7_routes(torch, pc, cfg, sites)
-        print(f"K7 routes at the {task} classes, {sites} sites (k7_takes, k7_geometry): "
+        routes = k7_routes(torch, pc, cfg, sites)
+        print(f"K7 routes at the {task} classes, {sites} sites (k7_launches, k7_geometry): "
               + ", ".join(f"r={r} {v}" for r, v in routes.items()))
-        k7 = fs_k7_phase(torch, pc, cfg, smi, sites=sites, task=task)
+        k7 = k7_phase(torch, pc, cfg, smi, sites, task)
         epochs = [a9_epochs(torch, lc, pc, bc, smi, task, e, bf16, routes)
                   for bf16 in (False, True) for e in A9_ENGINES]
         vs_plain = [a9_kernel_vs_plain(torch, lc, pc, bc, task, bf16, routes)
@@ -3704,8 +3742,8 @@ def main() -> int:
         # the FS classes (phase 14): r = 10 on the route k7_geometry names
         # for rows of 66 values, r = 2 staged
         "fs_shapes": fs["k7"],
-        # the sMRI and multimodal classes (phase 16) K7 takes, and every
-        # class's route ("plain": the engine's plain version by shape)
+        # the sMRI and multimodal classes (phase 16), one record a K7
+        # launch, and the routes of each class's launches
         "a9_shapes": [s for m in a9["models"].values() for s in m["k7"]],
         "a9_routes": {task: m["k7_routes"] for task, m in a9["models"].items()},
     }]

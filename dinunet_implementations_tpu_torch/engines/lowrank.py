@@ -13,9 +13,10 @@ factorizes its transposed view (``engines/rankdad.py``).
 The power iteration itself, :func:`subspace_iteration_grouped`, runs each
 rank class through ``ops/poweriter_cuda.py``: the hand-written kernel K7
 for CUDA tensors, its plain PyTorch version for CPU tensors or when the
-caller asks for the plain path (``use_kernel=False``). A class that K7
-does not take (``poweriter_cuda.k7_takes``: rank above 16, more than 16
-shape buckets, iterates over the shared-memory limit) goes to the plain
+caller asks for the plain path (``use_kernel=False``). A class of more
+than 16 shape buckets takes several launches of at most 16
+(``poweriter_cuda.k7_launches``). A class that K7 does not take (rank
+above 16, iterates over the shared-memory limit) goes to the plain
 version on every device, a static route chosen by shape, as the JAX
 engine sends such a class to its XLA loop; ``POWERITER_PLAIN_CLASSES``
 counts those classes.
@@ -120,28 +121,31 @@ def _normalize_cols(Y):
 def _cholqr_once(Y, shift: float):
     """One column-normalized shifted CholeskyQR round of ``Y [L, m, r]``:
     Gram + ``(shift·trace + 1e-30)·I``, Cholesky and a triangular inverse
-    (in f32, as the JAX package computes them), ``Q = Y·L⁻ᵀ``.
+    (LAPACK here, as the JAX package on the CPU), ``Q = Y·L⁻ᵀ``.
 
-    A member whose f32 factorization breaks down (a non-positive pivot) is
-    factored again in float64 from the same shifted Gram: a warm start's
-    nearly parallel columns give a Gram of condition ~1e6, whose f32
-    Cholesky broke down to NaN on the card for some members of a batch
-    (the multimodal model's ``mlp2`` leaves, 64 sites, the second round)
-    where LAPACK's did not. The float64 chain runs for every member and is
-    taken only where the f32 one failed, so no value crosses to the host
-    and every member the f32 chain factors is JAX's."""
+    A member whose f32 Cholesky breaks down (a non-positive pivot) takes
+    its Gram again, accumulated in float64 and rounded to f32 once, and
+    that Gram's f32 Cholesky. cuBLAS's f32 Gram over m = 1024 rows can be
+    off by ~1e-6 in its smallest eigenvalue, as much as the second round's
+    shift (1e-7 of the trace, which is r): the shifted Gram of a nearly
+    rank-deficient iterate was then indefinite and its Cholesky NaN on the
+    card (the multimodal model's ``mlp2`` leaves), where the JAX package's
+    Gram of the same iterate on the CPU is within ~1e-7. Both Grams are
+    formed for every member, so no value crosses to the host; a member
+    whose f32 Cholesky holds is factored as before, bit for bit."""
     Yn, nc = _normalize_cols(Y)
     r = Yn.shape[-1]
     eye = torch.eye(r, dtype=Yn.dtype, device=Yn.device)
-    gram = Yn.mT @ Yn
-    tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
-    gram = gram + (shift * tr + 1e-30)[..., None, None] * eye
-    chol, info = torch.linalg.cholesky_ex(gram)  # NaN in, NaN out, as JAX: no raise
-    linv = torch.linalg.solve_triangular(chol, eye.expand_as(gram), upper=False)
-    gram64 = gram.double()
-    chol64, _ = torch.linalg.cholesky_ex(gram64)
-    linv64 = torch.linalg.solve_triangular(chol64, eye.double().expand_as(gram64), upper=False)
-    linv = torch.where((info > 0)[..., None, None], linv64.to(linv.dtype), linv)
+
+    def shifted(gram):
+        tr = torch.diagonal(gram, dim1=-2, dim2=-1).sum(-1)
+        return gram + (shift * tr + 1e-30)[..., None, None] * eye
+
+    chol, info = torch.linalg.cholesky_ex(shifted(Yn.mT @ Yn))  # NaN in, NaN out: no raise
+    Yd = Yn.double()
+    chol64, _ = torch.linalg.cholesky_ex(shifted((Yd.mT @ Yd).to(Yn.dtype)))
+    chol = torch.where((info > 0)[..., None, None], chol64, chol)
+    linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol), upper=False)
     return Yn @ linv.mT, nc
 
 
@@ -191,14 +195,14 @@ def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=
     ``tol`` or it has made ``num_iters`` refinements: the JAX shared loop
     freezes finished members, so results are the same member for member.
     Each group goes to ``ops.poweriter_cuda.poweriter_fused`` (one K7
-    launch for CUDA tensors; the plain version for CPU tensors), or to
-    ``poweriter_plain`` with ``use_kernel=False`` or when the kernel does
-    not take the class (``k7_takes``; counted in
+    launch for CUDA tensors, or one for each 16 buckets; the plain version
+    for CPU tensors), or to ``poweriter_plain`` with ``use_kernel=False`` or
+    when the kernel does not take the class (``k7_launches``; counted in
     ``POWERITER_PLAIN_CLASSES``). ``matmul_dtype=
     torch.bfloat16`` runs the products ``G@Ω``, ``GᵀP``, ``G(GᵀP)`` with
     bf16 operands and f32 accumulation; normalization, Cholesky and σ stay
     f32."""
-    from ..ops.poweriter_cuda import k7_takes, poweriter_fused, poweriter_plain
+    from ..ops.poweriter_cuda import k7_launches, poweriter_fused, poweriter_plain
 
     global POWERITER_PLAIN_CLASSES
     out = []
@@ -218,12 +222,17 @@ def subspace_iteration_grouped(groups, num_iters: int, tol: float, matmul_dtype=
                 om = om[None].expand(G3.shape[0], *om.shape)
             stacks.append(G3)
             oms.append(om)
-        run = poweriter_plain
-        if use_kernel:
-            if k7_takes([tuple(G.shape[-2:]) for G in stacks], r):
-                run = poweriter_fused
-            else:
-                POWERITER_PLAIN_CLASSES += 1
-        Ps, Qs, _ = run(stacks, oms, num_iters, tol, matmul_dtype)
+        launches = k7_launches(stacks, r) if use_kernel else None
+        if use_kernel and launches is None:
+            POWERITER_PLAIN_CLASSES += 1
+        if launches is None:
+            Ps, Qs, _ = poweriter_plain(stacks, oms, num_iters, tol, matmul_dtype)
+        else:
+            Ps, Qs = [None] * len(stacks), [None] * len(stacks)
+            for ks in launches:
+                P_, Q_, _ = poweriter_fused([stacks[k] for k in ks], [oms[k] for k in ks],
+                                            num_iters, tol, matmul_dtype)
+                for k, P, Q in zip(ks, P_, Q_):
+                    Ps[k], Qs[k] = P, Q
         out.append([(P, Q) if G.dim() == 3 else (P[0], Q[0]) for G, P, Q in zip(Gs, Ps, Qs)])
     return out

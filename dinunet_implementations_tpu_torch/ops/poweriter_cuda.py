@@ -23,8 +23,8 @@ count of refinements each member made, in member order.
 CUDA tensors and raises on anything it does not take, including a class
 whose iterates do not fit in one block's shared memory; for CPU tensors,
 and only for them, it runs :func:`poweriter_plain`. :func:`k7_takes` is the
-shape gate by which the engine sends a class the kernel does not take to
-the plain version.
+shape gate of one launch; :func:`k7_launches` cuts a class into the
+launches the kernel takes, or sends it to the plain version.
 
 The launch takes one of two routes, chosen by :func:`k7_geometry` before
 it, from shapes and strides alone: the staged route
@@ -169,14 +169,30 @@ def class_smem_bytes(shapes, r: int) -> int:
 
 
 def k7_takes(shapes, r: int) -> bool:
-    """Whether K7 takes a rank class of rank ``r`` whose shape buckets are
-    ``shapes`` (``[(m, n), ...]``, one per stack): a pure shape gate, the
-    counterpart of the JAX package's ``class_fits_vmem``. A class that
-    fails it is routed to :func:`poweriter_plain` by the caller before any
-    launch (``engines/lowrank.py``); :func:`poweriter_fused` itself raises
-    on it."""
+    """Whether one K7 launch takes stacks of rank ``r`` whose shape buckets
+    are ``shapes`` (``[(m, n), ...]``, one per stack): a pure shape gate,
+    the counterpart of the JAX package's ``class_fits_vmem``.
+    :func:`poweriter_fused` raises on what fails it; the engine
+    (``engines/lowrank.py``) plans its launches by :func:`k7_launches`."""
     return (1 <= r <= MAX_RANK and 0 < len(shapes) <= MAX_BUCKETS
             and class_smem_bytes(shapes, r) <= SMEM_LIMIT)
+
+
+def k7_launches(Gs, r: int) -> list[list[int]] | None:
+    """The K7 launches of a rank class of rank ``r`` whose stacks are
+    ``Gs`` (``[L, m, n]`` tensors), each a list of stack indices in order;
+    None when the kernel takes no part of it (a rank above
+    :data:`MAX_RANK`, iterates over :data:`SMEM_LIMIT`). A class of at most
+    :data:`MAX_BUCKETS` stacks is one launch. A larger one, whose members
+    are independent, is cut into launches of that many stacks, those whose
+    rows are whole 16-byte chunks (:func:`_aligned`) first, so that the
+    others, which put a launch on the direct route, share the last ones."""
+    shapes = [tuple(G.shape[-2:]) for G in Gs]
+    launches = [list(range(len(Gs)))]
+    if len(Gs) > MAX_BUCKETS:
+        order = sorted(range(len(Gs)), key=lambda k: not _aligned(Gs[k]))
+        launches = [sorted(order[i:i + MAX_BUCKETS]) for i in range(0, len(order), MAX_BUCKETS)]
+    return launches if all(k7_takes([shapes[k] for k in ks], r) for ks in launches) else None
 
 
 def _round4(v: int) -> int:

@@ -232,38 +232,52 @@ def test_k7_routes_at_the_multimodal_shapes():
     """rankDAD over MultimodalNet at full width (embed 256, 4 blocks, 98
     windows), 64 sites: the r = 10 class holds 19 leaves of 7 shapes
     (``fs_embed`` [66, 256], ``ica_embed`` [1000, 256], ``pos_embed`` [100,
-    256], each block's qkv, proj, mlp1 and mlp2), and a class of more than
-    16 buckets goes to the plain loop by shape (``k7_takes``); the r = 2
-    class (``head``, [256, 2] through a transposed view) is staged. ``cls``
-    ([1, 256]) is not compressed."""
+    256], each block's qkv, proj, mlp1 and mlp2), more than one launch of
+    K7 takes (``k7_takes``), so ``k7_launches`` cuts it into a launch of 16
+    buckets whose rows are whole 16-byte chunks (staged) and one of the
+    other three with ``fs_embed``, whose rows of 66 values put it on the
+    direct route; no class goes to the plain version. The r = 2 class
+    (``head``, [256, 2] through a transposed view) is one staged launch.
+    ``cls`` ([1, 256]) is not compressed."""
     cfg = tconfig.TrainConfig(task_id=TASK, agg_engine="rankDAD")
     model = treg.build_model(cfg, device="cpu")
     tr = leaf_table(cfg).transposed
     classes: dict = {}
+    names: dict = {}
     dense = []
     for name, p in model.named_parameters():
         g = torch.zeros((64,) + tuple(p.shape))
         G = g.transpose(1, 2) if name in tr else g.reshape(64, -1, g.shape[-1])
         if tlowrank.is_compressible(G.shape[1:]):
-            classes.setdefault(min(10, *G.shape[1:]), []).append(G)
+            r = min(10, *G.shape[1:])
+            classes.setdefault(r, []).append(G)
+            names.setdefault(r, []).append(name)
         else:
             dense.append(name)
     assert "cls" in dense and "pos_embed" not in dense
     assert len(classes[10]) == 19 and len(classes[2]) == 1
     shapes = [tuple(G.shape[1:]) for G in classes[10]]
     assert {(66, 256), (1000, 256), (100, 256)} <= set(shapes) and len(set(shapes)) == 7
-    assert not pc.k7_takes([tuple(G.shape[-2:]) for G in classes[10]], 10)
-    assert len(classes[10]) > pc.MAX_BUCKETS
+    assert not pc.k7_takes(shapes, 10) and len(classes[10]) > pc.MAX_BUCKETS
+    launches = pc.k7_launches(classes[10], 10)
+    assert sorted(k for ks in launches for k in ks) == list(range(19))
+    assert [len(ks) for ks in launches] == [16, 3]
+    assert names[10].index("fs_embed.weight") in launches[1]
+    geo = [pc.k7_geometry([tuple(classes[10][k].shape) for k in ks], 10,
+                          all(pc._aligned(classes[10][k]) for k in ks), 132, 232448,
+                          [pc._row_major(classes[10][k]) for k in ks]) for ks in launches]
+    assert [g["route"] for g in geo] == ["staged", "direct"] and geo[0]["blocks"] == 1024
+    assert all(pc.k7_takes([shapes[k] for k in ks], 10) for ks in launches)
     Gs = classes[2]
-    assert pc.k7_takes([tuple(G.shape[-2:]) for G in Gs], 2)
+    assert pc.k7_launches(Gs, 2) == [[0]]
     g = pc.k7_geometry([tuple(G.shape) for G in Gs], 2, all(pc._aligned(G) for G in Gs), 132,
                        232448, [pc._row_major(G) for G in Gs])
     assert g["route"] == "staged" and g["blocks"] == 64
-    # the engine counts the plain class; on the CPU both go to the plain version
+    # no class goes to the plain version by shape; on the CPU both run it
     tlowrank.POWERITER_PLAIN_CLASSES = 0
     grads = {n: torch.randn((2,) + tuple(p.shape)) for n, p in model.named_parameters()}
     make_rankdad(transposed=tr).aggregate(grads, {"omega": {}}, torch.ones(2))
-    assert tlowrank.POWERITER_PLAIN_CLASSES == 1
+    assert tlowrank.POWERITER_PLAIN_CLASSES == 0
 
 
 def test_ring_attention_and_dp_sgd_are_refused(tmp_path):
@@ -633,32 +647,70 @@ def test_multimodal_cli_matches_jax(tree, start, tmp_path, capsys, no_dropout, j
 
 
 def test_cholqr_factors_in_float64_where_the_f32_chain_breaks_down():
-    """The power iteration's CholeskyQR takes the f32 chain, JAX's, for
-    every member it factors, and refactors in float64 a member whose f32
-    Cholesky breaks down: the full-width rankDAD epoch (64 sites) gave
-    such members NaN factors on the card. Here: ten nearly parallel
-    columns at a shift the f32 factorization fails and float64 passes."""
-    g = torch.Generator().manual_seed(39)
-    base = torch.randn(64, 1, generator=g)
-    bad = (base + 1e-4 * torch.randn(64, 10, generator=g))[None]
-    good = torch.randn(1, 64, 10, generator=g)
-    shift = 3e-8
-    Yn, _ = tlowrank._normalize_cols(bad)
-    gram = Yn.mT @ Yn
-    gram = gram + (shift * gram.diagonal(dim1=-2, dim2=-1).sum(-1) + 1e-30)[..., None, None] \
-        * torch.eye(10)
-    assert int(torch.linalg.cholesky_ex(gram)[1]) > 0
-    chol64, info64 = torch.linalg.cholesky_ex(gram.double())
-    assert int(info64) == 0
-    want = Yn @ torch.linalg.inv(chol64).mT.float()
-    Q, _ = tlowrank._cholqr_once(torch.cat([bad, good]), shift)
+    """The power iteration's CholeskyQR takes JAX's f32 chain for every
+    member whose f32 Cholesky holds, bit for bit, and gives a member whose
+    f32 Cholesky breaks down its Gram again, accumulated in float64 and
+    rounded to f32 once: on the card cuBLAS's f32 Gram of a nearly
+    rank-deficient iterate of 1024 rows was off by as much as the second
+    round's shift and its Cholesky NaN (the full-width multimodal rankDAD
+    epoch's ``mlp2`` leaves). Here the CPU's f32 Gram breaks down the same
+    way at a smaller shift: two columns 7.4e-5 apart, shift 1e-8. The
+    broken member is finite, equal bit for bit to the chain on the rounded
+    float64 Gram, and within 5e-3 of JAX's ``_cholqr_once_multi`` (its last
+    column is the two columns' difference over a shifted Gram of condition
+    ~1e8, which carries the Grams' one-ulp difference: measured 1.3e-3)."""
+    from dinunet_implementations_tpu.engines import lowrank as jl
+
+    rng = np.random.default_rng(1)
+    bad = rng.standard_normal((1024, 10)).astype(np.float32)
+    eps = 10 ** rng.uniform(-4.5, -3)  # 7.4e-5
+    bad[:, 9] = bad[:, 8] + eps * rng.standard_normal(1024).astype(np.float32)
+    good = np.random.default_rng(2).standard_normal((1024, 10)).astype(np.float32)
+    Y, shift = torch.from_numpy(np.stack([bad, good])), 1e-8
+    Yn, _ = tlowrank._normalize_cols(Y)
+
+    def chain(gram):
+        gram = gram + (shift * gram.diagonal(dim1=-2, dim2=-1).sum(-1) + 1e-30)[..., None, None] \
+            * torch.eye(10)
+        chol, info = torch.linalg.cholesky_ex(gram)
+        return Yn @ torch.linalg.solve_triangular(chol, torch.eye(10).expand_as(gram),
+                                                  upper=False).mT, info
+
+    f32, info32 = chain(Yn.mT @ Yn)
+    f64, info64 = chain((Yn.double().mT @ Yn.double()).float())
+    assert info32.tolist()[0] > 0 and info32.tolist()[1] == 0 and info64.tolist() == [0, 0]
+    Q, _ = tlowrank._cholqr_once(Y, shift)
     assert bool(Q.isfinite().all())
-    np.testing.assert_allclose(Q[0].numpy(), want[0].numpy(), atol=1e-5, rtol=0)
-    # a member the f32 chain factors is the f32 chain's, bit for bit
-    Gn, _ = tlowrank._normalize_cols(good)
-    gg = Gn.mT @ Gn
-    gg = gg + (shift * gg.diagonal(dim1=-2, dim2=-1).sum(-1) + 1e-30)[..., None, None] \
-        * torch.eye(10)
-    f32 = Gn @ torch.linalg.solve_triangular(torch.linalg.cholesky(gg), torch.eye(10).expand_as(gg),
-                                             upper=False).mT
-    assert torch.equal(Q[1:], f32)
+    assert torch.equal(Q[0], f64[0]) and torch.equal(Q[1], f32[1])
+    jq, _ = jl._cholqr_once_multi([jnp.asarray(bad), jnp.asarray(good)], shift)
+    for k in range(2):
+        np.testing.assert_allclose(Q[k].numpy(), np.asarray(jq[k]), atol=5e-3, rtol=0)
+
+
+def test_cholqr_on_the_cards_broken_iterates_matches_jax():
+    """Three iterates on which the plain power iteration's CholeskyQR broke
+    down on the card (``scripts/torch_rankdad_probe.py``: the full-width
+    multimodal rankDAD epoch, ``mlp2`` leaves [1024, 256], the second round
+    at shift 1e-7), each with the shifted Gram cuBLAS formed for it there
+    (its smallest eigenvalue -2.5e-7 .. -5e-10): that Gram's f32 Cholesky
+    breaks down here too. JAX's round on the same iterates is finite,
+    batched and alone (its Gram's smallest eigenvalue is 8.3e-7 ..
+    1.1e-6). The port's CholeskyQR2 of them is finite, orthonormal within
+    1e-3 and within 5e-4 of JAX's (measured 9.4e-5: their last columns
+    span a subspace of condition ~1e7)."""
+    from dinunet_implementations_tpu.engines import lowrank as jl
+
+    z = np.load(os.path.join(os.path.dirname(__file__), "data", "cholqr_card_iterates.npz"))
+    Y, card_gram, shift = z["Y"], z["gram"], float(z["shift"])
+    assert (torch.linalg.cholesky_ex(torch.from_numpy(card_gram))[1] > 0).all()
+    jq, _ = jl._cholqr_once_multi([jnp.asarray(y) for y in Y], shift)
+    for k in range(len(Y)):
+        alone, _ = jl._cholqr_once_multi([jnp.asarray(Y[k])], shift)
+        assert np.isfinite(np.asarray(jq[k])).all() and np.isfinite(np.asarray(alone[0])).all()
+    Q, _ = tlowrank._cholqr_multi(torch.from_numpy(Y))
+    assert bool(Q.isfinite().all())
+    np.testing.assert_allclose((Q.mT @ Q).numpy(), np.broadcast_to(np.eye(10), (len(Y), 10, 10)),
+                               atol=1e-3, rtol=0)
+    jq2, _ = jl._cholqr_multi([jnp.asarray(y) for y in Y])
+    for k in range(len(Y)):
+        np.testing.assert_allclose(Q[k].numpy(), np.asarray(jq2[k]), atol=5e-4, rtol=0)

@@ -247,6 +247,56 @@ def test_k7_shape_gate_refuses_what_the_kernel_does_not_take():
     assert pc.class_smem_bytes(big, 16) > pc.SMEM_LIMIT and not pc.k7_takes(big, 16)
 
 
+def test_k7_launches_cut_a_class_of_more_than_16_buckets():
+    """``k7_launches``: a class of at most 16 stacks is one launch in member
+    order; a larger one is launches of at most 16, the stacks whose rows
+    are whole 16-byte chunks first, so an unaligned one (rows of 66 values,
+    the direct route's) shares the last launch; what the kernel takes at
+    no launch (r = 17, iterates over the shared-memory limit) is None."""
+    def stack(m, n, transposed=False):
+        return torch.zeros(2, n, m).transpose(1, 2) if transposed else torch.zeros(2, m, n)
+
+    assert pc.k7_launches([stack(32, 24)] * pc.MAX_BUCKETS, 10) == [list(range(16))]
+    odd = stack(66, 256, transposed=True)  # A = Gᵀ has rows of 66 values
+    assert not pc._aligned(odd) and pc._aligned(stack(32, 24))
+    Gs = [odd] + [stack(32, 24)] * 17 + [stack(48, 24, transposed=True)]
+    launches = pc.k7_launches(Gs, 10)
+    assert launches == [list(range(1, 17)), [0, 17, 18]]
+    assert all(pc.k7_takes([tuple(Gs[k].shape[1:]) for k in ks], 10) for ks in launches)
+    assert pc.k7_launches([stack(32, 24)] * 40, 10) == [
+        list(range(16)), list(range(16, 32)), list(range(32, 40))]
+    assert pc.k7_launches(Gs, pc.MAX_RANK + 1) is None
+    assert pc.k7_launches([stack(4000, 3000)], 16) is None
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_a_class_of_more_than_16_buckets_takes_several_launches_and_matches_jax(dtype):
+    """A class of 18 buckets through the engine with ``use_kernel=True``:
+    cut into launches (on the CPU each runs the plain version), not sent to
+    the plain version by shape, its factors in member order equal to the
+    one plain call's bit for bit and to JAX's legacy loop at the tolerance
+    of ``test_grouped_matches_jax_legacy``."""
+    rng = np.random.default_rng(21)
+    shapes = [(12, 7), (9, 7), (14, 9), (10, 8), (7, 5), (11, 6)] * 3
+    cls = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    cls[4] = _low_rank(rng, 7, 5, 4)  # rank exactly r
+    groups = [(cls, 4)]
+    oms = _warm(groups, seed=22)
+    bf16 = dtype == "bf16"
+    mm = torch.bfloat16 if bf16 else None
+    tg = [([torch.from_numpy(g) for g in cls], 4, [torch.from_numpy(o) for o in oms[0]])]
+    assert len(pc.k7_launches([g[None] for g in tg[0][0]], 4)) == 2
+    before = tl.POWERITER_PLAIN_CLASSES
+    got = tl.subspace_iteration_grouped(tg, ITERS, 1e-3, matmul_dtype=mm)
+    assert tl.POWERITER_PLAIN_CLASSES == before
+    plain = tl.subspace_iteration_grouped(tg, ITERS, 1e-3, matmul_dtype=mm, use_kernel=False)
+    for (p, q), (pp_, qp) in zip(got[0], plain[0], strict=True):
+        assert torch.equal(p, pp_) and torch.equal(q, qp)
+    _assert_factors_close([[(p.numpy(), q.numpy()) for p, q in got[0]]],
+                          _jax(groups, oms, 1e-3, bf16, fused=False),
+                          BF16_TOL if bf16 else F32_TOL)
+
+
 @pytest.mark.parametrize("tol", [1e-3, 0.0])
 def test_rank_above_the_kernel_goes_to_the_plain_loop_and_matches_jax(tol):
     """An r = 17 class (``dad_reduction_rank`` > 16, valid in JAX) is routed
