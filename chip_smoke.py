@@ -193,7 +193,34 @@ result line:
    each eval step of a site one dispatch, within ``SERVE_TOL`` of the
    trainer's eval; the command line on the multimodal tree under rankDAD;
    the local attention beside ``F.scaled_dot_product_attention``;
-17. one JSON line of per-kernel numbers, then the result line.
+17. hostile and faulty sites at the flagship (phase 6's 32 sites of batch
+   16, default ``ICAArgs``, per-direction arm, f32, Adam 1e-3, rank 10),
+   under a ``FaultPlan`` (a scheduled drop of site 5 for rounds 1-3, a
+   ``delay_at`` straggler, flaky sites at 5 %, site 9's inputs NaN for 3
+   rounds: quarantined) and an ``AttackPlan`` (sign-flip on 3 sites, scale
+   x10 on 1, noise on 1, a free-rider and a colluding pair, each over its
+   own window), windowed on the global round counter: for dSGD, rankDAD and
+   powerSGD under each of ``norm_clip``, ``trimmed_mean`` and
+   ``coordinate_median``, a cold and a warm epoch through the kernels and
+   through the plain versions, held at phase 8's tolerances (the first
+   round's aggregate, rankDAD's Ω, powerSGD's q and e; the first loss; the
+   health counters equal after the first round, the anomaly score within
+   ``HOSTILE_FIRST_ANOMALY_TOL``; the later losses and the health after the
+   epochs against the plain path and its run on inputs nudged by one ulp,
+   within ``HOSTILE_SPREAD_FACTOR`` times that run's spread or a floor),
+   the nearest anomaly z to the threshold
+   printed; K1 and K2 twice a micro-batch on the cluster
+   route, K7 once a rank class and round staged, no plain class; the warm
+   epoch's ms and peak memory beside the same epoch with
+   ``robust_agg="none"`` and no attack (the cost of the defence); the
+   cosine of an attacked round's aggregate with the same mode's without
+   the attack and with the clean weighted mean (information only); a
+   rankDAD ``trimmed_mean`` ``FedRunner`` fit of 3 epochs on phase 11's
+   tree with both plans
+   (launches, ``logs.json``'s anomaly keys, the best checkpoint back bit for
+   bit with its reputation fields); ``runner.cli.main`` with ``--faults
+   @file --attacks '<json>' --robust-agg coordinate_median``;
+18. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -3568,6 +3595,431 @@ def a9_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     return rec
 
 
+# -- phase 17: hostile and faulty sites ------------------------------------------
+
+HOSTILE_MODES = ("norm_clip", "trimmed_mean", "coordinate_median")
+HOSTILE_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+HOSTILE_FIT_EPOCHS, HOSTILE_CLI_EPOCHS = 3, 2
+# The kernel and plain paths under the plans, held at phase 8's tolerances:
+# the first round's aggregate within AGG_TOL, powerSGD's q and e within
+# PSGD_FIRST_TOL of their largest value, the first loss within
+# FIRST_LOSS_TOL, the health counters equal after the first round and the
+# anomaly score within HOSTILE_FIRST_ANOMALY_TOL. From the second round on
+# the params part on the lr scale (phase 8), so the later losses and the
+# health after the epochs are held against the plain path run again on
+# inputs nudged by a relative 1e-7: each loss within LOSS_TOL or
+# HOSTILE_SPREAD_FACTOR times that run's spread (powerSGD's median measured
+# 1.14e-3 > LOSS_TOL, the nudged run 1.02e-3 apart); each int health field
+# equal to the plain run's or to the nudged run's (a suspect decision
+# within the reference's own spread of the threshold); the anomaly score
+# within HOSTILE_SPREAD_FACTOR times the nudged run's spread or
+# HOSTILE_ANOMALY_TOL, whichever is larger. The floor is set from the 9
+# pairs' readings (PERF.md, PR 17): the spread bound held 8 of them; dSGD
+# norm_clip's nudged run parted by only 6.2e-5 while the kernel path parted
+# by 1.74e-3 (z 0.016 apart). 3e-3 is above that with room for the
+# rounding a change of the reduction order brings, and below the
+# honest sites' scores (0.01-0.05) that a wrong kernel would move whole.
+HOSTILE_SPREAD_FACTOR = 4.0
+HOSTILE_FIRST_ANOMALY_TOL, HOSTILE_ANOMALY_TOL = 1e-4, 3e-3
+
+
+def hostile_plans():
+    """The phase's ``FaultPlan`` and ``AttackPlan`` over the 32 training
+    sites, in global rounds: site 5 dropped for rounds 1-3, site 7 a
+    straggler for rounds 2-3, flaky sites at 5 %, site 9's inputs NaN for
+    rounds 0-2 (quarantined at the default 3 rounds); sign-flip on sites
+    10-12, scale x10 on 13, noise on 14, free-rider on 15 and a colluding
+    pair 16 and 17, each over its own window."""
+    from dinunet_implementations_tpu_torch.robustness import AttackPlan, FaultPlan
+
+    faults = FaultPlan(drop=((5, 1, 3),), delay_at=((7, 2, 2),), flaky_prob=0.05,
+                       flaky_seed=17, nan_at=((0, 9), (1, 9), (2, 9)))
+    attacks = AttackPlan(sign_flip=((10, 0, -1), (11, 1, -1), (12, 0, 4)),
+                         scale=((13, 1, 5),), scale_factor=10.0, noise=((14, 0, 3),),
+                         noise_std=1e-3, noise_seed=5, free_rider=((15, 2, -1),),
+                         collude=((16, 1, -1), (17, 1, -1)), collude_seed=9, collude_scale=5.0)
+    return faults, attacks
+
+
+def hostile_setup(torch, use_kernel: bool, engine: str, mode: str, attacks):
+    """Phase 6's configuration (32 sites of batch 16, default ``ICAArgs``,
+    dropout 0) under ``engine`` and ``robust_agg=mode``, through
+    ``build_training`` and ``make_train_epoch_fn`` with the attack plan
+    and the config's reputation knobs; its first state."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        init_train_state,
+        make_train_epoch_fn,
+    )
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine,
+                      robust_agg=mode)
+    task, eng, opt = build_training(cfg, use_kernel=use_kernel)
+    task.model.dropout_rate = 0.0
+    epoch = make_train_epoch_fn(task, eng, opt, local_iterations=cfg.local_iterations,
+                                quarantine_rounds=cfg.quarantine_rounds, attack_plan=attacks,
+                                robust_agg=mode, reputation_z=cfg.reputation_z,
+                                reputation_rounds=cfg.reputation_rounds)
+    return cfg, epoch, init_train_state(task, eng, opt, rng=0, num_sites=cfg.num_sites,
+                                        reputation=mode != "none")
+
+
+def hostile_masks(np, faults, attacks, round0: int, rounds: int):
+    """``(live, poison, attack)`` of the round window, as the trainer feeds
+    them (``attack`` None without an attack plan)."""
+    from dinunet_implementations_tpu_torch.robustness import attack_window, fault_window
+
+    live, nan = fault_window(faults, TRAIN_SITES, round0, rounds)
+    return (live, None if nan is None else nan.astype(np.float32),
+            attack_window(attacks, TRAIN_SITES, round0, rounds))
+
+
+def hostile_run(torch, np, epoch, state, inv_x, inv_y, idx, faults, attacks):
+    """The phase's two epochs (cold, then warm) from ``state``, each on its
+    window of the global round counter: their states, losses, ms and the
+    reputation layer's z-scores."""
+    out, ms, losses, zs, round0 = state, [], [], [], 0
+    for e in range(TRAIN_EPOCHS):
+        rounds = idx[e].shape[1]
+        masks = hostile_masks(np, faults, attacks, round0, rounds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lo = epoch(out, inv_x, inv_y, idx[e], *masks)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(lo)
+        zs.extend(epoch.reputation_z_trace)
+        round0 += rounds
+    return out, torch.cat(losses), ms, (torch.cat(zs) if zs else None)
+
+
+def leaf_check(got: dict, want: dict, tol) -> tuple[float, bool]:
+    """Per leaf, ``got`` against ``want`` within ``tol(w)`` elementwise: the
+    largest error and whether every leaf is finite and within."""
+    err, ok = 0.0, True
+    for k, w in want.items():
+        if w is None:
+            continue
+        g, w = got[k].float(), w.float()
+        d = (g - w).abs()
+        ok &= bool(g.isfinite().all()) and bool((d <= tol(w)).all())
+        err = max(err, d.max().item())
+    return err, ok
+
+
+def hostile_pair(torch, np, lc, pc, bc, smi: str, engine: str, mode: str, inv_x, inv_y, idx,
+                 faults, attacks) -> dict:
+    """One engine under one mode: the two epochs through the kernels (timed,
+    launches counted, peak memory over the baseline) and through the plain
+    versions, the first round of each and the plain path's nudged first
+    round, held to each other (module docstring, phase 17)."""
+    cfg, epoch_k, start_k = hostile_setup(torch, True, engine, mode, attacks)
+    _, epoch_p, start_p = hostile_setup(torch, False, engine, mode, attacks)
+    if not same_tree(start_k.params, start_p.params):
+        fail(f"hostile {engine} {mode}: the kernel and plain paths start from different weights")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    st_k, lk, ms, zk = hostile_run(torch, np, epoch_k, start_k, inv_x, inv_y, idx, faults,
+                                   attacks)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    st_p, lp, _, zp = hostile_run(torch, np, epoch_p, start_p, inv_x, inv_y, idx, faults,
+                                  attacks)
+    # the plain path again on inputs nudged by a relative 1e-7: its own spread
+    g = torch.Generator(device=inv_x.device).manual_seed(23)
+    nudged_x = inv_x * (1 + 1e-7 * torch.randn(inv_x.shape, generator=g, device=inv_x.device))
+    st_n, ln, _, zn = hostile_run(torch, np, epoch_p, start_p, nudged_x, inv_y, idx, faults,
+                                  attacks)
+
+    # the first round: kernel and plain
+    first = hostile_masks(np, faults, attacks, 0, 1)
+    one_k, _ = epoch_k(start_k, inv_x, inv_y, idx[0][:, :1], *first)
+    one_p, _ = epoch_p(start_p, inv_x, inv_y, idx[0][:, :1], *first)
+    agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
+    rounds = sum(q.shape[1] for q in idx)
+    dl, loss_spread = (lk - lp).abs(), (ln - lp).abs().max().item()
+    agg_tol = lambda w: AGG_TOL["atol"] + AGG_TOL["rtol"] * w.abs()  # noqa: E731
+    checks = {"first_round_aggregate": leaf_check(agg(one_k), agg(one_p), agg_tol),
+              "first_loss": (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL),
+              "loss": (dl.max().item(), bool(lk.isfinite().all()) and dl.max().item()
+                       <= max(LOSS_TOL, HOSTILE_SPREAD_FACTOR * loss_spread)),
+              "loss_spread": (loss_spread, True)}
+    if engine == "rankDAD":
+        omega = lambda st: {k: v for k, v in st.engine_state["omega"].items()  # noqa: E731
+                            if v is not None}
+        om = a9_omega_errs(omega(one_k), omega(one_p))
+        checks["first_round_omega_gram"] = (om["gram"], om["gram"] <= OMEGA_FIRST_TOL)
+        checks["first_round_omega_members_over"] = (
+            om["over"], om["over"] <= K7_TRIPS_DIFFER_SHARE * om["members"])
+    if engine == "powerSGD":
+        for key in ("q", "e"):
+            share = lambda w: PSGD_FIRST_TOL * w.abs().max()  # noqa: E731
+            checks[f"first_round_{key}"] = leaf_check(one_k.engine_state[key],
+                                                      one_p.engine_state[key], share)
+    # the health counters: after the first round equal to the plain path's;
+    # after the epochs equal to the plain path's or to its nudged run's (a
+    # suspect decision within the reference's own spread of the threshold)
+    for when, hk, hps in (("first_round_", one_k.health, [one_p.health]),
+                          ("", st_k.health, [st_p.health, st_n.health])):
+        for k in ("streak", "skips", "quarantined", "suspect_streak"):
+            same = any(torch.equal(hk[k], h[k]) for h in hps)
+            checks[f"{when}health_{k}"] = (0.0 if same else 1.0, same)
+    anomaly_gap = lambda a, b: (a["anomaly"] - b["anomaly"]).abs().max().item()  # noqa: E731
+    da = anomaly_gap(one_k.health, one_p.health)
+    checks["first_round_health_anomaly"] = (da, da <= HOSTILE_FIRST_ANOMALY_TOL)
+    da, spread = anomaly_gap(st_k.health, st_p.health), anomaly_gap(st_n.health, st_p.health)
+    checks["health_anomaly"] = (da, da <= max(HOSTILE_ANOMALY_TOL,
+                                              HOSTILE_SPREAD_FACTOR * spread))
+    checks["health_anomaly_spread"] = (spread, True)
+    live = zk.isfinite()
+    margin = (zk[live] - cfg.reputation_z).abs().min().item() if bool(live.any()) else None
+    z_apart = (zk - zp).nan_to_num(0.0).abs().max().item()
+    z_spread = (zn - zp).nan_to_num(0.0).abs().max().item()
+    if not torch.equal(live, zp.isfinite()):
+        checks["z_sites_alike"] = (1.0, False)
+    L = cfg.local_iterations
+    n = 2 * rounds * L  # one K1 and one K2 a direction and micro-batch
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": n, "lstm_proj": n, "k1_cluster_route": n, "lstm_bwd": n,
+        "k2_cluster_route": n}
+    if engine == "rankDAD":  # one K7 a rank class and round, staged
+        want["poweriter"] = want["k7_staged_route"] = len(k7_leaves(torch)) * rounds
+    rec = {"engine": engine, "robust_agg": mode, "sites": TRAIN_SITES, "batch": TRAIN_BATCH,
+           "rounds": rounds, "cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1],
+           "warm_ms_per_round": ms[1] / idx[1].shape[1],
+           "peak_memory_over_baseline_gb": peak_gb, "launches": launches,
+           "max_abs_err_vs_plain": {k: v for k, (v, _) in checks.items()},
+           "z_margin_to_threshold": margin, "z_kernel_vs_plain": z_apart,
+           "z_plain_spread": z_spread,
+           "health": {k: v.tolist() for k, v in st_k.health.items()},
+           "losses": lk.tolist()}
+    print(f"hostile {engine} {mode}: warm epoch {ms[1]:.3f} ms ({idx[1].shape[1]} rounds, cold "
+          f"{ms[0]:.3f}), peak {peak_gb:.4f} GB over the baseline, nearest z to the threshold "
+          f"{margin}, z kernel vs plain {z_apart:.3g} (plain's spread {z_spread:.3g}), on "
+          f"{smi}:", json.dumps(rec))
+    if launches != want:
+        fail(f"hostile {engine} {mode} launches {launches}, want {want}")
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        fail(f"hostile {engine} {mode} differs from the plain path in {bad}: {checks}")
+    if int(st_k.health["quarantined"][9]) != 1:
+        fail(f"hostile {engine} {mode}: site 9's three NaN rounds did not quarantine it: "
+             f"{rec['health']}")
+    return rec
+
+
+def hostile_baseline(torch, np, engine: str, inv_x, inv_y, idx, faults, mode: str = "none",
+                     attacks=None) -> dict:
+    """The same two epochs through the kernels under ``engine`` and
+    ``mode``, with ``attacks`` or none: against ``robust_agg="none"`` with
+    no attack, the cost of the defence."""
+    _, epoch, start = hostile_setup(torch, True, engine, mode, attacks)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, lo, ms, _ = hostile_run(torch, np, epoch, start, inv_x, inv_y, idx, faults, attacks)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    if not bool(lo[1:].isfinite().all()):
+        fail(f"hostile baseline {engine}: losses {lo.tolist()}")
+    return {"cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1],
+            "warm_ms_per_round": ms[1] / idx[1].shape[1], "peak_memory_over_baseline_gb": peak_gb}
+
+
+def hostile_effect(torch, np, engine: str, inv_x, inv_y, idx, faults, attacks) -> dict:
+    """Information only: under each mode, the cosine of round 0's aggregate
+    (an attacked round: two sign-flips and a noise site) with the same
+    round's aggregate under that mode without the attack
+    (``vs_no_attack``), and with the clean weighted mean (``robust_agg=
+    "none"``, no attack: ``vs_clean_mean``)."""
+    def flat_agg(mode, plan):
+        _, epoch, start = hostile_setup(torch, True, engine, mode, plan)
+        one, _ = epoch(start, inv_x, inv_y, idx[0][:, :1], *hostile_masks(np, faults, plan, 0, 1))
+        return torch.cat([m.flatten() / 0.1 for m in one.opt_state["mu"].values()])
+
+    def cos(a, b):
+        return (a @ b / (a.norm() * b.norm()).clamp(min=1e-30)).item()
+
+    clean_mean = flat_agg("none", None)
+    out = {}
+    for mode in ("none",) + HOSTILE_MODES:
+        attacked = flat_agg(mode, attacks)
+        out[mode] = {"vs_no_attack": cos(attacked, flat_agg(mode, None) if mode != "none"
+                                         else clean_mean),
+                     "vs_clean_mean": cos(attacked, clean_mean)}
+    return out
+
+
+def hostile_fit(torch, np, lc, pc, bc, smi: str, tree: str, out: str, faults, attacks) -> dict:
+    """A rankDAD ``trimmed_mean`` ``FedRunner`` fit on phase 11's tree with
+    both plans: launches, ``logs.json``'s anomaly keys, and the best
+    checkpoint back bit for bit, the reputation fields included."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_eval
+    from dinunet_implementations_tpu_torch.runner import FedRunner, load_site_splits
+    from dinunet_implementations_tpu_torch.trainer import load_checkpoint
+
+    runner = FedRunner(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0), tree, out,
+                       fault_plan=faults, attack_plan=attacks, epochs=HOSTILE_FIT_EPOCHS,
+                       agg_engine="rankDAD", robust_agg="trimmed_mean")
+    fcfg = runner.cfg
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    L = fcfg.local_iterations
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // L
+    eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    res = runner.run(folds=[0], verbose=False)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # read before any check
+    epochs = len(res["epoch_losses"])
+    micro = epochs * rounds * L
+    evals = epochs * eval_steps["validation"] + eval_steps["test"]
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+        "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+        "k2_cluster_route": 2 * micro}
+    want["poweriter"] = want["k7_staged_route"] = len(k7_leaves(torch)) * epochs * rounds
+    if launches != want:
+        fail(f"hostile fit launches {launches}, want {want}")
+    d = os.path.join(out, "remote", "simulatorRun", fcfg.task_id, "fold_0")
+    with open(os.path.join(d, "logs.json")) as fh:
+        remote = json.load(fh)
+    with open(os.path.join(out, "local3", "simulatorRun", fcfg.task_id, "fold_0",
+                           "logs.json")) as fh:
+        local = json.load(fh)
+    if (len(remote.get("site_anomaly_score", [])) != FIT_SITES
+            or "site_suspect_streak" not in remote or "anomaly_score" not in local):
+        fail(f"the hostile fit's logs.json lacks the anomaly keys: {sorted(remote)}, "
+             f"{sorted(local)}")
+    best = os.path.join(d, "checkpoint_best.msgpack")
+    back = load_checkpoint(best, res["state"])
+    for part in ("params", "batch_stats", "opt_state", "engine_state", "health"):
+        if not same_tree(getattr(back, part), getattr(res["state"], part)):
+            fail(f"the hostile fit's checkpoint_best.msgpack {part} differ from its best state")
+    if back.health["anomaly"].dtype != torch.float32 or set(back.health) != {
+            "streak", "skips", "quarantined", "suspect_streak", "anomaly"}:
+        fail(f"the hostile fit's checkpoint health reads back as {back.health}")
+    if not np.isfinite(res["test_metrics"]).all():
+        fail(f"the hostile fit's test metrics are not finite: {res['test_metrics']}")
+    rec = {"seconds": fit_s, "epochs": epochs, "rounds_per_epoch": rounds, "launches": launches,
+           "epoch_losses": res["epoch_losses"], "test_metrics": res["test_metrics"],
+           "site_anomaly_score": remote["site_anomaly_score"],
+           "site_quarantined": remote["site_quarantined"],
+           "site_skipped_rounds": remote["site_skipped_rounds"]}
+    print(f"hostile fit rankDAD trimmed_mean: {fit_s:.1f} s on {smi}:", json.dumps(rec))
+    return rec
+
+
+def hostile_cli(torch, np, lc, pc, bc, smi: str, tree: str, out: str, faults, attacks) -> dict:
+    """``runner.cli.main`` on phase 11's tree with ``--faults @file
+    --attacks '<json>' --robust-agg coordinate_median``: launches, the
+    printed line, the anomaly keys."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_eval
+    from dinunet_implementations_tpu_torch.runner import FedRunner, cli, load_site_splits
+
+    os.makedirs(out, exist_ok=True)
+    fpath = os.path.join(out, "faults.json")
+    with open(fpath, "w") as fh:
+        json.dump(faults.to_json(), fh)
+    args = ["--data-path", tree, "--task", NNComputation.TASK_ICA, "--folds", "0", "--epochs",
+            str(HOSTILE_CLI_EPOCHS), "--out-dir", out, "--quiet", "--faults", f"@{fpath}",
+            "--attacks", json.dumps(attacks.to_json()), "--robust-agg", "coordinate_median"]
+    runner = FedRunner(TrainConfig(task_id=NNComputation.TASK_ICA), tree)
+    fcfg = runner.cfg
+    fold = load_site_splits(fcfg, runner.site_dirs, runner.site_cfgs)[0]
+    L = fcfg.local_iterations
+    rounds = epoch_steps(fold["train"], fcfg.batch_size) // L
+    eval_steps = {k: plan_eval(fold[k], fcfg.batch_size).steps for k in ("validation", "test")}
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # read before any check
+    micro = HOSTILE_CLI_EPOCHS * rounds * L
+    evals = HOSTILE_CLI_EPOCHS * eval_steps["validation"] + eval_steps["test"]
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+        "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+        "k2_cluster_route": 2 * micro}
+    lines = printed.getvalue().splitlines()
+    if rc != 0 or launches != want or len(lines) != 1:
+        fail(f"hostile cli exit code {rc}, launches {launches}, want {want}, printed {lines}")
+    line = json.loads(lines[0])
+    with open(os.path.join(out, "remote", "simulatorRun", fcfg.task_id, "fold_0",
+                           "logs.json")) as fh:
+        remote = json.load(fh)
+    if "site_anomaly_score" not in remote or not np.isfinite(line["test_loss"]):
+        fail(f"hostile cli printed {line}, logs.json keys {sorted(remote)}")
+    rec = {"seconds": cli_s, "launches": launches, "line": line,
+           "site_quarantined": remote["site_quarantined"]}
+    print(f"hostile cli coordinate_median: {cli_s:.1f} s on {smi}:", json.dumps(rec))
+    return rec
+
+
+def hostile_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """Phase 17 of the module docstring: every engine under every robust
+    mode with both plans, through the kernels against the plain versions;
+    the cost and the effect of the defence; a fit and the command line."""
+    t_phase = time.perf_counter()
+    faults, attacks = hostile_plans()
+    cfg = hostile_setup(torch, True, "dSGD", "none", None)[0]
+    inv, plans = training_data(np, cfg)
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = [torch.from_numpy(q).cuda() for q in plans]
+    pairs = [hostile_pair(torch, np, lc, pc, bc, smi, engine, mode, inv_x, inv_y, idx, faults,
+                          attacks)
+             for engine in HOSTILE_ENGINES for mode in HOSTILE_MODES]
+    # the cost of the defence, warm ms a round over robust_agg="none" with
+    # no attack: each mode with the attack (the pairs' own epochs), each
+    # mode without it (the defence alone) and "none" with it (the attack
+    # alone)
+    cost = {}
+    for engine in HOSTILE_ENGINES:
+        base = hostile_baseline(torch, np, engine, inv_x, inv_y, idx, faults)
+        cost[engine] = {"none_no_attack": base,
+                        "none_attacked": hostile_baseline(torch, np, engine, inv_x, inv_y, idx,
+                                                          faults, "none", attacks)}
+        for p in pairs:
+            if p["engine"] != engine:
+                continue
+            alone = hostile_baseline(torch, np, engine, inv_x, inv_y, idx, faults,
+                                     p["robust_agg"])
+            cost[engine][p["robust_agg"]] = {
+                "warm_ms_per_round": p["warm_ms_per_round"],
+                "no_attack_warm_ms_per_round": alone["warm_ms_per_round"],
+                "peak_memory_over_baseline_gb": p["peak_memory_over_baseline_gb"]}
+        for v in cost[engine].values():
+            for key in ("warm_ms_per_round", "no_attack_warm_ms_per_round"):
+                if key in v:
+                    v["extra_" + key] = v[key] - base["warm_ms_per_round"]
+    print(f"hostile cost of the defence on {smi}:", json.dumps(cost))
+    effect = {engine: hostile_effect(torch, np, engine, inv_x, inv_y, idx, faults, attacks)
+              for engine in HOSTILE_ENGINES}
+    print("hostile effect (information only; cosine of round 0's aggregate under attack with "
+          "the same mode's without it, and with the clean weighted mean):", json.dumps(effect))
+    fit = hostile_fit(torch, np, lc, pc, bc, smi, tree, os.path.join(root, "hostile_fit"),
+                      faults, attacks)
+    cli_rec = hostile_cli(torch, np, lc, pc, bc, smi, tree, os.path.join(root, "hostile_cli"),
+                          faults, attacks)
+    seconds = time.perf_counter() - t_phase
+    print(f"hostile phase {seconds:.1f} s on {smi}")
+    return {"pairs": pairs, "cost": cost, "effect": effect, "fit": fit, "cli": cli_rec,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -3657,6 +4109,11 @@ def main() -> int:
               "epochs under dSGD / rankDAD / powerSGD, rankDAD against plain, fits, serving, "
               "the command line")
         a9 = a9_phase(torch, np, lc, pc, bc, smi, root)
+
+        print("== 17. hostile and faulty sites at full width: dSGD / rankDAD / powerSGD under "
+              "norm_clip, trimmed_mean and coordinate_median with a fault and an attack plan, "
+              "against plain; the cost of the defence; a fit and the command line")
+        hostile = hostile_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3677,6 +4134,12 @@ def main() -> int:
                    "training_powerSGD": train_psgd["launches"]["lstm_bwd"],
                    "cli": cli["launches"]["lstm_bwd"],
                    "cli_site": cli["site_launches"]["lstm_bwd"]}
+    for p in hostile["pairs"]:
+        by_path[f"hostile_{p['engine']}_{p['robust_agg']}"] = p["launches"]["lstm_fwd"]
+        bwd_by_path[f"hostile_{p['engine']}_{p['robust_agg']}"] = p["launches"]["lstm_bwd"]
+    for part in ("fit", "cli"):
+        by_path[f"hostile_{part}"] = hostile[part]["launches"]["lstm_fwd"]
+        bwd_by_path[f"hostile_{part}"] = hostile[part]["launches"]["lstm_bwd"]
     k7_by_path = {"training_rankDAD": train_dad["launches"]["poweriter"],
                   "fs_fit_rankDAD": fs["fits"]["rankDAD"]["launches"]["poweriter"],
                   "fs_cli": fs["cli"]["launches"]["poweriter"],
@@ -3688,6 +4151,10 @@ def main() -> int:
             if e["engine"] == "rankDAD":
                 k7_by_path[f"{short}_training_rankDAD_{e['dtype']}"] = e["launches"]["poweriter"]
         k7_by_path[f"{short}_fit_rankDAD"] = m["fit"]["launches"]["poweriter"]
+    for p in hostile["pairs"]:
+        if p["engine"] == "rankDAD":
+            k7_by_path[f"hostile_rankDAD_{p['robust_agg']}"] = p["launches"]["poweriter"]
+    k7_by_path["hostile_fit_rankDAD"] = hostile["fit"]["launches"]["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

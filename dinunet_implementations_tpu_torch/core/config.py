@@ -240,7 +240,7 @@ class TrainConfig:
     telemetry: str = "off"
     xprof_dir: str = ""
     # not ported, kept "off" so that make_train_epoch_fn and the engines refuse
-    # them (ROADMAP A10, A11)
+    # them (ROADMAP A10 (b), A11)
     staleness_bound: int = 0
     staleness_decay: float = 0.5
     wire_quant: str = "none"
@@ -249,11 +249,23 @@ class TrainConfig:
     # is quarantined; 0 skips such rounds but never quarantines; -1 runs the
     # unguarded round
     quarantine_rounds: int = 3
+    # byzantine-robust aggregation (parallel/collectives.py ROBUST_AGGS):
+    # "none" is the weighted mean; "norm_clip" clips each site's gradient
+    # norm to robust_clip_mult x the live-weighted median site norm;
+    # "trimmed_mean" / "coordinate_median" reduce each coordinate over the
+    # sites. Any mode but "none" also runs the reputation layer
+    # (robustness/health.py)
     robust_agg: str = "none"
+    # the live weight trimmed from EACH tail by the trimmed mean, in [0, 0.5)
+    robust_trim_frac: float = 0.2
+    # norm_clip's threshold over the live-weighted median site norm
+    robust_clip_mult: float = 2.5
+    # the reputation layer: reputation_rounds consecutive rounds of an
+    # anomaly z-score over reputation_z quarantine a site (0: score only)
     reputation_z: float = 2.0
     reputation_rounds: int = 8
     min_slices: int = 1
-    # the privacy plane (ROADMAP A10): refused at any value but these
+    # the privacy plane (ROADMAP A10 (c)): refused at any value but these
     dp_clip: float = 0.0
     dp_noise_multiplier: float = 0.0
     dp_seed: int = 0

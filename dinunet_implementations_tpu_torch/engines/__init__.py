@@ -10,17 +10,18 @@ def build_engine(cfg, use_kernel: bool = True) -> Engine:
     passes them to ``make_engine``); or powerSGD at rank
     ``dad_reduction_rank`` with its first Q drawn from ``cfg.seed``. The
     leaves stored transposed and the JAX leaf order come from the task's
-    model (``weights.leaf_table``). Each takes the config's wire options and
-    refuses those it does not run. ``use_kernel=False`` runs rankDAD's power
-    iteration through its plain version (powerSGD launches no kernel of its
-    own)."""
+    model (``weights.leaf_table``). Each takes the config's wire and robust
+    aggregation options and refuses those it does not run.
+    ``use_kernel=False`` runs rankDAD's power iteration through its plain
+    version (powerSGD launches no kernel of its own)."""
     from ..core.config import AggEngine
     from ..weights import leaf_table
 
     if cfg.agg_engine not in AggEngine.ALL:
         raise ValueError(f"unknown agg_engine {cfg.agg_engine!r} (have {AggEngine.ALL})")
     a, table = cfg.task_args(), leaf_table(cfg)
-    wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg)
+    wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg,
+                robust_trim_frac=cfg.robust_trim_frac, robust_clip_mult=cfg.robust_clip_mult)
     transposed = table.transposed
     if cfg.agg_engine == AggEngine.RANK_DAD:
         return make_rankdad(a.dad_reduction_rank, a.dad_num_pow_iters, a.dad_tol,

@@ -1,7 +1,7 @@
 """powerSGD, low-rank gradient compression with error feedback: the port
-of the JAX package's ``engines/powersgd.py`` for ``wire_quant="none"``,
-``robust_agg="none"``, no DCN codec and the classic site axis (every site
-on one card, ``mesh=None``).
+of the JAX package's ``engines/powersgd.py`` for ``wire_quant="none"``, no
+DCN codec and the classic site axis (every site on one card,
+``mesh=None``), with its byzantine-robust modes.
 
 Per round and per compressible leaf, on ``[S, ...]`` tensors (Vogels et
 al., 2019):
@@ -22,6 +22,16 @@ The 1-D leaves are a weighted f32 sum. A dead site's gradient and weight
 are zeroed before the products, so its ``M = e`` adds nothing; the
 trainer freezes its ``q`` and ``e`` for the round.
 
+Robust modes (``robust_agg``): ``"norm_clip"`` clips each site's incoming
+gradient to ``robust_clip_mult`` times the live-weighted median site norm
+before the error feedback (``e`` is the site's own state and stays
+unclipped). ``"trimmed_mean"`` and ``"coordinate_median"`` replace both
+weighted sums: ``P = orth(reduce_s cast(M_s q_s))`` and ``q' =
+reduce_s cast(M_sᵀ P)``, each a per-coordinate live-weighted trimmed mean
+or median of the sites' unweighted payloads, so a hostile site casts one
+vote in the shared subspace; the 1-D leaves are reduced the same way in
+f32.
+
 The state of one site is ``{"q": {name: [n, r] or None}, "e": {name: [m,
 n] or None}}``; the trainer stacks it per site. ``q`` stays per site
 (``[S, n, r]``), as JAX's vmap keeps it: after a round with every site
@@ -38,7 +48,14 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
+from ..parallel.collectives import (
+    check_robust_agg,
+    clip_site_gradients,
+    payload_dtype,
+    per_site,
+    robust_reduce_tree,
+    site_weight_scale,
+)
 from .base import Engine, mask_dead_site, refuse_secure_agg
 from .lowrank import (
     _matrix_shape,
@@ -65,7 +82,8 @@ def default_q(seed: int, index: int, n: int, r: int, device=None):
 
 def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int = 0,
                   transposed=(), leaf_index=None, wire_quant="none", robust_agg="none",
-                  dcn_wire_quant="", secure_agg="off") -> Engine:
+                  dcn_wire_quant="", secure_agg="off", robust_trim_frac: float = 0.2,
+                  robust_clip_mult: float = 2.5) -> Engine:
     """The powerSGD engine at rank ``dad_reduction_rank``. ``transposed``
     names the leaves stored as the transpose of their JAX matrix
     (``weights.leaf_table(cfg).transposed``); ``leaf_index`` maps a leaf's
@@ -74,10 +92,11 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     params dict)."""
     refuse_secure_agg(secure_agg)
     for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
-                                      ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),
                                       ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):
         if value != ported:
             raise NotImplementedError(f"powerSGD {name}={value!r} is not ported: ROADMAP {item}")
+    check_robust_agg(robust_agg, robust_trim_frac)
+    gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
     # a bf16 wire also runs the two big products in bf16; "16-ieee" and
     # "32" keep f32 math
@@ -102,19 +121,35 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
 
     def aggregate(grads: dict, state: dict, weight, live=None):
         grads, weight = mask_dead_site(grads, weight, live)
+        if robust_agg == "norm_clip":
+            grads = clip_site_gradients(grads, weight, robust_clip_mult)
         scale = site_weight_scale(weight)  # [S]
-        sc = scale[:, None, None]
-        agg, qs, es, Ms, sketches = {}, {}, {}, {}, {}
+
+        def reduce(payloads: dict) -> dict:
+            """Each of the sites' ``[S, ...]`` payloads to one: the sum of
+            the weighted payloads, or the robust reducer of unweighted ones
+            (every payload in one sort)."""
+            if gather_mode:
+                return robust_reduce_tree(payloads, weight, robust_agg, robust_trim_frac)
+            return {k: p.sum(0) for k, p in payloads.items()}
+
+        # the robust modes' payloads are unweighted: the reducer weighs
+        sc = 1.0 if gather_mode else scale[:, None, None]
+        agg, qs, es, Ms, first = {}, {}, {}, {}, {}
         for name, g in grads.items():
             q, e = state["q"][name], state["e"][name]
             if q is None:
-                agg[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
+                first[name] = g.float() if gather_mode else g.float() * per_site(scale, g)
                 qs[name] = es[name] = None
                 continue
             # the JAX matrices [S, m, n]; transposed leaves through a view
             G = g.transpose(1, 2) if name in transposed else g.reshape(g.shape[0], *e.shape[1:])
             Ms[name] = M = G.float() + e
-            sketches[name] = wire(lp_matmul(M, q, mm_dtype) * sc).sum(0)  # [m, r]
+            first[name] = wire(lp_matmul(M, q, mm_dtype) * sc)  # [S, m, r]
+        # the dense leaves' aggregates and the sketches [m, r]
+        first = reduce(first)
+        sketches = {name: first[name] for name in Ms}
+        agg.update((k, v.to(grads[k].dtype)) for k, v in first.items() if k not in Ms)
         # P of every leaf of one rank in one orthonormalization (each leaf's
         # own, as JAX's per-leaf orth): every M stays live until then, ~123 MB
         # at the flagship
@@ -124,9 +159,10 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         Ps = {}
         for names in by_rank.values():
             Ps.update(zip(names, orthonormalize_many([sketches[n] for n in names])))
+        q_news = reduce({name: wire(lp_matmul(M.mT, Ps[name], mm_dtype) * sc)
+                         for name, M in Ms.items()})  # [n, r]
         for name, M in Ms.items():
-            g, P = grads[name], Ps[name]
-            q_new = wire(lp_matmul(M.mT, P, mm_dtype) * sc).sum(0)  # [n, r]
+            g, P, q_new = grads[name], Ps[name], q_news[name]
             G_hat = P @ q_new.T
             es[name] = M - G_hat
             qs[name] = q_new.expand(g.shape[0], *q_new.shape).contiguous()

@@ -2,8 +2,9 @@
 factorizes every compressible gradient leaf to rank-r factors by power
 iteration and ships the factors; the aggregate is the weighted mean of the
 sites' rank-r reconstructions. The port of the JAX package's
-``engines/rankdad.py`` for ``wire_quant="none"``, ``robust_agg="none"``, no
-DCN codec and the classic site axis (every site on one card, ``mesh=None``).
+``engines/rankdad.py`` for ``wire_quant="none"``, no DCN codec and the
+classic site axis (every site on one card, ``mesh=None``), with its
+byzantine-robust modes.
 
 Per round: a dead site's gradient and weight are zeroed; the 1-D leaves
 are a weighted f32 sum (``precision_bits`` does not touch them); the
@@ -17,6 +18,17 @@ the reconstruction ``Σ_s P_s (w_s Q_s)ᵀ`` accumulates in f32. With
 every round by the sites' unweighted ``Q``; the trainer freezes a dead
 site's Ω for the round.
 
+Robust modes (``robust_agg``): ``"norm_clip"`` clips each site's gradient
+to ``robust_clip_mult`` times the live-weighted median site norm before
+the factorization. ``"trimmed_mean"`` and ``"coordinate_median"`` still
+factorize every site's leaves (K7 on the card); each site's unweighted
+``P`` and ``Q`` are cast to the payload dtype, each site's rank-r
+reconstruction ``P_s Q_sᵀ`` ``[S, m, n]`` is formed in the JAX
+orientation and laid out as its leaf, and each coordinate is reduced over
+the sites by the live-weighted trimmed mean or median; the dense leaves
+are reduced the same way in f32, all of them with the reconstructions in
+one sort.
+
 Orientation: factors are taken in the JAX matrix layout. A leaf named in
 ``transposed`` is stored as the transpose of its JAX matrix (a port
 ``nn.Linear.weight`` ``[out, in]`` against the flax kernel ``[in, out]``):
@@ -28,7 +40,14 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.collectives import payload_dtype, per_site, site_weight_scale
+from ..parallel.collectives import (
+    check_robust_agg,
+    clip_site_gradients,
+    payload_dtype,
+    per_site,
+    robust_reduce_tree,
+    site_weight_scale,
+)
 from .base import Engine, mask_dead_site, refuse_secure_agg
 from .lowrank import (
     _matrix_shape,
@@ -42,17 +61,19 @@ from .lowrank import (
 def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                  dad_tol: float = 1e-3, precision_bits="32", dad_warm_start: bool = True,
                  use_kernel: bool = True, transposed=(), wire_quant="none",
-                 robust_agg="none", dcn_wire_quant="", secure_agg="off") -> Engine:
+                 robust_agg="none", dcn_wire_quant="", secure_agg="off",
+                 robust_trim_frac: float = 0.2, robust_clip_mult: float = 2.5) -> Engine:
     """The rankDAD engine. ``use_kernel=False`` runs the power iteration's
     plain version on any device (the reference the card's kernel path is
     held against); ``transposed`` names the leaves stored as the transpose
     of their JAX matrix (``weights.leaf_table(cfg).transposed``)."""
     refuse_secure_agg(secure_agg)
     for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
-                                      ("robust_agg", robust_agg, "none", "A10 (robust_agg)"),
                                       ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):
         if value != ported:
             raise NotImplementedError(f"rankDAD {name}={value!r} is not ported: ROADMAP {item}")
+    check_robust_agg(robust_agg, robust_trim_frac)
+    gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
     # a bf16 wire also runs the power iteration's products in bf16;
     # "16-ieee" and "32" keep f32 math
@@ -90,15 +111,22 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             raise NotImplementedError("rankDAD over a mesh or packed site axis is not ported: "
                                       "ROADMAP A11")
         grads, weight = mask_dead_site(grads, weight, live)
+        if robust_agg == "norm_clip":
+            grads = clip_site_gradients(grads, weight, robust_clip_mult)
         scale = site_weight_scale(weight)  # [S]
-        out: dict = {}
+        # the gather modes' per-site payloads (dense leaves as they are,
+        # compressible ones as each site's reconstruction), reduced per
+        # coordinate in one sort once every class is factorized
+        out, gathered = {}, {}
         classes: dict[int, list[str]] = {}
         for name, g in grads.items():
             r = rank_of(name, g.shape[1:])
-            if r is None:
-                out[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
-            else:
+            if r is not None:
                 classes.setdefault(r, []).append(name)
+            elif gather_mode:
+                gathered[name] = g
+            else:
+                out[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
         order = sorted(classes.items())
         omegas = state["omega"] if dad_warm_start else {}
         results = subspace_iteration_grouped(
@@ -109,16 +137,23 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
         for (_, names), pqs in zip(order, results):
             for name, (P, Q) in zip(names, pqs):
                 g = grads[name]
-                Pw = P.to(pdtype).float()  # [S, m, r]
-                Qw = (Q * scale[:, None, None]).to(pdtype).float()  # [S, n, r]
-                if name in transposed:
-                    rec = torch.einsum("snr,smr->nm", Qw, Pw)
-                else:
-                    rec = torch.einsum("smr,snr->mn", Pw, Qw).reshape(g.shape[1:])
-                out[name] = rec.to(g.dtype)
                 # next round's subspace guess: this round's per-site,
                 # unweighted right factor
                 new_oms[name] = Q
+                Pw = P.to(pdtype).float()  # [S, m, r]
+                # the robust modes ship the unweighted Q: the reducer weighs
+                Qw = (Q if gather_mode else Q * scale[:, None, None]).to(pdtype).float()
+                if gather_mode:
+                    G = torch.einsum("smr,snr->smn", Pw, Qw)
+                    gathered[name] = G.mT if name in transposed else G.reshape(g.shape)
+                elif name in transposed:
+                    out[name] = torch.einsum("snr,smr->nm", Qw, Pw).to(g.dtype)
+                else:
+                    out[name] = torch.einsum("smr,snr->mn", Pw, Qw).reshape(g.shape[1:]).to(
+                        g.dtype)
+        if gathered:
+            red = robust_reduce_tree(gathered, weight, robust_agg, robust_trim_frac)
+            out.update((k, v.to(grads[k].dtype)) for k, v in red.items())
         agg = {name: out[name] for name in grads}
         return agg, ({"omega": new_oms} if dad_warm_start else state)
 

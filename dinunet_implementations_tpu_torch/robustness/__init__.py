@@ -1,6 +1,10 @@
-from .health import default_health, health_summary
+from .attacks import AttackPlan, attack_window, make_attack_fn, parse_attack_plan
+from .faults import FaultPlan, fault_window, parse_fault_plan, poison_inputs
+from .health import REPUTATION_KEYS, default_health, health_summary, reputation_fields
 from .membership import MembershipError, MembershipTable
 from .retry import RetryTimeout, with_retry
 
-__all__ = ["MembershipError", "MembershipTable", "RetryTimeout", "default_health",
-           "health_summary", "with_retry"]
+__all__ = ["AttackPlan", "FaultPlan", "MembershipError", "MembershipTable", "REPUTATION_KEYS",
+           "RetryTimeout", "attack_window", "default_health", "fault_window", "health_summary",
+           "make_attack_fn", "parse_attack_plan", "parse_fault_plan", "poison_inputs",
+           "reputation_fields", "with_retry"]

@@ -8,7 +8,7 @@ incarnation N+1 started with fresh state, and the table's epoch bumps on
 every transition. In the JAX package the same table maps training sites
 onto the padded virtual-site axis of the elastic-rounds daemon; that
 daemon and the slot-state helpers it uses (resetting and moving per-site
-engine, health and privacy rows) are ROADMAP A10.
+engine, health and privacy rows) are ROADMAP A10 (b).
 
 Key invariants:
 

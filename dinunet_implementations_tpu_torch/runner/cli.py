@@ -13,6 +13,12 @@
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --resume
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --mode test --device cpu
 
+    # hostile and faulty sites: a fault plan from a file, an attack plan
+    # inline, and a robust aggregation (with the reputation layer)
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --faults @faults.json --attacks '{"sign_flip": [[2, 0, -1]]}' \
+        --robust-agg trimmed_mean
+
 Any ``TrainConfig`` field (or task-args field) can be set with ``--set
 key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
 ``--set pretrain=true --set 'pretrain_args={"epochs": 1}'``). Each fold
@@ -37,7 +43,8 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_ROBUSTNESS = "A10 (robustness and privacy)"
+_DAEMON = "A10 (b) (FedDaemon, async and overlapped rounds)"
+_PRIVACY = "A10 (c) (DP-SGD, secure aggregation, personalization)"
 _TELEMETRY = "A12 (telemetry, profiles, the compile cache)"
 _SCHEDULER = "A19 (the scheduler and supervisor)"
 _REFUSED = {
@@ -46,14 +53,13 @@ _REFUSED = {
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "serve": (False, _ROBUSTNESS), "serve_spool": (None, _ROBUSTNESS),
-    "serve_capacity": (None, _ROBUSTNESS), "serve_quorum": (None, _ROBUSTNESS),
-    "serve_epochs": (None, _ROBUSTNESS), "serve_poll": (None, _ROBUSTNESS),
-    "serve_rows": (None, _ROBUSTNESS), "faults": (None, _ROBUSTNESS),
-    "attacks": (None, _ROBUSTNESS), "robust_agg": ("none", _ROBUSTNESS),
-    "overlap_rounds": (None, _ROBUSTNESS), "dp_clip": (0.0, _ROBUSTNESS),
-    "dp_noise": (0.0, _ROBUSTNESS), "dp_epsilon_budget": (0.0, _ROBUSTNESS),
-    "secure_agg": ("off", _ROBUSTNESS), "personalize": (None, _ROBUSTNESS),
+    "serve": (False, _DAEMON), "serve_spool": (None, _DAEMON),
+    "serve_capacity": (None, _DAEMON), "serve_quorum": (None, _DAEMON),
+    "serve_epochs": (None, _DAEMON), "serve_poll": (None, _DAEMON),
+    "serve_rows": (None, _DAEMON), "overlap_rounds": (None, _DAEMON),
+    "dp_clip": (0.0, _PRIVACY), "dp_noise": (0.0, _PRIVACY),
+    "dp_epsilon_budget": (0.0, _PRIVACY), "secure_agg": ("off", _PRIVACY),
+    "personalize": (None, _PRIVACY),
     "telemetry": ("off", _TELEMETRY), "profile_dir": (None, _TELEMETRY),
     "xprof_dir": (None, _TELEMETRY), "compile_cache": (None, _TELEMETRY),
     "sanitize": (None, _TELEMETRY), "statusz_port": (None, _TELEMETRY),
@@ -108,6 +114,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-poweriter", default=None, choices=["auto", "on", "off"],
                    help="rankDAD's power iteration: 'auto' and 'on' run the CUDA kernel on "
                         "the card (what the port always does); 'off' is refused")
+    p.add_argument("--faults", default=None, metavar="JSON|@FILE",
+                   help="deterministic fault injection (robustness.FaultPlan): inline JSON or "
+                        "@path, e.g. '{\"drop\": [[3, 10, -1]], \"nan_at\": [[5, 1]]}'; "
+                        "kill_at_round is refused (ROADMAP A10 (b))")
+    p.add_argument("--attacks", default=None, metavar="JSON|@FILE",
+                   help="byzantine-site attack injection (robustness.AttackPlan): inline JSON "
+                        "or @path, e.g. '{\"sign_flip\": [[2, 0, -1]], \"scale\": [[5, 10, "
+                        "20]]}'; pair with --robust-agg for the defense")
+    p.add_argument("--robust-agg", default=None,
+                   choices=["none", "norm_clip", "trimmed_mean", "coordinate_median"],
+                   help="byzantine-robust aggregation: norm_clip bounds each site's gradient "
+                        "norm at the live-weighted median; trimmed_mean / coordinate_median "
+                        "reduce each coordinate over the sites. Any but none also runs the "
+                        "reputation quarantine")
     p.add_argument("--device", default=None,
                    help="where to run: the CUDA card by default, 'cpu' to run on the CPU")
     p.add_argument("--quiet", action="store_true")
@@ -125,10 +145,7 @@ def build_parser() -> argparse.ArgumentParser:
             ("--serve", dict(action="store_true")), ("--serve-spool", {}),
             ("--serve-capacity", dict(type=int)), ("--serve-quorum", dict(type=int)),
             ("--serve-epochs", dict(type=int)), ("--serve-poll", dict(type=float)),
-            ("--serve-rows", dict(type=int)), ("--faults", {}), ("--attacks", {}),
-            ("--robust-agg", dict(choices=["none", "norm_clip", "trimmed_mean",
-                                           "coordinate_median"])),
-            ("--overlap-rounds", dict(action="store_true", default=None)),
+            ("--serve-rows", dict(type=int)), ("--overlap-rounds", dict(action="store_true", default=None)),
             ("--dp-clip", dict(type=float)), ("--dp-noise", dict(type=float)),
             ("--dp-epsilon-budget", dict(type=float)),
             ("--secure-agg", dict(choices=["off", "mask", "mask-nopads"])),
@@ -158,22 +175,47 @@ def _refuse(args) -> None:
             "CUDA kernel on the card (its plain version on the CPU)")
 
 
+def _plans(args):
+    """The ``--faults`` and ``--attacks`` plans, each None when not given;
+    a plan that does not parse, or a ``kill_at_round``, exits naming the
+    flag."""
+    from ..robustness.attacks import parse_attack_plan
+    from ..robustness.faults import parse_fault_plan
+
+    plans = []
+    for flag, arg, parse in (("--faults", args.faults, parse_fault_plan),
+                             ("--attacks", args.attacks, parse_attack_plan)):
+        try:
+            plans.append(parse(arg))
+        except (ValueError, OSError, TypeError) as e:
+            raise SystemExit(f"{flag}: {e}")
+    if plans[0] is not None and plans[0].kill_at_round is not None:
+        raise SystemExit("--faults kill_at_round is not ported: ROADMAP A10 (b) (kill_at_round, "
+                         "PreemptionGuard)")
+    return plans
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse(args)
     overrides = _parse_set(args.overrides)
     for key, val in (("task_id", args.task), ("agg_engine", args.engine), ("mode", args.mode),
                      ("epochs", args.epochs), ("batch_size", args.batch_size),
-                     ("num_folds", args.num_folds), ("pipeline", args.pipeline)):
+                     ("num_folds", args.num_folds), ("pipeline", args.pipeline),
+                     ("robust_agg", args.robust_agg)):
         if val is not None:
             overrides[key] = val
     cfg = TrainConfig().with_overrides(overrides)
     verbose = not args.quiet
+    fault_plan, attack_plan = _plans(args)
 
     if args.site is not None:
         if args.folds is not None or args.resume:
             raise SystemExit("--folds/--resume are federated-mode options; not supported "
                              "together with --site")
+        for flag, plan in (("--faults", fault_plan), ("--attacks", attack_plan)):
+            if plan is not None:
+                raise SystemExit(f"{flag} targets federated rounds; not supported with --site")
         from .fed_runner import SiteRunner
 
         runner = SiteRunner(
@@ -187,7 +229,7 @@ def main(argv: list[str] | None = None) -> int:
         from .fed_runner import FedRunner
 
         runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
-                           device=args.device)
+                           fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
         results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
 
     for k, res in enumerate(results):

@@ -9,7 +9,7 @@ package's ``runner/fed_runner.py``.
   (``comps/*/site_run.py``), fits one site of the tree alone, a federation
   of one, fold by fold.
 
-``FedDaemon`` of the JAX module is not ported (ROADMAP A10), and neither
+``FedDaemon`` of the JAX module is not ported (ROADMAP A10 (b)), and neither
 runner wraps a fold in the JAX package's ``sanitized_fit`` (A12).
 """
 

@@ -47,6 +47,7 @@ from ..weights import (
     train_state_from_tree,
     train_state_to_jax,
 )
+from ..robustness.health import health_from_numpy
 from . import _msgpack
 from .steps import TrainState
 
@@ -193,11 +194,13 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     corrupt.
 
     Params, running statistics, optimizer state, rng and round must match
-    ``like`` (a ``ValueError`` otherwise). As in JAX, the engine state and
-    the per-site health restore tolerantly: a stored tree that does not
-    match ``like``'s (another engine or knob, another site count, absent
-    in an older file) gives ``like``'s with a warning, a cold restart of
-    the warm-start carry or fresh counters."""
+    ``like`` (a ``ValueError`` otherwise). As in JAX, the engine state
+    restores tolerantly: a stored tree that does not match ``like``'s
+    (another engine or knob, absent in an older file) gives ``like``'s
+    with a warning, a cold restart of the warm-start carry. The per-site
+    health restores field by field (:func:`_restore_health`), so a robust
+    run resumed from a plain checkpoint keeps its counters (JAX's restore
+    would start them fresh)."""
     raw = _load_raw(path, fallback=fallback)
     table = table_of(like.params)
     dev = _device_of(like)
@@ -226,20 +229,30 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     elif raw.get("engine_state") or like.engine_state:
         warnings.warn(f"checkpoint {path}: stored engine state does not match the current "
                       "engine's structure; resuming with fresh engine state")
-    health = like.health
-    stored_h = raw.get("health") or {}
-    if stored_h:
-        if (stored_h.keys() == like.health.keys()
-                and all(np.shape(stored_h[k]) == tuple(like.health[k].shape) for k in stored_h)):
-            health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
-                      for k, v in stored_h.items()}
-        else:
-            warnings.warn(f"checkpoint {path}: stored site-health counters do not match the "
-                          "current run (site count changed?); resuming with fresh counters")
+    health = _restore_health(path, raw.get("health") or {}, like.health, dev)
     state = TrainState(params=state.params, batch_stats=state.batch_stats,
                        opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
                        round=state.round, health=health)
     return (state, _meta(raw)) if with_meta else state
+
+
+def _restore_health(path: str, stored: dict, like: dict, dev) -> dict:
+    """The stored per-site health, key by key: each field ``like`` has and
+    the file holds at ``like``'s shape comes back in its own dtype
+    (``robustness.health.HEALTH_DTYPES``), each other field keeps
+    ``like``'s. A field the file lacks (the reputation fields of a robust
+    run resumed from a plain checkpoint) stays as ``like`` has it, and one
+    ``like`` lacks is dropped, as the epoch's ``_ensure_health`` would do.
+    A stored field at another site count gives ``like``'s health whole,
+    with a warning."""
+    if not stored:
+        return like
+    if any(k in like and np.shape(v) != tuple(like[k].shape) for k, v in stored.items()):
+        warnings.warn(f"checkpoint {path}: stored site-health counters do not match the "
+                      "current run (site count changed?); resuming with fresh counters")
+        return like
+    back = health_from_numpy({k: v for k, v in stored.items() if k in like}, dev)
+    return {k: back.get(k, v) for k, v in like.items()}
 
 
 def load_meta(path: str, fallback: bool = True) -> dict:

@@ -95,16 +95,27 @@ def write_logs_json(dirpath: str, agg_engine: str, test_metrics: list, best_val_
 
 def health_log_fields(site_health: dict | None, site_index: int | None = None) -> dict:
     """``logs.json`` fields of the per-site health counters: rounds each
-    site skipped and whether it ended the fit quarantined. ``site_index=
-    None`` gives the remote's lists, an index that site's scalars; ``{}``
-    when no counters were kept (``mode="test"``)."""
+    site skipped and whether it ended the fit quarantined, and under the
+    reputation layer each site's anomaly score (rounded to 6 places) and
+    suspect streak. ``site_index=None`` gives the remote's lists, an index
+    that site's scalars; ``{}`` when no counters were kept
+    (``mode="test"``)."""
     if not site_health:
         return {}
+    reputation = "site_anomaly_score" in site_health
     if site_index is None:
-        return {"site_skipped_rounds": list(site_health["site_skipped_rounds"]),
-                "site_quarantined": list(site_health["site_quarantined"])}
-    return {"skipped_rounds": site_health["site_skipped_rounds"][site_index],
-            "quarantined": site_health["site_quarantined"][site_index]}
+        out = {"site_skipped_rounds": list(site_health["site_skipped_rounds"]),
+               "site_quarantined": list(site_health["site_quarantined"])}
+        if reputation:
+            out["site_anomaly_score"] = [round(v, 6) for v in site_health["site_anomaly_score"]]
+            out["site_suspect_streak"] = list(site_health["site_suspect_streak"])
+        return out
+    out = {"skipped_rounds": site_health["site_skipped_rounds"][site_index],
+           "quarantined": site_health["site_quarantined"][site_index]}
+    if reputation:
+        out["anomaly_score"] = round(site_health["site_anomaly_score"][site_index], 6)
+        out["suspect_streak"] = site_health["site_suspect_streak"][site_index]
+    return out
 
 
 def write_test_metrics_csv(dirpath: str, fold: int, metrics: dict) -> str:

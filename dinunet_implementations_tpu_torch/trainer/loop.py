@@ -15,12 +15,18 @@ One :class:`FederatedTrainer` drives, per fold:
   remote), ``test_metrics.csv``, ``checkpoint_best.msgpack`` and the zipped
   global results, in the JAX package's layout and file format.
 
+Hostile and faulty sites: ``fault_plan`` (``robustness.FaultPlan``:
+drops, flaky sites, stragglers, NaN inputs) and ``attack_plan``
+(``robustness.AttackPlan``) are windowed on the global round counter of
+each epoch, for both pipelines (the host pipeline poisons its dense
+inputs, the device pipeline takes the NaN gate); ``cfg.robust_agg`` and
+its knobs reach the engine and switch on the reputation layer.
+
 Options the port does not run raise ``NotImplementedError`` naming the
 ROADMAP item that ports them, at any value other than "off": a mesh (A11),
-fault and attack plans and DP (A10), and telemetry, profiles and the
-compile cache (A12). The SIGTERM ``PreemptionGuard`` of the JAX trainer is
-not ported either (A10): a killed fit resumes from its last rotating
-checkpoint.
+a fault plan's ``kill_at_round`` with the SIGTERM ``PreemptionGuard``
+(A10 (b)), DP (A10 (c)), and telemetry, profiles and the compile cache
+(A12). A killed fit resumes from its last rotating checkpoint.
 
 Warm starts, skipped when a fit resumes: ``cfg.pretrained_path`` loads a
 checkpoint's params, then ``cfg.pretrain`` with ``cfg.pretrain_args`` of
@@ -40,6 +46,8 @@ from ..core.device import resolve_device
 from ..data.api import SiteArrays, stack_site_inventory
 from ..data.batching import plan_epoch, plan_epoch_positions, plan_eval
 from ..engines import build_engine, make_dsgd
+from ..robustness.attacks import attack_window
+from ..robustness.faults import fault_window, poison_inputs
 from ..robustness.health import health_summary
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
@@ -73,12 +81,13 @@ def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
         raise ValueError(f"dp_delta must be in (0, 1), got {cfg.dp_delta}")
     unported = (
         ("mesh", mesh is not None, "A11 (multi-GPU)"),
-        ("fault_plan", fault_plan is not None, "A10 (FaultPlan)"),
-        ("attack_plan", attack_plan is not None, "A10 (AttackPlan)"),
+        ("fault_plan.kill_at_round",
+         fault_plan is not None and fault_plan.kill_at_round is not None,
+         "A10 (b) (kill_at_round, PreemptionGuard)"),
         ("bus", bus is not None, "A12 (telemetry)"),
-        ("cfg.dp_clip", cfg.dp_clip != 0.0, "A10 (DP-SGD)"),
-        ("cfg.dp_noise_multiplier", cfg.dp_noise_multiplier != 0.0, "A10 (DP-SGD)"),
-        ("cfg.dp_epsilon_budget", cfg.dp_epsilon_budget != 0.0, "A10 (DP-SGD)"),
+        ("cfg.dp_clip", cfg.dp_clip != 0.0, "A10 (c) (DP-SGD)"),
+        ("cfg.dp_noise_multiplier", cfg.dp_noise_multiplier != 0.0, "A10 (c) (DP-SGD)"),
+        ("cfg.dp_epsilon_budget", cfg.dp_epsilon_budget != 0.0, "A10 (c) (DP-SGD)"),
         ("cfg.telemetry", cfg.telemetry != "off", "A12 (telemetry)"),
         ("cfg.profile_dir", bool(cfg.profile_dir), "A12 (profiles)"),
         ("cfg.xprof_dir", bool(cfg.xprof_dir), "A12 (profiles)"),
@@ -94,13 +103,15 @@ class FederatedTrainer:
                  fault_plan=None, bus=None, attack_plan=None, device=None):
         """``model`` is the task's model (its weights are the fit's first
         state); it moves to ``device``, the card unless the caller asks
-        for ``"cpu"``. ``mesh``, ``fault_plan``, ``bus`` and
-        ``attack_plan`` exist for the JAX signature and must be None."""
+        for ``"cpu"``. ``fault_plan`` and ``attack_plan`` are optional
+        ``robustness.FaultPlan`` / ``AttackPlan``s; ``mesh`` and ``bus``
+        exist for the JAX signature and must be None."""
         _refuse(cfg, mesh, fault_plan, attack_plan, bus)
         if cfg.pipeline not in ("device", "host"):
             raise ValueError(f"cfg.pipeline must be 'device' or 'host', got {cfg.pipeline!r}")
         self.cfg = cfg
         self.out_dir = out_dir
+        self.fault_plan, self.attack_plan = fault_plan, attack_plan
         self.device = resolve_device(device)
         self.task = FederatedTask(model.to(self.device))
         self.engine = build_engine(cfg)
@@ -114,7 +125,7 @@ class FederatedTrainer:
             cfg.quarantine_rounds, self.device, pipeline=cfg.pipeline,
             rounds_scan_xs=cfg.rounds_scan_xs, donate_state=cfg.donate_epoch_state,
             staleness_bound=cfg.staleness_bound, staleness_decay=cfg.staleness_decay,
-            overlap_rounds=cfg.overlap_rounds, robust_agg=cfg.robust_agg,
+            overlap_rounds=cfg.overlap_rounds, attack_plan=attack_plan, robust_agg=cfg.robust_agg,
             reputation_z=cfg.reputation_z, reputation_rounds=cfg.reputation_rounds,
             min_slices=cfg.min_slices, dp_clip=cfg.dp_clip,
             dp_noise_multiplier=cfg.dp_noise_multiplier, dp_seed=cfg.dp_seed,
@@ -134,7 +145,7 @@ class FederatedTrainer:
         shapes)."""
         n = num_sites or self._num_sites
         return init_train_state(self.task, self.engine, self.optimizer, rng=self.cfg.seed,
-                                num_sites=n)
+                                num_sites=n, reputation=self.cfg.robust_agg != "none")
 
     def _ensure_inventory(self, train_sites):
         """The device pipeline's resident inventory: copied to the device
@@ -155,22 +166,42 @@ class FederatedTrainer:
         return plan_epoch_positions(train_sites, batch_size, seed=self.cfg.seed * 100003 + epoch,
                                     pad_mode="wrap")
 
+    def _plan_masks(self, num_sites: int, round0: int, rounds: int):
+        """The fault and attack masks of the global round window ``[round0,
+        round0 + rounds)``: ``(live, nan_mask, attack)``, each None when
+        its plan injects nothing there (a resumed fit replays the same
+        pattern)."""
+        live, nan_mask = fault_window(self.fault_plan, num_sites, round0, rounds)
+        return live, nan_mask, attack_window(self.attack_plan, num_sites, round0, rounds)
+
     def run_epoch(self, state, train_sites, epoch: int, batch_size=None, plan=None):
         """One training epoch. Device pipeline: ``plan`` (built by
         :meth:`_build_epoch_payload` when None) into the resident
-        inventory. Host pipeline: the same plan's dense batches, copied a
-        round at a time. Returns ``(state, losses)`` with the losses in
+        inventory, with the NaN gate of a plan that carries ``nan_at``.
+        Host pipeline: the same plan's dense batches, copied a round at a
+        time, NaN-poisoned on the host. Both take the window's liveness
+        and attack masks. Returns ``(state, losses)`` with the losses in
         numpy."""
         bs = batch_size or self.cfg.batch_size
+        L = max(self.cfg.local_iterations, 1)
         if self._pipeline == "device":
             plan = plan if plan is not None else self._build_epoch_payload(train_sites, epoch, bs)
             inv_x, inv_y = self._ensure_inventory(train_sites)
-            self._last_transfer_bytes = plan.nbytes
-            state, losses = self.epoch_fn(state, inv_x, inv_y, plan.positions)
+            live, nan_mask, attack = self._plan_masks(plan.num_sites, state.round, plan.steps // L)
+            poison = (nan_mask.astype(np.float32)
+                      if nan_mask is not None and self.fault_plan.nan_at else None)
+            self._last_transfer_bytes = plan.nbytes + sum(
+                a.nbytes for a in (live, poison, attack) if a is not None)
+            state, losses = self.epoch_fn(state, inv_x, inv_y, plan.positions, live, poison,
+                                          attack)
         else:
             fb = plan_epoch(train_sites, bs, seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap")
-            self._last_transfer_bytes = fb.inputs.nbytes + fb.labels.nbytes + fb.weights.nbytes
-            state, losses = self.epoch_fn(state, fb.inputs, fb.labels, fb.weights)
+            live, nan_mask, attack = self._plan_masks(fb.num_sites, state.round, fb.steps // L)
+            inputs = (poison_inputs(fb.inputs, nan_mask, L) if nan_mask is not None
+                      else fb.inputs)
+            self._last_transfer_bytes = inputs.nbytes + fb.labels.nbytes + fb.weights.nbytes + sum(
+                a.nbytes for a in (live, attack) if a is not None)
+            state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack)
         return state, losses.cpu().numpy()
 
     @staticmethod

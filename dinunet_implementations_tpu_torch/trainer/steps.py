@@ -7,7 +7,7 @@ dense per-site batches from a training state, every site of a step folded
 into the rows of one call where the model's eval BatchNorm allows it.
 
 Training: :func:`make_train_epoch_fn` runs one epoch of federated
-training (the engine's aggregation: dSGD or rankDAD) with every site
+training (the engine's aggregation: dSGD, rankDAD or powerSGD) with every site
 folded onto the card, as the JAX epoch does with ``mesh=None``. Two
 pipelines feed it the same rounds: ``"device"`` keeps the sites' data
 resident as an ``[S, N_max, ...]`` inventory, takes an ``[S, steps, B]``
@@ -15,9 +15,10 @@ index plan an epoch and gathers each round's batch on the device;
 ``"host"`` takes the dense ``[S, steps, B, ...]`` epoch from the host and
 copies each round's block to the device. A round runs
 ``local_iterations`` micro-batches per site with example-weighted gradient
-accumulation, then the engine's weighted mean across sites, sync-BN, the
-round loss, the health counters, and ONE optimizer update on the
-aggregate.
+accumulation, then an ``AttackPlan``'s transform of the hostile sites'
+gradients, the engine's aggregation across sites, sync-BN, the round loss,
+the health counters (and the reputation layer under a robust
+aggregation), and ONE optimizer update on the aggregate.
 
 Per-site gradients come from an explicit site axis: each round the
 parameters enter the model as stride-0 views ``[S, ...]`` (every site
@@ -40,8 +41,8 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.layers import BatchNorm
-from ..parallel.collectives import per_site, site_weight_scale
-from ..robustness.health import default_health
+from ..parallel.collectives import check_robust_agg, per_site, site_flat, site_weight_scale
+from ..robustness.health import REPUTATION_KEYS, default_health, reputation_fields
 
 
 class FederatedTask:
@@ -230,10 +231,11 @@ def _freeze_dead(alive, new, old):
 
 
 def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
-                     num_sites: int = 1) -> TrainState:
+                     num_sites: int = 1, reputation: bool = False) -> TrainState:
     """The first state of a fit, from the weights and running statistics of
     ``task.model`` (on the model's device). The engine state is one copy
-    per site, a leading ``[num_sites]`` axis, as in JAX."""
+    per site, a leading ``[num_sites]`` axis, as in JAX; ``reputation=True``
+    (a robust aggregation's fit) adds the reputation health fields."""
     params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
     stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
     dev = next(iter(params.values())).device
@@ -241,7 +243,7 @@ def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int
                            engine.init(params))
     return TrainState(params=params, batch_stats=stats, opt_state=optimizer.init(params),
                       engine_state=site_state, rng=rng, round=0,
-                      health=default_health(num_sites, dev))
+                      health=default_health(num_sites, reputation, dev))
 
 
 def _gather_batch(inv_x, inv_y, ixs, poison=None):
@@ -268,13 +270,11 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 _UNPORTED = {
     "mesh": (None, "A11 (multi-GPU)"),
     "telemetry": (False, "A12 (telemetry)"),
-    "staleness_bound": (0, "A10 (async buffers)"),
-    "overlap_rounds": (False, "A10 (overlapped rounds)"),
-    "attack_plan": (None, "A10 (AttackPlan)"),
-    "robust_agg": ("none", "A10 (robust aggregation)"),
-    "dp_clip": (0.0, "A10 (DP-SGD)"),
-    "dp_noise_multiplier": (0.0, "A10 (DP-SGD)"),
-    "personalize": ((), "A10 (personalization)"),
+    "staleness_bound": (0, "A10 (b) (async buffers)"),
+    "overlap_rounds": (False, "A10 (b) (overlapped rounds)"),
+    "dp_clip": (0.0, "A10 (c) (DP-SGD)"),
+    "dp_noise_multiplier": (0.0, "A10 (c) (DP-SGD)"),
+    "personalize": ((), "A10 (c) (personalization)"),
     "min_slices": (1, "A11 (slices)"),
 }
 #: options of the JAX package that only govern how its program runs (scan
@@ -284,8 +284,6 @@ _EXECUTION_ONLY = ("rounds_scan_xs", "donate_state")
 #: the options of ``_UNPORTED`` that switch it on)
 _DEPENDENT = {
     "staleness_decay": (0.5, ("staleness_bound",)),
-    "reputation_z": (2.0, ("robust_agg",)),
-    "reputation_rounds": (8, ("robust_agg",)),
     "dp_seed": (0, ("dp_clip", "dp_noise_multiplier")),
 }
 
@@ -293,11 +291,9 @@ _DEPENDENT = {
 def _check_options(options: dict) -> None:
     """Refuse the JAX options this port does not run (see
     :func:`make_train_epoch_fn`), before anything is built."""
-    decay, rep_rounds = options.get("staleness_decay", 0.5), options.get("reputation_rounds", 8)
+    decay = options.get("staleness_decay", 0.5)
     if not 0.0 < decay <= 1.0:
         raise ValueError(f"staleness_decay must be in (0, 1], got {decay}")
-    if rep_rounds < 0:
-        raise ValueError(f"reputation_rounds must be >= 0, got {rep_rounds}")
     for name in sorted(options, key=lambda n: n not in _DEPENDENT):  # dependents first
         value = options[name]
         if name in _EXECUTION_ONLY:
@@ -325,25 +321,43 @@ def _hold(go, new: dict, old: dict) -> dict:
             for k, v in new.items()}
 
 
+def _ensure_health(health: dict, S: int, reputation: bool, dev) -> dict:
+    """The epoch's health tree, as JAX's ``_ensure_health`` leaves it: fresh
+    counters for another site count; the reputation fields added fresh
+    when a robust epoch starts from a plain state, and dropped when a plain
+    epoch starts from a robust one."""
+    if health is None or health["streak"].shape[0] != S:
+        return default_health(S, reputation, dev)
+    if reputation and "suspect_streak" not in health:
+        return {**health, **reputation_fields(S, dev)}
+    if not reputation and "suspect_streak" in health:
+        return {k: v for k, v in health.items() if k not in REPUTATION_KEYS}
+    return health
+
+
 def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         local_iterations: int = 1, quarantine_rounds: int | None = 3,
-                        device=None, pipeline: str = "device", **options):
+                        device=None, pipeline: str = "device", attack_plan=None,
+                        robust_agg: str = "none", reputation_z: float = 2.0,
+                        reputation_rounds: int = 8, **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
 
     - ``pipeline="device"`` (the default): ``epoch(state, inv_x [S, N_max,
-      ...], inv_y [S, N_max], idx [S, steps, B], live=None, poison=None)``.
-      ``idx`` is the epoch's plan (``data.plan_epoch_positions``) into the
-      resident inventory, and each round gathers its batch on the device;
-      ``poison [S, rounds]`` is the NaN-injection gate.
+      ...], inv_y [S, N_max], idx [S, steps, B], live=None, poison=None,
+      attack=None)``. ``idx`` is the epoch's plan
+      (``data.plan_epoch_positions``) into the resident inventory, and each
+      round gathers its batch on the device; ``poison [S, rounds]`` is the
+      NaN-injection gate.
     - ``pipeline="host"``: ``epoch(state, inputs [S, steps, B, ...],
-      labels [S, steps, B], weights [S, steps, B], live=None)``, the dense
-      epoch of ``data.plan_epoch`` on the host (numpy or CPU tensors).
-      Each round's ``[S, L, B, ...]`` block is copied to the device just
-      before the round, so the device never holds the dense epoch. As in
-      JAX, this path takes no ``poison``: NaN injection on the host path
-      belongs to the data layer (JAX's ``poison_inputs``, ROADMAP A10).
+      labels [S, steps, B], weights [S, steps, B], live=None,
+      attack=None)``, the dense epoch of ``data.plan_epoch`` on the host
+      (numpy or CPU tensors). Each round's ``[S, L, B, ...]`` block is
+      copied to the device just before the round, so the device never
+      holds the dense epoch. As in JAX, this path takes no ``poison``: NaN
+      injection on the host path is the data layer's
+      (``robustness.poison_inputs``).
 
     The default differs from JAX's ``make_train_epoch_fn``, which
     defaults to ``"host"``; JAX's ``TrainConfig.pipeline`` defaults to
@@ -354,27 +368,44 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     and a trailing remainder is dropped. ``live [S, rounds]`` is the
     scheduled liveness mask.
 
-    Guarded rounds (``quarantine_rounds >= 0`` or a ``live`` mask): a site
-    contributes iff it is scheduled live AND its round gradient is finite
-    AND it is not quarantined; a dead site's engine state is frozen, its
-    weight is 0 in the aggregate, sync-BN and the round loss; the health
-    counters advance, and ``quarantine_rounds`` consecutive non-finite
-    rounds latch the sticky quarantine flag (0 keeps the per-round skip
-    only). A round with no live weight holds params, optimizer state and
-    running statistics, and reports a NaN loss. ``quarantine_rounds < 0``
-    with no mask runs the unguarded round. ``None`` means 3.
+    Hostile sites: ``attack [S, rounds]`` is an ``AttackPlan``'s int32
+    code mask (``robustness.attack_window``); each round the plan's
+    transform (``robustness.make_attack_fn``, keyed by the global round and
+    the site row) replaces a hostile site's finished round gradient before
+    the engine. A mask without ``attack_plan`` raises ``ValueError``, as
+    in JAX. ``robust_agg`` (the engine's mode, ``"none"`` by default)
+    switches on the reputation layer: each round a live site's anomaly
+    z-score, the larger of the z-scores of its distance to the aggregate
+    and of its gradient norm across the live sites, above
+    ``reputation_z`` extends its suspect streak, and
+    ``reputation_rounds`` consecutive such rounds latch the quarantine
+    flag (0 scores only); ``anomaly`` keeps a moving average of the
+    score's positive part (robustness/health.py).
+
+    Guarded rounds (``quarantine_rounds >= 0``, a ``live`` mask, an attack
+    mask or the reputation layer): a site contributes iff it is scheduled
+    live AND its round gradient is finite AND it is not quarantined; a dead
+    site's engine state is frozen, its weight is 0 in the aggregate,
+    sync-BN and the round loss; the health counters advance, and
+    ``quarantine_rounds`` consecutive non-finite rounds latch the sticky
+    quarantine flag (0 keeps the per-round skip only). A round with no live
+    weight holds params, optimizer state and running statistics, and
+    reports a NaN loss. ``quarantine_rounds < 0`` with none of the others
+    runs the unguarded round. ``None`` means 3.
 
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
-    program runs and take any value. ``staleness_decay``,
-    ``reputation_z``, ``reputation_rounds`` and ``dp_seed`` act only
-    through ``staleness_bound``, ``robust_agg`` and ``dp_clip`` /
+    program runs and take any value. ``staleness_decay`` and ``dp_seed``
+    act only through ``staleness_bound`` and ``dp_clip`` /
     ``dp_noise_multiplier``: any value while that option is off, JAX's
     default otherwise. Every other option at a value other than "off"
-    (``mesh``, ``telemetry``, async, overlap, attack,
-    DP, personalization, slices) raises ``NotImplementedError`` naming the
-    ROADMAP item that ports it."""
+    (``mesh``, ``telemetry``, async, overlap, DP, personalization, slices)
+    raises ``NotImplementedError`` naming the ROADMAP item that ports
+    it."""
     _check_options(options)
+    check_robust_agg(robust_agg)
+    if reputation_rounds < 0:
+        raise ValueError(f"reputation_rounds must be >= 0, got {reputation_rounds}")
     if pipeline not in ("host", "device"):
         raise ValueError(f"pipeline must be 'host' or 'device', got {pipeline!r}")
     if local_iterations < 1:
@@ -384,6 +415,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     dev = resolve_device(device)
     model = task.model
     L = local_iterations
+    reputation = robust_agg != "none"
+    attacks = attack_plan is not None and attack_plan.injects_attacks()
 
     def site_round(params, stats, xb, yb, wb, gen):
         """Every site's gradient phase of one round: ``L`` micro-batches,
@@ -407,24 +440,70 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         site_grad = {k: g / per_site(torch.clamp(n_sum, min=1.0), g) for k, g in g_sum.items()}
         return site_grad, n_sum, run, loss_sum
 
-    def run_rounds(state: TrainState, S: int, rounds: int, batch, live):
+    def reputation_round(prev, health, flat, agg_flat, contribute):
+        """The reputation layer's round (JAX's ``_reputation_round``): the
+        z-scores across the live sites of each site's distance to the
+        aggregate and of its gradient norm, over the shipped tree (``flat
+        [S, N]``, the aggregate ``agg_flat [N]`` laid out alike). A site
+        sitting the round out holds its streak and its score."""
+        livef = (contribute > 0).float()
+        n_live = torch.clamp(livef.sum(), min=1.0)
+
+        def z_of(x):
+            xf = torch.where(livef > 0, x, 0.0)
+            m1 = xf.sum() / n_live
+            m2 = (xf * xf).sum() / n_live
+            std = torch.sqrt(torch.clamp(m2 - m1 * m1, min=0.0))
+            return (x - m1) / torch.clamp(std, min=1e-12)
+
+        d = flat - agg_flat
+        dsq, nsq = (d * d).sum(1), (flat * flat).sum(1)
+        # a non-finite site's z is NaN, which fails every comparison
+        z = torch.maximum(z_of(torch.sqrt(torch.clamp(dsq, min=0.0))),
+                          z_of(torch.sqrt(torch.clamp(nsq, min=0.0))))
+        live = contribute > 0
+        suspect = (z > reputation_z) & live
+        streak = torch.where(suspect, prev["suspect_streak"] + 1,
+                             torch.where(live, 0, prev["suspect_streak"])).int()
+        quarantined = health["quarantined"]
+        if reputation_rounds > 0:
+            quarantined = torch.maximum(quarantined, (streak >= reputation_rounds).int())
+        anomaly = torch.where(live, 0.9 * prev["anomaly"] + 0.1 * torch.clamp(z, min=0.0),
+                              prev["anomaly"])
+        return {**health, "suspect_streak": streak, "quarantined": quarantined,
+                "anomaly": anomaly}, z
+
+    def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack):
         """The epoch's rounds; ``batch(r)`` gives round ``r``'s ``(x [S, L,
         B, ...], y [S, L, B], w [S, L, B])`` on the device."""
-        guard = quarantine_rounds >= 0 or live is not None
+        if attack is not None and not attacks:
+            raise ValueError("an attack mask was fed but no attack_plan was given to "
+                             "make_train_epoch_fn (the plan carries the transform's parameters)")
+        atk = None
+        if attack is not None:
+            from ..robustness.attacks import make_attack_fn
+            from ..weights import table_of
+
+            attack = np.asarray(attack.cpu() if torch.is_tensor(attack) else attack)[:, :rounds]
+            # on the device once an epoch, as the liveness mask: the gate
+            # reads each round's column there without a copy
+            attack_dev = torch.as_tensor(attack, device=dev)
+            atk = make_attack_fn(attack_plan, table_of(state.params))
+        guard = quarantine_rounds >= 0 or live is not None or reputation or atk is not None
         if live is not None:
             live = torch.as_tensor(live, dtype=torch.float32, device=dev)[:, :rounds]
-        health = state.health
-        if health["streak"].shape[0] != S:
-            health = default_health(S, dev)  # per-site counters only survive a same-size fit
+        health = _ensure_health(state.health, S, reputation, dev)
         params, stats, opt_state = state.params, state.batch_stats, state.opt_state
         engine_state = state.engine_state
-        losses = []
+        losses, zs = [], []
         for r in range(rounds):
             rnd = state.round + r
             gen = torch.Generator(device=dev)
             gen.manual_seed(state.rng * 1_000_003 + rnd)
             xb, yb, wb = batch(r)
             site_grad, n_sum, site_stats, loss_sum = site_round(params, stats, xb, yb, wb, gen)
+            if atk is not None:
+                site_grad = atk(site_grad, attack[:, r], attack_dev[:, r], rnd)
             if not guard:
                 agg, engine_state = engine.aggregate(site_grad, engine_state, n_sum)
                 scale = site_weight_scale(n_sum)
@@ -435,8 +514,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                 losses.append(loss_round)
                 continue
             # liveness: scheduled live AND finite AND not quarantined
-            finite = torch.stack([g.reshape(S, -1).isfinite().all(1)
-                                  for g in site_grad.values()]).all(0)
+            flat = site_flat(site_grad)
+            finite = flat.isfinite().all(1)
             ls = torch.ones(S, device=dev) if live is None else live[:, r]
             contribute = ls * finite.float() * (1.0 - (health["quarantined"] > 0).float())
             alive = contribute > 0
@@ -459,8 +538,13 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             quarantined = health["quarantined"]
             if quarantine_rounds > 0:
                 quarantined = torch.maximum(quarantined, (streak >= quarantine_rounds).int())
-            health = {"streak": streak, "skips": health["skips"] + (~alive).int(),
-                      "quarantined": quarantined}
+            new_health = {**health, "streak": streak, "skips": health["skips"] + (~alive).int(),
+                          "quarantined": quarantined}
+            if reputation:
+                agg_flat = torch.cat([agg[k].reshape(-1).float() for k in site_grad])
+                new_health, z = reputation_round(health, new_health, flat, agg_flat, contribute)
+                zs.append(torch.where(alive, z, float("nan")))
+            health = new_health
             # one update on the aggregate; a round with no live weight
             # holds params AND optimizer state
             updates, new_opt = optimizer.update(agg, opt_state)
@@ -471,9 +555,10 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                                engine_state=engine_state, rng=state.rng,
                                round=state.round + rounds, health=health)
         empty = torch.zeros(0, device=dev)
+        reputation_z_trace[:] = [torch.stack(zs)] if zs else []
         return new_state, torch.stack(losses) if losses else empty
 
-    def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None):
+    def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None, attack=None):
         inv_x = torch.as_tensor(inv_x, device=dev)
         inv_y = torch.as_tensor(inv_y, device=dev)
         idx = torch.as_tensor(idx, device=dev)
@@ -483,9 +568,9 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             poison = torch.as_tensor(poison, device=dev)[:, :rounds]
         return run_rounds(state, S, rounds, lambda r: _gather_batch(
             inv_x, inv_y, idx[:, r * L:(r + 1) * L], None if poison is None else poison[:, r]),
-            live)
+            live, attack)
 
-    def host_epoch(state: TrainState, inputs, labels, weights, live=None):
+    def host_epoch(state: TrainState, inputs, labels, weights, live=None, attack=None):
         S, steps = inputs.shape[:2]
 
         def batch(r):
@@ -493,6 +578,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             return (_to_device(inputs[:, sl], dev, torch.float32), _to_device(labels[:, sl], dev),
                     _to_device(weights[:, sl], dev, torch.float32))
 
-        return run_rounds(state, S, steps // L, batch, live)
+        return run_rounds(state, S, steps // L, batch, live, attack)
 
-    return device_epoch if pipeline == "device" else host_epoch
+    epoch = device_epoch if pipeline == "device" else host_epoch
+    # the last epoch's anomaly z-scores [rounds, S] under the reputation
+    # layer (NaN where a site sat out), for a caller that watches how near
+    # the threshold its decisions fall
+    reputation_z_trace: list = []
+    epoch.reputation_z_trace = reputation_z_trace
+    return epoch

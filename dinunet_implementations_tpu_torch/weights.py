@@ -232,8 +232,9 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
             "mu": {n: v.to(dev) for n, v in _params_to_port(opt["mu"], table, "mu").items()},
             "nu": {n: v.to(dev) for n, v in _params_to_port(opt["nu"], table, "nu").items()},
         }
-    health = {k: torch.from_numpy(np.array(v, dtype=np.int32)).to(dev)
-              for k, v in tree["health"].items()}
+    from .robustness.health import health_from_numpy
+
+    health = health_from_numpy(tree["health"], dev)
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                       engine_state=engine_state_from_jax(tree["engine_state"], table, dev),
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health)

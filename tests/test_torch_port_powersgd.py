@@ -229,7 +229,7 @@ def test_first_q_is_keyed_by_the_jax_leaf_index():
 
 @pytest.mark.parametrize("kw,error,match", [
     ({"wire_quant": "int8"}, NotImplementedError, r"ROADMAP A11 \(WireCodec\)"),
-    ({"robust_agg": "trimmed_mean"}, NotImplementedError, r"ROADMAP A10 \(robust_agg\)"),
+    ({"robust_agg": "krum"}, ValueError, "robust_agg must be one of"),
     ({"dcn_wire_quant": "int8"}, NotImplementedError, r"ROADMAP A11 \(slices\)"),
     ({"secure_agg": "mask"}, ValueError, "only supported by the dSGD engine"),
     ({"secure_agg": "pads"}, ValueError, "secure_agg must be one of"),

@@ -193,7 +193,7 @@ def test_init_keeps_omega_in_jax_orientation():
     assert make_rankdad(dad_warm_start=False).init(params) == {}
 
 
-@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"robust_agg": "trimmed_mean"},
+@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"wire_quant": "fp8"},
                                 {"dcn_wire_quant": "int8"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):

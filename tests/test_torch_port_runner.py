@@ -294,7 +294,7 @@ def test_the_port_parses_every_jax_flag():
     assert set(want) <= set(got)
     run = {"help", "data_path", "task", "engine", "mode", "epochs", "batch_size", "num_folds",
            "out_dir", "site", "folds", "resume", "pipeline", "fused_poweriter", "quiet",
-           "overrides"}
+           "overrides", "faults", "attacks", "robust_agg"}
     assert {d for d in want.values()} - run == set(tcli._REFUSED)
 
 

@@ -212,7 +212,8 @@ def test_importing_the_port_pulls_in_no_jax():
         "dinunet_implementations_tpu_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
-    for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal"):
+    for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal",
+                "robustness.faults", "robustness.attacks"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -236,7 +237,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     # compiles the port's own copy of fastio.cpp
     for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py",
                  "models/cnn3d.py", "models/transformer.py", "data/smri.py",
-                 "data/multimodal.py"):
+                 "data/multimodal.py", "robustness/faults.py", "robustness/attacks.py",
+                 "robustness/health.py", "parallel/collectives.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

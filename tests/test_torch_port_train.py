@@ -518,7 +518,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 @pytest.mark.parametrize("option,value", [
     ("mesh", object()), ("telemetry", True), ("staleness_bound", 2),
-    ("overlap_rounds", True), ("attack_plan", object()), ("robust_agg", "trimmed_mean"),
+    ("overlap_rounds", True), ("dp_noise_multiplier", 1.0), ("telemetry", "on"),
     ("dp_clip", 1.0), ("personalize", ("cls_fc3",)), ("min_slices", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
@@ -529,8 +529,9 @@ def test_unported_epoch_options_raise(option, value):
 
 
 # JAX make_train_epoch_fn options the port takes at JAX's default: the two
-# execution details at any value, the four that act through another option
-# at any value while that option is off
+# execution details at any value, the two that act through another option
+# at any value while that option is off, and the reputation layer's two
+# knobs (any value; they act once robust_agg is on)
 JAX_OPTION_DEFAULTS = {"rounds_scan_xs": True, "donate_state": False, "staleness_decay": 0.5,
                        "reputation_z": 2.0, "reputation_rounds": 8, "dp_seed": 0}
 
@@ -555,8 +556,8 @@ def test_jax_epoch_options_at_their_defaults_build_an_epoch(option):
 
 @pytest.mark.parametrize("option,value,through", [
     ("staleness_decay", 0.25, {"staleness_bound": 2}),
-    ("reputation_z", 3.0, {"robust_agg": "trimmed_mean"}),
-    ("reputation_rounds", 2, {"robust_agg": "median"}),
+    ("staleness_decay", 0.75, {"staleness_bound": 1}),
+    ("dp_seed", 3, {"dp_clip": 0.5}),
     ("dp_seed", 7, {"dp_clip": 1.0}),
     ("dp_seed", 7, {"dp_noise_multiplier": 1.0}),
 ])
@@ -575,7 +576,7 @@ def test_options_acting_through_an_unported_option_raise_with_its_item(option, v
             tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **{k: v})
 
 
-@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"robust_agg": "norm_clip"},
+@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"secure_agg": "mask-nopads"},
                                 {"secure_agg": "mask"}])
 def test_unported_dsgd_options_raise(kw):
     with pytest.raises(NotImplementedError):
@@ -583,8 +584,8 @@ def test_unported_dsgd_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw,item", [({"wire_quant": "int8"}, "A11 (WireCodec)"),
-                                     ({"robust_agg": "norm_clip"}, "A10 (robust_agg)"),
-                                     ({"secure_agg": "mask"}, "A10 (secure_agg)")])
+                                     ({"secure_agg": "mask-nopads"}, "A10 (c) (secure_agg)"),
+                                     ({"secure_agg": "mask"}, "A10 (c) (secure_agg)")])
 def test_unported_dsgd_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
         make_dsgd(**kw)
