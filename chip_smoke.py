@@ -220,7 +220,28 @@ result line:
    (launches, ``logs.json``'s anomaly keys, the best checkpoint back bit for
    bit with its reputation fields); ``runner.cli.main`` with ``--faults
    @file --attacks '<json>' --robust-agg coordinate_median``;
-18. one JSON line of per-kernel numbers, then the result line.
+18. elastic and durable rounds at the flagship (phase 6's 32 sites of batch
+   16, per-direction arm, f32): buffered-async epochs (``staleness_bound``
+   2, decay 0.5) under dSGD, rankDAD and powerSGD with a ``FaultPlan`` of
+   two ``delay_at`` stragglers of 2 rounds and a drop, and overlapped
+   epochs under dSGD and rankDAD, each through the kernels against the
+   plain versions at phase 8's tolerances (the first aggregate within
+   ``AGG_TOL``, rankDAD's first Ω by its Gram, the losses, the buffers'
+   ages and weights equal; overlap: the first round's NaN, the stash
+   carried across the epoch boundary), K1 and K2 twice a round on the
+   cluster route and K7 once a rank class and round staged; an
+   all-arrivals async epoch equal to the bulk-sync epoch bit for bit, and
+   each mode's warm epoch against bulk-sync; a ``kill_at_round`` fit on
+   phase 11's tree (``Preempted``, exit code 75, after the checkpoint;
+   ``resume=True`` bit-equal to the uninterrupted fit; the command line
+   exits 75, then 0 with ``--resume``); ``FedDaemon`` over an ICA tree of
+   6 sites at full width, capacity 8, buffered-async, a leave after epoch 1
+   and the rejoin after epoch 2, 4 epochs: the same K1/K2 launches every
+   epoch, no kernel library built or loaded after the first, a daemon
+   resumed after epoch 2 bit-equal to the uninterrupted one, every
+   ``publish.json`` seen by the ``CheckpointWatcher`` with the checkpoint's
+   ``params_digest``;
+19. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -1943,12 +1964,12 @@ FIT_REMOTE_KEYS = {"agg_engine", "test_metrics", "best_val_epoch", "cumulative_t
 FIT_CSV_HEADER = "fold,accuracy,f1,precision,recall,auc"
 
 
-def fit_tree(root: str) -> str:
+def fit_tree(root: str, sites: int = FIT_SITES) -> str:
     """The demo tree of the fit phase, its inputspec widened to the
     default ``ICAArgs`` model (encoder 1000 -> 256, BiLSTM 2 x 174)."""
     from dinunet_implementations_tpu_torch.data import make_ica_demo_tree
 
-    make_ica_demo_tree(root, n_sites=FIT_SITES, subjects=FIT_SUBJECTS, comps=100, temporal=980,
+    make_ica_demo_tree(root, n_sites=sites, subjects=FIT_SUBJECTS, comps=100, temporal=980,
                        window=10)
     spec_path = os.path.join(root, "inputspec.json")
     with open(spec_path) as fh:
@@ -4020,6 +4041,373 @@ def hostile_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict
             "seconds": seconds}
 
 
+# -- phase 18: elastic and durable rounds ---------------------------------------
+
+ELASTIC_BOUND, ELASTIC_DECAY = 2, 0.5
+ELASTIC_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+ELASTIC_OVERLAP_ENGINES = ("dSGD", "rankDAD")
+# the kill fit: phase 11's tree (2 rounds an epoch), 3 epochs of dSGD, the
+# kill crossed in epoch 2; the command line's: 2 epochs, crossed in epoch 1
+ELASTIC_KILL_ROUND, ELASTIC_CLI_KILL_ROUND = 3, 1
+# the daemon: an ICA tree of 6 sites at the flagship width over 8 slots,
+# buffered-async, a leave after epoch 1 and the rejoin after epoch 2
+DAEMON_SITES, DAEMON_CAPACITY, DAEMON_EPOCHS = 6, 8, 4
+
+
+def elastic_plan():
+    """The phase's ``FaultPlan`` over the 32 training sites: two stragglers
+    of 2 rounds (site 3 from round 0, site 8 from round 3, across the epoch
+    boundary) and a drop of site 20 in round 5."""
+    from dinunet_implementations_tpu_torch.robustness import FaultPlan
+
+    return FaultPlan(delay_at=((3, 0, 2), (8, 3, 2)), drop=((20, 5, 5),))
+
+
+def elastic_setup(torch, use_kernel: bool, engine: str, **modes):
+    """Phase 6's configuration (32 sites of batch 16, default ``ICAArgs``,
+    dropout 0) under ``engine``, its epoch with ``modes``
+    (``staleness_bound``/``staleness_decay`` or ``overlap_rounds``) and its
+    first state with the buffers or the stash."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        init_train_state,
+        make_train_epoch_fn,
+    )
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine)
+    task, eng, opt = build_training(cfg, use_kernel=use_kernel)
+    task.model.dropout_rate = 0.0
+    epoch = make_train_epoch_fn(task, eng, opt, local_iterations=cfg.local_iterations,
+                                quarantine_rounds=cfg.quarantine_rounds, **modes)
+    return cfg, epoch, init_train_state(
+        task, eng, opt, rng=0, num_sites=cfg.num_sites,
+        staleness_bound=modes.get("staleness_bound", 0),
+        overlap_rounds=modes.get("overlap_rounds", False))
+
+
+def elastic_run(torch, np, epoch, state, inv_x, inv_y, idx, plan, chunks=None):
+    """The epochs of ``idx`` from ``state``, each on its window of the global
+    round counter under ``plan`` (every site live when None), in calls of
+    ``chunks`` rounds (a whole epoch a call when None): the state, the
+    losses and each call's ms."""
+    from dinunet_implementations_tpu_torch.robustness import fault_window
+
+    out, ms, losses, round0 = state, [], [], 0
+    for q in idx:
+        step = chunks or q.shape[1]
+        for c in range(0, q.shape[1], step):
+            part = q[:, c:c + step]
+            live = (None if plan is None
+                    else fault_window(plan, TRAIN_SITES, round0, part.shape[1])[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, lo = epoch(out, inv_x, inv_y, part, live)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(lo)
+            round0 += part.shape[1]
+    return out, torch.cat(losses), ms
+
+
+def elastic_want(torch, launches: dict, engine: str, rounds: int) -> dict:
+    """One K1 and one K2 a direction and round on the cluster route; one K7
+    a rank class and round on the staged route under rankDAD."""
+    n = 2 * rounds
+    want = dict.fromkeys(launches, 0) | {
+        "lstm_fwd": n, "lstm_proj": n, "k1_cluster_route": n, "lstm_bwd": n,
+        "k2_cluster_route": n}
+    if engine == "rankDAD":
+        want["poweriter"] = want["k7_staged_route"] = len(k7_leaves(torch)) * rounds
+    return want
+
+
+def elastic_pair(torch, np, lc, pc, bc, smi: str, engine: str, mode: str, inv_x, inv_y, idx,
+                 plan) -> dict:
+    """One engine under one mode (``"async"``: ``staleness_bound`` 2 and
+    decay 0.5 under ``plan``; ``"overlap"``: ``overlap_rounds``) through the
+    kernels (timed, launches counted) and through the plain versions, held
+    to each other at phase 8's tolerances (module docstring, phase 18)."""
+    modes = (dict(staleness_bound=ELASTIC_BOUND, staleness_decay=ELASTIC_DECAY)
+             if mode == "async" else dict(overlap_rounds=True))
+    cfg, epoch_k, start_k = elastic_setup(torch, True, engine, **modes)
+    _, epoch_p, start_p = elastic_setup(torch, False, engine, **modes)
+    if not same_tree(start_k.params, start_p.params):
+        fail(f"elastic {engine} {mode}: the kernel and plain paths start from different weights")
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    st_k, lk, ms = elastic_run(torch, np, epoch_k, start_k, inv_x, inv_y, idx, plan)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    st_p, lp, _ = elastic_run(torch, np, epoch_p, start_p, inv_x, inv_y, idx, plan)
+    rounds = sum(q.shape[1] for q in idx)
+    # the first aggregate: after the first round (async: its buffers), or
+    # after the second (overlap: round 0's stash applies at round 1)
+    first = 1 if mode == "async" else 2
+    one = [elastic_run(torch, np, ep, s0, inv_x, inv_y, [idx[0][:, :first]], plan)[0]
+           for ep, s0 in ((epoch_k, start_k), (epoch_p, start_p))]
+    agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
+    dl = (lk - lp).abs()
+    agg_tol = lambda w: AGG_TOL["atol"] + AGG_TOL["rtol"] * w.abs()  # noqa: E731
+    checks = {"first_aggregate": leaf_check(agg(one[0]), agg(one[1]), agg_tol)}
+    if mode == "async":
+        checks["first_loss"] = (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL)
+        checks["loss"] = (dl.max().item(), bool(lk.isfinite().all())
+                          and dl.max().item() <= LOSS_TOL)
+        for key in ("age", "weight"):
+            same = torch.equal(st_k.buffers[key], st_p.buffers[key])
+            checks[f"buffers_{key}"] = (0.0 if same else 1.0, same)
+        stale = int((st_k.buffers["age"] > ELASTIC_BOUND).sum())
+    else:
+        # the first round applies nothing (NaN on both); the stash carries
+        # across the epoch boundary (the second epoch's first loss is finite)
+        nan0 = bool(lk[0].isnan()) and bool(lp[0].isnan())
+        checks["first_round_nan"] = (0.0 if nan0 else 1.0, nan0)
+        e2 = idx[0].shape[1]
+        carried = bool(lk[e2].isfinite()) and float(st_k.overlap["valid"].min()) == 1.0
+        checks["stash_carried"] = (0.0 if carried else 1.0, carried)
+        checks["first_loss"] = (dl[1].item(), dl[1].item() <= FIRST_LOSS_TOL)
+        checks["loss"] = (dl[1:].max().item(), bool(lk[1:].isfinite().all())
+                          and dl[1:].max().item() <= LOSS_TOL)
+        stale = None
+    if engine == "rankDAD":
+        omega = lambda st: {k: v for k, v in st.engine_state["omega"].items()  # noqa: E731
+                            if v is not None}
+        om = a9_omega_errs(omega(one[0]), omega(one[1]))
+        checks["first_omega_gram"] = (om["gram"], om["gram"] <= OMEGA_FIRST_TOL)
+    want = elastic_want(torch, launches, engine, rounds)
+    rec = {"engine": engine, "mode": mode, "sites": TRAIN_SITES, "batch": TRAIN_BATCH,
+           "rounds": rounds, "cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1],
+           "warm_ms_per_round": ms[1] / idx[1].shape[1], "launches": launches,
+           "max_abs_err_vs_plain": {k: v for k, (v, _) in checks.items()},
+           "slots_past_the_bound": stale, "losses": lk.tolist(), "plain_losses": lp.tolist()}
+    print(f"elastic {engine} {mode}: warm epoch {ms[1]:.3f} ms ({idx[1].shape[1]} rounds, cold "
+          f"{ms[0]:.3f}) on {smi}:", json.dumps(rec))
+    if launches != want:
+        fail(f"elastic {engine} {mode} launches {launches}, want {want}")
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        fail(f"elastic {engine} {mode} differs from the plain path in {bad}: {checks}")
+    return rec
+
+
+def elastic_all_arrivals(torch, np, engine: str, inv_x, inv_y, idx) -> dict:
+    """Every site arriving every round: the async epoch through the kernels
+    equals the bulk-sync epoch through the kernels, bit for bit; the two
+    warm epochs' ms (the bulk-sync one is phase 6's round)."""
+    runs = []
+    for modes in ({}, dict(staleness_bound=ELASTIC_BOUND, staleness_decay=ELASTIC_DECAY)):
+        _, epoch, start = elastic_setup(torch, True, engine, **modes)
+        runs.append(elastic_run(torch, np, epoch, start, inv_x, inv_y, idx, None))
+    (sync, ls, ms_s), (asy, la, ms_a) = runs
+    same = torch.equal(ls, la) and all(
+        same_tree(getattr(sync, part), getattr(asy, part))
+        for part in ("params", "batch_stats", "opt_state", "engine_state", "health"))
+    if not same:
+        fail(f"elastic {engine}: an all-arrivals async run differs from the bulk-sync run")
+    return {"engine": engine, "bit_equal": same, "sync_warm_epoch_ms": ms_s[1],
+            "async_warm_epoch_ms": ms_a[1]}
+
+
+def elastic_trees_equal(a, b) -> bool:
+    return all(same_tree(getattr(a, p), getattr(b, p))
+               for p in ("params", "batch_stats", "opt_state", "engine_state", "health"))
+
+
+def elastic_kill(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """A ``kill_at_round`` fit on phase 11's tree: ``Preempted`` with exit
+    code 75 after epoch 2's checkpoint; ``resume=True`` ends bit-equal to
+    the uninterrupted fit; the command line exits 75, then 0 with
+    ``--resume``. Launches: the killed and the resumed runs together make
+    the uninterrupted run's."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.robustness import FaultPlan, Preempted
+    from dinunet_implementations_tpu_torch.runner import FedRunner, cli
+    from dinunet_implementations_tpu_torch.trainer import load_meta
+
+    def runner(out, plan):
+        return FedRunner(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0), tree, out,
+                         fault_plan=plan, epochs=FIT_EPOCHS, agg_engine="dSGD")
+
+    plan = FaultPlan(kill_at_round=ELASTIC_KILL_ROUND)
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    whole = runner(os.path.join(root, "whole"), None).run(folds=[0], verbose=False)[0]
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_launches = read_counters(lc, pc, bc)
+    out = os.path.join(root, "killed")
+    zero_counters(lc, pc, bc)
+    try:
+        runner(out, plan).run(folds=[0], verbose=False)
+        fail("the kill_at_round fit did not raise Preempted")
+    except Preempted as p:
+        killed = {"exit_code": p.exit_code, "epoch": p.epoch, "reason": p.reason}
+    meta = load_meta(os.path.join(out, "remote", "simulatorRun", NNComputation.TASK_ICA,
+                                  "fold_0", "checkpoint_latest.msgpack"))
+    t0 = time.perf_counter()
+    res = runner(out, plan).run(folds=[0], verbose=False, resume=True)[0]
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # the killed and the resumed runs
+    if killed["exit_code"] != 75 or killed["epoch"] != 2 or meta.get("epoch") != 2:
+        fail(f"the kill fit: {killed}, checkpointed epoch {meta.get('epoch')}")
+    if launches != whole_launches or launches["lstm_fwd"] == 0:
+        fail(f"the kill fit's launches {launches}, the uninterrupted fit's {whole_launches}")
+    if not (elastic_trees_equal(res["state"], whole["state"])
+            and res["epoch_losses"] == whole["epoch_losses"]
+            and res["test_metrics"] == whole["test_metrics"]):
+        fail("the resumed kill fit differs from the uninterrupted fit")
+    args = ["--data-path", tree, "--task", NNComputation.TASK_ICA, "--folds", "0", "--epochs",
+            "2", "--out-dir", os.path.join(root, "kill_cli"), "--quiet", "--faults",
+            json.dumps({"kill_at_round": ELASTIC_CLI_KILL_ROUND})]
+    with contextlib.redirect_stdout(io.StringIO()) as printed, \
+            contextlib.redirect_stderr(io.StringIO()) as errors:
+        rc_kill = cli.main(args)
+        rc_resume = cli.main(args + ["--resume"])
+    line = json.loads(errors.getvalue().strip().splitlines()[-1])
+    lines = printed.getvalue().splitlines()
+    if rc_kill != 75 or rc_resume != 0 or not line.get("preempted") or len(lines) != 1:
+        fail(f"the kill CLI exited {rc_kill} then {rc_resume}, printed {lines}, {line}")
+    rec = {"killed": killed, "whole_seconds": whole_s, "resume_seconds": resume_s,
+           "launches": launches, "cli": {"exit_codes": [rc_kill, rc_resume],
+                                         "preempted_line": line,
+                                         "fold_line": json.loads(lines[0])}}
+    print(f"elastic kill_at_round on {smi}:", json.dumps(rec))
+    return rec
+
+
+def daemon_tree(root: str) -> str:
+    """An ICA tree of ``DAEMON_SITES`` sites at the flagship width (phase
+    11's, fewer sites)."""
+    return fit_tree(root, DAEMON_SITES)
+
+
+def elastic_daemon(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """``FedDaemon`` at full model width (module docstring, phase 18): the
+    launches of each epoch, no kernel library built or loaded after the
+    first, a daemon resumed after epoch 2 bit-equal to the uninterrupted
+    one, and every ``publish.json`` seen by the port's
+    ``CheckpointWatcher`` with the digest of the checkpoint loaded back."""
+    from dinunet_implementations_tpu_torch.core.config import (
+        NNComputation,
+        TrainConfig,
+        load_inputspec,
+    )
+    from dinunet_implementations_tpu_torch.runner import FedDaemon
+    from dinunet_implementations_tpu_torch.serving import CheckpointWatcher
+    from dinunet_implementations_tpu_torch.trainer import load_checkpoint, params_digest
+
+    tree = daemon_tree(os.path.join(root, "daemon_tree"))
+    spec = load_inputspec(os.path.join(tree, "inputspec.json"))
+    rejoin = {"event": "join", "site": "local1",
+              "data_dir": os.path.join(tree, "input", "local1", "simulatorRun"),
+              "config": spec[1 % len(spec)], "after_epoch": 2}
+    churn = [{"event": "leave", "site": "local1", "after_epoch": 1}, rejoin]
+
+    def daemon(out, resume=False):
+        d = FedDaemon(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0,
+                                  batch_size=TRAIN_BATCH, staleness_bound=ELASTIC_BOUND),
+                      capacity=DAEMON_CAPACITY, data_path=tree, out_dir=out,
+                      spool_dir=os.path.join(out, "spool"), poll_s=0.01, resume=resume,
+                      verbose=False)
+        return d
+
+    def spool(d, events):
+        for i, ev in enumerate(events):
+            with open(os.path.join(d.spool_dir, f"ev{i:03d}.json"), "w") as fh:
+                json.dump(ev, fh)
+
+    a = daemon(os.path.join(root, "daemon_a"))
+    watcher = CheckpointWatcher(os.path.join(os.path.dirname(a.ckpt_path), "publish.json"))
+    seen, per_epoch, epoch_ms = [], [], []
+    watcher.poll()
+    train, checkpoint = a.train_epoch, a.checkpoint
+
+    def counted():
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)  # each epoch of the main path starts here
+        t0 = time.perf_counter()
+        loss = train()
+        torch.cuda.synchronize()
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+        per_epoch.append(read_counters(lc, pc, bc))
+        return loss
+
+    def published():
+        checkpoint()
+        ann = watcher.poll()
+        if ann is not None:
+            back = load_checkpoint(ann["path"], a.state)
+            seen.append({"epoch": ann["epoch"], "digest_ok": ann["digest"] == params_digest(
+                back.params, back.batch_stats)})
+
+    a.train_epoch, a.checkpoint = counted, published
+    spool(a, churn)
+    summary = a.serve(max_epochs=DAEMON_EPOCHS)
+    b1 = daemon(os.path.join(root, "daemon_b"))
+    spool(b1, churn)
+    b1.serve(max_epochs=2)
+    b2 = daemon(os.path.join(root, "daemon_b"), resume=True)
+    b2.serve(max_epochs=DAEMON_EPOCHS - 2)
+    resumed_equal = (same_tree(a.state.params, b2.state.params)
+                     and same_tree(a.state.buffers, b2.state.buffers))
+    rounds = a._steps // a.cfg.local_iterations
+    want = elastic_want(torch, per_epoch[0], "dSGD", rounds)
+    rec = {"epochs": a.epochs_run, "rounds_per_epoch": rounds, "epoch_ms": epoch_ms,
+           "held_rounds": a.held_rounds, "launches_per_epoch": per_epoch,
+           "compiles_after_first_epoch": a.compiles_after_first_epoch(),
+           "publishes_seen": seen, "resumed_bit_equal": resumed_equal,
+           "summary": {k: summary[k] for k in ("epochs_run", "held_rounds", "membership")},
+           "generation_local1": a.table.generation_of("local1")}
+    print(f"elastic daemon: {DAEMON_SITES} sites over {DAEMON_CAPACITY} slots, epoch ms "
+          f"{[round(m, 3) for m in epoch_ms]}, held rounds {a.held_rounds}, on {smi}:",
+          json.dumps(rec))
+    if a.epochs_run != DAEMON_EPOCHS or any(p != want for p in per_epoch):
+        fail(f"the daemon's epochs {a.epochs_run}, launches {per_epoch}, want {want} each")
+    if rec["compiles_after_first_epoch"] != {"kernel_builds": 0, "kernel_loads": 0}:
+        fail(f"the daemon built or loaded kernels after its first epoch: {rec}")
+    if not resumed_equal or rec["generation_local1"] != 2:
+        fail("the resumed daemon differs from the uninterrupted one")
+    if len(seen) < DAEMON_EPOCHS or not all(s["digest_ok"] for s in seen):
+        fail(f"the daemon's publishes: {seen}")
+    return rec
+
+
+def elastic_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str,
+                  bulk_sync_round_ms: float | None = None) -> dict:
+    """Phase 18 of the module docstring: buffered-async and overlapped
+    epochs through the kernels against the plain versions, the
+    all-arrivals async epoch against bulk-sync, a ``kill_at_round`` fit and
+    the command line on ``tree`` (phase 11's), and the daemon."""
+    t_phase = time.perf_counter()
+    plan = elastic_plan()
+    cfg = elastic_setup(torch, True, "dSGD")[0]
+    inv, plans = training_data(np, cfg)
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = [torch.from_numpy(q).cuda() for q in plans]
+    pairs = [elastic_pair(torch, np, lc, pc, bc, smi, e, "async", inv_x, inv_y, idx, plan)
+             for e in ELASTIC_ENGINES]
+    pairs += [elastic_pair(torch, np, lc, pc, bc, smi, e, "overlap", inv_x, inv_y, idx, plan)
+              for e in ELASTIC_OVERLAP_ENGINES]
+    arrivals = [elastic_all_arrivals(torch, np, e, inv_x, inv_y, idx) for e in ELASTIC_ENGINES]
+    sync = {a["engine"]: a["sync_warm_epoch_ms"] for a in arrivals}
+    vs = {f"{p['engine']}_{p['mode']}": {"warm_epoch_ms": p["warm_epoch_ms"],
+                                         "bulk_sync_warm_epoch_ms": sync[p["engine"]]}
+          for p in pairs}
+    print(f"elastic warm epochs against bulk-sync (phase 6's round: {bulk_sync_round_ms} ms) on "
+          f"{smi}:", json.dumps({"pairs": vs, "all_arrivals": arrivals}))
+    kill = elastic_kill(torch, np, lc, pc, bc, smi, tree, root)
+    daemon = elastic_daemon(torch, np, lc, pc, bc, smi, root)
+    seconds = time.perf_counter() - t_phase
+    print(f"elastic phase {seconds:.1f} s on {smi}")
+    return {"pairs": pairs, "all_arrivals": arrivals, "kill": kill, "daemon": daemon,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -4114,6 +4502,12 @@ def main() -> int:
               "norm_clip, trimmed_mean and coordinate_median with a fault and an attack plan, "
               "against plain; the cost of the defence; a fit and the command line")
         hostile = hostile_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
+
+        print("== 18. elastic and durable rounds at full width: buffered-async epochs under "
+              "dSGD / rankDAD / powerSGD and overlapped epochs under dSGD / rankDAD against "
+              "plain; a kill_at_round fit and its resume; the daemon")
+        elastic = elastic_phase(torch, np, lc, pc, bc, smi, fit["tree"], root,
+                                train["ms_per_round"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4155,6 +4549,17 @@ def main() -> int:
         if p["engine"] == "rankDAD":
             k7_by_path[f"hostile_rankDAD_{p['robust_agg']}"] = p["launches"]["poweriter"]
     k7_by_path["hostile_fit_rankDAD"] = hostile["fit"]["launches"]["poweriter"]
+    for p in elastic["pairs"]:
+        name = f"elastic_{p['engine']}_{p['mode']}"
+        by_path[name] = p["launches"]["lstm_fwd"]
+        bwd_by_path[name] = p["launches"]["lstm_bwd"]
+        if p["engine"] == "rankDAD":
+            k7_by_path[name] = p["launches"]["poweriter"]
+    by_path["elastic_kill_fit"] = elastic["kill"]["launches"]["lstm_fwd"]
+    bwd_by_path["elastic_kill_fit"] = elastic["kill"]["launches"]["lstm_bwd"]
+    by_path["elastic_daemon"] = sum(e["lstm_fwd"] for e in elastic["daemon"]["launches_per_epoch"])
+    bwd_by_path["elastic_daemon"] = sum(e["lstm_bwd"]
+                                        for e in elastic["daemon"]["launches_per_epoch"])
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

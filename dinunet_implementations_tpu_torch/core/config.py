@@ -239,8 +239,11 @@ class TrainConfig:
     profile_dir: str = ""
     telemetry: str = "off"
     xprof_dir: str = ""
-    # not ported, kept "off" so that make_train_epoch_fn and the engines refuse
-    # them (ROADMAP A10 (b), A11)
+    # the buffered-async rounds (staleness_bound > 0: each site's last update
+    # is aggregated at weight decay^age up to the bound) and the overlapped
+    # rounds (each round's update applied one round late), which exclude
+    # each other; wire_quant is not ported, kept "none" so that the engines
+    # refuse it (ROADMAP A11)
     staleness_bound: int = 0
     staleness_decay: float = 0.5
     wire_quant: str = "none"

@@ -1,4 +1,10 @@
-from .base import Engine, mask_dead_site
+from .base import (
+    ASYNC_NEVER_AGE,
+    Engine,
+    default_async_buffers,
+    mask_dead_site,
+    staleness_weights,
+)
 from .dsgd import make_dsgd
 from .powersgd import make_powersgd
 from .rankdad import make_rankdad
@@ -34,5 +40,5 @@ def build_engine(cfg, use_kernel: bool = True) -> Engine:
     return make_dsgd(cfg.precision_bits, **wire)
 
 
-__all__ = ["Engine", "build_engine", "make_dsgd", "make_powersgd", "make_rankdad",
-           "mask_dead_site"]
+__all__ = ["ASYNC_NEVER_AGE", "Engine", "build_engine", "default_async_buffers", "make_dsgd",
+           "make_powersgd", "make_rankdad", "mask_dead_site", "staleness_weights"]

@@ -42,6 +42,38 @@ def mask_dead_site(grads: dict, weight, live):
     return grads, weight * alive.float()
 
 
+#: ``age`` of a slot whose buffer was never deposited into (a fresh join, a
+#: fresh state): stale past any bound, and its deposited weight is 0 too.
+#: Far below int32 overflow after one increment a round for any fit.
+ASYNC_NEVER_AGE = 1 << 20
+
+
+def default_async_buffers(num_sites: int, params: dict) -> dict:
+    """Fresh per-slot staleness buffers of the buffered-async rounds, with
+    the leading site axis: ``grads`` (the slot's last deposited gradient by
+    ``state_dict`` name, zeros until one arrives), ``weight`` (its example
+    weight at deposit, 0 = never) and ``age`` (rounds since the deposit,
+    :data:`ASYNC_NEVER_AGE` = never), as JAX's ``default_async_buffers``."""
+    dev = next(iter(params.values())).device
+    return {
+        "grads": {k: torch.zeros((num_sites,) + tuple(p.shape), dtype=p.dtype, device=dev)
+                  for k, p in params.items()},
+        "weight": torch.zeros(num_sites, dtype=torch.float32, device=dev),
+        "age": torch.full((num_sites,), ASYNC_NEVER_AGE, dtype=torch.int32, device=dev),
+    }
+
+
+def staleness_weights(age, staleness_bound: int, staleness_decay: float):
+    """Each slot's weight factor: ``decay ** age`` while ``age <=
+    staleness_bound``, 0 past it (an update older than the bound counts as
+    a dead site's). ``age == 0`` gives exactly 1.0, which makes an async
+    round where every site arrives the bulk-sync round bit for bit."""
+    af = age.float()
+    fresh = (age <= staleness_bound).float()
+    return fresh * torch.pow(torch.tensor(staleness_decay, dtype=torch.float32,
+                                          device=age.device), af)
+
+
 _SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
 
 

@@ -15,10 +15,12 @@ a run should see:
   so the site's gradient goes non-finite for real and the epoch's
   finiteness check and quarantine counters catch it;
 - ``delay_at``: stragglers, ``(site, round, delay)`` triples: the site's
-  update for rounds ``[round, round + delay)`` never arrives. Without the
-  buffered-async mode (ROADMAP A10 (b)) that is a drop;
-- ``kill_at_round``: simulated preemption. The port's trainer refuses a
-  plan that sets it (ROADMAP A10 (b), with the SIGTERM guard);
+  update for rounds ``[round, round + delay)`` never arrives. The
+  buffered-async rounds (``TrainConfig.staleness_bound > 0``) then serve
+  the site's last deposit, decayed; the bulk-sync rounds see a drop;
+- ``kill_at_round``: simulated preemption. The trainer raises
+  ``robustness.Preempted`` (exit code 75) after the checkpoint of the
+  epoch that crosses the round, and a resumed fit starts past it;
 - ``slice_drop_at``, ``slice_delay_at``, ``kill_slice_at``: faults of the
   slice tier of a multi-slice topology, rendered by
   :meth:`FaultPlan.slice_liveness`. One card has no slice tier, so the

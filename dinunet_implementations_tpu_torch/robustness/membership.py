@@ -5,10 +5,13 @@ port's own copy of the JAX package's ``robustness/membership.py``
 The serving fleet (serving/fleet.py) keeps its replica slots in one: each
 (re)start of a replica joins at a bumped GENERATION, the record that
 incarnation N+1 started with fresh state, and the table's epoch bumps on
-every transition. In the JAX package the same table maps training sites
-onto the padded virtual-site axis of the elastic-rounds daemon; that
-daemon and the slot-state helpers it uses (resetting and moving per-site
-engine, health and privacy rows) are ROADMAP A10 (b).
+every transition. The elastic-rounds daemon (runner/fed_runner.py
+``FedDaemon``) maps training sites onto its fixed slot axis with the same
+table, and resets and moves each slot's per-site state rows (engine state,
+health, staleness buffers, the overlap stash) with
+:func:`reset_slot_state` and :func:`move_slot_state`;
+:func:`membership_rollup` is its summary. The privacy rows (a personalized
+head) come with the privacy plane, ROADMAP A10 (c).
 
 Key invariants:
 
@@ -243,3 +246,92 @@ class MembershipTable:
             known=tuple((k, int(g)) for k, g in spec.get("known", [])),
             epoch=int(spec.get("epoch", 0)),
         )
+
+
+# -- slot-state surgery: on the host, between epochs ---------------------------
+
+
+def _set_row(tree, slot: int, row):
+    """``tree``'s row ``slot`` set to ``row`` (a same-shaped tree, or a
+    scalar for every leaf), leaf by leaf; None leaves stay None. Returns
+    new tensors: the epoch may still hold the old ones."""
+    if isinstance(tree, dict):
+        return {k: _set_row(v, slot, row[k] if isinstance(row, dict) else row)
+                for k, v in tree.items()}
+    if tree is None:
+        return None
+    out = tree.clone()
+    out[slot] = row
+    return out
+
+
+def reset_slot_state(state, slot: int, engine=None):
+    """Fresh per-site rows for ``slot``, JAX's ``reset_slot_state``: the
+    engine state re-initialized by ``engine.init`` on the current params
+    (``engine=None`` keeps the rows, for an engine with empty state), the
+    health counters zeroed, the staleness buffer emptied (weight 0, the
+    never-deposited age) and the overlap stash's row cleared (``valid``
+    0). Called at every slot assignment, so a rejoining site starts its new
+    generation clean. Returns a new state; ``state`` is left as it was."""
+    import dataclasses as dc
+
+    from ..engines.base import ASYNC_NEVER_AGE
+
+    if engine is not None and state.engine_state:
+        state = dc.replace(state, engine_state=_set_row(state.engine_state, slot,
+                                                        engine.init(state.params)))
+    if state.health is not None:
+        state = dc.replace(state, health=_set_row(state.health, slot, 0))
+    if state.buffers is not None:
+        bufs = state.buffers
+        state = dc.replace(state, buffers={"grads": _set_row(bufs["grads"], slot, 0.0),
+                                           "weight": _set_row(bufs["weight"], slot, 0.0),
+                                           "age": _set_row(bufs["age"], slot, ASYNC_NEVER_AGE)})
+    if getattr(state, "overlap", None) is not None:
+        state = dc.replace(state, overlap=_set_row(state.overlap, slot, 0.0))
+    return state
+
+
+def move_slot_state(state, src: int, dst: int, engine=None):
+    """Copy every per-site row of slot ``src`` to ``dst`` (a rebalance: the
+    same incarnation keeps its warm engine state, health, buffer and stash
+    at its new slot), then reset ``src``, as JAX's ``move_slot_state``."""
+    import dataclasses as dc
+
+    def mv(tree):
+        if isinstance(tree, dict):
+            return {k: mv(v) for k, v in tree.items()}
+        if tree is None:
+            return None
+        out = tree.clone()
+        out[dst] = tree[src]
+        return out
+
+    for key in ("engine_state", "health", "buffers", "overlap"):
+        if getattr(state, key, None) is not None:
+            state = dc.replace(state, **{key: mv(getattr(state, key))})
+    return reset_slot_state(state, src, engine=engine)
+
+
+def membership_rollup(table: MembershipTable, state=None, held_rounds: int = 0) -> dict:
+    """The daemon's summary, JAX's ``membership_rollup``: slots occupied,
+    the mean staleness of the occupied slots' buffers (None for a
+    bulk-sync run or before any deposit), and the rounds the quorum held
+    back."""
+    from ..engines.base import ASYNC_NEVER_AGE
+
+    mean_staleness = None
+    buffers = getattr(state, "buffers", None) if state is not None else None
+    if buffers is not None:
+        ages = buffers["age"].cpu().numpy()
+        occ = table.occupancy() > 0
+        deposited = occ & (ages < ASYNC_NEVER_AGE)
+        if deposited.any():
+            mean_staleness = float(ages[deposited].mean())
+    return {
+        "slots_occupied": int(table.occupied),
+        "capacity": int(table.capacity),
+        "membership_epoch": int(table.epoch),
+        "mean_staleness": mean_staleness,
+        "held_rounds": int(held_rounds),
+    }

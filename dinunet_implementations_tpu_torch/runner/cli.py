@@ -19,10 +19,23 @@
         --faults @faults.json --attacks '{"sign_flip": [[2, 0, -1]]}' \
         --robust-agg trimmed_mean
 
+    # a simulated preemption: exits 75 after the checkpoint of the epoch
+    # that crosses round 6; --resume continues bit for bit
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --faults '{"kill_at_round": 6}'
+
+    # the elastic daemon over the tree's sites and a spool of join/leave
+    # events, buffered-async; or overlapped rounds in a batch fit
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --serve --serve-capacity 8 --serve-epochs 4 --set staleness_bound=2
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --overlap-rounds
+
 Any ``TrainConfig`` field (or task-args field) can be set with ``--set
 key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
 ``--set pretrain=true --set 'pretrain_args={"epochs": 1}'``). Each fold
-prints one JSON line, as JAX's CLI does. ``--device`` is the port's own:
+prints one JSON line, as JAX's CLI does; ``--serve`` prints the daemon's
+summary, and a preempted fit prints JAX's ``{"preempted": true, ...}``
+line on stderr and exits with its code. ``--device`` is the port's own:
 the card unless ``--device cpu`` is given (the counterpart of JAX's
 ``JAX_PLATFORMS=cpu``).
 
@@ -35,7 +48,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
+
+import numpy as np
 
 from ..core.config import AggEngine, NNComputation, TrainConfig
 
@@ -43,7 +59,6 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_DAEMON = "A10 (b) (FedDaemon, async and overlapped rounds)"
 _PRIVACY = "A10 (c) (DP-SGD, secure aggregation, personalization)"
 _TELEMETRY = "A12 (telemetry, profiles, the compile cache)"
 _SCHEDULER = "A19 (the scheduler and supervisor)"
@@ -53,10 +68,6 @@ _REFUSED = {
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "serve": (False, _DAEMON), "serve_spool": (None, _DAEMON),
-    "serve_capacity": (None, _DAEMON), "serve_quorum": (None, _DAEMON),
-    "serve_epochs": (None, _DAEMON), "serve_poll": (None, _DAEMON),
-    "serve_rows": (None, _DAEMON), "overlap_rounds": (None, _DAEMON),
     "dp_clip": (0.0, _PRIVACY), "dp_noise": (0.0, _PRIVACY),
     "dp_epsilon_budget": (0.0, _PRIVACY), "secure_agg": ("off", _PRIVACY),
     "personalize": (None, _PRIVACY),
@@ -117,7 +128,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--faults", default=None, metavar="JSON|@FILE",
                    help="deterministic fault injection (robustness.FaultPlan): inline JSON or "
                         "@path, e.g. '{\"drop\": [[3, 10, -1]], \"nan_at\": [[5, 1]]}'; "
-                        "kill_at_round is refused (ROADMAP A10 (b))")
+                        "kill_at_round exits 75 after its epoch's checkpoint")
     p.add_argument("--attacks", default=None, metavar="JSON|@FILE",
                    help="byzantine-site attack injection (robustness.AttackPlan): inline JSON "
                         "or @path, e.g. '{\"sign_flip\": [[2, 0, -1]], \"scale\": [[5, 10, "
@@ -128,6 +139,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "norm at the live-weighted median; trimmed_mean / coordinate_median "
                         "reduce each coordinate over the sites. Any but none also runs the "
                         "reputation quarantine")
+    p.add_argument("--serve", action="store_true",
+                   help="daemon mode (elastic rounds): a persistent service over a fixed slot "
+                        "axis; sites join, leave and rejoin through JSON events in the spool "
+                        "(FedDaemon). The tree's local* sites pre-join; with --set "
+                        "staleness_bound=N the rounds are buffered-async")
+    p.add_argument("--serve-spool", default=None, metavar="DIR",
+                   help="the spool directory (default <data-path>/spool): join/leave/shutdown "
+                        "events as *.json files, taken in sorted order")
+    p.add_argument("--serve-capacity", type=int, default=None,
+                   help="slots, fixed for the life of the service (default: the tree's sites)")
+    p.add_argument("--serve-quorum", type=int, default=1,
+                   help="the fewest occupied slots; below it rounds hold (default 1)")
+    p.add_argument("--serve-epochs", type=int, default=None,
+                   help="stop after this many trained epochs (default: until a shutdown "
+                        "event or SIGTERM)")
+    p.add_argument("--serve-poll", type=float, default=0.5,
+                   help="the idle spool poll interval in seconds (default 0.5)")
+    p.add_argument("--serve-rows", type=int, default=None,
+                   help="inventory rows a slot, pinned (default: the first admitted site's)")
+    p.add_argument("--overlap-rounds", action="store_true", default=None,
+                   help="apply each round's update one round late, JAX's overlapped rounds "
+                        "(on one card there is no collective to hide)")
     p.add_argument("--device", default=None,
                    help="where to run: the CUDA card by default, 'cpu' to run on the CPU")
     p.add_argument("--quiet", action="store_true")
@@ -142,10 +175,6 @@ def build_parser() -> argparse.ArgumentParser:
             ("--coordinator", {}), ("--num-processes", dict(type=int)),
             ("--process-id", dict(type=int)),
             ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--serve", dict(action="store_true")), ("--serve-spool", {}),
-            ("--serve-capacity", dict(type=int)), ("--serve-quorum", dict(type=int)),
-            ("--serve-epochs", dict(type=int)), ("--serve-poll", dict(type=float)),
-            ("--serve-rows", dict(type=int)), ("--overlap-rounds", dict(action="store_true", default=None)),
             ("--dp-clip", dict(type=float)), ("--dp-noise", dict(type=float)),
             ("--dp-epsilon-budget", dict(type=float)),
             ("--secure-agg", dict(choices=["off", "mask", "mask-nopads"])),
@@ -177,8 +206,7 @@ def _refuse(args) -> None:
 
 def _plans(args):
     """The ``--faults`` and ``--attacks`` plans, each None when not given;
-    a plan that does not parse, or a ``kill_at_round``, exits naming the
-    flag."""
+    a plan that does not parse exits naming the flag."""
     from ..robustness.attacks import parse_attack_plan
     from ..robustness.faults import parse_fault_plan
 
@@ -189,10 +217,19 @@ def _plans(args):
             plans.append(parse(arg))
         except (ValueError, OSError, TypeError) as e:
             raise SystemExit(f"{flag}: {e}")
-    if plans[0] is not None and plans[0].kill_at_round is not None:
-        raise SystemExit("--faults kill_at_round is not ported: ROADMAP A10 (b) (kill_at_round, "
-                         "PreemptionGuard)")
     return plans
+
+
+def _finite(value):
+    """``value`` with every non-finite float (nested in dicts and lists)
+    as None: strict JSON, as JAX's CLI prints the daemon's summary."""
+    if isinstance(value, float) or isinstance(value, np.floating):
+        return float(value) if math.isfinite(value) else None
+    if isinstance(value, dict):
+        return {k: _finite(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_finite(v) for v in value]
+    return value
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -202,12 +239,26 @@ def main(argv: list[str] | None = None) -> int:
     for key, val in (("task_id", args.task), ("agg_engine", args.engine), ("mode", args.mode),
                      ("epochs", args.epochs), ("batch_size", args.batch_size),
                      ("num_folds", args.num_folds), ("pipeline", args.pipeline),
-                     ("robust_agg", args.robust_agg)):
+                     ("robust_agg", args.robust_agg), ("overlap_rounds", args.overlap_rounds)):
         if val is not None:
             overrides[key] = val
     cfg = TrainConfig().with_overrides(overrides)
     verbose = not args.quiet
     fault_plan, attack_plan = _plans(args)
+
+    if args.serve:
+        if args.site is not None or args.folds is not None:
+            raise SystemExit("--serve is the daemon mode; --site/--folds are batch-mode options")
+        from .fed_runner import FedDaemon, discover_site_dirs
+
+        daemon = FedDaemon(
+            cfg, capacity=args.serve_capacity or len(discover_site_dirs(args.data_path)),
+            spool_dir=args.serve_spool, out_dir=args.out_dir, data_path=args.data_path,
+            quorum=args.serve_quorum, poll_s=args.serve_poll, fault_plan=fault_plan,
+            attack_plan=attack_plan, inventory_rows=args.serve_rows, resume=args.resume,
+            verbose=verbose, device=args.device)
+        print(json.dumps(_finite(daemon.serve(max_epochs=args.serve_epochs)), default=str))
+        return 0
 
     if args.site is not None:
         if args.folds is not None or args.resume:
@@ -228,9 +279,18 @@ def main(argv: list[str] | None = None) -> int:
     else:
         from .fed_runner import FedRunner
 
+        from ..robustness.preemption import Preempted
+
         runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
                            fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
-        results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
+        try:
+            results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
+        except Preempted as p:
+            # a cooperative stop (a signal, or the FaultPlan kill) after the
+            # checkpoint: --resume continues bit for bit from that epoch
+            print(json.dumps({"preempted": True, "reason": p.reason, "epoch": p.epoch,
+                              "resume_with": "--resume"}), file=sys.stderr)
+            return p.exit_code
 
     for k, res in enumerate(results):
         loss, metric = res["test_metrics"][0]

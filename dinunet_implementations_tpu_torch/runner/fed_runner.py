@@ -9,19 +9,32 @@ package's ``runner/fed_runner.py``.
   (``comps/*/site_run.py``), fits one site of the tree alone, a federation
   of one, fold by fold.
 
-``FedDaemon`` of the JAX module is not ported (ROADMAP A10 (b)), and neither
-runner wraps a fold in the JAX package's ``sanitized_fit`` (A12).
+- :class:`FedDaemon`, the long-running service form (elastic rounds): a
+  loop over one fixed ``[capacity]`` slot axis that takes site joins,
+  leaves and rejoins from a spool directory of JSON events
+  (``robustness.MembershipTable``), holds rounds below a quorum,
+  checkpoints with the membership table in the meta and announces each
+  checkpoint in ``publish.json`` for the serving plane's
+  ``CheckpointWatcher``; with ``TrainConfig.staleness_bound > 0`` it
+  aggregates buffered-async, so stragglers fade instead of stalling.
+
+No runner wraps a fold in the JAX package's ``sanitized_fit``, and the
+daemon has no flight recorder, file sink or tracer (ROADMAP A12).
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
 import re
+import time
+
+import numpy as np
 
 from ..core.config import TrainConfig, resolve_site_configs
 from ..core.device import resolve_device
-from ..data.api import build_site_dataset
+from ..data.api import SiteArrays, build_site_dataset
 from ..data.splits import resolve_splits
 from ..trainer.loop import FederatedTrainer
 from .registry import build_model, get_task, task_cache
@@ -171,3 +184,587 @@ class SiteRunner:
                                        [arrs.take(split["validation"])],
                                        [arrs.take(split["test"])], fold=k, verbose=verbose))
         return results
+
+
+#: spool event files are JSON objects with an "event" key:
+#:   {"event": "join", "site": "<id>", "data_dir": "<path>"}
+#:   {"event": "leave", "site": "<id>"}
+#:   {"event": "shutdown"}
+#: plus an optional "after_epoch": N, which holds the event in the spool
+#: until the daemon has trained N epochs (churn on a schedule). Files are
+#: taken in sorted-filename order and removed once applied.
+SPOOL_EVENTS = ("join", "leave", "shutdown")
+
+
+class FedDaemon:
+    """Daemon-mode federated training, the JAX package's ``FedDaemon`` on
+    one device (the card unless the caller asks for ``"cpu"``).
+
+    The slot axis is pinned at ``capacity`` for the life of the service and
+    sites float over it through a ``MembershipTable``. Events arrive as
+    JSON files in ``spool_dir`` (:data:`SPOOL_EVENTS`); a join loads the
+    site's data under a deadline (``robustness.with_retry``), so a
+    half-written directory is rejected instead of wedging the service.
+    Every shape (the ``[capacity, rows, ...]`` inventory, the ``[capacity,
+    steps, B]`` plan, the liveness mask) is pinned at the first admission,
+    so churn builds and loads no kernel library after the first epoch
+    (:meth:`compiles_after_first_epoch`) and launches the same kernels
+    every epoch. Below ``quorum`` occupied slots the service holds.
+    Checkpoints rotate every epoch and every membership change, with the
+    table, each member's data directory and config overrides in the meta,
+    so ``resume=True`` restores the slot map and re-admits the members'
+    data; each rotation drops ``publish.json`` beside the checkpoint.
+
+    The daemon publishes its gauges and counters to ``bus``, a
+    ``telemetry.MetricsBus`` of its own unless one is passed. A mesh is
+    multi-GPU (ROADMAP A11); ``flight`` and ``sink_tags`` are the flight
+    recorder and file sinks (A12); the scheduler's ``set_slice_grant`` and
+    ``reload_checkpoint`` are A19."""
+
+    def __init__(self, cfg: TrainConfig | None = None, capacity: int = 8,
+                 spool_dir: str | None = None, out_dir: str | None = None,
+                 data_path: str | None = None, quorum: int = 1, poll_s: float = 0.5,
+                 mesh="auto", fault_plan=None, attack_plan=None,
+                 admission_deadline_s: float = 10.0, inventory_rows: int | None = None,
+                 steps: int | None = None, resume: bool = False, verbose: bool = True,
+                 bus=None, flight=None, sink_tags: dict | None = None, device=None,
+                 **overrides):
+        from ..robustness.membership import MembershipTable
+        from ..telemetry.bus import MetricsBus
+
+        if mesh not in ("auto", None):
+            raise NotImplementedError("FedDaemon(mesh=...) is not ported: ROADMAP A11 "
+                                      "(multi-GPU); the port runs every slot on one device")
+        for name, value in (("flight", flight), ("sink_tags", sink_tags)):
+            if value is not None:
+                raise NotImplementedError(f"FedDaemon({name}=...) is not ported: ROADMAP A12 "
+                                          "(the flight recorder and file sinks)")
+        cfg = (cfg or TrainConfig()).with_overrides(overrides)
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        if not 1 <= quorum <= capacity:
+            raise ValueError(f"quorum must be in [1, capacity={capacity}], got {quorum}")
+        self.cfg = cfg.replace(num_sites=capacity)
+        self.capacity, self.quorum, self.poll_s = capacity, quorum, poll_s
+        self.fault_plan, self.attack_plan = fault_plan, attack_plan
+        self.admission_deadline_s = admission_deadline_s
+        self.verbose = verbose
+        self.spool_dir = spool_dir or (os.path.join(data_path, "spool") if data_path else "spool")
+        self.out_dir = out_dir or (os.path.join(data_path, "output") if data_path else "output")
+        os.makedirs(self.spool_dir, exist_ok=True)
+        self.bus = bus if bus is not None else MetricsBus()
+        self.device = resolve_device(device)
+        self.num_slices = 1
+        self.trainer = FederatedTrainer(self.cfg, build_model(self.cfg, device=self.device),
+                                        None, out_dir=self.out_dir, fault_plan=fault_plan,
+                                        attack_plan=attack_plan, device=self.device)
+        self.trainer._num_sites = capacity
+        self.table = MembershipTable(capacity)
+        self.state = None  # built at the first admission (it needs the shapes)
+        self.epochs_run = 0
+        self.held_rounds = 0
+        self._stop = False
+        self._preempted = False
+        self._idle = False  # the hold latch of the serve loop and the ingest release
+        self._pending_ckpt_load = False
+        self._data: dict = {}  # site id -> SiteArrays
+        self._dirs: dict = {}  # site id -> data dir, for re-admission on resume
+        self._overrides: dict = {}  # site id -> its flat config overrides
+        self._traces: dict = {}  # site id -> the trace id of its join event
+        # one zero-row placeholder for every free slot: the trainer keys
+        # its resident inventory by the arrays' identities
+        self._empty_site = None
+        self._feat = None  # the feature shape, fixed at the first admission
+        self._rows = inventory_rows  # the pinned inventory height
+        self._steps = steps  # the pinned plan height
+        self._builds0 = None  # kernel libraries built and loaded by the first epoch
+        self.ckpt_path = os.path.join(self.out_dir, "serve", "checkpoint_latest.msgpack")
+        resumed = self._resume() if resume else False
+        if not resumed and data_path:
+            # pre-join the tree's local* sites with their inputspec entries,
+            # so that a tree starts training at once and the spool carries
+            # only the churn
+            from ..core.config import load_inputspec
+
+            spec_path = os.path.join(data_path, "inputspec.json")
+            per_site = load_inputspec(spec_path) if os.path.exists(spec_path) else [{}]
+            for i, d in enumerate(discover_site_dirs(data_path)):
+                self.apply_event({"event": "join", "site": f"local{i}", "data_dir": d,
+                                  "config": per_site[i % len(per_site)]})
+            if self.table.occupied:
+                self._on_membership_change()
+
+    def _log(self, msg: str) -> None:
+        if self.verbose:
+            from ..trainer.logs import log_info
+
+            log_info(msg)
+
+    # -- admission ---------------------------------------------------------
+
+    def _load_site(self, data_dir: str, overrides: dict | None = None):
+        """One joining site's arrays, loaded under the admission deadline
+        (tries and each try bounded), with its own config overrides."""
+        from ..robustness.retry import with_retry
+
+        scfg = self.cfg.with_overrides(overrides or {})
+        spec = get_task(scfg.task_id)
+
+        def load():
+            return build_site_dataset(spec.dataset_cls, spec.handle_cls, task_cache(scfg),
+                                      {"baseDirectory": data_dir}, mode=scfg.mode).as_arrays()
+
+        return with_retry(load, attempts=3, base_delay=0.2,
+                          retry_on=(OSError, ValueError, KeyError, RuntimeError),
+                          deadline_s=self.admission_deadline_s,
+                          timeout_s=self.admission_deadline_s,
+                          describe=f"site admission {data_dir}")()
+
+    def _admit(self, site: str, data_dir: str, overrides: dict | None = None):
+        """A joining site's ``SiteArrays`` after the shape gate, or None
+        (rejected, with the reason logged)."""
+        from ..trainer.logs import log_warning
+
+        try:
+            arrays = self._load_site(data_dir, overrides)
+        except (OSError, ValueError, KeyError, RuntimeError, TimeoutError) as e:
+            log_warning(f"[serve] join rejected for {site!r}: admission failed within "
+                        f"deadline_s={self.admission_deadline_s} ({e})")
+            return None
+        if not len(arrays):
+            log_warning(f"[serve] join rejected for {site!r}: empty dataset")
+            return None
+        feat = arrays.inputs.shape[1:]
+        if self._feat is None:
+            self._feat = feat
+        elif feat != self._feat:
+            log_warning(f"[serve] join rejected for {site!r}: feature shape {feat} != the "
+                        f"service's {self._feat}")
+            return None
+        if self._rows is None:
+            # the inventory height, pinned at the first site's size (headroom
+            # is the operator's inventory_rows)
+            self._rows = max(len(arrays), self.cfg.batch_size)
+        if len(arrays) > self._rows:
+            log_warning(f"[serve] site {site!r} has {len(arrays)} samples; the service's "
+                        f"inventory grid is pinned at {self._rows} rows — truncating (start the "
+                        "daemon with a larger inventory_rows for headroom)")
+            arrays = arrays.take(np.arange(self._rows))
+        if len(arrays) < self.cfg.batch_size:
+            log_warning(f"[serve] site {site!r} has {len(arrays)} samples < batch_size="
+                        f"{self.cfg.batch_size}: with drop_last batching it will yield no "
+                        "batches and contribute nothing")
+        return arrays
+
+    # -- membership --------------------------------------------------------
+
+    def apply_event(self, ev: dict) -> bool:
+        """Apply one spool event; True when membership changed. An invalid
+        event is logged and skipped."""
+        from ..robustness.membership import MembershipError
+        from ..trainer.logs import log_warning
+
+        kind = ev.get("event")
+        if kind == "shutdown":
+            self._stop = True
+            self._log("[serve] shutdown event received")
+            return False
+        trace_id = str(ev.get("trace_id") or "") or None
+        try:
+            if kind == "join":
+                site = str(ev["site"])
+                data_dir = str(ev.get("data_dir", ""))
+                overrides = ev.get("config") or {}
+                arrays = self._admit(site, data_dir, overrides)
+                if arrays is None:
+                    self.bus.counter("serve_spool_events_total", result="rejected")
+                    return False
+                self.table, slot, gen = self.table.join(site)
+                self._data[site], self._dirs[site] = arrays, data_dir
+                self._overrides[site] = overrides
+                if trace_id:
+                    self._traces[site] = trace_id
+                self._ensure_state()
+                self._reset_slot(slot, site=site, generation=gen)
+                self._log(f"[serve] join {site!r} → slot {slot} (generation {gen})")
+                self.bus.counter("serve_spool_events_total", result="applied")
+                self.bus.gauge("serve_member_generation", gen, site=site)
+                self._publish_slice_gauges()
+                return True
+            if kind == "leave":
+                site = str(ev["site"])
+                self.table, slot = self.table.leave(site)
+                for d in (self._data, self._dirs, self._overrides, self._traces):
+                    d.pop(site, None)
+                self._log(f"[serve] leave {site!r} (slot {slot} freed)")
+                self.bus.counter("serve_spool_events_total", result="applied")
+                self.bus.clear_gauge("serve_member_generation", site=site)
+                self._publish_slice_gauges()
+                return True
+        except (MembershipError, KeyError) as e:
+            log_warning(f"[serve] bad membership event {ev!r}: {e}")
+            self.bus.counter("serve_spool_events_total", result="rejected")
+            return False
+        log_warning(f"[serve] unknown spool event {ev!r} — ignored")
+        self.bus.counter("serve_spool_events_total", result="rejected")
+        return False
+
+    def _publish_slice_gauges(self) -> None:
+        for sl, n in enumerate(self.table.slice_occupancy(self.num_slices)):
+            self.bus.gauge("serve_slice_members", n, slice=str(sl))
+
+    def _reset_slot(self, slot: int, site: str = "", generation: int = 0):
+        """Fresh state rows for a newly assigned slot: a rejoining site never
+        resurrects its previous incarnation's engine, health, buffer or
+        stash rows."""
+        from ..robustness.membership import reset_slot_state
+
+        if self.state is None:
+            return
+        if int(self.state.health["quarantined"][slot]):
+            self._log(f"[serve] slot {slot} was quarantined — lifted for {site!r} generation "
+                      f"{generation}")
+        self.state = reset_slot_state(self.state, slot, engine=self.trainer.engine)
+
+    def _ensure_state(self):
+        if self.state is not None or self._feat is None:
+            return
+        self.state = self.trainer.init_state(num_sites=self.capacity)
+        if self._pending_ckpt_load:
+            # a resume with no member: the first join shaped the template
+            from ..trainer.checkpoint import load_checkpoint
+
+            self._pending_ckpt_load = False
+            self.state = load_checkpoint(self.ckpt_path, self.state)
+
+    def _on_membership_change(self):
+        """After a transition: rebalance (one block on one device: no move),
+        refresh the occupancy mask, checkpoint the membership epoch."""
+        from ..robustness.membership import move_slot_state
+
+        self.table, moves = self.table.rebalance(1)
+        for site, src, dst in moves:
+            self._log(f"[serve] rebalance: {site!r} slot {src} → {dst}")
+            if self.state is not None:
+                self.state = move_slot_state(self.state, src, dst, engine=self.trainer.engine)
+        self.trainer.membership_mask = self.table.occupancy()
+        self.checkpoint()
+
+    # -- the spool ---------------------------------------------------------
+
+    def ingest(self) -> bool:
+        """Apply the spool's events in sorted-filename order; an event whose
+        ``after_epoch`` is past the epochs trained stays queued (while held,
+        queued events are released up to the first applied one). True when
+        membership changed."""
+        from ..trainer.logs import log_warning
+
+        changed = False
+        release = self._idle
+        for name in sorted(os.listdir(self.spool_dir)):
+            if not name.endswith(".json"):
+                continue
+            path = os.path.join(self.spool_dir, name)
+            try:
+                with open(path) as fh:
+                    ev = json.load(fh)
+            except (OSError, json.JSONDecodeError) as e:
+                log_warning(f"[serve] unreadable spool file {path}: {e}")
+                try:
+                    os.replace(path, path + ".rejected")
+                except OSError:
+                    pass
+                continue
+            if not isinstance(ev, dict):
+                log_warning(f"[serve] spool file {path} is not an object")
+                os.remove(path)
+                continue
+            try:
+                after = int(ev.get("after_epoch", 0) or 0)
+            except (TypeError, ValueError):
+                log_warning(f"[serve] spool file {path}: bad after_epoch "
+                            f"{ev.get('after_epoch')!r}")
+                try:
+                    os.replace(path, path + ".rejected")
+                except OSError:
+                    pass
+                continue
+            if after > self.epochs_run and not release:
+                continue  # scheduled for later
+            os.remove(path)
+            applied = self.apply_event(ev)
+            changed |= applied
+            if applied:
+                release = False  # the hold may have lifted: strict again
+            if self._stop:
+                break
+        self.bus.gauge("serve_spool_ingest_lag_s", self._spool_lag())
+        return changed
+
+    def _spool_lag(self) -> float:
+        """Seconds since the oldest spool file still pending was written; 0.0
+        with an empty spool."""
+        oldest = None
+        try:
+            for name in os.listdir(self.spool_dir):
+                if not name.endswith(".json"):
+                    continue
+                try:
+                    mtime = os.path.getmtime(os.path.join(self.spool_dir, name))
+                except OSError:
+                    continue
+                oldest = mtime if oldest is None else min(oldest, mtime)
+        except OSError:
+            return 0.0
+        return 0.0 if oldest is None else round(max(time.time() - oldest, 0.0), 3)
+
+    def set_slice_grant(self, grant) -> None:
+        raise NotImplementedError("FedDaemon.set_slice_grant is not ported: ROADMAP A19 "
+                                  "(the fleet scheduler)")
+
+    def reload_checkpoint(self) -> bool:
+        raise NotImplementedError("FedDaemon.reload_checkpoint is not ported: ROADMAP A19 "
+                                  "(the fleet scheduler)")
+
+    # -- training ----------------------------------------------------------
+
+    def trainable(self) -> bool:
+        """Whether :meth:`train_epoch` would train now rather than hold."""
+        if self.table.occupied < self.quorum or self.state is None:
+            return False
+        return any(len(self._data[s]) >= self.cfg.batch_size for s in self.table.members())
+
+    def _slot_sites(self) -> list:
+        """The per-slot site list an epoch trains on: each occupant's arrays
+        at its slot, the shared empty placeholder elsewhere."""
+        if self._empty_site is None:
+            self._empty_site = SiteArrays(np.zeros((0,) + self._feat, np.float32),
+                                          np.zeros((0,), np.int32), np.zeros((0,), np.int32))
+        return [self._data[s] if s is not None else self._empty_site for s in self.table.slots]
+
+    def train_epoch(self):
+        """One epoch over the current membership; the epoch loss, or None
+        when the service held (below quorum, no state yet, no member large
+        enough for a batch), which counts one epoch's rounds into
+        ``held_rounds``."""
+        rounds = max((self._steps or 1) // max(self.cfg.local_iterations, 1), 1)
+        if self.table.occupied < self.quorum or self.state is None:
+            self.held_rounds += rounds
+            self._note_hold(rounds)
+            return None
+        if not any(len(self._data[s]) >= self.cfg.batch_size for s in self.table.members()):
+            self.held_rounds += rounds
+            self._note_hold(rounds)
+            return None
+        if self._steps is None:
+            # pin the plan height at the first contact with data
+            from ..data.batching import epoch_steps
+
+            self._steps = epoch_steps([s for s in self._slot_sites() if len(s)],
+                                      self.cfg.batch_size)
+        self.trainer.fixed_steps = self._steps
+        self.trainer.fixed_inventory_rows = self._rows
+        self.epochs_run += 1
+        t0 = time.perf_counter()
+        self.state, losses = self.trainer.run_epoch(self.state, self._slot_sites(),
+                                                    self.epochs_run,
+                                                    batch_size=self.cfg.batch_size)
+        if self._builds0 is None:
+            from ..ops import _build
+
+            self._builds0 = (_build.BUILDS, _build.LOADS)
+        lived = losses[np.isfinite(losses)]
+        loss = float(lived.mean()) if lived.size else float("nan")
+        self.bus.gauge("serve_epoch", self.epochs_run)
+        self.bus.gauge("serve_train_loss", loss)
+        self.bus.gauge("serve_members", self.table.occupied)
+        self.bus.counter("serve_epochs_total")
+        self.bus.observe("serve_epoch_ms", (time.perf_counter() - t0) * 1e3)
+        self._log(f"[serve] epoch {self.epochs_run}: train_loss={loss:.4f} "
+                  f"({self.table.occupied}/{self.capacity} slots)")
+        return loss
+
+    def _note_hold(self, rounds: int) -> None:
+        self.bus.counter("serve_held_rounds_total", rounds)
+        self.bus.gauge("serve_members", self.table.occupied)
+
+    def compiles_after_first_epoch(self) -> dict:
+        """Kernel libraries built and loaded since the first trained epoch
+        (``ops/_build.py``): 0 across any churn, the port's counterpart of
+        JAX's one epoch compile."""
+        from ..ops import _build
+
+        b0, l0 = self._builds0 or (_build.BUILDS, _build.LOADS)
+        return {"kernel_builds": _build.BUILDS - b0, "kernel_loads": _build.LOADS - l0}
+
+    # -- checkpoints -------------------------------------------------------
+
+    def checkpoint(self):
+        """The rotating checkpoint, with the membership table, the members'
+        data directories and overrides in its meta, then ``publish.json``."""
+        from ..trainer.checkpoint import save_checkpoint
+
+        if self.state is None:
+            return
+        save_checkpoint(self.ckpt_path, self.state, rotate=True, meta={
+            "epoch": self.epochs_run, "held_rounds": self.held_rounds, "steps": self._steps,
+            "rows": self._rows, "membership": self.table.to_json(),
+            "data_dirs": dict(self._dirs), "site_overrides": dict(self._overrides),
+            "traces": dict(self._traces)})
+        self.bus.counter("serve_checkpoints_total")
+        self._announce_publish()
+
+    def _announce_publish(self) -> None:
+        """Drop ``publish.json`` beside the checkpoint, atomically: the path,
+        the epoch, the weights' ``params_digest`` (a watcher skips a load
+        when the weights did not change) and the membership epoch."""
+        from ..trainer.checkpoint import params_digest
+
+        note = {"path": self.ckpt_path, "epoch": self.epochs_run,
+                "digest": params_digest(self.state.params, self.state.batch_stats),
+                "membership_epoch": self.table.epoch}
+        tmp = self.ckpt_path + ".publish.tmp"
+        with open(tmp, "w") as fh:
+            json.dump(note, fh)
+        os.replace(tmp, os.path.join(os.path.dirname(self.ckpt_path), "publish.json"))
+
+    def _resume(self) -> bool:
+        """Restore the table, re-admit the members from their recorded
+        directories and restore the state; False when there is no
+        checkpoint (the caller then starts fresh)."""
+        from ..robustness.membership import MembershipTable
+        from ..trainer.checkpoint import load_checkpoint, load_meta
+
+        if not (os.path.exists(self.ckpt_path) or os.path.exists(self.ckpt_path + ".prev")):
+            self._log("[serve] resume requested but no checkpoint — starting fresh")
+            return False
+        meta = load_meta(self.ckpt_path)
+        self.table = MembershipTable.from_json(meta["membership"])
+        if self.table.capacity != self.capacity:
+            raise ValueError(f"checkpointed capacity {self.table.capacity} != daemon capacity "
+                             f"{self.capacity} — the slot axis is pinned for the life of the "
+                             "service")
+        self.epochs_run = int(meta.get("epoch", 0))
+        self.held_rounds = int(meta.get("held_rounds", 0))
+        self._steps = meta.get("steps") or self._steps
+        self._rows = meta.get("rows") or self._rows
+        self._dirs = dict(meta.get("data_dirs", {}))
+        self._overrides = dict(meta.get("site_overrides", {}))
+        self._traces = dict(meta.get("traces", {}))
+        for site, _ in sorted(self.table.members().items(), key=lambda kv: kv[1]):
+            arrays = self._admit(site, self._dirs.get(site, ""), self._overrides.get(site))
+            if arrays is None:
+                raise RuntimeError(f"resume: cannot re-admit member {site!r} from "
+                                   f"{self._dirs.get(site)!r}")
+            self._data[site] = arrays
+        self._ensure_state()
+        if self.state is not None:
+            self.state = load_checkpoint(self.ckpt_path, self.state)
+        else:
+            # every member had left: the first join builds the template,
+            # then the checkpointed state is restored
+            self._pending_ckpt_load = True
+            self._log("[serve] resumed with an empty membership table — idling until a site "
+                      "joins")
+        self.trainer.membership_mask = self.table.occupancy()
+        self.trainer.fixed_steps = self._steps
+        self.trainer.fixed_inventory_rows = self._rows
+        self._log(f"[serve] resumed at epoch {self.epochs_run} with {self.table.occupied}/"
+                  f"{self.capacity} slots (membership epoch {self.table.epoch})")
+        return True
+
+    # -- the service loop --------------------------------------------------
+
+    def serve(self, max_epochs: int | None = None, max_wall_s: float | None = None) -> dict:
+        """Drain the spool, hold below quorum, train, checkpoint, until a
+        shutdown event, SIGTERM or SIGINT (a checkpointed exit),
+        ``max_epochs`` trained epochs or ``max_wall_s`` seconds; returns
+        :meth:`close`'s summary."""
+        from ..robustness.preemption import PreemptionGuard
+
+        t0 = time.monotonic()
+        trained_here = 0
+        # after a hold the loop idles on the spool: only a membership change
+        # lifts it, and held_rounds counts declined epochs
+        self._idle = False
+        with PreemptionGuard() as guard:
+            while not self._stop:
+                changed = self.ingest()
+                if changed:
+                    self._on_membership_change()
+                    self._idle = False
+                if self._stop:
+                    break
+                loss = None
+                if not self._idle:
+                    loss = self.train_epoch()
+                    if loss is None:
+                        self._idle = True
+                    else:
+                        trained_here += 1
+                        self.checkpoint()
+                if guard.requested is not None:
+                    self._preempted = True
+                    self._log(f"[serve] signal {guard.requested} — checkpointed, shutting down")
+                    self.checkpoint()
+                    break
+                if max_epochs is not None and trained_here >= max_epochs:
+                    break
+                if max_wall_s is not None and time.monotonic() - t0 >= max_wall_s:
+                    break
+                if loss is None and not changed:
+                    time.sleep(self.poll_s)
+        return self.close()
+
+    def health_probes(self) -> dict:
+        """Readiness by subsystem: a state template, the quorum, the spool."""
+        return {"state": lambda: self.state is not None,
+                "quorum": lambda: self.table.occupied >= self.quorum,
+                "spool": lambda: os.path.isdir(self.spool_dir)}
+
+    def status(self) -> dict:
+        """The service's live status, JAX's ``status()`` keys on one device
+        (one slice, no slice grant), with the kernel libraries built or
+        loaded since the first epoch."""
+        return {
+            "mode": "daemon",
+            "task_id": self.cfg.task_id,
+            "epoch": self.epochs_run,
+            "held_rounds": self.held_rounds,
+            "capacity": self.capacity,
+            "quorum": self.quorum,
+            "occupied": self.table.occupied,
+            "holding": self._idle,
+            "members": {
+                site: {"slot": slot, "slice": self.table.slice_of(slot, self.num_slices),
+                       "generation": self.table.generation_of(site),
+                       "samples": len(self._data.get(site, ())),
+                       "trace_id": self._traces.get(site)}
+                for site, slot in sorted(self.table.members().items())},
+            "num_slices": self.num_slices,
+            "min_slices": self.cfg.min_slices,
+            "slice_grant": None,
+            "slice_occupancy": self.table.slice_occupancy(self.num_slices),
+            "membership_epoch": self.table.epoch,
+            "steps": self._steps,
+            "inventory_rows": self._rows,
+            "spool_dir": self.spool_dir,
+            "spool_lag_s": self._spool_lag(),
+            "preempted": self._preempted,
+            "compiles_after_first_epoch": self.compiles_after_first_epoch(),
+        }
+
+    def close(self) -> dict:
+        """The final checkpoint; returns the service summary."""
+        from ..robustness.membership import membership_rollup
+
+        self.checkpoint()
+        return {
+            "epochs_run": self.epochs_run,
+            "held_rounds": self.held_rounds,
+            "membership": membership_rollup(self.table, self.state,
+                                            held_rounds=self.held_rounds),
+            "table": self.table.to_json(),
+            "preempted": self._preempted,
+            "compiles_after_first_epoch": self.compiles_after_first_epoch(),
+        }

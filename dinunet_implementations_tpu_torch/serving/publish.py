@@ -2,9 +2,9 @@
 own copy of the JAX package's ``serving/publish.py``.
 
 A training daemon drops ``publish.json`` beside its rotating serve
-checkpoint after every rotation (path, epoch, params digest; the JAX
-package's ``FedDaemon`` does, the port's is ROADMAP A10 (b)). This module is
-the serving side of that wire:
+checkpoint after every rotation (path, epoch, params digest; the port's
+``runner.FedDaemon`` does, as the JAX package's does). This module is the
+serving side of that wire:
 
 - :class:`CheckpointWatcher` polls the announcement file by (mtime_ns,
   size) fingerprint, a cheap stat a tick and a JSON read only on change,

@@ -15,12 +15,13 @@ dSGD, rankDAD's per-site ``{"omega": ...}``, powerSGD's per-site ``{"q":
 ..., "e": ...}``, with None for a dense leaf),
 ``rng`` (a threefry key, ``uint32 [2]``: the port's int seed ``s`` is
 written as ``[s >> 32, s & 0xffffffff]``, which is ``PRNGKey(s)``),
-``round``, ``health``, the empty ``telemetry``, ``buffers``, ``overlap``
-and ``personal``, and ``meta_json``. Trees are in JAX layout (flax kernels
-``[in, out]``) through ``weights.train_state_to_jax`` /
-``train_state_from_tree``, so a file the port writes restores in JAX with
-``load_checkpoint(path, like=jax_state)`` and a file JAX writes restores
-here. The model's leaf table (``weights.LeafTable``) comes from the state
+``round``, ``health``, the empty ``telemetry`` and ``personal``, the
+staleness ``buffers`` and the ``overlap`` stash (``{}`` while their mode is
+off; restored the tolerant way JAX restores them), and ``meta_json``.
+Trees are in JAX layout (flax kernels ``[in, out]``) through
+``weights.train_state_to_jax`` / ``train_state_from_tree``, so a file the
+port writes restores in JAX with ``load_checkpoint(path, like=jax_state)``
+and a file JAX writes restores here. The model's leaf table (``weights.LeafTable``) comes from the state
 at hand (the one saved, or ``like``): a state of a model without running
 statistics (MSANNet, SMRI3DNet, MultimodalNet) writes the empty
 ``batch_stats`` map that JAX writes for it.
@@ -43,6 +44,7 @@ from ..weights import (
     _params_to_jax,
     _params_to_port,
     engine_state_from_jax,
+    slot_state_from_jax,
     table_of,
     train_state_from_tree,
     train_state_to_jax,
@@ -160,8 +162,8 @@ def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
         "round": np.asarray(t["round"], np.int32),
         "health": _sorted(t["health"]),
         "telemetry": {},
-        "buffers": {},
-        "overlap": {},
+        "buffers": _sorted(t["buffers"]) if t["buffers"] is not None else {},
+        "overlap": _sorted(t["overlap"]) if t["overlap"] is not None else {},
         "personal": {},
         "meta_json": json.dumps(meta or {}),
     }
@@ -230,10 +232,43 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
         warnings.warn(f"checkpoint {path}: stored engine state does not match the current "
                       "engine's structure; resuming with fresh engine state")
     health = _restore_health(path, raw.get("health") or {}, like.health, dev)
+    buffers = _restore_slot_tree(path, "buffers", raw, like, table, dev)
+    overlap = _restore_slot_tree(path, "overlap", raw, like, table, dev)
     state = TrainState(params=state.params, batch_stats=state.batch_stats,
                        opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
-                       round=state.round, health=health)
+                       round=state.round, health=health, buffers=buffers, overlap=overlap)
     return (state, _meta(raw)) if with_meta else state
+
+
+def _same_tree(got, like) -> bool:
+    if isinstance(like, dict):
+        return (isinstance(got, dict) and got.keys() == like.keys()
+                and all(_same_tree(got[k], like[k]) for k in like))
+    return tuple(got.shape) == tuple(like.shape) and got.dtype == like.dtype
+
+
+def _restore_slot_tree(path: str, key: str, raw: dict, like: TrainState, table, dev):
+    """The staleness buffers or the overlap stash, restored the tolerant way
+    JAX restores them: ``like``'s (None while the mode is off, or fresh)
+    when the file holds none or one of another shape, the latter with a
+    warning."""
+    want = getattr(like, key)
+    stored = raw.get(key)
+    if not stored or want is None:
+        return want
+    try:
+        bf, ov = slot_state_from_jax(stored if key == "buffers" else None,
+                                     stored if key == "overlap" else None, table, dev)
+        got = bf if key == "buffers" else ov
+        ok = _same_tree(got, want)
+    except (KeyError, TypeError, ValueError):
+        ok = False
+    if ok:
+        return got
+    what = "staleness buffers" if key == "buffers" else "overlap stash"
+    warnings.warn(f"checkpoint {path}: stored {what} do not match the current run (site count "
+                  f"or model changed?); resuming with fresh ones")
+    return want
 
 
 def _restore_health(path: str, stored: dict, like: dict, dev) -> dict:

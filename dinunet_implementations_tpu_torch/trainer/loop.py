@@ -22,11 +22,21 @@ each epoch, for both pipelines (the host pipeline poisons its dense
 inputs, the device pipeline takes the NaN gate); ``cfg.robust_agg`` and
 its knobs reach the engine and switch on the reputation layer.
 
+Durable and elastic rounds: the epoch loop runs under a
+``PreemptionGuard``, so a SIGTERM or SIGINT during an epoch raises
+``Preempted`` after that epoch's rotating checkpoint, and a fault plan's
+``kill_at_round`` raises it (exit code 75) after the checkpoint of the
+epoch that crosses the round; ``resume=True`` continues bit for bit. The
+``cfg.staleness_bound`` / ``staleness_decay`` and ``cfg.overlap_rounds``
+modes reach the epoch function. ``membership_mask``, ``fixed_steps`` and
+``fixed_inventory_rows`` are the elastic daemon's hooks
+(runner/fed_runner.py ``FedDaemon``): an unoccupied slot's liveness is 0
+every round, and the plan and the inventory keep their shapes across
+churn.
+
 Options the port does not run raise ``NotImplementedError`` naming the
 ROADMAP item that ports them, at any value other than "off": a mesh (A11),
-a fault plan's ``kill_at_round`` with the SIGTERM ``PreemptionGuard``
-(A10 (b)), DP (A10 (c)), and telemetry, profiles and the compile cache
-(A12). A killed fit resumes from its last rotating checkpoint.
+DP (A10 (c)), and telemetry, profiles and the compile cache (A12).
 
 Warm starts, skipped when a fit resumes: ``cfg.pretrained_path`` loads a
 checkpoint's params, then ``cfg.pretrain`` with ``cfg.pretrain_args`` of
@@ -49,6 +59,7 @@ from ..engines import build_engine, make_dsgd
 from ..robustness.attacks import attack_window
 from ..robustness.faults import fault_window, poison_inputs
 from ..robustness.health import health_summary
+from ..robustness.preemption import PreemptionGuard, Preempted
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
 from .logs import (
@@ -81,9 +92,6 @@ def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
         raise ValueError(f"dp_delta must be in (0, 1), got {cfg.dp_delta}")
     unported = (
         ("mesh", mesh is not None, "A11 (multi-GPU)"),
-        ("fault_plan.kill_at_round",
-         fault_plan is not None and fault_plan.kill_at_round is not None,
-         "A10 (b) (kill_at_round, PreemptionGuard)"),
         ("bus", bus is not None, "A12 (telemetry)"),
         ("cfg.dp_clip", cfg.dp_clip != 0.0, "A10 (c) (DP-SGD)"),
         ("cfg.dp_noise_multiplier", cfg.dp_noise_multiplier != 0.0, "A10 (c) (DP-SGD)"),
@@ -136,6 +144,14 @@ class FederatedTrainer:
         self._cache: dict = {}  # duration bookkeeping, reference-keyed
         self._last_transfer_bytes = 0  # host→device bytes of the last epoch
         self._num_sites = 1
+        # the elastic daemon's hooks (runner/fed_runner.py FedDaemon): the
+        # [S] slot occupancy folded into every epoch's liveness (an empty
+        # slot never arrives; setting it always feeds a liveness mask), and
+        # the pinned plan height and inventory rows, so that churn keeps
+        # every shape. None: a batch fit's own.
+        self.membership_mask = None
+        self.fixed_steps = None
+        self.fixed_inventory_rows = None
 
     # -- building blocks -------------------------------------------------
 
@@ -145,14 +161,16 @@ class FederatedTrainer:
         shapes)."""
         n = num_sites or self._num_sites
         return init_train_state(self.task, self.engine, self.optimizer, rng=self.cfg.seed,
-                                num_sites=n, reputation=self.cfg.robust_agg != "none")
+                                num_sites=n, reputation=self.cfg.robust_agg != "none",
+                                staleness_bound=self.cfg.staleness_bound,
+                                overlap_rounds=self.cfg.overlap_rounds)
 
     def _ensure_inventory(self, train_sites):
         """The device pipeline's resident inventory: copied to the device
         once per fit, keyed by the site arrays it holds."""
         key = tuple((id(s.inputs), id(s.labels), len(s)) for s in train_sites)
         if self._inventory is None or self._inventory_src != key:
-            inv = stack_site_inventory(train_sites)
+            inv = stack_site_inventory(train_sites, self.fixed_inventory_rows)
             self._inventory = (torch.from_numpy(inv.inputs).to(self.device),
                                torch.from_numpy(inv.labels).to(self.device))
             self._inventory_src = key
@@ -164,15 +182,27 @@ class FederatedTrainer:
         transfer of that pipeline. A pure function of the epoch (JAX builds
         it on a prefetch thread; the port inline)."""
         return plan_epoch_positions(train_sites, batch_size, seed=self.cfg.seed * 100003 + epoch,
-                                    pad_mode="wrap")
+                                    pad_mode="wrap", steps=self.fixed_steps)
 
     def _plan_masks(self, num_sites: int, round0: int, rounds: int):
         """The fault and attack masks of the global round window ``[round0,
         round0 + rounds)``: ``(live, nan_mask, attack)``, each None when
         its plan injects nothing there (a resumed fit replays the same
-        pattern)."""
+        pattern); the membership occupancy folds into ``live``."""
         live, nan_mask = fault_window(self.fault_plan, num_sites, round0, rounds)
-        return live, nan_mask, attack_window(self.attack_plan, num_sites, round0, rounds)
+        return (self._membership_live(live, num_sites, rounds), nan_mask,
+                attack_window(self.attack_plan, num_sites, round0, rounds))
+
+    def _membership_live(self, live, num_sites: int, rounds: int):
+        """Fold the membership occupancy mask into an epoch's ``[S,
+        rounds]`` liveness: an unoccupied slot never arrives. With the mask
+        set, a liveness mask is always fed, as JAX's trainer does."""
+        if self.membership_mask is None:
+            return live
+        occ = np.asarray(self.membership_mask, np.float32)[:num_sites, None]
+        if live is None:
+            return np.broadcast_to(occ, (num_sites, rounds)).copy()
+        return live * occ
 
     def run_epoch(self, state, train_sites, epoch: int, batch_size=None, plan=None):
         """One training epoch. Device pipeline: ``plan`` (built by
@@ -195,7 +225,8 @@ class FederatedTrainer:
             state, losses = self.epoch_fn(state, inv_x, inv_y, plan.positions, live, poison,
                                           attack)
         else:
-            fb = plan_epoch(train_sites, bs, seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap")
+            fb = plan_epoch(train_sites, bs, seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap",
+                            steps=self.fixed_steps)
             live, nan_mask, attack = self._plan_masks(fb.num_sites, state.round, fb.steps // L)
             inputs = (poison_inputs(fb.inputs, nan_mask, L) if nan_mask is not None
                       else fb.inputs)
@@ -342,65 +373,84 @@ class FederatedTrainer:
 
         monitor, direction = cfg.monitor_metric, cfg.metric_direction
         stop_epoch = cfg.epochs
-        for epoch in range(start_epoch, cfg.epochs + 1):
-            e_start = time.perf_counter()
-            state, losses = self.run_epoch(state, train_sites, epoch, batch_size=cfg.batch_size)
-            # rounds with no live weight report NaN: average the others
-            lived = losses[np.isfinite(losses)]
-            epoch_loss = float(lived.mean()) if lived.size else float("nan")
-            epoch_losses.append(epoch_loss)
-            # the reference's per-round durations: the epoch's time spread
-            # over its rounds
-            rounds = max(len(losses), 1)
-            iter_durations.extend([(time.perf_counter() - e_start) / rounds] * rounds)
-            if epoch % cfg.validation_epochs == 0:
-                if has_val:
-                    val_avg, val_metrics = self.evaluate(state, val_sites,
-                                                         batch_size=cfg.batch_size)
-                    score = val_metrics.value(monitor) if monitor != "loss" else val_avg.avg
-                    if is_improvement(score, best_metric,
-                                      direction if monitor != "loss" else "minimize"):
-                        best_metric, best_epoch, best_state, since_best = score, epoch, state, 0
-                        if best_path:  # save on best
-                            save_checkpoint(best_path, best_state,
-                                            meta={"best_val_epoch": best_epoch,
-                                                  "best_val_metric": best_metric, "fold": fold},
-                                            rotate=True)
+        # the kill fires once, when training crosses the round: a resumed
+        # run starts past it
+        kill_round = self.fault_plan.kill_at_round if self.fault_plan is not None else None
+        round_before = int(state.round)
+        with PreemptionGuard() as guard:
+            for epoch in range(start_epoch, cfg.epochs + 1):
+                e_start = time.perf_counter()
+                state, losses = self.run_epoch(state, train_sites, epoch, batch_size=cfg.batch_size)
+                # rounds with no live weight report NaN: average the others
+                lived = losses[np.isfinite(losses)]
+                epoch_loss = float(lived.mean()) if lived.size else float("nan")
+                epoch_losses.append(epoch_loss)
+                # the reference's per-round durations: the epoch's time spread
+                # over its rounds
+                rounds = max(len(losses), 1)
+                iter_durations.extend([(time.perf_counter() - e_start) / rounds] * rounds)
+                if epoch % cfg.validation_epochs == 0:
+                    if has_val:
+                        val_avg, val_metrics = self.evaluate(state, val_sites,
+                                                             batch_size=cfg.batch_size)
+                        score = val_metrics.value(monitor) if monitor != "loss" else val_avg.avg
+                        if is_improvement(score, best_metric,
+                                          direction if monitor != "loss" else "minimize"):
+                            best_metric, best_epoch, best_state, since_best = score, epoch, state, 0
+                            if best_path:  # save on best
+                                save_checkpoint(best_path, best_state,
+                                                meta={"best_val_epoch": best_epoch,
+                                                      "best_val_metric": best_metric, "fold": fold},
+                                                rotate=True)
+                        else:
+                            since_best += cfg.validation_epochs
+                        if verbose:
+                            log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
+                                     + self._format_val_line(val_avg, val_metrics, monitor)
+                                     + (" *" if best_epoch == epoch else ""))
                     else:
-                        since_best += cfg.validation_epochs
-                    if verbose:
-                        log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
-                                 + self._format_val_line(val_avg, val_metrics, monitor)
-                                 + (" *" if best_epoch == epoch else ""))
+                        # no validation anywhere: the latest state is the
+                        # selected one, and nothing stops early
+                        best_epoch, best_state = epoch, state
+                        if verbose:
+                            log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
+                                     "(no validation split)")
+                    stop = since_best >= cfg.patience
                 else:
-                    # no validation anywhere: the latest state is the
-                    # selected one, and nothing stops early
-                    best_epoch, best_state = epoch, state
-                    if verbose:
-                        log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
-                                 "(no validation split)")
-                stop = since_best >= cfg.patience
-            else:
-                stop = False
-            # durations before the save: the saved meta covers the same
-            # epochs as its epoch_losses, and the save's IO is not compute
-            duration(self._cache, e_start, "time_spent_on_computation")
-            duration(self._cache, t_start, "cumulative_total_duration")
-            if latest_path:  # the rotating resume point, every epoch
-                save_checkpoint(
-                    latest_path, state, rotate=True,
-                    meta={"epoch": epoch, "best_val_epoch": best_epoch,
-                          "best_val_metric": best_metric, "since_best": since_best,
-                          "fold": fold, "epoch_losses": epoch_losses,
-                          "iter_durations": iter_durations,
-                          "time_spent_on_computation": self._cache.get(
-                              "time_spent_on_computation", []),
-                          "cumulative_total_duration": self._cache.get(
-                              "cumulative_total_duration", []),
-                          "dp_accountant": None})
-            if stop:
-                stop_epoch = epoch
-                break
+                    stop = False
+                # durations before the save: the saved meta covers the same
+                # epochs as its epoch_losses, and the save's IO is not compute
+                duration(self._cache, e_start, "time_spent_on_computation")
+                duration(self._cache, t_start, "cumulative_total_duration")
+                if latest_path:  # the rotating resume point, every epoch
+                    save_checkpoint(
+                        latest_path, state, rotate=True,
+                        meta={"epoch": epoch, "best_val_epoch": best_epoch,
+                              "best_val_metric": best_metric, "since_best": since_best,
+                              "fold": fold, "epoch_losses": epoch_losses,
+                              "iter_durations": iter_durations,
+                              "time_spent_on_computation": self._cache.get(
+                                  "time_spent_on_computation", []),
+                              "cumulative_total_duration": self._cache.get(
+                                  "cumulative_total_duration", []),
+                              "dp_accountant": None})
+                # a signal that landed during the epoch, or a crossed kill
+                # round, exits here: after the rotating checkpoint, so that
+                # resume=True continues bit for bit from this boundary
+                saved = latest_path or "(no out_dir)"
+                if guard.requested is not None:
+                    raise Preempted(f"signal {guard.requested} during epoch {epoch}; state "
+                                    f"saved to {saved}", signum=guard.requested, epoch=epoch)
+                if kill_round is not None:
+                    round_after = int(state.round)
+                    if round_before <= kill_round < round_after:
+                        raise Preempted(f"FaultPlan kill_at_round={kill_round} crossed "
+                                        f"during epoch {epoch}; state saved to {saved}",
+                                        epoch=epoch)
+                    round_before = round_after
+                if stop:
+                    stop_epoch = epoch
+                    break
 
         # below the validation cadence no epoch was validated: validate the
         # trained state once so that it, not the init, is selected
@@ -452,7 +502,7 @@ class FederatedTrainer:
         return TrainState(params=pre.params, batch_stats=pre.batch_stats,
                           opt_state=self.optimizer.init(pre.params),
                           engine_state=state.engine_state, rng=state.rng, round=pre.round,
-                          health=state.health)
+                          health=state.health, buffers=state.buffers, overlap=state.overlap)
 
     def test_only(self, test_sites: list[SiteArrays], fold: int = 0) -> dict:
         """``mode="test"``: evaluate the fold's best checkpoint, which

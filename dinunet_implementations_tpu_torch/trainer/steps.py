@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..engines.base import default_async_buffers, staleness_weights
 from ..models.layers import BatchNorm
 from ..parallel.collectives import check_robust_agg, per_site, site_flat, site_weight_scale
 from ..robustness.health import REPUTATION_KEYS, default_health, reputation_fields
@@ -203,7 +204,11 @@ class TrainState:
     ``state_dict`` names, the optimizer state (``{"count", "mu", "nu"}`` for
     Adam), the per-site engine state (``{}`` for dSGD; rankDAD's
     ``{"omega": {name: [S, n, r] or None}}``), the dropout seed ``rng``, the
-    global ``round`` and the per-site ``health`` counters."""
+    global ``round`` and the per-site ``health`` counters. ``buffers`` are
+    the per-slot staleness buffers of the buffered-async rounds
+    (``engines.default_async_buffers``) and ``overlap`` the stash of the
+    overlapped rounds (:func:`default_overlap_stash`), each None while its
+    mode is off."""
 
     params: dict
     batch_stats: dict
@@ -212,6 +217,8 @@ class TrainState:
     rng: int
     round: int
     health: dict
+    buffers: dict | None = None
+    overlap: dict | None = None
 
 
 def _tree_map(fn, tree):
@@ -231,11 +238,14 @@ def _freeze_dead(alive, new, old):
 
 
 def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
-                     num_sites: int = 1, reputation: bool = False) -> TrainState:
+                     num_sites: int = 1, reputation: bool = False, staleness_bound: int = 0,
+                     overlap_rounds: bool = False) -> TrainState:
     """The first state of a fit, from the weights and running statistics of
     ``task.model`` (on the model's device). The engine state is one copy
     per site, a leading ``[num_sites]`` axis, as in JAX; ``reputation=True``
-    (a robust aggregation's fit) adds the reputation health fields."""
+    (a robust aggregation's fit) adds the reputation health fields,
+    ``staleness_bound > 0`` the never-deposited staleness buffers and
+    ``overlap_rounds=True`` the empty overlap stash."""
     params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
     stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
     dev = next(iter(params.values())).device
@@ -243,7 +253,29 @@ def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int
                            engine.init(params))
     return TrainState(params=params, batch_stats=stats, opt_state=optimizer.init(params),
                       engine_state=site_state, rng=rng, round=0,
-                      health=default_health(num_sites, reputation, dev))
+                      health=default_health(num_sites, reputation, dev),
+                      buffers=(default_async_buffers(num_sites, params)
+                               if staleness_bound > 0 else None),
+                      overlap=(default_overlap_stash(num_sites, params, stats)
+                               if overlap_rounds else None))
+
+
+def default_overlap_stash(num_sites: int, params: dict, batch_stats: dict) -> dict:
+    """The empty stash of the overlapped rounds, JAX's
+    ``default_overlap_stash``: per site the ``grads``, ``stats``,
+    ``weight``, ``loss`` and ``live`` of the round whose update is still to
+    be applied, and ``valid`` (0: nothing stashed yet, so the fit's first
+    round applies nothing). Every leaf has the leading ``[num_sites]``
+    axis."""
+    dev = next(iter(params.values())).device
+
+    def zeros(tree):
+        return {k: torch.zeros((num_sites,) + tuple(v.shape), dtype=v.dtype, device=dev)
+                for k, v in tree.items()}
+
+    vec = lambda: torch.zeros(num_sites, dtype=torch.float32, device=dev)  # noqa: E731
+    return {"grads": zeros(params), "stats": zeros(batch_stats), "weight": vec(),
+            "loss": vec(), "live": vec(), "valid": vec()}
 
 
 def _gather_batch(inv_x, inv_y, ixs, poison=None):
@@ -270,8 +302,6 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 _UNPORTED = {
     "mesh": (None, "A11 (multi-GPU)"),
     "telemetry": (False, "A12 (telemetry)"),
-    "staleness_bound": (0, "A10 (b) (async buffers)"),
-    "overlap_rounds": (False, "A10 (b) (overlapped rounds)"),
     "dp_clip": (0.0, "A10 (c) (DP-SGD)"),
     "dp_noise_multiplier": (0.0, "A10 (c) (DP-SGD)"),
     "personalize": ((), "A10 (c) (personalization)"),
@@ -283,7 +313,6 @@ _EXECUTION_ONLY = ("rounds_scan_xs", "donate_state")
 #: options that act only through other options: name -> (JAX's default,
 #: the options of ``_UNPORTED`` that switch it on)
 _DEPENDENT = {
-    "staleness_decay": (0.5, ("staleness_bound",)),
     "dp_seed": (0, ("dp_clip", "dp_noise_multiplier")),
 }
 
@@ -291,9 +320,6 @@ _DEPENDENT = {
 def _check_options(options: dict) -> None:
     """Refuse the JAX options this port does not run (see
     :func:`make_train_epoch_fn`), before anything is built."""
-    decay = options.get("staleness_decay", 0.5)
-    if not 0.0 < decay <= 1.0:
-        raise ValueError(f"staleness_decay must be in (0, 1], got {decay}")
     for name in sorted(options, key=lambda n: n not in _DEPENDENT):  # dependents first
         value = options[name]
         if name in _EXECUTION_ONLY:
@@ -339,7 +365,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         local_iterations: int = 1, quarantine_rounds: int | None = 3,
                         device=None, pipeline: str = "device", attack_plan=None,
                         robust_agg: str = "none", reputation_z: float = 2.0,
-                        reputation_rounds: int = 8, **options):
+                        reputation_rounds: int = 8, staleness_bound: int = 0,
+                        staleness_decay: float = 0.5, overlap_rounds: bool = False, **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
@@ -393,16 +420,44 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     reports a NaN loss. ``quarantine_rounds < 0`` with none of the others
     runs the unguarded round. ``None`` means 3.
 
+    Buffered-async rounds (``staleness_bound > 0``): each site owns a slot
+    of ``state.buffers``. A round where the site arrives (scheduled live
+    AND finite AND not quarantined) deposits its fresh gradient and example
+    weight and resets the slot's age to 0; a round where it does not (a
+    drop, a ``delay_at`` straggler, an empty membership slot) keeps the
+    buffer and ages it. The engine aggregates the buffers, each slot
+    weighted by ``weight * staleness_decay ** age`` and masked like a dead
+    site past ``staleness_bound``; a slot's engine state freezes unless its
+    weight is positive. The round loss, sync-BN and the health counters
+    stay keyed on fresh arrivals; params and the optimizer hold in a round
+    with no in-bound buffered weight. ``decay ** 0`` is exactly 1, so a
+    round where every site arrives is the bulk-sync round bit for bit.
+
+    Overlapped rounds (``overlap_rounds=True``): round *t* computes its
+    gradients at the carried parameters and stashes them
+    (``state.overlap``), and applies round *t - 1*'s stash, JAX's
+    one-round-delayed pipelined update. The fit's first round applies
+    nothing and reports a NaN loss; the health counters advance only on a
+    valid stash; the liveness of a stashed round is that of the round its
+    data came from, and so is the dropout seed. The stash rides the state,
+    so it survives the epoch boundary and a checkpoint. On one card there
+    is no collective to hide: the semantics are JAX's, on one stream.
+    ``overlap_rounds`` with ``staleness_bound > 0`` raises ``ValueError``,
+    as in JAX. Both modes imply the guarded round; both off run the
+    program as before.
+
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
-    program runs and take any value. ``staleness_decay`` and ``dp_seed``
-    act only through ``staleness_bound`` and ``dp_clip`` /
-    ``dp_noise_multiplier``: any value while that option is off, JAX's
-    default otherwise. Every other option at a value other than "off"
-    (``mesh``, ``telemetry``, async, overlap, DP, personalization, slices)
-    raises ``NotImplementedError`` naming the ROADMAP item that ports
-    it."""
+    program runs and take any value. ``dp_seed`` acts only through
+    ``dp_clip`` / ``dp_noise_multiplier``: any value while they are off,
+    JAX's default otherwise. Every other option at a value other than
+    "off" (``mesh``, ``telemetry``, DP, personalization, slices) raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     _check_options(options)
+    if staleness_bound < 0:
+        raise ValueError(f"staleness_bound must be >= 0, got {staleness_bound}")
+    if not 0.0 < staleness_decay <= 1.0:
+        raise ValueError(f"staleness_decay must be in (0, 1], got {staleness_decay}")
     check_robust_agg(robust_agg)
     if reputation_rounds < 0:
         raise ValueError(f"reputation_rounds must be >= 0, got {reputation_rounds}")
@@ -410,6 +465,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         raise ValueError(f"pipeline must be 'host' or 'device', got {pipeline!r}")
     if local_iterations < 1:
         raise ValueError(f"local_iterations must be >= 1, got {local_iterations}")
+    buffered, overlap = staleness_bound > 0, bool(overlap_rounds)
+    if overlap and buffered:
+        raise ValueError(
+            "overlap_rounds and staleness_bound > 0 are mutually exclusive: both buffer "
+            "per-site updates with their own staleness semantics (one-round pipeline delay vs "
+            "decay^age weighting) and composing them would compound the delays")
     if quarantine_rounds is None:
         quarantine_rounds = 3
     dev = resolve_device(device)
@@ -473,6 +534,60 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return {**health, "suspect_streak": streak, "quarantined": quarantined,
                 "anomaly": anomaly}, z
 
+    def apply_round(health, engine_state, buffers, stats, ls, site_grad, n_sum, site_stats,
+                    loss_sum):
+        """The guarded round's aggregate-and-account half on one payload
+        (this round's, or the overlap stash's): liveness, the engine's
+        aggregation (over the staleness buffers in the async mode),
+        sync-BN, the round loss, the health counters and the reputation
+        layer. Returns ``(agg, engine_state, health, buffers, stats, loss,
+        total_live, z)``; ``total_live`` gates the parameter update."""
+        # liveness: scheduled live AND finite AND not quarantined
+        flat = site_flat(site_grad)
+        finite = flat.isfinite().all(1)
+        contribute = ls * finite.float() * (1.0 - (health["quarantined"] > 0).float())
+        alive = contribute > 0
+        n_eff = n_sum * contribute
+        if buffered:
+            # arrivals deposit; every slot aggregates at its decayed weight
+            buffers = {"grads": {k: torch.where(per_site(alive, g), g, buffers["grads"][k])
+                                 for k, g in site_grad.items()},
+                       "weight": torch.where(alive, n_sum, buffers["weight"]),
+                       "age": torch.where(alive, 0, buffers["age"] + 1).int()}
+            stale_w = staleness_weights(buffers["age"], staleness_bound, staleness_decay)
+            eff_w = buffers["weight"] * stale_w
+            agg, es_new = engine.aggregate(buffers["grads"], engine_state, eff_w,
+                                           live=(stale_w > 0).float())
+            engine_state = _freeze_dead(stale_w > 0, es_new, engine_state)
+            total_live, total_fresh = eff_w.sum(), n_eff.sum()
+        else:
+            agg, es_new = engine.aggregate(site_grad, engine_state, n_sum, live=contribute)
+            engine_state = _freeze_dead(alive, es_new, engine_state)
+            total_live = total_fresh = n_eff.sum()
+        fresh = total_fresh > 0
+        # sync-BN: the example-weighted mean of the arriving sites'
+        # statistics (a dead site's may be NaN: where-zeroed), held when
+        # nobody arrives
+        scale = site_weight_scale(n_eff)
+        stats = {k: torch.where(fresh, (torch.where(per_site(alive, s), s, 0.0)
+                                        * per_site(scale, s)).sum(0), stats[k])
+                 for k, s in site_stats.items()}
+        loss_round = torch.where(
+            fresh, torch.where(alive, loss_sum, 0.0).sum() / torch.clamp(total_fresh, min=1.0),
+            float("nan"))
+        streak = torch.where(finite, 0, health["streak"] + 1).int()
+        quarantined = health["quarantined"]
+        if quarantine_rounds > 0:
+            quarantined = torch.maximum(quarantined, (streak >= quarantine_rounds).int())
+        new_health = {**health, "streak": streak, "skips": health["skips"] + (~alive).int(),
+                      "quarantined": quarantined}
+        z = None
+        if reputation:
+            agg_flat = torch.cat([agg[k].reshape(-1).float() for k in site_grad])
+            new_health, z = reputation_round(health, new_health, flat, agg_flat, contribute)
+            z = torch.where(alive, z, float("nan"))
+        return agg, engine_state, new_health, buffers, stats, loss_round, total_live, z
+
     def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack):
         """The epoch's rounds; ``batch(r)`` gives round ``r``'s ``(x [S, L,
         B, ...], y [S, L, B], w [S, L, B])`` on the device."""
@@ -489,12 +604,22 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             # reads each round's column there without a copy
             attack_dev = torch.as_tensor(attack, device=dev)
             atk = make_attack_fn(attack_plan, table_of(state.params))
-        guard = quarantine_rounds >= 0 or live is not None or reputation or atk is not None
+        guard = (quarantine_rounds >= 0 or live is not None or reputation or atk is not None
+                 or buffered or overlap)
         if live is not None:
             live = torch.as_tensor(live, dtype=torch.float32, device=dev)[:, :rounds]
         health = _ensure_health(state.health, S, reputation, dev)
         params, stats, opt_state = state.params, state.batch_stats, state.opt_state
         engine_state = state.engine_state
+        # the buffers and the stash follow the mode this epoch was built
+        # with, as JAX's epoch normalizes them: off drops a carried one,
+        # on fills a fresh one (or one for another site count)
+        buffers = ((state.buffers if state.buffers is not None
+                    and state.buffers["age"].shape[0] == S
+                    else default_async_buffers(S, params)) if buffered else None)
+        ov = ((state.overlap if state.overlap is not None
+               and state.overlap["valid"].shape[0] == S
+               else default_overlap_stash(S, params, stats)) if overlap else None)
         losses, zs = [], []
         for r in range(rounds):
             rnd = state.round + r
@@ -513,47 +638,34 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                 params = {k: v + updates[k] for k, v in params.items()}
                 losses.append(loss_round)
                 continue
-            # liveness: scheduled live AND finite AND not quarantined
-            flat = site_flat(site_grad)
-            finite = flat.isfinite().all(1)
             ls = torch.ones(S, device=dev) if live is None else live[:, r]
-            contribute = ls * finite.float() * (1.0 - (health["quarantined"] > 0).float())
-            alive = contribute > 0
-            n_eff = n_sum * contribute
-            agg, es_new = engine.aggregate(site_grad, engine_state, n_sum, live=contribute)
-            engine_state = _freeze_dead(alive, es_new, engine_state)
-            total_live = n_eff.sum()
-            go = total_live > 0
-            # sync-BN: the example-weighted mean of the arriving sites'
-            # statistics (a dead site's may be NaN: where-zeroed), held when
-            # nobody arrives
-            scale = site_weight_scale(n_eff)
-            stats = {k: torch.where(go, (torch.where(per_site(alive, s), s, 0.0)
-                                         * per_site(scale, s)).sum(0), stats[k])
-                     for k, s in site_stats.items()}
-            loss_round = torch.where(
-                go, torch.where(alive, loss_sum, 0.0).sum() / torch.clamp(total_live, min=1.0),
-                float("nan"))
-            streak = torch.where(finite, 0, health["streak"] + 1).int()
-            quarantined = health["quarantined"]
-            if quarantine_rounds > 0:
-                quarantined = torch.maximum(quarantined, (streak >= quarantine_rounds).int())
-            new_health = {**health, "streak": streak, "skips": health["skips"] + (~alive).int(),
-                          "quarantined": quarantined}
-            if reputation:
-                agg_flat = torch.cat([agg[k].reshape(-1).float() for k in site_grad])
-                new_health, z = reputation_round(health, new_health, flat, agg_flat, contribute)
-                zs.append(torch.where(alive, z, float("nan")))
-            health = new_health
+            if overlap:
+                # apply the previous round's stash; stash this round's
+                # payload for the next round (or the next epoch's first)
+                agg, engine_state, new_health, buffers, stats, loss_round, total_live, z = (
+                    apply_round(health, engine_state, buffers, stats, ov["live"] * ov["valid"],
+                                ov["grads"], ov["weight"], ov["stats"], ov["loss"]))
+                valid = ov["valid"] > 0
+                health = {k: torch.where(valid, v, health[k]) for k, v in new_health.items()}
+                ov = {"grads": site_grad, "stats": site_stats, "weight": n_sum,
+                      "loss": loss_sum, "live": ls, "valid": torch.ones(S, device=dev)}
+            else:
+                agg, engine_state, health, buffers, stats, loss_round, total_live, z = (
+                    apply_round(health, engine_state, buffers, stats, ls, site_grad, n_sum,
+                                site_stats, loss_sum))
+            if z is not None:
+                zs.append(z)
             # one update on the aggregate; a round with no live weight
             # holds params AND optimizer state
+            go = total_live > 0
             updates, new_opt = optimizer.update(agg, opt_state)
             params = {k: torch.where(go, v + updates[k], v) for k, v in params.items()}
             opt_state = _hold(go, new_opt, opt_state)
             losses.append(loss_round)
         new_state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                                engine_state=engine_state, rng=state.rng,
-                               round=state.round + rounds, health=health)
+                               round=state.round + rounds, health=health, buffers=buffers,
+                               overlap=ov)
         empty = torch.zeros(0, device=dev)
         reputation_z_trace[:] = [torch.stack(zs)] if zs else []
         return new_state, torch.stack(losses) if losses else empty

@@ -183,7 +183,8 @@ def train_state_from_jax(state, rng: int = 0, device=None):
     return train_state_from_tree(
         {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
          "engine_state": state.engine_state, "rng": rng, "round": state.round,
-         "health": state.health}, device=device)
+         "health": state.health, "buffers": getattr(state, "buffers", None),
+         "overlap": getattr(state, "overlap", None)}, device=device)
 
 
 #: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
@@ -210,11 +211,69 @@ def engine_state_from_jax(engine_state, table: LeafTable, device=None) -> dict:
     return out
 
 
+def _site_params_to_jax(tensors: dict, table: LeafTable) -> dict:
+    """A per-site params-shaped dict (``[S, ...]`` leaves by ``state_dict``
+    name: a staleness buffer's or the overlap stash's gradients) as a JAX
+    tree of numpy ``[S, ...]`` leaves."""
+    flat = {}
+    for n, j, tr in table.params:
+        a = tensors[n].detach().cpu().numpy()
+        flat[j] = np.swapaxes(a, -1, -2) if tr else a
+    return _nest(flat)
+
+
+def _site_params_to_port(tree, table: LeafTable, what: str, device) -> dict:
+    p, problems = _leaves(tree), []
+    _check_leaves(problems, what, p, {j for _, j, _ in table.params})
+    _raise_if(problems, table)
+    return {n: _t(np.swapaxes(p[j], -1, -2) if tr else p[j]).to(device)
+            for n, j, tr in table.params}
+
+
+def slot_state_to_jax(buffers: dict | None, overlap: dict | None, table: LeafTable):
+    """The staleness buffers and the overlap stash (either None) as JAX's
+    trees: ``buffers`` ``{"grads", "weight", "age"}`` and ``overlap``
+    ``{"grads", "stats", "weight", "loss", "live", "valid"}``, the
+    gradients in JAX layout with the leading site axis."""
+    bf = ov = None
+    if buffers is not None:
+        bf = {"grads": _site_params_to_jax(buffers["grads"], table),
+              "weight": buffers["weight"].cpu().numpy(),
+              "age": buffers["age"].cpu().numpy().astype(np.int32)}
+    if overlap is not None:
+        ov = {"grads": _site_params_to_jax(overlap["grads"], table),
+              "stats": _nest({j: overlap["stats"][n].detach().cpu().numpy()
+                              for n, j in table.stats}),
+              **{k: overlap[k].cpu().numpy() for k in ("weight", "loss", "live", "valid")}}
+    return bf, ov
+
+
+def slot_state_from_jax(buffers, overlap, table: LeafTable, device=None):
+    """JAX's staleness buffers and overlap stash (numpy trees, either None
+    or empty) as the port's, on ``device``."""
+    f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)  # noqa: E731
+    bf = ov = None
+    if buffers:
+        bf = {"grads": _site_params_to_port(buffers["grads"], table, "buffers grads", device),
+              "weight": f32(buffers["weight"]),
+              "age": torch.from_numpy(np.array(buffers["age"], dtype=np.int32)).to(device)}
+    if overlap:
+        st = _leaves(overlap["stats"])
+        problems: list = []
+        _check_leaves(problems, "overlap stats", st, {j for _, j in table.stats})
+        _raise_if(problems, table)
+        ov = {"grads": _site_params_to_port(overlap["grads"], table, "overlap grads", device),
+              "stats": {n: _t(st[j]).to(device) for n, j in table.stats},
+              **{k: f32(overlap[k]) for k in ("weight", "loss", "live", "valid")}}
+    return bf, ov
+
+
 def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=None):
     """A training state as numpy trees in JAX layout (what
     :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
     ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
-    ``rng`` (the port's int seed), ``round``, ``health``) as the port's
+    ``rng`` (the port's int seed), ``round``, ``health``, optionally
+    ``buffers`` and ``overlap``) as the port's
     ``TrainState`` on ``device`` (the card unless the caller asks for
     ``"cpu"``). ``table`` defaults to the params tree's own."""
     from .core.device import resolve_device
@@ -235,9 +294,11 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
     from .robustness.health import health_from_numpy
 
     health = health_from_numpy(tree["health"], dev)
+    buffers, overlap = slot_state_from_jax(tree.get("buffers"), tree.get("overlap"), table, dev)
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                       engine_state=engine_state_from_jax(tree["engine_state"], table, dev),
-                      rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health)
+                      rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health,
+                      buffers=buffers, overlap=overlap)
 
 
 def train_state_to_jax(state) -> dict:
@@ -245,8 +306,10 @@ def train_state_to_jax(state) -> dict:
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
-    them), ``rng`` (the int seed), ``round`` and ``health``; the model's
-    table is read off the state's params."""
+    them), ``rng`` (the int seed), ``round``, ``health``, and the
+    ``buffers`` and ``overlap`` trees of :func:`slot_state_to_jax` (None
+    while their mode is off); the model's table is read off the state's
+    params."""
     table = table_of(state.params)
     opt = {}
     if state.opt_state:
@@ -265,4 +328,6 @@ def train_state_to_jax(state) -> dict:
         "rng": int(state.rng),
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},
+        **dict(zip(("buffers", "overlap"),
+                   slot_state_to_jax(state.buffers, state.overlap, table))),
     }

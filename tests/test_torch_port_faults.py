@@ -3,8 +3,8 @@ both ways, validation, the liveness, NaN and slice masks bit for bit across
 window chunkings), ``poison_inputs``, the trainer's windowing on the global
 round counter for both pipelines under a fault plan and an attack plan, a robust fit's outputs (``logs.json``'s anomaly keys) and its
 checkpoint both ways with JAX's ``load_checkpoint``, the health restore key
-by key, the command line's ``--faults`` / ``--attacks`` / ``--robust-agg``,
-and the refusal of ``kill_at_round``.
+by key, and the command line's ``--faults`` / ``--attacks`` /
+``--robust-agg``. ``kill_at_round`` is tests/test_torch_port_preemption.py's.
 
 The JAX side runs its Pallas LSTM kernels in interpret mode. Inputs are made
 with numpy from a seed. Each tolerance is stated beside its test.
@@ -305,16 +305,6 @@ def test_health_log_fields_match_jax():
 
 
 # -- refusals and the command line ---------------------------------------------
-
-
-def test_kill_at_round_is_refused_naming_its_item(tree):
-    cfg = _fit_cfg(tree)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP A10 \(b\) \(kill_at_round, PreemptionGuard\)"):
-        tloop.FederatedTrainer(cfg, build_model(cfg, device="cpu"), device="cpu",
-                               fault_plan=tfaults.FaultPlan(drop=((0, 1, 2),), kill_at_round=5))
-    with pytest.raises(SystemExit, match=r"--faults kill_at_round .*ROADMAP A10 \(b\)"):
-        tcli.main(["--data-path", tree, "--device", "cpu", "--faults", '{"kill_at_round": 3}'])
 
 
 def test_cli_takes_faults_attacks_and_robust_agg(tree, tmp_path, monkeypatch):

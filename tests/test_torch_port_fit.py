@@ -40,7 +40,6 @@ from dinunet_implementations_tpu_torch.engines import make_dsgd, make_rankdad
 from dinunet_implementations_tpu_torch.engines import powersgd as tpowersgd
 from dinunet_implementations_tpu_torch.engines import rankdad as trankdad
 from dinunet_implementations_tpu_torch.models import icalstm as tm
-from dinunet_implementations_tpu_torch.robustness import faults as tfaults
 from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
 from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
 from dinunet_implementations_tpu_torch.trainer import loop as tloop
@@ -588,13 +587,11 @@ def test_fed_runner_resolves_auto_mesh_and_refuses_others(tree):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"mesh": object()}, "A11"), ({"fault_plan": tfaults.FaultPlan(kill_at_round=3)}, "A10"),
-    ({"secure_agg": "mask"}, "A10"), ({"bus": object()}, "A12"),
+    ({"mesh": object()}, "A11"), ({"secure_agg": "mask"}, "A10"), ({"bus": object()}, "A12"),
     ({"dp_clip": 1.0}, "A10"), ({"dp_noise_multiplier": 1.0}, "A10"),
     ({"dp_epsilon_budget": 2.0}, "A10"), ({"telemetry": "on"}, "A12"),
     ({"profile_dir": "p"}, "A12"), ({"xprof_dir": "x"}, "A12"),
     ({"compile_cache_dir": "c"}, "A12"),
-    ({"staleness_bound": 2}, "A10"), ({"overlap_rounds": True}, "A10"),
     ({"secure_agg": "mask-nopads"}, "A10"), ({"min_slices": 2}, "A11"),
     ({"personalize": ("cls_fc3",)}, "A10"), ({"wire_quant": "int8"}, "A11"),
 ])

@@ -294,7 +294,9 @@ def test_the_port_parses_every_jax_flag():
     assert set(want) <= set(got)
     run = {"help", "data_path", "task", "engine", "mode", "epochs", "batch_size", "num_folds",
            "out_dir", "site", "folds", "resume", "pipeline", "fused_poweriter", "quiet",
-           "overrides", "faults", "attacks", "robust_agg"}
+           "overrides", "faults", "attacks", "robust_agg", "serve", "serve_spool",
+           "serve_capacity", "serve_quorum", "serve_epochs", "serve_poll", "serve_rows",
+           "overlap_rounds"}
     assert {d for d in want.values()} - run == set(tcli._REFUSED)
 
 

@@ -517,8 +517,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("telemetry", True), ("staleness_bound", 2),
-    ("overlap_rounds", True), ("dp_noise_multiplier", 1.0), ("telemetry", "on"),
+    ("mesh", object()), ("telemetry", True), ("dp_noise_multiplier", 1.0), ("telemetry", "on"),
     ("dp_clip", 1.0), ("personalize", ("cls_fc3",)), ("min_slices", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
@@ -555,8 +554,6 @@ def test_jax_epoch_options_at_their_defaults_build_an_epoch(option):
 
 
 @pytest.mark.parametrize("option,value,through", [
-    ("staleness_decay", 0.25, {"staleness_bound": 2}),
-    ("staleness_decay", 0.75, {"staleness_bound": 1}),
     ("dp_seed", 3, {"dp_clip": 0.5}),
     ("dp_seed", 7, {"dp_clip": 1.0}),
     ("dp_seed", 7, {"dp_noise_multiplier": 1.0}),
