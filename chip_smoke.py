@@ -4209,11 +4209,6 @@ def elastic_all_arrivals(torch, np, engine: str, inv_x, inv_y, idx) -> dict:
             "async_warm_epoch_ms": ms_a[1]}
 
 
-def elastic_trees_equal(a, b) -> bool:
-    return all(same_tree(getattr(a, p), getattr(b, p))
-               for p in ("params", "batch_stats", "opt_state", "engine_state", "health"))
-
-
 def elastic_kill(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
     """A ``kill_at_round`` fit on phase 11's tree: ``Preempted`` with exit
     code 75 after epoch 2's checkpoint; ``resume=True`` ends bit-equal to
@@ -4257,7 +4252,8 @@ def elastic_kill(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
         fail(f"the kill fit: {killed}, checkpointed epoch {meta.get('epoch')}")
     if launches != whole_launches or launches["lstm_fwd"] == 0:
         fail(f"the kill fit's launches {launches}, the uninterrupted fit's {whole_launches}")
-    if not (elastic_trees_equal(res["state"], whole["state"])
+    if not (all(same_tree(getattr(res["state"], p), getattr(whole["state"], p))
+                for p in ("params", "batch_stats", "opt_state", "engine_state", "health"))
             and res["epoch_losses"] == whole["epoch_losses"]
             and res["test_metrics"] == whole["test_metrics"]):
         fail("the resumed kill fit differs from the uninterrupted fit")
@@ -4309,12 +4305,11 @@ def elastic_daemon(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     churn = [{"event": "leave", "site": "local1", "after_epoch": 1}, rejoin]
 
     def daemon(out, resume=False):
-        d = FedDaemon(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0,
-                                  batch_size=TRAIN_BATCH, staleness_bound=ELASTIC_BOUND),
-                      capacity=DAEMON_CAPACITY, data_path=tree, out_dir=out,
-                      spool_dir=os.path.join(out, "spool"), poll_s=0.01, resume=resume,
-                      verbose=False)
-        return d
+        return FedDaemon(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0,
+                                     batch_size=TRAIN_BATCH, staleness_bound=ELASTIC_BOUND),
+                         capacity=DAEMON_CAPACITY, data_path=tree, out_dir=out,
+                         spool_dir=os.path.join(out, "spool"), poll_s=0.01, resume=resume,
+                         verbose=False)
 
     def spool(d, events):
         for i, ev in enumerate(events):

@@ -218,8 +218,9 @@ class FedDaemon:
     The daemon publishes its gauges and counters to ``bus``, a
     ``telemetry.MetricsBus`` of its own unless one is passed. A mesh is
     multi-GPU (ROADMAP A11); ``flight`` and ``sink_tags`` are the flight
-    recorder and file sinks (A12); the scheduler's ``set_slice_grant`` and
-    ``reload_checkpoint`` are A19."""
+    recorder and file sinks, and ``health_probes`` the ``/healthz`` exporter's
+    (A12); the scheduler's ``set_slice_grant`` and ``reload_checkpoint`` are
+    A19."""
 
     def __init__(self, cfg: TrainConfig | None = None, capacity: int = 8,
                  spool_dir: str | None = None, out_dir: str | None = None,
@@ -258,7 +259,6 @@ class FedDaemon:
         self.trainer = FederatedTrainer(self.cfg, build_model(self.cfg, device=self.device),
                                         None, out_dir=self.out_dir, fault_plan=fault_plan,
                                         attack_plan=attack_plan, device=self.device)
-        self.trainer._num_sites = capacity
         self.table = MembershipTable(capacity)
         self.state = None  # built at the first admission (it needs the shapes)
         self.epochs_run = 0
@@ -518,14 +518,6 @@ class FedDaemon:
             return 0.0
         return 0.0 if oldest is None else round(max(time.time() - oldest, 0.0), 3)
 
-    def set_slice_grant(self, grant) -> None:
-        raise NotImplementedError("FedDaemon.set_slice_grant is not ported: ROADMAP A19 "
-                                  "(the fleet scheduler)")
-
-    def reload_checkpoint(self) -> bool:
-        raise NotImplementedError("FedDaemon.reload_checkpoint is not ported: ROADMAP A19 "
-                                  "(the fleet scheduler)")
-
     # -- training ----------------------------------------------------------
 
     def trainable(self) -> bool:
@@ -547,14 +539,11 @@ class FedDaemon:
         when the service held (below quorum, no state yet, no member large
         enough for a batch), which counts one epoch's rounds into
         ``held_rounds``."""
-        rounds = max((self._steps or 1) // max(self.cfg.local_iterations, 1), 1)
-        if self.table.occupied < self.quorum or self.state is None:
+        if not self.trainable():
+            rounds = max((self._steps or 1) // max(self.cfg.local_iterations, 1), 1)
             self.held_rounds += rounds
-            self._note_hold(rounds)
-            return None
-        if not any(len(self._data[s]) >= self.cfg.batch_size for s in self.table.members()):
-            self.held_rounds += rounds
-            self._note_hold(rounds)
+            self.bus.counter("serve_held_rounds_total", rounds)
+            self.bus.gauge("serve_members", self.table.occupied)
             return None
         if self._steps is None:
             # pin the plan height at the first contact with data
@@ -583,10 +572,6 @@ class FedDaemon:
         self._log(f"[serve] epoch {self.epochs_run}: train_loss={loss:.4f} "
                   f"({self.table.occupied}/{self.capacity} slots)")
         return loss
-
-    def _note_hold(self, rounds: int) -> None:
-        self.bus.counter("serve_held_rounds_total", rounds)
-        self.bus.gauge("serve_members", self.table.occupied)
 
     def compiles_after_first_epoch(self) -> dict:
         """Kernel libraries built and loaded since the first trained epoch
@@ -715,12 +700,6 @@ class FedDaemon:
                 if loss is None and not changed:
                     time.sleep(self.poll_s)
         return self.close()
-
-    def health_probes(self) -> dict:
-        """Readiness by subsystem: a state template, the quorum, the spool."""
-        return {"state": lambda: self.state is not None,
-                "quorum": lambda: self.table.occupied >= self.quorum,
-                "spool": lambda: os.path.isdir(self.spool_dir)}
 
     def status(self) -> dict:
         """The service's live status, JAX's ``status()`` keys on one device

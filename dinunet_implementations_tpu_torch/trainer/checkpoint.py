@@ -44,7 +44,7 @@ from ..weights import (
     _params_to_jax,
     _params_to_port,
     engine_state_from_jax,
-    slot_state_from_jax,
+    slot_tree_from_jax,
     table_of,
     train_state_from_tree,
     train_state_to_jax,
@@ -257,9 +257,7 @@ def _restore_slot_tree(path: str, key: str, raw: dict, like: TrainState, table, 
     if not stored or want is None:
         return want
     try:
-        bf, ov = slot_state_from_jax(stored if key == "buffers" else None,
-                                     stored if key == "overlap" else None, table, dev)
-        got = bf if key == "buffers" else ov
+        got = slot_tree_from_jax(stored, table, dev)
         ok = _same_tree(got, want)
     except (KeyError, TypeError, ValueError):
         ok = False

@@ -129,12 +129,14 @@ def _raise_if(problems: list, table: LeafTable) -> None:
 
 
 def _port_params(p: dict, table: LeafTable) -> dict:
-    return {n: _t(p[j].T if tr else p[j]) for n, j, tr in table.params}
+    # the last two axes: a per-site leaf [S, ...] (a buffered gradient)
+    # transposes as its matrix does
+    return {n: _t(np.swapaxes(p[j], -1, -2) if tr else p[j]) for n, j, tr in table.params}
 
 
 def _params_to_port(tree, table: LeafTable, what: str) -> dict:
-    """A params-shaped JAX tree (the params, Adam's mu or nu) as port
-    tensors by ``state_dict`` name."""
+    """A params-shaped JAX tree (the params, Adam's mu or nu, a leading
+    site axis or not) as port tensors by ``state_dict`` name."""
     p, problems = _leaves(tree), []
     _check_leaves(problems, what, p, {j for _, j, _ in table.params})
     _raise_if(problems, table)
@@ -145,8 +147,12 @@ def _params_to_jax(tensors: dict, table: LeafTable) -> dict:
     flat = {}
     for n, j, tr in table.params:
         a = tensors[n].detach().cpu().numpy()
-        flat[j] = a.T if tr else a
+        flat[j] = np.swapaxes(a, -1, -2) if tr else a
     return _nest(flat)
+
+
+def _stats_to_jax(tensors: dict, table: LeafTable) -> dict:
+    return _nest({j: tensors[n].detach().cpu().numpy() for n, j in table.stats})
 
 
 def _state_dict_from(table: LeafTable, params, batch_stats) -> dict:
@@ -211,61 +217,40 @@ def engine_state_from_jax(engine_state, table: LeafTable, device=None) -> dict:
     return out
 
 
-def _site_params_to_jax(tensors: dict, table: LeafTable) -> dict:
-    """A per-site params-shaped dict (``[S, ...]`` leaves by ``state_dict``
-    name: a staleness buffer's or the overlap stash's gradients) as a JAX
-    tree of numpy ``[S, ...]`` leaves."""
-    flat = {}
-    for n, j, tr in table.params:
-        a = tensors[n].detach().cpu().numpy()
-        flat[j] = np.swapaxes(a, -1, -2) if tr else a
-    return _nest(flat)
+def slot_tree_to_jax(tree: dict | None, table: LeafTable) -> dict | None:
+    """A staleness buffer (``{"grads", "weight", "age"}``) or the overlap
+    stash (``{"grads", "stats", "weight", "loss", "live", "valid"}``),
+    every leaf with the leading site axis, as JAX's tree: ``grads`` and
+    ``stats`` in JAX layout, the per-site vectors as numpy. None stays
+    None."""
+    if tree is None:
+        return None
+    convert = {"grads": lambda v: _params_to_jax(v, table),
+               "stats": lambda v: _stats_to_jax(v, table)}
+    return {k: convert[k](v) if k in convert else v.cpu().numpy() for k, v in tree.items()}
 
 
-def _site_params_to_port(tree, table: LeafTable, what: str, device) -> dict:
-    p, problems = _leaves(tree), []
-    _check_leaves(problems, what, p, {j for _, j, _ in table.params})
-    _raise_if(problems, table)
-    return {n: _t(np.swapaxes(p[j], -1, -2) if tr else p[j]).to(device)
-            for n, j, tr in table.params}
+def slot_tree_from_jax(tree, table: LeafTable, device=None) -> dict | None:
+    """JAX's staleness buffer or overlap stash (numpy leaves) as the
+    port's, on ``device``; None or empty gives None. Each vector keeps its
+    dtype (``age`` int32)."""
+    if not tree:
+        return None
 
-
-def slot_state_to_jax(buffers: dict | None, overlap: dict | None, table: LeafTable):
-    """The staleness buffers and the overlap stash (either None) as JAX's
-    trees: ``buffers`` ``{"grads", "weight", "age"}`` and ``overlap``
-    ``{"grads", "stats", "weight", "loss", "live", "valid"}``, the
-    gradients in JAX layout with the leading site axis."""
-    bf = ov = None
-    if buffers is not None:
-        bf = {"grads": _site_params_to_jax(buffers["grads"], table),
-              "weight": buffers["weight"].cpu().numpy(),
-              "age": buffers["age"].cpu().numpy().astype(np.int32)}
-    if overlap is not None:
-        ov = {"grads": _site_params_to_jax(overlap["grads"], table),
-              "stats": _nest({j: overlap["stats"][n].detach().cpu().numpy()
-                              for n, j in table.stats}),
-              **{k: overlap[k].cpu().numpy() for k in ("weight", "loss", "live", "valid")}}
-    return bf, ov
-
-
-def slot_state_from_jax(buffers, overlap, table: LeafTable, device=None):
-    """JAX's staleness buffers and overlap stash (numpy trees, either None
-    or empty) as the port's, on ``device``."""
-    f32 = lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device)  # noqa: E731
-    bf = ov = None
-    if buffers:
-        bf = {"grads": _site_params_to_port(buffers["grads"], table, "buffers grads", device),
-              "weight": f32(buffers["weight"]),
-              "age": torch.from_numpy(np.array(buffers["age"], dtype=np.int32)).to(device)}
-    if overlap:
-        st = _leaves(overlap["stats"])
-        problems: list = []
-        _check_leaves(problems, "overlap stats", st, {j for _, j in table.stats})
+    def stats(v):
+        st, problems = _leaves(v), []
+        _check_leaves(problems, "stats", st, {j for _, j in table.stats})
         _raise_if(problems, table)
-        ov = {"grads": _site_params_to_port(overlap["grads"], table, "overlap grads", device),
-              "stats": {n: _t(st[j]).to(device) for n, j in table.stats},
-              **{k: f32(overlap[k]) for k in ("weight", "loss", "live", "valid")}}
-    return bf, ov
+        return {n: _t(st[j]) for n, j in table.stats}
+
+    convert = {"grads": lambda v: _params_to_port(v, table, "grads"), "stats": stats}
+    out = {}
+    for k, v in tree.items():
+        if k in convert:
+            out[k] = {n: t.to(device) for n, t in convert[k](v).items()}
+        else:
+            out[k] = torch.from_numpy(np.array(v)).to(device)
+    return out
 
 
 def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=None):
@@ -294,11 +279,11 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
     from .robustness.health import health_from_numpy
 
     health = health_from_numpy(tree["health"], dev)
-    buffers, overlap = slot_state_from_jax(tree.get("buffers"), tree.get("overlap"), table, dev)
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                       engine_state=engine_state_from_jax(tree["engine_state"], table, dev),
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health,
-                      buffers=buffers, overlap=overlap)
+                      buffers=slot_tree_from_jax(tree.get("buffers"), table, dev),
+                      overlap=slot_tree_from_jax(tree.get("overlap"), table, dev))
 
 
 def train_state_to_jax(state) -> dict:
@@ -307,7 +292,7 @@ def train_state_to_jax(state) -> dict:
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
     them), ``rng`` (the int seed), ``round``, ``health``, and the
-    ``buffers`` and ``overlap`` trees of :func:`slot_state_to_jax` (None
+    ``buffers`` and ``overlap`` trees of :func:`slot_tree_to_jax` (None
     while their mode is off); the model's table is read off the state's
     params."""
     table = table_of(state.params)
@@ -318,8 +303,7 @@ def train_state_to_jax(state) -> dict:
                "nu": _params_to_jax(state.opt_state["nu"], table)}
     return {
         "params": _params_to_jax(state.params, table),
-        "batch_stats": _nest({j: state.batch_stats[n].detach().cpu().numpy()
-                              for n, j in table.stats}),
+        "batch_stats": _stats_to_jax(state.batch_stats, table),
         "opt_state": opt,
         "engine_state": {key: _nest({
             j: None if tree[n] is None else tree[n].detach().cpu().numpy()
@@ -328,6 +312,6 @@ def train_state_to_jax(state) -> dict:
         "rng": int(state.rng),
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},
-        **dict(zip(("buffers", "overlap"),
-                   slot_state_to_jax(state.buffers, state.overlap, table))),
+        "buffers": slot_tree_to_jax(state.buffers, table),
+        "overlap": slot_tree_to_jax(state.overlap, table),
     }

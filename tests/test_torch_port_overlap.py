@@ -1,14 +1,13 @@
 """The port's overlapped rounds against the JAX package: the cases of
 tests/test_overlap.py on JAX's own corner (MSANNet 6→8→2, 2 sites, 2
 rounds, the host pipeline) run through the port and held against JAX's
-epochs, the stash through checkpoints both ways, and whole overlapped
-epochs of the small ICA-LSTM of tests/test_torch_port_train.py under dSGD
-and rankDAD.
+epochs, the stash through checkpoints both ways, the corner's overlapped
+rounds under rankDAD, and the ICA-LSTM's empty stash.
 
-Tolerances: the corner's losses and params at ``LOSS_TOL`` /
+Tolerances: the corner's dSGD losses and params at ``LOSS_TOL`` /
 ``AGG_TOL``'s f32 entries of tests/test_torch_port_train.py (f32 sums in
-another order); the ICA epochs at that file's epoch tolerances for the
-engine. Everything within the port that the JAX file holds bit for bit is
+another order); its rankDAD epochs at that file's rankDAD tolerances
+(``DAD_LOSS_ATOL``, params on the lr scale). Everything within the port that the JAX file holds bit for bit is
 held bit for bit here.
 """
 
@@ -16,32 +15,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from test_torch_port_train import (
     AGG_TOL,
-    B,
     C,
-    DAD,
     DAD_LOSS_ATOL,
     HID,
-    ICA,
     IN,
     LOSS_TOL,
     LR,
-    PARAM_ATOL,
-    S,
-    T,
     W,
     _compare,
     _flat,
-    _sites,
 )
 
 from dinunet_implementations_tpu.checks.semantic import TraceCell, build_cell_inputs
-from dinunet_implementations_tpu.data import api as jdata
-from dinunet_implementations_tpu.data import batching as jbatching
-from dinunet_implementations_tpu.engines import make_engine
-from dinunet_implementations_tpu.models import icalstm as jm
 from dinunet_implementations_tpu.trainer import checkpoint as jckpt
 from dinunet_implementations_tpu.trainer import steps as jsteps
 from dinunet_implementations_tpu_torch.engines import make_dsgd, make_rankdad
@@ -49,11 +36,7 @@ from dinunet_implementations_tpu_torch.models import icalstm as tm
 from dinunet_implementations_tpu_torch.models.msannet import MSANNet
 from dinunet_implementations_tpu_torch.trainer import checkpoint as tckpt
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
-from dinunet_implementations_tpu_torch.weights import (
-    leaf_table,
-    train_state_from_jax,
-    train_state_to_jax,
-)
+from dinunet_implementations_tpu_torch.weights import train_state_from_jax, train_state_to_jax
 
 
 @pytest.fixture(scope="module")
@@ -221,48 +204,38 @@ def test_default_overlap_stash_matches_jax():
         assert gf[k].dtype == wf[k].dtype and gf[k].tobytes() == wf[k].tobytes(), k
 
 
-@pytest.mark.parametrize("engine_name", ["dSGD", "rankDAD"])
-def test_overlapped_ica_epochs_match_jax(engine_name):
-    """Two overlapped epochs of the small ICA-LSTM, a site dropped in one
-    round: the first round's NaN, the later losses at the engine's epoch
-    tolerance (``LOSS_TOL``; rankDAD ``DAD_LOSS_ATOL``), params on the lr
-    scale (``PARAM_ATOL``), the stash's weights and liveness equal."""
-    model_j = jm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
-                         use_pallas=False, dropout_rate=0.0)
-    task_j = jsteps.FederatedTask(model_j)
-    engine_j = make_engine(engine_name, **(DAD if engine_name == "rankDAD" else {}))
-    opt_j = jsteps.make_optimizer("adam", LR)
-    state_j = jsteps.init_train_state(task_j, engine_j, opt_j, jax.random.PRNGKey(0),
-                                      jnp.zeros((2, T, C, W)), num_sites=S, overlap_rounds=True)
-    epoch_j = jsteps.make_train_epoch_fn(task_j, engine_j, opt_j, pipeline="device",
-                                         overlap_rounds=True)
-    model_t = tm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
-                         dropout_rate=0.0)
-    engine_t = (make_rankdad(transposed=leaf_table(ICA).transposed, **DAD)
-                if engine_name == "rankDAD" else make_dsgd())
-    epoch_t = tsteps.make_train_epoch_fn(tsteps.FederatedTask(model_t), engine_t,
-                                         tsteps.make_optimizer("adam", LR), device="cpu",
-                                         overlap_rounds=True)
-    state_t = train_state_from_jax(jax.tree.map(np.asarray, state_j), device="cpu")
-    sites = _sites()
-    inv = jdata.stack_site_inventory(sites)
-    losses_j, losses_t = [], []
+def test_overlapped_rankdad_epochs_match_jax():
+    """rankDAD's overlapped rounds on JAX's corner, two epochs, site 1 dead
+    in the first epoch's second round: the first round's NaN, the later
+    losses at ``DAD_LOSS_ATOL``, the params on the lr scale of the corner
+    (``PARAM_ATOL``'s 2·lr a round, at the corner's lr), the warm-start Ω
+    finite with the stash's weights, liveness and validity equal to
+    JAX's."""
+    task, engine, opt, state, args, _ = build_cell_inputs(TraceCell("rankDAD", "vmap", "host"))
+    jfn = jsteps.make_train_epoch_fn(task, engine, opt, overlap_rounds=True)
+    model = MSANNet(in_size=6, hidden_sizes=(8,), out_size=2)
+    tfn = tsteps.make_train_epoch_fn(
+        tsteps.FederatedTask(model), make_rankdad(transposed=model.leaf_table(1).transposed),
+        tsteps.make_optimizer("adam", 1e-2), device="cpu", pipeline="host", overlap_rounds=True)
+    state_t = train_state_from_jax(jax.tree.map(np.asarray, state), device="cpu")
+    x, y, w = (np.asarray(a) for a in args[1:])
+    S_, rounds = x.shape[:2]
+    lj, lt = [], []
     for e in range(2):
-        idx = jbatching.plan_epoch_positions(sites, B, seed=e).positions
-        live = np.ones((S, idx.shape[1]), np.float32)
-        live[2, 1] = 0.0
-        state_j, lj = epoch_j(state_j, jnp.asarray(inv.inputs), jnp.asarray(inv.labels),
-                              jnp.asarray(idx), jnp.asarray(live))
-        state_t, lt = epoch_t(state_t, inv.inputs, inv.labels, idx, live)
-        losses_j.append(np.asarray(lj))
-        losses_t.append(lt.numpy())
-    lj, lt = np.concatenate(losses_j), np.concatenate(losses_t)
+        live = np.ones((S_, rounds), np.float32)
+        if e == 0:
+            live[1, 1] = 0.0
+        state, j = jfn(state, *(jnp.asarray(a) for a in (x, y, w, live)))
+        state_t, t = tfn(state_t, x, y, w, live)
+        lj.append(np.asarray(j))
+        lt.append(t.numpy())
+    lj, lt = np.concatenate(lj), np.concatenate(lt)
     assert np.isnan(lj[0]) and np.isnan(lt[0]) and np.isfinite(lt[1:]).all()
-    tol = LOSS_TOL["32"] if engine_name == "dSGD" else dict(atol=DAD_LOSS_ATOL, rtol=0)
-    np.testing.assert_allclose(lt[1:], lj[1:], **tol)
-    got, want = train_state_to_jax(state_t), jax.tree.map(np.asarray, state_j)
-    _compare("params", got["params"], want.params, atol=PARAM_ATOL, rtol=0)
+    np.testing.assert_allclose(lt[1:], lj[1:], atol=DAD_LOSS_ATOL, rtol=0)
+    got, want = train_state_to_jax(state_t), jax.tree.map(np.asarray, state)
+    _compare("params", got["params"], want.params, atol=2 * 1e-2 * len(lt), rtol=0)
     for k in ("weight", "live", "valid"):
         assert got["overlap"][k].tobytes() == want.overlap[k].tobytes(), k
     assert got["health"]["skips"].tolist() == want.health["skips"].tolist()
-    assert torch.isfinite(state_t.overlap["loss"]).all()
+    om = {k: v for k, v in _flat(got["engine_state"]).items() if v.dtype != object}
+    assert om and all(np.isfinite(v).all() for v in om.values())
