@@ -68,10 +68,10 @@ def staleness_weights(age, staleness_bound: int, staleness_decay: float):
     staleness_bound``, 0 past it (an update older than the bound counts as
     a dead site's). ``age == 0`` gives exactly 1.0, which makes an async
     round where every site arrives the bulk-sync round bit for bit."""
-    af = age.float()
     fresh = (age <= staleness_bound).float()
-    return fresh * torch.pow(torch.tensor(staleness_decay, dtype=torch.float32,
-                                          device=age.device), af)
+    # a Python base: a tensor made from it would be copied to the card from
+    # pageable memory every round, which waits for the device
+    return fresh * torch.pow(staleness_decay, age.float())
 
 
 _SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
