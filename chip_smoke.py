@@ -241,7 +241,28 @@ result line:
    resumed after epoch 2 bit-equal to the uninterrupted one, every
    ``publish.json`` seen by the ``CheckpointWatcher`` with the checkpoint's
    ``params_digest``;
-19. one JSON line of per-kernel numbers, then the result line.
+19. the privacy plane at the flagship (phase 6's 32 sites of batch 16,
+   f32, 4 + 4 rounds a pair): dSGD, rankDAD and powerSGD under DP-SGD
+   (clip 1.0, σ 0.5), dSGD under DP with ``secure_agg="mask"``, and dSGD
+   with a personalized ``cls_fc3``, each through the kernels against the
+   plain versions at phase 8's tolerances (the first round's aggregate and
+   heads' step, rankDAD's first Ω by its Gram, powerSGD's first q and e,
+   the losses), K1 and K2 twice a round on the cluster route, K7 once a
+   rank class and round staged, and K7's trips under DP beside DP off;
+   "mask" equal to "mask-nopads" and a clip-only run (clip 1e6, σ 0) equal
+   to DP off, bit for bit on the card, and int32 addition wrapping; the
+   DP transform's and the pads' device ms and launches a round; the
+   BASELINE multimodal 64-site DP-SGD configuration at phase 16's widths
+   under dSGD and rankDAD beside DP off (K7 on its routes, no plain
+   class); on phase 11's tree a DP fit (ε against the accountant), one
+   stopped by its ε budget after epoch 1 and resumed to the uninterrupted
+   ε exactly, a personalized fit whose checkpoint holds the heads in JAX's
+   layout and comes back bit for bit, the command line with every privacy
+   flag; ``FedDaemon`` under DP with a personalized head, a leave and a
+   rejoin (the head row reset, ε never reset); the JAX package's golden
+   privacy-stack fit (hard-SNR, 6 sites, 60 epochs, DP 1.0 / 0.05, masked
+   wires, ``cls_fc3``), its AUC recorded beside the JAX floor;
+20. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -4403,6 +4424,495 @@ def elastic_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str,
             "seconds": seconds}
 
 
+# -- phase 19: the privacy plane -------------------------------------------------
+
+# The privacy A/B defaults of the JAX package's bench (clip 1.0, σ 0.5) at
+# phase 6's flagship; PRIVACY_ROUNDS rounds an epoch, two epochs a pair.
+PRIVACY_DP = dict(dp_clip=1.0, dp_noise_multiplier=0.5, dp_seed=0)
+PRIVACY_PAIRS = (("dSGD", "dp"), ("dSGD", "dp_mask"), ("rankDAD", "dp"), ("powerSGD", "dp"),
+                 ("dSGD", "personalize"))
+PRIVACY_ROUNDS = 4
+PRIVACY_HEAD = ("cls_fc3",)
+PRIVACY_FIT_EPOCHS = 2
+# the golden privacy stack (the JAX package's hard-SNR recipe): 6 sites,
+# 60 epochs, patience 20, batch 8, DP 1.0 / 0.05, masked wires, cls_fc3
+PRIVACY_STACK = dict(epochs=60, patience=20, batch_size=8, split_ratio=(0.7, 0.15, 0.15), seed=0,
+                     dp_clip=1.0, dp_noise_multiplier=0.05, secure_agg="mask",
+                     personalize=PRIVACY_HEAD)
+PRIVACY_STACK_FLOOR = 0.62  # JAX's floor for the same recipe, recorded, not gated
+
+
+def privacy_setup(torch, use_kernel: bool, engine: str, arm: str, **extra):
+    """Phase 6's configuration (32 sites of batch 16, default ``ICAArgs``,
+    dropout 0) under ``engine`` and the privacy ``arm`` ("dp": DP-SGD at
+    ``PRIVACY_DP``; "dp_mask" and "dp_nopads": DP with secure aggregation
+    "mask" / "mask-nopads"; "personalize": ``cls_fc3`` per site; "off":
+    none), its epoch and first state; ``extra`` overrides the DP knobs."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        init_train_state,
+        make_train_epoch_fn,
+    )
+
+    secure = {"dp_mask": "mask", "dp_nopads": "mask-nopads"}.get(arm, "off")
+    head = PRIVACY_HEAD if arm == "personalize" else ()
+    dp = ({**PRIVACY_DP, **extra} if arm in ("dp", "dp_mask", "dp_nopads") else {})
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine,
+                      secure_agg=secure, personalize=head)
+    task, eng, opt = build_training(cfg, use_kernel=use_kernel)
+    task.model.dropout_rate = 0.0
+    epoch = make_train_epoch_fn(task, eng, opt, local_iterations=cfg.local_iterations,
+                                quarantine_rounds=cfg.quarantine_rounds, personalize=head, **dp)
+    return cfg, epoch, init_train_state(task, eng, opt, rng=0, num_sites=cfg.num_sites,
+                                        personalize=head)
+
+
+def privacy_run(torch, epoch, state, inv_x, inv_y, idx):
+    """The epochs of ``idx`` from ``state``: the state, the losses, each
+    epoch's ms."""
+    out, ms, losses = state, [], []
+    for q in idx:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lo = epoch(out, inv_x, inv_y, q)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(lo)
+    return out, torch.cat(losses), ms
+
+
+def privacy_trips(torch, pc, epoch, state, inv_x, inv_y, q) -> list:
+    """Each K7 launch's refinements in one round of ``epoch`` from
+    ``state`` (``[min, mean, max]`` over its members): the wrapper is
+    wrapped for this run only, outside any counted or timed run."""
+    seen, real = [], pc.poweriter_fused
+
+    def spy(*args, **kw):
+        P, Q, trips = real(*args, **kw)
+        t = trips.float()
+        seen.append([t.min().item(), t.mean().item(), t.max().item()])
+        return P, Q, trips
+
+    pc.poweriter_fused = spy
+    try:
+        epoch(state, inv_x, inv_y, q[:, :1])
+    finally:
+        pc.poweriter_fused = real
+    return seen
+
+
+def privacy_pair(torch, np, lc, pc, bc, smi: str, engine: str, arm: str, inv_x, inv_y,
+                 idx) -> dict:
+    """One engine under one privacy arm through the kernels (timed,
+    launches counted) and through the plain versions, held to each other
+    at phase 8's tolerances: the first round's aggregate (and, personalized,
+    each site's head step) within ``AGG_TOL``, rankDAD's first Ω by its
+    Gram, powerSGD's first q and e, the first loss within
+    ``FIRST_LOSS_TOL`` and every loss within ``LOSS_TOL``; K1 and K2 twice
+    a round on the cluster route, K7 once a rank class and round staged."""
+    _, epoch_k, start_k = privacy_setup(torch, True, engine, arm)
+    _, epoch_p, start_p = privacy_setup(torch, False, engine, arm)
+    if not same_tree(start_k.params, start_p.params):
+        fail(f"privacy {engine} {arm}: the kernel and plain paths start from different weights")
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    st_k, lk, ms = privacy_run(torch, epoch_k, start_k, inv_x, inv_y, idx)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    st_p, lp, _ = privacy_run(torch, epoch_p, start_p, inv_x, inv_y, idx)
+    one_k, _ = epoch_k(start_k, inv_x, inv_y, idx[0][:, :1])
+    one_p, _ = epoch_p(start_p, inv_x, inv_y, idx[0][:, :1])
+    agg = lambda s: {k: m / 0.1 for k, m in s.opt_state["mu"].items()}  # noqa: E731
+    agg_tol = lambda w: AGG_TOL["atol"] + AGG_TOL["rtol"] * w.abs()  # noqa: E731
+    dl = (lk - lp).abs()
+    checks = {"first_round_aggregate": leaf_check(agg(one_k), agg(one_p), agg_tol),
+              "first_loss": (dl[0].item(), dl[0].item() <= FIRST_LOSS_TOL),
+              "loss": (dl.max().item(), bool(lk.isfinite().all())
+                       and dl.max().item() <= LOSS_TOL)}
+    if arm == "personalize":
+        heads = lambda s: {k: m / 0.1 for k, m in s.personal["opt"]["mu"].items()}  # noqa
+        checks["first_round_heads"] = leaf_check(heads(one_k), heads(one_p), agg_tol)
+        frozen = all(torch.equal(st_k.params[k], start_k.params[k])
+                     for k in st_k.personal["params"])
+        checks["global_head_frozen"] = (0.0 if frozen else 1.0, frozen)
+    if engine == "rankDAD":
+        omega = lambda st: {k: v for k, v in st.engine_state["omega"].items()  # noqa: E731
+                            if v is not None}
+        om = a9_omega_errs(omega(one_k), omega(one_p))
+        checks["first_round_omega_gram"] = (om["gram"], om["gram"] <= OMEGA_FIRST_TOL)
+    if engine == "powerSGD":
+        for key in ("q", "e"):
+            share = lambda w: PSGD_FIRST_TOL * w.abs().max()  # noqa: E731
+            checks[f"first_round_{key}"] = leaf_check(one_k.engine_state[key],
+                                                      one_p.engine_state[key], share)
+    rounds = sum(q.shape[1] for q in idx)
+    want = elastic_want(torch, launches, engine, rounds)
+    rec = {"engine": engine, "arm": arm, "sites": TRAIN_SITES, "batch": TRAIN_BATCH,
+           "rounds": rounds, "cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1],
+           "warm_ms_per_round": ms[1] / idx[1].shape[1], "launches": launches,
+           "max_abs_err_vs_plain": {k: v for k, (v, _) in checks.items()},
+           "losses": lk.tolist()}
+    if engine == "rankDAD":
+        _, epoch_off, start_off = privacy_setup(torch, True, engine, "off")
+        rec["k7_trips_dp"] = privacy_trips(torch, pc, epoch_k, start_k, inv_x, inv_y, idx[0])
+        rec["k7_trips_off"] = privacy_trips(torch, pc, epoch_off, start_off, inv_x, inv_y, idx[0])
+    print(f"privacy {engine} {arm}: warm epoch {ms[1]:.3f} ms ({idx[1].shape[1]} rounds, cold "
+          f"{ms[0]:.3f}) on {smi}:", json.dumps(rec))
+    if launches != want:
+        fail(f"privacy {engine} {arm} launches {launches}, want {want}")
+    bad = [k for k, (_, ok) in checks.items() if not ok]
+    if bad:
+        fail(f"privacy {engine} {arm} differs from the plain path in {bad}: {checks}")
+    return rec
+
+
+def privacy_identities(torch, np, inv_x, inv_y, idx) -> dict:
+    """On the card: dSGD + DP with "mask" equal to "mask-nopads" bit for
+    bit; a clip far above every norm with σ = 0 equal to the DP-off epochs
+    bit for bit; int32 addition wrapping mod 2**32 as on the CPU."""
+    def end(arm, **extra):
+        _, epoch, start = privacy_setup(torch, True, "dSGD", arm, **extra)
+        return privacy_run(torch, epoch, start, inv_x, inv_y, idx)[0]
+
+    mask, nopads = end("dp_mask"), end("dp_nopads")
+    clip_only = end("dp", dp_clip=1e6, dp_noise_multiplier=0.0)
+    off = end("off")
+    top = torch.tensor([2 ** 31 - 1, -2 ** 31], dtype=torch.int32, device="cuda")
+    wrapped = (top + torch.tensor([1, -1], dtype=torch.int32, device="cuda")).tolist()
+    rec = {"mask_equals_nopads": same_tree(mask.params, nopads.params),
+           "clip_only_equals_off": same_tree(clip_only.params, off.params)
+           and same_tree(clip_only.opt_state["mu"], off.opt_state["mu"]),
+           "int32_wraps": wrapped == [-2 ** 31, 2 ** 31 - 1]}
+    print("privacy identities on the card:", json.dumps(rec))
+    if not all(rec.values()):
+        fail(f"privacy identities: {rec}")
+    return rec
+
+
+def privacy_costs(torch, np, smi: str, inv_x, inv_y, idx) -> dict:
+    """The DP transform and the pads alone, on one round's gradients at
+    the flagship (32 sites): device ms and kernel launches a round from
+    ``torch.profiler`` (None when it shows no device time), and the host
+    ms of the call."""
+    from dinunet_implementations_tpu_torch.privacy.dpsgd import make_dp_fn
+    from dinunet_implementations_tpu_torch.privacy.secure_agg import masked_weighted_mean
+    from dinunet_implementations_tpu_torch.weights import table_of
+
+    _, _, start = privacy_setup(torch, True, "dSGD", "off")
+    table = table_of(start.params)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    grads = {k: 1e-3 * torch.randn((TRAIN_SITES,) + tuple(v.shape), generator=g, device="cuda")
+             for k, v in start.params.items()}
+    weight = torch.full((TRAIN_SITES,), float(TRAIN_BATCH), device="cuda")
+    live = torch.ones(TRAIN_SITES, device="cuda")
+    dp = make_dp_fn(**PRIVACY_DP, table=table)
+    calls = {"dp_transform": lambda: dp(grads, 3),
+             "masked_mean": lambda: masked_weighted_mean(grads, weight, 0, 3, live=live,
+                                                         leaf_index=table.leaf_index,
+                                                         transposed=table.transposed),
+             "masked_mean_nopads": lambda: masked_weighted_mean(grads, weight, 0, 3, live=live,
+                                                                pads=False),
+             "plain_mean": lambda: {k: (v * (weight / weight.sum()).reshape(
+                 (-1,) + (1,) * (v.dim() - 1))).sum(0) for k, v in grads.items()}}
+    out = {"sites": TRAIN_SITES, "shared_values": sum(v[0].numel() for v in grads.values()),
+           "pairs": TRAIN_SITES * (TRAIN_SITES - 1) // 2}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out[name] = {"host_ms": host_ms, **device_profile(torch, fn)}
+    print(f"privacy costs a round at {TRAIN_SITES} sites on {smi}:", json.dumps(out))
+    return out
+
+
+def device_profile(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the device ms summed over
+    its kernels and the kernel count; None for both when the profiler shows
+    no device time."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        us = sum(e.device_time if hasattr(e, "device_time") else e.cuda_time for e in evs)
+        if not evs or us <= 0:
+            return {"device_ms": None, "kernels": None}
+        return {"device_ms": us / 1e3, "kernels": len(evs)}
+    except Exception as e:  # the profiler is untried on this machine: report, do not fail
+        return {"device_ms": None, "kernels": None, "profiler_error": repr(e)[:200]}
+
+
+def privacy_mm(torch, lc, pc, bc, smi: str) -> dict:
+    """The BASELINE multimodal 64-site DP-SGD configuration at phase 16's
+    widths: a cold and a warm epoch under dSGD and rankDAD with DP
+    (``PRIVACY_DP``) beside the same epochs without, launches counted on
+    the DP runs (rankDAD: each K7 launch of each rank class once a round on
+    its route, no plain class), K7's trips of one round with and without
+    DP."""
+    from dinunet_implementations_tpu_torch.runner import build_training
+    from dinunet_implementations_tpu_torch.trainer import init_train_state, make_train_epoch_fn
+
+    routes = k7_routes(torch, pc, a9_cfg(A9_MM, "rankDAD", False), A9_SHAPES[A9_MM]["sites"])
+    out = {"routes": routes}
+    for engine in ("dSGD", "rankDAD"):
+        cfg = a9_cfg(A9_MM, engine, False)
+        inv_x, inv_y, idx = a9_data(torch, cfg)
+        rec = {}
+        for arm in ("off", "dp"):
+            task, eng, opt = build_training(cfg, device="cuda")
+            epoch = make_train_epoch_fn(task, eng, opt, cfg.local_iterations,
+                                        cfg.quarantine_rounds, "cuda",
+                                        **(PRIVACY_DP if arm == "dp" else {}))
+            state = init_train_state(task, eng, opt, rng=cfg.seed, num_sites=cfg.num_sites)
+            start = state
+            torch.cuda.synchronize()
+            zero_counters(lc, pc, bc)  # the main path's run starts here
+            ms, losses = [], []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                state, lo = epoch(state, inv_x, inv_y, idx)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(lo)
+            launches = read_counters(lc, pc, bc)  # read before any check
+            loss = torch.cat(losses)
+            want = (k7_want(launches, routes, 2 * A9_ROUNDS) if engine == "rankDAD"
+                    else dict.fromkeys(launches, 0))
+            if launches != want or not bool(loss.isfinite().all()):
+                fail(f"multimodal {engine} {arm} epochs launched {launches}, want {want}; "
+                     f"losses {loss.tolist()}")
+            rec[arm] = {"cold_epoch_ms": ms[0], "warm_epoch_ms": ms[1], "launches": launches,
+                        "losses": loss.tolist()}
+            if engine == "rankDAD":
+                rec[arm]["k7_trips"] = privacy_trips(torch, pc, epoch, start, inv_x, inv_y, idx)
+        out[engine] = rec
+        print(f"multimodal {engine} at {A9_SHAPES[A9_MM]['sites']} sites: warm epoch "
+              f"{rec['dp']['warm_epoch_ms']:.3f} ms with DP, {rec['off']['warm_epoch_ms']:.3f} ms "
+              f"without, on {smi}:", json.dumps(rec))
+    return out
+
+
+def privacy_fits(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """The fit surfaces on phase 11's tree (module docstring, phase 19)."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.data import epoch_steps
+    from dinunet_implementations_tpu_torch.privacy import (
+        RdpAccountant,
+        effective_noise_multiplier,
+        sampling_fraction,
+    )
+    from dinunet_implementations_tpu_torch.runner import FedRunner, load_site_splits
+    from dinunet_implementations_tpu_torch.trainer import load_checkpoint, load_meta
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import _load_raw
+    from dinunet_implementations_tpu_torch.weights import train_state_from_tree, train_state_to_jax
+
+    base = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+    dp = dict(dp_clip=1.0, dp_noise_multiplier=0.5, patience=99, epochs=PRIVACY_FIT_EPOCHS)
+
+    def fit(out, resume=False, **kw):
+        runner = FedRunner(base, tree, os.path.join(root, out), **{**dp, **kw})
+        return runner, runner.run(folds=[0], verbose=False, resume=resume)[0]
+
+    def ckpt(out, name="checkpoint_latest.msgpack"):
+        return os.path.join(root, out, "remote", "simulatorRun", NNComputation.TASK_ICA,
+                            "fold_0", name)
+
+    runner = FedRunner(base, tree, os.path.join(root, "p_probe"))
+    fold = load_site_splits(runner.cfg, runner.site_dirs, runner.site_cfgs)[0]
+    rounds = epoch_steps(fold["train"], runner.cfg.batch_size) // runner.cfg.local_iterations
+    q = sampling_fraction(runner.cfg.batch_size, runner.cfg.local_iterations,
+                          [len(s) for s in fold["train"]])
+    eps1 = RdpAccountant().step(effective_noise_multiplier(0.5), q, rounds).epsilon(1e-5)[0]
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    _, full = fit("p_full")
+    fit_s = time.perf_counter() - t0
+    launches = read_counters(lc, pc, bc)  # read before any check
+    _, stopped = fit("p_resume", dp_epsilon_budget=eps1)
+    _, resumed = fit("p_resume", resume=True)
+    meta_a, meta_b = load_meta(ckpt("p_full")), load_meta(ckpt("p_resume"))
+    rec = {"rounds_per_epoch": rounds, "fit_seconds": fit_s, "launches": launches,
+           "epsilon": full["dp_epsilon"], "epsilon_one_epoch": eps1,
+           "budget_stopped_epoch": stopped["stopped_epoch"],
+           "budget_epsilon": stopped["dp_epsilon"], "resumed_epsilon": resumed["dp_epsilon"],
+           "ledger_equal": meta_a["dp_accountant"] == meta_b["dp_accountant"]}
+    n = 2 * rounds * PRIVACY_FIT_EPOCHS
+    if (launches["lstm_bwd"] != n or launches["k2_stream_route"] or launches["k1_stream_route"]
+            or launches["poweriter"]):
+        fail(f"the DP fit launched {launches}, want {n} K2 launches on the cluster route")
+    if (stopped["stopped_epoch"] != 1 or resumed["dp_epsilon"] != full["dp_epsilon"]
+            or not rec["ledger_equal"] or not full["dp_epsilon"] > eps1 > 0):
+        fail(f"the DP fit's budget stop or resume: {rec}")
+    # a personalized fit: its best checkpoint in JAX's layout and back
+    _, pers = fit("p_pers", personalize=PRIVACY_HEAD, dp_clip=0.0, dp_noise_multiplier=0.0)
+    raw = _load_raw(ckpt("p_pers", "checkpoint_best.msgpack"))
+    kernel = raw["personal"]["params"]["cls_fc3"]["kernel"]
+    _, _, like = privacy_setup(torch, True, "dSGD", "personalize")
+    back = load_checkpoint(ckpt("p_pers", "checkpoint_best.msgpack"), like)
+    again = train_state_from_tree(train_state_to_jax(back), device="cuda")
+    layout_ok = (tuple(raw["personal"]) == ("opt", "params")
+                 and tuple(np.shape(kernel)) == (FIT_SITES, 64, 2)
+                 and tuple(raw["personal"]["opt"]["0"]) == ("count", "mu", "nu")
+                 and np.shape(raw["personal"]["opt"]["0"]["count"]) == (FIT_SITES,))
+    round_trip = (same_tree(again.personal["params"], back.personal["params"])
+                  and same_tree(again.personal["opt"]["mu"], back.personal["opt"]["mu"])
+                  and torch.equal(again.personal["opt"]["count"], back.personal["opt"]["count"])
+                  and np.array_equal(np.asarray(kernel), back.personal["params"][
+                      "cls_fc3.weight"].mT.cpu().numpy()))
+    site_scores = [json.load(open(os.path.join(
+        root, "p_pers", f"local{i}", "simulatorRun", NNComputation.TASK_ICA, "fold_0",
+        "logs.json")))["test_metrics"] for i in (0, 1)]
+    rec.update(personal_layout_ok=layout_ok, personal_round_trip=round_trip,
+               personal_test_metrics=pers["test_metrics"], personal_site_scores=site_scores)
+    print(f"privacy fits on phase 11's tree, {FIT_SITES} sites, on {smi}:", json.dumps(rec))
+    if not (layout_ok and round_trip):
+        fail(f"the personalized checkpoint: {rec}")
+    return rec
+
+
+def privacy_cli(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """The command line with every privacy flag on phase 11's tree: one
+    fold's JSON line, ε in each ``logs.json``, K1 and K2 counted."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.runner import cli
+
+    out = os.path.join(root, "p_cli")
+    argv = ["--data-path", tree, "--task", NNComputation.TASK_ICA, "--epochs", "1",
+            "--folds", "0", "--out-dir", out, "--quiet", "--dp-clip", "1", "--dp-noise", "0.5",
+            "--secure-agg", "mask", "--personalize", "cls_fc3"]
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    logs = json.load(open(os.path.join(out, "local0", "simulatorRun", NNComputation.TASK_ICA,
+                                       "fold_0", "logs.json")))
+    rec = {"rc": rc, "line": line, "dp_epsilon": logs.get("dp_epsilon"), "launches": launches}
+    print("privacy command line:", json.dumps(rec))
+    if rc != 0 or not (logs.get("dp_epsilon") or 0) > 0 or not launches["lstm_fwd"] \
+            or launches["k1_stream_route"] or launches["k2_stream_route"]:
+        fail(f"the privacy command line: {rec}")
+    return rec
+
+
+def privacy_daemon(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """``FedDaemon`` under DP with a personalized head over phase 18's
+    daemon tree: a leave after epoch 1 and the rejoin after epoch 2; the
+    rejoined slot's head reset to the global head at the rejoin, ε growing
+    across the rejoin (never reset), K1 and K2 the same every epoch."""
+    from dinunet_implementations_tpu_torch.core.config import (
+        NNComputation,
+        TrainConfig,
+        load_inputspec,
+    )
+    from dinunet_implementations_tpu_torch.runner import FedDaemon
+
+    tree = daemon_tree(os.path.join(root, "p_daemon_tree"))
+    spec = load_inputspec(os.path.join(tree, "inputspec.json"))
+    d = FedDaemon(TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, batch_size=TRAIN_BATCH,
+                              personalize=PRIVACY_HEAD, **PRIVACY_DP),
+                  capacity=DAEMON_CAPACITY, data_path=tree, out_dir=os.path.join(root, "p_d"),
+                  poll_s=0.01, verbose=False)
+    events = [{"event": "leave", "site": "local1", "after_epoch": 1},
+              {"event": "join", "site": "local1", "after_epoch": 2, "config": spec[1],
+               "data_dir": os.path.join(tree, "input", "local1", "simulatorRun")}]
+    for i, ev in enumerate(events):
+        with open(os.path.join(d.spool_dir, f"ev{i:03d}.json"), "w") as fh:
+            json.dump(ev, fh)
+    eps, heads_reset, per_epoch = [], [], []
+    train, reset = d.train_epoch, d._reset_slot
+
+    def counted():
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)  # each epoch of the main path starts here
+        loss = train()
+        torch.cuda.synchronize()
+        per_epoch.append(read_counters(lc, pc, bc))
+        eps.append(d.trainer._dp_epsilon)
+        return loss
+
+    def reset_and_check(slot, site="", generation=0):
+        reset(slot, site, generation)
+        if d.state is not None and d.state.personal is not None:
+            heads_reset.append(all(torch.equal(d.state.personal["params"][k][slot],
+                                               d.state.params[k])
+                                   for k in d.state.personal["params"]))
+
+    d.train_epoch, d._reset_slot = counted, reset_and_check
+    d.serve(max_epochs=4)
+    rec = {"epochs": d.epochs_run, "epsilon_per_epoch": eps, "heads_reset": heads_reset,
+           "generation_local1": d.table.generation_of("local1"), "launches_per_epoch": per_epoch}
+    print("privacy daemon:", json.dumps(rec))
+    rounds = d._steps // d.cfg.local_iterations
+    want = elastic_want(torch, per_epoch[0], "dSGD", rounds)
+    if (d.epochs_run != 4 or rec["generation_local1"] != 2 or not heads_reset
+            or not all(heads_reset) or any(b <= a for a, b in zip(eps, eps[1:]))
+            or any(p != want for p in per_epoch)):
+        fail(f"the privacy daemon: {rec}, want {want} launches an epoch")
+    return rec
+
+
+def privacy_stack(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """The JAX package's golden privacy-stack fit (its hard-SNR recipe:
+    ``PRIVACY_STACK``) on the port: a finite test loss and ε > 0 held; the
+    AUC recorded beside ``PRIVACY_STACK_FLOOR`` (the noise draws are the
+    port's own, so it is not gated)."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.data import make_hard_ica_tree
+    from dinunet_implementations_tpu_torch.runner import FedRunner
+
+    tree = make_hard_ica_tree(os.path.join(root, "p_hard"), n_sites=6)
+    t0 = time.perf_counter()
+    res = FedRunner(TrainConfig(task_id=NNComputation.TASK_ICA, agg_engine="dSGD",
+                                **PRIVACY_STACK), tree, os.path.join(root, "p_hard_out")
+                    ).run(verbose=False)[0]
+    loss, auc = res["test_metrics"][0]
+    rec = {"test_loss": loss, "test_auc": auc, "floor_jax": PRIVACY_STACK_FLOOR,
+           "epsilon": res.get("dp_epsilon"), "best_val_epoch": res["best_val_epoch"],
+           "stopped_epoch": res["stopped_epoch"], "seconds": time.perf_counter() - t0}
+    print(f"privacy stack (golden recipe) on {smi}:", json.dumps(rec))
+    if not (np.isfinite(loss) and (res.get("dp_epsilon") or 0) > 0):
+        fail(f"the privacy-stack fit: {rec}")
+    return rec
+
+
+def privacy_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """Phase 19 of the module docstring: the privacy plane."""
+    t_phase = time.perf_counter()
+    cfg = privacy_setup(torch, True, "dSGD", "off")[0]
+    inv, plans = training_data(np, cfg)
+    if any(q.shape[1] < PRIVACY_ROUNDS for q in plans):
+        fail(f"phase 19 wants {PRIVACY_ROUNDS} rounds an epoch: {[q.shape for q in plans]}")
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = [torch.from_numpy(q[:, :PRIVACY_ROUNDS]).cuda() for q in plans]
+    pairs = [privacy_pair(torch, np, lc, pc, bc, smi, e, a, inv_x, inv_y, idx)
+             for e, a in PRIVACY_PAIRS]
+    identities = privacy_identities(torch, np, inv_x, inv_y, idx)
+    costs = privacy_costs(torch, np, smi, inv_x, inv_y, idx)
+    mm = privacy_mm(torch, lc, pc, bc, smi)
+    fits = privacy_fits(torch, np, lc, pc, bc, smi, tree, root)
+    cli = privacy_cli(torch, np, lc, pc, bc, smi, tree, root)
+    daemon = privacy_daemon(torch, np, lc, pc, bc, smi, root)
+    stack = privacy_stack(torch, np, lc, pc, bc, smi, root)
+    seconds = time.perf_counter() - t_phase
+    print(f"privacy phase {seconds:.1f} s on {smi}")
+    return {"pairs": pairs, "identities": identities, "costs": costs, "mm": mm, "fits": fits,
+            "cli": cli, "daemon": daemon, "stack": stack, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -4503,6 +5013,12 @@ def main() -> int:
               "plain; a kill_at_round fit and its resume; the daemon")
         elastic = elastic_phase(torch, np, lc, pc, bc, smi, fit["tree"], root,
                                 train["ms_per_round"])
+
+        print("== 19. the privacy plane at full width: DP-SGD under dSGD / rankDAD / powerSGD, "
+              "secure aggregation and a personalized head against plain; the multimodal "
+              "64-site DP-SGD epochs; DP and personalized fits, the command line, the daemon; "
+              "the golden privacy-stack fit")
+        privacy = privacy_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4555,6 +5071,19 @@ def main() -> int:
     by_path["elastic_daemon"] = sum(e["lstm_fwd"] for e in elastic["daemon"]["launches_per_epoch"])
     bwd_by_path["elastic_daemon"] = sum(e["lstm_bwd"]
                                         for e in elastic["daemon"]["launches_per_epoch"])
+    for p in privacy["pairs"]:
+        name = f"privacy_{p['engine']}_{p['arm']}"
+        by_path[name] = p["launches"]["lstm_fwd"]
+        bwd_by_path[name] = p["launches"]["lstm_bwd"]
+        if p["engine"] == "rankDAD":
+            k7_by_path[name] = p["launches"]["poweriter"]
+    for part in ("fits", "cli"):
+        by_path[f"privacy_{part}"] = privacy[part]["launches"]["lstm_fwd"]
+        bwd_by_path[f"privacy_{part}"] = privacy[part]["launches"]["lstm_bwd"]
+    by_path["privacy_daemon"] = sum(e["lstm_fwd"] for e in privacy["daemon"]["launches_per_epoch"])
+    bwd_by_path["privacy_daemon"] = sum(e["lstm_bwd"]
+                                        for e in privacy["daemon"]["launches_per_epoch"])
+    k7_by_path["privacy_mm_rankDAD_dp"] = privacy["mm"]["rankDAD"]["dp"]["launches"]["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

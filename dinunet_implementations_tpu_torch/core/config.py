@@ -268,13 +268,22 @@ class TrainConfig:
     reputation_z: float = 2.0
     reputation_rounds: int = 8
     min_slices: int = 1
-    # the privacy plane (ROADMAP A10 (c)): refused at any value but these
+    # the privacy plane (privacy/): DP-SGD clips each site's round gradient
+    # to dp_clip and adds dp_noise_multiplier·dp_clip of Gaussian noise
+    # (0 and 0: off; noise needs a clip); the RDP accountant reports ε at
+    # dp_delta and a fit stops cleanly once ε reaches dp_epsilon_budget
+    # (0: no budget)
     dp_clip: float = 0.0
     dp_noise_multiplier: float = 0.0
     dp_seed: int = 0
     dp_delta: float = 1e-5
     dp_epsilon_budget: float = 0.0
+    # secure-aggregation masked wires, dSGD only: "off", "mask", or the
+    # pads-zeroed verification arm "mask-nopads"; the pads' seed
     secure_agg: str = "off"
+    secure_agg_seed: int = 0
+    # personalized per-site heads: JAX path substrings of the leaves kept
+    # out of the aggregation (e.g. ("cls_fc3",)); () is off
     personalize: tuple = ()
 
     def task_args(self):

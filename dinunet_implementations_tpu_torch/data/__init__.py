@@ -15,7 +15,13 @@ from .batching import (
     plan_epoch_positions,
     plan_eval,
 )
-from .demo import make_demo_tree, make_fs_demo_tree, make_ica_demo_tree, make_multimodal_demo_tree
+from .demo import (
+    make_demo_tree,
+    make_fs_demo_tree,
+    make_hard_ica_tree,
+    make_ica_demo_tree,
+    make_multimodal_demo_tree,
+)
 from .freesurfer import FreeSurferDataset, FSVDataHandle, coerce_label, read_aseg_stats
 from .ica import ICADataHandle, ICADataset, load_timecourses, window_timecourses
 from .multimodal import MultimodalDataHandle, MultimodalDataset
@@ -45,6 +51,7 @@ __all__ = [
     "load_timecourses",
     "make_demo_tree",
     "make_fs_demo_tree",
+    "make_hard_ica_tree",
     "make_ica_demo_tree",
     "make_multimodal_demo_tree",
     "materialize_plan",

@@ -72,11 +72,11 @@ def make_fs_demo_tree(root: str, n_sites: int = 4, subjects: int = 32,
 
 def make_ica_demo_tree(root: str, n_sites: int = 2, subjects: int = 24, comps: int = 16,
                        temporal: int = 80, window: int = 10, stride: int = 10, seed: int = 0,
-                       shift: float = 0.8) -> str:
+                       shift: float = 0.8, input_size: int = 32, hidden_size: int = 24) -> str:
     """Generate an ICA-Classification simulator tree under ``root``.
     Label-1 subjects get a ``+shift``·σ mean shift in the first quarter of
-    the components. The inputspec pins a narrow model (encoder 32, BiLSTM
-    24); returns ``root``."""
+    the components. The inputspec pins a narrow model (by default encoder
+    32, BiLSTM 24); returns ``root``."""
     rng = np.random.default_rng(seed)
     spec = []
     for i in range(n_sites):
@@ -97,8 +97,8 @@ def make_ica_demo_tree(root: str, n_sites: int = 2, subjects: int = 24, comps: i
             window_size=window,
             window_stride=stride,
             num_components=comps,
-            input_size=32,
-            hidden_size=24,
+            input_size=input_size,
+            hidden_size=hidden_size,
             num_class=2,
         ).items()})
     with open(os.path.join(root, "inputspec.json"), "w") as fh:
@@ -159,6 +159,16 @@ def make_multimodal_demo_tree(root: str, n_sites: int = 2, subjects: int = 24,
     with open(os.path.join(root, "inputspec.json"), "w") as fh:
         json.dump(spec, fh, indent=1)
     return root
+
+
+def make_hard_ica_tree(root: str, n_sites: int = 6, seed: int = 7) -> str:
+    """The JAX package's hard-SNR golden tree (its tests' recipe): 24
+    subjects a site, 8 components of 40 timepoints in windows of 5, the
+    class a +0.35σ shift in 2 of the 8 components, a model of encoder 16
+    and BiLSTM 12. The same bytes as that recipe's tree for the same
+    ``n_sites`` and ``seed``; returns ``root``."""
+    return make_ica_demo_tree(root, n_sites=n_sites, subjects=24, comps=8, temporal=40, window=5,
+                              stride=5, seed=seed, shift=0.35, input_size=16, hidden_size=12)
 
 
 def make_demo_tree(root: str, task: str = "FS-Classification", **kw) -> str:

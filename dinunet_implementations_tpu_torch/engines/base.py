@@ -10,12 +10,14 @@ An engine is a pair of functions the epoch runs every round:
   powerSGD (the right factor and the error-feedback residual).
   ``trainer.init_train_state`` stacks it per site (``[S, n, r]``), as the
   JAX trainer does, and the epoch freezes a dead site's rows for the round;
-- ``aggregate(grads, state, weight, live=None) -> (agg, state)``: per-site
-  gradients (a dict of ``[S, ...]`` leaves), the per-site state and
-  example weights ``[S]`` to the aggregated gradient (a dict of unbatched
-  leaves) and the new per-site state. ``live [S]`` is the round's 0/1
-  contribute mask: a dead site's payload and weight are zeroed before the
-  reduction, and the weighted mean renormalizes over live weight only.
+- ``aggregate(grads, state, weight, live=None, rnd=None) -> (agg,
+  state)``: per-site gradients (a dict of ``[S, ...]`` leaves), the
+  per-site state and example weights ``[S]`` to the aggregated gradient (a
+  dict of unbatched leaves) and the new per-site state. ``live [S]`` is the
+  round's 0/1 contribute mask: a dead site's payload and weight are zeroed
+  before the reduction, and the weighted mean renormalizes over live weight
+  only. ``rnd`` is the global round, which keys dSGD's secure-aggregation
+  pads (the other engines take and ignore it).
 """
 
 from __future__ import annotations
@@ -74,15 +76,12 @@ def staleness_weights(age, staleness_bound: int, staleness_decay: float):
     return fresh * torch.pow(staleness_decay, age.float())
 
 
-_SECURE_AGGS = ("off", "mask", "mask-nopads")  # the JAX privacy/secure_agg.py modes
-
-
 def refuse_secure_agg(secure_agg) -> None:
     """The low-rank engines' check of ``secure_agg``: JAX's ``ValueError``
     for an unknown mode and for any mode but "off"."""
-    if secure_agg not in _SECURE_AGGS:
-        raise ValueError(f"secure_agg must be one of {_SECURE_AGGS}, got {secure_agg!r}")
-    if secure_agg != "off":
+    from ..privacy.secure_agg import secure_agg_enabled
+
+    if secure_agg_enabled(secure_agg):
         raise ValueError(
             f"secure_agg={secure_agg!r} is only supported by the dSGD engine: the low-rank "
             "engines gather per-site factors, which a masked psum wire cannot carry")
@@ -92,4 +91,4 @@ def refuse_secure_agg(secure_agg) -> None:
 class Engine:
     name: str
     init: Callable  # params -> state
-    aggregate: Callable  # (grads, state, weight, live=None) -> (agg, state)
+    aggregate: Callable  # (grads, state, weight, live=None, rnd=None) -> (agg, state)

@@ -1,14 +1,21 @@
 """dSGD, decentralized SGD: the example-weighted mean of the sites' full
 gradients, with the ``precision_bits`` payload cast. The subset of the JAX
-package's ``engines/dsgd.py`` for ``wire_quant="none"`` and
-``secure_agg="off"``, with its byzantine-robust modes (``robust_agg``):
+package's ``engines/dsgd.py`` for ``wire_quant="none"``, with its
+byzantine-robust modes (``robust_agg``) and its secure-aggregation masked
+wire (``secure_agg``):
 
 - ``"norm_clip"`` clips each site's gradient to ``robust_clip_mult``
   times the live-weighted median site norm before the same weighted mean;
 - ``"trimmed_mean"`` and ``"coordinate_median"`` reduce each coordinate
   of the sites' payloads (each cast to the payload dtype, as each site's
   wire would carry it) by the live-weighted trimmed mean or median; the
-  reduction runs in f32 and is cast to the gradient's dtype.
+  reduction runs in f32 and is cast to the gradient's dtype;
+- ``secure_agg="mask"`` (or the pads-zeroed ``"mask-nopads"``) replaces
+  the weighted mean with privacy/secure_agg.py's fixed-point, pad-masked
+  sum of each site's payload (rounded through the payload dtype first);
+  ``norm_clip`` composes (it clips before the masking), the gather-based
+  reducers and the quantized or inter-slice wire codecs do not, as in
+  JAX. Its pads are keyed by the global round, ``aggregate(..., rnd=)``.
 """
 
 from __future__ import annotations
@@ -22,16 +29,41 @@ from ..parallel.collectives import (
     robust_reduce_tree,
     site_weighted_mean,
 )
+from ..privacy.secure_agg import masked_weighted_mean, secure_agg_enabled
 from .base import Engine, mask_dead_site
 
 
 def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
               secure_agg="off", robust_trim_frac: float = 0.2,
-              robust_clip_mult: float = 2.5) -> Engine:
-    for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
-                                      ("secure_agg", secure_agg, "off", "A10 (c) (secure_agg)")):
-        if value != ported:
-            raise NotImplementedError(f"dSGD {name}={value!r} is not ported: ROADMAP {item}")
+              robust_clip_mult: float = 2.5, secure_agg_seed: int = 0,
+              dcn_wire_quant: str = "", leaf_index=None, transposed=frozenset()) -> Engine:
+    """``leaf_index`` and ``transposed`` lay out the secure-aggregation pads
+    (each leaf's place among the aggregated leaves in JAX's order, and the
+    leaves stored as the transpose of their JAX matrix); the result does
+    not depend on them."""
+    secure = secure_agg_enabled(secure_agg)
+    if secure and wire_quant in ("int8", "fp8"):
+        raise ValueError(
+            f"secure_agg={secure_agg!r} cannot compose with wire_quant={wire_quant!r}: a float "
+            "codec grid on the wire destroys the integer pad cancellation (bf16 and the plain "
+            "precision_bits wires compose — the payload pre-rounds, the wire stays int32)")
+    if secure and robust_agg in ("trimmed_mean", "coordinate_median"):
+        raise ValueError(
+            f"secure_agg={secure_agg!r} cannot compose with robust_agg={robust_agg!r}: the "
+            "gather-based reducers need every site's payload in the clear (norm_clip composes "
+            "— it runs before masking on the unchanged psum wire)")
+    if secure and dcn_wire_quant not in ("", "none"):
+        raise ValueError(
+            f"secure_agg={secure_agg!r} cannot compose with a DCN wire codec (dcn_wire_quant="
+            f"{dcn_wire_quant!r}): re-quantizing the per-slice int32 partial through a float "
+            "grid destroys pad cancellation — set dcn_wire_quant='none' (the fused exact "
+            "(slice, site) reduce)")
+    if wire_quant != "none":
+        raise NotImplementedError(f"dSGD wire_quant={wire_quant!r} is not ported: ROADMAP A11 "
+                                  "(WireCodec)")
+    if dcn_wire_quant not in ("", "none"):
+        raise NotImplementedError(f"dSGD dcn_wire_quant={dcn_wire_quant!r} is not ported: "
+                                  "ROADMAP A11 (slices)")
     check_robust_agg(robust_agg, robust_trim_frac)
     payload_dtype(precision_bits)  # rejects an unknown flag here, not in the first round
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
@@ -39,13 +71,19 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
     def init(params):
         return {}
 
-    def aggregate(grads, state, weight, live=None):
+    def aggregate(grads, state, weight, live=None, rnd=None):
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
         payload = payload_cast(grads, precision_bits)
         if gather_mode:
             agg = robust_reduce_tree(payload, weight, robust_agg, robust_trim_frac)
+            return payload_uncast(agg, grads), state
+        if secure:
+            agg = masked_weighted_mean(
+                {k: g.float() for k, g in payload.items()}, weight, secure_agg_seed, rnd,
+                live=live, pads=secure_agg != "mask-nopads", leaf_index=leaf_index,
+                transposed=transposed)
             return payload_uncast(agg, grads), state
         return payload_uncast(site_weighted_mean(payload, weight), grads), state
 

@@ -119,7 +119,7 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     def wire(x):
         return x if pdtype == torch.float32 else x.to(pdtype).float()
 
-    def aggregate(grads: dict, state: dict, weight, live=None):
+    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None):
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)

@@ -106,7 +106,7 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             return g.transpose(1, 2)
         return g.reshape(g.shape[0], *_matrix_shape(g.shape[1:]))
 
-    def aggregate(grads: dict, state: dict, weight, live=None, axis_name=None):
+    def aggregate(grads: dict, state: dict, weight, live=None, axis_name=None, rnd=None):
         if axis_name is not None:
             raise NotImplementedError("rankDAD over a mesh or packed site axis is not ported: "
                                       "ROADMAP A11")

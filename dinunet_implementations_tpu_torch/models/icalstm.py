@@ -343,3 +343,26 @@ class ICALstm(nn.Module):
             stats["cls_bn.running_mean"], stats["cls_bn.running_var"], bn.momentum, bn.eps)
         o = torch.relu(dense_("cls_fc2", torch.relu(o)))
         return dense_("cls_fc3", o), {"cls_bn.running_mean": mean, "cls_bn.running_var": var}
+
+    def site_eval(self, params, stats, x, mask=None):
+        """The eval forward of every site at once, on site-batched weights:
+        ``params`` as :meth:`site_forward` takes them (the personalized
+        heads' leaves per site, every other leaf a stride-0 view), ``stats``
+        the running statistics by buffer name, ``x [S, B, windows, comps,
+        wlen]``. The LSTM runs every site's rows in one call, as the folded
+        eval does; the head BatchNorm normalizes by the running statistics.
+        Returns ``logits [S, B, num_cls]``."""
+        S, B, W = x.shape[:3]
+        cdt = compute_dtype_of(self.compute_dtype)
+
+        def dense_(name, v, dtype=None):
+            return site_linear(params[name + ".weight"], params[name + ".bias"], v, dtype)
+
+        enc = torch.relu(dense_("encoder", x.reshape(S, B * W, -1), cdt))
+        o, _ = self.lstm(enc.reshape(S * B, W, -1), params=_scope(params, "lstm"))
+        o = dense_("cls_fc1", o.float().reshape(S, B, -1))
+        o = (o - stats["cls_bn.running_mean"]) * torch.rsqrt(stats["cls_bn.running_var"]
+                                                             + self.cls_bn.eps)
+        o = o * params["cls_bn.weight"][:, None] + params["cls_bn.bias"][:, None]
+        o = torch.relu(dense_("cls_fc2", torch.relu(o)))
+        return dense_("cls_fc3", o)

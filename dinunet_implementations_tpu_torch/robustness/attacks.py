@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -163,19 +164,36 @@ def attack_window(plan: AttackPlan | None, num_sites: int, round0: int, rounds: 
 
 def draw_seed(kind: str, key: tuple) -> int:
     """The generator seed of one draw: ``kind`` "noise" with ``key =
-    (noise_seed, site, round, leaf index)``, or "collude" with ``key =
-    (collude_seed, round, leaf index)``, folded by ``h = h·1000003 + k``
-    modulo 2**63 from a per-kind start."""
-    h = {"noise": 1, "collude": 2}[kind]
+    (noise_seed, site, round, leaf index)``, "collude" with ``key =
+    (collude_seed, round, leaf index)``, and the privacy plane's "dp"
+    (``(dp_seed, site, round, leaf index)``, privacy/dpsgd.py) and "pad"
+    (``(seed, lo, hi, round, leaf index)``, privacy/secure_agg.py), folded
+    by ``h = h·1000003 + k`` modulo 2**63 from a per-kind start."""
+    h = {"noise": 1, "collude": 2, "dp": 3, "pad": 4}[kind]
     for k in key:
         h = (h * 1_000_003 + int(k)) % (1 << 63)
     return h
 
 
+_GENERATORS = threading.local()
+
+
+def seeded_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` set to ``seed``: one a thread and
+    device, re-seeded for each draw (``manual_seed`` resets its counter, so
+    the draw is a fresh generator's), so that a draw makes no generator of
+    its own."""
+    cache = _GENERATORS.__dict__.setdefault("by_device", {})
+    key = str(device)
+    if key not in cache:
+        cache[key] = torch.Generator(device=device)
+    return cache[key].manual_seed(seed)
+
+
 def default_draw(kind: str, key: tuple, shape, device) -> torch.Tensor:
     """A standard normal ``shape`` draw from a ``torch.Generator`` on
     ``device`` seeded with :func:`draw_seed`."""
-    gen = torch.Generator(device=device).manual_seed(draw_seed(kind, key))
+    gen = seeded_generator(draw_seed(kind, key), device)
     return torch.randn(tuple(shape), generator=gen, dtype=torch.float32, device=device)
 
 

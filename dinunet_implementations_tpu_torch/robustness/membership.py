@@ -8,10 +8,9 @@ incarnation N+1 started with fresh state, and the table's epoch bumps on
 every transition. The elastic-rounds daemon (runner/fed_runner.py
 ``FedDaemon``) maps training sites onto its fixed slot axis with the same
 table, and resets and moves each slot's per-site state rows (engine state,
-health, staleness buffers, the overlap stash) with
-:func:`reset_slot_state` and :func:`move_slot_state`;
-:func:`membership_rollup` is its summary. The privacy rows (a personalized
-head) come with the privacy plane, ROADMAP A10 (c).
+health, staleness buffers, the overlap stash, a personalized head with its
+optimizer row) with :func:`reset_slot_state` and :func:`move_slot_state`;
+:func:`membership_rollup` is its summary.
 
 Key invariants:
 
@@ -270,16 +269,24 @@ def reset_slot_state(state, slot: int, engine=None):
     engine state re-initialized by ``engine.init`` on the current params
     (``engine=None`` keeps the rows, for an engine with empty state), the
     health counters zeroed, the staleness buffer emptied (weight 0, the
-    never-deposited age) and the overlap stash's row cleared (``valid``
-    0). Called at every slot assignment, so a rejoining site starts its new
-    generation clean. Returns a new state; ``state`` is left as it was."""
+    never-deposited age), the overlap stash's row cleared (``valid`` 0)
+    and a personalized head's row restarted from the CURRENT global head
+    with a fresh optimizer row (zero moments and count). Called at every
+    slot assignment, so a rejoining site starts its new generation clean;
+    the cohort's privacy ledger (the trainer's accountant) is untouched, as
+    ε belongs to the mechanism's history, not to a slot. Returns a new
+    state; ``state`` is left as it was."""
     import dataclasses as dc
 
     from ..engines.base import ASYNC_NEVER_AGE
 
+    personal = getattr(state, "personal", None)
     if engine is not None and state.engine_state:
+        # under personalization the engine state covers the shared leaves
+        shared = {k: v for k, v in state.params.items()
+                  if personal is None or k not in personal["params"]}
         state = dc.replace(state, engine_state=_set_row(state.engine_state, slot,
-                                                        engine.init(state.params)))
+                                                        engine.init(shared)))
     if state.health is not None:
         state = dc.replace(state, health=_set_row(state.health, slot, 0))
     if state.buffers is not None:
@@ -289,13 +296,19 @@ def reset_slot_state(state, slot: int, engine=None):
                                            "age": _set_row(bufs["age"], slot, ASYNC_NEVER_AGE)})
     if getattr(state, "overlap", None) is not None:
         state = dc.replace(state, overlap=_set_row(state.overlap, slot, 0.0))
+    if personal is not None:
+        state = dc.replace(state, personal={
+            "params": _set_row(personal["params"], slot,
+                               {k: state.params[k] for k in personal["params"]}),
+            "opt": _set_row(personal["opt"], slot, 0)})
     return state
 
 
 def move_slot_state(state, src: int, dst: int, engine=None):
     """Copy every per-site row of slot ``src`` to ``dst`` (a rebalance: the
-    same incarnation keeps its warm engine state, health, buffer and stash
-    at its new slot), then reset ``src``, as JAX's ``move_slot_state``."""
+    same incarnation keeps its warm engine state, health, buffer, stash and
+    personalized head at its new slot), then reset ``src``, as JAX's
+    ``move_slot_state``."""
     import dataclasses as dc
 
     def mv(tree):
@@ -307,7 +320,7 @@ def move_slot_state(state, src: int, dst: int, engine=None):
         out[dst] = tree[src]
         return out
 
-    for key in ("engine_state", "health", "buffers", "overlap"):
+    for key in ("engine_state", "health", "buffers", "overlap", "personal"):
         if getattr(state, key, None) is not None:
             state = dc.replace(state, **{key: mv(getattr(state, key))})
     return reset_slot_state(state, src, engine=engine)

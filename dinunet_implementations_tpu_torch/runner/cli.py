@@ -30,6 +30,12 @@
         --serve --serve-capacity 8 --serve-epochs 4 --set staleness_bound=2
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --overlap-rounds
 
+    # the privacy plane: DP-SGD with an ε budget, masked wires, and a
+    # personalized classifier head per site
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --dp-clip 1 --dp-noise 0.5 --dp-epsilon-budget 8 --secure-agg mask \
+        --personalize cls_fc3
+
 Any ``TrainConfig`` field (or task-args field) can be set with ``--set
 key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
 ``--set pretrain=true --set 'pretrain_args={"epochs": 1}'``). Each fold
@@ -59,7 +65,6 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_PRIVACY = "A10 (c) (DP-SGD, secure aggregation, personalization)"
 _TELEMETRY = "A12 (telemetry, profiles, the compile cache)"
 _SCHEDULER = "A19 (the scheduler and supervisor)"
 _REFUSED = {
@@ -68,9 +73,6 @@ _REFUSED = {
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "dp_clip": (0.0, _PRIVACY), "dp_noise": (0.0, _PRIVACY),
-    "dp_epsilon_budget": (0.0, _PRIVACY), "secure_agg": ("off", _PRIVACY),
-    "personalize": (None, _PRIVACY),
     "telemetry": ("off", _TELEMETRY), "profile_dir": (None, _TELEMETRY),
     "xprof_dir": (None, _TELEMETRY), "compile_cache": (None, _TELEMETRY),
     "sanitize": (None, _TELEMETRY), "statusz_port": (None, _TELEMETRY),
@@ -161,6 +163,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap-rounds", action="store_true", default=None,
                    help="apply each round's update one round late, JAX's overlapped rounds "
                         "(on one card there is no collective to hide)")
+    p.add_argument("--dp-clip", type=float, default=None, metavar="C",
+                   help="DP-SGD: clip each site's round-gradient L2 norm to C before the "
+                        "engine; 0 = off")
+    p.add_argument("--dp-noise", type=float, default=None, metavar="SIGMA",
+                   help="DP-SGD noise multiplier σ: adds σ·C Gaussian noise per site per "
+                        "round, drawn per (dp_seed, site, round, leaf). Needs --dp-clip > 0; "
+                        "the RDP accountant reports (ε, δ) in the results and logs.json")
+    p.add_argument("--dp-epsilon-budget", type=float, default=None, metavar="EPS",
+                   help="stop the fit cleanly (checkpointed; the best state is still tested) "
+                        "once the accountant's ε reaches this budget; 0 = unbounded")
+    p.add_argument("--secure-agg", default=None, choices=["off", "mask", "mask-nopads"],
+                   help="secure-aggregation masked wires (dSGD only): 'mask' one-time-pads "
+                        "each site's fixed-point delta with pairwise int32 masks that cancel "
+                        "exactly in the site sum; 'mask-nopads' is the pads-zeroed "
+                        "verification arm (bit-identical results)")
+    p.add_argument("--personalize", default=None, metavar="PATTERNS",
+                   help="personalized per-site heads: comma-separated parameter-path "
+                        "substrings (e.g. 'cls_fc3' for the ICA-LSTM classifier) kept out of "
+                        "the aggregation; each site trains and evaluates its own head")
     p.add_argument("--device", default=None,
                    help="where to run: the CUDA card by default, 'cpu' to run on the CPU")
     p.add_argument("--quiet", action="store_true")
@@ -175,10 +196,7 @@ def build_parser() -> argparse.ArgumentParser:
             ("--coordinator", {}), ("--num-processes", dict(type=int)),
             ("--process-id", dict(type=int)),
             ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--dp-clip", dict(type=float)), ("--dp-noise", dict(type=float)),
-            ("--dp-epsilon-budget", dict(type=float)),
-            ("--secure-agg", dict(choices=["off", "mask", "mask-nopads"])),
-            ("--personalize", {}), ("--telemetry", dict(choices=["on", "off"])),
+            ("--telemetry", dict(choices=["on", "off"])),
             ("--profile-dir", {}), ("--xprof-dir", {}), ("--compile-cache", {}),
             ("--sanitize", dict(nargs="?", const="1")), ("--statusz-port", dict(type=int)),
             ("--slo-p99-ms", dict(type=float)), ("--schedule", dict(action="store_true")),
@@ -239,7 +257,12 @@ def main(argv: list[str] | None = None) -> int:
     for key, val in (("task_id", args.task), ("agg_engine", args.engine), ("mode", args.mode),
                      ("epochs", args.epochs), ("batch_size", args.batch_size),
                      ("num_folds", args.num_folds), ("pipeline", args.pipeline),
-                     ("robust_agg", args.robust_agg), ("overlap_rounds", args.overlap_rounds)):
+                     ("robust_agg", args.robust_agg), ("overlap_rounds", args.overlap_rounds),
+                     ("dp_clip", args.dp_clip), ("dp_noise_multiplier", args.dp_noise),
+                     ("dp_epsilon_budget", args.dp_epsilon_budget),
+                     ("secure_agg", args.secure_agg),
+                     ("personalize", None if args.personalize is None
+                      else tuple(p for p in args.personalize.split(",") if p))):
         if val is not None:
             overrides[key] = val
     cfg = TrainConfig().with_overrides(overrides)

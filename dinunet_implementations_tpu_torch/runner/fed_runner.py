@@ -16,7 +16,14 @@ package's ``runner/fed_runner.py``.
   checkpoints with the membership table in the meta and announces each
   checkpoint in ``publish.json`` for the serving plane's
   ``CheckpointWatcher``; with ``TrainConfig.staleness_bound > 0`` it
-  aggregates buffered-async, so stragglers fade instead of stalling.
+  aggregates buffered-async, so stragglers fade instead of stalling. Its
+  epochs step the trainer's privacy accountant, and an exhausted
+  ``dp_epsilon_budget`` checkpoints and stops the service (counted in
+  ``serve_dp_budget_stops_total``).
+
+Every runner takes the privacy plane's config fields (DP-SGD, secure
+aggregation, personalized heads); a personalized fit's per-site scores
+(each site on its own head) land in each ``local{i}/logs.json``.
 
 No runner wraps a fold in the JAX package's ``sanitized_fit``, and the
 daemon has no flight recorder, file sink or tracer (ROADMAP A12).
@@ -571,6 +578,16 @@ class FedDaemon:
         self.bus.observe("serve_epoch_ms", (time.perf_counter() - t0) * 1e3)
         self._log(f"[serve] epoch {self.epochs_run}: train_loss={loss:.4f} "
                   f"({self.table.occupied}/{self.capacity} slots)")
+        # an exhausted ε budget (the trainer's accountant, stepped in
+        # run_epoch) is a clean stop of this daemon: checkpoint, latch
+        budget = float(self.cfg.dp_epsilon_budget or 0.0)
+        eps = self.trainer._dp_epsilon
+        if budget > 0 and eps is not None and eps >= budget:
+            self.bus.counter("serve_dp_budget_stops_total")
+            self._log(f"[serve] dp ε-budget exhausted: ε={eps:.3f} ≥ {budget} — "
+                      "checkpointing and stopping")
+            self.checkpoint()
+            self._stop = True
         return loss
 
     def compiles_after_first_epoch(self) -> dict:

@@ -15,9 +15,11 @@ dSGD, rankDAD's per-site ``{"omega": ...}``, powerSGD's per-site ``{"q":
 ..., "e": ...}``, with None for a dense leaf),
 ``rng`` (a threefry key, ``uint32 [2]``: the port's int seed ``s`` is
 written as ``[s >> 32, s & 0xffffffff]``, which is ``PRNGKey(s)``),
-``round``, ``health``, the empty ``telemetry`` and ``personal``, the
-staleness ``buffers`` and the ``overlap`` stash (``{}`` while their mode is
-off; restored the tolerant way JAX restores them), and ``meta_json``.
+``round``, ``health``, the empty ``telemetry``, the staleness ``buffers``,
+the ``overlap`` stash and the personalized heads' rows ``personal``
+(``{"params": head subtree [S, ...], "opt": {"0": {"count" [S], "mu",
+"nu"}, "1": {}}}``; each ``{}`` while its mode is off, restored the
+tolerant way JAX restores them), and ``meta_json``.
 Trees are in JAX layout (flax kernels ``[in, out]``) through
 ``weights.train_state_to_jax`` / ``train_state_from_tree``, so a file the
 port writes restores in JAX with ``load_checkpoint(path, like=jax_state)``
@@ -44,6 +46,7 @@ from ..weights import (
     _params_to_jax,
     _params_to_port,
     engine_state_from_jax,
+    personal_from_jax,
     slot_tree_from_jax,
     table_of,
     train_state_from_tree,
@@ -150,13 +153,18 @@ def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
     ``path + '.meta.json'`` sidecar is written too."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     t = train_state_to_jax(state)
-    opt = t["opt_state"]
-    first = ({"count": np.asarray(opt["count"], np.int32), "mu": opt["mu"], "nu": opt["nu"]}
-             if opt else {})
+
+    def chain(opt):
+        """optax's chain as flax writes it."""
+        first = ({"count": np.asarray(opt["count"], np.int32), "mu": _sorted(opt["mu"]),
+                  "nu": _sorted(opt["nu"])} if opt else {})
+        return {"0": first, "1": {}}
+
+    personal = t["personal"]
     payload = {
         "params": _sorted(t["params"]),
         "batch_stats": _sorted(t["batch_stats"]),
-        "opt_state": {"0": _sorted(first), "1": {}},
+        "opt_state": chain(t["opt_state"]),
         "engine_state": _sorted(t["engine_state"]),
         "rng": _key(t["rng"]),
         "round": np.asarray(t["round"], np.int32),
@@ -164,7 +172,8 @@ def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
         "telemetry": {},
         "buffers": _sorted(t["buffers"]) if t["buffers"] is not None else {},
         "overlap": _sorted(t["overlap"]) if t["overlap"] is not None else {},
-        "personal": {},
+        "personal": ({} if personal is None else
+                     {"opt": chain(personal["opt"]), "params": _sorted(personal["params"])}),
         "meta_json": json.dumps(meta or {}),
     }
     # serialize before rotating: a failure here must not have moved the old
@@ -199,7 +208,9 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     ``like`` (a ``ValueError`` otherwise). As in JAX, the engine state
     restores tolerantly: a stored tree that does not match ``like``'s
     (another engine or knob, absent in an older file) gives ``like``'s
-    with a warning, a cold restart of the warm-start carry. The per-site
+    with a warning, a cold restart of the warm-start carry; so do the
+    staleness buffers, the overlap stash and the personalized heads'
+    rows. The per-site
     health restores field by field (:func:`_restore_health`), so a robust
     run resumed from a plain checkpoint keeps its counters (JAX's restore
     would start them fresh)."""
@@ -221,7 +232,10 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
             raise ValueError(f"checkpoint {path}: {what} do not match the current model")
     engine_state = like.engine_state
     try:
-        stored = engine_state_from_jax(raw.get("engine_state") or {}, table, dev)
+        # the leaves the live engine aggregates (the shared ones under
+        # personalization)
+        names = set(next(iter(like.engine_state.values()))) if like.engine_state else None
+        stored = engine_state_from_jax(raw.get("engine_state") or {}, table, dev, names)
         ok = stored.keys() == like.engine_state.keys() and all(
             _same_shapes(stored[k], like.engine_state[k]) for k in stored)
     except ValueError:
@@ -234,10 +248,35 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     health = _restore_health(path, raw.get("health") or {}, like.health, dev)
     buffers = _restore_slot_tree(path, "buffers", raw, like, table, dev)
     overlap = _restore_slot_tree(path, "overlap", raw, like, table, dev)
+    personal = _restore_personal(path, raw, like, table, dev)
     state = TrainState(params=state.params, batch_stats=state.batch_stats,
                        opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
-                       round=state.round, health=health, buffers=buffers, overlap=overlap)
+                       round=state.round, health=health, buffers=buffers, overlap=overlap,
+                       personal=personal)
     return (state, _meta(raw)) if with_meta else state
+
+
+def _restore_personal(path: str, raw: dict, like: TrainState, table, dev):
+    """The personalized heads' rows, restored the tolerant way JAX restores
+    them: ``like``'s (None for a run without personalization, fresh
+    common-model rows otherwise) when the file holds none, and, with a
+    warning, when it holds rows of another site count or partition."""
+    want, stored = like.personal, raw.get("personal")
+    if not stored or want is None:
+        return want
+    try:
+        opt = stored.get("opt") or {}
+        first = opt.get("0", {}) if isinstance(opt, dict) else {}
+        got = personal_from_jax({"params": stored.get("params"), "opt": first}, table, dev)
+        ok = got is not None and _same_tree(got, want)
+    except (KeyError, TypeError, ValueError, AttributeError):
+        ok = False
+    if ok:
+        return got
+    warnings.warn(f"checkpoint {path}: stored personalized-head rows do not match the current "
+                  "run (site count or partition patterns changed?); resuming with fresh "
+                  "common-model heads")
+    return want
 
 
 def _same_tree(got, like) -> bool:

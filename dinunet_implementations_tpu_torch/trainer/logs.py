@@ -118,6 +118,14 @@ def health_log_fields(site_health: dict | None, site_index: int | None = None) -
     return out
 
 
+def privacy_log_fields(results: dict) -> dict:
+    """``logs.json`` fields of the spent differential privacy: the fit's
+    final (ε, δ), absent when the DP mechanism was off or noiseless."""
+    if "dp_epsilon" not in results:
+        return {}
+    return {"dp_epsilon": results["dp_epsilon"], "dp_delta": results["dp_delta"]}
+
+
 def write_test_metrics_csv(dirpath: str, fold: int, metrics: dict) -> str:
     """``metrics``: name → value; accuracy and f1 must be present (the
     notebook reads columns 1 and 2)."""

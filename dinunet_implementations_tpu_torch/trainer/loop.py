@@ -36,7 +36,15 @@ churn.
 
 Options the port does not run raise ``NotImplementedError`` naming the
 ROADMAP item that ports them, at any value other than "off": a mesh (A11),
-DP (A10 (c)), and telemetry, profiles and the compile cache (A12).
+and telemetry, profiles and the compile cache (A12).
+
+The privacy plane: ``cfg.dp_clip`` / ``dp_noise_multiplier`` / ``dp_seed``,
+``cfg.secure_agg`` and ``cfg.personalize`` reach the epoch function and
+the engine. With noise, the trainer keeps the RDP accountant
+(privacy/accounting.py), steps it by every epoch's rounds, reports ε at
+``cfg.dp_delta`` (``results["dp_epsilon"]``, each ``logs.json``), carries
+it in the rotating checkpoint's meta (a resumed fit continues ε exactly)
+and stops cleanly, checkpointed, once ε reaches ``cfg.dp_epsilon_budget``.
 
 Warm starts, skipped when a fit resumes: ``cfg.pretrained_path`` loads a
 checkpoint's params, then ``cfg.pretrain`` with ``cfg.pretrain_args`` of
@@ -59,6 +67,7 @@ from ..engines import build_engine, make_dsgd
 from ..robustness.attacks import attack_window
 from ..robustness.faults import fault_window, poison_inputs
 from ..robustness.health import health_summary
+from ..privacy import RdpAccountant, dp_enabled, effective_noise_multiplier, sampling_fraction
 from ..robustness.preemption import PreemptionGuard, Preempted
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
@@ -68,6 +77,7 @@ from .logs import (
     health_log_fields,
     log_info,
     log_warning,
+    privacy_log_fields,
     write_logs_json,
     write_test_metrics_csv,
     zip_global_results,
@@ -90,12 +100,15 @@ def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
         raise ValueError(f"cfg.telemetry must be 'on' or 'off', got {cfg.telemetry!r}")
     if not 0.0 < cfg.dp_delta < 1.0:
         raise ValueError(f"dp_delta must be in (0, 1), got {cfg.dp_delta}")
+    if cfg.dp_epsilon_budget < 0.0:
+        raise ValueError(f"dp_epsilon_budget must be >= 0, got {cfg.dp_epsilon_budget}")
+    noisy = dp_enabled(cfg.dp_clip, cfg.dp_noise_multiplier) and cfg.dp_noise_multiplier > 0.0
+    if cfg.dp_epsilon_budget > 0.0 and not noisy:
+        raise ValueError("dp_epsilon_budget needs dp_noise_multiplier > 0 — a noiseless "
+                         "mechanism never exhausts any finite ε budget")
     unported = (
         ("mesh", mesh is not None, "A11 (multi-GPU)"),
         ("bus", bus is not None, "A12 (telemetry)"),
-        ("cfg.dp_clip", cfg.dp_clip != 0.0, "A10 (c) (DP-SGD)"),
-        ("cfg.dp_noise_multiplier", cfg.dp_noise_multiplier != 0.0, "A10 (c) (DP-SGD)"),
-        ("cfg.dp_epsilon_budget", cfg.dp_epsilon_budget != 0.0, "A10 (c) (DP-SGD)"),
         ("cfg.telemetry", cfg.telemetry != "off", "A12 (telemetry)"),
         ("cfg.profile_dir", bool(cfg.profile_dir), "A12 (profiles)"),
         ("cfg.xprof_dir", bool(cfg.xprof_dir), "A12 (profiles)"),
@@ -125,6 +138,11 @@ class FederatedTrainer:
         self.engine = build_engine(cfg)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
         self._pipeline = cfg.pipeline
+        # the RDP ledger of a noisy mechanism: one for the batch fit and the
+        # daemon's epochs alike (run_epoch steps it)
+        noisy = dp_enabled(cfg.dp_clip, cfg.dp_noise_multiplier) and cfg.dp_noise_multiplier > 0
+        self.dp_accountant = RdpAccountant() if noisy else None
+        self._dp_epsilon = None  # the last reported ε (None: DP off or noiseless)
         # the port's epoch writes no tensor of the state it is given, so a
         # kept state (the best one) needs no copy: JAX donates the carried
         # state and must snapshot it
@@ -138,7 +156,7 @@ class FederatedTrainer:
             min_slices=cfg.min_slices, dp_clip=cfg.dp_clip,
             dp_noise_multiplier=cfg.dp_noise_multiplier, dp_seed=cfg.dp_seed,
             personalize=tuple(cfg.personalize))
-        self.eval_fn = make_eval_fn(self.task, self.device)
+        self.eval_fn = make_eval_fn(self.task, self.device, personalize=tuple(cfg.personalize))
         self._inventory = None  # device-resident site inventory, one per fit
         self._inventory_src = None  # the site arrays it was built from
         self._cache: dict = {}  # duration bookkeeping, reference-keyed
@@ -163,7 +181,8 @@ class FederatedTrainer:
         return init_train_state(self.task, self.engine, self.optimizer, rng=self.cfg.seed,
                                 num_sites=n, reputation=self.cfg.robust_agg != "none",
                                 staleness_bound=self.cfg.staleness_bound,
-                                overlap_rounds=self.cfg.overlap_rounds)
+                                overlap_rounds=self.cfg.overlap_rounds,
+                                personalize=tuple(self.cfg.personalize))
 
     def _ensure_inventory(self, train_sites):
         """The device pipeline's resident inventory: copied to the device
@@ -211,7 +230,7 @@ class FederatedTrainer:
         Host pipeline: the same plan's dense batches, copied a round at a
         time, NaN-poisoned on the host. Both take the window's liveness
         and attack masks. Returns ``(state, losses)`` with the losses in
-        numpy."""
+        numpy; a noisy DP fit's accountant steps by the epoch's rounds."""
         bs = batch_size or self.cfg.batch_size
         L = max(self.cfg.local_iterations, 1)
         if self._pipeline == "device":
@@ -233,7 +252,21 @@ class FederatedTrainer:
             self._last_transfer_bytes = inputs.nbytes + fb.labels.nbytes + fb.weights.nbytes + sum(
                 a.nbytes for a in (live, attack) if a is not None)
             state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack)
-        return state, losses.cpu().numpy()
+        losses = losses.cpu().numpy()
+        self._account_epoch(train_sites, losses, bs)
+        return state, losses
+
+    def _account_epoch(self, train_sites, losses, batch_size: int) -> None:
+        """Step the RDP ledger by the epoch's rounds at the cohort's largest
+        sampling fraction and at σ/2 (the clip-of-mean sensitivity is 2C,
+        ``accounting.MEAN_CLIP_SENSITIVITY_FACTOR``), and note ε."""
+        if self.dp_accountant is None:
+            return
+        q = sampling_fraction(batch_size, self.cfg.local_iterations,
+                              [len(s) for s in train_sites])
+        self.dp_accountant.step(effective_noise_multiplier(self.cfg.dp_noise_multiplier), q,
+                                steps=len(losses))
+        self._dp_epsilon = float(self.dp_accountant.epsilon(self.cfg.dp_delta)[0])
 
     @staticmethod
     def _new_metrics(num_class: int):
@@ -367,6 +400,10 @@ class FederatedTrainer:
             self._cache["cumulative_total_duration"] = cum
             if cum:  # continue the cumulative wall-clock line from its total
                 t_start = time.perf_counter() - cum[-1]
+            # the privacy ledger continues exactly: no double count, no reset
+            if self.dp_accountant is not None and meta.get("dp_accountant"):
+                self.dp_accountant = RdpAccountant.from_json(meta["dp_accountant"])
+                self._dp_epsilon = float(self.dp_accountant.epsilon(cfg.dp_delta)[0])
             best_state = (load_checkpoint(best_path, state)
                           if os.path.exists(best_path) or os.path.exists(best_path + ".prev")
                           else state)
@@ -433,7 +470,8 @@ class FederatedTrainer:
                                   "time_spent_on_computation", []),
                               "cumulative_total_duration": self._cache.get(
                                   "cumulative_total_duration", []),
-                              "dp_accountant": None})
+                              "dp_accountant": (self.dp_accountant.to_json()
+                                                if self.dp_accountant is not None else None)})
                 # a signal that landed during the epoch, or a crossed kill
                 # round, exits here: after the rotating checkpoint, so that
                 # resume=True continues bit for bit from this boundary
@@ -448,6 +486,16 @@ class FederatedTrainer:
                                         f"during epoch {epoch}; state saved to {saved}",
                                         epoch=epoch)
                     round_before = round_after
+                # an exhausted ε budget stops the fit after the epoch's
+                # rotating checkpoint, and the best state is tested as usual
+                if (cfg.dp_epsilon_budget > 0.0 and self._dp_epsilon is not None
+                        and self._dp_epsilon >= cfg.dp_epsilon_budget):
+                    if verbose:
+                        log_info(f"[fold {fold}] epoch {epoch}: privacy budget exhausted "
+                                 f"(ε={self._dp_epsilon:.3f} ≥ {cfg.dp_epsilon_budget}); "
+                                 "stopping")
+                    stop_epoch = epoch
+                    break
                 if stop:
                     stop_epoch = epoch
                     break
@@ -467,6 +515,9 @@ class FederatedTrainer:
         # per-site counters of the final state (the best may predate a
         # quarantine)
         results["site_health"] = health_summary(state.health)
+        if self._dp_epsilon is not None:
+            results["dp_epsilon"] = self._dp_epsilon
+            results["dp_delta"] = cfg.dp_delta
         if self.out_dir:
             self._write_outputs(results, iter_durations, best_state, fold)
         results["state"] = best_state
@@ -502,7 +553,8 @@ class FederatedTrainer:
         return TrainState(params=pre.params, batch_stats=pre.batch_stats,
                           opt_state=self.optimizer.init(pre.params),
                           engine_state=state.engine_state, rng=state.rng, round=pre.round,
-                          health=state.health, buffers=state.buffers, overlap=state.overlap)
+                          health=state.health, buffers=state.buffers, overlap=state.overlap,
+                          personal=state.personal)
 
     def test_only(self, test_sites: list[SiteArrays], fold: int = 0) -> dict:
         """``mode="test"``: evaluate the fold's best checkpoint, which
@@ -522,6 +574,9 @@ class FederatedTrainer:
         sd = params_from_jax(cfg, params, stats)
         state.params = {k: sd[k].to(self.device) for k in state.params}
         state.batch_stats = {k: sd[k].to(self.device) for k in state.batch_stats}
+        # no head rows in a params-only restore: a personalized build
+        # evaluates the global heads, as JAX's does
+        state.personal = None
         results = self._test_results(state, test_sites, int(meta.get("best_val_epoch", 0)),
                                      meta.get("best_val_metric"), stop_epoch=0, epoch_losses=[])
         results["state"] = state
@@ -561,11 +616,13 @@ class FederatedTrainer:
                 results["best_val_epoch"], cum, comp, iter_durations, side="local",
                 extra={"site_index": i, "pooled_test_metrics": results["test_metrics"],
                        "durations_shared_across_sites": True,
-                       **health_log_fields(results.get("site_health"), i)})
+                       **health_log_fields(results.get("site_health"), i),
+                       **privacy_log_fields(results)})
         d = fold_dir(self.out_dir, "remote", cfg.task_id, fold)
         write_logs_json(d, cfg.agg_engine, results["test_metrics"], results["best_val_epoch"],
                         cum, comp, iter_durations, side="remote",
-                        extra=health_log_fields(results.get("site_health")))
+                        extra={**health_log_fields(results.get("site_health")),
+                               **privacy_log_fields(results)})
         write_test_metrics_csv(d, fold, results["test_scores"])
         save_checkpoint(os.path.join(d, "checkpoint_best.msgpack"), best_state,
                         meta={"best_val_epoch": results["best_val_epoch"],

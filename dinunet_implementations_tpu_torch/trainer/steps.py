@@ -33,6 +33,7 @@ autograd returns each site's own gradient ``[S, ...]``, where JAX takes
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable
 
@@ -43,6 +44,8 @@ from ..core.device import resolve_device
 from ..engines.base import default_async_buffers, staleness_weights
 from ..models.layers import BatchNorm
 from ..parallel.collectives import check_robust_agg, per_site, site_flat, site_weight_scale
+from ..privacy.dpsgd import make_dp_fn
+from ..privacy.personalize import default_personal, graft_shared, head_leaf_paths, strip_tree
 from ..robustness.health import REPUTATION_KEYS, default_health, reputation_fields
 
 
@@ -99,7 +102,7 @@ def eval_folds_sites(model) -> bool:
     return all(m.track_running_stats for m in model.modules() if isinstance(m, BatchNorm))
 
 
-def make_eval_fn(task: FederatedTask, device=None):
+def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
     """The full-pass eval of a training state, on ``device`` (the card
     unless the caller asks for ``"cpu"``): ``eval_fn(state, inputs [S,
     steps, B, ...], labels [S, steps, B], weights [S, steps, B])`` returns
@@ -118,19 +121,37 @@ def make_eval_fn(task: FederatedTask, device=None):
     does. Weight-0
     rows are padding: they carry weight 0 into the loss sum and the
     statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
-    ``mesh=None`` and no personalization."""
+    ``mesh=None``.
+
+    ``personalize`` (head patterns): a state that carries ``personal`` rows
+    evaluates each site on its own head. A model with a ``site_eval``
+    (ICALstm) keeps the fold, with the head leaves per site: its LSTM still
+    runs every site's rows in one call. Any other model runs each site's
+    rows in a call of their own on its merged weights. A state without
+    rows (a params-only restore) evaluates the global heads, as in JAX."""
     dev = resolve_device(device)
     fold = eval_folds_sites(task.model)
+    personal_on = bool(tuple(personalize))
 
     def eval_fn(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]
+        heads = (state.personal["params"]
+                 if personal_on and state.personal is not None else None)
         st = _StateTask(task.model, {**state.params, **state.batch_stats})
+        if heads is not None and not (fold and hasattr(task.model, "site_eval")):
+            sts = [_StateTask(task.model, {**state.params, **{k: v[s] for k, v in heads.items()},
+                                           **state.batch_stats}) for s in range(S)]
         probs, loss_sum, w_sum = [], torch.zeros(S, device=dev), torch.zeros(S, device=dev)
         for k in range(steps):
             x = _to_device(inputs[:, k], dev, torch.float32)
             y = _to_device(labels[:, k], dev)
             w = _to_device(weights[:, k], dev, torch.float32)
-            if fold:
+            if heads is not None and fold and hasattr(task.model, "site_eval"):
+                p, ce = _site_eval(task.model, state, heads, x, y, w)
+            elif heads is not None:
+                p, ce = (torch.stack(t) for t in zip(
+                    *(eval_forward(sts[s], x[s], y[s], w[s]) for s in range(S))))
+            elif fold:
                 p, ce = eval_forward(st, x.reshape((S * B,) + x.shape[2:]), y.reshape(-1),
                                      w.reshape(-1))
             else:
@@ -142,6 +163,20 @@ def make_eval_fn(task: FederatedTask, device=None):
         return torch.stack(probs, 1), loss_sum, w_sum
 
     return eval_fn
+
+
+def _site_eval(model, state: TrainState, heads: dict, x, y, w):
+    """:func:`eval_forward` of every site at once with each site's own head
+    leaves (``model.site_eval``): ``x [S, B, ...]`` → ``(probs [S, B, C],
+    ce [S, B])``."""
+    S = x.shape[0]
+    params = {k: heads[k] if k in heads else v.unsqueeze(0).expand(S, *v.shape)
+              for k, v in state.params.items()}
+    with torch.inference_mode():
+        logits = model.site_eval(params, state.batch_stats, x, w)
+        probs = torch.softmax(logits, -1)
+        ce = -torch.log_softmax(logits, -1).gather(-1, y.long()[..., None])[..., 0]
+    return probs, ce
 
 
 def cross_entropy(logits, labels, weights):
@@ -187,12 +222,16 @@ def _adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> O
                 "nu": {k: torch.zeros_like(v) for k, v in params.items()}}
 
     def update(grads, state):
+        """One step; a ``count`` with a leading site axis (the personalized
+        heads' per-site rows, ``[S]``) corrects each row's moments by its
+        own count."""
         mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
         nu = {k: (1 - b2) * (g * g) + b2 * state["nu"][k] for k, g in grads.items()}
         count = state["count"] + 1
         c = count.float()
         bc1, bc2 = 1 - torch.pow(b1, c), 1 - torch.pow(b2, c)
-        updates = {k: -lr * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + eps)) for k in grads}
+        updates = {k: -lr * ((mu[k] / per_site(bc1, mu[k]))
+                             / (torch.sqrt(nu[k] / per_site(bc2, nu[k])) + eps)) for k in grads}
         return updates, {"count": count, "mu": mu, "nu": nu}
 
     return Optimizer("adam", init, update)
@@ -206,9 +245,11 @@ class TrainState:
     ``{"omega": {name: [S, n, r] or None}}``), the dropout seed ``rng``, the
     global ``round`` and the per-site ``health`` counters. ``buffers`` are
     the per-slot staleness buffers of the buffered-async rounds
-    (``engines.default_async_buffers``) and ``overlap`` the stash of the
-    overlapped rounds (:func:`default_overlap_stash`), each None while its
-    mode is off."""
+    (``engines.default_async_buffers``), ``overlap`` the stash of the
+    overlapped rounds (:func:`default_overlap_stash`) and ``personal`` the
+    personalized heads' per-site rows (``{"params": {name: [S, ...]},
+    "opt": ...}``, privacy/personalize.py), each None while its mode is
+    off."""
 
     params: dict
     batch_stats: dict
@@ -219,6 +260,7 @@ class TrainState:
     health: dict
     buffers: dict | None = None
     overlap: dict | None = None
+    personal: dict | None = None
 
 
 def _tree_map(fn, tree):
@@ -239,25 +281,30 @@ def _freeze_dead(alive, new, old):
 
 def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
                      num_sites: int = 1, reputation: bool = False, staleness_bound: int = 0,
-                     overlap_rounds: bool = False) -> TrainState:
+                     overlap_rounds: bool = False, personalize: tuple = ()) -> TrainState:
     """The first state of a fit, from the weights and running statistics of
     ``task.model`` (on the model's device). The engine state is one copy
     per site, a leading ``[num_sites]`` axis, as in JAX; ``reputation=True``
     (a robust aggregation's fit) adds the reputation health fields,
-    ``staleness_bound > 0`` the never-deposited staleness buffers and
-    ``overlap_rounds=True`` the empty overlap stash."""
+    ``staleness_bound > 0`` the never-deposited staleness buffers,
+    ``overlap_rounds=True`` the empty overlap stash and ``personalize``
+    (head patterns, privacy/personalize.py) the per-site head rows, with the
+    engine state built on the shared leaves only."""
     params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
     stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
     dev = next(iter(params.values())).device
+    head = head_leaf_paths(params, personalize)
     site_state = _tree_map(lambda a: a.unsqueeze(0).repeat(num_sites, *([1] * a.dim())),
-                           engine.init(params))
+                           engine.init(strip_tree(params, head, keep_head=False)))
     return TrainState(params=params, batch_stats=stats, opt_state=optimizer.init(params),
                       engine_state=site_state, rng=rng, round=0,
                       health=default_health(num_sites, reputation, dev),
                       buffers=(default_async_buffers(num_sites, params)
                                if staleness_bound > 0 else None),
                       overlap=(default_overlap_stash(num_sites, params, stats)
-                               if overlap_rounds else None))
+                               if overlap_rounds else None),
+                      personal=(default_personal(num_sites, params, head, optimizer)
+                                if head else None))
 
 
 def default_overlap_stash(num_sites: int, params: dict, batch_stats: dict) -> dict:
@@ -302,35 +349,19 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 _UNPORTED = {
     "mesh": (None, "A11 (multi-GPU)"),
     "telemetry": (False, "A12 (telemetry)"),
-    "dp_clip": (0.0, "A10 (c) (DP-SGD)"),
-    "dp_noise_multiplier": (0.0, "A10 (c) (DP-SGD)"),
-    "personalize": ((), "A10 (c) (personalization)"),
     "min_slices": (1, "A11 (slices)"),
 }
 #: options of the JAX package that only govern how its program runs (scan
 #: inputs, buffer donation) and change no result: any value is taken
 _EXECUTION_ONLY = ("rounds_scan_xs", "donate_state")
-#: options that act only through other options: name -> (JAX's default,
-#: the options of ``_UNPORTED`` that switch it on)
-_DEPENDENT = {
-    "dp_seed": (0, ("dp_clip", "dp_noise_multiplier")),
-}
 
 
 def _check_options(options: dict) -> None:
     """Refuse the JAX options this port does not run (see
     :func:`make_train_epoch_fn`), before anything is built."""
-    for name in sorted(options, key=lambda n: n not in _DEPENDENT):  # dependents first
+    for name in sorted(options):
         value = options[name]
         if name in _EXECUTION_ONLY:
-            continue
-        if name in _DEPENDENT:
-            default, through = _DEPENDENT[name]
-            on = [k for k in through if options.get(k, _UNPORTED[k][0]) != _UNPORTED[k][0]]
-            if on and value != default:
-                raise NotImplementedError(
-                    f"make_train_epoch_fn({name}={value!r}) acts through {on[0]}, which is not "
-                    f"ported: ROADMAP {_UNPORTED[on[0]][1]}")
             continue
         if name not in _UNPORTED:
             raise TypeError(f"make_train_epoch_fn() got an unexpected option {name!r}")
@@ -366,7 +397,9 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         device=None, pipeline: str = "device", attack_plan=None,
                         robust_agg: str = "none", reputation_z: float = 2.0,
                         reputation_rounds: int = 8, staleness_bound: int = 0,
-                        staleness_decay: float = 0.5, overlap_rounds: bool = False, **options):
+                        staleness_decay: float = 0.5, overlap_rounds: bool = False,
+                        dp_clip: float = 0.0, dp_noise_multiplier: float = 0.0, dp_seed: int = 0,
+                        personalize: tuple = (), **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
@@ -446,12 +479,28 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     as in JAX. Both modes imply the guarded round; both off run the
     program as before.
 
+    The privacy plane (privacy/): ``dp_clip`` / ``dp_noise_multiplier``
+    switch on DP-SGD, which clips each site's fresh round gradient to the
+    norm ``dp_clip`` and adds ``dp_noise_multiplier · dp_clip`` of Gaussian
+    noise drawn per (``dp_seed``, site, global round, leaf), right after the
+    site's gradient phase and before an attack, the staleness buffers and
+    the overlap stash (privacy/dpsgd.py; noise needs a clip). The engine's
+    ``secure_agg`` mode takes the global round. ``personalize`` (head
+    patterns, privacy/personalize.py) keeps the matched leaves out of the
+    aggregation: each site's forward runs on its own head row of
+    ``state.personal``, the engine sees the shared leaves only, the
+    optimizer's aggregate is zero on the head leaves (the global head never
+    moves), and each site's head row takes its own optimizer step, gated on
+    the round's contribute mask (a dead site's head freezes; in the
+    buffered mode on fresh arrivals, in the overlapped mode on the stash's
+    round). An epoch built without ``personalize`` drops a state's rows; one
+    built with it fills fresh rows from the current params when the state
+    has none, or rows for another site count.
+
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
-    program runs and take any value. ``dp_seed`` acts only through
-    ``dp_clip`` / ``dp_noise_multiplier``: any value while they are off,
-    JAX's default otherwise. Every other option at a value other than
-    "off" (``mesh``, ``telemetry``, DP, personalization, slices) raises
+    program runs and take any value. Every other option at a value other
+    than "off" (``mesh``, ``telemetry``, slices) raises
     ``NotImplementedError`` naming the ROADMAP item that ports it."""
     _check_options(options)
     if staleness_bound < 0:
@@ -478,17 +527,50 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     L = local_iterations
     reputation = robust_agg != "none"
     attacks = attack_plan is not None and attack_plan.injects_attacks()
+    # the privacy plane: the head partition and the DP transform, built
+    # from the model's leaves (nothing when both are off)
+    names = dict(model.named_parameters())
+    head = head_leaf_paths(names, personalize)
+    dp = None
+    if dp_clip or dp_noise_multiplier:
+        from ..weights import table_of
 
-    def site_round(params, stats, xb, yb, wb, gen):
+        dp = make_dp_fn(dp_clip, dp_noise_multiplier, dp_seed, head, table_of(names))
+    takes_rnd = "rnd" in inspect.signature(engine.aggregate).parameters
+
+    def eng(tree):
+        """What the engine aggregates: the shared leaves."""
+        return strip_tree(tree, head, keep_head=False) if head else tree
+
+    def aggregate(grads, engine_state, weight, live, params, rnd):
+        """The engine on the shared leaves, its aggregate back at full
+        structure (zero on the head leaves)."""
+        kw = {"rnd": rnd} if takes_rnd else {}
+        agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, **kw)
+        return (graft_shared(params, agg, head) if head else agg), es
+
+    def personal_apply(personal, site_grad, alive):
+        """Each site's head row, one optimizer step on its own head
+        gradient; ``alive [S]`` (None: every site) gates the rows."""
+        if personal is None:
+            return None
+        upd, opt = optimizer.update({k: site_grad[k] for k in head}, personal["opt"])
+        new = {"params": {k: v + upd[k] for k, v in personal["params"].items()}, "opt": opt}
+        return new if alive is None else _freeze_dead(alive, new, personal)
+
+    def site_round(params, stats, xb, yb, wb, gen, heads=None):
         """Every site's gradient phase of one round: ``L`` micro-batches,
         gradients accumulated weighted by example count, the running
-        statistics carried per site from one micro-batch to the next."""
+        statistics carried per site from one micro-batch to the next.
+        ``heads`` are the sites' own head rows (``[S, ...]``), which take
+        the place of the global head leaves."""
         S = xb.shape[0]
         run = {k: v.unsqueeze(0).expand(S, *v.shape) for k, v in stats.items()}
         g_sum, n_sum = None, torch.zeros(S, device=dev)
         loss_sum = torch.zeros(S, device=dev)
         for i in range(L):
-            leaves = {k: v.detach().unsqueeze(0).expand(S, *v.shape).requires_grad_()
+            leaves = {k: (heads[k] if heads is not None and k in heads
+                          else v.unsqueeze(0).expand(S, *v.shape)).detach().requires_grad_()
                       for k, v in params.items()}
             logits, run = model.site_forward(leaves, xb[:, i], wb[:, i], run, gen)
             loss = cross_entropy(logits, yb[:, i], wb[:, i])
@@ -534,14 +616,15 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return {**health, "suspect_streak": streak, "quarantined": quarantined,
                 "anomaly": anomaly}, z
 
-    def apply_round(health, engine_state, buffers, stats, ls, site_grad, n_sum, site_stats,
-                    loss_sum):
+    def apply_round(health, engine_state, buffers, personal, params, stats, ls, site_grad,
+                    n_sum, site_stats, loss_sum, rnd):
         """The guarded round's aggregate-and-account half on one payload
         (this round's, or the overlap stash's): liveness, the engine's
         aggregation (over the staleness buffers in the async mode),
-        sync-BN, the round loss, the health counters and the reputation
-        layer. Returns ``(agg, engine_state, health, buffers, stats, loss,
-        total_live, z)``; ``total_live`` gates the parameter update."""
+        sync-BN, the round loss, the health counters, the reputation layer
+        and the personalized heads' step. Returns ``(agg, engine_state,
+        health, buffers, personal, stats, loss, total_live, z)``;
+        ``total_live`` gates the parameter update."""
         # liveness: scheduled live AND finite AND not quarantined
         flat = site_flat(site_grad)
         finite = flat.isfinite().all(1)
@@ -556,14 +639,16 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                        "age": torch.where(alive, 0, buffers["age"] + 1).int()}
             stale_w = staleness_weights(buffers["age"], staleness_bound, staleness_decay)
             eff_w = buffers["weight"] * stale_w
-            agg, es_new = engine.aggregate(buffers["grads"], engine_state, eff_w,
-                                           live=(stale_w > 0).float())
+            agg, es_new = aggregate(buffers["grads"], engine_state, eff_w, (stale_w > 0).float(),
+                                    params, rnd)
             engine_state = _freeze_dead(stale_w > 0, es_new, engine_state)
             total_live, total_fresh = eff_w.sum(), n_eff.sum()
         else:
-            agg, es_new = engine.aggregate(site_grad, engine_state, n_sum, live=contribute)
+            agg, es_new = aggregate(site_grad, engine_state, n_sum, contribute, params, rnd)
             engine_state = _freeze_dead(alive, es_new, engine_state)
             total_live = total_fresh = n_eff.sum()
+        # a head never leaves its site, so it steps on fresh arrivals only
+        personal = personal_apply(personal, site_grad, alive)
         fresh = total_fresh > 0
         # sync-BN: the example-weighted mean of the arriving sites'
         # statistics (a dead site's may be NaN: where-zeroed), held when
@@ -583,10 +668,15 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                       "quarantined": quarantined}
         z = None
         if reputation:
-            agg_flat = torch.cat([agg[k].reshape(-1).float() for k in site_grad])
-            new_health, z = reputation_round(health, new_health, flat, agg_flat, contribute)
+            # the scores read the shipped (shared) leaves
+            shipped = eng(site_grad)
+            agg_flat = torch.cat([agg[k].reshape(-1).float() for k in shipped])
+            new_health, z = reputation_round(health, new_health,
+                                             site_flat(shipped) if head else flat, agg_flat,
+                                             contribute)
             z = torch.where(alive, z, float("nan"))
-        return agg, engine_state, new_health, buffers, stats, loss_round, total_live, z
+        return (agg, engine_state, new_health, buffers, personal, stats, loss_round, total_live,
+                z)
 
     def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack):
         """The epoch's rounds; ``batch(r)`` gives round ``r``'s ``(x [S, L,
@@ -620,17 +710,31 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         ov = ((state.overlap if state.overlap is not None
                and state.overlap["valid"].shape[0] == S
                else default_overlap_stash(S, params, stats)) if overlap else None)
+        # the head rows follow the partition this epoch was built with:
+        # off drops carried rows, on fills fresh ones from the current
+        # params (or ones for another site count)
+        personal = None
+        if head:
+            carried = state.personal
+            ok = carried is not None and next(iter(carried["params"].values())).shape[0] == S
+            personal = carried if ok else default_personal(S, params, head, optimizer)
         losses, zs = [], []
         for r in range(rounds):
             rnd = state.round + r
             gen = torch.Generator(device=dev)
             gen.manual_seed(state.rng * 1_000_003 + rnd)
             xb, yb, wb = batch(r)
-            site_grad, n_sum, site_stats, loss_sum = site_round(params, stats, xb, yb, wb, gen)
+            site_grad, n_sum, site_stats, loss_sum = site_round(
+                params, stats, xb, yb, wb, gen, None if personal is None else personal["params"])
+            # an honest site privatizes what it ships; a hostile one lies
+            # about the privatized quantity
+            if dp is not None:
+                site_grad = dp(site_grad, rnd)
             if atk is not None:
                 site_grad = atk(site_grad, attack[:, r], attack_dev[:, r], rnd)
             if not guard:
-                agg, engine_state = engine.aggregate(site_grad, engine_state, n_sum)
+                agg, engine_state = aggregate(site_grad, engine_state, n_sum, None, params, rnd)
+                personal = personal_apply(personal, site_grad, None)
                 scale = site_weight_scale(n_sum)
                 stats = {k: (s * per_site(scale, s)).sum(0) for k, s in site_stats.items()}
                 loss_round = loss_sum.sum() / torch.clamp(n_sum.sum(), min=1.0)
@@ -642,17 +746,18 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             if overlap:
                 # apply the previous round's stash; stash this round's
                 # payload for the next round (or the next epoch's first)
-                agg, engine_state, new_health, buffers, stats, loss_round, total_live, z = (
-                    apply_round(health, engine_state, buffers, stats, ov["live"] * ov["valid"],
-                                ov["grads"], ov["weight"], ov["stats"], ov["loss"]))
+                (agg, engine_state, new_health, buffers, personal, stats, loss_round, total_live,
+                 z) = apply_round(health, engine_state, buffers, personal, params, stats,
+                                  ov["live"] * ov["valid"], ov["grads"], ov["weight"],
+                                  ov["stats"], ov["loss"], rnd)
                 valid = ov["valid"] > 0
                 health = {k: torch.where(valid, v, health[k]) for k, v in new_health.items()}
                 ov = {"grads": site_grad, "stats": site_stats, "weight": n_sum,
                       "loss": loss_sum, "live": ls, "valid": torch.ones(S, device=dev)}
             else:
-                agg, engine_state, health, buffers, stats, loss_round, total_live, z = (
-                    apply_round(health, engine_state, buffers, stats, ls, site_grad, n_sum,
-                                site_stats, loss_sum))
+                (agg, engine_state, health, buffers, personal, stats, loss_round, total_live,
+                 z) = apply_round(health, engine_state, buffers, personal, params, stats, ls,
+                                  site_grad, n_sum, site_stats, loss_sum, rnd)
             if z is not None:
                 zs.append(z)
             # one update on the aggregate; a round with no live weight
@@ -665,7 +770,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         new_state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                                engine_state=engine_state, rng=state.rng,
                                round=state.round + rounds, health=health, buffers=buffers,
-                               overlap=ov)
+                               overlap=ov, personal=personal)
         empty = torch.zeros(0, device=dev)
         reputation_z_trace[:] = [torch.stack(zs)] if zs else []
         return new_state, torch.stack(losses) if losses else empty

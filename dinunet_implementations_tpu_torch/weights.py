@@ -134,20 +134,26 @@ def _port_params(p: dict, table: LeafTable) -> dict:
     return {n: _t(np.swapaxes(p[j], -1, -2) if tr else p[j]) for n, j, tr in table.params}
 
 
-def _params_to_port(tree, table: LeafTable, what: str) -> dict:
+def _params_to_port(tree, table: LeafTable, what: str, names=None) -> dict:
     """A params-shaped JAX tree (the params, Adam's mu or nu, a leading
-    site axis or not) as port tensors by ``state_dict`` name."""
+    site axis or not) as port tensors by ``state_dict`` name; ``names``
+    (default: every parameter) the leaves it must hold, e.g. the
+    personalized heads'."""
     p, problems = _leaves(tree), []
-    _check_leaves(problems, what, p, {j for _, j, _ in table.params})
+    rows = [t for t in table.params if names is None or t[0] in names]
+    _check_leaves(problems, what, p, {j for _, j, _ in rows})
     _raise_if(problems, table)
-    return _port_params(p, table)
+    return {n: _t(np.swapaxes(p[j], -1, -2) if tr else p[j]) for n, j, tr in rows}
 
 
 def _params_to_jax(tensors: dict, table: LeafTable) -> dict:
+    """Port tensors by ``state_dict`` name (every parameter, or a subset
+    such as the heads) as a JAX-layout tree."""
     flat = {}
     for n, j, tr in table.params:
-        a = tensors[n].detach().cpu().numpy()
-        flat[j] = np.swapaxes(a, -1, -2) if tr else a
+        if n in tensors:
+            a = tensors[n].detach().cpu().numpy()
+            flat[j] = np.swapaxes(a, -1, -2) if tr else a
     return _nest(flat)
 
 
@@ -186,11 +192,17 @@ def train_state_from_jax(state, rng: int = 0, device=None):
     ``rng``."""
     adam = _adam_part(state.opt_state)
     opt = {} if adam is None else {"count": adam.count, "mu": adam.mu, "nu": adam.nu}
+    personal = getattr(state, "personal", None)
+    if personal:
+        padam = _adam_part(personal["opt"])
+        personal = {"params": personal["params"],
+                    "opt": {} if padam is None else {"count": padam.count, "mu": padam.mu,
+                                                     "nu": padam.nu}}
     return train_state_from_tree(
         {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
          "engine_state": state.engine_state, "rng": rng, "round": state.round,
          "health": state.health, "buffers": getattr(state, "buffers", None),
-         "overlap": getattr(state, "overlap", None)}, device=device)
+         "overlap": getattr(state, "overlap", None), "personal": personal}, device=device)
 
 
 #: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
@@ -198,23 +210,56 @@ def train_state_from_jax(state, rng: int = 0, device=None):
 _ENGINE_STATES = ({"omega"}, {"q", "e"})
 
 
-def engine_state_from_jax(engine_state, table: LeafTable, device=None) -> dict:
+def engine_state_from_jax(engine_state, table: LeafTable, device=None, names=None) -> dict:
     """A JAX engine state (``{}`` for dSGD, rankDAD's ``{"omega": ...}``,
     powerSGD's ``{"q": ..., "e": ...}``) of the model of ``table`` as the
     port's, by ``state_dict`` name; raises ``ValueError`` for a tree of
-    other leaves."""
+    other leaves. ``names`` (default: every parameter) are the leaves the
+    engine aggregates: the shared ones under personalization."""
     if not engine_state:
         return {}
     if set(engine_state) not in _ENGINE_STATES:
         raise ValueError(f"not an engine state of the port: keys {sorted(engine_state)}")
+    rows = [t for t in table.params if names is None or t[0] in names]
     out, problems = {}, []
     for key in sorted(engine_state):
         tree = _leaves(engine_state[key])
-        _check_leaves(problems, f"engine_state {key}", tree, {j for _, j, _ in table.params})
+        _check_leaves(problems, f"engine_state {key}", tree, {j for _, j, _ in rows})
         _raise_if(problems, table)
-        out[key] = {n: None if tree[j] is None else _t(tree[j]).to(device)
-                    for n, j, _ in table.params}
+        out[key] = {n: None if tree[j] is None else _t(tree[j]).to(device) for n, j, _ in rows}
     return out
+
+
+def personal_to_jax(personal: dict | None, table: LeafTable) -> dict | None:
+    """The personalized heads' per-site rows in JAX's layout: ``{"params":
+    the head subtree [S, ...], "opt": {"count" [S], "mu", "nu"} (Adam) or
+    {}}``, the head kernels transposed on their last two axes. None stays
+    None."""
+    if personal is None:
+        return None
+    opt = personal["opt"]
+    return {"params": _params_to_jax(personal["params"], table),
+            "opt": {} if not opt else {"count": opt["count"].cpu().numpy(),
+                                       "mu": _params_to_jax(opt["mu"], table),
+                                       "nu": _params_to_jax(opt["nu"], table)}}
+
+
+def personal_from_jax(tree, table: LeafTable, device=None) -> dict | None:
+    """:func:`personal_to_jax`'s trees (numpy leaves) as the port's rows on
+    ``device``; None or empty gives None."""
+    if not tree or not tree.get("params"):
+        return None
+    stored = _leaves(tree["params"])
+    head = {n for n, j, _ in table.params if j in stored}
+    params = _params_to_port(tree["params"], table, "personal params", head)
+    opt, out = tree.get("opt") or {}, {}
+    if opt:
+        out = {"count": torch.from_numpy(np.array(opt["count"], np.int32)).to(device),
+               "mu": {n: v.to(device) for n, v in
+                      _params_to_port(opt["mu"], table, "personal mu", head).items()},
+               "nu": {n: v.to(device) for n, v in
+                      _params_to_port(opt["nu"], table, "personal nu", head).items()}}
+    return {"params": {n: v.to(device) for n, v in params.items()}, "opt": out}
 
 
 def slot_tree_to_jax(tree: dict | None, table: LeafTable) -> dict | None:
@@ -258,7 +303,7 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
     :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
     ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
     ``rng`` (the port's int seed), ``round``, ``health``, optionally
-    ``buffers`` and ``overlap``) as the port's
+    ``buffers``, ``overlap`` and ``personal``) as the port's
     ``TrainState`` on ``device`` (the card unless the caller asks for
     ``"cpu"``). ``table`` defaults to the params tree's own."""
     from .core.device import resolve_device
@@ -279,11 +324,15 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
     from .robustness.health import health_from_numpy
 
     health = health_from_numpy(tree["health"], dev)
+    personal = personal_from_jax(tree.get("personal"), table, dev)
+    # under personalization the engine state covers the shared leaves only
+    shared = None if personal is None else set(params) - set(personal["params"])
     return TrainState(params=params, batch_stats=stats, opt_state=opt_state,
-                      engine_state=engine_state_from_jax(tree["engine_state"], table, dev),
+                      engine_state=engine_state_from_jax(tree["engine_state"], table, dev, shared),
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health,
                       buffers=slot_tree_from_jax(tree.get("buffers"), table, dev),
-                      overlap=slot_tree_from_jax(tree.get("overlap"), table, dev))
+                      overlap=slot_tree_from_jax(tree.get("overlap"), table, dev),
+                      personal=personal)
 
 
 def train_state_to_jax(state) -> dict:
@@ -291,10 +340,10 @@ def train_state_to_jax(state) -> dict:
     ``batch_stats``, ``opt_state`` (``{"count", "mu", "nu"}`` for Adam,
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
-    them), ``rng`` (the int seed), ``round``, ``health``, and the
-    ``buffers`` and ``overlap`` trees of :func:`slot_tree_to_jax` (None
-    while their mode is off); the model's table is read off the state's
-    params."""
+    them), ``rng`` (the int seed), ``round``, ``health``, the
+    ``buffers`` and ``overlap`` trees of :func:`slot_tree_to_jax` and the
+    heads' rows of :func:`personal_to_jax` (None while their mode is off);
+    the model's table is read off the state's params."""
     table = table_of(state.params)
     opt = {}
     if state.opt_state:
@@ -307,11 +356,12 @@ def train_state_to_jax(state) -> dict:
         "opt_state": opt,
         "engine_state": {key: _nest({
             j: None if tree[n] is None else tree[n].detach().cpu().numpy()
-            for n, j, _ in table.params})
+            for n, j, _ in table.params if n in tree})
             for key, tree in state.engine_state.items()},
         "rng": int(state.rng),
         "round": int(state.round),
         "health": {k: v.cpu().numpy() for k, v in state.health.items()},
         "buffers": slot_tree_to_jax(state.buffers, table),
         "overlap": slot_tree_to_jax(state.overlap, table),
+        "personal": personal_to_jax(getattr(state, "personal", None), table),
     }

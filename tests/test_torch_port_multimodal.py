@@ -283,8 +283,8 @@ def test_k7_routes_at_the_multimodal_shapes():
 def test_ring_attention_and_dp_sgd_are_refused(tmp_path):
     """Ring attention (forced, or the registry's auto-ring under a model
     axis) names A11; a forced ring without a model axis is JAX's
-    ValueError; DP-SGD (the BASELINE multimodal config's privacy) names
-    A10 in the trainer and the command line."""
+    ValueError. DP-SGD (the BASELINE multimodal config's privacy) is no
+    longer refused: a one-epoch DP fit reports its ε."""
     with pytest.raises(NotImplementedError, match="A11"):
         treg.build_model(tconfig.TrainConfig(task_id=TASK, model_axis_size=2), device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
@@ -295,14 +295,12 @@ def test_ring_attention_and_dp_sgd_are_refused(tmp_path):
     with pytest.raises(NotImplementedError, match="A11"):
         treg.build_model(tconfig.TrainConfig(task_id="ICA-Classification", model_axis_size=2),
                          device="cpu")
-    tree = tdemo.make_multimodal_demo_tree(str(tmp_path / "tree"), n_sites=2, subjects=8)
-    with pytest.raises(NotImplementedError, match="A10"):
-        trunner.FedRunner(tconfig.TrainConfig(dp_clip=1.0, dp_noise_multiplier=1.0),
-                          data_path=tree, device="cpu").run(verbose=False)
-    with pytest.raises(SystemExit, match="A10"):
-        tcli.main(["--data-path", tree, "--dp-clip", "1.0", "--device", "cpu"])
     with pytest.raises(ValueError, match="Invalid task"):
         treg.get_task("nope")
+    tree = tdemo.make_multimodal_demo_tree(str(tmp_path / "tree"), n_sites=2, subjects=8)
+    res = trunner.FedRunner(tconfig.TrainConfig(dp_clip=1.0, dp_noise_multiplier=1.0, epochs=1),
+                            data_path=tree, device="cpu").run(folds=[0], verbose=False)
+    assert res[0]["dp_epsilon"] > 0 and res[0]["dp_delta"] == 1e-5
 
 
 # -- the site data and the demo tree ---------------------------------------------

@@ -296,7 +296,8 @@ def test_the_port_parses_every_jax_flag():
            "out_dir", "site", "folds", "resume", "pipeline", "fused_poweriter", "quiet",
            "overrides", "faults", "attacks", "robust_agg", "serve", "serve_spool",
            "serve_capacity", "serve_quorum", "serve_epochs", "serve_poll", "serve_rows",
-           "overlap_rounds"}
+           "overlap_rounds", "dp_clip", "dp_noise", "dp_epsilon_budget", "secure_agg",
+           "personalize"}
     assert {d for d in want.values()} - run == set(tcli._REFUSED)
 
 

@@ -213,7 +213,8 @@ def test_importing_the_port_pulls_in_no_jax():
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
     )
     for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal",
-                "robustness.faults", "robustness.attacks"):
+                "robustness.faults", "robustness.attacks", "privacy.accounting",
+                "privacy.dpsgd", "privacy.personalize", "privacy.secure_agg"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -238,7 +239,9 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py",
                  "models/cnn3d.py", "models/transformer.py", "data/smri.py",
                  "data/multimodal.py", "robustness/faults.py", "robustness/attacks.py",
-                 "robustness/health.py", "parallel/collectives.py"):
+                 "robustness/health.py", "parallel/collectives.py", "privacy/__init__.py",
+                 "privacy/accounting.py", "privacy/dpsgd.py", "privacy/personalize.py",
+                 "privacy/secure_agg.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

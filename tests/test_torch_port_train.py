@@ -517,8 +517,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("telemetry", True), ("dp_noise_multiplier", 1.0), ("telemetry", "on"),
-    ("dp_clip", 1.0), ("personalize", ("cls_fc3",)), ("min_slices", 2),
+    ("mesh", object()), ("telemetry", True), ("telemetry", "on"), ("min_slices", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
     task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
@@ -553,19 +552,9 @@ def test_jax_epoch_options_at_their_defaults_build_an_epoch(option):
                                                **{option: other}))
 
 
-@pytest.mark.parametrize("option,value,through", [
-    ("dp_seed", 3, {"dp_clip": 0.5}),
-    ("dp_seed", 7, {"dp_clip": 1.0}),
-    ("dp_seed", 7, {"dp_noise_multiplier": 1.0}),
-])
-def test_options_acting_through_an_unported_option_raise_with_its_item(option, value, through):
+def test_epoch_range_checks_hold():
     task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
     opt = tsteps.make_optimizer("adam", LR)
-    (name, _), = through.items()
-    item = tsteps._UNPORTED[name][1]
-    with pytest.raises(NotImplementedError, match=rf"{option}=.*ROADMAP {item.split()[0]}"):
-        tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **through,
-                                   **{option: value})
     # JAX's range checks hold whatever else is set
     bad = {"staleness_decay": 1.5, "reputation_rounds": -1}
     for k, v in bad.items():
@@ -573,16 +562,13 @@ def test_options_acting_through_an_unported_option_raise_with_its_item(option, v
             tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **{k: v})
 
 
-@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"secure_agg": "mask-nopads"},
-                                {"secure_agg": "mask"}])
+@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}])
 def test_unported_dsgd_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_dsgd(**kw)
 
 
-@pytest.mark.parametrize("kw,item", [({"wire_quant": "int8"}, "A11 (WireCodec)"),
-                                     ({"secure_agg": "mask-nopads"}, "A10 (c) (secure_agg)"),
-                                     ({"secure_agg": "mask"}, "A10 (c) (secure_agg)")])
+@pytest.mark.parametrize("kw,item", [({"wire_quant": "int8"}, "A11 (WireCodec)")])
 def test_unported_dsgd_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
         make_dsgd(**kw)
