@@ -316,18 +316,26 @@ class ICALstm(nn.Module):
         o = torch.relu(self.cls_fc2(torch.relu(o)))
         return self.cls_fc3(o)
 
-    def site_forward(self, params, x, mask, stats, generator=None):
-        """The training forward of every site at once.
+    def site_forward(self, params, x, mask, stats, generator=None, train: bool = True):
+        """The forward of every site at once.
 
         ``params``: every parameter by its ``state_dict`` name, as a
-        site-batched view ``[S, ...]`` of stride 0; ``x [S, B, windows,
-        comps, wlen]``, ``mask [S, B]`` (weight-0 rows are padding);
-        ``stats``: the head BatchNorm's running statistics by buffer name,
-        per site ``[S, 256]``; ``generator`` draws the dropout masks.
+        site-batched view ``[S, ...]`` (stride 0, or a row a site for a
+        personalized head's leaves); ``x [S, B, windows, comps, wlen]``,
+        ``mask [S, B]`` (weight-0 rows are padding); ``stats``: the head
+        BatchNorm's running statistics by buffer name, per site ``[S, 256]``
+        or shared ``[256]``; ``generator`` draws the dropout masks.
 
-        Returns ``(logits [S, B, num_cls], new stats)``, the new running
-        statistics per site by buffer name. Nothing of the module is
-        written."""
+        ``train`` (a federated round's step): dropout on, the BatchNorm
+        normalizes by each site's masked batch moments and updates the
+        running statistics. ``train=False`` (the eval of personalized
+        heads): no dropout, the BatchNorm normalizes by ``stats``, and the
+        LSTM still runs every site's rows in one call, as the folded eval
+        does.
+
+        Returns ``(logits [S, B, num_cls], stats)``: the new running
+        statistics per site by buffer name in train, ``stats`` unchanged in
+        eval. Nothing of the module is written."""
         S, B, W = x.shape[:3]
         cdt = compute_dtype_of(self.compute_dtype)
 
@@ -336,33 +344,17 @@ class ICALstm(nn.Module):
 
         enc = torch.relu(dense_("encoder", x.reshape(S, B * W, -1), cdt))
         o, _ = self.lstm(enc.reshape(S * B, W, -1), params=_scope(params, "lstm"))
-        o = site_dropout(o.float().reshape(S, B, -1), self.dropout_rate, generator)
+        o = o.float().reshape(S, B, -1)
         bn = self.cls_bn
-        o, (mean, var) = site_batchnorm_train(
-            dense_("cls_fc1", o), mask, params["cls_bn.weight"], params["cls_bn.bias"],
-            stats["cls_bn.running_mean"], stats["cls_bn.running_var"], bn.momentum, bn.eps)
+        if train:
+            o, (mean, var) = site_batchnorm_train(
+                dense_("cls_fc1", site_dropout(o, self.dropout_rate, generator)), mask,
+                params["cls_bn.weight"], params["cls_bn.bias"],
+                stats["cls_bn.running_mean"], stats["cls_bn.running_var"], bn.momentum, bn.eps)
+            stats = {"cls_bn.running_mean": mean, "cls_bn.running_var": var}
+        else:
+            o = ((dense_("cls_fc1", o) - stats["cls_bn.running_mean"])
+                 * torch.rsqrt(stats["cls_bn.running_var"] + bn.eps))
+            o = o * params["cls_bn.weight"][:, None] + params["cls_bn.bias"][:, None]
         o = torch.relu(dense_("cls_fc2", torch.relu(o)))
-        return dense_("cls_fc3", o), {"cls_bn.running_mean": mean, "cls_bn.running_var": var}
-
-    def site_eval(self, params, stats, x, mask=None):
-        """The eval forward of every site at once, on site-batched weights:
-        ``params`` as :meth:`site_forward` takes them (the personalized
-        heads' leaves per site, every other leaf a stride-0 view), ``stats``
-        the running statistics by buffer name, ``x [S, B, windows, comps,
-        wlen]``. The LSTM runs every site's rows in one call, as the folded
-        eval does; the head BatchNorm normalizes by the running statistics.
-        Returns ``logits [S, B, num_cls]``."""
-        S, B, W = x.shape[:3]
-        cdt = compute_dtype_of(self.compute_dtype)
-
-        def dense_(name, v, dtype=None):
-            return site_linear(params[name + ".weight"], params[name + ".bias"], v, dtype)
-
-        enc = torch.relu(dense_("encoder", x.reshape(S, B * W, -1), cdt))
-        o, _ = self.lstm(enc.reshape(S * B, W, -1), params=_scope(params, "lstm"))
-        o = dense_("cls_fc1", o.float().reshape(S, B, -1))
-        o = (o - stats["cls_bn.running_mean"]) * torch.rsqrt(stats["cls_bn.running_var"]
-                                                             + self.cls_bn.eps)
-        o = o * params["cls_bn.weight"][:, None] + params["cls_bn.bias"][:, None]
-        o = torch.relu(dense_("cls_fc2", torch.relu(o)))
-        return dense_("cls_fc3", o)
+        return dense_("cls_fc3", o), stats

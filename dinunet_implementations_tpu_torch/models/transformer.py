@@ -184,10 +184,11 @@ class MultimodalNet(nn.Module):
         params = {n: param_at(self, n)[None] for n in self._names}
         return self._run(params, x[None], train, generator)[0]
 
-    def site_forward(self, params, x, mask, stats, generator=None):
-        """The training forward of every site at once: ``params`` by
-        ``state_dict`` name as site-batched views ``[S, ...]``, ``x [S, B,
-        packed]``, ``mask [S, B]`` (no layer mixes rows: the loss weights
-        padding), ``stats`` empty, ``generator`` for the dropout masks.
+    def site_forward(self, params, x, mask, stats, generator=None, train: bool = True):
+        """The forward of every site at once: ``params`` by ``state_dict``
+        name as site-batched views ``[S, ...]``, ``x [S, B, packed]``,
+        ``mask [S, B]`` (no layer mixes rows: the loss weights padding),
+        ``stats`` empty, ``generator`` for the dropout masks, which
+        ``train=False`` (the eval of personalized heads) turns off.
         Returns ``(logits [S, B, num_cls], {})``."""
-        return self._run(params, x, True, generator), {}
+        return self._run(params, x, train, generator), {}

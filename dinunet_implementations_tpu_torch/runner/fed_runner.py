@@ -580,15 +580,19 @@ class FedDaemon:
                   f"({self.table.occupied}/{self.capacity} slots)")
         # an exhausted ε budget (the trainer's accountant, stepped in
         # run_epoch) is a clean stop of this daemon: checkpoint, latch
-        budget = float(self.cfg.dp_epsilon_budget or 0.0)
-        eps = self.trainer._dp_epsilon
-        if budget > 0 and eps is not None and eps >= budget:
+        if self._budget_spent():
             self.bus.counter("serve_dp_budget_stops_total")
-            self._log(f"[serve] dp ε-budget exhausted: ε={eps:.3f} ≥ {budget} — "
-                      "checkpointing and stopping")
+            self._log(f"[serve] dp ε-budget exhausted: ε={self.trainer._dp_epsilon:.3f} ≥ "
+                      f"{self.cfg.dp_epsilon_budget} — checkpointing and stopping")
             self.checkpoint()
             self._stop = True
         return loss
+
+    def _budget_spent(self) -> bool:
+        """Whether the trainer's ε has reached ``dp_epsilon_budget``."""
+        budget = float(self.cfg.dp_epsilon_budget or 0.0)
+        eps = self.trainer._dp_epsilon
+        return budget > 0 and eps is not None and eps >= budget
 
     def compiles_after_first_epoch(self) -> dict:
         """Kernel libraries built and loaded since the first trained epoch
@@ -603,7 +607,8 @@ class FedDaemon:
 
     def checkpoint(self):
         """The rotating checkpoint, with the membership table, the members'
-        data directories and overrides in its meta, then ``publish.json``."""
+        data directories and overrides and the privacy ledger in its meta,
+        then ``publish.json``."""
         from ..trainer.checkpoint import save_checkpoint
 
         if self.state is None:
@@ -612,7 +617,9 @@ class FedDaemon:
             "epoch": self.epochs_run, "held_rounds": self.held_rounds, "steps": self._steps,
             "rows": self._rows, "membership": self.table.to_json(),
             "data_dirs": dict(self._dirs), "site_overrides": dict(self._overrides),
-            "traces": dict(self._traces)})
+            "traces": dict(self._traces),
+            "dp_accountant": (self.trainer.dp_accountant.to_json()
+                              if self.trainer.dp_accountant is not None else None)})
         self.bus.counter("serve_checkpoints_total")
         self._announce_publish()
 
@@ -632,8 +639,10 @@ class FedDaemon:
 
     def _resume(self) -> bool:
         """Restore the table, re-admit the members from their recorded
-        directories and restore the state; False when there is no
-        checkpoint (the caller then starts fresh)."""
+        directories and restore the state and the privacy ledger (ε goes on
+        from where it stood, and a spent budget keeps the stop latched);
+        False when there is no checkpoint (the caller then starts fresh)."""
+        from ..privacy.accounting import RdpAccountant
         from ..robustness.membership import MembershipTable
         from ..trainer.checkpoint import load_checkpoint, load_meta
 
@@ -653,6 +662,14 @@ class FedDaemon:
         self._dirs = dict(meta.get("data_dirs", {}))
         self._overrides = dict(meta.get("site_overrides", {}))
         self._traces = dict(meta.get("traces", {}))
+        if self.trainer.dp_accountant is not None and meta.get("dp_accountant"):
+            self.trainer.dp_accountant = RdpAccountant.from_json(meta["dp_accountant"])
+            self.trainer._dp_epsilon = float(
+                self.trainer.dp_accountant.epsilon(self.cfg.dp_delta)[0])
+            if self._budget_spent():
+                self._log(f"[serve] dp ε-budget already spent (ε={self.trainer._dp_epsilon:.3f})"
+                          " — staying stopped")
+                self._stop = True
         for site, _ in sorted(self.table.members().items(), key=lambda kv: kv[1]):
             arrays = self._admit(site, self._dirs.get(site, ""), self._overrides.get(site))
             if arrays is None:

@@ -33,7 +33,6 @@ autograd returns each site's own gradient ``[S, ...]``, where JAX takes
 
 from __future__ import annotations
 
-import inspect
 from dataclasses import dataclass
 from typing import Callable
 
@@ -124,11 +123,12 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
     ``mesh=None``.
 
     ``personalize`` (head patterns): a state that carries ``personal`` rows
-    evaluates each site on its own head. A model with a ``site_eval``
-    (ICALstm) keeps the fold, with the head leaves per site: its LSTM still
-    runs every site's rows in one call. Any other model runs each site's
-    rows in a call of their own on its merged weights. A state without
-    rows (a params-only restore) evaluates the global heads, as in JAX."""
+    evaluates each site on its own head. A model that folds the sites
+    keeps one call for every site's rows through its ``site_forward`` in
+    eval mode, with the head leaves per site (ICALstm's LSTM still runs
+    every site's rows in one call). Any other model runs each site's rows
+    in a call of their own on its merged weights. A state without rows (a
+    params-only restore) evaluates the global heads, as in JAX."""
     dev = resolve_device(device)
     fold = eval_folds_sites(task.model)
     personal_on = bool(tuple(personalize))
@@ -138,7 +138,8 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
         heads = (state.personal["params"]
                  if personal_on and state.personal is not None else None)
         st = _StateTask(task.model, {**state.params, **state.batch_stats})
-        if heads is not None and not (fold and hasattr(task.model, "site_eval")):
+        sts = [st] * S
+        if heads is not None and not fold:
             sts = [_StateTask(task.model, {**state.params, **{k: v[s] for k, v in heads.items()},
                                            **state.batch_stats}) for s in range(S)]
         probs, loss_sum, w_sum = [], torch.zeros(S, device=dev), torch.zeros(S, device=dev)
@@ -146,17 +147,14 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
             x = _to_device(inputs[:, k], dev, torch.float32)
             y = _to_device(labels[:, k], dev)
             w = _to_device(weights[:, k], dev, torch.float32)
-            if heads is not None and fold and hasattr(task.model, "site_eval"):
+            if fold and heads is not None:
                 p, ce = _site_eval(task.model, state, heads, x, y, w)
-            elif heads is not None:
-                p, ce = (torch.stack(t) for t in zip(
-                    *(eval_forward(sts[s], x[s], y[s], w[s]) for s in range(S))))
             elif fold:
                 p, ce = eval_forward(st, x.reshape((S * B,) + x.shape[2:]), y.reshape(-1),
                                      w.reshape(-1))
             else:
                 p, ce = (torch.stack(t) for t in zip(
-                    *(eval_forward(st, x[s], y[s], w[s]) for s in range(S))))
+                    *(eval_forward(sts[s], x[s], y[s], w[s]) for s in range(S))))
             probs.append(p.reshape(S, B, -1))
             loss_sum = loss_sum + (ce.reshape(S, B) * w).sum(1)
             w_sum = w_sum + w.sum(1)
@@ -167,13 +165,13 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
 
 def _site_eval(model, state: TrainState, heads: dict, x, y, w):
     """:func:`eval_forward` of every site at once with each site's own head
-    leaves (``model.site_eval``): ``x [S, B, ...]`` → ``(probs [S, B, C],
-    ce [S, B])``."""
+    leaves (``model.site_forward`` in eval mode): ``x [S, B, ...]`` →
+    ``(probs [S, B, C], ce [S, B])``."""
     S = x.shape[0]
     params = {k: heads[k] if k in heads else v.unsqueeze(0).expand(S, *v.shape)
               for k, v in state.params.items()}
     with torch.inference_mode():
-        logits = model.site_eval(params, state.batch_stats, x, w)
+        logits, _ = model.site_forward(params, x, w, state.batch_stats, train=False)
         probs = torch.softmax(logits, -1)
         ce = -torch.log_softmax(logits, -1).gather(-1, y.long()[..., None])[..., 0]
     return probs, ce
@@ -536,7 +534,6 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         from ..weights import table_of
 
         dp = make_dp_fn(dp_clip, dp_noise_multiplier, dp_seed, head, table_of(names))
-    takes_rnd = "rnd" in inspect.signature(engine.aggregate).parameters
 
     def eng(tree):
         """What the engine aggregates: the shared leaves."""
@@ -545,8 +542,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     def aggregate(grads, engine_state, weight, live, params, rnd):
         """The engine on the shared leaves, its aggregate back at full
         structure (zero on the head leaves)."""
-        kw = {"rnd": rnd} if takes_rnd else {}
-        agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, **kw)
+        agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, rnd=rnd)
         return (graft_shared(params, agg, head) if head else agg), es
 
     def personal_apply(personal, site_grad, alive):

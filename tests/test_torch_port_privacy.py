@@ -468,12 +468,12 @@ def test_per_row_adam_equals_jax_per_site_optax():
 
 
 def test_icalstm_site_eval_equals_the_folded_eval():
-    """``ICALstm.site_eval`` with every site on the global head gives the
-    folded eval's probabilities (two LSTM calls a step either way): within
-    1e-6 (batched products per site against one over the folded rows)."""
+    """``ICALstm.site_forward`` in eval mode with every site on the global
+    head gives the folded eval's logits (two LSTM calls a step either way,
+    no dropout at the model's rate): within 1e-6 (batched products per
+    site against one over the folded rows)."""
     torch.manual_seed(0)
-    model = tm.ICALstm(input_size=8, hidden_size=6, num_comps=3, window_size=4, num_cls=2,
-                       dropout_rate=0.0)
+    model = tm.ICALstm(input_size=8, hidden_size=6, num_comps=3, window_size=4, num_cls=2)
     model.eval()
     x = torch.randn(3, 2, 5, 3, 4)
     params = {k: v.detach().unsqueeze(0).expand(3, *v.shape)
@@ -481,5 +481,5 @@ def test_icalstm_site_eval_equals_the_folded_eval():
     stats = dict(model.named_buffers())
     with torch.inference_mode():
         want = model(x.reshape(6, 5, 3, 4), train=False).reshape(3, 2, -1)
-        got = model.site_eval(params, stats, x)
+        got, _ = model.site_forward(params, x, None, stats, train=False)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)

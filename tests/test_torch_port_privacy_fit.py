@@ -119,6 +119,27 @@ def _check_params(got, want, what="params", atol=PARAM_ATOL):
         np.testing.assert_allclose(g[k], w[k], rtol=0, atol=atol, err_msg=f"{what} {k}")
 
 
+def _check_params_past_noise(got, want, g1, noise_atol):
+    """The params at PARAM_ATOL, coordinate by coordinate, but where the
+    first round's aggregate ``g1`` is rounding noise: at most 1e-5 of the
+    round's largest, the rule of tests/test_torch_port_train.py's
+    ``NOISE_LEAVES`` for a single coordinate. Adam's first step there is
+    ``lr·g/(|g| + eps)``, a full step of either sign (the ICA-LSTM's
+    ``cls_fc1/bias`` before the BatchNorm; a row of ``cls_fc2/kernel``
+    whose unit sits at the ReLU's edge), so those coordinates are held at
+    ``noise_atol``, the lr scale of the rounds run. ``cls_fc1/bias`` is
+    checked to be noise throughout."""
+    g, w = _flat(got), _flat(want)
+    top = max(np.abs(v).max() for v in g1.values())
+    assert np.abs(g1["cls_fc1/bias"]).max() <= 1e-5 * top
+    for k, v in w.items():
+        noise = np.abs(g1[k]) <= 1e-5 * top
+        np.testing.assert_allclose(g[k][~noise], v[~noise], rtol=0, atol=PARAM_ATOL,
+                                   err_msg=f"params {k}")
+        np.testing.assert_allclose(g[k][noise], v[noise], rtol=0, atol=noise_atol,
+                                   err_msg=f"params {k} (noise coordinates)")
+
+
 @pytest.mark.parametrize("name", ["dSGD", "rankDAD", "powerSGD"])
 def test_dp_epochs_match_jax_with_jax_s_noise(monkeypatch, name):
     """Two DP epochs (clip 1.0, σ 0.5) of every engine against JAX's, the
@@ -174,13 +195,12 @@ def test_personalized_epochs_match_jax(name):
 def test_personalized_icalstm_epoch_and_eval_match_jax():
     """A personalized (``cls_fc3``) dSGD epoch of a small ICA-LSTM against
     JAX's (its LSTM's plain reference), then each site's eval on its own
-    head: the losses at dSGD's LOSS_TOL, the params and head rows on the
-    lr scale (2·lr a round: Adam turns a coordinate whose gradient is
-    rounding noise, e.g. ``cls_fc1/bias`` before the BatchNorm, into a
-    full step of either sign; tests/test_torch_port_train.py); the eval of
-    JAX's end state on both sides, probabilities and loss sums within 1e-5
-    (the port's eval keeps the LSTM's site fold and runs the head per
-    site)."""
+    head: the losses at dSGD's LOSS_TOL; the head rows at PARAM_ATOL; the
+    params at PARAM_ATOL, but for the coordinates whose first-round
+    gradient is rounding noise (:func:`_check_params_past_noise`); the
+    eval of JAX's end state on both sides, probabilities and loss sums
+    within 1e-5 (the port's eval keeps the LSTM's site fold and runs the
+    head per site)."""
     kw = dict(input_size=8, hidden_size=6, num_comps=3, window_size=4, num_cls=2,
               dropout_rate=0.0)
     jtask = jsteps.FederatedTask(jm.ICALstm(use_pallas=False, **kw))
@@ -195,14 +215,18 @@ def test_personalized_icalstm_epoch_and_eval_match_jax():
     w = np.ones((3, 2, B), np.float32)
     state_t = train_state_from_jax(jax.tree.map(np.asarray, state_j), device="cpu")
     ttask = tsteps.FederatedTask(tm.ICALstm(**kw))
-    state_j, lj = jsteps.make_train_epoch_fn(jtask, jeng, jopt, mesh=None, personalize=pat)(
-        state_j, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w))
+    epoch_j = jsteps.make_train_epoch_fn(jtask, jeng, jopt, mesh=None, personalize=pat)
+    first, _ = epoch_j(state_j, jnp.asarray(x[:, :1]), jnp.asarray(y[:, :1]),
+                       jnp.asarray(w[:, :1]))
+    state_j, lj = epoch_j(state_j, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w))
     state_t, lt = tsteps.make_train_epoch_fn(ttask, make_dsgd(), tsteps.make_optimizer(
         "adam", lr), device="cpu", pipeline="host", personalize=pat)(state_t, x, y, w)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **LOSS_TOL["dSGD"])
     got, want = train_state_to_jax(state_t), jax.tree.map(np.asarray, state_j)
-    _check_params(got["params"], want.params, atol=2 * lr * 2)
-    _check_params(got["personal"]["params"], want.personal["params"], "heads", atol=2 * lr * 2)
+    g1 = {k: v / 0.1 for k, v in _flat(first.opt_state[0].mu).items()}  # mu = (1 - b1)·g
+    assert _flat(want.params).keys() == g1.keys()
+    _check_params_past_noise(got["params"], want.params, g1, 2 * lr * 2)
+    _check_params(got["personal"]["params"], want.personal["params"], "heads")
     state_t = train_state_from_jax(want, device="cpu")
     pj, lsj, _ = jsteps.make_eval_fn(jtask, mesh=None, personalize=pat)(
         state_j, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w))
@@ -427,6 +451,28 @@ def test_the_daemon_stops_on_its_budget_and_a_rejoin_keeps_epsilon(tree, tmp_pat
                        d.state.params["fc_out.weight"])
     assert d.trainer._dp_epsilon == eps
     assert os.path.exists(d.ckpt_path)
+
+
+def test_a_resumed_daemon_continues_epsilon_and_keeps_its_budget_stop(tree, tmp_path):
+    """``FedDaemon`` writes its privacy ledger into the checkpoint meta: a
+    daemon resumed after its budget stop restores ε exactly and trains no
+    epoch past the budget; resumed under a larger budget, its ledger goes
+    on from the checkpointed one (one more epoch's rounds, larger ε)."""
+    kw = dict(capacity=4, out_dir=str(tmp_path), poll_s=0.01, inventory_rows=32,
+              verbose=False, device="cpu")
+    dp = dict(dp_clip=1.0, dp_noise_multiplier=0.5)
+    d = trunner.FedDaemon(_cfg(**dp, dp_epsilon_budget=3.0), data_path=tree, **kw)
+    d.serve(max_epochs=10)
+    eps, ledger, epochs = d.trainer._dp_epsilon, d.trainer.dp_accountant.to_json(), d.epochs_run
+    assert eps >= 3.0 and tckpt.load_meta(d.ckpt_path)["dp_accountant"] == ledger
+    r = trunner.FedDaemon(_cfg(**dp, dp_epsilon_budget=3.0), resume=True, **kw)
+    assert r.trainer._dp_epsilon == eps and r.trainer.dp_accountant.to_json() == ledger
+    r.serve(max_epochs=10)
+    assert r.epochs_run == epochs and r.trainer.dp_accountant.to_json() == ledger
+    m = trunner.FedDaemon(_cfg(**dp, dp_epsilon_budget=1e9), resume=True, **kw)
+    m.serve(max_epochs=1)
+    assert m.epochs_run == epochs + 1 and m.trainer._dp_epsilon > eps
+    assert m.trainer.dp_accountant.to_json()["steps"] == ledger["steps"] * (epochs + 1) // epochs
 
 
 def test_the_cli_takes_the_privacy_flags(tree, tmp_path, capsys):
