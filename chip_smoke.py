@@ -262,7 +262,23 @@ result line:
    rejoin (the head row reset, ε never reset); the JAX package's golden
    privacy-stack fit (hard-SNR, 6 sites, 60 epochs, DP 1.0 / 0.05, masked
    wires, ``cls_fc3``), its AUC recorded beside the JAX floor;
-20. one JSON line of per-kernel numbers, then the result line.
+20. the fit's telemetry plane at phase 6's flagship (32 sites, batch 16,
+   f32): dSGD and rankDAD, 2 epochs of 4 rounds with the round metrics
+   through the kernels (K1 and K2 twice a round on the cluster route, K7
+   once a rank class and round staged, no plain class), equal bit for bit
+   in state, losses and launches to the same epochs without them; the
+   accumulators equal bit for bit to their recompute on the card from the
+   rounds' captured gradients, aggregates and updates, and within
+   TEL_FIRST_RTOL / TEL_SUM_RTOL of the plain path's; the warm epoch with
+   and without the metrics, and the kernels and host ms they add a round; a
+   telemetry-on rankDAD fit of phase 11's tree with an xprof window on
+   epoch 2, its artifacts through the report's ``--validate``, the window's
+   device kernels (K1's projection and recurrence, K2, K7) counted equal to
+   the launch counters over epoch 2; a command-line fit in a process of its
+   own with ``--compile-cache`` at a copy of phase 2's libraries (builds
+   nothing, loads every library from the copy) and ``--sanitize
+   compile,nans``;
+21. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -4913,6 +4929,315 @@ def privacy_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict
             "cli": cli, "daemon": daemon, "stack": stack, "seconds": seconds}
 
 
+# -- phase 20: the fit's telemetry plane --------------------------------------------
+
+# phase 6's flagship, TELEMETRY_ROUNDS rounds an epoch, two epochs a run
+TELEMETRY_ROUNDS = 4
+TELEMETRY_ENGINES = ("dSGD", "rankDAD")
+# The round metrics through the kernels against the same epochs through the
+# plain versions, set from phase 8's AGG_TOL before the first card run: a
+# squared norm doubles the relative error of its vector, so the first
+# round's gradient and update norms at 2 x AGG_TOL's rtol; the residual
+# carries rankDAD's reconstruction of near-equal singular pairs (Ω's
+# OMEGA_FIRST_TOL), so 1e-2 there; the two epochs' sums follow params that
+# part on the lr scale (phase 8's LOSS_TOL reasoning), so 5e-2.
+TEL_FIRST_RTOL = {"grad": 2e-3, "update": 2e-3, "residual": {"dSGD": 2e-3, "rankDAD": 1e-2}}
+TEL_SUM_RTOL = 5e-2
+TEL_FIT_EPOCHS, TEL_XPROF_WINDOW = 2, (2, 2)
+# the kernel names in the profiler's device events, by counter
+TEL_KERNEL_NAMES = {"lstm_proj": ("lstm_proj_kernel", "lstm_proj_wide_kernel"),
+                    "k1_cluster_route": ("lstm_rec_cluster_kernel",),
+                    "k2_cluster_route": ("bwd_cluster_kernel", "bwd_cluster_mma_kernel"),
+                    "k7_staged_route": ("poweriter_staged_kernel",)}
+
+
+def telemetry_setup(torch, use_kernel: bool, engine: str, telemetry: bool, capture=None):
+    """Phase 6's configuration (32 sites of batch 16, default ``ICAArgs``,
+    dropout 0) under ``engine``, its epoch with or without the round
+    metrics, and its first state. ``capture`` (a list) receives each
+    round's engine input, aggregate and optimizer update, read without a
+    launch."""
+    import dataclasses
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        init_train_state,
+        make_train_epoch_fn,
+    )
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine)
+    task, eng, opt = build_training(cfg, use_kernel=use_kernel)
+    task.model.dropout_rate = 0.0
+    if capture is not None:
+        inner, upd = eng.aggregate, opt.update
+
+        def aggregate(grads, state, weight, live=None, rnd=None):
+            agg, es = inner(grads, state, weight, live=live, rnd=rnd)
+            capture.append({"grads": grads, "agg": agg})
+            return agg, es
+
+        def update(grads, state):
+            u, st = upd(grads, state)
+            capture[-1]["updates"] = u
+            return u, st
+
+        eng = dataclasses.replace(eng, aggregate=aggregate)
+        opt = dataclasses.replace(opt, update=update)
+    epoch = make_train_epoch_fn(task, eng, opt, local_iterations=cfg.local_iterations,
+                                quarantine_rounds=cfg.quarantine_rounds, telemetry=telemetry)
+    return epoch, init_train_state(task, eng, opt, rng=0, num_sites=cfg.num_sites,
+                                   telemetry=telemetry)
+
+
+def telemetry_recompute(torch, capture: list, params: dict) -> dict:
+    """The accumulators from the captured rounds, by the same
+    ``tree_sq_sum`` in the epoch's order, on the card."""
+    from dinunet_implementations_tpu_torch.telemetry.metrics import jax_leaf_order, tree_sq_sum
+
+    order = jax_leaf_order(list(params))
+    zero = torch.zeros(TRAIN_SITES, device="cuda")
+    acc = {"grad_sq_sum": zero, "grad_sq_max": zero, "residual_sq_sum": zero,
+           "update_sq_sum": zero}
+    for c in capture:
+        g = tree_sq_sum(c["grads"], order, site_axis=True)
+        r = tree_sq_sum({k: c["grads"][k] - c["agg"][k] for k in order}, order, site_axis=True)
+        u = tree_sq_sum(c["updates"], order)
+        acc = {"grad_sq_sum": acc["grad_sq_sum"] + g,
+               "grad_sq_max": torch.maximum(acc["grad_sq_max"], g),
+               "residual_sq_sum": acc["residual_sq_sum"] + r,
+               "update_sq_sum": acc["update_sq_sum"] + u}
+        acc["grad_sq_last"], acc["update_sq_last"] = g, zero + u
+    return acc
+
+
+def telemetry_rel(got: dict, want: dict, keys) -> dict:
+    """Per accumulator: the largest relative difference over the sites."""
+    return {k: ((got[k] - want[k]).abs() / want[k].abs().clamp_min(1e-30)).max().item()
+            for k in keys}
+
+
+def telemetry_pair(torch, np, lc, pc, bc, smi: str, engine: str, inv_x, inv_y, idx) -> dict:
+    """One engine's telemetry-on epochs through the kernels (launches
+    counted, each round captured) against the telemetry-off epochs through
+    the kernels (state and losses bit for bit, launches equal), the on-card
+    recompute of the accumulators (bit for bit) and the telemetry-on epochs
+    through the plain versions (within TEL_FIRST_RTOL / TEL_SUM_RTOL)."""
+    cap: list = []
+    epoch_on, start_on = telemetry_setup(torch, True, engine, True, capture=cap)
+    epoch_off, start_off = telemetry_setup(torch, True, engine, False)
+    epoch_p, start_p = telemetry_setup(torch, False, engine, True)
+    if not (same_tree(start_on.params, start_off.params)
+            and same_tree(start_on.params, start_p.params)):
+        fail(f"telemetry {engine}: the runs start from different weights")
+    torch.cuda.synchronize()
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    st_on, l_on, ms_on = privacy_run(torch, epoch_on, start_on, inv_x, inv_y, idx)
+    launches = read_counters(lc, pc, bc)  # read before any check
+    zero_counters(lc, pc, bc)
+    st_off, l_off, ms_off = privacy_run(torch, epoch_off, start_off, inv_x, inv_y, idx)
+    launches_off = read_counters(lc, pc, bc)
+    st_p, _, _ = privacy_run(torch, epoch_p, start_p, inv_x, inv_y, idx)
+    rounds = sum(q.shape[1] for q in idx)
+    keys = ("grad_sq_last", "grad_sq_sum", "grad_sq_max", "residual_sq_sum", "update_sq_last",
+            "update_sq_sum")
+    t_on = st_on.telemetry
+    rec_host = telemetry_recompute(torch, cap, st_on.params)
+    checks = {
+        "state_on_equals_off": all(same_tree(getattr(st_on, part), getattr(st_off, part))
+                                   for part in ("params", "batch_stats", "opt_state",
+                                                "engine_state", "health"))
+        and torch.equal(l_on, l_off),
+        "launches_on_equal_off": launches == launches_off,
+        "recompute_bit_for_bit": len(cap) == rounds and all(
+            torch.equal(t_on[k], rec_host[k]) for k in keys),
+        "rounds": bool((t_on["rounds"] == rounds).all()),
+        "off_has_none": st_off.telemetry is None,
+    }
+    # the first round alone on both paths, and the two epochs' sums
+    one_k, _ = epoch_on(start_on, inv_x, inv_y, idx[0][:, :1])
+    one_p, _ = epoch_p(start_p, inv_x, inv_y, idx[0][:, :1])
+    first = telemetry_rel(one_k.telemetry, one_p.telemetry,
+                          ("grad_sq_last", "residual_sq_sum", "update_sq_last"))
+    sums = telemetry_rel(t_on, st_p.telemetry, keys[1:4] + ("update_sq_sum",))
+    first_ok = (first["grad_sq_last"] <= TEL_FIRST_RTOL["grad"]
+                and first["update_sq_last"] <= TEL_FIRST_RTOL["update"]
+                and first["residual_sq_sum"] <= TEL_FIRST_RTOL["residual"][engine])
+    checks["first_round_vs_plain"] = first_ok
+    checks["sums_vs_plain"] = max(sums.values()) <= TEL_SUM_RTOL
+    want = elastic_want(torch, launches, engine, rounds)
+    rec = {"engine": engine, "sites": TRAIN_SITES, "batch": TRAIN_BATCH, "rounds": rounds,
+           "warm_epoch_ms_on": ms_on[1], "warm_epoch_ms_off": ms_off[1],
+           "cold_epoch_ms_on": ms_on[0], "cold_epoch_ms_off": ms_off[0],
+           "launches": launches, "first_round_rel_vs_plain": first,
+           "sums_rel_vs_plain": sums,
+           "payload_bytes_per_round": t_on["payload_bytes"][0].item() / rounds,
+           "checks": checks}
+    print(f"telemetry {engine}: warm epoch {ms_on[1]:.3f} ms on, {ms_off[1]:.3f} ms off "
+          f"({idx[1].shape[1]} rounds) on {smi}:", json.dumps(rec))
+    if launches != want:
+        fail(f"telemetry {engine} launches {launches}, want {want}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"telemetry {engine} fails {bad}: {rec}")
+    return rec
+
+
+def telemetry_cost(torch, smi: str, inv_x, inv_y, idx) -> dict:
+    """What the accumulators add to one dSGD round at the flagship: the
+    kernels a round (``torch.profiler``'s device events of one round with
+    the metrics on, less those with them off) and the host ms (the least of
+    five one-round epochs each way)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for on in (False, True):
+        epoch, start = telemetry_setup(torch, True, "dSGD", on)
+        q = idx[0][:, :1]
+        epoch(start, inv_x, inv_y, q)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch(start, inv_x, inv_y, q)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            epoch(start, inv_x, inv_y, q)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        out["on" if on else "off"] = {"round_ms": min(ms), "kernels": len(evs)}
+    out["added_kernels_a_round"] = out["on"]["kernels"] - out["off"]["kernels"]
+    out["added_host_ms_a_round"] = out["on"]["round_ms"] - out["off"]["round_ms"]
+    print(f"telemetry cost a dSGD round at {TRAIN_SITES} sites on {smi}:", json.dumps(out))
+    return out
+
+
+def telemetry_fit(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """A telemetry-on rankDAD fit of phase 11's tree (``FedRunner``, device
+    pipeline) with an xprof window on epoch 2: the artifacts pass the
+    report's ``--validate`` (rc 0) and the rows the JAX-shaped row schema;
+    the window's trace lists K1's projection and recurrence, K2 and K7 by
+    name, each as many times as its counter over epoch 2."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner import FedRunner
+    from dinunet_implementations_tpu_torch.telemetry import report, sink, xprof
+    from dinunet_implementations_tpu_torch.trainer.loop import FederatedTrainer
+
+    out, xdir = os.path.join(root, "t_fit"), os.path.join(root, "t_xprof")
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, agg_engine="rankDAD", telemetry="on",
+                      xprof_dir=xdir, xprof_window=TEL_XPROF_WINDOW, epochs=TEL_FIT_EPOCHS)
+    per_epoch, real = {}, FederatedTrainer.run_epoch
+
+    def counted(self, state, train_sites, epoch, **kw):
+        torch.cuda.synchronize()
+        before = read_counters(lc, pc, bc)
+        res = real(self, state, train_sites, epoch, **kw)
+        torch.cuda.synchronize()
+        after = read_counters(lc, pc, bc)
+        per_epoch[epoch] = {k: after[k] - before[k] for k in after}
+        return res
+
+    FederatedTrainer.run_epoch = counted
+    try:
+        torch.cuda.synchronize()
+        zero_counters(lc, pc, bc)  # the main path's run starts here
+        t0 = time.perf_counter()
+        res = FedRunner(cfg, tree, out).run(folds=[0], verbose=False)[0]
+        seconds = time.perf_counter() - t0
+        launches = read_counters(lc, pc, bc)  # read before any check
+    finally:
+        FederatedTrainer.run_epoch = real
+    tel = os.path.join(out, "telemetry")
+    rc = report.main(["--validate", tel])
+    rows = sink.load_metrics(os.path.join(tel, "fold_0", sink.METRICS_FILE))
+    ops = xprof.summarize_device_ops(os.path.join(xdir, "fold_0"), top=200)
+    seen = {counter: sum(o["count"] for o in ops if any(n in o["name"] for n in names))
+            for counter, names in TEL_KERNEL_NAMES.items()}
+    e2 = per_epoch.get(TEL_XPROF_WINDOW[0], {})
+    rec = {"seconds": seconds, "report_rc": rc, "rows": len(rows),
+           "row_problems": sink.validate_metrics_rows(rows), "launches": launches,
+           "epoch2_launches": e2, "profiled_kernels": seen,
+           "top_device_ops": ops[:8], "site_telemetry_rounds": res["site_telemetry"]["rounds"],
+           "payload_bytes_per_round": res["site_telemetry"]["payload_bytes_per_round"]}
+    print(f"telemetry fit in {seconds:.1f} s on {smi}:", json.dumps(rec))
+    if rc != 0 or rec["row_problems"] or not e2:
+        fail(f"the telemetry fit's artifacts: {rec}")
+    if any(seen[k] != e2.get(k) or not seen[k] for k in TEL_KERNEL_NAMES):
+        fail(f"the profiler's device kernels over epoch 2 {seen} differ from the counters "
+             f"{e2}: {ops[:12]}")
+    return rec
+
+
+def telemetry_cli(torch, smi: str, tree: str, root: str) -> dict:
+    """The compile cache and the sanitizer in one process of their own: the
+    libraries phase 2 built, copied into a fresh directory, and a command
+    line fit with ``--compile-cache`` at the copy, ``--sanitize
+    compile,nans`` and ``--telemetry on``, 2 epochs: exit 0, no library
+    built, every library loaded from the copy."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.ops import _build
+
+    src = _build.build_dir()
+    cache = os.path.join(root, "t_kcache")
+    shutil.copytree(src, os.path.join(cache, src.name))
+    out = os.path.join(root, "t_cli")
+    argv = ["--data-path", tree, "--task", NNComputation.TASK_ICA, "--engine", "rankDAD",
+            "--epochs", "2", "--folds", "0", "--out-dir", out, "--quiet", "--telemetry", "on",
+            "--compile-cache", cache, "--sanitize", "compile,nans"]
+    code = ("import json, sys\n"
+            "from dinunet_implementations_tpu_torch.runner import cli\n"
+            "from dinunet_implementations_tpu_torch.ops import _build\n"
+            f"rc = cli.main({argv!r})\n"
+            "print(json.dumps({'rc': rc, 'builds': _build.BUILDS, 'loads': _build.LOADS, "
+            "'root': str(_build.BUILD_ROOT), 'libs': sorted(l._name for l in "
+            "_build._libs.values())}))\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        got = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"the compile-cache command line printed no result (rc {proc.returncode}): "
+             f"{proc.stdout[-2000:]} {proc.stderr[-4000:]}")
+    rec = {"seconds": seconds, "returncode": proc.returncode, **got,
+           "fold_line": json.loads(lines[-2]) if len(lines) > 1 else None,
+           "cache": cache, "copied_from": str(src)}
+    print(f"telemetry compile cache and sanitizer in {seconds:.1f} s on {smi}:", json.dumps(rec))
+    in_copy = all(p.startswith(os.path.join(cache, src.name) + os.sep) for p in got["libs"])
+    if proc.returncode != 0 or got["rc"] != 0 or got["builds"] != 0 or got["loads"] < 3 \
+            or not in_copy:
+        fail(f"the compile cache or the sanitizer: {rec} {proc.stderr[-4000:]}")
+    return rec
+
+
+def telemetry_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> dict:
+    """Phase 20 of the module docstring: the fit's telemetry plane."""
+    t_phase = time.perf_counter()
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH)
+    inv, plans = training_data(np, cfg)
+    if any(q.shape[1] < TELEMETRY_ROUNDS for q in plans):
+        fail(f"phase 20 wants {TELEMETRY_ROUNDS} rounds an epoch: {[q.shape for q in plans]}")
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = [torch.from_numpy(q[:, :TELEMETRY_ROUNDS]).cuda() for q in plans]
+    pairs = [telemetry_pair(torch, np, lc, pc, bc, smi, e, inv_x, inv_y, idx)
+             for e in TELEMETRY_ENGINES]
+    cost = telemetry_cost(torch, smi, inv_x, inv_y, idx)
+    fit = telemetry_fit(torch, np, lc, pc, bc, smi, tree, root)
+    cli = telemetry_cli(torch, smi, tree, root)
+    seconds = time.perf_counter() - t_phase
+    print(f"telemetry phase {seconds:.1f} s on {smi}")
+    return {"pairs": pairs, "cost": cost, "fit": fit, "cli": cli, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -5019,6 +5344,11 @@ def main() -> int:
               "64-site DP-SGD epochs; DP and personalized fits, the command line, the daemon; "
               "the golden privacy-stack fit")
         privacy = privacy_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
+
+        print("== 20. the fit's telemetry plane at full width: telemetry-on dSGD and rankDAD "
+              "epochs against off, the on-card recompute and plain; a telemetry-on fit with "
+              "an xprof window; the compile cache and the sanitizer on the command line")
+        telemetry = telemetry_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5084,6 +5414,15 @@ def main() -> int:
     bwd_by_path["privacy_daemon"] = sum(e["lstm_bwd"]
                                         for e in privacy["daemon"]["launches_per_epoch"])
     k7_by_path["privacy_mm_rankDAD_dp"] = privacy["mm"]["rankDAD"]["dp"]["launches"]["poweriter"]
+    for p in telemetry["pairs"]:
+        name = f"telemetry_{p['engine']}"
+        by_path[name] = p["launches"]["lstm_fwd"]
+        bwd_by_path[name] = p["launches"]["lstm_bwd"]
+        if p["engine"] == "rankDAD":
+            k7_by_path[name] = p["launches"]["poweriter"]
+    by_path["telemetry_fit"] = telemetry["fit"]["launches"]["lstm_fwd"]
+    bwd_by_path["telemetry_fit"] = telemetry["fit"]["launches"]["lstm_bwd"]
+    k7_by_path["telemetry_fit"] = telemetry["fit"]["launches"]["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{

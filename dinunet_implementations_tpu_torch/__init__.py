@@ -34,6 +34,10 @@ from .models.transformer import MultimodalNet
 from .serving import InferenceEngine
 from .weights import params_from_jax
 
+#: the package version, the project's (pyproject.toml), written into the
+#: telemetry manifest
+__version__ = "0.18.0"
+
 __all__ = [
     "FSArgs",
     "ICAArgs",

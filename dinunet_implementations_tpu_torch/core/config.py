@@ -234,11 +234,23 @@ class TrainConfig:
     # JAX donates the carried state's buffers to its epoch program; the
     # port's epoch never writes its input state, so any value is the same
     donate_epoch_state: bool = True
-    # not ported, kept "off" so the trainer can refuse them (ROADMAP A12)
+    # non-empty: the kernel libraries are built into and loaded from this
+    # directory (ops/_build.py ``enable_compile_cache``), so a later process
+    # loads what an earlier one built there. CLI: --compile-cache DIR
     compile_cache_dir: str = ""
+    # non-empty: a torch.profiler trace of the whole fit, one a fold under
+    # <profile_dir>/fold_<k>; excludes xprof_dir
     profile_dir: str = ""
+    # "on": the span tracer, the per-site round metrics in
+    # TrainState.telemetry and the manifest.json / metrics.jsonl / trace
+    # files under <out_dir>/telemetry/fold_<k> (or telemetry_dir); "off"
+    # runs the epoch exactly as without them
     telemetry: str = "off"
+    telemetry_dir: str = ""
+    # non-empty: a torch.profiler capture of the xprof_window epochs only
+    # ((first, last), 1-based and inclusive), under <xprof_dir>/fold_<k>
     xprof_dir: str = ""
+    xprof_window: tuple = (1, 1)
     # the buffered-async rounds (staleness_bound > 0: each site's last update
     # is aggregated at weight decay^age up to the bound) and the overlapped
     # rounds (each round's update applied one round late), which exclude
@@ -296,6 +308,12 @@ class TrainConfig:
         if self.task_id == NNComputation.TASK_MULTIMODAL:
             return self.multimodal_args
         raise ValueError(f"Invalid task: {self.task_id}")
+
+    def to_dict(self) -> dict:
+        """Every field as plain data (the blocks as dicts), JAX's
+        ``TrainConfig.to_dict``; ``TrainConfig().with_overrides(d)`` gives
+        the config back, also after a JSON round trip."""
+        return dataclasses.asdict(self)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

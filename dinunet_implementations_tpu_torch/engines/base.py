@@ -22,6 +22,7 @@ An engine is a pair of functions the epoch runs every round:
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable
 
@@ -87,8 +88,43 @@ def refuse_secure_agg(secure_agg) -> None:
             "engines gather per-site factors, which a masked psum wire cannot carry")
 
 
+def robust_gather_wire(pack: int, robust_agg: str) -> list:
+    """The robust modes' bookkeeping gathers that every engine's wire model
+    adds, as JAX's: ``norm_clip`` gathers the per-site norm and weight
+    vectors, the gather-based reducers the weight vector only."""
+    f32 = torch.float32
+    if robust_agg == "norm_clip":
+        return [((pack,), f32), ((pack,), f32)]
+    if robust_agg in ("trimmed_mean", "coordinate_median"):
+        return [((pack,), f32)]
+    return []
+
+
+def wire_shapes_bytes(shapes) -> int:
+    """The byte total of a wire model ``[(shape, dtype), ...]``."""
+    return sum(math.prod(s) * d.itemsize for s, d in shapes)
+
+
+def jax_shapes(grads: dict, transposed=frozenset()) -> dict:
+    """One site's leaf shapes in the JAX layout, by name: reversed for a
+    leaf named in ``transposed``."""
+    return {k: tuple(g.shape)[::-1] if k in transposed else tuple(g.shape)
+            for k, g in grads.items()}
+
+
 @dataclass(frozen=True)
 class Engine:
     name: str
     init: Callable  # params -> state
     aggregate: Callable  # (grads, state, weight, live=None, rnd=None) -> (agg, state)
+    # (grads, pack=1) -> [(shape, dtype), ...] (module docstring); None:
+    # the telemetry's dense fallback at wire_dtype
+    wire_shapes: Callable | None = None
+    wire_dtype: torch.dtype | None = None
+
+    def wire_bytes(self, grads: dict, pack: int = 1) -> int:
+        """The modeled payload one device ships a round (module
+        docstring): JAX's ``wire_bytes``, an exact integer."""
+        if self.wire_shapes is None:
+            raise NotImplementedError(f"engine {self.name!r} has no wire model")
+        return wire_shapes_bytes(self.wire_shapes(grads, pack=pack))

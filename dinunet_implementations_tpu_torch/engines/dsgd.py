@@ -20,6 +20,8 @@ wire (``secure_agg``):
 
 from __future__ import annotations
 
+import torch
+
 from ..parallel.collectives import (
     check_robust_agg,
     clip_site_gradients,
@@ -30,7 +32,7 @@ from ..parallel.collectives import (
     site_weighted_mean,
 )
 from ..privacy.secure_agg import masked_weighted_mean, secure_agg_enabled
-from .base import Engine, mask_dead_site
+from .base import Engine, jax_shapes, mask_dead_site, robust_gather_wire
 
 
 def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
@@ -65,7 +67,6 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
         raise NotImplementedError(f"dSGD dcn_wire_quant={dcn_wire_quant!r} is not ported: "
                                   "ROADMAP A11 (slices)")
     check_robust_agg(robust_agg, robust_trim_frac)
-    payload_dtype(precision_bits)  # rejects an unknown flag here, not in the first round
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
 
     def init(params):
@@ -87,4 +88,21 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
             return payload_uncast(agg, grads), state
         return payload_uncast(site_weighted_mean(payload, weight), grads), state
 
-    return Engine("dSGD", init, aggregate)
+    pdtype = payload_dtype(precision_bits)
+    transposed = frozenset(transposed)
+
+    def wire_shapes(grads, pack: int = 1) -> list:
+        """JAX's model: one psum a leaf at the payload dtype; the gather
+        modes one ``[pack, ...]`` block a leaf; the masked wire the same
+        leaves at int32 and the ``[pack]`` liveness gather."""
+        shapes = list(jax_shapes(grads, transposed).values())
+        extras = robust_gather_wire(pack, robust_agg)
+        if gather_mode:
+            return [((pack,) + s, pdtype) for s in shapes] + extras
+        if secure:
+            return ([(s, torch.int32) for s in shapes] + [((pack,), torch.float32)]
+                    + extras)
+        return [(s, pdtype) for s in shapes] + extras
+
+    return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes,
+                  wire_dtype=torch.int32 if secure else pdtype)

@@ -68,15 +68,17 @@ def from_matrix(mat, like):
 def lowrank_rank_groups(grads: dict, rank: int) -> tuple:
     """``(groups, dense)``: ``groups`` is ``[(effective_rank, [(m, n), ...]),
     ...]`` sorted by rank class, ``dense`` the shapes of the leaves that
-    are not factorized; leaves are one site's, in JAX orientation."""
+    are not factorized; leaves (tensors or shapes) are one site's, in JAX
+    orientation."""
     groups: dict[int, list] = {}
     dense = []
     for g in grads.values():
-        if is_compressible(g):
-            m, n = _matrix_shape(g.shape)
+        shape = tuple(getattr(g, "shape", g))
+        if is_compressible(shape):
+            m, n = _matrix_shape(shape)
             groups.setdefault(min(rank, m, n), []).append((m, n))
         else:
-            dense.append(tuple(g.shape))
+            dense.append(shape)
     return sorted(groups.items()), dense
 
 

@@ -56,11 +56,12 @@ from ..parallel.collectives import (
     robust_reduce_tree,
     site_weight_scale,
 )
-from .base import Engine, mask_dead_site, refuse_secure_agg
+from .base import Engine, jax_shapes, mask_dead_site, refuse_secure_agg, robust_gather_wire
 from .lowrank import (
     _matrix_shape,
     is_compressible,
     jax_leaf_shape,
+    lowrank_rank_groups,
     lp_matmul,
     orthonormalize_many,
 )
@@ -171,4 +172,14 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         return ({k: agg[k] for k in grads},
                 {"q": {k: qs[k] for k in grads}, "e": {k: es[k] for k in grads}})
 
-    return Engine("powerSGD", init, aggregate)
+    def wire_shapes(grads, pack: int = 1) -> list:
+        """JAX's model: two psums a compressible leaf, ``P [m, r]`` and
+        ``Q [n, r]`` at the payload dtype, a dense f32 psum a 1-D leaf; the
+        gather modes ship each as a ``[pack, ...]`` block."""
+        groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
+        lead = (pack,) if gather_mode else ()
+        out = [(lead + (d, r), pdtype) for r, mns in groups for m, n in mns for d in (m, n)]
+        return (out + [(lead + s, torch.float32) for s in dense]
+                + robust_gather_wire(pack, robust_agg))
+
+    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=pdtype)

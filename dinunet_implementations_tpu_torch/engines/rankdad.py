@@ -48,12 +48,13 @@ from ..parallel.collectives import (
     robust_reduce_tree,
     site_weight_scale,
 )
-from .base import Engine, mask_dead_site, refuse_secure_agg
+from .base import Engine, jax_shapes, mask_dead_site, refuse_secure_agg, robust_gather_wire
 from .lowrank import (
     _matrix_shape,
     default_omega,
     is_compressible,
     jax_leaf_shape,
+    lowrank_rank_groups,
     subspace_iteration_grouped,
 )
 
@@ -157,4 +158,14 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
         agg = {name: out[name] for name in grads}
         return agg, ({"omega": new_oms} if dad_warm_start else state)
 
-    return Engine("rankDAD", init, aggregate)
+    def wire_shapes(grads, pack: int = 1) -> list:
+        """JAX's model: one gather a rank class of the ``[pack, Σ(m + n),
+        r]`` factors at the payload dtype, a dense f32 psum a 1-D leaf
+        (``[pack, ...]`` gathers in the gather modes)."""
+        groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
+        f32 = torch.float32
+        return ([((pack, sum(m + n for m, n in mns), r), pdtype) for r, mns in groups]
+                + [(((pack,) + s) if gather_mode else s, f32) for s in dense]
+                + robust_gather_wire(pack, robust_agg))
+
+    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=pdtype)

@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` and loaded with :mod:`ctypes`. The
 libraries go to ``build/torch_kernels/<hash>/`` under the checkout, keyed by
 a hash of the sources and flags, so a fresh checkout builds everything from
 the sources in the repository and an unchanged one reuses its build. All
-sources compile at once, one ``nvcc`` each.
+sources compile at once, one ``nvcc`` each. :func:`enable_compile_cache`
+moves the root elsewhere (the compile cache).
 """
 
 from __future__ import annotations
@@ -89,6 +90,20 @@ def build_all() -> dict[str, Path]:
             f"--- {n}\n{logs[n]}" for n in failed))
     last_build.update(seconds=time.monotonic() - t0, logs=logs, dir=str(out_dir))
     return libs
+
+
+def enable_compile_cache(path) -> Path:
+    """Point the library root at ``path`` (``TrainConfig.compile_cache_dir``,
+    CLI ``--compile-cache``), the port's counterpart of JAX's persistent
+    compilation cache: libraries build into and load from
+    ``<path>/<source hash>/``, so a process loads what an earlier process
+    built there, from the same sources and flags, and builds nothing.
+    Process-wide and idempotent; a library already loaded stays loaded."""
+    global BUILD_ROOT
+    root = Path(path).expanduser().resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    BUILD_ROOT = root
+    return root
 
 
 def load(name: str) -> ctypes.CDLL:

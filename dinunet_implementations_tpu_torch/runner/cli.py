@@ -30,6 +30,14 @@
         --serve --serve-capacity 8 --serve-epochs 4 --set staleness_bound=2
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --overlap-rounds
 
+    # telemetry: spans, per-site round metrics and the artifacts under
+    # <out-dir>/telemetry/fold_<k>, a profiler capture of epochs 2..3, the
+    # kernel libraries kept in a cache directory, and the sanitizer
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --telemetry on --xprof-dir prof --set xprof_window=[2,3] \
+        --compile-cache kcache --sanitize compile,nans
+    python -m dinunet_implementations_tpu_torch.telemetry.report <out-dir>/telemetry
+
     # the privacy plane: DP-SGD with an ε budget, masked wires, and a
     # personalized classifier head per site
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
@@ -41,7 +49,8 @@ key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
 ``--set pretrain=true --set 'pretrain_args={"epochs": 1}'``). Each fold
 prints one JSON line, as JAX's CLI does; ``--serve`` prints the daemon's
 summary, and a preempted fit prints JAX's ``{"preempted": true, ...}``
-line on stderr and exits with its code. ``--device`` is the port's own:
+line on stderr and exits with its code; a sanitizer violation prints JAX's
+``{"sanitizer_violation": ...}`` line on stderr and exits 70. ``--device`` is the port's own:
 the card unless ``--device cpu`` is given (the counterpart of JAX's
 ``JAX_PLATFORMS=cpu``).
 
@@ -55,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 
 import numpy as np
@@ -65,7 +75,7 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_TELEMETRY = "A12 (telemetry, profiles, the compile cache)"
+_LIVE_PLANE = "A12 (b) (the live plane: /statusz and the SLO burn)"
 _SCHEDULER = "A19 (the scheduler and supervisor)"
 _REFUSED = {
     "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
@@ -73,10 +83,7 @@ _REFUSED = {
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "telemetry": ("off", _TELEMETRY), "profile_dir": (None, _TELEMETRY),
-    "xprof_dir": (None, _TELEMETRY), "compile_cache": (None, _TELEMETRY),
-    "sanitize": (None, _TELEMETRY), "statusz_port": (None, _TELEMETRY),
-    "slo_p99_ms": (None, _TELEMETRY),
+    "statusz_port": (None, _LIVE_PLANE), "slo_p99_ms": (None, _LIVE_PLANE),
     "schedule": (False, _SCHEDULER), "pod_slices": (None, _SCHEDULER),
     "sched_wall_s": (None, _SCHEDULER), "sched_ticks": (None, _SCHEDULER),
 }
@@ -182,6 +189,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="personalized per-site heads: comma-separated parameter-path "
                         "substrings (e.g. 'cls_fc3' for the ICA-LSTM classifier) kept out of "
                         "the aggregation; each site trains and evaluates its own head")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of each fold's whole fit here")
+    p.add_argument("--telemetry", default=None, choices=["on", "off"],
+                   help="telemetry: span tracer, per-site round metrics and "
+                        "manifest.json/metrics.jsonl/Perfetto traces under "
+                        "<out-dir>/telemetry/fold_<k>; 'off' (default) runs without them")
+    p.add_argument("--xprof-dir", default=None, metavar="DIR",
+                   help="torch.profiler capture of an epoch window only (TrainConfig."
+                        "xprof_window, default epoch 1; --set xprof_window=[3,5]); the "
+                        "windowed alternative to --profile-dir")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="build the kernel libraries into and load them from DIR "
+                        "(TrainConfig.compile_cache_dir): a later run loads what an earlier "
+                        "one built there")
+    p.add_argument("--sanitize", nargs="?", const="1", default=None, metavar="FLAGS",
+                   help="runtime sanitizer (checks/sanitize.py) around every fit: no kernel "
+                        "library built after the first epoch (compile), autograd anomaly "
+                        "mode (nans), leaks accepted and unchecked; a comma subset of "
+                        "compile,leaks,nans (default: all). Sets DINUNET_SANITIZE")
     p.add_argument("--device", default=None,
                    help="where to run: the CUDA card by default, 'cpu' to run on the CPU")
     p.add_argument("--quiet", action="store_true")
@@ -196,9 +222,7 @@ def build_parser() -> argparse.ArgumentParser:
             ("--coordinator", {}), ("--num-processes", dict(type=int)),
             ("--process-id", dict(type=int)),
             ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--telemetry", dict(choices=["on", "off"])),
-            ("--profile-dir", {}), ("--xprof-dir", {}), ("--compile-cache", {}),
-            ("--sanitize", dict(nargs="?", const="1")), ("--statusz-port", dict(type=int)),
+            ("--statusz-port", dict(type=int)),
             ("--slo-p99-ms", dict(type=float)), ("--schedule", dict(action="store_true")),
             ("--pod-slices", dict(type=int)), ("--sched-wall-s", dict(type=float)),
             ("--sched-ticks", dict(type=int))):
@@ -260,7 +284,9 @@ def main(argv: list[str] | None = None) -> int:
                      ("robust_agg", args.robust_agg), ("overlap_rounds", args.overlap_rounds),
                      ("dp_clip", args.dp_clip), ("dp_noise_multiplier", args.dp_noise),
                      ("dp_epsilon_budget", args.dp_epsilon_budget),
-                     ("secure_agg", args.secure_agg),
+                     ("secure_agg", args.secure_agg), ("telemetry", args.telemetry),
+                     ("profile_dir", args.profile_dir), ("xprof_dir", args.xprof_dir),
+                     ("compile_cache_dir", args.compile_cache),
                      ("personalize", None if args.personalize is None
                       else tuple(p for p in args.personalize.split(",") if p))):
         if val is not None:
@@ -268,6 +294,17 @@ def main(argv: list[str] | None = None) -> int:
     cfg = TrainConfig().with_overrides(overrides)
     verbose = not args.quiet
     fault_plan, attack_plan = _plans(args)
+    if args.sanitize is not None:
+        # the runners read the variable; check the flags here for an early,
+        # readable error
+        from ..checks.sanitize import ENV_VAR, sanitize_flags
+
+        try:
+            sanitize_flags(args.sanitize)
+        except ValueError as e:
+            raise SystemExit(f"--sanitize: {e}")
+        os.environ[ENV_VAR] = args.sanitize
+    from ..checks.sanitize import SanitizerViolation
 
     if args.serve:
         if args.site is not None or args.folds is not None:
@@ -280,7 +317,16 @@ def main(argv: list[str] | None = None) -> int:
             quorum=args.serve_quorum, poll_s=args.serve_poll, fault_plan=fault_plan,
             attack_plan=attack_plan, inventory_rows=args.serve_rows, resume=args.resume,
             verbose=verbose, device=args.device)
-        print(json.dumps(_finite(daemon.serve(max_epochs=args.serve_epochs)), default=str))
+        from ..checks.sanitize import sanitized_fit
+
+        try:
+            # the compile guard over the whole service: churn builds nothing
+            with sanitized_fit(daemon, label="serve"):
+                summary = daemon.serve(max_epochs=args.serve_epochs)
+        except SanitizerViolation as v:
+            print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
+            return 70
+        print(json.dumps(_finite(summary), default=str))
         return 0
 
     if args.site is not None:
@@ -298,7 +344,11 @@ def main(argv: list[str] | None = None) -> int:
             # the keys passed explicitly above already carry any override
             **{k: v for k, v in overrides.items()
                if k not in ("task_id", "mode", "site_index", "out_dir", "device")})
-        results = runner.run(verbose=verbose)
+        try:
+            results = runner.run(verbose=verbose)
+        except SanitizerViolation as v:
+            print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
+            return 70  # EX_SOFTWARE: an internal invariant broke
     else:
         from .fed_runner import FedRunner
 
@@ -308,6 +358,9 @@ def main(argv: list[str] | None = None) -> int:
                            fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
         try:
             results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
+        except SanitizerViolation as v:
+            print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
+            return 70  # EX_SOFTWARE: an internal invariant broke
         except Preempted as p:
             # a cooperative stop (a signal, or the FaultPlan kill) after the
             # checkpoint: --resume continues bit for bit from that epoch

@@ -25,8 +25,12 @@ Every runner takes the privacy plane's config fields (DP-SGD, secure
 aggregation, personalized heads); a personalized fit's per-site scores
 (each site on its own head) land in each ``local{i}/logs.json``.
 
-No runner wraps a fold in the JAX package's ``sanitized_fit``, and the
-daemon has no flight recorder, file sink or tracer (ROADMAP A12).
+``FedRunner`` and ``SiteRunner`` wrap each fold in the sanitizer
+(checks/sanitize.py ``sanitized_fit``, on under ``DINUNET_SANITIZE``), and
+their fits take the telemetry options of the config (``telemetry``,
+``telemetry_dir``, ``profile_dir``, ``xprof_dir``, ``compile_cache_dir``).
+The daemon has no flight recorder, file sink or tracer: ``flight``,
+``sink_tags`` and a telemetry-on config raise naming ROADMAP A12 (b).
 """
 
 from __future__ import annotations
@@ -98,11 +102,12 @@ class FedRunner:
     ``device`` (the card unless the caller asks for ``"cpu"``).
     ``overrides`` are config fields (``epochs=3``, ``pipeline="host"``, …)
     applied before the tree's inputspec. ``mesh="auto"`` resolves to one
-    device; any other mesh is multi-GPU (ROADMAP A11) and raises."""
+    device; any other mesh is multi-GPU (ROADMAP A11) and raises. ``bus``
+    (a ``telemetry.MetricsBus``) takes every fold's gauges and counters."""
 
     def __init__(self, cfg: TrainConfig | None = None, data_path: str = ".",
                  out_dir: str | None = None, mesh="auto", fault_plan=None, attack_plan=None,
-                 device=None, **overrides):
+                 device=None, bus=None, **overrides):
         if mesh not in ("auto", None):
             raise NotImplementedError("FedRunner(mesh=...) is not ported: ROADMAP A11 "
                                       "(multi-GPU); the port runs every site on one device")
@@ -116,6 +121,7 @@ class FedRunner:
         self.cfg = self.site_cfgs[0].replace(num_sites=len(self.site_dirs))
         self.out_dir = out_dir or os.path.join(data_path, "output")
         self.mesh = None
+        self.bus = bus
         self.device = resolve_device(device)
 
     def run(self, folds=None, verbose: bool = True, resume: bool = False) -> list[dict]:
@@ -127,14 +133,23 @@ class FedRunner:
         if folds is not None:
             all_folds = [all_folds[k] for k in folds]
             fold_ids = list(folds)
+        from ..checks.sanitize import sanitized_fit
+
         results = []
         for k, fold in zip(fold_ids, all_folds):
             trainer = FederatedTrainer(
                 self.cfg, build_model(self.cfg, device=self.device), self.mesh,
                 out_dir=self.out_dir, fault_plan=self.fault_plan, attack_plan=self.attack_plan,
-                device=self.device)
-            results.append(trainer.fit(fold["train"], fold["validation"], fold["test"], fold=k,
-                                       verbose=verbose, resume=resume))
+                bus=self.bus, device=self.device)
+            # DINUNET_SANITIZE: the compile guard (no kernel library built or
+            # loaded after the first epoch) and the anomaly mode around the
+            # fold; nothing when off
+            with sanitized_fit(trainer, label=f"{self.cfg.agg_engine}/fold{k}") as report:
+                res = trainer.fit(fold["train"], fold["validation"], fold["test"], fold=k,
+                                  verbose=verbose, resume=resume)
+                if report is not None:
+                    report.note_result(res)
+            results.append(res)
         return results
 
 
@@ -147,14 +162,16 @@ class SiteRunner:
     unless the caller asks for ``"cpu"``). ``taks_id`` is the reference's
     kwarg, spelled as it spells it, and takes its short names ("FSL",
     "ICA") or a task id; ``task_id`` wins when both are given.
-    ``site_index`` is clamped to the sites present. Other keyword arguments
-    are config overrides, applied before the tree's inputspec."""
+    ``site_index`` is clamped to the sites present. ``bus`` takes the fits'
+    gauges and counters. Other keyword arguments are config overrides,
+    applied before the tree's inputspec."""
 
     def __init__(self, taks_id: str | None = None, task_id: str | None = None,
                  data_path: str = ".", mode: str = "train", seed: int = 0, site_index: int = 0,
                  split_ratio=(0.8, 0.1, 0.1), monitor_metric: str = "auc",
                  metric_direction: str = "maximize", log_header: str = "Loss|AUC",
-                 batch_size: int = 16, out_dir: str | None = None, device=None, **kw):
+                 batch_size: int = 16, out_dir: str | None = None, device=None, bus=None,
+                 **kw):
         tid = task_id or _SHORT_TASK_IDS.get(taks_id, taks_id)
         self.site_index = site_index
         self.cfg = TrainConfig(task_id=tid, mode=mode, seed=seed, split_ratio=tuple(split_ratio),
@@ -162,6 +179,7 @@ class SiteRunner:
                                log_header=log_header, batch_size=batch_size).with_overrides(kw)
         self.data_path = data_path
         self.out_dir = out_dir
+        self.bus = bus
         self.device = resolve_device(device)
 
     def run(self, trainer_cls=None, dataset_cls=None, handle_cls=None,
@@ -183,13 +201,18 @@ class SiteRunner:
             len(arrs), split_ratio=cfg.split_ratio, num_folds=cfg.num_folds,
             split_files=tuple(getattr(args, "split_files", ()) or ()), base_dir=site_dirs[ix],
             seed=cfg.seed)
+        from ..checks.sanitize import sanitized_fit
+
         results = []
         for k, split in enumerate(splits):
             trainer = FederatedTrainer(cfg, build_model(cfg, device=self.device), mesh=None,
-                                       out_dir=self.out_dir, device=self.device)
-            results.append(trainer.fit([arrs.take(split["train"])],
-                                       [arrs.take(split["validation"])],
-                                       [arrs.take(split["test"])], fold=k, verbose=verbose))
+                                       out_dir=self.out_dir, bus=self.bus, device=self.device)
+            with sanitized_fit(trainer, label=f"{cfg.agg_engine}/site{ix}/fold{k}") as report:
+                res = trainer.fit([arrs.take(split["train"])], [arrs.take(split["validation"])],
+                                  [arrs.take(split["test"])], fold=k, verbose=verbose)
+                if report is not None:
+                    report.note_result(res)
+            results.append(res)
         return results
 
 
@@ -224,10 +247,10 @@ class FedDaemon:
 
     The daemon publishes its gauges and counters to ``bus``, a
     ``telemetry.MetricsBus`` of its own unless one is passed. A mesh is
-    multi-GPU (ROADMAP A11); ``flight`` and ``sink_tags`` are the flight
-    recorder and file sinks, and ``health_probes`` the ``/healthz`` exporter's
-    (A12); the scheduler's ``set_slice_grant`` and ``reload_checkpoint`` are
-    A19."""
+    multi-GPU (ROADMAP A11); ``flight``, ``sink_tags`` and a telemetry-on
+    config are the daemon's flight recorder, file sink and tracer, and
+    ``health_probes`` the ``/healthz`` exporter's (A12 (b)); the scheduler's
+    ``set_slice_grant`` and ``reload_checkpoint`` are A19."""
 
     def __init__(self, cfg: TrainConfig | None = None, capacity: int = 8,
                  spool_dir: str | None = None, out_dir: str | None = None,
@@ -243,11 +266,12 @@ class FedDaemon:
         if mesh not in ("auto", None):
             raise NotImplementedError("FedDaemon(mesh=...) is not ported: ROADMAP A11 "
                                       "(multi-GPU); the port runs every slot on one device")
-        for name, value in (("flight", flight), ("sink_tags", sink_tags)):
-            if value is not None:
-                raise NotImplementedError(f"FedDaemon({name}=...) is not ported: ROADMAP A12 "
-                                          "(the flight recorder and file sinks)")
         cfg = (cfg or TrainConfig()).with_overrides(overrides)
+        for name, on in (("flight", flight is not None), ("sink_tags", sink_tags is not None),
+                         ("cfg.telemetry='on'", cfg.telemetry == "on")):
+            if on:
+                raise NotImplementedError(f"FedDaemon {name} is not ported: ROADMAP A12 (b) "
+                                          "(the daemon's flight recorder, file sink and tracer)")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if not 1 <= quorum <= capacity:

@@ -2,7 +2,7 @@
 lane for the unidirectional ICA-LSTM), the replicated fleet with sharded
 session affinity, the publish plane (shadow scoring, hot-swap, rollback)
 and the max-delay autotuner. The serving CLI is ROADMAP A19; the tracer,
-sinks and exporter it runs with are A12."""
+sinks and exporter it runs with are A12 (b)."""
 
 from .admission import AutotunerDaemon, DelayAutotuner
 from .engine import InferenceEngine, ServingError

@@ -33,8 +33,10 @@ work share one engine:
 every kernel library the request path needs is built and loaded before
 the first request; :meth:`InferenceEngine.compiles_after_warmup` counts
 the libraries built or loaded since (``ops/_build.py``), and it must stay
-0 across any number of requests, swaps and publishes. The tracer, the
-sinks and the compile cache are ROADMAP A12.
+0 across any number of requests, swaps and publishes.
+``cfg.compile_cache_dir`` moves the libraries' root
+(``ops/_build.enable_compile_cache``): a later process loads what an
+earlier one built there. The tracer and the sinks are ROADMAP A12 (b).
 """
 
 from __future__ import annotations
@@ -100,12 +102,11 @@ class _Req:
 
 def _refuse(cfg: TrainConfig, tracer, sink) -> None:
     """Raise for the engine options the port does not run."""
-    for name, on in (("tracer", tracer is not None), ("sink", sink is not None),
-                     ("cfg.compile_cache_dir", bool(cfg.compile_cache_dir))):
+    for name, on in (("tracer", tracer is not None), ("sink", sink is not None)):
         if on:
             raise NotImplementedError(
-                f"InferenceEngine {name} is not ported: ROADMAP A12 (telemetry, sinks, "
-                "the compile cache)")
+                f"InferenceEngine {name} is not ported: ROADMAP A12 (b) (the serving plane's "
+                "tracer and sinks)")
 
 
 class InferenceEngine:
@@ -131,6 +132,10 @@ class InferenceEngine:
                  streaming: bool | None = None, device=None, bus=None,
                  bus_labels: dict | None = None, tracer=None, sink=None):
         _refuse(cfg, tracer, sink)
+        if cfg.compile_cache_dir:
+            from ..ops._build import enable_compile_cache
+
+            enable_compile_cache(cfg.compile_cache_dir)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = get_task(cfg.task_id)

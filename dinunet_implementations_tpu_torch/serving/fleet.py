@@ -72,14 +72,14 @@ class ReplicaSet:
     ``devices``: the devices the replicas round-robin over (default every
     CUDA device; the tests pass ``["cpu"]``). ``engine_kwargs`` go to each
     :class:`~.engine.InferenceEngine`. ``tracer`` and ``sink`` exist for
-    the JAX signature and must be None (ROADMAP A12)."""
+    the JAX signature and must be None (ROADMAP A12 (b))."""
 
     def __init__(self, cfg: TrainConfig, *, replicas: int = 2, checkpoint: str | None = None,
                  params=None, batch_stats=None, supervise_interval_s: float = 0.2,
                  bus=None, devices=None, tracer=None, sink=None, **engine_kwargs):
         if tracer is not None or sink is not None:
-            raise NotImplementedError("ReplicaSet tracer and sink are not ported: ROADMAP A12 "
-                                      "(telemetry, sinks)")
+            raise NotImplementedError("ReplicaSet tracer and sink are not ported: ROADMAP "
+                                      "A12 (b) (the serving plane's tracer and sinks)")
         if replicas < 1:
             raise ServingError(f"need >= 1 replica, got {replicas}")
         self.cfg = cfg

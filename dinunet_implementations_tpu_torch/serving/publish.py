@@ -34,7 +34,7 @@ serving side of that wire:
 
 Every attempt appends one ``publish`` row (and each rollback verdict one
 ``rollback`` row) to :attr:`PublishController.history`; a telemetry sink
-for them is ROADMAP A12. :class:`PublishDaemon` wires the watcher and the
+for them is ROADMAP A12 (b). :class:`PublishDaemon` wires the watcher and the
 controller to a clock; the controller's methods stay directly callable.
 """
 
@@ -88,7 +88,7 @@ class PublishController:
     """See module docstring. ``target`` is an engine or fleet; ``bus`` must
     be the SAME bus its request path publishes latencies to (the rollback
     window reads it). ``sink`` exists for the JAX signature and must be
-    None (ROADMAP A12)."""
+    None (ROADMAP A12 (b))."""
 
     def __init__(self, target, *, bus, sink=None,
                  p99_target_ms: float = 50.0, budget: float = SLO_BUDGET,
@@ -96,8 +96,8 @@ class PublishController:
                  max_shadow_delta: float | None = None,
                  hist_name: str = "serving_request_latency_ms"):
         if sink is not None:
-            raise NotImplementedError("PublishController sink is not ported: ROADMAP A12 "
-                                      "(telemetry sinks)")
+            raise NotImplementedError("PublishController sink is not ported: ROADMAP A12 (b) "
+                                      "(the serving plane's sinks)")
         if rollback_burn <= 0:
             raise ServingError(
                 f"rollback_burn must be positive, got {rollback_burn}"

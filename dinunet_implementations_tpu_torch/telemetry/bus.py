@@ -19,8 +19,9 @@ Contract:
 - **Series names are literals**; the variable part goes in label kwargs
   (``bus.counter("serving_requests_total", lane="infer")``).
 
-The exporter that serves the bus over HTTP (``/metrics``, ``/statusz``),
-the sinks and the process-wide default bus are ROADMAP A12.
+One process-wide default lives behind :func:`global_bus`: a telemetry-on
+trainer publishes there when it is given no bus. The exporter that serves
+the bus over HTTP (``/metrics``, ``/statusz``) is ROADMAP A12 (b).
 """
 
 from __future__ import annotations
@@ -209,3 +210,11 @@ class LabeledBusView:
 
 #: shared disabled instance — thread it where live metrics are off
 NULL_BUS = MetricsBus(enabled=False)
+
+
+#: the process-wide bus a telemetry-on trainer publishes to by default
+_GLOBAL_BUS = MetricsBus()
+
+
+def global_bus() -> MetricsBus:
+    return _GLOBAL_BUS

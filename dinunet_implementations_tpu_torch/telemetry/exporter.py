@@ -5,7 +5,7 @@ rollback watch (serving/publish.py) and the autotuner's budget
 
 Only these two are ported. The rest of that module, the HTTP exporter that
 serves ``/metrics`` (Prometheus text), ``/healthz``, ``/statusz`` and
-``/tracez``, is ROADMAP A12.
+``/tracez``, is ROADMAP A12 (b).
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ dSGD, rankDAD's per-site ``{"omega": ...}``, powerSGD's per-site ``{"q":
 ..., "e": ...}``, with None for a dense leaf),
 ``rng`` (a threefry key, ``uint32 [2]``: the port's int seed ``s`` is
 written as ``[s >> 32, s & 0xffffffff]``, which is ``PRNGKey(s)``),
-``round``, ``health``, the empty ``telemetry``, the staleness ``buffers``,
+``round``, ``health``, the round metrics ``telemetry`` (``[S]`` leaves),
+the staleness ``buffers``,
 the ``overlap`` stash and the personalized heads' rows ``personal``
 (``{"params": head subtree [S, ...], "opt": {"0": {"count" [S], "mu",
 "nu"}, "1": {}}}``; each ``{}`` while its mode is off, restored the
@@ -49,6 +50,7 @@ from ..weights import (
     personal_from_jax,
     slot_tree_from_jax,
     table_of,
+    telemetry_from_jax,
     train_state_from_tree,
     train_state_to_jax,
 )
@@ -169,7 +171,7 @@ def save_checkpoint(path: str, state: TrainState, meta: dict | None = None,
         "rng": _key(t["rng"]),
         "round": np.asarray(t["round"], np.int32),
         "health": _sorted(t["health"]),
-        "telemetry": {},
+        "telemetry": _sorted(t["telemetry"]) if t["telemetry"] is not None else {},
         "buffers": _sorted(t["buffers"]) if t["buffers"] is not None else {},
         "overlap": _sorted(t["overlap"]) if t["overlap"] is not None else {},
         "personal": ({} if personal is None else
@@ -249,11 +251,27 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     buffers = _restore_slot_tree(path, "buffers", raw, like, table, dev)
     overlap = _restore_slot_tree(path, "overlap", raw, like, table, dev)
     personal = _restore_personal(path, raw, like, table, dev)
+    telemetry = _restore_telemetry(path, raw.get("telemetry"), like.telemetry, dev)
     state = TrainState(params=state.params, batch_stats=state.batch_stats,
                        opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
                        round=state.round, health=health, buffers=buffers, overlap=overlap,
-                       personal=personal)
+                       personal=personal, telemetry=telemetry)
     return (state, _meta(raw)) if with_meta else state
+
+
+def _restore_telemetry(path: str, stored, like: dict | None, dev):
+    """The round-metric accumulators, restored the tolerant way JAX restores
+    them: ``like``'s (None for a telemetry-off run, fresh zeros otherwise)
+    when the file holds none (an older file), and, with a warning, when it
+    holds other keys or another site count."""
+    if not stored or like is None:
+        return like
+    got = telemetry_from_jax(stored, dev)
+    if _same_tree(got, like):
+        return got
+    warnings.warn(f"checkpoint {path}: stored telemetry accumulators do not match the current "
+                  "run (site count or schema changed?); resuming with fresh accumulators")
+    return like
 
 
 def _restore_personal(path: str, raw: dict, like: TrainState, table, dev):

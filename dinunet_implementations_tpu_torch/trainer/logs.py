@@ -1,7 +1,7 @@
 """Output writers, in the layout and keys the reference's notebooks read:
-the port's own copy of the JAX package's ``trainer/logs.py`` without the
-telemetry and privacy fields (those options are not ported, and their
-fields are empty while they are off).
+the port's own copy of the JAX package's ``trainer/logs.py``, with its
+health, telemetry and privacy fields (each empty while its option is
+off).
 
 - ``logs.json``: ``agg_engine``, ``test_metrics`` (nested, ``[[loss,
   auc]]``), ``best_val_epoch``, ``cumulative_total_duration``,
@@ -21,8 +21,9 @@ import logging
 import os
 import shutil
 import sys
-import time
 import zipfile
+
+from ..telemetry.tracer import duration  # noqa: F401  (the one duration-list helper)
 
 _LOGGER_NAME = "dinunet_implementations_tpu_torch"
 
@@ -58,13 +59,6 @@ def log_info(msg: str) -> None:
 def log_warning(msg: str) -> None:
     """Recoverable but noteworthy conditions (clamps, empty splits)."""
     get_logger().warning(msg)
-
-
-def duration(cache: dict, start: float, key: str) -> float:
-    """Append the seconds since ``start`` (a ``time.perf_counter()``
-    reading) to ``cache[key]``, the reference's duration lists."""
-    cache.setdefault(key, []).append(time.perf_counter() - start)
-    return cache[key][-1]
 
 
 def fold_dir(out_dir: str, site: str, task_id: str, fold: int) -> str:
@@ -116,6 +110,31 @@ def health_log_fields(site_health: dict | None, site_index: int | None = None) -
         out["anomaly_score"] = round(site_health["site_anomaly_score"][site_index], 6)
         out["suspect_streak"] = site_health["site_suspect_streak"][site_index]
     return out
+
+
+def telemetry_log_fields(summary: dict | None, site_index: int | None = None) -> dict:
+    """``logs.json`` fields of the round metrics' rollup
+    (``telemetry.metrics.telemetry_summary``), JAX's: the remote's full
+    lists with ``site_index=None``, one site's scalars for
+    ``local{i}/logs.json``; ``{}`` when telemetry was off."""
+    if not summary:
+        return {}
+    if site_index is None:
+        return {
+            "site_grad_norm_last": list(summary["site_grad_norm_last"]),
+            "site_grad_norm_max": list(summary["site_grad_norm_max"]),
+            "site_grad_norm_mean": list(summary["site_grad_norm_mean"]),
+            "site_residual_norm_mean": list(summary["site_residual_norm_mean"]),
+            "update_norm_last": summary["update_norm_last"],
+            "payload_bytes_per_round": summary["payload_bytes_per_round"],
+            "dcn_bytes_per_round": summary.get("dcn_bytes_per_round", 0.0),
+        }
+    return {
+        "grad_norm_last": summary["site_grad_norm_last"][site_index],
+        "grad_norm_max": summary["site_grad_norm_max"][site_index],
+        "grad_norm_mean": summary["site_grad_norm_mean"][site_index],
+        "residual_norm_mean": summary["site_residual_norm_mean"][site_index],
+    }
 
 
 def privacy_log_fields(results: dict) -> dict:

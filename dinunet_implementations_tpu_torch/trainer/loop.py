@@ -34,9 +34,26 @@ modes reach the epoch function. ``membership_mask``, ``fixed_steps`` and
 every round, and the plan and the inventory keep their shapes across
 churn.
 
+Telemetry (``cfg.telemetry="on"``): the fit runs under the span tracer
+(``fit``, ``epoch``, ``eval``, ``plan-build``, ``inventory-upload``,
+``checkpoint``, ``test``, ``write-outputs``, ``pretrain``), the epoch keeps
+the per-site round metrics (trainer/steps.py, telemetry/metrics.py), and one
+sink a fold (telemetry/sink.py) writes ``manifest.json``, ``metrics.jsonl``
+(an epoch row an epoch, events, a summary row) and the traces under
+``cfg.telemetry_dir`` or ``<out_dir>/telemetry``, ``fold_<k>``; the sink
+finalizes on every exit, early stop, ``Preempted`` and errors included.
+The gauges and counters go to ``bus`` (``telemetry.global_bus()`` with
+telemetry on when none is given); ``results["site_telemetry"]`` and each
+``logs.json`` carry the metrics' rollup. The summary row's
+``epoch_compiles`` counts the kernel libraries built or loaded during the
+fit (``ops/_build.py`` ``BUILDS`` + ``LOADS``): the port has no jit cache
+to count. ``cfg.profile_dir`` traces the whole fit, ``cfg.xprof_dir`` the
+``cfg.xprof_window`` epochs (telemetry/xprof.py, ``torch.profiler``); they
+exclude each other. ``cfg.compile_cache_dir`` moves the kernel libraries'
+root (``ops/_build.enable_compile_cache``).
+
 Options the port does not run raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, at any value other than "off": a mesh (A11),
-and telemetry, profiles and the compile cache (A12).
+ROADMAP item that ports them, at any value other than "off": a mesh (A11).
 
 The privacy plane: ``cfg.dp_clip`` / ``dp_noise_multiplier`` / ``dp_seed``,
 ``cfg.secure_agg`` and ``cfg.personalize`` reach the epoch function and
@@ -69,6 +86,8 @@ from ..robustness.faults import fault_window, poison_inputs
 from ..robustness.health import health_summary
 from ..privacy import RdpAccountant, dp_enabled, effective_noise_multiplier, sampling_fraction
 from ..robustness.preemption import PreemptionGuard, Preempted
+from ..telemetry.bus import NULL_BUS, global_bus
+from ..telemetry.tracer import NULL_TRACER, SpanTracer
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
 from .logs import (
@@ -78,6 +97,7 @@ from .logs import (
     log_info,
     log_warning,
     privacy_log_fields,
+    telemetry_log_fields,
     write_logs_json,
     write_test_metrics_csv,
     zip_global_results,
@@ -93,11 +113,14 @@ from .steps import (
 )
 
 
-def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
+def _refuse(cfg: TrainConfig, mesh) -> None:
     """Raise for the trainer options the port does not run (module
-    docstring), before anything is built."""
+    docstring) and for values no trainer takes, before anything is built."""
     if cfg.telemetry not in ("on", "off"):
         raise ValueError(f"cfg.telemetry must be 'on' or 'off', got {cfg.telemetry!r}")
+    if cfg.xprof_dir and cfg.profile_dir:
+        raise ValueError("profile_dir (whole-fit trace) and xprof_dir (windowed capture) are "
+                         "mutually exclusive: the profiler runs one capture at a time")
     if not 0.0 < cfg.dp_delta < 1.0:
         raise ValueError(f"dp_delta must be in (0, 1), got {cfg.dp_delta}")
     if cfg.dp_epsilon_budget < 0.0:
@@ -106,17 +129,8 @@ def _refuse(cfg: TrainConfig, mesh, fault_plan, attack_plan, bus) -> None:
     if cfg.dp_epsilon_budget > 0.0 and not noisy:
         raise ValueError("dp_epsilon_budget needs dp_noise_multiplier > 0 — a noiseless "
                          "mechanism never exhausts any finite ε budget")
-    unported = (
-        ("mesh", mesh is not None, "A11 (multi-GPU)"),
-        ("bus", bus is not None, "A12 (telemetry)"),
-        ("cfg.telemetry", cfg.telemetry != "off", "A12 (telemetry)"),
-        ("cfg.profile_dir", bool(cfg.profile_dir), "A12 (profiles)"),
-        ("cfg.xprof_dir", bool(cfg.xprof_dir), "A12 (profiles)"),
-        ("cfg.compile_cache_dir", bool(cfg.compile_cache_dir), "A12 (compile cache)"),
-    )
-    for name, on, item in unported:
-        if on:
-            raise NotImplementedError(f"FederatedTrainer {name} is not ported: ROADMAP {item}")
+    if mesh is not None:
+        raise NotImplementedError("FederatedTrainer mesh is not ported: ROADMAP A11 (multi-GPU)")
 
 
 class FederatedTrainer:
@@ -125,15 +139,28 @@ class FederatedTrainer:
         """``model`` is the task's model (its weights are the fit's first
         state); it moves to ``device``, the card unless the caller asks
         for ``"cpu"``. ``fault_plan`` and ``attack_plan`` are optional
-        ``robustness.FaultPlan`` / ``AttackPlan``s; ``mesh`` and ``bus``
-        exist for the JAX signature and must be None."""
-        _refuse(cfg, mesh, fault_plan, attack_plan, bus)
+        ``robustness.FaultPlan`` / ``AttackPlan``s; ``bus`` a
+        ``telemetry.MetricsBus`` for the fit's gauges and counters;
+        ``mesh`` exists for the JAX signature and must be None."""
+        _refuse(cfg, mesh)
         if cfg.pipeline not in ("device", "host"):
             raise ValueError(f"cfg.pipeline must be 'device' or 'host', got {cfg.pipeline!r}")
         self.cfg = cfg
         self.out_dir = out_dir
         self.fault_plan, self.attack_plan = fault_plan, attack_plan
         self.device = resolve_device(device)
+        if cfg.compile_cache_dir:
+            from ..ops._build import enable_compile_cache
+
+            enable_compile_cache(cfg.compile_cache_dir)
+        self._telemetry_on = cfg.telemetry == "on"
+        self.tracer = SpanTracer() if self._telemetry_on else NULL_TRACER
+        # host-side bookkeeping of values the loop already holds: the bus
+        # adds no device sync and changes no epoch
+        self.bus = bus if bus is not None else (global_bus() if self._telemetry_on else NULL_BUS)
+        self._fit_tel = None  # the fold's artifact sink while a fit runs
+        self._fit_summary: dict = {}
+        self._builds0 = None  # kernel libraries built and loaded by the first epoch
         self.task = FederatedTask(model.to(self.device))
         self.engine = build_engine(cfg)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
@@ -155,7 +182,7 @@ class FederatedTrainer:
             reputation_z=cfg.reputation_z, reputation_rounds=cfg.reputation_rounds,
             min_slices=cfg.min_slices, dp_clip=cfg.dp_clip,
             dp_noise_multiplier=cfg.dp_noise_multiplier, dp_seed=cfg.dp_seed,
-            personalize=tuple(cfg.personalize))
+            personalize=tuple(cfg.personalize), telemetry=self._telemetry_on)
         self.eval_fn = make_eval_fn(self.task, self.device, personalize=tuple(cfg.personalize))
         self._inventory = None  # device-resident site inventory, one per fit
         self._inventory_src = None  # the site arrays it was built from
@@ -182,16 +209,18 @@ class FederatedTrainer:
                                 num_sites=n, reputation=self.cfg.robust_agg != "none",
                                 staleness_bound=self.cfg.staleness_bound,
                                 overlap_rounds=self.cfg.overlap_rounds,
-                                personalize=tuple(self.cfg.personalize))
+                                personalize=tuple(self.cfg.personalize),
+                                telemetry=self._telemetry_on)
 
     def _ensure_inventory(self, train_sites):
         """The device pipeline's resident inventory: copied to the device
         once per fit, keyed by the site arrays it holds."""
         key = tuple((id(s.inputs), id(s.labels), len(s)) for s in train_sites)
         if self._inventory is None or self._inventory_src != key:
-            inv = stack_site_inventory(train_sites, self.fixed_inventory_rows)
-            self._inventory = (torch.from_numpy(inv.inputs).to(self.device),
-                               torch.from_numpy(inv.labels).to(self.device))
+            with self.tracer.span("inventory-upload"):
+                inv = stack_site_inventory(train_sites, self.fixed_inventory_rows)
+                self._inventory = (torch.from_numpy(inv.inputs).to(self.device),
+                                   torch.from_numpy(inv.labels).to(self.device))
             self._inventory_src = key
         return self._inventory
 
@@ -200,8 +229,10 @@ class FederatedTrainer:
         ``cfg.seed * 100003 + epoch``, the whole per-epoch host-to-device
         transfer of that pipeline. A pure function of the epoch (JAX builds
         it on a prefetch thread; the port inline)."""
-        return plan_epoch_positions(train_sites, batch_size, seed=self.cfg.seed * 100003 + epoch,
-                                    pad_mode="wrap", steps=self.fixed_steps)
+        with self.tracer.span("plan-build", epoch=epoch):
+            return plan_epoch_positions(train_sites, batch_size,
+                                        seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap",
+                                        steps=self.fixed_steps)
 
     def _plan_masks(self, num_sites: int, round0: int, rounds: int):
         """The fault and attack masks of the global round window ``[round0,
@@ -267,6 +298,7 @@ class FederatedTrainer:
         self.dp_accountant.step(effective_noise_multiplier(self.cfg.dp_noise_multiplier), q,
                                 steps=len(losses))
         self._dp_epsilon = float(self.dp_accountant.epsilon(self.cfg.dp_delta)[0])
+        self.bus.gauge("train_epsilon", self._dp_epsilon)
 
     @staticmethod
     def _new_metrics(num_class: int):
@@ -304,9 +336,10 @@ class FederatedTrainer:
         """Pooled metrics over every site's rows; with ``per_site=True`` also
         each site's own ``(Averages, metrics)``. Padding rows (weight 0)
         reach neither."""
-        fb = plan_eval(sites, batch_size or self.cfg.batch_size)
-        probs, loss_sum, wsum = (t.cpu().numpy() for t in self.eval_fn(
-            state, fb.inputs, fb.labels, fb.weights))
+        with self.tracer.span("eval"):
+            fb = plan_eval(sites, batch_size or self.cfg.batch_size)
+            probs, loss_sum, wsum = (t.cpu().numpy() for t in self.eval_fn(
+                state, fb.inputs, fb.labels, fb.weights))
         loss = float(loss_sum.sum() / max(wsum.sum(), 1.0))
         m = self._add_probs(self._new_metrics(probs.shape[-1]), probs, fb.labels, fb.weights)
         avg = Averages().add(loss, wsum.sum())
@@ -330,8 +363,33 @@ class FederatedTrainer:
         checkpoint (:meth:`test_only`)."""
         if self.cfg.mode.lower() == "test":
             return self.test_only(test_sites, fold=fold)
-        return self._fit_impl(train_sites, val_sites, test_sites, fold=fold, verbose=verbose,
-                              resume=resume)
+        # the telemetry envelope: the whole fit under one "fit" span, and the
+        # fold's sink (opened in _fit_impl) finalizes on every exit
+        from ..checks.sanitize import kernel_builds
+
+        self._fit_tel, self._fit_summary = None, {}
+        self._builds0 = None
+        try:
+            with self.tracer.span("fit", fold=fold):
+                return self._fit_impl(train_sites, val_sites, test_sites, fold=fold,
+                                      verbose=verbose, resume=resume)
+        finally:
+            fit_tel = self._fit_tel
+            if fit_tel is not None:
+                builds0 = self._fit_summary.pop("_builds0", 0)
+                self._fit_summary["epoch_compiles"] = kernel_builds() - builds0
+                fit_tel.append(self._fit_summary)
+                fit_tel.close()
+                self._fit_tel = None
+
+    def compiles_after_first_epoch(self) -> dict:
+        """Kernel libraries built and loaded since the end of the current
+        (or last) fit's first epoch (``ops/_build.py``): the sanitizer's
+        compile guard (checks/sanitize.py) holds it at 0."""
+        from ..ops import _build
+
+        b0, l0 = self._builds0 or (_build.BUILDS, _build.LOADS)
+        return {"kernel_builds": _build.BUILDS - b0, "kernel_loads": _build.LOADS - l0}
 
     def _fit_impl(self, train_sites, val_sites, test_sites, fold: int = 0,
                   verbose: bool = True, resume: bool = False) -> dict:
@@ -377,6 +435,25 @@ class FederatedTrainer:
         # still a valid resume point
         resuming = bool(resume and latest_path and (
             os.path.exists(latest_path) or os.path.exists(latest_path + ".prev")))
+        # the fold's artifact sink: manifest.json, metrics.jsonl, traces
+        if self._telemetry_on:
+            tel_root = cfg.telemetry_dir or (
+                os.path.join(self.out_dir, "telemetry") if self.out_dir else "")
+            if tel_root:
+                from ..checks.sanitize import kernel_builds
+                from ..telemetry.sink import FitTelemetry
+
+                self._fit_tel = FitTelemetry.open(
+                    os.path.join(tel_root, f"fold_{fold}"), cfg, fold=fold, tracer=self.tracer,
+                    fault_plan=self.fault_plan, attack_plan=self.attack_plan,
+                    device=self.device)
+                self._fit_summary = {"kind": "summary", "fold": fold, "epochs_run": 0,
+                                     "best_val_epoch": 0, "best_val_metric": None,
+                                     "membership": None, "_builds0": kernel_builds()}
+            elif verbose:
+                log_warning("[warn] telemetry='on' but neither out_dir nor telemetry_dir is "
+                            "set — spans and device metrics are collected but no artifacts "
+                            "will be written")
         if not resuming:
             if cfg.pretrained_path:
                 # params only: fresh optimizer and engine state
@@ -414,91 +491,142 @@ class FederatedTrainer:
         # run starts past it
         kill_round = self.fault_plan.kill_at_round if self.fault_plan is not None else None
         round_before = int(state.round)
-        with PreemptionGuard() as guard:
-            for epoch in range(start_epoch, cfg.epochs + 1):
-                e_start = time.perf_counter()
-                state, losses = self.run_epoch(state, train_sites, epoch, batch_size=cfg.batch_size)
-                # rounds with no live weight report NaN: average the others
-                lived = losses[np.isfinite(losses)]
-                epoch_loss = float(lived.mean()) if lived.size else float("nan")
-                epoch_losses.append(epoch_loss)
-                # the reference's per-round durations: the epoch's time spread
-                # over its rounds
-                rounds = max(len(losses), 1)
-                iter_durations.extend([(time.perf_counter() - e_start) / rounds] * rounds)
-                if epoch % cfg.validation_epochs == 0:
-                    if has_val:
-                        val_avg, val_metrics = self.evaluate(state, val_sites,
-                                                             batch_size=cfg.batch_size)
-                        score = val_metrics.value(monitor) if monitor != "loss" else val_avg.avg
-                        if is_improvement(score, best_metric,
-                                          direction if monitor != "loss" else "minimize"):
-                            best_metric, best_epoch, best_state, since_best = score, epoch, state, 0
-                            if best_path:  # save on best
-                                save_checkpoint(best_path, best_state,
-                                                meta={"best_val_epoch": best_epoch,
-                                                      "best_val_metric": best_metric, "fold": fold},
-                                                rotate=True)
+        # the device traces: the whole fit (profile_dir) or an epoch window
+        # (xprof_dir); a capture that fails fails the fit
+        from ..telemetry.xprof import XprofWindow, start_trace, stop_trace
+
+        profile = (start_trace(os.path.join(cfg.profile_dir, f"fold_{fold}"))
+                   if cfg.profile_dir else None)
+        xprof = (XprofWindow(cfg.xprof_dir, cfg.xprof_window, label=f"fold_{fold}")
+                 if cfg.xprof_dir else None)
+        tel = self._fit_tel
+        try:
+            with PreemptionGuard() as guard:
+                for epoch in range(start_epoch, cfg.epochs + 1):
+                    e_start = time.perf_counter()
+                    if xprof is not None:
+                        xprof.epoch_begin(epoch)
+                    with self.tracer.span("epoch", epoch=epoch):
+                        state, losses = self.run_epoch(state, train_sites, epoch,
+                                                       batch_size=cfg.batch_size)
+                    if xprof is not None:
+                        xprof.epoch_end(epoch)
+                    if self._builds0 is None:
+                        from ..ops import _build
+
+                        self._builds0 = (_build.BUILDS, _build.LOADS)
+                    # rounds with no live weight report NaN: average the others
+                    lived = losses[np.isfinite(losses)]
+                    epoch_loss = float(lived.mean()) if lived.size else float("nan")
+                    epoch_losses.append(epoch_loss)
+                    # the reference's per-round durations: the epoch's time
+                    # spread over its rounds
+                    rounds = max(len(losses), 1)
+                    e_seconds = time.perf_counter() - e_start
+                    iter_durations.extend([e_seconds / rounds] * rounds)
+                    self._publish_epoch(epoch, epoch_loss, rounds, e_seconds, state)
+                    if tel is not None:
+                        self._epoch_row(fold, epoch, epoch_loss, e_start, state)
+                        self._fit_summary["epochs_run"] = len(epoch_losses)
+                    if epoch % cfg.validation_epochs == 0:
+                        if has_val:
+                            val_avg, val_metrics = self.evaluate(state, val_sites,
+                                                                 batch_size=cfg.batch_size)
+                            score = (val_metrics.value(monitor) if monitor != "loss"
+                                     else val_avg.avg)
+                            if is_improvement(score, best_metric,
+                                              direction if monitor != "loss" else "minimize"):
+                                best_metric, best_epoch, best_state = score, epoch, state
+                                since_best = 0
+                                if best_path:  # save on best
+                                    with self.tracer.span("checkpoint"):
+                                        save_checkpoint(
+                                            best_path, best_state,
+                                            meta={"best_val_epoch": best_epoch,
+                                                  "best_val_metric": best_metric,
+                                                  "fold": fold},
+                                            rotate=True)
+                                    if tel is not None:
+                                        tel.event("checkpoint", epoch=epoch, which="best")
+                            else:
+                                since_best += cfg.validation_epochs
+                            if verbose:
+                                log_info(f"[fold {fold}] epoch {epoch}: train_loss="
+                                         f"{epoch_loss:.4f} "
+                                         + self._format_val_line(val_avg, val_metrics, monitor)
+                                         + (" *" if best_epoch == epoch else ""))
                         else:
-                            since_best += cfg.validation_epochs
-                        if verbose:
-                            log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
-                                     + self._format_val_line(val_avg, val_metrics, monitor)
-                                     + (" *" if best_epoch == epoch else ""))
+                            # no validation anywhere: the latest state is the
+                            # selected one, and nothing stops early
+                            best_epoch, best_state = epoch, state
+                            if verbose:
+                                log_info(f"[fold {fold}] epoch {epoch}: train_loss="
+                                         f"{epoch_loss:.4f} (no validation split)")
+                        stop = since_best >= cfg.patience
                     else:
-                        # no validation anywhere: the latest state is the
-                        # selected one, and nothing stops early
-                        best_epoch, best_state = epoch, state
-                        if verbose:
-                            log_info(f"[fold {fold}] epoch {epoch}: train_loss={epoch_loss:.4f} "
-                                     "(no validation split)")
-                    stop = since_best >= cfg.patience
-                else:
-                    stop = False
-                # durations before the save: the saved meta covers the same
-                # epochs as its epoch_losses, and the save's IO is not compute
-                duration(self._cache, e_start, "time_spent_on_computation")
-                duration(self._cache, t_start, "cumulative_total_duration")
-                if latest_path:  # the rotating resume point, every epoch
-                    save_checkpoint(
-                        latest_path, state, rotate=True,
-                        meta={"epoch": epoch, "best_val_epoch": best_epoch,
-                              "best_val_metric": best_metric, "since_best": since_best,
-                              "fold": fold, "epoch_losses": epoch_losses,
-                              "iter_durations": iter_durations,
-                              "time_spent_on_computation": self._cache.get(
-                                  "time_spent_on_computation", []),
-                              "cumulative_total_duration": self._cache.get(
-                                  "cumulative_total_duration", []),
-                              "dp_accountant": (self.dp_accountant.to_json()
-                                                if self.dp_accountant is not None else None)})
-                # a signal that landed during the epoch, or a crossed kill
-                # round, exits here: after the rotating checkpoint, so that
-                # resume=True continues bit for bit from this boundary
-                saved = latest_path or "(no out_dir)"
-                if guard.requested is not None:
-                    raise Preempted(f"signal {guard.requested} during epoch {epoch}; state "
-                                    f"saved to {saved}", signum=guard.requested, epoch=epoch)
-                if kill_round is not None:
-                    round_after = int(state.round)
-                    if round_before <= kill_round < round_after:
-                        raise Preempted(f"FaultPlan kill_at_round={kill_round} crossed "
-                                        f"during epoch {epoch}; state saved to {saved}",
+                        stop = False
+                    # durations before the save: the saved meta covers the
+                    # same epochs as its epoch_losses, and the save's IO is
+                    # not compute
+                    duration(self._cache, e_start, "time_spent_on_computation")
+                    duration(self._cache, t_start, "cumulative_total_duration")
+                    if latest_path:  # the rotating resume point, every epoch
+                        with self.tracer.span("checkpoint"):
+                            save_checkpoint(
+                                latest_path, state, rotate=True,
+                                meta={"epoch": epoch, "best_val_epoch": best_epoch,
+                                      "best_val_metric": best_metric,
+                                      "since_best": since_best, "fold": fold,
+                                      "epoch_losses": epoch_losses,
+                                      "iter_durations": iter_durations,
+                                      "time_spent_on_computation": self._cache.get(
+                                          "time_spent_on_computation", []),
+                                      "cumulative_total_duration": self._cache.get(
+                                          "cumulative_total_duration", []),
+                                      "dp_accountant": (self.dp_accountant.to_json()
+                                                        if self.dp_accountant is not None
+                                                        else None)})
+                    # a signal that landed during the epoch, or a crossed
+                    # kill round, exits here: after the rotating checkpoint,
+                    # so that resume=True continues bit for bit from here
+                    saved = latest_path or "(no out_dir)"
+                    if guard.requested is not None:
+                        if tel is not None:
+                            tel.event("preempted", epoch=epoch, signum=int(guard.requested))
+                        raise Preempted(f"signal {guard.requested} during epoch {epoch}; "
+                                        f"state saved to {saved}", signum=guard.requested,
                                         epoch=epoch)
-                    round_before = round_after
-                # an exhausted ε budget stops the fit after the epoch's
-                # rotating checkpoint, and the best state is tested as usual
-                if (cfg.dp_epsilon_budget > 0.0 and self._dp_epsilon is not None
-                        and self._dp_epsilon >= cfg.dp_epsilon_budget):
-                    if verbose:
-                        log_info(f"[fold {fold}] epoch {epoch}: privacy budget exhausted "
-                                 f"(ε={self._dp_epsilon:.3f} ≥ {cfg.dp_epsilon_budget}); "
-                                 "stopping")
-                    stop_epoch = epoch
-                    break
-                if stop:
-                    stop_epoch = epoch
-                    break
+                    if kill_round is not None:
+                        round_after = int(state.round)
+                        if round_before <= kill_round < round_after:
+                            if tel is not None:
+                                tel.event("preempted", epoch=epoch,
+                                          kill_at_round=int(kill_round))
+                            raise Preempted(f"FaultPlan kill_at_round={kill_round} crossed "
+                                            f"during epoch {epoch}; state saved to {saved}",
+                                            epoch=epoch)
+                        round_before = round_after
+                    # an exhausted ε budget stops the fit after the epoch's
+                    # rotating checkpoint, and the best state is tested
+                    if (cfg.dp_epsilon_budget > 0.0 and self._dp_epsilon is not None
+                            and self._dp_epsilon >= cfg.dp_epsilon_budget):
+                        if tel is not None:
+                            tel.event("dp-budget", epoch=epoch, epsilon=self._dp_epsilon,
+                                      budget=cfg.dp_epsilon_budget)
+                        if verbose:
+                            log_info(f"[fold {fold}] epoch {epoch}: privacy budget exhausted "
+                                     f"(ε={self._dp_epsilon:.3f} ≥ {cfg.dp_epsilon_budget}); "
+                                     "stopping")
+                        stop_epoch = epoch
+                        break
+                    if stop:
+                        stop_epoch = epoch
+                        break
+        finally:
+            if xprof is not None:
+                xprof.close()
+            if profile is not None:
+                stop_trace(profile)
 
         # below the validation cadence no epoch was validated: validate the
         # trained state once so that it, not the init, is selected
@@ -510,18 +638,70 @@ class FederatedTrainer:
             else:
                 best_epoch, best_state = stop_epoch, state
 
-        results = self._test_results(best_state, test_sites, best_epoch, best_metric,
-                                     stop_epoch, epoch_losses, batch_size=cfg.batch_size)
-        # per-site counters of the final state (the best may predate a
-        # quarantine)
+        with self.tracer.span("test"):
+            results = self._test_results(best_state, test_sites, best_epoch, best_metric,
+                                         stop_epoch, epoch_losses, batch_size=cfg.batch_size)
+        # per-site counters and round metrics of the final state (the best
+        # may predate a quarantine)
         results["site_health"] = health_summary(state.health)
+        if state.telemetry is not None:
+            from ..telemetry.metrics import telemetry_summary
+
+            results["site_telemetry"] = telemetry_summary(state.telemetry)
         if self._dp_epsilon is not None:
             results["dp_epsilon"] = self._dp_epsilon
             results["dp_delta"] = cfg.dp_delta
+        if tel is not None:
+            self._fit_summary.update(best_val_epoch=int(best_epoch),
+                                     best_val_metric=best_metric, dp_epsilon=self._dp_epsilon)
+            for key in ("site_skipped_rounds", "site_quarantined"):
+                if results.get("site_health"):
+                    self._fit_summary[key] = results["site_health"][key]
         if self.out_dir:
-            self._write_outputs(results, iter_durations, best_state, fold)
+            with self.tracer.span("write-outputs"):
+                self._write_outputs(results, iter_durations, best_state, fold)
         results["state"] = best_state
         return results
+
+    def _publish_epoch(self, epoch: int, epoch_loss: float, rounds: int, e_seconds: float,
+                       state) -> None:
+        """The epoch's gauges and counters on the bus, from values on the
+        host; with telemetry on also the reputation layer's largest anomaly
+        and quarantined sites (two ``[S]`` reads after the epoch's losses
+        have synchronized it)."""
+        self.bus.gauge("train_epoch", epoch)
+        self.bus.gauge("train_loss", epoch_loss)
+        self.bus.counter("train_epochs_total")
+        self.bus.counter("train_rounds_total", rounds)
+        self.bus.observe("epoch_ms", e_seconds * 1e3)
+        if self._telemetry_on and state.health is not None and "anomaly" in state.health:
+            self.bus.gauge("train_anomaly_max", float(state.health["anomaly"].max()))
+            self.bus.gauge("train_quarantined_sites",
+                           int((state.health["quarantined"] > 0).sum()))
+
+    def _epoch_row(self, fold, epoch, epoch_loss, e_start, state) -> None:
+        """One metrics.jsonl epoch row: loss, time, transfer, ε and the
+        per-site accumulators (a few ``[S]`` reads after the epoch's losses
+        have synchronized it)."""
+        row = {"kind": "epoch", "fold": fold, "epoch": epoch, "train_loss": epoch_loss,
+               "epoch_seconds": round(time.perf_counter() - e_start, 6),
+               "transfer_bytes": self._last_transfer_bytes, "dp_epsilon": self._dp_epsilon}
+        if state.telemetry is not None:
+            t = {k: v.cpu().numpy() for k, v in state.telemetry.items()}
+            row.update(
+                site_grad_sq_last=[float(v) for v in t["grad_sq_last"]],
+                site_grad_sq_sum=[float(v) for v in t["grad_sq_sum"]],
+                site_grad_sq_max=[float(v) for v in t["grad_sq_max"]],
+                site_residual_sq_sum=[float(v) for v in t["residual_sq_sum"]],
+                update_sq_last=float(t["update_sq_last"][0]),
+                payload_bytes=float(t["payload_bytes"][0]),
+                dcn_bytes=float(t["dcn_bytes"][0]), rounds=int(t["rounds"][0]),
+                held_rounds=int(t["held_rounds"][0]))
+        else:  # one schema for every epoch row
+            row.update(site_grad_sq_last=[], site_grad_sq_sum=[], site_grad_sq_max=[],
+                       site_residual_sq_sum=[], update_sq_last=0.0, payload_bytes=0.0,
+                       dcn_bytes=0.0, rounds=0, held_rounds=0)
+        self._fit_tel.append(row)
 
     def _pretrain(self, state: TrainState, train_sites, verbose: bool) -> TrainState:
         """The warm start of ``cfg.pretrain``: ``pretrain_args.epochs``
@@ -544,17 +724,21 @@ class FederatedTrainer:
         pre = TrainState(params=state.params, batch_stats=state.batch_stats,
                          opt_state=pre_opt.init(state.params), engine_state={}, rng=state.rng,
                          round=state.round, health=state.health)
-        for epoch in range(1, pa.epochs + 1):
-            fb = plan_epoch(masked, pa.batch_size, seed=cfg.seed * 7 + epoch, pad_mode="mask")
-            pre, losses = pre_epoch_fn(pre, fb.inputs, fb.labels, fb.weights)
-            if verbose:
-                log_info(f"[pretrain site {largest}] epoch {epoch}: "
-                         f"loss={losses.cpu().numpy().mean():.4f}")
+        with self.tracer.span("pretrain"):
+            for epoch in range(1, pa.epochs + 1):
+                fb = plan_epoch(masked, pa.batch_size, seed=cfg.seed * 7 + epoch,
+                                pad_mode="mask")
+                pre, losses = pre_epoch_fn(pre, fb.inputs, fb.labels, fb.weights)
+                if verbose:
+                    log_info(f"[pretrain site {largest}] epoch {epoch}: "
+                             f"loss={losses.cpu().numpy().mean():.4f}")
+        # the pretraining epochs run without round metrics: the fit's own
+        # accumulators carry on untouched
         return TrainState(params=pre.params, batch_stats=pre.batch_stats,
                           opt_state=self.optimizer.init(pre.params),
                           engine_state=state.engine_state, rng=state.rng, round=pre.round,
                           health=state.health, buffers=state.buffers, overlap=state.overlap,
-                          personal=state.personal)
+                          personal=state.personal, telemetry=state.telemetry)
 
     def test_only(self, test_sites: list[SiteArrays], fold: int = 0) -> dict:
         """``mode="test"``: evaluate the fold's best checkpoint, which
@@ -617,11 +801,13 @@ class FederatedTrainer:
                 extra={"site_index": i, "pooled_test_metrics": results["test_metrics"],
                        "durations_shared_across_sites": True,
                        **health_log_fields(results.get("site_health"), i),
+                       **telemetry_log_fields(results.get("site_telemetry"), i),
                        **privacy_log_fields(results)})
         d = fold_dir(self.out_dir, "remote", cfg.task_id, fold)
         write_logs_json(d, cfg.agg_engine, results["test_metrics"], results["best_val_epoch"],
                         cum, comp, iter_durations, side="remote",
                         extra={**health_log_fields(results.get("site_health")),
+                               **telemetry_log_fields(results.get("site_telemetry")),
                                **privacy_log_fields(results)})
         write_test_metrics_csv(d, fold, results["test_scores"])
         save_checkpoint(os.path.join(d, "checkpoint_best.msgpack"), best_state,

@@ -46,6 +46,13 @@ from ..parallel.collectives import check_robust_agg, per_site, site_flat, site_w
 from ..privacy.dpsgd import make_dp_fn
 from ..privacy.personalize import default_personal, graft_shared, head_leaf_paths, strip_tree
 from ..robustness.health import REPUTATION_KEYS, default_health, reputation_fields
+from ..telemetry.metrics import (
+    TELEMETRY_KEYS,
+    default_round_telemetry,
+    jax_leaf_order,
+    payload_bytes_of,
+    tree_sq_sum,
+)
 
 
 class FederatedTask:
@@ -244,9 +251,10 @@ class TrainState:
     global ``round`` and the per-site ``health`` counters. ``buffers`` are
     the per-slot staleness buffers of the buffered-async rounds
     (``engines.default_async_buffers``), ``overlap`` the stash of the
-    overlapped rounds (:func:`default_overlap_stash`) and ``personal`` the
+    overlapped rounds (:func:`default_overlap_stash`), ``personal`` the
     personalized heads' per-site rows (``{"params": {name: [S, ...]},
-    "opt": ...}``, privacy/personalize.py), each None while its mode is
+    "opt": ...}``, privacy/personalize.py) and ``telemetry`` the per-site
+    round metrics (telemetry/metrics.py), each None while its mode is
     off."""
 
     params: dict
@@ -259,6 +267,7 @@ class TrainState:
     buffers: dict | None = None
     overlap: dict | None = None
     personal: dict | None = None
+    telemetry: dict | None = None
 
 
 def _tree_map(fn, tree):
@@ -279,7 +288,8 @@ def _freeze_dead(alive, new, old):
 
 def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int = 0,
                      num_sites: int = 1, reputation: bool = False, staleness_bound: int = 0,
-                     overlap_rounds: bool = False, personalize: tuple = ()) -> TrainState:
+                     overlap_rounds: bool = False, personalize: tuple = (),
+                     telemetry: bool = False) -> TrainState:
     """The first state of a fit, from the weights and running statistics of
     ``task.model`` (on the model's device). The engine state is one copy
     per site, a leading ``[num_sites]`` axis, as in JAX; ``reputation=True``
@@ -287,7 +297,8 @@ def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int
     ``staleness_bound > 0`` the never-deposited staleness buffers,
     ``overlap_rounds=True`` the empty overlap stash and ``personalize``
     (head patterns, privacy/personalize.py) the per-site head rows, with the
-    engine state built on the shared leaves only."""
+    engine state built on the shared leaves only; ``telemetry=True`` the
+    zero round metrics (telemetry/metrics.py)."""
     params = {k: v.detach().clone() for k, v in task.model.named_parameters()}
     stats = {k: v.detach().clone() for k, v in task.model.named_buffers()}
     dev = next(iter(params.values())).device
@@ -302,7 +313,8 @@ def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int
                       overlap=(default_overlap_stash(num_sites, params, stats)
                                if overlap_rounds else None),
                       personal=(default_personal(num_sites, params, head, optimizer)
-                                if head else None))
+                                if head else None),
+                      telemetry=default_round_telemetry(num_sites, dev) if telemetry else None)
 
 
 def default_overlap_stash(num_sites: int, params: dict, batch_stats: dict) -> dict:
@@ -346,7 +358,6 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 #: name -> (the value that means "off", the ROADMAP item that ports it)
 _UNPORTED = {
     "mesh": (None, "A11 (multi-GPU)"),
-    "telemetry": (False, "A12 (telemetry)"),
     "min_slices": (1, "A11 (slices)"),
 }
 #: options of the JAX package that only govern how its program runs (scan
@@ -397,7 +408,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         reputation_rounds: int = 8, staleness_bound: int = 0,
                         staleness_decay: float = 0.5, overlap_rounds: bool = False,
                         dp_clip: float = 0.0, dp_noise_multiplier: float = 0.0, dp_seed: int = 0,
-                        personalize: tuple = (), **options):
+                        personalize: tuple = (), telemetry: bool = False, **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
@@ -495,11 +506,28 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     built with it fills fresh rows from the current params when the state
     has none, or rows for another site count.
 
+    Round metrics (``telemetry=True``, telemetry/metrics.py): every round
+    adds, per site, the squared norm of the gradient the site ships (after
+    DP and an attack; the sums and the max take finite rounds only, the
+    last keeps a NaN), the squared distance of its shared leaves to the
+    engine's aggregate, the squared norm of the applied update (0 in a
+    round with no live weight), the engine's modeled wire bytes and one to
+    ``rounds``, into ``state.telemetry``. In the overlapped mode the metrics
+    read the stash's payload and the empty stash's round counts nothing; in
+    the buffered mode they read the fresh gradient against the aggregate of
+    the buffers. Each sum adds the leaves in JAX's leaf order
+    (``telemetry.metrics.tree_sq_sum``), one reduction a leaf over every
+    site. The metrics only read: params, optimizer, engine state, health
+    and losses are those of the epoch without them, bit for bit. An epoch
+    built without ``telemetry`` drops a state's accumulators; one built with
+    it fills fresh ones when the state has none, or ones of other keys or
+    another site count.
+
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
     program runs and take any value. Every other option at a value other
-    than "off" (``mesh``, ``telemetry``, slices) raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    than "off" (``mesh``, slices) raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it."""
     _check_options(options)
     if staleness_bound < 0:
         raise ValueError(f"staleness_bound must be >= 0, got {staleness_bound}")
@@ -534,6 +562,41 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         from ..weights import table_of
 
         dp = make_dp_fn(dp_clip, dp_noise_multiplier, dp_seed, head, table_of(names))
+
+    # the round metrics: JAX's leaf order of every leaf and of the shipped
+    # ones, and the engine's wire bytes a round over the shipped leaves
+    order = shared_order = None
+    wire_b = 0.0
+    if telemetry:
+        from ..weights import table_of
+
+        order = jax_leaf_order(list(names), table_of(names))
+        shared_order = [k for k in order if k not in head]
+        wire_b = payload_bytes_of(engine, {k: names[k] for k in shared_order})
+
+    def round_metrics(ts, payload, agg):
+        """The per-site accumulators after one round's payload (JAX's
+        ``_ts_round``); the update norm is added after the optimizer."""
+        gsq = tree_sq_sum(payload, order, site_axis=True)
+        rsq = tree_sq_sum({k: payload[k] - agg[k] for k in shared_order}, shared_order,
+                          site_axis=True)
+        gsq_f = torch.where(gsq.isfinite(), gsq, 0.0)
+        # dcn_bytes stays: one card ships nothing across slices
+        return {**ts, "grad_sq_last": gsq,
+                "grad_sq_max": torch.maximum(ts["grad_sq_max"], gsq_f),
+                "grad_sq_sum": ts["grad_sq_sum"] + gsq_f,
+                "payload_bytes": ts["payload_bytes"] + wire_b,
+                "residual_sq_sum": ts["residual_sq_sum"] + torch.where(rsq.isfinite(), rsq, 0.0),
+                "rounds": ts["rounds"] + 1}
+
+    def update_metrics(ts, updates, go=None):
+        """The applied update's squared norm into every site's row; 0 in a
+        round whose ``go`` (live weight) is false."""
+        usq = tree_sq_sum(updates, order)
+        if go is not None:
+            usq = torch.where(go, usq, 0.0)
+        return {**ts, "update_sq_last": torch.zeros_like(ts["update_sq_last"]) + usq,
+                "update_sq_sum": ts["update_sq_sum"] + usq}
 
     def eng(tree):
         """What the engine aggregates: the shared leaves."""
@@ -714,6 +777,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             carried = state.personal
             ok = carried is not None and next(iter(carried["params"].values())).shape[0] == S
             personal = carried if ok else default_personal(S, params, head, optimizer)
+        # the accumulators follow the flag this epoch was built with
+        ts = None
+        if telemetry:
+            ts = state.telemetry
+            if ts is None or set(ts) != set(TELEMETRY_KEYS) or ts["rounds"].shape[0] != S:
+                ts = default_round_telemetry(S, dev)
         losses, zs = [], []
         for r in range(rounds):
             rnd = state.round + r
@@ -736,6 +805,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                 loss_round = loss_sum.sum() / torch.clamp(n_sum.sum(), min=1.0)
                 updates, opt_state = optimizer.update(agg, opt_state)
                 params = {k: v + updates[k] for k, v in params.items()}
+                if ts is not None:
+                    ts = update_metrics(round_metrics(ts, site_grad, agg), updates)
                 losses.append(loss_round)
                 continue
             ls = torch.ones(S, device=dev) if live is None else live[:, r]
@@ -748,12 +819,17 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                                   ov["stats"], ov["loss"], rnd)
                 valid = ov["valid"] > 0
                 health = {k: torch.where(valid, v, health[k]) for k, v in new_health.items()}
+                if ts is not None:
+                    ts = {k: torch.where(valid, v, ts[k])
+                          for k, v in round_metrics(ts, ov["grads"], agg).items()}
                 ov = {"grads": site_grad, "stats": site_stats, "weight": n_sum,
                       "loss": loss_sum, "live": ls, "valid": torch.ones(S, device=dev)}
             else:
                 (agg, engine_state, health, buffers, personal, stats, loss_round, total_live,
                  z) = apply_round(health, engine_state, buffers, personal, params, stats, ls,
                                   site_grad, n_sum, site_stats, loss_sum, rnd)
+                if ts is not None:
+                    ts = round_metrics(ts, site_grad, agg)
             if z is not None:
                 zs.append(z)
             # one update on the aggregate; a round with no live weight
@@ -762,11 +838,13 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             updates, new_opt = optimizer.update(agg, opt_state)
             params = {k: torch.where(go, v + updates[k], v) for k, v in params.items()}
             opt_state = _hold(go, new_opt, opt_state)
+            if ts is not None:
+                ts = update_metrics(ts, updates, go)
             losses.append(loss_round)
         new_state = TrainState(params=params, batch_stats=stats, opt_state=opt_state,
                                engine_state=engine_state, rng=state.rng,
                                round=state.round + rounds, health=health, buffers=buffers,
-                               overlap=ov, personal=personal)
+                               overlap=ov, personal=personal, telemetry=ts)
         empty = torch.zeros(0, device=dev)
         reputation_z_trace[:] = [torch.stack(zs)] if zs else []
         return new_state, torch.stack(losses) if losses else empty

@@ -202,7 +202,8 @@ def train_state_from_jax(state, rng: int = 0, device=None):
         {"params": state.params, "batch_stats": state.batch_stats, "opt_state": opt,
          "engine_state": state.engine_state, "rng": rng, "round": state.round,
          "health": state.health, "buffers": getattr(state, "buffers", None),
-         "overlap": getattr(state, "overlap", None), "personal": personal}, device=device)
+         "overlap": getattr(state, "overlap", None), "personal": personal,
+         "telemetry": getattr(state, "telemetry", None)}, device=device)
 
 
 #: the engine states' keys: rankDAD's warm-start Ω, powerSGD's right
@@ -298,12 +299,21 @@ def slot_tree_from_jax(tree, table: LeafTable, device=None) -> dict | None:
     return out
 
 
+def telemetry_from_jax(tree, device=None) -> dict | None:
+    """JAX's round-metric accumulators (``[S]`` numpy leaves) as the
+    port's tensors on ``device``, each keeping its dtype (``rounds`` and
+    ``held_rounds`` int32); None or empty gives None."""
+    if not tree:
+        return None
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in tree.items()}
+
+
 def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=None):
     """A training state as numpy trees in JAX layout (what
     :func:`train_state_to_jax` gives: ``params``, ``batch_stats``,
     ``opt_state`` ``{"count", "mu", "nu"}`` or ``{}``, ``engine_state``,
     ``rng`` (the port's int seed), ``round``, ``health``, optionally
-    ``buffers``, ``overlap`` and ``personal``) as the port's
+    ``buffers``, ``overlap``, ``personal`` and ``telemetry``) as the port's
     ``TrainState`` on ``device`` (the card unless the caller asks for
     ``"cpu"``). ``table`` defaults to the params tree's own."""
     from .core.device import resolve_device
@@ -332,7 +342,7 @@ def train_state_from_tree(tree: dict, table: LeafTable | None = None, device=Non
                       rng=int(tree["rng"]), round=int(np.asarray(tree["round"])), health=health,
                       buffers=slot_tree_from_jax(tree.get("buffers"), table, dev),
                       overlap=slot_tree_from_jax(tree.get("overlap"), table, dev),
-                      personal=personal)
+                      personal=personal, telemetry=telemetry_from_jax(tree.get("telemetry"), dev))
 
 
 def train_state_to_jax(state) -> dict:
@@ -341,8 +351,9 @@ def train_state_to_jax(state) -> dict:
     ``{}`` for SGD), ``engine_state`` (``{}`` for dSGD, rankDAD's
     ``{"omega": ...}``, powerSGD's ``{"q": ..., "e": ...}``, as JAX nests
     them), ``rng`` (the int seed), ``round``, ``health``, the
-    ``buffers`` and ``overlap`` trees of :func:`slot_tree_to_jax` and the
-    heads' rows of :func:`personal_to_jax` (None while their mode is off);
+    ``buffers`` and ``overlap`` trees of :func:`slot_tree_to_jax`, the
+    heads' rows of :func:`personal_to_jax` and the round metrics
+    ``telemetry`` (None while their mode is off);
     the model's table is read off the state's params."""
     table = table_of(state.params)
     opt = {}
@@ -364,4 +375,6 @@ def train_state_to_jax(state) -> dict:
         "buffers": slot_tree_to_jax(state.buffers, table),
         "overlap": slot_tree_to_jax(state.overlap, table),
         "personal": personal_to_jax(getattr(state, "personal", None), table),
+        "telemetry": (None if getattr(state, "telemetry", None) is None
+                      else {k: v.cpu().numpy() for k, v in state.telemetry.items()}),
     }

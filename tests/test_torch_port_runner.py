@@ -297,7 +297,7 @@ def test_the_port_parses_every_jax_flag():
            "overrides", "faults", "attacks", "robust_agg", "serve", "serve_spool",
            "serve_capacity", "serve_quorum", "serve_epochs", "serve_poll", "serve_rows",
            "overlap_rounds", "dp_clip", "dp_noise", "dp_epsilon_budget", "secure_agg",
-           "personalize"}
+           "personalize", "telemetry", "profile_dir", "xprof_dir", "compile_cache", "sanitize"}
     assert {d for d in want.values()} - run == set(tcli._REFUSED)
 
 

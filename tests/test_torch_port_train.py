@@ -517,7 +517,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("telemetry", True), ("telemetry", "on"), ("min_slices", 2),
+    ("mesh", object()), ("min_slices", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
     task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
