@@ -308,7 +308,6 @@ class FedDaemon:
         self._feat = None  # the feature shape, fixed at the first admission
         self._rows = inventory_rows  # the pinned inventory height
         self._steps = steps  # the pinned plan height
-        self._builds0 = None  # kernel libraries built and loaded by the first epoch
         self.ckpt_path = os.path.join(self.out_dir, "serve", "checkpoint_latest.msgpack")
         resumed = self._resume() if resume else False
         if not resumed and data_path:
@@ -589,10 +588,6 @@ class FedDaemon:
         self.state, losses = self.trainer.run_epoch(self.state, self._slot_sites(),
                                                     self.epochs_run,
                                                     batch_size=self.cfg.batch_size)
-        if self._builds0 is None:
-            from ..ops import _build
-
-            self._builds0 = (_build.BUILDS, _build.LOADS)
         lived = losses[np.isfinite(losses)]
         loss = float(lived.mean()) if lived.size else float("nan")
         self.bus.gauge("serve_epoch", self.epochs_run)
@@ -622,10 +617,7 @@ class FedDaemon:
         """Kernel libraries built and loaded since the first trained epoch
         (``ops/_build.py``): 0 across any churn, the port's counterpart of
         JAX's one epoch compile."""
-        from ..ops import _build
-
-        b0, l0 = self._builds0 or (_build.BUILDS, _build.LOADS)
-        return {"kernel_builds": _build.BUILDS - b0, "kernel_loads": _build.LOADS - l0}
+        return self.trainer.compiles_after_first_epoch()
 
     # -- checkpoints -------------------------------------------------------
 

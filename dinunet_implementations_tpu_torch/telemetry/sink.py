@@ -97,9 +97,9 @@ def _finite(value):
     return value
 
 
-def _git_rev(repo_hint: str | None = None) -> str:
+def _git_rev() -> str:
     """``git rev-parse HEAD`` of the code's checkout; "" outside one."""
-    cwd = repo_hint or os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     try:
         out = subprocess.run(["git", "rev-parse", "HEAD"], cwd=cwd, capture_output=True,
                              text=True, timeout=5)
@@ -138,10 +138,10 @@ def privacy_manifest(cfg) -> dict | None:
     }
 
 
-def build_manifest(cfg, mesh=None, fold: int = 0, fault_plan=None, attack_plan=None,
+def build_manifest(cfg, fold: int = 0, fault_plan=None, attack_plan=None,
                    tags: dict | None = None, device=None) -> dict:
-    """The manifest of one fit on ``device`` (a ``torch.device``; the card
-    unless it says ``cpu``). ``mesh`` is always None on one card."""
+    """The manifest of one fit on ``device`` (a ``torch.device``, the CPU
+    when None); ``mesh`` is None: one device, as JAX's vmap-folded fit."""
     import torch
 
     from .. import __version__
@@ -159,7 +159,7 @@ def build_manifest(cfg, mesh=None, fold: int = 0, fault_plan=None, attack_plan=N
         "cuda_version": torch.version.cuda,
         "backend": dev.type,
         "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"),
-        "mesh": None if mesh is None else {str(k): int(v) for k, v in dict(mesh.shape).items()},
+        "mesh": None,
         "package_version": __version__,
         "git_rev": _git_rev(),
         "fault_plan": fault_plan.to_json() if fault_plan is not None else None,
@@ -183,11 +183,11 @@ class FitTelemetry:
         os.makedirs(dirpath, exist_ok=True)
 
     @classmethod
-    def open(cls, dirpath: str, cfg, mesh=None, fold: int = 0, tracer: SpanTracer | None = None,
+    def open(cls, dirpath: str, cfg, fold: int = 0, tracer: SpanTracer | None = None,
              fault_plan=None, attack_plan=None, tags: dict | None = None,
              device=None) -> "FitTelemetry":
         sink = cls(dirpath, tracer or SpanTracer())
-        manifest = build_manifest(cfg, mesh=mesh, fold=fold, fault_plan=fault_plan,
+        manifest = build_manifest(cfg, fold=fold, fault_plan=fault_plan,
                                   attack_plan=attack_plan, tags=tags, device=device)
         with open(os.path.join(dirpath, MANIFEST_FILE), "w") as fh:
             json.dump(manifest, fh, indent=2, default=str)

@@ -5,8 +5,7 @@ port of the JAX package's ``telemetry/xprof.py`` (there over
 - the trainer (trainer/loop.py): :class:`XprofWindow` starts and stops a
   capture around an epoch window (``TrainConfig.xprof_dir`` +
   ``xprof_window``, CLI ``--xprof-dir``); ``profile_dir`` traces the whole
-  fit through :func:`start_trace` / :func:`stop_trace`. The two exclude
-  each other.
+  fit through :class:`Trace`. The two exclude each other.
 - measurement scripts: :func:`capture` (one explicit capture) and
   :func:`summarize_device_ops` (the device kernels of a written trace by
   total time).
@@ -42,8 +41,9 @@ def _activities() -> list:
     return acts
 
 
-class _Trace:
-    """One running capture into ``trace_dir``."""
+class Trace:
+    """One running capture into ``trace_dir`` (``jax.profiler``'s
+    ``start_trace``; :meth:`stop` is its ``stop_trace``)."""
 
     def __init__(self, trace_dir: str):
         import torch
@@ -60,16 +60,6 @@ class _Trace:
                                       f"{int(time.time() * 1e3)}{TRACE_SUFFIX}")
         self.prof.export_chrome_trace(path)
         return path
-
-
-def start_trace(trace_dir: str) -> _Trace:
-    """Start a capture into ``trace_dir`` (``jax.profiler.start_trace``)."""
-    return _Trace(trace_dir)
-
-
-def stop_trace(trace: _Trace) -> str:
-    """Stop ``trace`` and write its file (``jax.profiler.stop_trace``)."""
-    return trace.stop()
 
 
 class XprofWindow:
@@ -96,7 +86,7 @@ class XprofWindow:
         # a range test, not equality: a resumed fit whose first epoch lands
         # inside the window still captures the window's remaining epochs
         if self.dir and self._trace is None and self.first <= epoch <= self.last:
-            self._trace = start_trace(os.path.join(self.dir, self.label))
+            self._trace = Trace(os.path.join(self.dir, self.label))
 
     def epoch_end(self, epoch: int) -> None:
         if self._trace is not None and epoch >= self.last:
@@ -105,7 +95,7 @@ class XprofWindow:
     def close(self) -> None:
         if self._trace is not None:
             trace, self._trace = self._trace, None
-            self.path = stop_trace(trace)
+            self.path = trace.stop()
 
 
 @contextmanager
@@ -114,11 +104,11 @@ def capture(trace_dir: str, fresh: bool = True):
     earlier capture there first)."""
     if fresh:
         shutil.rmtree(trace_dir, ignore_errors=True)
-    trace = start_trace(trace_dir)
+    trace = Trace(trace_dir)
     try:
         yield trace_dir
     finally:
-        stop_trace(trace)
+        trace.stop()
 
 
 def trace_files(trace_dir: str) -> list[str]:

@@ -23,8 +23,6 @@ import shutil
 import sys
 import zipfile
 
-from ..telemetry.tracer import duration  # noqa: F401  (the one duration-list helper)
-
 _LOGGER_NAME = "dinunet_implementations_tpu_torch"
 
 

@@ -87,11 +87,10 @@ from ..robustness.health import health_summary
 from ..privacy import RdpAccountant, dp_enabled, effective_noise_multiplier, sampling_fraction
 from ..robustness.preemption import PreemptionGuard, Preempted
 from ..telemetry.bus import NULL_BUS, global_bus
-from ..telemetry.tracer import NULL_TRACER, SpanTracer
+from ..telemetry.tracer import NULL_TRACER, SpanTracer, duration
 from ..weights import params_from_jax
 from .checkpoint import load_checkpoint, load_inference_state, load_params, save_checkpoint
 from .logs import (
-    duration,
     fold_dir,
     health_log_fields,
     log_info,
@@ -160,7 +159,9 @@ class FederatedTrainer:
         self.bus = bus if bus is not None else (global_bus() if self._telemetry_on else NULL_BUS)
         self._fit_tel = None  # the fold's artifact sink while a fit runs
         self._fit_summary: dict = {}
-        self._builds0 = None  # kernel libraries built and loaded by the first epoch
+        # kernel libraries built and loaded by the end of the first epoch
+        # (of the fit, or of the daemon's life)
+        self._builds0 = None
         self.task = FederatedTask(model.to(self.device))
         self.engine = build_engine(cfg)
         self.optimizer = make_optimizer(cfg.optimizer, cfg.learning_rate)
@@ -284,6 +285,10 @@ class FederatedTrainer:
                 a.nbytes for a in (live, attack) if a is not None)
             state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack)
         losses = losses.cpu().numpy()
+        if self._builds0 is None:
+            from ..ops import _build
+
+            self._builds0 = (_build.BUILDS, _build.LOADS)
         self._account_epoch(train_sites, losses, bs)
         return state, losses
 
@@ -383,8 +388,9 @@ class FederatedTrainer:
                 self._fit_tel = None
 
     def compiles_after_first_epoch(self) -> dict:
-        """Kernel libraries built and loaded since the end of the current
-        (or last) fit's first epoch (``ops/_build.py``): the sanitizer's
+        """Kernel libraries built and loaded since the end of the first
+        epoch of the current (or last) fit, or of the trainer's life when it
+        runs epochs without ``fit`` (``ops/_build.py``): the sanitizer's
         compile guard (checks/sanitize.py) holds it at 0."""
         from ..ops import _build
 
@@ -493,10 +499,9 @@ class FederatedTrainer:
         round_before = int(state.round)
         # the device traces: the whole fit (profile_dir) or an epoch window
         # (xprof_dir); a capture that fails fails the fit
-        from ..telemetry.xprof import XprofWindow, start_trace, stop_trace
+        from ..telemetry.xprof import Trace, XprofWindow
 
-        profile = (start_trace(os.path.join(cfg.profile_dir, f"fold_{fold}"))
-                   if cfg.profile_dir else None)
+        profile = Trace(os.path.join(cfg.profile_dir, f"fold_{fold}")) if cfg.profile_dir else None
         xprof = (XprofWindow(cfg.xprof_dir, cfg.xprof_window, label=f"fold_{fold}")
                  if cfg.xprof_dir else None)
         tel = self._fit_tel
@@ -511,10 +516,6 @@ class FederatedTrainer:
                                                        batch_size=cfg.batch_size)
                     if xprof is not None:
                         xprof.epoch_end(epoch)
-                    if self._builds0 is None:
-                        from ..ops import _build
-
-                        self._builds0 = (_build.BUILDS, _build.LOADS)
                     # rounds with no live weight report NaN: average the others
                     lived = losses[np.isfinite(losses)]
                     epoch_loss = float(lived.mean()) if lived.size else float("nan")
@@ -626,7 +627,7 @@ class FederatedTrainer:
             if xprof is not None:
                 xprof.close()
             if profile is not None:
-                stop_trace(profile)
+                profile.stop()
 
         # below the validation cadence no epoch was validated: validate the
         # trained state once so that it, not the init, is selected
