@@ -269,10 +269,11 @@ result line:
    in state, losses and launches to the same epochs without them; the
    accumulators equal bit for bit to their recompute on the card from the
    rounds' captured gradients, aggregates and updates, and each round's
-   within TEL_ROUND_RTOL of the plain path's from the same state; the warm
-   epoch with
-   and without the metrics, and the kernels and host ms they add a round; a
-   telemetry-on rankDAD fit of phase 11's tree with an xprof window on
+   within TEL_ROUND_RTOL of the plain path's from the same state (the
+   round and site where the gradient norm parts most are recorded, beside
+   how far a one-ulp move of the weights moves the plain path's own norm
+   there); the warm epoch with and without the metrics, and the kernels
+   and host ms they add a round; a telemetry-on rankDAD fit of phase 11's tree with an xprof window on
    epoch 2, its artifacts through the report's ``--validate``, the window's
    device kernels (K1's projection and recurrence, K2, K7) counted equal to
    the launch counters over epoch 2; a command-line fit in a process of its
@@ -4944,7 +4945,10 @@ TELEMETRY_ENGINES = ("dSGD", "rankDAD")
 # 1e-2 there. (Set before the first card run; that run measured 2e-7 to
 # 9e-7 on the first round. Its two-epoch sums, each path on its own
 # trajectory, parted by up to 6.5e-2 on grad_sq_max: params part on the lr
-# scale, as phase 8's reasoning says, so those are not compared.)
+# scale, as phase 8's reasoning says, so those are not compared. rankDAD's
+# gradient norm parts by 5.9e-4 at one round and site of epoch 2, where a
+# move of every weight by one rounding moves the plain path's own norm by
+# the same amount: a kink that any rounding flips, recorded with the run.)
 TEL_ROUND_RTOL = {"grad_sq_last": 2e-3, "update_sq_last": 2e-3,
                   "residual_sq_sum": {"dSGD": 2e-3, "rankDAD": 1e-2}}
 TEL_FIT_EPOCHS, TEL_XPROF_WINDOW = 2, (2, 2)
@@ -5022,29 +5026,65 @@ def telemetry_rel(got: dict, want: dict, keys) -> dict:
             for k in keys}
 
 
-def telemetry_rounds_vs_plain(torch, engine: str, epoch_k, epoch_p, start, inv_x, inv_y,
-                              idx) -> tuple:
+def telemetry_rounds_vs_plain(torch, engine: str, epoch_k, epoch_p, cap_k: list, cap_p: list,
+                              start, inv_x, inv_y, idx) -> tuple:
     """Each round of ``idx`` once through the kernels and once through the
     plain versions from the same state (the kernel path's after the rounds
     before it, its accumulators dropped so that each run holds that round's
     values alone): the largest relative difference of each round metric
-    over the rounds and sites, and the kernel path's end state."""
+    over the rounds and sites, where the gradient norm parts most (round,
+    site, both paths' norms, the sites' median norm, the round's loss, the
+    leaves whose gradients part most), and the kernel path's end state.
+    ``epoch_k`` and ``epoch_p`` capture each round's gradients into
+    ``cap_k`` and ``cap_p``."""
     import dataclasses
 
     keys = tuple(TEL_ROUND_RTOL)
     worst = dict.fromkeys(keys, 0.0)
-    st = start
+    at: dict = {"rel": -1.0}
+    st, n = start, 0
     for q in idx:
         for r in range(q.shape[1]):
             fresh = dataclasses.replace(st, telemetry=None)
-            k_out, _ = epoch_k(fresh, inv_x, inv_y, q[:, r:r + 1])
-            p_out, _ = epoch_p(fresh, inv_x, inv_y, q[:, r:r + 1])
-            rel = telemetry_rel(k_out.telemetry, p_out.telemetry, keys)
-            worst = {k: max(worst[k], rel[k]) for k in keys}
-            st = k_out
+            k_out, k_loss = epoch_k(fresh, inv_x, inv_y, q[:, r:r + 1])
+            p_out, p_loss = epoch_p(fresh, inv_x, inv_y, q[:, r:r + 1])
+            tk, tp = k_out.telemetry, p_out.telemetry
+            rel = {k: (tk[k] - tp[k]).abs() / tp[k].abs().clamp_min(1e-30) for k in keys}
+            worst = {k: max(worst[k], rel[k].max().item()) for k in keys}
+            site = int(rel["grad_sq_last"].argmax())
+            if rel["grad_sq_last"][site].item() > at["rel"]:
+                gk, gp = cap_k[-1]["grads"], cap_p[-1]["grads"]
+                leaf_rel = {k: ((gk[k][site] - gp[k][site]).norm()
+                                / gp[k][site].norm().clamp_min(1e-30)).item() for k in gp}
+                at = {"rel": rel["grad_sq_last"][site].item(), "round": n, "site": site,
+                      "grad_sq_kernel": tk["grad_sq_last"][site].item(),
+                      "grad_sq_plain": tp["grad_sq_last"][site].item(),
+                      "grad_sq_plain_median": tp["grad_sq_last"].median().item(),
+                      "round_loss_kernel": k_loss[0].item(),
+                      "round_loss_plain": p_loss[0].item(),
+                      "leaves_most_apart": sorted(leaf_rel.items(), key=lambda kv: -kv[1])[:4],
+                      "state": fresh, "q": q[:, r:r + 1]}
+            cap_k.clear()
+            cap_p.clear()
+            st, n = k_out, n + 1
+    # the plain round at that state with every weight moved by about one
+    # f32 rounding (relative 2^-23, a random sign each): how far rounding
+    # alone moves the plain path's own gradient norm there
+    g = torch.Generator(device=inv_x.device).manual_seed(0)
+    moved = {k: v * (1.0 + 2.0 ** -23 * (torch.randint(0, 2, v.shape, generator=g,
+                                                        device=v.device) * 2 - 1))
+             for k, v in at["state"].params.items()}
+    base, _ = epoch_p(at["state"], inv_x, inv_y, at["q"])
+    pert, _ = epoch_p(dataclasses.replace(at["state"], params=moved), inv_x, inv_y, at["q"])
+    cap_p.clear()
+    a, b = pert.telemetry["grad_sq_last"], base.telemetry["grad_sq_last"]
+    moved_rel = (a - b).abs() / b.abs().clamp_min(1e-30)
+    at["plain_moved_by_rounding_rel"] = moved_rel[at["site"]].item()
+    at["plain_moved_by_rounding_rel_max"] = moved_rel.max().item()
+    del at["state"], at["q"]
     ok = all(worst[k] <= (TEL_ROUND_RTOL[k][engine] if isinstance(TEL_ROUND_RTOL[k], dict)
                           else TEL_ROUND_RTOL[k]) for k in keys)
-    return worst, ok, st
+    return worst, at, ok, st
 
 
 def telemetry_pair(torch, np, lc, pc, bc, smi: str, engine: str, inv_x, inv_y, idx) -> dict:
@@ -5058,7 +5098,8 @@ def telemetry_pair(torch, np, lc, pc, bc, smi: str, engine: str, inv_x, inv_y, i
     epoch_on, start_on = telemetry_setup(torch, True, engine, True)
     epoch_off, start_off = telemetry_setup(torch, True, engine, False)
     epoch_cap, start_cap = telemetry_setup(torch, True, engine, True, capture=cap)
-    epoch_p, start_p = telemetry_setup(torch, False, engine, True)
+    cap_p: list = []
+    epoch_p, start_p = telemetry_setup(torch, False, engine, True, capture=cap_p)
     if not all(same_tree(start_on.params, s.params) for s in (start_off, start_cap, start_p)):
         fail(f"telemetry {engine}: the runs start from different weights")
     torch.cuda.synchronize()
@@ -5075,8 +5116,8 @@ def telemetry_pair(torch, np, lc, pc, bc, smi: str, engine: str, inv_x, inv_y, i
     t_on = st_on.telemetry
     rec_host = telemetry_recompute(torch, cap, st_on.params)
     cap.clear()
-    per_round, per_round_ok, st_seq = telemetry_rounds_vs_plain(
-        torch, engine, epoch_on, epoch_p, start_on, inv_x, inv_y, idx)
+    per_round, worst_grad, per_round_ok, st_seq = telemetry_rounds_vs_plain(
+        torch, engine, epoch_cap, epoch_p, cap, cap_p, start_on, inv_x, inv_y, idx)
     checks = {
         "state_on_equals_off": all(same_tree(getattr(st_on, part), getattr(st_off, part))
                                    for part in ("params", "batch_stats", "opt_state",
@@ -5095,6 +5136,7 @@ def telemetry_pair(torch, np, lc, pc, bc, smi: str, engine: str, inv_x, inv_y, i
            "warm_epoch_ms_on": ms_on[1], "warm_epoch_ms_off": ms_off[1],
            "cold_epoch_ms_on": ms_on[0], "cold_epoch_ms_off": ms_off[0],
            "launches": launches, "round_rel_vs_plain": per_round,
+           "grad_most_apart_from_plain": worst_grad,
            "one_round_runs_end_at_the_counted_state": same_tree(st_seq.params, st_on.params),
            "payload_bytes_per_round": t_on["payload_bytes"][0].item() / rounds,
            "checks": checks}

@@ -9,7 +9,6 @@ from .sanitize import (
     CompileGuard,
     SanitizeReport,
     SanitizerViolation,
-    kernel_builds,
     sanitize_enabled,
     sanitize_flags,
     sanitized_fit,
@@ -21,7 +20,6 @@ __all__ = [
     "CompileGuard",
     "SanitizeReport",
     "SanitizerViolation",
-    "kernel_builds",
     "sanitize_enabled",
     "sanitize_flags",
     "sanitized_fit",

@@ -58,13 +58,6 @@ def sanitize_enabled() -> bool:
     return bool(sanitize_flags())
 
 
-def kernel_builds() -> int:
-    """Kernel libraries compiled plus loaded in this process so far."""
-    from ..ops import _build
-
-    return _build.BUILDS + _build.LOADS
-
-
 class CompileGuard:
     """The compile guard over named watched objects, each with a
     ``compiles_after_first_epoch()`` (``FederatedTrainer``, ``FedDaemon``):

@@ -118,9 +118,8 @@ class Engine:
     init: Callable  # params -> state
     aggregate: Callable  # (grads, state, weight, live=None, rnd=None) -> (agg, state)
     # (grads, pack=1) -> [(shape, dtype), ...] (module docstring); None:
-    # the telemetry's dense fallback at wire_dtype
+    # the telemetry's dense f32 fallback
     wire_shapes: Callable | None = None
-    wire_dtype: torch.dtype | None = None
 
     def wire_bytes(self, grads: dict, pack: int = 1) -> int:
         """The modeled payload one device ships a round (module

@@ -104,5 +104,4 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
                     + extras)
         return [(s, pdtype) for s in shapes] + extras
 
-    return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes,
-                  wire_dtype=torch.int32 if secure else pdtype)
+    return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes)

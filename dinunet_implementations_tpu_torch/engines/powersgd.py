@@ -182,4 +182,4 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         return (out + [(lead + s, torch.float32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=pdtype)
+    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes)

@@ -168,4 +168,4 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                 + [(((pack,) + s) if gather_mode else s, f32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=pdtype)
+    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes)

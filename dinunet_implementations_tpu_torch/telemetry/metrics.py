@@ -90,12 +90,11 @@ def payload_bytes_of(engine, grads_template: dict, pack: int = 1) -> float:
     """The modeled collective payload a round for one device: the engine's
     own wire model (``Engine.wire_shapes``, JAX's ``wire_bytes``) over the
     JAX leaf shapes of ``grads_template`` (one site's leaves by
-    ``state_dict`` name), else every leaf shipped whole at the engine's
-    ``wire_dtype`` (f32 when it declares none). A Python float."""
+    ``state_dict`` name), else every leaf shipped whole in f32. A Python
+    float."""
     if getattr(engine, "wire_shapes", None) is not None:
         return float(engine.wire_bytes(grads_template, pack=pack))
-    isz = (getattr(engine, "wire_dtype", None) or torch.float32).itemsize
-    return float(sum(math.prod(g.shape) * isz for g in grads_template.values()))
+    return float(sum(math.prod(g.shape) * 4 for g in grads_template.values()))
 
 
 def dcn_bytes_of(engine, grads_template: dict, pack: int = 1, sites_per_slice: int = 1,
@@ -112,14 +111,13 @@ def dcn_bytes_of(engine, grads_template: dict, pack: int = 1, sites_per_slice: i
 def modeled_wire_shapes(engine, grads_template: dict, pack: int = 1) -> list:
     """The structured model behind :func:`payload_bytes_of`: ``[(shape,
     torch dtype), ...]``, one entry per collective operand a round, JAX
-    leaf shapes; the dense fallback without an engine model."""
+    leaf shapes; one dense f32 operand a leaf without an engine model."""
     ws = getattr(engine, "wire_shapes", None)
     if ws is not None:
         return [(tuple(s), d) for s, d in ws(grads_template, pack=pack)]
     from ..engines.base import jax_shapes
 
-    d = getattr(engine, "wire_dtype", None) or torch.float32
-    return [(s, d) for s in jax_shapes(grads_template).values()]
+    return [(s, torch.float32) for s in jax_shapes(grads_template).values()]
 
 
 def telemetry_summary(telemetry) -> dict | None:

@@ -81,6 +81,7 @@ from ..core.device import resolve_device
 from ..data.api import SiteArrays, stack_site_inventory
 from ..data.batching import plan_epoch, plan_epoch_positions, plan_eval
 from ..engines import build_engine, make_dsgd
+from ..ops import _build
 from ..robustness.attacks import attack_window
 from ..robustness.faults import fault_window, poison_inputs
 from ..robustness.health import health_summary
@@ -159,8 +160,10 @@ class FederatedTrainer:
         self.bus = bus if bus is not None else (global_bus() if self._telemetry_on else NULL_BUS)
         self._fit_tel = None  # the fold's artifact sink while a fit runs
         self._fit_summary: dict = {}
-        # kernel libraries built and loaded by the end of the first epoch
-        # (of the fit, or of the daemon's life)
+        # kernel libraries built plus loaded when the fit started
+        # (epoch_compiles), and (built, loaded) by the end of the first
+        # epoch of the fit, or of the daemon's life
+        self._fit_builds0 = 0
         self._builds0 = None
         self.task = FederatedTask(model.to(self.device))
         self.engine = build_engine(cfg)
@@ -286,8 +289,6 @@ class FederatedTrainer:
             state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack)
         losses = losses.cpu().numpy()
         if self._builds0 is None:
-            from ..ops import _build
-
             self._builds0 = (_build.BUILDS, _build.LOADS)
         self._account_epoch(train_sites, losses, bs)
         return state, losses
@@ -370,10 +371,8 @@ class FederatedTrainer:
             return self.test_only(test_sites, fold=fold)
         # the telemetry envelope: the whole fit under one "fit" span, and the
         # fold's sink (opened in _fit_impl) finalizes on every exit
-        from ..checks.sanitize import kernel_builds
-
         self._fit_tel, self._fit_summary = None, {}
-        self._builds0 = None
+        self._fit_builds0, self._builds0 = _build.BUILDS + _build.LOADS, None
         try:
             with self.tracer.span("fit", fold=fold):
                 return self._fit_impl(train_sites, val_sites, test_sites, fold=fold,
@@ -381,8 +380,8 @@ class FederatedTrainer:
         finally:
             fit_tel = self._fit_tel
             if fit_tel is not None:
-                builds0 = self._fit_summary.pop("_builds0", 0)
-                self._fit_summary["epoch_compiles"] = kernel_builds() - builds0
+                self._fit_summary["epoch_compiles"] = (_build.BUILDS + _build.LOADS
+                                                       - self._fit_builds0)
                 fit_tel.append(self._fit_summary)
                 fit_tel.close()
                 self._fit_tel = None
@@ -392,8 +391,6 @@ class FederatedTrainer:
         epoch of the current (or last) fit, or of the trainer's life when it
         runs epochs without ``fit`` (``ops/_build.py``): the sanitizer's
         compile guard (checks/sanitize.py) holds it at 0."""
-        from ..ops import _build
-
         b0, l0 = self._builds0 or (_build.BUILDS, _build.LOADS)
         return {"kernel_builds": _build.BUILDS - b0, "kernel_loads": _build.LOADS - l0}
 
@@ -446,7 +443,6 @@ class FederatedTrainer:
             tel_root = cfg.telemetry_dir or (
                 os.path.join(self.out_dir, "telemetry") if self.out_dir else "")
             if tel_root:
-                from ..checks.sanitize import kernel_builds
                 from ..telemetry.sink import FitTelemetry
 
                 self._fit_tel = FitTelemetry.open(
@@ -455,7 +451,7 @@ class FederatedTrainer:
                     device=self.device)
                 self._fit_summary = {"kind": "summary", "fold": fold, "epochs_run": 0,
                                      "best_val_epoch": 0, "best_val_metric": None,
-                                     "membership": None, "_builds0": kernel_builds()}
+                                     "membership": None}
             elif verbose:
                 log_warning("[warn] telemetry='on' but neither out_dir nor telemetry_dir is "
                             "set — spans and device metrics are collected but no artifacts "

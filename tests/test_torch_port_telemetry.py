@@ -230,11 +230,11 @@ def test_payload_bytes_of_the_shared_subtree_equal_jax(flagship_trees, name):
 
 
 def test_engine_without_a_wire_model_falls_back_to_dense_leaves():
-    e = dataclasses.replace(make_dsgd(), wire_shapes=None, wire_dtype=torch.bfloat16)
+    e = dataclasses.replace(make_dsgd(), wire_shapes=None)
     tree = {"a": torch.zeros(3, 4), "b": torch.zeros(5)}
-    assert tmetrics.payload_bytes_of(e, tree) == 34.0
-    assert tmetrics.modeled_wire_shapes(e, tree) == [((3, 4), torch.bfloat16),
-                                                     ((5,), torch.bfloat16)]
+    assert tmetrics.payload_bytes_of(e, tree) == 68.0
+    assert tmetrics.modeled_wire_shapes(e, tree) == [((3, 4), torch.float32),
+                                                     ((5,), torch.float32)]
     with pytest.raises(NotImplementedError, match="A11"):
         tmetrics.dcn_bytes_of(e, tree, slices=2)
 
@@ -602,7 +602,6 @@ def test_sanitized_fit_guards_builds_after_the_first_epoch():
     with tsan.sanitized_fit(_Watched(0), flags={"nans"}):
         assert torch.is_anomaly_enabled()
     assert not torch.is_anomaly_enabled()
-    assert tsan.kernel_builds() == _build.BUILDS + _build.LOADS
 
 
 # -- the compile cache ----------------------------------------------------------------
