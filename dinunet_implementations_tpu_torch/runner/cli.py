@@ -30,6 +30,12 @@
         --serve --serve-capacity 8 --serve-epochs 4 --set staleness_bound=2
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... --overlap-rounds
 
+    # the daemon's live endpoints on 127.0.0.1 (port 0 picks a free one,
+    # printed at start): /metrics, /healthz, /statusz with the SLO burn of
+    # the epoch time against a p99 target, /tracez
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
+        --serve --statusz-port 0 --slo-p99-ms 500 --telemetry on
+
     # telemetry: spans, per-site round metrics and the artifacts under
     # <out-dir>/telemetry/fold_<k>, a profiler capture of epochs 2..3, the
     # kernel libraries kept in a cache directory, and the sanitizer
@@ -50,7 +56,12 @@ key=value`` (repeatable; the value is parsed as JSON when it parses, e.g.
 prints one JSON line, as JAX's CLI does; ``--serve`` prints the daemon's
 summary, and a preempted fit prints JAX's ``{"preempted": true, ...}``
 line on stderr and exits with its code; a sanitizer violation prints JAX's
-``{"sanitizer_violation": ...}`` line on stderr and exits 70. ``--device`` is the port's own:
+``{"sanitizer_violation": ...}`` line on stderr and exits 70 (the daemon
+dumps its flight recorder first). ``--serve`` installs the flight
+recorder's exception hook (the daemon's preemption guard owns the signals
+and dumps on them); ``--statusz-port`` starts the exporter over the
+daemon's bus, tracer, flight recorder, probes and status, as JAX's CLI
+does. ``--device`` is the port's own:
 the card unless ``--device cpu`` is given (the counterpart of JAX's
 ``JAX_PLATFORMS=cpu``).
 
@@ -75,15 +86,13 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_LIVE_PLANE = "A12 (b) (the live plane: /statusz and the SLO burn)"
-_SCHEDULER = "A19 (the scheduler and supervisor)"
+_SCHEDULER = "A19 (b) (the scheduler, the supervisor and, behind --statusz-port, the pod plane)"
 _REFUSED = {
     "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
     "slices": (None, _MULTI_GPU), "min_slices": (None, _MULTI_GPU),
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "statusz_port": (None, _LIVE_PLANE), "slo_p99_ms": (None, _LIVE_PLANE),
     "schedule": (False, _SCHEDULER), "pod_slices": (None, _SCHEDULER),
     "sched_wall_s": (None, _SCHEDULER), "sched_ticks": (None, _SCHEDULER),
 }
@@ -167,6 +176,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the idle spool poll interval in seconds (default 0.5)")
     p.add_argument("--serve-rows", type=int, default=None,
                    help="inventory rows a slot, pinned (default: the first admitted site's)")
+    p.add_argument("--statusz-port", type=int, default=None, metavar="PORT",
+                   help="with --serve: the live endpoints on 127.0.0.1:PORT: /metrics "
+                        "(Prometheus), /healthz, /statusz (with the SLO burn), /tracez; "
+                        "0 picks a free port, printed at start")
+    p.add_argument("--slo-p99-ms", type=float, default=None, metavar="MS",
+                   help="the p99 target of the /statusz SLO burn over the daemon's epoch "
+                        "time (serve_epoch_ms)")
     p.add_argument("--overlap-rounds", action="store_true", default=None,
                    help="apply each round's update one round late, JAX's overlapped rounds "
                         "(on one card there is no collective to hide)")
@@ -222,8 +238,7 @@ def build_parser() -> argparse.ArgumentParser:
             ("--coordinator", {}), ("--num-processes", dict(type=int)),
             ("--process-id", dict(type=int)),
             ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--statusz-port", dict(type=int)),
-            ("--slo-p99-ms", dict(type=float)), ("--schedule", dict(action="store_true")),
+            ("--schedule", dict(action="store_true")),
             ("--pod-slices", dict(type=int)), ("--sched-wall-s", dict(type=float)),
             ("--sched-ticks", dict(type=int))):
         p.add_argument(flag, help=argparse.SUPPRESS, **({"default": None} | kw))
@@ -317,6 +332,23 @@ def main(argv: list[str] | None = None) -> int:
             quorum=args.serve_quorum, poll_s=args.serve_poll, fault_plan=fault_plan,
             attack_plan=attack_plan, inventory_rows=args.serve_rows, resume=args.resume,
             verbose=verbose, device=args.device)
+        # the preemption guard owns SIGTERM and SIGINT while the daemon
+        # serves, and dumps the flight recorder on them: the hook here is
+        # the exception's only
+        daemon.flight.install(signals=())
+        exporter = None
+        if args.statusz_port is not None:
+            from ..telemetry.exporter import ENDPOINTS, StatusExporter
+
+            exporter = StatusExporter(
+                daemon.bus, port=args.statusz_port, tracer=daemon.trainer.tracer,
+                flight=daemon.flight, health=daemon.health_probes(), statusz=daemon.status,
+                slo=({"histogram": "serve_epoch_ms", "p99_target_ms": args.slo_p99_ms}
+                     if args.slo_p99_ms is not None else None))
+            port = exporter.start()
+            if verbose:
+                print(json.dumps({"statusz": f"http://127.0.0.1:{port}",
+                                  "endpoints": ENDPOINTS}), flush=True)
         from ..checks.sanitize import sanitized_fit
 
         try:
@@ -324,8 +356,15 @@ def main(argv: list[str] | None = None) -> int:
             with sanitized_fit(daemon, label="serve"):
                 summary = daemon.serve(max_epochs=args.serve_epochs)
         except SanitizerViolation as v:
+            daemon.flight.dump("sanitizer-violation")
             print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
             return 70
+        finally:
+            # on a failure the exception hook stays: an exception that
+            # unwinds past here still dumps the ring
+            if exporter is not None:
+                exporter.stop()
+        daemon.flight.uninstall()
         print(json.dumps(_finite(summary), default=str))
         return 0
 

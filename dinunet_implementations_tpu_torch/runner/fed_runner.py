@@ -29,8 +29,12 @@ aggregation, personalized heads); a personalized fit's per-site scores
 (checks/sanitize.py ``sanitized_fit``, on under ``DINUNET_SANITIZE``), and
 their fits take the telemetry options of the config (``telemetry``,
 ``telemetry_dir``, ``profile_dir``, ``xprof_dir``, ``compile_cache_dir``).
-The daemon has no flight recorder, file sink or tracer: ``flight``,
-``sink_tags`` and a telemetry-on config raise naming ROADMAP A12 (b).
+The daemon keeps a flight recorder (telemetry/flight.py) over its
+trainer's tracer, which it dumps when a signal stops it, and with telemetry
+on writes its epochs and membership events under
+``<out_dir>/telemetry/serve``; :meth:`FedDaemon.health_probes` and
+:meth:`FedDaemon.status` are what the ``/healthz`` and ``/statusz``
+exporter serves (runner/cli.py ``--statusz-port``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..core.config import TrainConfig, resolve_site_configs
 from ..core.device import resolve_device
 from ..data.api import SiteArrays, build_site_dataset
 from ..data.splits import resolve_splits
+from ..ops import _build
 from ..trainer.loop import FederatedTrainer
 from .registry import build_model, get_task, task_cache
 
@@ -245,12 +250,17 @@ class FedDaemon:
     so ``resume=True`` restores the slot map and re-admits the members'
     data; each rotation drops ``publish.json`` beside the checkpoint.
 
-    The daemon publishes its gauges and counters to ``bus``, a
-    ``telemetry.MetricsBus`` of its own unless one is passed. A mesh is
-    multi-GPU (ROADMAP A11); ``flight``, ``sink_tags`` and a telemetry-on
-    config are the daemon's flight recorder, file sink and tracer, and
-    ``health_probes`` the ``/healthz`` exporter's (A12 (b)); the scheduler's
-    ``set_slice_grant`` and ``reload_checkpoint`` are A19."""
+    The daemon and its trainer publish their gauges and counters to
+    ``bus``, the process's ``telemetry.global_bus()`` unless one is
+    passed. ``flight`` is the flight recorder (a ``FlightRecorder`` over
+    ``out_dir`` and the trainer's tracer unless one is passed): the daemon
+    notes joins, leaves, epochs, holds and checkpoints there, and dumps it
+    when a signal stops the service. With ``cfg.telemetry == "on"`` the
+    trainer's spans, an epoch row an epoch, the membership events and a
+    summary row go to a ``FitTelemetry`` under ``<telemetry_dir or
+    out_dir/telemetry>/serve``, its manifest tagged with ``sink_tags``. A
+    mesh is multi-GPU (ROADMAP A11); the scheduler's ``set_slice_grant``
+    and ``reload_checkpoint`` are A19."""
 
     def __init__(self, cfg: TrainConfig | None = None, capacity: int = 8,
                  spool_dir: str | None = None, out_dir: str | None = None,
@@ -261,17 +271,13 @@ class FedDaemon:
                  bus=None, flight=None, sink_tags: dict | None = None, device=None,
                  **overrides):
         from ..robustness.membership import MembershipTable
-        from ..telemetry.bus import MetricsBus
+        from ..telemetry.bus import global_bus
+        from ..telemetry.flight import FlightRecorder
 
         if mesh not in ("auto", None):
             raise NotImplementedError("FedDaemon(mesh=...) is not ported: ROADMAP A11 "
                                       "(multi-GPU); the port runs every slot on one device")
         cfg = (cfg or TrainConfig()).with_overrides(overrides)
-        for name, on in (("flight", flight is not None), ("sink_tags", sink_tags is not None),
-                         ("cfg.telemetry='on'", cfg.telemetry == "on")):
-            if on:
-                raise NotImplementedError(f"FedDaemon {name} is not ported: ROADMAP A12 (b) "
-                                          "(the daemon's flight recorder, file sink and tracer)")
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         if not 1 <= quorum <= capacity:
@@ -284,12 +290,19 @@ class FedDaemon:
         self.spool_dir = spool_dir or (os.path.join(data_path, "spool") if data_path else "spool")
         self.out_dir = out_dir or (os.path.join(data_path, "output") if data_path else "output")
         os.makedirs(self.spool_dir, exist_ok=True)
-        self.bus = bus if bus is not None else MetricsBus()
+        # the daemon always publishes into a bus (the process's unless one
+        # is passed), and so does its trainer: host-side bookkeeping that
+        # the /statusz exporter reads
+        self.bus = bus if bus is not None else global_bus()
         self.device = resolve_device(device)
         self.num_slices = 1
         self.trainer = FederatedTrainer(self.cfg, build_model(self.cfg, device=self.device),
                                         None, out_dir=self.out_dir, fault_plan=fault_plan,
-                                        attack_plan=attack_plan, device=self.device)
+                                        bus=self.bus, attack_plan=attack_plan,
+                                        device=self.device)
+        # the ring a crash or a signal dumps, kept with telemetry off too
+        self.flight = flight if flight is not None else FlightRecorder(
+            self.out_dir, bus=self.bus, tracer=self.trainer.tracer)
         self.table = MembershipTable(capacity)
         self.state = None  # built at the first admission (it needs the shapes)
         self.epochs_run = 0
@@ -308,7 +321,17 @@ class FedDaemon:
         self._feat = None  # the feature shape, fixed at the first admission
         self._rows = inventory_rows  # the pinned inventory height
         self._steps = steps  # the pinned plan height
+        self._compiles0 = None  # kernel libraries built plus loaded when the state was built
         self.ckpt_path = os.path.join(self.out_dir, "serve", "checkpoint_latest.msgpack")
+        self._sink = None
+        if self.cfg.telemetry == "on":
+            from ..telemetry.sink import FitTelemetry
+
+            self._sink = FitTelemetry.open(
+                os.path.join(self.cfg.telemetry_dir or os.path.join(self.out_dir, "telemetry"),
+                             "serve"),
+                self.cfg, fold=0, tracer=self.trainer.tracer, fault_plan=fault_plan,
+                attack_plan=attack_plan, tags=sink_tags, device=self.device)
         resumed = self._resume() if resume else False
         if not resumed and data_path:
             # pre-join the tree's local* sites with their inputspec entries,
@@ -329,6 +352,12 @@ class FedDaemon:
             from ..trainer.logs import log_info
 
             log_info(msg)
+
+    def _event(self, name: str, **attrs) -> None:
+        """An instant event in the telemetry's trace and metrics.jsonl
+        (nothing with telemetry off)."""
+        if self._sink is not None:
+            self._sink.event(name, **attrs)
 
     # -- admission ---------------------------------------------------------
 
@@ -360,9 +389,11 @@ class FedDaemon:
         except (OSError, ValueError, KeyError, RuntimeError, TimeoutError) as e:
             log_warning(f"[serve] join rejected for {site!r}: admission failed within "
                         f"deadline_s={self.admission_deadline_s} ({e})")
+            self._event("join-rejected", site=site, reason=str(e))
             return None
         if not len(arrays):
             log_warning(f"[serve] join rejected for {site!r}: empty dataset")
+            self._event("join-rejected", site=site, reason="empty dataset")
             return None
         feat = arrays.inputs.shape[1:]
         if self._feat is None:
@@ -370,6 +401,7 @@ class FedDaemon:
         elif feat != self._feat:
             log_warning(f"[serve] join rejected for {site!r}: feature shape {feat} != the "
                         f"service's {self._feat}")
+            self._event("join-rejected", site=site, reason="shape mismatch")
             return None
         if self._rows is None:
             # the inventory height, pinned at the first site's size (headroom
@@ -410,6 +442,7 @@ class FedDaemon:
                     self.bus.counter("serve_spool_events_total", result="rejected")
                     return False
                 self.table, slot, gen = self.table.join(site)
+                sl = self.table.slice_of(slot, self.num_slices)
                 self._data[site], self._dirs[site] = arrays, data_dir
                 self._overrides[site] = overrides
                 if trace_id:
@@ -417,6 +450,10 @@ class FedDaemon:
                 self._ensure_state()
                 self._reset_slot(slot, site=site, generation=gen)
                 self._log(f"[serve] join {site!r} → slot {slot} (generation {gen})")
+                self._event("membership-join", site=site, slot=slot, slice=sl, generation=gen,
+                            trace=trace_id)
+                self.flight.note("membership-join", site=site, slot=slot, slice=sl,
+                                 trace=trace_id)
                 self.bus.counter("serve_spool_events_total", result="applied")
                 self.bus.gauge("serve_member_generation", gen, site=site)
                 self._publish_slice_gauges()
@@ -424,15 +461,19 @@ class FedDaemon:
             if kind == "leave":
                 site = str(ev["site"])
                 self.table, slot = self.table.leave(site)
+                sl = self.table.slice_of(slot, self.num_slices)
                 for d in (self._data, self._dirs, self._overrides, self._traces):
                     d.pop(site, None)
                 self._log(f"[serve] leave {site!r} (slot {slot} freed)")
+                self._event("membership-leave", site=site, slot=slot, slice=sl, trace=trace_id)
+                self.flight.note("membership-leave", site=site, slot=slot, slice=sl)
                 self.bus.counter("serve_spool_events_total", result="applied")
                 self.bus.clear_gauge("serve_member_generation", site=site)
                 self._publish_slice_gauges()
                 return True
         except (MembershipError, KeyError) as e:
             log_warning(f"[serve] bad membership event {ev!r}: {e}")
+            self._event("membership-error", reason=str(e))
             self.bus.counter("serve_spool_events_total", result="rejected")
             return False
         log_warning(f"[serve] unknown spool event {ev!r} — ignored")
@@ -454,6 +495,7 @@ class FedDaemon:
         if int(self.state.health["quarantined"][slot]):
             self._log(f"[serve] slot {slot} was quarantined — lifted for {site!r} generation "
                       f"{generation}")
+            self._event("quarantine-lift", site=site, slot=slot)
         self.state = reset_slot_state(self.state, slot, engine=self.trainer.engine)
 
     def _ensure_state(self):
@@ -466,6 +508,7 @@ class FedDaemon:
 
             self._pending_ckpt_load = False
             self.state = load_checkpoint(self.ckpt_path, self.state)
+        self._compiles0 = _build.BUILDS + _build.LOADS
 
     def _on_membership_change(self):
         """After a transition: rebalance (one block on one device: no move),
@@ -477,7 +520,9 @@ class FedDaemon:
             self._log(f"[serve] rebalance: {site!r} slot {src} → {dst}")
             if self.state is not None:
                 self.state = move_slot_state(self.state, src, dst, engine=self.trainer.engine)
+            self._event("membership-rebalance", site=site, src=src, dst=dst)
         self.trainer.membership_mask = self.table.occupancy()
+        self._event("membership-epoch", epoch=self.table.epoch, occupied=self.table.occupied)
         self.checkpoint()
 
     # -- the spool ---------------------------------------------------------
@@ -572,8 +617,12 @@ class FedDaemon:
         if not self.trainable():
             rounds = max((self._steps or 1) // max(self.cfg.local_iterations, 1), 1)
             self.held_rounds += rounds
+            hold = {} if self.table.occupied < self.quorum or self.state is None else {
+                "reason": "no trainable batch"}
+            self._event("round-hold", occupied=self.table.occupied, quorum=self.quorum, **hold)
             self.bus.counter("serve_held_rounds_total", rounds)
             self.bus.gauge("serve_members", self.table.occupied)
+            self.flight.note("round-hold", occupied=self.table.occupied, quorum=self.quorum)
             return None
         if self._steps is None:
             # pin the plan height at the first contact with data
@@ -584,22 +633,30 @@ class FedDaemon:
         self.trainer.fixed_steps = self._steps
         self.trainer.fixed_inventory_rows = self._rows
         self.epochs_run += 1
-        t0 = time.perf_counter()
-        self.state, losses = self.trainer.run_epoch(self.state, self._slot_sites(),
-                                                    self.epochs_run,
-                                                    batch_size=self.cfg.batch_size)
+        t0 = time.perf_counter()  # the tracer's clock
+        with self.trainer.tracer.span("epoch", epoch=self.epochs_run):
+            self.state, losses = self.trainer.run_epoch(self.state, self._slot_sites(),
+                                                        self.epochs_run,
+                                                        batch_size=self.cfg.batch_size)
         lived = losses[np.isfinite(losses)]
         loss = float(lived.mean()) if lived.size else float("nan")
+        if self._sink is not None:
+            self.trainer._fit_tel = self._sink
+            self.trainer._epoch_row(0, self.epochs_run, loss, t0, self.state)
         self.bus.gauge("serve_epoch", self.epochs_run)
         self.bus.gauge("serve_train_loss", loss)
         self.bus.gauge("serve_members", self.table.occupied)
         self.bus.counter("serve_epochs_total")
         self.bus.observe("serve_epoch_ms", (time.perf_counter() - t0) * 1e3)
+        self.flight.note("serve-epoch", epoch=self.epochs_run, loss=loss,
+                         occupied=self.table.occupied)
         self._log(f"[serve] epoch {self.epochs_run}: train_loss={loss:.4f} "
                   f"({self.table.occupied}/{self.capacity} slots)")
         # an exhausted ε budget (the trainer's accountant, stepped in
         # run_epoch) is a clean stop of this daemon: checkpoint, latch
         if self._budget_spent():
+            self._event("dp-budget", epsilon=self.trainer._dp_epsilon,
+                        budget=float(self.cfg.dp_epsilon_budget))
             self.bus.counter("serve_dp_budget_stops_total")
             self._log(f"[serve] dp ε-budget exhausted: ε={self.trainer._dp_epsilon:.3f} ≥ "
                       f"{self.cfg.dp_epsilon_budget} — checkpointing and stopping")
@@ -629,13 +686,19 @@ class FedDaemon:
 
         if self.state is None:
             return
-        save_checkpoint(self.ckpt_path, self.state, rotate=True, meta={
-            "epoch": self.epochs_run, "held_rounds": self.held_rounds, "steps": self._steps,
-            "rows": self._rows, "membership": self.table.to_json(),
-            "data_dirs": dict(self._dirs), "site_overrides": dict(self._overrides),
-            "traces": dict(self._traces),
-            "dp_accountant": (self.trainer.dp_accountant.to_json()
-                              if self.trainer.dp_accountant is not None else None)})
+        with self.trainer.tracer.span("checkpoint"):
+            save_checkpoint(self.ckpt_path, self.state, rotate=True, meta={
+                "epoch": self.epochs_run, "held_rounds": self.held_rounds,
+                "steps": self._steps, "rows": self._rows, "membership": self.table.to_json(),
+                "data_dirs": dict(self._dirs), "site_overrides": dict(self._overrides),
+                # the joins whose data trained the published model: a serving
+                # engine that loads it names them (its status's
+                # checkpoint_traces)
+                "traces": dict(self._traces),
+                "dp_accountant": (self.trainer.dp_accountant.to_json()
+                                  if self.trainer.dp_accountant is not None else None)})
+        self._event("checkpoint-publish", epoch=self.epochs_run, traces=dict(self._traces))
+        self.flight.note("checkpoint-publish", epoch=self.epochs_run)
         self.bus.counter("serve_checkpoints_total")
         self._announce_publish()
 
@@ -742,6 +805,11 @@ class FedDaemon:
                     self._preempted = True
                     self._log(f"[serve] signal {guard.requested} — checkpointed, shutting down")
                     self.checkpoint()
+                    # the guard owns the signal handlers here, so the flight
+                    # recorder dumps cooperatively: the final spans and the
+                    # bus snapshot land in flight_<pid>.json before the exit
+                    self.flight.note("signal", signum=guard.requested)
+                    self.flight.dump(f"signal:{guard.requested}")
                     break
                 if max_epochs is not None and trained_here >= max_epochs:
                     break
@@ -750,6 +818,13 @@ class FedDaemon:
                 if loss is None and not changed:
                     time.sleep(self.poll_s)
         return self.close()
+
+    def health_probes(self) -> dict:
+        """Readiness by subsystem for ``/healthz``: the service is ready
+        when it has a state, meets its quorum and can reach its spool."""
+        return {"state": lambda: self.state is not None,
+                "quorum": lambda: self.table.occupied >= self.quorum,
+                "spool": lambda: os.path.isdir(self.spool_dir)}
 
     def status(self) -> dict:
         """The service's live status, JAX's ``status()`` keys on one device
@@ -784,16 +859,27 @@ class FedDaemon:
         }
 
     def close(self) -> dict:
-        """The final checkpoint; returns the service summary."""
+        """The final checkpoint, and with telemetry on the summary row and
+        the trace files; returns the service summary."""
         from ..robustness.membership import membership_rollup
 
         self.checkpoint()
-        return {
+        rollup = membership_rollup(self.table, self.state, held_rounds=self.held_rounds)
+        summary = {
             "epochs_run": self.epochs_run,
             "held_rounds": self.held_rounds,
-            "membership": membership_rollup(self.table, self.state,
-                                            held_rounds=self.held_rounds),
+            "membership": rollup,
             "table": self.table.to_json(),
             "preempted": self._preempted,
             "compiles_after_first_epoch": self.compiles_after_first_epoch(),
         }
+        if self._sink is not None:
+            # kernel libraries built or loaded since the state was built:
+            # the counterpart of JAX's epoch compiles
+            compiles = _build.BUILDS + _build.LOADS - (self._compiles0 or 0)
+            self._sink.append({"kind": "summary", "fold": 0, "epochs_run": self.epochs_run,
+                               "epoch_compiles": compiles, "best_val_epoch": 0,
+                               "membership": rollup})
+            self._sink.close()
+            self._sink = None
+        return summary

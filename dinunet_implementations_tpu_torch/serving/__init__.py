@@ -1,8 +1,9 @@
 """Serving: the inference engine (a batched lane, and an O(1) streaming
 lane for the unidirectional ICA-LSTM), the replicated fleet with sharded
 session affinity, the publish plane (shadow scoring, hot-swap, rollback)
-and the max-delay autotuner. The serving CLI is ROADMAP A19; the tracer,
-sinks and exporter it runs with are A12 (b)."""
+and the max-delay autotuner, each with the span tracer and the telemetry
+sink; ``python -m dinunet_implementations_tpu_torch.serving`` is the
+serving CLI (``__main__.py``)."""
 
 from .admission import AutotunerDaemon, DelayAutotuner
 from .engine import InferenceEngine, ServingError

@@ -36,7 +36,15 @@ the libraries built or loaded since (``ops/_build.py``), and it must stay
 0 across any number of requests, swaps and publishes.
 ``cfg.compile_cache_dir`` moves the libraries' root
 (``ops/_build.enable_compile_cache``): a later process loads what an
-earlier one built there. The tracer and the sinks are ROADMAP A12 (b).
+earlier one built there.
+
+Telemetry: a ``tracer`` (``telemetry.SpanTracer``) takes the
+``serve-warmup`` span and a ``serve-infer`` or ``serve-stream`` span a
+dispatch, each with the ``trace_ids`` of the requests it carried; a
+``sink`` (``telemetry.sink.FitTelemetry``) takes a ``dispatch`` row a
+dispatch and the ``serve_summary`` row at :meth:`InferenceEngine.close`,
+which also closes it (``close_sink=False`` leaves that to the caller: a
+fleet shares one sink across its replicas).
 """
 
 from __future__ import annotations
@@ -44,7 +52,6 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-import uuid
 
 import numpy as np
 import torch
@@ -55,6 +62,7 @@ from ..models.icalstm import ICALstmStream
 from ..ops import _build
 from ..runner.registry import get_task
 from ..telemetry.bus import NULL_BUS
+from ..telemetry.tracer import NULL_TRACER, new_trace_id
 from ..trainer.checkpoint import load_inference_state
 from ..trainer.steps import _StateTask, eval_forward
 from ..weights import _leaves, _state_dict_from
@@ -94,25 +102,16 @@ class _Req:
         self.priority = int(priority)
         self.deadline_ms = deadline_ms
         self._seq = 0
-        self.trace_id = trace_id or uuid.uuid4().hex
+        self.trace_id = trace_id or new_trace_id()
         self.future = RequestFuture()
         self.future.trace_id = self.trace_id
         self._submit_t = 0.0
 
 
-def _refuse(cfg: TrainConfig, tracer, sink) -> None:
-    """Raise for the engine options the port does not run."""
-    for name, on in (("tracer", tracer is not None), ("sink", sink is not None)):
-        if on:
-            raise NotImplementedError(
-                f"InferenceEngine {name} is not ported: ROADMAP A12 (b) (the serving plane's "
-                "tracer and sinks)")
-
-
 class InferenceEngine:
     """Construct, :meth:`warmup`, then :meth:`submit` / :meth:`stream`;
     always :meth:`close` (or use as a context manager), which stops the
-    lane threads.
+    lane threads and writes the telemetry's summary row.
 
     Weights come from exactly one of: a ``checkpoint`` path (a trainer
     checkpoint in the JAX package's format, through
@@ -122,7 +121,9 @@ class InferenceEngine:
 
     ``streaming``: None runs the streaming lane where the task and config
     support it (the unidirectional ICA-LSTM), False never, True insists.
-    ``bus`` receives the lanes' series, labelled with ``bus_labels``."""
+    ``bus`` receives the lanes' series, labelled with ``bus_labels`` (and
+    so are the sink's rows); ``tracer``, ``sink`` and ``close_sink`` are
+    the module docstring's telemetry."""
 
     def __init__(self, cfg: TrainConfig, *, checkpoint: str | None = None, params=None,
                  batch_stats=None, state_dict=None, row_buckets=DEFAULT_ROW_BUCKETS,
@@ -130,8 +131,8 @@ class InferenceEngine:
                  stream_chunk: int = DEFAULT_STREAM_CHUNK, stream_slots: int = 32,
                  max_delay_ms: float = 2.0, max_queue: int | None = None,
                  streaming: bool | None = None, device=None, bus=None,
-                 bus_labels: dict | None = None, tracer=None, sink=None):
-        _refuse(cfg, tracer, sink)
+                 bus_labels: dict | None = None, close_sink: bool = True, tracer=None,
+                 sink=None):
         if cfg.compile_cache_dir:
             from ..ops._build import enable_compile_cache
 
@@ -143,6 +144,9 @@ class InferenceEngine:
             raise ServingError(f"task {cfg.task_id!r} has no serving spec")
         self.bus = bus if bus is not None else NULL_BUS
         self._bus_labels = dict(bus_labels or {})
+        self.tracer = tracer or NULL_TRACER
+        self.sink = sink
+        self._close_sink = close_sink
         self.meta: dict = {}
         if sum(x is not None for x in (checkpoint, params, state_dict)) != 1:
             raise ServingError("pass either params (with batch_stats), state_dict or a "
@@ -261,26 +265,28 @@ class InferenceEngine:
         seconds}``. From here on :meth:`compiles_after_warmup` counts."""
         t0 = time.monotonic()
         times = {}
-        for b in self.row_buckets:
-            tb = time.monotonic()
-            self._probs(self._live, np.zeros((b,) + self.sample_shape, np.float32),
-                        np.ones((b,), np.float32))
-            times[f"infer/{b}"] = time.monotonic() - tb
-        if self.streaming:
-            a, t = self.cfg.ica_args, self.stream_chunk
-            for b in self.stream_buckets:
+        with self.tracer.span("serve-warmup"):
+            for b in self.row_buckets:
                 tb = time.monotonic()
-                # every slot a pad slot on the trash row: an identity there
-                self._stream_step(
-                    self._live, np.full((b,), self.sessions.trash_slot, np.int64),
-                    np.zeros((b,), np.float32),
-                    np.zeros((b, t, a.num_components, a.window_size), np.float32),
-                    np.zeros((b, t), np.float32), np.zeros((b,), np.float32))
-                times[f"stream/{b}"] = time.monotonic() - tb
+                self._probs(self._live, np.zeros((b,) + self.sample_shape, np.float32),
+                            np.ones((b,), np.float32))
+                times[f"infer/{b}"] = time.monotonic() - tb
+            if self.streaming:
+                a, t = self.cfg.ica_args, self.stream_chunk
+                for b in self.stream_buckets:
+                    tb = time.monotonic()
+                    # every slot a pad slot on the trash row: an identity there
+                    self._stream_step(
+                        self._live, np.full((b,), self.sessions.trash_slot, np.int64),
+                        np.zeros((b,), np.float32),
+                        np.zeros((b, t, a.num_components, a.window_size), np.float32),
+                        np.zeros((b, t), np.float32), np.zeros((b,), np.float32))
+                    times[f"stream/{b}"] = time.monotonic() - tb
         self.warmup_seconds = time.monotonic() - t0
         self._builds_at_warmup = (_build.BUILDS, _build.LOADS)
         lane_kw = dict(max_delay_ms=self._max_delay_ms, max_queue=self._max_queue,
-                       bus=self.bus, labels=self._bus_labels)
+                       on_dispatch=self._record_dispatch, bus=self.bus,
+                       labels=self._bus_labels)
         self._infer_lane = Microbatcher(self._dispatch_infer, self.row_buckets, name="infer",
                                         **lane_kw)
         if self.streaming:
@@ -291,6 +297,13 @@ class InferenceEngine:
         return times
 
     # -- request path ------------------------------------------------------
+
+    def _record_dispatch(self, lane, batch, bucket, rows, depth) -> None:
+        if self.sink is not None:
+            self.sink.append({"kind": "dispatch", "lane": lane, "bucket": int(bucket),
+                              "rows": int(rows), "pad_rows": int(bucket - rows),
+                              "queue_depth": int(depth),
+                              "trace_ids": [r.trace_id for r in batch], **self._bus_labels})
 
     def _finish(self, reqs, lane: str) -> None:
         now = time.monotonic()
@@ -316,7 +329,9 @@ class InferenceEngine:
             w[at:at + n] = 1.0 if r.weights is None else r.weights
             spans.append((r, at, n))
             at += n
-        probs = self._probs(self._live, x, w)
+        with self.tracer.span("serve-infer", bucket=bucket, rows=at,
+                              trace_ids=[r.trace_id for r in reqs]):
+            probs = self._probs(self._live, x, w)
         with self._lock:
             self._mirror.append((bucket, x, w))
             del self._mirror[:-MIRROR_CAP]
@@ -343,7 +358,9 @@ class InferenceEngine:
             x[i, :n] = r.rows
             sv[i, :n] = 1.0
             valid[i] = 1.0
-        probs = self._stream_step(self._live, slot_ix, fresh, x, sv, valid)
+        with self.tracer.span("serve-stream", bucket=bucket, rows=len(reqs),
+                              trace_ids=[r.trace_id for r in reqs]):
+            probs = self._stream_step(self._live, slot_ix, fresh, x, sv, valid)
         for i, r in enumerate(reqs):
             r.future.set_result({"probs": probs[i], "session": r.session,
                                  "generation": r.generation, "restarted": bool(r.fresh),
@@ -400,7 +417,7 @@ class InferenceEngine:
         if len(windows) == 0:
             raise ServingError("stream() needs at least one window (an empty chunk has "
                                "nothing to advance the session with)")
-        trace_id = trace_id or uuid.uuid4().hex
+        trace_id = trace_id or new_trace_id()
         links = []
         for lo in range(0, len(windows), self.stream_chunk):
             req = _Req(windows[lo:lo + self.stream_chunk], session=session_id,
@@ -597,6 +614,9 @@ class InferenceEngine:
             "shed": sum(L.stats["shed"] for L in lanes),
             "compiles_after_warmup": sum(self.compiles_after_warmup().values()),
             "checkpoint_epoch": self.meta.get("epoch"),
+            # the trace ids a daemon wrote into the checkpoint's meta: the
+            # serving end of a join's trace
+            "checkpoint_traces": self.meta.get("traces") or {},
             "device": str(self.device),
         }
 
@@ -637,6 +657,7 @@ class InferenceEngine:
             "shed": sum(L.stats["shed"] for L in lanes),
             "swaps": stats["swaps"],
             **self._bus_labels,
+            "checkpoint_traces": self.meta.get("traces") or {},
             "warmup_seconds": self.warmup_seconds,
             "buckets": {
                 "infer": list(self.row_buckets),
@@ -650,11 +671,16 @@ class InferenceEngine:
         }
 
     def close(self) -> dict:
-        """Stop the lanes and check that nothing was built or loaded after
-        warmup; returns :meth:`summary`."""
+        """Stop the lanes, append the ``serve_summary`` row to the sink
+        (and close it unless ``close_sink=False``), and check that nothing
+        was built or loaded after warmup; returns :meth:`summary`."""
         for lane in self._lanes():
             lane.close()
         summary = self.summary()
+        if self.sink is not None:
+            self.sink.append(summary)
+            if self._close_sink:
+                self.sink.close()
         self.assert_no_compiles()
         return summary
 

@@ -44,6 +44,7 @@ from ..core.config import TrainConfig
 from ..core.device import resolve_device
 from ..robustness.membership import MembershipTable
 from ..telemetry.bus import NULL_BUS
+from ..telemetry.tracer import NULL_TRACER
 from ..trainer.checkpoint import load_inference_state
 from .engine import InferenceEngine, ServingError
 
@@ -71,19 +72,20 @@ class ReplicaSet:
 
     ``devices``: the devices the replicas round-robin over (default every
     CUDA device; the tests pass ``["cpu"]``). ``engine_kwargs`` go to each
-    :class:`~.engine.InferenceEngine`. ``tracer`` and ``sink`` exist for
-    the JAX signature and must be None (ROADMAP A12 (b))."""
+    :class:`~.engine.InferenceEngine`. Every replica shares ``tracer`` and
+    ``sink``; the set writes a ``replica-start`` event row for each start
+    and the fleet's ``serve_summary`` row at :meth:`close`, which closes
+    the sink once."""
 
     def __init__(self, cfg: TrainConfig, *, replicas: int = 2, checkpoint: str | None = None,
                  params=None, batch_stats=None, supervise_interval_s: float = 0.2,
                  bus=None, devices=None, tracer=None, sink=None, **engine_kwargs):
-        if tracer is not None or sink is not None:
-            raise NotImplementedError("ReplicaSet tracer and sink are not ported: ROADMAP "
-                                      "A12 (b) (the serving plane's tracer and sinks)")
         if replicas < 1:
             raise ServingError(f"need >= 1 replica, got {replicas}")
         self.cfg = cfg
         self.bus = bus if bus is not None else NULL_BUS
+        self.tracer = tracer or NULL_TRACER
+        self.sink = sink
         self.meta: dict = {}
         if checkpoint is not None:
             params, batch_stats, self.meta = load_inference_state(checkpoint)
@@ -130,12 +132,16 @@ class ReplicaSet:
         eng = InferenceEngine(self.cfg, params=params, batch_stats=stats,
                               device=self._devices[slot % len(self._devices)],
                               bus=self.bus, bus_labels={"replica": str(slot)},
+                              tracer=self.tracer, sink=self.sink, close_sink=False,
                               **self._engine_kwargs)
         times = eng.warmup()
-        self.table, _, _ = self.table.join(self._replica_id(slot))
+        self.table, _, gen = self.table.join(self._replica_id(slot))
         self._engines[slot] = eng
         self.bus.gauge("serving_replicas_live", self.table.occupied)
         self.bus.counter("serving_replica_starts_total", replica=str(slot))
+        if self.sink is not None:
+            self.sink.append({"kind": "event", "name": "replica-start", "replica": slot,
+                              "generation": gen, "membership_epoch": self.table.epoch})
         return times
 
     def warmup(self) -> dict:
@@ -396,9 +402,10 @@ class ReplicaSet:
         return agg
 
     def close(self) -> dict:
-        """Stop the supervisor, close every replica, and check that none
-        built or loaded a kernel library after its warmup; returns
-        :meth:`summary`."""
+        """Stop the supervisor, close every replica (each appends its own
+        ``serve_summary`` row), append the fleet's row and close the shared
+        sink once, and check that no replica built or loaded a kernel
+        library after its warmup; returns :meth:`summary`."""
         self._supervisor_stop.set()
         if self._supervisor.is_alive():
             self._supervisor.join(5.0)
@@ -407,6 +414,9 @@ class ReplicaSet:
         for eng in engines:
             eng.close()
         summary = self.summary()
+        if self.sink is not None:
+            self.sink.append(summary)
+            self.sink.close()
         self.assert_no_compiles()
         return summary
 

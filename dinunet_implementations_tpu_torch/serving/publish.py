@@ -33,8 +33,8 @@ serving side of that wire:
      by real SLO damage, never by bucket quantization.
 
 Every attempt appends one ``publish`` row (and each rollback verdict one
-``rollback`` row) to :attr:`PublishController.history`; a telemetry sink
-for them is ROADMAP A12 (b). :class:`PublishDaemon` wires the watcher and the
+``rollback`` row) to :attr:`PublishController.history`, and to the
+telemetry sink when one is given. :class:`PublishDaemon` wires the watcher and the
 controller to a clock; the controller's methods stay directly callable.
 """
 
@@ -87,23 +87,21 @@ class CheckpointWatcher:
 class PublishController:
     """See module docstring. ``target`` is an engine or fleet; ``bus`` must
     be the SAME bus its request path publishes latencies to (the rollback
-    window reads it). ``sink`` exists for the JAX signature and must be
-    None (ROADMAP A12 (b))."""
+    window reads it). ``sink`` (a ``telemetry.sink.FitTelemetry``) takes
+    each ``publish`` and ``rollback`` row."""
 
     def __init__(self, target, *, bus, sink=None,
                  p99_target_ms: float = 50.0, budget: float = SLO_BUDGET,
                  rollback_burn: float = 1.0, min_window_samples: int = 20,
                  max_shadow_delta: float | None = None,
                  hist_name: str = "serving_request_latency_ms"):
-        if sink is not None:
-            raise NotImplementedError("PublishController sink is not ported: ROADMAP A12 (b) "
-                                      "(the serving plane's sinks)")
         if rollback_burn <= 0:
             raise ServingError(
                 f"rollback_burn must be positive, got {rollback_burn}"
             )
         self.target = target
         self.bus = bus
+        self.sink = sink
         self.p99_target_ms = float(p99_target_ms)
         self.budget = float(budget)
         self.rollback_burn = float(rollback_burn)
@@ -191,6 +189,8 @@ class PublishController:
 
     def _record(self, row: dict) -> dict:
         self.history.append(row)
+        if self.sink is not None:
+            self.sink.append(row)
         self.bus.counter(
             "serving_publish_total",
             outcome=row.get("outcome", row["kind"]),

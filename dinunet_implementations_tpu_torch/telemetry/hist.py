@@ -240,3 +240,14 @@ class LogHistogram:
         if out.count:
             out.min, out.max = self.min, self.max
         return out
+
+    def cumulative(self) -> list:
+        """``[(le_edge, cumulative_count), ...]`` ending with ``(inf, count)``:
+        the ``_bucket{le=...}`` series of the Prometheus histogram type."""
+        out = []
+        running = 0
+        for i, c in enumerate(self.counts):
+            running += c
+            le = self.bounds[i] if i < len(self.bounds) else math.inf
+            out.append((le, running))
+        return out

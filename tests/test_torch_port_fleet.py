@@ -31,9 +31,7 @@ ICA = dict(num_components=3, window_size=4, temporal_size=32, window_stride=4, i
            hidden_size=6, bidirectional=False)
 FLEET = dict(row_buckets=(1, 2, 4), stream_buckets=(1, 2), stream_chunk=4, stream_slots=4,
              max_delay_ms=1.0, supervise_interval_s=0.05)
-# keys of JAX's status and summary that carry its telemetry (the traces a
-# checkpoint's meta embeds; ROADMAP A12), and the keys the port adds
-TELEMETRY_ONLY = {"checkpoint_traces"}
+# the keys the port's status and summary add to JAX's
 PORT_ONLY = {"device", "pad_rows"}
 
 
@@ -251,7 +249,7 @@ def test_status_and_summary_carry_jaxs_keys(env):
     for part in ("status", "summary"):
         assert ours[part] == theirs[part], part
     for part in ("replica_status", "replica_summary"):
-        assert theirs[part] - TELEMETRY_ONLY <= ours[part], part
+        assert theirs[part] <= ours[part], part
         assert ours[part] - theirs[part] <= PORT_ONLY, part
     assert ours["membership"] == theirs["membership"]
     assert ours["probes"] == theirs["probes"]
@@ -263,9 +261,23 @@ def test_fleet_refusals(env):
         ReplicaSet(tcfg, replicas=0, params={}, devices=["cpu"])
     with pytest.raises(ServingError, match="checkpoint path or explicit"):
         ReplicaSet(tcfg, replicas=1, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        ReplicaSet(tcfg, replicas=1, params=params, batch_stats=stats, devices=["cpu"],
-                   sink=object())
+    # the shared sink runs (refused before the live plane was ported): a
+    # replica-start row, then the replica's and the fleet's summaries
+    rows = _Rows()
+    with ReplicaSet(tcfg, replicas=1, params=params, batch_stats=stats, devices=["cpu"],
+                    sink=rows, row_buckets=(1,)) as traced:
+        traced.warmup()
+    assert [r["kind"] for r in rows] == ["event", "serve_summary", "serve_summary"]
+    assert rows[0]["name"] == "replica-start" and rows.closed == 1
     fleet = ReplicaSet(tcfg, replicas=1, params=params, batch_stats=stats, devices=["cpu"])
     with pytest.raises(ServingError, match="warmup"):
         fleet.submit(np.zeros((1, 8, 3, 4), np.float32))
+
+
+class _Rows(list):
+    """A sink that keeps its rows and counts its closes."""
+
+    closed = 0
+
+    def close(self):
+        self.closed += 1

@@ -343,8 +343,11 @@ def test_publish_daemon_swaps_a_checkpoint_announced_with_jaxs_digest(fs_env, tm
         # the same weights announced again: stale by the port's own digest
         assert pc.publish(*eng.weights(), digest=params_digest(*eng.weights()))["outcome"] \
             == "rejected-stale"
-    with pytest.raises(NotImplementedError, match="A12"):
-        PublishController(eng, bus=bus, sink=[])
+        # the sink takes every row (refused before the live plane was ported)
+        rows = []
+        PublishController(eng, bus=bus, sink=rows).publish(
+            *eng.weights(), digest=params_digest(*eng.weights()))
+        assert [r["kind"] for r in rows] == ["publish"]
     with pytest.raises(ServingError):
         PublishController(eng, bus=bus, rollback_burn=0.0)
 

@@ -214,7 +214,8 @@ def test_importing_the_port_pulls_in_no_jax():
     )
     for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal",
                 "robustness.faults", "robustness.attacks", "privacy.accounting",
-                "privacy.dpsgd", "privacy.personalize", "privacy.secure_agg"):
+                "privacy.dpsgd", "privacy.personalize", "privacy.secure_agg",
+                "telemetry.flight", "telemetry.exporter", "serving.__main__"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -241,7 +242,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                  "data/multimodal.py", "robustness/faults.py", "robustness/attacks.py",
                  "robustness/health.py", "parallel/collectives.py", "privacy/__init__.py",
                  "privacy/accounting.py", "privacy/dpsgd.py", "privacy/personalize.py",
-                 "privacy/secure_agg.py"):
+                 "privacy/secure_agg.py", "telemetry/flight.py", "telemetry/exporter.py",
+                 "serving/__main__.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

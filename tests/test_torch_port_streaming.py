@@ -35,6 +35,7 @@ from dinunet_implementations_tpu_torch.serving import (
     SessionTable,
     init_carry_table,
 )
+from dinunet_implementations_tpu_torch.telemetry import SpanTracer
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import params_from_jax
 
@@ -336,9 +337,27 @@ def test_stream_refusals(weights, engine):
         assert not eng.streaming
         with pytest.raises(ServingError, match="bidirectional"):
             eng.stream("s", _seq()[:4])
-    for kw in ({"tracer": object()}, {"sink": object()}):
-        with pytest.raises(NotImplementedError, match=r"A12 \(b\)"):
-            InferenceEngine(_tcfg(), params=params, batch_stats=stats, device="cpu", **kw)
+    # the tracer and the sink run (they were refused before the live plane
+    # was ported): a span and a dispatch row a streaming dispatch
+    tracer, rows = SpanTracer(), _Rows()
+    with InferenceEngine(_tcfg(), params=params, batch_stats=stats, device="cpu",
+                         row_buckets=(2,), tracer=tracer, sink=rows) as eng:
+        eng.warmup()
+        fut = eng.stream("traced", _seq()[:4], trace_id="t-stream")
+        fut.result(timeout=60)
+    spans = [e for e in tracer.events() if e.get("name") == "serve-stream"]
+    assert spans and spans[0]["trace_ids"] == ["t-stream"]
+    assert [r["kind"] for r in rows] == ["dispatch", "serve_summary"] and rows.closed
+    assert rows[0]["lane"] == "stream" and rows[0]["trace_ids"] == ["t-stream"]
+
+
+class _Rows(list):
+    """A sink that keeps its rows."""
+
+    closed = False
+
+    def close(self):
+        self.closed = True
 
 
 def test_registry_streams_only_the_unidirectional_ica_model():

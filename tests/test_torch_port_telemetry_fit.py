@@ -5,7 +5,8 @@ against the JAX package's contracts: the artifacts of a telemetry-on fit
 JAX's by exactly its two version keys), the privacy block against JAX's
 ``privacy_manifest``, a telemetry-off fit, a preempted fit, the report CLI,
 the profiler options, the compile cache, the sanitizer around the runners
-and the command line, and the refusals that stay (ROADMAP A12 (b)).
+and the command line, and the live options that ROADMAP A12 (b) refused
+before it was ported.
 
 The fits are JAX's telemetry corner (tests/test_telemetry.py ``_fit``:
 MSANNet 6→8→2 over toy sites) and a small FS tree through the runners and
@@ -39,7 +40,13 @@ from dinunet_implementations_tpu_torch.robustness.preemption import Preempted
 from dinunet_implementations_tpu_torch.runner import cli as tcli
 from dinunet_implementations_tpu_torch.runner import fed_runner as trunner
 from dinunet_implementations_tpu_torch.serving import InferenceEngine
-from dinunet_implementations_tpu_torch.telemetry import MetricsBus, report, sink, xprof
+from dinunet_implementations_tpu_torch.telemetry import (
+    FlightRecorder,
+    MetricsBus,
+    report,
+    sink,
+    xprof,
+)
 from dinunet_implementations_tpu_torch.trainer import loop as tloop
 
 D = 6
@@ -267,17 +274,35 @@ def test_compile_cache_dir_moves_the_library_root(monkeypatch, tmp_path):
         assert _build.BUILD_ROOT == (tmp_path / "kc2").resolve()
 
 
-def test_serving_and_daemon_refusals_name_a12_b(tmp_path):
-    """What stays refused names ROADMAP A12 (b): the daemon's flight
-    recorder, sinks and a telemetry-on daemon; the CLI's /statusz and SLO
-    flags."""
-    for kw in ({"flight": object()}, {"sink_tags": {"tenant": "a"}}, {"telemetry": "on"}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A12 \(b\)"):
-            trunner.FedDaemon(TrainConfig(), capacity=2, spool_dir=str(tmp_path / "sp"),
-                              device="cpu", **kw)
+def test_serving_and_daemon_refusals_name_a12_b(tmp_path, capsys):
+    """What ROADMAP A12 (b) refused now runs: a daemon with its own flight
+    recorder, sink tags and telemetry on, and the CLI's ``--statusz-port``
+    and ``--slo-p99-ms`` with ``--serve``. ``--schedule`` stays refused,
+    naming A19, with ``--statusz-port`` too (the pod collector)."""
     tree = tdemo.make_fs_demo_tree(str(tmp_path / "tree"), **FS_TREE)
-    for extra in (["--statusz-port", "9"], ["--slo-p99-ms", "5"]):
-        with pytest.raises(SystemExit, match=r"ROADMAP A12 \(b\)"):
+    bus = MetricsBus()
+    flight = FlightRecorder(str(tmp_path / "flight"), bus=bus)
+    d = trunner.FedDaemon(TrainConfig(telemetry="on"), capacity=2, data_path=tree,
+                          out_dir=str(tmp_path / "d"), device="cpu", bus=bus, flight=flight,
+                          sink_tags={"tenant": "a"}, verbose=False)
+    assert d.flight is flight and d.serve(max_epochs=1)["epochs_run"] == 1
+    assert "serve-epoch" in {e["name"] for e in flight.recent()}
+    serve_dir = str(tmp_path / "d" / "telemetry" / "serve")
+    assert report.validate_fit(serve_dir) == []
+    with open(os.path.join(serve_dir, sink.MANIFEST_FILE)) as fh:
+        assert json.load(fh)["tags"] == {"tenant": "a"}
+    assert "epoch" in {e.get("name") for e in report._load_trace(serve_dir)}
+    capsys.readouterr()
+    assert tcli.main(["--data-path", tree, "--device", "cpu", "--serve", "--serve-epochs", "1",
+                      "--out-dir", str(tmp_path / "c"), "--statusz-port", "0",
+                      "--slo-p99-ms", "5"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    assert lines[0]["statusz"].startswith("http://127.0.0.1:")
+    assert lines[0]["endpoints"] == ["/metrics", "/healthz", "/statusz", "/tracez"]
+    assert lines[-1]["epochs_run"] == 1
+    for extra in (["--schedule"], ["--schedule", "--statusz-port", "0"]):
+        with pytest.raises(SystemExit, match=r"--schedule is not ported: ROADMAP A19 \(b\)"):
             tcli.main(["--data-path", tree, "--device", "cpu"] + extra)
 
 
