@@ -280,7 +280,31 @@ result line:
    own with ``--compile-cache`` at a copy of phase 2's libraries (builds
    nothing, loads every library from the copy) and ``--sanitize
    compile,nans``;
-21. one JSON line of per-kernel numbers, then the result line.
+21. the live plane and the serving CLI at full width, on a tree of phase
+   18's shape (6 sites of 40 subjects): (a) a flagship ICA checkpoint
+   (2 x 174, random weights from seed 0) through ``python -m
+   dinunet_implementations_tpu_torch.serving``'s ``main`` in this process
+   with ``--smoke 60 --statusz-port 0 --linger-s 2 --sanitize compile``:
+   a thread scrapes ``/metrics`` (the Prometheus text must parse),
+   ``/healthz`` (200), ``/statusz`` (the SLO's samples equal to the
+   requests served) and ``/tracez`` (``serve-infer`` spans) during the
+   linger and times a flight dump; K1 twice a batched dispatch on the
+   cluster route, no kernel library built or loaded after warmup, the
+   report's ``--validate`` at rc 0; the host ms of a one-row request with
+   the tracer and sink on against off, in turns; (b) phase 15's
+   unidirectional checkpoint (H = 348) through the same CLI with
+   ``--replicas 2`` and a script of infer, stream, swap, rollback_check
+   and kill_replica: K1 on its stream route only, once a batched dispatch
+   and twice a shadow-scored batch, the rows labelled by replica, no
+   library loaded by the swap or the restart; (c) the command line's
+   daemon (rankDAD, ``--serve --serve-epochs 3 --statusz-port 0
+   --slo-p99-ms 500``) with telemetry on and off: state and losses equal
+   bit for bit, the same launches an epoch (K1 and K2 on the cluster
+   route, K7 staged, no plain class), the endpoints after epoch 2; a
+   telemetry-on daemon in a process of its own sent SIGTERM after epoch 1
+   leaves ``flight_<pid>.json`` with the final spans and the bus. One
+   ``live plane:`` JSON line of the part's numbers;
+22. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -5305,6 +5329,558 @@ def telemetry_phase(torch, np, lc, pc, bc, smi: str, tree: str, root: str) -> di
     return {"pairs": pairs, "cost": cost, "fit": fit, "cli": cli, "seconds": seconds}
 
 
+# -- phase 21: the live plane and the serving CLI -------------------------------------
+
+# (a): the flagship's serving CLI run; (b): the unidirectional fleet's
+# script; (c): the daemon's epochs, telemetry on and off; the SIGTERM run
+# stops after its first epoch
+LIVE_SMOKE, LIVE_LINGER_S, LIVE_SLO_MS = 60, 2.0, 500.0
+LIVE_DAEMON_EPOCHS = 3
+LIVE_ENDPOINTS = ("/metrics", "/healthz", "/statusz", "/tracez")
+# requests a sequential run of the dispatch-cost arms (one row each)
+LIVE_COST_REQUESTS = 40
+# (b)'s script: batched and streaming requests (sessions s0 and s4 are at
+# home on replicas 0 and 1, by crc32), a swap to a second checkpoint, a
+# rollback verdict over the requests after it, a replica killed and
+# restarted, more requests
+LIVE_SCRIPT = (
+    [{"op": "infer", "n": 4, "rows": 1}, {"op": "infer", "n": 2, "rows": 4},
+     {"op": "infer", "n": 1, "rows": 16}, {"op": "drain"},
+     {"op": "stream", "session": "s0", "windows": 8},
+     {"op": "stream", "session": "s4", "windows": 5},
+     {"op": "stream", "session": "s0", "windows": 3}, {"op": "drain"},
+     {"op": "swap", "checkpoint": "CANDIDATE"},
+     {"op": "infer", "n": 6, "rows": 2}, {"op": "stream", "session": "s4", "windows": 4},
+     {"op": "drain"}, {"op": "rollback_check"}, {"op": "kill_replica", "slot": 0},
+     {"op": "infer", "n": 3, "rows": 1}, {"op": "stream", "session": "s0", "windows": 2},
+     {"op": "drain"}])
+_PROM_LINE = None
+
+
+def prometheus_problems(text: str) -> list:
+    """Lines of a Prometheus text exposition (0.0.4) that do not parse: each
+    line a ``# TYPE`` line or ``name{labels} value``."""
+    import re
+
+    global _PROM_LINE
+    if _PROM_LINE is None:
+        _PROM_LINE = (re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)$"),
+                      re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="'
+                                 r'(\\.|[^"\\])*",?)*\})? (-?[0-9.e+-]+|NaN|[+-]Inf)$'))
+    typ, sample = _PROM_LINE
+    if not text.endswith("\n"):
+        return ["no final newline"]
+    return [ln for ln in text.splitlines() if ln and not (typ.match(ln) or sample.match(ln))]
+
+
+def live_get(url: str) -> tuple:
+    """One GET: (status, body, ms)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            code, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def live_scrape(exporter) -> dict:
+    """Each endpoint of a running exporter once: the payloads and the ms."""
+    out = {}
+    for path in LIVE_ENDPOINTS:
+        code, body, ms = live_get(exporter.url(path))
+        out[path] = {"code": code, "ms": ms,
+                     "body": body if path == "/metrics" else json.loads(body)}
+    return out
+
+
+class LiveHooks:
+    """The serving and daemon entry points watched from outside, for one
+    run: the exporter the CLI starts, the kernel counters zeroed after each
+    engine's warmup (the launches of a restarted replica's warmup are kept
+    apart), the builds and loads since the first warmup, the end of the
+    request script, and each daemon epoch's launches, loss and ms."""
+
+    def __init__(self, torch, lc, pc, bc):
+        from dinunet_implementations_tpu_torch.ops import _build
+        from dinunet_implementations_tpu_torch.runner.fed_runner import FedDaemon
+        from dinunet_implementations_tpu_torch.serving import InferenceEngine
+        from dinunet_implementations_tpu_torch.serving import __main__ as serving_cli
+        from dinunet_implementations_tpu_torch.telemetry.exporter import StatusExporter
+
+        self.torch, self.lc, self.pc, self.bc, self._build = torch, lc, pc, bc, _build
+        self.exporters, self.daemons, self.epochs = [], [], []
+        self.warm_launches = {}
+        self.builds_at_warmup = None
+        self.script_done = threading.Event()
+        self.on_script_done = None
+        self.after_epoch = None
+        self._patched = [(StatusExporter, "start"), (InferenceEngine, "warmup"),
+                         (serving_cli, "run_script"), (FedDaemon, "train_epoch"),
+                         (FedDaemon, "serve")]
+        self._saved = [getattr(o, n) for o, n in self._patched]
+        hooks = self
+        start, warmup, run_script, train_epoch, serve = self._saved
+
+        def start_(exporter):
+            port = start(exporter)
+            hooks.exporters.append(exporter)
+            return port
+
+        def warmup_(engine):
+            torch.cuda.synchronize()
+            before = read_counters(lc, pc, bc)
+            times = warmup(engine)
+            torch.cuda.synchronize()
+            after = read_counters(lc, pc, bc)
+            for k in after:
+                hooks.warm_launches[k] = hooks.warm_launches.get(k, 0) + after[k] - before[k]
+            if hooks.builds_at_warmup is None:
+                hooks.builds_at_warmup = (_build.BUILDS, _build.LOADS)
+            return times
+
+        def run_script_(*args, **kw):
+            fired = run_script(*args, **kw)
+            hooks.script_done.set()
+            if hooks.on_script_done is not None:
+                hooks.on_script_done()
+            return fired
+
+        def train_epoch_(daemon):
+            torch.cuda.synchronize()
+            zero_counters(lc, pc, bc)
+            t0 = time.perf_counter()
+            loss = train_epoch(daemon)
+            torch.cuda.synchronize()
+            hooks.epochs.append({"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+                                 "launches": read_counters(lc, pc, bc)})
+            if hooks.after_epoch is not None:
+                hooks.after_epoch(daemon)
+            return loss
+
+        def serve_(daemon, *args, **kw):
+            hooks.daemons.append(daemon)
+            return serve(daemon, *args, **kw)
+
+        for (owner, name), fn in zip(self._patched, (start_, warmup_, run_script_,
+                                                     train_epoch_, serve_)):
+            setattr(owner, name, fn)
+
+    def launches(self) -> dict:
+        """The counters since they were zeroed, less every warmup's."""
+        got = read_counters(self.lc, self.pc, self.bc)
+        return {k: v - self.warm_launches.get(k, 0) for k, v in got.items()}
+
+    def builds_after_warmup(self) -> dict:
+        b0, l0 = self.builds_at_warmup
+        return {"kernel_builds": self._build.BUILDS - b0, "kernel_loads": self._build.LOADS - l0}
+
+    def close(self) -> None:
+        for (owner, name), fn in zip(self._patched, self._saved):
+            setattr(owner, name, fn)
+
+
+def live_serving_cli(torch, hooks, argv: list) -> dict:
+    """One in-process run of the serving CLI from a zeroed set of counters
+    and a fresh process bus; its exit code and its metrics rows."""
+    from dinunet_implementations_tpu_torch.serving import __main__ as serving_cli
+    from dinunet_implementations_tpu_torch.telemetry import global_bus
+    from dinunet_implementations_tpu_torch.telemetry.sink import METRICS_FILE, load_metrics
+
+    global_bus().reset()
+    torch.cuda.synchronize()
+    zero_counters(hooks.lc, hooks.pc, hooks.bc)
+    t0 = time.perf_counter()
+    rc = serving_cli.main(argv)
+    torch.cuda.synchronize()
+    out = argv[argv.index("--out-dir") + 1]
+    rows = load_metrics(os.path.join(out, "telemetry", "serving", METRICS_FILE))
+    return {"rc": rc, "seconds": time.perf_counter() - t0, "rows": rows,
+            "launches": hooks.launches()}
+
+
+def live_dispatch_cost(torch, np, cfg, ckpt: str, root: str) -> dict:
+    """The host ms of a one-row request (one dispatch) with the tracer and
+    the sink on against the engine without them, in turns (off, on, on,
+    off), and the host µs of one span and one dispatch row alone."""
+    from dinunet_implementations_tpu_torch import InferenceEngine
+    from dinunet_implementations_tpu_torch.telemetry import SpanTracer
+    from dinunet_implementations_tpu_torch.telemetry.sink import FitTelemetry
+
+    tracer = SpanTracer()
+    sink = FitTelemetry.open(os.path.join(root, "live_cost"), cfg, tracer=tracer,
+                             device=torch.device("cuda"))
+    engines = {"off": InferenceEngine(cfg, checkpoint=ckpt, row_buckets=(1,)),
+               "on": InferenceEngine(cfg, checkpoint=ckpt, row_buckets=(1,), tracer=tracer,
+                                     sink=sink)}
+    x = np.random.default_rng(21).standard_normal((1, *engines["on"].sample_shape)).astype(
+        np.float32)
+    ms = {"off": [], "on": []}
+    try:
+        for eng in engines.values():
+            eng.warmup()
+            eng.submit(x).result(timeout=120)
+        for arm in ("off", "on", "on", "off"):
+            for _ in range(LIVE_COST_REQUESTS // 2):
+                t0 = time.perf_counter()
+                engines[arm].submit(x).result(timeout=120)
+                ms[arm].append((time.perf_counter() - t0) * 1e3)
+        # a span and a dispatch row alone, into the open sink (the "on"
+        # engine's close closes it)
+        row = {"kind": "dispatch", "lane": "infer", "bucket": 1, "rows": 1, "pad_rows": 0,
+               "queue_depth": 0, "trace_ids": ["0123456789abcdef"]}
+        t0 = time.perf_counter()
+        for _ in range(200):
+            with tracer.span("serve-infer", bucket=1, rows=1, trace_ids=row["trace_ids"]):
+                pass
+            sink.append(row)
+        alone_us = (time.perf_counter() - t0) / 200 * 1e6
+    finally:
+        for eng in engines.values():
+            eng.close()
+    return {"request_ms_off_p50": statistics.median(ms["off"]),
+            "request_ms_on_p50": statistics.median(ms["on"]),
+            "request_ms_off_mean": statistics.fmean(ms["off"]),
+            "request_ms_on_mean": statistics.fmean(ms["on"]),
+            "span_and_row_host_us": alone_us, "requests_an_arm": len(ms["on"])}
+
+
+def live_flagship(torch, np, hooks, smi: str, tree: str, root: str) -> dict:
+    """(a): the flagship ICA checkpoint (2 x 174) through the serving CLI
+    with --smoke, --statusz-port 0, --linger-s and --sanitize compile; the
+    endpoints scraped during the linger; the report's --validate."""
+    from dinunet_implementations_tpu_torch.checks.sanitize import ENV_VAR
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.telemetry import report
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+    ckpt = os.path.join(root, "live_flagship", "checkpoint.msgpack")
+    plane_checkpoint(torch, cfg, ckpt)
+    out = os.path.join(root, "live_a")
+    scraped = {}
+
+    def scrape():
+        # the linger: wait until the last dispatch has recorded its
+        # requests, then each endpoint once and a flight dump
+        ex = hooks.exporters[-1]
+        deadline = time.monotonic() + LIVE_LINGER_S / 2
+        while time.monotonic() < deadline:
+            st = json.loads(live_get(ex.url("/statusz"))[1])
+            if st["status"]["requests"] == LIVE_SMOKE and st["slo"]["samples"] == LIVE_SMOKE:
+                break
+            time.sleep(0.01)
+        scraped.update(live_scrape(ex))
+        t0 = time.perf_counter()
+        scraped["flight_dump"] = {"path": ex.flight.dump("probe"),
+                                  "ms": (time.perf_counter() - t0) * 1e3}
+
+    scraper = threading.Thread(target=scrape, name="live-scraper", daemon=True)
+    hooks.on_script_done = scraper.start
+    env = os.environ.get(ENV_VAR)
+    try:
+        run = live_serving_cli(torch, hooks, [
+            "--data-path", tree, "--task", NNComputation.TASK_ICA, "--checkpoint", ckpt,
+            "--out-dir", out, "--smoke", str(LIVE_SMOKE), "--statusz-port", "0",
+            "--linger-s", str(LIVE_LINGER_S), "--sanitize", "compile", "--quiet"])
+        scraper.join(timeout=30)
+    finally:
+        hooks.on_script_done = None
+        if env is None:
+            os.environ.pop(ENV_VAR, None)
+        else:
+            os.environ[ENV_VAR] = env
+    summary = run["rows"][-1]
+    dispatches = [r for r in run["rows"] if r["kind"] == "dispatch"]
+    launches = run["launches"]
+    statusz = scraped.get("/statusz", {}).get("body", {})
+    tracez = scraped.get("/tracez", {}).get("body", {})
+    rec = {"rc": run["rc"], "seconds": run["seconds"], "requests": summary.get("requests"),
+           "dispatches": summary.get("dispatches"), "dispatch_rows": len(dispatches),
+           "latency_ms_p50": summary.get("latency_ms_p50"),
+           "latency_ms_p99": summary.get("latency_ms_p99"),
+           "requests_per_s": summary.get("requests_per_s"),
+           "compiles_after_warmup": summary.get("compiles_after_warmup"),
+           "builds_after_warmup": hooks.builds_after_warmup(),
+           "launches": launches,
+           "scrape_ms": {p: scraped[p]["ms"] for p in LIVE_ENDPOINTS if p in scraped},
+           "scrape_codes": {p: scraped[p]["code"] for p in LIVE_ENDPOINTS if p in scraped},
+           "prometheus_problems": prometheus_problems(scraped["/metrics"]["body"])
+           if "/metrics" in scraped else ["not scraped"],
+           "slo": statusz.get("slo"),
+           "statusz_requests": statusz.get("status", {}).get("requests"),
+           "tracez_serve_infer": sum(e.get("name") == "serve-infer"
+                                     for e in tracez.get("recent", [])),
+           "flight_dump_ms": scraped.get("flight_dump", {}).get("ms"),
+           "validate_rc": report.main(["--validate",
+                                       os.path.join(out, "telemetry", "serving")])}
+    rec["dispatch_cost"] = live_dispatch_cost(torch, np, cfg, ckpt, root)
+    print(f"live plane (a): the flagship through the serving CLI on {smi}:", json.dumps(rec))
+    want_k1 = 2 * rec["dispatches"] if rec["dispatches"] else -1
+    if rec["rc"] != 0 or rec["requests"] != LIVE_SMOKE or rec["dispatch_rows"] != rec["dispatches"]:
+        fail(f"the serving CLI's flagship run: {rec}")
+    if launches["lstm_fwd"] != want_k1 or launches["k1_cluster_route"] != want_k1 \
+            or launches["k1_stream_route"] != 0 or launches["lstm_proj"] != want_k1:
+        fail(f"K1 wants 2 launches a batched dispatch on the cluster route: {launches}")
+    if rec["compiles_after_warmup"] != 0 or any(rec["builds_after_warmup"].values()):
+        fail(f"the serving CLI built or loaded a kernel library after warmup: {rec}")
+    if rec["scrape_codes"] != {p: 200 for p in LIVE_ENDPOINTS} or rec["prometheus_problems"]:
+        fail(f"the endpoints during the linger: {rec}")
+    if not rec["slo"] or rec["slo"]["samples"] != rec["requests"] \
+            or rec["statusz_requests"] != rec["requests"]:
+        fail(f"the /statusz SLO's samples against the requests served: {rec}")
+    if rec["tracez_serve_infer"] < 1 or rec["flight_dump_ms"] is None \
+            or rec["validate_rc"] != 0:
+        fail(f"/tracez, the flight dump or the report's --validate: {rec}")
+    return rec
+
+
+def live_fleet(torch, np, hooks, smi: str, tree: str, root: str) -> dict:
+    """(b): phase 15's unidirectional checkpoint (H = 348) through the same
+    CLI with --replicas 2 and LIVE_SCRIPT: K1 on its stream route only, one
+    launch a batched dispatch and two a shadow-scored batch; the rows
+    labelled by replica; no library loaded by the swap or the restart."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.telemetry import report
+
+    cfg = plane_cfg()
+    ckpt = os.path.join(root, "live_uni", "checkpoint.msgpack")
+    cand = os.path.join(root, "live_uni", "candidate.msgpack")
+    plane_checkpoint(torch, cfg, ckpt)
+    plane_checkpoint(torch, cfg.replace(seed=1), cand)
+    script = os.path.join(root, "live_uni", "script.jsonl")
+    with open(script, "w") as fh:
+        for op in LIVE_SCRIPT:
+            fh.write(json.dumps({**op, "checkpoint": cand} if op["op"] == "swap" else op) + "\n")
+    out = os.path.join(root, "live_b")
+    run = live_serving_cli(torch, hooks, [
+        "--data-path", tree, "--task", NNComputation.TASK_ICA, "--checkpoint", ckpt,
+        "--set", 'ica_args={"bidirectional": false}', "--out-dir", out, "--replicas", "2",
+        "--script", script, "--rollback-window", "4", "--quiet"])
+    rows = run["rows"]
+    dispatches = [r for r in rows if r["kind"] == "dispatch"]
+    infer = [r for r in dispatches if r["lane"] == "infer"]
+    publish = [r for r in rows if r["kind"] == "publish"]
+    shadow = sum((r.get("shadow") or {}).get("batches", 0) for r in publish)
+    launches = run["launches"]
+    want = len(infer) + 2 * shadow
+    fleet = rows[-1]
+    rec = {"rc": run["rc"], "seconds": run["seconds"], "dispatches": len(dispatches),
+           "infer_dispatches": len(infer), "shadow_batches": shadow,
+           "stream_dispatches": len(dispatches) - len(infer), "launches": launches,
+           "kinds": sorted({r["kind"] for r in rows}),
+           "replica_labels": sorted({str(r.get("replica")) for r in dispatches}),
+           "publish": [{k: r.get(k) for k in ("outcome", "pause_ms")} for r in publish],
+           "rollback": [{k: r.get(k) for k in ("burn", "rolled_back", "window_samples")}
+                        for r in rows if r["kind"] == "rollback"],
+           "restarts": fleet.get("restarts"), "requests": fleet.get("requests"),
+           "compiles_after_warmup": fleet.get("compiles_after_warmup"),
+           "builds_after_warmup": hooks.builds_after_warmup(),
+           "latency_ms_p50": fleet.get("latency_ms_p50"),
+           "latency_ms_p99": fleet.get("latency_ms_p99"),
+           "validate_rc": report.main(["--validate",
+                                       os.path.join(out, "telemetry", "serving")])}
+    print(f"live plane (b): the unidirectional fleet through the serving CLI on {smi}:",
+          json.dumps(rec))
+    if rec["rc"] != 0 or rec["validate_rc"] != 0 or rec["restarts"] != 1 \
+            or [p["outcome"] for p in rec["publish"]] != ["swapped"] or not rec["rollback"]:
+        fail(f"the serving CLI's fleet run: {rec}")
+    if launches["lstm_fwd"] != want or launches["k1_stream_route"] != want \
+            or launches["k1_cluster_route"] != 0 or not rec["stream_dispatches"]:
+        fail(f"K1 wants its stream route only, one launch a batched dispatch and two a "
+             f"shadow batch ({want}): {rec}")
+    if rec["replica_labels"] != ["0", "1"]:
+        fail(f"the dispatch rows are not labelled by replica: {rec}")
+    if rec["compiles_after_warmup"] != 0 or any(rec["builds_after_warmup"].values()):
+        fail(f"the swap or the restart built or loaded a kernel library: {rec}")
+    return rec
+
+
+def live_same(a, b) -> bool:
+    """Two state trees (dicts, tensors, numbers, None) equal bit for bit."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys()
+                and all(live_same(a[k], b[k]) for k in a))
+    if hasattr(a, "dtype") and hasattr(b, "dtype"):
+        return a.dtype == b.dtype and a.shape == b.shape and bool((a == b).all())
+    return a == b
+
+
+def live_daemon_run(torch, hooks, tree: str, out: str, telemetry: bool) -> dict:
+    """The runner CLI's daemon, rankDAD, LIVE_DAEMON_EPOCHS epochs, with the
+    exporter on; the endpoints scraped after epoch 2."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.runner import cli
+    from dinunet_implementations_tpu_torch.telemetry import global_bus
+
+    scraped = {}
+
+    def after(daemon):
+        if daemon.epochs_run == 2:
+            scraped.update(live_scrape(hooks.exporters[-1]))
+
+    global_bus().reset()
+    hooks.epochs.clear()
+    hooks.after_epoch = after
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["--data-path", tree, "--task", NNComputation.TASK_ICA, "--engine",
+                       "rankDAD", "--serve", "--serve-epochs", str(LIVE_DAEMON_EPOCHS),
+                       "--serve-poll", "0.01", "--out-dir", out, "--statusz-port", "0",
+                       "--slo-p99-ms", str(LIVE_SLO_MS), "--telemetry",
+                       "on" if telemetry else "off", "--quiet"])
+        seconds = time.perf_counter() - t0
+    finally:
+        hooks.after_epoch = None
+    return {"rc": rc, "seconds": seconds, "daemon": hooks.daemons[-1],
+            "epochs": [dict(e) for e in hooks.epochs], "scraped": scraped}
+
+
+def live_sigterm(smi: str, tree: str, out: str) -> dict:
+    """A telemetry-on daemon in a process of its own, sent SIGTERM once its
+    first epoch is checkpointed: it stops after the epoch in flight and
+    leaves ``flight_<pid>.json`` with the final spans and the bus."""
+    import signal
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.telemetry import flight_files
+
+    argv = ["--data-path", tree, "--task", NNComputation.TASK_ICA, "--engine", "rankDAD",
+            "--serve", "--serve-epochs", "50", "--serve-poll", "0.01", "--out-dir", out,
+            "--statusz-port", "0", "--slo-p99-ms", str(LIVE_SLO_MS), "--telemetry", "on",
+            "--quiet"]
+    code = ("import sys\nfrom dinunet_implementations_tpu_torch.runner import cli\n"
+            f"sys.exit(cli.main({argv!r}))\n")
+    ann = os.path.join(out, "serve", "publish.json")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    epoch, sent = 0, None
+    try:
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with open(ann) as fh:
+                    epoch = json.load(fh)["epoch"]
+            except (OSError, ValueError, KeyError):
+                pass
+            if epoch >= 1:
+                sent = time.perf_counter() - t0
+                proc.send_signal(signal.SIGTERM)
+                break
+            time.sleep(0.05)
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    dumps = flight_files(out)
+    payload = {}
+    if dumps:
+        with open(dumps[0]) as fh:
+            payload = json.load(fh)
+    names = [e.get("name") for e in payload.get("events", [])]
+    try:
+        summary = json.loads(stdout.strip().splitlines()[-1])
+    except (IndexError, ValueError):
+        summary = {}
+    rec = {"returncode": proc.returncode, "signal_sent_s": sent,
+           "seconds": time.perf_counter() - t0, "dumps": [os.path.basename(p) for p in dumps],
+           "pid": proc.pid, "reason": payload.get("reason"),
+           "events": len(names), "epoch_spans": names.count("epoch"),
+           "last_event": names[-1] if names else None,
+           "bus_epochs": (payload.get("bus") or {}).get("counters", {}).get(
+               "serve_epochs_total"),
+           "epochs_run": summary.get("epochs_run"), "preempted": summary.get("preempted")}
+    print(f"live plane (c): SIGTERM after epoch 1 on {smi}:", json.dumps(rec))
+    if proc.returncode != 0 or sent is None or rec["dumps"] != [f"flight_{proc.pid}.json"] \
+            or rec["reason"] != f"signal:{int(signal.SIGTERM)}" or rec["epoch_spans"] < 1 \
+            or rec["last_event"] != "signal" or not rec["bus_epochs"] or not rec["preempted"]:
+        fail(f"the daemon's flight dump on SIGTERM: {rec} {stderr[-4000:]}")
+    return rec
+
+
+def live_daemon(torch, hooks, smi: str, tree: str, root: str) -> dict:
+    """(c): the runner CLI's daemon over phase 18's tree, telemetry on and
+    off: the same state and losses bit for bit, the same launches an epoch
+    (K1 and K2 on the cluster route, K7 staged, no plain class), /healthz
+    200 and the SLO's samples an epoch; then the SIGTERM run."""
+    runs = {arm: live_daemon_run(torch, hooks, tree, os.path.join(root, f"live_c_{arm}"),
+                                 arm == "on") for arm in ("on", "off")}
+    on, off = runs["on"], runs["off"]
+    s_on, s_off = on["daemon"].state, off["daemon"].state
+    equal = {part: live_same(getattr(s_on, part), getattr(s_off, part))
+             for part in ("params", "batch_stats", "opt_state", "engine_state", "health")}
+    losses_equal = [e["loss"] for e in on["epochs"]] == [e["loss"] for e in off["epochs"]]
+    per_epoch = [e["launches"] for e in on["epochs"]]
+    statusz = on["scraped"].get("/statusz", {}).get("body", {})
+    rec = {"rc": [on["rc"], off["rc"]], "seconds": [on["seconds"], off["seconds"]],
+           "epoch_ms_on": [e["ms"] for e in on["epochs"]],
+           "epoch_ms_off": [e["ms"] for e in off["epochs"]],
+           "losses": [e["loss"] for e in on["epochs"]], "state_equal": equal,
+           "losses_equal": losses_equal, "launches_per_epoch": per_epoch,
+           "launches_equal": per_epoch == [e["launches"] for e in off["epochs"]],
+           "scrape_ms": {p: v["ms"] for p, v in on["scraped"].items()},
+           "scrape_codes": {p: v["code"] for p, v in on["scraped"].items()},
+           "slo": statusz.get("slo"),
+           "prometheus_problems": prometheus_problems(on["scraped"]["/metrics"]["body"])
+           if "/metrics" in on["scraped"] else ["not scraped"]}
+    print(f"live plane (c): the daemon through the command line, telemetry on and off, on "
+          f"{smi}:", json.dumps(rec, default=float))
+    if rec["rc"] != [0, 0] or len(per_epoch) != LIVE_DAEMON_EPOCHS:
+        fail(f"the command line's daemon: {rec}")
+    if not all(equal.values()) or not losses_equal or not rec["launches_equal"]:
+        fail(f"the daemon with telemetry on differs from off: {rec}")
+    for e in per_epoch:
+        if not (e["lstm_fwd"] > 0 and e["k1_cluster_route"] == e["lstm_fwd"]
+                and e["k1_stream_route"] == 0 and e["lstm_bwd"] > 0
+                and e["k2_cluster_route"] == e["lstm_bwd"] and e["poweriter"] > 0
+                and e["k7_staged_route"] == e["poweriter"]
+                and e["poweriter_plain_classes"] == 0):
+            fail(f"an epoch of the daemon off its routes: {e}")
+    if rec["scrape_codes"] != {p: 200 for p in LIVE_ENDPOINTS} or rec["prometheus_problems"] \
+            or not rec["slo"] or rec["slo"]["samples"] != 2:
+        fail(f"the daemon's endpoints after epoch 2: {rec}")
+    rec["sigterm"] = live_sigterm(smi, tree, os.path.join(root, "live_c_sigterm"))
+    return rec
+
+
+def live_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
+    """Phase 21 of the module docstring: the live plane and the serving CLI."""
+    t_phase = time.perf_counter()
+    tree = daemon_tree(os.path.join(root, "live_tree"))
+    hooks = LiveHooks(torch, lc, pc, bc)
+    try:
+        flagship = live_flagship(torch, np, hooks, smi, tree, root)
+        hooks.warm_launches, hooks.builds_at_warmup = {}, None
+        fleet = live_fleet(torch, np, hooks, smi, tree, root)
+        daemon = live_daemon(torch, hooks, smi, tree, root)
+    finally:
+        hooks.close()
+    rec = {"flagship": flagship, "fleet": fleet, "daemon": daemon,
+           "seconds": time.perf_counter() - t_phase}
+    cost = flagship["dispatch_cost"]
+    line = {
+        "card": smi,
+        "cli_latency_ms_p50": flagship["latency_ms_p50"],
+        "cli_latency_ms_p99": flagship["latency_ms_p99"],
+        "cli_requests_per_s": flagship["requests_per_s"],
+        "fleet_latency_ms_p50": fleet["latency_ms_p50"],
+        "fleet_latency_ms_p99": fleet["latency_ms_p99"],
+        "serving_scrape_ms": flagship["scrape_ms"], "daemon_scrape_ms": daemon["scrape_ms"],
+        "flight_dump_ms": flagship["flight_dump_ms"],
+        "request_ms_p50_tracer_sink_on": cost["request_ms_on_p50"],
+        "request_ms_p50_tracer_sink_off": cost["request_ms_off_p50"],
+        "span_and_row_host_us": cost["span_and_row_host_us"],
+        "daemon_epoch_ms_on": daemon["epoch_ms_on"], "daemon_epoch_ms_off": daemon["epoch_ms_off"],
+        "sigterm_s": daemon["sigterm"]["seconds"], "phase_seconds": rec["seconds"]}
+    print("live plane:", json.dumps(line, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -5416,6 +5992,12 @@ def main() -> int:
               "epochs against off, the on-card recompute and plain; a telemetry-on fit with "
               "an xprof window; the compile cache and the sanitizer on the command line")
         telemetry = telemetry_phase(torch, np, lc, pc, bc, smi, fit["tree"], root)
+
+        print("== 21. the live plane and the serving CLI at full width: the flagship "
+              "checkpoint through the serving CLI with the endpoints scraped; the "
+              "unidirectional checkpoint through a two-replica fleet script; the command "
+              "line's daemon with /statusz, telemetry on against off, and a SIGTERM")
+        live = live_phase(torch, np, lc, pc, bc, smi, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5490,6 +6072,11 @@ def main() -> int:
     by_path["telemetry_fit"] = telemetry["fit"]["launches"]["lstm_fwd"]
     bwd_by_path["telemetry_fit"] = telemetry["fit"]["launches"]["lstm_bwd"]
     k7_by_path["telemetry_fit"] = telemetry["fit"]["launches"]["poweriter"]
+    by_path["live_cli_flagship"] = live["flagship"]["launches"]["lstm_fwd"]
+    by_path["live_cli_fleet"] = live["fleet"]["launches"]["lstm_fwd"]
+    for name, bucket in (("lstm_fwd", by_path), ("lstm_bwd", bwd_by_path),
+                         ("poweriter", k7_by_path)):
+        bucket["live_daemon"] = sum(e[name] for e in live["daemon"]["launches_per_epoch"])
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
