@@ -74,11 +74,8 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import sys
-
-import numpy as np
 
 from ..core.config import AggEngine, NNComputation, TrainConfig
 
@@ -277,18 +274,6 @@ def _plans(args):
     return plans
 
 
-def _finite(value):
-    """``value`` with every non-finite float (nested in dicts and lists)
-    as None: strict JSON, as JAX's CLI prints the daemon's summary."""
-    if isinstance(value, float) or isinstance(value, np.floating):
-        return float(value) if math.isfinite(value) else None
-    if isinstance(value, dict):
-        return {k: _finite(v) for k, v in value.items()}
-    if isinstance(value, (list, tuple)):
-        return [_finite(v) for v in value]
-    return value
-
-
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     _refuse(args)
@@ -365,6 +350,8 @@ def main(argv: list[str] | None = None) -> int:
             if exporter is not None:
                 exporter.stop()
         daemon.flight.uninstall()
+        from ..telemetry.sink import _finite  # strict JSON, as JAX's CLI prints it
+
         print(json.dumps(_finite(summary), default=str))
         return 0
 
