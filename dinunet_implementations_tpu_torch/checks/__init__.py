@@ -1,7 +1,7 @@
 """Runtime checks of the port: the sanitizer (:mod:`.sanitize`), the
 counterpart of the JAX package's ``checks/sanitize.py``. The JAX package's
-static rules over jaxprs and its AST lint are not ported (ROADMAP A12,
-A19)."""
+static rules over jaxprs are JAX-specific and not ported; its AST lint
+is ROADMAP A19 (a)."""
 
 from .sanitize import (
     ALL_FLAGS,

@@ -20,8 +20,9 @@ Contract:
   (``bus.counter("serving_requests_total", lane="infer")``).
 
 One process-wide default lives behind :func:`global_bus`: a telemetry-on
-trainer publishes there when it is given no bus. The exporter that serves
-the bus over HTTP (``/metrics``, ``/statusz``) is ROADMAP A12 (b).
+trainer, the daemon and the serving CLI publish there when given no bus.
+:class:`~.exporter.StatusExporter` serves the bus over HTTP (``/metrics``,
+``/statusz``).
 """
 
 from __future__ import annotations
