@@ -12,6 +12,12 @@ keeps its own copy: it imports nothing of the JAX package.
 
 Resolution order, as in JAX: dataclass defaults < programmatic kwargs <
 per-site inputspec values.
+
+The reference's compatibility fields (``num_reducers``, ``pin_memory``,
+``num_workers``, ``dataloader_args``) load with JAX's defaults and change
+nothing, as in JAX; ``fused_poweriter`` takes None or True (rankDAD's power
+iteration is always the CUDA kernel on the card) and refuses False.
+:func:`export_compspec` emits the COINSTAC compspec of the GUI's fields.
 """
 
 from __future__ import annotations
@@ -192,6 +198,9 @@ class TrainConfig:
     task_id: str = NNComputation.TASK_FREE_SURFER
     mode: str = "train"  # train | test
     agg_engine: str = AggEngine.DECENTRALIZED_SGD
+    # the reference's reducer count: one card reduces in place, so it is read
+    # by nothing (JAX's is a no-op too)
+    num_reducers: int = 2
     batch_size: int = 16
     local_iterations: int = 1  # gradient accumulation steps per round
     learning_rate: float = 1e-3
@@ -204,6 +213,10 @@ class TrainConfig:
     # payload dtype of the gradient exchange: "32" | "16" (bfloat16) |
     # "16-ieee" (IEEE fp16, the reference's literal payload)
     precision_bits: str = "32"
+    # the reference's torch DataLoader knobs, read by nothing (as in JAX):
+    # the host pipeline does not pin its batches
+    pin_memory: bool = False
+    num_workers: int = 0
     patience: int = 35
     split_ratio: tuple = (0.8, 0.1, 0.1)
     num_folds: int | None = None  # k-fold CV; takes precedence over split_ratio
@@ -214,6 +227,9 @@ class TrainConfig:
     log_header: str = "loss|auc"
     # warm start: a checkpoint whose params (only) start the fit; "" = init
     pretrained_path: str = ""
+    # the reference's DataLoader arguments, read by nothing (drop_last is
+    # what the batching does anyway)
+    dataloader_args: dict = field(default_factory=lambda: {"train": {"drop_last": True}})
     seed: int = 0
     optimizer: str = "adam"
     fs_args: FSArgs = field(default_factory=FSArgs)
@@ -297,6 +313,17 @@ class TrainConfig:
     # personalized per-site heads: JAX path substrings of the leaves kept
     # out of the aggregation (e.g. ("cls_fc3",)); () is off
     personalize: tuple = ()
+    # rankDAD's power iteration: None (auto) and True run the CUDA kernel on
+    # the card; False asks for JAX's XLA loop, which has no counterpart here
+    fused_poweriter: bool | None = None
+
+    def __post_init__(self):
+        if self.fused_poweriter is False:
+            raise ValueError(
+                "fused_poweriter=False asks for the JAX package's XLA power-iteration loop, "
+                "which has no counterpart on the card: the port always runs rankDAD's power "
+                "iteration as its CUDA kernel on the card (its plain version on the CPU); "
+                "leave it None or True")
 
     def task_args(self):
         if self.task_id == NNComputation.TASK_FREE_SURFER:
@@ -326,7 +353,8 @@ class TrainConfig:
         ``ica_args``, ``smri3d_args``, ``multimodal_args``, or its compspec
         key such as ``FS-Classification_args``) merges into its block, and one under
         ``pretrain_args`` into that optional block (made on first use; flat
-        keys never reach it). Keys of neither are dropped, as in JAX."""
+        keys never reach it). Keys of neither are dropped, as in JAX; the
+        compatibility fields (module docstring) are fields, so they stay."""
         overrides = {_COMPSPEC_KEY_ALIASES.get(k, k): v for k, v in overrides.items()}
         flat = {k: _coerce(_TRAIN_FIELDS[k], v) for k, v in overrides.items()
                 if k in _TRAIN_FIELDS and k not in _BLOCK_FIELDS}
@@ -395,3 +423,108 @@ def resolve_site_configs(base: TrainConfig, dataset_dir: str,
         overrides = load_inputspec(spec_path)
     n = num_sites if num_sites is not None else len(overrides)
     return [base.with_overrides(overrides[i % len(overrides)]) for i in range(n)]
+
+
+# -- the compspec export (the GUI's metadata) -------------------------------
+
+#: GUI metadata for each flag: (type, source, group, order, conditional, label)
+#: — preserved from reference ``compspec.json`` so the schema can be re-emitted.
+COMPSPEC_META: dict[str, dict] = {
+    "task_id": dict(type="select", source="owner", group="NN Params", order=3,
+                    values=list(NNComputation.ALL),
+                    label="Pick a NN task:"),
+    "mode": dict(type="select", source="owner", group="NN Params", order=4,
+                 values=["train", "test"], label="NN Mode:"),
+    "agg_engine": dict(type="select", source="owner", group="NN Params", order=5,
+                       values=list(AggEngine.ALL),
+                       conditional=dict(variable="mode", value="train"),
+                       label="Pick aggregation engine:"),
+    "num_reducers": dict(type="number", source="owner", group="NN Params", order=6,
+                         label="Number of reducers in the aggregator(Depends on number of sites):"),
+    "batch_size": dict(type="number", source="owner", group="NN Params", order=7,
+                       label="Batch size:"),
+    "local_iterations": dict(
+        type="number", source="owner", group="NN Params", order=8,
+        label="Local gradient accumulation iterations"
+              "(effective batch size = batch size * gradient accumulation iterations)"),
+    "learning_rate": dict(type="number", source="owner", group="NN Params", order=9,
+                          conditional=dict(variable="mode", value="train"),
+                          label="Learning rate:"),
+    "epochs": dict(type="number", source="owner", group="NN Params", order=10,
+                   conditional=dict(variable="mode", value="train"), label="Epochs:"),
+    "pretrain": dict(type="boolean", source="owner", group="NN Params", order=11,
+                     label="Use the site with maximum data to pre-train locally as starting point:"),
+    "pretrain_args": dict(type="object", source="owner", group="NN Params", order=12,
+                          conditional=dict(variable="pretrain", value=True),
+                          label="Pretraining arguments:"),
+    "validation_epochs": dict(type="number", source="owner", group="NN Params", order=13,
+                              conditional=dict(variable="mode", value="train"),
+                              label="Run validation after every epochs:"),
+    "precision_bits": dict(type="select", source="owner", group="NN Params", order=14,
+                           # "16" = bfloat16; "16-ieee" = the reference's
+                           # literal fp16 payload (compat)
+                           values=["32", "16", "16-ieee"],
+                           conditional=dict(variable="mode", value="train"),
+                           label="Floating point precision for payload:"),
+    "pin_memory": dict(type="boolean", source="member", group="NN Params", order=15,
+                       label="Pin Memory:"),
+    "num_workers": dict(type="number", source="member", group="NN Params", order=16,
+                        label="Number of workers:"),
+    "patience": dict(type="number", source="owner", group="NN Params", order=17,
+                     conditional=dict(variable="mode", value="train"),
+                     label="Early stopping patience epochs:"),
+    "split_ratio": dict(type="object", source="owner", group="NN Params", order=21,
+                        label="Data split ratio for train, validation, test in the same order:"),
+    "num_folds": dict(type="number", source="owner", group="NN Params", order=22,
+                      label="Number of folds for K-Fold Cross Validation"
+                            "(Mutually exclusive with split ratio):"),
+    "fs_args": dict(type="object", source="owner", group="Computation", order=23,
+                    conditional=dict(variable="task_id", value="FS-Classification"),
+                    label="FreeSurfer classification parameters.",
+                    compspec_key="FS-Classification_args"),
+    "ica_args": dict(type="object", source="owner", group="Computation", order=26,
+                     conditional=dict(variable="task_id", value="ICA-Classification"),
+                     label="ICA classification parameters.",
+                     compspec_key="ICA-Classification_args"),
+    "smri3d_args": dict(type="object", source="owner", group="Computation", order=27,
+                        conditional=dict(variable="task_id", value="sMRI-3D-Classification"),
+                        label="3D sMRI classification parameters.",
+                        compspec_key="sMRI-3D-Classification_args"),
+    "multimodal_args": dict(type="object", source="owner", group="Computation", order=28,
+                            conditional=dict(variable="task_id", value="Multimodal-Classification"),
+                            label="Multimodal FS+ICA transformer parameters.",
+                            compspec_key="Multimodal-Classification_args"),
+}
+
+
+def export_compspec(cfg: TrainConfig | None = None) -> dict:
+    """A COINSTAC-style compspec dict (schema and defaults) of ``cfg``'s
+    GUI fields, JAX's ``export_compspec`` with the port's ``meta``."""
+    cfg = cfg or TrainConfig()
+    inputs: dict[str, Any] = {}
+    for name, meta in COMPSPEC_META.items():
+        default = getattr(cfg, name)
+        if dataclasses.is_dataclass(default):
+            default = dataclasses.asdict(default)
+        entry = {"default": _jsonable(default),
+                 **{k: v for k, v in meta.items() if k != "compspec_key"}}
+        inputs[meta.get("compspec_key", name)] = entry
+    return {
+        "meta": {
+            "name": "Decentralized Deep Artificial Neural Networks on one CUDA card",
+            "id": "dinunet-tpu-torch",
+            "version": "v1.0.0",
+            "repository": "local",
+            "description": "Federated NN training with every site on one CUDA device; "
+                           "hand-written CUDA kernels on the hot path.",
+        },
+        "computation": {"input": inputs, "output": {}, "type": "cuda"},
+    }
+
+
+def _jsonable(v):
+    if isinstance(v, tuple):
+        return [_jsonable(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _jsonable(x) for k, x in v.items()}
+    return v

@@ -15,9 +15,9 @@ sequence (tests), and ``sleep`` to observe or skip the waits.
   attempts remain, and every backoff sleep is capped to the remaining
   budget. Measured on ``clock`` (default ``time.monotonic``).
 - ``timeout_s`` — a per-attempt cap: the attempt runs on a worker thread and
-  a result that doesn't arrive in time raises :class:`RetryTimeout`, which
-  is always retryable. The abandoned attempt's thread cannot be killed and
-  may linger until its blocking call returns.
+  a result that doesn't arrive in time raises :class:`RetryTimeout`,
+  retryable unless ``retry_on_timeout=False``. The abandoned attempt's
+  thread cannot be killed and may linger until its blocking call returns.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _call_with_timeout(f, args, kwargs, timeout_s: float):
             result.append(f(*args, **kwargs))
         # not swallowed: relayed verbatim to the calling thread below (a
         # thread boundary cannot propagate exceptions any other way)
-        except Exception as e:
+        except Exception as e:  # jaxlint: disable=R002
             error.append(e)
 
     t = threading.Thread(target=run, daemon=True, name="with_retry-attempt")
@@ -80,6 +80,7 @@ def with_retry(
     describe: str | None = None,
     deadline_s: float | None = None,
     timeout_s: float | None = None,
+    retry_on_timeout: bool = True,
     clock=time.monotonic,
 ):
     """Wrap ``fn`` (decorator or call form) with jittered exponential backoff.
@@ -88,6 +89,11 @@ def with_retry(
     when ``timeout_s`` is set); anything else propagates immediately. After
     ``attempts`` failures — or, with ``deadline_s``, the first failure past
     the wall-clock budget — the last exception propagates.
+
+    ``retry_on_timeout=False`` makes a per-attempt timeout fatal instead of
+    retryable: the abandoned attempt's thread may still be mutating whatever
+    the call touches, and for non-reentrant global state a concurrent second
+    attempt would race it; there a timeout fails the operation.
     """
     if attempts < 1:
         raise ValueError(f"attempts must be >= 1, got {attempts}")
@@ -97,7 +103,8 @@ def with_retry(
         raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
 
     def deco(f):
-        catch = tuple(retry_on) + ((RetryTimeout,) if timeout_s is not None else ())
+        catch = tuple(retry_on) + (
+            (RetryTimeout,) if timeout_s is not None and retry_on_timeout else ())
 
         @functools.wraps(f)
         def wrapped(*args, **kwargs):
@@ -110,6 +117,10 @@ def with_retry(
                         return f(*args, **kwargs)
                     return _call_with_timeout(f, args, kwargs, timeout_s)
                 except catch as e:
+                    if isinstance(e, RetryTimeout) and not retry_on_timeout:
+                        # TimeoutError is an OSError, so retry_on=(OSError,)
+                        # would otherwise catch the timeout asked to be fatal
+                        raise
                     remaining = (
                         None if deadline_s is None
                         else deadline_s - (clock() - start)

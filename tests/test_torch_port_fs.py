@@ -477,3 +477,32 @@ def test_with_retry_deadline_and_timeout_match_jax():
             h()
         with pytest.raises(ValueError, match="attempts"):
             mod.with_retry(hang, attempts=0)
+
+
+@pytest.mark.parametrize("retry_on_timeout", [True, False])
+def test_with_retry_on_timeout_matches_jax(retry_on_timeout):
+    """``retry_on_timeout=False``: the first timed-out attempt is fatal even
+    under ``retry_on=(OSError,)`` (a ``RetryTimeout`` is an ``OSError``);
+    ``True`` retries it. Both packages make the same attempts, sleep the
+    same backoffs on the same fake clock and raise the same exception."""
+    out = []
+    for mod in (jretry, tretry):
+        import threading
+
+        calls, sleeps, release = [], [], threading.Event()
+
+        def hangs():
+            calls.append(1)
+            release.wait(2.0)
+
+        g = mod.with_retry(hangs, attempts=3, base_delay=0.1, seed=7, timeout_s=0.05,
+                           retry_on=(OSError,), retry_on_timeout=retry_on_timeout,
+                           sleep=sleeps.append, clock=lambda: 0.0)
+        try:
+            with pytest.raises(mod.RetryTimeout) as info:
+                g()
+        finally:
+            release.set()
+        out.append((len(calls), sleeps, type(info.value).__name__))
+    assert out[0] == out[1]
+    assert out[1][0] == (3 if retry_on_timeout else 1)

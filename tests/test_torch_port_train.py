@@ -636,3 +636,49 @@ def test_training_config_copy_keeps_the_jax_defaults():
         assert getattr(tcfg.ica_args, f.name) == getattr(jcfg.ica_args, f.name), f.name
     for f in dataclasses.fields(tconfig.FSArgs):
         assert getattr(tcfg.fs_args, f.name) == getattr(jcfg.fs_args, f.name), f.name
+
+
+COMPAT_FIELDS = dict(num_reducers=3, pin_memory=True, num_workers=2,
+                     dataloader_args={"train": {"drop_last": False}}, fused_poweriter=True)
+
+
+@pytest.mark.parametrize("through_json", [False, True])
+def test_compatibility_fields_round_trip_as_jax(through_json):
+    """The reference's compatibility fields: a JAX config that sets them
+    goes through both packages' ``with_overrides`` and ``to_dict`` with the
+    same values (JAX's defaults when unset); they are read by nothing."""
+    import json
+
+    jcfg = jconfig.TrainConfig(**COMPAT_FIELDS)
+    d = jcfg.to_dict()
+    if through_json:
+        d = json.loads(json.dumps(d))
+    back_t = tconfig.TrainConfig().with_overrides(d)
+    back_j = jconfig.TrainConfig().with_overrides(d)
+    for name in COMPAT_FIELDS:
+        assert getattr(back_t, name) == getattr(back_j, name) == COMPAT_FIELDS[name], name
+        assert back_t.to_dict()[name] == back_j.to_dict()[name], name
+        assert getattr(tconfig.TrainConfig(), name) == getattr(jconfig.TrainConfig(), name)
+    assert tconfig.TrainConfig(num_reducers=2, pin_memory=True).num_reducers == 2
+
+
+def test_fused_poweriter_false_is_refused_and_compspec_matches_jax():
+    """``fused_poweriter=False`` (JAX's XLA loop) raises, by construction
+    and through ``with_overrides``; None and True load. The compspec's GUI
+    entries are JAX's (the ICA block's defaults on the port's fields)."""
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tconfig.TrainConfig(fused_poweriter=False)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        tconfig.TrainConfig().with_overrides({"fused_poweriter": False})
+    assert tconfig.TrainConfig(fused_poweriter=None).fused_poweriter is None
+    got = tconfig.export_compspec()["computation"]["input"]
+    want = jconfig.export_compspec()["computation"]["input"]
+    assert set(got) == set(want)
+    for key in ("num_reducers", "pin_memory", "num_workers"):
+        assert got[key] == want[key], key
+    for key, entry in got.items():
+        ica = key == "ICA-Classification_args"
+        assert {k: v for k, v in entry.items() if k != "default" or not ica} == {
+            k: v for k, v in want[key].items() if k != "default" or not ica}, key
+        if ica:
+            assert entry["default"] == {k: want[key]["default"][k] for k in entry["default"]}
