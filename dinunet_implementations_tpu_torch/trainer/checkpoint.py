@@ -224,10 +224,12 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
     if bool(first) != bool(like.opt_state):
         raise ValueError(f"checkpoint {path}: optimizer state does not match the current "
                          "optimizer")
-    tree = {"params": raw["params"], "batch_stats": raw.get("batch_stats", {}),
-            "opt_state": first, "engine_state": {}, "rng": _seed(raw.get("rng"), like.rng),
-            "round": raw["round"], "health": {}}
-    state = train_state_from_tree(tree, table, dev)
+    # every TrainState field is named on this side of the file, in the
+    # template or in a read below (the AST lint's R006)
+    template = {"params": raw["params"], "batch_stats": raw.get("batch_stats", {}),
+                "opt_state": first, "engine_state": {}, "rng": _seed(raw.get("rng"), like.rng),
+                "round": raw["round"], "health": {}}
+    state = train_state_from_tree(template, table, dev)
     for what, got, want in (("params", state.params, like.params),
                             ("batch_stats", state.batch_stats, like.batch_stats)):
         if not _same_shapes(got, want):
@@ -248,9 +250,11 @@ def load_checkpoint(path: str, like: TrainState, with_meta: bool = False,
         warnings.warn(f"checkpoint {path}: stored engine state does not match the current "
                       "engine's structure; resuming with fresh engine state")
     health = _restore_health(path, raw.get("health") or {}, like.health, dev)
-    buffers = _restore_slot_tree(path, "buffers", raw, like, table, dev)
-    overlap = _restore_slot_tree(path, "overlap", raw, like, table, dev)
-    personal = _restore_personal(path, raw, like, table, dev)
+    buffers = _restore_slot_tree(path, "staleness buffers", raw.get("buffers"), like.buffers,
+                                 table, dev)
+    overlap = _restore_slot_tree(path, "overlap stash", raw.get("overlap"), like.overlap, table,
+                                 dev)
+    personal = _restore_personal(path, raw.get("personal"), like.personal, table, dev)
     telemetry = _restore_telemetry(path, raw.get("telemetry"), like.telemetry, dev)
     state = TrainState(params=state.params, batch_stats=state.batch_stats,
                        opt_state=state.opt_state, engine_state=engine_state, rng=state.rng,
@@ -274,12 +278,12 @@ def _restore_telemetry(path: str, stored, like: dict | None, dev):
     return like
 
 
-def _restore_personal(path: str, raw: dict, like: TrainState, table, dev):
-    """The personalized heads' rows, restored the tolerant way JAX restores
-    them: ``like``'s (None for a run without personalization, fresh
-    common-model rows otherwise) when the file holds none, and, with a
-    warning, when it holds rows of another site count or partition."""
-    want, stored = like.personal, raw.get("personal")
+def _restore_personal(path: str, stored, want, table, dev):
+    """The personalized heads' rows (``stored``, the file's), restored the
+    tolerant way JAX restores them: ``want`` (the template's: None for a run
+    without personalization, fresh common-model rows otherwise) when the
+    file holds none, and, with a warning, when it holds rows of another
+    site count or partition."""
     if not stored or want is None:
         return want
     try:
@@ -304,13 +308,11 @@ def _same_tree(got, like) -> bool:
     return tuple(got.shape) == tuple(like.shape) and got.dtype == like.dtype
 
 
-def _restore_slot_tree(path: str, key: str, raw: dict, like: TrainState, table, dev):
-    """The staleness buffers or the overlap stash, restored the tolerant way
-    JAX restores them: ``like``'s (None while the mode is off, or fresh)
-    when the file holds none or one of another shape, the latter with a
-    warning."""
-    want = getattr(like, key)
-    stored = raw.get(key)
+def _restore_slot_tree(path: str, what: str, stored, want, table, dev):
+    """The staleness buffers or the overlap stash (``what``; ``stored``, the
+    file's), restored the tolerant way JAX restores them: ``want`` (the
+    template's: None while the mode is off, or fresh) when the file holds
+    none or one of another shape, the latter with a warning."""
     if not stored or want is None:
         return want
     try:
@@ -320,7 +322,6 @@ def _restore_slot_tree(path: str, key: str, raw: dict, like: TrainState, table, 
         ok = False
     if ok:
         return got
-    what = "staleness buffers" if key == "buffers" else "overlap stash"
     warnings.warn(f"checkpoint {path}: stored {what} do not match the current run (site count "
                   f"or model changed?); resuming with fresh ones")
     return want
