@@ -5,6 +5,14 @@ from .fed_runner import (
     discover_site_dirs,
     load_site_splits,
 )
+from .scheduler import (
+    BackfillLane,
+    FleetScheduler,
+    SchedulerError,
+    Tenant,
+    TenantSpec,
+    fair_share,
+)
 from .registry import (
     TASKS,
     ServingSpec,
@@ -16,6 +24,7 @@ from .registry import (
     task_cache,
 )
 
-__all__ = ["TASKS", "FedDaemon", "FedRunner", "ServingSpec", "SiteRunner", "TaskSpec",
-           "build_engine", "build_model", "build_training", "discover_site_dirs", "get_task",
+__all__ = ["TASKS", "BackfillLane", "FedDaemon", "FedRunner", "FleetScheduler", "SchedulerError",
+           "ServingSpec", "SiteRunner", "TaskSpec", "Tenant", "TenantSpec", "build_engine",
+           "build_model", "build_training", "discover_site_dirs", "fair_share", "get_task",
            "load_site_splits", "task_cache"]

@@ -44,6 +44,11 @@
         --compile-cache kcache --sanitize compile,nans
     python -m dinunet_implementations_tpu_torch.telemetry.report <out-dir>/telemetry
 
+    # the fleet scheduler: --data-path is the scheduler's root; tenants
+    # register through <root>/spool/*.json and live under <root>/tenants/<id>/
+    python -m dinunet_implementations_tpu_torch.runner.cli --data-path pod \
+        --schedule --pod-slices 1 --sched-ticks 40
+
     # the privacy plane: DP-SGD with an ε budget, masked wires, and a
     # personalized classifier head per site
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path ... \
@@ -57,7 +62,10 @@ prints one JSON line, as JAX's CLI does; ``--serve`` prints the daemon's
 summary, and a preempted fit prints JAX's ``{"preempted": true, ...}``
 line on stderr and exits with its code; a sanitizer violation prints JAX's
 ``{"sanitizer_violation": ...}`` line on stderr and exits 70 (the daemon
-dumps its flight recorder first). ``--serve`` installs the flight
+dumps its flight recorder first). ``--schedule`` runs the fleet scheduler
+(runner/scheduler.py) over ``--data-path`` as its root and prints its
+summary, exit 70 when a tenant built a kernel library after its first
+epoch. ``--serve`` installs the flight
 recorder's exception hook (the daemon's preemption guard owns the signals
 and dumps on them); ``--statusz-port`` starts the exporter over the
 daemon's bus, tracer, flight recorder, probes and status, as JAX's CLI
@@ -83,15 +91,14 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_SCHEDULER = "A19 (b) (the scheduler, the supervisor and, behind --statusz-port, the pod plane)"
+_POD_PLANE = ("A19 (b) (the pod plane: --schedule --statusz-port serves the PodCollector, which "
+              "merges the supervisor's workers behind one /statusz)")
 _REFUSED = {
     "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
     "slices": (None, _MULTI_GPU), "min_slices": (None, _MULTI_GPU),
     "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
     "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
     "wire_quant": ("none", _MULTI_GPU),
-    "schedule": (False, _SCHEDULER), "pod_slices": (None, _SCHEDULER),
-    "sched_wall_s": (None, _SCHEDULER), "sched_ticks": (None, _SCHEDULER),
 }
 
 
@@ -173,6 +180,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the idle spool poll interval in seconds (default 0.5)")
     p.add_argument("--serve-rows", type=int, default=None,
                    help="inventory rows a slot, pinned (default: the first admitted site's)")
+    p.add_argument("--schedule", action="store_true",
+                   help="fleet-scheduler mode: pack concurrent studies (tenants) onto the "
+                        "shared slice pool with weighted fair share, checkpoint-then-yield "
+                        "preemption and serving backfill. --data-path is the scheduler ROOT: "
+                        "tenants register through <root>/spool/*.json events and live under "
+                        "<root>/tenants/<id>/ (runner/scheduler.py FleetScheduler)")
+    p.add_argument("--pod-slices", type=int, default=1, metavar="N",
+                   help="scheduler mode: the width of the shared slice pool the fair share "
+                        "allocates, every slice the one card (default 1)")
+    p.add_argument("--sched-wall-s", type=float, default=None, metavar="S",
+                   help="scheduler mode: stop after S wall-clock seconds (default: until every "
+                        "tenant is done or a shutdown event or signal arrives)")
+    p.add_argument("--sched-ticks", type=int, default=None, metavar="N",
+                   help="scheduler mode: stop after N scheduling ticks")
     p.add_argument("--statusz-port", type=int, default=None, metavar="PORT",
                    help="with --serve: the live endpoints on 127.0.0.1:PORT: /metrics "
                         "(Prometheus), /healthz, /statusz (with the SLO burn), /tracez; "
@@ -234,10 +255,7 @@ def build_parser() -> argparse.ArgumentParser:
             ("--dcn-wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
             ("--coordinator", {}), ("--num-processes", dict(type=int)),
             ("--process-id", dict(type=int)),
-            ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--schedule", dict(action="store_true")),
-            ("--pod-slices", dict(type=int)), ("--sched-wall-s", dict(type=float)),
-            ("--sched-ticks", dict(type=int))):
+            ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"]))):
         p.add_argument(flag, help=argparse.SUPPRESS, **({"default": None} | kw))
     return p
 
@@ -251,6 +269,8 @@ def _refuse(args) -> None:
             flag = "--" + dest.replace("_", "-")
             shown = flag if value is True else f"{flag} {value!r}"
             raise SystemExit(f"{shown} is not ported: ROADMAP {item}")
+    if args.schedule and args.statusz_port is not None:
+        raise SystemExit(f"--schedule --statusz-port is not ported: ROADMAP {_POD_PLANE}")
     if args.fused_poweriter == "off":
         raise SystemExit(
             "--fused-poweriter off asks for the JAX package's XLA power-iteration loop, which "
@@ -305,6 +325,23 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit(f"--sanitize: {e}")
         os.environ[ENV_VAR] = args.sanitize
     from ..checks.sanitize import SanitizerViolation
+    from ..telemetry.sink import _finite  # strict JSON, as JAX's CLI prints it
+
+    if args.schedule:
+        if args.serve or args.site is not None or args.folds is not None:
+            raise SystemExit("--schedule is the fleet-scheduler mode; --serve/--site/--folds "
+                             "are single-fit options")
+        from .scheduler import FleetScheduler
+
+        sched = FleetScheduler(args.data_path, pod_slices=args.pod_slices, poll_s=args.serve_poll,
+                               verbose=verbose, device=args.device)
+        try:
+            summary = sched.run(max_wall_s=args.sched_wall_s, max_ticks=args.sched_ticks)
+        except SanitizerViolation as v:
+            print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
+            return 70
+        print(json.dumps(_finite(summary), default=str))
+        return 0
 
     if args.serve:
         if args.site is not None or args.folds is not None:
@@ -350,8 +387,6 @@ def main(argv: list[str] | None = None) -> int:
             if exporter is not None:
                 exporter.stop()
         daemon.flight.uninstall()
-        from ..telemetry.sink import _finite  # strict JSON, as JAX's CLI prints it
-
         print(json.dumps(_finite(summary), default=str))
         return 0
 

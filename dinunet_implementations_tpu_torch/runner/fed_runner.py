@@ -259,8 +259,9 @@ class FedDaemon:
     trainer's spans, an epoch row an epoch, the membership events and a
     summary row go to a ``FitTelemetry`` under ``<telemetry_dir or
     out_dir/telemetry>/serve``, its manifest tagged with ``sink_tags``. A
-    mesh is multi-GPU (ROADMAP A11); the scheduler's ``set_slice_grant``
-    and ``reload_checkpoint`` are A19."""
+    mesh is multi-GPU (ROADMAP A11). The fleet scheduler (runner/scheduler.py)
+    drives a tenant's daemon through :meth:`set_slice_grant`,
+    :meth:`trainable` and :meth:`reload_checkpoint`."""
 
     def __init__(self, cfg: TrainConfig | None = None, capacity: int = 8,
                  spool_dir: str | None = None, out_dir: str | None = None,
@@ -296,6 +297,7 @@ class FedDaemon:
         self.bus = bus if bus is not None else global_bus()
         self.device = resolve_device(device)
         self.num_slices = 1
+        self.slice_grant = None  # the fleet scheduler's [num_slices] mask (None: unscheduled)
         self.trainer = FederatedTrainer(self.cfg, build_model(self.cfg, device=self.device),
                                         None, out_dir=self.out_dir, fault_plan=fault_plan,
                                         bus=self.bus, attack_plan=attack_plan,
@@ -602,6 +604,30 @@ class FedDaemon:
             return False
         return any(len(self._data[s]) >= self.cfg.batch_size for s in self.table.members())
 
+    # -- the fleet scheduler's surface (runner/scheduler.py) ---------------
+
+    def set_slice_grant(self, grant) -> None:
+        """Install the scheduler's ``[num_slices]`` slice-grant mask (1.0:
+        this service may train on that slice), or None (unscheduled). At
+        one slice the mask gates nothing inside an epoch, as in JAX, whose
+        trainer skips its slice window at one slice: the scheduler trains
+        a tenant only while it holds a grant. :meth:`status` shows it."""
+        self.slice_grant = None if grant is None else np.asarray(grant, np.float32)
+
+    def reload_checkpoint(self) -> bool:
+        """Restore the rotating checkpoint into the existing state (the
+        same shapes, the same device), through the CRC-framed msgpack path:
+        the resume half of the scheduler's checkpoint-then-yield, after
+        which a preempted tenant goes on bit for bit from what
+        :meth:`checkpoint` saved. False when there is nothing to restore."""
+        from ..trainer.checkpoint import load_checkpoint
+
+        if self.state is None or not (os.path.exists(self.ckpt_path)
+                                      or os.path.exists(self.ckpt_path + ".prev")):
+            return False
+        self.state = load_checkpoint(self.ckpt_path, self.state)
+        return True
+
     def _slot_sites(self) -> list:
         """The per-slot site list an epoch trains on: each occupant's arrays
         at its slot, the shared empty placeholder elsewhere."""
@@ -829,8 +855,8 @@ class FedDaemon:
 
     def status(self) -> dict:
         """The service's live status, JAX's ``status()`` keys on one device
-        (one slice, no slice grant), with the kernel libraries built or
-        loaded since the first epoch."""
+        (one slice; the scheduler's slice grant, None when unscheduled),
+        with the kernel libraries built or loaded since the first epoch."""
         return {
             "mode": "daemon",
             "task_id": self.cfg.task_id,
@@ -848,7 +874,8 @@ class FedDaemon:
                 for site, slot in sorted(self.table.members().items())},
             "num_slices": self.num_slices,
             "min_slices": self.cfg.min_slices,
-            "slice_grant": None,
+            "slice_grant": (None if self.slice_grant is None
+                            else [float(g) for g in self.slice_grant]),
             "slice_occupancy": self.table.slice_occupancy(self.num_slices),
             "membership_epoch": self.table.epoch,
             "steps": self._steps,

@@ -20,8 +20,11 @@
   events that dumps ``flight_<pid>.json`` (with a final bus snapshot) on
   an unhandled exception or a signal.
 
-The pod plane (the pod collector, the trace assembler and the post-mortem)
-is ROADMAP A19 (b): it reads the supervisor's and the scheduler's files.
+The fleet scheduler (runner/scheduler.py) publishes its tenants' series
+through ``LabeledBusView``s of one bus and writes its grant log,
+``<root>/grants.jsonl``. The pod plane (the pod collector, the trace
+assembler and the post-mortem, which reads the supervisor's files and that
+grant log) is ROADMAP A19 (b), with the supervisor.
 """
 
 from .bus import NULL_BUS, LabeledBusView, MetricsBus, global_bus, series_key

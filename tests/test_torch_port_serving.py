@@ -215,7 +215,8 @@ def test_importing_the_port_pulls_in_no_jax():
     for mod in ("models.cnn3d", "models.transformer", "data.smri", "data.multimodal",
                 "robustness.faults", "robustness.attacks", "privacy.accounting",
                 "privacy.dpsgd", "privacy.personalize", "privacy.secure_agg",
-                "telemetry.flight", "telemetry.exporter", "serving.__main__"):
+                "telemetry.flight", "telemetry.exporter", "serving.__main__", "analysis",
+                "checks.core", "checks.rules", "checks.__main__", "runner.scheduler"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -234,7 +235,8 @@ _IMPORT = re.compile(r"^\s*(?:import|from)\s+([\w.]+)", re.M)
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
-    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = list(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + sorted(
+        (REPO / "scripts").glob("torch_*.py"))
     # the native reader's loader and bridge are scanned too, and the loader
     # compiles the port's own copy of fastio.cpp
     for part in ("native/__init__.py", "data/native_io.py", "robustness/retry.py",
@@ -243,7 +245,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                  "robustness/health.py", "parallel/collectives.py", "privacy/__init__.py",
                  "privacy/accounting.py", "privacy/dpsgd.py", "privacy/personalize.py",
                  "privacy/secure_agg.py", "telemetry/flight.py", "telemetry/exporter.py",
-                 "serving/__main__.py"):
+                 "serving/__main__.py", "analysis.py", "checks/core.py", "checks/rules.py",
+                 "checks/__main__.py", "runner/scheduler.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

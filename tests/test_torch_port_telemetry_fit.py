@@ -277,8 +277,9 @@ def test_compile_cache_dir_moves_the_library_root(monkeypatch, tmp_path):
 def test_serving_and_daemon_refusals_name_a12_b(tmp_path, capsys):
     """What ROADMAP A12 (b) refused now runs: a daemon with its own flight
     recorder, sink tags and telemetry on, and the CLI's ``--statusz-port``
-    and ``--slo-p99-ms`` with ``--serve``. ``--schedule`` stays refused,
-    naming A19, with ``--statusz-port`` too (the pod collector)."""
+    and ``--slo-p99-ms`` with ``--serve``. ``--schedule`` runs the fleet
+    scheduler; with ``--statusz-port`` it stays refused, naming A19 (b)
+    (the pod collector)."""
     tree = tdemo.make_fs_demo_tree(str(tmp_path / "tree"), **FS_TREE)
     bus = MetricsBus()
     flight = FlightRecorder(str(tmp_path / "flight"), bus=bus)
@@ -301,9 +302,13 @@ def test_serving_and_daemon_refusals_name_a12_b(tmp_path, capsys):
     assert lines[0]["statusz"].startswith("http://127.0.0.1:")
     assert lines[0]["endpoints"] == ["/metrics", "/healthz", "/statusz", "/tracez"]
     assert lines[-1]["epochs_run"] == 1
-    for extra in (["--schedule"], ["--schedule", "--statusz-port", "0"]):
-        with pytest.raises(SystemExit, match=r"--schedule is not ported: ROADMAP A19 \(b\)"):
-            tcli.main(["--data-path", tree, "--device", "cpu"] + extra)
+    with pytest.raises(SystemExit,
+                       match=r"--schedule --statusz-port is not ported: ROADMAP A19 \(b\)"):
+        tcli.main(["--data-path", tree, "--device", "cpu", "--schedule", "--statusz-port", "0"])
+    capsys.readouterr()
+    assert tcli.main(["--data-path", str(tmp_path / "pod"), "--device", "cpu", "--schedule",
+                      "--sched-ticks", "1", "--serve-poll", "0", "--quiet"]) == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])["tenants"] == {}
 
 
 @pytest.fixture(scope="module")
