@@ -304,7 +304,29 @@ result line:
    telemetry-on daemon in a process of its own sent SIGTERM after epoch 1
    leaves ``flight_<pid>.json`` with the final spans and the bus. One
    ``live plane:`` JSON line of the part's numbers;
-22. one JSON line of per-kernel numbers, then the result line.
+22. analysis and the fleet scheduler at full width: (a)
+   ``analysis.engine_comparison`` on phase 11's tree for dSGD, rankDAD and
+   powerSGD, 2 epochs each (cut from the default 101): each fit's K1 and K2
+   launches counted on the cluster route (K7 staged for rankDAD, no plain
+   class), each row equal to its fit's ``logs.json``,
+   ``engine_comparison.md`` written; (b) ``analysis.pretrain_study`` on
+   phase 14's tree under rankDAD, folds 0 and 1, 2 pretraining epochs, 3
+   epochs: K7 r=10 direct and r=2 staged as phase 14 counts them, the CSV's
+   header and 2 arms x 2 folds, ``write_study_figures`` returning ``[]``
+   (no matplotlib on the card's machine); (c) ``FleetScheduler(pod_slices=1)``:
+   tenant "ica" (phase 18's tree, rankDAD, batch 16, 2 rounds an epoch, 4
+   epochs) preempted after 2 by tenant "fs" (phase 14's tree, rankDAD, 2
+   epochs, higher priority) through checkpoint-then-yield, then resumed:
+   its final ``params_digest`` equal to a solo daemon's, its epochs'
+   launches equal to the solo daemon's (K1/K2 cluster, K7 staged, no plain
+   class), no kernel library after either tenant's first epoch, the yield
+   and the resume in ``grants.jsonl``; the pauses, ``goodput()`` and the
+   idle fraction; (d) the runner CLI's ``--schedule`` over a spool of a
+   register and a shutdown (rc 0, a strict-JSON summary) and a
+   ``BackfillLane`` serving the flagship checkpoint beside a tenant held
+   below its quorum: K1 twice a dispatch on the cluster route, no library
+   after warmup. One ``scheduler:`` JSON line of the phase's numbers;
+23. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -5881,6 +5903,387 @@ def live_phase(torch, np, lc, pc, bc, smi: str, root: str) -> dict:
     return rec
 
 
+# The fleet scheduler and the notebooks' tables (phase 22): analysis's
+# engine comparison on phase 11's tree (each engine's epochs cut from the
+# default 101), its pretrain study on phase 14's tree, the scheduler's
+# checkpoint-then-yield in process at one slice, its command line and the
+# backfill lane.
+SCHED_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+SCHED_FIT_EPOCHS = 2  # each engine of the comparison, cut from the default 101
+SCHED_STUDY = dict(folds=[0, 1], pretrain_epochs=2, epochs=3)
+SCHED_ICA_EPOCHS, SCHED_ICA_STEPS, SCHED_FS_EPOCHS = 4, 2, 2
+SCHED_BACKFILL_ROWS, SCHED_BACKFILL_REQUESTS = 4, 4
+
+
+class CountedRuns:
+    """``analysis.FedRunner`` replaced, for one ``with``, by a runner whose
+    every ``run`` is a main-path run: the kernel counters zeroed just
+    before it and read just after, with its results, runner and seconds."""
+
+    def __init__(self, torch, lc, pc, bc):
+        self.torch, self.lc, self.pc, self.bc = torch, lc, pc, bc
+        self.runs = []
+
+    def __enter__(self):
+        from dinunet_implementations_tpu_torch import analysis
+        from dinunet_implementations_tpu_torch.runner import FedRunner
+
+        hooks = self
+
+        class Counted(FedRunner):
+            def run(self, folds=None, verbose=True, resume=False):
+                hooks.torch.cuda.synchronize()
+                zero_counters(hooks.lc, hooks.pc, hooks.bc)  # the main path's run starts here
+                t0 = time.perf_counter()
+                res = super().run(folds=folds, verbose=verbose, resume=resume)
+                hooks.torch.cuda.synchronize()
+                hooks.runs.append({"runner": self, "results": res, "folds": folds,
+                                   "seconds": time.perf_counter() - t0,
+                                   "launches": read_counters(hooks.lc, hooks.pc, hooks.bc)})
+                return res
+
+        self._saved = analysis.FedRunner
+        analysis.FedRunner = Counted
+        return self.runs
+
+    def __exit__(self, *exc):
+        from dinunet_implementations_tpu_torch import analysis
+
+        analysis.FedRunner = self._saved
+        return False
+
+
+def sched_fold_rounds(runner, fold_ids) -> dict:
+    """Each fold's rounds an epoch and eval steps, from the runner's own
+    splits."""
+    from dinunet_implementations_tpu_torch.data import epoch_steps, plan_eval
+    from dinunet_implementations_tpu_torch.runner import load_site_splits
+
+    cfg = runner.cfg
+    folds = load_site_splits(cfg, runner.site_dirs, runner.site_cfgs)
+    return {k: {"rounds": epoch_steps(folds[k]["train"], cfg.batch_size) // cfg.local_iterations,
+                "val_steps": plan_eval(folds[k]["validation"], cfg.batch_size).steps,
+                "test_steps": plan_eval(folds[k]["test"], cfg.batch_size).steps}
+            for k in fold_ids}
+
+
+def sched_analysis(torch, np, lc, pc, bc, smi: str, ica_tree: str, fs_tree: str,
+                   root: str) -> dict:
+    """(a) ``analysis.engine_comparison`` on phase 11's tree and (b)
+    ``analysis.pretrain_study`` on phase 14's, on the card."""
+    from dinunet_implementations_tpu_torch import analysis
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+
+    out_a = os.path.join(root, "sched_a")
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, epochs=SCHED_FIT_EPOCHS, patience=35,
+                      seed=0)
+    with CountedRuns(torch, lc, pc, bc) as runs:
+        report = analysis.engine_comparison(ica_tree, out_a, engines=SCHED_ENGINES, base_cfg=cfg)
+    fits = {}
+    for run in runs:
+        runner, res = run["runner"], run["results"][0]
+        engine, fcfg = runner.cfg.agg_engine, runner.cfg
+        a = fcfg.ica_args
+        if (a.input_size, a.hidden_size, a.num_components, fcfg.num_sites) != (256, 348, 100,
+                                                                               FIT_SITES):
+            fail(f"engine comparison {engine}: not the flagship's width: {a}, {fcfg.num_sites}")
+        shape = sched_fold_rounds(runner, [0])[0]
+        epochs = len(res["epoch_losses"])
+        micro = epochs * shape["rounds"] * fcfg.local_iterations
+        evals = epochs * shape["val_steps"] + shape["test_steps"]
+        launches = run["launches"]
+        routes = k7_routes(torch, pc, fcfg, FIT_SITES) if engine == "rankDAD" else {}
+        want = (k7_want(launches, routes, epochs * shape["rounds"]) if engine == "rankDAD"
+                else dict.fromkeys(launches, 0)) | {
+            "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
+            "k1_cluster_route": 2 * (micro + evals), "lstm_bwd": 2 * micro,
+            "k2_cluster_route": 2 * micro}
+        if launches != want or any(r != ["staged"] for r in routes.values()):
+            fail(f"engine comparison {engine}: launches {launches}, want {want} (K7 routes "
+                 f"{routes}, all staged)")
+        with open(os.path.join(out_a, engine, "remote", "simulatorRun", fcfg.task_id, "fold_0",
+                               "logs.json")) as fh:
+            lg = json.load(fh)
+        row = report["engines"][engine]
+        if row != {"test_metrics": lg["test_metrics"][0],
+                   "total_duration": lg["cumulative_total_duration"][-1],
+                   "computation_time": sum(lg["time_spent_on_computation"]),
+                   "best_val_epoch": lg["best_val_epoch"]} \
+                or row["best_val_epoch"] != res["best_val_epoch"] \
+                or not np.isfinite(row["test_metrics"]).all():
+            fail(f"engine comparison {engine}: the row {row} is not its fit's logs.json")
+        fits[engine] = {"seconds": run["seconds"], "epochs": epochs,
+                        "rounds_per_epoch": shape["rounds"], "launches": launches,
+                        "k7_routes": routes, "row": row}
+    md = os.path.join(out_a, "engine_comparison.md")
+    if list(fits) != list(SCHED_ENGINES) or not os.path.isfile(md):
+        fail(f"engine comparison: fits {list(fits)}, {md} written: {os.path.isfile(md)}")
+    print(f"analysis (a): engine_comparison on phase 11's tree ({FIT_SITES} sites, "
+          f"{SCHED_FIT_EPOCHS} epochs an engine) on {smi}:", json.dumps(fits, default=float))
+    print(report["summary_markdown"])
+
+    out_b = os.path.join(root, "sched_b")
+    base = TrainConfig(agg_engine="rankDAD", epochs=SCHED_STUDY["epochs"], patience=35, seed=0)
+    with CountedRuns(torch, lc, pc, bc) as runs:
+        study = analysis.pretrain_study(fs_tree, out_b, folds=SCHED_STUDY["folds"],
+                                        pretrain_epochs=SCHED_STUDY["pretrain_epochs"],
+                                        base_cfg=base)
+    arms = {}
+    for run in runs:
+        runner, fcfg = run["runner"], run["runner"].cfg
+        arm = "pretrained" if fcfg.pretrain else "scratch"
+        shapes = sched_fold_rounds(runner, SCHED_STUDY["folds"])
+        rounds = sum(len(r["epoch_losses"]) * shapes[k]["rounds"]
+                     for k, r in zip(SCHED_STUDY["folds"], run["results"]))
+        routes = k7_routes(torch, pc, fcfg, FS_SITES)
+        want = k7_want(run["launches"], routes, rounds)
+        if run["launches"] != want or routes != {10: ["direct"], 2: ["staged"]}:
+            fail(f"pretrain study {arm}: launches {run['launches']}, want {want} (K7 routes "
+                 f"{routes}: r=10 direct, r=2 staged as phase 14)")
+        arms[arm] = {"seconds": run["seconds"], "rounds": rounds, "launches": run["launches"],
+                     "k7_routes": {str(r): v for r, v in routes.items()},
+                     "best_val_epochs": study["arms"][arm]["best_val_epochs"],
+                     "test_aucs": study["arms"][arm]["test_aucs"]}
+    with open(os.path.join(out_b, "pretrain_study.csv")) as fh:
+        rows = [ln.rstrip("\n").split(",") for ln in fh]
+    if rows[0] != ["arm", "fold", "best_val_epoch", "test_auc", "test_loss"] \
+            or len(rows) != 1 + 2 * len(SCHED_STUDY["folds"]) or set(arms) != {"scratch",
+                                                                             "pretrained"}:
+        fail(f"pretrain study: the CSV {rows}, arms {list(arms)}")
+    import importlib.util
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    if len(study["figures"]) != (2 if plots else 0):
+        fail(f"write_study_figures wrote {study['figures']} with matplotlib "
+             f"{'present' if plots else 'absent'}")
+    print(f"analysis (b): pretrain_study on phase 14's tree ({FS_SITES} sites, rankDAD, folds "
+          f"{SCHED_STUDY['folds']}) on {smi}: write_study_figures returned {study['figures']} "
+          f"(matplotlib {'present' if plots else 'absent'});", json.dumps(arms, default=float))
+    return {"engine_comparison": fits, "pretrain_study": arms,
+            "epoch_speedup": study["epoch_speedup"]}
+
+
+def sched_epoch_ok(e: dict) -> bool:
+    """K1 and K2 on the cluster route, K7 staged, no plain class."""
+    return (e["lstm_fwd"] > 0 and e["k1_cluster_route"] == e["lstm_fwd"]
+            and e["k1_stream_route"] == 0 and e["lstm_bwd"] > 0
+            and e["k2_cluster_route"] == e["lstm_bwd"] and e["k2_stream_route"] == 0
+            and e["poweriter"] > 0 and e["k7_staged_route"] == e["poweriter"]
+            and e["poweriter_plain_classes"] == 0)
+
+
+def sched_preemption(torch, np, lc, pc, bc, smi: str, ica_tree: str, fs_tree: str,
+                     root: str) -> dict:
+    """(c) ``FleetScheduler(pod_slices=1)``: "ica" (phase 18's tree,
+    rankDAD, 2 rounds an epoch) trains 2 epochs, "fs" arrives at a higher
+    priority and takes the slice (checkpoint, then the yield), trains and
+    finishes, "ica" resumes through the checkpoint reload and finishes its
+    4; against a solo daemon of the same 4 epochs."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner import FedDaemon
+    from dinunet_implementations_tpu_torch.runner.scheduler import (
+        GRANTS_FILE,
+        FleetScheduler,
+        Tenant,
+        TenantSpec,
+    )
+    from dinunet_implementations_tpu_torch.telemetry import MetricsBus
+    from dinunet_implementations_tpu_torch.trainer import params_digest
+
+    ica_cfg = TrainConfig(task_id=NNComputation.TASK_ICA, agg_engine="rankDAD",
+                          batch_size=TRAIN_BATCH, seed=0)
+    fs_cfg = TrainConfig(agg_engine="rankDAD", seed=0)
+    epochs = []
+
+    def counted(train):
+        def run(*args):
+            torch.cuda.synchronize()
+            zero_counters(lc, pc, bc)  # each epoch of the main path starts here
+            t0 = time.perf_counter()
+            loss = train(*args)
+            torch.cuda.synchronize()
+            epochs.append({"tenant": args[0].spec.tenant if args else "solo", "loss": loss,
+                           "ms": (time.perf_counter() - t0) * 1e3,
+                           "launches": read_counters(lc, pc, bc)})
+            return loss
+        return run
+
+    sched_root = os.path.join(root, "sched_c")
+    saved = Tenant.train_epoch
+    Tenant.train_epoch = counted(saved)
+    try:
+        sched = FleetScheduler(sched_root, pod_slices=1, bus=MetricsBus(), poll_s=0.0,
+                               verbose=False)
+        ica = sched.register(TenantSpec("ica", data_path=ica_tree, config=ica_cfg,
+                                        capacity=DAEMON_CAPACITY, steps=SCHED_ICA_STEPS,
+                                        max_epochs=SCHED_ICA_EPOCHS))
+        ticks = [sched.tick(sleep_when_idle=False) for _ in range(2)]
+        fs = sched.register(TenantSpec("fs", data_path=fs_tree, config=fs_cfg, capacity=FS_SITES,
+                                       priority=2.0, max_epochs=SCHED_FS_EPOCHS))
+        while not sched.done() and len(ticks) < 20:
+            ticks.append(sched.tick(sleep_when_idle=False))
+        digest = ica.params_digest()
+        goodput, idle = sched.goodput(), sched.idle_fraction()
+        pauses = {t.spec.tenant: t.pauses_ms for t in (ica, fs)}
+        out = sched.close()  # each tenant's compile guard: raises on a late library
+    finally:
+        Tenant.train_epoch = saved
+    sched_epochs, epochs[:] = list(epochs), []
+    solo = FedDaemon(ica_cfg, capacity=DAEMON_CAPACITY, data_path=ica_tree,
+                     out_dir=os.path.join(root, "sched_solo"),
+                     spool_dir=os.path.join(root, "sched_solo", "spool"), poll_s=0.0,
+                     steps=SCHED_ICA_STEPS, verbose=False)
+    solo.train_epoch = counted(solo.train_epoch)
+    solo.serve(max_epochs=SCHED_ICA_EPOCHS)
+    solo_digest = params_digest(solo.state.params, solo.state.batch_stats)
+    with open(os.path.join(sched_root, GRANTS_FILE)) as fh:
+        grants = [json.loads(ln)["grants"] for ln in fh]
+    ica_epochs = [e["launches"] for e in sched_epochs if e["tenant"] == "ica"]
+    solo_epochs = [e["launches"] for e in epochs]
+    order = [e["tenant"] for e in sched_epochs]
+    rec = {"card": smi, "ticks": len(ticks), "order": order,
+           "grants": grants, "pauses_ms": pauses, "goodput": goodput, "idle_fraction": idle,
+           "ica_epoch_ms": [e["ms"] for e in sched_epochs if e["tenant"] == "ica"],
+           "fs_epoch_ms": [e["ms"] for e in sched_epochs if e["tenant"] == "fs"],
+           "solo_epoch_ms": [e["ms"] for e in epochs],
+           "ica_launches_per_epoch": ica_epochs,
+           "fs_launches_per_epoch": [e["launches"] for e in sched_epochs if e["tenant"] == "fs"],
+           "digest_equal": digest == solo_digest,
+           "compiles_after_first_epoch": {n: s["compiles_after_first_epoch"]
+                                          for n, s in out["tenants"].items()}}
+    print(f"scheduler (c): preemption at one slice on {smi}: pauses ms {pauses}, goodput "
+          f"{json.dumps(goodput)}, idle_fraction {idle}:", json.dumps(rec, default=float))
+    ica_grants = [g.get("ica") for g in grants]
+    if order != ["ica"] * 2 + ["fs"] * SCHED_FS_EPOCHS + ["ica"] * (SCHED_ICA_EPOCHS - 2):
+        fail(f"the scheduler's epochs ran in the order {order}")
+    if not rec["digest_equal"]:
+        fail("the preempted and resumed tenant differs from the solo daemon")
+    if ica_epochs != solo_epochs or not all(sched_epoch_ok(e) for e in ica_epochs):
+        fail(f"the tenant's epochs launched {ica_epochs}, the solo daemon's {solo_epochs}")
+    if not all(e["poweriter"] > 0 and e["poweriter_plain_classes"] == 0 and e["lstm_fwd"] == 0
+               for e in rec["fs_launches_per_epoch"]):
+        fail(f"the FS tenant's epochs launched {rec['fs_launches_per_epoch']}")
+    if ica_grants[:3] != [1, 0, 1] or grants[1] != {"fs": 1, "ica": 0}:
+        fail(f"the grant log does not show the yield and the resume: {grants}")
+    if any(any(c.values()) for c in rec["compiles_after_first_epoch"].values()):
+        fail(f"a tenant built or loaded a kernel library after its first epoch: {rec}")
+    if goodput["preempt_count"] != 1 or not goodput["preempt_pause_ms_p99"] > 0:
+        fail(f"the scheduler's goodput: {goodput}")
+    return rec
+
+
+def sched_cli_and_backfill(torch, np, lc, pc, bc, smi: str, fs_tree: str, root: str) -> dict:
+    """(d) the runner CLI's ``--schedule`` over a spool of a register and a
+    shutdown; a ``BackfillLane`` serving the flagship checkpoint beside a
+    tenant held below its quorum."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.ops import _build
+    from dinunet_implementations_tpu_torch.runner import cli
+    from dinunet_implementations_tpu_torch.runner.registry import get_task
+    from dinunet_implementations_tpu_torch.runner.scheduler import (
+        BackfillLane,
+        FleetScheduler,
+        TenantSpec,
+    )
+    from dinunet_implementations_tpu_torch.telemetry import MetricsBus
+
+    cli_root = os.path.join(root, "sched_d")
+    os.makedirs(os.path.join(cli_root, "spool"))
+    for name, ev in (("ev000.json", {"event": "register", "tenant": "fs1", "data_path": fs_tree,
+                                     "capacity": FS_SITES, "max_epochs": 1,
+                                     "config": {"agg_engine": "dSGD"}}),
+                     ("ev001.json", {"event": "shutdown"})):
+        with open(os.path.join(cli_root, "spool", name), "w") as fh:
+            json.dump(ev, fh)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--data-path", cli_root, "--schedule", "--pod-slices", "1",
+                       "--sched-ticks", "3", "--quiet"])
+    cli_s = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+
+    def strict(c):
+        fail(f"the --schedule summary is not strict JSON: {c}")
+
+    summary = json.loads(line, parse_constant=strict)
+    if rc != 0 or list(summary["tenants"]) != ["fs1"] \
+            or summary["tenants"]["fs1"]["epochs_run"] != 1:
+        fail(f"the command line's --schedule: rc {rc}, {line}")
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
+    ckpt = os.path.join(root, "sched_backfill", "checkpoint.msgpack")
+    plane_checkpoint(torch, cfg, ckpt)
+    shape = get_task(cfg.task_id).serving.sample_shape(cfg)
+    rng = np.random.default_rng(22)
+    lane = BackfillLane(cfg, lambda: rng.standard_normal((SCHED_BACKFILL_ROWS,) + tuple(shape))
+                        .astype(np.float32), checkpoint=ckpt, replicas=1,
+                        requests_per_quantum=SCHED_BACKFILL_REQUESTS)
+    sched = FleetScheduler(os.path.join(root, "sched_bf"), pod_slices=1, bus=MetricsBus(),
+                           poll_s=0.0, verbose=False, backfill=lane)
+    sched.register(TenantSpec("held", data_path=fs_tree, config=TrainConfig(seed=0),
+                              capacity=8, quorum=8, max_epochs=1))
+    first = sched.tick(sleep_when_idle=False)  # the lane's warmup and first quantum
+    torch.cuda.synchronize()
+    builds0 = (_build.BUILDS, _build.LOADS)
+    d0 = lane._set.summary()["dispatches"]
+    zero_counters(lc, pc, bc)  # the main path's run starts here
+    t0 = time.perf_counter()
+    second = sched.tick(sleep_when_idle=False)
+    torch.cuda.synchronize()
+    quantum_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters(lc, pc, bc)
+    dispatches = lane._set.summary()["dispatches"] - d0
+    builds = (_build.BUILDS - builds0[0], _build.LOADS - builds0[1])
+    out = sched.close()  # the lane's fleet checks no library after its warmup
+    rec = {"card": smi, "cli_rc": rc, "cli_seconds": cli_s, "cli_goodput": summary["goodput"],
+           "served": [first["served"], second["served"]], "grants": second["grants"],
+           "dispatches": dispatches, "launches": launches, "quantum_ms": quantum_ms,
+           "builds_after_warmup": builds, "backfill": out["backfill"]["requests_served"]}
+    print(f"scheduler (d): the CLI's --schedule and the backfill lane on {smi}:",
+          json.dumps(rec, default=float))
+    want = 2 * dispatches
+    if second["served"]["requests"] != SCHED_BACKFILL_REQUESTS or second["grants"] != {"held": 0} \
+            or dispatches < 1 or launches["lstm_fwd"] != want \
+            or launches["k1_cluster_route"] != want or launches["lstm_proj"] != want \
+            or launches["k1_stream_route"] != 0 or builds != (0, 0):
+        fail(f"the backfill lane: {rec}; K1 wants 2 launches a dispatch on the cluster route")
+    return rec
+
+
+def sched_phase(torch, np, lc, pc, bc, smi: str, root: str, ica_tree: str | None = None,
+                fs_tree: str | None = None) -> dict:
+    """Phase 22 of the module docstring: analysis and the fleet scheduler;
+    makes phase 11's and phase 14's trees under ``root`` when not given."""
+    from dinunet_implementations_tpu_torch.data import make_fs_demo_tree
+
+    t_phase = time.perf_counter()
+    ica_tree = ica_tree or fit_tree(os.path.join(root, "sched_ica_tree"))
+    fs_tree = fs_tree or make_fs_demo_tree(os.path.join(root, "sched_fs_tree"),
+                                           n_sites=FS_SITES, subjects=FS_SUBJECTS, seed=0)
+    rec = {"analysis": sched_analysis(torch, np, lc, pc, bc, smi, ica_tree, fs_tree, root)}
+    rec["preemption"] = sched_preemption(torch, np, lc, pc, bc, smi,
+                                         daemon_tree(os.path.join(root, "sched_daemon_tree")),
+                                         fs_tree, root)
+    rec["cli_backfill"] = sched_cli_and_backfill(torch, np, lc, pc, bc, smi, fs_tree, root)
+    rec["seconds"] = time.perf_counter() - t_phase
+    pre = rec["preemption"]
+    line = {"card": smi, "fit_seconds": {e: f["seconds"] for e, f in
+                                         rec["analysis"]["engine_comparison"].items()},
+            "study_seconds": {a: v["seconds"] for a, v in
+                              rec["analysis"]["pretrain_study"].items()},
+            "preempt_pauses_ms": pre["pauses_ms"], "goodput": pre["goodput"],
+            "idle_fraction": pre["idle_fraction"], "ica_epoch_ms": pre["ica_epoch_ms"],
+            "solo_epoch_ms": pre["solo_epoch_ms"],
+            "backfill_quantum_ms": rec["cli_backfill"]["quantum_ms"],
+            "phase_seconds": rec["seconds"]}
+    print("scheduler:", json.dumps(line, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -5998,6 +6401,12 @@ def main() -> int:
               "unidirectional checkpoint through a two-replica fleet script; the command "
               "line's daemon with /statusz, telemetry on against off, and a SIGTERM")
         live = live_phase(torch, np, lc, pc, bc, smi, root)
+
+        print(f"== 22. analysis and the fleet scheduler at full width: engine_comparison on "
+              f"phase 11's tree ({SCHED_FIT_EPOCHS} epochs an engine), pretrain_study on phase "
+              "14's, checkpoint-then-yield at one slice, --schedule and the backfill lane")
+        sched = sched_phase(torch, np, lc, pc, bc, smi, root, fit["tree"],
+                            os.path.join(root, "fs_tree"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6077,6 +6486,19 @@ def main() -> int:
     for name, bucket in (("lstm_fwd", by_path), ("lstm_bwd", bwd_by_path),
                          ("poweriter", k7_by_path)):
         bucket["live_daemon"] = sum(e[name] for e in live["daemon"]["launches_per_epoch"])
+    for engine, f in sched["analysis"]["engine_comparison"].items():
+        by_path[f"sched_analysis_{engine}"] = f["launches"]["lstm_fwd"]
+        bwd_by_path[f"sched_analysis_{engine}"] = f["launches"]["lstm_bwd"]
+        if engine == "rankDAD":
+            k7_by_path["sched_analysis_rankDAD"] = f["launches"]["poweriter"]
+    for arm, a in sched["analysis"]["pretrain_study"].items():
+        k7_by_path[f"sched_pretrain_study_{arm}"] = a["launches"]["poweriter"]
+    pre = sched["preemption"]
+    by_path["sched_tenant_ica"] = sum(e["lstm_fwd"] for e in pre["ica_launches_per_epoch"])
+    bwd_by_path["sched_tenant_ica"] = sum(e["lstm_bwd"] for e in pre["ica_launches_per_epoch"])
+    k7_by_path["sched_tenant_ica"] = sum(e["poweriter"] for e in pre["ica_launches_per_epoch"])
+    k7_by_path["sched_tenant_fs"] = sum(e["poweriter"] for e in pre["fs_launches_per_epoch"])
+    by_path["sched_backfill"] = sched["cli_backfill"]["launches"]["lstm_fwd"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -6192,7 +6614,7 @@ def main() -> int:
                 "design": BWD_DESIGN + f" (half of the clusters a direction, each on its own time "
                           f"map; {cot})",
                 "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
-    print(f"total {time.monotonic() - t_start:.1f} s on {smi}")
+    print(f"== 23. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
