@@ -187,7 +187,7 @@ class Tenant:
             fault_plan=spec.fault_plan, attack_plan=spec.attack_plan,
             inventory_rows=spec.inventory_rows, steps=spec.steps, resume=spec.resume,
             verbose=verbose, bus=self.bus, sink_tags={"tenant": spec.tenant}, device=device,
-            **{k: v for k, v in overrides.items() if k != "num_slices"})
+            **overrides)
         self.daemon.set_slice_grant(np.zeros(self.daemon.num_slices, np.float32))
         self._epochs_here = 0  # epochs this tenant trained in this process
         self._late = {"kernel_builds": 0, "kernel_loads": 0}
