@@ -304,9 +304,11 @@ result line:
    telemetry-on daemon in a process of its own sent SIGTERM after epoch 1
    leaves ``flight_<pid>.json`` with the final spans and the bus. One
    ``live plane:`` JSON line of the part's numbers;
-22. analysis and the fleet scheduler at full width: (a)
-   ``analysis.engine_comparison`` on phase 11's tree for dSGD, rankDAD and
-   powerSGD, 2 epochs each (cut from the default 101): each fit's K1 and K2
+22. analysis and the fleet scheduler at full width, on phase 21's tree (6
+   sites of 40 subjects) and phase 14's: (a) ``analysis.engine_comparison``
+   for dSGD, rankDAD and powerSGD, 2 epochs each (cut from the default
+   101; 6 sites, not phase 11's 32, whose powerSGD fit would write ~18 GB of
+   per-site result zips): each fit's K1 and K2
    launches counted on the cluster route (K7 staged for rankDAD, no plain
    class), each row equal to its fit's ``logs.json``,
    ``engine_comparison.md`` written; (b) ``analysis.pretrain_study`` on
@@ -314,7 +316,7 @@ result line:
    epochs: K7 r=10 direct and r=2 staged as phase 14 counts them, the CSV's
    header and 2 arms x 2 folds, ``write_study_figures`` returning ``[]``
    (no matplotlib on the card's machine); (c) ``FleetScheduler(pod_slices=1)``:
-   tenant "ica" (phase 18's tree, rankDAD, batch 16, 2 rounds an epoch, 4
+   tenant "ica" (the same ICA tree, rankDAD, batch 16, 2 rounds an epoch, 4
    epochs) preempted after 2 by tenant "fs" (phase 14's tree, rankDAD, 2
    epochs, higher priority) through checkpoint-then-yield, then resumed:
    its final ``params_digest`` equal to a solo daemon's, its epochs'
@@ -5969,8 +5971,12 @@ def sched_fold_rounds(runner, fold_ids) -> dict:
 
 def sched_analysis(torch, np, lc, pc, bc, smi: str, ica_tree: str, fs_tree: str,
                    root: str) -> dict:
-    """(a) ``analysis.engine_comparison`` on phase 11's tree and (b)
-    ``analysis.pretrain_study`` on phase 14's, on the card."""
+    """(a) ``analysis.engine_comparison`` on a tree of phase 18's shape
+    (``ica_tree``) and (b) ``analysis.pretrain_study`` on phase 14's, on
+    the card. Not phase 11's 32 sites: each fit zips its checkpoints into a
+    copy a site (FedRunner's remote transfer), and powerSGD's error state
+    makes that ~18 GB a fit there, past what the card's machine lets a
+    run write."""
     from dinunet_implementations_tpu_torch import analysis
     from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
 
@@ -5985,14 +5991,14 @@ def sched_analysis(torch, np, lc, pc, bc, smi: str, ica_tree: str, fs_tree: str,
         engine, fcfg = runner.cfg.agg_engine, runner.cfg
         a = fcfg.ica_args
         if (a.input_size, a.hidden_size, a.num_components, fcfg.num_sites) != (256, 348, 100,
-                                                                               FIT_SITES):
+                                                                               DAEMON_SITES):
             fail(f"engine comparison {engine}: not the flagship's width: {a}, {fcfg.num_sites}")
         shape = sched_fold_rounds(runner, [0])[0]
         epochs = len(res["epoch_losses"])
         micro = epochs * shape["rounds"] * fcfg.local_iterations
         evals = epochs * shape["val_steps"] + shape["test_steps"]
         launches = run["launches"]
-        routes = k7_routes(torch, pc, fcfg, FIT_SITES) if engine == "rankDAD" else {}
+        routes = k7_routes(torch, pc, fcfg, DAEMON_SITES) if engine == "rankDAD" else {}
         want = (k7_want(launches, routes, epochs * shape["rounds"]) if engine == "rankDAD"
                 else dict.fromkeys(launches, 0)) | {
             "lstm_fwd": 2 * (micro + evals), "lstm_proj": 2 * (micro + evals),
@@ -6018,7 +6024,7 @@ def sched_analysis(torch, np, lc, pc, bc, smi: str, ica_tree: str, fs_tree: str,
     md = os.path.join(out_a, "engine_comparison.md")
     if list(fits) != list(SCHED_ENGINES) or not os.path.isfile(md):
         fail(f"engine comparison: fits {list(fits)}, {md} written: {os.path.isfile(md)}")
-    print(f"analysis (a): engine_comparison on phase 11's tree ({FIT_SITES} sites, "
+    print(f"analysis (a): engine_comparison on a tree of phase 18's shape ({DAEMON_SITES} sites, "
           f"{SCHED_FIT_EPOCHS} epochs an engine) on {smi}:", json.dumps(fits, default=float))
     print(report["summary_markdown"])
 
@@ -6257,17 +6263,16 @@ def sched_cli_and_backfill(torch, np, lc, pc, bc, smi: str, fs_tree: str, root: 
 def sched_phase(torch, np, lc, pc, bc, smi: str, root: str, ica_tree: str | None = None,
                 fs_tree: str | None = None) -> dict:
     """Phase 22 of the module docstring: analysis and the fleet scheduler;
-    makes phase 11's and phase 14's trees under ``root`` when not given."""
+    makes an ICA tree of phase 18's shape and phase 14's FS tree under
+    ``root`` when not given."""
     from dinunet_implementations_tpu_torch.data import make_fs_demo_tree
 
     t_phase = time.perf_counter()
-    ica_tree = ica_tree or fit_tree(os.path.join(root, "sched_ica_tree"))
+    ica_tree = ica_tree or daemon_tree(os.path.join(root, "sched_ica_tree"))
     fs_tree = fs_tree or make_fs_demo_tree(os.path.join(root, "sched_fs_tree"),
                                            n_sites=FS_SITES, subjects=FS_SUBJECTS, seed=0)
     rec = {"analysis": sched_analysis(torch, np, lc, pc, bc, smi, ica_tree, fs_tree, root)}
-    rec["preemption"] = sched_preemption(torch, np, lc, pc, bc, smi,
-                                         daemon_tree(os.path.join(root, "sched_daemon_tree")),
-                                         fs_tree, root)
+    rec["preemption"] = sched_preemption(torch, np, lc, pc, bc, smi, ica_tree, fs_tree, root)
     rec["cli_backfill"] = sched_cli_and_backfill(torch, np, lc, pc, bc, smi, fs_tree, root)
     rec["seconds"] = time.perf_counter() - t_phase
     pre = rec["preemption"]
@@ -6403,9 +6408,9 @@ def main() -> int:
         live = live_phase(torch, np, lc, pc, bc, smi, root)
 
         print(f"== 22. analysis and the fleet scheduler at full width: engine_comparison on "
-              f"phase 11's tree ({SCHED_FIT_EPOCHS} epochs an engine), pretrain_study on phase "
+              f"phase 21's tree ({SCHED_FIT_EPOCHS} epochs an engine), pretrain_study on phase "
               "14's, checkpoint-then-yield at one slice, --schedule and the backfill lane")
-        sched = sched_phase(torch, np, lc, pc, bc, smi, root, fit["tree"],
+        sched = sched_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"),
                             os.path.join(root, "fs_tree"))
     finally:
         shutil.rmtree(root, ignore_errors=True)

@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s phase 22 alone, analysis and the fleet scheduler at
 full width on the card: builds the kernels, then runs
-``chip_smoke.sched_phase`` under a temporary directory (it makes phase 11's
-and phase 14's trees and phase 18's there). Needs one CUDA card.
+``chip_smoke.sched_phase`` under a temporary directory (it makes an ICA tree
+of phase 18's shape and phase 14's FS tree there). Needs one CUDA card.
 
     python3 scripts/torch_sched_phase.py
 """

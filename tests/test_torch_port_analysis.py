@@ -1,7 +1,9 @@
 """The reference notebooks' tables (``analysis.py``), the port against the
 JAX package.
 
-Both packages' ``engine_comparison`` and ``pretrain_study`` run on one
+Both packages' ``engine_comparison`` (here) and ``pretrain_study``
+(``tests/test_torch_port_analysis_study.py``, its own file so that the two
+run on separate workers) run on one
 small FS demo tree (the port's ``data/demo.py``: the tree of
 ``tests/test_torch_port_fs_fit.py``, two sites of about 40 subjects, the
 reference's 66 aseg features and MSANNet's full hidden widths from the
@@ -19,7 +21,6 @@ port's lands on 0.48419; each round's aggregate agrees within 1.3e-4 of a
 leaf's max (inside ``AGG_SHARE`` of that file).
 """
 
-import csv
 import functools
 import os
 import sys
@@ -106,40 +107,6 @@ def test_engine_comparison_matches_jax(tree, start, tmp_path, both):
     assert _md_rows(got["summary_markdown"]) == _md_rows(want["summary_markdown"])
     with open(tmp_path / "t" / "engine_comparison.md") as fh:
         assert fh.read() == got["summary_markdown"] + "\n"
-
-
-def test_pretrain_study_matches_jax(tree, start, tmp_path, both):
-    kw = dict(KW, agg_engine="dSGD", pretrained_path=start)
-    # five folds: each fold trains on 3/5 of a site, more rows than the
-    # pretraining batch of 16
-    args = dict(num_folds=5, pretrain_epochs=2, folds=[0, 2])
-    want = janalysis.pretrain_study(tree, str(tmp_path / "j"), base_cfg=jconfig.TrainConfig(**kw),
-                                    **args)
-    got = tanalysis.pretrain_study(tree, str(tmp_path / "t"), base_cfg=tconfig.TrainConfig(**kw),
-                                   device="cpu", **args)
-    for arm in ("scratch", "pretrained"):
-        g, w = got["arms"][arm], want["arms"][arm]
-        # the fold directories are named by the real fold id
-        assert g["fold_ids"] == w["fold_ids"] == [0, 2]
-        assert g["best_val_epochs"] == w["best_val_epochs"], arm
-        np.testing.assert_allclose(g["test_losses"], w["test_losses"], atol=METRIC_ATOL, rtol=0)
-        np.testing.assert_allclose(g["test_aucs"], w["test_aucs"], atol=METRIC_ATOL, rtol=0)
-        np.testing.assert_allclose(g["test_accuracies"], w["test_accuracies"],
-                                   atol=METRIC_ATOL, rtol=0)
-        np.testing.assert_allclose(g["test_f1s"], w["test_f1s"], atol=METRIC_ATOL, rtol=0)
-    assert got["arms"]["scratch"]["test_losses"] != got["arms"]["pretrained"]["test_losses"]
-    assert got["epoch_speedup"] == want["epoch_speedup"]
-    assert _md_rows(got["summary_markdown"]) == _md_rows(want["summary_markdown"])
-    rows = {}
-    for side in ("j", "t"):
-        with open(tmp_path / side / "pretrain_study.csv", newline="") as fh:
-            rows[side] = list(csv.reader(fh))
-    assert rows["t"][0] == rows["j"][0] == ["arm", "fold", "best_val_epoch", "test_auc",
-                                            "test_loss"]
-    assert [r[:3] for r in rows["t"]] == [r[:3] for r in rows["j"]]
-    assert len(rows["t"]) == 1 + 2 * 2
-    assert [os.path.basename(p) for p in got["figures"]] == [
-        os.path.basename(p) for p in want["figures"]]
 
 
 SCORE = [["Acc. from scratch", "Accuracy", 0.8], ["Acc. from scratch", "F1", 0.7],
