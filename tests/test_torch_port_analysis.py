@@ -77,7 +77,9 @@ def _jax_omega(G, r, device=None):
 @pytest.fixture
 def both(monkeypatch):
     """JAX's analysis over ``FedRunner(mesh=None)``, the port's on the CPU
-    with JAX's cold-start Ω."""
+    with JAX's cold-start Ω; the sanitizer off whatever an earlier test
+    left in the environment (each package's runner reads the variable)."""
+    monkeypatch.delenv("DINUNET_SANITIZE", raising=False)
     monkeypatch.setattr(janalysis, "FedRunner", functools.partial(jrunner.FedRunner, mesh=None))
     monkeypatch.setattr(tanalysis, "FedRunner",
                         functools.partial(trunner.FedRunner, device="cpu"))
