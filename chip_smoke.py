@@ -328,7 +328,33 @@ result line:
    ``BackfillLane`` serving the flagship checkpoint beside a tenant held
    below its quorum: K1 twice a dispatch on the cluster route, no library
    after warmup. One ``scheduler:`` JSON line of the phase's numbers;
-23. one JSON line of per-kernel numbers, then the result line.
+23. the supervisor and the pod plane at full width, on phase 21's tree (6
+   sites of 40 subjects): (a) a ``SliceSupervisor`` over one worker
+   process, ``scripts/torch_pod_worker.py``, a rankDAD ``FedRunner`` fit of
+   the flagship ICA-LSTM (3 epochs) that advertises its ``StatusExporter``
+   in its heartbeat, writes its spans to ``pod_trace/`` and rotates a slice
+   checkpoint (meta ``round``, ``params_sha256``) each epoch; generation 1
+   SIGKILLs itself at the aggregation of epoch 2's first round. The
+   supervisor notes and dumps to a ``FlightRecorder``, its ``on_consensus``
+   installs what ``consensus_round`` picks as the fold's resume point and
+   writes ``consensus/decision_gen1.json``, and it relaunches the worker
+   with ``--resume``. Held: the supervisor's rc 0; the final
+   ``params_digest`` and losses equal to an uninterrupted run of the same
+   worker alone, bit for bit; during generation 2 a ``PodCollector`` over
+   the supervisor's bus reads one target, no scrape error, with the
+   worker's epoch and round; ``postmortem --validate`` rc 0, its incident
+   slice 0, ``signal 9``, the consensus round and generation 2;
+   ``assemble`` puts the supervisor's and both workers' spans on one
+   timeline under one trace id; K1, K2 and K7 launched in each generation
+   on the cluster (K1, K2) and staged (K7) routes, no plain class, and the
+   two generations' launches equal to the uninterrupted run's plus the
+   killed epoch's. (b) The runner CLI's ``--schedule --statusz-port`` over
+   registers of phase 22's FS tenants ("fs1", one dSGD epoch, and "held",
+   below its quorum): one ``/statusz`` during the run, after "fs1"'s epoch,
+   says ``"mode": "pod"`` with the tenant table and the series stamped
+   ``process="scheduler"``, ``/metrics`` carries ``pod_scrape_targets``; a
+   shutdown event ends it, rc 0. One ``pod plane:`` JSON line of the phase's numbers;
+24. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -6289,6 +6315,349 @@ def sched_phase(torch, np, lc, pc, bc, smi: str, root: str, ica_tree: str | None
     return rec
 
 
+# The supervisor and the pod plane (phase 23): a supervised SIGKILL drill
+# of a real port fit (scripts/torch_pod_worker.py) on phase 21's tree, and
+# the runner CLI's --schedule --statusz-port.
+POD_EPOCHS, POD_KILL_EPOCH = 3, 2
+POD_RUN_KEYS = ("lstm_fwd", "lstm_bwd", "poweriter")
+
+
+def pod_worker_cmd(tree: str, out: str, generation: int, result: str, device=None) -> list:
+    """The worker script's command line (``--device`` only when given)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return [sys.executable, os.path.join(here, "scripts", "torch_pod_worker.py"),
+            "--data-path", tree, "--out-dir", out, "--generation", str(generation),
+            "--epochs", str(POD_EPOCHS), "--result", result] + (
+        ["--device", device] if device else [])
+
+
+def pod_worker_spawn(tree: str, out: str, trace: str, results: dict, device=None):
+    """``spawn(process_id, generation)`` for the supervisor: the worker
+    script on ``tree`` into ``out``, ``--resume`` after the first
+    generation, its result file in ``results[generation]``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def spawn(process_id, generation):
+        results[generation] = os.path.join(out, f"worker_gen{generation}.json")
+        cmd = pod_worker_cmd(tree, out, generation, results[generation], device) + [
+            "--kill-epoch", str(POD_KILL_EPOCH), "--pod-trace", trace]
+        if generation > 1:
+            cmd.append("--resume")
+        log = open(os.path.join(out, f"worker_gen{generation}.log"), "w")
+        try:
+            return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=here)
+        finally:
+            log.close()
+
+    return spawn
+
+
+def pod_install(pod: str, flight, installs: list):
+    """The supervisor's ``on_consensus``: install the round that
+    ``consensus_round`` picks as the fold's resume point (unless the fold's
+    checkpoint already sits at its epoch) and write the decision where the
+    post-mortem reads it, in the format of the JAX package's worker."""
+    import shutil as _shutil
+
+    from dinunet_implementations_tpu_torch.core.config import NNComputation
+    from dinunet_implementations_tpu_torch.runner.supervisor import (
+        consensus_round,
+        slice_ckpt_dir,
+    )
+    from dinunet_implementations_tpu_torch.telemetry.postmortem import CONSENSUS_DIR
+    from dinunet_implementations_tpu_torch.trainer import load_meta
+    from dinunet_implementations_tpu_torch.trainer.checkpoint import CorruptCheckpointError
+    from dinunet_implementations_tpu_torch.trainer.logs import fold_dir
+
+    def install(generation: int, dead_slice: int) -> None:
+        t0 = time.perf_counter()
+        decision = {"time_unix": time.time(), "generation": generation,
+                    "dead_slice": dead_slice, "round": None}
+        agreed = consensus_round({0: slice_ckpt_dir(pod, 0)})
+        if agreed is None:
+            flight.note("consensus-none", generation=generation)
+        else:
+            rnd, sha, path = agreed
+            epoch = load_meta(path).get("epoch")
+            resume = os.path.join(fold_dir(pod, "remote", NNComputation.TASK_ICA, 0),
+                                  "checkpoint_latest.msgpack")
+            try:
+                fold_epoch = load_meta(resume).get("epoch")
+            except (OSError, CorruptCheckpointError):
+                fold_epoch = None
+            if fold_epoch != epoch:
+                os.makedirs(os.path.dirname(resume), exist_ok=True)
+                _shutil.copyfile(path, resume)
+            flight.note("consensus-install", round=rnd, epoch=epoch, sha=sha[:12],
+                        replaced=fold_epoch != epoch)
+            decision.update(round=rnd, epoch=epoch, sha=sha, replaced=fold_epoch != epoch)
+        path = os.path.join(pod, CONSENSUS_DIR, f"decision_gen{generation}.json")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "w") as fh:
+            json.dump(decision, fh)
+        os.replace(path + ".tmp", path)
+        installs.append({**decision, "ms": (time.perf_counter() - t0) * 1e3})
+
+    return install
+
+
+def pod_read(path: str) -> dict:
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def pod_routes_ok(launches: dict) -> bool:
+    """K1, K2 and K7 launched, K1 and K2 on the cluster route, K7 staged,
+    no rank class sent to the plain power iteration."""
+    return (launches["lstm_fwd"] > 0 and launches["k1_cluster_route"] == launches["lstm_fwd"]
+            and launches["lstm_bwd"] > 0
+            and launches["k2_cluster_route"] == launches["lstm_bwd"]
+            and launches["poweriter"] > 0
+            and launches["k7_staged_route"] == launches["poweriter"]
+            and launches["poweriter_plain_classes"] == 0)
+
+
+def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
+    """(a): the supervised SIGKILL drill (the module docstring); ``device``
+    goes to the workers (None: the card)."""
+    import contextlib
+    import io
+
+    from dinunet_implementations_tpu_torch.runner.supervisor import SliceSupervisor
+    from dinunet_implementations_tpu_torch.telemetry import (
+        FlightRecorder,
+        MetricsBus,
+        SpanTracer,
+        new_trace_id,
+    )
+    from dinunet_implementations_tpu_torch.telemetry import assemble, postmortem
+    from dinunet_implementations_tpu_torch.telemetry.collector import PodCollector
+
+    pod, solo_dir = os.path.join(root, "pod_a"), os.path.join(root, "pod_a_solo")
+    os.makedirs(pod)
+    os.makedirs(solo_dir)
+    trace, results, installs = new_trace_id(), {}, []
+    bus, tracer = MetricsBus(), SpanTracer()
+    flight = FlightRecorder(pod, bus=bus, tracer=tracer)
+    sup = SliceSupervisor(pod_worker_spawn(tree, pod, trace, results, device), num_processes=1,
+                          out_dir=pod, heartbeat_timeout_s=120.0, max_restarts=1, poll_s=0.05,
+                          grace_s=20.0, flight=flight, bus=bus,
+                          on_consensus=pod_install(pod, flight, installs))
+    collector = PodCollector(pod, local_bus=bus, local_labels={"process": "supervisor"},
+                             cache_s=0.0)
+    t0 = time.perf_counter()
+    # the uninterrupted run of the same worker, alone, beside the drill
+    solo_result = os.path.join(solo_dir, "worker_solo.json")
+    with open(os.path.join(solo_dir, "worker_solo.log"), "w") as log:
+        solo = subprocess.Popen(pod_worker_cmd(tree, solo_dir, 0, solo_result, device),
+                                stdout=log, stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(__file__)))
+    box = {}
+
+    def supervise():
+        try:
+            with tracer.span("supervise", trace=trace, processes=1):
+                box["rc"] = sup.run()
+        except BaseException as e:  # the main thread reports it
+            box["error"] = repr(e)
+
+    thread = threading.Thread(target=supervise, name="pod-supervisor")
+    thread.start()
+    scraped, scrapes = None, 0
+    try:
+        while thread.is_alive():
+            if sup.generation >= 2 and scraped is None:
+                got = collector.collect()
+                scrapes += 1
+                tgt = got["targets"][0] if got["targets"] else {}
+                if got["targets"] and tgt.get("epoch") is not None:
+                    scraped = {"pod_scrape_targets": got["snapshot"]["gauges"][
+                        "pod_scrape_targets"],
+                        "pod_scrape_errors": got["snapshot"]["gauges"]["pod_scrape_errors"],
+                        "errors": got["errors"], "target_pid": tgt.get("pid"),
+                        "epoch": tgt.get("epoch"), "round": tgt.get("round"),
+                        "status": tgt.get("status"),
+                        "worker_series": sorted(k for k in got["snapshot"]["gauges"]
+                                                if 'process="0"' in k)}
+            time.sleep(0.02)
+        thread.join()
+        solo.wait(timeout=600)
+    finally:
+        if solo.poll() is None:
+            solo.kill()
+            solo.wait()
+    drill_s = time.perf_counter() - t0
+    with tracer.span("supervisor-exit", trace=trace):
+        flight.note("supervisor-exit", rc=box.get("rc"), restarts=sup.restarts)
+    flight.dump(f"supervisor-exit:rc={box.get('rc')}")
+    tracer.write_jsonl(os.path.join(pod, assemble.POD_TRACE_DIR, "supervisor.jsonl"))
+    if box.get("rc") != 0 or solo.returncode != 0 or set(results) != {1, 2}:
+        logs = {g: open(os.path.join(pod, f"worker_gen{g}.log")).read()[-3000:] for g in results}
+        fail(f"the supervised drill: {box}, restarts {sup.restarts}, solo rc {solo.returncode}, "
+             f"generations {sorted(results)}; logs {logs}")
+    gen = {g: pod_read(results[g]) for g in (1, 2)}
+    solo_out = pod_read(solo_result)
+    killed = gen[1]["killed"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pm_rc = postmortem.main([pod, "--validate", "--json", os.path.join(pod, "pm.json")])
+        asm_rc = assemble.main([pod, "--require-cross-process"])
+    incident = postmortem.incident_summary(postmortem.build_timeline(pod))
+    payload = assemble.assemble(pod)
+    pids = {s["pid"]: s["events"] for s in payload["metadata"]["sources"]}
+    shared = assemble.processes_by_trace(payload).get(trace, set())
+    epoch1_round = gen[1]["epochs"][0]["round"]
+    sums = {k: gen[1]["launches"][k] + gen[2]["launches"][k] for k in POD_RUN_KEYS}
+    want = {k: solo_out["launches"][k] + (killed or {}).get("in_epoch", {}).get(k, 0)
+            for k in POD_RUN_KEYS}
+    rec = {"card": smi, "rc": box.get("rc"), "restarts": sup.restarts,
+           "drill_seconds": drill_s,
+           "digest": gen[2]["digest"], "solo_digest": solo_out["digest"],
+           "losses_equal": gen[2].get("epoch_losses") == solo_out.get("epoch_losses"),
+           "killed": killed, "installs": installs, "scraped": scraped, "scrapes": scrapes,
+           "launches": {"gen1": gen[1]["launches"], "gen2": gen[2]["launches"],
+                        "solo": solo_out["launches"]},
+           "launches_two_generations": sums, "launches_solo_plus_killed": want,
+           "kill_to_first_heartbeat_s": (gen[2]["first_pulse_unix"] - killed["kill_unix"]
+                                         if killed else None),
+           "reload_ms": gen[2]["reload_ms"], "postmortem_rc": pm_rc, "assemble_rc": asm_rc,
+           "incident": incident, "trace_pids": sorted(shared),
+           "sources": {str(k): v for k, v in pids.items()},
+           "worker_pids": [gen[1]["pid"], gen[2]["pid"]],
+           "epoch1_round": epoch1_round}
+    print(f"pod plane (a): the supervised SIGKILL drill on {smi}:",
+          json.dumps(rec, default=float))
+    if not killed or killed["epoch"] != POD_KILL_EPOCH or gen[1]["digest"] is not None:
+        fail(f"generation 1 did not die in epoch {POD_KILL_EPOCH}: {killed}")
+    if rec["digest"] is None or rec["digest"] != rec["solo_digest"] or not rec["losses_equal"]:
+        fail(f"the resumed run's final digest {rec['digest']} (losses equal: "
+             f"{rec['losses_equal']}) is not the uninterrupted run's {rec['solo_digest']}")
+    if not (installs and installs[0]["round"] == epoch1_round and installs[0]["epoch"] == 1):
+        fail(f"the consensus install: {installs}, want epoch 1's round {epoch1_round}")
+    if not scraped or scraped["pod_scrape_targets"] != 1 or scraped["pod_scrape_errors"] != 0 \
+            or scraped["target_pid"] != gen[2]["pid"] or scraped["round"] is None:
+        fail(f"the pod collector during generation 2: {scraped} ({scrapes} scrapes)")
+    if pm_rc != 0 or incident["killed_slice"] != 0 \
+            or "signal 9" not in (incident["death_reason"] or "") \
+            or incident["consensus_round"] != epoch1_round \
+            or incident["restart_generation"] != 2:
+        fail(f"postmortem --validate rc {pm_rc}, incident {incident}: {buf.getvalue()[-2000:]}")
+    if asm_rc != 0 or not {os.getpid(), gen[1]["pid"], gen[2]["pid"]} <= shared \
+            or any(pids.get(p, 0) == 0 for p in (os.getpid(), gen[1]["pid"], gen[2]["pid"])):
+        fail(f"assemble: rc {asm_rc}, trace {trace} over {sorted(shared)}, sources {pids}")
+    for name, launches in rec["launches"].items():
+        if not pod_routes_ok(launches):
+            fail(f"the {name} worker off its routes: {launches}")
+    if sums != want:
+        fail(f"the two generations' launches {sums} are not the uninterrupted run's plus the "
+             f"killed epoch's {want}")
+    return rec
+
+
+def pod_cli(torch, smi: str, fs_tree: str, root: str) -> dict:
+    """(b): ``--schedule --statusz-port`` over registers of phase 22's FS
+    tenants; one ``/statusz`` (once "fs1" has trained its epoch) and one
+    ``/metrics`` during the run, then a shutdown event."""
+    import contextlib
+    import io
+    import socket
+
+    from dinunet_implementations_tpu_torch.runner import cli
+
+    cli_root = os.path.join(root, "pod_b")
+    spool = os.path.join(cli_root, "spool")
+    os.makedirs(spool)
+    # phase 22's tenants: "fs1" trains an epoch; "held", below its quorum,
+    # keeps the scheduler up until the shutdown event
+    for name, ev in (("ev000.json", {"tenant": "fs1", "capacity": FS_SITES}),
+                     ("ev001.json", {"tenant": "held", "capacity": 8, "quorum": 8})):
+        with open(os.path.join(spool, name), "w") as fh:
+            json.dump({"event": "register", "data_path": fs_tree, "max_epochs": 1,
+                       "config": {"agg_engine": "dSGD"}, **ev}, fh)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    buf, box = io.StringIO(), {}
+
+    def run():
+        try:
+            box["rc"] = cli.main(["--data-path", cli_root, "--schedule", "--pod-slices", "1",
+                                  "--statusz-port", str(port), "--serve-poll", "0.05",
+                                  "--sched-wall-s", "300", "--quiet"])
+        except BaseException as e:  # the main thread reports it
+            box["error"] = repr(e)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        thread = threading.Thread(target=run, name="pod-cli")
+        thread.start()
+        payload, get_ms, metrics = None, None, ""
+        key = 'sched_granted_slices{process="scheduler",tenant="fs1"}'
+        deadline = time.monotonic() + 300
+        while thread.is_alive() and time.monotonic() < deadline:
+            try:
+                code, text, ms = live_get(f"http://127.0.0.1:{port}/statusz")
+                body = json.loads(text)
+            except (OSError, ValueError):
+                time.sleep(0.02)
+                continue
+            tenants = (body.get("status") or {}).get("tenants", {})
+            if code == 200 and set(tenants) == {"fs1", "held"} \
+                    and tenants["fs1"]["epochs_run"] == 1 and key in body["metrics"]["gauges"]:
+                payload, get_ms = body, ms
+                metrics = live_get(f"http://127.0.0.1:{port}/metrics")[1]
+                break
+            time.sleep(0.02)
+        with open(os.path.join(spool, "ev999.json"), "w") as fh:
+            json.dump({"event": "shutdown"}, fh)
+        thread.join(600)
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1]) if lines else {}
+    status = (payload or {}).get("status") or {}
+    rec = {"card": smi, "rc": box.get("rc"), "error": box.get("error"), "seconds": seconds,
+           "statusz_ms": get_ms, "mode": status.get("mode"),
+           "tenants": sorted(status.get("tenants") or {}),
+           "status_keys": sorted(status), "targets": status.get("targets"),
+           "scheduler_series": len([k for k in ((payload or {}).get("metrics") or {})
+                                    .get("gauges", {}) if 'process="scheduler"' in k]),
+           "granted_series": key in ((payload or {}).get("metrics") or {}).get("gauges", {}),
+           "metrics_has_pod_scrape_targets": "pod_scrape_targets" in metrics,
+           "summary_tenants": sorted(summary.get("tenants") or {})}
+    print(f"pod plane (b): the CLI's --schedule --statusz-port on {smi}:", json.dumps(rec))
+    if rec["rc"] != 0 or payload is None or rec["mode"] != "pod" \
+            or rec["tenants"] != ["fs1", "held"] or not rec["granted_series"] \
+            or rec["targets"] != [] or not rec["metrics_has_pod_scrape_targets"] \
+            or rec["summary_tenants"] != ["fs1", "held"]:
+        fail(f"the CLI's pod /statusz: {rec}")
+    return rec
+
+
+def pod_phase(torch, np, lc, pc, bc, smi: str, root: str, tree: str | None = None,
+              fs_tree: str | None = None) -> dict:
+    """Phase 23 of the module docstring: the supervisor and the pod plane;
+    makes a tree of phase 21's shape and phase 14's FS tree under ``root``
+    when not given."""
+    from dinunet_implementations_tpu_torch.data import make_fs_demo_tree
+
+    t_phase = time.perf_counter()
+    tree = tree or daemon_tree(os.path.join(root, "pod_ica_tree"))
+    fs_tree = fs_tree or make_fs_demo_tree(os.path.join(root, "pod_fs_tree"), n_sites=FS_SITES,
+                                           subjects=FS_SUBJECTS, seed=0)
+    rec = {"drill": pod_drill(torch, smi, tree, root), "cli": pod_cli(torch, smi, fs_tree, root)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    d = rec["drill"]
+    line = {"card": smi, "supervisor_rc": d["rc"], "digest_equal": d["digest"] == d["solo_digest"],
+            "kill_to_first_heartbeat_s": d["kill_to_first_heartbeat_s"],
+            "reload_ms": d["reload_ms"], "consensus_install_ms": d["installs"][0]["ms"],
+            "drill_seconds": d["drill_seconds"], "statusz_ms": rec["cli"]["statusz_ms"],
+            "launches": {g: {k: d["launches"][g][k] for k in POD_RUN_KEYS}
+                         for g in ("gen1", "gen2", "solo")},
+            "phase_seconds": rec["seconds"]}
+    print("pod plane:", json.dumps(line, default=float))
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -6412,6 +6781,13 @@ def main() -> int:
               "14's, checkpoint-then-yield at one slice, --schedule and the backfill lane")
         sched = sched_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"),
                             os.path.join(root, "fs_tree"))
+
+        print(f"== 23. the supervisor and the pod plane at full width: a SliceSupervisor over a "
+              f"rankDAD fit on phase 21's tree ({POD_EPOCHS} epochs) SIGKILLed in epoch "
+              f"{POD_KILL_EPOCH}, consensus, resume, the pod collector, postmortem and "
+              "assemble; --schedule --statusz-port")
+        pod = pod_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"),
+                        os.path.join(root, "fs_tree"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6504,6 +6880,11 @@ def main() -> int:
     k7_by_path["sched_tenant_ica"] = sum(e["poweriter"] for e in pre["ica_launches_per_epoch"])
     k7_by_path["sched_tenant_fs"] = sum(e["poweriter"] for e in pre["fs_launches_per_epoch"])
     by_path["sched_backfill"] = sched["cli_backfill"]["launches"]["lstm_fwd"]
+    for g in ("gen1", "gen2"):  # the supervised worker's two generations
+        got = pod["drill"]["launches"][g]
+        by_path[f"pod_drill_{g}"] = got["lstm_fwd"]
+        bwd_by_path[f"pod_drill_{g}"] = got["lstm_bwd"]
+        k7_by_path[f"pod_drill_{g}"] = got["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -6619,7 +7000,7 @@ def main() -> int:
                 "design": BWD_DESIGN + f" (half of the clusters a direction, each on its own time "
                           f"map; {cot})",
                 "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
-    print(f"== 23. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
+    print(f"== 24. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

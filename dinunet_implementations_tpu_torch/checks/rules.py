@@ -28,6 +28,8 @@ PRINT_ALLOWED_FILES = {
     "analysis.py",  # the notebooks' report surface (summary_markdown)
     "checks/__main__.py",  # this analyzer's own CLI
     "telemetry/report.py",  # telemetry run-summary CLI (tables on stdout)
+    "telemetry/assemble.py",  # pod trace assembly CLI (its source summary)
+    "telemetry/postmortem.py",  # incident timeline CLI
     "serving/__main__.py",  # serving CLI: summary/latency JSON on stdout
 }
 

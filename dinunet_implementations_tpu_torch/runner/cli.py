@@ -47,7 +47,7 @@
     # the fleet scheduler: --data-path is the scheduler's root; tenants
     # register through <root>/spool/*.json and live under <root>/tenants/<id>/
     python -m dinunet_implementations_tpu_torch.runner.cli --data-path pod \
-        --schedule --pod-slices 1 --sched-ticks 40
+        --schedule --pod-slices 1 --sched-ticks 40 --statusz-port 0
 
     # the privacy plane: DP-SGD with an ε budget, masked wires, and a
     # personalized classifier head per site
@@ -65,7 +65,10 @@ line on stderr and exits with its code; a sanitizer violation prints JAX's
 dumps its flight recorder first). ``--schedule`` runs the fleet scheduler
 (runner/scheduler.py) over ``--data-path`` as its root and prints its
 summary, exit 70 when a tenant built a kernel library after its first
-epoch. ``--serve`` installs the flight
+epoch; with ``--statusz-port`` it serves the pod's endpoints, a
+``PodCollector`` over the scheduler's bus and the workers that advertise
+themselves in heartbeats under the root (``/statusz`` says ``"mode":
+"pod"`` and carries the tenant table). ``--serve`` installs the flight
 recorder's exception hook (the daemon's preemption guard owns the signals
 and dumps on them); ``--statusz-port`` starts the exporter over the
 daemon's bus, tracer, flight recorder, probes and status, as JAX's CLI
@@ -91,8 +94,6 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _MULTI_GPU = "A11 (multi-GPU)"
-_POD_PLANE = ("A19 (b) (the pod plane: --schedule --statusz-port serves the PodCollector, which "
-              "merges the supervisor's workers behind one /statusz)")
 _REFUSED = {
     "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
     "slices": (None, _MULTI_GPU), "min_slices": (None, _MULTI_GPU),
@@ -195,7 +196,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sched-ticks", type=int, default=None, metavar="N",
                    help="scheduler mode: stop after N scheduling ticks")
     p.add_argument("--statusz-port", type=int, default=None, metavar="PORT",
-                   help="with --serve: the live endpoints on 127.0.0.1:PORT: /metrics "
+                   help="with --serve or --schedule (the pod's, merged by the PodCollector): "
+                        "the live endpoints on 127.0.0.1:PORT: /metrics "
                         "(Prometheus), /healthz, /statusz (with the SLO burn), /tracez; "
                         "0 picks a free port, printed at start")
     p.add_argument("--slo-p99-ms", type=float, default=None, metavar="MS",
@@ -269,8 +271,6 @@ def _refuse(args) -> None:
             flag = "--" + dest.replace("_", "-")
             shown = flag if value is True else f"{flag} {value!r}"
             raise SystemExit(f"{shown} is not ported: ROADMAP {item}")
-    if args.schedule and args.statusz_port is not None:
-        raise SystemExit(f"--schedule --statusz-port is not ported: ROADMAP {_POD_PLANE}")
     if args.fused_poweriter == "off":
         raise SystemExit(
             "--fused-poweriter off asks for the JAX package's XLA power-iteration loop, which "
@@ -335,11 +335,34 @@ def main(argv: list[str] | None = None) -> int:
 
         sched = FleetScheduler(args.data_path, pod_slices=args.pod_slices, poll_s=args.serve_poll,
                                verbose=verbose, device=args.device)
+        exporter = None
+        if args.statusz_port is not None:
+            from ..telemetry.collector import PodCollector
+            from ..telemetry.exporter import ENDPOINTS, StatusExporter
+
+            # the pod's scope: the scheduler's bus and any worker that
+            # advertises its exporter in a heartbeat under the root, merged
+            # behind one /statusz
+            collector = PodCollector(args.data_path, local_bus=sched.bus,
+                                     local_labels={"process": "scheduler"},
+                                     status_extra=sched.status)
+            exporter = StatusExporter(
+                collector, port=args.statusz_port, health=sched.health_probes(),
+                statusz=collector.status,
+                slo=({"histogram": "serve_epoch_ms", "p99_target_ms": args.slo_p99_ms}
+                     if args.slo_p99_ms is not None else None))
+            port = exporter.start()
+            if verbose:
+                print(json.dumps({"statusz": f"http://127.0.0.1:{port}",
+                                  "endpoints": ENDPOINTS}), flush=True)
         try:
             summary = sched.run(max_wall_s=args.sched_wall_s, max_ticks=args.sched_ticks)
         except SanitizerViolation as v:
             print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
             return 70
+        finally:
+            if exporter is not None:
+                exporter.stop()
         print(json.dumps(_finite(summary), default=str))
         return 0
 

@@ -20,11 +20,20 @@
   events that dumps ``flight_<pid>.json`` (with a final bus snapshot) on
   an unhandled exception or a signal.
 
-The fleet scheduler (runner/scheduler.py) publishes its tenants' series
-through ``LabeledBusView``s of one bus and writes its grant log,
-``<root>/grants.jsonl``. The pod plane (the pod collector, the trace
-assembler and the post-mortem, which reads the supervisor's files and that
-grant log) is ROADMAP A19 (b), with the supervisor.
+The pod plane merges the processes of a supervised run
+(runner/supervisor.py) or a fleet scheduler's root:
+
+- :mod:`.collector`: the ``PodCollector`` finds workers by the ``/statusz``
+  port their heartbeats advertise, scrapes and merges their bus snapshots
+  (counters summed, gauges and histograms stamped ``{process,slice}``) and
+  has the bus read API, so one ``StatusExporter`` serves the pod;
+- :mod:`.assemble`: ``python -m …telemetry.assemble <pod-dir>`` merges the
+  per-process ``trace.jsonl`` files into one clock-aligned Perfetto
+  timeline;
+- :mod:`.postmortem`: ``python -m …telemetry.postmortem <pod-dir>`` orders
+  the flight dumps, heartbeats, liveness spool, consensus decisions and the
+  scheduler's ``grants.jsonl`` into one incident timeline; ``--validate``
+  checks that the story is complete.
 """
 
 from .bus import NULL_BUS, LabeledBusView, MetricsBus, global_bus, series_key
@@ -40,16 +49,29 @@ __all__ = [
     "FlightRecorder",
     "HistogramShapeError",
     "LabeledBusView",
+    "LabelCollisionError",
     "LogHistogram",
     "MetricsBus",
+    "PodCollector",
     "SpanTracer",
     "StatusExporter",
     "bucket_bounds",
     "duration",
     "flight_files",
     "global_bus",
+    "merge_snapshots",
     "new_trace_id",
     "render_prometheus",
     "series_key",
     "slo_burn",
+    "stamp_snapshot",
 ]
+
+
+def __getattr__(name):
+    # the pod plane loads when first asked for, as the JAX package's does
+    if name in ("PodCollector", "LabelCollisionError", "merge_snapshots", "stamp_snapshot"):
+        from . import collector
+
+        return getattr(collector, name)
+    raise AttributeError(name)

@@ -61,6 +61,10 @@ from dinunet_implementations_tpu_torch.weights import (
     train_state_to_jax,
 )
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 BOUND, DECAY = 2, 0.5
 EPOCHS = 2
 # 4 rounds an epoch: two stragglers of 2 rounds (site 1 from the fit's

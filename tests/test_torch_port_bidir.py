@@ -29,6 +29,10 @@ from dinunet_implementations_tpu_torch.ops import bilstm_cuda as tb
 from dinunet_implementations_tpu_torch.trainer import steps as tsteps
 from dinunet_implementations_tpu_torch.weights import params_from_jax
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 ICA = TrainConfig(task_id=NNComputation.TASK_ICA)
 F32 = dict(atol=1e-5, rtol=1e-5)
 F32_GRAD = dict(atol=1e-4, rtol=1e-4)

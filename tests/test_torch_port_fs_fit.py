@@ -48,6 +48,10 @@ from dinunet_implementations_tpu_torch.weights import (
     train_state_to_jax,
 )
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 TASK = "FS-Classification"
 # the narrow model of the epoch tests: 12 features, three hidden layers;
 # three sites of unequal size, batch 4 (the small sites wrap)

@@ -58,6 +58,10 @@ from dinunet_implementations_tpu_torch.weights import (
     train_state_to_jax,
 )
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 TASK = "Multimodal-Classification"
 # the packed sample: 10 FS features, 3 windows of 4 components x 5 values
 FS, C, W, NW = 10, 4, 5, 3

@@ -19,6 +19,10 @@ from dinunet_implementations_tpu.ops import poweriter_pallas as pp
 from dinunet_implementations_tpu_torch.engines import lowrank as tl
 from dinunet_implementations_tpu_torch.ops import poweriter_cuda as pc
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 ITERS = 5
 # f32: the port and JAX sum the products in other orders; the two JAX paths
 # differ by 1.2e-7 on these inputs, the port by as much

@@ -35,6 +35,10 @@ from dinunet_implementations_tpu_torch.runner import registry as tregistry
 from dinunet_implementations_tpu_torch.trainer import loop as tloop
 from dinunet_implementations_tpu_torch.weights import train_state_to_jax
 
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
+
 TASK = "ICA-Classification"
 # 3 sites of 24, 40 and 32 subjects (train splits of 19, 32 and 25 rows):
 # the largest training site is site 1

@@ -21,8 +21,8 @@ package's.
 - the port alone: tenant-scoped sinks, bus labels, ``/statusz`` and the
   report's tenant rollup; an ε-budget stop isolated to one tenant; the
   backfill lane (no kernel library loaded after its warmup) and its
-  missing-feed error; the CLI's ``--schedule`` and its refusal of
-  ``--schedule --statusz-port``.
+  missing-feed error; the CLI's ``--schedule``, and ``--schedule
+  --statusz-port``, which serves the pod's endpoints.
 """
 
 import dataclasses
@@ -413,7 +413,8 @@ def test_a_tenant_of_more_than_one_slice_is_refused_naming_a11(tmp_path, trees):
 def test_cli_schedule_runs_the_spool_and_refuses_the_pod_plane(tmp_path, trees, capsys):
     """``--schedule`` over a root whose spool holds a register and a
     shutdown: rc 0 and one strict-JSON summary line; ``--schedule
-    --statusz-port`` names A19 (b)."""
+    --statusz-port 0`` over the finished root is served (rc 0, the
+    endpoints' line before the summary), no longer refused."""
     root = str(tmp_path / "pod")
     os.makedirs(os.path.join(root, "spool"))
     with open(os.path.join(root, "spool", "ev000.json"), "w") as fh:
@@ -427,6 +428,9 @@ def test_cli_schedule_runs_the_spool_and_refuses_the_pod_plane(tmp_path, trees, 
     summary = json.loads(line, parse_constant=lambda c: pytest.fail(f"not strict JSON: {c}"))
     assert list(summary["tenants"]) == ["study0"] and summary["goodput"]["ticks"] == 1
     assert summary["tenants"]["study0"]["epochs_run"] == 1
-    with pytest.raises(SystemExit, match=r"--schedule --statusz-port is not ported: ROADMAP "
-                                         r"A19 \(b\)"):
-        tcli.main(["--data-path", root, "--schedule", "--statusz-port", "0", "--device", "cpu"])
+    assert tcli.main(["--data-path", root, "--schedule", "--statusz-port", "0", "--sched-ticks",
+                      "1", "--serve-poll", "0", "--device", "cpu"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert lines[0]["statusz"].startswith("http://127.0.0.1:")
+    assert lines[0]["endpoints"] == ["/metrics", "/healthz", "/statusz", "/tracez"]
+    assert lines[-1]["tenants"] == {}

@@ -216,7 +216,9 @@ def test_importing_the_port_pulls_in_no_jax():
                 "robustness.faults", "robustness.attacks", "privacy.accounting",
                 "privacy.dpsgd", "privacy.personalize", "privacy.secure_agg",
                 "telemetry.flight", "telemetry.exporter", "serving.__main__", "analysis",
-                "checks.core", "checks.rules", "checks.__main__", "runner.scheduler"):
+                "checks.core", "checks.rules", "checks.__main__", "runner.scheduler",
+                "runner.supervisor", "telemetry.collector", "telemetry.assemble",
+                "telemetry.postmortem"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -246,7 +248,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                  "privacy/accounting.py", "privacy/dpsgd.py", "privacy/personalize.py",
                  "privacy/secure_agg.py", "telemetry/flight.py", "telemetry/exporter.py",
                  "serving/__main__.py", "analysis.py", "checks/core.py", "checks/rules.py",
-                 "checks/__main__.py", "runner/scheduler.py"):
+                 "checks/__main__.py", "runner/scheduler.py", "runner/supervisor.py",
+                 "telemetry/collector.py", "telemetry/assemble.py", "telemetry/postmortem.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

@@ -1,16 +1,23 @@
-"""The port's training slice against the JAX package: whole federated dSGD,
-rankDAD and powerSGD epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
+"""The port's training slice against the JAX package: whole federated dSGD
+epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
 pipeline, sites folded onto one device), also with the fused bidirectional
 arm (``ICALstm(fused_bidir=True)``), the epoch plan, dropout, the
-optimizer, and the LSTM cell's two biases.
+optimizer, and the LSTM cell's two biases. The rankDAD and powerSGD epochs,
+which hold the engines, are in ``test_torch_port_train_lowrank.py`` (this
+file's helpers), so that ``pytest --dist loadfile`` can run them on another
+worker.
 
-The JAX epochs run the Pallas LSTM kernels in interpret mode; the port runs
-the kernels' plain versions on the CPU. Both start from one initial state,
-carried across by ``weights.train_state_from_jax``; inputs are made with
-numpy from a seed.
+The JAX epochs here run the Pallas LSTM kernels in interpret mode (the
+low-rank file's run JAX's plain LSTM reference); the port runs the kernels'
+plain versions on the CPU. Both start from one initial state, carried
+across by ``weights.train_state_from_jax``; inputs are made with numpy from
+a seed. ``_jax_setup`` builds each JAX model, state and epoch once a
+process: the cases that share them skip XLA's compile of
+``init_train_state`` and of the epoch.
 """
 
 import dataclasses
+import functools
 import re
 
 import jax
@@ -40,6 +47,10 @@ from dinunet_implementations_tpu_torch.weights import (
     train_state_from_jax,
     train_state_to_jax,
 )
+
+# one intra-op thread: the suite runs in several worker processes on a few
+# cores, and oversubscribed torch thread pools slow a CPU fit tens of times
+torch.set_num_threads(1)
 
 # small ICA-LSTM: 6 windows of 4 components x 5 timepoints; 3 sites of
 # unequal size, batch 4 (2, 4 and 3 batches: the small sites wrap)
@@ -138,9 +149,13 @@ def _sites(seed=0, cls=jdata.SiteArrays):
 DAD = dict(dad_reduction_rank=10, dad_num_pow_iters=5, dad_tol=1e-3, dad_warm_start=True)
 
 
-def _jax_setup(pb, L, qr, engine_name="dSGD", fused=False):
+@functools.lru_cache(maxsize=None)
+def _jax_setup(pb, L, qr, engine_name="dSGD", fused=False, use_pallas=True):
+    """The JAX side of a case: its initial state and its jitted epoch, built
+    once a process for each key (the state's arrays are immutable and the
+    epoch donates nothing, so the cases can share them)."""
     model = jm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C, window_size=W, num_cls=2,
-                       use_pallas=True, dropout_rate=0.0, fused_bidir=fused or None)
+                       use_pallas=use_pallas, dropout_rate=0.0, fused_bidir=fused or None)
     task = jsteps.FederatedTask(model)
     engine = make_engine(engine_name, precision_bits=pb, **(DAD if engine_name == "rankDAD" else {}))
     opt = jsteps.make_optimizer("adam", LR)
@@ -215,7 +230,9 @@ def _run(epoch, state, inv, plans, masks, to_dev):
 
 
 # (local_iterations, precision_bits, quarantine_rounds, fault, engine, fused
-# bidirectional arm) per case
+# bidirectional arm) per case: the dSGD and fused cases here, with JAX's
+# Pallas kernels; the low-rank engines' in test_torch_port_train_lowrank.py,
+# with JAX's plain LSTM
 CASES = {
     "L1-f32": (1, "32", 3, None, "dSGD", False),
     "L2-f32": (2, "32", 3, None, "dSGD", False),
@@ -223,14 +240,16 @@ CASES = {
     "live-drop": (1, "32", 3, "live", "dSGD", False),
     "nan-quarantine": (1, "32", 3, "poison", "dSGD", False),
     "unguarded": (1, "32", -1, None, "dSGD", False),
+    "fused-f32": (1, "32", 3, None, "dSGD", True),
+    "fused-bf16": (1, "16", 3, None, "dSGD", True),
+}
+LOWRANK_CASES = {
     "rankDAD-f32": (1, "32", 3, None, "rankDAD", False),
     "rankDAD-bf16": (1, "16", 3, None, "rankDAD", False),
     "rankDAD-live-drop": (1, "32", 3, "live", "rankDAD", False),
     "powerSGD-f32": (1, "32", 3, None, "powerSGD", False),
     "powerSGD-bf16": (1, "16", 3, None, "powerSGD", False),
     "powerSGD-live-drop": (1, "32", 3, "live", "powerSGD", False),
-    "fused-f32": (1, "32", 3, None, "dSGD", True),
-    "fused-bf16": (1, "16", 3, None, "dSGD", True),
 }
 
 
@@ -255,13 +274,20 @@ def _masks(fault, rounds):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_epochs_match_jax(case):
-    L, pb, qr, fault, engine_name, fused = CASES[case]
+    _check_epochs(CASES[case], use_pallas=True)
+
+
+def _check_epochs(case: tuple, use_pallas: bool) -> None:
+    """One case of ``CASES`` / ``LOWRANK_CASES``: its first round's
+    aggregate (and rankDAD's Ω, powerSGD's q and e), then its epochs' losses
+    and end state, held against JAX's."""
+    L, pb, qr, fault, engine_name, fused = case
     sites = _sites()
     inv = jdata.stack_site_inventory(sites)
     plans = [jbatching.plan_epoch_positions(sites, B, seed=e).positions for e in range(EPOCHS)]
     rounds = plans[0].shape[1] // L
     masks = _masks(fault, rounds)
-    state_j, epoch_j = _jax_setup(pb, L, qr, engine_name, fused)
+    state_j, epoch_j = _jax_setup(pb, L, qr, engine_name, fused, use_pallas)
     state_t, epoch_t = _port_setup(state_j, pb, L, qr, engine_name, fused)
 
     dad, psgd = engine_name == "rankDAD", engine_name == "powerSGD"
@@ -337,52 +363,6 @@ def test_epochs_match_jax(case):
     if fault == "live":
         np.testing.assert_array_equal(got["health"]["skips"], [1, 0, 0])
     assert (got["engine_state"] == {}) == (not dad and not psgd)
-
-
-@pytest.mark.parametrize("pb", ["32", "16"])
-def test_rankdad_engine_on_jax_gradients_is_inside_jax_spread(pb):
-    """The measurement behind ``DAD_AGG_SHARE``: the first round's per-site
-    gradients of the JAX model go through JAX's two power-iteration paths
-    and through the port's engine; both JAX paths and the port stay within
-    the share of each other, leaf by leaf."""
-    from dinunet_implementations_tpu.parallel.mesh import SITE_AXIS
-
-    sites = _sites()
-    inv = jdata.stack_site_inventory(sites)
-    plan = jbatching.plan_epoch_positions(sites, B, seed=0).positions[:, :1]
-    state_j, _ = _jax_setup(pb, 1, 3, "rankDAD")
-    task = jsteps.FederatedTask(jm.ICALstm(input_size=IN, hidden_size=HID, num_comps=C,
-                                           window_size=W, num_cls=2, use_pallas=True,
-                                           dropout_rate=0.0))
-    task.init_variables(jax.random.PRNGKey(0), jnp.zeros((2, T, C, W)))
-    xb, yb, wb = jax.vmap(jsteps._gather_batch, in_axes=(0, 0, 0, None))(
-        jnp.asarray(inv.inputs), jnp.asarray(inv.labels), jnp.asarray(plan), None)
-
-    def loss(p, x, y, w):
-        logits, _ = task.apply(p, state_j.batch_stats, x, train=True, mask=w, mutable=True)
-        return jsteps.cross_entropy(logits, y, w)
-
-    grads = jax.vmap(jax.grad(loss), in_axes=(None, 0, 0, 0))(
-        state_j.params, xb[:, 0], yb[:, 0], wb[:, 0])
-    n = wb[:, 0].sum(1)
-    stats = jax.tree.map(np.asarray, state_j.batch_stats)
-
-    def jax_agg(fused):
-        eng = make_engine("rankDAD", precision_bits=pb, fused_poweriter=fused, **DAD)
-        agg, _ = jax.vmap(lambda g, st, w: eng.aggregate(g, st, w, SITE_AXIS, live=jnp.float32(1)),
-                          axis_name=SITE_AXIS)(grads, state_j.engine_state, n)
-        return jax.tree.map(lambda a: np.asarray(a[0]), agg)
-
-    legacy, fused = jax_agg(False), jax_agg(True)
-    state_t = train_state_from_jax(jax.tree.map(np.asarray, state_j), device="cpu")
-    per_site = [params_from_jax(ICA, jax.tree.map(lambda a, s=s: np.asarray(a[s]), grads), stats)
-                for s in range(S)]
-    grads_t = {k: torch.stack([g[k] for g in per_site]) for k in state_t.params}
-    engine = make_rankdad(precision_bits=pb, transposed=leaf_table(ICA).transposed, **DAD)
-    agg_t, _ = engine.aggregate(grads_t, state_t.engine_state, torch.from_numpy(np.array(n)))
-    port = train_state_to_jax(dataclasses.replace(state_t, params=agg_t))["params"]
-    _compare_at_share(fused, legacy, DAD_AGG_SHARE[pb])
-    _compare_at_share(port, legacy, DAD_AGG_SHARE[pb])
 
 
 def test_bias_leaves_take_one_adam_step_each_as_in_jax():
