@@ -306,6 +306,9 @@ class InferenceEngine:
                               "trace_ids": [r.trace_id for r in batch], **self._bus_labels})
 
     def _finish(self, reqs, lane: str) -> None:
+        """The requests' latencies and counts, recorded before their futures
+        resolve: a caller that waits for its answer (a drain, then a
+        rollback check over the window) finds its own sample on the bus."""
         now = time.monotonic()
         with self._lock:
             for r in reqs:
@@ -336,9 +339,9 @@ class InferenceEngine:
             self._mirror.append((bucket, x, w))
             del self._mirror[:-MIRROR_CAP]
             self.stats["samples"] += at
+        self._finish(reqs, "infer")
         for r, lo, n in spans:
             r.future.set_result(probs[lo:lo + n])
-        self._finish(reqs, "infer")
 
     def _dispatch_stream(self, reqs, bucket: int) -> None:
         """One streaming step over up to ``bucket`` sessions: resolve slots
@@ -361,10 +364,6 @@ class InferenceEngine:
         with self.tracer.span("serve-stream", bucket=bucket, rows=len(reqs),
                               trace_ids=[r.trace_id for r in reqs]):
             probs = self._stream_step(self._live, slot_ix, fresh, x, sv, valid)
-        for i, r in enumerate(reqs):
-            r.future.set_result({"probs": probs[i], "session": r.session,
-                                 "generation": r.generation, "restarted": bool(r.fresh),
-                                 "trace_id": r.trace_id})
         with self._lock:
             self.stats["samples"] += len(reqs)
             self.stats["stream_chunks"] += len(reqs)
@@ -373,6 +372,10 @@ class InferenceEngine:
         self.bus.gauge("serving_sessions_occupied", occupied, **self._bus_labels)
         self.bus.gauge("serving_session_evictions", evictions, **self._bus_labels)
         self._finish(reqs, "stream")
+        for i, r in enumerate(reqs):
+            r.future.set_result({"probs": probs[i], "session": r.session,
+                                 "generation": r.generation, "restarted": bool(r.fresh),
+                                 "trace_id": r.trace_id})
 
     # -- public API --------------------------------------------------------
 
@@ -558,10 +561,12 @@ class InferenceEngine:
         return [L for L in (self._infer_lane, self._stream_lane) if L is not None]
 
     def drain(self, timeout: float = 30.0) -> None:
-        """Block until both lanes' queues are empty (best effort)."""
+        """Block until both lanes are idle: every request submitted so far
+        answered and its dispatch accounted (best effort, up to
+        ``timeout``)."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
-            if all(L.depth() == 0 for L in self._lanes()):
+            if all(L.idle() for L in self._lanes()):
                 return
             time.sleep(0.002)
 

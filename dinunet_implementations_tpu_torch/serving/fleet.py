@@ -285,11 +285,13 @@ class ReplicaSet:
         return sum(e.warmup_seconds for e in self._engines if e is not None)
 
     def drain(self, timeout: float = 30.0) -> None:
+        """Block until every live replica's lanes are idle (the engine's
+        ``drain``), up to ``timeout``."""
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with self._lock:
                 engines = [e for e in self._engines if e is not None]
-            if all(L.depth() == 0 for e in engines for L in e._lanes()):
+            if all(L.idle() for e in engines for L in e._lanes()):
                 return
             time.sleep(0.002)
 

@@ -115,6 +115,9 @@ class Microbatcher:
         self._pending: list = []
         self._sentinel = False
         self._seq = 0
+        # requests admitted and requests settled (answered or shed, and their
+        # dispatch accounted): equal when the lane is idle
+        self._admitted = self._settled = 0
         self._closed = False
         self._stats_lock = threading.Lock()
         self.stats = {
@@ -165,6 +168,7 @@ class Microbatcher:
         with self._stats_lock:
             self._seq += 1
             req._seq = self._seq
+            self._admitted += 1
         self._q.put(req)
         # peak depth is sampled at ENQUEUE too: sampling only at dispatch
         # time would miss a burst that arrived and drained between two
@@ -173,8 +177,16 @@ class Microbatcher:
 
     def depth(self) -> int:
         """Instantaneous queue depth (queued + collection-pending requests):
-        the ONE definition status(), drain() and the peak sampler share."""
+        the ONE definition status() and the peak sampler share."""
         return self._q.qsize() + len(self._pending)
+
+    def idle(self) -> bool:
+        """Every admitted request answered or shed, and its dispatch's stats,
+        series and ``on_dispatch`` row written: what a drain waits for (a
+        request leaves the queue before its answer, and its answer comes
+        before its dispatch's accounting)."""
+        with self._stats_lock:
+            return self._settled == self._admitted
 
     def _note_depth(self) -> int:
         depth = self.depth()
@@ -227,6 +239,8 @@ class Microbatcher:
                     f"{(now - r._submit_t) * 1e3:.1f} ms, past its "
                     f"{d} ms deadline"
                 ))
+                with self._stats_lock:
+                    self._settled += 1
             else:
                 keep.append(r)
         self._pending = keep
@@ -353,6 +367,9 @@ class Microbatcher:
                 for r in batch:
                     if not r.future.done():
                         r.future.set_exception(e)
+            finally:
+                with self._stats_lock:
+                    self._settled += len(batch)
 
     def close(self, timeout: float = 10.0) -> None:
         if self._closed:

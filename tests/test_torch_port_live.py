@@ -20,6 +20,7 @@ import os
 import re
 import signal
 import sys
+import time
 import urllib.error
 import urllib.request
 
@@ -413,6 +414,54 @@ def test_publish_rows_match_jax(fs_weights, tmp_path):
         shapes.append([(r["kind"], r.get("outcome"), tuple(sorted(r))) for r in rows])
     assert shapes[0] == shapes[1]
     assert [k for k, _, _ in shapes[0]] == ["publish", "publish", "rollback"]
+
+
+def test_a_request_s_latency_is_on_the_bus_when_its_answer_is(fs_weights):
+    """A caller that waits for its answer finds the request's latency on the
+    bus already, so a rollback check right after a drain counts every
+    request of its window: the engine records the latency before it
+    resolves the future. A bus whose ``observe`` is slow shows the order
+    (resolved first, the count would lag by one)."""
+    params, stats = fs_weights
+    _, tcfg = _fs_cfgs()
+
+    class SlowBus(MetricsBus):
+        def observe(self, name, value, **kw):
+            time.sleep(0.2)
+            super().observe(name, value, **kw)
+
+    bus = SlowBus()
+    with InferenceEngine(tcfg, params=params, batch_stats=stats, row_buckets=(2,), bus=bus,
+                         device="cpu") as eng:
+        eng.warmup()
+        for i in range(3):
+            eng.submit(np.full((2, 8), i, np.float32)).result(timeout=60)
+            assert bus.merged_histogram("serving_request_latency_ms").count == i + 1
+
+
+def test_drain_returns_once_every_dispatch_is_accounted(fs_weights):
+    """``drain`` waits for every submitted request's dispatch row and
+    stats, not only for the queue to empty (a request leaves the queue
+    before its answer, and its answer comes before its row), so a script's
+    rows after a drain follow its dispatch rows. A sink whose ``append``
+    is slow shows the order."""
+    params, stats = fs_weights
+    _, tcfg = _fs_cfgs()
+
+    class SlowSink(list):
+        def append(self, row):
+            time.sleep(0.2)
+            super().append(row)
+
+    sink = SlowSink()
+    with InferenceEngine(tcfg, params=params, batch_stats=stats, row_buckets=(2,),
+                         bus=MetricsBus(), sink=sink, close_sink=False, device="cpu") as eng:
+        eng.warmup()
+        for i in range(2):
+            eng.submit(np.full((2, 8), i, np.float32))
+            eng.drain()
+            assert [r["kind"] for r in sink].count("dispatch") == i + 1
+            assert eng.summary()["dispatches"] == i + 1
 
 
 # -- the daemon ----------------------------------------------------------------------

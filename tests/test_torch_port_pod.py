@@ -362,8 +362,11 @@ def _free_port() -> int:
 
 def _served_statusz(cli, root: str, extra=()):
     """``cli.main`` with ``--schedule --statusz-port`` in a thread: one
-    ``/statusz`` and one ``/metrics`` while it runs, then a shutdown event
-    ends it. ``(rc, statusz, metrics)``."""
+    ``/statusz`` and one ``/metrics`` while it runs, once the served
+    snapshot holds a whole first tick (its ``sched_ticks_total`` counter at
+    2: a tick sets its last gauges after counting itself, and the
+    collector's snapshot may be older than the status beside it), then a
+    shutdown event ends it. ``(rc, statusz, metrics)``."""
     port = _free_port()
     os.makedirs(os.path.join(root, "spool"), exist_ok=True)
     out = {}
@@ -375,10 +378,12 @@ def _served_statusz(cli, root: str, extra=()):
     while True:
         try:
             payload = _get(port)
-            break
+            if payload["metrics"]["counters"].get("sched_ticks_total", 0) >= 2:
+                break
         except OSError:
-            assert time.time() < deadline and t.is_alive(), "never served /statusz"
-            time.sleep(0.05)
+            pass
+        assert time.time() < deadline and t.is_alive(), "never served a whole tick"
+        time.sleep(0.05)
     metrics = _get(port, "/metrics")
     with open(os.path.join(root, "spool", "zz_shutdown.json"), "w") as fh:
         json.dump({"event": "shutdown"}, fh)

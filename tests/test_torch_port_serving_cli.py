@@ -17,12 +17,16 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
 import torch
 
 from dinunet_implementations_tpu.serving import __main__ as jserve
+from dinunet_implementations_tpu.serving import engine as jengine
+from dinunet_implementations_tpu.serving import fleet as jfleet
+from dinunet_implementations_tpu.serving import microbatch as jmicrobatch
 from dinunet_implementations_tpu.telemetry import report as jreport
 from dinunet_implementations_tpu_torch.data import demo as tdemo
 from dinunet_implementations_tpu_torch.runner import cli as tcli
@@ -116,8 +120,55 @@ MODES = {
 }
 
 
+@pytest.fixture
+def jax_drain_waits_for_rows(monkeypatch):
+    """JAX's ``drain`` returns once its lanes' queues are empty, which can be
+    before the last dispatch's latency and row are recorded (a request
+    leaves the queue before its answer, and its answer comes before its
+    row), so the order of its rows after a drain is a race. The port's
+    drain waits for both (``serving/microbatch.py`` ``idle``). For the JAX
+    run, its drains wait likewise: each lane counts what it admitted and
+    the requests of the dispatches whose row it wrote."""
+    init, submit = jmicrobatch.Microbatcher.__init__, jmicrobatch.Microbatcher.submit
+
+    def counted_init(self, *a, **kw):
+        init(self, *a, **kw)
+        self.admitted = self.settled = 0
+        on_dispatch = self.on_dispatch
+
+        def settle(lane, batch, *rest):
+            if on_dispatch is not None:
+                on_dispatch(lane, batch, *rest)
+            self.settled += len(batch)
+
+        self.on_dispatch = settle
+
+    def counted_submit(self, req):
+        submit(self, req)  # a refused request raises before it counts
+        self.admitted += 1
+
+    def wait_idle(lanes, timeout):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline and any(L.settled < L.admitted for L in lanes):
+            time.sleep(0.002)
+
+    def engine_drain(self, timeout=30.0):
+        wait_idle([L for L in (self._infer_lane, self._stream_lane) if L], timeout)
+
+    def fleet_drain(self, timeout=30.0):
+        with self._lock:
+            engines = [e for e in self._engines if e is not None]
+        wait_idle([L for e in engines for L in (e._infer_lane, e._stream_lane) if L], timeout)
+
+    monkeypatch.setattr(jmicrobatch.Microbatcher, "__init__", counted_init)
+    monkeypatch.setattr(jmicrobatch.Microbatcher, "submit", counted_submit)
+    monkeypatch.setattr(jengine.InferenceEngine, "drain", engine_drain)
+    monkeypatch.setattr(jfleet.ReplicaSet, "drain", fleet_drain)
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_both_clis_serve_one_port_written_checkpoint(fitted, mode, capsys):
+def test_both_clis_serve_one_port_written_checkpoint(fitted, mode, capsys,
+                                                     jax_drain_waits_for_rows):
     tree, ckpt, root = fitted
     summaries, kinds, fired = [], [], []
     for name, mod, report, extra in (("ours", tserve, treport, ["--device", "cpu"]),
