@@ -3,12 +3,12 @@ epochs of a small ICA-LSTM (trainer/steps.py make_train_epoch_fn, device
 pipeline, sites folded onto one device), also with the fused bidirectional
 arm (``ICALstm(fused_bidir=True)``), the epoch plan, dropout, the
 optimizer, and the LSTM cell's two biases. The rankDAD and powerSGD epochs,
-which hold the engines, are in ``test_torch_port_train_lowrank.py`` (this
-file's helpers), so that ``pytest --dist loadfile`` can run them on another
-worker.
+which hold the engines, are in ``test_torch_port_train_rankdad.py`` and
+``test_torch_port_train_powersgd.py`` (this file's helpers), so that
+``pytest --dist loadfile`` can run them on other workers.
 
 The JAX epochs here run the Pallas LSTM kernels in interpret mode (the
-low-rank file's run JAX's plain LSTM reference); the port runs the kernels'
+low-rank files' run JAX's plain LSTM reference); the port runs the kernels'
 plain versions on the CPU. Both start from one initial state, carried
 across by ``weights.train_state_from_jax``; inputs are made with numpy from
 a seed. ``_jax_setup`` builds each JAX model, state and epoch once a
@@ -231,8 +231,8 @@ def _run(epoch, state, inv, plans, masks, to_dev):
 
 # (local_iterations, precision_bits, quarantine_rounds, fault, engine, fused
 # bidirectional arm) per case: the dSGD and fused cases here, with JAX's
-# Pallas kernels; the low-rank engines' in test_torch_port_train_lowrank.py,
-# with JAX's plain LSTM
+# Pallas kernels; the low-rank engines' in test_torch_port_train_rankdad.py
+# and test_torch_port_train_powersgd.py, with JAX's plain LSTM
 CASES = {
     "L1-f32": (1, "32", 3, None, "dSGD", False),
     "L2-f32": (2, "32", 3, None, "dSGD", False),
@@ -243,10 +243,12 @@ CASES = {
     "fused-f32": (1, "32", 3, None, "dSGD", True),
     "fused-bf16": (1, "16", 3, None, "dSGD", True),
 }
-LOWRANK_CASES = {
+RANKDAD_CASES = {
     "rankDAD-f32": (1, "32", 3, None, "rankDAD", False),
     "rankDAD-bf16": (1, "16", 3, None, "rankDAD", False),
     "rankDAD-live-drop": (1, "32", 3, "live", "rankDAD", False),
+}
+POWERSGD_CASES = {
     "powerSGD-f32": (1, "32", 3, None, "powerSGD", False),
     "powerSGD-bf16": (1, "16", 3, None, "powerSGD", False),
     "powerSGD-live-drop": (1, "32", 3, "live", "powerSGD", False),
@@ -278,7 +280,7 @@ def test_epochs_match_jax(case):
 
 
 def _check_epochs(case: tuple, use_pallas: bool) -> None:
-    """One case of ``CASES`` / ``LOWRANK_CASES``: its first round's
+    """One case of ``CASES``, ``RANKDAD_CASES`` or ``POWERSGD_CASES``: its first round's
     aggregate (and rankDAD's Ω, powerSGD's q and e), then its epochs' losses
     and end state, held against JAX's."""
     L, pb, qr, fault, engine_name, fused = case

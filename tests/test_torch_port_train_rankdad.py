@@ -1,14 +1,13 @@
-"""The port's rankDAD and powerSGD epochs against the JAX package's: the
-low-rank cases of ``test_torch_port_train.py`` (its helpers, tolerances and
-the measurement behind them), in a file of their own so that ``pytest
---dist loadfile`` can run them on another worker than the dSGD and fused
-cases.
+"""The port's rankDAD epochs against the JAX package's: the rankDAD cases
+of ``test_torch_port_train.py`` (its helpers, tolerances and the
+measurement behind ``DAD_AGG_SHARE``), in a file of their own so that
+``pytest --dist loadfile`` can run them on another worker than the dSGD,
+fused and powerSGD cases.
 
-These cases hold the engines, not the LSTM kernel: JAX's epochs run its
+These cases hold the engine, not the LSTM kernel: JAX's epochs run its
 LSTM's plain reference (``use_pallas=False``), as the JAX package's own
-engine tests do, but for ``PALLAS_CASES``; the LSTM kernel's parity is held
-by the dSGD and fused cases, by ``test_torch_port_icalstm.py`` and
-``test_torch_port_lstm_bwd.py``.
+engine tests do; the LSTM kernel's parity is held by the dSGD and fused
+cases, by ``test_torch_port_icalstm.py`` and ``test_torch_port_lstm_bwd.py``.
 """
 
 import dataclasses
@@ -25,7 +24,7 @@ from test_torch_port_train import (
     HID,
     ICA,
     IN,
-    LOWRANK_CASES,
+    RANKDAD_CASES,
     S,
     C,
     T,
@@ -54,17 +53,9 @@ from dinunet_implementations_tpu_torch.weights import (
 torch.set_num_threads(1)
 
 
-# the one case that keeps JAX's Pallas LSTM: with the bf16 wire, a payload
-# value that straddles a bf16 rounding boundary moves powerSGD's subspace,
-# so its later losses follow the last bits of the LSTM's gradients, and
-# LOSS_TOL was set against JAX's kernel path (on JAX's plain LSTM the last
-# epoch's losses part by 1.3e-3)
-PALLAS_CASES = ("powerSGD-bf16",)
-
-
-@pytest.mark.parametrize("case", list(LOWRANK_CASES))
+@pytest.mark.parametrize("case", list(RANKDAD_CASES))
 def test_epochs_match_jax(case):
-    _check_epochs(LOWRANK_CASES[case], use_pallas=case in PALLAS_CASES)
+    _check_epochs(RANKDAD_CASES[case], use_pallas=False)
 
 
 @pytest.mark.parametrize("pb", ["32", "16"])
