@@ -336,11 +336,12 @@ result line:
    checkpoint (meta ``round``, ``params_sha256``) each epoch; generation 1
    SIGKILLs itself at the aggregation of epoch 2's first round. The
    supervisor notes and dumps to a ``FlightRecorder``, its ``on_consensus``
-   installs what ``consensus_round`` picks as the fold's resume point and
-   writes ``consensus/decision_gen1.json``, and it relaunches the worker
-   with ``--resume``. Held: the supervisor's rc 0; the final
-   ``params_digest`` and losses equal to an uninterrupted run of the same
-   worker alone, bit for bit; during generation 2 a ``PodCollector`` over
+   reads what ``consensus_round`` picks, holds the fold's resume point at
+   its epoch and writes ``consensus/decision_gen1.json``, and it relaunches
+   the worker with ``--resume``. Held: the supervisor's rc 0; the final
+   ``params_digest`` and losses equal, bit for bit, to an uninterrupted run
+   of the same worker alone after the drill; the resume's reload timed;
+   during generation 2 a ``PodCollector`` over
    the supervisor's bus reads one target, no scrape error, with the
    worker's epoch and round; ``postmortem --validate`` rc 0, its incident
    slice 0, ``signal 9``, the consensus round and generation 2;
@@ -6322,16 +6323,15 @@ POD_EPOCHS, POD_KILL_EPOCH = 3, 2
 POD_RUN_KEYS = ("lstm_fwd", "lstm_bwd", "poweriter")
 
 
-def pod_worker_cmd(tree: str, out: str, generation: int, result: str, device=None) -> list:
-    """The worker script's command line (``--device`` only when given)."""
+def pod_worker_cmd(tree: str, out: str, generation: int, result: str) -> list:
+    """The worker script's command line."""
     here = os.path.dirname(os.path.abspath(__file__))
     return [sys.executable, os.path.join(here, "scripts", "torch_pod_worker.py"),
             "--data-path", tree, "--out-dir", out, "--generation", str(generation),
-            "--epochs", str(POD_EPOCHS), "--result", result] + (
-        ["--device", device] if device else [])
+            "--epochs", str(POD_EPOCHS), "--result", result]
 
 
-def pod_worker_spawn(tree: str, out: str, trace: str, results: dict, device=None):
+def pod_worker_spawn(tree: str, out: str, trace: str, results: dict):
     """``spawn(process_id, generation)`` for the supervisor: the worker
     script on ``tree`` into ``out``, ``--resume`` after the first
     generation, its result file in ``results[generation]``."""
@@ -6339,7 +6339,7 @@ def pod_worker_spawn(tree: str, out: str, trace: str, results: dict, device=None
 
     def spawn(process_id, generation):
         results[generation] = os.path.join(out, f"worker_gen{generation}.json")
-        cmd = pod_worker_cmd(tree, out, generation, results[generation], device) + [
+        cmd = pod_worker_cmd(tree, out, generation, results[generation]) + [
             "--kill-epoch", str(POD_KILL_EPOCH), "--pod-trace", trace]
         if generation > 1:
             cmd.append("--resume")
@@ -6352,13 +6352,15 @@ def pod_worker_spawn(tree: str, out: str, trace: str, results: dict, device=None
     return spawn
 
 
-def pod_install(pod: str, flight, installs: list):
-    """The supervisor's ``on_consensus``: install the round that
-    ``consensus_round`` picks as the fold's resume point (unless the fold's
-    checkpoint already sits at its epoch) and write the decision where the
-    post-mortem reads it, in the format of the JAX package's worker."""
-    import shutil as _shutil
-
+def pod_consensus(pod: str, flight, installs: list):
+    """The supervisor's ``on_consensus``: read the round that
+    ``consensus_round`` picks and the epoch of the fold's checkpoint (the
+    worker's resume point), and write the decision where the post-mortem
+    reads it, in the format of the JAX package's worker. The kill lands
+    after both of epoch 1's checkpoints, so the two agree (the drill holds
+    it) and nothing is copied (``replaced`` false); the install that copies
+    the agreed checkpoint over the resume point is ``dcn_worker
+    --supervise``'s (ROADMAP A11)."""
     from dinunet_implementations_tpu_torch.core.config import NNComputation
     from dinunet_implementations_tpu_torch.runner.supervisor import (
         consensus_round,
@@ -6385,12 +6387,10 @@ def pod_install(pod: str, flight, installs: list):
                 fold_epoch = load_meta(resume).get("epoch")
             except (OSError, CorruptCheckpointError):
                 fold_epoch = None
-            if fold_epoch != epoch:
-                os.makedirs(os.path.dirname(resume), exist_ok=True)
-                _shutil.copyfile(path, resume)
             flight.note("consensus-install", round=rnd, epoch=epoch, sha=sha[:12],
-                        replaced=fold_epoch != epoch)
-            decision.update(round=rnd, epoch=epoch, sha=sha, replaced=fold_epoch != epoch)
+                        fold_epoch=fold_epoch, replaced=False)
+            decision.update(round=rnd, epoch=epoch, sha=sha, fold_epoch=fold_epoch,
+                            replaced=False)
         path = os.path.join(pod, CONSENSUS_DIR, f"decision_gen{generation}.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path + ".tmp", "w") as fh:
@@ -6417,9 +6417,10 @@ def pod_routes_ok(launches: dict) -> bool:
             and launches["poweriter_plain_classes"] == 0)
 
 
-def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
-    """(a): the supervised SIGKILL drill (the module docstring); ``device``
-    goes to the workers (None: the card)."""
+def pod_drill(torch, smi: str, tree: str, root: str) -> dict:
+    """(a): the supervised SIGKILL drill (the module docstring), then the
+    same worker run alone and uninterrupted, for the digest and launches it
+    is held to."""
     import contextlib
     import io
 
@@ -6439,19 +6440,13 @@ def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
     trace, results, installs = new_trace_id(), {}, []
     bus, tracer = MetricsBus(), SpanTracer()
     flight = FlightRecorder(pod, bus=bus, tracer=tracer)
-    sup = SliceSupervisor(pod_worker_spawn(tree, pod, trace, results, device), num_processes=1,
+    sup = SliceSupervisor(pod_worker_spawn(tree, pod, trace, results), num_processes=1,
                           out_dir=pod, heartbeat_timeout_s=120.0, max_restarts=1, poll_s=0.05,
                           grace_s=20.0, flight=flight, bus=bus,
-                          on_consensus=pod_install(pod, flight, installs))
+                          on_consensus=pod_consensus(pod, flight, installs))
     collector = PodCollector(pod, local_bus=bus, local_labels={"process": "supervisor"},
                              cache_s=0.0)
     t0 = time.perf_counter()
-    # the uninterrupted run of the same worker, alone, beside the drill
-    solo_result = os.path.join(solo_dir, "worker_solo.json")
-    with open(os.path.join(solo_dir, "worker_solo.log"), "w") as log:
-        solo = subprocess.Popen(pod_worker_cmd(tree, solo_dir, 0, solo_result, device),
-                                stdout=log, stderr=subprocess.STDOUT,
-                                cwd=os.path.dirname(os.path.abspath(__file__)))
     box = {}
 
     def supervise():
@@ -6464,37 +6459,46 @@ def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
     thread = threading.Thread(target=supervise, name="pod-supervisor")
     thread.start()
     scraped, scrapes = None, 0
-    try:
-        while thread.is_alive():
-            if sup.generation >= 2 and scraped is None:
-                got = collector.collect()
-                scrapes += 1
-                tgt = got["targets"][0] if got["targets"] else {}
-                if got["targets"] and tgt.get("epoch") is not None:
-                    scraped = {"pod_scrape_targets": got["snapshot"]["gauges"][
-                        "pod_scrape_targets"],
-                        "pod_scrape_errors": got["snapshot"]["gauges"]["pod_scrape_errors"],
-                        "errors": got["errors"], "target_pid": tgt.get("pid"),
-                        "epoch": tgt.get("epoch"), "round": tgt.get("round"),
-                        "status": tgt.get("status"),
-                        "worker_series": sorted(k for k in got["snapshot"]["gauges"]
-                                                if 'process="0"' in k)}
-            time.sleep(0.02)
-        thread.join()
-        solo.wait(timeout=600)
-    finally:
-        if solo.poll() is None:
-            solo.kill()
-            solo.wait()
+    while thread.is_alive():
+        if sup.generation >= 2 and scraped is None:
+            got = collector.collect()
+            scrapes += 1
+            tgt = got["targets"][0] if got["targets"] else {}
+            if got["targets"] and tgt.get("epoch") is not None:
+                scraped = {"pod_scrape_targets": got["snapshot"]["gauges"][
+                    "pod_scrape_targets"],
+                    "pod_scrape_errors": got["snapshot"]["gauges"]["pod_scrape_errors"],
+                    "errors": got["errors"], "target_pid": tgt.get("pid"),
+                    "epoch": tgt.get("epoch"), "round": tgt.get("round"),
+                    "status": tgt.get("status"),
+                    "worker_series": sorted(k for k in got["snapshot"]["gauges"]
+                                            if 'process="0"' in k)}
+        time.sleep(0.02)
+    thread.join()
     drill_s = time.perf_counter() - t0
     with tracer.span("supervisor-exit", trace=trace):
         flight.note("supervisor-exit", rc=box.get("rc"), restarts=sup.restarts)
     flight.dump(f"supervisor-exit:rc={box.get('rc')}")
     tracer.write_jsonl(os.path.join(pod, assemble.POD_TRACE_DIR, "supervisor.jsonl"))
-    if box.get("rc") != 0 or solo.returncode != 0 or set(results) != {1, 2}:
+    if box.get("rc") != 0 or set(results) != {1, 2}:
         logs = {g: open(os.path.join(pod, f"worker_gen{g}.log")).read()[-3000:] for g in results}
-        fail(f"the supervised drill: {box}, restarts {sup.restarts}, solo rc {solo.returncode}, "
+        fail(f"the supervised drill: {box}, restarts {sup.restarts}, "
              f"generations {sorted(results)}; logs {logs}")
+    # the uninterrupted run of the same worker, after the drill, so that the
+    # drill's relaunch and reload have the host and the card to themselves
+    t_solo = time.perf_counter()
+    solo_result = os.path.join(solo_dir, "worker_solo.json")
+    with open(os.path.join(solo_dir, "worker_solo.log"), "w") as log:
+        try:
+            solo_rc = subprocess.run(pod_worker_cmd(tree, solo_dir, 0, solo_result), stdout=log,
+                                     stderr=subprocess.STDOUT, timeout=600,
+                                     cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+        except subprocess.TimeoutExpired:
+            solo_rc = "timeout"
+    solo_s = time.perf_counter() - t_solo
+    if solo_rc != 0:
+        fail(f"the uninterrupted worker: rc {solo_rc}; log "
+             f"{open(os.path.join(solo_dir, 'worker_solo.log')).read()[-3000:]}")
     gen = {g: pod_read(results[g]) for g in (1, 2)}
     solo_out = pod_read(solo_result)
     killed = gen[1]["killed"]
@@ -6511,7 +6515,7 @@ def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
     want = {k: solo_out["launches"][k] + (killed or {}).get("in_epoch", {}).get(k, 0)
             for k in POD_RUN_KEYS}
     rec = {"card": smi, "rc": box.get("rc"), "restarts": sup.restarts,
-           "drill_seconds": drill_s,
+           "drill_seconds": drill_s, "solo_seconds": solo_s,
            "digest": gen[2]["digest"], "solo_digest": solo_out["digest"],
            "losses_equal": gen[2].get("epoch_losses") == solo_out.get("epoch_losses"),
            "killed": killed, "installs": installs, "scraped": scraped, "scrapes": scrapes,
@@ -6532,8 +6536,12 @@ def pod_drill(torch, smi: str, tree: str, root: str, device=None) -> dict:
     if rec["digest"] is None or rec["digest"] != rec["solo_digest"] or not rec["losses_equal"]:
         fail(f"the resumed run's final digest {rec['digest']} (losses equal: "
              f"{rec['losses_equal']}) is not the uninterrupted run's {rec['solo_digest']}")
-    if not (installs and installs[0]["round"] == epoch1_round and installs[0]["epoch"] == 1):
-        fail(f"the consensus install: {installs}, want epoch 1's round {epoch1_round}")
+    if not (installs and installs[0]["round"] == epoch1_round and installs[0]["epoch"] == 1
+            and installs[0]["fold_epoch"] == 1):
+        fail(f"the consensus install: {installs}, want epoch 1's round {epoch1_round}, with the "
+             f"fold's checkpoint at epoch 1")
+    if rec["reload_ms"] is None:
+        fail("generation 2 did not time its resume's reload (no load_checkpoint call seen)")
     if not scraped or scraped["pod_scrape_targets"] != 1 or scraped["pod_scrape_errors"] != 0 \
             or scraped["target_pid"] != gen[2]["pid"] or scraped["round"] is None:
         fail(f"the pod collector during generation 2: {scraped} ({scrapes} scrapes)")
@@ -6650,7 +6658,7 @@ def pod_phase(torch, np, lc, pc, bc, smi: str, root: str, tree: str | None = Non
     line = {"card": smi, "supervisor_rc": d["rc"], "digest_equal": d["digest"] == d["solo_digest"],
             "kill_to_first_heartbeat_s": d["kill_to_first_heartbeat_s"],
             "reload_ms": d["reload_ms"], "consensus_install_ms": d["installs"][0]["ms"],
-            "drill_seconds": d["drill_seconds"], "statusz_ms": rec["cli"]["statusz_ms"],
+            "drill_seconds": d["drill_seconds"], "solo_seconds": d["solo_seconds"], "statusz_ms": rec["cli"]["statusz_ms"],
             "launches": {g: {k: d["launches"][g][k] for k in POD_RUN_KEYS}
                          for g in ("gen1", "gen2", "solo")},
             "phase_seconds": rec["seconds"]}

@@ -5,7 +5,7 @@ digest it is held to).
 
     python3 scripts/torch_pod_worker.py --data-path TREE --out-dir POD \\
         --generation G [--resume] [--kill-epoch E] [--epochs N] [--pod-trace ID] \\
-        [--result PATH] [--device cpu]
+        [--result PATH]
 
 The worker
 
@@ -29,8 +29,7 @@ The worker
   killed generation's file holds what it wrote before the kill.
 
 Runs on the card, with the kernels built under the checkout
-(``ops/_build.build_all``), unless ``--device cpu`` asks for the CPU (the
-kernels' plain versions, a dry run of the drill's files at a small size).
+(``ops/_build.build_all``).
 """
 
 import argparse
@@ -64,7 +63,6 @@ def main(argv=None) -> int:
     p.add_argument("--epochs", type=int, default=3)
     p.add_argument("--pod-trace", default=None)
     p.add_argument("--result", default=None)
-    p.add_argument("--device", default=None)
     args = p.parse_args(argv)
 
     from dinunet_implementations_tpu_torch.runner.supervisor import (
@@ -86,10 +84,6 @@ def main(argv=None) -> int:
     from dinunet_implementations_tpu_torch.telemetry import MetricsBus, SpanTracer, StatusExporter
     from dinunet_implementations_tpu_torch.trainer import checkpoint as ckpt
     from dinunet_implementations_tpu_torch.trainer import loop
-
-    def sync():
-        if args.device != "cpu":
-            torch.cuda.synchronize()
 
     out = {"generation": args.generation, "pid": os.getpid(),
            "first_pulse_unix": first_pulse_unix, "epochs": [], "reload_ms": None,
@@ -134,7 +128,7 @@ def main(argv=None) -> int:
             def killing_aggregate(*aa, **kk):
                 calls[0] += 1
                 if calls[0] == at:
-                    sync()
+                    torch.cuda.synchronize()
                     now = launches(lc, pc, lowrank)
                     out["killed"] = {"epoch": epoch, "round_in_epoch": at, "rounds": rounds,
                                      "kill_unix": time.time(),
@@ -149,7 +143,7 @@ def main(argv=None) -> int:
         with tracer.span("worker-epoch", epoch=epoch, generation=args.generation,
                          trace=args.pod_trace):
             state, losses = run_epoch(self, state, train_sites, epoch, *a, **k)
-        sync()
+        torch.cuda.synchronize()
         now = launches(lc, pc, lowrank)
         rnd = int(state.round)
         progress.update(epoch=epoch, round=rnd)
@@ -169,10 +163,10 @@ def main(argv=None) -> int:
     loop.FederatedTrainer.run_epoch = supervised_epoch
     cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0)
     runner = FedRunner(cfg, args.data_path, args.out_dir, bus=bus, epochs=args.epochs,
-                       agg_engine="rankDAD", device=args.device)
+                       agg_engine="rankDAD")
     try:
         res = runner.run(folds=[0], verbose=False, resume=args.resume)[0]
-        sync()
+        torch.cuda.synchronize()
         out["digest"] = ckpt.params_digest(res["state"].params, res["state"].batch_stats)
         out["epoch_losses"] = res["epoch_losses"]
         record()

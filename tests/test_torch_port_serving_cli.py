@@ -128,11 +128,21 @@ def jax_drain_waits_for_rows(monkeypatch):
     row), so the order of its rows after a drain is a race. The port's
     drain waits for both (``serving/microbatch.py`` ``idle``). For the JAX
     run, its drains wait likewise: each lane counts what it admitted and
-    the requests of the dispatches whose row it wrote."""
+    the requests of the dispatches whose row it wrote. This is the one place
+    where the port's tests replace methods of the reference's serving, so
+    each name it patches or reads is checked to exist, a drain that does not
+    settle fails, and the fixture counts the patched drains for the test to
+    check that the reference's CLI reached them."""
+    patched = ((jmicrobatch.Microbatcher, "__init__"), (jmicrobatch.Microbatcher, "submit"),
+               (jengine.InferenceEngine, "drain"), (jfleet.ReplicaSet, "drain"))
+    for cls, name in patched:
+        assert callable(cls.__dict__.get(name)), f"JAX's {cls.__name__}.{name} is gone"
     init, submit = jmicrobatch.Microbatcher.__init__, jmicrobatch.Microbatcher.submit
+    drains = {"engine": 0, "fleet": 0}
 
     def counted_init(self, *a, **kw):
         init(self, *a, **kw)
+        assert hasattr(self, "on_dispatch"), "JAX's Microbatcher has no on_dispatch"
         self.admitted = self.settled = 0
         on_dispatch = self.on_dispatch
 
@@ -149,13 +159,16 @@ def jax_drain_waits_for_rows(monkeypatch):
 
     def wait_idle(lanes, timeout):
         deadline = time.monotonic() + timeout
-        while time.monotonic() < deadline and any(L.settled < L.admitted for L in lanes):
+        while any(L.settled < L.admitted for L in lanes):
+            assert time.monotonic() < deadline, "JAX's lanes never settled what they admitted"
             time.sleep(0.002)
 
     def engine_drain(self, timeout=30.0):
+        drains["engine"] += 1
         wait_idle([L for L in (self._infer_lane, self._stream_lane) if L], timeout)
 
     def fleet_drain(self, timeout=30.0):
+        drains["fleet"] += 1
         with self._lock:
             engines = [e for e in self._engines if e is not None]
         wait_idle([L for e in engines for L in (e._infer_lane, e._stream_lane) if L], timeout)
@@ -164,6 +177,7 @@ def jax_drain_waits_for_rows(monkeypatch):
     monkeypatch.setattr(jmicrobatch.Microbatcher, "submit", counted_submit)
     monkeypatch.setattr(jengine.InferenceEngine, "drain", engine_drain)
     monkeypatch.setattr(jfleet.ReplicaSet, "drain", fleet_drain)
+    return drains
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
@@ -185,6 +199,8 @@ def test_both_clis_serve_one_port_written_checkpoint(fitted, mode, capsys,
         # keys differ: torch and CUDA against jax and jaxlib)
         assert report.main(["--validate", os.path.join(out, "telemetry", "serving")]) == 0
         fired.append(lines[-2]["requests_fired"])
+    # the reference's CLI drained through the patched methods
+    assert jax_drain_waits_for_rows["fleet" if mode == "replicas" else "engine"] > 0
     ours, theirs = summaries
     assert ours["kind"] == theirs["kind"] == "serve_summary"
     assert ours["requests"] == theirs["requests"] and ours["compiles_after_warmup"] == 0
