@@ -164,7 +164,7 @@ class MultimodalArgs:
     num_layers: int = 4
     mlp_ratio: int = 4
     # "" = auto: ring attention iff model_axis_size > 1 (refused: ROADMAP
-    # A11); "local" or "ring" force one
+    # A11 (c)); "local" or "ring" force one
     attention: str = ""
     # "bfloat16" runs the products in bf16 with f32 softmax, LayerNorm and
     # residual stream; "" = full f32
@@ -237,9 +237,20 @@ class TrainConfig:
     smri3d_args: SMRI3DArgs = field(default_factory=SMRI3DArgs)
     multimodal_args: MultimodalArgs = field(default_factory=MultimodalArgs)
     num_sites: int = 2
+    # virtual sites a rank of the process-group site mesh holds (parallel/
+    # mesh.py packed_site_mesh); must divide the site count
+    sites_per_device: int = 1
+    # slices of the site mesh, the inter-slice wire codec ("" follows
+    # wire_quant) and the mesh's model axis: more than one slice, a codec
+    # of its own and a model axis above 1 are refused (ROADMAP A11 (b),
+    # A11 (c))
+    num_slices: int = 1
+    dcn_wire_quant: str = ""
     # the mesh's model axis (sequence parallelism); above 1 the multimodal
-    # task asks for ring attention, which is not ported (ROADMAP A11)
+    # task asks for ring attention (ROADMAP A11 (c))
     model_axis_size: int = 1
+    # the ring LSTM's microbatches under a model axis (ROADMAP A11 (c))
+    sequence_microbatches: int = 0
     # execution detail of the JAX epoch (scan xs or per-round slices); any
     # value gives the same port epoch
     rounds_scan_xs: bool = True
@@ -270,11 +281,15 @@ class TrainConfig:
     # the buffered-async rounds (staleness_bound > 0: each site's last update
     # is aggregated at weight decay^age up to the bound) and the overlapped
     # rounds (each round's update applied one round late), which exclude
-    # each other; wire_quant is not ported, kept "none" so that the engines
-    # refuse it (ROADMAP A11)
+    # each other
     staleness_bound: int = 0
     staleness_decay: float = 0.5
+    # the engines' wire codec (parallel/collectives.py WIRE_QUANTS): "none"
+    # keeps the precision_bits wire, "bf16" forces bf16, "int8" / "fp8"
+    # round each payload to a one-byte grid with a scale a payload;
+    # wire_stochastic rounds the int8 grid stochastically
     wire_quant: str = "none"
+    wire_stochastic: bool = False
     overlap_rounds: bool = False
     # a site whose round gradient is non-finite this many consecutive rounds
     # is quarantined; 0 skips such rounds but never quarantines; -1 runs the

@@ -29,7 +29,9 @@ def build_engine(cfg, use_kernel: bool = True) -> Engine:
     if cfg.agg_engine not in AggEngine.ALL:
         raise ValueError(f"unknown agg_engine {cfg.agg_engine!r} (have {AggEngine.ALL})")
     a, table = cfg.task_args(), leaf_table(cfg)
-    wire = dict(wire_quant=cfg.wire_quant, robust_agg=cfg.robust_agg, secure_agg=cfg.secure_agg,
+    wire = dict(wire_quant=cfg.wire_quant, wire_stochastic=cfg.wire_stochastic,
+                dcn_wire_quant=cfg.dcn_wire_quant, robust_agg=cfg.robust_agg,
+                secure_agg=cfg.secure_agg,
                 robust_trim_frac=cfg.robust_trim_frac, robust_clip_mult=cfg.robust_clip_mult)
     transposed = table.transposed
     # under personalization the engine sees the shared leaves only, and JAX

@@ -10,14 +10,22 @@ An engine is a pair of functions the epoch runs every round:
   powerSGD (the right factor and the error-feedback residual).
   ``trainer.init_train_state`` stacks it per site (``[S, n, r]``), as the
   JAX trainer does, and the epoch freezes a dead site's rows for the round;
-- ``aggregate(grads, state, weight, live=None, rnd=None) -> (agg,
-  state)``: per-site gradients (a dict of ``[S, ...]`` leaves), the
+- ``aggregate(grads, state, weight, live=None, rnd=None, axis=None) ->
+  (agg, state)``: per-site gradients (a dict of ``[S, ...]`` leaves), the
   per-site state and example weights ``[S]`` to the aggregated gradient (a
   dict of unbatched leaves) and the new per-site state. ``live [S]`` is the
   round's 0/1 contribute mask: a dead site's payload and weight are zeroed
   before the reduction, and the weighted mean renormalizes over live weight
   only. ``rnd`` is the global round, which keys dSGD's secure-aggregation
-  pads (the other engines take and ignore it).
+  pads (the other engines take and ignore it). ``axis`` (a
+  ``parallel.collectives.PackedAxis``) runs the round over a process group:
+  the leaves, the state and the weights are then this rank's ``[K]`` block
+  of the ``S`` sites and every reduction is two-level; the aggregate is the
+  same on every rank.
+
+Every engine takes ``wire_quant`` (``parallel.collectives.WIRE_QUANTS``)
+and ``wire_stochastic``: its payloads go through the wire codec, as JAX's,
+and ``Engine.wire_dtype`` is what one element costs on the wire.
 """
 
 from __future__ import annotations
@@ -120,6 +128,8 @@ class Engine:
     # (grads, pack=1) -> [(shape, dtype), ...] (module docstring); None:
     # the telemetry's dense f32 fallback
     wire_shapes: Callable | None = None
+    # what one payload element costs on the wire (the codec's dtype)
+    wire_dtype: torch.dtype | None = None
 
     def wire_bytes(self, grads: dict, pack: int = 1) -> int:
         """The modeled payload one device ships a round (module
@@ -127,3 +137,21 @@ class Engine:
         if self.wire_shapes is None:
             raise NotImplementedError(f"engine {self.name!r} has no wire model")
         return wire_shapes_bytes(self.wire_shapes(grads, pack=pack))
+
+
+#: the ROADMAP item of the epoch's planes that the port does not yet run
+#: over a process group
+MESH_PLANES_ITEM = "A20 (the epoch's planes over a process group)"
+
+
+def refuse_on_mesh(axis, **modes) -> None:
+    """``NotImplementedError`` naming :data:`MESH_PLANES_ITEM` for the
+    first of ``modes`` (name → whether it is on) that is on while ``axis``
+    is a process group's: those modes are held against JAX with every site
+    on one device only."""
+    if axis is None:
+        return
+    for name, on in modes.items():
+        if on:
+            raise NotImplementedError(f"{name} over a process group (mesh) is not ported: "
+                                      f"ROADMAP {MESH_PLANES_ITEM}")

@@ -1,8 +1,9 @@
 """dSGD, decentralized SGD: the example-weighted mean of the sites' full
-gradients, with the ``precision_bits`` payload cast. The subset of the JAX
-package's ``engines/dsgd.py`` for ``wire_quant="none"``, with its
-byzantine-robust modes (``robust_agg``) and its secure-aggregation masked
-wire (``secure_agg``):
+gradients, with the ``precision_bits`` payload cast or the wire codec
+(``wire_quant``: each site's payload rounded through the codec's grid,
+one scale a site). The port of the JAX package's ``engines/dsgd.py`` at
+one slice, with its byzantine-robust modes (``robust_agg``) and its
+secure-aggregation masked wire (``secure_agg``):
 
 - ``"norm_clip"`` clips each site's gradient to ``robust_clip_mult``
   times the live-weighted median site norm before the same weighted mean;
@@ -16,6 +17,13 @@ wire (``secure_agg``):
   ``norm_clip`` composes (it clips before the masking), the gather-based
   reducers and the quantized or inter-slice wire codecs do not, as in
   JAX. Its pads are keyed by the global round, ``aggregate(..., rnd=)``.
+
+Over a process group (``aggregate(..., axis=)``) the weighted mean is
+two-level, as JAX's packed axis: each rank's weighted partial over its
+``[K]`` sites goes through the wire (the payload dtype, or the codec
+again) and the whole tree is summed over the group in one collective.
+The robust modes and the masked wire run with every site on one device
+only.
 """
 
 from __future__ import annotations
@@ -25,20 +33,22 @@ import torch
 from ..parallel.collectives import (
     check_robust_agg,
     clip_site_gradients,
-    payload_cast,
-    payload_dtype,
+    codec_payload,
     payload_uncast,
+    resolve_dcn_codec,
+    resolve_wire_codec,
     robust_reduce_tree,
     site_weighted_mean,
 )
 from ..privacy.secure_agg import masked_weighted_mean, secure_agg_enabled
-from .base import Engine, jax_shapes, mask_dead_site, robust_gather_wire
+from .base import Engine, jax_shapes, mask_dead_site, refuse_on_mesh, robust_gather_wire
 
 
 def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
               secure_agg="off", robust_trim_frac: float = 0.2,
               robust_clip_mult: float = 2.5, secure_agg_seed: int = 0,
-              dcn_wire_quant: str = "", leaf_index=None, transposed=frozenset()) -> Engine:
+              dcn_wire_quant: str = "", leaf_index=None, transposed=frozenset(),
+              wire_stochastic: bool = False) -> Engine:
     """``leaf_index`` and ``transposed`` lay out the secure-aggregation pads
     (each leaf's place among the aggregated leaves in JAX's order, and the
     leaves stored as the transpose of their JAX matrix); the result does
@@ -60,23 +70,22 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
             f"{dcn_wire_quant!r}): re-quantizing the per-slice int32 partial through a float "
             "grid destroys pad cancellation — set dcn_wire_quant='none' (the fused exact "
             "(slice, site) reduce)")
-    if wire_quant != "none":
-        raise NotImplementedError(f"dSGD wire_quant={wire_quant!r} is not ported: ROADMAP A11 "
-                                  "(WireCodec)")
-    if dcn_wire_quant not in ("", "none"):
-        raise NotImplementedError(f"dSGD dcn_wire_quant={dcn_wire_quant!r} is not ported: "
-                                  "ROADMAP A11 (slices)")
+    codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
+    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
 
     def init(params):
         return {}
 
-    def aggregate(grads, state, weight, live=None, rnd=None):
+    def aggregate(grads, state, weight, live=None, rnd=None, axis=None):
+        refuse_on_mesh(axis, robust_agg=robust_agg != "none", secure_agg=secure)
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
-        payload = payload_cast(grads, precision_bits)
+        # each site's payload as its wire carries it: the precision_bits
+        # cast, or the codec's grid (f32)
+        payload = codec_payload(grads, codec, precision_bits)
         if gather_mode:
             agg = robust_reduce_tree(payload, weight, robust_agg, robust_trim_frac)
             return payload_uncast(agg, grads), state
@@ -86,9 +95,12 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
                 live=live, pads=secure_agg != "mask-nopads", leaf_index=leaf_index,
                 transposed=transposed)
             return payload_uncast(agg, grads), state
-        return payload_uncast(site_weighted_mean(payload, weight), grads), state
+        # over a group each rank's partial crosses the wire again, as
+        # JAX's packed axis: at the payload dtype, or through the codec
+        wire = pdtype if codec.quant == "none" else codec
+        return payload_uncast(site_weighted_mean(payload, weight, axis, wire), grads), state
 
-    pdtype = payload_dtype(precision_bits)
+    pdtype = codec.dtype
     transposed = frozenset(transposed)
 
     def wire_shapes(grads, pack: int = 1) -> list:
@@ -104,4 +116,5 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
                     + extras)
         return [(s, pdtype) for s in shapes] + extras
 
-    return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes)
+    return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes,
+                  wire_dtype=torch.int32 if secure else pdtype)

@@ -1,7 +1,6 @@
 """powerSGD, low-rank gradient compression with error feedback: the port
-of the JAX package's ``engines/powersgd.py`` for ``wire_quant="none"``, no
-DCN codec and the classic site axis (every site on one card,
-``mesh=None``), with its byzantine-robust modes.
+of the JAX package's ``engines/powersgd.py`` at one slice, with its wire
+codecs and its byzantine-robust modes.
 
 Per round and per compressible leaf, on ``[S, ...]`` tensors (Vogels et
 al., 2019):
@@ -13,7 +12,8 @@ al., 2019):
     e_s = M_s − Ĝ                      (each site's residual, carried)
 
 ``cast`` is the wire: each site's payload rounds through the
-``precision_bits`` dtype and back to f32, and the sum runs in f32. With a
+``precision_bits`` dtype and back to f32 (or through the ``wire_quant``
+codec's grid, one scale a site), and the sum runs in f32. With a
 bf16 wire the two big products take bf16 operands and accumulate in f32
 (``lowrank.lp_matmul``). ``orth`` is the shifted CholeskyQR2 of
 ``lowrank.orthonormalize_many``, one call for the leaves of one rank (JAX
@@ -37,6 +37,15 @@ n] or None}}``; the trainer stacks it per site. ``q`` stays per site
 (``[S, n, r]``), as JAX's vmap keeps it: after a round with every site
 live all rows are equal, but a frozen dead site's row then differs.
 
+Over a process group (``aggregate(..., axis=)``) both sums are two-level,
+as JAX's packed axis: each rank's partial over its ``[K]`` sites goes
+through the wire (the payload dtype, or the codec; not each site's
+payload, as JAX's packed form) and every leaf's partial, the dense ones
+too, is summed over the group in one collective a sum. ``P``, ``q'`` and
+the aggregate are then the same on every rank; each site's ``e`` stays
+on the rank that owns the site. The robust modes run with every site on
+one device only.
+
 Orientation: factors are taken in the JAX matrix layout. A leaf named in
 ``transposed`` (a port ``nn.Linear.weight`` ``[out, in]``, the transpose of
 the flax kernel) is factorized through its transposed view; ``q`` and ``e``
@@ -49,14 +58,25 @@ from __future__ import annotations
 import torch
 
 from ..parallel.collectives import (
+    _through_wire,
     check_robust_agg,
     clip_site_gradients,
+    flat_psum,
     payload_dtype,
     per_site,
+    resolve_dcn_codec,
+    resolve_wire_codec,
     robust_reduce_tree,
     site_weight_scale,
 )
-from .base import Engine, jax_shapes, mask_dead_site, refuse_secure_agg, robust_gather_wire
+from .base import (
+    Engine,
+    jax_shapes,
+    mask_dead_site,
+    refuse_on_mesh,
+    refuse_secure_agg,
+    robust_gather_wire,
+)
 from .lowrank import (
     _matrix_shape,
     is_compressible,
@@ -84,7 +104,7 @@ def default_q(seed: int, index: int, n: int, r: int, device=None):
 def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int = 0,
                   transposed=(), leaf_index=None, wire_quant="none", robust_agg="none",
                   dcn_wire_quant="", secure_agg="off", robust_trim_frac: float = 0.2,
-                  robust_clip_mult: float = 2.5) -> Engine:
+                  robust_clip_mult: float = 2.5, wire_stochastic: bool = False) -> Engine:
     """The powerSGD engine at rank ``dad_reduction_rank``. ``transposed``
     names the leaves stored as the transpose of their JAX matrix
     (``weights.leaf_table(cfg).transposed``); ``leaf_index`` maps a leaf's
@@ -92,10 +112,8 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     first Q (``.leaf_index`` of the same table; default: the order of the
     params dict)."""
     refuse_secure_agg(secure_agg)
-    for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
-                                      ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):
-        if value != ported:
-            raise NotImplementedError(f"powerSGD {name}={value!r} is not ported: ROADMAP {item}")
+    codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
+    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
@@ -117,22 +135,40 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
             es[name] = torch.zeros((m, n), dtype=torch.float32, device=p.device)
         return {"q": qs, "e": es}
 
-    def wire(x):
-        return x if pdtype == torch.float32 else x.to(pdtype).float()
+    # a rank's partial over a group crosses the wire as JAX's packed form
+    # ships it: at the payload dtype, or through the codec
+    group_wire = pdtype if codec.quant == "none" else codec
 
-    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None):
+    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None):
+        refuse_on_mesh(axis, robust_agg=robust_agg != "none")
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
-        scale = site_weight_scale(weight)  # [S]
+        scale = site_weight_scale(weight, axis)  # [S], or the rank's [K]
 
-        def reduce(payloads: dict) -> dict:
+        def wire(x):
+            """Each site's ``[S, ...]`` payload as its wire carries it (f32);
+            over a group the rank's partial goes through the wire instead."""
+            if axis is not None:
+                return x
+            if codec.quant != "none":
+                return codec.compress(x, batched=True)
+            return x if pdtype == torch.float32 else x.to(pdtype).float()
+
+        def reduce(payloads: dict, wired=()) -> dict:
             """Each of the sites' ``[S, ...]`` payloads to one: the sum of
             the weighted payloads, or the robust reducer of unweighted ones
-            (every payload in one sort)."""
+            (every payload in one sort). Over a group: each rank's partial
+            (through the wire for the names in ``wired``) and one
+            collective."""
             if gather_mode:
                 return robust_reduce_tree(payloads, weight, robust_agg, robust_trim_frac)
-            return {k: p.sum(0) for k, p in payloads.items()}
+            parts = {k: p.sum(0) for k, p in payloads.items()}
+            if axis is None:
+                return parts
+            parts = {k: _through_wire(p, group_wire) if k in wired else p
+                     for k, p in parts.items()}
+            return dict(zip(parts, flat_psum(list(parts.values()), axis)))
 
         # the robust modes' payloads are unweighted: the reducer weighs
         sc = 1.0 if gather_mode else scale[:, None, None]
@@ -148,7 +184,7 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
             Ms[name] = M = G.float() + e
             first[name] = wire(lp_matmul(M, q, mm_dtype) * sc)  # [S, m, r]
         # the dense leaves' aggregates and the sketches [m, r]
-        first = reduce(first)
+        first = reduce(first, wired=Ms)
         sketches = {name: first[name] for name in Ms}
         agg.update((k, v.to(grads[k].dtype)) for k, v in first.items() if k not in Ms)
         # P of every leaf of one rank in one orthonormalization (each leaf's
@@ -161,7 +197,7 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         for names in by_rank.values():
             Ps.update(zip(names, orthonormalize_many([sketches[n] for n in names])))
         q_news = reduce({name: wire(lp_matmul(M.mT, Ps[name], mm_dtype) * sc)
-                         for name, M in Ms.items()})  # [n, r]
+                         for name, M in Ms.items()}, wired=Ms)  # [n, r]
         for name, M in Ms.items():
             g, P, q_new = grads[name], Ps[name], q_news[name]
             G_hat = P @ q_new.T
@@ -174,12 +210,13 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
 
     def wire_shapes(grads, pack: int = 1) -> list:
         """JAX's model: two psums a compressible leaf, ``P [m, r]`` and
-        ``Q [n, r]`` at the payload dtype, a dense f32 psum a 1-D leaf; the
+        ``Q [n, r]`` at the wire dtype, a dense f32 psum a 1-D leaf; the
         gather modes ship each as a ``[pack, ...]`` block."""
         groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
         lead = (pack,) if gather_mode else ()
-        out = [(lead + (d, r), pdtype) for r, mns in groups for m, n in mns for d in (m, n)]
+        out = [(lead + (d, r), codec.dtype) for r, mns in groups for m, n in mns
+               for d in (m, n)]
         return (out + [(lead + s, torch.float32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes)
+    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=codec.dtype)

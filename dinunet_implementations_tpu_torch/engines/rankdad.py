@@ -2,16 +2,17 @@
 factorizes every compressible gradient leaf to rank-r factors by power
 iteration and ships the factors; the aggregate is the weighted mean of the
 sites' rank-r reconstructions. The port of the JAX package's
-``engines/rankdad.py`` for ``wire_quant="none"``, no DCN codec and the
-classic site axis (every site on one card, ``mesh=None``), with its
+``engines/rankdad.py`` at one slice, with its wire codecs and its
 byzantine-robust modes.
 
 Per round: a dead site's gradient and weight are zeroed; the 1-D leaves
 are a weighted f32 sum (``precision_bits`` does not touch them); the
 compressible leaves, grouped by effective rank ``min(rank, m, n)``, are
 factorized per site (one K7 launch a rank class on the card, see
-``engines/lowrank.py``); ``P`` and ``Q·w_s`` are cast to the payload dtype;
-the reconstruction ``Σ_s P_s (w_s Q_s)ᵀ`` accumulates in f32. With
+``engines/lowrank.py``); ``P`` and ``Q·w_s`` are cast to the payload dtype (or, under a
+``wire_quant`` codec, each site's factor goes through the codec's grid,
+one scale a site); the reconstruction ``Σ_s P_s (w_s Q_s)ᵀ`` accumulates
+in f32. With
 ``dad_warm_start`` the engine state holds each leaf's per-site subspace Ω
 ``[S, n, r]``, seeded at ``init`` with the cold-start draw
 (``lowrank.default_omega``, so round one equals a cold start) and replaced
@@ -29,6 +30,15 @@ the sites by the live-weighted trimmed mean or median; the dense leaves
 are reduced the same way in f32, all of them with the reconstructions in
 one sort.
 
+Over a process group (``aggregate(..., axis=)``) each rank factorizes
+its own ``[K]`` sites (K7 on the card: every member iterates on its own,
+so the factors are those of the one-device round member for member), one
+packed all-gather a rank class brings every site's factors to every rank
+(JAX's ``site_all_gather_packed``), each rank reconstructs the same
+aggregate over all ``S`` sites, and the dense leaves take one two-level
+sum. Ω stays with the rank that owns its site. The robust modes run with
+every site on one device only.
+
 Orientation: factors are taken in the JAX matrix layout. A leaf named in
 ``transposed`` is stored as the transpose of its JAX matrix (a port
 ``nn.Linear.weight`` ``[out, in]`` against the flax kernel ``[in, out]``):
@@ -44,11 +54,21 @@ from ..parallel.collectives import (
     check_robust_agg,
     clip_site_gradients,
     payload_dtype,
-    per_site,
+    resolve_dcn_codec,
+    resolve_wire_codec,
     robust_reduce_tree,
+    site_all_gather_packed,
     site_weight_scale,
+    weighted_tree_sum,
 )
-from .base import Engine, jax_shapes, mask_dead_site, refuse_secure_agg, robust_gather_wire
+from .base import (
+    Engine,
+    jax_shapes,
+    mask_dead_site,
+    refuse_on_mesh,
+    refuse_secure_agg,
+    robust_gather_wire,
+)
 from .lowrank import (
     _matrix_shape,
     default_omega,
@@ -63,19 +83,19 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                  dad_tol: float = 1e-3, precision_bits="32", dad_warm_start: bool = True,
                  use_kernel: bool = True, transposed=(), wire_quant="none",
                  robust_agg="none", dcn_wire_quant="", secure_agg="off",
-                 robust_trim_frac: float = 0.2, robust_clip_mult: float = 2.5) -> Engine:
+                 robust_trim_frac: float = 0.2, robust_clip_mult: float = 2.5,
+                 wire_stochastic: bool = False) -> Engine:
     """The rankDAD engine. ``use_kernel=False`` runs the power iteration's
     plain version on any device (the reference the card's kernel path is
     held against); ``transposed`` names the leaves stored as the transpose
     of their JAX matrix (``weights.leaf_table(cfg).transposed``)."""
     refuse_secure_agg(secure_agg)
-    for name, value, ported, item in (("wire_quant", wire_quant, "none", "A11 (WireCodec)"),
-                                      ("dcn_wire_quant", dcn_wire_quant, "", "A11 (slices)")):
-        if value != ported:
-            raise NotImplementedError(f"rankDAD {name}={value!r} is not ported: ROADMAP {item}")
+    codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
+    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
+    wdtype = codec.dtype
     # a bf16 wire also runs the power iteration's products in bf16;
     # "16-ieee" and "32" keep f32 math
     mm_dtype = torch.bfloat16 if pdtype == torch.bfloat16 else None
@@ -107,18 +127,22 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             return g.transpose(1, 2)
         return g.reshape(g.shape[0], *_matrix_shape(g.shape[1:]))
 
-    def aggregate(grads: dict, state: dict, weight, live=None, axis_name=None, rnd=None):
-        if axis_name is not None:
-            raise NotImplementedError("rankDAD over a mesh or packed site axis is not ported: "
-                                      "ROADMAP A11")
+    def wire(x):
+        """One site-batched factor as its wire carries it (f32)."""
+        if codec.quant == "none":
+            return x.to(pdtype).float()
+        return codec.compress(x, batched=True)
+
+    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None):
+        refuse_on_mesh(axis, robust_agg=robust_agg != "none")
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
-        scale = site_weight_scale(weight)  # [S]
+        scale = site_weight_scale(weight, axis)  # [S], or the rank's [K]
         # the gather modes' per-site payloads (dense leaves as they are,
         # compressible ones as each site's reconstruction), reduced per
         # coordinate in one sort once every class is factorized
-        out, gathered = {}, {}
+        out, gathered, dense = {}, {}, {}
         classes: dict[int, list[str]] = {}
         for name, g in grads.items():
             r = rank_of(name, g.shape[1:])
@@ -127,7 +151,10 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             elif gather_mode:
                 gathered[name] = g
             else:
-                out[name] = (g.float() * per_site(scale, g)).sum(0).to(g.dtype)
+                dense[name] = g
+        # the 1-D leaves: the weighted f32 sum (over a group, one collective)
+        out.update((k, v.to(grads[k].dtype))
+                   for k, v in weighted_tree_sum(dense, scale, axis).items())
         order = sorted(classes.items())
         omegas = state["omega"] if dad_warm_start else {}
         results = subspace_iteration_grouped(
@@ -136,14 +163,19 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             dad_num_pow_iters, dad_tol, matmul_dtype=mm_dtype, use_kernel=use_kernel)
         new_oms = dict(omegas)
         for (_, names), pqs in zip(order, results):
+            # every factor of the class through the wire, then (over a
+            # group) ONE gather of the class's [K, Σ(m + n), r] block
+            parts = []
             for name, (P, Q) in zip(names, pqs):
-                g = grads[name]
                 # next round's subspace guess: this round's per-site,
                 # unweighted right factor
                 new_oms[name] = Q
-                Pw = P.to(pdtype).float()  # [S, m, r]
                 # the robust modes ship the unweighted Q: the reducer weighs
-                Qw = (Q if gather_mode else Q * scale[:, None, None]).to(pdtype).float()
+                parts += [wire(P), wire(Q if gather_mode else Q * scale[:, None, None])]
+            parts = site_all_gather_packed(parts, axis)
+            for i, name in enumerate(names):
+                g = grads[name]
+                Pw, Qw = parts[2 * i].contiguous(), parts[2 * i + 1].contiguous()  # [S, m|n, r]
                 if gather_mode:
                     G = torch.einsum("smr,snr->smn", Pw, Qw)
                     gathered[name] = G.mT if name in transposed else G.reshape(g.shape)
@@ -160,12 +192,12 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
 
     def wire_shapes(grads, pack: int = 1) -> list:
         """JAX's model: one gather a rank class of the ``[pack, Σ(m + n),
-        r]`` factors at the payload dtype, a dense f32 psum a 1-D leaf
+        r]`` factors at the wire dtype, a dense f32 psum a 1-D leaf
         (``[pack, ...]`` gathers in the gather modes)."""
         groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
         f32 = torch.float32
-        return ([((pack, sum(m + n for m, n in mns), r), pdtype) for r, mns in groups]
+        return ([((pack, sum(m + n for m, n in mns), r), wdtype) for r, mns in groups]
                 + [(((pack,) + s) if gather_mode else s, f32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes)
+    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=wdtype)

@@ -196,13 +196,36 @@ def site_layer_norm(x, weight, bias, eps: float = 1e-6):
     return (x - mean) * torch.rsqrt(var + eps) * weight.reshape(shape) + bias.reshape(shape)
 
 
+class SiteBlockDraw:
+    """A dropout generator for one rank's ``[K]`` block of ``sites`` sites
+    (the process-group site mesh): each draw is made for all sites, as the
+    one-device round draws it, and the rows of sites ``start`` to ``start
+    + count`` are kept, so that a site's mask does not depend on how the
+    sites are spread over ranks. Site-major rows (``[K, ...]`` or ``[K·B,
+    ...]``) are what :func:`site_dropout` is given."""
+
+    def __init__(self, generator, sites: int, start: int, count: int):
+        self.generator, self.sites, self.start, self.count = generator, sites, start, count
+
+    def rand(self, shape, device):
+        rows = shape[0] // self.count  # a site's rows
+        full = torch.rand((rows * self.sites,) + tuple(shape[1:]), generator=self.generator,
+                          device=device)
+        return full[rows * self.start:rows * (self.start + self.count)]
+
+
 def site_dropout(x, rate: float, generator=None):
-    """Dropout with its mask drawn from ``generator`` (on ``x``'s device):
-    each element kept with probability ``1 - rate`` and scaled by
-    ``1 / (1 - rate)``, as flax's ``nn.Dropout``. Every call draws anew, so
-    sites and micro-batches get masks of their own. ``rate == 0`` is the
+    """Dropout with its mask drawn from ``generator`` (on ``x``'s device; a
+    :class:`SiteBlockDraw` draws for every site and keeps its block): each
+    element kept with probability ``1 - rate`` and scaled by ``1 / (1 -
+    rate)``, as flax's ``nn.Dropout``. Every call draws anew, so sites and
+    micro-batches get masks of their own. ``rate == 0`` is the
     identity."""
     if rate == 0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    if isinstance(generator, SiteBlockDraw):
+        u = generator.rand(x.shape, x.device)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

@@ -1,10 +1,17 @@
-"""Cross-site reductions: the subset of the JAX package's
-``parallel/collectives.py`` that the engines on one card use: the
-weighted mean and the byzantine-robust reducers.
+"""Cross-site reductions: the port of the JAX package's
+``parallel/collectives.py`` at one slice: the weighted mean, the wire
+codecs, the byzantine-robust reducers and the site axis over processes.
 
-In JAX these are ``psum``s over a site mesh or ``vmap`` axis. Here every
-site of the round lives on one card, so a site-batched value carries an
-explicit leading ``[S]`` axis and the reduction is a sum over it.
+In JAX these are ``psum``s over a site mesh or ``vmap`` axis. In the port
+a site-batched value carries an explicit leading site axis. With every
+site on one card (``axis=None``, JAX's ``mesh=None``) that axis is
+``[S]`` and a reduction is a sum over it. Over a process group (a
+:class:`PackedAxis`, parallel/mesh.py ``SiteMesh``) each rank holds its
+contiguous ``[K]`` block of the ``S = W·K`` sites (virtual site ``d·K + j``
+is row ``j`` of rank ``d``) and a reduction is two-level, as JAX's
+:func:`two_level_psum`: a local sum over the rank's ``[K]``, then ONE
+collective over the group on one flat buffer (:func:`flat_psum`), not
+one a leaf. Gathers stack the ranks' blocks in the same global order.
 
 ``precision_bits`` payload casts: ``"16"`` is bfloat16, ``"16-ieee"`` the
 reference's IEEE fp16, ``"32"`` f32. The weighted mean accumulates in f32
@@ -14,6 +21,9 @@ site's payload and the mean.
 """
 
 from __future__ import annotations
+
+import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,11 +46,13 @@ def per_site(v, like):
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
-def site_weight_scale(weight):
-    """Per-site normalized weight ``w_s / Σ w`` over ``weight [S]``; an
-    all-zero round gives scale 0, which keeps updates finite."""
+def site_weight_scale(weight, axes=None):
+    """Per-site normalized weight ``w_s / Σ w`` over ``weight [S]``, or over
+    a group's ``[K]`` blocks (``axes``, a :class:`PackedAxis`: the total
+    spans every rank); an all-zero round gives scale 0, which keeps
+    updates finite."""
     w = weight.float()
-    total = w.sum()
+    total = psum(w.sum(), axes)
     return torch.where(total > 0, w / torch.clamp(total, min=1e-12), torch.zeros_like(w))
 
 
@@ -55,13 +67,15 @@ def payload_uncast(tree: dict, like: dict) -> dict:
     return {k: g.to(like[k].dtype) for k, g in tree.items()}
 
 
-def site_weighted_mean(tree: dict, weight) -> dict:
+def site_weighted_mean(tree: dict, weight, axes=None, wire_dtype=None) -> dict:
     """Example-count-weighted mean across sites: each site's ``[S, ...]``
     leaf contributes in proportion to ``weight [S]``, so the aggregate is
     the pooled-data gradient. Accumulates in f32 and casts back to each
-    leaf's dtype."""
-    scale = site_weight_scale(weight)
-    return {k: (g.float() * per_site(scale, g)).sum(0).to(g.dtype) for k, g in tree.items()}
+    leaf's dtype. Over a group (``axes``) the rank's ``[K]`` partials go
+    through ``wire_dtype`` and one collective (:func:`weighted_tree_sum`)."""
+    scale = site_weight_scale(weight, axes)
+    agg = weighted_tree_sum(tree, scale, axes, wire_dtype)
+    return {k: agg[k].to(g.dtype) for k, g in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -189,3 +203,304 @@ def clip_site_gradients(grads: dict, weight, clip_mult: float) -> dict:
     flat = site_flat(grads)
     scale = robust_clip_scales((flat * flat).sum(1), weight, clip_mult)
     return site_unflat(flat * scale[:, None], grads)
+
+
+# ---------------------------------------------------------------------------
+# quantized wire codecs
+# ---------------------------------------------------------------------------
+
+#: the accepted ``TrainConfig.wire_quant`` values: "none" keeps the
+#: ``precision_bits`` wire, "bf16" forces a bf16 wire, "int8" and "fp8"
+#: are the scale-per-payload codecs of :class:`WireCodec`
+WIRE_QUANTS = ("none", "bf16", "int8", "fp8")
+
+#: the largest finite float8_e4m3fn magnitude: the fp8 codec maps each
+#: payload's amax onto it
+FP8_E4M3_MAX = 448.0
+#: the magnitude above which JAX's float8_e4m3fn cast gives NaN: values up
+#: to it round to 448 (464 is the tie, which rounds to even), larger ones
+#: and infinities overflow. torch's cast saturates to 448 instead.
+_FP8_NAN_ABOVE = 464.0
+
+
+def _mul32(h, c: int):
+    """The low 32 bits of ``h · c`` for int64 ``h`` in [0, 2³²) and a
+    32-bit constant ``c``, with every partial product under 2⁴⁹ (no int64
+    overflow on any device)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + ((h * hi) & 0xFFFF) * 65536) & 0xFFFFFFFF
+
+
+def _dither_uniform(v):
+    """JAX's deterministic per-element uniform in [0, 1) for stochastic
+    rounding: a murmur-style finalizer of the value's own f32 bits, bit
+    for bit. JAX hashes in uint32; torch has no uint32 shifts on the CPU,
+    so the hash runs in int64 with the low 32 bits kept after every
+    multiply (:func:`_mul32`)."""
+    h = v.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    h = _mul32(h, 0x9E3779B9)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h >> 8).float() * (1.0 / (1 << 24))
+
+
+def _payload_amax_scale(xf, batched: bool, grid_max: float):
+    """The symmetric scale mapping a payload's amax onto ``grid_max``: one
+    for the whole payload, or with ``batched=True`` one a row of the
+    leading site axis. An all-zero (a dead site's) or non-finite amax
+    takes scale 1.0, as in JAX."""
+    a = xf.abs()
+    if not batched:
+        amax = a.max()
+    elif a.dim() > 1:
+        amax = a.amax(dim=tuple(range(1, a.dim())), keepdim=True)
+    else:
+        amax = a
+    ok = amax.isfinite() & (amax > 0)
+    return torch.where(ok, amax / float(np.float32(grid_max)), torch.ones_like(amax))
+
+
+@dataclass(frozen=True)
+class WireCodec:
+    """One wire codec, JAX's: a payload is rounded through the wire grid
+    and restored to f32 (:meth:`compress`); the reduction then runs in
+    f32. ``dtype`` is what one element costs on the wire (what
+    ``wire_bytes`` counts): int8 and fp8 are one byte with one f32 scale a
+    payload (not counted). ``stochastic`` (int8 only) rounds ``floor(v +
+    u)`` with ``u`` from :func:`_dither_uniform`."""
+
+    quant: str  # "none" | "bf16" | "int8" | "fp8"
+    dtype: torch.dtype
+    stochastic: bool = False
+
+    def compress(self, x, batched: bool = False):
+        """``x`` through the wire grid, f32 in and out; ``batched=True``
+        scales each row of the leading site axis on its own."""
+        xf = x.float()
+        if self.quant == "none":
+            return xf.to(self.dtype).float()
+        if self.quant == "bf16":
+            return xf.to(torch.bfloat16).float()
+        if self.quant == "int8":
+            scale = _payload_amax_scale(xf, batched, 127.0)
+            v = xf / scale
+            q = torch.floor(v + _dither_uniform(v)) if self.stochastic else torch.round(v)
+            # JAX's int8 cast of a NaN (a non-finite payload's) is 0; the
+            # clipped value is an integer, exact in f32
+            q = torch.nan_to_num(torch.clamp(q, -127.0, 127.0), nan=0.0)
+            return q * scale
+        if self.quant == "fp8":
+            scale = _payload_amax_scale(xf, batched, FP8_E4M3_MAX)
+            v = xf / scale
+            q = v.to(torch.float8_e4m3fn).float()
+            # JAX's cast overflows to NaN where torch's saturates
+            q = torch.where(v.abs() > _FP8_NAN_ABOVE, float("nan"), q)
+            q = torch.where(v.isnan() | v.isinf(), float("nan"), q)
+            return q * scale
+        raise ValueError(f"unknown wire codec {self.quant!r}")
+
+
+def resolve_wire_codec(precision_bits="32", wire_quant: str = "none",
+                       stochastic: bool = False) -> WireCodec:
+    """``(precision_bits, TrainConfig.wire_quant)`` to the engines' wire
+    codec, JAX's: "none" defers to ``precision_bits``; any other value sets
+    the wire dtype only (the power iteration's products stay governed by
+    ``precision_bits``). ``stochastic`` holds for int8 only."""
+    if wire_quant not in WIRE_QUANTS:
+        raise ValueError(f"wire_quant must be one of {WIRE_QUANTS}, got {wire_quant!r}")
+    dtype = {"none": None, "bf16": torch.bfloat16, "int8": torch.int8,
+             "fp8": torch.float8_e4m3fn}[wire_quant] or payload_dtype(precision_bits)
+    return WireCodec(quant=wire_quant, dtype=dtype,
+                     stochastic=bool(stochastic) and wire_quant == "int8")
+
+
+def resolve_dcn_codec(precision_bits="32", wire_quant: str = "none", dcn_wire_quant: str = "",
+                      stochastic: bool = False, slices: int = 1):
+    """The inter-slice codec: ``None`` at one slice, where there is no
+    slice tier to codec. More slices, or a ``dcn_wire_quant`` of its own,
+    are ROADMAP A11 (b) and raise."""
+    if slices != 1 or dcn_wire_quant not in ("", "none"):
+        raise NotImplementedError(
+            f"the inter-slice wire (slices={slices}, dcn_wire_quant={dcn_wire_quant!r}) is not "
+            "ported: ROADMAP A11 (b)")
+    return None
+
+
+def codec_payload(tree: dict, codec: WireCodec, precision_bits="32") -> dict:
+    """Each site's payload of a site-batched dict on the wire: the
+    ``precision_bits`` cast for the "none" codec (the dtype kept, as JAX's
+    ``payload_cast``), else each site's row through the codec (f32)."""
+    if codec.quant == "none":
+        return payload_cast(tree, precision_bits)
+    return {k: codec.compress(g, batched=True) for k, g in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the site axis over processes
+# ---------------------------------------------------------------------------
+
+#: what the collectives of this process did since the counters were last
+#: set to 0: calls of each kind, the bytes they carried, the bytes staged
+#: through host memory (the gloo route with CUDA tensors) and, while
+#: :data:`TIMING` is on, the wall seconds they took with the device
+#: synchronized around each
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
+#: synchronize the device around every collective and add its wall time to
+#: ``COLLECTIVES["seconds"]`` (a measurement mode: it changes no value)
+TIMING = False
+
+
+def reset_collective_counts() -> None:
+    for k in COLLECTIVES:
+        COLLECTIVES[k] = 0.0 if k == "seconds" else 0
+
+
+@dataclass(frozen=True)
+class PackedAxis:
+    """The packed site axis over a process group: every payload carries a
+    leading ``[pack]`` axis (the rank's K sites), and a reduction sums that
+    axis locally before ONE collective over ``group``. ``group=None`` is a
+    world of one with no group: the collective is the identity.
+
+    ``stage=True`` is the gloo route for CUDA tensors: each collective's
+    buffer is copied to host memory, reduced or gathered there by gloo and
+    copied back (counted in ``COLLECTIVES["staged_bytes"]``). It is the
+    route's declared design, chosen from the backend when the mesh is
+    built, never a recovery from a failed call."""
+
+    group: object | None
+    pack: int
+    world: int = 1
+    rank: int = 0
+    stage: bool = False
+
+
+def _timed(fn):
+    def run(x, axes):
+        if not TIMING:
+            return fn(x, axes)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        out = fn(x, axes)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+        COLLECTIVES["seconds"] += time.perf_counter() - t0
+        return out
+    return run
+
+
+@_timed
+def _all_reduce(buf, axes: PackedAxis):
+    """The sum of ``buf`` over the group, as a new tensor."""
+    import torch.distributed as dist
+
+    COLLECTIVES["all_reduce"] += 1
+    COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
+    if axes.group is None or axes.world == 1 and not dist.is_initialized():
+        return buf.clone()
+    t = buf.detach().to("cpu", copy=True) if axes.stage else buf.detach().contiguous().clone()
+    if axes.stage:
+        COLLECTIVES["staged_bytes"] += 2 * t.numel() * t.element_size()
+    dist.all_reduce(t, group=axes.group)
+    return t.to(buf.device) if axes.stage else t
+
+
+@_timed
+def _all_gather(x, axes: PackedAxis):
+    """Every rank's ``x [K, ...]`` stacked in rank order: ``[W·K, ...]``."""
+    import torch.distributed as dist
+
+    COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["bytes"] += x.numel() * x.element_size() * axes.world
+    if axes.group is None or axes.world == 1 and not dist.is_initialized():
+        return x.clone()
+    t = x.detach().to("cpu", copy=True) if axes.stage else x.detach().contiguous()
+    if axes.stage:
+        COLLECTIVES["staged_bytes"] += t.numel() * t.element_size() * (1 + axes.world)
+    parts = [torch.empty_like(t) for _ in range(axes.world)]
+    dist.all_gather(parts, t, group=axes.group)
+    out = torch.cat(parts, 0)
+    return out.to(x.device) if axes.stage else out
+
+
+def flat_psum(parts: list, axes: PackedAxis | None) -> list:
+    """Several already-reduced local partials summed over the group in ONE
+    collective: raveled into one f32 buffer, reduced, split back to each
+    part's shape (f32). ``axes=None`` returns them as they are."""
+    if axes is None or not parts:
+        return list(parts)
+    flat = torch.cat([p.reshape(-1).float() for p in parts])
+    tot = _all_reduce(flat, axes)
+    return [t.reshape(p.shape) for t, p in zip(tot.split([p.numel() for p in parts]), parts)]
+
+
+def psum(x, axes: PackedAxis | None):
+    """One already-local value summed over the group (the identity for
+    ``axes=None``)."""
+    return x if axes is None else flat_psum([x], axes)[0]
+
+
+def _through_wire(part, wire_dtype=None):
+    """A rank's partial as its collective ships it: through ``wire_dtype``
+    (a :class:`WireCodec`, a dtype, or None: as it is)."""
+    if isinstance(wire_dtype, WireCodec):
+        return wire_dtype.compress(part)
+    if wire_dtype is not None:
+        return part.to(wire_dtype).float()
+    return part
+
+
+def _pack_partial(x, wire_dtype=None):
+    """Tier 0, JAX's ``_pack_partial``: the sum over the leading ``[K]``
+    axis, then the partial through ``wire_dtype``."""
+    return _through_wire(x.sum(0), wire_dtype)
+
+
+def two_level_psum(x, axes: PackedAxis, wire_dtype=None):
+    """The packed reduction of one ``[K, ...]`` payload: the local sum,
+    the partial through ``wire_dtype``, one collective."""
+    return psum(_pack_partial(x, wire_dtype), axes)
+
+
+def weighted_tree_sum(tree: dict, scale, axes: PackedAxis | None, wire_dtype=None) -> dict:
+    """``Σ_s scale_s · g_s`` of every leaf of a site-batched dict in f32:
+    the sum over ``[S]`` for ``axes=None``; over a group each leaf's local
+    weighted partial (through ``wire_dtype``) and ONE collective for the
+    whole tree."""
+    parts = {k: (g.float() * per_site(scale, g)).sum(0) for k, g in tree.items()}
+    if axes is None:
+        return parts
+    parts = {k: _through_wire(p, wire_dtype) for k, p in parts.items()}
+    return dict(zip(parts, flat_psum(list(parts.values()), axes)))
+
+
+def site_all_gather(x, axes: PackedAxis | None):
+    """Every site's ``[K, ...]`` block to every rank: ``[S, ...]`` in global
+    site order (as it is for ``axes=None``)."""
+    return x if axes is None else _all_gather(x, axes)
+
+
+def site_all_gather_packed(parts: list, axes: PackedAxis | None) -> list:
+    """ONE gather for a list of ``[K, k_i, ...]`` parts of one dtype and
+    matching trailing dims: concatenated on axis 1, gathered, split back
+    into ``[S, k_i, ...]`` views, JAX's packed factor exchange."""
+    if axes is None:
+        return list(parts)
+    sizes = [p.shape[1] for p in parts]
+    gathered = _all_gather(torch.cat(parts, 1) if len(parts) > 1 else parts[0], axes)
+    return list(gathered.split(sizes, dim=1))
+
+
+def site_index(axes: PackedAxis | None = None) -> int:
+    """The global index of the first site of this rank's block."""
+    return 0 if axes is None else axes.rank * axes.pack
+
+
+def site_count(axes: PackedAxis | None, local: int | None = None) -> int:
+    """The global site count: ``W · K`` over a group, ``local`` (the
+    ``[S]`` axis's length) for ``axes=None``."""
+    return local if axes is None else axes.world * axes.pack

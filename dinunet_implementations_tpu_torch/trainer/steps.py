@@ -29,10 +29,22 @@ products, per-site BatchNorms and LayerNorms; ``SMRI3DNet.site_forward``:
 one grouped convolution a stage, the sites side by side), and
 autograd returns each site's own gradient ``[S, ...]``, where JAX takes
 ``vmap(grad)``.
+
+Over a process group (``mesh=``, a parallel/mesh.py ``SiteMesh``) each
+rank runs the same rounds on its own ``[K]`` block of the ``S = W·K``
+sites: its inputs, masks and per-site state are that block, the engine
+reduces in two levels over the group, and the round's loss, live totals
+and sync-BN statistics are summed over the group as JAX's
+``two_level_psum`` does; every rank then applies the same update. A state
+under a mesh holds the rank's block of every per-site leaf
+(:func:`gather_site_state` and :func:`site_state_block` cross between
+the two forms). Dropout draws every site's mask and keeps the block's
+(``models.layers.SiteBlockDraw``), so the result does not depend on W.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -40,9 +52,16 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..engines.base import default_async_buffers, staleness_weights
-from ..models.layers import BatchNorm
-from ..parallel.collectives import check_robust_agg, per_site, site_flat, site_weight_scale
+from ..engines.base import MESH_PLANES_ITEM, default_async_buffers, staleness_weights
+from ..models.layers import BatchNorm, SiteBlockDraw
+from ..parallel.collectives import (
+    check_robust_agg,
+    flat_psum,
+    per_site,
+    psum,
+    site_all_gather,
+    site_flat,
+)
 from ..privacy.dpsgd import make_dp_fn
 from ..privacy.personalize import default_personal, graft_shared, head_leaf_paths, strip_tree
 from ..robustness.health import REPUTATION_KEYS, default_health, reputation_fields
@@ -108,7 +127,19 @@ def eval_folds_sites(model) -> bool:
     return all(m.track_running_stats for m in model.modules() if isinstance(m, BatchNorm))
 
 
-def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
+def _block_of(a, S: int, block: slice):
+    """The rank's rows of a per-site array whose leading dim is ``S`` (the
+    global sites) or already the block's length."""
+    n = block.stop - block.start
+    if a.shape[0] == S:
+        return a[block]
+    if a.shape[0] == n:
+        return a
+    raise ValueError(f"a per-site array of {a.shape[0]} rows is neither the {S} sites nor this "
+                     f"rank's {n}")
+
+
+def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = (), mesh=None):
     """The full-pass eval of a training state, on ``device`` (the card
     unless the caller asks for ``"cpu"``): ``eval_fn(state, inputs [S,
     steps, B, ...], labels [S, steps, B], weights [S, steps, B])`` returns
@@ -126,8 +157,12 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
     each site is normalized by its own rows, as JAX's per-site ``vmap``
     does. Weight-0
     rows are padding: they carry weight 0 into the loss sum and the
-    statistics through ``mask=``. This is JAX's ``make_eval_fn`` with
-    ``mesh=None``.
+    statistics through ``mask=``. This is JAX's ``make_eval_fn``.
+
+    ``mesh`` (a process group's ``SiteMesh``): each rank evaluates its own
+    block of the sites of ``[S, ...]`` inputs and the outputs are gathered,
+    so every rank returns all ``S`` sites' (JAX's ``fetch_site_outputs``);
+    ``personalize`` is not run over a group.
 
     ``personalize`` (head patterns): a state that carries ``personal`` rows
     evaluates each site on its own head. A model that folds the sites
@@ -136,11 +171,25 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = ()):
     every site's rows in one call). Any other model runs each site's rows
     in a call of their own on its merged weights. A state without rows (a
     params-only restore) evaluates the global heads, as in JAX."""
+    personal_on = bool(tuple(personalize))
+    if mesh is not None:
+        if personal_on:
+            raise NotImplementedError("personalize over a process group (mesh) is not ported: "
+                                      f"ROADMAP {MESH_PLANES_ITEM}")
+        device = mesh.device
     dev = resolve_device(device)
     fold = eval_folds_sites(task.model)
-    personal_on = bool(tuple(personalize))
 
     def eval_fn(state: TrainState, inputs, labels, weights):
+        if mesh is not None:
+            S_all = inputs.shape[0] if mesh.pack is None else mesh.world * mesh.pack
+            block, axis = mesh.block(S_all), mesh.axis(S_all)
+            probs, loss_sum, w_sum = local_eval(state, *(_block_of(a, S_all, block)
+                                                         for a in (inputs, labels, weights)))
+            return tuple(site_all_gather(t, axis) for t in (probs, loss_sum, w_sum))
+        return local_eval(state, inputs, labels, weights)
+
+    def local_eval(state: TrainState, inputs, labels, weights):
         S, steps, B = inputs.shape[:3]
         heads = (state.personal["params"]
                  if personal_on and state.personal is not None else None)
@@ -317,6 +366,36 @@ def init_train_state(task: FederatedTask, engine, optimizer: Optimizer, rng: int
                       telemetry=default_round_telemetry(num_sites, dev) if telemetry else None)
 
 
+#: the TrainState fields whose leaves carry the leading per-site axis
+SITE_FIELDS = ("engine_state", "health", "buffers", "overlap", "personal", "telemetry")
+
+
+def _site_rows(state: TrainState) -> int:
+    return next(iter(state.health.values())).shape[0]
+
+
+def gather_site_state(state: TrainState, mesh) -> TrainState:
+    """A mesh state (every per-site leaf the rank's ``[K]`` block) as the
+    whole ``[S]`` state, on every rank: one all-gather a per-site leaf. A
+    collective: every rank of the group calls it. ``mesh=None`` returns
+    ``state``."""
+    if mesh is None:
+        return state
+    axis = mesh.axis(mesh.world * _site_rows(state))
+    return dataclasses.replace(state, **{
+        f: _tree_map(lambda a: site_all_gather(a, axis), getattr(state, f)) for f in SITE_FIELDS})
+
+
+def site_state_block(state: TrainState, mesh) -> TrainState:
+    """A whole ``[S]`` state (a checkpoint's) as this rank's block of every
+    per-site leaf, on the rank's device; ``mesh=None`` returns ``state``."""
+    if mesh is None:
+        return state
+    block = mesh.block(_site_rows(state))
+    return dataclasses.replace(state, **{
+        f: _tree_map(lambda a: a[block].contiguous(), getattr(state, f)) for f in SITE_FIELDS})
+
+
 def default_overlap_stash(num_sites: int, params: dict, batch_stats: dict) -> dict:
     """The empty stash of the overlapped rounds, JAX's
     ``default_overlap_stash``: per site the ``grads``, ``stats``,
@@ -357,8 +436,8 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 #: make_train_epoch_fn options of the JAX package that are not ported yet:
 #: name -> (the value that means "off", the ROADMAP item that ports it)
 _UNPORTED = {
-    "mesh": (None, "A11 (multi-GPU)"),
-    "min_slices": (1, "A11 (slices)"),
+    "min_slices": (1, "A11 (b)"),
+    "sequence_microbatches": (0, "A11 (c)"),
 }
 #: options of the JAX package that only govern how its program runs (scan
 #: inputs, buffer donation) and change no result: any value is taken
@@ -408,7 +487,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         reputation_rounds: int = 8, staleness_bound: int = 0,
                         staleness_decay: float = 0.5, overlap_rounds: bool = False,
                         dp_clip: float = 0.0, dp_noise_multiplier: float = 0.0, dp_seed: int = 0,
-                        personalize: tuple = (), telemetry: bool = False, **options):
+                        personalize: tuple = (), telemetry: bool = False, mesh=None,
+                        **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
@@ -523,11 +603,21 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     it fills fresh ones when the state has none, or ones of other keys or
     another site count.
 
+    The process group (``mesh``, a parallel/mesh.py ``SiteMesh``): the
+    epoch runs on ``mesh.device`` over the rank's ``[K]`` block (module
+    docstring). It takes ``[S, ...]`` inputs, plans and masks (each rank
+    keeps its rows) or the rank's ``[K, ...]`` blocks of them
+    (parallel/distributed.py ``put_site_batch``); the state's per-site
+    leaves are the block's. The robust aggregation, the buffered and
+    overlapped rounds, DP, personalized heads, round telemetry and attack
+    plans are not run over a group and raise ``NotImplementedError``
+    naming ROADMAP A20.
+
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
     program runs and take any value. Every other option at a value other
-    than "off" (``mesh``, slices) raises ``NotImplementedError`` naming the
-    ROADMAP item that ports it."""
+    than "off" (slices, the ring LSTM's microbatches) raises
+    ``NotImplementedError`` naming the ROADMAP item that ports it."""
     _check_options(options)
     if staleness_bound < 0:
         raise ValueError(f"staleness_bound must be >= 0, got {staleness_bound}")
@@ -548,6 +638,17 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             "decay^age weighting) and composing them would compound the delays")
     if quarantine_rounds is None:
         quarantine_rounds = 3
+    if mesh is not None:
+        for name, on in (("robust_agg", robust_agg != "none"), ("staleness_bound", buffered),
+                         ("overlap_rounds", overlap),
+                         ("dp_clip / dp_noise_multiplier", bool(dp_clip or dp_noise_multiplier)),
+                         ("personalize", bool(tuple(personalize))), ("telemetry", telemetry),
+                         ("attack_plan", attack_plan is not None
+                          and attack_plan.injects_attacks())):
+            if on:
+                raise NotImplementedError(f"{name} over a process group (mesh) is not ported: "
+                                          f"ROADMAP {MESH_PLANES_ITEM}")
+        device = mesh.device
     dev = resolve_device(device)
     model = task.model
     L = local_iterations
@@ -602,10 +703,11 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         """What the engine aggregates: the shared leaves."""
         return strip_tree(tree, head, keep_head=False) if head else tree
 
-    def aggregate(grads, engine_state, weight, live, params, rnd):
+    def aggregate(grads, engine_state, weight, live, params, rnd, axis=None):
         """The engine on the shared leaves, its aggregate back at full
-        structure (zero on the head leaves)."""
-        agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, rnd=rnd)
+        structure (zero on the head leaves); over a group with ``axis``."""
+        kw = {} if axis is None else {"axis": axis}
+        agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, rnd=rnd, **kw)
         return (graft_shared(params, agg, head) if head else agg), es
 
     def personal_apply(personal, site_grad, alive):
@@ -675,8 +777,21 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return {**health, "suspect_streak": streak, "quarantined": quarantined,
                 "anomaly": anomaly}, z
 
+    def round_totals(weight, stats_w, site_stats, loss_w, axis):
+        """The round's bookkeeping over every site: the weight total, the
+        sync-BN statistics (each site's weighted by ``stats_w`` over the
+        total) and the loss sum (``loss_w``, each site's contribution); over
+        a group one collective for the total and one for the rest."""
+        total = psum(weight.sum(), axis)
+        scale = torch.where(total > 0, weight.float() / torch.clamp(total, min=1e-12),
+                            torch.zeros_like(weight.float()))
+        parts = {k: (s * per_site(scale, s)).sum(0) for k, s in stats_w(site_stats).items()}
+        parts["\0loss"] = loss_w.sum()
+        parts = dict(zip(parts, flat_psum(list(parts.values()), axis)))
+        return total, parts.pop("\0loss"), parts
+
     def apply_round(health, engine_state, buffers, personal, params, stats, ls, site_grad,
-                    n_sum, site_stats, loss_sum, rnd):
+                    n_sum, site_stats, loss_sum, rnd, axis=None):
         """The guarded round's aggregate-and-account half on one payload
         (this round's, or the overlap stash's): liveness, the engine's
         aggregation (over the staleness buffers in the async mode),
@@ -701,24 +816,24 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             agg, es_new = aggregate(buffers["grads"], engine_state, eff_w, (stale_w > 0).float(),
                                     params, rnd)
             engine_state = _freeze_dead(stale_w > 0, es_new, engine_state)
-            total_live, total_fresh = eff_w.sum(), n_eff.sum()
+            total_live = eff_w.sum()
         else:
-            agg, es_new = aggregate(site_grad, engine_state, n_sum, contribute, params, rnd)
+            agg, es_new = aggregate(site_grad, engine_state, n_sum, contribute, params, rnd, axis)
             engine_state = _freeze_dead(alive, es_new, engine_state)
-            total_live = total_fresh = n_eff.sum()
         # a head never leaves its site, so it steps on fresh arrivals only
         personal = personal_apply(personal, site_grad, alive)
-        fresh = total_fresh > 0
         # sync-BN: the example-weighted mean of the arriving sites'
         # statistics (a dead site's may be NaN: where-zeroed), held when
         # nobody arrives
-        scale = site_weight_scale(n_eff)
-        stats = {k: torch.where(fresh, (torch.where(per_site(alive, s), s, 0.0)
-                                        * per_site(scale, s)).sum(0), stats[k])
-                 for k, s in site_stats.items()}
-        loss_round = torch.where(
-            fresh, torch.where(alive, loss_sum, 0.0).sum() / torch.clamp(total_fresh, min=1.0),
-            float("nan"))
+        total_fresh, loss_live, mean_stats = round_totals(
+            n_eff, lambda st: {k: torch.where(per_site(alive, s), s, 0.0) for k, s in st.items()},
+            site_stats, torch.where(alive, loss_sum, 0.0), axis)
+        if not buffered:
+            total_live = total_fresh
+        fresh = total_fresh > 0
+        stats = {k: torch.where(fresh, v, stats[k]) for k, v in mean_stats.items()}
+        loss_round = torch.where(fresh, loss_live / torch.clamp(total_fresh, min=1.0),
+                                 float("nan"))
         streak = torch.where(finite, 0, health["streak"] + 1).int()
         quarantined = health["quarantined"]
         if quarantine_rounds > 0:
@@ -737,9 +852,16 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return (agg, engine_state, new_health, buffers, personal, stats, loss_round, total_live,
                 z)
 
-    def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack):
-        """The epoch's rounds; ``batch(r)`` gives round ``r``'s ``(x [S, L,
-        B, ...], y [S, L, B], w [S, L, B])`` on the device."""
+    def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack, S_all=None):
+        """The epoch's rounds over ``S`` sites (the rank's block of
+        ``S_all`` under a mesh); ``batch(r)`` gives round ``r``'s ``(x [S,
+        L, B, ...], y [S, L, B], w [S, L, B])`` on the device."""
+        axis = start = None
+        if mesh is not None:
+            axis = mesh.axis(S_all)
+            start = mesh.block(S_all).start
+            if live is not None:
+                live = _block_of(live, S_all, mesh.block(S_all))
         if attack is not None and not attacks:
             raise ValueError("an attack mask was fed but no attack_plan was given to "
                              "make_train_epoch_fn (the plan carries the transform's parameters)")
@@ -788,6 +910,9 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             rnd = state.round + r
             gen = torch.Generator(device=dev)
             gen.manual_seed(state.rng * 1_000_003 + rnd)
+            if mesh is not None:
+                # every site's dropout draw, this block's rows of it
+                gen = SiteBlockDraw(gen, S_all, start, S)
             xb, yb, wb = batch(r)
             site_grad, n_sum, site_stats, loss_sum = site_round(
                 params, stats, xb, yb, wb, gen, None if personal is None else personal["params"])
@@ -798,11 +923,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             if atk is not None:
                 site_grad = atk(site_grad, attack[:, r], attack_dev[:, r], rnd)
             if not guard:
-                agg, engine_state = aggregate(site_grad, engine_state, n_sum, None, params, rnd)
+                agg, engine_state = aggregate(site_grad, engine_state, n_sum, None, params, rnd,
+                                              axis)
                 personal = personal_apply(personal, site_grad, None)
-                scale = site_weight_scale(n_sum)
-                stats = {k: (s * per_site(scale, s)).sum(0) for k, s in site_stats.items()}
-                loss_round = loss_sum.sum() / torch.clamp(n_sum.sum(), min=1.0)
+                total, loss_all, stats = round_totals(n_sum, lambda st: st, site_stats,
+                                                      loss_sum, axis)
+                loss_round = loss_all / torch.clamp(total, min=1.0)
                 updates, opt_state = optimizer.update(agg, opt_state)
                 params = {k: v + updates[k] for k, v in params.items()}
                 if ts is not None:
@@ -827,7 +953,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             else:
                 (agg, engine_state, health, buffers, personal, stats, loss_round, total_live,
                  z) = apply_round(health, engine_state, buffers, personal, params, stats, ls,
-                                  site_grad, n_sum, site_stats, loss_sum, rnd)
+                                  site_grad, n_sum, site_stats, loss_sum, rnd, axis)
                 if ts is not None:
                     ts = round_metrics(ts, site_grad, agg)
             if z is not None:
@@ -849,19 +975,32 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         reputation_z_trace[:] = [torch.stack(zs)] if zs else []
         return new_state, torch.stack(losses) if losses else empty
 
+    def sites_of(first):
+        """``(S_all, take)``: the global site count of an epoch whose first
+        per-site input is ``first``, and the function that keeps a per-site
+        array's rows of this rank (the identity without a mesh)."""
+        if mesh is None:
+            return first.shape[0], lambda a: a
+        S_all = mesh.world * mesh.pack if mesh.pack is not None else first.shape[0]
+        block = mesh.block(S_all)
+        return S_all, lambda a: None if a is None else _block_of(a, S_all, block)
+
     def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None, attack=None):
-        inv_x = torch.as_tensor(inv_x, device=dev)
-        inv_y = torch.as_tensor(inv_y, device=dev)
-        idx = torch.as_tensor(idx, device=dev)
+        S_all, take = sites_of(idx)
+        inv_x = torch.as_tensor(take(inv_x), device=dev)
+        inv_y = torch.as_tensor(take(inv_y), device=dev)
+        idx = torch.as_tensor(take(idx), device=dev)
         S, steps = idx.shape[:2]
         rounds = steps // L
         if poison is not None:
-            poison = torch.as_tensor(poison, device=dev)[:, :rounds]
+            poison = torch.as_tensor(take(poison), device=dev)[:, :rounds]
         return run_rounds(state, S, rounds, lambda r: _gather_batch(
             inv_x, inv_y, idx[:, r * L:(r + 1) * L], None if poison is None else poison[:, r]),
-            live, attack)
+            live, attack, S_all)
 
     def host_epoch(state: TrainState, inputs, labels, weights, live=None, attack=None):
+        S_all, take = sites_of(inputs)
+        inputs, labels, weights = take(inputs), take(labels), take(weights)
         S, steps = inputs.shape[:2]
 
         def batch(r):
@@ -869,7 +1008,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             return (_to_device(inputs[:, sl], dev, torch.float32), _to_device(labels[:, sl], dev),
                     _to_device(weights[:, sl], dev, torch.float32))
 
-        return run_rounds(state, S, steps // L, batch, live, attack)
+        return run_rounds(state, S, steps // L, batch, live, attack, S_all)
 
     epoch = device_epoch if pipeline == "device" else host_epoch
     # the last epoch's anomaly z-scores [rounds, S] under the reputation
