@@ -18,7 +18,7 @@ any Pallas kernel; so does the port (plain ``torch`` products).
 Parameters keep JAX's names and, for the dense layers, ``nn.Linear``'s
 layout (``[out, in]``, the transpose of the flax kernel); ``cls`` ``[1, 1,
 E]`` and ``pos_embed`` ``[1, T, E]`` keep JAX's shapes (T = 2 + windows).
-Ring attention over a mesh's model axis is not ported (ROADMAP A11).
+Ring attention over a mesh's model axis is not ported (ROADMAP A11 (c)).
 """
 
 from __future__ import annotations
@@ -126,7 +126,7 @@ class MultimodalNet(nn.Module):
         if attention == "ring":
             raise NotImplementedError("MultimodalNet(attention='ring') shards the tokens over "
                                       "a mesh's model axis, which is not ported: ROADMAP A11 "
-                                      "(multi-GPU)")
+                                      "(c)")
         if attention != "local":
             raise ValueError(f"attention must be 'local' or 'ring', got {attention!r}")
         self.fs_input_size, self.num_windows = fs_input_size, num_windows

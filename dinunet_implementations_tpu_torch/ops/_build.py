@@ -5,13 +5,17 @@ compiled by ``nvcc`` for ``sm_90a`` and loaded with :mod:`ctypes`. The
 libraries go to ``build/torch_kernels/<hash>/`` under the checkout, keyed by
 a hash of the sources and flags, so a fresh checkout builds everything from
 the sources in the repository and an unchanged one reuses its build. All
-sources compile at once, one ``nvcc`` each. :func:`enable_compile_cache`
-moves the root elsewhere (the compile cache).
+sources compile at once, one ``nvcc`` each, under a file lock in the build
+directory, so that processes starting together on an empty directory (the
+ranks of a process group) build each library once: the first builds, the
+others wait and load. :func:`enable_compile_cache` moves the root
+elsewhere (the compile cache).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,6 +68,15 @@ def build_all() -> dict[str, Path]:
     Raises with nvcc's output if any source fails."""
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_locked(out_dir)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_locked(out_dir: Path) -> dict[str, Path]:
     t0 = time.monotonic()
     libs = {src.stem: out_dir / f"lib{src.stem}.so" for src in _sources()}
     procs = {}

@@ -93,13 +93,9 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # the JAX CLI's flags that the port refuses: argparse dest -> (the value
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
-_MULTI_GPU = "A11 (multi-GPU)"
 _REFUSED = {
-    "model_axis_size": (None, _MULTI_GPU), "sites_per_device": (None, _MULTI_GPU),
-    "slices": (None, _MULTI_GPU), "min_slices": (None, _MULTI_GPU),
-    "dcn_wire_quant": (None, _MULTI_GPU), "coordinator": (None, _MULTI_GPU),
-    "num_processes": (None, _MULTI_GPU), "process_id": (None, _MULTI_GPU),
-    "wire_quant": ("none", _MULTI_GPU),
+    "model_axis_size": (None, "A11 (c)"), "slices": (None, "A11 (b)"),
+    "min_slices": (None, "A11 (b)"), "dcn_wire_quant": (None, "A11 (b)"),
 }
 
 
@@ -251,13 +247,24 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="KEY=VALUE",
                    help="override any TrainConfig / task-args field (repeatable; value "
                         "parsed as JSON when possible)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-process runs: the process group's coordinator (rank 0 hosts "
+                        "it); every process passes the same address. The backend follows "
+                        "--device: nccl on the card, gloo on the CPU")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-process runs: total process count")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-process runs: this process's rank")
+    p.add_argument("--sites-per-device", type=int, default=None,
+                   help="virtual sites a rank holds (TrainConfig.sites_per_device); a rank "
+                        "has one device, so over W processes it must be sites / W")
+    p.add_argument("--wire-quant", default=None, choices=["none", "bf16", "int8", "fp8"],
+                   help="the engines' wire codec (TrainConfig.wire_quant): bf16, or a "
+                        "one-byte int8 / fp8 grid with a scale a payload")
     for flag, kw in (
-            ("--model-axis-size", dict(type=int)), ("--sites-per-device", dict(type=int)),
-            ("--slices", dict(type=int)), ("--min-slices", dict(type=int)),
-            ("--dcn-wire-quant", dict(choices=["none", "bf16", "int8", "fp8"])),
-            ("--coordinator", {}), ("--num-processes", dict(type=int)),
-            ("--process-id", dict(type=int)),
-            ("--wire-quant", dict(choices=["none", "bf16", "int8", "fp8"]))):
+            ("--model-axis-size", dict(type=int)), ("--slices", dict(type=int)),
+            ("--min-slices", dict(type=int)),
+            ("--dcn-wire-quant", dict(choices=["none", "bf16", "int8", "fp8"]))):
         p.add_argument(flag, help=argparse.SUPPRESS, **({"default": None} | kw))
     return p
 
@@ -307,6 +314,8 @@ def main(argv: list[str] | None = None) -> int:
                      ("secure_agg", args.secure_agg), ("telemetry", args.telemetry),
                      ("profile_dir", args.profile_dir), ("xprof_dir", args.xprof_dir),
                      ("compile_cache_dir", args.compile_cache),
+                     ("wire_quant", args.wire_quant),
+                     ("sites_per_device", args.sites_per_device),
                      ("personalize", None if args.personalize is None
                       else tuple(p for p in args.personalize.split(",") if p))):
         if val is not None:
@@ -326,6 +335,21 @@ def main(argv: list[str] | None = None) -> int:
         os.environ[ENV_VAR] = args.sanitize
     from ..checks.sanitize import SanitizerViolation
     from ..telemetry.sink import _finite  # strict JSON, as JAX's CLI prints it
+
+    mh_flags = (args.coordinator, args.num_processes, args.process_id)
+    if any(f is not None for f in mh_flags):
+        complete = all(f is not None for f in mh_flags)
+        solo = args.num_processes == 1 and args.coordinator is None and args.process_id is None
+        if not complete and not solo:
+            # a worker with a partial spec must not run alone on the whole
+            # tree as if it were the federation
+            raise SystemExit("multi-process runs need all of --coordinator, --num-processes "
+                             "and --process-id together (--num-processes 1 alone runs "
+                             "single-process)")
+        from ..parallel.distributed import distributed_init
+
+        distributed_init(coordinator_address=args.coordinator, num_processes=args.num_processes,
+                         process_id=args.process_id, device=args.device)
 
     if args.schedule:
         if args.serve or args.site is not None or args.folds is not None:
@@ -438,9 +462,11 @@ def main(argv: list[str] | None = None) -> int:
 
         from ..robustness.preemption import Preempted
 
-        runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
-                           fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
+        from ..parallel.distributed import distributed_shutdown
+
         try:
+            runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
+                               fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
             results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)
         except SanitizerViolation as v:
             print(json.dumps({"sanitizer_violation": str(v)}), file=sys.stderr)
@@ -451,6 +477,9 @@ def main(argv: list[str] | None = None) -> int:
             print(json.dumps({"preempted": True, "reason": p.reason, "epoch": p.epoch,
                               "resume_with": "--resume"}), file=sys.stderr)
             return p.exit_code
+        finally:
+            # a process group ends with the fit, whatever the fit's end
+            distributed_shutdown()
 
     for k, res in enumerate(results):
         loss, metric = res["test_metrics"][0]

@@ -4,7 +4,10 @@ package's ``runner/fed_runner.py``.
 - :class:`FedRunner`, the COINSTAC simulator's replacement, finds the
   ``input/local*/simulatorRun`` site directories, resolves each site's
   config from the tree's ``inputspec.json``, reads and splits each site,
-  and fits every fold with all sites on one device.
+  and fits every fold with all sites on one device, or over a process
+  group (``mesh=``; ``"auto"`` takes the group when a runtime is up,
+  :func:`auto_site_mesh`): every process loads the whole tree and trains
+  its own block of the sites, and rank 0 writes.
 - :class:`SiteRunner`, the reference's one-site harness
   (``comps/*/site_run.py``), fits one site of the tree alone, a federation
   of one, fold by fold.
@@ -73,6 +76,46 @@ def discover_site_dirs(dataset_dir: str) -> list[str]:
     return sorted(glob.glob(pattern), key=_site_dir_key) or [dataset_dir]
 
 
+def _check_mesh(mesh) -> None:
+    from ..parallel.mesh import SiteMesh
+
+    if mesh is not None and not isinstance(mesh, SiteMesh):
+        raise TypeError(f"mesh must be a parallel.mesh.SiteMesh, None or 'auto', got "
+                        f"{type(mesh).__name__}")
+
+
+def auto_site_mesh(cfg: TrainConfig, num_sites: int, device=None):
+    """The ``mesh="auto"`` topology for ``num_sites`` virtual sites, JAX's
+    ``auto_site_mesh`` at one slice: the site mesh over the process group
+    when a runtime is up (parallel/distributed.py ``distributed_init``),
+    else ``None`` (every site on one device). A rank holds one device, so
+    a group of W ranks packs ``K = num_sites / W`` sites a rank;
+    ``cfg.sites_per_device`` other than 1 must be that K. More slices are
+    ROADMAP A11 (b), a model axis A11 (c)."""
+    import torch.distributed as dist
+
+    k = max(cfg.sites_per_device, 1)
+    if num_sites % k:
+        raise ValueError(f"sites_per_device={k} must divide the site count ({num_sites})")
+    if cfg.num_slices != 1:
+        raise NotImplementedError(f"num_slices={cfg.num_slices} is not ported: ROADMAP A11 (b)")
+    if cfg.model_axis_size != 1:
+        raise NotImplementedError(f"model_axis_size={cfg.model_axis_size} is not ported: "
+                                  "ROADMAP A11 (c)")
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from ..parallel.distributed import multihost_site_mesh
+
+    world = dist.get_world_size()
+    if num_sites % world:
+        raise ValueError(f"{num_sites} mesh sites must divide evenly over {world} processes")
+    per_rank = num_sites // world
+    if k != 1 and k != per_rank:
+        raise ValueError(f"sites_per_device={k} on {world} processes of one device each: "
+                         f"{num_sites} sites pack {per_rank} a rank")
+    return multihost_site_mesh(sites_per_process=per_rank, device=device)
+
+
 def load_site_splits(cfg: TrainConfig, site_dirs: list[str],
                      site_cfgs: list[TrainConfig] | None = None) -> list[dict]:
     """Each site's arrays split into folds: a list (one entry a fold) of
@@ -106,16 +149,15 @@ class FedRunner:
     """Federated training over a reference-style dataset tree, on
     ``device`` (the card unless the caller asks for ``"cpu"``).
     ``overrides`` are config fields (``epochs=3``, ``pipeline="host"``, …)
-    applied before the tree's inputspec. ``mesh="auto"`` resolves to one
-    device; any other mesh is multi-GPU (ROADMAP A11) and raises. ``bus``
-    (a ``telemetry.MetricsBus``) takes every fold's gauges and counters."""
+    applied before the tree's inputspec. ``mesh="auto"`` resolves through
+    :func:`auto_site_mesh` (the process group when a runtime is up, else
+    one device); a ``SiteMesh`` runs the folds over its group, on its rank's
+    device (``device`` must then be None or the same). ``bus`` (a
+    ``telemetry.MetricsBus``) takes every fold's gauges and counters."""
 
     def __init__(self, cfg: TrainConfig | None = None, data_path: str = ".",
                  out_dir: str | None = None, mesh="auto", fault_plan=None, attack_plan=None,
                  device=None, bus=None, **overrides):
-        if mesh not in ("auto", None):
-            raise NotImplementedError("FedRunner(mesh=...) is not ported: ROADMAP A11 "
-                                      "(multi-GPU); the port runs every site on one device")
         cfg = (cfg or TrainConfig()).with_overrides(overrides)
         self.data_path = data_path
         self.fault_plan, self.attack_plan = fault_plan, attack_plan
@@ -125,9 +167,12 @@ class FedRunner:
         # per-site inputspecs override member fields)
         self.cfg = self.site_cfgs[0].replace(num_sites=len(self.site_dirs))
         self.out_dir = out_dir or os.path.join(data_path, "output")
-        self.mesh = None
+        if mesh == "auto":
+            mesh = auto_site_mesh(self.cfg, len(self.site_dirs), device)
+        _check_mesh(mesh)
+        self.mesh = mesh
         self.bus = bus
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if mesh is None else mesh.device)
 
     def run(self, folds=None, verbose: bool = True, resume: bool = False) -> list[dict]:
         """Fit every fold (or those listed in ``folds``); ``resume=True``
@@ -259,7 +304,8 @@ class FedDaemon:
     trainer's spans, an epoch row an epoch, the membership events and a
     summary row go to a ``FitTelemetry`` under ``<telemetry_dir or
     out_dir/telemetry>/serve``, its manifest tagged with ``sink_tags``. A
-    mesh is multi-GPU (ROADMAP A11). The fleet scheduler (runner/scheduler.py)
+    mesh, or ``"auto"`` while a process group is up, is ROADMAP A11 (b). The
+    fleet scheduler (runner/scheduler.py)
     drives a tenant's daemon through :meth:`set_slice_grant`,
     :meth:`trainable` and :meth:`reload_checkpoint`."""
 
@@ -275,9 +321,12 @@ class FedDaemon:
         from ..telemetry.bus import global_bus
         from ..telemetry.flight import FlightRecorder
 
-        if mesh not in ("auto", None):
-            raise NotImplementedError("FedDaemon(mesh=...) is not ported: ROADMAP A11 "
-                                      "(multi-GPU); the port runs every slot on one device")
+        import torch.distributed as dist
+
+        if mesh not in ("auto", None) or (mesh == "auto" and dist.is_available()
+                                          and dist.is_initialized()):
+            raise NotImplementedError("FedDaemon over a process group (mesh) is not ported: "
+                                      "ROADMAP A11 (b); the daemon runs every slot on one device")
         cfg = (cfg or TrainConfig()).with_overrides(overrides)
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")

@@ -82,7 +82,7 @@ def _build_icalstm(cfg: TrainConfig, generator=None, use_kernel: bool = True) ->
     if cfg.model_axis_size > 1:
         raise NotImplementedError("model_axis_size > 1 shards the ICA windows over a mesh's "
                                   "model axis (the ring LSTM), which is not ported: ROADMAP "
-                                  "A11 (multi-GPU)")
+                                  "A11 (c)")
     a = cfg.ica_args
     return ICALstm(
         input_size=a.input_size,
@@ -111,7 +111,7 @@ def _build_multimodal(cfg: TrainConfig, generator=None,
                       use_kernel: bool = True) -> MultimodalNet:
     """MultimodalNet of the ``multimodal_args`` widths (the model runs no
     kernel). ``attention=""`` means ring attention iff ``model_axis_size >
-    1``, as in JAX; ring attention is refused (ROADMAP A11)."""
+    1``, as in JAX; ring attention is refused (ROADMAP A11 (c))."""
     a = cfg.multimodal_args
     attention = a.attention or ("ring" if cfg.model_axis_size > 1 else "local")
     if attention == "ring" and cfg.model_axis_size < 2:

@@ -34,7 +34,7 @@ the pool's slice-seconds go to whoever can use them.
 One card: every slice of the pool is the one device (JAX splits its
 devices into ``pod_slices`` bands); ``pod_slices`` stays the width of the
 pool that the fair share allocates, and tenants take turns on the card
-tick by tick. A tenant of more than one slice is multi-GPU (ROADMAP A11)
+tick by tick. A tenant of more than one slice is multi-GPU (ROADMAP A11 (b))
 and is refused. At one slice the grant mask gates nothing inside an epoch,
 as in JAX, whose trainer skips the slice window at one slice: a tenant
 trains only while it holds a grant.
@@ -179,7 +179,7 @@ class Tenant:
         if slices > 1:
             raise SchedulerError(
                 f"tenant {spec.tenant!r} asks for num_slices={slices}: a tenant of more than "
-                "one slice is multi-GPU, not ported (ROADMAP A11); the port's tenants take "
+                "one slice is multi-GPU, not ported (ROADMAP A11 (b)); the port's tenants take "
                 "one slice on one card")
         self.daemon = FedDaemon(
             cfg, capacity=spec.capacity, spool_dir=self.spool_dir, out_dir=self.out_dir,

@@ -16,9 +16,10 @@ see:
 - ``update_sq_last`` / ``update_sq_sum``: the squared norm of the applied
   optimizer update, the same in every site's row (the update is global);
 - ``payload_bytes``: the engine's modeled wire bytes a round
-  (:func:`payload_bytes_of`), ``dcn_bytes`` the inter-slice hop's (0.0 on
-  one card), ``rounds`` the rounds counted and ``held_rounds`` the rounds a
-  slice quorum held (0: the port runs no slice quorum, ROADMAP A11).
+  (:func:`payload_bytes_of`: under a ``wire_quant`` codec at the codec's
+  dtype, as JAX's), ``dcn_bytes`` the inter-slice hop's (0.0 at one
+  slice), ``rounds`` the rounds counted and ``held_rounds`` the rounds a
+  slice quorum held (0: the port runs no slice quorum, ROADMAP A11 (b)).
 
 Every leaf is a ``[num_sites]`` tensor on the epoch's device, carried in
 ``TrainState.telemetry`` and checkpointed in JAX's layout. The values stay
@@ -99,13 +100,12 @@ def payload_bytes_of(engine, grads_template: dict, pack: int = 1) -> float:
 
 def dcn_bytes_of(engine, grads_template: dict, pack: int = 1, sites_per_slice: int = 1,
                  slices: int = 1) -> float:
-    """The modeled inter-slice (DCN) payload a round for one slice: 0.0 with
-    one slice, as every run on one card has (JAX's single-slice runs
-    alike). More slices are multi-GPU (ROADMAP A11)."""
+    """The modeled inter-slice (DCN) payload a round for one slice: 0.0 at
+    one slice, JAX's value (there is no inter-slice hop). More slices are
+    ROADMAP A11 (b)."""
     if slices <= 1:
         return 0.0
-    raise NotImplementedError(f"dcn_bytes_of(slices={slices}) is not ported: ROADMAP A11 "
-                              "(slices)")
+    raise NotImplementedError(f"dcn_bytes_of(slices={slices}) is not ported: ROADMAP A11 (b)")
 
 
 def modeled_wire_shapes(engine, grads_template: dict, pack: int = 1) -> list:

@@ -1,6 +1,11 @@
 """The federated training loop: the port's counterpart of the JAX
 package's ``trainer/loop.py`` ``FederatedTrainer``, with every site folded
-onto one device (JAX's ``mesh=None``).
+onto one device (JAX's ``mesh=None``) or over a process group (``mesh=``,
+a parallel/mesh.py ``SiteMesh``: each rank trains its own block of the
+sites, every rank holds the same replicated params, and only rank 0, the
+coordinator, writes logs, checkpoints and outputs; a checkpoint holds
+every site's state, gathered before the write, so one written by W ranks
+loads at any other W and in JAX).
 
 One :class:`FederatedTrainer` drives, per fold:
 
@@ -53,7 +58,11 @@ exclude each other. ``cfg.compile_cache_dir`` moves the kernel libraries'
 root (``ops/_build.enable_compile_cache``).
 
 Options the port does not run raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, at any value other than "off": a mesh (A11).
+ROADMAP item that ports them, at any value other than "off": slices and
+the inter-slice wire (A11 (b)), the model axis and the ring LSTM's
+microbatches (A11 (c)); over a mesh also telemetry, the robust
+aggregation, the buffered and overlapped rounds, DP, secure aggregation,
+personalized heads, pretraining and attack plans (A20).
 
 The privacy plane: ``cfg.dp_clip`` / ``dp_noise_multiplier`` / ``dp_seed``,
 ``cfg.secure_agg`` and ``cfg.personalize`` reach the epoch function and
@@ -81,6 +90,7 @@ from ..core.device import resolve_device
 from ..data.api import SiteArrays, stack_site_inventory
 from ..data.batching import plan_epoch, plan_epoch_positions, plan_eval
 from ..engines import build_engine, make_dsgd
+from ..engines.base import MESH_PLANES_ITEM
 from ..ops import _build
 from ..robustness.attacks import attack_window
 from ..robustness.faults import fault_window, poison_inputs
@@ -106,10 +116,12 @@ from .metrics import Averages, ClassificationMetrics, MulticlassMetrics, is_impr
 from .steps import (
     FederatedTask,
     TrainState,
+    gather_site_state,
     init_train_state,
     make_eval_fn,
     make_optimizer,
     make_train_epoch_fn,
+    site_state_block,
 )
 
 
@@ -129,8 +141,33 @@ def _refuse(cfg: TrainConfig, mesh) -> None:
     if cfg.dp_epsilon_budget > 0.0 and not noisy:
         raise ValueError("dp_epsilon_budget needs dp_noise_multiplier > 0 — a noiseless "
                          "mechanism never exhausts any finite ε budget")
-    if mesh is not None:
-        raise NotImplementedError("FederatedTrainer mesh is not ported: ROADMAP A11 (multi-GPU)")
+    for name, on, item in (("num_slices", cfg.num_slices != 1, "A11 (b)"),
+                           ("dcn_wire_quant", cfg.dcn_wire_quant not in ("", "none"), "A11 (b)"),
+                           ("min_slices", cfg.min_slices != 1, "A11 (b)"),
+                           ("model_axis_size", cfg.model_axis_size != 1, "A11 (c)"),
+                           ("sequence_microbatches", cfg.sequence_microbatches != 0, "A11 (c)")):
+        if on:
+            raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported: ROADMAP "
+                                      f"{item}")
+    if mesh is None:
+        return
+    from ..parallel.mesh import SiteMesh
+
+    if not isinstance(mesh, SiteMesh):
+        raise TypeError(f"mesh must be a parallel.mesh.SiteMesh or None, got "
+                        f"{type(mesh).__name__}")
+    for name, on in (("telemetry", cfg.telemetry == "on"), ("robust_agg", cfg.robust_agg != "none"),
+                     ("staleness_bound", cfg.staleness_bound > 0),
+                     ("overlap_rounds", bool(cfg.overlap_rounds)),
+                     ("dp_clip / dp_noise_multiplier", dp_enabled(cfg.dp_clip,
+                                                                  cfg.dp_noise_multiplier)),
+                     ("secure_agg", cfg.secure_agg != "off"),
+                     ("personalize", bool(tuple(cfg.personalize))),
+                     ("pretrain", bool(cfg.pretrain and cfg.pretrain_args
+                                       and cfg.pretrain_args.epochs > 0))):
+        if on:
+            raise NotImplementedError(f"{name} over a process group (mesh) is not ported: "
+                                      f"ROADMAP {MESH_PLANES_ITEM}")
 
 
 class FederatedTrainer:
@@ -141,12 +178,22 @@ class FederatedTrainer:
         for ``"cpu"``. ``fault_plan`` and ``attack_plan`` are optional
         ``robustness.FaultPlan`` / ``AttackPlan``s; ``bus`` a
         ``telemetry.MetricsBus`` for the fit's gauges and counters;
-        ``mesh`` exists for the JAX signature and must be None."""
+        ``mesh`` a process group's ``SiteMesh`` (module docstring), whose
+        device the fit runs on (``device`` must then be None or the same)."""
         _refuse(cfg, mesh)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device={device!r} differs from the mesh's rank device "
+                                 f"{mesh.device}")
+            device = mesh.device
+            if attack_plan is not None and attack_plan.injects_attacks():
+                raise NotImplementedError("attack plans over a process group (mesh) are not "
+                                          f"ported: ROADMAP {MESH_PLANES_ITEM}")
         if cfg.pipeline not in ("device", "host"):
             raise ValueError(f"cfg.pipeline must be 'device' or 'host', got {cfg.pipeline!r}")
         self.cfg = cfg
         self.out_dir = out_dir
+        self.mesh = mesh
         self.fault_plan, self.attack_plan = fault_plan, attack_plan
         self.device = resolve_device(device)
         if cfg.compile_cache_dir:
@@ -186,8 +233,9 @@ class FederatedTrainer:
             reputation_z=cfg.reputation_z, reputation_rounds=cfg.reputation_rounds,
             min_slices=cfg.min_slices, dp_clip=cfg.dp_clip,
             dp_noise_multiplier=cfg.dp_noise_multiplier, dp_seed=cfg.dp_seed,
-            personalize=tuple(cfg.personalize), telemetry=self._telemetry_on)
-        self.eval_fn = make_eval_fn(self.task, self.device, personalize=tuple(cfg.personalize))
+            personalize=tuple(cfg.personalize), telemetry=self._telemetry_on, mesh=mesh)
+        self.eval_fn = make_eval_fn(self.task, self.device, personalize=tuple(cfg.personalize),
+                                    mesh=mesh)
         self._inventory = None  # device-resident site inventory, one per fit
         self._inventory_src = None  # the site arrays it was built from
         self._cache: dict = {}  # duration bookkeeping, reference-keyed
@@ -204,11 +252,35 @@ class FederatedTrainer:
 
     # -- building blocks -------------------------------------------------
 
+    def _coordinator(self) -> bool:
+        """Whether this process writes the fit's files: always without a
+        mesh, rank 0 over one (JAX's ``_coordinator``)."""
+        return self.mesh is None or self.mesh.coordinator
+
+    def _save(self, path: str, state, meta: dict, rotate: bool = True) -> None:
+        """``save_checkpoint`` of every site's state: over a mesh each rank
+        gathers the per-site leaves (a collective: every rank calls this)
+        and rank 0 writes."""
+        full = gather_site_state(state, self.mesh)
+        if self._coordinator():
+            save_checkpoint(path, full, meta=meta, rotate=rotate)
+
+    def _load(self, path: str, like, with_meta: bool = False):
+        """``load_checkpoint`` of a whole ``[S]`` checkpoint into ``like``
+        (this rank's block over a mesh): every rank reads the file."""
+        full_like = gather_site_state(like, self.mesh)
+        out = load_checkpoint(path, full_like, with_meta=with_meta)
+        state, meta = out if with_meta else (out, None)
+        state = site_state_block(state, self.mesh)
+        return (state, meta) if with_meta else state
+
     def init_state(self, sample_x=None, num_sites: int | None = None) -> TrainState:
         """The fit's first state from the model's weights; ``sample_x`` is
         taken for the JAX signature (the port's model is built with its
-        shapes)."""
+        shapes). Over a mesh its per-site leaves are this rank's block."""
         n = num_sites or self._num_sites
+        if self.mesh is not None:
+            n = self.mesh.block(n).stop - self.mesh.block(n).start
         return init_train_state(self.task, self.engine, self.optimizer, rng=self.cfg.seed,
                                 num_sites=n, reputation=self.cfg.robust_agg != "none",
                                 staleness_bound=self.cfg.staleness_bound,
@@ -223,8 +295,14 @@ class FederatedTrainer:
         if self._inventory is None or self._inventory_src != key:
             with self.tracer.span("inventory-upload"):
                 inv = stack_site_inventory(train_sites, self.fixed_inventory_rows)
-                self._inventory = (torch.from_numpy(inv.inputs).to(self.device),
-                                   torch.from_numpy(inv.labels).to(self.device))
+                if self.mesh is not None:
+                    # each rank keeps its own block of the sites on its device
+                    from ..parallel.distributed import put_site_inventory
+
+                    self._inventory = put_site_inventory(self.mesh, inv)
+                else:
+                    self._inventory = (torch.from_numpy(inv.inputs).to(self.device),
+                                       torch.from_numpy(inv.labels).to(self.device))
             self._inventory_src = key
         return self._inventory
 
@@ -369,6 +447,7 @@ class FederatedTrainer:
         checkpoint (:meth:`test_only`)."""
         if self.cfg.mode.lower() == "test":
             return self.test_only(test_sites, fold=fold)
+        verbose = verbose and self._coordinator()
         # the telemetry envelope: the whole fit under one "fit" span, and the
         # fold's sink (opened in _fit_impl) finalizes on every exit
         self._fit_tel, self._fit_summary = None, {}
@@ -466,7 +545,7 @@ class FederatedTrainer:
         best_metric, best_epoch, best_state = None, 0, state
         since_best, epoch_losses, iter_durations, start_epoch = 0, [], [], 1
         if resuming:
-            state, meta = load_checkpoint(latest_path, state, with_meta=True)
+            state, meta = self._load(latest_path, state, with_meta=True)
             start_epoch = int(meta.get("epoch", 0)) + 1
             best_metric = meta.get("best_val_metric")
             best_epoch = int(meta.get("best_val_epoch", 0))
@@ -483,7 +562,7 @@ class FederatedTrainer:
             if self.dp_accountant is not None and meta.get("dp_accountant"):
                 self.dp_accountant = RdpAccountant.from_json(meta["dp_accountant"])
                 self._dp_epsilon = float(self.dp_accountant.epsilon(cfg.dp_delta)[0])
-            best_state = (load_checkpoint(best_path, state)
+            best_state = (self._load(best_path, state)
                           if os.path.exists(best_path) or os.path.exists(best_path + ".prev")
                           else state)
 
@@ -537,7 +616,7 @@ class FederatedTrainer:
                                 since_best = 0
                                 if best_path:  # save on best
                                     with self.tracer.span("checkpoint"):
-                                        save_checkpoint(
+                                        self._save(
                                             best_path, best_state,
                                             meta={"best_val_epoch": best_epoch,
                                                   "best_val_metric": best_metric,
@@ -569,7 +648,7 @@ class FederatedTrainer:
                     duration(self._cache, t_start, "cumulative_total_duration")
                     if latest_path:  # the rotating resume point, every epoch
                         with self.tracer.span("checkpoint"):
-                            save_checkpoint(
+                            self._save(
                                 latest_path, state, rotate=True,
                                 meta={"epoch": epoch, "best_val_epoch": best_epoch,
                                       "best_val_metric": best_metric,
@@ -640,7 +719,7 @@ class FederatedTrainer:
                                          stop_epoch, epoch_losses, batch_size=cfg.batch_size)
         # per-site counters and round metrics of the final state (the best
         # may predate a quarantine)
-        results["site_health"] = health_summary(state.health)
+        results["site_health"] = health_summary(gather_site_state(state, self.mesh).health)
         if state.telemetry is not None:
             from ..telemetry.metrics import telemetry_summary
 
@@ -656,7 +735,10 @@ class FederatedTrainer:
                     self._fit_summary[key] = results["site_health"][key]
         if self.out_dir:
             with self.tracer.span("write-outputs"):
-                self._write_outputs(results, iter_durations, best_state, fold)
+                # every rank gathers the best state; rank 0 writes
+                full_best = gather_site_state(best_state, self.mesh)
+                if self._coordinator():
+                    self._write_outputs(results, iter_durations, full_best, fold)
         results["state"] = best_state
         return results
 

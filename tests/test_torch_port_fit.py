@@ -403,13 +403,14 @@ def test_fed_runner_writes_jax_outputs_for_every_fold(tree, tmp_path):
 def test_fed_runner_resolves_auto_mesh_and_refuses_others(tree):
     r = trunner.FedRunner(tconfig.TrainConfig(task_id="ICA-Classification"), tree, device="cpu")
     assert r.mesh is None and r.out_dir == os.path.join(tree, "output")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+    # a mesh is the process group's SiteMesh; anything else is refused
+    with pytest.raises(TypeError, match="SiteMesh"):
         trunner.FedRunner(tconfig.TrainConfig(task_id="ICA-Classification"), tree,
                           mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"mesh": object()}, "A11"), ({"min_slices": 2}, "A11"), ({"wire_quant": "int8"}, "A11"),
+    ({"num_slices": 2}, "A11"), ({"min_slices": 2}, "A11"), ({"dcn_wire_quant": "int8"}, "A11"),
 ])
 def test_refused_trainer_options_name_their_item(tree, option, item):
     ctor = {k: v for k, v in option.items() if k in ("mesh", "fault_plan", "attack_plan", "bus")}

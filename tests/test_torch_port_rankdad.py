@@ -193,8 +193,8 @@ def test_init_keeps_omega_in_jax_orientation():
     assert make_rankdad(dad_warm_start=False).init(params) == {}
 
 
-@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}, {"wire_quant": "fp8"},
-                                {"dcn_wire_quant": "int8"}])
+@pytest.mark.parametrize("kw", [{"dcn_wire_quant": "int8"}, {"dcn_wire_quant": "fp8"},
+                                {"dcn_wire_quant": "bf16"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A1"):
         make_rankdad(**kw)
@@ -205,9 +205,14 @@ def test_secure_aggregation_and_a_mesh_axis_are_refused():
         make_rankdad(secure_agg="mask")
     with pytest.raises(ValueError, match="secure_agg must be one of"):
         make_rankdad(secure_agg="nope")
-    eng = make_rankdad(dad_warm_start=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        eng.aggregate(_port_grads(_grads(6)), {}, torch.from_numpy(WEIGHT), axis_name=SITE_AXIS)
+    # the robust modes run with every site on one device only: over a
+    # process group's axis they are refused
+    from dinunet_implementations_tpu_torch.parallel.collectives import PackedAxis
+
+    eng = make_rankdad(dad_warm_start=False, robust_agg="trimmed_mean")
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
+        eng.aggregate(_port_grads(_grads(6)), {}, torch.from_numpy(WEIGHT),
+                      axis=PackedAxis(None, len(WEIGHT)))
 
 
 def test_bridge_carries_omega_both_ways_and_init_stacks_it_per_site():

@@ -499,7 +499,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", object()), ("min_slices", 2),
+    ("sequence_microbatches", 2), ("min_slices", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
     task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
@@ -544,13 +544,13 @@ def test_epoch_range_checks_hold():
             tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **{k: v})
 
 
-@pytest.mark.parametrize("kw", [{"wire_quant": "int8"}])
+@pytest.mark.parametrize("kw", [{"dcn_wire_quant": "int8"}])
 def test_unported_dsgd_options_raise(kw):
     with pytest.raises(NotImplementedError):
         make_dsgd(**kw)
 
 
-@pytest.mark.parametrize("kw,item", [({"wire_quant": "int8"}, "A11 (WireCodec)")])
+@pytest.mark.parametrize("kw,item", [({"dcn_wire_quant": "int8"}, "A11 (b)")])
 def test_unported_dsgd_options_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
         make_dsgd(**kw)
