@@ -288,9 +288,10 @@ class WireCodec:
             scale = _payload_amax_scale(xf, batched, 127.0)
             v = xf / scale
             q = torch.floor(v + _dither_uniform(v)) if self.stochastic else torch.round(v)
-            # JAX's int8 cast of a NaN (a non-finite payload's) is 0; the
+            # the int8 grid as JAX's cast leaves it: a NaN (a non-finite
+            # payload's) becomes 0 and -0 becomes +0 (``+ 0.0``); every other
             # clipped value is an integer, exact in f32
-            q = torch.nan_to_num(torch.clamp(q, -127.0, 127.0), nan=0.0)
+            q = torch.nan_to_num(torch.clamp(q, -127.0, 127.0), nan=0.0) + 0.0
             return q * scale
         if self.quant == "fp8":
             scale = _payload_amax_scale(xf, batched, FP8_E4M3_MAX)
