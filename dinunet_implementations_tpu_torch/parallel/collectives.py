@@ -479,6 +479,19 @@ def weighted_tree_sum(tree: dict, scale, axes: PackedAxis | None, wire_dtype=Non
     return dict(zip(parts, flat_psum(list(parts.values()), axes)))
 
 
+def site_sum(tree: dict, axes: PackedAxis | None = None) -> dict:
+    """Every leaf of a site-batched dict summed over all sites in f32 (over
+    a group: the local sums, then one collective)."""
+    parts = {k: g.float().sum(0) for k, g in tree.items()}
+    return parts if axes is None else dict(zip(parts, flat_psum(list(parts.values()), axes)))
+
+
+def site_mean(tree: dict, axes: PackedAxis | None = None) -> dict:
+    """The unweighted mean over all sites of every leaf (f32)."""
+    n = site_count(axes, next(iter(tree.values())).shape[0]) if tree else 1
+    return {k: v / n for k, v in site_sum(tree, axes).items()}
+
+
 def site_all_gather(x, axes: PackedAxis | None):
     """Every site's ``[K, ...]`` block to every rank: ``[S, ...]`` in global
     site order (as it is for ``axes=None``)."""

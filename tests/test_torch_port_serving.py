@@ -218,7 +218,8 @@ def test_importing_the_port_pulls_in_no_jax():
                 "telemetry.flight", "telemetry.exporter", "serving.__main__", "analysis",
                 "checks.core", "checks.rules", "checks.__main__", "runner.scheduler",
                 "runner.supervisor", "telemetry.collector", "telemetry.assemble",
-                "telemetry.postmortem"):
+                "telemetry.postmortem", "parallel.mesh", "parallel.distributed",
+                "runner.dcn_worker"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -249,7 +250,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                  "privacy/secure_agg.py", "telemetry/flight.py", "telemetry/exporter.py",
                  "serving/__main__.py", "analysis.py", "checks/core.py", "checks/rules.py",
                  "checks/__main__.py", "runner/scheduler.py", "runner/supervisor.py",
-                 "telemetry/collector.py", "telemetry/assemble.py", "telemetry/postmortem.py"):
+                 "telemetry/collector.py", "telemetry/assemble.py", "telemetry/postmortem.py",
+                 "parallel/mesh.py", "parallel/distributed.py", "runner/dcn_worker.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()
