@@ -355,7 +355,21 @@ result line:
    says ``"mode": "pod"`` with the tenant table and the series stamped
    ``process="scheduler"``, ``/metrics`` carries ``pod_scrape_targets``; a
    shutdown event ends it, rc 0. One ``pod plane:`` JSON line of the phase's numbers;
-24. one JSON line of per-kernel numbers, then the result line.
+24. the site axis over processes at full width (phase 6's 32 sites, batch 16):
+   (a) dSGD, rankDAD and powerSGD epochs under the int8, int8 stochastic,
+   fp8 and bf16 wire codecs against the same epochs on the f32 wire (the
+   first round's aggregate within JAX's codec envelope, relative; K1 and K2
+   on the cluster route, rankDAD's K7 staged, no plain class), and each
+   codec's output on the card equal bit for bit to its CPU output on a fixed
+   payload; (b) the dSGD and rankDAD epochs on an NCCL group of one (K = 32
+   on ``multihost_site_mesh``) against phase 6's one-device epochs at the CPU
+   tests' tolerances, whether bit-equal, the epoch ms and the collectives' ms
+   a round; (c) two ``runner/dcn_worker.py`` processes on cuda:0 under gloo
+   (K = 3 a rank) fit phase 21's tree with rankDAD for 2 epochs: equal params
+   checksums, losses within 1e-4 of the same worker alone, only rank 0
+   writes, K1, K2 and K7 launched on each rank. One line a sub-phase and one
+   ``mesh:`` line;
+25. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -6666,6 +6680,306 @@ def pod_phase(torch, np, lc, pc, bc, smi: str, root: str, tree: str | None = Non
     return rec
 
 
+# -- phase 24: the site axis over processes ------------------------------------------
+
+MESH_ENGINES = ("dSGD", "rankDAD", "powerSGD")
+MESH_CODECS = (("int8", False), ("int8", True), ("fp8", False), ("bf16", False))
+# The first round's aggregate under a codec against the f32 wire's, each leaf
+# over its max |aggregate| (a leaf of rounding noise, cls_fc1.bias, over 1e-3
+# of the tree's largest): JAX's envelope (tests/test_collectives.py: int8
+# 0.02, fp8 0.1 of unit-scale gradients), taken relative here since the
+# flagship's gradients are far from unit scale; bf16's grid is finer than
+# int8's.
+CODEC_SHARE = {"int8": 0.02, "fp8": 0.1, "bf16": 0.02}
+# The NCCL group of one against the one-device epoch: the CPU tests' W = 2
+# against W = 1 (tests/test_torch_port_mesh.py), absolute
+MESH_ATOL = {"dSGD": 1e-6, "rankDAD": 1e-5}
+# The two gloo ranks' fit against the same worker alone: the worker's CPU
+# test's tolerance against JAX (tests/test_torch_port_dcn_worker.py
+# FIT_ATOL). K = 3 members against 6 run K7 and the LSTM in other batch
+# shapes; rankDAD's factors of rank-deficient per-site gradients (batch 8
+# against r = 10) carry their last bits into the next round's Ω: on the
+# CPU a 6-site ICA demo tree's second-epoch loss parted by 2.3e-5.
+MESH_FIT_ATOL, MESH_FIT_EPOCHS, MESH_WORKER_TIMEOUT_S = 1e-4, 2, 600
+
+
+def mesh_setup(torch, engine: str, quant: str = "none", stochastic: bool = False, mesh=None):
+    """Phase 6's configuration (32 sites, batch 16, the default ICAArgs,
+    dropout 0) with the wire codec ``quant`` and, with ``mesh``, over the
+    process group: its epoch function and first state (the mesh's block of
+    the per-site leaves)."""
+    from dinunet_implementations_tpu_torch.core.config import NNComputation, TrainConfig
+    from dinunet_implementations_tpu_torch.runner.registry import build_training
+    from dinunet_implementations_tpu_torch.trainer.steps import (
+        init_train_state,
+        make_train_epoch_fn,
+    )
+
+    cfg = TrainConfig(task_id=NNComputation.TASK_ICA, seed=0, num_sites=TRAIN_SITES,
+                      batch_size=TRAIN_BATCH, learning_rate=TRAIN_LR, agg_engine=engine,
+                      wire_quant=quant, wire_stochastic=stochastic)
+    task, eng, opt = build_training(cfg, use_kernel=True)
+    task.model.dropout_rate = 0.0
+    epoch = make_train_epoch_fn(task, eng, opt, local_iterations=cfg.local_iterations,
+                                quarantine_rounds=cfg.quarantine_rounds, mesh=mesh)
+    k = TRAIN_SITES if mesh is None else mesh.pack
+    return cfg, eng, epoch, init_train_state(task, eng, opt, rng=0, num_sites=k)
+
+
+def mesh_epochs(torch, epoch, state, inv_x, inv_y, idx) -> tuple:
+    """``TRAIN_EPOCHS`` epochs: the end state, the losses and each epoch's
+    ms (synchronized)."""
+    losses, ms = [], []
+    for q in idx:
+        t0 = time.perf_counter()
+        state, lo = epoch(state, inv_x, inv_y, q)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(lo)
+    return state, torch.cat(losses), ms
+
+
+def leaf_share(got: dict, want: dict) -> float:
+    """The largest per-leaf error over the leaf's max |value| (floored at
+    1e-3 of the tree's largest)."""
+    top = max(w.abs().max().item() for w in want.values())
+    return max((got[k] - w).abs().max().item() / max(w.abs().max().item(), 1e-3 * top)
+               for k, w in want.items())
+
+
+def mesh_want(torch, launches: dict, engine: str, rounds: int) -> dict:
+    """Phase 6's routes: one K1 and one K2 a direction and round on the
+    cluster route, one staged K7 a rank class and round under rankDAD."""
+    want = dict.fromkeys(launches, 0)
+    n = 2 * rounds
+    want.update(lstm_fwd=n, lstm_proj=n, k1_cluster_route=n, lstm_bwd=n, k2_cluster_route=n)
+    if engine == "rankDAD":
+        want["poweriter"] = want["k7_staged_route"] = len(k7_leaves(torch)) * rounds
+    return want
+
+
+def mesh_codecs(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
+    """(a): every engine's epochs under each codec against the f32 wire;
+    the codec's card output against its CPU output on a fixed payload."""
+    from dinunet_implementations_tpu_torch.parallel import collectives as col
+
+    rounds = sum(q.shape[1] for q in idx)
+    out = {"pairs": [], "codec_bits": {}}
+    for engine in MESH_ENGINES:
+        _, _, epoch_f, state_f = mesh_setup(torch, engine)
+        one_f, _ = epoch_f(state_f, inv_x, inv_y, idx[0][:, :1])
+        agg_f = {k: m / 0.1 for k, m in one_f.opt_state["mu"].items()}
+        _, losses_f, ms_f = mesh_epochs(torch, epoch_f, state_f, inv_x, inv_y, idx)
+        for quant, stochastic in MESH_CODECS:
+            name = quant + ("-stochastic" if stochastic else "")
+            _, eng, epoch, state = mesh_setup(torch, engine, quant, stochastic)
+            zero_counters(lc, pc, bc)  # the main path's run starts here
+            st, losses, ms = mesh_epochs(torch, epoch, state, inv_x, inv_y, idx)
+            launches = read_counters(lc, pc, bc)
+            one, _ = epoch(state, inv_x, inv_y, idx[0][:, :1])
+            share = leaf_share({k: m / 0.1 for k, m in one.opt_state["mu"].items()}, agg_f)
+            rec = {"engine": engine, "codec": name, "wire_dtype": str(eng.wire_dtype),
+                   "first_round_aggregate_share": share, "envelope": CODEC_SHARE[quant],
+                   "losses": losses.tolist(), "f32_wire_losses": losses_f.tolist(),
+                   "epoch_ms": ms, "f32_wire_epoch_ms": ms_f, "launches": launches,
+                   "card": smi}
+            print("mesh codec:", json.dumps(rec))
+            if launches != mesh_want(torch, launches, engine, rounds):
+                fail(f"phase 24 (a) {engine} {name} launches {launches}")
+            if not bool(losses.isfinite().all()) or share > CODEC_SHARE[quant]:
+                fail(f"phase 24 (a) {engine} {name}: first-round share {share}")
+            out["pairs"].append(rec)
+    # the codec on the card against the CPU on fixed payloads of
+    # gradient-sized values: finite, and with a dead row and non-finite rows
+    gen = np.random.default_rng(24)
+    finite = (gen.standard_normal((TRAIN_SITES, 64, 33)) * 1e-3).astype(np.float32)
+    faulty = finite.copy()
+    faulty[1], faulty[2, 0, 0], faulty[3, 5, 5] = 0.0, np.inf, np.nan
+    for (quant, stochastic), (kind, x) in ((c, p) for c in MESH_CODECS
+                                           for p in (("finite", finite), ("faulty", faulty))):
+        codec = col.resolve_wire_codec("32", quant, stochastic)
+        for batched in (False, True):
+            cpu = codec.compress(torch.from_numpy(x), batched=batched).numpy()
+            card = codec.compress(torch.from_numpy(x).cuda(), batched=batched).cpu().numpy()
+            same = np.array_equal(np.where(np.isnan(cpu), 0, cpu).view(np.uint32),
+                                  np.where(np.isnan(card), 0, card).view(np.uint32)) and \
+                np.array_equal(np.isnan(cpu), np.isnan(card))
+            key = (f"{quant}{'-stochastic' if stochastic else ''}"
+                   f"{'-batched' if batched else ''}-{kind}")
+            out["codec_bits"][key] = bool(same)
+            if not same:
+                fail(f"phase 24 (a) codec {key}: the card's output differs from the CPU's")
+    return out
+
+
+def mesh_nccl_one(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
+    """(b): the dSGD and rankDAD epochs on an NCCL group of one (K = 32 on
+    multihost_site_mesh) against phase 6's one-device epochs."""
+    import socket
+
+    from dinunet_implementations_tpu_torch.parallel import collectives as col
+    from dinunet_implementations_tpu_torch.parallel.distributed import (
+        distributed_init,
+        distributed_shutdown,
+        multihost_site_mesh,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    rounds = sum(q.shape[1] for q in idx)
+    out = {}
+    distributed_init(f"127.0.0.1:{port}", 1, 0, backend="nccl", device="cuda:0")
+    try:
+        mesh = multihost_site_mesh(TRAIN_SITES, device="cuda:0")
+        for engine in ("dSGD", "rankDAD"):
+            _, _, epoch_p, state_p = mesh_setup(torch, engine)
+            sp, losses_p, ms_p = mesh_epochs(torch, epoch_p, state_p, inv_x, inv_y, idx)
+            _, _, epoch, state = mesh_setup(torch, engine, mesh=mesh)
+            zero_counters(lc, pc, bc)  # the main path's run starts here
+            col.reset_collective_counts()
+            st, losses, ms = mesh_epochs(torch, epoch, state, inv_x, inv_y, idx)
+            launches = read_counters(lc, pc, bc)
+            collectives = dict(col.COLLECTIVES)
+            # one more epoch with the device synchronized around each
+            # collective: their ms a round
+            col.reset_collective_counts()
+            col.TIMING = True
+            try:
+                _, _, ms_timed = mesh_epochs(torch, epoch, st, inv_x, inv_y, idx[:1])
+            finally:
+                col.TIMING = False
+            coll_ms = col.COLLECTIVES["seconds"] * 1e3 / idx[0].shape[1]
+            trees = {"params": (st.params, sp.params)}
+            if engine == "rankDAD":
+                trees["omega"] = ({k: v for k, v in st.engine_state["omega"].items()
+                                   if v is not None},
+                                  {k: v for k, v in sp.engine_state["omega"].items()
+                                   if v is not None})
+            errs = {k: tree_err(g, w, MESH_ATOL[engine])[0] for k, (g, w) in trees.items()}
+            errs["loss"] = (losses - losses_p).abs().max().item()
+            bit_equal = all(same_tree(g, w) for g, w in trees.values()) and \
+                bool(torch.equal(losses, losses_p))
+            rec = {"engine": engine, "backend": mesh.backend, "world": mesh.world,
+                   "pack": mesh.pack, "bit_equal": bit_equal, "max_abs_err": errs,
+                   "epoch_ms": ms, "one_device_epoch_ms": ms_p, "timed_epoch_ms": ms_timed,
+                   "collective_ms_per_round": coll_ms,
+                   "collectives_per_round": {k: collectives[k] / rounds
+                                             for k in ("all_reduce", "all_gather", "bytes")},
+                   "launches": launches, "card": smi}
+            print("mesh nccl group of one:", json.dumps(rec))
+            if launches != mesh_want(torch, launches, engine, rounds):
+                fail(f"phase 24 (b) {engine} launches {launches}")
+            if any(e > MESH_ATOL[engine] for e in errs.values()):
+                fail(f"phase 24 (b) {engine} differs from the one-device epoch: {errs}")
+            out[engine] = rec
+    finally:
+        distributed_shutdown()
+    return out
+
+
+def mesh_worker_cmd(tree: str, out: str, report: str, rank=None, port=None) -> list:
+    """The port's multi-process worker on ``tree``: a rankDAD fit of
+    ``MESH_FIT_EPOCHS`` epochs on ``cuda:0``; with ``rank`` one of two gloo
+    ranks."""
+    cmd = [sys.executable, "-m", "dinunet_implementations_tpu_torch.runner.dcn_worker",
+           "--data-path", tree, "--out-dir", out, "--report", report, "--task",
+           "ICA-Classification", "--epochs", str(MESH_FIT_EPOCHS), "--device", "cuda:0",
+           "--set", 'agg_engine="rankDAD"']
+    if rank is not None:
+        cmd += ["--backend", "gloo", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                "2", "--process-id", str(rank)]
+    return cmd
+
+
+def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
+    """(c): two worker processes on cuda:0 under gloo (K = 3 a rank) and
+    the same worker alone."""
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "mesh_gloo")
+    os.makedirs(work, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.monotonic()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]
+    procs = [subprocess.Popen(mesh_worker_cmd(tree, os.path.join(work, "out2"),
+                                              os.path.join(work, f"rank{r}.json"), r, port),
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=here)
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MESH_WORKER_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"phase 24 (c): the two ranks outran {MESH_WORKER_TIMEOUT_S} s")
+    finally:
+        for f in logs:
+            f.close()
+    pair_s = time.monotonic() - t0
+    if rcs != [0, 0]:
+        tails = [open(os.path.join(work, f"rank{r}.log")).read()[-3000:] for r in range(2)]
+        fail(f"phase 24 (c): the ranks exited {rcs}: {tails}")
+    t0 = time.monotonic()
+    solo = subprocess.run(mesh_worker_cmd(tree, os.path.join(work, "out1"),
+                                          os.path.join(work, "solo.json")),
+                          capture_output=True, text=True, cwd=here,
+                          timeout=MESH_WORKER_TIMEOUT_S)
+    solo_s = time.monotonic() - t0
+    if solo.returncode != 0:
+        fail(f"phase 24 (c): the worker alone exited {solo.returncode}: {solo.stdout[-3000:]}")
+    reps = [pod_read(os.path.join(work, f"rank{r}.json")) for r in range(2)]
+    alone = pod_read(os.path.join(work, "solo.json"))
+    loss_err = max(abs(a - b) for a, b in zip(reps[0]["epoch_losses"], alone["epoch_losses"]))
+    fold = os.path.join(work, "out2", "remote", "simulatorRun", "ICA-Classification", "fold_0")
+    files = sorted(os.listdir(fold)) if os.path.isdir(fold) else []
+    rec = {"ranks": [{k: r[k] for k in ("process_index", "backend", "device", "pack",
+                                        "params_sha256", "n_log_writes", "n_ckpt_writes",
+                                        "launches", "collectives", "fit_seconds",
+                                        "epoch_losses")} for r in reps],
+           "alone": {k: alone[k] for k in ("launches", "fit_seconds", "epoch_losses",
+                                           "params_sha256")},
+           "loss_err_vs_alone": loss_err, "pair_wall_s": pair_s, "alone_wall_s": solo_s,
+           "remote_files": files, "card": smi}
+    print("mesh gloo two ranks:", json.dumps(rec))
+    problems = []
+    if reps[0]["params_sha256"] != reps[1]["params_sha256"]:
+        problems.append("the ranks' params checksums differ")
+    if loss_err > MESH_FIT_ATOL:
+        problems.append(f"losses {loss_err} from the worker alone")
+    if (reps[1]["n_log_writes"], reps[1]["n_ckpt_writes"]) != (0, 0) or \
+            reps[0]["n_ckpt_writes"] == 0 or "checkpoint_best.msgpack" not in files:
+        problems.append("a rank other than 0 wrote, or rank 0 did not")
+    if any(r["pack"] != 3 or r["backend"] != "gloo" for r in reps):
+        problems.append("not two gloo ranks of 3 sites")
+    for r in reps:
+        if min(r["launches"].values()) == 0:
+            problems.append(f"rank {r['process_index']} launched {r['launches']}")
+    if problems:
+        fail(f"phase 24 (c): {problems}")
+    return rec
+
+
+def mesh_phase(torch, np, lc, pc, bc, smi: str, root: str, tree: str) -> dict:
+    cfg, _, _, _ = mesh_setup(torch, "dSGD")
+    inv, plans = training_data(np, cfg)
+    inv_x, inv_y = torch.from_numpy(inv.inputs).cuda(), torch.from_numpy(inv.labels).cuda()
+    idx = [torch.from_numpy(q).cuda() for q in plans]
+    t0 = time.monotonic()
+    codecs = mesh_codecs(torch, np, lc, pc, bc, smi, inv_x, inv_y, idx)
+    t_a = time.monotonic() - t0
+    nccl = mesh_nccl_one(torch, np, lc, pc, bc, smi, inv_x, inv_y, idx)
+    t_b = time.monotonic() - t0 - t_a
+    gloo = mesh_gloo_two(torch, smi, tree, root)
+    rec = {"a_s": t_a, "b_s": t_b, "c_s": time.monotonic() - t0 - t_a - t_b,
+           "codec_bits": codecs["codec_bits"], "card": smi}
+    print("mesh:", json.dumps(rec))
+    return {"codecs": codecs, "nccl": nccl, "gloo": gloo}
+
+
 def main() -> int:
     import torch
 
@@ -6796,6 +7110,12 @@ def main() -> int:
               "assemble; --schedule --statusz-port")
         pod = pod_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"),
                         os.path.join(root, "fs_tree"))
+
+        print(f"== 24. the site axis over processes at full width: {TRAIN_SITES}-site epochs "
+              "under the int8, int8 stochastic, fp8 and bf16 wires against f32; an NCCL group "
+              f"of one against the one-device epochs; two gloo ranks of dcn_worker on cuda:0 "
+              f"over phase 21's tree against the worker alone")
+        mesh = mesh_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -6893,6 +7213,22 @@ def main() -> int:
         by_path[f"pod_drill_{g}"] = got["lstm_fwd"]
         bwd_by_path[f"pod_drill_{g}"] = got["lstm_bwd"]
         k7_by_path[f"pod_drill_{g}"] = got["poweriter"]
+    for p in mesh["codecs"]["pairs"]:  # phase 24
+        name = f"mesh_wire_{p['engine']}_{p['codec']}"
+        by_path[name] = p["launches"]["lstm_fwd"]
+        bwd_by_path[name] = p["launches"]["lstm_bwd"]
+        if p["engine"] == "rankDAD":
+            k7_by_path[name] = p["launches"]["poweriter"]
+    for engine, p in mesh["nccl"].items():
+        by_path[f"mesh_nccl1_{engine}"] = p["launches"]["lstm_fwd"]
+        bwd_by_path[f"mesh_nccl1_{engine}"] = p["launches"]["lstm_bwd"]
+        if engine == "rankDAD":
+            k7_by_path[f"mesh_nccl1_{engine}"] = p["launches"]["poweriter"]
+    for r in mesh["gloo"]["ranks"]:
+        name = f"mesh_gloo2_rank{r['process_index']}"
+        by_path[name] = r["launches"]["lstm_fwd"]
+        bwd_by_path[name] = r["launches"]["lstm_bwd"]
+        k7_by_path[name] = r["launches"]["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -7008,7 +7344,7 @@ def main() -> int:
                 "design": BWD_DESIGN + f" (half of the clusters a direction, each on its own time "
                           f"map; {cot})",
                 "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
-    print(f"== 24. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
+    print(f"== 25. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -31,6 +31,9 @@ PRINT_ALLOWED_FILES = {
     "telemetry/assemble.py",  # pod trace assembly CLI (its source summary)
     "telemetry/postmortem.py",  # incident timeline CLI
     "serving/__main__.py",  # serving CLI: summary/latency JSON on stdout
+    # the multi-process worker: its refusals and the UNSUPPORTED line next
+    # to rc 66 are what its launcher reads
+    "runner/dcn_worker.py",
 }
 
 #: R002 — packages where a swallowed ``except Exception`` can eat the

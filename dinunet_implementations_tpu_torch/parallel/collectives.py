@@ -260,7 +260,10 @@ def _payload_amax_scale(xf, batched: bool, grid_max: float):
     else:
         amax = a
     ok = amax.isfinite() & (amax > 0)
-    return torch.where(ok, amax / float(np.float32(grid_max)), torch.ones_like(amax))
+    # a tensor divisor, not a Python scalar: the CUDA kernel of a division
+    # by a scalar multiplies by its reciprocal, one ulp from JAX's quotient
+    return torch.where(ok, amax / torch.full_like(amax, float(np.float32(grid_max))),
+                       torch.ones_like(amax))
 
 
 @dataclass(frozen=True)

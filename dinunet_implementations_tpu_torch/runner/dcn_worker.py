@@ -17,8 +17,9 @@ unless ``--backend`` names one; several ranks on one card run gloo, which
 stages each collective through host memory. ``--report PATH`` writes one
 JSON record of this rank (each rank passes its own path): the mesh, the
 per-epoch losses, the test metrics, the params checksum (equal on every
-rank of a correct run), the kernel libraries built or loaded and the
-rank's write counts.
+rank of a correct run), the kernel libraries built or loaded, the fit's
+seconds, the rank's K1, K2 and K7 launches, its collectives and its write
+counts.
 
 Exit codes (every failure path calls ``distributed_shutdown()`` first, so
 a dead peer becomes a nonzero exit, not a hang):
@@ -38,6 +39,7 @@ import argparse
 import hashlib
 import json
 import sys
+import time
 
 #: exit code for "this backend cannot run collectives here"
 UNSUPPORTED_RC = 66
@@ -173,7 +175,14 @@ def main(argv=None) -> int:
         return out
 
     loop_mod.FederatedTrainer.run_epoch = record_run_epoch
+    from ..ops import lstm_cuda, poweriter_cuda
+    from ..parallel import collectives
+
     builds0 = _build.BUILDS + _build.LOADS
+    lstm_cuda.LAUNCHES = lstm_cuda.BWD_LAUNCHES = poweriter_cuda.POWERITER_LAUNCHES = 0
+    collectives.reset_collective_counts()
+    t0 = time.perf_counter()
+    res = None
     try:
         cfg = TrainConfig(task_id=args.task, epochs=args.epochs, validation_epochs=2,
                           patience=10, batch_size=args.batch_size,
@@ -185,15 +194,14 @@ def main(argv=None) -> int:
     except Preempted as p:
         distributed_shutdown()
         return p.exit_code
-    except BaseException:
-        # a raise with the group live would leave peers waiting in their
-        # next collective
-        distributed_shutdown()
-        raise
     finally:
         loop_mod.write_logs_json, loop_mod.save_checkpoint = orig_logs, orig_ckpt
         loop_mod.FederatedTrainer.run_epoch = orig_run_epoch
-
+        if res is None:
+            # any other failure: the group ends before the error propagates,
+            # so the peers' next collective fails instead of waiting
+            distributed_shutdown()
+    fit_seconds = time.perf_counter() - t0
     mesh = runner.mesh
     world = 1 if mesh is None else mesh.world
     rank = 0 if mesh is None else mesh.rank
@@ -214,6 +222,11 @@ def main(argv=None) -> int:
             # kernel libraries built or loaded during the fit: the port's
             # counterpart of JAX's epoch compile count
             "epoch_compiles": _build.BUILDS + _build.LOADS - builds0,
+            "fit_seconds": fit_seconds,
+            # this rank's kernel launches (K1, K2, K7) and collectives
+            "launches": {"lstm_fwd": lstm_cuda.LAUNCHES, "lstm_bwd": lstm_cuda.BWD_LAUNCHES,
+                         "poweriter": poweriter_cuda.POWERITER_LAUNCHES},
+            "collectives": dict(collectives.COLLECTIVES),
         }
         with open(args.report, "w") as fh:
             json.dump(report, fh)
