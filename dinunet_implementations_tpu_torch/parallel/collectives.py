@@ -404,7 +404,7 @@ def _all_reduce(buf, axes: PackedAxis):
 
     COLLECTIVES["all_reduce"] += 1
     COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
-    if axes.group is None or axes.world == 1 and not dist.is_initialized():
+    if axes.group is None:
         return buf.clone()
     t = buf.detach().to("cpu", copy=True) if axes.stage else buf.detach().contiguous().clone()
     if axes.stage:
@@ -420,7 +420,7 @@ def _all_gather(x, axes: PackedAxis):
 
     COLLECTIVES["all_gather"] += 1
     COLLECTIVES["bytes"] += x.numel() * x.element_size() * axes.world
-    if axes.group is None or axes.world == 1 and not dist.is_initialized():
+    if axes.group is None:
         return x.clone()
     t = x.detach().to("cpu", copy=True) if axes.stage else x.detach().contiguous()
     if axes.stage:
@@ -480,19 +480,6 @@ def weighted_tree_sum(tree: dict, scale, axes: PackedAxis | None, wire_dtype=Non
         return parts
     parts = {k: _through_wire(p, wire_dtype) for k, p in parts.items()}
     return dict(zip(parts, flat_psum(list(parts.values()), axes)))
-
-
-def site_sum(tree: dict, axes: PackedAxis | None = None) -> dict:
-    """Every leaf of a site-batched dict summed over all sites in f32 (over
-    a group: the local sums, then one collective)."""
-    parts = {k: g.float().sum(0) for k, g in tree.items()}
-    return parts if axes is None else dict(zip(parts, flat_psum(list(parts.values()), axes)))
-
-
-def site_mean(tree: dict, axes: PackedAxis | None = None) -> dict:
-    """The unweighted mean over all sites of every leaf (f32)."""
-    n = site_count(axes, next(iter(tree.values())).shape[0]) if tree else 1
-    return {k: v / n for k, v in site_sum(tree, axes).items()}
 
 
 def site_all_gather(x, axes: PackedAxis | None):

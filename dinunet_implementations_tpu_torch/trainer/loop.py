@@ -156,13 +156,9 @@ def _refuse(cfg: TrainConfig, mesh) -> None:
     if not isinstance(mesh, SiteMesh):
         raise TypeError(f"mesh must be a parallel.mesh.SiteMesh or None, got "
                         f"{type(mesh).__name__}")
-    for name, on in (("telemetry", cfg.telemetry == "on"), ("robust_agg", cfg.robust_agg != "none"),
-                     ("staleness_bound", cfg.staleness_bound > 0),
-                     ("overlap_rounds", bool(cfg.overlap_rounds)),
-                     ("dp_clip / dp_noise_multiplier", dp_enabled(cfg.dp_clip,
-                                                                  cfg.dp_noise_multiplier)),
-                     ("secure_agg", cfg.secure_agg != "off"),
-                     ("personalize", bool(tuple(cfg.personalize))),
+    # the epoch function refuses its own planes over a group; these two
+    # act outside it (the engine's masked wire, the trainer's warm start)
+    for name, on in (("secure_agg", cfg.secure_agg != "off"),
                      ("pretrain", bool(cfg.pretrain and cfg.pretrain_args
                                        and cfg.pretrain_args.epochs > 0))):
         if on:
@@ -186,9 +182,6 @@ class FederatedTrainer:
                 raise ValueError(f"device={device!r} differs from the mesh's rank device "
                                  f"{mesh.device}")
             device = mesh.device
-            if attack_plan is not None and attack_plan.injects_attacks():
-                raise NotImplementedError("attack plans over a process group (mesh) are not "
-                                          f"ported: ROADMAP {MESH_PLANES_ITEM}")
         if cfg.pipeline not in ("device", "host"):
             raise ValueError(f"cfg.pipeline must be 'device' or 'host', got {cfg.pipeline!r}")
         self.cfg = cfg

@@ -127,6 +127,14 @@ def eval_folds_sites(model) -> bool:
     return all(m.track_running_stats for m in model.modules() if isinstance(m, BatchNorm))
 
 
+def _global_sites(mesh, rows: int) -> int:
+    """The global site count of an epoch over ``mesh`` whose per-site input
+    has ``rows`` rows: the mesh's ``W·K`` when it was built for a site
+    count (the input may then be the whole ``[S]`` or the rank's ``[K]``),
+    else ``rows`` (the whole ``[S]``)."""
+    return rows if mesh.pack is None else mesh.world * mesh.pack
+
+
 def _block_of(a, S: int, block: slice):
     """The rank's rows of a per-site array whose leading dim is ``S`` (the
     global sites) or already the block's length."""
@@ -182,7 +190,7 @@ def make_eval_fn(task: FederatedTask, device=None, personalize: tuple = (), mesh
 
     def eval_fn(state: TrainState, inputs, labels, weights):
         if mesh is not None:
-            S_all = inputs.shape[0] if mesh.pack is None else mesh.world * mesh.pack
+            S_all = _global_sites(mesh, inputs.shape[0])
             block, axis = mesh.block(S_all), mesh.axis(S_all)
             probs, loss_sum, w_sum = local_eval(state, *(_block_of(a, S_all, block)
                                                          for a in (inputs, labels, weights)))
@@ -785,10 +793,9 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         total = psum(weight.sum(), axis)
         scale = torch.where(total > 0, weight.float() / torch.clamp(total, min=1e-12),
                             torch.zeros_like(weight.float()))
-        parts = {k: (s * per_site(scale, s)).sum(0) for k, s in stats_w(site_stats).items()}
-        parts["\0loss"] = loss_w.sum()
-        parts = dict(zip(parts, flat_psum(list(parts.values()), axis)))
-        return total, parts.pop("\0loss"), parts
+        stats = {k: (s * per_site(scale, s)).sum(0) for k, s in stats_w(site_stats).items()}
+        summed = flat_psum(list(stats.values()) + [loss_w.sum()], axis)
+        return total, summed[-1], dict(zip(stats, summed[:-1]))
 
     def apply_round(health, engine_state, buffers, personal, params, stats, ls, site_grad,
                     n_sum, site_stats, loss_sum, rnd, axis=None):
@@ -981,7 +988,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         array's rows of this rank (the identity without a mesh)."""
         if mesh is None:
             return first.shape[0], lambda a: a
-        S_all = mesh.world * mesh.pack if mesh.pack is not None else first.shape[0]
+        S_all = _global_sites(mesh, first.shape[0])
         block = mesh.block(S_all)
         return S_all, lambda a: None if a is None else _block_of(a, S_all, block)
 

@@ -32,6 +32,7 @@ from test_torch_port_mesh_rank import (
     F,
     S,
     _live,
+    _port_engine,
     _port_epoch,
 )
 
@@ -359,11 +360,66 @@ def test_parallel_exports_the_ported_jax_names():
 
     # JAX's sharding objects (replicated, site_sharding) and the slice
     # tier's reductions have no counterpart at one slice
-    not_ported = {"replicated", "site_sharding", "three_level_psum", "weighted_site_sum"}
+    not_ported = {"replicated", "site_sharding", "three_level_psum", "weighted_site_sum",
+                  "site_mean", "site_sum"}
     jnames = {n for n in dir(jpar) if not n.startswith("_") and n not in ("collectives",
                                                                         "distributed", "mesh",
                                                                         "sequence")}
     assert jnames - not_ported <= set(tpar.__all__), jnames - not_ported - set(tpar.__all__)
-    t = {"a": torch.ones(4, 3), "b": torch.arange(4.0)}
-    assert torch.equal(tpar.site_sum(t)["b"], torch.tensor(6.0))
-    assert torch.equal(tpar.site_mean(t)["a"], torch.ones(3))
+    a = torch.arange(12.0).reshape(4, 3)
+    axis = tpar.PackedAxis(None, 4)
+    assert torch.equal(tpar.two_level_psum(a, axis), a.sum(0))
+    codec = tpar.resolve_wire_codec("32", "bf16")
+    assert torch.equal(tpar.two_level_psum(a / 7, axis, codec), codec.compress((a / 7).sum(0)))
+
+
+@pytest.mark.parametrize("engine", ["dSGD", "rankDAD", "powerSGD"])
+def test_a_mesh_of_one_rank_is_the_one_device_epoch_bit_for_bit(world, engine):
+    """A world of one (no group: every collective the identity) runs the
+    two-level path with K = S: the same ops as ``mesh=None``."""
+    mesh = tmesh.packed_site_mesh(S, S, device="cpu")
+    states = [torch.load(world / f"init_{engine}.pt", weights_only=False) for _ in range(2)]
+    got, lg = _run_port(_port_epoch(engine, 0.0, mesh), states[0], _data(), None)
+    want, lw = _run_port(_port_epoch(engine, 0.0), states[1], _data(), None)
+    np.testing.assert_array_equal(lg, lw)
+    g, t = train_state_to_jax(got), train_state_to_jax(want)
+    for part in ("params", "engine_state", "health"):
+        for k, v in _flat(t[part]).items():
+            np.testing.assert_array_equal(_flat(g[part])[k], v, err_msg=k)
+
+
+MESH_REFUSED = {"robust_agg": {"robust_agg": "trimmed_mean"}, "staleness": {"staleness_bound": 2},
+                "overlap": {"overlap_rounds": True}, "dp": {"dp_clip": 1.0},
+                "personalize": {"personalize": ("fc_out",)}, "telemetry": {"telemetry": True}}
+
+
+@pytest.mark.parametrize("plane", sorted(MESH_REFUSED))
+def test_epoch_planes_over_a_group_are_refused_naming_a20(plane):
+    from dinunet_implementations_tpu_torch.models.msannet import MSANNet as TMSANNet
+
+    mesh = tmesh.packed_site_mesh(S, S, device="cpu")
+    task = tsteps.FederatedTask(TMSANNet(in_size=F, hidden_sizes=(8,), out_size=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
+        tsteps.make_train_epoch_fn(task, _port_engine("dSGD"),
+                                   tsteps.make_optimizer("sgd", 0.1), device="cpu", mesh=mesh,
+                                   **MESH_REFUSED[plane])
+    # the same option with every site on one device builds
+    assert callable(tsteps.make_train_epoch_fn(task, _port_engine("dSGD"),
+                                               tsteps.make_optimizer("sgd", 0.1), device="cpu",
+                                               **MESH_REFUSED[plane]))
+
+
+@pytest.mark.parametrize("option", [{"secure_agg": "mask"},
+                                    {"pretrain": True, "pretrain_args": {"epochs": 1}}])
+def test_trainer_planes_over_a_group_are_refused_naming_a20(option):
+    from dinunet_implementations_tpu_torch.core.config import TrainConfig as TCfg
+    from dinunet_implementations_tpu_torch.models.msannet import MSANNet as TMSANNet
+    from dinunet_implementations_tpu_torch.trainer.loop import FederatedTrainer
+
+    mesh = tmesh.packed_site_mesh(S, S, device="cpu")
+    cfg = TCfg().with_overrides(option)
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
+        FederatedTrainer(cfg, TMSANNet(in_size=F, hidden_sizes=(8,), out_size=2), mesh=mesh)
+    with pytest.raises(TypeError, match="SiteMesh"):
+        FederatedTrainer(TCfg(), TMSANNet(in_size=F, hidden_sizes=(8,), out_size=2),
+                         mesh=object(), device="cpu")
