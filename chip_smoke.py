@@ -367,7 +367,9 @@ result line:
    a round; (c) two ``runner/dcn_worker.py`` processes on cuda:0 under gloo
    (K = 3 a rank) fit phase 21's tree with rankDAD for 2 epochs: equal params
    checksums, losses within 1e-4 of the same worker alone, only rank 0
-   writes, K1, K2 and K7 launched on each rank. One line a sub-phase and one
+   writes, K1, K2 and K7 launched on each rank; first
+   ``scripts/torch_gloo_cuda_probe.py``, two ranks, reports which gloo
+   collectives take CUDA tensors directly. One line a sub-phase and one
    ``mesh:`` line;
 25. one JSON line of per-kernel numbers, then the result line.
 
@@ -6900,9 +6902,31 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     work = os.path.join(root, "mesh_gloo")
     os.makedirs(work, exist_ok=True)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+
+    def free_port() -> int:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # which gloo collectives take CUDA tensors directly (the port stages
+    # them through host memory by design): a report, not a check
+    port, probe_out = free_port(), os.path.join(work, "gloo_cuda_probe.json")
+    probe = [subprocess.Popen([sys.executable, os.path.join(here, "scripts",
+                                                            "torch_gloo_cuda_probe.py"),
+                               str(r), str(port), probe_out], cwd=here,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in probe]
+    except subprocess.TimeoutExpired:
+        for p in probe:
+            p.kill()
+            p.wait()
+        fail("phase 24 (c): the gloo CUDA probe outran 120 s")
+    if any(p.returncode != 0 for p in probe):
+        fail(f"phase 24 (c): the gloo CUDA probe exited {[p.returncode for p in probe]}: {outs}")
+    gloo_cuda = pod_read(probe_out)
+    port = free_port()
     t0 = time.monotonic()
     logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]
     procs = [subprocess.Popen(mesh_worker_cmd(tree, os.path.join(work, "out2"),
@@ -6943,7 +6967,7 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
            "alone": {k: alone[k] for k in ("launches", "fit_seconds", "epoch_losses",
                                            "params_sha256")},
            "loss_err_vs_alone": loss_err, "pair_wall_s": pair_s, "alone_wall_s": solo_s,
-           "remote_files": files, "card": smi}
+           "remote_files": files, "gloo_cuda_tensors": gloo_cuda, "card": smi}
     print("mesh gloo two ranks:", json.dumps(rec))
     problems = []
     if reps[0]["params_sha256"] != reps[1]["params_sha256"]:

@@ -423,3 +423,12 @@ def test_trainer_planes_over_a_group_are_refused_naming_a20(option):
     with pytest.raises(TypeError, match="SiteMesh"):
         FederatedTrainer(TCfg(), TMSANNet(in_size=F, hidden_sizes=(8,), out_size=2),
                          mesh=object(), device="cpu")
+
+
+def test_the_daemon_over_a_group_is_refused_naming_a11b(tmp_path):
+    from dinunet_implementations_tpu_torch.runner.fed_runner import FedDaemon
+
+    mesh = tmesh.packed_site_mesh(S, S, device="cpu")
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
+        FedDaemon(capacity=S, spool_dir=str(tmp_path / "spool"), out_dir=str(tmp_path),
+                  mesh=mesh, device="cpu")
