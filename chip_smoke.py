@@ -368,8 +368,9 @@ result line:
    (K = 3 a rank) fit phase 21's tree with rankDAD for 2 epochs: equal params
    checksums, losses within 1e-4 of the same worker alone, only rank 0
    writes, K1, K2 and K7 launched on each rank; first
-   ``scripts/torch_gloo_cuda_probe.py``, two ranks, reports which gloo
-   collectives take CUDA tensors directly. One line a sub-phase and one
+   ``scripts/torch_gloo_cuda_probe.py``, two ranks, holds gloo's
+   all_reduce, all_gather and broadcast on CUDA tensors. One line a
+   sub-phase and one
    ``mesh:`` line;
 25. one JSON line of per-kernel numbers, then the result line.
 
@@ -6908,8 +6909,8 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
             s.bind(("127.0.0.1", 0))
             return s.getsockname()[1]
 
-    # which gloo collectives take CUDA tensors directly (the port stages
-    # them through host memory by design): a report, not a check
+    # the gloo collectives the route runs, on CUDA tensors: each must run
+    # and give the expected result
     port, probe_out = free_port(), os.path.join(work, "gloo_cuda_probe.json")
     probe = [subprocess.Popen([sys.executable, os.path.join(here, "scripts",
                                                             "torch_gloo_cuda_probe.py"),
@@ -6926,6 +6927,9 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
     if any(p.returncode != 0 for p in probe):
         fail(f"phase 24 (c): the gloo CUDA probe exited {[p.returncode for p in probe]}: {outs}")
     gloo_cuda = pod_read(probe_out)
+    if not all(gloo_cuda[c]["ran"] and gloo_cuda[c]["equal"]
+               for c in ("all_reduce", "all_gather", "broadcast")):
+        fail(f"phase 24 (c): gloo on CUDA tensors: {gloo_cuda}")
     port = free_port()
     t0 = time.monotonic()
     logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]

@@ -347,11 +347,10 @@ def codec_payload(tree: dict, codec: WireCodec, precision_bits="32") -> dict:
 # ---------------------------------------------------------------------------
 
 #: what the collectives of this process did since the counters were last
-#: set to 0: calls of each kind, the bytes they carried, the bytes staged
-#: through host memory (the gloo route with CUDA tensors) and, while
+#: set to 0: calls of each kind, the bytes they carried and, while
 #: :data:`TIMING` is on, the wall seconds they took with the device
 #: synchronized around each
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "staged_bytes": 0, "seconds": 0.0}
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "seconds": 0.0}
 #: synchronize the device around every collective and add its wall time to
 #: ``COLLECTIVES["seconds"]`` (a measurement mode: it changes no value)
 TIMING = False
@@ -367,19 +366,16 @@ class PackedAxis:
     """The packed site axis over a process group: every payload carries a
     leading ``[pack]`` axis (the rank's K sites), and a reduction sums that
     axis locally before ONE collective over ``group``. ``group=None`` is a
-    world of one with no group: the collective is the identity.
-
-    ``stage=True`` is the gloo route for CUDA tensors: each collective's
-    buffer is copied to host memory, reduced or gathered there by gloo and
-    copied back (counted in ``COLLECTIVES["staged_bytes"]``). It is the
-    route's declared design, chosen from the backend when the mesh is
-    built, never a recovery from a failed call."""
+    world of one with no group: the collective is the identity. The
+    tensors stay on their device whatever the backend: gloo takes CUDA
+    tensors for every collective used here (``all_reduce``, ``all_gather``,
+    ``broadcast``; ``scripts/torch_gloo_cuda_probe.py`` checks it on the
+    card)."""
 
     group: object | None
     pack: int
     world: int = 1
     rank: int = 0
-    stage: bool = False
 
 
 def _timed(fn):
@@ -406,11 +402,9 @@ def _all_reduce(buf, axes: PackedAxis):
     COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
     if axes.group is None:
         return buf.clone()
-    t = buf.detach().to("cpu", copy=True) if axes.stage else buf.detach().contiguous().clone()
-    if axes.stage:
-        COLLECTIVES["staged_bytes"] += 2 * t.numel() * t.element_size()
+    t = buf.detach().contiguous().clone()
     dist.all_reduce(t, group=axes.group)
-    return t.to(buf.device) if axes.stage else t
+    return t
 
 
 @_timed
@@ -422,13 +416,10 @@ def _all_gather(x, axes: PackedAxis):
     COLLECTIVES["bytes"] += x.numel() * x.element_size() * axes.world
     if axes.group is None:
         return x.clone()
-    t = x.detach().to("cpu", copy=True) if axes.stage else x.detach().contiguous()
-    if axes.stage:
-        COLLECTIVES["staged_bytes"] += t.numel() * t.element_size() * (1 + axes.world)
+    t = x.detach().contiguous()
     parts = [torch.empty_like(t) for _ in range(axes.world)]
     dist.all_gather(parts, t, group=axes.group)
-    out = torch.cat(parts, 0)
-    return out.to(x.device) if axes.stage else out
+    return torch.cat(parts, 0)
 
 
 def flat_psum(parts: list, axes: PackedAxis | None) -> list:

@@ -6,9 +6,8 @@ at a coordinator address (``host:port``; rank 0 hosts the store).
 Nothing on a machine tells a program of its cluster, so the address, the
 world size and the rank are the caller's. The backend is explicit:
 ``"nccl"`` for CUDA devices, ``"gloo"`` for the CPU, or the caller's
-choice (gloo with CUDA tensors stages each collective through host
-memory, parallel/collectives.py ``PackedAxis.stage``); the code never
-tries one backend and then uses another.
+choice (gloo also takes CUDA tensors, so several ranks can share one
+card); the code never tries one backend and then uses another.
 
 :func:`multihost_site_mesh` lays the site axis over the group's ranks
 (parallel/mesh.py ``SiteMesh``); the placement helpers keep each rank's

@@ -12,11 +12,10 @@ as stride-0 views, the LSTM kernels folding sites into rows, as with
 ``mesh=None``); the engines reduce over the group in two levels
 (parallel/collectives.py ``PackedAxis``).
 
-Backends: "nccl" needs one card a rank; "gloo" takes CPU tensors, and CUDA
-tensors through host memory (``PackedAxis.stage``), so several ranks can
-share one card. The slice axis (``sliced_site_mesh`` with more than one
-slice) is ROADMAP A11 (b), the model axis (``model_axis_size > 1``) A11
-(c): both raise.
+Backends: "nccl" needs one card a rank; "gloo" takes CPU and CUDA
+tensors, so several ranks can share one card. The slice axis
+(``sliced_site_mesh`` with more than one slice) is ROADMAP A11 (b), the
+model axis (``model_axis_size > 1``) A11 (c): both raise.
 """
 
 from __future__ import annotations
@@ -58,9 +57,7 @@ class SiteMesh:
 
     def axis(self, num_sites: int) -> PackedAxis:
         """The packed site axis of ``num_sites`` global sites on this mesh."""
-        k = pack_factor(self, num_sites)
-        stage = self.backend == "gloo" and self.device.type == "cuda"
-        return PackedAxis(self.group, k, self.world, self.rank, stage)
+        return PackedAxis(self.group, pack_factor(self, num_sites), self.world, self.rank)
 
     def block(self, num_sites: int) -> slice:
         """This rank's rows of a ``[num_sites, ...]`` per-site array."""

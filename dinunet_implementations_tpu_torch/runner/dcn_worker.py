@@ -13,8 +13,7 @@ process a rank::
         --data-path /data/tree --out-dir /shared/out --report rep.json
 
 The backend follows ``--device`` (nccl on the card, gloo on the CPU)
-unless ``--backend`` names one; several ranks on one card run gloo, which
-stages each collective through host memory. ``--report PATH`` writes one
+unless ``--backend`` names one; several ranks on one card run gloo. ``--report PATH`` writes one
 JSON record of this rank (each rank passes its own path): the mesh, the
 per-epoch losses, the test metrics, the params checksum (equal on every
 rank of a correct run), the kernel libraries built or loaded, the fit's

@@ -1,10 +1,10 @@
 """Which gloo collectives take CUDA tensors: one of two ranks on one card.
 
-The port's gloo route stages every collective's buffer through host
-memory (``parallel/collectives.py`` ``PackedAxis.stage``). This probe
-calls ``all_reduce``, ``all_gather`` and ``broadcast`` of the gloo backend
-on tensors of ``DEVICE`` directly and records, per collective, whether the
-call ran and gave the staged result; rank 0 writes the record as JSON.
+The port's gloo route hands CUDA tensors to gloo as they are
+(``parallel/collectives.py`` ``PackedAxis``). This probe calls
+``all_reduce``, ``all_gather`` and ``broadcast`` of the gloo backend on
+tensors of ``DEVICE`` and records, per collective, whether the call ran and
+gave the expected result; rank 0 writes the record as JSON.
 
     python scripts/torch_gloo_cuda_probe.py RANK PORT OUT.json [DEVICE]
 

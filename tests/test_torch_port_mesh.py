@@ -232,7 +232,6 @@ def test_collectives_a_round(world):
         rounds = EPOCHS * STEPS
         assert c["all_reduce"] == (5 if engine == "powerSGD" else 4) * rounds, (name, c)
         assert c["all_gather"] == (rounds if engine == "rankDAD" else 0), (name, c)
-        assert c["staged_bytes"] == 0
 
 
 def test_checkpoint_from_two_ranks_loads_at_one_and_in_jax(world):
