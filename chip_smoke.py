@@ -364,8 +364,8 @@ result line:
    payload; (b) the dSGD and rankDAD epochs on an NCCL group of one (K = 32
    on ``multihost_site_mesh``) against phase 6's one-device epochs at the CPU
    tests' tolerances, whether bit-equal, the epoch ms and the collectives' ms
-   a round; (c) two ``runner/dcn_worker.py`` processes on cuda:0 under gloo
-   (K = 3 a rank) fit phase 21's tree with rankDAD for 2 epochs: equal params
+   a round; (c) two ``runner/dcn_worker.py`` processes under gloo with no
+   ``--device`` (each takes the card, cuda:0; K = 3 a rank) fit phase 21's tree with rankDAD for 2 epochs: equal params
    checksums, losses within 1e-4 of the same worker alone, only rank 0
    writes, K1, K2 and K7 launched on each rank; first
    ``scripts/torch_gloo_cuda_probe.py``, two ranks, holds gloo's
@@ -6815,6 +6815,33 @@ def mesh_codecs(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
     return out
 
 
+def timed_collectives(torch, col, run):
+    """``run()`` with the port's two collectives wrapped: the device
+    synchronized before and after each, their wall seconds summed.
+    Returns ``(seconds, run())``; the wrappers go when it returns."""
+    spent = [0.0]
+    orig = {"_all_reduce": col._all_reduce, "_all_gather": col._all_gather}
+
+    def timed(fn):
+        def call(x, axes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(x, axes)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return call
+
+    for name, fn in orig.items():
+        setattr(col, name, timed(fn))
+    try:
+        out = run()
+    finally:
+        for name, fn in orig.items():
+            setattr(col, name, fn)
+    return spent[0], out
+
+
 def mesh_nccl_one(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
     """(b): the dSGD and rankDAD epochs on an NCCL group of one (K = 32 on
     multihost_site_mesh) against phase 6's one-device epochs."""
@@ -6846,13 +6873,9 @@ def mesh_nccl_one(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
             collectives = dict(col.COLLECTIVES)
             # one more epoch with the device synchronized around each
             # collective: their ms a round
-            col.reset_collective_counts()
-            col.TIMING = True
-            try:
-                _, _, ms_timed = mesh_epochs(torch, epoch, st, inv_x, inv_y, idx[:1])
-            finally:
-                col.TIMING = False
-            coll_ms = col.COLLECTIVES["seconds"] * 1e3 / idx[0].shape[1]
+            coll_s, ms_timed = timed_collectives(torch, col, lambda: mesh_epochs(
+                torch, epoch, st, inv_x, inv_y, idx[:1])[2])
+            coll_ms = coll_s * 1e3 / idx[0].shape[1]
             trees = {"params": (st.params, sp.params)}
             if engine == "rankDAD":
                 trees["omega"] = ({k: v for k, v in st.engine_state["omega"].items()
@@ -6883,11 +6906,12 @@ def mesh_nccl_one(torch, np, lc, pc, bc, smi: str, inv_x, inv_y, idx) -> dict:
 
 def mesh_worker_cmd(tree: str, out: str, report: str, rank=None, port=None) -> list:
     """The port's multi-process worker on ``tree``: a rankDAD fit of
-    ``MESH_FIT_EPOCHS`` epochs on ``cuda:0``; with ``rank`` one of two gloo
-    ranks."""
+    ``MESH_FIT_EPOCHS`` epochs; with ``rank`` one of two gloo ranks. No
+    ``--device``: each rank takes its card (rank modulo the one card:
+    ``cuda:0``) under gloo as under nccl."""
     cmd = [sys.executable, "-m", "dinunet_implementations_tpu_torch.runner.dcn_worker",
            "--data-path", tree, "--out-dir", out, "--report", report, "--task",
-           "ICA-Classification", "--epochs", str(MESH_FIT_EPOCHS), "--device", "cuda:0",
+           "ICA-Classification", "--epochs", str(MESH_FIT_EPOCHS),
            "--set", 'agg_engine="rankDAD"']
     if rank is not None:
         cmd += ["--backend", "gloo", "--coordinator", f"127.0.0.1:{port}", "--num-processes",
@@ -6968,8 +6992,8 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
                                         "params_sha256", "n_log_writes", "n_ckpt_writes",
                                         "launches", "collectives", "fit_seconds",
                                         "epoch_losses")} for r in reps],
-           "alone": {k: alone[k] for k in ("launches", "fit_seconds", "epoch_losses",
-                                           "params_sha256")},
+           "alone": {k: alone[k] for k in ("device", "launches", "fit_seconds",
+                                           "epoch_losses", "params_sha256")},
            "loss_err_vs_alone": loss_err, "pair_wall_s": pair_s, "alone_wall_s": solo_s,
            "remote_files": files, "gloo_cuda_tensors": gloo_cuda, "card": smi}
     print("mesh gloo two ranks:", json.dumps(rec))
@@ -6983,6 +7007,8 @@ def mesh_gloo_two(torch, smi: str, tree: str, root: str) -> dict:
         problems.append("a rank other than 0 wrote, or rank 0 did not")
     if any(r["pack"] != 3 or r["backend"] != "gloo" for r in reps):
         problems.append("not two gloo ranks of 3 sites")
+    if any(r["device"] != "cuda:0" for r in reps) or not alone["device"].startswith("cuda"):
+        problems.append("a worker with no --device did not take the card")
     for r in reps:
         if min(r["launches"].values()) == 0:
             problems.append(f"rank {r['process_index']} launched {r['launches']}")

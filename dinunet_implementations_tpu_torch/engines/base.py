@@ -10,8 +10,8 @@ An engine is a pair of functions the epoch runs every round:
   powerSGD (the right factor and the error-feedback residual).
   ``trainer.init_train_state`` stacks it per site (``[S, n, r]``), as the
   JAX trainer does, and the epoch freezes a dead site's rows for the round;
-- ``aggregate(grads, state, weight, live=None, rnd=None, axis=None) ->
-  (agg, state)``: per-site gradients (a dict of ``[S, ...]`` leaves), the
+- ``aggregate(grads, state, weight, live=None, rnd=None, axis=None,
+  total=None) -> (agg, state)``: per-site gradients (a dict of ``[S, ...]`` leaves), the
   per-site state and example weights ``[S]`` to the aggregated gradient (a
   dict of unbatched leaves) and the new per-site state. ``live [S]`` is the
   round's 0/1 contribute mask: a dead site's payload and weight are zeroed
@@ -21,7 +21,9 @@ An engine is a pair of functions the epoch runs every round:
   ``parallel.collectives.PackedAxis``) runs the round over a process group:
   the leaves, the state and the weights are then this rank's ``[K]`` block
   of the ``S`` sites and every reduction is two-level; the aggregate is the
-  same on every rank.
+  same on every rank. ``total``, when the caller has it, is the live
+  weight's sum over every site (``Σ weight·live``): the engine then takes
+  no collective of its own for it.
 
 Every engine takes ``wire_quant`` (``parallel.collectives.WIRE_QUANTS``)
 and ``wire_stochastic``: its payloads go through the wire codec, as JAX's,
@@ -124,7 +126,7 @@ def jax_shapes(grads: dict, transposed=frozenset()) -> dict:
 class Engine:
     name: str
     init: Callable  # params -> state
-    aggregate: Callable  # (grads, state, weight, live=None, rnd=None) -> (agg, state)
+    aggregate: Callable  # (grads, state, weight, live=None, rnd=None, axis=None, total=None)
     # (grads, pack=1) -> [(shape, dtype), ...] (module docstring); None:
     # the telemetry's dense f32 fallback
     wire_shapes: Callable | None = None

@@ -78,7 +78,7 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
     def init(params):
         return {}
 
-    def aggregate(grads, state, weight, live=None, rnd=None, axis=None):
+    def aggregate(grads, state, weight, live=None, rnd=None, axis=None, total=None):
         refuse_on_mesh(axis, robust_agg=robust_agg != "none", secure_agg=secure)
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
@@ -98,7 +98,7 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
         # over a group each rank's partial crosses the wire again, as
         # JAX's packed axis: at the payload dtype, or through the codec
         wire = pdtype if codec.quant == "none" else codec
-        return payload_uncast(site_weighted_mean(payload, weight, axis, wire), grads), state
+        return payload_uncast(site_weighted_mean(payload, weight, axis, wire, total), grads), state
 
     pdtype = codec.dtype
     transposed = frozenset(transposed)

@@ -139,12 +139,13 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     # ships it: at the payload dtype, or through the codec
     group_wire = pdtype if codec.quant == "none" else codec
 
-    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None):
+    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None,
+                  total=None):
         refuse_on_mesh(axis, robust_agg=robust_agg != "none")
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
-        scale = site_weight_scale(weight, axis)  # [S], or the rank's [K]
+        scale = site_weight_scale(weight, axis, total)  # [S], or the rank's [K]
 
         def wire(x):
             """Each site's ``[S, ...]`` payload as its wire carries it (f32);

@@ -133,12 +133,13 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
             return x.to(pdtype).float()
         return codec.compress(x, batched=True)
 
-    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None):
+    def aggregate(grads: dict, state: dict, weight, live=None, rnd=None, axis=None,
+                  total=None):
         refuse_on_mesh(axis, robust_agg=robust_agg != "none")
         grads, weight = mask_dead_site(grads, weight, live)
         if robust_agg == "norm_clip":
             grads = clip_site_gradients(grads, weight, robust_clip_mult)
-        scale = site_weight_scale(weight, axis)  # [S], or the rank's [K]
+        scale = site_weight_scale(weight, axis, total)  # [S], or the rank's [K]
         # the gather modes' per-site payloads (dense leaves as they are,
         # compressible ones as each site's reconstruction), reduced per
         # coordinate in one sort once every class is factorized

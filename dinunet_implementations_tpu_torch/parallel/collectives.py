@@ -22,7 +22,6 @@ site's payload and the mean.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,13 +45,15 @@ def per_site(v, like):
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
-def site_weight_scale(weight, axes=None):
+def site_weight_scale(weight, axes=None, total=None):
     """Per-site normalized weight ``w_s / Σ w`` over ``weight [S]``, or over
     a group's ``[K]`` blocks (``axes``, a :class:`PackedAxis`: the total
     spans every rank); an all-zero round gives scale 0, which keeps
-    updates finite."""
+    updates finite. ``total``, when the caller has already summed ``Σ w``
+    over every site, saves the collective."""
     w = weight.float()
-    total = psum(w.sum(), axes)
+    if total is None:
+        total = psum(w.sum(), axes)
     return torch.where(total > 0, w / torch.clamp(total, min=1e-12), torch.zeros_like(w))
 
 
@@ -67,13 +68,14 @@ def payload_uncast(tree: dict, like: dict) -> dict:
     return {k: g.to(like[k].dtype) for k, g in tree.items()}
 
 
-def site_weighted_mean(tree: dict, weight, axes=None, wire_dtype=None) -> dict:
+def site_weighted_mean(tree: dict, weight, axes=None, wire_dtype=None, total=None) -> dict:
     """Example-count-weighted mean across sites: each site's ``[S, ...]``
     leaf contributes in proportion to ``weight [S]``, so the aggregate is
     the pooled-data gradient. Accumulates in f32 and casts back to each
     leaf's dtype. Over a group (``axes``) the rank's ``[K]`` partials go
-    through ``wire_dtype`` and one collective (:func:`weighted_tree_sum`)."""
-    scale = site_weight_scale(weight, axes)
+    through ``wire_dtype`` and one collective (:func:`weighted_tree_sum`);
+    ``total`` as :func:`site_weight_scale`."""
+    scale = site_weight_scale(weight, axes, total)
     agg = weighted_tree_sum(tree, scale, axes, wire_dtype)
     return {k: agg[k].to(g.dtype) for k, g in tree.items()}
 
@@ -347,18 +349,13 @@ def codec_payload(tree: dict, codec: WireCodec, precision_bits="32") -> dict:
 # ---------------------------------------------------------------------------
 
 #: what the collectives of this process did since the counters were last
-#: set to 0: calls of each kind, the bytes they carried and, while
-#: :data:`TIMING` is on, the wall seconds they took with the device
-#: synchronized around each
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "seconds": 0.0}
-#: synchronize the device around every collective and add its wall time to
-#: ``COLLECTIVES["seconds"]`` (a measurement mode: it changes no value)
-TIMING = False
+#: set to 0: calls of each kind and the bytes they carried
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
 
 
 def reset_collective_counts() -> None:
     for k in COLLECTIVES:
-        COLLECTIVES[k] = 0.0 if k == "seconds" else 0
+        COLLECTIVES[k] = 0
 
 
 @dataclass(frozen=True)
@@ -378,22 +375,6 @@ class PackedAxis:
     rank: int = 0
 
 
-def _timed(fn):
-    def run(x, axes):
-        if not TIMING:
-            return fn(x, axes)
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-        t0 = time.perf_counter()
-        out = fn(x, axes)
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-        COLLECTIVES["seconds"] += time.perf_counter() - t0
-        return out
-    return run
-
-
-@_timed
 def _all_reduce(buf, axes: PackedAxis):
     """The sum of ``buf`` over the group, as a new tensor."""
     import torch.distributed as dist
@@ -407,7 +388,6 @@ def _all_reduce(buf, axes: PackedAxis):
     return t
 
 
-@_timed
 def _all_gather(x, axes: PackedAxis):
     """Every rank's ``x [K, ...]`` stacked in rank order: ``[W·K, ...]``."""
     import torch.distributed as dist

@@ -125,7 +125,7 @@ def multihost_site_mesh(sites_per_process: int | None = None, model_axis_size: i
                         devices=None, device=None) -> SiteMesh:
     """The site mesh over every process of the group (a world of one
     without a runtime): ``sites_per_process`` sites a rank (default 1), on
-    ``device`` (default: the rank's card under NCCL, the CPU under gloo)."""
+    ``device`` (default: the rank's card, under either backend)."""
     import torch.distributed as dist
 
     _refuse_model_axis(model_axis_size)

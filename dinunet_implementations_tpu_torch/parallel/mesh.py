@@ -91,15 +91,13 @@ def _group_view():
 
 def _mesh_device(device, backend, rank: int) -> torch.device:
     """The rank's device: the caller's, else the card of the rank's local
-    index for NCCL, else the CPU for gloo, else (no runtime) the card. A
-    CUDA device with no card raises (core/device.py)."""
+    index, whatever the backend (gloo takes CUDA tensors too). The CPU
+    only when the caller says so; with no card and no device this raises
+    (core/device.py), as a CUDA device with no card does."""
     from ..core.device import resolve_device
 
-    if device is None:
-        if backend == "gloo":
-            device = "cpu"
-        elif torch.cuda.is_available():
-            device = f"cuda:{rank % torch.cuda.device_count()}"
+    if device is None and torch.cuda.is_available():
+        device = f"cuda:{rank % torch.cuda.device_count()}"
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())

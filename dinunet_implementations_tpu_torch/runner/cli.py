@@ -337,6 +337,7 @@ def main(argv: list[str] | None = None) -> int:
     from ..telemetry.sink import _finite  # strict JSON, as JAX's CLI prints it
 
     mh_flags = (args.coordinator, args.num_processes, args.process_id)
+    multi = False
     if any(f is not None for f in mh_flags):
         complete = all(f is not None for f in mh_flags)
         solo = args.num_processes == 1 and args.coordinator is None and args.process_id is None
@@ -346,10 +347,17 @@ def main(argv: list[str] | None = None) -> int:
             raise SystemExit("multi-process runs need all of --coordinator, --num-processes "
                              "and --process-id together (--num-processes 1 alone runs "
                              "single-process)")
-        from ..parallel.distributed import distributed_init
-
-        distributed_init(coordinator_address=args.coordinator, num_processes=args.num_processes,
-                         process_id=args.process_id, device=args.device)
+        multi = not solo
+    if multi:
+        # refused before anything joins: only the federated fit runs over a
+        # process group
+        if args.schedule or args.serve:
+            mode = "--schedule" if args.schedule else "--serve"
+            raise SystemExit(f"{mode} over a process group (--coordinator, --num-processes, "
+                             "--process-id) is not ported: ROADMAP A11 (b)")
+        if args.site is not None:
+            raise SystemExit("--site is one site's local fit in one process; --coordinator, "
+                             "--num-processes and --process-id are federated-mode options")
 
     if args.schedule:
         if args.serve or args.site is not None or args.folds is not None:
@@ -462,9 +470,13 @@ def main(argv: list[str] | None = None) -> int:
 
         from ..robustness.preemption import Preempted
 
-        from ..parallel.distributed import distributed_shutdown
+        from ..parallel.distributed import distributed_init, distributed_shutdown
 
         try:
+            if multi:
+                distributed_init(coordinator_address=args.coordinator,
+                                 num_processes=args.num_processes, process_id=args.process_id,
+                                 device=args.device)
             runner = FedRunner(cfg, data_path=args.data_path, out_dir=args.out_dir,
                                fault_plan=fault_plan, attack_plan=attack_plan, device=args.device)
             results = runner.run(folds=args.folds, verbose=verbose, resume=args.resume)

@@ -13,7 +13,9 @@ process a rank::
         --data-path /data/tree --out-dir /shared/out --report rep.json
 
 The backend follows ``--device`` (nccl on the card, gloo on the CPU)
-unless ``--backend`` names one; several ranks on one card run gloo. ``--report PATH`` writes one
+unless ``--backend`` names one; several ranks on one card run gloo. A rank
+with no ``--device`` runs on its card under either backend, and on the
+CPU only when ``--device cpu`` says so. ``--report PATH`` writes one
 JSON record of this rank (each rank passes its own path): the mesh, the
 per-epoch losses, the test metrics, the params checksum (equal on every
 rank of a correct run), the kernel libraries built or loaded, the fit's
@@ -70,8 +72,9 @@ def _parse(argv):
     p.add_argument("--resume", action="store_true",
                    help="continue from the last rotating checkpoint")
     p.add_argument("--device", default=None,
-                   help="this rank's device: the card by default (cuda:<rank> under nccl), "
-                        "'cpu', or e.g. 'cuda:0' for several ranks on one card")
+                   help="this rank's device: the card by default (cuda:<rank> modulo the "
+                        "cards, under either backend), 'cpu', or e.g. 'cuda:0' for several "
+                        "ranks on one card")
     p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                    help="the collectives' backend (default: nccl on the card, gloo on the CPU)")
     p.add_argument("--set", dest="overrides", action="append", default=[],

@@ -35,7 +35,9 @@ rank runs the same rounds on its own ``[K]`` block of the ``S = W·K``
 sites: its inputs, masks and per-site state are that block, the engine
 reduces in two levels over the group, and the round's loss, live totals
 and sync-BN statistics are summed over the group as JAX's
-``two_level_psum`` does; every rank then applies the same update. A state
+``two_level_psum`` does (the live total once a round, in the loss's
+collective, and handed to the engine); every rank then applies the same
+update. A state
 under a mesh holds the rank's block of every per-site leaf
 (:func:`gather_site_state` and :func:`site_state_block` cross between
 the two forms). Dropout draws every site's mask and keeps the block's
@@ -58,7 +60,6 @@ from ..parallel.collectives import (
     check_robust_agg,
     flat_psum,
     per_site,
-    psum,
     site_all_gather,
     site_flat,
 )
@@ -711,10 +712,11 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         """What the engine aggregates: the shared leaves."""
         return strip_tree(tree, head, keep_head=False) if head else tree
 
-    def aggregate(grads, engine_state, weight, live, params, rnd, axis=None):
+    def aggregate(grads, engine_state, weight, live, params, rnd, axis=None, total=None):
         """The engine on the shared leaves, its aggregate back at full
-        structure (zero on the head leaves); over a group with ``axis``."""
-        kw = {} if axis is None else {"axis": axis}
+        structure (zero on the head leaves); over a group with ``axis``,
+        where ``total`` is the round's live weight summed over every site."""
+        kw = {} if axis is None else {"axis": axis, "total": total}
         agg, es = engine.aggregate(eng(grads), engine_state, weight, live=live, rnd=rnd, **kw)
         return (graft_shared(params, agg, head) if head else agg), es
 
@@ -785,17 +787,21 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return {**health, "suspect_streak": streak, "quarantined": quarantined,
                 "anomaly": anomaly}, z
 
-    def round_totals(weight, stats_w, site_stats, loss_w, axis):
-        """The round's bookkeeping over every site: the weight total, the
-        sync-BN statistics (each site's weighted by ``stats_w`` over the
-        total) and the loss sum (``loss_w``, each site's contribution); over
-        a group one collective for the total and one for the rest."""
-        total = psum(weight.sum(), axis)
+    def round_sums(weight, loss_w, axis):
+        """The round's weight total and loss sum (``loss_w``, each site's
+        contribution) over every site; over a group in one collective,
+        before the engine's, which takes the total from here."""
+        total, loss = flat_psum([weight.sum(), loss_w.sum()], axis)
+        return total, loss
+
+    def sync_stats(weight, total, site_stats, axis):
+        """Sync-BN: the statistics of ``site_stats`` each weighted by
+        ``weight`` over ``total``; over a group one collective, none for a
+        model without running statistics."""
         scale = torch.where(total > 0, weight.float() / torch.clamp(total, min=1e-12),
                             torch.zeros_like(weight.float()))
-        stats = {k: (s * per_site(scale, s)).sum(0) for k, s in stats_w(site_stats).items()}
-        summed = flat_psum(list(stats.values()) + [loss_w.sum()], axis)
-        return total, summed[-1], dict(zip(stats, summed[:-1]))
+        stats = {k: (s * per_site(scale, s)).sum(0) for k, s in site_stats.items()}
+        return dict(zip(stats, flat_psum(list(stats.values()), axis)))
 
     def apply_round(health, engine_state, buffers, personal, params, stats, ls, site_grad,
                     n_sum, site_stats, loss_sum, rnd, axis=None):
@@ -812,6 +818,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         contribute = ls * finite.float() * (1.0 - (health["quarantined"] > 0).float())
         alive = contribute > 0
         n_eff = n_sum * contribute
+        total_fresh, loss_live = round_sums(n_eff, torch.where(alive, loss_sum, 0.0), axis)
         if buffered:
             # arrivals deposit; every slot aggregates at its decayed weight
             buffers = {"grads": {k: torch.where(per_site(alive, g), g, buffers["grads"][k])
@@ -825,16 +832,19 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             engine_state = _freeze_dead(stale_w > 0, es_new, engine_state)
             total_live = eff_w.sum()
         else:
-            agg, es_new = aggregate(site_grad, engine_state, n_sum, contribute, params, rnd, axis)
+            # the engine's live weight n_sum·(contribute > 0) is n_eff for a
+            # 0/1 contribute mask: its total is total_fresh
+            agg, es_new = aggregate(site_grad, engine_state, n_sum, contribute, params, rnd, axis,
+                                    total_fresh)
             engine_state = _freeze_dead(alive, es_new, engine_state)
         # a head never leaves its site, so it steps on fresh arrivals only
         personal = personal_apply(personal, site_grad, alive)
         # sync-BN: the example-weighted mean of the arriving sites'
         # statistics (a dead site's may be NaN: where-zeroed), held when
         # nobody arrives
-        total_fresh, loss_live, mean_stats = round_totals(
-            n_eff, lambda st: {k: torch.where(per_site(alive, s), s, 0.0) for k, s in st.items()},
-            site_stats, torch.where(alive, loss_sum, 0.0), axis)
+        mean_stats = sync_stats(
+            n_eff, total_fresh,
+            {k: torch.where(per_site(alive, s), s, 0.0) for k, s in site_stats.items()}, axis)
         if not buffered:
             total_live = total_fresh
         fresh = total_fresh > 0
@@ -930,11 +940,11 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             if atk is not None:
                 site_grad = atk(site_grad, attack[:, r], attack_dev[:, r], rnd)
             if not guard:
+                total, loss_all = round_sums(n_sum, loss_sum, axis)
                 agg, engine_state = aggregate(site_grad, engine_state, n_sum, None, params, rnd,
-                                              axis)
+                                              axis, total)
                 personal = personal_apply(personal, site_grad, None)
-                total, loss_all, stats = round_totals(n_sum, lambda st: st, site_stats,
-                                                      loss_sum, axis)
+                stats = sync_stats(n_sum, total, site_stats, axis)
                 loss_round = loss_all / torch.clamp(total, min=1.0)
                 updates, opt_state = optimizer.update(agg, opt_state)
                 params = {k: v + updates[k] for k, v in params.items()}
