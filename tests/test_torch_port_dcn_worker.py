@@ -141,3 +141,18 @@ def test_cli_refuses_a_partial_multi_process_spec_as_jax(tmp_path):
                  ["--process-id", "0", "--num-processes", "2"]):
         with pytest.raises(SystemExit, match="all of --coordinator, --num-processes"):
             tcli.main(["--data-path", str(tmp_path), "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("mode", [["--schedule"], ["--serve"], ["--site", "0"]])
+def test_cli_refuses_a_process_group_outside_the_federated_fit(mode, tmp_path):
+    """A whole multi-process spec with the scheduler, the daemon or one
+    site's fit exits before anything joins (the coordinator's port has no
+    listener: a join would wait for it)."""
+    import torch.distributed as dist
+
+    argv = ["--data-path", str(tmp_path), "--device", "cpu", "--coordinator",
+            f"127.0.0.1:{_free_port()}", "--num-processes", "2", "--process-id", "1", *mode]
+    match = "one site's local fit" if mode[0] == "--site" else r"ROADMAP A11 \(b\)"
+    with pytest.raises(SystemExit, match=match):
+        tcli.main(argv)
+    assert not dist.is_initialized()

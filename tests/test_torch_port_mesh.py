@@ -4,8 +4,11 @@ the JAX package: the mesh helpers and their refusals, the join's
 contract, and a spawned gloo world of 2 ranks running S = 4 sites (K = 2
 a rank) through dSGD, rankDAD and powerSGD epochs, held against JAX's
 packed epoch on ``host_mesh(2)`` (conftest's virtual CPU devices) and
-against the port's own one-device epoch; a case with dropout against the
-port at W = 1; and checkpoints that cross between W = 2, W = 1 and JAX.
+against the port's own one-device epoch; the same engines under the int8,
+stochastic int8 and fp8 wire codecs against JAX's packed epoch under the
+codec, and each engine's aggregate of one set of gradients under each
+codec against JAX's packed aggregate; a case with dropout against the port at W = 1; and checkpoints
+that cross between W = 2, W = 1 and JAX.
 
 The ranks are two Python processes that import torch and the port only;
 they join at a free localhost port and fail their test when they outrun
@@ -26,6 +29,7 @@ import torch
 from test_torch_port_mesh_rank import (
     BATCH,
     CASES,
+    CODEC_CASES,
     ENGINE_KW,
     EPOCHS,
     STEPS,
@@ -34,10 +38,15 @@ from test_torch_port_mesh_rank import (
     _live,
     _port_engine,
     _port_epoch,
+    all_runs,
 )
 
+from test_torch_port_wire import ENGINE_SHARE, NS, WEIGHTS, _engine_grads, _jax_engine
+
+from dinunet_implementations_tpu.core.jaxcompat import shard_map
 from dinunet_implementations_tpu.engines import make_engine
 from dinunet_implementations_tpu.models import MSANNet as JMSANNet
+from dinunet_implementations_tpu.parallel import collectives as jcol
 from dinunet_implementations_tpu.parallel import distributed as jdist
 from dinunet_implementations_tpu.parallel import mesh as jmesh
 from dinunet_implementations_tpu.trainer import checkpoint as jckpt
@@ -58,6 +67,28 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # low-rank engines 1e-5
 ATOL = {"dSGD": 1e-6, "rankDAD": 1e-5, "powerSGD": 1e-5}
 WORLD_TIMEOUT_S = 120
+# The epochs under a codec. dSGD and powerSGD on the deterministic grids
+# (int8, fp8) meet the f32 wire's ATOL (measured <= 6e-7). Where a value's
+# last bits differ between the two frameworks upstream of the wire
+# (rankDAD's power iteration leaves its factors a few ulps apart; under the
+# stochastic grid any value's own bits key its dither), the codec rounds it
+# one grid step apart and the later rounds carry the step: the two runs are
+# two draws of the same codec. Those cases hold each leaf of the params and
+# the engine state at test_torch_port_wire.py's EPOCH_SHARE of the leaf's
+# max (measured <= 3.3e-2, powerSGD's q under stochastic int8) and the
+# losses at the FS fit tests' 1e-4 (measured <= 4.3e-5). The aggregate test
+# below holds the wire itself on equal inputs.
+CODEC_FLIP_SHARE, CODEC_FLIP_LOSS_ATOL = 0.1, 1e-4
+# The aggregate of one set of gradients over the group against JAX's engine
+# on its packed axis, compiled (shard_map under jit): XLA compiles the
+# codec's division its own way, an ulp from JAX's op-by-op result in 75 of
+# a 2 x 12 x 8 fp8 payload's 192 values (measured), and the stochastic
+# grid's dither, keyed by each value's bits, redraws where they part. So
+# every engine is held at test_torch_port_wire.py's shares for engines
+# whose inputs part by ulps; dSGD's wire is also held bit for bit against
+# JAX's packed wire run op by op.
+AGG_SHARE = {"deterministic": ENGINE_SHARE["deterministic"],
+             "stochastic": ENGINE_SHARE["stochastic"]}
 
 
 def _data(seed=3):
@@ -68,9 +99,10 @@ def _data(seed=3):
     return x, y, w
 
 
-def _jax_epoch(engine, mesh):
+def _jax_epoch(engine, mesh, quant="none", stochastic=False):
     task = jsteps.FederatedTask(JMSANNet(in_size=F, hidden_sizes=(8,), out_size=2))
-    eng = make_engine(engine, **ENGINE_KW[engine])
+    eng = make_engine(engine, wire_quant=quant, wire_stochastic=stochastic,
+                      **ENGINE_KW[engine])
     opt = jsteps.make_optimizer("sgd", 1e-2)
     state = jsteps.init_train_state(task, eng, opt, jax.random.PRNGKey(0),
                                     jnp.ones((4, F), jnp.float32), num_sites=S)
@@ -141,8 +173,8 @@ def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world")
     x, y, w = _data()
     np.savez(tmp / "data.npz", x=x, y=y, w=w)
-    for name, (engine, _, _) in CASES.items():
-        state, _ = _jax_epoch(engine, None)
+    for name, (engine, _, _, quant, stochastic) in all_runs().items():
+        state, _ = _jax_epoch(engine, None, quant, stochastic)
         torch.save(train_state_from_jax(jax.tree.map(np.asarray, state), device="cpu"),
                    tmp / f"init_{name}.pt")
     # a JAX powerSGD state after one epoch, each site's q and e its own
@@ -151,44 +183,127 @@ def world(tmp_path_factory):
     live[2, 1] = 0.0
     state, _ = epoch(state, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w), jnp.asarray(live))
     jckpt.save_checkpoint(str(tmp / "jax_psgd.msgpack"), state)
+    # one set of gradients, weights and each codec case's JAX engine state
+    # for the aggregate over the group
+    torch.save({"grads": {k: torch.from_numpy(v) for k, v in _engine_grads().items()},
+                "weight": torch.from_numpy(WEIGHTS),
+                "states": {name: jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                                              _agg_state(_jax_engine(*case)))
+                           for name, case in CODEC_CASES.items()}}, tmp / "agg_in.pt")
     _spawn_world(tmp)
     return tmp
+
+
+def _agg_state(engine):
+    """A JAX engine's initial state for every one of the NS sites."""
+    one = {k: jnp.zeros(v.shape[1:], jnp.float32) for k, v in _engine_grads().items()}
+    return jax.tree.map(lambda a: jnp.stack([a] * NS), engine.init(one))
 
 
 def _result(world, name):
     return torch.load(world / f"result_{name}.pt", weights_only=False)
 
 
-@pytest.mark.parametrize("engine", ["dSGD", "rankDAD", "powerSGD"])
-def test_gloo_world_of_two_matches_jax_packed_epoch(world, engine):
-    """W = 2 ranks of K = 2 sites against JAX's packed epoch on
-    ``host_mesh(2)`` (K = 2 a device), at JAX's own packed == unpacked
-    tolerances."""
-    got = _result(world, engine)
-    state, epoch = _jax_epoch(engine, jmesh.host_mesh(2))
+def _assert_matches_jax_packed(got, engine, quant="none", stochastic=False, flips=False):
+    """A world's result against JAX's packed epoch on ``host_mesh(2)`` (K =
+    2 a device) with the same wire, at JAX's own packed == unpacked
+    tolerances; ``flips``: where the codec's grid can part the two runs, at
+    :data:`CODEC_FLIP_SHARE` of each leaf's max."""
+    state, epoch = _jax_epoch(engine, jmesh.host_mesh(2), quant, stochastic)
     x, y, w = _data()
     losses = []
     for _ in range(EPOCHS):
         state, lo = epoch(state, jnp.asarray(x), jnp.asarray(y), jnp.asarray(w))
         losses.extend(np.asarray(lo).tolist())
     want = jax.tree.map(np.asarray, state)
-    np.testing.assert_allclose(got["losses"], losses, atol=ATOL[engine], rtol=0)
-    g, t = _flat(got["state"]["params"]), _flat(want.params)
-    for k in t:
-        np.testing.assert_allclose(g[k], t[k], atol=ATOL[engine], rtol=0, err_msg=k)
-    g, t = _flat(got["state"]["engine_state"]), _flat(want.engine_state)
-    assert g.keys() == t.keys()
-    for k in t:
-        if engine == "rankDAD" and "fc_out" in k:
-            # the 2-class head's per-site gradient has rank 1 (its two
-            # columns are negatives of each other), so the second column of
-            # each site's Q is orthonormalized rounding noise (~1e-6) and
-            # differs between any two correct runs; the first is the factor
-            np.testing.assert_allclose(g[k][..., 0], t[k][..., 0], atol=ATOL[engine], rtol=0,
-                                       err_msg=k)
-            assert np.isfinite(g[k]).all() and np.abs(g[k][..., 1]).max() < 1e-3, k
-            continue
-        np.testing.assert_allclose(g[k], t[k], atol=ATOL[engine], rtol=0, err_msg=k)
+    np.testing.assert_allclose(got["losses"], losses, rtol=0,
+                               atol=CODEC_FLIP_LOSS_ATOL if flips else ATOL[engine])
+    for part in ("params", "engine_state"):
+        g, t = _flat(got["state"][part]), _flat(getattr(want, part))
+        assert g.keys() == t.keys(), part
+        top = max((np.abs(v).max() for v in t.values()), default=0.0)
+        for k in t:
+            atol = (CODEC_FLIP_SHARE * max(np.abs(t[k]).max(), 1e-3 * top) if flips
+                    else ATOL[engine])
+            if part == "engine_state" and engine == "rankDAD" and "fc_out" in k:
+                # the 2-class head's per-site gradient has rank 1 (its two
+                # columns are negatives of each other), so the second column
+                # of each site's Q is orthonormalized rounding noise (~1e-6)
+                # and differs between any two correct runs; the first is the
+                # factor
+                np.testing.assert_allclose(g[k][..., 0], t[k][..., 0], atol=atol, rtol=0,
+                                           err_msg=k)
+                assert np.isfinite(g[k]).all() and np.abs(g[k][..., 1]).max() < 1e-3, k
+                continue
+            np.testing.assert_allclose(g[k], t[k], atol=atol, rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("engine", ["dSGD", "rankDAD", "powerSGD"])
+def test_gloo_world_of_two_matches_jax_packed_epoch(world, engine):
+    """W = 2 ranks of K = 2 sites against JAX's packed epoch."""
+    _assert_matches_jax_packed(_result(world, engine), engine)
+
+
+@pytest.mark.parametrize("name", list(CODEC_CASES))
+def test_gloo_world_of_two_matches_jax_packed_epoch_under_codec(world, name):
+    """The wire codec over the group, as JAX's packed axis runs it: dSGD
+    and rankDAD round each site's payload through the codec (one scale a
+    site row), and dSGD the rank's weighted partial again; powerSGD rounds
+    the rank's partials of P and q'. Held against JAX's packed epoch under
+    the same codec (:data:`CODEC_FLIP_SHARE` where a grid step can part
+    them: rankDAD, and the stochastic grid)."""
+    engine, quant, stochastic = CODEC_CASES[name]
+    _assert_matches_jax_packed(_result(world, name), engine, quant, stochastic,
+                               flips=stochastic or engine == "rankDAD")
+
+
+@pytest.mark.parametrize("name", list(CODEC_CASES))
+def test_gloo_world_of_two_aggregates_as_jax_packed_under_codec(world, name):
+    """Each engine's aggregate of one set of gradients (test_torch_port_wire
+    .py's) over the group of 2 (K = 2 a rank) against JAX's engine on
+    ``host_mesh(2)`` over its packed axis (K = 2 a device), the same inputs
+    on both sides: equal on both ranks, and at :data:`AGG_SHARE` of each
+    leaf's max against JAX."""
+    engine, quant, stochastic = CODEC_CASES[name]
+    ej = _jax_engine(engine, quant, stochastic)
+    axis = jcol.PackedAxis(jmesh.SITE_AXIS, NS // 2)
+    spec = jax.sharding.PartitionSpec(jmesh.SITE_AXIS)
+    fn = jax.jit(shard_map(lambda g, st, w: ej.aggregate(g, st, w, axis),
+                           mesh=jmesh.host_mesh(2), in_specs=(spec, spec, spec),
+                           out_specs=(jax.sharding.PartitionSpec(), spec), check_vma=False))
+    want, _ = fn({k: jnp.asarray(v) for k, v in _engine_grads().items()}, _agg_state(ej),
+                 jnp.asarray(WEIGHTS))
+    got = [torch.load(world / f"agg{r}_{name}.pt", weights_only=False) for r in (0, 1)]
+    share = AGG_SHARE["stochastic" if stochastic else "deterministic"]
+    assert got[0].keys() == want.keys()
+    for k, v in want.items():
+        v = np.asarray(v)
+        np.testing.assert_array_equal(got[0][k], got[1][k], err_msg=k)
+        np.testing.assert_allclose(got[0][k], v, rtol=0, atol=share * np.abs(v).max(),
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int8-stochastic", "fp8"])
+def test_gloo_world_of_two_dsgd_wire_is_jax_packed_wire_bit_for_bit(world, codec):
+    """dSGD's aggregate over the group against JAX's packed wire run op by
+    op with JAX's own functions (dsgd.py's quantized arm on a
+    ``PackedAxis``): each site's payload through the codec with one scale a
+    row of the rank's block, the rank's weighted partial through the codec
+    again (``weighted_site_sum``, whose cross-device psum is the identity
+    for an axis without a mesh name), and the two ranks' partials summed,
+    as the psum of two values does."""
+    _, quant, stochastic = CODEC_CASES[f"dSGD-{codec}"]
+    cj = jcol.resolve_wire_codec("32", quant, stochastic)
+    grads = {k: jnp.asarray(v) for k, v in _engine_grads().items()}
+    scale = jcol.site_weight_scale(jnp.asarray(WEIGHTS), jcol.PackedAxis(None, NS))
+    K = NS // 2
+    parts = [jax.tree.map(lambda g: jcol.weighted_site_sum(
+        cj.compress(g[r * K:(r + 1) * K], batched=True), scale[r * K:(r + 1) * K],
+        jcol.PackedAxis(None, K), wire_dtype=cj), grads) for r in (0, 1)]
+    got = torch.load(world / f"agg0_dSGD-{codec}.pt", weights_only=False)
+    for k, g in grads.items():
+        want = np.asarray((parts[0][k] + parts[1][k]).astype(g.dtype))
+        np.testing.assert_array_equal(got[k], want, err_msg=k)
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -213,7 +328,7 @@ def test_gloo_world_of_two_matches_the_one_device_epoch(world, name):
 
 
 def test_every_rank_holds_the_same_params_and_its_own_sites(world):
-    for name in CASES:
+    for name in all_runs():
         a, b = (torch.load(world / f"rank{r}_{name}.pt", weights_only=False) for r in (0, 1))
         for k in a["params"]:
             np.testing.assert_array_equal(a["params"][k], b["params"][k], err_msg=k)
@@ -221,16 +336,17 @@ def test_every_rank_holds_the_same_params_and_its_own_sites(world):
 
 
 def test_collectives_a_round(world):
-    """dSGD: two all-reduces a round from the engine (the weight total and
-    the whole payload in one flat buffer) and two from the round's
-    bookkeeping (the live total, then the sync-BN statistics and the loss
-    in one); rankDAD the same, its dense leaves in the one flat buffer, and
-    one gather for its one rank class (r = 2); powerSGD one more all-reduce
-    (its two sums, P and q', each one buffer for every leaf)."""
-    for name, (engine, _, _) in CASES.items():
+    """dSGD: two all-reduces a round, the round's bookkeeping (the live
+    total and the loss in one buffer; the engine takes the total from
+    there, and MSANNet has no sync-BN statistics to sum) and the engine's
+    whole payload in one flat buffer; rankDAD the same, its dense leaves in
+    the one flat buffer, and one gather for its one rank class (r = 2);
+    powerSGD one more all-reduce (its two sums, P and q', each one buffer
+    for every leaf). A codec changes no count."""
+    for name, (engine, *_) in all_runs().items():
         c = _result(world, name)["collectives"]
         rounds = EPOCHS * STEPS
-        assert c["all_reduce"] == (5 if engine == "powerSGD" else 4) * rounds, (name, c)
+        assert c["all_reduce"] == (3 if engine == "powerSGD" else 2) * rounds, (name, c)
         assert c["all_gather"] == (rounds if engine == "rankDAD" else 0), (name, c)
 
 
@@ -291,6 +407,22 @@ def test_mesh_helpers_validate_as_jax():
     with pytest.raises(ValueError, match="process group of 2"):
         tmesh.host_mesh(2)
     assert tmesh.make_site_mesh(device="cpu").pack == 1
+
+
+def test_a_rank_takes_its_card_whatever_the_backend(monkeypatch):
+    """No device: the rank's card (its rank modulo the cards) under gloo as
+    under nccl; the CPU only when the caller names it; with no card and no
+    device the mesh raises instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for backend in ("gloo", "nccl", None):
+        assert tmesh._mesh_device(None, backend, 3) == torch.device("cuda", 1), backend
+    assert tmesh._mesh_device("cpu", "gloo", 3) == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh._mesh_device(None, "gloo", 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdist.multihost_site_mesh(2)
 
 
 def test_slices_and_the_model_axis_are_refused_naming_their_items():

@@ -1,9 +1,10 @@
 """One rank of test_torch_port_mesh.py's gloo world, and the cases and
 port epochs that file shares with it (torch and the port only; it holds no
-test). ``main(rank, port, dir)`` joins the world of 2, runs every case on
-its block of the sites and, on rank 0, writes each case's gathered state,
-losses and collective counts to ``dir``; each rank writes its own params
-and its block of a JAX checkpoint."""
+test). ``main(rank, port, dir)`` joins the world of 2, runs every case and
+every codec case on its block of the sites and, on rank 0, writes each
+case's gathered state, losses and collective counts to ``dir``; each rank
+writes its own params, its block of a JAX checkpoint and, for each codec
+case, the engine's aggregate over the group of one set of gradients."""
 
 import numpy as np
 import torch
@@ -30,6 +31,19 @@ TABLE = MSANNet.leaf_table(1)
 CASES = {"dSGD": ("dSGD", 0.0, False), "rankDAD": ("rankDAD", 0.0, False),
          "powerSGD": ("powerSGD", 0.0, False), "dSGD-dead-site": ("dSGD", 0.0, True),
          "dSGD-dropout": ("dSGD", 0.3, False)}
+# the wire codecs over the group: (engine, wire_quant, wire_stochastic)
+CODECS = {"int8": ("int8", False), "int8-stochastic": ("int8", True), "fp8": ("fp8", False)}
+CODEC_CASES = {f"{engine}-{codec}": (engine,) + CODECS[codec]
+               for engine in ("dSGD", "rankDAD", "powerSGD") for codec in CODECS}
+
+
+def all_runs() -> dict:
+    """Every run of the world: ``name -> (engine, dropout, dead, wire_quant,
+    wire_stochastic)``."""
+    runs = {name: case + ("none", False) for name, case in CASES.items()}
+    runs.update((name, (engine, 0.0, False, quant, stochastic))
+                for name, (engine, quant, stochastic) in CODEC_CASES.items())
+    return runs
 
 
 def _live(dead: bool):
@@ -40,19 +54,38 @@ def _live(dead: bool):
     return live
 
 
-def _port_engine(engine):
-    kw = ENGINE_KW[engine]
+def _port_engine(engine, quant="none", stochastic=False):
+    kw = dict(ENGINE_KW[engine], wire_quant=quant, wire_stochastic=stochastic)
     if engine == "dSGD":
-        return make_dsgd()
+        return make_dsgd(**kw)
     if engine == "rankDAD":
         return make_rankdad(transposed=TABLE.transposed, **kw)
     return make_powersgd(transposed=TABLE.transposed, leaf_index=TABLE.leaf_index, **kw)
 
 
-def _port_epoch(engine, dropout, mesh=None):
+def agg_engine(engine, quant, stochastic):
+    """The engines of the one-set-of-gradients aggregate, as
+    test_torch_port_wire.py builds them (plain leaves, rank 3)."""
+    kw = dict(wire_quant=quant, wire_stochastic=stochastic)
+    if engine == "dSGD":
+        return make_dsgd(**kw)
+    if engine == "rankDAD":
+        return make_rankdad(dad_reduction_rank=3, dad_num_pow_iters=2, dad_tol=1e-3, **kw)
+    return make_powersgd(dad_reduction_rank=3, **kw)
+
+
+def _rows(tree, block: slice):
+    """A block of the leading site axis of every tensor of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, block) for k, v in tree.items()}
+    return None if tree is None else tree[block].contiguous()
+
+
+def _port_epoch(engine, dropout, mesh=None, quant="none", stochastic=False):
     model = MSANNet(in_size=F, hidden_sizes=(8,), out_size=2, dropout_rate=dropout,
                     dropout_in=(0,) if dropout else ())
-    return tsteps.make_train_epoch_fn(tsteps.FederatedTask(model), _port_engine(engine),
+    return tsteps.make_train_epoch_fn(tsteps.FederatedTask(model),
+                                      _port_engine(engine, quant, stochastic),
                                       tsteps.make_optimizer("sgd", 1e-2), device="cpu",
                                       pipeline="host", mesh=mesh)
 
@@ -64,10 +97,10 @@ def main(rank: int, port: str, out: str) -> None:
         mesh = packed_site_mesh(S, S // WORLD, device="cpu")
         data = np.load(f"{out}/data.npz")
         x, y, w = data["x"], data["y"], data["w"]
-        for name, (engine, dropout, dead) in CASES.items():
+        for name, (engine, dropout, dead, quant, stochastic) in all_runs().items():
             full = torch.load(f"{out}/init_{name}.pt", weights_only=False)
             state = tsteps.site_state_block(full, mesh)
-            epoch = _port_epoch(engine, dropout, mesh)
+            epoch = _port_epoch(engine, dropout, mesh, quant, stochastic)
             tcol.reset_collective_counts()
             losses = []
             for _ in range(EPOCHS):
@@ -83,6 +116,14 @@ def main(rank: int, port: str, out: str) -> None:
                             "state": train_state_to_jax(gathered)}, f"{out}/result_{name}.pt")
                 if name == "powerSGD":
                     tckpt.save_checkpoint(f"{out}/w2_psgd.msgpack", gathered)
+        # each codec case's aggregate of one set of gradients over the group
+        agg_in = torch.load(f"{out}/agg_in.pt", weights_only=False)
+        block = mesh.block(S)
+        for name, (engine, quant, stochastic) in CODEC_CASES.items():
+            agg, _ = agg_engine(engine, quant, stochastic).aggregate(
+                _rows(agg_in["grads"], block), _rows(agg_in["states"][name], block),
+                agg_in["weight"][block], axis=mesh.axis(S))
+            torch.save({k: v.numpy() for k, v in agg.items()}, f"{out}/agg{rank}_{name}.pt")
         # a JAX checkpoint of every site, restored into this rank's block
         like = tsteps.gather_site_state(
             tsteps.site_state_block(torch.load(f"{out}/init_powerSGD.pt", weights_only=False),
