@@ -6,8 +6,9 @@ a rank) through dSGD, rankDAD and powerSGD epochs, held against JAX's
 packed epoch on ``host_mesh(2)`` (conftest's virtual CPU devices) and
 against the port's own one-device epoch; the same engines under the int8,
 stochastic int8 and fp8 wire codecs against JAX's packed epoch under the
-codec, and each engine's aggregate of one set of gradients under each
-codec against JAX's packed aggregate; a case with dropout against the port at W = 1; and checkpoints
+codec (and under bf16 and the 16-bit payloads), and each engine's
+aggregate of one set of gradients on each wire against JAX's packed
+aggregate; a case with dropout against the port at W = 1; and checkpoints
 that cross between W = 2, W = 1 and JAX.
 
 The ranks are two Python processes that import torch and the port only;
@@ -30,6 +31,8 @@ from test_torch_port_mesh_rank import (
     BATCH,
     CASES,
     CODEC_CASES,
+    CODECS,
+    F32,
     ENGINE_KW,
     EPOCHS,
     STEPS,
@@ -38,10 +41,11 @@ from test_torch_port_mesh_rank import (
     _live,
     _port_engine,
     _port_epoch,
+    _wire_kw,
     all_runs,
 )
 
-from test_torch_port_wire import ENGINE_SHARE, NS, WEIGHTS, _engine_grads, _jax_engine
+from test_torch_port_wire import ENGINE_SHARE, KW_DAD, KW_LOWRANK, NS, WEIGHTS, _engine_grads
 
 from dinunet_implementations_tpu.core.jaxcompat import shard_map
 from dinunet_implementations_tpu.engines import make_engine
@@ -67,16 +71,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # low-rank engines 1e-5
 ATOL = {"dSGD": 1e-6, "rankDAD": 1e-5, "powerSGD": 1e-5}
 WORLD_TIMEOUT_S = 120
-# The epochs under a codec. dSGD and powerSGD on the deterministic grids
-# (int8, fp8) meet the f32 wire's ATOL (measured <= 6e-7). Where a value's
+# The epochs on the other wires. dSGD and powerSGD on every deterministic
+# wire (int8, fp8, bf16, the 16-bit payloads) meet the f32 wire's ATOL
+# (measured <= 1.2e-6). Where a value's
 # last bits differ between the two frameworks upstream of the wire
 # (rankDAD's power iteration leaves its factors a few ulps apart; under the
 # stochastic grid any value's own bits key its dither), the codec rounds it
 # one grid step apart and the later rounds carry the step: the two runs are
 # two draws of the same codec. Those cases hold each leaf of the params and
 # the engine state at test_torch_port_wire.py's EPOCH_SHARE of the leaf's
-# max (measured <= 3.3e-2, powerSGD's q under stochastic int8) and the
-# losses at the FS fit tests' 1e-4 (measured <= 4.3e-5). The aggregate test
+# max (measured <= 3.3e-2, powerSGD's q under stochastic int8; rankDAD's
+# deterministic wires <= 9.2e-5) and the losses at the FS fit tests' 1e-4
+# (measured <= 4.3e-5). The aggregate test
 # below holds the wire itself on equal inputs.
 CODEC_FLIP_SHARE, CODEC_FLIP_LOSS_ATOL = 0.1, 1e-4
 # The aggregate of one set of gradients over the group against JAX's engine
@@ -99,10 +105,9 @@ def _data(seed=3):
     return x, y, w
 
 
-def _jax_epoch(engine, mesh, quant="none", stochastic=False):
+def _jax_epoch(engine, mesh, wire=F32):
     task = jsteps.FederatedTask(JMSANNet(in_size=F, hidden_sizes=(8,), out_size=2))
-    eng = make_engine(engine, wire_quant=quant, wire_stochastic=stochastic,
-                      **ENGINE_KW[engine])
+    eng = make_engine(engine, **_wire_kw(wire), **ENGINE_KW[engine])
     opt = jsteps.make_optimizer("sgd", 1e-2)
     state = jsteps.init_train_state(task, eng, opt, jax.random.PRNGKey(0),
                                     jnp.ones((4, F), jnp.float32), num_sites=S)
@@ -173,8 +178,8 @@ def world(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world")
     x, y, w = _data()
     np.savez(tmp / "data.npz", x=x, y=y, w=w)
-    for name, (engine, _, _, quant, stochastic) in all_runs().items():
-        state, _ = _jax_epoch(engine, None, quant, stochastic)
+    for name, (engine, _, _, wire) in all_runs().items():
+        state, _ = _jax_epoch(engine, None, wire)
         torch.save(train_state_from_jax(jax.tree.map(np.asarray, state), device="cpu"),
                    tmp / f"init_{name}.pt")
     # a JAX powerSGD state after one epoch, each site's q and e its own
@@ -188,10 +193,20 @@ def world(tmp_path_factory):
     torch.save({"grads": {k: torch.from_numpy(v) for k, v in _engine_grads().items()},
                 "weight": torch.from_numpy(WEIGHTS),
                 "states": {name: jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
-                                              _agg_state(_jax_engine(*case)))
+                                              _agg_state(_jax_agg_engine(*case)))
                            for name, case in CODEC_CASES.items()}}, tmp / "agg_in.pt")
     _spawn_world(tmp)
     return tmp
+
+
+def _jax_agg_engine(engine, wire):
+    """test_torch_port_wire.py's JAX engines on a wire."""
+    kw = _wire_kw(wire)
+    if engine != "dSGD":
+        kw.update(KW_LOWRANK)
+    if engine == "rankDAD":
+        kw.update(KW_DAD, fused_poweriter=False)
+    return make_engine(engine, **kw)
 
 
 def _agg_state(engine):
@@ -204,12 +219,12 @@ def _result(world, name):
     return torch.load(world / f"result_{name}.pt", weights_only=False)
 
 
-def _assert_matches_jax_packed(got, engine, quant="none", stochastic=False, flips=False):
+def _assert_matches_jax_packed(got, engine, wire=F32, flips=False):
     """A world's result against JAX's packed epoch on ``host_mesh(2)`` (K =
     2 a device) with the same wire, at JAX's own packed == unpacked
     tolerances; ``flips``: where the codec's grid can part the two runs, at
     :data:`CODEC_FLIP_SHARE` of each leaf's max."""
-    state, epoch = _jax_epoch(engine, jmesh.host_mesh(2), quant, stochastic)
+    state, epoch = _jax_epoch(engine, jmesh.host_mesh(2), wire)
     x, y, w = _data()
     losses = []
     for _ in range(EPOCHS):
@@ -246,15 +261,15 @@ def test_gloo_world_of_two_matches_jax_packed_epoch(world, engine):
 
 @pytest.mark.parametrize("name", list(CODEC_CASES))
 def test_gloo_world_of_two_matches_jax_packed_epoch_under_codec(world, name):
-    """The wire codec over the group, as JAX's packed axis runs it: dSGD
+    """Each other wire over the group, as JAX's packed axis runs it: dSGD
     and rankDAD round each site's payload through the codec (one scale a
-    site row), and dSGD the rank's weighted partial again; powerSGD rounds
-    the rank's partials of P and q'. Held against JAX's packed epoch under
-    the same codec (:data:`CODEC_FLIP_SHARE` where a grid step can part
-    them: rankDAD, and the stochastic grid)."""
-    engine, quant, stochastic = CODEC_CASES[name]
-    _assert_matches_jax_packed(_result(world, name), engine, quant, stochastic,
-                               flips=stochastic or engine == "rankDAD")
+    site row) or the 16-bit payload dtype, and dSGD the rank's weighted
+    partial again; powerSGD rounds the rank's partials of P and q'. Held
+    against JAX's packed epoch on the same wire (:data:`CODEC_FLIP_SHARE`
+    where a grid step can part them: rankDAD, and the stochastic grid)."""
+    engine, wire = CODEC_CASES[name]
+    _assert_matches_jax_packed(_result(world, name), engine, wire,
+                               flips=wire[2] or engine == "rankDAD")
 
 
 @pytest.mark.parametrize("name", list(CODEC_CASES))
@@ -264,8 +279,8 @@ def test_gloo_world_of_two_aggregates_as_jax_packed_under_codec(world, name):
     ``host_mesh(2)`` over its packed axis (K = 2 a device), the same inputs
     on both sides: equal on both ranks, and at :data:`AGG_SHARE` of each
     leaf's max against JAX."""
-    engine, quant, stochastic = CODEC_CASES[name]
-    ej = _jax_engine(engine, quant, stochastic)
+    engine, wire = CODEC_CASES[name]
+    ej = _jax_agg_engine(engine, wire)
     axis = jcol.PackedAxis(jmesh.SITE_AXIS, NS // 2)
     spec = jax.sharding.PartitionSpec(jmesh.SITE_AXIS)
     fn = jax.jit(shard_map(lambda g, st, w: ej.aggregate(g, st, w, axis),
@@ -274,7 +289,7 @@ def test_gloo_world_of_two_aggregates_as_jax_packed_under_codec(world, name):
     want, _ = fn({k: jnp.asarray(v) for k, v in _engine_grads().items()}, _agg_state(ej),
                  jnp.asarray(WEIGHTS))
     got = [torch.load(world / f"agg{r}_{name}.pt", weights_only=False) for r in (0, 1)]
-    share = AGG_SHARE["stochastic" if stochastic else "deterministic"]
+    share = AGG_SHARE["stochastic" if wire[2] else "deterministic"]
     assert got[0].keys() == want.keys()
     for k, v in want.items():
         v = np.asarray(v)
@@ -283,7 +298,7 @@ def test_gloo_world_of_two_aggregates_as_jax_packed_under_codec(world, name):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("codec", ["int8", "int8-stochastic", "fp8"])
+@pytest.mark.parametrize("codec", list(CODECS))
 def test_gloo_world_of_two_dsgd_wire_is_jax_packed_wire_bit_for_bit(world, codec):
     """dSGD's aggregate over the group against JAX's packed wire run op by
     op with JAX's own functions (dsgd.py's quantized arm on a
@@ -292,17 +307,24 @@ def test_gloo_world_of_two_dsgd_wire_is_jax_packed_wire_bit_for_bit(world, codec
     again (``weighted_site_sum``, whose cross-device psum is the identity
     for an axis without a mesh name), and the two ranks' partials summed,
     as the psum of two values does."""
-    _, quant, stochastic = CODEC_CASES[f"dSGD-{codec}"]
-    cj = jcol.resolve_wire_codec("32", quant, stochastic)
+    pb, quant, stochastic = CODECS[codec]
+    cj = jcol.resolve_wire_codec(pb, quant, stochastic)
+    if quant == "none":
+        # the precision_bits wire: each payload cast, the partial cast again
+        on_wire, wire_dtype = (lambda g: g.astype(jcol.payload_dtype(pb))), cj.dtype
+    else:
+        on_wire, wire_dtype = (lambda g: cj.compress(g, batched=True)), cj
     grads = {k: jnp.asarray(v) for k, v in _engine_grads().items()}
     scale = jcol.site_weight_scale(jnp.asarray(WEIGHTS), jcol.PackedAxis(None, NS))
     K = NS // 2
     parts = [jax.tree.map(lambda g: jcol.weighted_site_sum(
-        cj.compress(g[r * K:(r + 1) * K], batched=True), scale[r * K:(r + 1) * K],
-        jcol.PackedAxis(None, K), wire_dtype=cj), grads) for r in (0, 1)]
+        on_wire(g[r * K:(r + 1) * K]), scale[r * K:(r + 1) * K], jcol.PackedAxis(None, K),
+        wire_dtype=wire_dtype), grads) for r in (0, 1)]
     got = torch.load(world / f"agg0_dSGD-{codec}.pt", weights_only=False)
     for k, g in grads.items():
-        want = np.asarray((parts[0][k] + parts[1][k]).astype(g.dtype))
+        # the mean in the payload's dtype, then the gradient's
+        payload = on_wire(g[:K])
+        want = np.asarray((parts[0][k] + parts[1][k]).astype(payload.dtype).astype(g.dtype))
         np.testing.assert_array_equal(got[k], want, err_msg=k)
 
 

@@ -31,19 +31,27 @@ TABLE = MSANNet.leaf_table(1)
 CASES = {"dSGD": ("dSGD", 0.0, False), "rankDAD": ("rankDAD", 0.0, False),
          "powerSGD": ("powerSGD", 0.0, False), "dSGD-dead-site": ("dSGD", 0.0, True),
          "dSGD-dropout": ("dSGD", 0.3, False)}
-# the wire codecs over the group: (engine, wire_quant, wire_stochastic)
-CODECS = {"int8": ("int8", False), "int8-stochastic": ("int8", True), "fp8": ("fp8", False)}
-CODEC_CASES = {f"{engine}-{codec}": (engine,) + CODECS[codec]
+# a wire: (precision_bits, wire_quant, wire_stochastic); the cases above run
+# the f32 wire, the codec cases each other wire over the group
+F32 = ("32", "none", False)
+CODECS = {"int8": ("32", "int8", False), "int8-stochastic": ("32", "int8", True),
+          "fp8": ("32", "fp8", False), "bf16": ("32", "bf16", False),
+          "16": ("16", "none", False), "16-ieee": ("16-ieee", "none", False)}
+CODEC_CASES = {f"{engine}-{codec}": (engine, CODECS[codec])
                for engine in ("dSGD", "rankDAD", "powerSGD") for codec in CODECS}
 
 
 def all_runs() -> dict:
-    """Every run of the world: ``name -> (engine, dropout, dead, wire_quant,
-    wire_stochastic)``."""
-    runs = {name: case + ("none", False) for name, case in CASES.items()}
-    runs.update((name, (engine, 0.0, False, quant, stochastic))
-                for name, (engine, quant, stochastic) in CODEC_CASES.items())
+    """Every run of the world: ``name -> (engine, dropout, dead, wire)``."""
+    runs = {name: case + (F32,) for name, case in CASES.items()}
+    runs.update((name, (engine, 0.0, False, wire))
+                for name, (engine, wire) in CODEC_CASES.items())
     return runs
+
+
+def _wire_kw(wire) -> dict:
+    pb, quant, stochastic = wire
+    return dict(precision_bits=pb, wire_quant=quant, wire_stochastic=stochastic)
 
 
 def _live(dead: bool):
@@ -54,8 +62,8 @@ def _live(dead: bool):
     return live
 
 
-def _port_engine(engine, quant="none", stochastic=False):
-    kw = dict(ENGINE_KW[engine], wire_quant=quant, wire_stochastic=stochastic)
+def _port_engine(engine, wire=F32):
+    kw = dict(ENGINE_KW[engine], **_wire_kw(wire))
     if engine == "dSGD":
         return make_dsgd(**kw)
     if engine == "rankDAD":
@@ -63,10 +71,10 @@ def _port_engine(engine, quant="none", stochastic=False):
     return make_powersgd(transposed=TABLE.transposed, leaf_index=TABLE.leaf_index, **kw)
 
 
-def agg_engine(engine, quant, stochastic):
+def agg_engine(engine, wire):
     """The engines of the one-set-of-gradients aggregate, as
     test_torch_port_wire.py builds them (plain leaves, rank 3)."""
-    kw = dict(wire_quant=quant, wire_stochastic=stochastic)
+    kw = _wire_kw(wire)
     if engine == "dSGD":
         return make_dsgd(**kw)
     if engine == "rankDAD":
@@ -81,11 +89,11 @@ def _rows(tree, block: slice):
     return None if tree is None else tree[block].contiguous()
 
 
-def _port_epoch(engine, dropout, mesh=None, quant="none", stochastic=False):
+def _port_epoch(engine, dropout, mesh=None, wire=F32):
     model = MSANNet(in_size=F, hidden_sizes=(8,), out_size=2, dropout_rate=dropout,
                     dropout_in=(0,) if dropout else ())
     return tsteps.make_train_epoch_fn(tsteps.FederatedTask(model),
-                                      _port_engine(engine, quant, stochastic),
+                                      _port_engine(engine, wire),
                                       tsteps.make_optimizer("sgd", 1e-2), device="cpu",
                                       pipeline="host", mesh=mesh)
 
@@ -97,10 +105,10 @@ def main(rank: int, port: str, out: str) -> None:
         mesh = packed_site_mesh(S, S // WORLD, device="cpu")
         data = np.load(f"{out}/data.npz")
         x, y, w = data["x"], data["y"], data["w"]
-        for name, (engine, dropout, dead, quant, stochastic) in all_runs().items():
+        for name, (engine, dropout, dead, wire) in all_runs().items():
             full = torch.load(f"{out}/init_{name}.pt", weights_only=False)
             state = tsteps.site_state_block(full, mesh)
-            epoch = _port_epoch(engine, dropout, mesh, quant, stochastic)
+            epoch = _port_epoch(engine, dropout, mesh, wire)
             tcol.reset_collective_counts()
             losses = []
             for _ in range(EPOCHS):
@@ -119,8 +127,8 @@ def main(rank: int, port: str, out: str) -> None:
         # each codec case's aggregate of one set of gradients over the group
         agg_in = torch.load(f"{out}/agg_in.pt", weights_only=False)
         block = mesh.block(S)
-        for name, (engine, quant, stochastic) in CODEC_CASES.items():
-            agg, _ = agg_engine(engine, quant, stochastic).aggregate(
+        for name, (engine, wire) in CODEC_CASES.items():
+            agg, _ = agg_engine(engine, wire).aggregate(
                 _rows(agg_in["grads"], block), _rows(agg_in["states"][name], block),
                 agg_in["weight"][block], axis=mesh.axis(S))
             torch.save({k: v.numpy() for k, v in agg.items()}, f"{out}/agg{rank}_{name}.pt")
