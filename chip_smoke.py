@@ -372,7 +372,26 @@ result line:
    all_reduce, all_gather and broadcast on CUDA tensors. One line a
    sub-phase and one
    ``mesh:`` line;
-25. one JSON line of per-kernel numbers, then the result line.
+25. the slice tier over processes at full width, on phase 21's tree (6
+   sites; the card machine's disk cap keeps the tree at 6): (a) two
+   ``runner/dcn_worker.py`` processes with ``--slices 2`` (two slices of
+   one rank, gloo on cuda:0, no ``--device``, K = 3 a rank) fit it with
+   rankDAD for 2 epochs, three times: the FUSED form, whose params
+   checksum must equal phase 24 (c)'s unsliced world of 2 bit for bit; the
+   SPLIT form under ``--dcn-wire-quant int8``, finite losses within
+   ``SLICE_INT8_SHARE`` of the fused losses and the inter-slice elements a
+   round, at a byte a value, equal to the fit's ``dcn_bytes_of``; and a
+   ``slice_drop_at`` plan over all of epoch 2 with ``min_slices=2``, every
+   round of epoch 2 held and the params after it those after epoch 1
+   (the fused run's). Each rank launches K1 and K2 on the cluster route and
+   K7 staged, no plain class; the collectives a round of each form are
+   printed. (b) ``dcn_worker --supervise --num-processes 2 --slices 2``
+   over the same fit with slice 1's ``kill_slice_at`` in epoch 2: the
+   death in the liveness spool, JAX's decision file at epoch 1's round,
+   and the resumed fleet's params checksum equal to the fused run's, bit
+   for bit; the SIGKILL-to-first-pulse and reload times. One line a
+   sub-phase and one ``slices:`` line;
+26. one JSON line of per-kernel numbers, then the result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -6370,50 +6389,24 @@ def pod_worker_spawn(tree: str, out: str, trace: str, results: dict):
 
 
 def pod_consensus(pod: str, flight, installs: list):
-    """The supervisor's ``on_consensus``: read the round that
-    ``consensus_round`` picks and the epoch of the fold's checkpoint (the
-    worker's resume point), and write the decision where the post-mortem
-    reads it, in the format of the JAX package's worker. The kill lands
-    after both of epoch 1's checkpoints, so the two agree (the drill holds
-    it) and nothing is copied (``replaced`` false); the install that copies
-    the agreed checkpoint over the resume point is ``dcn_worker
-    --supervise``'s (ROADMAP A11)."""
+    """The supervisor's ``on_consensus``: ``dcn_worker --supervise``'s own
+    install (``runner/dcn_worker.py install_consensus``) over the one
+    slice, which writes the decision where the post-mortem reads it, in
+    the format of the JAX package's worker. The kill lands after both of
+    epoch 1's checkpoints, so the two agree (the drill holds it) and
+    nothing is copied (``replaced`` false: the fold's checkpoint sits at
+    the agreed epoch, its ``fold_epoch`` here)."""
     from dinunet_implementations_tpu_torch.core.config import NNComputation
-    from dinunet_implementations_tpu_torch.runner.supervisor import (
-        consensus_round,
-        slice_ckpt_dir,
-    )
-    from dinunet_implementations_tpu_torch.telemetry.postmortem import CONSENSUS_DIR
-    from dinunet_implementations_tpu_torch.trainer import load_meta
-    from dinunet_implementations_tpu_torch.trainer.checkpoint import CorruptCheckpointError
-    from dinunet_implementations_tpu_torch.trainer.logs import fold_dir
+    from dinunet_implementations_tpu_torch.runner.dcn_worker import install_consensus
 
     def install(generation: int, dead_slice: int) -> None:
         t0 = time.perf_counter()
-        decision = {"time_unix": time.time(), "generation": generation,
-                    "dead_slice": dead_slice, "round": None}
-        agreed = consensus_round({0: slice_ckpt_dir(pod, 0)})
-        if agreed is None:
-            flight.note("consensus-none", generation=generation)
-        else:
-            rnd, sha, path = agreed
-            epoch = load_meta(path).get("epoch")
-            resume = os.path.join(fold_dir(pod, "remote", NNComputation.TASK_ICA, 0),
-                                  "checkpoint_latest.msgpack")
-            try:
-                fold_epoch = load_meta(resume).get("epoch")
-            except (OSError, CorruptCheckpointError):
-                fold_epoch = None
-            flight.note("consensus-install", round=rnd, epoch=epoch, sha=sha[:12],
-                        fold_epoch=fold_epoch, replaced=False)
-            decision.update(round=rnd, epoch=epoch, sha=sha, fold_epoch=fold_epoch,
-                            replaced=False)
-        path = os.path.join(pod, CONSENSUS_DIR, f"decision_gen{generation}.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path + ".tmp", "w") as fh:
-            json.dump(decision, fh)
-        os.replace(path + ".tmp", path)
-        installs.append({**decision, "ms": (time.perf_counter() - t0) * 1e3})
+        decision = install_consensus(pod, NNComputation.TASK_ICA, 1, generation, dead_slice,
+                                     flight)
+        fold_epoch = (decision["epoch"] if decision["round"] is not None
+                      and not decision["replaced"] else None)
+        installs.append({**decision, "fold_epoch": fold_epoch,
+                         "ms": (time.perf_counter() - t0) * 1e3})
 
     return install
 
@@ -7034,6 +7027,211 @@ def mesh_phase(torch, np, lc, pc, bc, smi: str, root: str, tree: str) -> dict:
     return {"codecs": codecs, "nccl": nccl, "gloo": gloo}
 
 
+# -- phase 25: the slice tier over processes ---------------------------------------------
+
+# The int8 split form's losses against the fused form's, each epoch's
+# |difference| over the fused loss. The envelope first predicted, 0.05 (a
+# narrow ICA-LSTM on the CPU parted by 1.6e-2 over the same 2 epochs), fell
+# at 0.0523 on the card (epoch 2; epoch 1 0.0109): the inter-slice codec
+# scales each site row of a rank class's whole factor block by one amax,
+# a coarser grid than the one-device codec's (a scale a factor). Now PR
+# 24's codec share for runs a grid step can part (tests/test_torch_port_
+# mesh.py CODEC_FLIP_SHARE)
+SLICE_INT8_SHARE = 0.1
+SLICE_WORKER_TIMEOUT_S = 600
+SLICE_DRILL_TIMEOUT_S = 900
+
+
+def slice_routes_ok(rep: dict) -> bool:
+    """A rank's K1, K2 and K7 launched, K1 and K2 on the cluster route, K7
+    staged, no rank class sent to the plain power iteration."""
+    n, r = rep["launches"], rep["routes"]
+    return (n["lstm_fwd"] > 0 and r["k1_cluster"] == n["lstm_fwd"] and n["lstm_bwd"] > 0
+            and r["k2_cluster"] == n["lstm_bwd"] and n["poweriter"] > 0
+            and r["k7_staged"] == n["poweriter"] and r["poweriter_plain_classes"] == 0)
+
+
+def slice_pair(work: str, name: str, tree: str, extra: list) -> tuple:
+    """Two ``--slices 2`` worker ranks under gloo on the card (no
+    ``--device``), their reports and the pair's wall seconds."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(work, name)
+    logs = [open(os.path.join(work, f"{name}_rank{r}.log"), "w") for r in range(2)]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(mesh_worker_cmd(tree, out, os.path.join(work, f"{name}{r}.json"),
+                                              r, port) + ["--slices", "2", *extra],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=here)
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=SLICE_WORKER_TIMEOUT_S) for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        fail(f"phase 25 (a) {name}: the two ranks outran {SLICE_WORKER_TIMEOUT_S} s")
+    finally:
+        for f in logs:
+            f.close()
+    wall = time.monotonic() - t0
+    if rcs != [0, 0]:
+        tails = [open(os.path.join(work, f"{name}_rank{r}.log")).read()[-3000:]
+                 for r in range(2)]
+        fail(f"phase 25 (a) {name}: the ranks exited {rcs}: {tails}")
+    return [pod_read(os.path.join(work, f"{name}{r}.json")) for r in range(2)], wall
+
+
+def slice_record(reps: list, wall: float) -> dict:
+    a = reps[0]
+    rounds = a["epoch_rounds"][-1]  # a fit from round 0
+    return {"wall_s": wall, "params_sha256": [r["params_sha256"] for r in reps],
+            "epoch_losses": a["epoch_losses"], "epoch_rounds": a["epoch_rounds"],
+            "held_rounds": a["held_rounds"], "mesh_shape": a["mesh_shape"], "pack": a["pack"],
+            "fit_seconds": [r["fit_seconds"] for r in reps],
+            "launches": [r["launches"] for r in reps], "routes": [r["routes"] for r in reps],
+            "collectives_a_round": {k: v / rounds for k, v in a["epoch_collectives"].items()},
+            "dcn_bytes_round": a["dcn_bytes_round"], "device": [r["device"] for r in reps]}
+
+
+def slices_two_by_one(torch, smi: str, tree: str, root: str, unsliced_sha: str) -> dict:
+    """(a): the fused, the int8 split and the quorum runs (module
+    docstring)."""
+    work = os.path.join(root, "slices_a")
+    os.makedirs(work, exist_ok=True)
+    fused_reps, t_fused = slice_pair(work, "fused", tree, [])
+    fused = slice_record(fused_reps, t_fused)
+    split_reps, t_split = slice_pair(work, "split_int8", tree, ["--dcn-wire-quant", "int8"])
+    split = slice_record(split_reps, t_split)
+    r1 = fused["epoch_rounds"][0]
+    drop_reps, t_drop = slice_pair(work, "quorum", tree, [
+        "--faults", json.dumps({"slice_drop_at": [[1, r1, -1]]}), "--set", "min_slices=2"])
+    drop = slice_record(drop_reps, t_drop)
+    share = max(abs(a - b) / abs(b) for a, b in zip(split["epoch_losses"],
+                                                     fused["epoch_losses"]))
+    rounds = fused["epoch_rounds"][-1]
+    split_elems = split["collectives_a_round"]["dcn_elements"]
+    rec = {"card": smi, "fused": fused, "split_int8": split, "quorum": drop,
+           "unsliced_sha": unsliced_sha, "int8_loss_share": share,
+           "split_dcn_bytes_a_round": split_elems * 1, "rounds": rounds}
+    print("slices (a) two slices of one rank:", json.dumps(rec))
+    problems = []
+    for name, run, reps in (("fused", fused, fused_reps), ("split", split, split_reps),
+                            ("quorum", drop, drop_reps)):
+        if len(set(run["params_sha256"])) != 1:
+            problems.append(f"{name}: the ranks' params checksums differ")
+        if run["mesh_shape"] != {"slice": 2, "site": 1, "model": 1} or run["pack"] != 3:
+            problems.append(f"{name}: not two slices of one rank of 3 sites")
+        if run["device"] != ["cuda:0", "cuda:0"]:
+            problems.append(f"{name}: a rank with no --device did not take the card")
+        for r in reps:
+            if not slice_routes_ok(r):
+                problems.append(f"{name} rank {r['process_index']}: off its routes "
+                                f"{r['launches']} {r['routes']}")
+    if fused["params_sha256"][0] != unsliced_sha:
+        problems.append("the fused form's params are not the unsliced world's of phase 24 (c)")
+    if not all(x == x and abs(x) < float("inf") for x in split["epoch_losses"]):
+        problems.append(f"split losses {split['epoch_losses']}")
+    if share > SLICE_INT8_SHARE:
+        problems.append(f"the int8 split form's losses {share} of the fused form's")
+    if split_elems != split["dcn_bytes_round"]:
+        problems.append(f"the split form's inter-slice elements a round {split_elems} are not "
+                        f"the fit's dcn_bytes_of {split['dcn_bytes_round']} at a byte a value")
+    if drop["held_rounds"] != rounds - r1 or not all(
+            x != x for x in drop["epoch_losses"][1:]):
+        problems.append(f"quorum: {drop['held_rounds']} rounds held, want {rounds - r1}")
+    shas = drop_reps[0]["epoch_params_sha256"]
+    if shas[1] != shas[0] or shas[0] != fused_reps[0]["epoch_params_sha256"][0]:
+        problems.append("quorum: the params moved across held rounds, or epoch 1 is not the "
+                        "fused run's")
+    if problems:
+        fail(f"phase 25 (a): {problems}")
+    return rec
+
+
+def slices_drill(torch, smi: str, tree: str, root: str, fused: dict) -> dict:
+    """(b): the supervised drill on the card (module docstring)."""
+    from dinunet_implementations_tpu_torch.runner.supervisor import (
+        LIVENESS_DIR,
+        read_slice_liveness,
+    )
+    from dinunet_implementations_tpu_torch.telemetry.postmortem import CONSENSUS_DIR
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(root, "slices_b")
+    os.makedirs(out, exist_ok=True)
+    r1 = fused["epoch_rounds"][0]
+    cmd = [sys.executable, "-m", "dinunet_implementations_tpu_torch.runner.dcn_worker",
+           "--supervise", "--num-processes", "2", "--slices", "2", "--backend", "gloo",
+           "--data-path", tree, "--out-dir", out, "--report", os.path.join(out, "rep.json"),
+           "--task", "ICA-Classification", "--epochs", str(MESH_FIT_EPOCHS),
+           "--set", 'agg_engine="rankDAD"', "--heartbeat-s", "0.5",
+           "--heartbeat-timeout-s", "120",
+           "--faults", json.dumps({"kill_slice_at": [[1, r1 + 1]]})]
+    t0 = time.monotonic()
+    with open(os.path.join(out, "supervisor.log"), "w") as log:
+        try:
+            rc = subprocess.run(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=here,
+                                timeout=SLICE_DRILL_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    drill_s = time.monotonic() - t0
+    if rc != 0:
+        tails = {n: open(os.path.join(out, n)).read()[-2000:] for n in sorted(os.listdir(out))
+                 if n.endswith(".log")}
+        fail(f"phase 25 (b): the supervisor exited {rc}: {tails}")
+    reps = [pod_read(os.path.join(out, f"rep_p{r}.json")) for r in range(2)]
+    deaths = [e for e in read_slice_liveness(os.path.join(out, LIVENESS_DIR))
+              if e["event"] == "dead"]
+    decision = pod_read(os.path.join(out, CONSENSUS_DIR, "decision_gen1.json"))
+    kills = []
+    for name in os.listdir(out):
+        if name.startswith("flight_") and name.endswith(".json"):
+            d = pod_read(os.path.join(out, name))
+            if str(d.get("reason", "")).startswith("kill-slice"):
+                kills.append(d["time_unix"])
+    first_pulse = min(r["first_pulse_unix"] for r in reps if r["first_pulse_unix"])
+    rec = {"card": smi, "drill_s": drill_s, "deaths": deaths, "decision": decision,
+           "digests": [r["params_sha256"] for r in reps],
+           "fused_digest": fused["params_sha256"][0],
+           "generations": [r["restart_generation"] for r in reps],
+           "kill_to_first_pulse_s": (first_pulse - kills[0]) if kills else None,
+           "reload_ms": [r["reload_ms"] for r in reps],
+           "launches": [r["launches"] for r in reps], "routes": [r["routes"] for r in reps]}
+    print("slices (b) the supervised drill:", json.dumps(rec))
+    problems = []
+    if [(e["slice"], e["generation"]) for e in deaths] != [(1, 1)] or \
+            "signal 9" not in deaths[0]["reason"]:
+        problems.append(f"the liveness spool's deaths {deaths}")
+    want = {"time_unix", "generation", "dead_slice", "round", "epoch", "sha", "replaced"}
+    if set(decision) != want or (decision["dead_slice"], decision["round"],
+                                 decision["epoch"]) != (1, r1, 1):
+        problems.append(f"the decision {decision}, want slice 1 at round {r1}, epoch 1")
+    if rec["generations"] != [2, 2] or set(rec["digests"]) != {rec["fused_digest"]}:
+        problems.append("the resumed fleet's params are not the uninterrupted fused run's")
+    if not kills or any(ms is None for ms in rec["reload_ms"]):
+        problems.append("the kill or the resume's reload was not timed")
+    for r in reps:
+        if not slice_routes_ok(r):
+            problems.append(f"rank {r['process_index']} off its routes")
+    if problems:
+        fail(f"phase 25 (b): {problems}")
+    return rec
+
+
+def slices_phase(torch, smi: str, root: str, tree: str, unsliced_sha: str) -> dict:
+    t0 = time.monotonic()
+    two = slices_two_by_one(torch, smi, tree, root, unsliced_sha)
+    t_a = time.monotonic() - t0
+    drill = slices_drill(torch, smi, tree, root, two["fused"])
+    rec = {"a_s": t_a, "b_s": time.monotonic() - t0 - t_a, "card": smi}
+    print("slices:", json.dumps(rec))
+    return {"two": two, "drill": drill}
+
+
 def main() -> int:
     import torch
 
@@ -7170,6 +7368,13 @@ def main() -> int:
               f"of one against the one-device epochs; two gloo ranks of dcn_worker on cuda:0 "
               f"over phase 21's tree against the worker alone")
         mesh = mesh_phase(torch, np, lc, pc, bc, smi, root, os.path.join(root, "live_tree"))
+
+        print("== 25. the slice tier over processes at full width: dcn_worker --slices 2 as "
+              "two gloo ranks on cuda:0 over phase 21's tree, the fused form against phase 24 "
+              "(c)'s unsliced world, the int8 split form, a slice drop under the quorum; the "
+              "supervised SIGKILL drill of slice 1")
+        slices = slices_phase(torch, smi, root, os.path.join(root, "live_tree"),
+                              mesh["gloo"]["ranks"][0]["params_sha256"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -7283,6 +7488,15 @@ def main() -> int:
         by_path[name] = r["launches"]["lstm_fwd"]
         bwd_by_path[name] = r["launches"]["lstm_bwd"]
         k7_by_path[name] = r["launches"]["poweriter"]
+    for run in ("fused", "split_int8", "quorum"):  # phase 25
+        for rank, n in enumerate(slices["two"][run]["launches"]):
+            name = f"slices_{run}_rank{rank}"
+            by_path[name], bwd_by_path[name] = n["lstm_fwd"], n["lstm_bwd"]
+            k7_by_path[name] = n["poweriter"]
+    for rank, n in enumerate(slices["drill"]["launches"]):
+        name = f"slices_drill_gen2_rank{rank}"
+        by_path[name], bwd_by_path[name] = n["lstm_fwd"], n["lstm_bwd"]
+        k7_by_path[name] = n["poweriter"]
     k7_main = next(s for s in k7 if s["rank"] == K7_RANK and s["dtype"] == "f32"
                    and s["start"] == "cold" and s["tol"] > 0)
     kernels = [{
@@ -7398,7 +7612,7 @@ def main() -> int:
                 "design": BWD_DESIGN + f" (half of the clusters a direction, each on its own time "
                           f"map; {cot})",
                 "geometry": main_shape["geometry"], "stream_ms": main_shape["stream_ms"]})
-    print(f"== 25. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
+    print(f"== 26. kernels; total {time.monotonic() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

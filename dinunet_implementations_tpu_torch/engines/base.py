@@ -28,6 +28,15 @@ An engine is a pair of functions the epoch runs every round:
 Every engine takes ``wire_quant`` (``parallel.collectives.WIRE_QUANTS``)
 and ``wire_stochastic``: its payloads go through the wire codec, as JAX's,
 and ``Engine.wire_dtype`` is what one element costs on the wire.
+
+Slices: every engine takes ``dcn_wire_quant`` (``""`` follows
+``wire_quant``, ``"none"`` is the fused form; parallel/collectives.py
+``resolve_dcn_codec``). Over a sliced axis the codec rounds each slice's
+partial (or each site row of a slice's gathered block) before the
+inter-slice hop. ``dcn_wire_shapes(grads, pack=1, sites_per_slice=1)``
+and ``dcn_bytes`` model what ONE slice ships across that hop a round,
+JAX's integers; ``dcn_dtype`` is the inter-slice codec's dtype (None for
+the fused form).
 """
 
 from __future__ import annotations
@@ -110,6 +119,18 @@ def robust_gather_wire(pack: int, robust_agg: str) -> list:
     return []
 
 
+def robust_gather_dcn_wire(sites_per_slice: int, robust_agg: str) -> list:
+    """The robust bookkeeping gathers' inter-slice operands, JAX's: the
+    slice's assembled ``[sites_per_slice]`` vectors at f32, never through
+    the inter-slice codec."""
+    f32 = torch.float32
+    if robust_agg == "norm_clip":
+        return [((sites_per_slice,), f32), ((sites_per_slice,), f32)]
+    if robust_agg in ("trimmed_mean", "coordinate_median"):
+        return [((sites_per_slice,), f32)]
+    return []
+
+
 def wire_shapes_bytes(shapes) -> int:
     """The byte total of a wire model ``[(shape, dtype), ...]``."""
     return sum(math.prod(s) * d.itemsize for s, d in shapes)
@@ -132,6 +153,11 @@ class Engine:
     wire_shapes: Callable | None = None
     # what one payload element costs on the wire (the codec's dtype)
     wire_dtype: torch.dtype | None = None
+    # (grads, pack=1, sites_per_slice=1) -> [(shape, dtype), ...]: what one
+    # slice ships across the inter-slice hop a round (module docstring)
+    dcn_wire_shapes: Callable | None = None
+    # the inter-slice codec's dtype; None: the fused form
+    dcn_dtype: torch.dtype | None = None
 
     def wire_bytes(self, grads: dict, pack: int = 1) -> int:
         """The modeled payload one device ships a round (module
@@ -139,6 +165,14 @@ class Engine:
         if self.wire_shapes is None:
             raise NotImplementedError(f"engine {self.name!r} has no wire model")
         return wire_shapes_bytes(self.wire_shapes(grads, pack=pack))
+
+    def dcn_bytes(self, grads: dict, pack: int = 1, sites_per_slice: int = 1) -> int:
+        """The modeled payload one slice ships across the inter-slice hop
+        a round: JAX's ``dcn_bytes``, an exact integer."""
+        if self.dcn_wire_shapes is None:
+            raise NotImplementedError(f"engine {self.name!r} has no inter-slice wire model")
+        return wire_shapes_bytes(self.dcn_wire_shapes(grads, pack=pack,
+                                                      sites_per_slice=sites_per_slice))
 
 
 #: the ROADMAP item of the epoch's planes that the port does not yet run

@@ -1,8 +1,8 @@
 """dSGD, decentralized SGD: the example-weighted mean of the sites' full
 gradients, with the ``precision_bits`` payload cast or the wire codec
 (``wire_quant``: each site's payload rounded through the codec's grid,
-one scale a site). The port of the JAX package's ``engines/dsgd.py`` at
-one slice, with its byzantine-robust modes (``robust_agg``) and its
+one scale a site). The port of the JAX package's ``engines/dsgd.py``,
+with its byzantine-robust modes (``robust_agg``) and its
 secure-aggregation masked wire (``secure_agg``):
 
 - ``"norm_clip"`` clips each site's gradient to ``robust_clip_mult``
@@ -22,11 +22,15 @@ Over a process group (``aggregate(..., axis=)``) the weighted mean is
 two-level, as JAX's packed axis: each rank's weighted partial over its
 ``[K]`` sites goes through the wire (the payload dtype, or the codec
 again) and the whole tree is summed over the group in one collective.
-The robust modes and the masked wire run with every site on one device
-only.
+Over slices with an inter-slice codec (``dcn_wire_quant``) the tree's
+slice partials cross the inter-slice hop as ONE vector, each leaf's
+partial through the codec on its own scale. The robust modes and the
+masked wire run with every site on one device only.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -41,7 +45,14 @@ from ..parallel.collectives import (
     site_weighted_mean,
 )
 from ..privacy.secure_agg import masked_weighted_mean, secure_agg_enabled
-from .base import Engine, jax_shapes, mask_dead_site, refuse_on_mesh, robust_gather_wire
+from .base import (
+    Engine,
+    jax_shapes,
+    mask_dead_site,
+    refuse_on_mesh,
+    robust_gather_dcn_wire,
+    robust_gather_wire,
+)
 
 
 def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
@@ -71,7 +82,11 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
             "grid destroys pad cancellation — set dcn_wire_quant='none' (the fused exact "
             "(slice, site) reduce)")
     codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
-    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
+    # the inter-slice codec: None is the fused form; the masked wire always
+    # takes it ("" following a bf16 wire_quant would not)
+    dcn = (None if secure else
+           resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic))
+    ddtype = None if dcn is None else dcn.dtype
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
 
@@ -98,7 +113,8 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
         # over a group each rank's partial crosses the wire again, as
         # JAX's packed axis: at the payload dtype, or through the codec
         wire = pdtype if codec.quant == "none" else codec
-        return payload_uncast(site_weighted_mean(payload, weight, axis, wire, total), grads), state
+        return payload_uncast(site_weighted_mean(payload, weight, axis, wire, total, dcn),
+                              grads), state
 
     pdtype = codec.dtype
     transposed = frozenset(transposed)
@@ -116,5 +132,23 @@ def make_dsgd(precision_bits="32", wire_quant="none", robust_agg="none",
                     + extras)
         return [(s, pdtype) for s in shapes] + extras
 
+    def dcn_wire_shapes(grads, pack: int = 1, sites_per_slice: int = 1) -> list:
+        """JAX's inter-slice model: the gather modes ship the slice's
+        ``[sites_per_slice, ...]`` block a leaf, the masked wire its int32
+        partials and the slice's liveness vector; under an inter-slice codec
+        the whole tree as ONE vector at its dtype, else each leaf's partial
+        at the payload dtype (the fused collective's operand)."""
+        shapes = list(jax_shapes(grads, transposed).values())
+        extras = robust_gather_dcn_wire(sites_per_slice, robust_agg)
+        if gather_mode:
+            return [((sites_per_slice,) + s, ddtype or pdtype) for s in shapes] + extras
+        if secure:
+            return ([(s, torch.int32) for s in shapes]
+                    + [((sites_per_slice,), torch.float32)] + extras)
+        if ddtype is not None:
+            return [((sum(math.prod(s) for s in shapes),), ddtype)] + extras
+        return [(s, pdtype) for s in shapes] + extras
+
     return Engine("dSGD", init, aggregate, wire_shapes=wire_shapes,
-                  wire_dtype=torch.int32 if secure else pdtype)
+                  wire_dtype=torch.int32 if secure else pdtype,
+                  dcn_wire_shapes=dcn_wire_shapes, dcn_dtype=ddtype)

@@ -1,6 +1,6 @@
 """powerSGD, low-rank gradient compression with error feedback: the port
-of the JAX package's ``engines/powersgd.py`` at one slice, with its wire
-codecs and its byzantine-robust modes.
+of the JAX package's ``engines/powersgd.py``, with its wire codecs and its
+byzantine-robust modes.
 
 Per round and per compressible leaf, on ``[S, ...]`` tensors (Vogels et
 al., 2019):
@@ -43,8 +43,11 @@ through the wire (the payload dtype, or the codec; not each site's
 payload, as JAX's packed form) and every leaf's partial, the dense ones
 too, is summed over the group in one collective a sum. ``P``, ``q'`` and
 the aggregate are then the same on every rank; each site's ``e`` stays
-on the rank that owns the site. The robust modes run with every site on
-one device only.
+on the rank that owns the site. Over slices each sum takes the fused
+form, or the split form with every leaf's slice partial through the
+inter-slice codec (``dcn_wire_quant``): two inter-slice hops a round, P
+and then q', which depends on the orthonormalized P. The robust modes
+run with every site on one device only.
 
 Orientation: factors are taken in the JAX matrix layout. A leaf named in
 ``transposed`` (a port ``nn.Linear.weight`` ``[out, in]``, the transpose of
@@ -61,13 +64,13 @@ from ..parallel.collectives import (
     _through_wire,
     check_robust_agg,
     clip_site_gradients,
-    flat_psum,
     payload_dtype,
     per_site,
     resolve_dcn_codec,
     resolve_wire_codec,
     robust_reduce_tree,
     site_weight_scale,
+    tree_psum,
 )
 from .base import (
     Engine,
@@ -75,6 +78,7 @@ from .base import (
     mask_dead_site,
     refuse_on_mesh,
     refuse_secure_agg,
+    robust_gather_dcn_wire,
     robust_gather_wire,
 )
 from .lowrank import (
@@ -113,7 +117,8 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
     params dict)."""
     refuse_secure_agg(secure_agg)
     codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
-    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
+    dcn = resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
+    ddtype = None if dcn is None else dcn.dtype
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
@@ -169,7 +174,7 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
                 return parts
             parts = {k: _through_wire(p, group_wire) if k in wired else p
                      for k, p in parts.items()}
-            return dict(zip(parts, flat_psum(list(parts.values()), axis)))
+            return dict(zip(parts, tree_psum(list(parts.values()), axis, dcn)))
 
         # the robust modes' payloads are unweighted: the reducer weighs
         sc = 1.0 if gather_mode else scale[:, None, None]
@@ -220,4 +225,18 @@ def make_powersgd(dad_reduction_rank: int = 10, precision_bits="32", seed: int =
         return (out + [(lead + s, torch.float32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=codec.dtype)
+    def dcn_wire_shapes(grads, pack: int = 1, sites_per_slice: int = 1) -> list:
+        """JAX's inter-slice model: two hops a compressible leaf, P's slice
+        partial ``[m, r]`` and q''s ``[n, r]`` (at the inter-slice codec's
+        dtype, else the wire's; ``[sites_per_slice, ...]`` blocks in the
+        gather modes), each dense leaf's slice partial (the codec's dtype,
+        else f32)."""
+        groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
+        lead = (sites_per_slice,) if gather_mode else ()
+        out = [(lead + (d, r), ddtype or codec.dtype) for r, mns in groups for m, n in mns
+               for d in (m, n)]
+        return (out + [(lead + s, ddtype or torch.float32) for s in dense]
+                + robust_gather_dcn_wire(sites_per_slice, robust_agg))
+
+    return Engine("powerSGD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=codec.dtype,
+                  dcn_wire_shapes=dcn_wire_shapes, dcn_dtype=ddtype)

@@ -2,8 +2,8 @@
 factorizes every compressible gradient leaf to rank-r factors by power
 iteration and ships the factors; the aggregate is the weighted mean of the
 sites' rank-r reconstructions. The port of the JAX package's
-``engines/rankdad.py`` at one slice, with its wire codecs and its
-byzantine-robust modes.
+``engines/rankdad.py``, with its wire codecs and its byzantine-robust
+modes.
 
 Per round: a dead site's gradient and weight are zeroed; the 1-D leaves
 are a weighted f32 sum (``precision_bits`` does not touch them); the
@@ -36,8 +36,11 @@ so the factors are those of the one-device round member for member), one
 packed all-gather a rank class brings every site's factors to every rank
 (JAX's ``site_all_gather_packed``), each rank reconstructs the same
 aggregate over all ``S`` sites, and the dense leaves take one two-level
-sum. Ω stays with the rank that owns its site. The robust modes run with
-every site on one device only.
+sum. Ω stays with the rank that owns its site. Over slices the gather is
+hierarchical (the slice's block, then across slices, each site row
+through the inter-slice codec when ``dcn_wire_quant`` sets one) and the
+dense sum takes the fused or split form. The robust modes run with every
+site on one device only.
 
 Orientation: factors are taken in the JAX matrix layout. A leaf named in
 ``transposed`` is stored as the transpose of its JAX matrix (a port
@@ -67,6 +70,7 @@ from .base import (
     mask_dead_site,
     refuse_on_mesh,
     refuse_secure_agg,
+    robust_gather_dcn_wire,
     robust_gather_wire,
 )
 from .lowrank import (
@@ -91,7 +95,8 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
     of their JAX matrix (``weights.leaf_table(cfg).transposed``)."""
     refuse_secure_agg(secure_agg)
     codec = resolve_wire_codec(precision_bits, wire_quant, wire_stochastic)
-    resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
+    dcn = resolve_dcn_codec(precision_bits, wire_quant, dcn_wire_quant, wire_stochastic)
+    ddtype = None if dcn is None else dcn.dtype
     check_robust_agg(robust_agg, robust_trim_frac)
     gather_mode = robust_agg in ("trimmed_mean", "coordinate_median")
     pdtype = payload_dtype(precision_bits)
@@ -155,7 +160,7 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                 dense[name] = g
         # the 1-D leaves: the weighted f32 sum (over a group, one collective)
         out.update((k, v.to(grads[k].dtype))
-                   for k, v in weighted_tree_sum(dense, scale, axis).items())
+                   for k, v in weighted_tree_sum(dense, scale, axis, dcn_wire=dcn).items())
         order = sorted(classes.items())
         omegas = state["omega"] if dad_warm_start else {}
         results = subspace_iteration_grouped(
@@ -173,7 +178,7 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                 new_oms[name] = Q
                 # the robust modes ship the unweighted Q: the reducer weighs
                 parts += [wire(P), wire(Q if gather_mode else Q * scale[:, None, None])]
-            parts = site_all_gather_packed(parts, axis)
+            parts = site_all_gather_packed(parts, axis, dcn)
             for i, name in enumerate(names):
                 g = grads[name]
                 Pw, Qw = parts[2 * i].contiguous(), parts[2 * i + 1].contiguous()  # [S, m|n, r]
@@ -201,4 +206,19 @@ def make_rankdad(dad_reduction_rank: int = 10, dad_num_pow_iters: int = 5,
                 + [(((pack,) + s) if gather_mode else s, f32) for s in dense]
                 + robust_gather_wire(pack, robust_agg))
 
-    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=wdtype)
+    def dcn_wire_shapes(grads, pack: int = 1, sites_per_slice: int = 1) -> list:
+        """JAX's inter-slice model: a rank class's slice block
+        ``[sites_per_slice, Σ(m + n), r]`` (at the inter-slice codec's dtype,
+        else the wire's), each dense leaf's slice partial (at the codec's
+        dtype, else f32; a ``[sites_per_slice, ...]`` block in the gather
+        modes)."""
+        groups, dense = lowrank_rank_groups(jax_shapes(grads, transposed), dad_reduction_rank)
+        dense_dtype = ddtype or torch.float32
+        return ([((sites_per_slice, sum(m + n for m, n in mns), r), ddtype or wdtype)
+                 for r, mns in groups]
+                + [(((sites_per_slice,) + s) if gather_mode else s, dense_dtype)
+                   for s in dense]
+                + robust_gather_dcn_wire(sites_per_slice, robust_agg))
+
+    return Engine("rankDAD", init, aggregate, wire_shapes=wire_shapes, wire_dtype=wdtype,
+                  dcn_wire_shapes=dcn_wire_shapes, dcn_dtype=ddtype)

@@ -1,6 +1,7 @@
 """Cross-site reductions: the port of the JAX package's
-``parallel/collectives.py`` at one slice: the weighted mean, the wire
-codecs, the byzantine-robust reducers and the site axis over processes.
+``parallel/collectives.py``: the weighted mean, the wire codecs, the
+byzantine-robust reducers and the site axis over processes, with its
+slice tier.
 
 In JAX these are ``psum``s over a site mesh or ``vmap`` axis. In the port
 a site-batched value carries an explicit leading site axis. With every
@@ -12,6 +13,28 @@ is row ``j`` of rank ``d``) and a reduction is two-level, as JAX's
 :func:`two_level_psum`: a local sum over the rank's ``[K]``, then ONE
 collective over the group on one flat buffer (:func:`flat_psum`), not
 one a leaf. Gathers stack the ranks' blocks in the same global order.
+
+Slices (a :class:`PackedAxis` with ``slices > 1``, parallel/mesh.py
+``sliced_site_mesh``): the ranks lie slice-major, rank ``sl·P + p`` the
+``p``-th of slice ``sl``'s ``P``, and a reduction grows JAX's third tier.
+Tier 0 is the local sum over ``[K]``, tier 1 the intra-slice sum over the
+slice's ``P`` ranks, tier 2 the inter-slice hop over the ranks of the same
+``p`` across slices (:func:`three_level_psum`):
+
+- ``dcn_wire=None``, the FUSED form: tiers 1 and 2 are ONE all-reduce
+  over the whole group, the collective of the unsliced world, so its
+  values are bit for bit those of the same world without slices. The
+  bookkeeping sums (totals, losses, sync-BN) always take this form;
+- a :class:`WireCodec`, the SPLIT form: the intra-slice all-reduce
+  completes the slice's partial, the partial goes through the codec
+  (one scale a payload), and the inter-slice all-reduce ships it.
+
+Gathers under slices are hierarchical: the intra-slice gather assembles
+the slice's block, which crosses the inter-slice hop (through the codec,
+one scale a site row, when one is set) in the same slice-major site
+order. :data:`COLLECTIVES` counts the inter-slice hops apart
+(``dcn_all_reduce``, ``dcn_all_gather`` and ``dcn_elements``, the elements
+a rank sends across them).
 
 ``precision_bits`` payload casts: ``"16"`` is bfloat16, ``"16-ieee"`` the
 reference's IEEE fp16, ``"32"`` f32. The weighted mean accumulates in f32
@@ -68,15 +91,17 @@ def payload_uncast(tree: dict, like: dict) -> dict:
     return {k: g.to(like[k].dtype) for k, g in tree.items()}
 
 
-def site_weighted_mean(tree: dict, weight, axes=None, wire_dtype=None, total=None) -> dict:
+def site_weighted_mean(tree: dict, weight, axes=None, wire_dtype=None, total=None,
+                       dcn_wire=None) -> dict:
     """Example-count-weighted mean across sites: each site's ``[S, ...]``
     leaf contributes in proportion to ``weight [S]``, so the aggregate is
     the pooled-data gradient. Accumulates in f32 and casts back to each
     leaf's dtype. Over a group (``axes``) the rank's ``[K]`` partials go
-    through ``wire_dtype`` and one collective (:func:`weighted_tree_sum`);
-    ``total`` as :func:`site_weight_scale`."""
+    through ``wire_dtype`` and one collective (:func:`weighted_tree_sum`;
+    over slices the split form when ``dcn_wire`` is a codec); ``total`` as
+    :func:`site_weight_scale` (the total is a bookkeeping sum: fused)."""
     scale = site_weight_scale(weight, axes, total)
-    agg = weighted_tree_sum(tree, scale, axes, wire_dtype)
+    agg = weighted_tree_sum(tree, scale, axes, wire_dtype, dcn_wire)
     return {k: agg[k].to(g.dtype) for k, g in tree.items()}
 
 
@@ -324,15 +349,15 @@ def resolve_wire_codec(precision_bits="32", wire_quant: str = "none",
 
 
 def resolve_dcn_codec(precision_bits="32", wire_quant: str = "none", dcn_wire_quant: str = "",
-                      stochastic: bool = False, slices: int = 1):
-    """The inter-slice codec: ``None`` at one slice, where there is no
-    slice tier to codec. More slices, or a ``dcn_wire_quant`` of its own,
-    are ROADMAP A11 (b) and raise."""
-    if slices != 1 or dcn_wire_quant not in ("", "none"):
-        raise NotImplementedError(
-            f"the inter-slice wire (slices={slices}, dcn_wire_quant={dcn_wire_quant!r}) is not "
-            "ported: ROADMAP A11 (b)")
-    return None
+                      stochastic: bool = False):
+    """``TrainConfig.dcn_wire_quant`` to the inter-slice codec, JAX's:
+    ``""`` (the default) follows ``wire_quant``, ``"none"`` is ``None``,
+    the fused form (no rounding at the slice boundary). An axis of one
+    slice never consults it: there is no slice tier to codec."""
+    eff = dcn_wire_quant or wire_quant
+    if eff == "none":
+        return None
+    return resolve_wire_codec(precision_bits, eff, stochastic)
 
 
 def codec_payload(tree: dict, codec: WireCodec, precision_bits="32") -> dict:
@@ -349,8 +374,12 @@ def codec_payload(tree: dict, codec: WireCodec, precision_bits="32") -> dict:
 # ---------------------------------------------------------------------------
 
 #: what the collectives of this process did since the counters were last
-#: set to 0: calls of each kind and the bytes they carried
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0}
+#: set to 0: the calls of each kind over the whole group or one slice and
+#: the bytes they carried (a gather counts every rank's block); the
+#: inter-slice hops of the split form and of the hierarchical gathers,
+#: and the elements this rank sent across them
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "bytes": 0, "dcn_all_reduce": 0,
+               "dcn_all_gather": 0, "dcn_elements": 0}
 
 
 def reset_collective_counts() -> None:
@@ -367,50 +396,122 @@ class PackedAxis:
     tensors stay on their device whatever the backend: gloo takes CUDA
     tensors for every collective used here (``all_reduce``, ``all_gather``,
     ``broadcast``; ``scripts/torch_gloo_cuda_probe.py`` checks it on the
-    card)."""
+    card).
+
+    ``slices > 1`` (JAX's ``slice_name``) lays ``slices`` slices of ``world
+    / slices`` ranks over the group, slice-major: ``slice_group`` is this
+    rank's slice (None for one rank a slice, where the intra-slice tier is
+    the identity) and ``cross_group`` the ranks of its place in every
+    slice, the inter-slice hop (module docstring). They take the place of
+    JAX's ``slice_name``; a FUSED reduction spans ``group`` (JAX's
+    ``reduce_axes()``, ``(slice, site)``)."""
 
     group: object | None
     pack: int
     world: int = 1
     rank: int = 0
+    slices: int = 1
+    slice_group: object | None = None
+    cross_group: object | None = None
+
+    @property
+    def per_slice(self) -> int:
+        """P, the ranks of one slice."""
+        return self.world // self.slices
 
 
-def _all_reduce(buf, axes: PackedAxis):
-    """The sum of ``buf`` over the group, as a new tensor."""
+def _all_reduce(buf, axes: PackedAxis, group=None, dcn: bool = False):
+    """The sum of ``buf`` over ``group`` (default: the whole group), as a
+    new tensor; ``dcn`` counts it as an inter-slice hop."""
     import torch.distributed as dist
 
-    COLLECTIVES["all_reduce"] += 1
-    COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
-    if axes.group is None:
+    if dcn:
+        COLLECTIVES["dcn_all_reduce"] += 1
+        COLLECTIVES["dcn_elements"] += buf.numel()
+    else:
+        COLLECTIVES["all_reduce"] += 1
+        COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
+    group = axes.group if group is None else group
+    if group is None:
         return buf.clone()
     t = buf.detach().contiguous().clone()
-    dist.all_reduce(t, group=axes.group)
+    dist.all_reduce(t, group=group)
     return t
 
 
-def _all_gather(x, axes: PackedAxis):
-    """Every rank's ``x [K, ...]`` stacked in rank order: ``[W·K, ...]``."""
+def _all_gather(x, axes: PackedAxis, group=None, size: int | None = None, dcn: bool = False):
+    """Every rank's ``x [n, ...]`` of ``group`` (default: the whole group,
+    ``size`` ranks) stacked in rank order: ``[size·n, ...]``."""
     import torch.distributed as dist
 
-    COLLECTIVES["all_gather"] += 1
-    COLLECTIVES["bytes"] += x.numel() * x.element_size() * axes.world
-    if axes.group is None:
+    size = axes.world if size is None else size
+    if dcn:
+        COLLECTIVES["dcn_all_gather"] += 1
+        COLLECTIVES["dcn_elements"] += x.numel()
+    else:
+        COLLECTIVES["all_gather"] += 1
+        COLLECTIVES["bytes"] += x.numel() * x.element_size() * size
+    group = axes.group if group is None else group
+    if group is None:
         return x.clone()
     t = x.detach().contiguous()
-    parts = [torch.empty_like(t) for _ in range(axes.world)]
-    dist.all_gather(parts, t, group=axes.group)
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
     return torch.cat(parts, 0)
+
+
+def _flat(parts: list):
+    return torch.cat([p.reshape(-1).float() for p in parts])
+
+
+def _unflat(tot, parts: list) -> list:
+    return [t.reshape(p.shape) for t, p in zip(tot.split([p.numel() for p in parts]), parts)]
 
 
 def flat_psum(parts: list, axes: PackedAxis | None) -> list:
     """Several already-reduced local partials summed over the group in ONE
     collective: raveled into one f32 buffer, reduced, split back to each
-    part's shape (f32). ``axes=None`` returns them as they are."""
+    part's shape (f32). ``axes=None`` returns them as they are. Over
+    slices this is the FUSED form: one all-reduce over every rank."""
     if axes is None or not parts:
         return list(parts)
-    flat = torch.cat([p.reshape(-1).float() for p in parts])
-    tot = _all_reduce(flat, axes)
-    return [t.reshape(p.shape) for t, p in zip(tot.split([p.numel() for p in parts]), parts)]
+    return _unflat(_all_reduce(_flat(parts), axes), parts)
+
+
+def slice_psum(parts: list, axes: PackedAxis) -> list:
+    """Tier 1 of the split form: the partials summed over this rank's
+    slice in one collective (f32; as they are for one rank a slice)."""
+    if axes.slice_group is None:
+        return [p.float() for p in parts]
+    return _unflat(_all_reduce(_flat(parts), axes, axes.slice_group), parts)
+
+
+def dcn_psum(parts: list, axes: PackedAxis, dcn_wire: WireCodec) -> list:
+    """Tier 2 of the split form (JAX's ``_dcn_hop``): each completed
+    per-slice partial through the codec (one scale a partial), then ONE
+    inter-slice all-reduce for all of them."""
+    comp = [dcn_wire.compress(p) for p in parts]
+    return _unflat(_all_reduce(_flat(comp), axes, axes.cross_group, dcn=True), comp)
+
+
+def tree_psum(parts: list, axes: PackedAxis | None, dcn_wire=None, slice_live=None) -> list:
+    """Rank partials (already through the intra-slice wire) summed over
+    every site: one collective at one slice or in the fused form, tier 1
+    then tier 2 in the split form (module docstring). ``slice_live``, this
+    rank's slice's 0/1 gate, zeroes the partials before any cross-slice
+    tier (after the intra-slice sum in the split form, as JAX's
+    :func:`weighted_tree_sum`)."""
+    if axes is None:
+        return list(parts)
+    sliced = axes.slices > 1
+    if not sliced or dcn_wire is None:
+        if sliced and slice_live is not None:
+            parts = [p * slice_live for p in parts]
+        return flat_psum(parts, axes)
+    inner = slice_psum(parts, axes)
+    if slice_live is not None:
+        inner = [p * slice_live for p in inner]
+    return dcn_psum(inner, axes, dcn_wire)
 
 
 def psum(x, axes: PackedAxis | None):
@@ -435,38 +536,75 @@ def _pack_partial(x, wire_dtype=None):
     return _through_wire(x.sum(0), wire_dtype)
 
 
-def two_level_psum(x, axes: PackedAxis, wire_dtype=None):
+def three_level_psum(x, axes: PackedAxis | None, wire_dtype=None, dcn_wire=None,
+                     slice_live=None):
+    """JAX's hierarchical reduction of one ``[K, ...]`` payload: tier 0 the
+    local sum (the partial through ``wire_dtype``), then the fused or the
+    split form over the slices (module docstring; at one slice the one
+    collective of :func:`two_level_psum`). ``slice_live`` is this rank's
+    slice's 0/1 gate (a 0-dim tensor or a float) on a sliced axis, as
+    :func:`tree_psum` applies it: ``×1`` is exact and ``×0`` leaves the
+    slice out."""
+    part = _pack_partial(x, wire_dtype)
+    return part if axes is None else tree_psum([part], axes, dcn_wire, slice_live)[0]
+
+
+def two_level_psum(x, axes: PackedAxis, wire_dtype=None, dcn_wire=None):
     """The packed reduction of one ``[K, ...]`` payload: the local sum,
-    the partial through ``wire_dtype``, one collective."""
-    return psum(_pack_partial(x, wire_dtype), axes)
+    the partial through ``wire_dtype``, one collective; on a sliced axis
+    :func:`three_level_psum`'s tiers."""
+    return three_level_psum(x, axes, wire_dtype, dcn_wire)
 
 
-def weighted_tree_sum(tree: dict, scale, axes: PackedAxis | None, wire_dtype=None) -> dict:
+def weighted_site_sum(g, scale, axes: PackedAxis | None, wire_dtype=None, dcn_wire=None,
+                      slice_live=None):
+    """One leaf's ``Σ_s scale_s · g_s`` in f32: the site-batched ``g [K,
+    ...]`` scaled by ``scale [K]``, through :func:`three_level_psum`."""
+    gf = g.float()
+    return three_level_psum(gf * per_site(scale, gf), axes, wire_dtype, dcn_wire, slice_live)
+
+
+def weighted_tree_sum(tree: dict, scale, axes: PackedAxis | None, wire_dtype=None,
+                      dcn_wire=None, slice_live=None) -> dict:
     """``Σ_s scale_s · g_s`` of every leaf of a site-batched dict in f32:
     the sum over ``[S]`` for ``axes=None``; over a group each leaf's local
     weighted partial (through ``wire_dtype``) and ONE collective for the
-    whole tree."""
+    whole tree; in the split form over slices one intra-slice and ONE
+    inter-slice collective for the whole tree, each leaf's slice partial
+    through ``dcn_wire`` on its own scale (:func:`tree_psum`)."""
     parts = {k: (g.float() * per_site(scale, g)).sum(0) for k, g in tree.items()}
     if axes is None:
         return parts
     parts = {k: _through_wire(p, wire_dtype) for k, p in parts.items()}
-    return dict(zip(parts, flat_psum(list(parts.values()), axes)))
+    return dict(zip(parts, tree_psum(list(parts.values()), axes, dcn_wire, slice_live)))
 
 
-def site_all_gather(x, axes: PackedAxis | None):
+def site_all_gather(x, axes: PackedAxis | None, dcn_wire=None):
     """Every site's ``[K, ...]`` block to every rank: ``[S, ...]`` in global
-    site order (as it is for ``axes=None``)."""
-    return x if axes is None else _all_gather(x, axes)
+    site order (as it is for ``axes=None``). On a sliced axis the gather is
+    hierarchical: the slice's block over its ranks, then (through
+    ``dcn_wire``, one scale a site row, when set) over the slices."""
+    if axes is None:
+        return x
+    if axes.slices == 1:
+        return _all_gather(x, axes)
+    block = (x.clone() if axes.slice_group is None
+             else _all_gather(x, axes, axes.slice_group, axes.per_slice))
+    if dcn_wire is not None:
+        block = dcn_wire.compress(block, batched=True)
+    return _all_gather(block, axes, axes.cross_group, axes.slices, dcn=True)
 
 
-def site_all_gather_packed(parts: list, axes: PackedAxis | None) -> list:
+def site_all_gather_packed(parts: list, axes: PackedAxis | None, dcn_wire=None) -> list:
     """ONE gather for a list of ``[K, k_i, ...]`` parts of one dtype and
     matching trailing dims: concatenated on axis 1, gathered, split back
-    into ``[S, k_i, ...]`` views, JAX's packed factor exchange."""
+    into ``[S, k_i, ...]`` views, JAX's packed factor exchange (two
+    hierarchical hops over slices, :func:`site_all_gather`)."""
     if axes is None:
         return list(parts)
     sizes = [p.shape[1] for p in parts]
-    gathered = _all_gather(torch.cat(parts, 1) if len(parts) > 1 else parts[0], axes)
+    gathered = site_all_gather(torch.cat(parts, 1) if len(parts) > 1 else parts[0], axes,
+                               dcn_wire)
     return list(gathered.split(sizes, dim=1))
 
 

@@ -1,5 +1,5 @@
 """The multi-process runtime: the port of the JAX package's
-``parallel/distributed.py`` at one slice, over ``torch.distributed``.
+``parallel/distributed.py``, over ``torch.distributed``.
 
 :func:`distributed_init` joins a process group of ``num_processes`` ranks
 at a coordinator address (``host:port``; rank 0 hosts the store).
@@ -12,8 +12,10 @@ card); the code never tries one backend and then uses another.
 :func:`multihost_site_mesh` lays the site axis over the group's ranks
 (parallel/mesh.py ``SiteMesh``); the placement helpers keep each rank's
 own ``[K]`` block of a per-site array on its device, and
-:func:`fetch_site_outputs` brings per-site outputs back to every rank. The
-slice tier (:func:`multihost_sliced_site_mesh`) is ROADMAP A11 (b).
+:func:`fetch_site_outputs` brings per-site outputs back to every rank.
+:func:`multihost_sliced_site_mesh` lays slices over the group's ranks
+(one rank a slice by default, JAX's one process a slice); the slice
+liveness mask rides replicated (:func:`put_epoch_plan`).
 """
 
 from __future__ import annotations
@@ -115,10 +117,13 @@ def distributed_shutdown() -> None:
     :func:`distributed_init` joins again; a no-op when nothing is up. The
     flag clears even when the teardown raises."""
     global _initialized
+    from .mesh import _SLICE_GROUPS
+
     try:
         _destroy()
     finally:
         _initialized = False
+        _SLICE_GROUPS.clear()
 
 
 def multihost_site_mesh(sites_per_process: int | None = None, model_axis_size: int = 1,
@@ -139,9 +144,47 @@ def multihost_site_mesh(sites_per_process: int | None = None, model_axis_size: i
     return SiteMesh(None, 1, 0, _mesh_device(device, None, 0), None, k)
 
 
-def multihost_sliced_site_mesh(*args, **kwargs):
-    """The slice tier over processes: ROADMAP A11 (b)."""
-    raise NotImplementedError("multihost_sliced_site_mesh is not ported: ROADMAP A11 (b)")
+def multihost_sliced_site_mesh(num_slices: int | None = None, sites_per_slice: int | None = None,
+                               sites_per_device: int = 1, model_axis_size: int = 1,
+                               devices=None, device=None) -> SiteMesh:
+    """JAX's real-host ``(slice, site, model)`` mesh: the slice axis tiles
+    the group's processes (parallel/mesh.py ``sliced_site_mesh``, one
+    device a rank). ``num_slices`` defaults to the process count and must
+    divide it; ``sites_per_slice`` to ``sites_per_device`` times the
+    ranks of a slice; a slice's site-axis members must divide over its
+    ranks. One process collapses to ``sliced_site_mesh`` (which needs a
+    group for more than one slice), as JAX's does."""
+    import torch.distributed as dist
+
+    from .mesh import sliced_site_mesh
+
+    _refuse_model_axis(model_axis_size)
+    n_proc = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    if num_slices is None:
+        num_slices = n_proc if n_proc > 1 else 1
+    if sites_per_slice is None:
+        sites_per_slice = sites_per_device * max(n_proc // max(num_slices, 1), 1)
+    if n_proc == 1:
+        return sliced_site_mesh(num_slices, sites_per_slice, sites_per_device, devices,
+                                model_axis_size, device)
+    if n_proc % num_slices:
+        raise ValueError(f"num_slices={num_slices} must divide the process count ({n_proc}) — "
+                         "slices are process granules over DCN")
+    if sites_per_slice % sites_per_device:
+        raise ValueError(f"sites_per_device={sites_per_device} must divide the per-slice site "
+                         f"count ({sites_per_slice})")
+    procs_per_slice = n_proc // num_slices
+    site_members = sites_per_slice // sites_per_device
+    if site_members % procs_per_slice:
+        raise ValueError(f"{site_members} site-axis members per slice must divide over "
+                         f"{procs_per_slice} processes per slice")
+    per_proc_sites = site_members // procs_per_slice
+    if per_proc_sites != 1:
+        # a rank holds one device: its sites pack on it (K = sites_per_device
+        # · per_proc_sites), the same slice-major site order
+        sites_per_device *= per_proc_sites
+    return sliced_site_mesh(num_slices, sites_per_slice, sites_per_device, devices,
+                            model_axis_size, device)
 
 
 def spans_processes(mesh) -> bool:
@@ -181,11 +224,14 @@ def put_replicated(mesh, arr, dtype=None):
 
 def put_epoch_plan(mesh, positions, live=None, poison=None, attack=None, slice_live=None):
     """One epoch's ``[S, steps, B]`` index plan and its ``[S, rounds]``
-    masks, each as this rank's block; ``slice_live`` is ROADMAP A11 (b)."""
-    if slice_live is not None:
-        raise NotImplementedError("a slice-liveness mask is not ported: ROADMAP A11 (b)")
+    masks, each as this rank's block, and the ``[num_slices, rounds]``
+    slice-liveness mask whole (replicated: every rank reads its own
+    slice's row and counts the live slices)."""
     return tuple(None if a is None else put_site_batch(mesh, a)
-                 for a in (positions, live, poison, attack)) + (None,)
+                 for a in (positions, live, poison, attack)) + (
+        None if slice_live is None else (
+            put_site_batch(None, slice_live) if mesh is None
+            else put_replicated(mesh, slice_live)),)
 
 
 def fetch_site_outputs(tree, mesh):

@@ -1,5 +1,5 @@
 """The site mesh over processes: the port of the JAX package's
-``parallel/mesh.py`` at one slice.
+``parallel/mesh.py``.
 
 JAX lays its ``site`` axis over the devices of a ``jax.sharding.Mesh``.
 The port lays it over the ranks of a ``torch.distributed`` process group:
@@ -12,10 +12,18 @@ as stride-0 views, the LSTM kernels folding sites into rows, as with
 ``mesh=None``); the engines reduce over the group in two levels
 (parallel/collectives.py ``PackedAxis``).
 
+Slices (:func:`sliced_site_mesh`, JAX's ``(slice, site, model)`` mesh):
+the slice axis lies over the group's ranks slice-major. With ``n`` slices
+of ``P`` ranks, rank ``sl·P + p`` is the ``p``-th rank of slice ``sl`` and
+holds virtual sites ``(sl·P + p)·K + j``, JAX's order. The mesh carries
+three groups: the whole group (the fused reductions), this rank's slice
+(the intra-slice tier) and the ranks of its place ``p`` in every slice
+(the inter-slice hop); every rank creates every sub-group, in one order.
+One process has no devices to lay slices on: a sliced mesh needs a group.
+
 Backends: "nccl" needs one card a rank; "gloo" takes CPU and CUDA
-tensors, so several ranks can share one card. The slice axis
-(``sliced_site_mesh`` with more than one slice) is ROADMAP A11 (b), the
-model axis (``model_axis_size > 1``) A11 (c): both raise.
+tensors, so several ranks can share one card. The model axis
+(``model_axis_size > 1``) is ROADMAP A11 (c) and raises.
 """
 
 from __future__ import annotations
@@ -45,19 +53,38 @@ class SiteMesh:
     device: torch.device
     backend: str | None = None
     pack: int | None = None
+    slices: int = 1
+    slice_group: object | None = None
+    cross_group: object | None = None
+
+    @property
+    def per_slice(self) -> int:
+        """P, the ranks of one slice (the site axis's width)."""
+        return self.world // self.slices
+
+    @property
+    def slice_id(self) -> int:
+        """The slice this rank belongs to."""
+        return self.rank // self.per_slice
 
     @property
     def shape(self) -> dict:
-        """JAX's ``dict(mesh.shape)`` of a one-slice mesh."""
+        """JAX's ``dict(mesh.shape)``: ``{"slice": n, "site": P, "model":
+        1}`` over slices, ``{"site": W, "model": 1}`` at one slice."""
+        if self.slices > 1:
+            return {SLICE_AXIS: self.slices, SITE_AXIS: self.per_slice, MODEL_AXIS: 1}
         return {SITE_AXIS: self.world, MODEL_AXIS: 1}
 
     @property
     def axis_names(self) -> tuple:
+        if self.slices > 1:
+            return (SLICE_AXIS, SITE_AXIS, MODEL_AXIS)
         return (SITE_AXIS, MODEL_AXIS)
 
     def axis(self, num_sites: int) -> PackedAxis:
         """The packed site axis of ``num_sites`` global sites on this mesh."""
-        return PackedAxis(self.group, pack_factor(self, num_sites), self.world, self.rank)
+        return PackedAxis(self.group, pack_factor(self, num_sites), self.world, self.rank,
+                          self.slices, self.slice_group, self.cross_group)
 
     def block(self, num_sites: int) -> slice:
         """This rank's rows of a ``[num_sites, ...]`` per-site array."""
@@ -143,25 +170,85 @@ def make_site_mesh(num_sites: int | None = None, devices=None, model_axis_size: 
     return packed_site_mesh(num_sites, 1, devices, model_axis_size, device)
 
 
+#: the sub-groups of a sliced world, created once a process group:
+#: ``(world group, slices) -> (slice groups, cross groups)``; cleared when
+#: the group ends (parallel/distributed.py ``distributed_shutdown``)
+_SLICE_GROUPS: dict = {}
+
+
+def slice_groups(num_slices: int):
+    """``(slice_group, cross_group)`` of this rank over the default group
+    laid as ``num_slices`` slices: every rank creates every slice's group
+    (None for one rank a slice: that tier is the identity) and every
+    place's cross group, in one order, once a process group."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    per = world // num_slices
+    key = (id(dist.group.WORLD), num_slices)
+    if key not in _SLICE_GROUPS:
+        inner = ([dist.new_group([sl * per + p for p in range(per)]) for sl in range(num_slices)]
+                 if per > 1 else [None] * num_slices)
+        cross = [dist.new_group([sl * per + p for sl in range(num_slices)]) for p in range(per)]
+        _SLICE_GROUPS[key] = (inner, cross)
+    inner, cross = _SLICE_GROUPS[key]
+    return inner[rank // per], cross[rank % per]
+
+
 def sliced_site_mesh(num_slices: int, sites_per_slice: int, sites_per_device: int = 1,
                      devices=None, model_axis_size: int = 1, device=None) -> SiteMesh:
-    """One slice collapses to :func:`packed_site_mesh`, as in JAX; more are
-    ROADMAP A11 (b)."""
+    """JAX's three-tier ``(slice, site, model)`` mesh: ``num_slices``
+    slices, each of ``sites_per_slice`` virtual sites packed
+    ``sites_per_device`` a rank, over the default process group
+    (slice-major, module docstring). One slice collapses to
+    :func:`packed_site_mesh`, as in JAX. JAX's checks and messages; the
+    group must hold exactly ``num_slices × sites_per_slice /
+    sites_per_device`` ranks, and one process with no group raises naming
+    the group it needs (there are no virtual devices to lay slices on)."""
     if num_slices < 1:
         raise ValueError(f"num_slices must be >= 1, got {num_slices}")
-    if num_slices != 1:
-        raise NotImplementedError(f"sliced_site_mesh(num_slices={num_slices}) is not ported: "
-                                  "ROADMAP A11 (b)")
-    return packed_site_mesh(sites_per_slice, sites_per_device, devices, model_axis_size, device)
+    if sites_per_device < 1:
+        raise ValueError(f"sites_per_device must be >= 1, got {sites_per_device}")
+    if sites_per_slice % sites_per_device:
+        raise ValueError(f"sites_per_device={sites_per_device} must divide the per-slice site "
+                         f"count ({sites_per_slice})")
+    if num_slices == 1:
+        return packed_site_mesh(sites_per_slice, sites_per_device, devices, model_axis_size,
+                                device)
+    _refuse_model_axis(model_axis_size)
+    per_slice = sites_per_slice // sites_per_device  # site-axis members a slice
+    need = num_slices * per_slice * model_axis_size
+    group, world, rank, backend = _group_view()
+    if group is None:
+        raise ValueError(f"sliced_site_mesh({num_slices}, {sites_per_slice}, {sites_per_device}) "
+                         f"needs a process group of {need} ranks (parallel/distributed.py "
+                         "distributed_init): one process has no devices to lay slices on")
+    if need > world:
+        raise ValueError(f"need {need} devices for {num_slices} slices × {per_slice} site-axis "
+                         f"members × model={model_axis_size}, have {world}")
+    if need < world:
+        raise ValueError(f"{need} mesh sites on a group of {world} ranks leaves ranks without "
+                         "sites: every rank of the group takes part in each round's collectives")
+    inner, cross = slice_groups(num_slices)
+    return SiteMesh(group, world, rank, _mesh_device(device, backend, rank), backend,
+                    sites_per_device, num_slices, inner, cross)
 
 
 def slice_count(mesh) -> int:
-    """Slices on ``mesh``: always 1 (more are ROADMAP A11 (b))."""
-    return 1
+    """Slices on ``mesh`` (1 for a one-slice mesh and ``mesh=None``)."""
+    return 1 if mesh is None else mesh.slices
 
 
-def site_axis_of(mesh) -> str:
-    """The axis a per-site array's leading dim lies on: ``site``."""
+def site_axis_of(mesh):
+    """The axis a per-site array's leading dim lies on, JAX's: ``site`` at
+    one slice; over slices the ``(slice, site)`` pair with width-1 tiers
+    dropped (one of them alone as its name)."""
+    if mesh is not None and mesh.slices > 1:
+        shape = mesh.shape
+        tiers = tuple(ax for ax in (SLICE_AXIS, SITE_AXIS) if shape[ax] > 1)
+        if len(tiers) == 1:
+            return tiers[0]
+        return tiers or None
     return SITE_AXIS
 
 

@@ -94,8 +94,7 @@ from ..core.config import AggEngine, NNComputation, TrainConfig
 # that asks for nothing the port lacks, or None when any value is refused;
 # the ROADMAP item that ports it)
 _REFUSED = {
-    "model_axis_size": (None, "A11 (c)"), "slices": (None, "A11 (b)"),
-    "min_slices": (None, "A11 (b)"), "dcn_wire_quant": (None, "A11 (b)"),
+    "model_axis_size": (None, "A11 (c)"),
 }
 
 
@@ -261,11 +260,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wire-quant", default=None, choices=["none", "bf16", "int8", "fp8"],
                    help="the engines' wire codec (TrainConfig.wire_quant): bf16, or a "
                         "one-byte int8 / fp8 grid with a scale a payload")
-    for flag, kw in (
-            ("--model-axis-size", dict(type=int)), ("--slices", dict(type=int)),
-            ("--min-slices", dict(type=int)),
-            ("--dcn-wire-quant", dict(choices=["none", "bf16", "int8", "fp8"]))):
-        p.add_argument(flag, help=argparse.SUPPRESS, **({"default": None} | kw))
+    p.add_argument("--slices", type=int, default=None,
+                   help="lay the site axis over this many slices of the process group's ranks "
+                        "(TrainConfig.num_slices; needs --coordinator, --num-processes and "
+                        "--process-id, a multiple of the slices)")
+    p.add_argument("--dcn-wire-quant", default=None, choices=["none", "bf16", "int8", "fp8"],
+                   help="the inter-slice wire codec (TrainConfig.dcn_wire_quant; default: "
+                        "follow --wire-quant, 'none' the fused exact form)")
+    p.add_argument("--min-slices", type=int, default=None,
+                   help="the slice quorum (TrainConfig.min_slices): a round with fewer live "
+                        "slices holds; needs --slices > 1 and a --faults plan with slice "
+                        "windows")
+    p.add_argument("--model-axis-size", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -316,6 +322,8 @@ def main(argv: list[str] | None = None) -> int:
                      ("compile_cache_dir", args.compile_cache),
                      ("wire_quant", args.wire_quant),
                      ("sites_per_device", args.sites_per_device),
+                     ("num_slices", args.slices), ("dcn_wire_quant", args.dcn_wire_quant),
+                     ("min_slices", args.min_slices),
                      ("personalize", None if args.personalize is None
                       else tuple(p for p in args.personalize.split(",") if p))):
         if val is not None:

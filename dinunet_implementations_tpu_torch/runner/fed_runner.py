@@ -86,25 +86,34 @@ def _check_mesh(mesh) -> None:
 
 def auto_site_mesh(cfg: TrainConfig, num_sites: int, device=None):
     """The ``mesh="auto"`` topology for ``num_sites`` virtual sites, JAX's
-    ``auto_site_mesh`` at one slice: the site mesh over the process group
-    when a runtime is up (parallel/distributed.py ``distributed_init``),
-    else ``None`` (every site on one device). A rank holds one device, so
-    a group of W ranks packs ``K = num_sites / W`` sites a rank;
-    ``cfg.sites_per_device`` other than 1 must be that K. More slices are
-    ROADMAP A11 (b), a model axis A11 (c)."""
+    ``auto_site_mesh``: the site mesh over the process group when a
+    runtime is up (parallel/distributed.py ``distributed_init``), else
+    ``None`` (every site on one device). A rank holds one device, so a
+    group of W ranks packs ``K = num_sites / W`` sites a rank;
+    ``cfg.sites_per_device`` other than 1 must be that K.
+    ``cfg.num_slices > 1`` lays the slice axis over the group's ranks
+    (``multihost_sliced_site_mesh``, slice-major); one process has no
+    devices to lay slices on and raises naming the group it needs. A model
+    axis is ROADMAP A11 (c)."""
     import torch.distributed as dist
 
     k = max(cfg.sites_per_device, 1)
+    n_slices = max(cfg.num_slices, 1)
     if num_sites % k:
         raise ValueError(f"sites_per_device={k} must divide the site count ({num_sites})")
-    if cfg.num_slices != 1:
-        raise NotImplementedError(f"num_slices={cfg.num_slices} is not ported: ROADMAP A11 (b)")
+    if n_slices > 1 and num_sites % (k * n_slices):
+        raise ValueError(f"num_slices={n_slices} × sites_per_device={k} must divide the site "
+                         f"count ({num_sites})")
     if cfg.model_axis_size != 1:
         raise NotImplementedError(f"model_axis_size={cfg.model_axis_size} is not ported: "
                                   "ROADMAP A11 (c)")
     if not (dist.is_available() and dist.is_initialized()):
+        if n_slices > 1:
+            raise ValueError(f"num_slices={n_slices} needs a process group of a multiple of "
+                             f"{n_slices} ranks (parallel/distributed.py distributed_init): one "
+                             "process has no devices to lay slices on")
         return None
-    from ..parallel.distributed import multihost_site_mesh
+    from ..parallel.distributed import multihost_site_mesh, multihost_sliced_site_mesh
 
     world = dist.get_world_size()
     if num_sites % world:
@@ -113,6 +122,9 @@ def auto_site_mesh(cfg: TrainConfig, num_sites: int, device=None):
     if k != 1 and k != per_rank:
         raise ValueError(f"sites_per_device={k} on {world} processes of one device each: "
                          f"{num_sites} sites pack {per_rank} a rank")
+    if n_slices > 1:
+        return multihost_sliced_site_mesh(num_slices=n_slices,
+                                          sites_per_slice=num_sites // n_slices, device=device)
     return multihost_site_mesh(sites_per_process=per_rank, device=device)
 
 
@@ -173,6 +185,13 @@ class FedRunner:
         self.mesh = mesh
         self.bus = bus
         self.device = resolve_device(device if mesh is None else mesh.device)
+
+    @property
+    def num_slices(self) -> int:
+        """The slices of the fit's mesh (1 without one)."""
+        from ..parallel.mesh import slice_count
+
+        return slice_count(self.mesh)
 
     def run(self, folds=None, verbose: bool = True, resume: bool = False) -> list[dict]:
         """Fit every fold (or those listed in ``folds``); ``resume=True``
@@ -304,7 +323,8 @@ class FedDaemon:
     trainer's spans, an epoch row an epoch, the membership events and a
     summary row go to a ``FitTelemetry`` under ``<telemetry_dir or
     out_dir/telemetry>/serve``, its manifest tagged with ``sink_tags``. A
-    mesh, or ``"auto"`` while a process group is up, is ROADMAP A11 (b). The
+    mesh, or ``"auto"`` while a process group is up, is the rest of ROADMAP
+    A11 (b), so the daemon runs one slice (``num_slices`` 1). The
     fleet scheduler (runner/scheduler.py)
     drives a tenant's daemon through :meth:`set_slice_grant`,
     :meth:`trainable` and :meth:`reload_checkpoint`."""

@@ -19,7 +19,8 @@ see:
   (:func:`payload_bytes_of`: under a ``wire_quant`` codec at the codec's
   dtype, as JAX's), ``dcn_bytes`` the inter-slice hop's (0.0 at one
   slice), ``rounds`` the rounds counted and ``held_rounds`` the rounds a
-  slice quorum held (0: the port runs no slice quorum, ROADMAP A11 (b)).
+  slice quorum held (0: round telemetry over a process group, where slices
+  run, is ROADMAP A20).
 
 Every leaf is a ``[num_sites]`` tensor on the epoch's device, carried in
 ``TrainState.telemetry`` and checkpointed in JAX's layout. The values stay
@@ -100,12 +101,19 @@ def payload_bytes_of(engine, grads_template: dict, pack: int = 1) -> float:
 
 def dcn_bytes_of(engine, grads_template: dict, pack: int = 1, sites_per_slice: int = 1,
                  slices: int = 1) -> float:
-    """The modeled inter-slice (DCN) payload a round for one slice: 0.0 at
-    one slice, JAX's value (there is no inter-slice hop). More slices are
-    ROADMAP A11 (b)."""
+    """The modeled inter-slice (DCN) payload a round for one slice, JAX's:
+    0.0 at one slice (there is no inter-slice hop); else the engine's own
+    model (``Engine.dcn_bytes``), or every leaf's slice partial whole at
+    the engine's inter-slice dtype, else its wire dtype, else f32. A
+    Python float."""
     if slices <= 1:
         return 0.0
-    raise NotImplementedError(f"dcn_bytes_of(slices={slices}) is not ported: ROADMAP A11 (b)")
+    if getattr(engine, "dcn_wire_shapes", None) is not None:
+        return float(engine.dcn_bytes(grads_template, pack=pack,
+                                      sites_per_slice=sites_per_slice))
+    d = (getattr(engine, "dcn_dtype", None) or getattr(engine, "wire_dtype", None)
+         or torch.float32)
+    return float(sum(math.prod(g.shape) * d.itemsize for g in grads_template.values()))
 
 
 def modeled_wire_shapes(engine, grads_template: dict, pack: int = 1) -> list:

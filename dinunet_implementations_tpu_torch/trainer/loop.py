@@ -58,11 +58,19 @@ exclude each other. ``cfg.compile_cache_dir`` moves the kernel libraries'
 root (``ops/_build.enable_compile_cache``).
 
 Options the port does not run raise ``NotImplementedError`` naming the
-ROADMAP item that ports them, at any value other than "off": slices and
-the inter-slice wire (A11 (b)), the model axis and the ring LSTM's
-microbatches (A11 (c)); over a mesh also telemetry, the robust
+ROADMAP item that ports them, at any value other than "off": the model
+axis and the ring LSTM's microbatches (A11 (c)); over a mesh also
+telemetry, the robust
 aggregation, the buffered and overlapped rounds, DP, secure aggregation,
 personalized heads, pretraining and attack plans (A20).
+
+Slices (a sliced ``SiteMesh``, ``cfg.num_slices > 1`` through
+``FedRunner``): the fault plan's slice faults (``slice_drop_at``,
+``slice_delay_at``; ``kill_slice_at`` only when the mesh spans no other
+process, since over processes a kill is a real death) become each
+epoch's ``[num_slices, rounds]`` slice-liveness mask, which the epoch
+folds into site liveness under the ``cfg.min_slices`` quorum; the bus
+counts the modeled inter-slice bytes (``train_dcn_bytes_total``).
 
 The privacy plane: ``cfg.dp_clip`` / ``dp_noise_multiplier`` / ``dp_seed``,
 ``cfg.secure_agg`` and ``cfg.personalize`` reach the epoch function and
@@ -93,7 +101,7 @@ from ..engines import build_engine, make_dsgd
 from ..engines.base import MESH_PLANES_ITEM
 from ..ops import _build
 from ..robustness.attacks import attack_window
-from ..robustness.faults import fault_window, poison_inputs
+from ..robustness.faults import fault_window, poison_inputs, slice_fault_window
 from ..robustness.health import health_summary
 from ..privacy import RdpAccountant, dp_enabled, effective_noise_multiplier, sampling_fraction
 from ..robustness.preemption import PreemptionGuard, Preempted
@@ -141,10 +149,7 @@ def _refuse(cfg: TrainConfig, mesh) -> None:
     if cfg.dp_epsilon_budget > 0.0 and not noisy:
         raise ValueError("dp_epsilon_budget needs dp_noise_multiplier > 0 — a noiseless "
                          "mechanism never exhausts any finite ε budget")
-    for name, on, item in (("num_slices", cfg.num_slices != 1, "A11 (b)"),
-                           ("dcn_wire_quant", cfg.dcn_wire_quant not in ("", "none"), "A11 (b)"),
-                           ("min_slices", cfg.min_slices != 1, "A11 (b)"),
-                           ("model_axis_size", cfg.model_axis_size != 1, "A11 (c)"),
+    for name, on, item in (("model_axis_size", cfg.model_axis_size != 1, "A11 (c)"),
                            ("sequence_microbatches", cfg.sequence_microbatches != 0, "A11 (c)")):
         if on:
             raise NotImplementedError(f"{name}={getattr(cfg, name)!r} is not ported: ROADMAP "
@@ -214,6 +219,9 @@ class FederatedTrainer:
         noisy = dp_enabled(cfg.dp_clip, cfg.dp_noise_multiplier) and cfg.dp_noise_multiplier > 0
         self.dp_accountant = RdpAccountant() if noisy else None
         self._dp_epsilon = None  # the last reported ε (None: DP off or noiseless)
+        # the modeled inter-slice bytes a round, for the bus: set once the
+        # fit's site count is known (init_state); 0.0 at one slice
+        self._dcn_bytes_round = 0.0
         # the port's epoch writes no tensor of the state it is given, so a
         # kept state (the best one) needs no copy: JAX donates the carried
         # state and must snapshot it
@@ -273,6 +281,14 @@ class FederatedTrainer:
         shapes). Over a mesh its per-site leaves are this rank's block."""
         n = num_sites or self._num_sites
         if self.mesh is not None:
+            if self.mesh.slices > 1:
+                from ..parallel.mesh import pack_factor
+                from ..telemetry.metrics import dcn_bytes_of
+
+                k = pack_factor(self.mesh, n)
+                self._dcn_bytes_round = dcn_bytes_of(
+                    self.engine, dict(self.task.model.named_parameters()), pack=k,
+                    sites_per_slice=k * self.mesh.per_slice, slices=self.mesh.slices)
             n = self.mesh.block(n).stop - self.mesh.block(n).start
         return init_train_state(self.task, self.engine, self.optimizer, rng=self.cfg.seed,
                                 num_sites=n, reputation=self.cfg.robust_agg != "none",
@@ -318,6 +334,32 @@ class FederatedTrainer:
         return (self._membership_live(live, num_sites, rounds), nan_mask,
                 attack_window(self.attack_plan, num_sites, round0, rounds))
 
+    def _slice_window(self, round0: int, rounds: int):
+        """The fault plan's slice-liveness window, JAX's: ``[num_slices,
+        rounds]`` or None (one slice, or no slice fault). A kill enters the
+        mask only when the mesh spans no other process: over processes it
+        is a real death (runner/dcn_worker.py), and a mask would keep a
+        restarted slice dead."""
+        from ..parallel.distributed import spans_processes
+        from ..parallel.mesh import slice_count
+
+        n_sl = slice_count(self.mesh)
+        if n_sl <= 1 or self.fault_plan is None:
+            return None
+        return slice_fault_window(self.fault_plan, n_sl, round0, rounds,
+                                  include_kills=not spans_processes(self.mesh))
+
+    def _publish_slice_liveness(self, slice_live) -> None:
+        """Each slice's live rounds this epoch as a bus gauge (JAX's
+        ``train_slice_live_rounds``), with telemetry on only; round
+        telemetry over a process group, where slices run, is ROADMAP
+        A20."""
+        if slice_live is None or not self._telemetry_on:
+            return
+        rows = np.asarray(slice_live)
+        for sl_i in range(rows.shape[0]):
+            self.bus.gauge("train_slice_live_rounds", float(rows[sl_i].sum()), slice=str(sl_i))
+
     def _membership_live(self, live, num_sites: int, rounds: int):
         """Fold the membership occupancy mask into an epoch's ``[S,
         rounds]`` liveness: an unoccupied slot never arrives. With the mask
@@ -345,19 +387,24 @@ class FederatedTrainer:
             live, nan_mask, attack = self._plan_masks(plan.num_sites, state.round, plan.steps // L)
             poison = (nan_mask.astype(np.float32)
                       if nan_mask is not None and self.fault_plan.nan_at else None)
+            slice_live = self._slice_window(int(state.round), plan.steps // L)
             self._last_transfer_bytes = plan.nbytes + sum(
-                a.nbytes for a in (live, poison, attack) if a is not None)
+                a.nbytes for a in (live, poison, attack, slice_live) if a is not None)
+            self._publish_slice_liveness(slice_live)
             state, losses = self.epoch_fn(state, inv_x, inv_y, plan.positions, live, poison,
-                                          attack)
+                                          attack, slice_live)
         else:
             fb = plan_epoch(train_sites, bs, seed=self.cfg.seed * 100003 + epoch, pad_mode="wrap",
                             steps=self.fixed_steps)
             live, nan_mask, attack = self._plan_masks(fb.num_sites, state.round, fb.steps // L)
             inputs = (poison_inputs(fb.inputs, nan_mask, L) if nan_mask is not None
                       else fb.inputs)
+            slice_live = self._slice_window(int(state.round), fb.steps // L)
             self._last_transfer_bytes = inputs.nbytes + fb.labels.nbytes + fb.weights.nbytes + sum(
-                a.nbytes for a in (live, attack) if a is not None)
-            state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack)
+                a.nbytes for a in (live, attack, slice_live) if a is not None)
+            self._publish_slice_liveness(slice_live)
+            state, losses = self.epoch_fn(state, inputs, fb.labels, fb.weights, live, attack,
+                                          slice_live)
         losses = losses.cpu().numpy()
         if self._builds0 is None:
             self._builds0 = (_build.BUILDS, _build.LOADS)
@@ -746,6 +793,10 @@ class FederatedTrainer:
         self.bus.counter("train_epochs_total")
         self.bus.counter("train_rounds_total", rounds)
         self.bus.observe("epoch_ms", e_seconds * 1e3)
+        if self._dcn_bytes_round > 0:
+            # the modeled inter-slice bytes this epoch shipped (a static
+            # figure a round: no device sync)
+            self.bus.counter("train_dcn_bytes_total", self._dcn_bytes_round * rounds)
         if self._telemetry_on and state.health is not None and "anomaly" in state.health:
             self.bus.gauge("train_anomaly_max", float(state.health["anomaly"].max()))
             self.bus.gauge("train_quarantined_sites",

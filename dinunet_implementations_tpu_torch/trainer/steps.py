@@ -42,6 +42,9 @@ under a mesh holds the rank's block of every per-site leaf
 (:func:`gather_site_state` and :func:`site_state_block` cross between
 the two forms). Dropout draws every site's mask and keeps the block's
 (``models.layers.SiteBlockDraw``), so the result does not depend on W.
+Over a sliced mesh (parallel/mesh.py ``sliced_site_mesh``) the engine's
+reductions grow the slice tier and the epoch takes the whole-slice
+liveness mask and the slice quorum (:func:`make_train_epoch_fn`).
 """
 
 from __future__ import annotations
@@ -445,7 +448,6 @@ def _gather_batch(inv_x, inv_y, ixs, poison=None):
 #: make_train_epoch_fn options of the JAX package that are not ported yet:
 #: name -> (the value that means "off", the ROADMAP item that ports it)
 _UNPORTED = {
-    "min_slices": (1, "A11 (b)"),
     "sequence_microbatches": (0, "A11 (c)"),
 }
 #: options of the JAX package that only govern how its program runs (scan
@@ -468,11 +470,12 @@ def _check_options(options: dict) -> None:
                                       f"ROADMAP {item}")
 
 
-def _hold(go, new: dict, old: dict) -> dict:
+def _hold(go, new, old):
     """``new`` where the 0-dim bool ``go`` holds, else ``old``, leaf by leaf
-    (nested one level, as an optimizer state)."""
-    return {k: _hold(go, v, old[k]) if isinstance(v, dict) else torch.where(go, v, old[k])
-            for k, v in new.items()}
+    through nested dicts (None leaves stay None)."""
+    if isinstance(new, dict):
+        return {k: _hold(go, v, old[k]) for k, v in new.items()}
+    return None if new is None else torch.where(go, new, old)
 
 
 def _ensure_health(health: dict, S: int, reputation: bool, dev) -> dict:
@@ -497,7 +500,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                         staleness_decay: float = 0.5, overlap_rounds: bool = False,
                         dp_clip: float = 0.0, dp_noise_multiplier: float = 0.0, dp_seed: int = 0,
                         personalize: tuple = (), telemetry: bool = False, mesh=None,
-                        **options):
+                        min_slices: int = 1, **options):
     """Build the epoch function, on ``device`` (the card unless the caller
     asks for ``"cpu"``). Both pipelines return ``(state, losses
     [rounds])`` and run the same rounds; only the batch source differs.
@@ -622,12 +625,36 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     plans are not run over a group and raise ``NotImplementedError``
     naming ROADMAP A20.
 
+    Slices (a sliced mesh): both pipelines take ``slice_live
+    [num_slices, rounds]``, the whole-slice liveness mask (replicated:
+    parallel/distributed.py ``put_epoch_plan``). Each round every rank
+    multiplies its own slice's gate into the site-level liveness, so a
+    dead slice's sites sit the round out exactly as sites a ``live`` mask
+    drops (JAX's production rounds). ``min_slices`` is the slice quorum:
+    with the mask fed, a round with fewer live slices HOLDS, its engine
+    state, health and running statistics reverted, params and optimizer
+    unchanged and its loss NaN; ``epoch.held_rounds`` holds the last
+    epoch's per-round held flags. The mask is refused on an unsliced
+    topology and with another row count than the mesh's slices;
+    ``min_slices > 1`` needs a sliced mesh of at least that many slices
+    (JAX's ``ValueError``s).
+
     The other options of the JAX ``make_train_epoch_fn`` are taken by
     name. ``rounds_scan_xs`` and ``donate_state`` govern only how the JAX
     program runs and take any value. Every other option at a value other
-    than "off" (slices, the ring LSTM's microbatches) raises
+    than "off" (the ring LSTM's microbatches) raises
     ``NotImplementedError`` naming the ROADMAP item that ports it."""
     _check_options(options)
+    n_slices = 1 if mesh is None else mesh.slices
+    sliced = n_slices > 1
+    if min_slices < 1:
+        raise ValueError(f"min_slices must be >= 1, got {min_slices}")
+    if min_slices > 1 and not sliced:
+        raise ValueError(f"min_slices={min_slices} needs a sliced mesh (num_slices > 1) — there "
+                         "is no slice quorum on a single-slice topology")
+    if min_slices > 1 and min_slices > n_slices:
+        raise ValueError(f"min_slices={min_slices} exceeds the mesh's {n_slices} slices — every "
+                         "round would hold")
     if staleness_bound < 0:
         raise ValueError(f"staleness_bound must be >= 0, got {staleness_bound}")
     if not 0.0 < staleness_decay <= 1.0:
@@ -869,10 +896,25 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         return (agg, engine_state, new_health, buffers, personal, stats, loss_round, total_live,
                 z)
 
-    def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack, S_all=None):
+    def run_rounds(state: TrainState, S: int, rounds: int, batch, live, attack, S_all=None,
+                   slice_live=None):
         """The epoch's rounds over ``S`` sites (the rank's block of
         ``S_all`` under a mesh); ``batch(r)`` gives round ``r``'s ``(x [S,
         L, B, ...], y [S, L, B], w [S, L, B])`` on the device."""
+        if slice_live is not None and not sliced:
+            raise ValueError("a slice_live mask was fed on an unsliced topology — slice faults "
+                             "need a (slice, site, model) mesh (TrainConfig.num_slices > 1)")
+        if slice_live is not None and slice_live.shape[0] != n_slices:
+            raise ValueError(f"slice_live has {slice_live.shape[0]} slice rows but the mesh has "
+                             f"{n_slices} slices")
+        sl_own = quorum = None
+        if slice_live is not None:
+            # the replicated mask: this rank's own slice's row, and (quorum
+            # on) the live slices a round, with no collective
+            sl_full = torch.as_tensor(slice_live, dtype=torch.float32, device=dev)[:, :rounds]
+            sl_own = sl_full[mesh.slice_id]
+            if min_slices > 1:
+                quorum = sl_full.sum(0)
         axis = start = None
         if mesh is not None:
             axis = mesh.axis(S_all)
@@ -893,7 +935,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             attack_dev = torch.as_tensor(attack, device=dev)
             atk = make_attack_fn(attack_plan, table_of(state.params))
         guard = (quarantine_rounds >= 0 or live is not None or reputation or atk is not None
-                 or buffered or overlap)
+                 or buffered or overlap or sl_own is not None)
         if live is not None:
             live = torch.as_tensor(live, dtype=torch.float32, device=dev)[:, :rounds]
         health = _ensure_health(state.health, S, reputation, dev)
@@ -922,7 +964,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             ts = state.telemetry
             if ts is None or set(ts) != set(TELEMETRY_KEYS) or ts["rounds"].shape[0] != S:
                 ts = default_round_telemetry(S, dev)
-        losses, zs = [], []
+        losses, zs, helds = [], [], []
         for r in range(rounds):
             rnd = state.round + r
             gen = torch.Generator(device=dev)
@@ -953,6 +995,16 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                 losses.append(loss_round)
                 continue
             ls = torch.ones(S, device=dev) if live is None else live[:, r]
+            if sl_own is not None:
+                # a dead slice is its sites dead: x1 is exact, x0 drops them
+                ls = ls * sl_own[r]
+            held = None
+            if quorum is not None:
+                # the quorum HOLD: the round runs, then every carried piece
+                # reverts below min_slices live slices
+                held = quorum[r] < float(min_slices)
+                prev = (stats, engine_state, health)
+                helds.append(held)
             if overlap:
                 # apply the previous round's stash; stash this round's
                 # payload for the next round (or the next epoch's first)
@@ -975,6 +1027,12 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                     ts = round_metrics(ts, site_grad, agg)
             if z is not None:
                 zs.append(z)
+            if held is not None:
+                stats, engine_state, health = (_hold(~held, new, old)
+                                               for new, old in zip((stats, engine_state, health),
+                                                                   prev))
+                loss_round = torch.where(held, float("nan"), loss_round)
+                total_live = torch.where(held, torch.zeros_like(total_live), total_live)
             # one update on the aggregate; a round with no live weight
             # holds params AND optimizer state
             go = total_live > 0
@@ -990,6 +1048,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
                                overlap=ov, personal=personal, telemetry=ts)
         empty = torch.zeros(0, device=dev)
         reputation_z_trace[:] = [torch.stack(zs)] if zs else []
+        held_rounds[:] = [torch.stack(helds)] if helds else []
         return new_state, torch.stack(losses) if losses else empty
 
     def sites_of(first):
@@ -1002,7 +1061,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
         block = mesh.block(S_all)
         return S_all, lambda a: None if a is None else _block_of(a, S_all, block)
 
-    def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None, attack=None):
+    def device_epoch(state: TrainState, inv_x, inv_y, idx, live=None, poison=None, attack=None,
+                     slice_live=None):
         S_all, take = sites_of(idx)
         inv_x = torch.as_tensor(take(inv_x), device=dev)
         inv_y = torch.as_tensor(take(inv_y), device=dev)
@@ -1013,9 +1073,10 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             poison = torch.as_tensor(take(poison), device=dev)[:, :rounds]
         return run_rounds(state, S, rounds, lambda r: _gather_batch(
             inv_x, inv_y, idx[:, r * L:(r + 1) * L], None if poison is None else poison[:, r]),
-            live, attack, S_all)
+            live, attack, S_all, slice_live)
 
-    def host_epoch(state: TrainState, inputs, labels, weights, live=None, attack=None):
+    def host_epoch(state: TrainState, inputs, labels, weights, live=None, attack=None,
+                   slice_live=None):
         S_all, take = sites_of(inputs)
         inputs, labels, weights = take(inputs), take(labels), take(weights)
         S, steps = inputs.shape[:2]
@@ -1025,7 +1086,7 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
             return (_to_device(inputs[:, sl], dev, torch.float32), _to_device(labels[:, sl], dev),
                     _to_device(weights[:, sl], dev, torch.float32))
 
-        return run_rounds(state, S, steps // L, batch, live, attack, S_all)
+        return run_rounds(state, S, steps // L, batch, live, attack, S_all, slice_live)
 
     epoch = device_epoch if pipeline == "device" else host_epoch
     # the last epoch's anomaly z-scores [rounds, S] under the reputation
@@ -1033,4 +1094,8 @@ def make_train_epoch_fn(task: FederatedTask, engine, optimizer: Optimizer,
     # the threshold its decisions fall
     reputation_z_trace: list = []
     epoch.reputation_z_trace = reputation_z_trace
+    # the last epoch's per-round quorum holds [rounds] (bool), with a slice
+    # quorum fed; empty otherwise
+    held_rounds: list = []
+    epoch.held_rounds = held_rounds
     return epoch

@@ -38,6 +38,8 @@ WORKER_TIMEOUT_S = 120
 # metrics): the two-level sums run in another order than JAX's psum over
 # its 4-device mesh
 FIT_ATOL = 1e-4
+# the runtime sanitizer's switch (checks/sanitize.py ENV_VAR in both packages)
+SANITIZE_VAR = "DINUNET_SANITIZE"
 
 
 def _free_port() -> int:
@@ -54,6 +56,14 @@ def _cfg_kw(start):
                 split_ratio=(0.7, 0.15, 0.15), seed=0, pretrained_path=start)
 
 
+def _clean_environ() -> dict:
+    """This process's environment without the sanitizer's variable: a
+    test earlier in the same process may leave it set (each package's CLI
+    writes it), and under ``compile`` JAX's reference fit of this tree
+    fails its own one-compile guard (its epoch program compiles twice)."""
+    return {k: v for k, v in os.environ.items() if k != SANITIZE_VAR}
+
+
 @pytest.fixture(scope="module")
 def fit(tmp_path_factory):
     """The tree, JAX's start checkpoint, and the two workers' run."""
@@ -65,7 +75,7 @@ def fit(tmp_path_factory):
     start = str(root / "start.msgpack")
     jckpt.save_checkpoint(start, state)
     port = str(_free_port())
-    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
+    env = {**_clean_environ(), "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
     procs = [subprocess.Popen(
         [sys.executable, "-m", "dinunet_implementations_tpu_torch.runner.dcn_worker",
          "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(r),
@@ -109,7 +119,8 @@ def test_only_rank_zero_writes(fit):
     assert not any("_p1" in f for f in os.listdir(fit["root"]))
 
 
-def test_losses_match_jax_fedrunner_on_its_host_mesh(fit, tmp_path):
+def test_losses_match_jax_fedrunner_on_its_host_mesh(fit, tmp_path, monkeypatch):
+    monkeypatch.delenv(SANITIZE_VAR, raising=False)
     cfg = jconfig.TrainConfig(**_cfg_kw(fit["start"]))
     runner = jrunner.FedRunner(cfg, data_path=fit["tree"], out_dir=str(tmp_path / "jax"))
     assert runner.mesh is not None and dict(runner.mesh.shape)["site"] == SITES
@@ -117,13 +128,6 @@ def test_losses_match_jax_fedrunner_on_its_host_mesh(fit, tmp_path):
     got = fit["reports"][0]
     np.testing.assert_allclose(got["epoch_losses"], want["epoch_losses"], atol=FIT_ATOL, rtol=0)
     np.testing.assert_allclose(got["test_metrics"], want["test_metrics"], atol=FIT_ATOL, rtol=0)
-
-
-@pytest.mark.parametrize("flag", [["--slices", "2"], ["--supervise"]])
-def test_slices_and_the_supervisor_are_refused_naming_a11b(flag, tmp_path, capsys):
-    rc = dcn_worker.main(["--data-path", str(tmp_path), *flag])
-    assert rc == 2
-    assert "ROADMAP A11 (b)" in capsys.readouterr().err
 
 
 def test_a_backend_that_cannot_run_here_exits_unsupported(tmp_path, capsys):

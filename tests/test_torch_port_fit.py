@@ -409,17 +409,6 @@ def test_fed_runner_resolves_auto_mesh_and_refuses_others(tree):
                           mesh=object(), device="cpu")
 
 
-@pytest.mark.parametrize("option,item", [
-    ({"num_slices": 2}, "A11"), ({"min_slices": 2}, "A11"), ({"dcn_wire_quant": "int8"}, "A11"),
-])
-def test_refused_trainer_options_name_their_item(tree, option, item):
-    ctor = {k: v for k, v in option.items() if k in ("mesh", "fault_plan", "attack_plan", "bus")}
-    _, cfg = _cfgs(tree, **{k: v for k, v in option.items() if k not in ctor})
-    _, model = _models(cfg, cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tloop.FederatedTrainer(cfg, model, device="cpu", **ctor)
-
-
 def test_trainer_checks_its_config_values(tree):
     for kw, match in (({"telemetry": "maybe"}, "telemetry"), ({"dp_delta": 0.0}, "dp_delta"),
                       ({"pipeline": "scan"}, "pipeline")):

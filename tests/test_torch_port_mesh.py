@@ -448,15 +448,20 @@ def test_a_rank_takes_its_card_whatever_the_backend(monkeypatch):
 
 
 def test_slices_and_the_model_axis_are_refused_naming_their_items():
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
-        tmesh.sliced_site_mesh(2, 4, device="cpu")
+    """The model axis is refused naming A11 (c); slices need a process
+    group (tests/test_torch_port_slices.py runs them over one), and one
+    process refuses them naming the group it needs; the slice-liveness
+    mask rides whole to the rank's device."""
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
+        tmesh.sliced_site_mesh(2, 4, 4, device="cpu")
     assert tmesh.sliced_site_mesh(1, 4, 4, device="cpu").pack == 4
     with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(c\)"):
         tmesh.packed_site_mesh(4, 4, model_axis_size=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
-        tdist.multihost_sliced_site_mesh(num_slices=2)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
-        tdist.put_epoch_plan(None, np.zeros((2, 1, 1)), slice_live=np.ones((2, 1)))
+    with pytest.raises(ValueError, match="needs a process group"):
+        tdist.multihost_sliced_site_mesh(num_slices=2, device="cpu")
+    mesh = tmesh.packed_site_mesh(4, 4, device="cpu")
+    plan = tdist.put_epoch_plan(mesh, np.zeros((4, 1, 1)), slice_live=np.ones((2, 1)))
+    assert plan[4].shape == (2, 1) and plan[4].device == torch.device("cpu")
 
 
 def test_one_process_placement_keeps_every_site():
@@ -511,10 +516,10 @@ def test_parallel_exports_the_ported_jax_names():
     import dinunet_implementations_tpu.parallel as jpar
     import dinunet_implementations_tpu_torch.parallel as tpar
 
-    # JAX's sharding objects (replicated, site_sharding) and the slice
-    # tier's reductions have no counterpart at one slice
-    not_ported = {"replicated", "site_sharding", "three_level_psum", "weighted_site_sum",
-                  "site_mean", "site_sum"}
+    # JAX's sharding objects (replicated, site_sharding) have no
+    # counterpart: the ranks hold their blocks; nothing of the port calls
+    # JAX's unweighted site_sum / site_mean
+    not_ported = {"replicated", "site_sharding", "site_mean", "site_sum"}
     jnames = {n for n in dir(jpar) if not n.startswith("_") and n not in ("collectives",
                                                                         "distributed", "mesh",
                                                                         "sequence")}

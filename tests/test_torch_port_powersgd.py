@@ -230,7 +230,6 @@ def test_first_q_is_keyed_by_the_jax_leaf_index():
 @pytest.mark.parametrize("kw,error,match", [
     ({"wire_quant": "int4"}, ValueError, "wire_quant must be one of"),
     ({"robust_agg": "krum"}, ValueError, "robust_agg must be one of"),
-    ({"dcn_wire_quant": "int8"}, NotImplementedError, r"ROADMAP A11 \(b\)"),
     ({"secure_agg": "mask"}, ValueError, "only supported by the dSGD engine"),
     ({"secure_agg": "pads"}, ValueError, "secure_agg must be one of"),
 ])

@@ -193,13 +193,6 @@ def test_init_keeps_omega_in_jax_orientation():
     assert make_rankdad(dad_warm_start=False).init(params) == {}
 
 
-@pytest.mark.parametrize("kw", [{"dcn_wire_quant": "int8"}, {"dcn_wire_quant": "fp8"},
-                                {"dcn_wire_quant": "bf16"}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        make_rankdad(**kw)
-
-
 def test_secure_aggregation_and_a_mesh_axis_are_refused():
     with pytest.raises(ValueError, match="only supported by the dSGD engine"):
         make_rankdad(secure_agg="mask")

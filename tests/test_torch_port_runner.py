@@ -303,7 +303,8 @@ def test_the_port_parses_every_jax_flag():
            "overlap_rounds", "dp_clip", "dp_noise", "dp_epsilon_budget", "secure_agg",
            "personalize", "telemetry", "profile_dir", "xprof_dir", "compile_cache", "sanitize",
            "statusz_port", "slo_p99_ms", "schedule", "pod_slices", "sched_wall_s", "sched_ticks",
-           "coordinator", "num_processes", "process_id", "sites_per_device", "wire_quant"}
+           "coordinator", "num_processes", "process_id", "sites_per_device", "wire_quant",
+           "slices", "min_slices", "dcn_wire_quant"}
     assert {d for d in want.values()} - run == set(tcli._REFUSED)
 
 

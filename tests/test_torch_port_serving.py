@@ -219,7 +219,9 @@ def test_importing_the_port_pulls_in_no_jax():
                 "checks.core", "checks.rules", "checks.__main__", "runner.scheduler",
                 "runner.supervisor", "telemetry.collector", "telemetry.assemble",
                 "telemetry.postmortem", "parallel.mesh", "parallel.distributed",
-                "runner.dcn_worker"):
+                "runner.dcn_worker", "parallel.collectives", "engines.base", "engines.dsgd",
+                "engines.rankdad", "engines.powersgd", "telemetry.metrics", "trainer.steps",
+                "trainer.loop", "runner.fed_runner", "runner.cli"):
         assert "dinunet_implementations_tpu_torch." + mod in mods, mod
     code = (
         "import sys, importlib\n"
@@ -251,7 +253,10 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
                  "serving/__main__.py", "analysis.py", "checks/core.py", "checks/rules.py",
                  "checks/__main__.py", "runner/scheduler.py", "runner/supervisor.py",
                  "telemetry/collector.py", "telemetry/assemble.py", "telemetry/postmortem.py",
-                 "parallel/mesh.py", "parallel/distributed.py", "runner/dcn_worker.py"):
+                 "parallel/mesh.py", "parallel/distributed.py", "runner/dcn_worker.py",
+                 "engines/base.py", "engines/dsgd.py", "engines/rankdad.py",
+                 "engines/powersgd.py", "telemetry/metrics.py", "trainer/steps.py",
+                 "trainer/loop.py", "runner/fed_runner.py", "runner/cli.py"):
         assert PORT / part in files, part
     loader = (PORT / "native" / "__init__.py").read_text()
     assert "Path(__file__).resolve().parent" in loader and (PORT / "native" / "fastio.cpp").is_file()

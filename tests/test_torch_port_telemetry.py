@@ -230,13 +230,17 @@ def test_payload_bytes_of_the_shared_subtree_equal_jax(flagship_trees, name):
 
 
 def test_engine_without_a_wire_model_falls_back_to_dense_leaves():
-    e = dataclasses.replace(make_dsgd(), wire_shapes=None)
+    e = dataclasses.replace(make_dsgd(), wire_shapes=None, dcn_wire_shapes=None)
     tree = {"a": torch.zeros(3, 4), "b": torch.zeros(5)}
     assert tmetrics.payload_bytes_of(e, tree) == 68.0
     assert tmetrics.modeled_wire_shapes(e, tree) == [((3, 4), torch.float32),
                                                      ((5,), torch.float32)]
-    with pytest.raises(NotImplementedError, match="A11"):
-        tmetrics.dcn_bytes_of(e, tree, slices=2)
+    # the inter-slice fallback, JAX's: every leaf's slice partial whole at
+    # the inter-slice dtype, else the wire's (0.0 at one slice)
+    assert tmetrics.dcn_bytes_of(e, tree, slices=2) == 68.0
+    assert tmetrics.dcn_bytes_of(e, tree, slices=1) == 0.0
+    e8 = dataclasses.replace(make_dsgd(dcn_wire_quant="int8"), dcn_wire_shapes=None)
+    assert tmetrics.dcn_bytes_of(e8, tree, slices=2) == 17.0
 
 
 # -- the rollups ------------------------------------------------------------------

@@ -354,7 +354,10 @@ def test_runner_fold_fails_the_compile_guard_when_a_library_loads_late(fs_tree, 
         return run_epoch(self, state, train_sites, epoch, **kw)
 
     monkeypatch.setattr(tloop.FederatedTrainer, "run_epoch", late_load)
-    monkeypatch.delenv(tsan.ENV_VAR, raising=False)
+    # set, not deleted: monkeypatch records only a variable it changes, so
+    # a delete of an absent one would leave the CLI's own write behind
+    # (DINUNET_SANITIZE=compile in every later test of this process)
+    monkeypatch.setenv(tsan.ENV_VAR, "0")
     base = ["--data-path", fs_tree, "--device", "cpu", "--epochs", "2", "--folds", "0",
             "--out-dir", str(tmp_path / "o"), "--quiet"]
     assert tcli.main(base + ["--sanitize", "compile"]) == 70
@@ -369,7 +372,7 @@ def test_cli_runs_a_telemetry_fit_with_every_flag(fs_tree, tmp_path, monkeypatch
     exits 0 with its JSON line, the artifacts and the window's trace; then
     ``--profile-dir`` traces the fit; the report validates the run."""
     monkeypatch.setattr(_build, "BUILD_ROOT", _build.BUILD_ROOT)
-    monkeypatch.delenv(tsan.ENV_VAR, raising=False)
+    monkeypatch.setenv(tsan.ENV_VAR, "0")  # as above: the CLI writes the variable
     out = str(tmp_path / "o")
     rc = tcli.main(["--data-path", fs_tree, "--device", "cpu", "--epochs", "2", "--folds", "0",
                     "--out-dir", out, "--quiet", "--telemetry", "on",

@@ -18,7 +18,6 @@ process: the cases that share them skip XLA's compile of
 
 import dataclasses
 import functools
-import re
 
 import jax
 import jax.numpy as jnp
@@ -499,7 +498,7 @@ def test_optimizer_matches_optax_over_steps(name):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("sequence_microbatches", 2), ("min_slices", 2),
+    ("sequence_microbatches", 2),
 ])
 def test_unported_epoch_options_raise(option, value):
     task = tsteps.FederatedTask(tm.ICALstm(num_comps=C, window_size=W))
@@ -542,18 +541,6 @@ def test_epoch_range_checks_hold():
     for k, v in bad.items():
         with pytest.raises(ValueError, match=k):
             tsteps.make_train_epoch_fn(task, make_dsgd(), opt, device="cpu", **{k: v})
-
-
-@pytest.mark.parametrize("kw", [{"dcn_wire_quant": "int8"}])
-def test_unported_dsgd_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        make_dsgd(**kw)
-
-
-@pytest.mark.parametrize("kw,item", [({"dcn_wire_quant": "int8"}, "A11 (b)")])
-def test_unported_dsgd_options_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=re.escape(f"ROADMAP {item}")):
-        make_dsgd(**kw)
 
 
 def test_training_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):

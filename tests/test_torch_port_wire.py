@@ -143,11 +143,17 @@ def test_resolved_codec_matches_jax(codec):
 
 
 def test_dcn_codec_is_none_at_one_slice_and_refuses_more():
-    assert tcol.resolve_dcn_codec("32", "int8") is None
-    assert tcol.resolve_dcn_codec("32", "int8", "none") is None
-    for kw in ({"slices": 2}, {"dcn_wire_quant": "int8"}):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A11 \(b\)"):
-            tcol.resolve_dcn_codec("32", "int8", **kw)
+    """The inter-slice codec, JAX's: ``"none"`` (or ``""`` over a "none"
+    wire) is the fused form, ``""`` follows ``wire_quant``; a value of no
+    codec is refused as JAX refuses it. An axis of one slice never
+    consults it (tests/test_torch_port_slices.py)."""
+    for mod in (jcol, tcol):
+        assert mod.resolve_dcn_codec("32", "int8", "none") is None
+        assert mod.resolve_dcn_codec("32", "none") is None
+        assert mod.resolve_dcn_codec("32", "int8").quant == "int8"
+        assert mod.resolve_dcn_codec("32", "none", "fp8").quant == "fp8"
+        with pytest.raises(ValueError, match="wire_quant must be one of"):
+            mod.resolve_dcn_codec("32", "none", "int4")
 
 
 # -- each engine's aggregate under a codec ----------------------------------------
